@@ -1,0 +1,160 @@
+#!/usr/bin/env python3
+"""Where one bench-cfg1 wave of the torch port spends its time on a card.
+
+    python3 tools/profile_torch_cfg1.py [--reps 3] [--out FILE.json]
+
+Run from the root of a checkout on a machine with an NVIDIA card.  It
+renders one wave of bench cfg1 (built-in Cornell, 512x512, depth 4: samples
+1 and 2 of all 262,144 pixels, 524,288 lanes, exactly the first of the 32
+waves ``render_image`` runs) through ``renderer._render_wave``:
+
+1. once to build the kernels and warm the allocator;
+2. ``--reps`` times unprofiled: the wall of each, CUDA-synchronised;
+3. once under ``torch.profiler`` (CPU + CUDA activities): the same wave's
+   wall, and from its trace the device kernels (count, summed time, the
+   span they cover), the aten ops the host issued, and the dense kernels'
+   share of the device time.
+
+It prints one JSON object (and writes it to ``--out`` if given).  The device
+busy share is kernel time over wall, against the profiled wall (the same
+run as the kernel time) and against the median unprofiled wall (the same
+wave rerun; profiling slows the host, so this one is the higher share);
+the idle share is one minus it.  The wave is deterministic, so every run
+traces the same rays.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent.parent
+WIDTH = HEIGHT = 512
+DEPTH = 4
+SAMPLES = [1, 2]  # the first wave of a 64-spp render_image (start_sample 1)
+DENSE_KERNELS = ("closest_kernel", "shadow_kernel", "pdf_kernel")
+
+
+def _wave(tables, camera):
+    import torch
+
+    from vulkan_raytracer_tpu_torch.render import renderer
+
+    view_inv, proj_inv = renderer.camera_uniforms(camera)
+    lanes = torch.as_tensor(renderer.block_order(WIDTH, HEIGHT)[0], device=tables.device)
+
+    def run():
+        with torch.inference_mode():
+            radiance, rays = renderer._render_wave(tables, view_inv, proj_inv, WIDTH, HEIGHT,
+                                                   DEPTH, SAMPLES, lanes, "reference")
+            torch.cuda.synchronize()
+        return radiance, int(rays)
+
+    return run
+
+
+def _timed(run):
+    t0 = time.perf_counter()
+    radiance, rays = run()
+    return time.perf_counter() - t0, radiance, rays
+
+
+def _trace_summary(prof) -> dict:
+    """Device kernels and host aten ops of one profiled run."""
+    from torch.autograd import DeviceType
+
+    kernels, aten, aten_top = [], 0, 0
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            kernels.append((evt.name, evt.time_range.start, evt.time_range.end))
+        elif evt.name.startswith("aten::"):
+            aten += 1
+            parent = evt.cpu_parent
+            if parent is None or not parent.name.startswith("aten::"):
+                aten_top += 1
+    if not kernels:
+        return {"device_events": 0, "aten_ops": aten, "aten_ops_top_level": aten_top}
+    kernels.sort(key=lambda k: k[1])
+    busy_us, end = 0.0, float("-inf")
+    for _, s, e in kernels:  # union of the kernels' intervals
+        busy_us += max(0.0, e - max(s, end))
+        end = max(end, e)
+    by_name: dict[str, float] = {}
+    for name, s, e in kernels:
+        by_name[name] = by_name.get(name, 0.0) + (e - s)
+    dense_us = sum(us for name, us in by_name.items()
+                   if any(k in name for k in DENSE_KERNELS))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {
+        "device_events": len(kernels),
+        "kernel_ms_sum": sum(e - s for _, s, e in kernels) / 1e3,
+        "kernel_ms_busy": busy_us / 1e3,
+        "kernel_span_ms": (kernels[-1][2] - kernels[0][1]) / 1e3,
+        "dense_kernel_ms": dense_us / 1e3,
+        "aten_ops": aten,
+        "aten_ops_top_level": aten_top,
+        "top_kernels_ms": {name[:80]: us / 1e3 for name, us in top},
+    }
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--reps", type=int, default=3)
+    p.add_argument("--out", default=None)
+    args = p.parse_args(argv)
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_torch_cfg1.py: needs an NVIDIA card", file=sys.stderr)
+        return 2
+    from vulkan_raytracer_tpu_torch.scene.builtin import cornell_box_scene
+    from vulkan_raytracer_tpu_torch.scene.camera import Camera
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    tables = cornell_box_scene().upload("cuda")
+    camera = Camera(position=np.array([0.0, 1.0, 2.4]), direction=np.array([0.0, 0.0, -1.0]),
+                    aspect=WIDTH / HEIGHT)
+    run = _wave(tables, camera)
+    warm_s, _, rays = _timed(run)
+    walls = [_timed(run)[0] for _ in range(args.reps)]
+
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        prof_s, radiance, prof_rays = _timed(run)
+    trace = _trace_summary(prof)
+    median = statistics.median(walls)
+    out = {
+        "config": "cfg1 wave: cornell 512x512 depth 4, samples 1-2, 524,288 lanes",
+        "nvidia_smi": smi, "torch": torch.__version__,
+        "rays": rays, "rays_profiled": prof_rays,
+        "radiance_finite": bool(torch.isfinite(radiance).all()),
+        "warm_wall_s": warm_s, "wall_s": walls, "wall_s_median": median,
+        "profiled_wall_s": prof_s, **trace,
+    }
+    if trace["device_events"]:
+        busy_ms = trace["kernel_ms_busy"]
+        out["busy_share_profiled"] = busy_ms / (prof_s * 1e3)
+        out["busy_share_unprofiled"] = busy_ms / (median * 1e3)
+        out["idle_share_profiled"] = 1.0 - out["busy_share_profiled"]
+        out["idle_share_unprofiled"] = 1.0 - out["busy_share_unprofiled"]
+        out["wall_us_per_top_level_aten_op"] = (
+            median * 1e6 / max(trace["aten_ops_top_level"], 1))
+    line = json.dumps(out)
+    print(line, flush=True)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(line + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,486 @@
+"""Wavefront path-tracing integrator on torch tensors.
+
+Port of :mod:`vulkan_raytracer_tpu.render.integrator` for the main path:
+every pixel sample is a lane, the bounce loop is a Python loop that stops
+once no lane is alive, and each ``traceRayEXT`` of the reference
+(shaders/raygen.rgen, lightsample.glsl) is one dense sweep from
+:mod:`vulkan_raytracer_tpu_torch.ops.dense`, which launches a CUDA kernel on
+CUDA tensors.  All vector state is in component form (``V3`` of (N,)
+tensors).  The algorithm, its RNG draw order and its quirks are the JAX
+module's (integrator.py:13-27): NEE runs with the throughput that already
+includes the current hit's estimator, paths end on emissive hits weighted
+against NEE by the balance heuristic, and sample 0 is the preview sample.
+
+The port takes the JAX package's default settings as fixed: the skybox
+fetch is deferred to one lookup after the loop, NEE prunes lanes whose
+contribution is zero regardless of occlusion, and there is no wavefront
+re-sort or width ladder (they only switch on for beam-walked BVH scenes).
+Scenes that need a path not ported yet raise ``NotImplementedError``:
+alpha, textures, more than ``DENSE_MAX_TRIS`` triangles (the BVH kernels)
+or more than ``EMISSIVE_MAX_TRIS`` emissive triangles (the emissive BVH).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops import rng
+from ..ops.bsdf import HitInfo, HitMaterial, material_bsdf, material_pdf, sample_material
+from ..ops.dense import (
+    DENSE_MAX_TRIS,
+    EMISSIVE_MAX_TRIS,
+    dense_closest,
+    dense_emissive_pdf,
+    dense_shadow,
+)
+from ..ops.math3 import BIAS, EPS, INF, V3, v3_from_tangent, v3_gather, v3_onb, v3_to_tangent
+from ..ops.texture import sample_equirect
+
+_F32 = torch.float32
+
+
+def check_supported(tables) -> None:
+    """Raise for scene features whose code path is not ported yet."""
+    if tables.has_alpha:
+        raise NotImplementedError(
+            "alpha-tested materials need the alpha resample loop, which is not "
+            "ported to the torch package yet (ROADMAP.md Queue 1 #9)"
+        )
+    if tables.has_textures:
+        raise NotImplementedError(
+            "textured materials need sample_bilinear, which is not ported to the "
+            "torch package yet (ROADMAP.md Queue 1 #8)"
+        )
+    if tables.num_triangles > DENSE_MAX_TRIS:
+        raise NotImplementedError(
+            f"{tables.num_triangles} triangles exceed the dense path's "
+            f"{DENSE_MAX_TRIS}; the BVH kernels are not ported yet (ROADMAP.md "
+            "Queue 1 #10, Queue 2 #4-#5)"
+        )
+    if tables.num_emissive_tris > EMISSIVE_MAX_TRIS:
+        raise NotImplementedError(
+            f"{tables.num_emissive_tris} emissive triangles exceed "
+            f"{EMISSIVE_MAX_TRIS}; the emissive-BVH pdf probe is not ported yet "
+            "(ROADMAP.md Queue 1 #11)"
+        )
+
+
+# ---------------------------------------------------------------------------
+# Traversal dispatch (integrator.py:105-299): every scene the port takes is
+# a dense-path scene, so each query is one dense sweep.
+# ---------------------------------------------------------------------------
+
+
+def _closest_opaque(tables, o: V3, d: V3, *, t_min, t_max, active):
+    return dense_closest(tables, o, d, t_min=t_min, t_max=t_max, active=active)
+
+
+def _shadow_unsorted(tables, o: V3, d: V3, *, t_max, active):
+    return dense_shadow(tables, o, d, t_max=t_max, active=active)
+
+
+def _emissive_pdf(tables, o: V3, d: V3, *, t_min, active):
+    if tables.num_emissive_tris == 0:
+        return torch.zeros(o.x.shape[0], dtype=_F32, device=o.x.device)
+    return dense_emissive_pdf(tables, o, d, t_min=t_min, active=active)
+
+
+# ---------------------------------------------------------------------------
+# Primary rays (raygen.rgen:33-43)
+# ---------------------------------------------------------------------------
+
+
+def generate_primary_rays(view_inv, proj_inv, width, height, sample_count, lane_idx=None,
+                          device="cpu"):
+    """Camera rays for the given pixel lanes; returns (origin V3, direction
+    V3, seed).  Port of integrator.py:403-442.
+
+    Seeds are TEA(pixelIdx, sampleCount); jitter is the pixel centre on
+    sample 0, else two rnd draws.  ``sample_count`` is an int or a per-lane
+    tensor; ``lane_idx`` selects pixel lanes (default: all width*height
+    pixels).  ``view_inv``/``proj_inv`` are float32 (4, 4) arrays.
+    """
+    if lane_idx is None:
+        idx = torch.arange(width * height, dtype=torch.int64, device=device)
+    else:
+        idx = rng.as_u32(lane_idx)
+        device = idx.device
+    px = (idx % width).to(_F32)
+    py = (idx // width).to(_F32)
+    counts = rng.as_u32(sample_count, device)
+    seed = rng.tea(idx, counts)
+    (jx, jy), seed_j = rng.rnd_square(seed)
+    preview = counts == 0
+    jx = torch.where(preview, 0.5, jx)
+    jy = torch.where(preview, 0.5, jy)
+    seed = torch.where(preview, seed, seed_j)
+
+    u = (px + jx) / float(width) * 2.0 - 1.0
+    v = -((py + jy) / float(height) * 2.0 - 1.0)
+    p = [[float(c) for c in row] for row in proj_inv]
+    m = [[float(c) for c in row] for row in view_inv]
+    # target = projInverse * (d.x, d.y, 1, 1), xyz only (raygen.rgen:41)
+    tgt = V3(
+        p[0][0] * u + p[0][1] * v + p[0][2] + p[0][3],
+        p[1][0] * u + p[1][1] * v + p[1][2] + p[1][3],
+        p[2][0] * u + p[2][1] * v + p[2][2] + p[2][3],
+    ).normalized()
+    direction = V3(
+        m[0][0] * tgt.x + m[0][1] * tgt.y + m[0][2] * tgt.z,
+        m[1][0] * tgt.x + m[1][1] * tgt.y + m[1][2] * tgt.z,
+        m[2][0] * tgt.x + m[2][1] * tgt.y + m[2][2] * tgt.z,
+    ).normalized()
+    origin = V3.full((m[0][3], m[1][3], m[2][3]), idx.shape[0], device)
+    return origin, direction, seed
+
+
+# ---------------------------------------------------------------------------
+# Hit shading state (hit.rchit:31-117)
+# ---------------------------------------------------------------------------
+
+
+def eval_hit(tables, origin: V3, direction: V3, t, tri, u, v) -> HitInfo:
+    """Build HitInfo for every lane (integrator.py:450-628); miss lanes get
+    t = -INF and a black emissive: the skybox is fetched once after the
+    bounce loop (the JAX ``sky=False`` form)."""
+    miss = tri < 0
+    ti = torch.clamp_min(tri, 0)
+    w0 = 1.0 - u - v
+
+    t_safe = torch.where(torch.isfinite(t), t, 0.0)
+    pos = origin + direction * t_safe
+
+    def interp(a: V3, b: V3, c: V3) -> V3:
+        return v3_gather(a, ti) * w0 + v3_gather(b, ti) * u + v3_gather(c, ti) * v
+
+    normal = interp(tables.n0, tables.n1, tables.n2).normalized()
+    mat_i = torch.index_select(tables.tri_mat, 0, ti)
+    m = tables.materials
+
+    # tangent frame (hit.rchit:61-71): built from the pre-flip normal
+    tg_raw = interp(tables.tg0, tables.tg1, tables.tg2)
+    has_tg = tg_raw.any_nonzero()
+    sign = torch.index_select(tables.tg_sign, 0, ti)
+    tg_n = tg_raw.normalized()
+
+    shading_normal = normal
+    tg_ortho = (tg_n - shading_normal * shading_normal.dot(tg_n)).normalized()
+    bt_ortho = shading_normal.cross(tg_ortho) * sign
+    onb_t, onb_b = v3_onb(shading_normal)
+    tangent = tg_ortho.where(has_tg, onb_t)
+    bitangent = bt_ortho.where(has_tg, onb_b)
+
+    view = -direction
+    front = shading_normal.dot(view) >= 0.0
+    shading_normal = shading_normal.where(front, -shading_normal)
+
+    def mcol(c):
+        return torch.index_select(c, 0, mat_i)
+
+    rough = mcol(m.roughness)
+    aniso_s = mcol(m.aniso_strength)
+    aniso_r = mcol(m.aniso_rotation)
+    alpha_c = torch.clamp_min(rough * rough, 0.001)  # hit.rchit:94-95
+    alpha_x = alpha_c + (1.0 - alpha_c) * (aniso_s * aniso_s)  # mix (hit.rchit:112)
+
+    emissive = v3_gather(m.emissive_v, mat_i).where(~miss, 0.0)
+    mat = HitMaterial(
+        base_colour=v3_gather(m.base_colour, mat_i),
+        emissive=emissive,
+        metallic=mcol(m.metallic),
+        alpha_x=alpha_x,
+        alpha_y=alpha_c,
+        ad_x=torch.cos(aniso_r),
+        ad_y=torch.sin(aniso_r),
+        transmission=mcol(m.transmission),
+        ior=mcol(m.ior),
+        thin=mcol(m.thin),
+        attenuation=v3_gather(m.attenuation, mat_i),
+        dispersion=mcol(m.dispersion),
+    )
+    return HitInfo(
+        pos=pos,
+        normal=shading_normal,
+        tangent=tangent,
+        bitangent=bitangent,
+        t=torch.where(miss, -INF, t),
+        front_face=front,
+        mat=mat,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Next-event estimation (shaders/lightsample.glsl)
+# ---------------------------------------------------------------------------
+
+
+def _balance(p1, p2):
+    """Balance heuristic (shaders/sampling.glsl:8-10)."""
+    return p1 / torch.clamp_min(p1 + p2, 1e-30)
+
+
+def _offset_origin(hit: HitInfo, light_dir: V3) -> V3:
+    off = torch.where(hit.normal.dot(light_dir) >= 0.0, BIAS, -BIAS)
+    return hit.pos + hit.normal * off
+
+
+def _sample_analytic(tables, hit, seed, mask):
+    """50/50 point-vs-directional pick (lightsample.glsl:14-52;
+    integrator.py:646-713); the shadow ray is traced by the caller.
+
+    Returns (radiance V3, light_dir V3, pdf, t_max, seed).
+    """
+    np_, nd = tables.num_point, tables.num_directional
+    p_factor = 1.0 / ((np_ > 0) + (nd > 0))
+    n = hit.t.shape[0]
+    dev = hit.t.device
+
+    pick_point = torch.zeros(n, dtype=torch.bool, device=dev)
+    if np_ > 0:
+        u, seed_a = rng.rnd(seed)
+        seed = torch.where(mask, seed_a, seed)  # draw iff numPoint>0 (:17)
+        pick_point = (u < 0.5) | (nd == 0)
+
+    idx, seed_i = rng.rnd_int(
+        seed,
+        torch.where(pick_point, 0, np_),
+        torch.where(pick_point, max(np_ - 1, 0), np_ + nd - 1),
+    )
+    seed = torch.where(mask, seed_i, seed)
+
+    # point branch
+    pi = torch.clamp(idx, 0, max(np_ - 1, 0))
+    l_pos = v3_gather(tables.pl_pos, pi)
+    ray = l_pos - hit.pos
+    dist = torch.sqrt(torch.clamp_min(ray.length_sq(), 1e-30))
+    dir_p = ray / dist
+    l_range = torch.index_select(tables.pl_range, 0, pi)
+    att = torch.where(
+        l_range == 0.0,
+        1.0,
+        torch.clamp_min(1.0 - (dist / torch.clamp_min(l_range, 1e-20)) ** 4, 0.0),
+    )
+    att = torch.clamp_max(att / (dist * dist), 1.0)
+    rad_p = v3_gather(tables.pl_colour, pi) * (
+        torch.index_select(tables.pl_intensity, 0, pi) * att)
+    pdf_p = torch.full((n,), p_factor / max(np_, 1), dtype=_F32, device=dev)
+
+    # directional branch
+    di = torch.clamp(idx - np_, 0, max(nd - 1, 0))
+    dir_d = -v3_gather(tables.dl_dir, di)
+    rad_d = v3_gather(tables.dl_colour, di) * torch.index_select(tables.dl_intensity, 0, di)
+    pdf_d = torch.full((n,), p_factor / max(nd, 1), dtype=_F32, device=dev)
+
+    light_dir = dir_p.where(pick_point, dir_d)
+    radiance = rad_p.where(pick_point, rad_d)
+    pdf = torch.where(pick_point, pdf_p, pdf_d)
+    t_max = torch.where(pick_point, dist, INF)
+    return radiance, light_dir, pdf, t_max, seed
+
+
+def _sample_emissive(tables, hit, seed, mask):
+    """Emissive-triangle NEE sampling (lightsample.glsl:54-141;
+    integrator.py:716-800): CDF search and a uniform point on the triangle.
+    The verification trace and the pdf probe are the caller's.
+
+    Returns (radiance V3, light_dir V3, t_max, seed).
+    """
+    u_cdf, seed_c = rng.rnd(seed)
+    seed = torch.where(mask, seed_c, seed)
+    tri_e = torch.clamp(
+        torch.searchsorted(tables.em_cdf, u_cdf, right=False),
+        0,
+        tables.num_emissive_tris - 1,
+    )
+
+    (ux, uy), seed_uv = rng.rnd_square(seed)
+    seed = torch.where(mask, seed_uv, seed)
+    fold = ux + uy > 1.0  # parallelogram fold (lightsample.glsl:116-119)
+    ux = torch.where(fold, 1.0 - ux, ux)
+    uy = torch.where(fold, 1.0 - uy, uy)
+
+    v0 = v3_gather(tables.em_v0, tri_e)
+    v1 = v3_gather(tables.em_v1, tri_e)
+    v2 = v3_gather(tables.em_v2, tri_e)
+    point = v0 * ux + v1 * uy + v2 * (1.0 - ux - uy)
+
+    ray = point - hit.pos
+    dist = torch.sqrt(torch.clamp_min(ray.length_sq(), 1e-30))
+    light_dir = ray / dist
+
+    # Verification ray bound: "the closest hit is the sampled triangle" is
+    # "no hit strictly closer than the sampled point" (integrator.py:758-767)
+    t_max = dist * (1.0 - 1e-4) - 1e-5
+
+    em_mat = torch.index_select(tables.em_mat, 0, tri_e)
+    radiance = v3_gather(tables.materials.emissive_v, em_mat)
+    return radiance, light_dir, t_max, seed
+
+
+def sample_lights(tables, hit, wavelength, view_world: V3, seed, mask):
+    """Port of sampleLights (lightsample.glsl:143-173; integrator.py:803-892).
+
+    Strategy pick between analytic and emissive NEE, BSDF x cos / pdf with
+    balance-heuristic MIS for area lights (delta lights exempt).
+    Returns (contribution V3, seed, rays_traced (0-d int64 tensor)).
+    """
+    has_analytic = tables.num_point + tables.num_directional > 0
+    has_emissive = tables.num_emissive_tris > 0
+    n = hit.t.shape[0]
+    dev = hit.t.device
+    rays = torch.zeros((), dtype=torch.int64, device=dev)
+    if not has_analytic and not has_emissive:
+        return V3.full((0.0, 0.0, 0.0), n, dev), seed, rays
+
+    if has_analytic:
+        u, seed_s = rng.rnd(seed)  # drawn whenever analytic lights exist (:150)
+        seed = torch.where(mask, seed_s, seed)
+        pick_analytic = (u < 0.5) | (not has_emissive)
+    else:
+        pick_analytic = torch.zeros(n, dtype=torch.bool, device=dev)
+
+    radiance = V3.full((0.0, 0.0, 0.0), n, dev)
+    light_dir = V3.full((0.0, 0.0, 0.0), n, dev)
+    pdf = torch.zeros(n, dtype=_F32, device=dev)
+    t_max = torch.full((n,), INF, dtype=_F32, device=dev)
+    delta = pick_analytic
+
+    if has_analytic:
+        rad_a, dir_a, pdf_a, tmax_a, seed = _sample_analytic(
+            tables, hit, seed, mask & pick_analytic
+        )
+        radiance = rad_a.where(pick_analytic, radiance)
+        light_dir = dir_a.where(pick_analytic, light_dir)
+        pdf = torch.where(pick_analytic, pdf_a, pdf)
+        t_max = torch.where(pick_analytic, tmax_a, t_max)
+        rays = rays + (mask & pick_analytic).sum()
+    if has_emissive:
+        rad_e, dir_e, tmax_e, seed = _sample_emissive(tables, hit, seed, mask & ~pick_analytic)
+        radiance = radiance.where(pick_analytic, rad_e)
+        light_dir = light_dir.where(pick_analytic, dir_e)
+        t_max = torch.where(pick_analytic, t_max, tmax_e)
+        rays = rays + (mask & ~pick_analytic).sum()
+
+    # NdotL / black-light pruning (integrator.py:848-865): a lane whose NEE
+    # contribution is zero whatever the occlusion traces nothing; the ray
+    # counters above keep the reference's accounting.
+    tview = v3_to_tangent(view_world, hit.tangent, hit.bitangent, hit.normal)
+    tlight = v3_to_tangent(light_dir, hit.tangent, hit.bitangent, hit.normal)
+    bsdf_val = material_bsdf(hit, wavelength, tview, tlight)
+    trace_mask = mask & radiance.any_nonzero() & bsdf_val.any_nonzero()
+
+    # ONE occlusion launch for both branches (lightsample.glsl:45, :131)
+    ray_o = _offset_origin(hit, light_dir)
+    occluded = _shadow_unsorted(tables, ray_o, light_dir, t_max=t_max, active=trace_mask)
+    radiance = radiance.where(~occluded & trace_mask, 0.0)
+    if has_emissive:
+        # pdf probe over all emissive surfaces along the verified ray
+        # (lightsample.glsl:136); only surviving emissive-branch lanes
+        visible = mask & ~pick_analytic & ~occluded & radiance.any_nonzero()
+        pdf_e = _emissive_pdf(tables, ray_o, light_dir, t_min=0.0, active=visible)
+        pdf = torch.where(pick_analytic, pdf, pdf_e)
+        radiance = radiance.where(pick_analytic | visible, 0.0)
+        rays = rays + visible.sum()
+
+    got_light = radiance.any_nonzero() & mask
+    pdf = pdf / float(max(1, int(has_analytic) + int(has_emissive)))  # :161
+    mis = torch.where(delta, 1.0, _balance(pdf, material_pdf(hit, tview, tlight)))
+    scale = mis * torch.abs(hit.normal.dot(light_dir)) / torch.clamp_min(pdf, 1e-30)
+    contrib = (radiance * bsdf_val * scale).where(got_light & bsdf_val.any_nonzero(), 0.0)
+    return contrib, seed, rays
+
+
+# ---------------------------------------------------------------------------
+# The bounce loop (raygen.rgen:52-88)
+# ---------------------------------------------------------------------------
+
+
+def render_sample(tables, view_inv, proj_inv, width, height, sample_count, max_depth,
+                  lane_idx=None, nee_weighting="reference"):
+    """Path-trace one sample for every pixel (or the given pixel lanes).
+
+    Port of integrator.py:900-1138.  Returns (radiance (N, 3),
+    rays_traced (0-d int64 tensor)): the counter tallies every traversal of
+    an active lane (material + shadow/verify + pdf probes), the Mrays/s
+    numerator.  ``sample_count`` is an int or a per-lane tensor.
+
+    ``nee_weighting``: "reference" weights NEE by the throughput that
+    includes the hit's own BSDF estimator (raygen.rgen:54-83, the
+    reference's quirk); "physical" by the throughput up to the hit.
+    """
+    if nee_weighting not in ("reference", "physical"):
+        raise ValueError(f"nee_weighting must be 'reference' or 'physical', not {nee_weighting!r}")
+    check_supported(tables)
+    dev = tables.device
+    origin, direction, seed = generate_primary_rays(
+        view_inv, proj_inv, width, height, sample_count, lane_idx, device=dev
+    )
+    n = seed.shape[0]
+    preview = torch.broadcast_to(rng.as_u32(sample_count, dev) == 0, (n,))
+
+    value = V3.full((0.0, 0.0, 0.0), n, dev)
+    throughput = V3.full((1.0, 1.0, 1.0), n, dev)
+    wavelength = torch.zeros(n, dtype=_F32, device=dev)
+    mat_pdf = torch.ones(n, dtype=_F32, device=dev)
+    active = torch.ones(n, dtype=torch.bool, device=dev)
+    sky_w = V3.full((0.0, 0.0, 0.0), n, dev)
+    rays = torch.zeros((), dtype=torch.int64, device=dev)
+
+    # the loop ends early once every lane terminated (miss / emissive / zero
+    # throughput): the wavefront analogue of the per-thread `break`
+    for b in range(max_depth + 1):
+        if not bool(active.any()):
+            break
+        n_active = active.sum()
+
+        t, tri, u, v = _closest_opaque(
+            tables, origin, direction, t_min=EPS, t_max=INF, active=active
+        )
+        hit = eval_hit(tables, origin, direction, t, tri, u, v)
+
+        miss = tri < 0
+        is_emissive = hit.mat.emissive.any_nonzero()
+        terminal = miss | is_emissive | (b == max_depth) | (preview & (b == 1))
+
+        # deferred skybox (skybox.rmiss): record the throughput at the miss;
+        # the miss direction survives in the final state
+        sky_w = sky_w + throughput.where(active & miss, 0.0)
+
+        # emissive MIS probe (raygen.rgen:67-73); miss lanes keep weight 1
+        probe_mask = active & terminal & is_emissive & ~miss & (b != 0)
+        pdf_probe = _emissive_pdf(tables, origin, direction, t_min=EPS, active=probe_mask)
+        weight = torch.where(probe_mask, _balance(mat_pdf, pdf_probe), 1.0)
+        value = value + (throughput * hit.mat.emissive * weight).where(active & terminal, 0.0)
+
+        cont = active & ~terminal
+
+        # material sample at this hit (raygen.rgen:79-83)
+        view = -direction
+        tview = v3_to_tangent(view, hit.tangent, hit.bitangent, hit.normal)
+        d_t, est, pdf_m, _, wl_new, seed_m = sample_material(seed, hit, wavelength, tview)
+        seed = torch.where(cont, seed_m, seed)
+        wavelength = torch.where(cont, wl_new, wavelength)
+        new_dir = v3_from_tangent(d_t, hit.tangent, hit.bitangent, hit.normal)
+        throughput_prev = throughput
+        throughput = (throughput * est).where(cont, throughput)
+        mat_pdf = torch.where(cont, pdf_m, mat_pdf)
+        alive = cont & throughput.any_nonzero()  # raygen.rgen:84
+
+        off = torch.where(hit.normal.dot(new_dir) >= 0.0, BIAS, -BIAS)
+        new_origin = hit.pos + hit.normal * off
+        origin = new_origin.where(cont, origin)
+        direction = new_dir.where(cont, direction)
+
+        # NEE for surviving lanes, before the next trace (raygen.rgen:54-56)
+        light, seed, nee_rays = sample_lights(tables, hit, wavelength, view, seed, alive)
+        nee_throughput = throughput if nee_weighting == "reference" else throughput_prev
+        value = value + (nee_throughput * light).where(alive, 0.0)
+
+        # ray accounting: material rays + NEE rays + terminal emissive probes
+        rays = rays + n_active + probe_mask.sum() + nee_rays
+        active = alive
+
+    # deferred skybox: one equirect fetch for the whole loop
+    sky = sample_equirect(tables.skybox, direction.to_array()) * tables.skybox_strength
+    value = value + sky_w * V3.from_array(sky)
+    return value.to_array(), rays

@@ -1,0 +1,508 @@
+"""Scene graph and the flat upload to torch tables.
+
+Port of :mod:`vulkan_raytracer_tpu.scene.scenegraph` without jax: the host
+PODs (:class:`Material`, :class:`PointLight`, :class:`DirectionalLight`,
+:class:`Primitive`), the node tree of :class:`Scene`, the material table
+(``_build_material_table``, scenegraph.py:626-678) and the flattened upload
+(``_upload_flattened``, scenegraph.py:1101-1300), which emits world-space
+triangle columns, the emissive CDF and the pdf-probe tables in DFS order.
+
+Not ported yet: the BVH, grid and packet-BVH builds (the port's dense
+kernels take every scene up to ``DENSE_MAX_TRIS`` triangles), instancing,
+refit, and glTF import (``load_model``).
+
+:class:`SceneTables` keeps the JAX field names, so the NumPy oracle
+(``vulkan_raytracer_tpu.render.oracle``), which duck-types its input, reads
+``tables.to("cpu")`` directly.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from ..ops import dense
+from ..ops.math3 import V3
+from ..ops.texture import EnvMap, TextureAtlas, pack_envmap, pack_textures
+from ..utils import logging as log
+
+_LUMA = np.array([0.2126, 0.7152, 0.0722], np.float32)
+
+
+# ---------------------------------------------------------------------------
+# Host-side PODs (material.h / light.h equivalents)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class Material:
+    """Host material mirroring include/material.h:5-18 (+ glTF defaults);
+    the JAX module's scenegraph.py:55-91."""
+
+    base_colour_factor: np.ndarray = field(default_factory=lambda: np.ones(4, np.float32))
+    alpha_mode: int = 0  # 0=OPAQUE 1=MASK 2=BLEND
+    alpha_cutoff: float = 0.5
+    emissive_factor: np.ndarray = field(default_factory=lambda: np.zeros(3, np.float32))
+    metallic_factor: float = 1.0
+    roughness_factor: float = 1.0
+    transmission_factor: float = 0.0
+    thickness_factor: float = 0.0
+    attenuation_coefficient: np.ndarray = field(
+        default_factory=lambda: np.zeros(3, np.float32)
+    )
+    ior: float = 1.5
+    anisotropy_strength: float = 0.0
+    anisotropy_rotation: float = 0.0
+    dispersion: float = 0.0
+    base_colour_tex: int = -1
+    metallic_roughness_tex: int = -1
+    normal_tex: int = -1
+    emissive_tex: int = -1
+    transmission_tex: int = -1
+    anisotropy_tex: int = -1
+
+    @property
+    def is_emissive(self) -> bool:
+        return bool(np.any(self.emissive_factor != 0.0))
+
+
+@dataclass
+class PointLight:  # light.h:8-12
+    position: np.ndarray
+    colour: np.ndarray
+    intensity: float
+    range: float  # 0 = unbounded
+
+
+@dataclass
+class DirectionalLight:  # light.h:14-17
+    direction: np.ndarray
+    colour: np.ndarray
+    intensity: float
+
+
+@dataclass
+class Primitive:
+    """One mesh primitive's host arrays (mesh.h:9-23 equivalent)."""
+
+    positions: np.ndarray  # (V, 3) f32
+    normals: np.ndarray  # (V, 3) f32
+    tangents: np.ndarray  # (V, 4) f32, w = handedness sign, 0 if absent
+    uvs: np.ndarray  # (V, 2) f32
+    indices: np.ndarray  # (3F,) u32
+    material: int
+
+
+@dataclass
+class SceneObject:
+    """Scene-graph node (scene.h:22-37): transform + optional mesh."""
+
+    local_transform: np.ndarray
+    world_transform: np.ndarray
+    mesh: int = -1  # index into Scene.mesh_pool, -1 = none
+    depth: int = 0
+    parent: "SceneObject | None" = None
+    children: list["SceneObject"] = field(default_factory=list)
+
+
+# ---------------------------------------------------------------------------
+# Device tables
+# ---------------------------------------------------------------------------
+
+
+def _to(x, device):
+    """Move a table tree (dataclasses, V3s, tensors; other leaves kept)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    if isinstance(x, V3):
+        return V3(*(_to(c, device) for c in x))
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(
+            x, **{f.name: _to(getattr(x, f.name), device) for f in dataclasses.fields(x)}
+        )
+    return x
+
+
+@dataclass(frozen=True)
+class MaterialTable:
+    """SoA material table — the mirror of SSBO binding 6; (M,) columns."""
+
+    base_colour: V3
+    base_alpha: torch.Tensor
+    emissive: torch.Tensor  # (M, 3)
+    emissive_v: V3
+    metallic: torch.Tensor
+    roughness: torch.Tensor
+    transmission: torch.Tensor
+    thin: torch.Tensor  # bool — thicknessFactor == 0 (hit.rchit:98)
+    attenuation: V3
+    ior: torch.Tensor
+    aniso_strength: torch.Tensor
+    aniso_rotation: torch.Tensor
+    dispersion: torch.Tensor
+    tex_idx: torch.Tensor  # (M, 6) i32: base/mr/normal/emissive/transmission/aniso
+
+
+@dataclass(frozen=True)
+class AlphaTables:
+    """Per-triangle alpha-test data (ops/traverse.py:37-49 in the JAX package)."""
+
+    mode: torch.Tensor  # (T,) i32: 0=OPAQUE, 1=MASK, 2=BLEND
+    value: torch.Tensor  # (T,) f32
+    cutoff: torch.Tensor  # (T,) f32
+
+
+@dataclass(frozen=True)
+class EmissivePDFTables:
+    """Per-emissive-triangle data for the MIS pdf probe (ops/traverse.py:54-68)."""
+
+    p_delta: torch.Tensor  # (Te,) f32 normalised CDF increment
+    area: torch.Tensor  # (Te,) f32
+    n0: torch.Tensor  # (Te, 3) f32 unnormalised world vertex normals
+    n1: torch.Tensor
+    n2: torch.Tensor
+
+
+@dataclass(frozen=True)
+class SceneTables:
+    """Everything the integrator needs, flat on one device (the JAX
+    SceneTables' fields, scenegraph.py:166-247, without the acceleration
+    structures and instancing)."""
+
+    v0: V3
+    v1: V3
+    v2: V3
+    n0: V3
+    n1: V3
+    n2: V3
+    tg0: V3
+    tg1: V3
+    tg2: V3
+    tg_sign: torch.Tensor
+    uv: torch.Tensor  # (T, 6)
+    tri_mat: torch.Tensor  # (T,) i32
+    materials: MaterialTable
+    alpha: AlphaTables
+    pl_pos: V3
+    pl_colour: V3
+    pl_intensity: torch.Tensor
+    pl_range: torch.Tensor
+    dl_dir: V3
+    dl_colour: V3
+    dl_intensity: torch.Tensor
+    em_cdf: torch.Tensor  # (Te,) cumulative, last == 1
+    em_tables: EmissivePDFTables
+    em_tri: torch.Tensor  # (Te,) i32 -> scene triangle id
+    em_v0: V3
+    em_v1: V3
+    em_v2: V3
+    em_uv: torch.Tensor  # (Te, 6)
+    em_mat: torch.Tensor  # (Te,) i32
+    skybox: EnvMap
+    skybox_strength: torch.Tensor  # () f32
+    tex: TextureAtlas
+    num_point: int
+    num_directional: int
+    num_emissive_tris: int
+    has_alpha: bool
+    has_blend: bool
+    has_textures: bool
+
+    @property
+    def num_triangles(self) -> int:
+        return self.v0.x.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.v0.x.device
+
+    def to(self, device) -> "SceneTables":
+        return _to(self, torch.device(device))
+
+    # The sweep kernels' triangle tables, built once per SceneTables on first
+    # use (cached_property writes the instance dict, past the frozen setattr).
+
+    @functools.cached_property
+    def tri_table(self) -> torch.Tensor:
+        """(9, T) float32 [v0, e1, e2] of every triangle (dense.closest_table)."""
+        return dense.closest_table(self)
+
+    @functools.cached_property
+    def em_table(self) -> torch.Tensor:
+        """(20, Te) float32 table of the emissive triangles (dense.pdf_table)."""
+        return dense.pdf_table(self)
+
+
+# ---------------------------------------------------------------------------
+# Scene
+# ---------------------------------------------------------------------------
+
+
+def _inv_transpose3(m4: np.ndarray) -> np.ndarray:
+    """Normal-transform matrix: transpose(inverse(upper3x3)) (hit.rchit:59)."""
+    return np.linalg.inv(m4[:3, :3]).T.astype(np.float32)
+
+
+class Scene:
+    """Scene graph + host pools; fill it, then :meth:`upload`."""
+
+    def __init__(self) -> None:
+        self.root = SceneObject(np.eye(4, dtype=np.float32), np.eye(4, dtype=np.float32))
+        self.mesh_pool: list[list[Primitive]] = []
+        self.materials: list[Material] = []
+        self.point_lights: list[PointLight] = []
+        self.directional_lights: list[DirectionalLight] = []
+        self.textures: list[np.ndarray] = []  # (H, W, 4) f32 each
+        self.skybox: np.ndarray | None = None  # (H, W, 3) f32
+        self.skybox_strength: float = 1.0
+
+    # -- graph ----------------------------------------------------------
+
+    def add_node(self, parent: SceneObject, local: np.ndarray, mesh: int = -1) -> SceneObject:
+        node = SceneObject(
+            local_transform=np.asarray(local, np.float32),
+            world_transform=(parent.world_transform @ local).astype(np.float32),
+            mesh=mesh,
+            depth=parent.depth + 1,
+            parent=parent,
+        )
+        parent.children.append(node)
+        return node
+
+    def add_raw_mesh(self, positions, normals, indices, material: Material,
+                     transform=None, uvs=None, tangents=None) -> None:
+        """Register a raw triangle mesh as a single-primitive node under the
+        root (scenegraph.py:312-354); the material is deduplicated by
+        identity."""
+        try:
+            mat_idx = next(i for i, m in enumerate(self.materials) if m is material)
+        except StopIteration:
+            mat_idx = len(self.materials)
+            self.materials.append(material)
+        nv = positions.shape[0]
+        prim = Primitive(
+            positions=np.asarray(positions, np.float32),
+            normals=np.asarray(normals, np.float32),
+            tangents=(np.zeros((nv, 4), np.float32) if tangents is None
+                      else np.asarray(tangents, np.float32)),
+            uvs=np.zeros((nv, 2), np.float32) if uvs is None else np.asarray(uvs, np.float32),
+            indices=np.asarray(indices, np.uint32),
+            material=mat_idx,
+        )
+        self.mesh_pool.append([prim])
+        t = np.eye(4, dtype=np.float32) if transform is None else transform
+        self.add_node(self.root, t, mesh=len(self.mesh_pool) - 1)
+
+    def iter_depth_first(self):
+        """DFS preorder over the tree without recursion (the order of the
+        reference's processModelRecursive, so emissive CDF rows line up)."""
+        stack = [self.root]
+        while stack:
+            node = stack.pop()
+            yield node
+            stack.extend(reversed(node.children))
+
+    def load_model(self, path, transform=None) -> None:
+        raise NotImplementedError(
+            "glTF import is not ported to the torch package yet (ROADMAP.md Queue 1 "
+            "#7); use the built-in 'cornell' scene"
+        )
+
+    # -- upload ------------------------------------------------------------
+
+    def _build_material_table(self, device):
+        """MaterialTable + per-material alpha columns (scenegraph.py:626-678)."""
+        mats = self.materials or [Material()]
+
+        def col(values, dtype=np.float32):
+            return torch.as_tensor(np.array(values, dtype), device=device)
+
+        def vcol(rows):  # list of (3,) -> V3 of (M,)
+            a = np.stack(rows).astype(np.float32)
+            return V3(*(torch.as_tensor(a[:, k].copy(), device=device) for k in range(3)))
+
+        mt = MaterialTable(
+            base_colour=vcol([m.base_colour_factor[:3] for m in mats]),
+            base_alpha=col([m.base_colour_factor[3] for m in mats]),
+            emissive=torch.as_tensor(
+                np.stack([m.emissive_factor for m in mats]).astype(np.float32), device=device
+            ),
+            emissive_v=vcol([m.emissive_factor for m in mats]),
+            metallic=col([m.metallic_factor for m in mats]),
+            roughness=col([m.roughness_factor for m in mats]),
+            transmission=col([m.transmission_factor for m in mats]),
+            thin=col([m.thickness_factor == 0.0 for m in mats], bool),
+            attenuation=vcol([m.attenuation_coefficient for m in mats]),
+            ior=col([m.ior for m in mats]),
+            aniso_strength=col([m.anisotropy_strength for m in mats]),
+            aniso_rotation=col([m.anisotropy_rotation for m in mats]),
+            dispersion=col([m.dispersion for m in mats]),
+            tex_idx=col(
+                [[m.base_colour_tex, m.metallic_roughness_tex, m.normal_tex,
+                  m.emissive_tex, m.transmission_tex, m.anisotropy_tex] for m in mats],
+                np.int32,
+            ),
+        )
+        mode_by_mat = np.array([m.alpha_mode for m in mats], np.int32)
+        aval_by_mat = np.array([m.base_colour_factor[3] for m in mats], np.float32)
+        acut_by_mat = np.array([m.alpha_cutoff for m in mats], np.float32)
+        return mt, mode_by_mat, aval_by_mat, acut_by_mat
+
+    def upload(self, device="cpu") -> SceneTables:
+        """Flatten every (node, primitive) instance to world space and build
+        the tables on ``device`` (Scene::uploadResources, scene.cpp:281-342;
+        the JAX package's _upload_flattened without the BVH builds)."""
+        device = torch.device(device)
+        v0s, v1s, v2s = [], [], []
+        n_tris, tg_tris, uv_tris = [], [], []
+        sign_tris, mat_tris = [], []
+        em_heuristic: list[np.ndarray] = []
+        em_tri_ids: list[np.ndarray] = []
+
+        tri_base = 0
+        for node in self.iter_depth_first():
+            if node.mesh < 0:
+                continue
+            world = node.world_transform
+            nrm_m = _inv_transpose3(world)
+            for prim in self.mesh_pool[node.mesh]:
+                idx = prim.indices.reshape(-1, 3)
+                pos_w = prim.positions @ world[:3, :3].T + world[:3, 3]
+                nrm_w = prim.normals @ nrm_m.T
+                tan_w = prim.tangents[:, :3] @ nrm_m.T
+                v0s.append(pos_w[idx[:, 0]])
+                v1s.append(pos_w[idx[:, 1]])
+                v2s.append(pos_w[idx[:, 2]])
+                n_tris.append(np.stack([nrm_w[idx[:, k]] for k in range(3)], axis=1))
+                tg_tris.append(np.stack([tan_w[idx[:, k]] for k in range(3)], axis=1))
+                uv_tris.append(np.stack([prim.uvs[idx[:, k]] for k in range(3)], axis=1))
+                sign_tris.append(prim.tangents[idx[:, 0], 3])
+                nt = idx.shape[0]
+                mat_tris.append(np.full(nt, prim.material, np.int32))
+
+                mat = self.materials[prim.material]
+                if mat.is_emissive:
+                    area = 0.5 * np.linalg.norm(
+                        np.cross(
+                            pos_w[idx[:, 1]] - pos_w[idx[:, 0]],
+                            pos_w[idx[:, 2]] - pos_w[idx[:, 0]],
+                        ),
+                        axis=-1,
+                    )
+                    h = area * float(mat.emissive_factor @ _LUMA)
+                    em_heuristic.append(h.astype(np.float32))
+                    em_tri_ids.append(np.arange(tri_base, tri_base + nt, dtype=np.int32))
+                tri_base += nt
+
+        if tri_base == 0:
+            raise ValueError("scene contains no triangles")
+
+        v0 = np.concatenate(v0s).astype(np.float32)
+        v1 = np.concatenate(v1s).astype(np.float32)
+        v2 = np.concatenate(v2s).astype(np.float32)
+        tri_n = np.concatenate(n_tris).astype(np.float32)
+        tri_tg = np.concatenate(tg_tris).astype(np.float32)
+        tri_uv = np.concatenate(uv_tris).astype(np.float32)
+        tri_sign = np.concatenate(sign_tris).astype(np.float32)
+        tri_mat = np.concatenate(mat_tris)
+
+        def t(a, dtype=None):
+            a = np.ascontiguousarray(a if dtype is None else np.asarray(a, dtype))
+            return torch.as_tensor(a, device=device)
+
+        def vcomp(a):  # (K, 3) numpy -> V3 of (K,) columns
+            a = np.asarray(a, np.float32)
+            return V3(t(a[:, 0]), t(a[:, 1]), t(a[:, 2]))
+
+        mt, mode_by_mat, aval_by_mat, acut_by_mat = self._build_material_table(device)
+        alpha = AlphaTables(
+            mode=t(mode_by_mat[tri_mat]),
+            value=t(aval_by_mat[tri_mat]),
+            cutoff=t(acut_by_mat[tri_mat]),
+        )
+        has_alpha = bool((mode_by_mat[tri_mat] != 0).any())
+        has_blend = bool((mode_by_mat[tri_mat] == 2).any())
+
+        # emissive CDF (normalised, scene.cpp:288-292)
+        if em_heuristic:
+            h = np.concatenate(em_heuristic)
+            em_tri = np.concatenate(em_tri_ids)
+            cdf = np.cumsum(h, dtype=np.float64)
+            total = cdf[-1] if cdf[-1] > 0 else 1.0
+            cdf = (cdf / total).astype(np.float32)
+            p_delta = np.diff(np.concatenate([[0.0], cdf])).astype(np.float32)
+            ev0, ev1, ev2 = v0[em_tri], v1[em_tri], v2[em_tri]
+            em_area = 0.5 * np.linalg.norm(np.cross(ev1 - ev0, ev2 - ev0), axis=-1).astype(
+                np.float32
+            )
+            en = tri_n[em_tri]
+            em_tables = EmissivePDFTables(
+                p_delta=t(p_delta), area=t(em_area),
+                n0=t(en[:, 0]), n1=t(en[:, 1]), n2=t(en[:, 2]),
+            )
+            num_em = len(em_tri)
+        else:  # placeholder single degenerate row; gated off by num_emissive_tris
+            cdf = np.ones(1, np.float32)
+            em_tri = np.zeros(1, np.int32)
+            em_tables = EmissivePDFTables(
+                p_delta=t(np.zeros(1, np.float32)), area=t(np.ones(1, np.float32)),
+                n0=t(np.ones((1, 3), np.float32)), n1=t(np.ones((1, 3), np.float32)),
+                n2=t(np.ones((1, 3), np.float32)),
+            )
+            num_em = 0
+
+        def light_cols(rows, width):
+            if rows:
+                return np.stack(rows).astype(np.float32)
+            return np.zeros((1, width), np.float32)
+
+        def scalars(values):
+            return np.array(values, np.float32) if values else np.zeros(1, np.float32)
+
+        pls, dls = self.point_lights, self.directional_lights
+        skybox = self.skybox if self.skybox is not None else np.zeros((1, 1, 3), np.float32)
+
+        log.info(
+            "Uploaded scene: %d tris, %d materials, %d point + %d directional lights, "
+            "%d emissive tris (%s)",
+            tri_base, max(len(self.materials), 1), len(pls), len(dls), num_em, device,
+        )
+
+        uv_flat = tri_uv.reshape(tri_uv.shape[0], 6)
+        return SceneTables(
+            v0=vcomp(v0), v1=vcomp(v1), v2=vcomp(v2),
+            n0=vcomp(tri_n[:, 0]), n1=vcomp(tri_n[:, 1]), n2=vcomp(tri_n[:, 2]),
+            tg0=vcomp(tri_tg[:, 0]), tg1=vcomp(tri_tg[:, 1]), tg2=vcomp(tri_tg[:, 2]),
+            tg_sign=t(tri_sign),
+            uv=t(uv_flat),
+            tri_mat=t(tri_mat),
+            materials=mt,
+            alpha=alpha,
+            pl_pos=vcomp(light_cols([l.position for l in pls], 3)),
+            pl_colour=vcomp(light_cols([l.colour for l in pls], 3)),
+            pl_intensity=t(scalars([l.intensity for l in pls])),
+            pl_range=t(scalars([l.range for l in pls])),
+            dl_dir=vcomp(light_cols([l.direction for l in dls], 3)),
+            dl_colour=vcomp(light_cols([l.colour for l in dls], 3)),
+            dl_intensity=t(scalars([l.intensity for l in dls])),
+            em_cdf=t(cdf),
+            em_tables=em_tables,
+            em_tri=t(em_tri),
+            em_v0=vcomp(v0[em_tri]), em_v1=vcomp(v1[em_tri]), em_v2=vcomp(v2[em_tri]),
+            em_uv=t(uv_flat[em_tri]),
+            em_mat=t(tri_mat[em_tri]),
+            skybox=pack_envmap(skybox, device),
+            skybox_strength=torch.tensor(self.skybox_strength, dtype=torch.float32,
+                                         device=device),
+            tex=pack_textures(self.textures, device),
+            num_point=len(pls),
+            num_directional=len(dls),
+            num_emissive_tris=num_em,
+            has_alpha=has_alpha,
+            has_blend=has_blend,
+            has_textures=bool(self.textures),
+        )
