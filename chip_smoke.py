@@ -8,31 +8,52 @@ Run from the root of a checkout, with no arguments:
 Phases, one JSON line each; any failure raises and ends the run with a
 nonzero exit code:
 
-1. device  — CUDA must be available (no CPU fallback); the card's name and
+1. device   — CUDA must be available (no CPU fallback); the card's name and
    power limit from nvidia-smi.
-2. build   — compile the CUDA kernels from ``vulkan_raytracer_tpu_torch/csrc``.
-3. kernels — each kernel against its plain PyTorch version on the card,
-   over the Cornell box and over a 1,000-triangle soup (several
+2. build    — compile the CUDA kernels from ``vulkan_raytracer_tpu_torch/csrc``
+   (one nvcc per source, started together) and the native BVH builder; the
+   walks' registers and spills from ptxas.
+3. kernels  — each dense kernel against its plain PyTorch version on the
+   card, over the Cornell box and over a 1,000-triangle soup (several
    shared-memory chunks), at bench cfg1's wave of 524,288 rays and at a
    ragged 524,251 (a block partly past the last ray), with inactive lanes,
    t bounds before, across, at and beyond the hits, and the pdf at both
    t_min the render uses; then times at the cfg1 wave.
-4. render  — the CLI's headless path for bench cfg1 (Cornell, 512x512,
-   depth 4, 64 spp, camera 0,1,2.4 -> 0,0,-1) on ``cuda``; every kernel must
-   have been launched by it, and the image must be finite and lit.
-5. cpu     — Cornell 32x32, 2 spp, depth 3 through the port on ``cuda``
+4. render   — the CLI's headless path for bench cfg1 (Cornell, 512x512,
+   depth 4, 64 spp, camera 0,1,2.4 -> 0,0,-1) on ``cuda``; every dense kernel
+   must have been launched by it, and the image must be finite and lit.
+5. walks    — both BVH walks (K4' whole-stream, K5' treelet; closest and
+   shadow) against their plain versions on the full cfg2 dragon's streams
+   (262,280 triangles, 128 treelets), at the cfg2 wave of 524,288 rays
+   (camera rays and bounce-like rays off surface points) and at a ragged
+   524,251, with per-lane bounds, bounds at exactly the hit t and inactive
+   lanes: t and slot bit-equal; K4' against K5'; then the times.
+6. bvh_vs_dense — the BVH walks against the dense kernels on a
+   60,000-triangle soup: hit and occlusion flags equal on >= 99.99% of lanes,
+   t bit-equal where the triangle agrees.
+7. render_cfg2 — the CLI's headless path for bench cfg2 (the dragon, 512x512,
+   depth 4, 4 spp, camera 0,2.2,4.5 -> 0,-0.25,-1), three times; each must
+   launch K5' (both variants) and K3; seconds, Mrays/s and the upload split.
+8. gates    — the bench gate frames of cfg2-cfg5 on the card against the
+   committed NumPy-oracle goldens in ``bench_goldens.npz``: RMSE < 2e-3.
+9. bvh_forced — a 712-triangle dragon uploaded with ``traversal="bvh"`` (one
+   treelet: the whole-stream walk K4'), 32x32, 2 spp, depth 3, on the card
+   against the same render on the CPU (the plain versions): RMSE < 2e-3, ray
+   counts within 0.1%; it must launch K4' (both variants).
+10. cpu     — Cornell 32x32, 2 spp, depth 3 through the port on ``cuda``
    against the same render on the CPU, where the port runs the plain
    versions that tests/test_torch_render.py holds against the JAX renderer
    and its NumPy oracle; per-pixel RMSE < 2e-3, ray counts within 0.1%.
 
 Then it prints the kernel summary (one JSON object), the nvidia-smi line,
 and, last, ``{"ok": true, "device": {...}}``.  Neither the script nor the
-port imports jax or the JAX package; phase 5 checks that.
+port imports jax or the JAX package; phase 10 checks that.
 """
 
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -45,14 +66,30 @@ ROOT = Path(__file__).resolve().parent
 RMSE_BAR = 2e-3
 EPS = 1e-7
 INF = 1e32
-KERNELS = {  # name -> (launch counter, TPU kernel it replaces)
-    "dense_closest": ("closest", "vulkan_raytracer_tpu/ops/pallas_dense.py:112"),
-    "dense_shadow": ("shadow", "vulkan_raytracer_tpu/ops/pallas_dense.py:144"),
-    "dense_emissive_pdf": ("pdf", "vulkan_raytracer_tpu/ops/pallas_dense.py:318"),
+DENSE_SRC = "vulkan_raytracer_tpu_torch/csrc/dense_sweep.cu"
+BVH_SRC = "vulkan_raytracer_tpu_torch/csrc/bvh_walk.cu"
+# name -> (counter module, counter key, source, TPU kernel it replaces)
+KERNELS = {
+    "dense_closest": ("dense", "closest", DENSE_SRC,
+                      "vulkan_raytracer_tpu/ops/pallas_dense.py:112"),
+    "dense_shadow": ("dense", "shadow", DENSE_SRC,
+                     "vulkan_raytracer_tpu/ops/pallas_dense.py:144"),
+    "dense_emissive_pdf": ("dense", "pdf", DENSE_SRC,
+                           "vulkan_raytracer_tpu/ops/pallas_dense.py:318"),
+    "bvh_walk_closest": ("traverse", "bvh_closest", BVH_SRC,
+                         "vulkan_raytracer_tpu/ops/pallas_bvh.py:425"),
+    "bvh_walk_shadow": ("traverse", "bvh_shadow", BVH_SRC,
+                        "vulkan_raytracer_tpu/ops/pallas_bvh.py:425"),
+    "treelet_walk_closest": ("traverse", "treelet_closest", BVH_SRC,
+                             "vulkan_raytracer_tpu/ops/pallas_bvh.py:727"),
+    "treelet_walk_shadow": ("traverse", "treelet_shadow", BVH_SRC,
+                            "vulkan_raytracer_tpu/ops/pallas_bvh.py:727"),
 }
-SOURCE = "vulkan_raytracer_tpu_torch/csrc/dense_sweep.cu"
 CFG1 = ["-m", "cornell", "-r", "512,512", "-b", "4", "--spp", "64",
         "-c", "0,1,2.4", "-d", "0,0,-1"]
+CFG2 = ["-m", "dragon", "-r", "512,512", "-b", "4", "--spp", "4",
+        "-c", "0,2.2,4.5", "-d", "0,-0.25,-1"]
+CFG2_CAM = ([0.0, 2.2, 4.5], [0.0, -0.25, -1.0])
 
 
 def emit(obj) -> None:
@@ -86,6 +123,24 @@ def soup_scene(n_tris: int, seed: int):
     return s
 
 
+def _bounds(r, n, device):
+    """Per-lane t bounds: t_min EPS or up to 0.5, t_max INF or finite, 20%
+    inactive lanes; shadow bounds up to 6."""
+    import torch
+
+    kind = r.integers(0, 4, n)
+    t_max = np.where(kind == 0, INF, np.where(kind == 1, r.uniform(0.0, 0.3, n),
+                                              r.uniform(0.3, 4.0, n))).astype(np.float32)
+    t_min = np.where(kind == 3, r.uniform(0.0, 0.5, n), EPS).astype(np.float32)
+    t_shadow = r.uniform(0.05, 6.0, n).astype(np.float32)
+    active = r.random(n) < 0.8
+
+    def col(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=device)
+
+    return dict(t_min=col(t_min), t_max=col(t_max), t_shadow=col(t_shadow), active=col(active))
+
+
 def make_rays(n: int, seed: int, device):
     """Random rays inside the Cornell box, with inactive lanes and a mix of
     per-lane t bounds."""
@@ -97,26 +152,73 @@ def make_rays(n: int, seed: int, device):
     o = r.uniform([-0.9, 0.1, -0.9], [0.9, 1.9, 0.9], (n, 3)).astype(np.float32)
     d = r.normal(size=(n, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
-    kind = r.integers(0, 4, n)
-    t_max = np.where(kind == 0, INF, np.where(kind == 1, r.uniform(0.0, 0.3, n),
-                                              r.uniform(0.3, 4.0, n))).astype(np.float32)
-    t_min = np.where(kind == 3, r.uniform(0.0, 0.5, n), EPS).astype(np.float32)
-    active = r.random(n) < 0.8
 
     def col(a):
         return torch.as_tensor(np.ascontiguousarray(a), device=device)
 
-    return dict(
-        o=V3(col(o[:, 0]), col(o[:, 1]), col(o[:, 2])),
-        d=V3(col(d[:, 0]), col(d[:, 1]), col(d[:, 2])),
-        t_min=col(t_min), t_max=col(t_max), active=col(active),
-    )
+    return dict(o=V3(col(o[:, 0]), col(o[:, 1]), col(o[:, 2])),
+                d=V3(col(d[:, 0]), col(d[:, 1]), col(d[:, 2])), **_bounds(r, n, device))
 
 
-def time_ms(fn, reps: int) -> float:
+def bench_wave(tables, n: int, seed: int, device, cam=CFG2_CAM):
+    """A bench-shaped wave of n rays: the first half camera rays of ``cam``
+    (cfg2's by default; 512x512, jittered samples), the rest bounce-like rays leaving
+    random points on random triangles (1e-3 off the surface, either side)
+    in a cosine lobe; per-lane bounds as in :func:`_bounds`, with 60% of
+    the closest-hit bounds unbounded."""
     import torch
 
-    fn()
+    from vulkan_raytracer_tpu_torch.ops.math3 import V3
+    from vulkan_raytracer_tpu_torch.render.integrator import generate_primary_rays
+    from vulkan_raytracer_tpu_torch.render.renderer import camera_uniforms
+    from vulkan_raytracer_tpu_torch.scene.camera import Camera
+
+    r = np.random.default_rng(seed)
+    n_cam = n // 2
+    view_inv, proj_inv = camera_uniforms(
+        Camera(position=np.array(cam[0]), direction=np.array(cam[1])))
+    lanes = torch.arange(n_cam, device=device)
+    o_c, d_c, _ = generate_primary_rays(view_inv, proj_inv, 512, 512,
+                                        1 + lanes // (512 * 512), lanes % (512 * 512))
+
+    n_b = n - n_cam
+    v0, v1, v2 = (np.stack([c.cpu().numpy() for c in v], 1)
+                  for v in (tables.v0, tables.v1, tables.v2))
+    tri = r.integers(0, v0.shape[0], n_b)
+    a, b = r.random(n_b), r.random(n_b)
+    fold = a + b > 1.0
+    a, b = np.where(fold, 1.0 - a, a), np.where(fold, 1.0 - b, b)
+    e1, e2 = v1[tri] - v0[tri], v2[tri] - v0[tri]
+    p = v0[tri] + a[:, None] * e1 + b[:, None] * e2
+    nrm = np.cross(e1, e2)
+    nrm /= np.maximum(np.linalg.norm(nrm, axis=1, keepdims=True), 1e-20)
+    nrm *= np.where(r.random(n_b) < 0.5, 1.0, -1.0)[:, None]
+    tang = np.cross(nrm, [0.577, 0.577, 0.577])
+    tang /= np.maximum(np.linalg.norm(tang, axis=1, keepdims=True), 1e-20)
+    bit = np.cross(nrm, tang)
+    u1, phi = r.random(n_b), 2.0 * np.pi * r.random(n_b)
+    d = (np.sqrt(u1) * np.cos(phi))[:, None] * tang + (np.sqrt(u1) * np.sin(phi))[:, None] * bit \
+        + np.sqrt(1.0 - u1)[:, None] * nrm
+    d /= np.maximum(np.linalg.norm(d, axis=1, keepdims=True), 1e-20)
+    o = (p + 1e-3 * nrm).astype(np.float32)
+    d = d.astype(np.float32)
+
+    def col(x, y):
+        return torch.cat([x, torch.as_tensor(np.ascontiguousarray(y), device=device)])
+
+    bounds = _bounds(r, n, device)
+    # as in a render, most closest-hit lanes are unbounded
+    unbounded = torch.as_tensor(r.random(n) < 0.6, device=device)
+    bounds["t_max"] = torch.where(unbounded, INF, bounds["t_max"]).contiguous()
+    return dict(o=V3(*(col(c, o[:, k]) for k, c in enumerate(o_c))),
+                d=V3(*(col(c, d[:, k]) for k, c in enumerate(d_c))), **bounds)
+
+
+def time_ms(fn, reps: int, warm: bool = True) -> float:
+    import torch
+
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -128,19 +230,19 @@ def time_ms(fn, reps: int) -> float:
 
 
 def _max_abs(a, b) -> float:
-    return float((a.double() - b.double()).abs().max())
+    return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
 
 
 def check_kernels(tables_by_name, ray_counts, device) -> dict:
-    """Kernel vs plain version on the card, for every table and ray count;
-    returns the largest absolute error measured per kernel.  Tri ids,
+    """Dense kernel vs plain version on the card, for every table and ray
+    count; returns the largest absolute error measured per kernel.  Tri ids,
     occlusion flags and t/u/v must be bit-equal; the pdf, at both t_min the
     render uses (EPS and 0.0), within rtol 1e-5 / atol 1e-7."""
     import torch
 
     from vulkan_raytracer_tpu_torch.ops import dense
 
-    err = {k: 0.0 for k in KERNELS}
+    err = {k: 0.0 for k in ("dense_closest", "dense_shadow", "dense_emissive_pdf")}
     seed = 0
     for name, tables in tables_by_name.items():
         table, ptable = tables.tri_table, tables.em_table
@@ -203,8 +305,8 @@ def check_kernels(tables_by_name, ray_counts, device) -> dict:
 
 
 def time_kernels(tables, n: int, device) -> dict:
-    """Each kernel and its plain version at bench cfg1's launch shape (n rays
-    over the Cornell tables), in turns plain, kernel, kernel, plain."""
+    """Each dense kernel and its plain version at bench cfg1's launch shape (n
+    rays over the Cornell tables), in turns plain, kernel, kernel, plain."""
     import torch
 
     from vulkan_raytracer_tpu_torch.ops import dense
@@ -234,6 +336,251 @@ def time_kernels(tables, n: int, device) -> dict:
     return out
 
 
+def _walk_inputs(rays):
+    import torch
+
+    from vulkan_raytracer_tpu_torch.ops import dense
+
+    cols = dense.ray_columns(rays["o"], rays["d"])
+    active = rays["active"]
+    return dict(
+        cols=cols,
+        t_lo=rays["t_min"].contiguous(),
+        t_init=torch.where(active, rays["t_max"], -1.0).contiguous(),
+        t_sh=torch.where(active, rays["t_shadow"], -1.0).contiguous(),
+        zeros=torch.zeros_like(rays["t_min"]),
+    )
+
+
+def check_walks(tables, ray_counts, device) -> dict:
+    """K4' and K5' against their plain versions and against each other on the
+    scene's streams; returns the largest absolute t error per kernel."""
+    import torch
+
+    from vulkan_raytracer_tpu_torch.ops import traverse as tr
+
+    s = tables.pbvh
+    walks = {"bvh_walk": (tr.bvh_walk, tr.bvh_walk_reference),
+             "treelet_walk": (tr.treelet_walk, tr.treelet_walk_reference)}
+    err = {f"{w}_{v}": 0.0 for w in walks for v in ("closest", "shadow")}
+    for i, n in enumerate(ray_counts):
+        x = _walk_inputs(bench_wave(tables, n, seed=50 + i, device=device))
+        cols, t_lo, t_init, t_sh, zeros = (x[k] for k in ("cols", "t_lo", "t_init", "t_sh",
+                                                          "zeros"))
+        out = {}
+        for name, (walk, plain) in walks.items():
+            where = f"{name}, {n} rays"
+            t_k, s_k = walk(s, cols, t_lo, t_init, False)
+            t_p, s_p = plain(s, cols, t_lo, t_init, False)
+            e = _max_abs(t_k, t_p)
+            if e != 0.0 or not torch.equal(s_k, s_p):
+                raise AssertionError(f"{where}: closest differs on {int((s_k != s_p).sum())} "
+                                     f"slots, max abs t error {e}")
+            # lanes bounded at exactly their hit t must still hit
+            t_tie = torch.where(s_p >= 0, t_p, t_init).contiguous()
+            t_k2, s_k2 = walk(s, cols, t_lo, t_tie, False)
+            t_p2, s_p2 = plain(s, cols, t_lo, t_tie, False)
+            e = max(e, _max_abs(t_k2, t_p2))
+            if e != 0.0 or not torch.equal(s_k2, s_p2):
+                raise AssertionError(f"{where}: closest at the hit bound differs from plain")
+            if not torch.equal(s_k2 >= 0, s_p >= 0) or not torch.equal(t_k2, t_p):
+                raise AssertionError(f"{where}: a hit at exactly t_init was dropped")
+            err[f"{name}_closest"] = max(err[f"{name}_closest"], e)
+            o_k, os_k = walk(s, cols, zeros, t_sh, True)
+            o_p, os_p = plain(s, cols, zeros, t_sh, True)
+            e_sh = _max_abs(o_k, o_p)
+            if e_sh != 0.0 or not torch.equal(os_k, os_p):
+                raise AssertionError(f"{where}: shadow differs on {int((os_k != os_p).sum())} "
+                                     "slots")
+            err[f"{name}_shadow"] = max(err[f"{name}_shadow"], e_sh)
+            out[name] = (t_k, tr.slot_to_tri(s, cols, s_k)[0], os_k >= 0)
+        (t4, tri4, occ4), (t5, tri5, occ5) = out["bvh_walk"], out["treelet_walk"]
+        hits = tri4 >= 0
+        same_tri = float((tri4 == tri5)[hits].float().mean())
+        if not (torch.equal(t4, t5) and torch.equal(hits, tri5 >= 0) and torch.equal(occ4, occ5)):
+            raise AssertionError(f"{n} rays: K4' and K5' disagree on t, hits or occlusion")
+        if same_tri < 0.999:
+            raise AssertionError(f"{n} rays: K4' and K5' agree on only {same_tri} of the ids")
+        emit({"phase": "walks", "scene": "cfg2 dragon", "rays": n,
+              "triangles": tables.num_triangles, "nodes": s.num_nodes,
+              "treelets": s.n_treelets, "hits": int(hits.sum()), "occluded": int(occ4.sum()),
+              "k4_vs_k5_t_equal": True, "k4_vs_k5_same_triangle": same_tri,
+              **{f"{k}_max_abs_err": v for k, v in err.items()}})
+    return err
+
+
+def time_walks(tables, n: int, device) -> dict:
+    """K4' and K5' (closest, shadow) and their plain versions at the cfg2 wave,
+    in turns plain, kernel, kernel, plain (the plain versions once per run)."""
+    from vulkan_raytracer_tpu_torch.ops import traverse as tr
+
+    s = tables.pbvh
+    x = _walk_inputs(bench_wave(tables, n, seed=99, device=device))
+    cols, t_lo, t_init, t_sh, zeros = (x[k] for k in ("cols", "t_lo", "t_init", "t_sh", "zeros"))
+    pairs = {}
+    for name, walk, plain in (("bvh_walk", tr.bvh_walk, tr.bvh_walk_reference),
+                              ("treelet_walk", tr.treelet_walk, tr.treelet_walk_reference)):
+        pairs[f"{name}_closest"] = (lambda w=walk: w(s, cols, t_lo, t_init, False),
+                                    lambda p=plain: p(s, cols, t_lo, t_init, False))
+        pairs[f"{name}_shadow"] = (lambda w=walk: w(s, cols, zeros, t_sh, True),
+                                   lambda p=plain: p(s, cols, zeros, t_sh, True))
+    out = {}
+    for name, (kernel, plain) in pairs.items():
+        p1 = time_ms(plain, 1, warm=False)
+        k1, k2 = time_ms(kernel, 10), time_ms(kernel, 10)
+        p2 = time_ms(plain, 1, warm=False)
+        out[name] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+                     "ms_runs": [k1, k2], "plain_ms_runs": [p1, p2]}
+    emit({"phase": "walk_times", "rays": n, "triangles": tables.num_triangles,
+          "k5_over_k4_closest": out["treelet_walk_closest"]["ms"] / out["bvh_walk_closest"]["ms"],
+          "k5_over_k4_shadow": out["treelet_walk_shadow"]["ms"] / out["bvh_walk_shadow"]["ms"],
+          **out})
+    return out
+
+
+def bvh_vs_dense(device) -> None:
+    """The BVH walks against the dense kernels over one 60,000-triangle soup."""
+    import torch
+
+    from vulkan_raytracer_tpu_torch.ops import dense
+    from vulkan_raytracer_tpu_torch.ops import traverse as tr
+
+    tables = soup_scene(60000, seed=11).upload(device, traversal="bvh")
+    n = 32768
+    rays = make_rays(n, seed=12, device=device)
+    o, d, active = rays["o"], rays["d"], rays["active"]
+    t_b, tri_b, _, _ = tr.bvh_closest(tables, o, d, t_min=rays["t_min"], t_max=rays["t_max"],
+                                      active=active)
+    t_d, tri_d, _, _ = dense.dense_closest(tables, o, d, t_min=rays["t_min"],
+                                           t_max=rays["t_max"], active=active)
+    flags = float(((tri_b >= 0) == (tri_d >= 0)).float().mean())
+    same = (tri_b == tri_d) & (tri_b >= 0)
+    t_equal = torch.equal(t_b[same], t_d[same])
+    occ_b = tr.bvh_shadow(tables, o, d, t_max=rays["t_shadow"], active=active)
+    occ_d = dense.dense_shadow(tables, o, d, t_max=rays["t_shadow"], active=active)
+    occ_flags = float((occ_b == occ_d).float().mean())
+    emit({"phase": "bvh_vs_dense", "triangles": tables.num_triangles,
+          "treelets": tables.pbvh.n_treelets, "rays": n, "hits": int((tri_d >= 0).sum()),
+          "hit_flags_equal": flags, "same_triangle": float(same.sum() / (tri_d >= 0).sum()),
+          "t_bit_equal_where_same": t_equal, "occlusion_flags_equal": occ_flags})
+    if flags < 0.9999 or occ_flags < 0.9999 or not t_equal:
+        raise AssertionError("the BVH walks disagree with the dense kernels")
+
+
+def _launch_counts():
+    from vulkan_raytracer_tpu_torch.ops import dense
+    from vulkan_raytracer_tpu_torch.ops import traverse as tr
+
+    return {"dense": dict(dense.LAUNCHES), "traverse": dict(tr.LAUNCHES)}
+
+
+def _reset_launches() -> None:
+    from vulkan_raytracer_tpu_torch.ops import dense
+    from vulkan_raytracer_tpu_torch.ops import traverse as tr
+
+    dense.reset_launches()
+    tr.reset_launches()
+
+
+def render_cfg2(reps: int) -> dict:
+    """Bench cfg2 through the CLI, ``reps`` times; returns the launches of
+    the last run."""
+    from vulkan_raytracer_tpu_torch import cli
+
+    runs = []
+    with tempfile.TemporaryDirectory() as out_dir:
+        for _ in range(reps):
+            _reset_launches()
+            stats = cli.run(CFG2 + ["--device", "cuda", "--output", f"{out_dir}/cfg2.png"])
+            launches = _launch_counts()
+            img = stats["image"]
+            walks = launches["traverse"]
+            if not (walks["treelet_closest"] > 0 and walks["treelet_shadow"] > 0
+                    and launches["dense"]["pdf"] > 0):
+                raise AssertionError(f"cfg2 render missed K5' or K3: launches {launches}")
+            if not np.isfinite(img).all() or img.shape != (512, 512, 3):
+                raise AssertionError(f"cfg2 image not finite or misshapen: {img.shape}")
+            if not img.mean() > 1e-3:
+                raise AssertionError(f"cfg2 image is black (mean {img.mean()})")
+            runs.append(stats)
+            emit({"phase": "render_cfg2", "config": "cfg2 dragon 512x512 depth 4 4 spp",
+                  "seconds": stats["seconds"], "rays": stats["rays"],
+                  "mrays_per_s": stats["mrays_per_s"], "upload": stats["upload"],
+                  "launches": launches, "image_mean": float(img.mean())})
+    secs = [r["seconds"] for r in runs]
+    rates = [r["mrays_per_s"] for r in runs]
+    emit({"phase": "render_cfg2_summary", "renders": reps, "rays": runs[0]["rays"],
+          "seconds_median": statistics.median(secs), "seconds_min": min(secs),
+          "seconds_max": max(secs), "mrays_per_s_median": statistics.median(rates),
+          "mrays_per_s_min": min(rates), "mrays_per_s_max": max(rates),
+          "upload_seconds": [r["upload"]["seconds"] for r in runs]})
+    return launches
+
+
+def bench_configs():
+    """(golden key, scene builder, camera, (gate crop, spp, depth)) of bench
+    cfg2-cfg5 (bench.py:132-148), on the port's procedural scenes."""
+    from vulkan_raytracer_tpu_torch.scene import procedural as P
+
+    def hall_sky():
+        s = P.hall_scene()
+        s.skybox = P.sky_hdr()
+        s.skybox_strength = 1.0
+        return s
+
+    return [
+        ("cfg2_dragon_substitute_262k_512x512_d4", P.dragon_scene, CFG2_CAM, (16, 2, 3)),
+        ("cfg3_chess_substitute_98k_512x512_d6", P.chess_scene,
+         ([0.0, 4.0, 7.0], [0.0, -0.5, -1.0]), (16, 2, 4)),
+        ("cfg4_sponza_substitute_256k_hdrsky_960x540_d4_8spp", hall_sky,
+         ([-9.0, 1.8, 0.0], [1.0, 0.0, 0.0]), (16, 2, 3)),
+        ("cfg5_multimodel_1920x1080_d8_8spp", P.multi_scene,
+         ([-9.0, 2.0, 1.5], [1.0, -0.1, -0.15]), (12, 1, 4)),
+    ]
+
+
+def gates(device) -> None:
+    """The bench gate frames of cfg2-cfg5 on the card against the committed
+    NumPy-oracle goldens."""
+    from vulkan_raytracer_tpu_torch.render.renderer import render_image
+    from vulkan_raytracer_tpu_torch.scene.camera import Camera
+
+    goldens = np.load(ROOT / "bench_goldens.npz")
+    for key, build, (pos, direction), (crop, spp, depth) in bench_configs():
+        tables = build().upload(device)
+        cam = Camera(position=np.array(pos), direction=np.array(direction))
+        img, rays = render_image(tables, cam, crop, crop, spp=spp, max_depth=depth,
+                                 tonemap=False)
+        golden = goldens[f"golden_{key}"]
+        rmse = float(np.sqrt(np.mean((img - golden) ** 2)))
+        emit({"phase": "gate", "config": key, "frame": f"{crop}x{crop} {spp} spp depth {depth}",
+              "rmse": rmse, "bar": RMSE_BAR, "rays": rays,
+              "treelets": tables.pbvh.n_treelets})
+        if not (np.isfinite(img).all() and img.shape == golden.shape and rmse < RMSE_BAR):
+            raise AssertionError(f"{key}: gate RMSE {rmse} (bar {RMSE_BAR})")
+
+
+def _cuda_vs_cpu(tables, cam_args, label):
+    """The same 32x32, 2 spp, depth 3 render on the card and on the CPU."""
+    from vulkan_raytracer_tpu_torch.render.renderer import render_image
+    from vulkan_raytracer_tpu_torch.scene.camera import Camera
+
+    def cam():
+        return Camera(position=np.array(cam_args[0]), direction=np.array(cam_args[1]))
+
+    img_gpu, rays_gpu = render_image(tables, cam(), 32, 32, spp=2, max_depth=3, tonemap=False)
+    img_cpu, rays_cpu = render_image(tables.to("cpu"), cam(), 32, 32, spp=2, max_depth=3,
+                                     tonemap=False)
+    rmse = float(np.sqrt(np.mean((img_gpu - img_cpu) ** 2)))
+    if not (np.isfinite(img_gpu).all() and img_gpu.shape == (32, 32, 3)):
+        raise AssertionError(f"{label}: the 32x32 render on the card is not finite or misshapen")
+    if not rmse < RMSE_BAR:
+        raise AssertionError(f"{label}: port on cuda vs port on cpu RMSE {rmse} >= {RMSE_BAR}")
+    if abs(rays_gpu - rays_cpu) > 1e-3 * rays_cpu:
+        raise AssertionError(f"{label}: ray counts differ: {rays_gpu} on cuda, {rays_cpu} on cpu")
+    return {"rmse": rmse, "bar": RMSE_BAR, "rays_cuda": rays_gpu, "rays_cpu": rays_cpu}
+
+
 def main() -> int:
     if not (ROOT / "vulkan_raytracer_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py: the vulkan_raytracer_tpu_torch package is not beside this "
@@ -254,32 +601,39 @@ def main() -> int:
           "cuda": torch.version.cuda})
 
     # 2. build
-    from vulkan_raytracer_tpu_torch.ops import _ext, dense
+    from vulkan_raytracer_tpu_torch.accel import native
+    from vulkan_raytracer_tpu_torch.ops import _ext
 
     t0 = time.perf_counter()
     lib_path = _ext.build()
     _ext.library()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0, "library": lib_path.name})
+    t1 = time.perf_counter()
+    builder = "native (g++)" if native.get_lib() is not None else "numpy"
+    ptxas = [line.strip() for line in _ext.ptxas_report().splitlines()
+             if "registers" in line or "spill" in line or "Compiling entry" in line]
+    emit({"phase": "build", "seconds": t1 - t0, "library": lib_path.name,
+          "bvh_builder": builder, "bvh_builder_seconds": time.perf_counter() - t1,
+          "ptxas": ptxas})
 
-    # 3. kernels
+    # 3. dense kernels
     from vulkan_raytracer_tpu_torch.scene.builtin import cornell_box_scene
 
     cornell = cornell_box_scene().upload(device)
     soup = soup_scene(1000, seed=7).upload(device)
-    n_cfg1 = 2 * 512 * 512  # lanes of one cfg1 wave
+    n_wave = 2 * 512 * 512  # lanes of one cfg1 or cfg2 wave
     # the cfg1 wave, and a ragged count whose last block is partly past the rays
-    errs = check_kernels({"cornell": cornell, "soup1000": soup}, (n_cfg1, n_cfg1 - 37), device)
-    times = time_kernels(cornell, n_cfg1, device)
+    errs = check_kernels({"cornell": cornell, "soup1000": soup}, (n_wave, n_wave - 37), device)
+    times = time_kernels(cornell, n_wave, device)
 
     # 4. render: the CLI's headless path for bench cfg1
     from vulkan_raytracer_tpu_torch import cli
 
     with tempfile.TemporaryDirectory() as out_dir:
-        dense.reset_launches()
+        _reset_launches()
         stats = cli.run(CFG1 + ["--device", "cuda", "--output", f"{out_dir}/cfg1.png"])
-        launches = dict(dense.LAUNCHES)
+        launches = _launch_counts()
     img = stats["image"]
-    if not all(launches[c] > 0 for c, _ in KERNELS.values()):
+    if not all(launches["dense"][c] > 0 for c in ("closest", "shadow", "pdf")):
         raise AssertionError(f"cfg1 render missed a kernel: launches {launches}")
     if not np.isfinite(img).all() or img.shape != (512, 512, 3):
         raise AssertionError(f"cfg1 image not finite or misshapen: {img.shape}")
@@ -289,37 +643,57 @@ def main() -> int:
           "seconds": stats["seconds"], "rays": stats["rays"],
           "mrays_per_s": stats["mrays_per_s"], "launches": launches,
           "image_mean": float(img.mean())})
+    main_launches = {name: launches[mod][key] for name, (mod, key, _, _) in KERNELS.items()
+                     if mod == "dense"}
 
-    # 5. cpu: the same render through the plain versions on the CPU, which
+    # 5. walks: K4' and K5' against their plain versions on the cfg2 dragon
+    from vulkan_raytracer_tpu_torch.scene import procedural
+
+    dragon = procedural.dragon_scene().upload(device)
+    errs.update(check_walks(dragon, (n_wave, n_wave - 37), device))
+    times.update(time_walks(dragon, n_wave, device))
+
+    # 6. the BVH walks against the dense kernels
+    bvh_vs_dense(device)
+
+    # 7. render: the CLI's headless path for bench cfg2 (K5' and K3)
+    launches = render_cfg2(reps=3)
+    main_launches.update({name: launches["traverse"][key]
+                          for name, (mod, key, _, _) in KERNELS.items()
+                          if key.startswith("treelet")})
+
+    # 8. the gate frames of cfg2-cfg5 against the committed goldens
+    gates(device)
+
+    # 9. a small scene forced onto the BVH path: one treelet, so K4'
+    small = procedural.dragon_scene(detail=12).upload(device, traversal="bvh")
+    if small.pbvh.n_treelets != 1:
+        raise AssertionError(f"the forced-BVH dragon has {small.pbvh.n_treelets} treelets")
+    _reset_launches()
+    forced = _cuda_vs_cpu(small, CFG2_CAM, "forced-BVH dragon")
+    launches = _launch_counts()
+    if not (launches["traverse"]["bvh_closest"] > 0 and launches["traverse"]["bvh_shadow"] > 0):
+        raise AssertionError(f"the forced-BVH render missed K4': launches {launches}")
+    main_launches.update({name: launches["traverse"][key]
+                          for name, (mod, key, _, _) in KERNELS.items()
+                          if key.startswith("bvh")})
+    emit({"phase": "bvh_forced", "config": "dragon detail 12 (712 tris) 32x32 2 spp depth 3",
+          "triangles": small.num_triangles, "launches": launches, **forced})
+
+    # 10. cpu: the Cornell render through the plain versions on the CPU, which
     # the CPU tests hold against the JAX renderer and its NumPy oracle
-    from vulkan_raytracer_tpu_torch.render.renderer import render_image
-    from vulkan_raytracer_tpu_torch.scene.camera import Camera
-
-    def cam():
-        return Camera(position=np.array([0.0, 1.0, 2.4]), direction=np.array([0.0, 0.0, -1.0]))
-
-    img_gpu, rays_gpu = render_image(cornell, cam(), 32, 32, spp=2, max_depth=3, tonemap=False)
-    img_cpu, rays_cpu = render_image(cornell.to("cpu"), cam(), 32, 32, spp=2, max_depth=3,
-                                     tonemap=False)
-    rmse = float(np.sqrt(np.mean((img_gpu - img_cpu) ** 2)))
-    emit({"phase": "cpu", "config": "cornell 32x32 2 spp depth 3", "rmse": rmse,
-          "bar": RMSE_BAR, "rays_cuda": rays_gpu, "rays_cpu": rays_cpu})
-    if not (np.isfinite(img_gpu).all() and img_gpu.shape == (32, 32, 3)):
-        raise AssertionError("the 32x32 render on the card is not finite or misshapen")
-    if not rmse < RMSE_BAR:
-        raise AssertionError(f"port on cuda vs port on cpu RMSE {rmse} >= {RMSE_BAR}")
-    if abs(rays_gpu - rays_cpu) > 1e-3 * rays_cpu:
-        raise AssertionError(f"ray counts differ: {rays_gpu} on cuda, {rays_cpu} on cpu")
+    cpu = _cuda_vs_cpu(cornell, ([0.0, 1.0, 2.4], [0.0, 0.0, -1.0]), "cornell")
+    emit({"phase": "cpu", "config": "cornell 32x32 2 spp depth 3", **cpu})
     imported = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "vulkan_raytracer_tpu"))
     if imported:
         raise AssertionError(f"the port imported {imported}")
 
     emit({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
-         "launches": launches[counter], "max_abs_err": errs[name],
+        {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+         "launches": main_launches[name], "max_abs_err": errs[name],
          "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"]}
-        for name, (counter, replaces) in KERNELS.items()
+        for name, (_, _, source, replaces) in KERNELS.items()
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

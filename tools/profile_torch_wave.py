@@ -1,19 +1,21 @@
 #!/usr/bin/env python3
-"""Where one bench-cfg1 wave of the torch port spends its time on a card.
+"""Where one bench wave of the torch port spends its time on a card.
 
-    python3 tools/profile_torch_cfg1.py [--reps 3] [--out FILE.json]
+    python3 tools/profile_torch_wave.py [--config cfg1|cfg2] [--reps 3] [--out FILE.json]
 
 Run from the root of a checkout on a machine with an NVIDIA card.  It
-renders one wave of bench cfg1 (built-in Cornell, 512x512, depth 4: samples
-1 and 2 of all 262,144 pixels, 524,288 lanes, exactly the first of the 32
-waves ``render_image`` runs) through ``renderer._render_wave``:
+renders one wave of a bench configuration at 512x512, depth 4: samples 1
+and 2 of all 262,144 pixels, 524,288 lanes, exactly the first wave
+``render_image`` runs (of 32 for cfg1, the built-in Cornell box on the dense
+kernels; of 2 for cfg2, the 262,280-triangle dragon on the BVH walks),
+through ``renderer._render_wave``:
 
 1. once to build the kernels and warm the allocator;
 2. ``--reps`` times unprofiled: the wall of each, CUDA-synchronised;
 3. once under ``torch.profiler`` (CPU + CUDA activities): the same wave's
    wall, and from its trace the device kernels (count, summed time, the
-   span they cover), the aten ops the host issued, and the dense kernels'
-   share of the device time.
+   span they cover), the aten ops the host issued, and the hand-written
+   kernels' share of the device time.
 
 It prints one JSON object (and writes it to ``--out`` if given).  The device
 busy share is kernel time over wall, against the profiled wall (the same
@@ -39,7 +41,14 @@ ROOT = Path(__file__).resolve().parent.parent
 WIDTH = HEIGHT = 512
 DEPTH = 4
 SAMPLES = [1, 2]  # the first wave of a 64-spp render_image (start_sample 1)
-DENSE_KERNELS = ("closest_kernel", "shadow_kernel", "pdf_kernel")
+#: the port's hand-written kernels, by the names the trace gives them
+PORT_KERNELS = ("closest_kernel", "shadow_kernel", "pdf_kernel", "bvh_walk_kernel",
+                "treelet_walk_kernel")
+#: config -> (scene, camera position, camera direction)
+CONFIGS = {
+    "cfg1": ("cornell", [0.0, 1.0, 2.4], [0.0, 0.0, -1.0]),
+    "cfg2": ("dragon", [0.0, 2.2, 4.5], [0.0, -0.25, -1.0]),
+}
 
 
 def _wave(tables, camera):
@@ -89,15 +98,14 @@ def _trace_summary(prof) -> dict:
     by_name: dict[str, float] = {}
     for name, s, e in kernels:
         by_name[name] = by_name.get(name, 0.0) + (e - s)
-    dense_us = sum(us for name, us in by_name.items()
-                   if any(k in name for k in DENSE_KERNELS))
+    port_us = {k: sum(us for name, us in by_name.items() if k in name) for k in PORT_KERNELS}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {
         "device_events": len(kernels),
         "kernel_ms_sum": sum(e - s for _, s, e in kernels) / 1e3,
         "kernel_ms_busy": busy_us / 1e3,
         "kernel_span_ms": (kernels[-1][2] - kernels[0][1]) / 1e3,
-        "dense_kernel_ms": dense_us / 1e3,
+        "port_kernel_ms": {k: us / 1e3 for k, us in port_us.items() if us},
         "aten_ops": aten,
         "aten_ops_top_level": aten_top,
         "top_kernels_ms": {name[:80]: us / 1e3 for name, us in top},
@@ -106,6 +114,7 @@ def _trace_summary(prof) -> dict:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--config", choices=sorted(CONFIGS), default="cfg1")
     p.add_argument("--reps", type=int, default=3)
     p.add_argument("--out", default=None)
     args = p.parse_args(argv)
@@ -113,15 +122,16 @@ def main(argv=None) -> int:
     import torch
 
     if not torch.cuda.is_available():
-        print("profile_torch_cfg1.py: needs an NVIDIA card", file=sys.stderr)
+        print("profile_torch_wave.py: needs an NVIDIA card", file=sys.stderr)
         return 2
-    from vulkan_raytracer_tpu_torch.scene.builtin import cornell_box_scene
+    from vulkan_raytracer_tpu_torch.cli import BUILTIN_SCENES
     from vulkan_raytracer_tpu_torch.scene.camera import Camera
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
-    tables = cornell_box_scene().upload("cuda")
-    camera = Camera(position=np.array([0.0, 1.0, 2.4]), direction=np.array([0.0, 0.0, -1.0]),
+    scene, pos, direction = CONFIGS[args.config]
+    tables = BUILTIN_SCENES[scene]().upload("cuda")
+    camera = Camera(position=np.array(pos), direction=np.array(direction),
                     aspect=WIDTH / HEIGHT)
     run = _wave(tables, camera)
     warm_s, _, rays = _timed(run)
@@ -133,7 +143,7 @@ def main(argv=None) -> int:
     trace = _trace_summary(prof)
     median = statistics.median(walls)
     out = {
-        "config": "cfg1 wave: cornell 512x512 depth 4, samples 1-2, 524,288 lanes",
+        "config": f"{args.config} wave: {scene} 512x512 depth 4, samples 1-2, 524,288 lanes",
         "nvidia_smi": smi, "torch": torch.__version__,
         "rays": rays, "rays_profiled": prof_rays,
         "radiance_finite": bool(torch.isfinite(radiance).all()),

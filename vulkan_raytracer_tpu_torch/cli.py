@@ -8,11 +8,17 @@ Radiance .hdr) and logs the same ``Mrays/s`` line:
     python -m vulkan_raytracer_tpu_torch.cli -m cornell -r 512,512 -b 4 \\
         --spp 64 -c 0,1,2.4 -d 0,0,-1 --output out.png
 
-Only the built-in ``cornell`` scene is ported; glTF files and the other
-built-in scenes, and ``--progressive``, ``--interactive``, ``--shard``,
-``--trace``, ``--checkpoint`` and ``--resume`` raise ``NotImplementedError``
-naming the ROADMAP item that ports them.  ``--device cuda`` without a card
-is an error: the CLI never falls back to the CPU.
+The built-in scenes of the JAX CLI (``cornell``, ``soup``, ``glass``,
+``hall``, ``dragon``, ``chess``) are ported; glTF files, ``--progressive``,
+``--interactive``, ``--shard``, ``--trace``, ``--checkpoint`` and
+``--resume`` raise ``NotImplementedError`` naming the ROADMAP item that ports
+them.  Bench cfg2 (the dragon, 262,280 triangles, on the BVH kernels):
+
+    python -m vulkan_raytracer_tpu_torch.cli -m dragon -r 512,512 -b 4 \\
+        --spp 4 -c 0,2.2,4.5 -d 0,-0.25,-1 --output out.png
+
+``--device cuda`` without a card is an error: the CLI never falls back to
+the CPU.
 """
 
 from __future__ import annotations
@@ -28,8 +34,9 @@ import torch
 
 from .ops.tonemap import reinhard_jodie
 from .render.renderer import render_image
-from .scene.builtin import cornell_box_scene
+from .scene.builtin import cornell_box_scene, glass_sphere_scene, triangle_soup_scene
 from .scene.camera import Camera
+from .scene.procedural import chess_scene, dragon_scene, hall_scene
 from .scene.scenegraph import Scene
 from .utils import logging as log
 from .utils.image import load_texture, write_hdr, write_png
@@ -40,7 +47,14 @@ DEFAULT_CAMERA_POS = (0.0, 1.0, 3.0)  # main.cpp:14
 DEFAULT_CAMERA_DIR = (0.0, 0.0, -1.0)  # main.cpp:15
 DEFAULT_SKYBOX = "hilly_terrain_01_4k.hdr"  # main.cpp:138
 
-BUILTIN_SCENES = {"cornell": cornell_box_scene}
+BUILTIN_SCENES = {  # vulkan_raytracer_tpu/cli.py:50-57
+    "cornell": cornell_box_scene,
+    "soup": triangle_soup_scene,
+    "glass": glass_sphere_scene,
+    "hall": hall_scene,  # bench cfg4 stand-in
+    "dragon": dragon_scene,  # bench cfg2 stand-in
+    "chess": chess_scene,  # bench cfg3 stand-in
+}
 
 #: flags of the JAX CLI whose code paths are not ported yet -> ROADMAP item
 _NOT_PORTED = {
@@ -134,8 +148,8 @@ def load_scene(args) -> Scene:
     models = args.models or ["cornell"]
     if len(models) != 1 or models[0] not in BUILTIN_SCENES:
         raise NotImplementedError(
-            f"models {models}: only the built-in {sorted(BUILTIN_SCENES)} scene is ported "
-            "to the torch package; glTF import is ROADMAP.md Queue 1 #7"
+            f"models {models}: the torch package takes one built-in scene of "
+            f"{sorted(BUILTIN_SCENES)}; glTF import is ROADMAP.md Queue 1 #7"
         )
     if args.translations or args.rotations or args.scales:
         raise NotImplementedError("model transforms apply to glTF models, which are not ported")
@@ -166,7 +180,8 @@ def resolve_device(name: str) -> torch.device:
 
 def run(argv=None) -> dict:
     """The headless render behind :func:`main`; returns its statistics
-    (``rays``, ``seconds``, ``mrays_per_s``, ``image`` linear mean)."""
+    (``rays``, ``seconds``, ``mrays_per_s``, ``image`` linear mean, and
+    ``upload``: the scene upload's seconds and counts)."""
     args = build_parser().parse_args(argv)
     for flag, item in _NOT_PORTED.items():
         if getattr(args, flag):
@@ -177,8 +192,10 @@ def run(argv=None) -> dict:
     width, height = args.resolution
 
     scene = load_scene(args)
-    with log.Timer("scene upload"):
-        tables = scene.upload(device)
+    t_up = time.perf_counter()
+    tables = scene.upload(device)
+    upload = dict(scene.upload_stats, seconds=time.perf_counter() - t_up)
+    log.info("scene upload took %.3fs", upload["seconds"])
 
     cam_pos = _parse_floats(args.camera_position, 3, "camera-position", DEFAULT_CAMERA_POS)
     cam_dir = _parse_floats(args.camera_direction, 3, "camera-direction", DEFAULT_CAMERA_DIR)
@@ -200,7 +217,8 @@ def run(argv=None) -> dict:
     if args.hdr_output:
         write_hdr(args.hdr_output, mean)
         log.info("wrote %s (same accumulation as the PNG)", args.hdr_output)
-    return {"rays": rays, "seconds": dt, "mrays_per_s": rays / dt / 1e6, "image": mean}
+    return {"rays": rays, "seconds": dt, "mrays_per_s": rays / dt / 1e6, "image": mean,
+            "upload": upload}
 
 
 def main(argv=None) -> int:

@@ -1,10 +1,13 @@
-"""Build and load the hand-written CUDA kernels.
+"""Build, load and launch the hand-written CUDA kernels.
 
-``csrc/*.cu`` is compiled on first use with ``nvcc`` into a shared library
+``csrc/*.cu`` is compiled on first use with ``nvcc`` into one shared library
 with a plain C interface and loaded with :mod:`ctypes` (no PyTorch headers,
-so a build takes seconds).  The library lands in
-``vulkan_raytracer_tpu_torch/build/``, named by a hash of the sources and the
-flags, so an edited source builds anew and an unchanged one is reused.
+so a build takes seconds).  Each source compiles to an object file in its
+own ``nvcc`` process, all started together, and one link makes the library.
+It lands in ``vulkan_raytracer_tpu_torch/build/``, named by a hash of the
+sources and the flags, so an edited source builds anew and an unchanged one
+is reused.  ptxas's per-kernel report (registers, shared memory, spills) is
+kept beside it as ``<library>.ptxas.txt``.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, and ``--fmad=false -prec-div=true
 -prec-sqrt=true`` without ``--use_fast_math``, so the kernels round exactly
@@ -24,27 +27,38 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = (CSRC / "dense_sweep.cu",)
+SOURCES = (CSRC / "dense_sweep.cu", CSRC / "bvh_walk.cu")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3",
     "--fmad=false", "-prec-div=true", "-prec-sqrt=true",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
-#: argtypes of each C launcher: (device, table, n_tris, 6 ray columns, ...)
+_RAYS = [_P] * 6  # ox, oy, oz, dx, dy, dz
+_STREAMS = [_P, _P, _P, _I, _I, _I]  # nodes_f, nodes_i, leaves, num_nodes, n_leaves, leaf_size
+
+#: argtypes of each C launcher, the device index first and the stream last
 _SIGNATURES = {
-    "dense_closest_launch": [_I, _P, _I] + [_P] * 6 + [_P, _P, _P, _P, _I, _P],
-    "dense_shadow_launch": [_I, _P, _I] + [_P] * 6 + [_P, _P, _I, _P],
-    "dense_pdf_launch": [_I, _P, _I] + [_P] * 6 + [_P, _F, _P, _I, _P],
+    # (device, table, n_tris, rays, ...)
+    "dense_closest_launch": [_I, _P, _I] + _RAYS + [_P, _P, _P, _P, _I, _P],
+    "dense_shadow_launch": [_I, _P, _I] + _RAYS + [_P, _P, _I, _P],
+    "dense_pdf_launch": [_I, _P, _I] + _RAYS + [_P, _F, _P, _I, _P],
+    # (device, shadow, streams, [tl_box, tl_lim, n_treelets,] rays, t_lo, t_init,
+    #  t_out, slot_out, n_rays, stream)
+    "bvh_walk_launch": [_I, _I] + _STREAMS + _RAYS + [_P, _P, _P, _P, _I, _P],
+    "treelet_walk_launch": [_I, _I] + _STREAMS + [_P, _P, _I] + _RAYS
+    + [_P, _P, _P, _P, _I, _P],
 }
 
 
@@ -70,21 +84,47 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
-def build() -> Path:
-    """Compile the kernels if no library for these sources exists yet."""
-    out = BUILD_DIR / f"libvkrt_dense_{_digest()}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+def _run(cmd) -> str:
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
             f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
         )
+    return proc.stdout + proc.stderr
+
+
+def build() -> Path:
+    """Compile the kernels if no library for these sources exists yet."""
+    out = BUILD_DIR / f"libvkrt_kernels_{_digest()}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in SOURCES]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    report = []
+    for cmd, proc in zip(cmds, procs):
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{text}")
+        report.append(text)
+    tmp = BUILD_DIR / f"{tag}.so.tmp"
+    _run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)])
+    for obj in objs:
+        obj.unlink()
+    out.with_suffix(".ptxas.txt").write_text("".join(report))
     os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
     return out
+
+
+def ptxas_report() -> str:
+    """ptxas's register / shared-memory / spill lines for the built library."""
+    path = build().with_suffix(".ptxas.txt")
+    return path.read_text() if path.exists() else ""
 
 
 @functools.lru_cache(maxsize=1)
@@ -105,3 +145,13 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     if code != 0:
         msg = lib.dense_sweep_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def launch(fn: str, device: torch.device, *args) -> None:
+    """Call C launcher ``fn`` on ``device``'s current stream; tensors pass as
+    pointers, Python ints and floats as they are.  Raises on a CUDA error."""
+    lib = library()
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    check(lib, getattr(lib, fn)(index, *c_args, stream), fn)

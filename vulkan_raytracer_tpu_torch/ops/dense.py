@@ -28,7 +28,8 @@ import torch
 from . import _ext
 from .math3 import V3, v3_gather
 
-#: Scenes above this many triangles need the BVH kernels (not ported yet).
+#: Scenes above this many triangles are uploaded with BVH streams and walk
+#: them (ops/traverse.py); this kernel itself has no triangle cap.
 DENSE_MAX_TRIS = 65536
 #: Emissive sets above this size need the emissive-BVH probe (not ported yet).
 EMISSIVE_MAX_TRIS = 1024
@@ -94,11 +95,13 @@ def _lanes(x, n, device):
 # ---------------------------------------------------------------------------
 
 
-def _mt_chunk(rows, rays):
-    """Möller-Trumbore on (C, 1) triangle rows x (1, N) rays, in the kernel's
-    operation order.  Returns (inside, u, v, t)."""
-    ox, oy, oz, dx, dy, dz = (r[None, :] for r in rays)
-    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = rows[:9]
+def mt(tri, ray):
+    """Möller-Trumbore in the kernels' operation order (csrc ``mt_test``,
+    pallas_dense.py:55-85), broadcasting ``tri`` (9 tensors: v0.xyz,
+    e1.xyz, e2.xyz) against ``ray`` (6 tensors: o.xyz, d.xyz).  Returns
+    (inside, u, v, t)."""
+    ox, oy, oz, dx, dy, dz = ray
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = tri
     px = dy * e2z - dz * e2y
     py = dz * e2x - dx * e2z
     pz = dx * e2y - dy * e2x
@@ -116,6 +119,11 @@ def _mt_chunk(rows, rays):
     t = (e2x * qx + e2y * qy + e2z * qz) * inv
     inside = ~near0 & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
     return inside, u, v, t
+
+
+def _mt_chunk(rows, rays):
+    """Möller-Trumbore on (C, 1) triangle rows x (1, N) rays."""
+    return mt(rows[:9], [r[None, :] for r in rays])
 
 
 def _chunks(table):
@@ -207,16 +215,9 @@ def _check_launch(table, rows: int, columns, n: int):
 
 
 def _launch(name, fn, table, args, n):
-    """Call one C launcher on the current stream and count it; raise on a
-    CUDA error.  ``args`` follow the table in the C signature: tensors pass
-    as pointers, Python floats as floats."""
-    lib = _ext.library()
-    dev = table.device
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    code = getattr(lib, fn)(index, table.data_ptr(), table.shape[1], *c_args, n, stream)
-    _ext.check(lib, code, fn)
+    """Launch one kernel over the table and count it; ``args`` follow the
+    table in the C signature."""
+    _ext.launch(fn, table.device, table, table.shape[1], *args, n)
     LAUNCHES[name] += 1
 
 

@@ -4,9 +4,10 @@ Port of :mod:`vulkan_raytracer_tpu.render.integrator` for the main path:
 every pixel sample is a lane, the bounce loop is a Python loop that stops
 once no lane is alive, and each ``traceRayEXT`` of the reference
 (shaders/raygen.rgen, lightsample.glsl) is one dense sweep from
-:mod:`vulkan_raytracer_tpu_torch.ops.dense`, which launches a CUDA kernel on
-CUDA tensors.  All vector state is in component form (``V3`` of (N,)
-tensors).  The algorithm, its RNG draw order and its quirks are the JAX
+:mod:`vulkan_raytracer_tpu_torch.ops.dense` or, for a scene uploaded with
+BVH streams, one BVH walk from :mod:`vulkan_raytracer_tpu_torch.ops.traverse`;
+each launches a CUDA kernel on CUDA tensors.  All vector state is in
+component form (``V3`` of (N,) tensors).  The algorithm, its RNG draw order and its quirks are the JAX
 module's (integrator.py:13-27): NEE runs with the throughput that already
 includes the current hit's estimator, paths end on emissive hits weighted
 against NEE by the balance heuristic, and sample 0 is the preview sample.
@@ -14,10 +15,11 @@ against NEE by the balance heuristic, and sample 0 is the preview sample.
 The port takes the JAX package's default settings as fixed: the skybox
 fetch is deferred to one lookup after the loop, NEE prunes lanes whose
 contribution is zero regardless of occlusion, and there is no wavefront
-re-sort or width ladder (they only switch on for beam-walked BVH scenes).
-Scenes that need a path not ported yet raise ``NotImplementedError``:
-alpha, textures, more than ``DENSE_MAX_TRIS`` triangles (the BVH kernels)
-or more than ``EMISSIVE_MAX_TRIS`` emissive triangles (the emissive BVH).
+re-sort or width ladder (estimator-invariant permutations tuned for the
+TPU's packets; ROADMAP.md Queue 1 #10 keeps them for an H100 A/B).  Scenes
+that need a path not ported yet raise ``NotImplementedError``: alpha,
+textures or more than ``EMISSIVE_MAX_TRIS`` emissive triangles (the
+emissive BVH).
 """
 
 from __future__ import annotations
@@ -26,15 +28,10 @@ import torch
 
 from ..ops import rng
 from ..ops.bsdf import HitInfo, HitMaterial, material_bsdf, material_pdf, sample_material
-from ..ops.dense import (
-    DENSE_MAX_TRIS,
-    EMISSIVE_MAX_TRIS,
-    dense_closest,
-    dense_emissive_pdf,
-    dense_shadow,
-)
+from ..ops.dense import EMISSIVE_MAX_TRIS, dense_closest, dense_emissive_pdf, dense_shadow
 from ..ops.math3 import BIAS, EPS, INF, V3, v3_from_tangent, v3_gather, v3_onb, v3_to_tangent
 from ..ops.texture import sample_equirect
+from ..ops.traverse import bvh_closest, bvh_shadow
 
 _F32 = torch.float32
 
@@ -51,12 +48,6 @@ def check_supported(tables) -> None:
             "textured materials need sample_bilinear, which is not ported to the "
             "torch package yet (ROADMAP.md Queue 1 #8)"
         )
-    if tables.num_triangles > DENSE_MAX_TRIS:
-        raise NotImplementedError(
-            f"{tables.num_triangles} triangles exceed the dense path's "
-            f"{DENSE_MAX_TRIS}; the BVH kernels are not ported yet (ROADMAP.md "
-            "Queue 1 #10, Queue 2 #4-#5)"
-        )
     if tables.num_emissive_tris > EMISSIVE_MAX_TRIS:
         raise NotImplementedError(
             f"{tables.num_emissive_tris} emissive triangles exceed "
@@ -66,16 +57,20 @@ def check_supported(tables) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Traversal dispatch (integrator.py:105-299): every scene the port takes is
-# a dense-path scene, so each query is one dense sweep.
+# Traversal dispatch (integrator.py:105-127, 270-299): a scene uploaded with
+# BVH streams walks them; every other scene takes the dense sweeps.
 # ---------------------------------------------------------------------------
 
 
 def _closest_opaque(tables, o: V3, d: V3, *, t_min, t_max, active):
+    if tables.pbvh is not None:
+        return bvh_closest(tables, o, d, t_min=t_min, t_max=t_max, active=active)
     return dense_closest(tables, o, d, t_min=t_min, t_max=t_max, active=active)
 
 
 def _shadow_unsorted(tables, o: V3, d: V3, *, t_max, active):
+    if tables.pbvh is not None:
+        return bvh_shadow(tables, o, d, t_max=t_max, active=active)
     return dense_shadow(tables, o, d, t_max=t_max, active=active)
 
 

@@ -5,6 +5,8 @@
 ``SceneTables`` whose array leaves have been turned into numpy arrays (for
 example ``jax.tree_util.tree_map(np.asarray, tables)``).  It reads attributes
 only and imports no jax, so the same scene data can feed both packages.
+The JAX ``ThreadedBVH`` is carried over bit for bit, and the port builds its
+own BVH streams from it (``ops/traverse.py``) under the port's upload rule.
 """
 
 from __future__ import annotations
@@ -14,8 +16,11 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..accel.bvh import ThreadedBVH
+from ..ops import dense
 from ..ops.math3 import V3
 from ..ops.texture import EnvMap, TextureAtlas
+from ..ops.traverse import TREELET_TRIS, build_streams
 from .scenegraph import AlphaTables, EmissivePDFTables, MaterialTable, SceneTables
 
 #: SceneTables fields that are not arrays (counts and flags)
@@ -43,13 +48,36 @@ def _record(cls, src, device):
     return cls(**out)
 
 
-def tables_from_numpy(src, device="cpu") -> SceneTables:
-    """The port's SceneTables, on ``device``, from numpy-leaved JAX tables."""
+def _bvh_from_numpy(src, device="cpu") -> ThreadedBVH:
+    """The port's ThreadedBVH from a numpy-leaved JAX one (bit for bit)."""
+    return ThreadedBVH(
+        **{f.name: _tensor(getattr(src, f.name), device)
+           for f in dataclasses.fields(ThreadedBVH) if f.name != "leaf_size"},
+        leaf_size=int(src.leaf_size),
+    )
+
+
+def tables_from_numpy(src, device="cpu", traversal: str = "auto",
+                      max_tris: int = TREELET_TRIS) -> SceneTables:
+    """The port's SceneTables, on ``device``, from numpy-leaved JAX tables.
+
+    As ``Scene.upload`` does, the BVH and its streams (cut at ``max_tris``
+    triangle slots per treelet) come along for scenes above
+    ``DENSE_MAX_TRIS`` triangles, or for any scene with ``traversal="bvh"``.
+    """
     device = torch.device(device)
     sky = src.skybox
     fields = {}
+    if traversal == "bvh" or np.asarray(src.v0.x).shape[0] > dense.DENSE_MAX_TRIS:
+        bvh = _bvh_from_numpy(src.bvh)
+        fields["bvh"] = bvh.to(device)
+        fields["pbvh"] = build_streams(bvh, max_tris=max_tris).to(device)
+    elif traversal != "auto":
+        raise ValueError(f"traversal must be 'auto' or 'bvh', not {traversal!r}")
     for f in dataclasses.fields(SceneTables):
         name = f.name
+        if name in ("bvh", "pbvh"):
+            continue
         val = getattr(src, name)
         if name in _STATIC:
             fields[name] = val

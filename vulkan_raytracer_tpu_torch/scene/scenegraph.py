@@ -7,9 +7,12 @@ PODs (:class:`Material`, :class:`PointLight`, :class:`DirectionalLight`,
 (``_upload_flattened``, scenegraph.py:1101-1300), which emits world-space
 triangle columns, the emissive CDF and the pdf-probe tables in DFS order.
 
-Not ported yet: the BVH, grid and packet-BVH builds (the port's dense
-kernels take every scene up to ``DENSE_MAX_TRIS`` triangles), instancing,
-refit, and glTF import (``load_model``).
+Scenes above ``DENSE_MAX_TRIS`` triangles (or any scene uploaded with
+``traversal="bvh"``) also get their threaded BVH (``accel/bvh.py``) and its
+per-octant streams (``ops/traverse.py``), which the integrator walks with the
+BVH kernels; smaller scenes take the dense sweeps.  Not ported yet: the grid
+(the do-not-port list), the emissive BVH, instancing, refit and glTF import
+(``load_model``).
 
 :class:`SceneTables` keeps the JAX field names, so the NumPy oracle
 (``vulkan_raytracer_tpu.render.oracle``), which duck-types its input, reads
@@ -20,12 +23,15 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
-from ..ops import dense
+from ..accel import native
+from ..accel.bvh import ThreadedBVH, build_bvh
+from ..ops import dense, traverse
 from ..ops.math3 import V3
 from ..ops.texture import EnvMap, TextureAtlas, pack_envmap, pack_textures
 from ..utils import logging as log
@@ -170,8 +176,9 @@ class EmissivePDFTables:
 @dataclass(frozen=True)
 class SceneTables:
     """Everything the integrator needs, flat on one device (the JAX
-    SceneTables' fields, scenegraph.py:166-247, without the acceleration
-    structures and instancing)."""
+    SceneTables' fields, scenegraph.py:166-247, without the grid, the
+    emissive BVH and instancing).  ``bvh`` and ``pbvh`` (the BVH streams)
+    are None for a scene on the dense path."""
 
     v0: V3
     v1: V3
@@ -211,6 +218,8 @@ class SceneTables:
     has_alpha: bool
     has_blend: bool
     has_textures: bool
+    bvh: ThreadedBVH | None = None
+    pbvh: traverse.BVHStreams | None = None
 
     @property
     def num_triangles(self) -> int:
@@ -259,6 +268,7 @@ class Scene:
         self.textures: list[np.ndarray] = []  # (H, W, 4) f32 each
         self.skybox: np.ndarray | None = None  # (H, W, 3) f32
         self.skybox_strength: float = 1.0
+        self.upload_stats: dict = {}  # counts and set-up seconds of the last upload
 
     # -- graph ----------------------------------------------------------
 
@@ -352,10 +362,18 @@ class Scene:
         acut_by_mat = np.array([m.alpha_cutoff for m in mats], np.float32)
         return mt, mode_by_mat, aval_by_mat, acut_by_mat
 
-    def upload(self, device="cpu") -> SceneTables:
+    def upload(self, device="cpu", traversal: str = "auto") -> SceneTables:
         """Flatten every (node, primitive) instance to world space and build
         the tables on ``device`` (Scene::uploadResources, scene.cpp:281-342;
-        the JAX package's _upload_flattened without the BVH builds)."""
+        the JAX package's _upload_flattened, scenegraph.py:1101-1300).
+
+        ``traversal="auto"`` builds the BVH and its streams for scenes above
+        ``DENSE_MAX_TRIS`` triangles; ``"bvh"`` builds them for any scene
+        (the explicit form of the JAX package's ``VKRT_FORCE_PACKET``).  The
+        seconds of the BVH build, the stream build and the copy of both to
+        the device are logged and kept in ``self.upload_stats``."""
+        if traversal not in ("auto", "bvh"):
+            raise ValueError(f"traversal must be 'auto' or 'bvh', not {traversal!r}")
         device = torch.device(device)
         v0s, v1s, v2s = [], [], []
         n_tris, tg_tris, uv_tris = [], [], []
@@ -472,6 +490,11 @@ class Scene:
             tri_base, max(len(self.materials), 1), len(pls), len(dls), num_em, device,
         )
 
+        bvh = pbvh = None
+        self.upload_stats = {"triangles": tri_base}
+        if traversal == "bvh" or tri_base > dense.DENSE_MAX_TRIS:
+            bvh, pbvh = self._build_bvh(v0, v1, v2, device)
+
         uv_flat = tri_uv.reshape(tri_uv.shape[0], 6)
         return SceneTables(
             v0=vcomp(v0), v1=vcomp(v1), v2=vcomp(v2),
@@ -505,4 +528,28 @@ class Scene:
             has_alpha=has_alpha,
             has_blend=has_blend,
             has_textures=bool(self.textures),
+            bvh=bvh,
+            pbvh=pbvh,
         )
+
+    def _build_bvh(self, v0, v1, v2, device):
+        """The threaded BVH and its streams on ``device``, timed apart."""
+        t0 = time.perf_counter()
+        bvh = build_bvh(v0, v1, v2)
+        t1 = time.perf_counter()
+        pbvh = traverse.build_streams(bvh)
+        t2 = time.perf_counter()
+        bvh, pbvh = bvh.to(device), pbvh.to(device)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t3 = time.perf_counter()
+        builder = "native" if native.get_lib() is not None else "numpy"
+        self.upload_stats.update(
+            bvh_builder=builder, bvh_seconds=t1 - t0, streams_seconds=t2 - t1,
+            copy_seconds=t3 - t2, nodes=bvh.num_nodes, treelets=pbvh.n_treelets)
+        log.info(
+            "BVH: %d nodes, %d treelets; build %.3fs (%s builder), streams %.3fs, "
+            "copy to %s %.3fs", bvh.num_nodes, pbvh.n_treelets, t1 - t0, builder,
+            t2 - t1, device, t3 - t2,
+        )
+        return bvh, pbvh
