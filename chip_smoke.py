@@ -44,15 +44,37 @@ nonzero exit code:
    against the same render on the CPU, where the port runs the plain
    versions that tests/test_torch_render.py holds against the JAX renderer
    and its NumPy oracle; per-pixel RMSE < 2e-3, ray counts within 0.1%.
+11. gltf_dense — the small textured .glb of tests/test_textured_glb.py
+   (written jax-free by tools/torch_glb_assets.py: PNG and JPEG textures, a
+   normal map, MASK and BLEND alpha, an emissive texture, a sparse
+   accessor) through ``Scene.load_model``: 12 triangles, 6 textures (none
+   1x1, the JPEG one 8x8), alpha and textures flagged; then the CLI's
+   headless path on ``cuda`` at 512x512, depth 4, 16 spp, camera 0,0,2.8 ->
+   0,0,-1.  It must launch K1 and K3 and give a finite, lit image; seconds,
+   Mrays/s and the alpha loop's iterations per ``_closest`` call.
+12. gltf_bvh — the gallery-class .glb of tests/test_bigasset_glb.py (147,136
+   triangles, 9 materials, 5 textures) through ``cli.run`` on ``cuda``, three
+   times at 512x512, depth 4, 4 spp, camera 0,1.7,4.6 -> 0,-0.28,-1; each
+   must launch K5' closest and K3.  Load (parse, image decode) and upload
+   (BVH build, streams, copy) seconds apart from the render's.
+13. gltf_parity — both containers at 32x32, 2 spp, depth 3 on ``cuda``
+   against the same render on the CPU, and the small one once more uploaded
+   with ``traversal="bvh"`` (K4' closest runs the alpha loop): RMSE < 2e-3,
+   ray counts within 0.1%.  tests/test_torch_gltf.py and
+   tests/test_torch_alpha.py tie the CPU renders to the JAX renders and the
+   NumPy oracle.
 
-Then it prints the kernel summary (one JSON object), the nvidia-smi line,
-and, last, ``{"ok": true, "device": {...}}``.  Neither the script nor the
-port imports jax or the JAX package; phase 10 checks that.
+Then it prints the kernel summary (one JSON object: each kernel's launches
+over the paths driven with reset counters, and the phases that launched
+it), the nvidia-smi line, and, last, ``{"ok": true, "device": {...}}``.
+Neither the script nor the port imports jax or the JAX package; the last
+phase checks that.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -90,6 +112,16 @@ CFG1 = ["-m", "cornell", "-r", "512,512", "-b", "4", "--spp", "64",
 CFG2 = ["-m", "dragon", "-r", "512,512", "-b", "4", "--spp", "4",
         "-c", "0,2.2,4.5", "-d", "0,-0.25,-1"]
 CFG2_CAM = ([0.0, 2.2, 4.5], [0.0, -0.25, -1.0])
+TEXTURED_CAM = ([0.0, 0.0, 2.8], [0.0, 0.0, -1.0])  # tests/test_textured_glb.py:245
+BIGASSET_CAM = ([0.0, 1.7, 4.6], [0.0, -0.28, -1.0])  # tests/test_bigasset_glb.py:324
+
+
+def _cam_flags(cam):
+    return ["-c", ",".join(map(str, cam[0])), "-d", ",".join(map(str, cam[1]))]
+
+
+GLTF_DENSE = ["-r", "512,512", "-b", "4", "--spp", "16", *_cam_flags(TEXTURED_CAM)]
+GLTF_BVH = ["-r", "512,512", "-b", "4", "--spp", "4", *_cam_flags(BIGASSET_CAM)]
 
 
 def emit(obj) -> None:
@@ -475,11 +507,41 @@ def _launch_counts():
 
 
 def _reset_launches() -> None:
+    """Zero the kernels' launch counters and the alpha loop's counter."""
     from vulkan_raytracer_tpu_torch.ops import dense
     from vulkan_raytracer_tpu_torch.ops import traverse as tr
+    from vulkan_raytracer_tpu_torch.render import integrator
 
     dense.reset_launches()
     tr.reset_launches()
+    integrator.reset_alpha_loop()
+
+
+def _alpha_loop() -> dict:
+    """Iterations of the alpha resample loop per ``_closest`` call since the
+    last reset."""
+    from vulkan_raytracer_tpu_torch.render.integrator import ALPHA_LOOP
+
+    calls = ALPHA_LOOP["calls"]
+    return {"closest_calls": calls, "iterations": ALPHA_LOOP["iterations"],
+            "mean": ALPHA_LOOP["iterations"] / calls if calls else 0.0,
+            "max": ALPHA_LOOP["max"]}
+
+
+class PathLaunches:
+    """Each kernel's launches in the runs of the paths the smoke drives with
+    reset counters, and which phases launched it."""
+
+    def __init__(self):
+        self.total = {name: 0 for name in KERNELS}
+        self.phases = {name: [] for name in KERNELS}
+
+    def add(self, phase: str, launches: dict) -> None:
+        for name, (mod, key, _, _) in KERNELS.items():
+            n = launches[mod][key]
+            if n:
+                self.total[name] += n
+                self.phases[name].append(phase)
 
 
 def render_cfg2(reps: int) -> dict:
@@ -581,12 +643,129 @@ def _cuda_vs_cpu(tables, cam_args, label):
     return {"rmse": rmse, "bar": RMSE_BAR, "rays_cuda": rays_gpu, "rays_cpu": rays_cpu}
 
 
+def _load_glb(path, triangles: int, textures: int):
+    """Scene.load_model on a generated container; checks its counts, that
+    no texture fell back to the loader's 1x1 white texel, and the flags.
+    Returns (scene, load seconds)."""
+    from vulkan_raytracer_tpu_torch.scene.scenegraph import Scene
+
+    t0 = time.perf_counter()
+    scene = Scene()
+    scene.load_model(path)
+    secs = time.perf_counter() - t0
+    shapes = [t.shape for t in scene.textures]
+    if len(shapes) != textures or any(s[:2] == (1, 1) for s in shapes):
+        raise AssertionError(f"{path.name}: textures {shapes}, expected {textures} decoded")
+    n_tris = sum(p.indices.shape[0] // 3 for node in scene.iter_depth_first() if node.mesh >= 0
+                 for p in scene.mesh_pool[node.mesh])
+    if n_tris != triangles:
+        raise AssertionError(f"{path.name}: {n_tris} triangles, expected {triangles}")
+    return scene, secs
+
+
+def gltf_dense(out_dir: Path, paths: PathLaunches) -> None:
+    """The small textured glb: loader checks, then the CLI render on cuda."""
+    import torch_glb_assets
+
+    from vulkan_raytracer_tpu_torch import cli
+
+    glb = torch_glb_assets.write_textured_glb(out_dir)
+    scene, load_s = _load_glb(glb, triangles=12, textures=6)
+    if scene.textures[1].shape != (8, 8, 4):
+        raise AssertionError(f"the JPEG texture decoded to {scene.textures[1].shape}")
+    tables = scene.upload("cpu")
+    if not (tables.has_alpha and tables.has_blend and tables.has_textures):
+        raise AssertionError("textured glb: alpha, blend or textures not flagged")
+    _reset_launches()
+    stats = cli.run(["-m", str(glb), *GLTF_DENSE, "--device", "cuda",
+                     "--output", str(out_dir / "textured.png")])
+    launches, loop = _launch_counts(), _alpha_loop()
+    img = stats["image"]
+    if not (launches["dense"]["closest"] > 0 and launches["dense"]["pdf"] > 0):
+        raise AssertionError(f"textured glb render missed K1 or K3: launches {launches}")
+    if not np.isfinite(img).all() or img.shape != (512, 512, 3) or not img.mean() > 1e-3:
+        raise AssertionError(f"textured glb image not finite, misshapen or black: "
+                             f"{img.shape} mean {img.mean()}")
+    paths.add("gltf_dense", launches)
+    emit({"phase": "gltf_dense", "config": "textured.glb 512x512 depth 4 16 spp",
+          "triangles": tables.num_triangles, "textures": [list(t.shape) for t in scene.textures],
+          "emissive": tables.num_emissive_tris, "load_seconds": load_s,
+          "seconds": stats["seconds"], "rays": stats["rays"],
+          "mrays_per_s": stats["mrays_per_s"], "alpha_loop": loop, "launches": launches,
+          "image_mean": float(img.mean())})
+
+
+def gltf_bvh(out_dir: Path, paths: PathLaunches, reps: int) -> None:
+    """The 147,136-triangle glb through the CLI on cuda, ``reps`` times."""
+    import torch_glb_assets
+
+    from vulkan_raytracer_tpu_torch import cli
+
+    glb = torch_glb_assets.write_bigasset_glb(out_dir, big=True)
+    _load_glb(glb, triangles=147136, textures=5)
+    runs = []
+    for _ in range(reps):
+        _reset_launches()
+        stats = cli.run(["-m", str(glb), *GLTF_BVH, "--device", "cuda",
+                         "--output", str(out_dir / "bigasset.png")])
+        launches, loop = _launch_counts(), _alpha_loop()
+        img = stats["image"]
+        if not (launches["traverse"]["treelet_closest"] > 0 and launches["dense"]["pdf"] > 0):
+            raise AssertionError(f"bigasset render missed K5' closest or K3: launches {launches}")
+        if not np.isfinite(img).all() or img.shape != (512, 512, 3) or not img.mean() > 1e-3:
+            raise AssertionError(f"bigasset image not finite, misshapen or black: "
+                                 f"{img.shape} mean {img.mean()}")
+        runs.append(stats)
+        emit({"phase": "gltf_bvh", "config": "bigasset.glb (147,136 tris) 512x512 depth 4 4 spp",
+              "load_seconds": stats["load_seconds"], "upload": stats["upload"],
+              "seconds": stats["seconds"], "rays": stats["rays"],
+              "mrays_per_s": stats["mrays_per_s"], "alpha_loop": loop, "launches": launches,
+              "image_mean": float(img.mean())})
+    paths.add("gltf_bvh", launches)
+    secs = [r["seconds"] for r in runs]
+    rates = [r["mrays_per_s"] for r in runs]
+    emit({"phase": "gltf_bvh_summary", "renders": reps, "rays": [r["rays"] for r in runs],
+          "seconds_median": statistics.median(secs), "seconds": secs,
+          "mrays_per_s_median": statistics.median(rates), "mrays_per_s": rates,
+          "load_seconds": [r["load_seconds"] for r in runs],
+          "upload_seconds": [r["upload"]["seconds"] for r in runs]})
+
+
+def gltf_parity(out_dir: Path, device, paths: PathLaunches) -> None:
+    """Both containers on the card against the same render on the CPU; the
+    small one also on the BVH path (one treelet, so K4')."""
+    import torch_glb_assets
+
+    small = torch_glb_assets.write_textured_glb(out_dir)
+    big = torch_glb_assets.write_bigasset_glb(out_dir, big=True)
+    cases = (("textured.glb dense", small, "auto", TEXTURED_CAM),
+             ("textured.glb forced BVH", small, "bvh", TEXTURED_CAM),
+             ("bigasset.glb", big, "auto", BIGASSET_CAM))
+    for label, glb, traversal, cam in cases:
+        scene, _ = _load_glb(glb, triangles=12 if glb is small else 147136,
+                             textures=6 if glb is small else 5)
+        tables = scene.upload(device, traversal=traversal)
+        _reset_launches()
+        res = _cuda_vs_cpu(tables, cam, label)
+        launches = _launch_counts()
+        if traversal == "bvh":
+            if tables.pbvh.n_treelets != 1 or not launches["traverse"]["bvh_closest"] > 0:
+                raise AssertionError(f"{label}: missed K4' closest: launches {launches}")
+            paths.add("gltf_parity", launches)
+        emit({"phase": "gltf_parity", "config": f"{label} 32x32 2 spp depth 3",
+              "triangles": tables.num_triangles, "launches": launches, **res})
+
+
 def main() -> int:
     if not (ROOT / "vulkan_raytracer_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py: the vulkan_raytracer_tpu_torch package is not beside this "
               "script; run it from the root of a checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(ROOT / "tools"))
+    # the JSON lines carry what the log lines and the loader's progress bars
+    # would print; keep the output to them and to warnings
+    os.environ.setdefault("VKRT_LOG_LEVEL", "WARN")
     import torch
 
     # 1. device
@@ -643,8 +822,8 @@ def main() -> int:
           "seconds": stats["seconds"], "rays": stats["rays"],
           "mrays_per_s": stats["mrays_per_s"], "launches": launches,
           "image_mean": float(img.mean())})
-    main_launches = {name: launches[mod][key] for name, (mod, key, _, _) in KERNELS.items()
-                     if mod == "dense"}
+    paths = PathLaunches()
+    paths.add("render", launches)
 
     # 5. walks: K4' and K5' against their plain versions on the cfg2 dragon
     from vulkan_raytracer_tpu_torch.scene import procedural
@@ -657,10 +836,7 @@ def main() -> int:
     bvh_vs_dense(device)
 
     # 7. render: the CLI's headless path for bench cfg2 (K5' and K3)
-    launches = render_cfg2(reps=3)
-    main_launches.update({name: launches["traverse"][key]
-                          for name, (mod, key, _, _) in KERNELS.items()
-                          if key.startswith("treelet")})
+    paths.add("render_cfg2", render_cfg2(reps=3))
 
     # 8. the gate frames of cfg2-cfg5 against the committed goldens
     gates(device)
@@ -674,9 +850,7 @@ def main() -> int:
     launches = _launch_counts()
     if not (launches["traverse"]["bvh_closest"] > 0 and launches["traverse"]["bvh_shadow"] > 0):
         raise AssertionError(f"the forced-BVH render missed K4': launches {launches}")
-    main_launches.update({name: launches["traverse"][key]
-                          for name, (mod, key, _, _) in KERNELS.items()
-                          if key.startswith("bvh")})
+    paths.add("bvh_forced", launches)
     emit({"phase": "bvh_forced", "config": "dragon detail 12 (712 tris) 32x32 2 spp depth 3",
           "triangles": small.num_triangles, "launches": launches, **forced})
 
@@ -684,6 +858,15 @@ def main() -> int:
     # the CPU tests hold against the JAX renderer and its NumPy oracle
     cpu = _cuda_vs_cpu(cornell, ([0.0, 1.0, 2.4], [0.0, 0.0, -1.0]), "cornell")
     emit({"phase": "cpu", "config": "cornell 32x32 2 spp depth 3", **cpu})
+
+    # 11-13. glTF: the generated containers through the loader, the alpha
+    # loop and the texture slots, on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = Path(tmp)
+        gltf_dense(out_dir, paths)
+        gltf_bvh(out_dir, paths, reps=3)
+        gltf_parity(out_dir, device, paths)
+
     imported = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "vulkan_raytracer_tpu"))
     if imported:
@@ -691,8 +874,9 @@ def main() -> int:
 
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-         "launches": main_launches[name], "max_abs_err": errs[name],
-         "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"]}
+         "launches": paths.total[name], "phases": paths.phases[name],
+         "max_abs_err": errs[name], "ms": times[name]["ms"],
+         "plain_ms": times[name]["plain_ms"]}
         for name, (_, _, source, replaces) in KERNELS.items()
     ]})
     print(smi, flush=True)

@@ -23,6 +23,7 @@ from vulkan_raytracer_tpu.render.renderer import render_image as jrender_image
 from vulkan_raytracer_tpu.scene import scenegraph as jsg
 from vulkan_raytracer_tpu.scene.builtin import cornell_box_scene as jcornell
 from vulkan_raytracer_tpu.scene.camera import Camera as JCamera
+from vulkan_raytracer_tpu_torch.ops import dense as tdense
 from vulkan_raytracer_tpu_torch.ops.dense import dense_closest
 from vulkan_raytracer_tpu_torch.render import integrator as tint
 from vulkan_raytracer_tpu_torch.render.renderer import camera_uniforms, render_image
@@ -146,11 +147,21 @@ def test_sample_lights_matches_jax_with_point_light():
 
 
 def test_unported_features_raise():
+    """Alpha and textures render now (tests/test_torch_alpha.py); more than
+    EMISSIVE_MAX_TRIS emissive triangles (the emissive BVH) and frames above
+    one wave (the banded renderer) still raise."""
     s = cornell_box_scene()
     s.materials[0].alpha_mode = 1
-    tt = s.upload("cpu")
-    with pytest.raises(NotImplementedError, match="alpha"):
-        render_image(tt, _cam(), 4, 4, spp=1, max_depth=1)
+    img, _ = render_image(s.upload("cpu"), _cam(), 4, 4, spp=1, max_depth=1)
+    assert np.isfinite(img).all()
+    m = tsg.Material()
+    m.emissive_factor = np.ones(3, np.float32)
+    n = tdense.EMISSIVE_MAX_TRIS + 1
+    pos = np.random.default_rng(0).uniform(-1, 1, (3 * n, 3)).astype(np.float32)
+    s.add_raw_mesh(pos, np.tile(np.float32([0, 0, 1]), (3 * n, 1)),
+                   np.arange(3 * n, dtype=np.uint32), m)
+    with pytest.raises(NotImplementedError, match="emissive"):
+        render_image(s.upload("cpu"), _cam(), 4, 4, spp=1, max_depth=1)
     tt = cornell_box_scene().upload("cpu")
     with pytest.raises(NotImplementedError, match="banded"):
         render_image(tt, _cam(), 1024, 1024, spp=1, max_depth=1)

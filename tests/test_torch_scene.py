@@ -46,8 +46,8 @@ def _assert_same_tables(port, ref):
         if isinstance(val, torch.Tensor):
             got = val.cpu().numpy()
             want = np.asarray(want)
-            if want.dtype == np.uint32:
-                want = want.astype(np.int64)
+            if want.dtype == np.uint32:  # packed texels: the port keeps the bits in int32
+                want = want.view(np.int32)
             assert got.shape == want.shape, name
             assert got.dtype == want.dtype, (name, got.dtype, want.dtype)
             np.testing.assert_array_equal(got, want, err_msg=name)
@@ -108,7 +108,7 @@ def test_scene_graph_world_transforms():
     b = s.add_node(a, t)
     np.testing.assert_array_equal(b.world_transform[:3, 3], [2.0, 0.0, 0.0])
     assert [n.depth for n in s.iter_depth_first()] == [0, 1, 2]
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(FileNotFoundError):  # CornellBox.gltf is not in the repository
         s.load_model("CornellBox.gltf")
 
 

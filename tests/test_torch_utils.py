@@ -99,7 +99,14 @@ def test_hdr_matches_jax(layout, tmp_path):
 
 
 def test_load_texture_refuses_unported_formats(tmp_path):
+    """PNG skyboxes and textures load now, equal to the JAX package's; a
+    format neither package decodes is refused."""
     p = tmp_path / "sky.png"
-    jimage.write_png(p, np.zeros((2, 2, 3), np.uint8))
-    with pytest.raises(NotImplementedError, match="Queue 1 #8"):
-        timage.load_texture(p)
+    jimage.write_png(p, np.random.default_rng(2).integers(0, 256, (3, 5, 3)).astype(np.uint8))
+    got = timage.load_texture(p)
+    assert got.shape == (3, 5, 4) and got.dtype == np.float32
+    np.testing.assert_array_equal(got, jimage.load_texture(p))
+    bad = tmp_path / "sky.bmp"
+    bad.write_bytes(b"BM" + bytes(60))
+    with pytest.raises(ValueError, match="unrecognised image format"):
+        timage.load_texture(bad)

@@ -1,21 +1,23 @@
 #!/usr/bin/env python3
 """Where one bench wave of the torch port spends its time on a card.
 
-    python3 tools/profile_torch_wave.py [--config cfg1|cfg2] [--reps 3] [--out FILE.json]
+    python3 tools/profile_torch_wave.py [--config cfg1|cfg2|gltf] [--reps 3] [--out FILE.json]
 
 Run from the root of a checkout on a machine with an NVIDIA card.  It
 renders one wave of a bench configuration at 512x512, depth 4: samples 1
 and 2 of all 262,144 pixels, 524,288 lanes, exactly the first wave
 ``render_image`` runs (of 32 for cfg1, the built-in Cornell box on the dense
-kernels; of 2 for cfg2, the 262,280-triangle dragon on the BVH walks),
-through ``renderer._render_wave``:
+kernels; of 2 for cfg2, the 262,280-triangle dragon on the BVH walks; of 2
+for gltf, the 147,136-triangle textured .glb of tests/test_bigasset_glb.py,
+written by tools/torch_glb_assets.py, on the BVH walks with the alpha
+resample loop), through ``renderer._render_wave``:
 
 1. once to build the kernels and warm the allocator;
 2. ``--reps`` times unprofiled: the wall of each, CUDA-synchronised;
 3. once under ``torch.profiler`` (CPU + CUDA activities): the same wave's
    wall, and from its trace the device kernels (count, summed time, the
    span they cover), the aten ops the host issued, and the hand-written
-   kernels' share of the device time.
+   kernels' share of the device time, and the alpha loop's iterations.
 
 It prints one JSON object (and writes it to ``--out`` if given).  The device
 busy share is kernel time over wall, against the profiled wall (the same
@@ -32,6 +34,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -44,11 +47,27 @@ SAMPLES = [1, 2]  # the first wave of a 64-spp render_image (start_sample 1)
 #: the port's hand-written kernels, by the names the trace gives them
 PORT_KERNELS = ("closest_kernel", "shadow_kernel", "pdf_kernel", "bvh_walk_kernel",
                 "treelet_walk_kernel")
-#: config -> (scene, camera position, camera direction)
+#: config -> (scene: a built-in name or a generated .glb, camera position, direction)
 CONFIGS = {
     "cfg1": ("cornell", [0.0, 1.0, 2.4], [0.0, 0.0, -1.0]),
     "cfg2": ("dragon", [0.0, 2.2, 4.5], [0.0, -0.25, -1.0]),
+    "gltf": ("bigasset.glb", [0.0, 1.7, 4.6], [0.0, -0.28, -1.0]),
 }
+
+
+def _scene(name: str):
+    from vulkan_raytracer_tpu_torch.cli import BUILTIN_SCENES
+    from vulkan_raytracer_tpu_torch.scene.scenegraph import Scene
+
+    if name in BUILTIN_SCENES:
+        return BUILTIN_SCENES[name]()
+    sys.path.insert(0, str(ROOT / "tools"))
+    import torch_glb_assets
+
+    scene = Scene()
+    with tempfile.TemporaryDirectory() as tmp:
+        scene.load_model(torch_glb_assets.write_bigasset_glb(tmp, big=True))
+    return scene
 
 
 def _wave(tables, camera):
@@ -124,13 +143,13 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_torch_wave.py: needs an NVIDIA card", file=sys.stderr)
         return 2
-    from vulkan_raytracer_tpu_torch.cli import BUILTIN_SCENES
+    from vulkan_raytracer_tpu_torch.render import integrator
     from vulkan_raytracer_tpu_torch.scene.camera import Camera
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     scene, pos, direction = CONFIGS[args.config]
-    tables = BUILTIN_SCENES[scene]().upload("cuda")
+    tables = _scene(scene).upload("cuda")
     camera = Camera(position=np.array(pos), direction=np.array(direction),
                     aspect=WIDTH / HEIGHT)
     run = _wave(tables, camera)
@@ -138,8 +157,10 @@ def main(argv=None) -> int:
     walls = [_timed(run)[0] for _ in range(args.reps)]
 
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    integrator.reset_alpha_loop()
     with torch.profiler.profile(activities=activities) as prof:
         prof_s, radiance, prof_rays = _timed(run)
+    alpha_loop = dict(integrator.ALPHA_LOOP)
     trace = _trace_summary(prof)
     median = statistics.median(walls)
     out = {
@@ -148,7 +169,7 @@ def main(argv=None) -> int:
         "rays": rays, "rays_profiled": prof_rays,
         "radiance_finite": bool(torch.isfinite(radiance).all()),
         "warm_wall_s": warm_s, "wall_s": walls, "wall_s_median": median,
-        "profiled_wall_s": prof_s, **trace,
+        "profiled_wall_s": prof_s, "alpha_loop": alpha_loop, **trace,
     }
     if trace["device_events"]:
         busy_ms = trace["kernel_ms_busy"]

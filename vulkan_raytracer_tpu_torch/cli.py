@@ -2,20 +2,24 @@
 
 Same flags as ``vulkan_raytracer_tpu/cli.py:88-146`` (the reference's
 src/main.cpp:113-169 plus the headless extensions), and ``--device``
-(default ``cuda``).  The headless path renders to a PNG (and optionally a
-Radiance .hdr) and logs the same ``Mrays/s`` line:
+(default ``cuda``).  ``-m`` takes glTF/GLB files, several of them composed
+into one scene, each under its own ``-t X,Y,Z`` / ``-o W,X,Y,Z`` /
+``-s X,Y,Z`` transform (T*R*S, main.cpp:159-165), or one built-in scene
+(``cornell``, ``soup``, ``glass``, ``hall``, ``dragon``, ``chess``).  The
+headless path renders to a PNG (and optionally a Radiance .hdr) and logs
+the same ``Mrays/s`` line:
 
+    python -m vulkan_raytracer_tpu_torch.cli -m scene.glb -r 512,512 -b 4 \\
+        --spp 16 -c 0,0,2.8 -d 0,0,-1 --output out.png
     python -m vulkan_raytracer_tpu_torch.cli -m cornell -r 512,512 -b 4 \\
         --spp 64 -c 0,1,2.4 -d 0,0,-1 --output out.png
 
-The built-in scenes of the JAX CLI (``cornell``, ``soup``, ``glass``,
-``hall``, ``dragon``, ``chess``) are ported; glTF files, ``--progressive``,
+Bench cfg2 (the dragon, 262,280 triangles, on the BVH kernels) is
+``-m dragon -r 512,512 -b 4 --spp 4 -c 0,2.2,4.5 -d 0,-0.25,-1``.  The
+skybox may be a Radiance .hdr, PNG or JPEG file.  ``--progressive``,
 ``--interactive``, ``--shard``, ``--trace``, ``--checkpoint`` and
-``--resume`` raise ``NotImplementedError`` naming the ROADMAP item that ports
-them.  Bench cfg2 (the dragon, 262,280 triangles, on the BVH kernels):
-
-    python -m vulkan_raytracer_tpu_torch.cli -m dragon -r 512,512 -b 4 \\
-        --spp 4 -c 0,2.2,4.5 -d 0,-0.25,-1 --output out.png
+``--resume`` raise ``NotImplementedError`` naming the ROADMAP item that
+ports them.
 
 ``--device cuda`` without a card is an error: the CLI never falls back to
 the CPU.
@@ -36,6 +40,7 @@ from .ops.tonemap import reinhard_jodie
 from .render.renderer import render_image
 from .scene.builtin import cornell_box_scene, glass_sphere_scene, triangle_soup_scene
 from .scene.camera import Camera
+from .scene.gltf import quat_to_mat4
 from .scene.procedural import chess_scene, dragon_scene, hall_scene
 from .scene.scenegraph import Scene
 from .utils import logging as log
@@ -103,7 +108,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-b", "--max-ray-depth", type=int, default=DEFAULT_DEPTH,
                    help="Max ray depth (default 5)")
     p.add_argument("-m", "--models", action="append", default=None,
-                   help=f"builtin scene name ({', '.join(BUILTIN_SCENES)})")
+                   help="glTF model file(s) or builtin scene names "
+                        f"({', '.join(BUILTIN_SCENES)})")
     p.add_argument("-t", "--translations", action="append", default=None,
                    metavar="X,Y,Z", help="Model translation(s); 'd' = default")
     p.add_argument("-o", "--rotations", action="append", default=None,
@@ -134,28 +140,61 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _resolve(name: str):
-    """Search as given, then $VKRT_RESOURCE_DIR, then ./res."""
+def compose_transform(scale, rotation, translation) -> np.ndarray:
+    """T * R * S composition (main.cpp:159-165; the JAX CLI's cli.py:149-161)."""
+    m = np.eye(4)
+    if scale is not None:
+        m = np.diag(list(scale) + [1.0]) @ m
+    if rotation is not None:
+        w, x, y, z = rotation
+        m = quat_to_mat4(w, x, y, z).astype(np.float64) @ m
+    if translation is not None:
+        t = np.eye(4)
+        t[:3, 3] = translation
+        m = t @ m
+    return m.astype(np.float32)
+
+
+def _get(lst, i, n, name, default):
+    """The i-th per-model vector of a repeated flag, or ``default``."""
+    if lst is None or i >= len(lst):
+        return np.asarray(default)
+    return _parse_floats(lst[i], n, name, default)
+
+
+def _resolve_model(name: str, optional: bool = False):
+    """Search as given, then $VKRT_RESOURCE_DIR, then ./res (the compile-time
+    RESOURCE_DIR of the reference, CMakeLists.txt:56-61)."""
     candidates = [Path(name)]
     res = os.environ.get("VKRT_RESOURCE_DIR")
     if res:
         candidates.append(Path(res) / name)
     candidates.append(Path("res") / name)
-    return next((c for c in candidates if c.exists()), None)
+    for c in candidates:
+        if c.exists():
+            return c
+    if optional:
+        return None
+    raise FileNotFoundError(f"model not found: {name} (searched {candidates})")
 
 
 def load_scene(args) -> Scene:
     models = args.models or ["cornell"]
-    if len(models) != 1 or models[0] not in BUILTIN_SCENES:
-        raise NotImplementedError(
-            f"models {models}: the torch package takes one built-in scene of "
-            f"{sorted(BUILTIN_SCENES)}; glTF import is ROADMAP.md Queue 1 #7"
-        )
-    if args.translations or args.rotations or args.scales:
-        raise NotImplementedError("model transforms apply to glTF models, which are not ported")
-    scene = BUILTIN_SCENES[models[0]]()
+    if any(m in BUILTIN_SCENES for m in models):
+        if len(models) > 1:
+            raise SystemExit("builtin scenes cannot be composed with other models")
+        scene = BUILTIN_SCENES[models[0]]()
+    else:
+        scene = Scene()
+        for i, model in enumerate(models):
+            transform = compose_transform(
+                _get(args.scales, i, 3, "scale", (1.0, 1.0, 1.0)),
+                _get(args.rotations, i, 4, "rotation", (1.0, 0.0, 0.0, 0.0)),
+                _get(args.translations, i, 3, "translation", (0.0, 0.0, 0.0)),
+            )
+            scene.load_model(_resolve_model(model), transform)
     if args.skybox and not args.no_skybox:
-        sky_path = _resolve(args.skybox)
+        sky_path = _resolve_model(args.skybox, optional=True)
         if sky_path is None:
             log.warn("skybox %s not found; rendering without environment", args.skybox)
         else:
@@ -180,7 +219,8 @@ def resolve_device(name: str) -> torch.device:
 
 def run(argv=None) -> dict:
     """The headless render behind :func:`main`; returns its statistics
-    (``rays``, ``seconds``, ``mrays_per_s``, ``image`` linear mean, and
+    (``rays``, ``seconds``, ``mrays_per_s``, ``image`` linear mean,
+    ``load_seconds``: building or importing the scene with its images, and
     ``upload``: the scene upload's seconds and counts)."""
     args = build_parser().parse_args(argv)
     for flag, item in _NOT_PORTED.items():
@@ -191,7 +231,9 @@ def run(argv=None) -> dict:
     device = resolve_device(args.device)
     width, height = args.resolution
 
+    t_load = time.perf_counter()
     scene = load_scene(args)
+    load_seconds = time.perf_counter() - t_load
     t_up = time.perf_counter()
     tables = scene.upload(device)
     upload = dict(scene.upload_stats, seconds=time.perf_counter() - t_up)
@@ -218,7 +260,7 @@ def run(argv=None) -> dict:
         write_hdr(args.hdr_output, mean)
         log.info("wrote %s (same accumulation as the PNG)", args.hdr_output)
     return {"rays": rays, "seconds": dt, "mrays_per_s": rays / dt / 1e6, "image": mean,
-            "upload": upload}
+            "load_seconds": load_seconds, "upload": upload}
 
 
 def main(argv=None) -> int:

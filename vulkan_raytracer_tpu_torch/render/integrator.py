@@ -1,9 +1,9 @@
 """Wavefront path-tracing integrator on torch tensors.
 
-Port of :mod:`vulkan_raytracer_tpu.render.integrator` for the main path:
-every pixel sample is a lane, the bounce loop is a Python loop that stops
-once no lane is alive, and each ``traceRayEXT`` of the reference
-(shaders/raygen.rgen, lightsample.glsl) is one dense sweep from
+Port of :mod:`vulkan_raytracer_tpu.render.integrator`: every pixel sample
+is a lane, the bounce loop is a Python loop that stops once no lane is
+alive, and each ``traceRayEXT`` of the reference (shaders/raygen.rgen,
+lightsample.glsl) is one dense sweep from
 :mod:`vulkan_raytracer_tpu_torch.ops.dense` or, for a scene uploaded with
 BVH streams, one BVH walk from :mod:`vulkan_raytracer_tpu_torch.ops.traverse`;
 each launches a CUDA kernel on CUDA tensors.  All vector state is in
@@ -12,14 +12,20 @@ module's (integrator.py:13-27): NEE runs with the throughput that already
 includes the current hit's estimator, paths end on emissive hits weighted
 against NEE by the balance heuristic, and sample 0 is the preview sample.
 
+glTF materials come with their six texture slots (base colour,
+metallic-roughness, normal map, emissive, transmission, anisotropy) and with
+MASK/BLEND alpha.  Alpha runs as the JAX accept/reject resample loop
+(:func:`_closest`): the closest-hit kernel is launched again past each
+rejected candidate with per-lane ``t_min``, so the kernels themselves stay
+alpha-free; on alpha scenes the occlusion rays go through the same loop.
+
 The port takes the JAX package's default settings as fixed: the skybox
 fetch is deferred to one lookup after the loop, NEE prunes lanes whose
-contribution is zero regardless of occlusion, and there is no wavefront
-re-sort or width ladder (estimator-invariant permutations tuned for the
-TPU's packets; ROADMAP.md Queue 1 #10 keeps them for an H100 A/B).  Scenes
-that need a path not ported yet raise ``NotImplementedError``: alpha,
-textures or more than ``EMISSIVE_MAX_TRIS`` emissive triangles (the
-emissive BVH).
+contribution is zero regardless of occlusion (on alpha-free scenes), and
+there is no wavefront re-sort or width ladder (estimator-invariant
+permutations tuned for the TPU's packets; ROADMAP.md Queue 1 #10 keeps them
+for an H100 A/B).  Scenes with more than ``EMISSIVE_MAX_TRIS`` emissive
+triangles (the emissive BVH) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -30,24 +36,24 @@ from ..ops import rng
 from ..ops.bsdf import HitInfo, HitMaterial, material_bsdf, material_pdf, sample_material
 from ..ops.dense import EMISSIVE_MAX_TRIS, dense_closest, dense_emissive_pdf, dense_shadow
 from ..ops.math3 import BIAS, EPS, INF, V3, v3_from_tangent, v3_gather, v3_onb, v3_to_tangent
-from ..ops.texture import sample_equirect
+from ..ops.texture import sample_bilinear, sample_equirect
 from ..ops.traverse import bvh_closest, bvh_shadow
 
 _F32 = torch.float32
 
+#: The alpha resample loop since the last reset: ``calls`` of :func:`_closest`
+#: on an alpha scene, their ``iterations`` (closest-hit launches) in all, and
+#: ``max``, the most iterations one call took.
+ALPHA_LOOP = {"calls": 0, "iterations": 0, "max": 0}
+
+
+def reset_alpha_loop() -> None:
+    for k in ALPHA_LOOP:
+        ALPHA_LOOP[k] = 0
+
 
 def check_supported(tables) -> None:
     """Raise for scene features whose code path is not ported yet."""
-    if tables.has_alpha:
-        raise NotImplementedError(
-            "alpha-tested materials need the alpha resample loop, which is not "
-            "ported to the torch package yet (ROADMAP.md Queue 1 #9)"
-        )
-    if tables.has_textures:
-        raise NotImplementedError(
-            "textured materials need sample_bilinear, which is not ported to the "
-            "torch package yet (ROADMAP.md Queue 1 #8)"
-        )
     if tables.num_emissive_tris > EMISSIVE_MAX_TRIS:
         raise NotImplementedError(
             f"{tables.num_emissive_tris} emissive triangles exceed "
@@ -68,10 +74,97 @@ def _closest_opaque(tables, o: V3, d: V3, *, t_min, t_max, active):
     return dense_closest(tables, o, d, t_min=t_min, t_max=t_max, active=active)
 
 
-def _shadow_unsorted(tables, o: V3, d: V3, *, t_max, active):
-    if tables.pbvh is not None:
-        return bvh_shadow(tables, o, d, t_max=t_max, active=active)
-    return dense_shadow(tables, o, d, t_max=t_max, active=active)
+def _uv_at(uv_rows, w0, w1, w2):
+    """(N, 2) texture coordinates of barycentric weights (w0, w1, w2) over
+    (N, 6) [u0 v0 u1 v1 u2 v2] rows."""
+    return torch.stack([
+        w0 * uv_rows[:, 0] + w1 * uv_rows[:, 2] + w2 * uv_rows[:, 4],
+        w0 * uv_rows[:, 1] + w1 * uv_rows[:, 3] + w2 * uv_rows[:, 5],
+    ], dim=-1)
+
+
+def _alpha_test(tables, tri, u, v, seed, cand):
+    """Any-hit alpha decision for one candidate per lane (hit.rahit:26-53;
+    integrator.py:130-162).
+
+    alpha = baseColourFactor.a x baseColourTexture.a at the candidate's
+    barycentrics; MASK ignores a candidate below its cutoff, BLEND ignores
+    it with probability 1 - alpha, drawing one rnd per BLEND candidate (the
+    seed advances on those lanes only).  Returns (keep, seed).
+    """
+    ti = torch.clamp_min(tri, 0)
+    mode = torch.index_select(tables.alpha.mode, 0, ti)
+    alpha = torch.index_select(tables.alpha.value, 0, ti)
+    acut = torch.index_select(tables.alpha.cutoff, 0, ti)
+    if tables.has_textures:
+        mat_i = torch.index_select(tables.tri_mat, 0, ti)
+        tex_b = torch.index_select(tables.materials.tex_idx[:, 0], 0, mat_i)
+        uv = _uv_at(torch.index_select(tables.uv, 0, ti), 1.0 - u - v, u, v)
+        texel = sample_bilinear(tables.tex, tex_b, uv)
+        alpha = torch.where(tex_b >= 0, alpha * texel[:, 3], alpha)
+    is_blend = cand & (mode == 2)
+    u_rnd, seed_adv = rng.rnd(seed)
+    seed = torch.where(is_blend, seed_adv, seed)
+    ignore = (cand & (mode == 1) & (alpha < acut)) | (is_blend & (u_rnd < 1.0 - alpha))
+    return cand & ~ignore, seed
+
+
+def _closest(tables, o: V3, d: V3, *, t_min, t_max, active, seed):
+    """traceRayEXT closest hit with any-hit alpha (hit.rahit;
+    integrator.py:165-217).  Returns ((t, tri, u, v), seed).
+
+    Alpha-free scenes take the opaque traversal once.  Alpha scenes run the
+    accept/reject loop: trace the nearest candidate above each lane's
+    ``t_lo``, test it, and move ``t_lo`` of a rejected lane strictly past its
+    candidate (t * (1 + 4e-7) + 1e-30 in float32); repeat while a lane is
+    pending.  Candidates are thus tested in t order.  Each pass is one
+    closest-hit launch and one host sync, counted in :data:`ALPHA_LOOP`.
+    """
+    if not tables.has_alpha:
+        return _closest_opaque(tables, o, d, t_min=t_min, t_max=t_max, active=active), seed
+    n = o.x.shape[0]
+    dev = o.x.device
+    t_lo = torch.broadcast_to(torch.as_tensor(t_min, dtype=_F32, device=dev), (n,))
+    pending = active
+    t = torch.full((n,), torch.inf, dtype=_F32, device=dev)
+    tri = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    u = torch.zeros(n, dtype=_F32, device=dev)
+    v = torch.zeros(n, dtype=_F32, device=dev)
+    iterations = 0
+    while bool(pending.any()):
+        iterations += 1
+        t_c, tri_c, u_c, v_c = _closest_opaque(tables, o, d, t_min=t_lo, t_max=t_max,
+                                               active=pending)
+        found = pending & (tri_c >= 0)
+        keep, seed_t = _alpha_test(tables, tri_c, u_c, v_c, seed, found)
+        seed = torch.where(pending, seed_t, seed)
+        # accepted hits commit; a rejected candidate moves the lane's lower
+        # bound strictly past it (ignoreIntersectionEXT)
+        t_safe = torch.where(torch.isfinite(t_c), t_c, 0.0)
+        rejected = found & ~keep
+        t_lo = torch.where(rejected, t_safe * (1.0 + 4e-7) + 1e-30, t_lo)
+        pending = rejected
+        t = torch.where(keep, t_c, t)
+        tri = torch.where(keep, tri_c, tri)
+        u = torch.where(keep, u_c, u)
+        v = torch.where(keep, v_c, v)
+    ALPHA_LOOP["calls"] += 1
+    ALPHA_LOOP["iterations"] += iterations
+    ALPHA_LOOP["max"] = max(ALPHA_LOOP["max"], iterations)
+    return (t, tri, u, v), seed
+
+
+def _shadow_unsorted(tables, o: V3, d: V3, *, t_max, active, seed):
+    """Occlusion with tMin = 0 (shadow.rahit; integrator.py:270-288).
+    Returns (occluded, seed).  On alpha scenes the nearest *accepted* hit
+    within t_max occludes: the query runs the :func:`_closest` loop."""
+    if not tables.has_alpha:
+        if tables.pbvh is not None:
+            return bvh_shadow(tables, o, d, t_max=t_max, active=active), seed
+        return dense_shadow(tables, o, d, t_max=t_max, active=active), seed
+    (_, tri, _, _), seed = _closest(tables, o, d, t_min=0.0, t_max=t_max, active=active,
+                                    seed=seed)
+    return (tri >= 0) & active, seed
 
 
 def _emissive_pdf(tables, o: V3, d: V3, *, t_min, active):
@@ -135,7 +228,8 @@ def generate_primary_rays(view_inv, proj_inv, width, height, sample_count, lane_
 
 
 def eval_hit(tables, origin: V3, direction: V3, t, tri, u, v) -> HitInfo:
-    """Build HitInfo for every lane (integrator.py:450-628); miss lanes get
+    """Build HitInfo for every lane (integrator.py:450-628): the shading
+    frame, normal mapping and the six texture slots.  Miss lanes get
     t = -INF and a black emissive: the skybox is fetched once after the
     bounce loop (the JAX ``sky=False`` form)."""
     miss = tri < 0
@@ -159,6 +253,19 @@ def eval_hit(tables, origin: V3, direction: V3, t, tri, u, v) -> HitInfo:
     tg_n = tg_raw.normalized()
 
     shading_normal = normal
+    if tables.has_textures:
+        tex_idx = torch.index_select(m.tex_idx, 0, mat_i)  # (N, 6)
+        uv = _uv_at(torch.index_select(tables.uv, 0, ti), w0, u, v)
+        # normal mapping from slot 2, where a tangent exists (hit.rchit:64-66)
+        has_nm = (tex_idx[:, 2] >= 0) & has_tg
+        bt0 = normal.cross(tg_n) * sign
+        texel = sample_bilinear(tables.tex, tex_idx[:, 2], uv)
+        nmap = V3(texel[:, 0] * 2.0 - 1.0, texel[:, 1] * 2.0 - 1.0,
+                  texel[:, 2] * 2.0 - 1.0).normalized()
+        mapped = (tg_n * nmap.x + bt0 * nmap.y + normal * nmap.z).normalized()
+        shading_normal = mapped.where(has_nm, normal)
+
+    # the tangent re-orthogonalised against the (possibly mapped) normal
     tg_ortho = (tg_n - shading_normal * shading_normal.dot(tg_n)).normalized()
     bt_ortho = shading_normal.cross(tg_ortho) * sign
     onb_t, onb_b = v3_onb(shading_normal)
@@ -172,22 +279,46 @@ def eval_hit(tables, origin: V3, direction: V3, t, tri, u, v) -> HitInfo:
     def mcol(c):
         return torch.index_select(c, 0, mat_i)
 
+    base = v3_gather(m.base_colour, mat_i)
+    emissive = v3_gather(m.emissive_v, mat_i)
+    transmission = mcol(m.transmission)
+    metallic = mcol(m.metallic)
     rough = mcol(m.roughness)
     aniso_s = mcol(m.aniso_strength)
     aniso_r = mcol(m.aniso_rotation)
+
+    if tables.has_textures:  # material slots (hit.rchit:75-108)
+        def sample(slot):
+            return sample_bilinear(tables.tex, tex_idx[:, slot], uv)
+
+        tb = sample(0)
+        base = (base * V3(tb[:, 0], tb[:, 1], tb[:, 2])).where(tex_idx[:, 0] >= 0, base)
+        te = sample(3)
+        emissive = (emissive * V3(te[:, 0], te[:, 1], te[:, 2])).where(tex_idx[:, 3] >= 0,
+                                                                       emissive)
+        transmission = torch.where(tex_idx[:, 4] >= 0, transmission * sample(4)[:, 0],
+                                   transmission)
+        has_mr = tex_idx[:, 1] >= 0  # roughness from G, metallic from B
+        mr = sample(1)
+        metallic = torch.where(has_mr, metallic * mr[:, 2], metallic)
+        rough = torch.where(has_mr, rough * mr[:, 1], rough)
+        has_an = tex_idx[:, 5] >= 0  # direction in R,G; strength in B
+        an = sample(5)
+        aniso_r = torch.where(has_an, aniso_r + torch.atan2(an[:, 1], an[:, 0]), aniso_r)
+        aniso_s = torch.where(has_an, aniso_s * an[:, 2], aniso_s)
+
     alpha_c = torch.clamp_min(rough * rough, 0.001)  # hit.rchit:94-95
     alpha_x = alpha_c + (1.0 - alpha_c) * (aniso_s * aniso_s)  # mix (hit.rchit:112)
 
-    emissive = v3_gather(m.emissive_v, mat_i).where(~miss, 0.0)
     mat = HitMaterial(
-        base_colour=v3_gather(m.base_colour, mat_i),
-        emissive=emissive,
-        metallic=mcol(m.metallic),
+        base_colour=base,
+        emissive=emissive.where(~miss, 0.0),
+        metallic=metallic,
         alpha_x=alpha_x,
         alpha_y=alpha_c,
         ad_x=torch.cos(aniso_r),
         ad_y=torch.sin(aniso_r),
-        transmission=mcol(m.transmission),
+        transmission=transmission,
         ior=mcol(m.ior),
         thin=mcol(m.thin),
         attenuation=v3_gather(m.attenuation, mat_i),
@@ -275,8 +406,9 @@ def _sample_analytic(tables, hit, seed, mask):
 
 def _sample_emissive(tables, hit, seed, mask):
     """Emissive-triangle NEE sampling (lightsample.glsl:54-141;
-    integrator.py:716-800): CDF search and a uniform point on the triangle.
-    The verification trace and the pdf probe are the caller's.
+    integrator.py:716-800): CDF search, a uniform point on the triangle and
+    the emissive-texture radiance there.  The verification trace and the pdf
+    probe are the caller's.
 
     Returns (radiance V3, light_dir V3, t_max, seed).
     """
@@ -309,6 +441,15 @@ def _sample_emissive(tables, hit, seed, mask):
 
     em_mat = torch.index_select(tables.em_mat, 0, tri_e)
     radiance = v3_gather(tables.materials.emissive_v, em_mat)
+    if tables.has_textures:
+        # emissive.rchit:39-41 modulates by the emissive texture at the
+        # verify hit, which is the sampled point: barycentrics (ux, uy,
+        # 1-ux-uy).  A black texel zeroes the radiance, so the lane is not
+        # `visible` below.
+        tex_e = torch.index_select(tables.materials.tex_idx[:, 3], 0, em_mat)
+        uv_hit = _uv_at(torch.index_select(tables.em_uv, 0, tri_e), ux, uy, 1.0 - ux - uy)
+        te = sample_bilinear(tables.tex, tex_e, uv_hit)
+        radiance = (radiance * V3(te[:, 0], te[:, 1], te[:, 2])).where(tex_e >= 0, radiance)
     return radiance, light_dir, t_max, seed
 
 
@@ -358,15 +499,20 @@ def sample_lights(tables, hit, wavelength, view_world: V3, seed, mask):
 
     # NdotL / black-light pruning (integrator.py:848-865): a lane whose NEE
     # contribution is zero whatever the occlusion traces nothing; the ray
-    # counters above keep the reference's accounting.
+    # counters above keep the reference's accounting.  Not on alpha scenes:
+    # their occlusion query draws per-lane RNG (BLEND), and pruning would
+    # desync the streams from the JAX run.
     tview = v3_to_tangent(view_world, hit.tangent, hit.bitangent, hit.normal)
     tlight = v3_to_tangent(light_dir, hit.tangent, hit.bitangent, hit.normal)
     bsdf_val = material_bsdf(hit, wavelength, tview, tlight)
-    trace_mask = mask & radiance.any_nonzero() & bsdf_val.any_nonzero()
+    trace_mask = mask
+    if not tables.has_alpha:
+        trace_mask = mask & radiance.any_nonzero() & bsdf_val.any_nonzero()
 
     # ONE occlusion launch for both branches (lightsample.glsl:45, :131)
     ray_o = _offset_origin(hit, light_dir)
-    occluded = _shadow_unsorted(tables, ray_o, light_dir, t_max=t_max, active=trace_mask)
+    occluded, seed = _shadow_unsorted(tables, ray_o, light_dir, t_max=t_max,
+                                      active=trace_mask, seed=seed)
     radiance = radiance.where(~occluded & trace_mask, 0.0)
     if has_emissive:
         # pdf probe over all emissive surfaces along the verified ray
@@ -428,8 +574,8 @@ def render_sample(tables, view_inv, proj_inv, width, height, sample_count, max_d
             break
         n_active = active.sum()
 
-        t, tri, u, v = _closest_opaque(
-            tables, origin, direction, t_min=EPS, t_max=INF, active=active
+        (t, tri, u, v), seed = _closest(
+            tables, origin, direction, t_min=EPS, t_max=INF, active=active, seed=seed
         )
         hit = eval_hit(tables, origin, direction, t, tri, u, v)
 

@@ -30,8 +30,8 @@ _STATIC = ("num_point", "num_directional", "num_emissive_tris",
 
 def _tensor(a, device):
     a = np.asarray(a)
-    if a.dtype == np.uint32:  # packed RGBA8 texels: torch carries uint32 in int64
-        a = a.astype(np.int64)
+    if a.dtype == np.uint32:  # packed RGBA8 texels: the port keeps their bits in int32
+        a = a.view(np.int32)
     return torch.as_tensor(np.array(a, copy=True), device=device)
 
 

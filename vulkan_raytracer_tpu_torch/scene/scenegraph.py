@@ -1,18 +1,19 @@
-"""Scene graph and the flat upload to torch tables.
+"""Scene graph, glTF import and the flat upload to torch tables.
 
 Port of :mod:`vulkan_raytracer_tpu.scene.scenegraph` without jax: the host
 PODs (:class:`Material`, :class:`PointLight`, :class:`DirectionalLight`,
-:class:`Primitive`), the node tree of :class:`Scene`, the material table
-(``_build_material_table``, scenegraph.py:626-678) and the flattened upload
-(``_upload_flattened``, scenegraph.py:1101-1300), which emits world-space
-triangle columns, the emissive CDF and the pdf-probe tables in DFS order.
+:class:`Primitive`), the node tree of :class:`Scene`, glTF import
+(``load_model`` with its material, image and node helpers,
+scenegraph.py:371-538), the material table (``_build_material_table``,
+scenegraph.py:626-678) and the flattened upload (``_upload_flattened``,
+scenegraph.py:1101-1300), which emits world-space triangle columns, the
+emissive CDF and the pdf-probe tables in DFS order.
 
 Scenes above ``DENSE_MAX_TRIS`` triangles (or any scene uploaded with
 ``traversal="bvh"``) also get their threaded BVH (``accel/bvh.py``) and its
 per-octant streams (``ops/traverse.py``), which the integrator walks with the
 BVH kernels; smaller scenes take the dense sweeps.  Not ported yet: the grid
-(the do-not-port list), the emissive BVH, instancing, refit and glTF import
-(``load_model``).
+(the do-not-port list), the emissive BVH, instancing and refit.
 
 :class:`SceneTables` keeps the JAX field names, so the NumPy oracle
 (``vulkan_raytracer_tpu.render.oracle``), which duck-types its input, reads
@@ -21,10 +22,12 @@ BVH kernels; smaller scenes take the dense sweeps.  Not ported yet: the grid
 
 from __future__ import annotations
 
+import base64
 import dataclasses
 import functools
 import time
 from dataclasses import dataclass, field
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -34,7 +37,9 @@ from ..accel.bvh import ThreadedBVH, build_bvh
 from ..ops import dense, traverse
 from ..ops.math3 import V3
 from ..ops.texture import EnvMap, TextureAtlas, pack_envmap, pack_textures
+from ..utils import image as image_io
 from ..utils import logging as log
+from . import gltf as gltf_mod
 
 _LUMA = np.array([0.2126, 0.7152, 0.0722], np.float32)
 
@@ -256,6 +261,15 @@ def _inv_transpose3(m4: np.ndarray) -> np.ndarray:
     return np.linalg.inv(m4[:3, :3]).T.astype(np.float32)
 
 
+def _decompose_rotation(m4: np.ndarray) -> np.ndarray:
+    """Rotation part of a T*R*S matrix: the column norms divided out (the
+    reference's glm::decompose for light placement, scene.cpp:368-375)."""
+    r = m4[:3, :3].astype(np.float64)
+    norms = np.linalg.norm(r, axis=0)
+    norms[norms == 0] = 1.0
+    return (r / norms).astype(np.float32)
+
+
 class Scene:
     """Scene graph + host pools; fill it, then :meth:`upload`."""
 
@@ -316,11 +330,162 @@ class Scene:
             yield node
             stack.extend(reversed(node.children))
 
-    def load_model(self, path, transform=None) -> None:
-        raise NotImplementedError(
-            "glTF import is not ported to the torch package yet (ROADMAP.md Queue 1 "
-            "#7); use the built-in 'cornell' scene"
-        )
+    # -- import ----------------------------------------------------------
+
+    def load_model(self, path: str | Path, transform: np.ndarray | None = None) -> None:
+        """Import one glTF/GLB file under ``transform`` (scene.cpp:23-343;
+        the JAX module's scenegraph.py:371-442)."""
+        path = Path(path)
+        log.info("Loading model %s", path.name)
+        g = gltf_mod.GLTF.load(path)
+
+        base_mesh = len(self.mesh_pool)
+        base_material = len(self.materials)
+        base_texture = len(self.textures)
+
+        # meshes (scene.cpp:44-143)
+        for mesh_i, gltf_mesh in enumerate(g.meshes):
+            log.progress_bar(mesh_i + 1, len(g.meshes), text=gltf_mesh.get("name", ""))
+            prims: list[Primitive] = []
+            for prim in gltf_mesh.get("primitives", []):
+                attrs = prim["attributes"]
+                pos = g.accessor(attrs["POSITION"])[:, :3].astype(np.float32)
+                nrm = g.accessor(attrs["NORMAL"])[:, :3].astype(np.float32)
+                nrm /= np.maximum(np.linalg.norm(nrm, axis=-1, keepdims=True), 1e-20)
+                nv = pos.shape[0]
+                uv = (g.accessor(attrs["TEXCOORD_0"])[:, :2].astype(np.float32)
+                      if "TEXCOORD_0" in attrs else np.zeros((nv, 2), np.float32))
+                tan = (g.accessor(attrs["TANGENT"]).astype(np.float32)
+                       if "TANGENT" in attrs else np.zeros((nv, 4), np.float32))
+                idx = g.primitive_indices(prim)
+                mat = base_material + prim.get("material", 0)
+                prims.append(Primitive(pos, nrm, tan, uv, idx, mat))
+            self.mesh_pool.append(prims)
+
+        # materials and their five KHR extensions (scene.cpp:148-231)
+        for mat_i, gm in enumerate(g.materials):
+            log.progress_bar(mat_i + 1, len(g.materials), text=gm.get("name", ""))
+            self.materials.append(self._parse_material(g, gm, base_texture))
+        if g.meshes and not g.materials:
+            self.materials.append(Material())  # default for material-less primitives
+
+        # images -> texture pool (scene.cpp:233-243)
+        for img_i, img in enumerate(g.images):
+            log.progress_bar(img_i + 1, len(g.images), text=img.get("uri", ""))
+            self.textures.append(self._load_image(g, img))
+
+        # punctual lights (scene.cpp:246-270); the node walk places them
+        light_slots: list[tuple[str, int]] = []
+        for gl in g.lights:
+            colour = np.asarray(gl.get("color", [1, 1, 1]), np.float32)
+            intensity = float(gl.get("intensity", 1.0))
+            if gl.get("type") == "point":
+                light_slots.append(("point", len(self.point_lights)))
+                self.point_lights.append(PointLight(
+                    np.zeros(3, np.float32), colour, intensity, float(gl.get("range", 0.0))))
+            elif gl.get("type") == "directional":
+                light_slots.append(("directional", len(self.directional_lights)))
+                self.directional_lights.append(
+                    DirectionalLight(np.array([0, 0, -1], np.float32), colour, intensity))
+            else:  # spot lights: the reference ignores them too (scene.cpp:254-268)
+                light_slots.append(("unsupported", -1))
+
+        # node walk (scene.cpp:344-404)
+        if transform is None:
+            transform = np.eye(4, dtype=np.float32)
+        model_root = self.add_node(self.root, transform)
+        for node_idx in g.scene_root_nodes():
+            self._process_node(model_root, g, g.nodes[node_idx], base_mesh, light_slots)
+        log.info("Finished loading model %s", path.name)
+
+    def _parse_material(self, g: gltf_mod.GLTF, gm: dict, base_tex: int) -> Material:
+        """One glTF material with KHR_materials_emissive_strength,
+        _transmission, _volume, _ior, _anisotropy and _dispersion
+        (scenegraph.py:444-497)."""
+        m = Material()
+        pbr = gm.get("pbrMetallicRoughness", {})
+        m.base_colour_factor = np.asarray(pbr.get("baseColorFactor", [1, 1, 1, 1]), np.float32)
+        m.metallic_factor = float(pbr.get("metallicFactor", 1.0))
+        m.roughness_factor = float(pbr.get("roughnessFactor", 1.0))
+
+        def tex(src: dict | None) -> int:
+            if not src:
+                return -1
+            return base_tex + g.textures[src["index"]].get("source", -1)
+
+        m.base_colour_tex = tex(pbr.get("baseColorTexture"))
+        m.metallic_roughness_tex = tex(pbr.get("metallicRoughnessTexture"))
+        m.normal_tex = tex(gm.get("normalTexture"))
+        m.emissive_tex = tex(gm.get("emissiveTexture"))
+
+        m.alpha_mode = {"OPAQUE": 0, "MASK": 1, "BLEND": 2}.get(gm.get("alphaMode", "OPAQUE"), 0)
+        m.alpha_cutoff = float(gm.get("alphaCutoff", 0.5))
+        m.emissive_factor = np.asarray(gm.get("emissiveFactor", [0, 0, 0]), np.float32)
+
+        ext = gm.get("extensions", {})
+        if "KHR_materials_emissive_strength" in ext:
+            m.emissive_factor = m.emissive_factor * np.float32(
+                ext["KHR_materials_emissive_strength"].get("emissiveStrength", 1.0))
+        if "KHR_materials_transmission" in ext:
+            tr = ext["KHR_materials_transmission"]
+            m.transmission_factor = float(tr.get("transmissionFactor", 0.0))
+            m.transmission_tex = tex(tr.get("transmissionTexture"))
+        if "KHR_materials_volume" in ext:
+            vol = ext["KHR_materials_volume"]
+            m.thickness_factor = float(vol.get("thicknessFactor", 0.0))
+            att_dist = float(vol.get("attenuationDistance", np.inf))
+            att_col = np.asarray(vol.get("attenuationColor", [1, 1, 1]), np.float64)
+            # sigma = -log(colour) / distance (scene.cpp:209)
+            with np.errstate(divide="ignore"):
+                m.attenuation_coefficient = (
+                    -np.log(np.maximum(att_col, 1e-30)) / att_dist).astype(np.float32)
+        if "KHR_materials_ior" in ext:
+            m.ior = float(ext["KHR_materials_ior"].get("ior", 1.5))
+        if "KHR_materials_anisotropy" in ext:
+            an = ext["KHR_materials_anisotropy"]
+            m.anisotropy_strength = float(an.get("anisotropyStrength", 0.0))
+            m.anisotropy_rotation = float(an.get("anisotropyRotation", 0.0))
+            m.anisotropy_tex = tex(an.get("anisotropyTexture"))
+        if "KHR_materials_dispersion" in ext:
+            m.dispersion = float(ext["KHR_materials_dispersion"].get("dispersion", 0.0))
+        return m
+
+    def _load_image(self, g: gltf_mod.GLTF, img: dict) -> np.ndarray:
+        """Decode one glTF image (external file, data URI or bufferView).  As
+        the reference's loader does, an image that fails to decode is logged
+        and becomes one white texel, and loading goes on."""
+        uri = img.get("uri")
+        try:
+            if uri and not uri.startswith("data:"):
+                return image_io.load_texture(g.base_dir / uri)
+            if uri:  # data URI
+                return image_io.decode_texture(base64.b64decode(uri.split(",", 1)[1]))
+            bv = g.doc["bufferViews"][img["bufferView"]]
+            off = bv.get("byteOffset", 0)
+            return image_io.decode_texture(g.buffers[bv["buffer"]][off:off + bv["byteLength"]])
+        except Exception as e:
+            log.error("Failed to load image %s: %s", uri or "<bufferView>", e)
+            return np.ones((1, 1, 4), np.float32)
+
+    def _process_node(self, parent, g, node, base_mesh, light_slots) -> None:
+        """Add ``node`` and its subtree; place the lights it carries
+        (scene.cpp:344-404)."""
+        local = gltf_mod.node_local_transform(node)
+        so = self.add_node(parent, local, base_mesh + node["mesh"] if "mesh" in node else -1)
+        world = so.world_transform
+
+        light = g.node_light(node)
+        if 0 <= light < len(light_slots):
+            kind, idx = light_slots[light]
+            if kind == "point":
+                self.point_lights[idx].position = world[:3, 3].copy()
+            elif kind == "directional":
+                rot = _decompose_rotation(world)
+                self.directional_lights[idx].direction = (
+                    rot @ np.array([0, 0, -1], np.float32)).astype(np.float32)
+
+        for child in node.get("children", []):
+            self._process_node(so, g, g.nodes[child], base_mesh, light_slots)
 
     # -- upload ------------------------------------------------------------
 
