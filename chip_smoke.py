@@ -11,23 +11,27 @@ nonzero exit code:
 1. device   — CUDA must be available (no CPU fallback); the card's name and
    power limit from nvidia-smi.
 2. build    — compile the CUDA kernels from ``vulkan_raytracer_tpu_torch/csrc``
-   (one nvcc per source, started together) and the native BVH builder; the
-   walks' registers and spills from ptxas.
+   (one nvcc per source, started together) and the native BVH builder; each
+   kernel variant's registers, stack frame and spills from ptxas.  The four
+   walk variants must use no stack and spill nothing.
 3. kernels  — each dense kernel against its plain PyTorch version on the
    card, over the Cornell box and over a 1,000-triangle soup (several
    shared-memory chunks), at bench cfg1's wave of 524,288 rays and at a
    ragged 524,251 (a block partly past the last ray), with inactive lanes,
    t bounds before, across, at and beyond the hits, and the pdf at both
-   t_min the render uses; then times at the cfg1 wave.
+   t_min the render uses; then times and bounds at the cfg1 wave.
 4. render   — the CLI's headless path for bench cfg1 (Cornell, 512x512,
    depth 4, 64 spp, camera 0,1,2.4 -> 0,0,-1) on ``cuda``; every dense kernel
    must have been launched by it, and the image must be finite and lit.
 5. walks    — both BVH walks (K4' whole-stream, K5' treelet; closest and
-   shadow) against their plain versions on the full cfg2 dragon's streams
-   (262,280 triangles, 128 treelets), at the cfg2 wave of 524,288 rays
-   (camera rays and bounce-like rays off surface points) and at a ragged
-   524,251, with per-lane bounds, bounds at exactly the hit t and inactive
-   lanes: t and slot bit-equal; K4' against K5'; then the times.
+   shadow) against their plain versions on the streams of the full cfg2
+   dragon (262,280 triangles, 128 treelets) and of the 147,136-triangle glTF
+   of phase 12, each at a wave of 524,288 rays of its camera (camera rays
+   and bounce-like rays off surface points) and at a ragged 524,251, with
+   per-lane bounds, bounds at exactly the hit t and inactive lanes: t and
+   slot bit-equal; K4' against K5'; the streams within 25 MB.  Then the
+   times at both waves, each with its bound from the visits the plain
+   walk counts (``walk_visits``).
 6. bvh_vs_dense — the BVH walks against the dense kernels on a
    60,000-triangle soup: hit and occlusion flags equal on >= 99.99% of lanes,
    t bit-equal where the triangle agrees.
@@ -65,8 +69,14 @@ nonzero exit code:
    NumPy oracle.
 
 Then it prints the kernel summary (one JSON object: each kernel's launches
-over the paths driven with reset counters, and the phases that launched
-it), the nvidia-smi line, and, last, ``{"ok": true, "device": {...}}``.
+over the paths driven with reset counters, in all and by phase; its time,
+its plain version's and its bound at the shape named, with what bounds it;
+its ptxas figures; for the walks also their numbers at the glTF wave), the
+nvidia-smi line, and, last, ``{"ok": true, "device": {...}}``.  A bound is
+the larger of the launch's operations at the card's float32 peak (67 TFLOP/s)
+and its bytes at its memory rate (3.35 TB/s), each input read once and each
+output written once; the operations are 54 per triangle test, 27 per box
+test and 90 per pdf probe, counted on the inputs timed.
 Neither the script nor the port imports jax or the JAX package; the last
 phase checks that.
 """
@@ -114,6 +124,16 @@ CFG2 = ["-m", "dragon", "-r", "512,512", "-b", "4", "--spp", "4",
 CFG2_CAM = ([0.0, 2.2, 4.5], [0.0, -0.25, -1.0])
 TEXTURED_CAM = ([0.0, 0.0, 2.8], [0.0, 0.0, -1.0])  # tests/test_textured_glb.py:245
 BIGASSET_CAM = ([0.0, 1.7, 4.6], [0.0, -0.28, -1.0])  # tests/test_bigasset_glb.py:324
+# peak rates of one H100 SXM (NVIDIA's data sheet, at the 700 W power limit):
+# float32 outside the tensor cores, and the HBM3's bandwidth
+F32_OPS_PER_S = 67e12
+HBM_BYTES_PER_S = 3.35e12
+# operations per test, counted from the kernels' arithmetic
+MT_OPS = 54  # one Moller-Trumbore test
+SLAB_OPS = 27  # one ray-box slab test
+PDF_OPS = MT_OPS + 36  # one emissive-pdf probe: the test and its weighted term
+# the BVH streams of the cfg2 dragon and of the 147k glTF must fit half the L2
+STREAM_BYTES_MAX = 25e6
 
 
 def _cam_flags(cam):
@@ -211,7 +231,8 @@ def bench_wave(tables, n: int, seed: int, device, cam=CFG2_CAM):
         Camera(position=np.array(cam[0]), direction=np.array(cam[1])))
     lanes = torch.arange(n_cam, device=device)
     o_c, d_c, _ = generate_primary_rays(view_inv, proj_inv, 512, 512,
-                                        1 + lanes // (512 * 512), lanes % (512 * 512))
+                                        1 + lanes // (512 * 512), lanes % (512 * 512),
+                                        device=device)
 
     n_b = n - n_cam
     v0, v1, v2 = (np.stack([c.cpu().numpy() for c in v], 1)
@@ -244,6 +265,16 @@ def bench_wave(tables, n: int, seed: int, device, cam=CFG2_CAM):
     bounds["t_max"] = torch.where(unbounded, INF, bounds["t_max"]).contiguous()
     return dict(o=V3(*(col(c, o[:, k]) for k, c in enumerate(o_c))),
                 d=V3(*(col(c, d[:, k]) for k, c in enumerate(d_c))), **bounds)
+
+
+def bound(ops: float, nbytes: float) -> dict:
+    """The least time the card could take for a launch: the larger of its
+    operations at the float32 peak and its bytes (each input read once, each
+    output written once) at the memory rate, and which of the two it is."""
+    t_ops, t_bytes = ops / F32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "ops": float(ops), "bytes": float(nbytes)}
 
 
 def time_ms(fn, reps: int, warm: bool = True) -> float:
@@ -358,13 +389,28 @@ def time_kernels(tables, n: int, device) -> dict:
         "dense_emissive_pdf": (lambda: dense.pdf_sweep(ptable, cols, gate, EPS),
                                lambda: dense.pdf_sweep_reference(ptable, cols, gate, EPS)),
     }
+    # the work these inputs need: closest hits and pdf probes on the active
+    # lanes over every triangle; occlusion up to each lane's first hit
+    n_t, n_e, active = table.shape[1], ptable.shape[1], int(rays["active"].sum())
+    inside, _, _, t = dense._mt_chunk(table[:, :, None], cols)
+    occ = inside & (t > 0.0) & (t <= t_hi[None, :])
+    tests = torch.where(occ.any(0), occ.int().argmax(0) + 1, n_t)
+    shadow_tests = int(torch.where(t_hi > 0.0, tests, 0).sum())
+    ray_bytes = 24 * n  # o.xyz, d.xyz
+    bounds = {
+        "dense_closest": bound(MT_OPS * n_t * active, ray_bytes + 16 * n + 36 * n_t),
+        "dense_shadow": bound(MT_OPS * shadow_tests, ray_bytes + 8 * n + 36 * n_t),
+        "dense_emissive_pdf": bound(PDF_OPS * n_e * active, ray_bytes + 8 * n + 80 * n_e),
+    }
     out = {}
     for name, (kernel, plain) in pairs.items():
         p1, k1, k2, p2 = (time_ms(plain, 10), time_ms(kernel, 50),
                           time_ms(kernel, 50), time_ms(plain, 10))
         out[name] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
-                     "ms_runs": [k1, k2], "plain_ms_runs": [p1, p2]}
-    emit({"phase": "kernel_times", "rays": n, "triangles": table.shape[1], **out})
+                     "ms_runs": [k1, k2], "plain_ms_runs": [p1, p2],
+                     "shape": f"cfg1 wave: {n} rays over {n_t} triangles, {n_e} emissive",
+                     **bounds[name]}
+    emit({"phase": "kernel_times", "rays": n, "triangles": n_t, **out})
     return out
 
 
@@ -384,9 +430,10 @@ def _walk_inputs(rays):
     )
 
 
-def check_walks(tables, ray_counts, device) -> dict:
+def check_walks(tables, ray_counts, device, label: str, cam) -> dict:
     """K4' and K5' against their plain versions and against each other on the
-    scene's streams; returns the largest absolute t error per kernel."""
+    scene's streams, over bench waves of ``cam``; returns the largest
+    absolute t error per kernel."""
     import torch
 
     from vulkan_raytracer_tpu_torch.ops import traverse as tr
@@ -396,7 +443,7 @@ def check_walks(tables, ray_counts, device) -> dict:
              "treelet_walk": (tr.treelet_walk, tr.treelet_walk_reference)}
     err = {f"{w}_{v}": 0.0 for w in walks for v in ("closest", "shadow")}
     for i, n in enumerate(ray_counts):
-        x = _walk_inputs(bench_wave(tables, n, seed=50 + i, device=device))
+        x = _walk_inputs(bench_wave(tables, n, seed=50 + i, device=device, cam=cam))
         cols, t_lo, t_init, t_sh, zeros = (x[k] for k in ("cols", "t_lo", "t_init", "t_sh",
                                                           "zeros"))
         out = {}
@@ -425,7 +472,7 @@ def check_walks(tables, ray_counts, device) -> dict:
                 raise AssertionError(f"{where}: shadow differs on {int((os_k != os_p).sum())} "
                                      "slots")
             err[f"{name}_shadow"] = max(err[f"{name}_shadow"], e_sh)
-            out[name] = (t_k, tr.slot_to_tri(s, cols, s_k)[0], os_k >= 0)
+            out[name] = (t_k, tr.slot_to_tri(s, s_k)[0], os_k >= 0)
         (t4, tri4, occ4), (t5, tri5, occ5) = out["bvh_walk"], out["treelet_walk"]
         hits = tri4 >= 0
         same_tri = float((tri4 == tri5)[hits].float().mean())
@@ -433,37 +480,57 @@ def check_walks(tables, ray_counts, device) -> dict:
             raise AssertionError(f"{n} rays: K4' and K5' disagree on t, hits or occlusion")
         if same_tri < 0.999:
             raise AssertionError(f"{n} rays: K4' and K5' agree on only {same_tri} of the ids")
-        emit({"phase": "walks", "scene": "cfg2 dragon", "rays": n,
+        emit({"phase": "walks", "scene": label, "rays": n,
               "triangles": tables.num_triangles, "nodes": s.num_nodes,
-              "treelets": s.n_treelets, "hits": int(hits.sum()), "occluded": int(occ4.sum()),
+              "treelets": s.n_treelets, "stream_bytes": s.nbytes,
+              "hits": int(hits.sum()), "occluded": int(occ4.sum()),
               "k4_vs_k5_t_equal": True, "k4_vs_k5_same_triangle": same_tri,
               **{f"{k}_max_abs_err": v for k, v in err.items()}})
     return err
 
 
-def time_walks(tables, n: int, device) -> dict:
-    """K4' and K5' (closest, shadow) and their plain versions at the cfg2 wave,
-    in turns plain, kernel, kernel, plain (the plain versions once per run)."""
+def time_walks(tables, n: int, device, label: str, cam) -> dict:
+    """K4' and K5' (closest, shadow) and their plain versions over a bench
+    wave of n rays of ``cam``, in turns plain, kernel, kernel, plain (the
+    plain versions once per run); each with its bound from the work
+    ``walk_visits`` counts on the same inputs."""
     from vulkan_raytracer_tpu_torch.ops import traverse as tr
 
     s = tables.pbvh
-    x = _walk_inputs(bench_wave(tables, n, seed=99, device=device))
+    x = _walk_inputs(bench_wave(tables, n, seed=99, device=device, cam=cam))
     cols, t_lo, t_init, t_sh, zeros = (x[k] for k in ("cols", "t_lo", "t_init", "t_sh", "zeros"))
-    pairs = {}
-    for name, walk, plain in (("bvh_walk", tr.bvh_walk, tr.bvh_walk_reference),
-                              ("treelet_walk", tr.treelet_walk, tr.treelet_walk_reference)):
-        pairs[f"{name}_closest"] = (lambda w=walk: w(s, cols, t_lo, t_init, False),
-                                    lambda p=plain: p(s, cols, t_lo, t_init, False))
-        pairs[f"{name}_shadow"] = (lambda w=walk: w(s, cols, zeros, t_sh, True),
-                                   lambda p=plain: p(s, cols, zeros, t_sh, True))
+    treelet_bytes = sum(t.nbytes for t in (s.tl_box, s.tl_group, s.tl_lim))
     out = {}
-    for name, (kernel, plain) in pairs.items():
-        p1 = time_ms(plain, 1, warm=False)
-        k1, k2 = time_ms(kernel, 10), time_ms(kernel, 10)
-        p2 = time_ms(plain, 1, warm=False)
-        out[name] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
-                     "ms_runs": [k1, k2], "plain_ms_runs": [p1, p2]}
-    emit({"phase": "walk_times", "rays": n, "triangles": tables.num_triangles,
+    for name, walk, plain, treelets in (
+            ("bvh_walk", tr.bvh_walk, tr.bvh_walk_reference, False),
+            ("treelet_walk", tr.treelet_walk, tr.treelet_walk_reference, True)):
+        for kind, lo, hi, shadow in (("closest", t_lo, t_init, False),
+                                     ("shadow", zeros, t_sh, True)):
+            def kernel(w=walk, lo=lo, hi=hi, shadow=shadow):
+                return w(s, cols, lo, hi, shadow)
+
+            def ref(p=plain, lo=lo, hi=hi, shadow=shadow):
+                return p(s, cols, lo, hi, shadow)
+
+            p1 = time_ms(ref, 1, warm=False)
+            k1, k2 = time_ms(kernel, 10), time_ms(kernel, 10)
+            p2 = time_ms(ref, 1, warm=False)
+            v = tr.walk_visits(s, cols, lo, hi, shadow, treelets)
+            ops = SLAB_OPS * int((v["nodes"] + v["boxes"]).sum()) + MT_OPS * int(v["tris"].sum())
+            # ray columns, t_lo and t_init in, t and slot out; the stream rows read
+            nbytes = 40 * n + 32 * v["node_rows"] + 48 * v["tri_rows"]
+            nbytes += treelet_bytes if treelets else 0
+            live = max(int((hi >= 0).sum()), 1)
+            out[f"{name}_{kind}"] = {
+                "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+                "ms_runs": [k1, k2], "plain_ms_runs": [p1, p2],
+                "shape": f"{label} wave: {n} rays over {tables.num_triangles} triangles",
+                **bound(ops, nbytes),
+                "per_live_ray": {k: int(v[k].sum()) / live
+                                 for k in ("nodes", "leaves", "tris", "boxes")},
+                "node_rows": v["node_rows"], "tri_rows": v["tri_rows"]}
+    emit({"phase": "walk_times", "scene": label, "rays": n,
+          "triangles": tables.num_triangles, "stream_bytes": s.nbytes,
           "k5_over_k4_closest": out["treelet_walk_closest"]["ms"] / out["bvh_walk_closest"]["ms"],
           "k5_over_k4_shadow": out["treelet_walk_shadow"]["ms"] / out["bvh_walk_shadow"]["ms"],
           **out})
@@ -499,6 +566,30 @@ def bvh_vs_dense(device) -> None:
         raise AssertionError("the BVH walks disagree with the dense kernels")
 
 
+# mangled-name fragment of each kernel entry -> kernel variant
+_ENTRIES = {"closest_kernel": "dense_closest", "shadow_kernel": "dense_shadow",
+            "pdf_kernel": "dense_emissive_pdf",
+            "bvh_walk_kernelILb0": "bvh_walk_closest", "bvh_walk_kernelILb1": "bvh_walk_shadow",
+            "treelet_walk_kernelILb0": "treelet_walk_closest",
+            "treelet_walk_kernelILb1": "treelet_walk_shadow"}
+
+
+def ptxas_table(report: str) -> dict:
+    """Registers, stack frame and spill bytes of each kernel variant from
+    ptxas's -v report."""
+    table, name = {}, None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            name = next((v for k, v in _ENTRIES.items() if k in line), None)
+        elif name and "bytes stack frame" in line:
+            nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+            table[name] = dict(zip(("stack_frame", "spill_stores", "spill_loads"), nums))
+        elif name and "Used" in line and "registers" in line:
+            table[name]["registers"] = int(line.split("Used")[1].split()[0])
+            name = None
+    return table
+
+
 def _launch_counts():
     from vulkan_raytracer_tpu_torch.ops import dense
     from vulkan_raytracer_tpu_torch.ops import traverse as tr
@@ -530,18 +621,18 @@ def _alpha_loop() -> dict:
 
 class PathLaunches:
     """Each kernel's launches in the runs of the paths the smoke drives with
-    reset counters, and which phases launched it."""
+    reset counters, in all and by the phase that drove the path."""
 
     def __init__(self):
         self.total = {name: 0 for name in KERNELS}
-        self.phases = {name: [] for name in KERNELS}
+        self.by_path = {name: {} for name in KERNELS}
 
     def add(self, phase: str, launches: dict) -> None:
         for name, (mod, key, _, _) in KERNELS.items():
             n = launches[mod][key]
             if n:
                 self.total[name] += n
-                self.phases[name].append(phase)
+                self.by_path[name][phase] = self.by_path[name].get(phase, 0) + n
 
 
 def render_cfg2(reps: int) -> dict:
@@ -788,11 +879,16 @@ def main() -> int:
     _ext.library()
     t1 = time.perf_counter()
     builder = "native (g++)" if native.get_lib() is not None else "numpy"
-    ptxas = [line.strip() for line in _ext.ptxas_report().splitlines()
-             if "registers" in line or "spill" in line or "Compiling entry" in line]
+    ptxas = ptxas_table(_ext.ptxas_report())
     emit({"phase": "build", "seconds": t1 - t0, "library": lib_path.name,
           "bvh_builder": builder, "bvh_builder_seconds": time.perf_counter() - t1,
           "ptxas": ptxas})
+    if set(ptxas) != set(KERNELS):
+        raise AssertionError(f"ptxas reported {sorted(ptxas)}, expected every kernel variant")
+    for name in ("bvh_walk_closest", "bvh_walk_shadow", "treelet_walk_closest",
+                 "treelet_walk_shadow"):
+        if any(ptxas[name][k] for k in ("stack_frame", "spill_stores", "spill_loads")):
+            raise AssertionError(f"{name} uses the stack: {ptxas[name]}")
 
     # 3. dense kernels
     from vulkan_raytracer_tpu_torch.scene.builtin import cornell_box_scene
@@ -826,11 +922,23 @@ def main() -> int:
     paths.add("render", launches)
 
     # 5. walks: K4' and K5' against their plain versions on the cfg2 dragon
+    # and on the 147,136-triangle glTF, with their times and bounds
+    import torch_glb_assets
+
     from vulkan_raytracer_tpu_torch.scene import procedural
 
     dragon = procedural.dragon_scene().upload(device)
-    errs.update(check_walks(dragon, (n_wave, n_wave - 37), device))
-    times.update(time_walks(dragon, n_wave, device))
+    with tempfile.TemporaryDirectory() as tmp:
+        glb = torch_glb_assets.write_bigasset_glb(Path(tmp), big=True)
+        gallery = _load_glb(glb, triangles=147136, textures=5)[0].upload(device)
+    walk_times = {}
+    for label, tables, cam in (("cfg2", dragon, CFG2_CAM), ("gltf147k", gallery, BIGASSET_CAM)):
+        if not tables.pbvh.nbytes <= STREAM_BYTES_MAX:
+            raise AssertionError(f"{label}: the BVH streams take {tables.pbvh.nbytes} bytes")
+        for name, e in check_walks(tables, (n_wave, n_wave - 37), device, label, cam).items():
+            errs[name] = max(errs.get(name, 0.0), e)
+        walk_times[label] = time_walks(tables, n_wave, device, label, cam)
+    times.update(walk_times["cfg2"])
 
     # 6. the BVH walks against the dense kernels
     bvh_vs_dense(device)
@@ -872,13 +980,19 @@ def main() -> int:
     if imported:
         raise AssertionError(f"the port imported {imported}")
 
-    emit({"kernels": [
-        {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-         "launches": paths.total[name], "phases": paths.phases[name],
-         "max_abs_err": errs[name], "ms": times[name]["ms"],
-         "plain_ms": times[name]["plain_ms"]}
-        for name, (_, _, source, replaces) in KERNELS.items()
-    ]})
+    rows = []
+    for name, (_, _, source, replaces) in KERNELS.items():
+        t = times[name]
+        row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+               "launches": paths.total[name], "launches_by_path": paths.by_path[name],
+               "max_abs_err": errs[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
+               "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
+               "shape": t["shape"], "ptxas": ptxas[name]}
+        if name in walk_times["gltf147k"]:
+            g = walk_times["gltf147k"][name]
+            row["gltf147k"] = {k: g[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+        rows.append(row)
+    emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -4,8 +4,9 @@
   NumPy (or native C++) code in both packages: bit-equal, with the native
   builder on both sides and with it disabled on both sides.
 * The port's streams, built from the JAX ``ThreadedBVH`` carried over by
-  ``tables_from_numpy``, hold the content of the JAX ``PacketBVH`` without
-  its TPU padding: bit-equal.
+  ``tables_from_numpy``, hold the content of the JAX ``PacketBVH`` in the
+  card's layout (one triangle table for the eight octant streams, padding
+  slots dropped): bit-equal, octant by octant and leaf by leaf.
 * The plain versions of the two walks (what the port runs on CPU tensors)
   against ``packet_closest`` / ``packet_shadow`` in Pallas interpret mode
   (K4 with a single treelet, K5 with 128-triangle treelets) and against the
@@ -143,8 +144,8 @@ def test_native_builder_builds_into_the_package():
 # ---------------------------------------------------------------------------
 
 
-def _jax_and_port(monkeypatch, max_tris):
-    """(JAX tables, port tables on CPU) of the 3,000-triangle soup; JAX
+def _jax_and_port(monkeypatch, max_tris, n_tris=3000):
+    """(JAX tables, port tables on CPU) of an ``n_tris``-triangle soup; JAX
     builds its PacketBVH at ``VKRT_TREELET_TRIS`` = max_tris, the port its
     streams at max_tris."""
     import jax
@@ -152,31 +153,70 @@ def _jax_and_port(monkeypatch, max_tris):
     from vulkan_raytracer_tpu_torch.scene.convert import tables_from_numpy
 
     monkeypatch.setenv("VKRT_TREELET_TRIS", str(max_tris))
-    jt = _soup_scene("vulkan_raytracer_tpu", 3000, seed=3).upload()
-    tt = tables_from_numpy(jax.tree_util.tree_map(np.asarray, jt), traversal="bvh",
+    jt = _soup_scene("vulkan_raytracer_tpu", n_tris, seed=3).upload()
+    tt = tables_from_numpy(jax.tree_util.tree_map(np.asarray, jt), "cpu", traversal="bvh",
                            max_tris=max_tris)
     return jt, tt
+
+
+def _words(s):
+    """(8, Nn, 2) int32 ``leaf`` and ``link`` words of the node records."""
+    return s.nodes.view(torch.int32)[..., 3::4].numpy()
 
 
 @pytest.mark.parametrize("max_tris", [128, 2048])
 def test_streams_match_jax_packet_bvh(max_tris, monkeypatch):
     jt, tt = _jax_and_port(monkeypatch, max_tris)
     pb, s = jt.pbvh, tt.pbvh
-    n, n_leaves, k = s.num_nodes, s.n_leaves, s.leaf_size
-    assert (n, k, s.n_treelets) == (pb.num_nodes, pb.leaf_size, pb.n_treelets)
+    n, k = s.num_nodes, pb.leaf_size
+    assert (n, s.n_treelets) == (pb.num_nodes, pb.n_treelets)
     assert s.n_treelets > (4 if max_tris == 128 else 0)
-    np.testing.assert_array_equal(
-        s.nodes_f.numpy(), np.asarray(pb.nodes_f).reshape(8, 6, -1)[:, :, :n].transpose(0, 2, 1))
-    np.testing.assert_array_equal(
-        s.nodes_i.numpy(), np.asarray(pb.nodes_i).reshape(8, 2, -1)[:, :, :n].transpose(0, 2, 1))
-    np.testing.assert_array_equal(
-        s.leaves.numpy(), np.asarray(pb.leaves)[:, :, :n_leaves].transpose(0, 2, 1))
-    np.testing.assert_array_equal(s.tri_id.numpy(), np.asarray(pb.tri_id))
+    # per-octant node order and boxes
+    jf = np.asarray(pb.nodes_f).reshape(8, 6, -1)[:, :, :n].transpose(0, 2, 1)
+    np.testing.assert_array_equal(s.nodes[..., 0:3].numpy(), jf[..., 0:3])
+    np.testing.assert_array_equal(s.nodes[..., 4:7].numpy(), jf[..., 3:6])
+    j_leaf, j_miss = np.asarray(pb.nodes_i).reshape(8, 2, -1)[:, :, :n].transpose(1, 0, 2)
+    leaf, link = _words(s)[..., 0], _words(s)[..., 1]
+    is_leaf = j_leaf >= 0
+    np.testing.assert_array_equal(leaf >= 0, is_leaf)
+    # skip pointers: an interior node's link; a leaf's is always the next node
+    np.testing.assert_array_equal(link[~is_leaf], j_miss[~is_leaf])
+    np.testing.assert_array_equal(j_miss[is_leaf], np.nonzero(is_leaf)[1] + 1)
+    # each octant's leaf sequence, mapped through the shared table
+    j_tris = np.asarray(pb.leaves)
+    j_ids = np.asarray(pb.tri_id)
+    tris, ids = s.tris.numpy(), s.tri_id.numpy()
+    assert ids.shape[0] == (ids >= 0).sum() == int((np.asarray(jt.bvh.tri_id) >= 0).sum())
+    for o in range(8):
+        for node in np.nonzero(is_leaf[o])[0]:
+            lj = j_leaf[o, node]
+            real = j_ids[o, lj * k:(lj + 1) * k] >= 0
+            rows = slice(leaf[o, node], leaf[o, node] + link[o, node])
+            assert link[o, node] == real.sum()
+            np.testing.assert_array_equal(ids[rows], j_ids[o, lj * k:(lj + 1) * k][real])
+            want = j_tris[o, :, lj].reshape(k, 9)[real]
+            np.testing.assert_array_equal(tris[rows][:, [0, 1, 2, 4, 5, 6, 8, 9, 10]], want)
+    assert not tris[:, 3::4].any()
     np.testing.assert_array_equal(s.tl_box.numpy(), np.asarray(pb.tl_box))
     np.testing.assert_array_equal(s.tl_lim.numpy(), np.asarray(pb.tl_lim))
+    # each group box is the union of its treelets' boxes
+    for g, box in enumerate(s.tl_group.numpy()):
+        tl = s.tl_box.numpy()[g * ttr.TREELET_GROUP:(g + 1) * ttr.TREELET_GROUP]
+        np.testing.assert_array_equal(box, np.concatenate([tl[:, :3].min(0), tl[:, 3:].max(0)]))
     # the BVH itself came across bit for bit
     for name, arr in _bvh_arrays(tt.bvh).items():
         np.testing.assert_array_equal(arr, np.asarray(getattr(jt.bvh, name)), err_msg=name)
+
+
+def test_dragon_streams_fit_half_the_l2():
+    """The full cfg2 dragon's streams take at most 25 MB (the parent layout's
+    per-octant triangle copies took 93 MB); padding slots are not stored."""
+    tables = tproc.dragon_scene().upload("cpu")
+    s = tables.pbvh
+    assert tables.num_triangles == 262280 and s.tris.shape[0] == 262280
+    assert s.nbytes <= 25e6
+    assert s.nbytes == sum(getattr(s, f).nbytes for f in
+                           ("nodes", "tris", "tri_id", "tl_box", "tl_group", "tl_lim"))
 
 
 def test_streams_guard_treelet_cap():
@@ -223,7 +263,7 @@ def _jax_impl(kind, which):
     return getattr(importlib.import_module("vulkan_raytracer_tpu.ops.dense"), f"dense_{kind}")
 
 
-def _check_walks_match_jax(jt, tt, which, seed):
+def _check_walks_match_jax(jt, tt, which, seed, min_hits=N // 4):
     import jax.numpy as jnp
 
     (jo, jd), (to, td), t_min, t_max, active = _rays(seed)
@@ -234,7 +274,7 @@ def _check_walks_match_jax(jt, tt, which, seed):
     tri_w, tri_g = np.asarray(want[1]), got[1].numpy()
     np.testing.assert_array_equal(tri_g >= 0, tri_w >= 0)
     hit = tri_w >= 0
-    assert hit.sum() > N // 4
+    assert hit.sum() > min_hits
     # rtol 1e-5; atol 1e-7 for hits a few 1e-5 from the origin, where the
     # frameworks' last-ulp differences cancel into a larger relative error
     np.testing.assert_allclose(got[0].numpy()[hit], np.asarray(want[0])[hit], rtol=1e-5,
@@ -277,6 +317,79 @@ def test_treelet_walk_matches_jax(which, interpret, monkeypatch):
     _check_walks_match_jax(jt, tt, which, seed=1)
 
 
+@pytest.mark.parametrize("walk", ["whole_stream", "treelet"])
+def test_half_filled_leaves_match_jax(walk, interpret, monkeypatch):
+    """1,152 triangles make 128 leaves of 9 real triangles in 16 slots (44%
+    padding, as in the 147k glTF): the plain walks skip the padding and still
+    give JAX K4 / K5's t and triangles (interpret mode) and the dense fold's."""
+    jt, tt = _jax_and_port(monkeypatch, 1 << 20 if walk == "whole_stream" else 128, 9 * 128)
+    ids = np.asarray(jt.bvh.tri_id)
+    assert (ids < 0).mean() > 0.4 and tt.pbvh.tris.shape[0] == 9 * 128
+    assert (tt.pbvh.n_treelets == 1) == (walk == "whole_stream")
+    _check_walks_match_jax(jt, tt, "pallas", seed=2, min_hits=N // 8)
+    _check_walks_match_jax(jt, tt, "xla", seed=2, min_hits=N // 8)
+    # no padding slot is tested: at most 9 triangle tests per leaf entered
+    rays, active, t_lo, _ = _port_rays(N, seed=4)
+    v = ttr.walk_visits(tt.pbvh, rays, t_lo, torch.where(active, 1e32, -1.0), False,
+                        walk == "treelet")
+    assert int(v["leaves"].sum()) > 0 and int(v["tris"].sum()) == 9 * int(v["leaves"].sum())
+
+
+def test_walk_visits_counts_by_hand():
+    """Two one-triangle leaves, z = 1 (A) and z = -1 (B), under one root; a
+    ray down the z axis from z = 3 and one that misses both."""
+    a = np.float32([[-1, -1, 1], [1, -1, 1], [0, 1, 1]])
+    b = a - np.float32([0, 0, 2])
+    v0, v1, v2 = (np.stack([a[i], b[i]]) for i in range(3))
+    bvh = tbvh.build_bvh(v0, v1, v2, leaf_size=1)
+    assert bvh.num_nodes == 3
+    whole = ttr.build_streams(bvh, max_tris=1 << 20)
+    split = ttr.build_streams(bvh, max_tris=1)
+    assert (whole.n_treelets, split.n_treelets) == (1, 2)
+    rays = tuple(torch.tensor(c, dtype=torch.float32)
+                 for c in ([0, 5], [0, 5], [3, 3], [0, 0], [0, 0], [-1, -1]))
+    lo, hi = torch.full((2,), 1e-7), torch.full((2,), 10.0)
+
+    def counts(s, shadow, treelets):
+        v = ttr.walk_visits(s, rays, lo, hi, shadow, treelets)
+        return {k: v[k].tolist() for k in ("nodes", "leaves", "tris", "boxes")}
+
+    # closest, whole stream: the root, A (hit at t = 2), B missed (entry 4 > 2)
+    assert counts(whole, False, False) == {
+        "nodes": [3, 1], "leaves": [1, 0], "tris": [1, 0], "boxes": [0, 0]}
+    # shadow, whole stream: the root, then A occludes and ends the walk
+    assert counts(whole, True, False) == {
+        "nodes": [2, 1], "leaves": [1, 0], "tris": [1, 0], "boxes": [0, 0]}
+    # treelets: one group box, then its two treelet boxes for the ray that
+    # enters it; A's treelet (entry 2) hits, B's (entry 4) is never walked
+    assert counts(split, False, True) == {
+        "nodes": [1, 0], "leaves": [1, 0], "tris": [1, 0], "boxes": [3, 1]}
+    v = ttr.walk_visits(whole, rays, lo, hi, False, False)
+    assert (v["node_rows"], v["tri_rows"]) == (3, 1)
+
+
+def test_upload_defaults_to_the_card():
+    """``Scene.upload()`` and ``tables_from_numpy`` put the tables on the
+    card unless asked for the CPU; without a card they raise."""
+    import jax
+
+    from vulkan_raytracer_tpu.scene import builtin as jbuiltin
+
+    from vulkan_raytracer_tpu_torch.scene.builtin import cornell_box_scene
+    from vulkan_raytracer_tpu_torch.scene.convert import tables_from_numpy
+
+    jt = jax.tree_util.tree_map(np.asarray, jbuiltin.cornell_box_scene().upload())
+    if torch.cuda.is_available():
+        assert cornell_box_scene().upload().v0.x.is_cuda
+        assert tables_from_numpy(jt).v0.x.is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cornell_box_scene().upload()
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tables_from_numpy(jt)
+    assert cornell_box_scene().upload("cpu").v0.x.device.type == "cpu"
+
+
 def _port_rays(n, seed, device="cpu"):
     """Ray columns, active lanes, per-lane t_min and shadow bounds."""
     r = np.random.default_rng(seed)
@@ -301,8 +414,8 @@ def test_treelet_walk_matches_whole_stream_walk():
     t_init = torch.where(active, 1e32, -1.0)
     t4, slot4 = ttr.bvh_walk_reference(s, rays, t_lo, t_init, False)
     t5, slot5 = ttr.treelet_walk_reference(s, rays, t_lo, t_init, False)
-    tri4, f4 = ttr.slot_to_tri(s, rays, slot4)
-    tri5, f5 = ttr.slot_to_tri(s, rays, slot5)
+    tri4, f4 = ttr.slot_to_tri(s, slot4)
+    tri5, f5 = ttr.slot_to_tri(s, slot5)
     assert torch.equal(f4, f5) and int(f4.sum()) > 1000
     assert torch.equal(t4, t5)
     assert float((tri4 == tri5)[f4].float().mean()) > 0.999
@@ -310,7 +423,7 @@ def test_treelet_walk_matches_whole_stream_walk():
     t_tie = torch.where(f4, t4, t_init)
     for fn in (ttr.bvh_walk_reference, ttr.treelet_walk_reference):
         t_b, slot_b = fn(s, rays, t_lo, t_tie, False)
-        assert torch.equal(ttr.slot_to_tri(s, rays, slot_b)[1], f4)
+        assert torch.equal(ttr.slot_to_tri(s, slot_b)[1], f4)
         assert torch.equal(t_b[f4], t4[f4])
 
     t_sh = torch.where(active, t_hi, -1.0)
@@ -331,14 +444,17 @@ def test_walk_tie_rule_first_visited_wins():
     s = ttr.build_streams(tbvh.build_bvh(v0, v1, v2))
     rays = tuple(torch.tensor([c], dtype=torch.float32) for c in (0, 0, 3, 0, 0, -1))
     lo = torch.tensor([1e-7])
-    visit_order = s.tri_id[int(ttr.octant(rays)[0])].tolist()
+    # the triangles in the order the ray's octant stream visits its leaves
+    leaf, link = _words(s)[int(ttr.octant(rays)[0])].T
+    visit_order = [int(s.tri_id[r]) for node in np.nonzero(leaf >= 0)[0]
+                   for r in range(leaf[node], leaf[node] + link[node])]
     first = next(i for i in visit_order if i in (0, 1))
     for t_init in (1e32, 2.0):
         t, slot = ttr.bvh_walk_reference(s, rays, lo, torch.tensor([t_init]), False)
-        tri_id, found = ttr.slot_to_tri(s, rays, slot)
+        tri_id, found = ttr.slot_to_tri(s, slot)
         assert bool(found) and t.item() == 2.0 and tri_id.item() == first
     t, slot = ttr.bvh_walk_reference(s, rays, torch.tensor([2.0]), torch.tensor([1e32]), False)
-    assert ttr.slot_to_tri(s, rays, slot)[0].item() == 2 and t.item() == 3.0
+    assert ttr.slot_to_tri(s, slot)[0].item() == 2 and t.item() == 3.0
 
 
 def test_walks_refuse_mixed_devices():

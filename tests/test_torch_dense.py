@@ -78,7 +78,7 @@ def _tables(name):
         import jax
 
         jt = _scene(name, "vulkan_raytracer_tpu").upload()
-        _TABLES[name] = (jt, tables_from_numpy(jax.tree_util.tree_map(np.asarray, jt)))
+        _TABLES[name] = (jt, tables_from_numpy(jax.tree_util.tree_map(np.asarray, jt), "cpu"))
     return _TABLES[name]
 
 

@@ -442,7 +442,7 @@ def test_upload_columns_match_jax(which, containers):
     tt = ts.upload("cpu")
     assert tt.has_alpha and tt.has_blend and tt.has_textures and tt.num_emissive_tris > 0
     assert _assert_same_tables(tt, jt) > 70
-    _assert_same_tables(tables_from_numpy(jt), jt)
+    _assert_same_tables(tables_from_numpy(jt, "cpu"), jt)
 
 
 # ---------------------------------------------------------------------------

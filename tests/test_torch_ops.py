@@ -191,7 +191,7 @@ def test_sample_equirect():
     yy, xx = np.meshgrid(np.linspace(0, 1, h), np.linspace(0, 1, w), indexing="ij")
     env = np.stack([1.0 + 0.5 * xx, 2.0 + 0.3 * yy, 1.5 + 0.2 * xx * yy], -1).astype(np.float32)
     d = _unit(r)
-    got = ttex.sample_equirect(ttex.pack_envmap(env), torch.as_tensor(d))
+    got = ttex.sample_equirect(ttex.pack_envmap(env, "cpu"), torch.as_tensor(d))
     want = jtex.sample_equirect(jtex.pack_envmap(env), jnp.asarray(d))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL_ELEMWISE)
 

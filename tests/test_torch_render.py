@@ -50,7 +50,7 @@ def _rmse(a, b):
 
 def _jax_and_port(scene):
     jt = scene.upload()
-    return jt, tables_from_numpy(jax.tree_util.tree_map(np.asarray, jt))
+    return jt, tables_from_numpy(jax.tree_util.tree_map(np.asarray, jt), "cpu")
 
 
 @pytest.mark.parametrize("nee", ["reference", "physical"])
@@ -98,7 +98,7 @@ def test_generate_primary_rays_matches_jax():
                                             jnp.asarray(lanes))
     to, td, ts = tint.generate_primary_rays(tvi, tpi, 48, 32,
                                             torch.as_tensor(counts.astype(np.int64)),
-                                            torch.as_tensor(lanes))
+                                            torch.as_tensor(lanes), device="cpu")
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js).astype(np.int64))
     for g, w in zip(td, jd):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6, atol=1e-7)
@@ -106,7 +106,7 @@ def test_generate_primary_rays_matches_jax():
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     # all pixels, one scalar sample count
     _, jd1, js1 = jint.generate_primary_rays(vi, pi, 48, 32, 3)
-    _, td1, ts1 = tint.generate_primary_rays(tvi, tpi, 48, 32, 3)
+    _, td1, ts1 = tint.generate_primary_rays(tvi, tpi, 48, 32, 3, device="cpu")
     np.testing.assert_array_equal(ts1.numpy(), np.asarray(js1).astype(np.int64))
     np.testing.assert_allclose(td1.x.numpy(), np.asarray(jd1.x), rtol=1e-6, atol=1e-7)
 
@@ -126,7 +126,7 @@ def test_sample_lights_matches_jax_with_point_light():
     assert tt.num_point == 1
     vi, pi = jcamera_uniforms(_cam(JCamera))
     jo, jd, js = jint.generate_primary_rays(vi, pi, W, H, 1)
-    to, td, ts = tint.generate_primary_rays(*camera_uniforms(_cam()), W, H, 1)
+    to, td, ts = tint.generate_primary_rays(*camera_uniforms(_cam()), W, H, 1, device="cpu")
     jhit_raw = jdense_closest(jt, jo, jd, t_min=1e-7, t_max=1e32,
                               active=jnp.ones(W * H, bool))
     thit_raw = dense_closest(tt, to, td, t_min=1e-7, t_max=1e32,

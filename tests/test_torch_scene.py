@@ -87,12 +87,12 @@ def test_cornell_bvh_upload_matches_jax():
     assert tt.bvh is not None and tt.pbvh is not None
     n = _assert_same_tables(tt, jt)
     assert n > 70  # the columns above and the nine BVH leaves
-    _assert_same_tables(tables_from_numpy(jt, traversal="bvh"), jt)
+    _assert_same_tables(tables_from_numpy(jt, "cpu", traversal="bvh"), jt)
 
 
 def test_tables_from_numpy_round_trip():
     jt = jax.tree_util.tree_map(np.asarray, jbuiltin.cornell_box_scene().upload())
-    conv = tables_from_numpy(jt)
+    conv = tables_from_numpy(jt, "cpu")
     _assert_same_tables(conv, jt)
     _assert_same_tables(conv.to("cpu"), jt)
     # the port's own upload and the converted JAX upload are the same tables

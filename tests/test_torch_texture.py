@@ -66,7 +66,7 @@ def _textures(seed=0):
 
 def test_pack_and_unpack_rgba8_bit_equal():
     texs = _textures()
-    ja, ta = jtex.pack_textures(texs), ttex.pack_textures(texs)
+    ja, ta = jtex.pack_textures(texs), ttex.pack_textures(texs, "cpu")
     assert ta.texels.dtype == torch.int32 and ta.texels.element_size() == 4
     want = np.asarray(ja.texels)
     np.testing.assert_array_equal(ta.texels.numpy(), want.view(np.int32))
@@ -87,7 +87,7 @@ def test_sample_bilinear_matches_jax():
     """4,096 lanes, uv in [-3, 3], texture ids -1..3: bit-equal measured;
     the bound stated is atol 1e-6."""
     texs = _textures(2)
-    ja, ta = jtex.pack_textures(texs), ttex.pack_textures(texs)
+    ja, ta = jtex.pack_textures(texs), ttex.pack_textures(texs, "cpu")
     r = np.random.default_rng(3)
     n = 4096
     uv = r.uniform(-3.0, 3.0, (n, 2)).astype(np.float32)
@@ -121,7 +121,7 @@ def _primary_hits(jt, tt, w=48, h=48):
     jcam, cam = _cam(JCamera), _cam(Camera)
     jcam.aspect = cam.aspect = w / h
     jo, jd, js = jint.generate_primary_rays(*jcamera_uniforms(jcam), w, h, 1)
-    to, td, ts = tint.generate_primary_rays(*camera_uniforms(cam), w, h, 1)
+    to, td, ts = tint.generate_primary_rays(*camera_uniforms(cam), w, h, 1, device="cpu")
     jraw = jdense_closest(jt, jo, jd, t_min=1e-7, t_max=1e32, active=jnp.ones(w * h, bool))
     traw = dense_closest(tt, to, td, t_min=1e-7, t_max=1e32,
                          active=torch.ones(w * h, dtype=torch.bool))

@@ -46,7 +46,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 _RAYS = [_P] * 6  # ox, oy, oz, dx, dy, dz
-_STREAMS = [_P, _P, _P, _I, _I, _I]  # nodes_f, nodes_i, leaves, num_nodes, n_leaves, leaf_size
+_STREAMS = [_P, _P, _I]  # nodes, tris, num_nodes
 
 #: argtypes of each C launcher, the device index first and the stream last
 _SIGNATURES = {
@@ -54,10 +54,10 @@ _SIGNATURES = {
     "dense_closest_launch": [_I, _P, _I] + _RAYS + [_P, _P, _P, _P, _I, _P],
     "dense_shadow_launch": [_I, _P, _I] + _RAYS + [_P, _P, _I, _P],
     "dense_pdf_launch": [_I, _P, _I] + _RAYS + [_P, _F, _P, _I, _P],
-    # (device, shadow, streams, [tl_box, tl_lim, n_treelets,] rays, t_lo, t_init,
-    #  t_out, slot_out, n_rays, stream)
+    # (device, shadow, streams, [tl_box, tl_group, tl_lim, n_treelets,] rays, t_lo,
+    #  t_init, t_out, slot_out, n_rays, stream)
     "bvh_walk_launch": [_I, _I] + _STREAMS + _RAYS + [_P, _P, _P, _P, _I, _P],
-    "treelet_walk_launch": [_I, _I] + _STREAMS + [_P, _P, _I] + _RAYS
+    "treelet_walk_launch": [_I, _I] + _STREAMS + [_P, _P, _P, _I] + _RAYS
     + [_P, _P, _P, _P, _I, _P],
 }
 

@@ -39,7 +39,7 @@ class TextureAtlas:
     w: torch.Tensor  # (NT,) int32 widths
 
 
-def pack_textures(textures, device="cpu") -> TextureAtlas:
+def pack_textures(textures, device) -> TextureAtlas:
     """Quantise + pack a list of (H, W, 4) float32 textures (host side),
     UNORM8 round-to-nearest as the JAX package does."""
     offs, hs, ws, chunks = [], [], [], []
@@ -124,7 +124,7 @@ class EnvMap:
     w: int
 
 
-def pack_envmap(env, device="cpu") -> EnvMap:
+def pack_envmap(env, device) -> EnvMap:
     """(H, W, 3) float32 numpy -> flat EnvMap columns (host side)."""
     env = np.asarray(env, np.float32)
     h, w = env.shape[0], env.shape[1]

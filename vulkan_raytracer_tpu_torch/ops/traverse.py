@@ -31,17 +31,20 @@ thread walks one ray:
   arises; its far end and the t bound are scaled by ``ROBUST`` = 1 + 2
   gamma_3 (Ize, "Robust BVH Ray Traversal", JCGT 2013) so that rounding
   never culls a box the ray touches (the ground plane's box is flat);
-* a leaf runs ``leaf_size`` Möller-Trumbore tests with the arithmetic of
+* a leaf runs one Möller-Trumbore test per real triangle (its padding
+  slots, degenerate and never hit, are skipped) with the arithmetic of
   :614-636 (``dense.mt``); a hit is ``t_lo < t <= t_best``; the closest walk
   replaces when ``t < t_best`` or nothing hit yet (the first triangle
   visited wins a tie, :644); the shadow walk ends at its first hit with
   t_best = -1 (:637-646);
 * the treelet walk first slab-tests the ray against every treelet box
   (the glue's exact per-ray test, :1120-1140: enters when ``near <= far``,
-  ``far >= t_lo`` and ``near <= t_init``, at ``entry = max(near, 0)``), then
-  walks the entered treelets in ascending (entry, treelet id), each one's
-  range ``tl_lim[octant, k]`` of the stream, and stops when the next entry
-  is > t_best (strictly: a hit at exactly the initial bound is still found).
+  ``far >= t_lo`` and ``near <= t_init``, at ``entry = max(near, 0)``; the
+  kernel skips the boxes of a group whose union box the ray misses, which
+  rounding cannot change), then walks the entered treelets in ascending
+  (entry, treelet id), each one's range ``tl_lim[octant, k]`` of the
+  stream, and stops when the next entry is > t_best (strictly: a hit at
+  exactly the initial bound is still found).
 
 So both walks find the closest hit over every triangle; they differ only at
 exact-t ties.  Dispatch is the JAX rule: the treelet walk when the streams
@@ -50,8 +53,11 @@ whole-stream walk.
 
 The stream builder is ``_build_streams`` (:144) and ``_cut_tables`` (:214)
 with an explicit ``max_tris`` (2048, the JAX default off the TPU; the TPU's
-upload-time probe ``_probe_treelet_cut`` :291 is not ported) in the port's
-own row-major layout for the card; the content is the same.
+upload-time probe ``_probe_treelet_cut`` :291 is not ported).  The content is
+the same; the layout is the card's (:class:`BVHStreams`): 32-byte node
+records and one table of 48-byte triangle rows shared by the eight octant
+streams, where the TPU kept one contiguous DMA stream of triangles per
+octant.  :func:`walk_visits` counts a walk's work for the kernels' bounds.
 """
 
 from __future__ import annotations
@@ -67,8 +73,11 @@ from .dense import _lanes, _on_cuda, mt, ray_columns, winner_uv
 #: default target triangle slots per treelet (pallas_bvh.py:141)
 TREELET_TRIS = 2048
 #: cap on treelets per stream (pallas_bvh.py:135); the CUDA treelet walk
-#: keeps one entry per treelet in a fixed per-thread array of this size
+#: keeps the entered treelets as a 128-bit mask
 MAX_TREELETS = 128
+#: treelets under one group box (consecutive ids; the CUDA treelet walk tests
+#: a group's treelets only when the ray enters the group's box)
+TREELET_GROUP = 8
 #: 1 + 2 gamma_3 in float32 (1 + 3 * 2^-23): the conservative scale of a slab
 #: test's far end and t bound (Ize 2013)
 ROBUST = 1.0 + 3.0 * 2.0**-23
@@ -93,42 +102,53 @@ def reset_launches() -> None:
 @dataclasses.dataclass(frozen=True)
 class BVHStreams:
     """Eight per-octant preorders of one threaded BVH (octant bit k set <=>
-    d[k] < 0), in the CUDA walks' row-major layout.  The content is the JAX
-    ``PacketBVH``'s (pallas_bvh.py:96-122) without its TPU padding: node
-    ``i`` of octant ``o`` is row ``(o, i)``; ``first_leaf`` is the
-    octant-local leaf index (-1 for an interior node) and ``miss`` the
-    stream-local skip pointer; leaf ``l``'s row holds its triangles'
-    [v0.xyz, e1.xyz, e2.xyz] at columns ``9 j + c``; ``tri_id[o, l * k + j]``
-    is the scene triangle of slot ``j`` of leaf ``l`` (-1 padding)."""
+    d[k] < 0) over one shared triangle table, in the layout the CUDA walks
+    read with 16-byte loads.  The content is the JAX ``PacketBVH``'s
+    (pallas_bvh.py:96-122) with each leaf's triangles kept once instead of
+    once per octant, and without its padding slots.
 
-    nodes_f: torch.Tensor  # (8, Nn, 6) f32: bmin.xyz, bmax.xyz
-    nodes_i: torch.Tensor  # (8, Nn, 2) i32: first_leaf, miss
-    leaves: torch.Tensor  # (8, Nleaf, 9 * leaf_size) f32
-    tri_id: torch.Tensor  # (8, Nleaf * leaf_size) i32
+    Node ``i`` of octant ``o`` is the 32-byte record ``nodes[o, i]``:
+    ``bmin.xyz, leaf | bmax.xyz, link``, where ``leaf`` and ``link`` are
+    int32 bit patterns.  ``leaf`` is -1 for an interior node, whose ``link``
+    is its stream-local skip pointer; a leaf's ``leaf`` is the row of its
+    first triangle in ``tris`` and its ``link`` the count of its triangles
+    (a leaf's skip pointer is always ``i + 1``).  ``tris[r]`` is one
+    48-byte row ``v0.xyz 0, e1.xyz 0, e2.xyz 0``: the real slots of the
+    BVH's leaves, in slot order, so a leaf's triangles are contiguous and in
+    their order in the leaf.  ``tri_id[r]`` is row r's scene triangle.
+    ``tl_group`` holds the union box of each run of ``TREELET_GROUP``
+    consecutive treelets: a ray that misses it misses each of their boxes."""
+
+    nodes: torch.Tensor  # (8, Nn, 8) f32: bmin.xyz, leaf | bmax.xyz, link
+    tris: torch.Tensor  # (Nt, 12) f32: v0.xyz 0, e1.xyz 0, e2.xyz 0
+    tri_id: torch.Tensor  # (Nt,) i32
     tl_box: torch.Tensor  # (K, 6) f32 treelet boxes, slightly dilated
+    tl_group: torch.Tensor  # (ceil(K / TREELET_GROUP), 6) f32 union boxes
     tl_lim: torch.Tensor  # (8, K, 2) i32 per-octant stream range [start, end)
     num_nodes: int
-    leaf_size: int
     n_treelets: int
 
     @property
-    def n_leaves(self) -> int:
-        return self.leaves.shape[1]
+    def nbytes(self) -> int:
+        """Bytes the streams take on their device."""
+        return sum(t.nbytes for t in self._tensors().values())
+
+    def _tensors(self) -> dict:
+        return {f.name: getattr(self, f.name) for f in dataclasses.fields(self)
+                if f.type == "torch.Tensor"}
 
     def to(self, device) -> "BVHStreams":
-        return dataclasses.replace(self, **{
-            f.name: getattr(self, f.name).to(device)
-            for f in dataclasses.fields(self) if f.type == "torch.Tensor"
-        })
+        return dataclasses.replace(
+            self, **{k: v.to(device) for k, v in self._tensors().items()})
 
 
 def build_streams(bvh, max_tris: int = TREELET_TRIS,
                   max_treelets: int = MAX_TREELETS) -> BVHStreams:
     """Repack a ThreadedBVH (the port's, or any record with the same fields)
-    into eight per-octant streams and a treelet cut of at most
-    ``max_treelets`` subtrees of about ``max_tris`` triangle slots
-    (``_build_streams`` :144 and ``_cut_tables`` :214).  Host-side NumPy;
-    returns CPU tensors."""
+    into eight per-octant node streams over one triangle table, and a
+    treelet cut of at most ``max_treelets`` subtrees of about ``max_tris``
+    triangle slots (``_build_streams`` :144 and ``_cut_tables`` :214).
+    Host-side NumPy; returns CPU tensors."""
     from ..accel.bvh import octant_permutations, treelet_cut
 
     k = bvh.leaf_size
@@ -144,27 +164,29 @@ def build_streams(bvh, max_tris: int = TREELET_TRIS,
     first, miss, tri_id = host(bvh.first_tri), host(bvh.miss), host(bvh.tri_id)
     n = first.shape[0]
     size = miss - np.arange(n)
-    first_leaf = np.where(first >= 0, first // k, -1)
-    # (Nleaf, 9k) leaf-major triangle constants in the original leaf order
-    tri9 = np.concatenate(
-        [host(bvh.tri_v0), host(bvh.tri_e1), host(bvh.tri_e2)], axis=1
-    ).reshape(-1, k * 9)
+    is_leaf = first >= 0
+
+    # the triangle table: the real slots in slot order (padding has id -1)
+    real = tri_id >= 0
+    rows = np.concatenate([[0], np.cumsum(real)])  # slot -> its row in the table
+    tris = np.zeros((int(rows[-1]), 12), np.float32)
+    for c, col in enumerate((bvh.tri_v0, bvh.tri_e1, bvh.tri_e2)):
+        tris[:, 4 * c:4 * c + 3] = host(col)[real]
+    slot0 = np.where(is_leaf, first, 0)  # a leaf owns slots [first, first + k)
+    leaf_row = np.where(is_leaf, rows[slot0], -1)
+    leaf_count = rows[slot0 + k] - rows[slot0]
 
     perms = octant_permutations(amin, amax, first, miss)
     pos8 = np.empty((8, n), np.int64)  # old node index -> stream position
-    nf, ni, lv, tid = [], [], [], []
+    nodes = np.zeros((8, n, 8), np.float32)
+    words = nodes.view(np.int32)
     for o in range(8):
         old = perms[o]  # new node index -> old node index
         pos8[o, old] = np.arange(n)
-        fl_old = first_leaf[old]
-        leafmask = fl_old >= 0
-        # leaves renumbered along this octant's preorder
-        fl_new = np.where(leafmask, np.cumsum(leafmask) - 1, -1)
-        leaf_perm = fl_old[leafmask]  # new leaf index -> old leaf index
-        nf.append(np.concatenate([amin[old], amax[old]], axis=1).astype(np.float32))
-        ni.append(np.stack([fl_new, np.arange(n) + size[old]], axis=1).astype(np.int32))
-        lv.append(tri9[leaf_perm].astype(np.float32))
-        tid.append(tri_id.reshape(-1, k)[leaf_perm].reshape(-1).astype(np.int32))
+        nodes[o, :, 0:3] = amin[old]
+        nodes[o, :, 4:7] = amax[old]
+        words[o, :, 3] = leaf_row[old]
+        words[o, :, 7] = np.where(is_leaf[old], leaf_count[old], np.arange(n) + size[old])
 
     max_tris = max(int(max_tris), k)
     cut = treelet_cut(first, miss, k, max_tris)
@@ -175,14 +197,17 @@ def build_streams(bvh, max_tris: int = TREELET_TRIS,
     eps = 1e-5 * np.maximum(ext.max(axis=1, keepdims=True), 1e-3) + 1e-7
     tl_box = np.concatenate([amin[cut] - eps, amax[cut] + eps], axis=1).astype(np.float32)
     tl_lim = np.stack([pos8[:, cut], pos8[:, cut] + size[cut]], axis=-1).astype(np.int32)
+    groups = np.arange(0, tl_box.shape[0], TREELET_GROUP)
+    tl_group = np.concatenate([np.minimum.reduceat(tl_box[:, :3], groups),
+                               np.maximum.reduceat(tl_box[:, 3:], groups)], axis=1)
 
     def t(a):
         return torch.as_tensor(np.ascontiguousarray(a))
 
     return BVHStreams(
-        nodes_f=t(np.stack(nf)), nodes_i=t(np.stack(ni)), leaves=t(np.stack(lv)),
-        tri_id=t(np.stack(tid)), tl_box=t(tl_box), tl_lim=t(tl_lim),
-        num_nodes=n, leaf_size=k, n_treelets=int(cut.shape[0]),
+        nodes=t(nodes), tris=t(tris), tri_id=t(tri_id[real].astype(np.int32)),
+        tl_box=t(tl_box), tl_group=t(tl_group), tl_lim=t(tl_lim),
+        num_nodes=n, n_treelets=int(cut.shape[0]),
     )
 
 
@@ -203,13 +228,12 @@ def inv_dir(d: torch.Tensor) -> torch.Tensor:
         torch.abs(d) < _TINY, torch.where(d < 0, -_TINY, _TINY), d))
 
 
-def treelet_entries(streams: BVHStreams, rays, t_lo, t_init):
-    """The glue's per-ray treelet test (pallas_bvh.py:1120-1140): (N, K)
-    ``enters`` and ``entry`` = max(near, 0), written so that a zero entry is
-    +0.0 (a radix sort puts -0.0 first)."""
+def box_entries(box, rays, t_lo, t_init):
+    """The glue's per-ray box test (pallas_bvh.py:1120-1140) against each
+    row of ``box`` (B, 6): (N, B) ``enters`` and ``entry`` = max(near, 0),
+    written so that a zero entry is +0.0 (a radix sort puts -0.0 first)."""
     o = rays[:3]
     inv = [inv_dir(c) for c in rays[3:]]
-    box = streams.tl_box
     near = far = None
     for a in range(3):
         lo = (box[None, :, a] - o[a][:, None]) * inv[a][:, None]
@@ -229,11 +253,14 @@ def treelet_entries(streams: BVHStreams, rays, t_lo, t_init):
 # columns of the walk state (compacted to the lanes still walking)
 _OX, _IV, _LO, _TB = 0, 6, 9, 10  # float: o.xyz d.xyz, inv.xyz, t_lo, t_best
 _LANE, _CUR, _END, _OCT, _SLOT, _RND = range(6)  # int64
+#: v0.xyz, e1.xyz, e2.xyz in a row of ``BVHStreams.tris``
+_TRI_COLS = (0, 1, 2, 4, 5, 6, 8, 9, 10)
 #: rays per block of the (N, K) treelet-order computation
 _ORDER_BLOCK = 1 << 15
 
 
-def _walk_reference(s: BVHStreams, rays, t_lo, t_init, shadow: bool, treelets: bool):
+def _walk_reference(s: BVHStreams, rays, t_lo, t_init, shadow: bool, treelets: bool,
+                    visits: dict | None = None):
     n = t_init.shape[0]
     dev = t_init.device
     t_out = t_init.clone()
@@ -241,11 +268,8 @@ def _walk_reference(s: BVHStreams, rays, t_lo, t_init, shadow: bool, treelets: b
     lanes = torch.nonzero(t_init >= 0).squeeze(1)
     if lanes.numel() == 0:
         return t_out, slot_out
-    k = s.leaf_size
-    nodes_f = s.nodes_f.reshape(-1, 6)
-    nodes_i = s.nodes_i.reshape(-1, 2).long()
-    leaves = s.leaves.reshape(-1, k, 9)
-    slot_ids = torch.arange(k, device=dev)
+    nodes = s.nodes.reshape(-1, 8)
+    links = nodes.view(torch.int32)[:, 3::4].long()  # leaf row | -1, link
 
     cols = [c[lanes] for c in rays]
     oc = octant(cols)
@@ -259,13 +283,19 @@ def _walk_reference(s: BVHStreams, rays, t_lo, t_init, shadow: bool, treelets: b
         order = torch.empty((n, s.n_treelets), dtype=torch.int64, device=dev)
         entry = torch.empty((n, s.n_treelets), dtype=_F32, device=dev)
         n_entered = torch.zeros(n, dtype=torch.int64, device=dev)
+        group_size = torch.clamp(s.n_treelets - torch.arange(
+            0, s.n_treelets, TREELET_GROUP, device=dev), max=TREELET_GROUP)
         for b in range(0, lanes.numel(), _ORDER_BLOCK):
             blk = lanes[b:b + _ORDER_BLOCK]
-            enters, ent = treelet_entries(s, [c[blk] for c in rays], t_lo[blk], t_init[blk])
+            blk_rays = [c[blk] for c in rays]
+            enters, ent = box_entries(s.tl_box, blk_rays, t_lo[blk], t_init[blk])
             ent, order[blk] = torch.sort(torch.where(enters, ent, torch.inf), dim=1,
                                          stable=True)
             entry[blk] = ent
             n_entered[blk] = enters.sum(1)
+            if visits is not None:  # the kernel tests a group's treelets only inside it
+                g_in, _ = box_entries(s.tl_group, blk_rays, t_lo[blk], t_init[blk])
+                visits["boxes"][blk] = group_size.numel() + (g_in * group_size).sum(1)
         tl_lim = s.tl_lim.reshape(-1, 2).long()
 
     while True:
@@ -291,44 +321,56 @@ def _walk_reference(s: BVHStreams, rays, t_lo, t_init, shadow: bool, treelets: b
         # one node per lane: slab test against [0, t_best]
         cur = ints[:, _CUR]
         node = ints[:, _OCT] * s.num_nodes + cur
-        box = nodes_f[node]
+        box = nodes[node]
         o, inv = fs[:, _OX:_OX + 3], fs[:, _IV:_IV + 3]
         lo = (box[:, 0:3] - o) * inv
-        hi = (box[:, 3:6] - o) * inv
+        hi = (box[:, 4:7] - o) * inv
         near3, far3 = torch.minimum(lo, hi), torch.maximum(lo, hi)
         near = torch.maximum(torch.maximum(near3[:, 0], near3[:, 1]),
                              torch.clamp_min(near3[:, 2], 0.0))
         far = torch.minimum(torch.minimum(far3[:, 0], far3[:, 1]), far3[:, 2])
         t_best = fs[:, _TB]
         hit = (near <= far * ROBUST) & (near <= t_best * ROBUST)
-        ni = nodes_i[node]
-        leaf = hit & (ni[:, 0] >= 0)
+        ln = links[node]
+        is_leaf = ln[:, 0] >= 0
+        leaf = hit & is_leaf
+        if visits is not None:
+            visits["nodes"][ints[:, _LANE]] += 1
+            visits["node_rows"][node] = True
 
         if bool(leaf.any()):
             li = leaf.nonzero().squeeze(1)
-            fl = ni[li, 0]
-            tri = leaves[ints[li, _OCT] * s.n_leaves + fl]  # (L, k, 9)
+            row0, count = ln[li, 0], ln[li, 1]  # the leaf's triangles, padding skipped
+            j = torch.arange(max(int(count.max()), 1), device=dev)
+            real = j < count[:, None]
+            rows = torch.where(real, row0[:, None] + j, row0[:, None])
+            tri = s.tris[rows]  # (L, m, 12)
             ray = [fs[li, c, None] for c in range(6)]
-            inside, _, _, tt = mt([tri[..., c] for c in range(9)], ray)
+            inside, _, _, tt = mt([tri[..., c] for c in _TRI_COLS], ray)
             tb = fs[li, _TB]
-            h = inside & (tt > fs[li, _LO, None]) & (tt <= tb[:, None])
+            h = real & inside & (tt > fs[li, _LO, None]) & (tt <= tb[:, None])
             any_h = h.any(1)
             slot = ints[li, _SLOT]
+            if visits is not None:
+                visits["leaves"][ints[li, _LANE]] += 1
+                visits["tris"][ints[li, _LANE]] += count
+                visits["tri_rows"][rows[real]] = True
             if shadow:  # the first hit occludes and ends the walk
                 first = h.int().argmax(1)
                 fs[li, _TB] = torch.where(any_h, -1.0, tb)
-                ints[li, _SLOT] = torch.where(any_h, fl * k + first, slot)
+                ints[li, _SLOT] = torch.where(any_h, row0 + first, slot)
                 ints[li, _END] = torch.where(any_h, -1, ints[li, _END])
                 if treelets:
                     ints[li, _RND] = torch.where(any_h, s.n_treelets, ints[li, _RND])
-            else:  # the least t; among equal t the first slot (the kernel's order)
+            else:  # the least t; among equal t the first triangle (the kernel's order)
                 t_min = torch.where(h, tt, torch.inf).amin(1)
-                first = torch.where(h & (tt == t_min[:, None]), slot_ids, k).amin(1)
+                first = torch.where(h & (tt == t_min[:, None]), j, j.numel()).amin(1)
                 rep = any_h & ((t_min < tb) | (slot < 0))
                 fs[li, _TB] = torch.where(rep, t_min, tb)
-                ints[li, _SLOT] = torch.where(rep, fl * k + first, slot)
+                ints[li, _SLOT] = torch.where(rep, row0 + first, slot)
 
-        ints[:, _CUR] = torch.where(hit, cur + 1, ni[:, 1])
+        # entered -> the next node; missed -> the skip pointer (a leaf's is cur + 1)
+        ints[:, _CUR] = torch.where(hit | is_leaf, cur + 1, ln[:, 1])
 
 
 def bvh_walk_reference(s: BVHStreams, rays, t_lo, t_init, shadow: bool):
@@ -344,6 +386,28 @@ def treelet_walk_reference(s: BVHStreams, rays, t_lo, t_init, shadow: bool):
     return _walk_reference(s, rays, t_lo, t_init, shadow, treelets=True)
 
 
+def walk_visits(s: BVHStreams, rays, t_lo, t_init, shadow: bool, treelets: bool) -> dict:
+    """The work of one walk, counted on the lockstep plain walk (the same
+    visits as the kernels make).  Per ray, int64 (N,): ``nodes`` (slab
+    tests), ``leaves`` (leaves entered), ``tris`` (triangle tests, padding
+    skipped) and ``boxes`` (the treelet walk's pass over its boxes: one test
+    per group box, and one per treelet of each group the ray enters; 0 for
+    the whole-stream walk; the CUDA walk's later passes, which refill its
+    short list of next treelets, are not counted).  ``node_rows`` and
+    ``tri_rows`` count the distinct node records and triangle rows the walk
+    read."""
+    n = t_init.shape[0]
+    dev = t_init.device
+    v = {k: torch.zeros(n, dtype=torch.int64, device=dev)
+         for k in ("nodes", "leaves", "tris", "boxes")}
+    v["node_rows"] = torch.zeros(8 * s.num_nodes, dtype=torch.bool, device=dev)
+    v["tri_rows"] = torch.zeros(s.tris.shape[0], dtype=torch.bool, device=dev)
+    _walk_reference(s, rays, t_lo, t_init, shadow, treelets, visits=v)
+    v["node_rows"] = int(v["node_rows"].sum())
+    v["tri_rows"] = int(v["tri_rows"].sum())
+    return v
+
+
 # ---------------------------------------------------------------------------
 # Walks: the kernel on CUDA tensors, the plain version on CPU tensors
 # ---------------------------------------------------------------------------
@@ -355,14 +419,15 @@ def _check(s: BVHStreams, rays, t_lo, t_init):
         if c.dtype != _F32 or tuple(c.shape) != (n,) or not c.is_contiguous():
             raise ValueError(f"ray columns must be contiguous ({n},) float32, got "
                              f"{tuple(c.shape)} {c.dtype}")
-    for name in ("nodes_f", "leaves", "tl_box"):
+    for name in ("nodes", "tris", "tl_box", "tl_group"):
         x = getattr(s, name)
         if x.dtype != _F32 or not x.is_contiguous():
             raise ValueError(f"streams.{name} must be contiguous float32")
-    for name in ("nodes_i", "tl_lim"):
-        x = getattr(s, name)
-        if x.dtype != torch.int32 or not x.is_contiguous():
-            raise ValueError(f"streams.{name} must be contiguous int32")
+    for name in ("nodes", "tris"):  # the kernels read them as float4
+        if getattr(s, name).data_ptr() % 16:
+            raise ValueError(f"streams.{name} must be 16-byte aligned")
+    if s.tl_lim.dtype != torch.int32 or not s.tl_lim.is_contiguous():
+        raise ValueError("streams.tl_lim must be contiguous int32")
     if n >= 2**31:
         raise ValueError("BVH walks take fewer than 2**31 rays")
 
@@ -372,9 +437,9 @@ def _walk(kind: str, s: BVHStreams, rays, t_lo, t_init, shadow: bool):
     n = t_init.shape[0]
     t_out = torch.empty(n, dtype=_F32, device=dev)
     slot_out = torch.empty(n, dtype=torch.int32, device=dev)
-    head = (int(shadow), s.nodes_f, s.nodes_i, s.leaves, s.num_nodes, s.n_leaves, s.leaf_size)
+    head = (int(shadow), s.nodes, s.tris, s.num_nodes)
     if kind == "treelet":
-        head += (s.tl_box, s.tl_lim, s.n_treelets)
+        head += (s.tl_box, s.tl_group, s.tl_lim, s.n_treelets)
     _ext.launch(f"{kind}_walk_launch", dev, *head, *rays, t_lo, t_init, t_out, slot_out, n)
     LAUNCHES[f"{kind}_{'shadow' if shadow else 'closest'}"] += 1
     return t_out, slot_out
@@ -382,7 +447,7 @@ def _walk(kind: str, s: BVHStreams, rays, t_lo, t_init, shadow: bool):
 
 def bvh_walk(s: BVHStreams, rays, t_lo, t_init, shadow: bool):
     """Whole-stream walk (K4's contract); see :func:`bvh_walk_reference`."""
-    if not _on_cuda((s.nodes_f, *rays, t_lo, t_init)):
+    if not _on_cuda((s.nodes, *rays, t_lo, t_init)):
         return bvh_walk_reference(s, rays, t_lo, t_init, shadow)
     _check(s, rays, t_lo, t_init)
     return _walk("bvh", s, rays, t_lo, t_init, shadow)
@@ -390,7 +455,7 @@ def bvh_walk(s: BVHStreams, rays, t_lo, t_init, shadow: bool):
 
 def treelet_walk(s: BVHStreams, rays, t_lo, t_init, shadow: bool):
     """Treelet walk (K5's contract); see :func:`treelet_walk_reference`."""
-    if not _on_cuda((s.nodes_f, *rays, t_lo, t_init)):
+    if not _on_cuda((s.nodes, *rays, t_lo, t_init)):
         return treelet_walk_reference(s, rays, t_lo, t_init, shadow)
     _check(s, rays, t_lo, t_init)
     return _walk("treelet", s, rays, t_lo, t_init, shadow)
@@ -408,12 +473,11 @@ def walk(s: BVHStreams, rays, t_lo, t_init, shadow: bool):
 # ---------------------------------------------------------------------------
 
 
-def slot_to_tri(s: BVHStreams, rays, slot):
-    """Scene triangle of each lane's leaf slot in the lane's own octant
-    stream (``_slot_to_tri`` :1343).  Returns (tri, found)."""
-    flat = octant(rays) * s.tri_id.shape[1] + torch.clamp_min(slot, 0).long()
-    tri = s.tri_id.reshape(-1)[flat]
-    found = (slot >= 0) & (tri >= 0)
+def slot_to_tri(s: BVHStreams, slot):
+    """Scene triangle of each lane's slot, a row of the shared triangle table
+    (``_slot_to_tri`` :1343).  Returns (tri, found)."""
+    found = slot >= 0
+    tri = s.tri_id[torch.clamp_min(slot, 0).long()]
     return torch.where(found, tri, -1), found
 
 
@@ -428,7 +492,7 @@ def bvh_closest(tables, o, d, *, t_min, t_max, active):
     t_lo = _lanes(t_min, n, dev).contiguous()
     t_init = torch.where(active, _lanes(t_max, n, dev), -1.0).contiguous()
     t_best, slot = walk(s, rays, t_lo, t_init, shadow=False)
-    tri, found = slot_to_tri(s, rays, slot)
+    tri, found = slot_to_tri(s, slot)
     u, v = winner_uv(tables, o, d, tri)
     return (
         torch.where(found, t_best, torch.inf),

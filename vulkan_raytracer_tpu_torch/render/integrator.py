@@ -178,21 +178,21 @@ def _emissive_pdf(tables, o: V3, d: V3, *, t_min, active):
 # ---------------------------------------------------------------------------
 
 
-def generate_primary_rays(view_inv, proj_inv, width, height, sample_count, lane_idx=None,
-                          device="cpu"):
+def generate_primary_rays(view_inv, proj_inv, width, height, sample_count, lane_idx=None, *,
+                          device):
     """Camera rays for the given pixel lanes; returns (origin V3, direction
     V3, seed).  Port of integrator.py:403-442.
 
     Seeds are TEA(pixelIdx, sampleCount); jitter is the pixel centre on
     sample 0, else two rnd draws.  ``sample_count`` is an int or a per-lane
     tensor; ``lane_idx`` selects pixel lanes (default: all width*height
-    pixels).  ``view_inv``/``proj_inv`` are float32 (4, 4) arrays.
+    pixels).  ``view_inv``/``proj_inv`` are float32 (4, 4) arrays; the rays
+    lie on ``device``.
     """
     if lane_idx is None:
         idx = torch.arange(width * height, dtype=torch.int64, device=device)
     else:
-        idx = rng.as_u32(lane_idx)
-        device = idx.device
+        idx = rng.as_u32(lane_idx, device).to(device)
     px = (idx % width).to(_F32)
     py = (idx // width).to(_F32)
     counts = rng.as_u32(sample_count, device)

@@ -21,7 +21,8 @@ from ..ops import dense
 from ..ops.math3 import V3
 from ..ops.texture import EnvMap, TextureAtlas
 from ..ops.traverse import TREELET_TRIS, build_streams
-from .scenegraph import AlphaTables, EmissivePDFTables, MaterialTable, SceneTables
+from .scenegraph import (AlphaTables, EmissivePDFTables, MaterialTable, SceneTables,
+                         target_device)
 
 #: SceneTables fields that are not arrays (counts and flags)
 _STATIC = ("num_point", "num_directional", "num_emissive_tris",
@@ -48,24 +49,27 @@ def _record(cls, src, device):
     return cls(**out)
 
 
-def _bvh_from_numpy(src, device="cpu") -> ThreadedBVH:
-    """The port's ThreadedBVH from a numpy-leaved JAX one (bit for bit)."""
+def _bvh_from_numpy(src) -> ThreadedBVH:
+    """The port's ThreadedBVH, on the CPU, from a numpy-leaved JAX one (bit
+    for bit)."""
     return ThreadedBVH(
-        **{f.name: _tensor(getattr(src, f.name), device)
+        **{f.name: _tensor(getattr(src, f.name), "cpu")
            for f in dataclasses.fields(ThreadedBVH) if f.name != "leaf_size"},
         leaf_size=int(src.leaf_size),
     )
 
 
-def tables_from_numpy(src, device="cpu", traversal: str = "auto",
+def tables_from_numpy(src, device="cuda", traversal: str = "auto",
                       max_tris: int = TREELET_TRIS) -> SceneTables:
     """The port's SceneTables, on ``device``, from numpy-leaved JAX tables.
+    As ``Scene.upload``, it goes to the card unless the caller asks for
+    ``device="cpu"``.
 
     As ``Scene.upload`` does, the BVH and its streams (cut at ``max_tris``
     triangle slots per treelet) come along for scenes above
     ``DENSE_MAX_TRIS`` triangles, or for any scene with ``traversal="bvh"``.
     """
-    device = torch.device(device)
+    device = target_device(device)
     sky = src.skybox
     fields = {}
     if traversal == "bvh" or np.asarray(src.v0.x).shape[0] > dense.DENSE_MAX_TRIS:

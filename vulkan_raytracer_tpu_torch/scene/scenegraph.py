@@ -44,6 +44,15 @@ from . import gltf as gltf_mod
 _LUMA = np.array([0.2126, 0.7152, 0.0722], np.float32)
 
 
+def target_device(device) -> torch.device:
+    """``device`` as a ``torch.device``.  A CUDA device must exist: the port
+    never falls back to the CPU, which a caller asks for with ``"cpu"``."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device here; pass device='cpu' for the plain PyTorch path")
+    return device
+
+
 # ---------------------------------------------------------------------------
 # Host-side PODs (material.h / light.h equivalents)
 # ---------------------------------------------------------------------------
@@ -527,7 +536,7 @@ class Scene:
         acut_by_mat = np.array([m.alpha_cutoff for m in mats], np.float32)
         return mt, mode_by_mat, aval_by_mat, acut_by_mat
 
-    def upload(self, device="cpu", traversal: str = "auto") -> SceneTables:
+    def upload(self, device="cuda", traversal: str = "auto") -> SceneTables:
         """Flatten every (node, primitive) instance to world space and build
         the tables on ``device`` (Scene::uploadResources, scene.cpp:281-342;
         the JAX package's _upload_flattened, scenegraph.py:1101-1300).
@@ -536,10 +545,12 @@ class Scene:
         ``DENSE_MAX_TRIS`` triangles; ``"bvh"`` builds them for any scene
         (the explicit form of the JAX package's ``VKRT_FORCE_PACKET``).  The
         seconds of the BVH build, the stream build and the copy of both to
-        the device are logged and kept in ``self.upload_stats``."""
+        the device are logged and kept in ``self.upload_stats``, with the
+        bytes the streams take there.  The tables go to the card unless the
+        caller asks for ``device="cpu"``; without a card that default raises."""
         if traversal not in ("auto", "bvh"):
             raise ValueError(f"traversal must be 'auto' or 'bvh', not {traversal!r}")
-        device = torch.device(device)
+        device = target_device(device)
         v0s, v1s, v2s = [], [], []
         n_tris, tg_tris, uv_tris = [], [], []
         sign_tris, mat_tris = [], []
@@ -711,10 +722,11 @@ class Scene:
         builder = "native" if native.get_lib() is not None else "numpy"
         self.upload_stats.update(
             bvh_builder=builder, bvh_seconds=t1 - t0, streams_seconds=t2 - t1,
-            copy_seconds=t3 - t2, nodes=bvh.num_nodes, treelets=pbvh.n_treelets)
+            copy_seconds=t3 - t2, nodes=bvh.num_nodes, treelets=pbvh.n_treelets,
+            stream_bytes=pbvh.nbytes)
         log.info(
-            "BVH: %d nodes, %d treelets; build %.3fs (%s builder), streams %.3fs, "
-            "copy to %s %.3fs", bvh.num_nodes, pbvh.n_treelets, t1 - t0, builder,
-            t2 - t1, device, t3 - t2,
+            "BVH: %d nodes, %d treelets, streams %d bytes; build %.3fs (%s builder), "
+            "streams %.3fs, copy to %s %.3fs", bvh.num_nodes, pbvh.n_treelets, pbvh.nbytes,
+            t1 - t0, builder, t2 - t1, device, t3 - t2,
         )
         return bvh, pbvh
