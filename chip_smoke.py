@@ -12,14 +12,20 @@ nonzero exit code:
    power limit from nvidia-smi.
 2. build    — compile the CUDA kernels from ``vulkan_raytracer_tpu_torch/csrc``
    (one nvcc per source, started together) and the native BVH builder; each
-   kernel variant's registers, stack frame and spills from ptxas.  The four
-   walk variants must use no stack and spill nothing.
+   kernel variant's registers, stack frame and spills from ptxas.  The dense
+   closest and pdf kernels and the four walk variants must use no stack and
+   spill nothing.
 3. kernels  — each dense kernel against its plain PyTorch version on the
    card, over the Cornell box and over a 1,000-triangle soup (several
    shared-memory chunks), at bench cfg1's wave of 524,288 rays and at a
-   ragged 524,251 (a block partly past the last ray), with inactive lanes,
-   t bounds before, across, at and beyond the hits, and the pdf at both
-   t_min the render uses; then times and bounds at the cfg1 wave.
+   ragged 524,251 (a block partly past the last ray), with t bounds before,
+   across, at and beyond the hits, and the pdf at both t_min the render
+   uses; the live lanes 80% of the rays, then none, one, 0.1%, 5%, 50% and
+   all of them (the sparse shares with one all-live and one all-dead block
+   among mixed ones); the pdf exactly +0 on lanes whose gate is 0.  Then
+   the times at the cfg1 wave: each kernel's own device time from
+   torch.profiler and the wrapper's host microseconds per call, with the
+   bounds.
 4. render   — the CLI's headless path for bench cfg1 (Cornell, 512x512,
    depth 4, 64 spp, camera 0,1,2.4 -> 0,0,-1) on ``cuda``; every dense kernel
    must have been launched by it, and the image must be finite and lit.
@@ -31,7 +37,13 @@ nonzero exit code:
    per-lane bounds, bounds at exactly the hit t and inactive lanes: t and
    slot bit-equal; K4' against K5'; the streams within 25 MB.  Then the
    times at both waves, each with its bound from the visits the plain
-   walk counts (``walk_visits``).
+   walk counts (``walk_visits``).  Then one wave each of the glTF 147k
+   render and of the textured glb render (samples 1-2, 524,288 lanes) with
+   every dense sweep call recorded: each recorded K1 and K3 call against
+   its plain version (K1 bit-equal; K3 as above), then K3 at the glTF
+   launch with the most live lanes (256 emissive triangles) and K1 at the
+   first alpha re-launch, each timed on the card with its bound, live lanes
+   and plain time.
 6. bvh_vs_dense — the BVH walks against the dense kernels on a
    60,000-triangle soup: hit and occlusion flags equal on >= 99.99% of lanes,
    t bit-equal where the triangle agrees.
@@ -71,12 +83,16 @@ nonzero exit code:
 Then it prints the kernel summary (one JSON object: each kernel's launches
 over the paths driven with reset counters, in all and by phase; its time,
 its plain version's and its bound at the shape named, with what bounds it;
-its ptxas figures; for the walks also their numbers at the glTF wave), the
-nvidia-smi line, and, last, ``{"ok": true, "device": {...}}``.  A bound is
-the larger of the launch's operations at the card's float32 peak (67 TFLOP/s)
-and its bytes at its memory rate (3.35 TB/s), each input read once and each
-output written once; the operations are 54 per triangle test, 27 per box
-test and 90 per pdf probe, counted on the inputs timed.
+its ptxas figures; for the walks also their numbers at the glTF wave, for
+K1 and K3 at the recorded launches), the nvidia-smi line, and, last,
+``{"ok": true, "device": {...}}``.  A bound is the larger of the launch's
+operations at the card's float32 peak (67 TFLOP/s) and its bytes at its
+memory rate (3.35 TB/s), each input read once and each output written once;
+the operations are 54 per triangle test, 27 per box test and 36 more per
+pdf hit (its weighted term), counted on the inputs timed: the dense sweeps
+test only live lanes (t_init > t_lo, t_hi > 0, gate != 0), whose ray
+columns are the only ones read, and their test stops at det (16
+operations) or at u (28) where the full test would reject there.
 Neither the script nor the port imports jax or the JAX package; the last
 phase checks that.
 """
@@ -130,8 +146,13 @@ F32_OPS_PER_S = 67e12
 HBM_BYTES_PER_S = 3.35e12
 # operations per test, counted from the kernels' arithmetic
 MT_OPS = 54  # one Moller-Trumbore test
+# the dense sweeps' test (csrc/dense_sweep.cu mt_inside) stops where det is
+# near 0, or else where u falls outside [0, 1]
+MT_DET_OPS = 16
+MT_U_OPS = 28
 SLAB_OPS = 27  # one ray-box slab test
-PDF_OPS = MT_OPS + 36  # one emissive-pdf probe: the test and its weighted term
+PDF_OPS = MT_OPS + 36  # one emissive-pdf hit: the test and its weighted term
+PROFILE_TRIES = 3  # profiled runs of one launch shape before device_ms gives up
 # the BVH streams of the cfg2 dragon and of the 147k glTF must fit half the L2
 STREAM_BYTES_MAX = 25e6
 
@@ -292,15 +313,82 @@ def time_ms(fn, reps: int, warm: bool = True) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, name: str, reps: int) -> tuple:
+    """A kernel's own device time per launch, from torch.profiler: ``fn``,
+    warmed once, runs ``reps`` times in the profiled window and launches one
+    kernel whose name in the trace holds ``name`` per call.  Returns (the
+    mean ms over the launches the trace holds, how many it holds).  The
+    tracer may drop a few records of a run of short launches; a trace that
+    holds fewer than half of them is taken again, up to
+    :data:`PROFILE_TRIES` times."""
+    import torch
+    from torch.autograd import DeviceType
+
+    fn()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(PROFILE_TRIES):
+        with torch.profiler.profile(activities=activities) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range.end - e.time_range.start for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and name in e.name]
+        if len(spans) > reps:
+            raise AssertionError(f"the profiler saw {len(spans)} launches of {name}, "
+                                 f"more than the {reps} made")
+        if 2 * len(spans) >= reps:
+            return sum(spans) / len(spans) / 1e3, len(spans)
+    raise AssertionError(f"the profiler saw {len(spans)} of {reps} launches of {name}")
+
+
+def host_us(fn, reps: int) -> float:
+    """Host microseconds per call of ``fn``, its launches enqueued with no
+    synchronise between them."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e6 / reps
+
+
 def _max_abs(a, b) -> float:
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
 
 
+#: live shares of the sparse-launch checks ("one": a single live lane)
+LIVE_SHARES = (0.0, "one", 0.001, 0.05, 0.5, 1.0)
+
+
+def live_mask(n: int, share, seed: int) -> np.ndarray:
+    """Live lanes of a sparse launch: none, all, a single lane (``"one"``) or
+    a random share; a random share has block 3 (lanes 768-1023, one block of
+    the dense kernels' 256 threads) all live and block 4 all dead among
+    mixed blocks."""
+    r = np.random.default_rng(seed)
+    if share == "one":
+        live = np.zeros(n, bool)
+        live[r.integers(n)] = True
+        return live
+    live = r.random(n) < share
+    if 0.0 < share < 1.0:
+        live[768:1024] = True
+        live[1024:1280] = False
+    return live
+
+
 def check_kernels(tables_by_name, ray_counts, device) -> dict:
     """Dense kernel vs plain version on the card, for every table and ray
-    count; returns the largest absolute error measured per kernel.  Tri ids,
-    occlusion flags and t/u/v must be bit-equal; the pdf, at both t_min the
-    render uses (EPS and 0.0), within rtol 1e-5 / atol 1e-7."""
+    count, with the rays' own 80% of active lanes and then each of
+    :data:`LIVE_SHARES`; returns the largest absolute error measured per
+    kernel.  Tri ids, occlusion flags and t/u/v must be bit-equal; the pdf,
+    at both t_min the render uses (EPS and 0.0), within rtol 1e-5 / atol
+    1e-7 on lanes whose gate is 1 and exactly +0 where it is 0."""
     import torch
 
     from vulkan_raytracer_tpu_torch.ops import dense
@@ -313,104 +401,310 @@ def check_kernels(tables_by_name, ray_counts, device) -> dict:
             seed += 1
             rays = make_rays(n_rays, seed=seed, device=device)
             cols = dense.ray_columns(rays["o"], rays["d"])
-            active = rays["active"]
             t_lo = rays["t_min"].contiguous()
-            t_init = torch.where(active, rays["t_max"], 0.0).contiguous()
-            where = f"{name}, {n_rays} rays"
+            shares = {}
+            for share in ("80%", *LIVE_SHARES):
+                active = rays["active"] if share == "80%" else torch.as_tensor(
+                    live_mask(n_rays, share, seed), device=device)
+                where = f"{name}, {n_rays} rays, live {share}"
+                t_init = torch.where(active, rays["t_max"], 0.0).contiguous()
 
-            # closest hit: ids, t and the recomputed (u, v)
-            t_k, tri_k = dense.closest_sweep(table, cols, t_lo, t_init)
-            t_p, tri_p = dense.closest_sweep_reference(table, cols, t_lo, t_init)
-            # lanes bounded at exactly their hit t must still hit (the replace rule)
-            t_tie = torch.where(tri_p >= 0, t_p, t_init).contiguous()
-            t_k2, tri_k2 = dense.closest_sweep(table, cols, t_lo, t_tie)
-            t_p2, tri_p2 = dense.closest_sweep_reference(table, cols, t_lo, t_tie)
-            uk, vk = dense.winner_uv(tables, rays["o"], rays["d"], tri_k)
-            up, vp = dense.winner_uv(tables, rays["o"], rays["d"], tri_p)
-            closest_err = max(_max_abs(t_k, t_p), _max_abs(t_k2, t_p2),
-                              _max_abs(uk, up), _max_abs(vk, vp))
-            bad_ids = int((tri_k != tri_p).sum()) + int((tri_k2 != tri_p2).sum())
-            err["dense_closest"] = max(err["dense_closest"], closest_err)
-            if bad_ids or closest_err != 0.0:
-                raise AssertionError(f"{where}: closest differs on {bad_ids} ids, "
-                                     f"max abs t/u/v error {closest_err}")
-            if not torch.equal(tri_k2, tri_p):
-                raise AssertionError(f"{where}: a hit at exactly t_init was dropped")
+                # closest hit: ids, t and the recomputed (u, v)
+                t_k, tri_k = dense.closest_sweep(table, cols, t_lo, t_init)
+                t_p, tri_p = dense.closest_sweep_reference(table, cols, t_lo, t_init)
+                # lanes bounded at exactly their hit t must still hit (the replace rule)
+                t_tie = torch.where(tri_p >= 0, t_p, t_init).contiguous()
+                t_k2, tri_k2 = dense.closest_sweep(table, cols, t_lo, t_tie)
+                t_p2, tri_p2 = dense.closest_sweep_reference(table, cols, t_lo, t_tie)
+                uk, vk = dense.winner_uv(tables, rays["o"], rays["d"], tri_k)
+                up, vp = dense.winner_uv(tables, rays["o"], rays["d"], tri_p)
+                closest_err = max(_max_abs(t_k, t_p), _max_abs(t_k2, t_p2),
+                                  _max_abs(uk, up), _max_abs(vk, vp))
+                bad_ids = int((tri_k != tri_p).sum()) + int((tri_k2 != tri_p2).sum())
+                err["dense_closest"] = max(err["dense_closest"], closest_err)
+                if bad_ids or closest_err != 0.0:
+                    raise AssertionError(f"{where}: closest differs on {bad_ids} ids, "
+                                         f"max abs t/u/v error {closest_err}")
+                if not torch.equal(tri_k2, tri_p):
+                    raise AssertionError(f"{where}: a hit at exactly t_init was dropped")
+                dead = ~(t_init > t_lo)
+                if not (torch.equal(t_k[dead], t_init[dead]) and bool((tri_k[dead] < 0).all())):
+                    raise AssertionError(f"{where}: a dead closest lane did not keep t_init, -1")
 
-            # occlusion: flags bit-equal
-            t_hi = torch.where(active, rays["t_max"], 0.0).contiguous()
-            occ_k = dense.shadow_sweep(table, cols, t_hi)
-            occ_p = dense.shadow_sweep_reference(table, cols, t_hi)
-            shadow_err = _max_abs(occ_k, occ_p)
-            err["dense_shadow"] = max(err["dense_shadow"], shadow_err)
-            if shadow_err != 0.0:
-                bad = int((occ_k != occ_p).sum())
-                raise AssertionError(f"{where}: occlusion differs on {bad} lanes")
-            if bool(occ_k[~active].any()):
-                raise AssertionError(f"{where}: an inactive lane is occluded")
+                # occlusion: flags bit-equal
+                t_hi = torch.where(active, rays["t_max"], 0.0).contiguous()
+                occ_k = dense.shadow_sweep(table, cols, t_hi)
+                occ_p = dense.shadow_sweep_reference(table, cols, t_hi)
+                shadow_err = _max_abs(occ_k, occ_p)
+                err["dense_shadow"] = max(err["dense_shadow"], shadow_err)
+                if shadow_err != 0.0:
+                    bad = int((occ_k != occ_p).sum())
+                    raise AssertionError(f"{where}: occlusion differs on {bad} lanes")
+                if bool(occ_k[~active].any()):
+                    raise AssertionError(f"{where}: an inactive lane is occluded")
 
-            # emissive pdf: rtol 1e-5, atol 1e-7 (rsqrtf vs torch.rsqrt, sum order)
-            gate = torch.where(active, 1.0, 0.0).contiguous()
-            pdf_err = {}
-            for t_min in (EPS, 0.0):
-                pdf_k = dense.pdf_sweep(ptable, cols, gate, t_min)
-                pdf_p = dense.pdf_sweep_reference(ptable, cols, gate, t_min)
-                pdf_err[t_min] = _max_abs(pdf_k, pdf_p)
-                err["dense_emissive_pdf"] = max(err["dense_emissive_pdf"], pdf_err[t_min])
-                torch.testing.assert_close(pdf_k, pdf_p, rtol=1e-5, atol=1e-7)
+                # emissive pdf: rtol 1e-5, atol 1e-7 on gated lanes (rsqrtf vs
+                # torch.rsqrt, sum order); +0 where the gate is 0
+                gate = torch.where(active, 1.0, 0.0).contiguous()
+                pdf_err = {}
+                for t_min in (EPS, 0.0):
+                    pdf_k = dense.pdf_sweep(ptable, cols, gate, t_min)
+                    pdf_p = dense.pdf_sweep_reference(ptable, cols, gate, t_min)
+                    pdf_err[t_min] = _max_abs(pdf_k[active], pdf_p[active])
+                    err["dense_emissive_pdf"] = max(err["dense_emissive_pdf"], pdf_err[t_min])
+                    torch.testing.assert_close(pdf_k[active], pdf_p[active], rtol=1e-5, atol=1e-7)
+                    off = pdf_k[~active]
+                    if bool((off != 0.0).any() or torch.signbit(off).any()):
+                        raise AssertionError(f"{where}: the pdf is not +0 where the gate is 0")
+                shares[str(share)] = {
+                    "live": int(active.sum()), "hits": int((tri_k >= 0).sum()),
+                    "occluded": int(occ_k.sum()), "pdf_lanes": int((pdf_k > 0).sum()),
+                    "closest_max_abs_err": closest_err, "shadow_max_abs_err": shadow_err,
+                    "pdf_max_abs_err_t_min_eps": pdf_err[EPS],
+                    "pdf_max_abs_err_t_min_0": pdf_err[0.0]}
             emit({"phase": "kernels", "table": name, "triangles": table.shape[1],
-                  "emissive": ptable.shape[1], "rays": n_rays,
-                  "hits": int((tri_k >= 0).sum()), "occluded": int(occ_k.sum()),
-                  "pdf_lanes": int((pdf_k > 0).sum()), "closest_max_abs_err": closest_err,
-                  "shadow_max_abs_err": shadow_err, "pdf_max_abs_err_t_min_eps": pdf_err[EPS],
-                  "pdf_max_abs_err_t_min_0": pdf_err[0.0]})
+                  "emissive": ptable.shape[1], "rays": n_rays, "by_live_share": shares})
     return err
 
 
-def time_kernels(tables, n: int, device) -> dict:
-    """Each dense kernel and its plain version at bench cfg1's launch shape (n
-    rays over the Cornell tables), in turns plain, kernel, kernel, plain."""
+#: the sweep function of each dense kernel in ops/dense.py
+DENSE_SWEEPS = {"dense_closest": "closest_sweep", "dense_shadow": "shadow_sweep",
+                "dense_emissive_pdf": "pdf_sweep"}
+
+
+def mt_ops(rows, rays):
+    """The operations each test of the dense sweeps' Moller-Trumbore needs
+    (csrc/dense_sweep.cu ``mt_inside``), for (9, C, 1) triangle rows x (N,)
+    rays: :data:`MT_DET_OPS` where det is near 0, :data:`MT_U_OPS` where u
+    then falls outside [0, 1] (or is NaN), else :data:`MT_OPS`.  det is
+    formed in the kernel's operation order.  Returns (ops (C, N), inside,
+    t)."""
+    import torch
+
+    from vulkan_raytracer_tpu_torch.ops import dense
+
+    inside, u, _, t = dense._mt_chunk(rows, rays)
+    dx, dy, dz = (r[None, :] for r in rays[3:])
+    e1x, e1y, e1z, e2x, e2y, e2z = rows[3:9]
+    det = e1x * (dy * e2z - dz * e2y) + e1y * (dz * e2x - dx * e2z) + e1z * (dx * e2y - dy * e2x)
+    ops = torch.where((u >= 0.0) & (u <= 1.0), MT_OPS, MT_U_OPS)
+    return torch.where(det.abs() < 1e-12, MT_DET_OPS, ops), inside, t
+
+
+def sweep_work(kernel: str, args) -> dict:
+    """Live lanes of one dense sweep call (``args`` as the sweep takes them)
+    and the bound of the work its inputs need: each live lane tests every
+    triangle (closest, pdf) or the triangles up to its first hit
+    (occlusion), each test with the operations it needs (:func:`mt_ops`),
+    and a pdf hit adds its weighted term; bytes are the live lanes' ray
+    columns, every lane's bound or gate and outputs, and the table."""
+    import torch
+
+    from vulkan_raytracer_tpu_torch.ops import dense
+
+    table, rays = args[0], args[1]
+    n, n_t = rays[0].shape[0], table.shape[1]
+    if kernel == "dense_closest":
+        live = args[3] > args[2]
+    elif kernel == "dense_shadow":
+        live = args[2] > 0.0
+    else:
+        live = args[2] != 0.0
+    idx = torch.nonzero(live).squeeze(1)
+    sub = [c[idx] for c in rays]
+    n_live = idx.numel()
+    hi = args[2][idx][None, :]  # the occlusion sweep's t_hi
+    ops, hits = 0, 0
+    done = torch.zeros(n_live, dtype=torch.bool, device=idx.device)
+    for _, rows in dense._chunks(table):
+        test_ops, inside, t = mt_ops(rows, sub)
+        if kernel == "dense_shadow":
+            occ = (inside & (t > 0.0) & (t <= hi)).int()
+            # a lane's tests up to and including its first hit
+            ops += int(test_ops[~done[None, :] & (occ.cumsum(0) - occ == 0)].sum())
+            done |= occ.bool().any(0)
+        else:
+            ops += int(test_ops.sum())
+        if kernel == "dense_emissive_pdf":
+            hits += int((inside & (t > args[3])).sum())
+    ops += (PDF_OPS - MT_OPS) * hits
+    out = {"rays": n, "triangles": n_t, "live": n_live}
+    if kernel == "dense_closest":
+        return {**out, **bound(ops, 16 * n + 24 * n_live + 36 * n_t)}
+    if kernel == "dense_shadow":
+        return {**out, **bound(ops, 8 * n + 24 * n_live + 36 * n_t)}
+    return {**out, "pdf_hits": hits, **bound(ops, 8 * n + 24 * n_live + 80 * n_t)}
+
+
+def time_launch(kernel: str, args, shape: str, reps: int = 50, plain_reps: int = 10) -> dict:
+    """One dense sweep call on the card, in turns plain, kernel, kernel,
+    plain: the kernel's own device time (two profiled runs of ``reps``
+    launches), the plain version's (CUDA events); then the wrapper's host
+    microseconds per call, and the launch's live lanes and bound."""
+    from vulkan_raytracer_tpu_torch.ops import dense
+
+    sweep = getattr(dense, DENSE_SWEEPS[kernel])
+    plain = getattr(dense, DENSE_SWEEPS[kernel] + "_reference")
+    trace = next(k for k, v in _ENTRIES.items() if v == kernel)
+
+    def run():
+        return sweep(*args)
+
+    def ref():
+        return plain(*args)
+
+    p1 = time_ms(ref, plain_reps)
+    (k1, n1), (k2, n2) = device_ms(run, trace, reps), device_ms(run, trace, reps)
+    p2 = time_ms(ref, plain_reps)
+    return {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "ms_runs": [k1, k2],
+            "launches_traced": [n1, n2], "launches_per_run": reps,
+            "plain_ms_runs": [p1, p2], "host_us_per_call": host_us(run, reps),
+            "shape": shape, **sweep_work(kernel, args)}
+
+
+def cfg1_launches(tables, n: int, device) -> list:
+    """The three dense sweep calls of a synthetic wave at bench cfg1's launch
+    shape, as (kernel, args): n random rays in the Cornell box, 80% of them
+    active, over its tables."""
     import torch
 
     from vulkan_raytracer_tpu_torch.ops import dense
 
     rays = make_rays(n, seed=99, device=device)
     cols = dense.ray_columns(rays["o"], rays["d"])
-    table, ptable = tables.tri_table, tables.em_table
+    active = rays["active"]
     t_lo = torch.full((n,), EPS, dtype=torch.float32, device=device)
-    t_init = torch.where(rays["active"], INF, 0.0).to(torch.float32).contiguous()
-    t_hi = torch.where(rays["active"], rays["t_max"], 0.0).contiguous()
-    gate = torch.where(rays["active"], 1.0, 0.0).to(torch.float32).contiguous()
-    pairs = {
-        "dense_closest": (lambda: dense.closest_sweep(table, cols, t_lo, t_init),
-                          lambda: dense.closest_sweep_reference(table, cols, t_lo, t_init)),
-        "dense_shadow": (lambda: dense.shadow_sweep(table, cols, t_hi),
-                         lambda: dense.shadow_sweep_reference(table, cols, t_hi)),
-        "dense_emissive_pdf": (lambda: dense.pdf_sweep(ptable, cols, gate, EPS),
-                               lambda: dense.pdf_sweep_reference(ptable, cols, gate, EPS)),
-    }
-    # the work these inputs need: closest hits and pdf probes on the active
-    # lanes over every triangle; occlusion up to each lane's first hit
-    n_t, n_e, active = table.shape[1], ptable.shape[1], int(rays["active"].sum())
-    inside, _, _, t = dense._mt_chunk(table[:, :, None], cols)
-    occ = inside & (t > 0.0) & (t <= t_hi[None, :])
-    tests = torch.where(occ.any(0), occ.int().argmax(0) + 1, n_t)
-    shadow_tests = int(torch.where(t_hi > 0.0, tests, 0).sum())
-    ray_bytes = 24 * n  # o.xyz, d.xyz
-    bounds = {
-        "dense_closest": bound(MT_OPS * n_t * active, ray_bytes + 16 * n + 36 * n_t),
-        "dense_shadow": bound(MT_OPS * shadow_tests, ray_bytes + 8 * n + 36 * n_t),
-        "dense_emissive_pdf": bound(PDF_OPS * n_e * active, ray_bytes + 8 * n + 80 * n_e),
-    }
+    t_init = torch.where(active, INF, 0.0).to(torch.float32).contiguous()
+    t_hi = torch.where(active, rays["t_max"], 0.0).contiguous()
+    gate = torch.where(active, 1.0, 0.0).to(torch.float32).contiguous()
+    return [("dense_closest", (tables.tri_table, cols, t_lo, t_init)),
+            ("dense_shadow", (tables.tri_table, cols, t_hi)),
+            ("dense_emissive_pdf", (tables.em_table, cols, gate, EPS))]
+
+
+def time_kernels(tables, n: int, device) -> dict:
+    """Each dense kernel at bench cfg1's launch shape (:func:`cfg1_launches`,
+    :func:`time_launch`)."""
+    shape = (f"cfg1 wave: {n} rays over {tables.tri_table.shape[1]} triangles, "
+             f"{tables.em_table.shape[1]} emissive")
+    out = {name: time_launch(name, args, shape) for name, args in cfg1_launches(tables, n, device)}
+    emit({"phase": "kernel_times", "rays": n, "triangles": tables.tri_table.shape[1], **out})
+    return out
+
+
+def record_dense_launches(run):
+    """Call ``run()`` with ops/dense.py's three sweeps wrapped so that every
+    call's arguments and result are kept (tensors cloned).  Returns the calls
+    in order, as (kernel, args, result), and each kernel's launches counted
+    meanwhile."""
+    import torch
+
+    from vulkan_raytracer_tpu_torch.ops import dense
+
+    def keep(x):
+        if isinstance(x, torch.Tensor):
+            return x.clone()
+        return tuple(keep(y) for y in x) if isinstance(x, tuple) else x
+
+    saved = {k: getattr(dense, f) for k, f in DENSE_SWEEPS.items()}
+    calls = []
+
+    def recording(kernel, sweep):
+        def call(*args):
+            kept = keep(args)
+            out = sweep(*args)
+            calls.append((kernel, kept, keep(out)))
+            return out
+        return call
+
+    before = {k: dense.LAUNCHES[KERNELS[k][1]] for k in DENSE_SWEEPS}
+    try:
+        for k, f in DENSE_SWEEPS.items():
+            setattr(dense, f, recording(k, saved[k]))
+        run()
+    finally:
+        for k, f in DENSE_SWEEPS.items():
+            setattr(dense, f, saved[k])
+    return calls, {k: dense.LAUNCHES[KERNELS[k][1]] - before[k] for k in DENSE_SWEEPS}
+
+
+def record_wave(tables, cam, width: int = 512, height: int = 512):
+    """Every dense sweep call of the first wave of a ``width`` x ``height``
+    render of ``cam`` (samples 1-2, depth 4; tools/profile_torch_wave.py).
+    Returns the calls as :func:`record_dense_launches` does; on the card
+    each kernel's calls must equal its launches."""
+    import profile_torch_wave
+    from vulkan_raytracer_tpu_torch.scene.camera import Camera
+
+    camera = Camera(position=np.array(cam[0]), direction=np.array(cam[1]),
+                    aspect=width / height)
+    calls, launched = record_dense_launches(
+        profile_torch_wave._wave(tables, camera, width, height))
+    counts = {k: sum(c[0] == k for c in calls) for k in DENSE_SWEEPS}
+    if tables.device.type == "cuda" and counts != launched:
+        raise AssertionError(f"recorded {counts} sweep calls, but {launched} launches")
+    return calls
+
+
+def check_recorded(calls, label: str) -> float:
+    """Each recorded K1 and K3 call replayed through the kernel and its plain
+    version: K1's t and triangle bit-equal, K3 within rtol 1e-5 / atol 1e-7
+    on lanes whose gate is not 0 and +0 elsewhere.  Returns the largest
+    absolute error."""
+    import torch
+
+    from vulkan_raytracer_tpu_torch.ops import dense
+
+    err = 0.0
+    for i, (kernel, args, _) in enumerate(calls):
+        if kernel == "dense_shadow":
+            continue
+        got = getattr(dense, DENSE_SWEEPS[kernel])(*args)
+        want = getattr(dense, DENSE_SWEEPS[kernel] + "_reference")(*args)
+        where = f"{label}: recorded call {i} ({kernel})"
+        if kernel == "dense_closest":
+            err = max(err, _max_abs(got[0], want[0]))
+            if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                raise AssertionError(f"{where} differs from plain")
+        else:
+            gated = args[2] != 0.0
+            err = max(err, _max_abs(got[gated], want[gated]))
+            torch.testing.assert_close(got[gated], want[gated], rtol=1e-5, atol=1e-7)
+            off = got[~gated]
+            if bool((off != 0.0).any() or torch.signbit(off).any()):
+                raise AssertionError(f"{where}: the pdf is not +0 where the gate is 0")
+    return err
+
+
+def time_recorded(device, gallery, out_dir: Path) -> dict:
+    """K3 at the glTF 147k wave's launch with the most live lanes and K1 at
+    the textured glb wave's first alpha re-launch (a closest call right after
+    another), each recorded from its render's first wave and timed with
+    :func:`time_launch`; every recorded K1 and K3 call is first held against
+    its plain version (:func:`check_recorded`)."""
+    import torch_glb_assets
+
+    textured = _load_glb(torch_glb_assets.write_textured_glb(out_dir), 12, 6)[0].upload(device)
     out = {}
-    for name, (kernel, plain) in pairs.items():
-        p1, k1, k2, p2 = (time_ms(plain, 10), time_ms(kernel, 50),
-                          time_ms(kernel, 50), time_ms(plain, 10))
-        out[name] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
-                     "ms_runs": [k1, k2], "plain_ms_runs": [p1, p2],
-                     "shape": f"cfg1 wave: {n} rays over {n_t} triangles, {n_e} emissive",
-                     **bounds[name]}
-    emit({"phase": "kernel_times", "rays": n, "triangles": n_t, **out})
+    for label, tables, cam, kernel in (
+            ("gltf147k", gallery, BIGASSET_CAM, "dense_emissive_pdf"),
+            ("alpha_relaunch", textured, TEXTURED_CAM, "dense_closest")):
+        calls = record_wave(tables, cam)
+        err = check_recorded(calls, label)
+        if kernel == "dense_emissive_pdf":
+            args = max((a for k, a, _ in calls if k == kernel),
+                       key=lambda a: int((a[2] != 0).sum()))
+            shape = "glTF 147k wave: its K3 launch with the most live lanes"
+        else:
+            args = next(a for (k0, _, _), (k, a, _) in zip(calls, calls[1:])
+                        if k0 == k == kernel)
+            shape = "textured glb wave: its first alpha re-launch of K1"
+        out[label] = {**time_launch(kernel, args, shape, reps=20, plain_reps=2),
+                      "max_abs_err": err,
+                      "launches_per_wave": {k: sum(c[0] == k for c in calls)
+                                            for k in DENSE_SWEEPS}}
+        del calls
+    emit({"phase": "dense_recorded", **out})
     return out
 
 
@@ -885,8 +1179,8 @@ def main() -> int:
           "ptxas": ptxas})
     if set(ptxas) != set(KERNELS):
         raise AssertionError(f"ptxas reported {sorted(ptxas)}, expected every kernel variant")
-    for name in ("bvh_walk_closest", "bvh_walk_shadow", "treelet_walk_closest",
-                 "treelet_walk_shadow"):
+    for name in ("dense_closest", "dense_emissive_pdf", "bvh_walk_closest", "bvh_walk_shadow",
+                 "treelet_walk_closest", "treelet_walk_shadow"):
         if any(ptxas[name][k] for k in ("stack_frame", "spill_stores", "spill_loads")):
             raise AssertionError(f"{name} uses the stack: {ptxas[name]}")
 
@@ -931,14 +1225,18 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         glb = torch_glb_assets.write_bigasset_glb(Path(tmp), big=True)
         gallery = _load_glb(glb, triangles=147136, textures=5)[0].upload(device)
-    walk_times = {}
-    for label, tables, cam in (("cfg2", dragon, CFG2_CAM), ("gltf147k", gallery, BIGASSET_CAM)):
-        if not tables.pbvh.nbytes <= STREAM_BYTES_MAX:
-            raise AssertionError(f"{label}: the BVH streams take {tables.pbvh.nbytes} bytes")
-        for name, e in check_walks(tables, (n_wave, n_wave - 37), device, label, cam).items():
-            errs[name] = max(errs.get(name, 0.0), e)
-        walk_times[label] = time_walks(tables, n_wave, device, label, cam)
-    times.update(walk_times["cfg2"])
+        walk_times = {}
+        for label, tables, cam in (("cfg2", dragon, CFG2_CAM),
+                                   ("gltf147k", gallery, BIGASSET_CAM)):
+            if not tables.pbvh.nbytes <= STREAM_BYTES_MAX:
+                raise AssertionError(f"{label}: the BVH streams take {tables.pbvh.nbytes} bytes")
+            for name, e in check_walks(tables, (n_wave, n_wave - 37), device, label,
+                                       cam).items():
+                errs[name] = max(errs.get(name, 0.0), e)
+            walk_times[label] = time_walks(tables, n_wave, device, label, cam)
+        times.update(walk_times["cfg2"])
+        # K3 and K1 at launches the glTF renders make
+        recorded = time_recorded(device, gallery, Path(tmp))
 
     # 6. the BVH walks against the dense kernels
     bvh_vs_dense(device)
@@ -991,6 +1289,14 @@ def main() -> int:
         if name in walk_times["gltf147k"]:
             g = walk_times["gltf147k"][name]
             row["gltf147k"] = {k: g[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+        if name.startswith("dense"):
+            row.update({k: t[k] for k in ("live", "host_us_per_call")})
+        label = {"dense_closest": "alpha_relaunch", "dense_emissive_pdf": "gltf147k"}.get(name)
+        if label:
+            row[label] = {k: recorded[label][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "live", "rays", "triangles", "shape",
+                "max_abs_err", "launches_per_wave")}
+            row["max_abs_err"] = max(row["max_abs_err"], recorded[label]["max_abs_err"])
         rows.append(row)
     emit({"kernels": rows})
     print(smi, flush=True)

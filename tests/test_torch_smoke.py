@@ -7,6 +7,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -53,3 +54,89 @@ def test_smoke_refuses_to_run_without_a_card():
     assert "CUDA is not available" in proc.stderr
     with pytest.raises(json.JSONDecodeError):
         json.loads(proc.stdout or "not json")
+
+
+@pytest.mark.parametrize("share", cs.LIVE_SHARES)
+def test_live_mask_has_the_share_and_the_edge_blocks(share):
+    n = 1 << 14
+    live = cs.live_mask(n, share, seed=3)
+    if share == "one":
+        assert live.sum() == 1
+    elif share in (0.0, 1.0):
+        assert live.sum() == share * n
+    else:
+        assert live[768:1024].all() and not live[1024:1280].any()
+        rest = np.concatenate([live[:768], live[1280:]])
+        sigma = (share * (1 - share) * rest.size) ** 0.5
+        assert abs(rest.sum() - share * rest.size) < 5 * sigma + 1
+
+
+@pytest.mark.parametrize("kernel", ["dense_closest", "dense_shadow", "dense_emissive_pdf"])
+def test_sweep_work_counts_the_live_lanes_tests(kernel):
+    """The bound's operations and bytes, against a count made one triangle
+    at a time: every live lane tests every triangle (closest, pdf) or up to
+    its first hit (occlusion), a test costing 28 operations where it stops
+    at u and 54 where it runs through (no det of these rays is near 0); a
+    pdf hit adds its weighted term."""
+    from vulkan_raytracer_tpu_torch.ops import dense
+    from vulkan_raytracer_tpu_torch.scene.builtin import cornell_box_scene
+
+    tables = cornell_box_scene().upload("cpu")
+    n = 512
+    rays = cs.make_rays(n, seed=5, device="cpu")
+    cols = dense.ray_columns(rays["o"], rays["d"])
+    live = rays["active"]
+    table = tables.em_table if kernel == "dense_emissive_pdf" else tables.tri_table
+    n_t = table.shape[1]
+    if kernel == "dense_closest":
+        args = (table, cols, rays["t_min"], torch.where(live, rays["t_max"], 0.0))
+        live = args[3] > args[2]
+    elif kernel == "dense_shadow":
+        args = (table, cols, torch.where(live, rays["t_shadow"], 0.0))
+    else:
+        args = (table, cols, live.float(), cs.EPS)
+    n_live = int(live.sum())
+    d = np.stack([c.numpy() for c in cols[3:]], 1).astype(np.float64)
+
+    ops = torch.zeros(n, dtype=torch.int64)
+    done = ~live
+    stops = {28: 0, 54: 0}
+    hits = 0
+    for j in range(n_t):
+        inside, u, _, t = dense.mt([table[k, j] for k in range(9)], list(cols))
+        e1, e2 = table[3:6, j].double().numpy(), table[6:9, j].double().numpy()
+        assert (np.abs(np.cross(d, e2) @ e1) > 1e-9).all()
+        test = torch.where((u >= 0.0) & (u <= 1.0), 54, 28)
+        for k in stops:
+            stops[k] += int((~done & (test == k)).sum())
+        ops += torch.where(done, 0, test)
+        if kernel == "dense_shadow":
+            done = done | (inside & (t > 0.0) & (t <= args[2]))
+        elif kernel == "dense_emissive_pdf":
+            hits += int((live & inside & (t > cs.EPS)).sum())
+    assert stops[28] > 0 and stops[54] > 0
+    ops = int(ops.sum()) + (cs.PDF_OPS - cs.MT_OPS) * hits
+    nbytes = {"dense_closest": 16 * n, "dense_shadow": 8 * n, "dense_emissive_pdf": 8 * n}[kernel]
+    nbytes += 24 * n_live + (80 if kernel == "dense_emissive_pdf" else 36) * n_t
+    if kernel == "dense_emissive_pdf":
+        assert hits > 0
+    work = cs.sweep_work(kernel, args)
+    assert (work["rays"], work["triangles"], work["live"]) == (n, n_t, n_live)
+    assert work["ops"] == ops and work["bytes"] == nbytes
+
+
+def test_mt_ops_stops_where_the_dense_test_stops():
+    """One triangle in the plane z = 1 against four rays: parallel to it (det
+    0: 16 operations), hitting its plane at u = 2.75 (28), inside it (54) and
+    at u = 0.55, v = -0.1, a miss that the test only finds after u (54)."""
+    from vulkan_raytracer_tpu_torch.ops import dense
+
+    v0, v1, v2 = np.float32([[-1, -1, 1], [1, -1, 1], [0, 1, 1]])
+    table = torch.as_tensor(np.concatenate([v0, v1 - v0, v2 - v0])[:, None, None].copy())
+    o = np.float32([[0, 0, 3], [5, 0, 3], [0, 0, 3], [0, -1.2, 3]])
+    d = np.float32([[1, 0, 0], [0, 0, -1], [0, 0, -1], [0, 0, -1]])
+    rays = [torch.as_tensor(c.copy()) for c in (*o.T, *d.T)]
+    ops, inside, _ = cs.mt_ops(table, rays)
+    assert ops[0].tolist() == [cs.MT_DET_OPS, cs.MT_U_OPS, cs.MT_OPS, cs.MT_OPS] == [16, 28, 54, 54]
+    assert inside[0].tolist() == [False, False, True, False]
+    assert dense.mt([table[k, 0] for k in range(9)], rays)[0].tolist() == inside[0].tolist()

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where one bench wave of the torch port spends its time on a card.
 
-    python3 tools/profile_torch_wave.py [--config cfg1|cfg2|gltf] [--reps 3] [--out FILE.json]
+    python3 tools/profile_torch_wave.py [--config cfg1|cfg2|gltf|textured] [--reps 3]
+                                        [--out FILE.json]
 
 Run from the root of a checkout on a machine with an NVIDIA card.  It
 renders one wave of a bench configuration at 512x512, depth 4: samples 1
@@ -10,14 +11,16 @@ and 2 of all 262,144 pixels, 524,288 lanes, exactly the first wave
 kernels; of 2 for cfg2, the 262,280-triangle dragon on the BVH walks; of 2
 for gltf, the 147,136-triangle textured .glb of tests/test_bigasset_glb.py,
 written by tools/torch_glb_assets.py, on the BVH walks with the alpha
-resample loop), through ``renderer._render_wave``:
+resample loop; of 8 for textured, the 12-triangle .glb of
+tests/test_textured_glb.py at 16 spp, on the dense kernels with the alpha
+loop), through ``renderer._render_wave``:
 
 1. once to build the kernels and warm the allocator;
 2. ``--reps`` times unprofiled: the wall of each, CUDA-synchronised;
 3. once under ``torch.profiler`` (CPU + CUDA activities): the same wave's
    wall, and from its trace the device kernels (count, summed time, the
-   span they cover), the aten ops the host issued, and the hand-written
-   kernels' share of the device time, and the alpha loop's iterations.
+   span they cover), the aten ops the host issued, the hand-written
+   kernels' launches and device time, and the alpha loop's iterations.
 
 It prints one JSON object (and writes it to ``--out`` if given).  The device
 busy share is kernel time over wall, against the profiled wall (the same
@@ -52,6 +55,7 @@ CONFIGS = {
     "cfg1": ("cornell", [0.0, 1.0, 2.4], [0.0, 0.0, -1.0]),
     "cfg2": ("dragon", [0.0, 2.2, 4.5], [0.0, -0.25, -1.0]),
     "gltf": ("bigasset.glb", [0.0, 1.7, 4.6], [0.0, -0.28, -1.0]),
+    "textured": ("textured.glb", [0.0, 0.0, 2.8], [0.0, 0.0, -1.0]),
 }
 
 
@@ -66,23 +70,29 @@ def _scene(name: str):
 
     scene = Scene()
     with tempfile.TemporaryDirectory() as tmp:
-        scene.load_model(torch_glb_assets.write_bigasset_glb(tmp, big=True))
+        if name == "textured.glb":
+            scene.load_model(torch_glb_assets.write_textured_glb(tmp))
+        else:
+            scene.load_model(torch_glb_assets.write_bigasset_glb(tmp, big=True))
     return scene
 
 
-def _wave(tables, camera):
+def _wave(tables, camera, width: int = WIDTH, height: int = HEIGHT):
+    """The first wave of a ``width`` x ``height`` render: a function that
+    runs it (synchronised on a card) and returns (radiance, rays)."""
     import torch
 
     from vulkan_raytracer_tpu_torch.render import renderer
 
     view_inv, proj_inv = renderer.camera_uniforms(camera)
-    lanes = torch.as_tensor(renderer.block_order(WIDTH, HEIGHT)[0], device=tables.device)
+    lanes = torch.as_tensor(renderer.block_order(width, height)[0], device=tables.device)
 
     def run():
         with torch.inference_mode():
-            radiance, rays = renderer._render_wave(tables, view_inv, proj_inv, WIDTH, HEIGHT,
+            radiance, rays = renderer._render_wave(tables, view_inv, proj_inv, width, height,
                                                    DEPTH, SAMPLES, lanes, "reference")
-            torch.cuda.synchronize()
+            if tables.device.type == "cuda":
+                torch.cuda.synchronize()
         return radiance, int(rays)
 
     return run
@@ -118,6 +128,7 @@ def _trace_summary(prof) -> dict:
     for name, s, e in kernels:
         by_name[name] = by_name.get(name, 0.0) + (e - s)
     port_us = {k: sum(us for name, us in by_name.items() if k in name) for k in PORT_KERNELS}
+    port_n = {k: sum(k in name for name, _, _ in kernels) for k in PORT_KERNELS}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {
         "device_events": len(kernels),
@@ -125,6 +136,7 @@ def _trace_summary(prof) -> dict:
         "kernel_ms_busy": busy_us / 1e3,
         "kernel_span_ms": (kernels[-1][2] - kernels[0][1]) / 1e3,
         "port_kernel_ms": {k: us / 1e3 for k, us in port_us.items() if us},
+        "port_kernel_launches": {k: n for k, n in port_n.items() if n},
         "aten_ops": aten,
         "aten_ops_top_level": aten_top,
         "top_kernels_ms": {name[:80]: us / 1e3 for name, us in top},

@@ -11,34 +11,47 @@
 // Design.  One thread walks one ray; a block holds kThreads rays.  The
 // triangle table (rows of T floats: [v0.xyz, e1.xyz, e2.xyz] for the sweeps,
 // plus [p_delta, area, n0.xyz, n1.xyz, n2.xyz] for the pdf probe) is staged
-// into shared memory kChunk triangles at a time, one coalesced column per
-// thread, and every thread walks the chunk in ascending triangle id.  There
-// is no triangle cap: any scene the dense path takes runs through the same
-// loop.  Only the contract of the TPU kernels is kept (hit test, tie rule,
-// t bounds); their (32, 128) ray blocks, SMEM scalar broadcasts and unrolled
-// folds existed for TPU limits and are not carried over.
+// into shared memory kChunk triangles at a time, each triangle as one row of
+// float4s (its 9 or 20 floats in table order, zero padded to 16 bytes), so a
+// test reads its constants with 3 (closest, occlusion) or, on a hit, 5 (pdf)
+// 16-byte shared loads; every thread walks the chunk in ascending triangle
+// id, so a warp's loads are broadcasts.  There is no triangle cap.  Only the
+// contract of the TPU kernels is kept (hit test, tie rule, t bounds); their
+// (32, 128) ray blocks, SMEM scalar broadcasts and unrolled folds existed for
+// TPU limits and are not carried over.
 //
-// Every thread of a block takes part in every staging step, including
-// threads whose ray index is past n_rays and occlusion threads that already
-// found a hit: such threads keep a "done" flag and skip the arithmetic, and
-// no thread returns before the loop ends (a missed __syncthreads would
-// deadlock the block or let a chunk be overwritten while still being read).
+// What bounds them.  A launch is arithmetic on the live lanes (54 operations
+// per test, 36 more per pdf hit) plus ~30 B of ray I/O per lane; on the
+// render most lanes of a launch are dead: inactive bounce lanes, lanes the
+// alpha loop has settled, and the pdf's gate, which marks only the lanes
+// that reached an emitter.  So the closest and pdf kernels first gather the
+// block's live rays (t_init > t_lo; gate != 0) onto its first threads
+// (compact()): whole warps then carry live rays only, a block with no live
+// ray stages nothing, and a dead lane's thread just writes what the
+// contract gives it (t_init and -1; +0).  The Moller-Trumbore test stops
+// after u, which decides most misses, and the pdf's weighted term is only
+// evaluated on a hit.  The occlusion kernel already stops a ray at its first
+// hit and skips lanes with t_hi <= 0; it shares the staging and the test.
+//
+// Barriers.  Every thread of a block reaches every __syncthreads: the
+// decision to stage (n_live > 0) is the block's, read after a barrier, and a
+// thread without a ray keeps a flag and skips the arithmetic instead of
+// leaving the loop (a missed __syncthreads would deadlock the block or let a
+// chunk be overwritten while still being read).
 //
 // Numerics.  The library is built with --fmad=false -prec-div=true
 // -prec-sqrt=true and without --use_fast_math (ops/_ext.py).  nvcc would
 // otherwise contract a*b+c into one FMA, which rounds differently from the
 // plain PyTorch version (its ops run one at a time and are never contracted)
 // and flips hits that sit on an edge or at a t tie.  With contraction off,
-// the closest and occlusion sweeps are bit-equal to the plain version.  The
-// pdf probe uses rsqrtf, which may differ from torch.rsqrt by an ulp, and
-// sums in triangle order; it is held to a tolerance.
-//
-// Bounds on this card.  For bench cfg1 (Cornell, 36 triangles, 2 emissive) a
-// launch sweeps ~524k rays x 36 triangles: ~19M triangle tests (~1 GFLOP)
-// against ~40 B of ray I/O per ray (~21 MB), so a launch costs tens of
-// microseconds and is bound by memory traffic and launch overhead, not by
-// arithmetic.  Making the kernels fast (fewer bytes per ray, fusing the
-// launches of one bounce) is work for a later change.
+// the closest and occlusion sweeps are bit-equal to the plain version; the
+// early exits reject only what the full test rejects.  The pdf probe uses
+// rsqrtf, which may differ from torch.rsqrt by an ulp, and sums in triangle
+// order; it is held to a tolerance on gated lanes and is exactly +0 where
+// the gate is 0 (the plain version writes pdf * 0 there).  Without FMA a
+// multiply-add issues as two instructions, so these kernels can reach at
+// most half of the card's float32 peak, which counts an FMA as two
+// operations.
 //
 // Launches go on the caller's stream (PyTorch's current stream); nothing
 // here synchronises or allocates.  Each launcher returns cudaGetLastError()
@@ -50,7 +63,10 @@
 namespace {
 
 constexpr int kThreads = 256;  // rays per block
-constexpr int kChunk = kThreads;  // triangles staged per step: one column per thread
+constexpr int kWarps = kThreads / 32;
+constexpr int kChunk = kThreads;  // triangles staged per step: one row per thread
+constexpr int kSweepRow = 3;  // float4 per staged triangle: 9 floats of (9, T)
+constexpr int kPdfRow = 5;    // float4 per staged triangle: 20 floats of (20, T)
 
 struct Ray {
   float ox, oy, oz, dx, dy, dz;
@@ -63,49 +79,81 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ ox, const floa
   return Ray{ox[i], oy[i], oz[i], dx[i], dy[i], dz[i]};
 }
 
-// Copy rows [0, Rows) of triangles [base, base + kChunk) into shared memory.
-// Must be called by every thread of the block.
-template <int Rows>
-__device__ __forceinline__ void stage(float (*s)[kChunk], const float* __restrict__ table,
-                                      int n_tris, int base) {
+// Gather the block's live rays onto its first threads: returns n_live, the
+// same for every thread, and leaves the live rays' indices in ascending
+// order in ray_of[0, n_live).  Must be called by every thread of the block.
+__device__ __forceinline__ int compact(bool live, int i, int* ray_of) {
+  __shared__ int warp_live[kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned ballot = __ballot_sync(0xffffffffu, live);
+  if (lane == 0) warp_live[warp] = __popc(ballot);
+  __syncthreads();
+  int before = 0, n_live = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    before += w < warp ? warp_live[w] : 0;
+    n_live += warp_live[w];
+  }
+  if (live) ray_of[before + __popc(ballot & ((1u << lane) - 1u))] = i;
+  __syncthreads();
+  return n_live;
+}
+
+// Copy triangles [base, base + kChunk) of a (Rows, n_tris) table into
+// shared memory, one row of Row float4 per triangle.  Must be called by
+// every thread of the block.
+template <int Rows, int Row>
+__device__ __forceinline__ void stage(float4* s, const float* __restrict__ table, int n_tris,
+                                      int base) {
   const int j = base + threadIdx.x;
-  for (int k = 0; k < Rows; ++k) {
-    s[k][threadIdx.x] = j < n_tris ? table[(size_t)k * n_tris + j] : 0.0f;
+  if (j >= n_tris) return;
+  float f[4 * Row];
+#pragma unroll
+  for (int k = 0; k < 4 * Row; ++k) f[k] = k < Rows ? table[(size_t)k * n_tris + j] : 0.0f;
+#pragma unroll
+  for (int m = 0; m < Row; ++m) {
+    s[threadIdx.x * Row + m] = make_float4(f[4 * m], f[4 * m + 1], f[4 * m + 2], f[4 * m + 3]);
   }
 }
 
-// One Moller-Trumbore test in the operation order of
-// vulkan_raytracer_tpu/ops/pallas_dense.py:55-85 (and ops/dense.py's
-// plain version): same products, same left-to-right sums, IEEE divide.
-__device__ __forceinline__ void mt_test(float (*s)[kChunk], int j, const Ray& r,
-                                        bool& near0, float& u, float& v, float& t) {
-  const float v0x = s[0][j], v0y = s[1][j], v0z = s[2][j];
-  const float e1x = s[3][j], e1y = s[4][j], e1z = s[5][j];
-  const float e2x = s[6][j], e2y = s[7][j], e2z = s[8][j];
+// One Moller-Trumbore test of the triangle whose first three staged float4
+// hold [v0.xyz, e1.xyz, e2.xyz, ...], in the operation order of
+// vulkan_raytracer_tpu/ops/pallas_dense.py:55-85 (and ops/dense.py's plain
+// version): same products, same left-to-right sums, IEEE divide.  Returns
+// inside (det not near 0, u, v >= 0, u + v <= 1) and sets t.  It returns
+// false as soon as det is near 0 or u lies outside [0, 1], before q, v and
+// t: those cannot make such a triangle inside (u > 1 and v >= 0 give
+// u + v > 1, since a rounded sum never falls below an addend), and a NaN u
+// fails u >= 0 as it fails it in the full test.
+__device__ __forceinline__ bool mt_inside(const float4 a, const float4 b, const float4 c,
+                                          const Ray& r, float& u, float& v, float& t) {
+  const float v0x = a.x, v0y = a.y, v0z = a.z;
+  const float e1x = a.w, e1y = b.x, e1z = b.y;
+  const float e2x = b.z, e2y = b.w, e2z = c.x;
   const float px = r.dy * e2z - r.dz * e2y;
   const float py = r.dz * e2x - r.dx * e2z;
   const float pz = r.dx * e2y - r.dy * e2x;
   const float det = e1x * px + e1y * py + e1z * pz;
-  near0 = fabsf(det) < 1e-12f;
-  const float inv = 1.0f / (near0 ? 1.0f : det);
+  if (fabsf(det) < 1e-12f) return false;
+  const float inv = 1.0f / det;
   const float tx = r.ox - v0x;
   const float ty = r.oy - v0y;
   const float tz = r.oz - v0z;
   u = (tx * px + ty * py + tz * pz) * inv;
+  if (!(u >= 0.0f && u <= 1.0f)) return false;
   const float qx = ty * e1z - tz * e1y;
   const float qy = tz * e1x - tx * e1z;
   const float qz = tx * e1y - ty * e1x;
   v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv;
   t = (e2x * qx + e2y * qy + e2z * qz) * inv;
+  return v >= 0.0f && u + v <= 1.0f;
 }
 
-__device__ __forceinline__ bool inside(bool near0, float u, float v) {
-  return !near0 && u >= 0.0f && v >= 0.0f && u + v <= 1.0f;
-}
-
-// Closest hit.  A hit is inside() and t_lo < t <= t_best; it replaces the
+// Closest hit.  A hit is inside and t_lo < t <= t_best; it replaces the
 // best only if t < t_best or nothing has hit yet, so among equal t the
-// lowest triangle id wins and a hit at exactly t_init still counts.
+// lowest triangle id wins and a hit at exactly t_init still counts.  A lane
+// with t_init <= t_lo (or a NaN bound) cannot hit: it is dead, and its
+// thread writes t_init and -1 without testing.
 __global__ void __launch_bounds__(kThreads)
 closest_kernel(const float* __restrict__ table, int n_tris,
                const float* __restrict__ ox, const float* __restrict__ oy,
@@ -113,37 +161,49 @@ closest_kernel(const float* __restrict__ table, int n_tris,
                const float* __restrict__ dy, const float* __restrict__ dz,
                const float* __restrict__ t_lo, const float* __restrict__ t_init,
                float* __restrict__ t_out, int32_t* __restrict__ tri_out, int n_rays) {
-  __shared__ float s[9][kChunk];
+  __shared__ float4 s[kChunk * kSweepRow];
+  __shared__ int ray_of[kThreads];
   const int i = blockIdx.x * kThreads + threadIdx.x;
-  const bool live = i < n_rays;
+  bool live = false;
+  if (i < n_rays) {
+    const float init = t_init[i];
+    live = init > t_lo[i];
+    if (!live) {
+      t_out[i] = init;
+      tri_out[i] = -1;
+    }
+  }
+  const int n_live = compact(live, i, ray_of);
+  if (n_live == 0) return;  // the whole block: no thread reaches a barrier below
+  const bool mine = threadIdx.x < n_live;
+  const int k = mine ? ray_of[threadIdx.x] : 0;
   Ray r{};
   float lo = 0.0f, t_best = 0.0f;
   int32_t tri_best = -1;
-  if (live) {
-    r = load_ray(ox, oy, oz, dx, dy, dz, i);
-    lo = t_lo[i];
-    t_best = t_init[i];
+  if (mine) {
+    r = load_ray(ox, oy, oz, dx, dy, dz, k);
+    lo = t_lo[k];
+    t_best = t_init[k];
   }
   for (int base = 0; base < n_tris; base += kChunk) {
     __syncthreads();  // the previous chunk has been read by every thread
-    stage<9>(s, table, n_tris, base);
+    stage<9, kSweepRow>(s, table, n_tris, base);
     __syncthreads();
-    if (!live) continue;
+    if (!mine) continue;
     const int n = min(kChunk, n_tris - base);
     for (int j = 0; j < n; ++j) {
-      bool near0;
+      const float4* row = s + j * kSweepRow;
       float u, v, t;
-      mt_test(s, j, r, near0, u, v, t);
-      const bool hit = inside(near0, u, v) && t > lo && t <= t_best;
-      if (hit && (t < t_best || tri_best < 0)) {
+      if (mt_inside(row[0], row[1], row[2], r, u, v, t) && t > lo && t <= t_best &&
+          (t < t_best || tri_best < 0)) {
         t_best = t;
         tri_best = base + j;
       }
     }
   }
-  if (live) {
-    t_out[i] = t_best;
-    tri_out[i] = tri_best;
+  if (mine) {
+    t_out[k] = t_best;
+    tri_out[k] = tri_best;
   }
 }
 
@@ -155,7 +215,7 @@ shadow_kernel(const float* __restrict__ table, int n_tris,
               const float* __restrict__ oz, const float* __restrict__ dx,
               const float* __restrict__ dy, const float* __restrict__ dz,
               const float* __restrict__ t_hi, int32_t* __restrict__ occ_out, int n_rays) {
-  __shared__ float s[9][kChunk];
+  __shared__ float4 s[kChunk * kSweepRow];
   const int i = blockIdx.x * kThreads + threadIdx.x;
   const bool live = i < n_rays;
   Ray r{};
@@ -168,15 +228,14 @@ shadow_kernel(const float* __restrict__ table, int n_tris,
   bool done = !live || !(hi > 0.0f);  // no t can satisfy 0 < t <= hi
   for (int base = 0; base < n_tris; base += kChunk) {
     __syncthreads();
-    stage<9>(s, table, n_tris, base);
+    stage<9, kSweepRow>(s, table, n_tris, base);
     __syncthreads();
     if (done) continue;
     const int n = min(kChunk, n_tris - base);
     for (int j = 0; j < n; ++j) {
-      bool near0;
+      const float4* row = s + j * kSweepRow;
       float u, v, t;
-      mt_test(s, j, r, near0, u, v, t);
-      if (inside(near0, u, v) && t > 0.0f && t <= hi) {
+      if (mt_inside(row[0], row[1], row[2], r, u, v, t) && t > 0.0f && t <= hi) {
         occ = 1;
         done = true;
         break;
@@ -186,11 +245,48 @@ shadow_kernel(const float* __restrict__ table, int n_tris,
   if (live) occ_out[i] = occ;
 }
 
+// One emissive triangle's pdf term for a ray, in the operation order of
+// pallas_dense.py:325-342: false on a miss (not inside,
+// or t <= t_min), else the term p_delta * t^2 / max(area * |n.d|, 1e-30).
+// row: the triangle's 5 staged float4, [v0.xyz, e1.x], [e1.yz, e2.xy],
+// [e2z, p_delta, area, n0x], [n0y, n0z, n1x, n1y], [n1z, n2.xyz].
+__device__ __forceinline__ bool pdf_term(const float4* row, const Ray& r, float t_min,
+                                         float& term) {
+  const float4 c = row[2];
+  float u, v, t;
+  if (!(mt_inside(row[0], row[1], c, r, u, v, t) && t > t_min)) return false;
+  const float4 d = row[3], e = row[4];
+  const float w0 = 1.0f - u - v;
+  const float nx = w0 * c.w + u * d.z + v * e.y;
+  const float ny = w0 * d.x + u * d.w + v * e.z;
+  const float nz = w0 * d.y + u * e.x + v * e.w;
+  const float inv_len = rsqrtf(fmaxf(nx * nx + ny * ny + nz * nz, 1e-30f));
+  const float cosine = fabsf(nx * r.dx + ny * r.dy + nz * r.dz) * inv_len;
+  term = c.y * t * t / fmaxf(c.z * cosine, 1e-30f);
+  return true;
+}
+
+inline __host__ __device__ int div_up(int a, int b) { return (a + b - 1) / b; }
+
 // Emissive-pdf probe (shaders/emissivepdf.rahit): the sum, in triangle
 // order, over every emissive triangle hit with t > t_min, of
 // p_delta * t^2 / max(area * |n.d|, 1e-30), with n the barycentric
-// interpolation of the vertex normals normalised by rsqrt(max(|n|^2, 1e-30)).
-// The sum is multiplied by the lane's gate.
+// interpolation of the vertex normals normalised by rsqrt(max(|n|^2, 1e-30)),
+// times the lane's gate.  A lane whose gate is 0 is dead: its thread writes
+// +0 without testing.  On a live lane a missed triangle adds nothing: its
+// +0.0 term would leave a sum that starts at +0 unchanged, so the result is
+// the serial sum over every triangle, bit for bit.
+//
+// Two ways to spread a block's n_live rays over its threads, chosen per
+// block (the choice is the same for every thread).  By thread: thread k
+// walks ray k through all n_tris triangles, a dependent chain of n_tris
+// tests.  By warp: each warp takes rays k = warp, warp + kWarps, ..., and
+// its 32 lanes test 32 triangles of the ray at once; a ballot finds the
+// hits and every lane adds their terms in ascending triangle order (so the
+// sum is the same, bit for bit), a chain of ceil(n_live / kWarps) *
+// ceil(n_tris / 32) steps.  The second wins where few rays of a block are
+// live and the table is long, as on the render's probes of a large
+// emissive set; both do the same number of tests.
 __global__ void __launch_bounds__(kThreads)
 pdf_kernel(const float* __restrict__ table, int n_tris,
            const float* __restrict__ ox, const float* __restrict__ oy,
@@ -198,37 +294,67 @@ pdf_kernel(const float* __restrict__ table, int n_tris,
            const float* __restrict__ dy, const float* __restrict__ dz,
            const float* __restrict__ gate, float t_min,
            float* __restrict__ pdf_out, int n_rays) {
-  __shared__ float s[20][kChunk];
+  __shared__ float4 s[kChunk * kPdfRow];
+  __shared__ int ray_of[kThreads];
+  __shared__ float acc[kThreads];  // by warp: each live ray's running sum
   const int i = blockIdx.x * kThreads + threadIdx.x;
-  const bool live = i < n_rays;
+  bool live = false;
+  if (i < n_rays) {
+    live = gate[i] != 0.0f;
+    if (!live) pdf_out[i] = 0.0f;
+  }
+  const int n_live = compact(live, i, ray_of);
+  if (n_live == 0) return;  // the whole block: no thread reaches a barrier below
+
+  if (div_up(n_live, kWarps) * div_up(n_tris, 32) < n_tris) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    if (threadIdx.x < n_live) acc[threadIdx.x] = 0.0f;
+    for (int base = 0; base < n_tris; base += kChunk) {
+      __syncthreads();
+      stage<20, kPdfRow>(s, table, n_tris, base);
+      __syncthreads();
+      const int n = min(kChunk, n_tris - base);
+      for (int k = warp; k < n_live; k += kWarps) {
+        const Ray r = load_ray(ox, oy, oz, dx, dy, dz, ray_of[k]);
+        float pdf = acc[k];
+        for (int j0 = 0; j0 < n; j0 += 32) {
+          float term = 0.0f;
+          const bool hit = j0 + lane < n && pdf_term(s + (j0 + lane) * kPdfRow, r, t_min, term);
+          for (unsigned m = __ballot_sync(0xffffffffu, hit); m != 0u; m &= m - 1u) {
+            pdf = pdf + __shfl_sync(0xffffffffu, term, __ffs(m) - 1);
+          }
+        }
+        if (lane == 0) acc[k] = pdf;
+      }
+    }
+    __syncthreads();
+    if (threadIdx.x < n_live) {
+      const int k = ray_of[threadIdx.x];
+      pdf_out[k] = acc[threadIdx.x] * gate[k];
+    }
+    return;
+  }
+
+  const bool mine = threadIdx.x < n_live;
+  const int k = mine ? ray_of[threadIdx.x] : 0;
   Ray r{};
-  if (live) r = load_ray(ox, oy, oz, dx, dy, dz, i);
+  if (mine) r = load_ray(ox, oy, oz, dx, dy, dz, k);
   float pdf = 0.0f;
   for (int base = 0; base < n_tris; base += kChunk) {
     __syncthreads();
-    stage<20>(s, table, n_tris, base);
+    stage<20, kPdfRow>(s, table, n_tris, base);
     __syncthreads();
-    if (!live) continue;
+    if (!mine) continue;
     const int n = min(kChunk, n_tris - base);
     for (int j = 0; j < n; ++j) {
-      bool near0;
-      float u, v, t;
-      mt_test(s, j, r, near0, u, v, t);
-      const bool hit = inside(near0, u, v) && t > t_min;
-      const float w0 = 1.0f - u - v;
-      const float nx = w0 * s[11][j] + u * s[14][j] + v * s[17][j];
-      const float ny = w0 * s[12][j] + u * s[15][j] + v * s[18][j];
-      const float nz = w0 * s[13][j] + u * s[16][j] + v * s[19][j];
-      const float inv_len = rsqrtf(fmaxf(nx * nx + ny * ny + nz * nz, 1e-30f));
-      const float cosine = fabsf(nx * r.dx + ny * r.dy + nz * r.dz) * inv_len;
-      const float contrib = s[9][j] * t * t / fmaxf(s[10][j] * cosine, 1e-30f);
-      pdf = pdf + (hit ? contrib : 0.0f);
+      float term;
+      if (pdf_term(s + j * kPdfRow, r, t_min, term)) pdf = pdf + term;
     }
   }
-  if (live) pdf_out[i] = pdf * gate[i];
+  if (mine) pdf_out[k] = pdf * gate[k];
 }
 
-inline int blocks_for(int n_rays) { return (n_rays + kThreads - 1) / kThreads; }
+inline int blocks_for(int n_rays) { return div_up(n_rays, kThreads); }
 
 }  // namespace
 

@@ -19,6 +19,12 @@ values: ``dense_closest`` -> (t, tri, u, v) with t = inf / tri = -1 on a miss,
 ``dense_shadow`` -> occluded flags, ``dense_emissive_pdf`` -> the summed pdf.
 The kernel contract follows the Pallas kernels (a hit at exactly the initial
 t bound counts), which every scene of the port's dense path uses.
+
+Dead lanes.  The closest and pdf kernels gather each block's live lanes
+before they test (``t_init > t_lo``; ``gate != 0``).  A dead closest lane
+returns t_init and -1, as the plain version does.  A pdf lane whose gate is
+0 returns +0; the plain version (and the JAX kernel) return pdf * 0, which
+is +0 whenever the sum is finite.  The integrator never reads such a lane.
 """
 
 from __future__ import annotations
@@ -96,7 +102,7 @@ def _lanes(x, n, device):
 
 
 def mt(tri, ray):
-    """Möller-Trumbore in the kernels' operation order (csrc ``mt_test``,
+    """Möller-Trumbore in the kernels' operation order (csrc ``mt_inside``,
     pallas_dense.py:55-85), broadcasting ``tri`` (9 tensors: v0.xyz,
     e1.xyz, e2.xyz) against ``ray`` (6 tensors: o.xyz, d.xyz).  Returns
     (inside, u, v, t)."""
@@ -245,7 +251,8 @@ def shadow_sweep(table, rays, t_hi):
 
 
 def pdf_sweep(table, rays, gate, t_min: float):
-    """Gated emissive pdf per ray over the (20, Te) table."""
+    """Gated emissive pdf per ray over the (20, Te) table; the kernel gives +0
+    where the gate is 0 (see the module's note on dead lanes)."""
     if not _on_cuda((table, *rays, gate)):
         return pdf_sweep_reference(table, rays, gate, t_min)
     n = rays[0].shape[0]
