@@ -12,9 +12,8 @@ nonzero exit code:
    power limit from nvidia-smi.
 2. build    — compile the CUDA kernels from ``vulkan_raytracer_tpu_torch/csrc``
    (one nvcc per source, started together) and the native BVH builder; each
-   kernel variant's registers, stack frame and spills from ptxas.  The dense
-   closest and pdf kernels and the four walk variants must use no stack and
-   spill nothing.
+   kernel variant's registers, stack frame and spills from ptxas.  Every
+   kernel variant must use no stack and spill nothing.
 3. kernels  — each dense kernel against its plain PyTorch version on the
    card, over the Cornell box and over a 1,000-triangle soup (several
    shared-memory chunks), at bench cfg1's wave of 524,288 rays and at a
@@ -79,6 +78,21 @@ nonzero exit code:
    ray counts within 0.1%.  tests/test_torch_gltf.py and
    tests/test_torch_alpha.py tie the CPU renders to the JAX renders and the
    NumPy oracle.
+14. emissive_walk — the emissive-pdf walk against its plain version on an
+   all-emissive 20,000-triangle soup at 524,288 and 524,251 rays with 20% of
+   the lanes inactive, at both t_min the render uses: rtol 1e-5 / atol 1e-7
+   on active lanes, +0 elsewhere; then its time, the plain version's and its
+   bound from the visits the plain walk counts.
+15. render_emissive_bvh — a soup of 100,000 grey and 5,000 emissive
+   triangles (above both the dense cap and ``EMISSIVE_MAX_TRIS``) through
+   ``Scene.upload`` and ``render_image`` at 512x512, depth 4, 4 spp: K5'
+   carries the rays and the emissive walk every pdf probe, the MIS probe
+   (t_min EPS) and the NEE probe (t_min 0) each with live lanes; a finite,
+   lit image; then 32x32 on the card against the CPU.
+16. render_cfg5 — bench cfg5 at its own frame (``multi_scene``, 1920x1080,
+   depth 8, 8 spp, camera -9,2,1.5 -> 1,-0.1,-0.15) through the banded
+   renderer, once: 32 bands of 64,800 pixels x 8 samples; seconds, Mrays/s
+   and the peak device memory.
 
 Then it prints the kernel summary (one JSON object: each kernel's launches
 over the paths driven with reset counters, in all and by phase; its time,
@@ -89,7 +103,8 @@ K1 and K3 at the recorded launches), the nvidia-smi line, and, last,
 operations at the card's float32 peak (67 TFLOP/s) and its bytes at its
 memory rate (3.35 TB/s), each input read once and each output written once;
 the operations are 54 per triangle test, 27 per box test and 36 more per
-pdf hit (its weighted term), counted on the inputs timed: the dense sweeps
+pdf hit (its weighted term; 39 in the emissive walk, which divides by the
+normal's length), counted on the inputs timed: the dense sweeps
 test only live lanes (t_init > t_lo, t_hi > 0, gate != 0), whose ray
 columns are the only ones read, and their test stops at det (16
 operations) or at u (28) where the full test would reject there.
@@ -132,12 +147,17 @@ KERNELS = {
                              "vulkan_raytracer_tpu/ops/pallas_bvh.py:727"),
     "treelet_walk_shadow": ("traverse", "treelet_shadow", BVH_SRC,
                             "vulkan_raytracer_tpu/ops/pallas_bvh.py:727"),
+    # an XLA while_loop in the JAX package, not a Pallas kernel
+    "emissive_walk": ("traverse", "emissive_pdf", BVH_SRC,
+                      "vulkan_raytracer_tpu/ops/traverse.py:241"),
 }
 CFG1 = ["-m", "cornell", "-r", "512,512", "-b", "4", "--spp", "64",
         "-c", "0,1,2.4", "-d", "0,0,-1"]
 CFG2 = ["-m", "dragon", "-r", "512,512", "-b", "4", "--spp", "4",
         "-c", "0,2.2,4.5", "-d", "0,-0.25,-1"]
 CFG2_CAM = ([0.0, 2.2, 4.5], [0.0, -0.25, -1.0])
+CFG1_CAM = ([0.0, 1.0, 2.4], [0.0, 0.0, -1.0])
+CFG5_CAM = ([-9.0, 2.0, 1.5], [1.0, -0.1, -0.15])  # bench.py:145-148
 TEXTURED_CAM = ([0.0, 0.0, 2.8], [0.0, 0.0, -1.0])  # tests/test_textured_glb.py:245
 BIGASSET_CAM = ([0.0, 1.7, 4.6], [0.0, -0.28, -1.0])  # tests/test_bigasset_glb.py:324
 # peak rates of one H100 SXM (NVIDIA's data sheet, at the 700 W power limit):
@@ -152,6 +172,7 @@ MT_DET_OPS = 16
 MT_U_OPS = 28
 SLAB_OPS = 27  # one ray-box slab test
 PDF_OPS = MT_OPS + 36  # one emissive-pdf hit: the test and its weighted term
+WALK_TERM_OPS = 39  # the emissive walk's term: the normal over its length (sqrt, 3 divides)
 PROFILE_TRIES = 3  # profiled runs of one launch shape before device_ms gives up
 # the BVH streams of the cfg2 dragon and of the 147k glTF must fit half the L2
 STREAM_BYTES_MAX = 25e6
@@ -193,6 +214,27 @@ def soup_scene(n_tris: int, seed: int):
     s = Scene()
     s.add_raw_mesh(pos, np.repeat(nrm, 3, axis=0).astype(np.float32),
                    np.arange(3 * n_tris, dtype=np.uint32), m)
+    return s
+
+
+def emitter_soup_scene(n_tris: int, n_emissive: int, seed: int, spread: float = 0.03):
+    """A grey triangle soup in the Cornell volume with ``n_emissive`` small
+    emissive triangles among it (two meshes), sparse enough that paths pass
+    between the triangles and reach the emitters after a bounce."""
+    from vulkan_raytracer_tpu_torch.scene.scenegraph import Material, Scene
+
+    r = np.random.default_rng(seed)
+    s = Scene()
+    light = Material()
+    light.emissive_factor = np.full(3, 4.0, np.float32)
+    for n, material in ((n_tris, Material()), (n_emissive, light)):
+        base = r.uniform([-1.0, 0.0, -1.0], [1.0, 2.0, 1.0], (n, 3)).astype(np.float32)
+        offs = r.normal(0.0, spread, (n, 2, 3)).astype(np.float32)
+        pos = np.concatenate([base, base + offs[:, 0], base + offs[:, 1]], axis=1).reshape(-1, 3)
+        nrm = np.cross(offs[:, 0], offs[:, 1])
+        nrm /= np.maximum(np.linalg.norm(nrm, axis=-1, keepdims=True), 1e-9)
+        s.add_raw_mesh(pos, np.repeat(nrm, 3, axis=0).astype(np.float32),
+                       np.arange(3 * n, dtype=np.uint32), material)
     return s
 
 
@@ -647,22 +689,24 @@ def record_wave(tables, cam, width: int = 512, height: int = 512):
 
 
 def check_recorded(calls, label: str) -> float:
-    """Each recorded K1 and K3 call replayed through the kernel and its plain
-    version: K1's t and triangle bit-equal, K3 within rtol 1e-5 / atol 1e-7
-    on lanes whose gate is not 0 and +0 elsewhere.  Returns the largest
-    absolute error."""
+    """Each recorded call replayed through the kernel and its plain
+    version: K1's t and triangle and K2's flags bit-equal, K3 within rtol
+    1e-5 / atol 1e-7 on lanes whose gate is not 0 and +0 elsewhere.  Returns
+    the largest absolute error."""
     import torch
 
     from vulkan_raytracer_tpu_torch.ops import dense
 
     err = 0.0
     for i, (kernel, args, _) in enumerate(calls):
-        if kernel == "dense_shadow":
-            continue
         got = getattr(dense, DENSE_SWEEPS[kernel])(*args)
         want = getattr(dense, DENSE_SWEEPS[kernel] + "_reference")(*args)
         where = f"{label}: recorded call {i} ({kernel})"
-        if kernel == "dense_closest":
+        if kernel == "dense_shadow":
+            err = max(err, _max_abs(got, want))
+            if not torch.equal(got, want):
+                raise AssertionError(f"{where} differs from plain")
+        elif kernel == "dense_closest":
             err = max(err, _max_abs(got[0], want[0]))
             if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
                 raise AssertionError(f"{where} differs from plain")
@@ -705,6 +749,31 @@ def time_recorded(device, gallery, out_dir: Path) -> dict:
                                             for k in DENSE_SWEEPS}}
         del calls
     emit({"phase": "dense_recorded", **out})
+    return out
+
+
+def time_cfg1_shadow(cornell) -> dict:
+    """The occlusion kernel at the launches the cfg1 render makes: the first
+    wave's five recorded K2 calls (samples 1-2 of 512x512, depth 4), each
+    held against its plain version and timed on the card; the wave's device
+    time, bound and live lanes are the sums over the five."""
+    from vulkan_raytracer_tpu_torch.ops import dense
+
+    calls = [c for c in record_wave(cornell, CFG1_CAM) if c[0] == "dense_shadow"]
+    err = check_recorded(calls, "cfg1 wave")
+    per_launch = []
+    for _, args, _ in calls:
+        ms, traced = device_ms(lambda a=args: dense.shadow_sweep(*a), "shadow_kernel", 20)
+        per_launch.append({"ms": ms, "launches_traced": traced,
+                           **sweep_work("dense_shadow", args)})
+    out = {"shape": "cfg1 wave: its recorded K2 launches", "launches": len(calls),
+           "max_abs_err": err, "rays": sum(e["rays"] for e in per_launch),
+           "live": sum(e["live"] for e in per_launch),
+           "ms": sum(e["ms"] for e in per_launch),
+           "bound_ms": sum(e["bound_ms"] for e in per_launch),
+           "per_launch": [{k: e[k] for k in ("ms", "bound_ms", "bound_by", "live",
+                                            "launches_traced")} for e in per_launch]}
+    emit({"phase": "dense_recorded_cfg1", "dense_shadow": out})
     return out
 
 
@@ -831,6 +900,212 @@ def time_walks(tables, n: int, device, label: str, cam) -> dict:
     return out
 
 
+def check_emissive_walk(tables, ray_counts, device) -> float:
+    """The emissive-pdf walk against its plain version on the tables'
+    emissive stream, for random rays in the Cornell volume with 20% of the
+    lanes inactive, at both t_min the render uses: rtol 1e-5 / atol 1e-7 on
+    active lanes (the sum's order is the plain version's; the divides and
+    the square root are the compiler's), +0 on the others.  Returns the
+    largest absolute error."""
+    import torch
+
+    from vulkan_raytracer_tpu_torch.ops import dense
+    from vulkan_raytracer_tpu_torch.ops import traverse as tr
+
+    s = tables.em_stream
+    err = 0.0
+    for i, n in enumerate(ray_counts):
+        rays = make_rays(n, seed=70 + i, device=device)
+        cols = dense.ray_columns(rays["o"], rays["d"])
+        active = rays["active"]
+        out = {}
+        for t_min in (EPS, 0.0):
+            got = tr.emissive_pdf_walk(s, cols, active, t_min)
+            want = tr.emissive_pdf_walk_reference(s, cols, active, t_min)
+            e = _max_abs(got[active], want[active])
+            err = max(err, e)
+            torch.testing.assert_close(got[active], want[active], rtol=1e-5, atol=1e-7)
+            off = got[~active]
+            if bool((off != 0.0).any() or torch.signbit(off).any()):
+                raise AssertionError(f"emissive walk, {n} rays: not +0 on an inactive lane")
+            out[f"max_abs_err_t_min_{t_min}"] = e
+            out[f"bit_equal_t_min_{t_min}"] = bool(torch.equal(got, want))
+            out[f"pdf_lanes_t_min_{t_min}"] = int((got > 0).sum())
+        emit({"phase": "emissive_walk", "rays": n, "active": int(active.sum()),
+              "emissive_triangles": s.rows.shape[0], "nodes": s.num_nodes,
+              "stream_bytes": s.nbytes, **out})
+    return err
+
+
+def time_emissive_walk(tables, n: int, device) -> dict:
+    """The emissive-pdf walk and its plain version over n random rays in the
+    Cornell volume (80% active, t_min EPS), in turns plain, kernel, kernel,
+    plain, with the bound of the work ``emissive_walk_visits`` counts: a box
+    test per node visited, a triangle test per real slot of each leaf
+    entered and the term per hit; bytes: the active lanes' rays, every
+    lane's flag and output, the node records and triangle rows read."""
+    from vulkan_raytracer_tpu_torch.ops import dense
+    from vulkan_raytracer_tpu_torch.ops import traverse as tr
+
+    s = tables.em_stream
+    rays = make_rays(n, seed=99, device=device)
+    cols = dense.ray_columns(rays["o"], rays["d"])
+    active = rays["active"]
+
+    def kernel():
+        return tr.emissive_pdf_walk(s, cols, active, EPS)
+
+    def ref():
+        return tr.emissive_pdf_walk_reference(s, cols, active, EPS)
+
+    p1 = time_ms(ref, 1, warm=False)
+    k1, k2 = time_ms(kernel, 10), time_ms(kernel, 10)
+    p2 = time_ms(ref, 1, warm=False)
+    v = tr.emissive_walk_visits(s, cols, active, EPS)
+    live = max(int(active.sum()), 1)
+    ops = (SLAB_OPS * int(v["nodes"].sum()) + MT_OPS * int(v["tris"].sum())
+           + WALK_TERM_OPS * int(v["hits"].sum()))
+    nbytes = 5 * n + 24 * live + 32 * v["node_rows"] + 80 * v["tri_rows"]
+    out = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "ms_runs": [k1, k2],
+           "plain_ms_runs": [p1, p2],
+           "shape": f"emissive soup wave: {n} rays over {s.rows.shape[0]} emissive triangles",
+           **bound(ops, nbytes), "live": live,
+           "per_live_ray": {k: int(v[k].sum()) / live for k in ("nodes", "tris", "hits")},
+           "node_rows": v["node_rows"], "tri_rows": v["tri_rows"]}
+    emit({"phase": "emissive_walk_times", "rays": n, "emissive_walk": out})
+    return out
+
+
+def record_emissive_probes(run):
+    """Call ``run()`` with ops/traverse.py's emissive walk wrapped so that
+    each call's t_min and count of active lanes are kept; returns (what
+    ``run`` returned, the calls as (t_min, active lanes))."""
+    from vulkan_raytracer_tpu_torch.ops import traverse as tr
+
+    saved = tr.emissive_pdf_walk
+    calls = []
+
+    def recording(stream, rays, active, t_min):
+        calls.append((t_min, int(active.sum())))
+        return saved(stream, rays, active, t_min)
+
+    try:
+        tr.emissive_pdf_walk = recording
+        result = run()
+    finally:
+        tr.emissive_pdf_walk = saved
+    return result, calls
+
+
+def render_emissive_bvh(device, paths) -> None:
+    """A scene whose pdf probes walk the emissive BVH: 100,000 grey and 5,000
+    emissive triangles, 512x512, depth 4, 4 spp on the card; then 32x32 on
+    the card against the CPU."""
+    import torch
+
+    from vulkan_raytracer_tpu_torch.ops import dense
+    from vulkan_raytracer_tpu_torch.render.renderer import render_image
+    from vulkan_raytracer_tpu_torch.scene.camera import Camera
+
+    scene = emitter_soup_scene(100000, 5000, seed=31)
+    t0 = time.perf_counter()
+    tables = scene.upload(device)
+    tables.em_stream  # built on first use: part of the set-up
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    if not (tables.num_emissive_tris == 5000 > dense.EMISSIVE_MAX_TRIS
+            and tables.num_triangles == 105000 > dense.DENSE_MAX_TRIS
+            and tables.pbvh.n_treelets > 1):
+        raise AssertionError("the emitter soup is not on the BVH and emissive-BVH paths")
+
+    def run():
+        cam = Camera(position=np.array(CFG1_CAM[0]), direction=np.array(CFG1_CAM[1]))
+        t0 = time.perf_counter()
+        img, rays = render_image(tables, cam, 512, 512, spp=4, max_depth=4, tonemap=False)
+        return img, rays, time.perf_counter() - t0
+
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    (img, rays, secs), probes = record_emissive_probes(run)
+    launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    mis = [a for t, a in probes if t == EPS]
+    nee = [a for t, a in probes if t == 0.0]
+    walks = launches["traverse"]
+    if not (walks["emissive_pdf"] == len(probes) == len(mis) + len(nee)
+            and sum(a > 0 for a in mis) > 0 and sum(a > 0 for a in nee) > 0):
+        raise AssertionError(f"the pdf probes missed the emissive walk: {walks}, MIS {mis}, "
+                             f"NEE {nee}")
+    if launches["dense"]["pdf"] != 0:
+        raise AssertionError(f"a pdf probe took the dense sweep: {launches}")
+    if not (walks["treelet_closest"] > 0 and walks["treelet_shadow"] > 0):
+        raise AssertionError(f"the emitter soup render missed K5': {launches}")
+    if not np.isfinite(img).all() or img.shape != (512, 512, 3) or not img.mean() > 1e-3:
+        raise AssertionError(f"emitter soup image not finite, misshapen or black: "
+                             f"{img.shape} mean {img.mean()}")
+    paths.add("render_emissive_bvh", launches)
+    emit({"phase": "render_emissive_bvh",
+          "config": "emitter soup (100,000 grey + 5,000 emissive tris) 512x512 depth 4 4 spp",
+          "upload_seconds": upload_s, "treelets": tables.pbvh.n_treelets,
+          "emissive_stream_bytes": tables.em_stream.nbytes, "seconds": secs, "rays": rays,
+          "mrays_per_s": rays / secs / 1e6, "peak_memory_bytes": peak,
+          "mis_probes": {"launches": len(mis), "with_live_lanes": sum(a > 0 for a in mis),
+                         "live_lanes": sum(mis)},
+          "nee_probes": {"launches": len(nee), "with_live_lanes": sum(a > 0 for a in nee),
+                         "live_lanes": sum(nee)},
+          "launches": launches, "image_mean": float(img.mean())})
+    _reset_launches()
+    res = _cuda_vs_cpu(tables, CFG1_CAM, "emitter soup")
+    launches = _launch_counts()
+    if not launches["traverse"]["emissive_pdf"] > 0:
+        raise AssertionError(f"the 32x32 emitter soup render missed the emissive walk: {launches}")
+    emit({"phase": "render_emissive_bvh_parity", "config": "emitter soup 32x32 2 spp depth 3",
+          "launches": launches, **res})
+
+
+def render_cfg5(device, paths) -> None:
+    """Bench cfg5 at its own frame through the banded renderer, once."""
+    import torch
+
+    from vulkan_raytracer_tpu_torch.render import renderer
+    from vulkan_raytracer_tpu_torch.scene import procedural
+    from vulkan_raytracer_tpu_torch.scene.camera import Camera
+
+    w, h, spp, depth = 1920, 1080, 8, 8
+    t0 = time.perf_counter()
+    tables = procedural.multi_scene().upload(device)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    cam = Camera(position=np.array(CFG5_CAM[0]), direction=np.array(CFG5_CAM[1]))
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    img, rays = renderer.render_image(tables, cam, w, h, spp=spp, max_depth=depth, tonemap=False)
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = _launch_counts()
+    plan = renderer.band_plan(w, h, spp)
+    if not (plan == (8, 64800, 32) and renderer.LAST_RENDER == {"bands": 32, "waves": 32}):
+        raise AssertionError(f"cfg5 ran {renderer.LAST_RENDER}, planned {plan}: expected 32 bands")
+    # every lane traces its camera ray; a path adds at most 3 rays a bounce
+    if not w * h * spp <= rays <= w * h * spp * 3 * (depth + 1):
+        raise AssertionError(f"cfg5 traced {rays} rays for {w * h * spp} lanes")
+    if not np.isfinite(img).all() or img.shape != (h, w, 3) or not img.mean() > 1e-3:
+        raise AssertionError(f"cfg5 image not finite, misshapen or black: {img.shape} "
+                             f"mean {img.mean()}")
+    walk = "treelet" if tables.pbvh.n_treelets > 1 else "bvh"
+    if not (launches["traverse"][f"{walk}_closest"] > 0
+            and launches["traverse"][f"{walk}_shadow"] > 0 and launches["dense"]["pdf"] > 0):
+        raise AssertionError(f"cfg5 render missed a kernel: launches {launches}")
+    paths.add("render_cfg5", launches)
+    emit({"phase": "render_cfg5", "config": "cfg5 multi_scene 1920x1080 depth 8 8 spp",
+          "triangles": tables.num_triangles, "treelets": tables.pbvh.n_treelets,
+          "upload_seconds": upload_s, "bands": renderer.LAST_RENDER["bands"],
+          "pixels_per_band": plan[1], "lanes_per_wave": plan[0] * plan[1],
+          "seconds": secs, "rays": rays, "mrays_per_s": rays / secs / 1e6,
+          "peak_memory_bytes": peak, "launches": launches, "image_mean": float(img.mean())})
+
+
 def bvh_vs_dense(device) -> None:
     """The BVH walks against the dense kernels over one 60,000-triangle soup."""
     import torch
@@ -865,7 +1140,8 @@ _ENTRIES = {"closest_kernel": "dense_closest", "shadow_kernel": "dense_shadow",
             "pdf_kernel": "dense_emissive_pdf",
             "bvh_walk_kernelILb0": "bvh_walk_closest", "bvh_walk_kernelILb1": "bvh_walk_shadow",
             "treelet_walk_kernelILb0": "treelet_walk_closest",
-            "treelet_walk_kernelILb1": "treelet_walk_shadow"}
+            "treelet_walk_kernelILb1": "treelet_walk_shadow",
+            "emissive_walk_kernel": "emissive_walk"}
 
 
 def ptxas_table(report: str) -> dict:
@@ -1179,8 +1455,7 @@ def main() -> int:
           "ptxas": ptxas})
     if set(ptxas) != set(KERNELS):
         raise AssertionError(f"ptxas reported {sorted(ptxas)}, expected every kernel variant")
-    for name in ("dense_closest", "dense_emissive_pdf", "bvh_walk_closest", "bvh_walk_shadow",
-                 "treelet_walk_closest", "treelet_walk_shadow"):
+    for name in KERNELS:
         if any(ptxas[name][k] for k in ("stack_frame", "spill_stores", "spill_loads")):
             raise AssertionError(f"{name} uses the stack: {ptxas[name]}")
 
@@ -1193,6 +1468,7 @@ def main() -> int:
     # the cfg1 wave, and a ragged count whose last block is partly past the rays
     errs = check_kernels({"cornell": cornell, "soup1000": soup}, (n_wave, n_wave - 37), device)
     times = time_kernels(cornell, n_wave, device)
+    shadow_cfg1 = time_cfg1_shadow(cornell)
 
     # 4. render: the CLI's headless path for bench cfg1
     from vulkan_raytracer_tpu_torch import cli
@@ -1273,6 +1549,18 @@ def main() -> int:
         gltf_bvh(out_dir, paths, reps=3)
         gltf_parity(out_dir, device, paths)
 
+    # 14. the emissive-pdf walk against its plain version, and its time
+    emitters = soup_scene(20000, seed=17).upload(device)
+    errs["emissive_walk"] = check_emissive_walk(emitters, (n_wave, n_wave - 37), device)
+    times["emissive_walk"] = time_emissive_walk(emitters, n_wave, device)
+    del emitters
+
+    # 15. a render whose pdf probes walk the emissive BVH
+    render_emissive_bvh(device, paths)
+
+    # 16. bench cfg5 at its own frame: the banded renderer
+    render_cfg5(device, paths)
+
     imported = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "vulkan_raytracer_tpu"))
     if imported:
@@ -1291,6 +1579,9 @@ def main() -> int:
             row["gltf147k"] = {k: g[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
         if name.startswith("dense"):
             row.update({k: t[k] for k in ("live", "host_us_per_call")})
+        if name == "dense_shadow":
+            row["cfg1_wave"] = shadow_cfg1
+            row["max_abs_err"] = max(row["max_abs_err"], shadow_cfg1["max_abs_err"])
         label = {"dense_closest": "alpha_relaunch", "dense_emissive_pdf": "gltf147k"}.get(name)
         if label:
             row[label] = {k: recorded[label][k] for k in (

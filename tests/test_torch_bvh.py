@@ -569,4 +569,5 @@ def test_cuda_walks_match_plain(max_tris, cuda_device):
             op, osp = ref(s, rays, zeros, t_sh, True)
             assert torch.equal(ok, op) and torch.equal(osk, osp)
     got = {k: ttr.LAUNCHES[k] - before[k] for k in before}
-    assert got == {"bvh_closest": 4, "bvh_shadow": 2, "treelet_closest": 4, "treelet_shadow": 2}
+    assert got == {"bvh_closest": 4, "bvh_shadow": 2, "treelet_closest": 4, "treelet_shadow": 2,
+                   "emissive_pdf": 0}

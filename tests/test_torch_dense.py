@@ -290,3 +290,47 @@ def test_cuda_kernels_match_plain(scene, share, cuda_device):
             assert bool((off == 0.0).all()) and not bool(torch.signbit(off).any())
     assert {k: tdense.LAUNCHES[k] - before[k] for k in before} == {
         "closest": 2, "shadow": 2, "pdf": 4}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("share", cs.LIVE_SHARES)
+@pytest.mark.parametrize("scene", ["cornell", "soup1000"])
+def test_cuda_shadow_matches_plain(scene, share, cuda_device):
+    """The occlusion kernel bit-equal to its plain version at 524,288 and at
+    a ragged 524,251 rays with the given share of live lanes: all-dead,
+    all-live and mixed blocks (``cs.live_mask``), a block whose every ray is
+    occluded by triangle 0 (the block leaves after the first chunk of the
+    soup's four), and, on the sparse shares, blocks with few live rays over
+    the soup's long table (a warp per ray).  Inactive lanes are never
+    occluded; one launch per sweep."""
+    scenes = {"cornell": tbuiltin.cornell_box_scene, "soup1000": lambda: cs.soup_scene(1000, 7)}
+    tt = scenes[scene]().upload(cuda_device)
+    table = tt.tri_table
+    v0, e1, e2 = (table[3 * k:3 * k + 3, 0].cpu().numpy() for k in range(3))
+    nrm = np.cross(e1, e2) / np.linalg.norm(np.cross(e1, e2))
+    centre = v0 + (e1 + e2) / 3.0
+    r = np.random.default_rng(22)
+    before = tdense.LAUNCHES["shadow"]
+    for n in (524288, 524251):
+        o = r.uniform(-0.9, 0.9, (n, 3)).astype(np.float32)
+        o[:, 1] += 1.0
+        d = r.normal(size=(n, 3)).astype(np.float32)
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        act = cs.live_mask(n, share, seed=n)
+        t_max = r.uniform(0.0, 4.0, n).astype(np.float32)
+        early = slice(1280, 1536)  # block 5: straight down onto triangle 0 from 0.3 away
+        if share not in (0.0, "one"):
+            o[early], d[early] = centre + 0.3 * nrm, -nrm
+            act[early], t_max[early] = True, 1.0
+        cols = tuple(torch.as_tensor(a.copy(), device=cuda_device) for a in (*o.T, *d.T))
+        act = torch.as_tensor(act, device=cuda_device)
+        t_hi = torch.where(act, torch.as_tensor(t_max, device=cuda_device), 0.0).contiguous()
+        occ_k = tdense.shadow_sweep(table, cols, t_hi)
+        occ_p = tdense.shadow_sweep_reference(table, cols, t_hi)
+        assert torch.equal(occ_k, occ_p)
+        assert not bool(occ_k[~act].any())
+        if share not in (0.0, "one"):
+            assert bool((occ_k[early] == 1).all())
+        if share == 1.0:
+            assert 0 < int(occ_k.sum()) < n
+    assert tdense.LAUNCHES["shadow"] - before == 2

@@ -147,9 +147,14 @@ def test_sample_lights_matches_jax_with_point_light():
 
 
 def test_unported_features_raise():
-    """Alpha and textures render now (tests/test_torch_alpha.py); more than
-    EMISSIVE_MAX_TRIS emissive triangles (the emissive BVH) and frames above
-    one wave (the banded renderer) still raise."""
+    """What the headless render used to refuse now renders: alpha and
+    textures (tests/test_torch_alpha.py), more than EMISSIVE_MAX_TRIS
+    emissive triangles (the emissive-BVH probe, tests/test_torch_emissive.py)
+    and frames above one wave (the banded renderer,
+    tests/test_torch_banded.py).  The CLI flags of the progressive renderer
+    still raise."""
+    from vulkan_raytracer_tpu_torch import cli
+
     s = cornell_box_scene()
     s.materials[0].alpha_mode = 1
     img, _ = render_image(s.upload("cpu"), _cam(), 4, 4, spp=1, max_depth=1)
@@ -160,11 +165,15 @@ def test_unported_features_raise():
     pos = np.random.default_rng(0).uniform(-1, 1, (3 * n, 3)).astype(np.float32)
     s.add_raw_mesh(pos, np.tile(np.float32([0, 0, 1]), (3 * n, 1)),
                    np.arange(3 * n, dtype=np.uint32), m)
-    with pytest.raises(NotImplementedError, match="emissive"):
-        render_image(s.upload("cpu"), _cam(), 4, 4, spp=1, max_depth=1)
+    tt = s.upload("cpu")
+    assert tt.num_emissive_tris > tdense.EMISSIVE_MAX_TRIS
+    img, rays = render_image(tt, _cam(), 4, 4, spp=1, max_depth=2)
+    assert np.isfinite(img).all() and rays >= 16
     tt = cornell_box_scene().upload("cpu")
-    with pytest.raises(NotImplementedError, match="banded"):
-        render_image(tt, _cam(), 1024, 1024, spp=1, max_depth=1)
+    img, rays = render_image(tt, _cam(), 1024, 513, spp=1, max_depth=0)
+    assert img.shape == (513, 1024, 3) and np.isfinite(img).all() and rays == 1024 * 513
+    with pytest.raises(NotImplementedError, match="interactive"):
+        cli.main(["--interactive", "--device", "cpu"])
 
 
 def test_cli_refuses_missing_cuda():

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """The dense sweeps K1-K3 on the card, at the launches the renders make.
 
-    python3 tools/bench_torch_dense.py [--root DIR] [--reps 20] [--out FILE]
+    python3 tools/bench_torch_dense.py [--root DIR] [--reps 20] [--waves cfg1,textured,gltf]
+                                       [--out FILE]
 
 Run from the root of a checkout on a machine with an NVIDIA card.  For each
 of cfg1 (the built-in Cornell box), the textured glb and the
@@ -17,7 +18,14 @@ A last line times K1-K3 on the synthetic cfg1 wave of
 ``chip_smoke.time_kernels`` (524,288 random rays in the Cornell box, 80%
 active) with ``chip_smoke.time_launch``: device time and the wrapper's host
 microseconds per call.
-``--reps 0`` records, counts and checks without timing.
+Then a line for K2 on sparse launches (:func:`shadow_sparse_line`): the
+occlusion sweep over the Cornell box (36 triangles), a 1,000-triangle and a
+20,000-triangle soup with one lane, 0.1%, 5%, 50% and all of 524,288 lanes
+live (``chip_smoke.live_mask``; the 20,000-triangle table only up to 5%),
+device time per launch and a digest of the flags: the launches on which the
+kernel's choice between a thread and a warp per ray is made.
+``--reps 0`` records, counts and checks without timing.  ``--waves`` limits
+the recorded renders (K2 runs only in cfg1's).
 
 ``--root DIR`` runs the ``vulkan_raytracer_tpu_torch`` package of another
 checkout (for example an unpacked earlier commit), which renders the waves
@@ -128,13 +136,50 @@ def synthetic_line(cs, device, reps: int) -> dict:
     return out
 
 
+def shadow_sparse_line(cs, device, reps: int, n: int = 2 * 512 * 512) -> dict:
+    """K2 at sparse launches over short and long tables: per table and live
+    share, the live lanes, the occluded lanes and, if ``reps``, the device
+    time per launch; one digest over every launch's flags."""
+    import torch
+
+    from vulkan_raytracer_tpu_torch.ops import dense
+    from vulkan_raytracer_tpu_torch.scene.builtin import cornell_box_scene
+
+    rays = cs.make_rays(n, seed=41, device=device)
+    cols = dense.ray_columns(rays["o"], rays["d"])
+    scenes = {"cornell": (cornell_box_scene(), ("one", 0.001, 0.05, 0.5, 1.0)),
+              "soup1000": (cs.soup_scene(1000, seed=7), ("one", 0.001, 0.05, 0.5, 1.0)),
+              "soup20000": (cs.soup_scene(20000, seed=17), ("one", 0.001, 0.05))}
+    out, flags = {}, []
+    for name, (scene, shares) in scenes.items():
+        table = scene.upload(device).tri_table
+        out[name] = {}
+        for share in shares:
+            live = torch.as_tensor(cs.live_mask(n, share, seed=5), device=device)
+            t_hi = torch.where(live, rays["t_shadow"], 0.0).contiguous()
+            occ = dense.shadow_sweep(table, cols, t_hi)
+            flags.append(occ)
+            entry = {"live": int(live.sum()), "occluded": int(occ.sum())}
+            if reps:
+                entry["ms"], entry["launches_traced"] = cs.device_ms(
+                    functools.partial(dense.shadow_sweep, table, cols, t_hi), "shadow_kernel",
+                    reps)
+            out[name][str(share)] = entry
+    return {"by_table": out, "digest_outputs": _digest(flags)}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--root", default=str(ROOT),
                    help="checkout whose vulkan_raytracer_tpu_torch package runs")
     p.add_argument("--reps", type=int, default=20, help="launches per timed call; 0: no timing")
+    p.add_argument("--waves", default=",".join(WAVES),
+                   help="comma-separated renders to record (default: all)")
     p.add_argument("--out", default=None)
     args = p.parse_args(argv)
+    waves = [w for w in args.waves.split(",") if w]
+    if not set(waves) <= set(WAVES):
+        p.error(f"--waves takes a subset of {WAVES}")
     pkg_root = Path(args.root).resolve()
     sys.path[:0] = [str(pkg_root), str(ROOT / "tools")]
     import torch
@@ -157,7 +202,7 @@ def main(argv=None) -> int:
     device = torch.device("cuda", 0)
     head = {"root": str(pkg_root), "nvidia_smi": smi, "reps": args.reps, "ptxas": ptxas}
     lines = []
-    for config in WAVES:
+    for config in waves:
         scene, pos, direction = profile_torch_wave.CONFIGS[config]
         tables = profile_torch_wave._scene(scene).upload(device)
         calls = cs.record_wave(tables, (pos, direction))
@@ -168,6 +213,9 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     lines.append(json.dumps({**head, "config": "synthetic cfg1",
                              **synthetic_line(cs, device, args.reps)}))
+    print(lines[-1], flush=True)
+    lines.append(json.dumps({**head, "config": "K2 sparse launches",
+                             **shadow_sparse_line(cs, device, args.reps)}))
     print(lines[-1], flush=True)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

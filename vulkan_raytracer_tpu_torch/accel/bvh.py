@@ -14,7 +14,7 @@ walk.  Each leaf owns ``leaf_size`` contiguous triangle slots, padded with
 degenerate triangles whose ``tri_id`` is -1.
 
 ``refit_bvh`` is not ported yet: it waits for instancing and refit
-(ROADMAP.md Queue 1 #12).
+(ROADMAP.md Queue 1, "instancing and refit").
 """
 
 from __future__ import annotations

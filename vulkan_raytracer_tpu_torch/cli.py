@@ -63,12 +63,12 @@ BUILTIN_SCENES = {  # vulkan_raytracer_tpu/cli.py:50-57
 
 #: flags of the JAX CLI whose code paths are not ported yet -> ROADMAP item
 _NOT_PORTED = {
-    "progressive": "Queue 1 #13 (progressive renderer)",
-    "interactive": "Queue 1 #13 (viewer)",
-    "shard": "Queue 1 #14 (sharding)",
-    "trace": "Queue 1 #13 (--trace)",
-    "checkpoint": "Queue 1 #13 (checkpoint/resume)",
-    "resume": "Queue 1 #13 (checkpoint/resume)",
+    "progressive": "Queue 1, the progressive renderer and viewer",
+    "interactive": "Queue 1, the progressive renderer and viewer",
+    "shard": "Queue 1, sharding and multihost",
+    "trace": "Queue 1, the progressive renderer and viewer (--trace)",
+    "checkpoint": "Queue 1, the progressive renderer and viewer (checkpoint/resume)",
+    "resume": "Queue 1, the progressive renderer and viewer (checkpoint/resume)",
 }
 
 

@@ -66,6 +66,27 @@
 // No NaN arises: 1/d comes from the _inv_comp form (|d| < 1e-30 becomes a
 // signed 1e-30), so fminf / fmaxf and torch.minimum / maximum agree.
 //
+// The emissive-pdf walk.  emissive_walk_kernel replaces trace_emissive_pdf
+// (vulkan_raytracer_tpu/ops/traverse.py:241), an XLA while_loop in which all
+// lanes of a wave step together until the slowest is through, with a gather
+// per step; it is not a Pallas kernel, but it is on the render path of every
+// scene with more than 1,024 emissive triangles (the MIS probe of each bounce
+// and the NEE probe), and a lockstep tensor walk is hundreds of times slower
+// here than a walk per ray.  Its plain version is
+// emissive_pdf_walk_reference in ops/traverse.py.  One thread walks one ray
+// through the emissive-only tree (EmissiveStream: the node records above in
+// the tree's own preorder, and one 80-byte row per real leaf slot with the
+// triangle, its p_delta, area and vertex normals, so a hit reads nothing
+// else) and adds every hit's term; no stack, no octant (a sum has no
+// front-to-back order to exploit).  The probes' live lanes are sparse (the
+// lanes that reached an emitter, or whose light sample is visible), so a
+// block gathers its live rays onto its first threads first, as the dense
+// kernels do, and a block with none returns.  What bounds it is what bounds
+// the other walks: the dependent loads of a chain of nodes.  Its contract is
+// the JAX function's, not the dense pdf kernel's (see ops/traverse.py); the
+// sum runs in visit order, a leaf's terms first, as the plain version adds
+// them, and is held to a tolerance against it (and against JAX).
+//
 // Launches go on the caller's stream; nothing here synchronises or
 // allocates.  Each launcher returns cudaGetLastError().
 
@@ -366,6 +387,110 @@ treelet_walk_kernel(const float4* __restrict__ nodes, const float4* __restrict__
   }
 }
 
+// 1/d of the emissive walk: safe_inv_dir (ops/intersect.py:20), |d| < 1e-20
+// becomes a signed 1e-20.
+__device__ __forceinline__ float safe_inv(float d) {
+  return 1.0f / (fabsf(d) < 1e-20f ? (d < 0.0f ? -1e-20f : 1e-20f) : d);
+}
+
+constexpr float kPdfTMax = 1e32f;  // the far end of the probe's ray extent
+constexpr int kWarpsPerBlock = kThreads / 32;
+
+// The emissive-pdf walk: per active ray, the sum over every emissive triangle
+// hit with t_min < t <= 1e32 of p_delta * t^2 / max(area * |n.d|, 1e-30), n
+// the interpolated vertex normal over max(|n|, 1e-20); inactive lanes get 0.
+// nodes: 2 float4 per node as in walk_node; rows: 5 float4 per real leaf slot,
+// [v0.xyz, e1.x], [e1.yz, e2.xy], [e2.z, p_delta, area, n0.x], [n0.yz, n1.xy],
+// [n1.z, n2.xyz].  A node is entered when tnear <= tfar, tfar >= t_min and
+// tnear <= 1e32 (ray_aabb, ops/intersect.py:31).
+__global__ void __launch_bounds__(kThreads)
+emissive_walk_kernel(const float4* __restrict__ nodes, const float4* __restrict__ rows,
+                     int num_nodes, const float* __restrict__ ox, const float* __restrict__ oy,
+                     const float* __restrict__ oz, const float* __restrict__ dx,
+                     const float* __restrict__ dy, const float* __restrict__ dz,
+                     const uint8_t* __restrict__ active, float t_min,
+                     float* __restrict__ pdf_out, int n_rays) {
+  __shared__ int warp_live[kWarpsPerBlock];
+  __shared__ int ray_of[kThreads];
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  bool live = false;
+  if (i < n_rays) {
+    live = active[i] != 0;
+    if (!live) pdf_out[i] = 0.0f;
+  }
+  // gather the block's live rays onto its first threads; every thread reaches
+  // both barriers
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned ballot = __ballot_sync(0xffffffffu, live);
+  if (lane == 0) warp_live[warp] = __popc(ballot);
+  __syncthreads();
+  int before = 0, n_live = 0;
+#pragma unroll
+  for (int w = 0; w < kWarpsPerBlock; ++w) {
+    before += w < warp ? warp_live[w] : 0;
+    n_live += warp_live[w];
+  }
+  if (live) ray_of[before + __popc(ballot & ((1u << lane) - 1u))] = i;
+  __syncthreads();
+  if (threadIdx.x >= n_live) return;  // no barrier below
+
+  const int k = ray_of[threadIdx.x];
+  const float rox = ox[k], roy = oy[k], roz = oz[k];
+  const float rdx = dx[k], rdy = dy[k], rdz = dz[k];
+  const float ix = safe_inv(rdx), iy = safe_inv(rdy), iz = safe_inv(rdz);
+  float pdf = 0.0f;
+  for (int cur = 0; cur < num_nodes;) {
+    const float4 lo = __ldg(nodes + 2 * cur);
+    const float4 hi = __ldg(nodes + 2 * cur + 1);
+    float nx, fx, ny, fy, nz, fz;
+    slab(lo.x, hi.x, rox, ix, nx, fx);
+    slab(lo.y, hi.y, roy, iy, ny, fy);
+    slab(lo.z, hi.z, roz, iz, nz, fz);
+    const float near = fmaxf(fmaxf(nx, ny), nz);
+    const float far = fminf(fminf(fx, fy), fz);
+    const bool enter = near <= far && far >= t_min && near <= kPdfTMax;
+    const int32_t leaf = __float_as_int(lo.w);  // first row, or -1: interior
+    const int32_t link = __float_as_int(hi.w);  // a leaf's count, else the skip pointer
+    if (enter && leaf >= 0) {
+      float leaf_sum = 0.0f;
+      const float4* row = rows + 5 * (size_t)leaf;
+      for (int j = 0; j < link; ++j, row += 5) {
+        const float4 a = __ldg(row);      // v0.xyz, e1.x
+        const float4 b = __ldg(row + 1);  // e1.yz, e2.xy
+        const float4 c = __ldg(row + 2);  // e2.z, p_delta, area, n0.x
+        const float px = rdy * c.x - rdz * b.w;
+        const float py = rdz * b.z - rdx * c.x;
+        const float pz = rdx * b.w - rdy * b.z;
+        const float det = a.w * px + b.x * py + b.y * pz;
+        if (fabsf(det) < 1e-12f) continue;
+        const float inv = 1.0f / det;
+        const float tx = rox - a.x;
+        const float ty = roy - a.y;
+        const float tz = roz - a.z;
+        const float u = (tx * px + ty * py + tz * pz) * inv;
+        const float qx = ty * b.y - tz * b.x;
+        const float qy = tz * a.w - tx * b.y;
+        const float qz = tx * b.x - ty * a.w;
+        const float v = (rdx * qx + rdy * qy + rdz * qz) * inv;
+        const float t = (b.z * qx + b.w * qy + c.x * qz) * inv;
+        if (!(u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > t_min && t <= kPdfTMax)) continue;
+        const float4 d = __ldg(row + 3);  // n0.yz, n1.xy
+        const float4 e = __ldg(row + 4);  // n1.z, n2.xyz
+        const float w0 = 1.0f - u - v;
+        const float mx = w0 * c.w + u * d.z + v * e.y;
+        const float my = w0 * d.x + u * d.w + v * e.z;
+        const float mz = w0 * d.y + u * e.x + v * e.w;
+        const float len = fmaxf(sqrtf(mx * mx + my * my + mz * mz), 1e-20f);
+        const float cosine = fabsf(mx / len * rdx + my / len * rdy + mz / len * rdz);
+        leaf_sum = leaf_sum + c.y * t * t / fmaxf(c.z * cosine, 1e-30f);
+      }
+      pdf = pdf + leaf_sum;
+    }
+    cur = enter || leaf >= 0 ? cur + 1 : link;
+  }
+  pdf_out[k] = pdf;
+}
+
 inline int blocks_for(int n_rays) { return (n_rays + kThreads - 1) / kThreads; }
 
 }  // namespace
@@ -402,6 +527,20 @@ int treelet_walk_launch(int device, int shadow, const float* nodes, const float*
         reinterpret_cast<const float4*>(nodes), reinterpret_cast<const float4*>(tris),
         num_nodes, tl_box, tl_group, tl_lim, n_treelets, ox, oy, oz, dx, dy, dz, t_lo, t_init,
         t_out, slot_out, n_rays);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int emissive_walk_launch(int device, const float* nodes, const float* rows, int num_nodes,
+                         const float* ox, const float* oy, const float* oz, const float* dx,
+                         const float* dy, const float* dz, const uint8_t* active, float t_min,
+                         float* pdf_out, int n_rays, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n_rays > 0) {
+    emissive_walk_kernel<<<blocks_for(n_rays), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        reinterpret_cast<const float4*>(nodes), reinterpret_cast<const float4*>(rows), num_nodes,
+        ox, oy, oz, dx, dy, dz, active, t_min, pdf_out, n_rays);
   }
   return static_cast<int>(cudaGetLastError());
 }

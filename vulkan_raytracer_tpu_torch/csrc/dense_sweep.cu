@@ -24,14 +24,16 @@
 // per test, 36 more per pdf hit) plus ~30 B of ray I/O per lane; on the
 // render most lanes of a launch are dead: inactive bounce lanes, lanes the
 // alpha loop has settled, and the pdf's gate, which marks only the lanes
-// that reached an emitter.  So the closest and pdf kernels first gather the
-// block's live rays (t_init > t_lo; gate != 0) onto its first threads
+// that reached an emitter.  So every kernel first gathers the block's live
+// rays (t_init > t_lo; t_hi > 0; gate != 0) onto its first threads
 // (compact()): whole warps then carry live rays only, a block with no live
 // ray stages nothing, and a dead lane's thread just writes what the
-// contract gives it (t_init and -1; +0).  The Moller-Trumbore test stops
-// after u, which decides most misses, and the pdf's weighted term is only
-// evaluated on a hit.  The occlusion kernel already stops a ray at its first
-// hit and skips lanes with t_hi <= 0; it shares the staging and the test.
+// contract gives it (t_init and -1; 0; +0) without loading its ray.  The
+// Moller-Trumbore test stops after u, which decides most misses, and the
+// pdf's weighted term is only evaluated on a hit.  The occlusion kernel
+// stops a ray at its first hit and the block once every live ray is
+// occluded.  Where a block has few live rays and the table is long, the
+// occlusion and pdf kernels give each ray a warp instead of a thread.
 //
 // Barriers.  Every thread of a block reaches every __syncthreads: the
 // decision to stage (n_live > 0) is the block's, read after a barrier, and a
@@ -207,8 +209,45 @@ closest_kernel(const float* __restrict__ table, int n_tris,
   }
 }
 
-// Any-hit occlusion: 0 < t <= t_hi.  t_hi is 0 on inactive lanes, so they
-// are never occluded.  A thread stops testing at its first hit.
+inline __host__ __device__ int div_up(int a, int b) { return (a + b - 1) / b; }
+
+// Any-hit occlusion: 1 where some triangle hits with 0 < t <= t_hi.  t_hi is
+// 0 on inactive lanes: no t can satisfy 0 < t <= 0 (nor a NaN bound), so such
+// a lane is dead and its thread writes 0 without loading its ray.  Occlusion
+// is a flag, not a sum or a minimum: any split of the table over threads
+// gives the same bit, so both paths below equal the plain version bit for bit.
+//
+// The block's live rays are gathered onto its first threads (compact()), so a
+// block with none stages nothing.  The vote "is any ray of the block still
+// testing" rides on the loop's first barrier (__syncthreads_or): once every
+// live ray is occluded, all threads leave together and the rest of the table
+// is neither staged nor tested.
+//
+// By thread: thread k walks ray k through the staged chunk and stops at its
+// first hit.  By warp: each warp takes rays k = warp, warp + kWarps, ..., its
+// 32 lanes test 32 triangles of the ray at once, and __any_sync ends the
+// ray; which of a warp's rays are occluded is a 32-bit mask in one register
+// (a warp has at most kThreads / kWarps = 32 rays).  Counted in warp-steps
+// (one warp testing one triangle, or 32 of them, once), the thread path costs
+// ceil(n_live / 32) * n_tris and the warp path n_live * ceil(n_tris / 32);
+// the longest chain of dependent steps is n_tris against ceil(n_live /
+// kWarps) * ceil(n_tris / 32).  The block goes by warp where that costs at
+// most 5/4 of the thread path's steps and its chain is the shorter: few live
+// rays, or a table that fills its groups of 32.  Measured on an H100 at
+// 524,288 lanes (tools/bench_torch_dense.py, microseconds per launch: by
+// thread only / by warp wherever its chain is shorter / this rule): 1,000
+// triangles with one live lane 151 / 12 / 12, 5% live 481 / 194 / 195, 50%
+// live 850 / 639 / 640; 36 triangles (two groups of 32 for 36 tests, 1.8x
+// the steps) 5% live 23 / 12 / 16, 50% live 36 / 54 / 38, and the five
+// launches of a Cornell-box render's wave 143 / 200 / 151 in all.
+static_assert(kThreads / kWarps == 32, "a warp's rays fit one 32-bit mask");
+
+__device__ __forceinline__ bool shadow_by_warp(int n_live, int n_tris) {
+  const long long groups = div_up(n_tris, 32);
+  return 4 * n_live * groups <= 5LL * div_up(n_live, 32) * n_tris &&
+         div_up(n_live, kWarps) * groups < n_tris;
+}
+
 __global__ void __launch_bounds__(kThreads)
 shadow_kernel(const float* __restrict__ table, int n_tris,
               const float* __restrict__ ox, const float* __restrict__ oy,
@@ -216,33 +255,75 @@ shadow_kernel(const float* __restrict__ table, int n_tris,
               const float* __restrict__ dy, const float* __restrict__ dz,
               const float* __restrict__ t_hi, int32_t* __restrict__ occ_out, int n_rays) {
   __shared__ float4 s[kChunk * kSweepRow];
+  __shared__ int ray_of[kThreads];
   const int i = blockIdx.x * kThreads + threadIdx.x;
-  const bool live = i < n_rays;
+  bool live = false;
+  if (i < n_rays) {
+    live = t_hi[i] > 0.0f;
+    if (!live) occ_out[i] = 0;
+  }
+  const int n_live = compact(live, i, ray_of);
+  if (n_live == 0) return;  // the whole block: no thread reaches a barrier below
+
+  if (shadow_by_warp(n_live, n_tris)) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int n_mine = warp < n_live ? div_up(n_live - warp, kWarps) : 0;  // this warp's rays
+    const unsigned all = n_mine == 32 ? 0xffffffffu : (1u << n_mine) - 1u;
+    unsigned occluded = 0u;  // bit q: ray_of[warp + q * kWarps] is occluded; the same on every lane
+    for (int base = 0; base < n_tris; base += kChunk) {
+      // also: the previous chunk has been read by every thread
+      if (!__syncthreads_or(occluded != all)) break;
+      stage<9, kSweepRow>(s, table, n_tris, base);
+      __syncthreads();
+      const int n = min(kChunk, n_tris - base);
+      for (int q = 0; q < n_mine; ++q) {
+        if ((occluded >> q) & 1u) continue;
+        const int k = ray_of[warp + q * kWarps];
+        const Ray r = load_ray(ox, oy, oz, dx, dy, dz, k);
+        const float hi = t_hi[k];
+        for (int j0 = 0; j0 < n; j0 += 32) {
+          float u, v, t;
+          const bool hit = j0 + lane < n &&
+                           mt_inside(s[(j0 + lane) * kSweepRow], s[(j0 + lane) * kSweepRow + 1],
+                                     s[(j0 + lane) * kSweepRow + 2], r, u, v, t) &&
+                           t > 0.0f && t <= hi;
+          if (__any_sync(0xffffffffu, hit)) {
+            occluded |= 1u << q;
+            break;
+          }
+        }
+      }
+    }
+    if (lane < n_mine) occ_out[ray_of[warp + lane * kWarps]] = (occluded >> lane) & 1u;
+    return;
+  }
+
+  const bool mine = threadIdx.x < n_live;
+  const int k = mine ? ray_of[threadIdx.x] : 0;
   Ray r{};
   float hi = 0.0f;
-  if (live) {
-    r = load_ray(ox, oy, oz, dx, dy, dz, i);
-    hi = t_hi[i];
+  if (mine) {
+    r = load_ray(ox, oy, oz, dx, dy, dz, k);
+    hi = t_hi[k];
   }
-  int32_t occ = 0;
-  bool done = !live || !(hi > 0.0f);  // no t can satisfy 0 < t <= hi
+  bool testing = mine;
   for (int base = 0; base < n_tris; base += kChunk) {
-    __syncthreads();
+    // also: the previous chunk has been read by every thread
+    if (!__syncthreads_or(testing)) break;
     stage<9, kSweepRow>(s, table, n_tris, base);
     __syncthreads();
-    if (done) continue;
+    if (!testing) continue;
     const int n = min(kChunk, n_tris - base);
     for (int j = 0; j < n; ++j) {
       const float4* row = s + j * kSweepRow;
       float u, v, t;
       if (mt_inside(row[0], row[1], row[2], r, u, v, t) && t > 0.0f && t <= hi) {
-        occ = 1;
-        done = true;
+        testing = false;
         break;
       }
     }
   }
-  if (live) occ_out[i] = occ;
+  if (mine) occ_out[k] = testing ? 0 : 1;
 }
 
 // One emissive triangle's pdf term for a ray, in the operation order of
@@ -265,8 +346,6 @@ __device__ __forceinline__ bool pdf_term(const float4* row, const Ray& r, float 
   term = c.y * t * t / fmaxf(c.z * cosine, 1e-30f);
   return true;
 }
-
-inline __host__ __device__ int div_up(int a, int b) { return (a + b - 1) / b; }
 
 // Emissive-pdf probe (shaders/emissivepdf.rahit): the sum, in triangle
 // order, over every emissive triangle hit with t > t_min, of

@@ -20,11 +20,12 @@ values: ``dense_closest`` -> (t, tri, u, v) with t = inf / tri = -1 on a miss,
 The kernel contract follows the Pallas kernels (a hit at exactly the initial
 t bound counts), which every scene of the port's dense path uses.
 
-Dead lanes.  The closest and pdf kernels gather each block's live lanes
-before they test (``t_init > t_lo``; ``gate != 0``).  A dead closest lane
-returns t_init and -1, as the plain version does.  A pdf lane whose gate is
-0 returns +0; the plain version (and the JAX kernel) return pdf * 0, which
-is +0 whenever the sum is finite.  The integrator never reads such a lane.
+Dead lanes.  The kernels gather each block's live lanes before they test
+(``t_init > t_lo``; ``t_hi > 0``; ``gate != 0``).  A dead closest lane
+returns t_init and -1 and a dead occlusion lane 0, as the plain versions do.
+A pdf lane whose gate is 0 returns +0; the plain version (and the JAX
+kernel) return pdf * 0, which is +0 whenever the sum is finite.  The
+integrator never reads such a lane.
 """
 
 from __future__ import annotations
@@ -37,7 +38,8 @@ from .math3 import V3, v3_gather
 #: Scenes above this many triangles are uploaded with BVH streams and walk
 #: them (ops/traverse.py); this kernel itself has no triangle cap.
 DENSE_MAX_TRIS = 65536
-#: Emissive sets above this size need the emissive-BVH probe (not ported yet).
+#: Emissive sets above this size take the emissive-BVH probe
+#: (ops/traverse.py ``bvh_emissive_pdf``) instead of the dense pdf sweep.
 EMISSIVE_MAX_TRIS = 1024
 
 #: Triangles per step of the plain versions' (CHUNK, N) broadcast.

@@ -58,6 +58,18 @@ the same; the layout is the card's (:class:`BVHStreams`): 32-byte node
 records and one table of 48-byte triangle rows shared by the eight octant
 streams, where the TPU kept one contiguous DMA stream of triangles per
 octant.  :func:`walk_visits` counts a walk's work for the kernels' bounds.
+
+The emissive-pdf probe over an emissive-only BVH, for scenes with more than
+``dense.EMISSIVE_MAX_TRIS`` emissive triangles, is here too:
+:func:`bvh_emissive_pdf`, the counterpart of ``trace_emissive_pdf``
+(``vulkan_raytracer_tpu/ops/traverse.py:241``, an XLA ``while_loop``, not a
+Pallas kernel).  On the card it is a per-ray CUDA walk like the others
+(``emissive_walk_kernel``), with :func:`emissive_pdf_walk_reference` as its
+plain version, over an :class:`EmissiveStream`.  Its contract is the JAX
+function's, which is not the dense pdf kernel's: the box test of
+``ops/intersect.py`` (``safe_inv_dir`` with 1e-20, no conservative scale),
+the ray extent (t_min, 1e32], the normal divided by max(|n|, 1e-20), the raw
+area, and the sum in the tree's visit order, one leaf at a time.
 """
 
 from __future__ import annotations
@@ -84,7 +96,8 @@ ROBUST = 1.0 + 3.0 * 2.0**-23
 _TINY = 1e-30
 
 #: Kernel launches since the last reset, by kernel and variant.
-LAUNCHES = {"bvh_closest": 0, "bvh_shadow": 0, "treelet_closest": 0, "treelet_shadow": 0}
+LAUNCHES = {"bvh_closest": 0, "bvh_shadow": 0, "treelet_closest": 0, "treelet_shadow": 0,
+            "emissive_pdf": 0}
 
 _F32 = torch.float32
 
@@ -211,6 +224,62 @@ def build_streams(bvh, max_tris: int = TREELET_TRIS,
     )
 
 
+@dataclasses.dataclass(frozen=True)
+class EmissiveStream:
+    """The emissive-only threaded BVH with everything the pdf probe reads, in
+    the layout the CUDA walk loads 16 bytes at a time.
+
+    Node ``i`` (the BVH's own preorder; the probe adds up every hit, so there
+    is no front-to-back order to keep per octant) is the 32-byte record
+    ``nodes[i]`` of :class:`BVHStreams`: ``bmin.xyz, leaf | bmax.xyz, link``.
+    ``rows[r]`` is one 80-byte row per real leaf slot, in slot order:
+    ``v0.xyz, e1.xyz, e2.xyz, p_delta, area, n0.xyz, n1.xyz, n2.xyz`` (the
+    columns of the dense pdf table, with the area as uploaded)."""
+
+    nodes: torch.Tensor  # (Nn, 8) f32: bmin.xyz, leaf | bmax.xyz, link
+    rows: torch.Tensor  # (Nr, 20) f32
+    num_nodes: int
+
+    @property
+    def nbytes(self) -> int:
+        return self.nodes.nbytes + self.rows.nbytes
+
+    def to(self, device) -> "EmissiveStream":
+        return dataclasses.replace(self, nodes=self.nodes.to(device), rows=self.rows.to(device))
+
+
+def build_emissive_stream(ebvh, em_tables) -> EmissiveStream:
+    """Pack the emissive-only ThreadedBVH ``ebvh`` and the per-emissive-
+    triangle ``em_tables`` (p_delta, area, n0, n1, n2, indexed by the BVH's
+    ``tri_id``) into an :class:`EmissiveStream`.  Host-side NumPy; returns
+    CPU tensors."""
+    def host(x):
+        return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+    k = ebvh.leaf_size
+    first, miss, tri_id = host(ebvh.first_tri), host(ebvh.miss), host(ebvh.tri_id)
+    n = first.shape[0]
+    is_leaf = first >= 0
+    real = tri_id >= 0
+    ids = tri_id[real]
+    before = np.concatenate([[0], np.cumsum(real)])  # slot -> its row
+    rows = np.empty((ids.shape[0], 20), np.float32)
+    for c, col in enumerate((ebvh.tri_v0, ebvh.tri_e1, ebvh.tri_e2)):
+        rows[:, 3 * c:3 * c + 3] = host(col)[real]
+    rows[:, 9] = host(em_tables.p_delta)[ids]
+    rows[:, 10] = host(em_tables.area)[ids]
+    for c, col in enumerate((em_tables.n0, em_tables.n1, em_tables.n2)):
+        rows[:, 11 + 3 * c:14 + 3 * c] = host(col)[ids]
+    slot0 = np.where(is_leaf, first, 0)
+    nodes = np.zeros((n, 8), np.float32)
+    words = nodes.view(np.int32)
+    nodes[:, 0:3] = host(ebvh.aabb_min)
+    nodes[:, 4:7] = host(ebvh.aabb_max)
+    words[:, 3] = np.where(is_leaf, before[slot0], -1)
+    words[:, 7] = np.where(is_leaf, before[slot0 + k] - before[slot0], miss)
+    return EmissiveStream(nodes=torch.as_tensor(nodes), rows=torch.as_tensor(rows), num_nodes=n)
+
+
 # ---------------------------------------------------------------------------
 # Per-ray quantities shared by the kernels and their plain versions
 # ---------------------------------------------------------------------------
@@ -226,6 +295,13 @@ def inv_dir(d: torch.Tensor) -> torch.Tensor:
     """1/d with |d| < 1e-30 replaced by a signed 1e-30 (``_inv_comp``)."""
     return torch.reciprocal(torch.where(
         torch.abs(d) < _TINY, torch.where(d < 0, -_TINY, _TINY), d))
+
+
+def safe_inv_dir(d: torch.Tensor) -> torch.Tensor:
+    """1/d with |d| < 1e-20 replaced by a signed 1e-20 (``safe_inv_dir``,
+    vulkan_raytracer_tpu/ops/intersect.py:20)."""
+    return torch.reciprocal(torch.where(
+        torch.abs(d) < 1e-20, torch.where(d < 0, -1e-20, 1e-20), d))
 
 
 def box_entries(box, rays, t_lo, t_init):
@@ -408,6 +484,98 @@ def walk_visits(s: BVHStreams, rays, t_lo, t_init, shadow: bool, treelets: bool)
     return v
 
 
+#: the far end of the probe's ray extent (raygen.rgen:70, lightsample.glsl:136)
+_PDF_T_MAX = 1e32
+
+
+def emissive_pdf_walk_reference(s: EmissiveStream, rays, active, t_min: float,
+                                visits: dict | None = None):
+    """Plain version of the emissive-pdf walk: every active lane walks the
+    threaded tree in lockstep (one node per turn, the lanes still walking
+    kept compact) and adds, leaf by leaf in visit order and slot by slot
+    within a leaf, ``p_delta * t^2 / max(area * |n.d|, 1e-30)`` for every
+    triangle hit with t_min < t <= 1e32; n is the interpolated vertex normal
+    over max(|n|, 1e-20).  ``rays`` are six (N,) float32 columns, ``active``
+    (N,) bool.  Returns the pdf, 0 on inactive lanes."""
+    n = active.shape[0]
+    dev = active.device
+    pdf_out = torch.zeros(n, dtype=_F32, device=dev)
+    lanes = torch.nonzero(active).squeeze(1)
+    if lanes.numel() == 0:
+        return pdf_out
+    links = s.nodes.view(torch.int32)[:, 3::4].long()  # leaf row | -1, count | skip
+    cols = [c[lanes] for c in rays]
+    o = torch.stack(cols[:3], 1)
+    inv = torch.stack([safe_inv_dir(c) for c in cols[3:]], 1)
+    cur = torch.zeros_like(lanes)
+    pdf = torch.zeros(lanes.numel(), dtype=_F32, device=dev)
+    while True:
+        done = cur >= s.num_nodes
+        if bool(done.any()):
+            pdf_out[lanes[done]] = pdf[done]
+            keep = ~done
+            lanes, cur, pdf, o, inv = lanes[keep], cur[keep], pdf[keep], o[keep], inv[keep]
+            cols = [c[keep] for c in cols]
+        if lanes.numel() == 0:
+            return pdf_out
+        box = s.nodes[cur]
+        lo = (box[:, 0:3] - o) * inv
+        hi = (box[:, 4:7] - o) * inv
+        near = torch.minimum(lo, hi).amax(1)
+        far = torch.maximum(lo, hi).amin(1)
+        enter = (near <= far) & (far >= t_min) & (near <= _PDF_T_MAX)
+        ln = links[cur]
+        is_leaf = ln[:, 0] >= 0
+        leaf = enter & is_leaf
+        if visits is not None:
+            visits["nodes"][lanes] += 1
+            visits["node_rows"][cur] = True
+        if bool(leaf.any()):
+            li = leaf.nonzero().squeeze(1)
+            row0, count = ln[li, 0], ln[li, 1]
+            j = torch.arange(max(int(count.max()), 1), device=dev)
+            real = j < count[:, None]
+            idx = torch.where(real, row0[:, None] + j, row0[:, None])
+            tri = s.rows[idx]  # (L, m, 20)
+            dx, dy, dz = (cols[c][li, None] for c in (3, 4, 5))
+            inside, u, v, t = mt([tri[..., c] for c in range(9)],
+                                 [cols[c][li, None] for c in range(3)] + [dx, dy, dz])
+            hit = real & inside & (t > t_min) & (t <= _PDF_T_MAX)
+            w0 = 1.0 - u - v
+            nx = w0 * tri[..., 11] + u * tri[..., 14] + v * tri[..., 17]
+            ny = w0 * tri[..., 12] + u * tri[..., 15] + v * tri[..., 18]
+            nz = w0 * tri[..., 13] + u * tri[..., 16] + v * tri[..., 19]
+            length = torch.clamp_min(torch.sqrt(nx * nx + ny * ny + nz * nz), 1e-20)
+            cosine = torch.abs(nx / length * dx + ny / length * dy + nz / length * dz)
+            term = tri[..., 9] * t * t / torch.clamp_min(tri[..., 10] * cosine, 1e-30)
+            term = torch.where(hit, term, 0.0)
+            leaf_sum = term[:, 0]
+            for q in range(1, term.shape[1]):  # slot order, as the kernel adds them
+                leaf_sum = leaf_sum + term[:, q]
+            pdf[li] = pdf[li] + leaf_sum
+            if visits is not None:
+                visits["tris"][lanes[li]] += count
+                visits["hits"][lanes[li]] += hit.sum(1)
+                visits["tri_rows"][idx[real]] = True
+        cur = torch.where(enter | is_leaf, cur + 1, ln[:, 1])
+
+
+def emissive_walk_visits(s: EmissiveStream, rays, active, t_min: float) -> dict:
+    """The work of one emissive-pdf walk, counted on the plain walk (the
+    kernel makes the same visits).  Per ray, int64 (N,): ``nodes`` (box
+    tests), ``tris`` (triangle tests, padding skipped) and ``hits`` (terms
+    added); ``node_rows`` and ``tri_rows`` count the distinct records read."""
+    n = active.shape[0]
+    dev = active.device
+    v = {k: torch.zeros(n, dtype=torch.int64, device=dev) for k in ("nodes", "tris", "hits")}
+    v["node_rows"] = torch.zeros(s.num_nodes, dtype=torch.bool, device=dev)
+    v["tri_rows"] = torch.zeros(s.rows.shape[0], dtype=torch.bool, device=dev)
+    emissive_pdf_walk_reference(s, rays, active, t_min, visits=v)
+    v["node_rows"] = int(v["node_rows"].sum())
+    v["tri_rows"] = int(v["tri_rows"].sum())
+    return v
+
+
 # ---------------------------------------------------------------------------
 # Walks: the kernel on CUDA tensors, the plain version on CPU tensors
 # ---------------------------------------------------------------------------
@@ -468,6 +636,34 @@ def walk(s: BVHStreams, rays, t_lo, t_init, shadow: bool):
     return fn(s, rays, t_lo, t_init, shadow)
 
 
+def emissive_pdf_walk(s: EmissiveStream, rays, active, t_min: float):
+    """The emissive-pdf walk (``trace_emissive_pdf``'s contract); see
+    :func:`emissive_pdf_walk_reference`.  Launches ``emissive_walk_kernel``
+    on CUDA tensors."""
+    if not _on_cuda((s.nodes, s.rows, *rays, active)):
+        return emissive_pdf_walk_reference(s, rays, active, t_min)
+    n = active.shape[0]
+    for c in rays:
+        if c.dtype != _F32 or tuple(c.shape) != (n,) or not c.is_contiguous():
+            raise ValueError(f"ray columns must be contiguous ({n},) float32, got "
+                             f"{tuple(c.shape)} {c.dtype}")
+    if active.dtype != torch.bool or tuple(active.shape) != (n,) or not active.is_contiguous():
+        raise ValueError(f"active must be a contiguous ({n},) bool tensor")
+    for name, width in (("nodes", 8), ("rows", 20)):  # the kernel reads them as float4
+        x = getattr(s, name)
+        if (x.dtype != _F32 or x.dim() != 2 or x.shape[1] != width or not x.is_contiguous()
+                or x.data_ptr() % 16):
+            raise ValueError(f"stream.{name} must be contiguous, 16-byte aligned "
+                             f"(N, {width}) float32")
+    if n >= 2**31:
+        raise ValueError("BVH walks take fewer than 2**31 rays")
+    out = torch.empty(n, dtype=_F32, device=active.device)
+    _ext.launch("emissive_walk_launch", active.device, s.nodes, s.rows, s.num_nodes, *rays,
+                active, float(t_min), out, n)
+    LAUNCHES["emissive_pdf"] += 1
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Public entry points (the JAX wrappers' signatures)
 # ---------------------------------------------------------------------------
@@ -513,3 +709,12 @@ def bvh_shadow(tables, o, d, *, t_max, active):
     t_init = torch.where(active, _lanes(t_max, n, dev), -1.0).contiguous()
     _, slot = walk(s, rays, t_lo, t_init, shadow=True)
     return (slot >= 0) & active
+
+
+def bvh_emissive_pdf(tables, o, d, *, t_min, active):
+    """Sum of the NEE pdf over every emissive triangle along each ray, walked
+    through the scene's emissive-only BVH (``trace_emissive_pdf``,
+    vulkan_raytracer_tpu/ops/traverse.py:241; shaders/emissivepdf.rahit:57-67).
+    Inactive lanes return 0."""
+    return emissive_pdf_walk(tables.em_stream, ray_columns(o, d), active.contiguous(),
+                             float(t_min))

@@ -23,9 +23,10 @@ The port takes the JAX package's default settings as fixed: the skybox
 fetch is deferred to one lookup after the loop, NEE prunes lanes whose
 contribution is zero regardless of occlusion (on alpha-free scenes), and
 there is no wavefront re-sort or width ladder (estimator-invariant
-permutations tuned for the TPU's packets; ROADMAP.md Queue 1 #10 keeps them
-for an H100 A/B).  Scenes with more than ``EMISSIVE_MAX_TRIS`` emissive
-triangles (the emissive BVH) raise ``NotImplementedError``.
+permutations tuned for the TPU's packets; ROADMAP.md Queue 1 keeps them
+behind an H100 A/B, under "the re-sorts and the width ladder").  The
+emissive-pdf probe is the dense pdf sweep up to ``EMISSIVE_MAX_TRIS``
+emissive triangles and the walk of the emissive-only BVH above.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ from ..ops.bsdf import HitInfo, HitMaterial, material_bsdf, material_pdf, sample
 from ..ops.dense import EMISSIVE_MAX_TRIS, dense_closest, dense_emissive_pdf, dense_shadow
 from ..ops.math3 import BIAS, EPS, INF, V3, v3_from_tangent, v3_gather, v3_onb, v3_to_tangent
 from ..ops.texture import sample_bilinear, sample_equirect
-from ..ops.traverse import bvh_closest, bvh_shadow
+from ..ops.traverse import bvh_closest, bvh_emissive_pdf, bvh_shadow
 
 _F32 = torch.float32
 
@@ -50,16 +51,6 @@ ALPHA_LOOP = {"calls": 0, "iterations": 0, "max": 0}
 def reset_alpha_loop() -> None:
     for k in ALPHA_LOOP:
         ALPHA_LOOP[k] = 0
-
-
-def check_supported(tables) -> None:
-    """Raise for scene features whose code path is not ported yet."""
-    if tables.num_emissive_tris > EMISSIVE_MAX_TRIS:
-        raise NotImplementedError(
-            f"{tables.num_emissive_tris} emissive triangles exceed "
-            f"{EMISSIVE_MAX_TRIS}; the emissive-BVH pdf probe is not ported yet "
-            "(ROADMAP.md Queue 1 #11)"
-        )
 
 
 # ---------------------------------------------------------------------------
@@ -170,6 +161,8 @@ def _shadow_unsorted(tables, o: V3, d: V3, *, t_max, active, seed):
 def _emissive_pdf(tables, o: V3, d: V3, *, t_min, active):
     if tables.num_emissive_tris == 0:
         return torch.zeros(o.x.shape[0], dtype=_F32, device=o.x.device)
+    if tables.num_emissive_tris > EMISSIVE_MAX_TRIS:
+        return bvh_emissive_pdf(tables, o, d, t_min=t_min, active=active)
     return dense_emissive_pdf(tables, o, d, t_min=t_min, active=active)
 
 
@@ -551,7 +544,6 @@ def render_sample(tables, view_inv, proj_inv, width, height, sample_count, max_d
     """
     if nee_weighting not in ("reference", "physical"):
         raise ValueError(f"nee_weighting must be 'reference' or 'physical', not {nee_weighting!r}")
-    check_supported(tables)
     dev = tables.device
     origin, direction, seed = generate_primary_rays(
         view_inv, proj_inv, width, height, sample_count, lane_idx, device=dev

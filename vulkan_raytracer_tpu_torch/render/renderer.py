@@ -1,15 +1,28 @@
 """Headless renderer: sample waves, accumulation and the tonemapped image.
 
-Port of :mod:`vulkan_raytracer_tpu.render.renderer` (renderer.py:34-251) for
-frames of at most ``MAX_LANES_PER_PASS`` pixels: :func:`render_image` sums
-``spp`` samples in waves of up to ``MAX_LANES_PER_PASS`` lanes (lane =
-(pixel, sample)) in the JAX package's order — samples are grouped
-``s_batch`` to a wave and the waves summed in sample order — into one
-accumulation buffer updated in place.  Lanes run in the 32x32-block pixel
+Port of :mod:`vulkan_raytracer_tpu.render.renderer` (renderer.py:34-251).
+:func:`render_image` sums ``spp`` samples in waves of up to
+``MAX_LANES_PER_PASS`` lanes (lane = (pixel, sample)) into one accumulation
+buffer on the device, updated in place.  Lanes run in the 32x32-block pixel
 order of the JAX renderer and are scattered back to pixel order once.
 
-Not ported yet: the banded renderer for larger frames and the progressive
-:class:`Renderer` (ROADMAP.md Queue 1 #10 and #13).
+* A frame of at most ``MAX_LANES_PER_PASS`` pixels renders whole
+  (:func:`_render_batch`): samples are grouped ``s_batch`` to a wave and the
+  waves summed in sample order, as in the JAX package.
+* A larger frame renders in bands (:func:`_render_batch_banded`, the JAX
+  ``_render_batch_banded`` :137): consecutive slices of the block order,
+  each traced ``SPP_CHUNK`` samples to a wave, with the JAX band arithmetic
+  (:func:`band_plan`), a ragged last band and no padded lanes, so the rays
+  traced are the JAX renderer's.  The JAX renderer fetches every (band,
+  chunk) to the host and reads its chunk size from ``VKRT_SPP_CHUNK``, both
+  for a TPU worker fault (:115-117); here the sum stays on the device and
+  the chunk is the constant 8.
+
+Not ported: the JAX rule that prefers bands *below* the cap for BVH scenes
+(``_banded_preferred`` :186-196).  It packs the sort bins of the TPU's
+packet walks, which the port does not have; ROADMAP.md Queue 1 keeps it
+behind an H100 A/B ("the re-sorts and the width ladder").  The progressive
+:class:`Renderer` is ROADMAP.md Queue 1's "progressive renderer and viewer".
 """
 
 from __future__ import annotations
@@ -26,6 +39,12 @@ from .integrator import render_sample
 #: Max lanes (pixel samples) per wave; cfg1 (512x512, 64 spp) runs 32 waves
 #: of 2 samples x 262,144 pixels.
 MAX_LANES_PER_PASS = 1 << 19
+#: Samples per wave of the banded renderer (``default_spp_chunk``, :126).
+SPP_CHUNK = 8
+
+#: The last :func:`render_image` call: its ``waves`` and, for a banded
+#: render, its ``bands`` (0 for a frame rendered whole).
+LAST_RENDER = {"bands": 0, "waves": 0}
 
 
 @functools.lru_cache(maxsize=8)
@@ -73,10 +92,7 @@ def _render_batch(tables, view_inv, proj_inv, width, height, max_depth, spp, sta
     returns ((W*H, 3) pixel-ordered sum, rays traced)."""
     n = width * height
     if n > MAX_LANES_PER_PASS:
-        raise NotImplementedError(
-            f"{width}x{height} exceeds {MAX_LANES_PER_PASS} pixels; the banded renderer "
-            "is not ported to the torch package yet (ROADMAP.md Queue 1 #10)"
-        )
+        raise ValueError("use render_image (banded) above MAX_LANES_PER_PASS")
     dev = tables.device
     s_batch = samples_per_wave(width, height, spp)
     lanes = torch.as_tensor(block_order(width, height)[0], device=dev)
@@ -88,9 +104,46 @@ def _render_batch(tables, view_inv, proj_inv, width, height, max_depth, spp, sta
                                    samples, lanes, nee_weighting)
         acc.add_(radiance)
         rays += r
+    LAST_RENDER.update(bands=0, waves=spp // s_batch)
     out = torch.zeros_like(acc)
     out[lanes.long()] = acc
     return out, rays
+
+
+def band_plan(width: int, height: int, spp: int):
+    """The JAX band arithmetic (renderer.py:145-154): (samples per wave,
+    pixels per band, bands).  Each wave traces one band's pixels x
+    ``spp_chunk`` samples, at most ``MAX_LANES_PER_PASS`` lanes; the last
+    band may be shorter."""
+    n = width * height
+    spp_chunk = min(spp, SPP_CHUNK)
+    n_bands = -(-n * spp_chunk // MAX_LANES_PER_PASS)
+    per = -(-n // n_bands)
+    return spp_chunk, per, -(-n // per)
+
+
+def _render_batch_banded(tables, view_inv, proj_inv, width, height, max_depth, spp,
+                         start_sample, nee_weighting="reference"):
+    """:func:`_render_batch` for any frame size, band by band."""
+    dev = tables.device
+    spp_chunk, per, n_bands = band_plan(width, height, spp)
+    order, inverse = block_order(width, height)
+    order = torch.as_tensor(order, device=dev)
+    acc = torch.zeros((width * height, 3), dtype=torch.float32, device=dev)  # in block order
+    rays = torch.zeros((), dtype=torch.int64, device=dev)
+    waves = 0
+    for b in range(n_bands):
+        lanes = order[b * per:(b + 1) * per]
+        band = acc[b * per:(b + 1) * per]
+        for done in range(0, spp, spp_chunk):
+            samples = [start_sample + done + k for k in range(min(spp_chunk, spp - done))]
+            radiance, r = _render_wave(tables, view_inv, proj_inv, width, height, max_depth,
+                                       samples, lanes, nee_weighting)
+            band.add_(radiance)
+            rays += r
+            waves += 1
+    LAST_RENDER.update(bands=n_bands, waves=waves)
+    return acc[torch.as_tensor(inverse, device=dev).long()], rays
 
 
 def camera_uniforms(camera: Camera):
@@ -124,13 +177,15 @@ def render_image(
     as_uint8: bool = False,
 ):
     """Headless render on the tables' device: returns ((H, W, 3) numpy
-    array, total rays).  ``start_sample`` defaults to 1 (sample 0 is the
+    array, total rays).  Frames above ``MAX_LANES_PER_PASS`` pixels render in
+    bands.  ``start_sample`` defaults to 1 (sample 0 is the
     preview frame and is excluded from accumulation, raygen.rgen:95-96)."""
     camera.aspect = width / height
     view_inv, proj_inv = camera_uniforms(camera)
+    batch = _render_batch_banded if width * height > MAX_LANES_PER_PASS else _render_batch
     with torch.inference_mode():
-        acc, rays = _render_batch(tables, view_inv, proj_inv, width, height, max_depth, spp,
-                                  start_sample, nee_weighting=nee_weighting)
+        acc, rays = batch(tables, view_inv, proj_inv, width, height, max_depth, spp,
+                          start_sample, nee_weighting=nee_weighting)
         img = _postprocess(acc, spp, tonemap, as_uint8)
         img = img.cpu().numpy().reshape(height, width, 3)
         total_rays = int(rays)

@@ -9,7 +9,7 @@ matrices follow GLM's right-handed, -1..1-depth conventions, in float64 and
 then rounded to float32, as the JAX package's do.
 
 Not ported yet: the fly-camera input handling of the interactive viewer
-(ROADMAP.md Queue 1 #13).
+(ROADMAP.md Queue 1, "the progressive renderer and viewer").
 """
 
 from __future__ import annotations

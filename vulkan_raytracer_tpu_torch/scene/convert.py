@@ -6,7 +6,8 @@
 example ``jax.tree_util.tree_map(np.asarray, tables)``).  It reads attributes
 only and imports no jax, so the same scene data can feed both packages.
 The JAX ``ThreadedBVH`` is carried over bit for bit, and the port builds its
-own BVH streams from it (``ops/traverse.py``) under the port's upload rule.
+own BVH streams from it (``ops/traverse.py``) under the port's upload rule;
+the emissive-only ``ebvh`` always comes along.
 """
 
 from __future__ import annotations
@@ -78,9 +79,10 @@ def tables_from_numpy(src, device="cuda", traversal: str = "auto",
         fields["pbvh"] = build_streams(bvh, max_tris=max_tris).to(device)
     elif traversal != "auto":
         raise ValueError(f"traversal must be 'auto' or 'bvh', not {traversal!r}")
+    fields["ebvh"] = _bvh_from_numpy(src.ebvh).to(device)
     for f in dataclasses.fields(SceneTables):
         name = f.name
-        if name in ("bvh", "pbvh"):
+        if name in ("bvh", "pbvh", "ebvh"):
             continue
         val = getattr(src, name)
         if name in _STATIC:

@@ -12,8 +12,10 @@ emissive CDF and the pdf-probe tables in DFS order.
 Scenes above ``DENSE_MAX_TRIS`` triangles (or any scene uploaded with
 ``traversal="bvh"``) also get their threaded BVH (``accel/bvh.py``) and its
 per-octant streams (``ops/traverse.py``), which the integrator walks with the
-BVH kernels; smaller scenes take the dense sweeps.  Not ported yet: the grid
-(the do-not-port list), the emissive BVH, instancing and refit.
+BVH kernels; smaller scenes take the dense sweeps.  Every scene also gets
+the BVH over its emissive triangles (``ebvh``, leaf size 4), which the pdf
+probe walks when there are more than ``EMISSIVE_MAX_TRIS`` of them.  Not
+ported: the grid (the do-not-port list), instancing and refit.
 
 :class:`SceneTables` keeps the JAX field names, so the NumPy oracle
 (``vulkan_raytracer_tpu.render.oracle``), which duck-types its input, reads
@@ -190,9 +192,10 @@ class EmissivePDFTables:
 @dataclass(frozen=True)
 class SceneTables:
     """Everything the integrator needs, flat on one device (the JAX
-    SceneTables' fields, scenegraph.py:166-247, without the grid, the
-    emissive BVH and instancing).  ``bvh`` and ``pbvh`` (the BVH streams)
-    are None for a scene on the dense path."""
+    SceneTables' fields, scenegraph.py:166-247, without the grid and
+    instancing).  ``bvh`` and ``pbvh`` (the BVH streams) are None for a
+    scene on the dense path; ``ebvh`` is the BVH over the emissive triangles
+    (its ``tri_id`` indexes ``em_tables``)."""
 
     v0: V3
     v1: V3
@@ -234,6 +237,7 @@ class SceneTables:
     has_textures: bool
     bvh: ThreadedBVH | None = None
     pbvh: traverse.BVHStreams | None = None
+    ebvh: ThreadedBVH | None = None
 
     @property
     def num_triangles(self) -> int:
@@ -258,6 +262,12 @@ class SceneTables:
     def em_table(self) -> torch.Tensor:
         """(20, Te) float32 table of the emissive triangles (dense.pdf_table)."""
         return dense.pdf_table(self)
+
+    @functools.cached_property
+    def em_stream(self) -> traverse.EmissiveStream:
+        """``ebvh`` and ``em_tables`` packed for the emissive-pdf walk
+        (traverse.build_emissive_stream), on the tables' device."""
+        return traverse.build_emissive_stream(self.ebvh, self.em_tables).to(self.device)
 
 
 # ---------------------------------------------------------------------------
@@ -634,6 +644,7 @@ class Scene:
                 np.float32
             )
             en = tri_n[em_tri]
+            ebvh = build_bvh(ev0, ev1, ev2, leaf_size=4)
             em_tables = EmissivePDFTables(
                 p_delta=t(p_delta), area=t(em_area),
                 n0=t(en[:, 0]), n1=t(en[:, 1]), n2=t(en[:, 2]),
@@ -642,6 +653,7 @@ class Scene:
         else:  # placeholder single degenerate row; gated off by num_emissive_tris
             cdf = np.ones(1, np.float32)
             em_tri = np.zeros(1, np.int32)
+            ebvh = build_bvh(*(np.zeros((1, 3), np.float32),) * 3, leaf_size=4)
             em_tables = EmissivePDFTables(
                 p_delta=t(np.zeros(1, np.float32)), area=t(np.ones(1, np.float32)),
                 n0=t(np.ones((1, 3), np.float32)), n1=t(np.ones((1, 3), np.float32)),
@@ -706,6 +718,7 @@ class Scene:
             has_textures=bool(self.textures),
             bvh=bvh,
             pbvh=pbvh,
+            ebvh=ebvh.to(device),
         )
 
     def _build_bvh(self, v0, v1, v2, device):
