@@ -94,6 +94,34 @@ nonzero exit code:
    renderer, once: 32 bands of 64,800 pixels x 8 samples; seconds, Mrays/s
    and the peak device memory.
 
+17. instanced_parity — a gallery of 8 instances (5 of the cfg2 dragon's
+   262,144-triangle mesh, which walk their shared BLAS, a floor and two
+   emissive panels, which take the dense sweeps): ``instanced_closest`` /
+   ``instanced_shadow`` on ``cuda`` at 524,288 and 524,251 seeded rays with
+   dead lanes and per-lane bounds against the same calls on the CPU: ids and
+   flags bit-equal, t within rtol 1e-6; the launches of K1, K2 and K5'
+   counted.
+18. render_instanced — the full gallery: 64 dragon instances with seeded
+   rotations and scales, a floor and two emissive panels (16.8 M triangles
+   flattened, 262,148 stored); ``Scene.upload(instancing="auto")`` must pick
+   instancing by itself.  512x512, depth 4, 4 spp through ``render_image``,
+   once to warm up and once timed: seconds, Mrays/s, instance steps, steps
+   skipped, launches per kernel, peak device memory; it must launch K1, K2,
+   K3 and K5' (both variants).  Then the same scene at 32x32 on the card
+   against the CPU.
+19. instanced_vs_flattened — the dragon x 4 instances uploaded both ways on
+   the card, 128x128, 2 spp, depth 3: RMSE < 2e-3.
+20. refit — one node of the cfg2 dragon scene and one instance of the
+   gallery move; ``Scene.refit`` against a fresh ``upload`` on the card: the
+   same image (atol 1e-5 flattened, RMSE < 2e-3 instanced) and the seconds
+   of each (a refit more than twice as slow as the rebuild fails).
+21. progressive — the progressive ``Renderer`` on Cornell 512x512, depth 4:
+   the preview frame and 16 samples, whose mean must equal
+   ``render_image(spp=16)`` within atol 1e-5; ms per frame; ``pipeline=True``
+   gives the same images one call late; then ``cli.run`` with
+   ``--progressive`` and a ``--checkpoint`` / ``--resume`` pair (8 + 8 spp
+   equal 16 spp).
+
 Then it prints the kernel summary (one JSON object: each kernel's launches
 over the paths driven with reset counters, in all and by phase; its time,
 its plain version's and its bound at the shape named, with what bounds it;
@@ -126,6 +154,7 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+_START = time.perf_counter()
 RMSE_BAR = 2e-3
 EPS = 1e-7
 INF = 1e32
@@ -187,6 +216,10 @@ GLTF_BVH = ["-r", "512,512", "-b", "4", "--spp", "4", *_cam_flags(BIGASSET_CAM)]
 
 
 def emit(obj) -> None:
+    """Print one JSON line; a phase's line also says how many seconds after
+    the script's start it was printed."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": round(time.perf_counter() - _START, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -236,6 +269,114 @@ def emitter_soup_scene(n_tris: int, n_emissive: int, seed: int, spread: float = 
         s.add_raw_mesh(pos, np.repeat(nrm, 3, axis=0).astype(np.float32),
                        np.arange(3 * n, dtype=np.uint32), material)
     return s
+
+
+#: spacing of the gallery's dragons on their grid
+GALLERY_PITCH = 3.0
+
+
+def gallery_scene(detail: int = 256, n_dragons: int = 64, seed: int = 5):
+    """A gallery whose nodes share meshes: ``n_dragons`` instances of the
+    cfg2 dragon's mesh (262,144 triangles at ``detail`` 256) on a square grid
+    with seeded rotations and scales, a floor, and two instances of one
+    emissive panel above.  Flattened it would hold ``n_dragons`` copies of
+    the mesh; instanced it stores the mesh once.  Above 65,536 triangles
+    (``detail`` >= 130) the dragon is a BLAS group; the floor and the panels
+    are dense groups."""
+    from vulkan_raytracer_tpu_torch.scene.procedural import dragon_scene
+    from vulkan_raytracer_tpu_torch.scene.scenegraph import Material, Primitive, Scene
+
+    source = dragon_scene(detail)
+    dragon = source.mesh_pool[0][0]
+    grey = Material()
+    grey.metallic_factor = 0.0
+    grey.roughness_factor = 0.85
+    light = Material()
+    light.metallic_factor = 0.0
+    light.emissive_factor = np.array([12.0, 11.0, 10.0], np.float32)
+
+    def quad(material: int, up: bool) -> Primitive:
+        pos = np.array([[-0.5, 0, -0.5], [0.5, 0, -0.5], [0.5, 0, 0.5], [-0.5, 0, 0.5]],
+                       np.float32)
+        idx = np.array([0, 2, 1, 0, 3, 2], np.uint32)  # faces -y; reversed faces +y
+        return Primitive(
+            positions=pos, normals=np.tile(np.float32([0, 1 if up else -1, 0]), (4, 1)),
+            tangents=np.zeros((4, 4), np.float32), uvs=np.zeros((4, 2), np.float32),
+            indices=idx[::-1].copy() if up else idx, material=material)
+
+    s = Scene()
+    s.materials += [source.materials[dragon.material], grey, light]
+    s.mesh_pool.append([Primitive(dragon.positions, dragon.normals, dragon.tangents,
+                                  dragon.uvs, dragon.indices, material=0)])
+    s.mesh_pool.append([quad(1, up=True)])
+    s.mesh_pool.append([quad(2, up=False)])
+
+    def trs(t, ry=0.0, scale=(1.0, 1.0, 1.0)):
+        c, sn = np.cos(ry), np.sin(ry)
+        m = np.eye(4, dtype=np.float32)
+        m[:3, :3] = (np.array([[c, 0, sn], [0, 1, 0], [-sn, 0, c]], np.float32)
+                     @ np.diag(np.asarray(scale, np.float32)))
+        m[:3, 3] = t
+        return m
+
+    r = np.random.default_rng(seed)
+    side = int(np.ceil(np.sqrt(n_dragons)))
+    extent = (side - 1) * GALLERY_PITCH
+    for i in range(n_dragons):
+        sc = float(r.uniform(0.7, 1.1))
+        x = (i % side - (side - 1) / 2) * GALLERY_PITCH
+        s.add_node(s.root, trs((x, 1.45 * 0.85 * sc, -(i // side) * GALLERY_PITCH),
+                               ry=float(r.uniform(0.0, 2.0 * np.pi)),
+                               scale=(sc, 0.85 * sc, sc)), mesh=0)
+    s.add_node(s.root, trs((0.0, 0.0, -extent / 2), scale=(extent + 12.0, 1.0, extent + 12.0)),
+               mesh=1)
+    for k, ry in enumerate((0.0, 0.5)):
+        s.add_node(s.root, trs((0.0, 6.0 + 0.1 * extent, -extent * (0.25 + 0.5 * k)), ry=ry,
+                               scale=(0.5 * extent + 3.0, 1.0, 0.2 * extent + 1.5)), mesh=2)
+    return s
+
+
+def gallery_camera(n_dragons: int = 64):
+    """(position, direction) of a camera overlooking :func:`gallery_scene`."""
+    extent = (int(np.ceil(np.sqrt(n_dragons))) - 1) * GALLERY_PITCH
+    return [0.0, 0.4 * extent + 4.0, 0.35 * extent + 6.0], [0.0, -0.55, -1.0]
+
+
+def gallery_rays(n: int, n_dragons: int, seed: int, device):
+    """Seeded rays for a gallery: the first half from a shell around it,
+    aimed at points inside it, the rest leaving points just above the floor
+    into the upper half space; per-lane bounds and 20% dead lanes as in
+    :func:`_bounds`, most closest-hit bounds unbounded."""
+    import torch
+
+    from vulkan_raytracer_tpu_torch.ops.math3 import V3
+
+    r = np.random.default_rng(seed)
+    extent = (int(np.ceil(np.sqrt(n_dragons))) - 1) * GALLERY_PITCH
+    centre = np.array([0.0, 1.0, -extent / 2])
+    half = extent / 2 + 2.0
+    n_shell = n // 2
+    ang = r.uniform(0, 2 * np.pi, n_shell)
+    o_s = centre + np.stack([(half + 4.0) * np.cos(ang), r.uniform(0.2, 7.0, n_shell),
+                             (half + 4.0) * np.sin(ang)], 1)
+    d_s = centre + r.uniform(-1.0, 1.0, (n_shell, 3)) * [half, 1.2, half] - o_s
+    n_up = n - n_shell
+    o_u = centre + r.uniform(-1.0, 1.0, (n_up, 3)) * [half, 0.0, half] + [0.0, -0.95, 0.0]
+    d_u = r.normal(size=(n_up, 3))
+    d_u[:, 1] = np.abs(d_u[:, 1])
+    o = np.concatenate([o_s, o_u]).astype(np.float32)
+    d = np.concatenate([d_s, d_u])
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+
+    def col(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=device)
+
+    bounds = _bounds(r, n, device)
+    unbounded = torch.as_tensor(r.random(n) < 0.6, device=device)
+    bounds["t_max"] = torch.where(unbounded, INF, bounds["t_max"] * 10.0).contiguous()
+    bounds["t_shadow"] = bounds["t_shadow"] * 5.0
+    return dict(o=V3(*(col(o[:, k]) for k in range(3))),
+                d=V3(*(col(d[:, k]) for k in range(3))), **bounds)
 
 
 def _bounds(r, n, device):
@@ -1106,6 +1247,310 @@ def render_cfg5(device, paths) -> None:
           "peak_memory_bytes": peak, "launches": launches, "image_mean": float(img.mean())})
 
 
+def _rmse(a, b) -> float:
+    return float(np.sqrt(np.mean((np.asarray(a) - np.asarray(b)) ** 2)))
+
+
+def _render(tables, cam_args, width, height, spp, depth):
+    """``render_image`` (linear mean) with a camera of (position,
+    direction); returns (image, rays, seconds)."""
+    from vulkan_raytracer_tpu_torch.render.renderer import render_image
+    from vulkan_raytracer_tpu_torch.scene.camera import Camera
+
+    cam = Camera(position=np.array(cam_args[0]), direction=np.array(cam_args[1]))
+    t0 = time.perf_counter()
+    img, rays = render_image(tables, cam, width, height, spp=spp, max_depth=depth,
+                             tonemap=False)
+    return img, rays, time.perf_counter() - t0
+
+
+def _walk_name(group) -> str:
+    return "treelet" if group.pblas.n_treelets > 1 else "bvh"
+
+
+def instanced_parity(device, ray_counts, detail: int = 256) -> None:
+    """The two-level traversal on the card (the kernels) against the same
+    calls on the CPU (their plain versions), over a gallery of 5 dragon
+    instances (one BLAS group), a floor and two panels (dense groups)."""
+    import torch
+
+    from vulkan_raytracer_tpu_torch.ops import instanced
+    from vulkan_raytracer_tpu_torch.ops.math3 import V3
+
+    n_dragons = 5
+    tables = gallery_scene(detail, n_dragons).upload(device, instancing=True)
+    groups = tables.inst.groups
+    if not (tables.inst.num_instances == 8 and groups[0].tri_cnt == 4 * detail * detail
+            and groups[0].pblas is not None and groups[0].pblas.n_treelets > 1
+            and all(g.pblas is None and g.table is not None for g in groups[1:])):
+        raise AssertionError("the parity gallery is not one BLAS group and two dense groups")
+    cpu = tables.to("cpu")
+    for i, n in enumerate(ray_counts):
+        rays = gallery_rays(n, n_dragons, seed=80 + i, device=device)
+        on_cpu = {k: V3(*(c.cpu() for c in v)) if isinstance(v, V3) else v.cpu()
+                  for k, v in rays.items()}
+
+        def trace(tb, r):
+            c = instanced.instanced_closest(tb, r["o"], r["d"], t_min=r["t_min"],
+                                            t_max=r["t_max"], active=r["active"])
+            sh = instanced.instanced_shadow(tb, r["o"], r["d"], t_max=r["t_shadow"],
+                                            active=r["active"])
+            return c, sh
+
+        t0 = time.perf_counter()
+        (t_w, enc_w, u_w, v_w), occ_w = trace(cpu, on_cpu)
+        cpu_s = time.perf_counter() - t0
+        _reset_launches()
+        ((t_k, enc_k, u_k, v_k), occ_k), secs = _timed_sync(lambda: trace(tables, rays))
+        launches, steps = _launch_counts(), dict(instanced.STATS)
+        where = f"instanced parity, {n} rays"
+        t_k, enc_k, u_k, v_k, occ_k = (x.cpu() for x in (t_k, enc_k, u_k, v_k, occ_k))
+        if not (torch.equal(enc_k, enc_w) and torch.equal(occ_k, occ_w)):
+            raise AssertionError(
+                f"{where}: {int((enc_k != enc_w).sum())} ids and "
+                f"{int((occ_k != occ_w).sum())} occlusion flags differ from the CPU's")
+        hit = enc_w >= 0
+        torch.testing.assert_close(t_k[hit], t_w[hit], rtol=1e-6, atol=0.0)
+        torch.testing.assert_close(u_k, u_w, rtol=0.0, atol=1e-5)
+        torch.testing.assert_close(v_k, v_w, rtol=0.0, atol=1e-5)
+        if not bool(torch.isinf(t_k[~hit]).all()):
+            raise AssertionError(f"{where}: a miss lane's t is not inf")
+        walk = _walk_name(groups[0])
+        used = {"K1": launches["dense"]["closest"], "K2": launches["dense"]["shadow"],
+                "walk_closest": launches["traverse"][f"{walk}_closest"],
+                "walk_shadow": launches["traverse"][f"{walk}_shadow"]}
+        if not all(used.values()):
+            raise AssertionError(f"{where}: a kernel was not launched: {launches}")
+        emit({"phase": "instanced_parity", "rays": n, "instances": 8,
+              "prototype_triangles": tables.num_triangles,
+              "treelets": groups[0].pblas.n_treelets, "active": int(rays["active"].sum()),
+              "hits": int(hit.sum()), "occluded": int(occ_w.sum()),
+              "instances_hit": int(torch.unique(tables.inst.decode(enc_w[hit])[1]).numel()),
+              "ids_and_flags_bit_equal": True, "cpu_seconds": cpu_s, "seconds": secs,
+              "steps": steps["steps"], "skipped": steps["skipped"], "launches": used,
+              "t_max_abs_err": _max_abs(t_k[hit], t_w[hit]),
+              "t_bit_equal": bool(torch.equal(t_k[hit], t_w[hit]))})
+
+
+def render_instanced(device, paths, detail: int = 256, n_dragons: int = 64, size: int = 512):
+    """The full-width instanced path: the 64-dragon gallery through
+    ``Scene.upload(instancing="auto")`` and ``render_image`` at 512x512,
+    depth 4, 4 spp, once to warm up and once timed; then 32x32 on the card
+    against the CPU.  Returns (scene, tables) for the refit phase."""
+    import torch
+
+    from vulkan_raytracer_tpu_torch.ops import instanced
+
+    scene = gallery_scene(detail, n_dragons)
+    cam = gallery_camera(n_dragons)
+    dragon_tris = 4 * detail * detail
+    if not scene._should_instance("auto"):
+        raise AssertionError("'auto' would flatten the gallery")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    tables = scene.upload(device)  # instancing="auto"
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    table_bytes = torch.cuda.memory_allocated() - before
+    inst = tables.inst
+    flattened = sum(g.tri_cnt * g.inv.shape[0] for g in inst.groups) if inst else 0
+    if not (inst is not None and tables.bvh is None and tables.pbvh is None
+            and tables.num_triangles == dragon_tris + 2 + 2
+            and inst.num_instances == n_dragons + 3
+            and flattened == n_dragons * dragon_tris + 2 + 4
+            and inst.groups[0].pblas.n_treelets > 1
+            and 0 < tables.num_emissive_tris <= 1024):
+        raise AssertionError("the gallery was not uploaded instanced as expected")
+    walk = _walk_name(inst.groups[0])
+    images = []
+    for _ in range(2):  # the first warms up
+        _reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        img, rays, secs = _render(tables, cam, size, size, spp=4, depth=4)
+        images.append(img)
+    launches, steps = _launch_counts(), dict(instanced.STATS)
+    peak = torch.cuda.max_memory_allocated()
+    if not (all(launches["dense"][c] > 0 for c in ("closest", "shadow", "pdf"))
+            and launches["traverse"][f"{walk}_closest"] > 0
+            and launches["traverse"][f"{walk}_shadow"] > 0):
+        raise AssertionError(f"the gallery render missed a kernel: launches {launches}")
+    if not np.isfinite(img).all() or img.shape != (size, size, 3) or not img.mean() > 1e-3:
+        raise AssertionError(f"gallery image not finite, misshapen or black: "
+                             f"{img.shape} mean {img.mean()}")
+    if not np.array_equal(*images):
+        raise AssertionError("two renders of the gallery differ")
+    paths.add("render_instanced", launches)
+    waves = 2  # 4 spp of 262,144 pixels in waves of 524,288 lanes
+    emit({"phase": "render_instanced",
+          "config": f"gallery: {n_dragons} dragon instances + floor + 2 emissive panels, "
+                    f"{size}x{size} depth 4 4 spp",
+          "instancing": "auto", "instances": inst.num_instances,
+          "prototype_triangles": tables.num_triangles, "flattened_triangles": flattened,
+          "emissive_triangles": tables.num_emissive_tris,
+          "treelets": inst.groups[0].pblas.n_treelets,
+          "upload_seconds": upload_s, "upload": scene.upload_stats,
+          "table_and_stream_bytes": table_bytes, "peak_memory_bytes": peak,
+          "seconds": secs, "rays": rays, "mrays_per_s": rays / secs / 1e6, "waves": waves,
+          "closest_calls": steps["closest_calls"], "shadow_calls": steps["shadow_calls"],
+          "steps": steps["steps"], "skipped": steps["skipped"], "launches": launches,
+          "image_mean": float(img.mean())})
+    _reset_launches()
+    t0 = time.perf_counter()
+    res = _cuda_vs_cpu(tables, cam, "gallery")
+    emit({"phase": "render_instanced_parity", "config": "gallery 32x32 2 spp depth 3",
+          "seconds": time.perf_counter() - t0, "launches": _launch_counts(), **res})
+    return scene, tables
+
+
+def instanced_vs_flattened(device, detail: int = 256) -> None:
+    """The dragon x 4 instances uploaded both ways on the card."""
+    import torch
+
+    scene = gallery_scene(detail, n_dragons=4)
+    cam = gallery_camera(4)
+    out = {}
+    for name, instancing in (("instanced", True), ("flattened", False)):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        tables = scene.upload(device, instancing=instancing)
+        torch.cuda.synchronize()
+        upload_s = time.perf_counter() - t0
+        nbytes = torch.cuda.memory_allocated() - before
+        _reset_launches()
+        img, rays, secs = _render(tables, cam, 128, 128, spp=2, depth=3)
+        out[name] = {"triangles": tables.num_triangles, "upload_seconds": upload_s,
+                     "table_and_stream_bytes": nbytes, "seconds": secs, "rays": rays,
+                     "launches": _launch_counts()}
+        out[name + "_image"] = img
+        del tables
+    a, b = out.pop("instanced_image"), out.pop("flattened_image")
+    rmse = _rmse(a, b)
+    emit({"phase": "instanced_vs_flattened",
+          "config": "gallery of 4 dragons 128x128 2 spp depth 3", "rmse": rmse, "bar": RMSE_BAR,
+          "image_mean": float(b.mean()), **out})
+    if not (np.isfinite(a).all() and b.mean() > 1e-3 and rmse < RMSE_BAR):
+        raise AssertionError(f"instanced vs flattened RMSE {rmse} (bar {RMSE_BAR})")
+
+
+def _timed_sync(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def refit_phase(device, paths, dragon, dragon_tables, gallery, gallery_tables) -> None:
+    """``Scene.refit`` against a fresh ``upload`` after a node moved: the
+    cfg2 dragon scene (flattened, on the BVH walks) and the gallery
+    (instanced), each given as the scene and its tables on the card."""
+
+    def move(scene, node, transform):
+        node.local_transform = (transform @ node.local_transform).astype(np.float32)
+        for n in scene.iter_depth_first():
+            if n.parent is not None:
+                n.world_transform = (n.parent.world_transform @ n.local_transform).astype(
+                    np.float32)
+
+    shift = np.eye(4, dtype=np.float32)
+    shift[:3, 3] = [0.6, 0.35, -0.4]
+    out = {}
+    _reset_launches()
+    for name, scene, tables, node, cam, kw in (
+            ("cfg2_dragon", dragon, dragon_tables, 0, CFG2_CAM, {}),
+            ("gallery", gallery, gallery_tables, gallery_tables.inst.num_instances // 3,
+             gallery_camera(gallery_tables.inst.num_instances - 3), {"instancing": True})):
+        before, _, _ = _render(tables, cam, 128, 128, spp=2, depth=3)
+        move(scene, scene.root.children[node], shift)
+        refit, refit_s = _timed_sync(lambda: scene.refit(tables))
+        fresh, upload_s = _timed_sync(lambda: scene.upload(device, **kw))
+        img_r, rays_r, _ = _render(refit, cam, 128, 128, spp=2, depth=3)
+        img_f, rays_f, _ = _render(fresh, cam, 128, 128, spp=2, depth=3)
+        err = float(np.abs(img_r - img_f).max())
+        rmse = _rmse(img_r, img_f)
+        moved = float(np.abs(img_r - before).max())
+        out[name] = {"triangles": tables.num_triangles, "refit_seconds": refit_s,
+                     "upload_seconds": upload_s, "max_abs_err": err, "rmse": rmse,
+                     "rays_refit": rays_r, "rays_fresh": rays_f, "moved_max_abs": moved}
+        ok = err <= 1e-5 if tables.inst is None else rmse < RMSE_BAR
+        if not (ok and np.isfinite(img_r).all() and moved > 1e-3):
+            raise AssertionError(f"refit of {name}: against a fresh upload max abs {err}, RMSE "
+                                 f"{rmse}; against the image before the move {moved}")
+        if refit_s > 2.0 * upload_s:
+            raise AssertionError(f"refit of {name} took {refit_s:.3f}s, the rebuild "
+                                 f"{upload_s:.3f}s")
+    launches = _launch_counts()
+    paths.add("refit", launches)
+    emit({"phase": "refit", "config": "one node moved; 128x128 2 spp depth 3", **out,
+          "launches": launches})
+
+
+def progressive_phase(device, paths, size: int = 512, spp: int = 16) -> None:
+    """The progressive Renderer on Cornell 512x512, depth 4, and the CLI's
+    --progressive, --checkpoint and --resume on the card."""
+    from vulkan_raytracer_tpu_torch import cli
+    from vulkan_raytracer_tpu_torch.render.renderer import Renderer
+    from vulkan_raytracer_tpu_torch.scene.builtin import cornell_box_scene
+    from vulkan_raytracer_tpu_torch.scene.camera import Camera
+
+    def cam():
+        return Camera(position=np.array(CFG1_CAM[0]), direction=np.array(CFG1_CAM[1]))
+
+    w = h = size
+    depth = 4
+    tables = cornell_box_scene().upload(device)
+    r = Renderer(tables, cam(), w, h, depth)
+    _reset_launches()
+    frames, ms = [], []
+    for _ in range(spp + 1):  # the preview frame, then the samples
+        (img, secs) = _timed_sync(r.draw_frame)
+        frames.append(img)
+        ms.append(1e3 * secs)
+    launches = _launch_counts()
+    if not all(launches["dense"][c] > 0 for c in ("closest", "shadow", "pdf")):
+        raise AssertionError(f"the progressive frames missed a kernel: launches {launches}")
+    paths.add("progressive", launches)
+    mean = (r.accum / float(spp)).cpu().numpy().reshape(h, w, 3)
+    want, rays, _ = _render(tables, CFG1_CAM, w, h, spp=spp, depth=depth)
+    err = float(np.abs(mean - want).max())
+    if not (err <= 1e-5 and frames[-1].dtype == np.uint8 and frames[-1].shape == (h, w, 3)
+            and frames[0].max() > 0 and r.rays_traced > rays):
+        raise AssertionError(f"{spp} progressive frames differ from render_image by {err}")
+
+    piped = Renderer(tables, cam(), w, h, depth)
+    got = [piped.draw_frame(pipeline=True) for _ in range(spp + 2)]
+    if got[0] is not None or not all(np.array_equal(a, b) for a, b in zip(got[1:], frames)):
+        raise AssertionError("pipeline=True did not return each frame one call late")
+
+    base = ["-m", "cornell", "-r", f"{w},{h}", "-b", str(depth), *_cam_flags(CFG1_CAM),
+            "--device", str(device)]
+    with tempfile.TemporaryDirectory() as tmp:
+        png = ["--output", f"{tmp}/p.png"]
+        prog = cli.run([*base, "--spp", str(spp), "--progressive", *png])
+        cli.run([*base, "--spp", str(spp // 2), "--checkpoint", f"{tmp}/a.npz", *png])
+        part = cli.run([*base, "--spp", str(spp // 2), "--resume", f"{tmp}/a.npz", *png])
+    prog_err = float(np.abs(prog["image"] - mean).max())
+    # render_image's mean of spp samples, which the uninterrupted CLI render returns
+    resume_err = float(np.abs(part["image"] - want).max())
+    emit({"phase": "progressive", "config": f"cornell {w}x{h} depth {depth}: preview + {spp} frames",
+          "frame_ms_median": statistics.median(ms[1:]), "frame_ms_min": min(ms[1:]),
+          "frame_ms_max": max(ms[1:]), "preview_ms": ms[0], "rays": r.rays_traced,
+          "max_abs_err_vs_render_image": err, "pipeline_equal": True,
+          "cli_progressive": {"frames": prog["frames"], "seconds": prog["seconds"],
+                              "frame_ms_median": statistics.median(prog["frame_ms"][1:]),
+                              "max_abs_err_vs_renderer": prog_err},
+          "checkpoint_resume": {"spp": [spp // 2, spp // 2], "max_abs_err_vs_one_render": resume_err,
+                                "resume_seconds": part["seconds"]},
+          "launches": launches})
+    if not (prog["frames"] == spp + 1 and prog_err <= 1e-6 and resume_err <= 1e-6):
+        raise AssertionError(f"--progressive differs from the Renderer by {prog_err}, "
+                             f"8 + 8 spp resumed from 16 spp by {resume_err}")
+
+
 def bvh_vs_dense(device) -> None:
     """The BVH walks against the dense kernels over one 60,000-triangle soup."""
     import torch
@@ -1168,13 +1613,15 @@ def _launch_counts():
 
 
 def _reset_launches() -> None:
-    """Zero the kernels' launch counters and the alpha loop's counter."""
-    from vulkan_raytracer_tpu_torch.ops import dense
+    """Zero the kernels' launch counters, the instance-step counter and the
+    alpha loop's counter."""
+    from vulkan_raytracer_tpu_torch.ops import dense, instanced
     from vulkan_raytracer_tpu_torch.ops import traverse as tr
     from vulkan_raytracer_tpu_torch.render import integrator
 
     dense.reset_launches()
     tr.reset_launches()
+    instanced.reset_stats()
     integrator.reset_alpha_loop()
 
 
@@ -1497,7 +1944,8 @@ def main() -> int:
 
     from vulkan_raytracer_tpu_torch.scene import procedural
 
-    dragon = procedural.dragon_scene().upload(device)
+    dragon_scene = procedural.dragon_scene()
+    dragon = dragon_scene.upload(device)
     with tempfile.TemporaryDirectory() as tmp:
         glb = torch_glb_assets.write_bigasset_glb(Path(tmp), big=True)
         gallery = _load_glb(glb, triangles=147136, textures=5)[0].upload(device)
@@ -1560,6 +2008,16 @@ def main() -> int:
 
     # 16. bench cfg5 at its own frame: the banded renderer
     render_cfg5(device, paths)
+
+    # 17-21. instanced and dynamic scenes, and the progressive renderer
+    instanced_parity(device, (n_wave, n_wave - 37))
+    gallery, gallery_tables = render_instanced(device, paths)
+    instanced_vs_flattened(device)
+    refit_phase(device, paths, dragon_scene, dragon, gallery, gallery_tables)
+    del dragon_scene, dragon, gallery, gallery_tables
+    progressive_phase(device, paths)
+
+    import vulkan_raytracer_tpu_torch.viewer  # noqa: F401  (held to the same check)
 
     imported = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "vulkan_raytracer_tpu"))

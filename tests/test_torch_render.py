@@ -151,8 +151,8 @@ def test_unported_features_raise():
     textures (tests/test_torch_alpha.py), more than EMISSIVE_MAX_TRIS
     emissive triangles (the emissive-BVH probe, tests/test_torch_emissive.py)
     and frames above one wave (the banded renderer,
-    tests/test_torch_banded.py).  The CLI flags of the progressive renderer
-    still raise."""
+    tests/test_torch_banded.py); the progressive renderer's CLI flags run
+    (tests/test_torch_progressive.py).  Only ``--shard`` still raises."""
     from vulkan_raytracer_tpu_torch import cli
 
     s = cornell_box_scene()
@@ -172,8 +172,12 @@ def test_unported_features_raise():
     tt = cornell_box_scene().upload("cpu")
     img, rays = render_image(tt, _cam(), 1024, 513, spp=1, max_depth=0)
     assert img.shape == (513, 1024, 3) and np.isfinite(img).all() and rays == 1024 * 513
-    with pytest.raises(NotImplementedError, match="interactive"):
-        cli.main(["--interactive", "--device", "cpu"])
+    assert set(cli._NOT_PORTED) == {"shard"}
+    with pytest.raises(NotImplementedError, match="--shard.*sharding and multihost"):
+        cli.main(["--shard", "--device", "cpu"])
+    if not sys.stdin.isatty():  # the viewer is reached, and asks for a terminal
+        with pytest.raises(RuntimeError, match="needs a tty"):
+            cli.main(["--interactive", "-r", "8,8", "--device", "cpu"])
 
 
 def test_cli_refuses_missing_cuda():
@@ -183,8 +187,8 @@ def test_cli_refuses_missing_cuda():
         pytest.skip("this machine has a card; the check is for machines without one")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["-r", "4,4", "--spp", "1", "--device", "cuda"])
-    with pytest.raises(NotImplementedError, match="progressive"):
-        cli.main(["--progressive", "--device", "cpu"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["--progressive", "-r", "4,4", "--spp", "1"])
 
 
 def test_cli_renders_without_jax(tmp_path):

@@ -140,3 +140,38 @@ def test_mt_ops_stops_where_the_dense_test_stops():
     assert ops[0].tolist() == [cs.MT_DET_OPS, cs.MT_U_OPS, cs.MT_OPS, cs.MT_OPS] == [16, 28, 54, 54]
     assert inside[0].tolist() == [False, False, True, False]
     assert dense.mt([table[k, 0] for k in range(9)], rays)[0].tolist() == inside[0].tolist()
+
+
+def test_gallery_is_instanced_by_auto_and_has_both_kinds_of_group():
+    """The smoke's gallery: at full size ``upload(instancing="auto")`` keeps
+    instances (16.8 M flattened triangles, 64 copies of one mesh); a small
+    variant still has a BLAS group (the dragon, above DENSE_MAX_TRIS) and
+    dense groups (the floor, the panels), and its rays reach all of them."""
+    from vulkan_raytracer_tpu_torch.ops import dense
+
+    full = cs.gallery_scene()
+    assert full._should_instance("auto")
+    tris = [p.indices.shape[0] // 3 for _n, p in full._iter_instances()]
+    assert len(tris) == 67 and sum(tris) == 64 * 262144 + 2 + 4
+    assert len({id(p) for _n, p in full._iter_instances()}) == 3
+
+    small = cs.gallery_scene(detail=130, n_dragons=3)
+    assert not small._should_instance("auto")  # 202,806 triangles: flattening is fine
+    tables = small.upload("cpu", instancing=True)
+    groups = tables.inst.groups
+    assert groups[0].tri_cnt == 4 * 130 * 130 > dense.DENSE_MAX_TRIS
+    assert groups[0].pblas is not None and groups[0].pblas.n_treelets > 1
+    assert groups[0].table is None and groups[0].inv.shape[0] == 3
+    assert [g.tri_cnt for g in groups[1:]] == [2, 2]
+    assert all(g.pblas is None and g.table.shape == (9, 2) for g in groups[1:])
+    assert tables.num_emissive_tris == 4 and tables.inst.num_instances == 6
+    rays = cs.gallery_rays(512, 3, seed=1, device="cpu")
+    from vulkan_raytracer_tpu_torch.ops import instanced
+
+    _, enc, _, _ = instanced.instanced_closest(tables, rays["o"], rays["d"], t_min=rays["t_min"],
+                                               t_max=rays["t_max"], active=rays["active"])
+    pti, _ = tables.inst.decode(enc[enc >= 0])
+    assert (pti < groups[0].tri_cnt).any() and (pti >= groups[0].tri_cnt).any()
+    assert not (enc[~rays["active"]] >= 0).any()
+    pos, direction = cs.gallery_camera(3)
+    assert pos[1] > 0 and direction[2] < 0

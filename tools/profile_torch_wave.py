@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where one bench wave of the torch port spends its time on a card.
 
-    python3 tools/profile_torch_wave.py [--config cfg1|cfg2|gltf|textured] [--reps 3]
+    python3 tools/profile_torch_wave.py [--config cfg1|cfg2|gltf|textured|instanced] [--reps 3]
                                         [--out FILE.json]
 
 Run from the root of a checkout on a machine with an NVIDIA card.  It
@@ -13,7 +13,10 @@ for gltf, the 147,136-triangle textured .glb of tests/test_bigasset_glb.py,
 written by tools/torch_glb_assets.py, on the BVH walks with the alpha
 resample loop; of 8 for textured, the 12-triangle .glb of
 tests/test_textured_glb.py at 16 spp, on the dense kernels with the alpha
-loop), through ``renderer._render_wave``:
+loop; of 2 for instanced, ``chip_smoke.gallery_scene()``: 64 instances of the
+262,144-triangle dragon mesh, a floor and two emissive panels, uploaded
+instanced, on the two-level traversal of ``ops/instanced.py``), through
+``renderer._render_wave``:
 
 1. once to build the kernels and warm the allocator;
 2. ``--reps`` times unprofiled: the wall of each, CUDA-synchronised;
@@ -21,6 +24,11 @@ loop), through ``renderer._render_wave``:
    wall, and from its trace the device kernels (count, summed time, the
    span they cover), the aten ops the host issued, the hand-written
    kernels' launches and device time, and the alpha loop's iterations.
+
+For instanced it also reports the instance steps, the steps skipped by the
+box test, the live lanes of each ``instanced_closest`` call (one a bounce),
+and the same wave's wall with the box test's host synchronisation taken out
+(every instance launched), alternating with the walls of step 2.
 
 It prints one JSON object (and writes it to ``--out`` if given).  The device
 busy share is kernel time over wall, against the profiled wall (the same
@@ -56,6 +64,7 @@ CONFIGS = {
     "cfg2": ("dragon", [0.0, 2.2, 4.5], [0.0, -0.25, -1.0]),
     "gltf": ("bigasset.glb", [0.0, 1.7, 4.6], [0.0, -0.28, -1.0]),
     "textured": ("textured.glb", [0.0, 0.0, 2.8], [0.0, 0.0, -1.0]),
+    "instanced": ("gallery", None, None),  # the camera is chip_smoke.gallery_camera()
 }
 
 
@@ -65,6 +74,10 @@ def _scene(name: str):
 
     if name in BUILTIN_SCENES:
         return BUILTIN_SCENES[name]()
+    if name == "gallery":
+        import chip_smoke
+
+        return chip_smoke.gallery_scene()
     sys.path.insert(0, str(ROOT / "tools"))
     import torch_glb_assets
 
@@ -96,6 +109,45 @@ def _wave(tables, camera, width: int = WIDTH, height: int = HEIGHT):
         return radiance, int(rays)
 
     return run
+
+
+def _instanced_extras(run, reps: int) -> dict:
+    """The gallery wave's live lanes per ``instanced_closest`` call, and its
+    wall when every instance is launched (no host test of the box mask)
+    beside the wall as the package runs it, alternating."""
+    import torch
+
+    from vulkan_raytracer_tpu_torch.ops import instanced
+    from vulkan_raytracer_tpu_torch.render import integrator
+
+    closest, untouched = integrator.instanced_closest, instanced._untouched
+    live = []
+
+    def counting(tables, o, d, *, t_min, t_max, active):
+        live.append(int(active.sum()))
+        return closest(tables, o, d, t_min=t_min, t_max=t_max, active=active)
+
+    def always(touches):
+        instanced.STATS["steps"] += 1
+        return False
+
+    try:
+        integrator.instanced_closest = counting  # the name the integrator calls
+        _, want, _ = _timed(run)
+        integrator.instanced_closest = closest
+        walls = {"host_test": [], "launch_always": []}
+        for _ in range(reps):
+            for name, fn in (("host_test", untouched), ("launch_always", always)):
+                instanced._untouched = fn
+                secs, got, _ = _timed(run)
+                walls[name].append(secs)
+                if not torch.equal(got, want):
+                    raise AssertionError(f"the wave's radiance changed under {name}")
+    finally:
+        integrator.instanced_closest, instanced._untouched = closest, untouched
+    return {"live_lanes_per_closest_call": live, "wall_s": walls,
+            "wall_s_median": {k: statistics.median(v) for k, v in walls.items()},
+            "radiance_equal": True}
 
 
 def _timed(run):
@@ -155,12 +207,17 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_torch_wave.py: needs an NVIDIA card", file=sys.stderr)
         return 2
+    from vulkan_raytracer_tpu_torch.ops import instanced
     from vulkan_raytracer_tpu_torch.render import integrator
     from vulkan_raytracer_tpu_torch.scene.camera import Camera
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     scene, pos, direction = CONFIGS[args.config]
+    if scene == "gallery":
+        import chip_smoke
+
+        pos, direction = chip_smoke.gallery_camera()
     tables = _scene(scene).upload("cuda")
     camera = Camera(position=np.array(pos), direction=np.array(direction),
                     aspect=WIDTH / HEIGHT)
@@ -170,6 +227,7 @@ def main(argv=None) -> int:
 
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     integrator.reset_alpha_loop()
+    instanced.reset_stats()
     with torch.profiler.profile(activities=activities) as prof:
         prof_s, radiance, prof_rays = _timed(run)
     alpha_loop = dict(integrator.ALPHA_LOOP)
@@ -183,6 +241,9 @@ def main(argv=None) -> int:
         "warm_wall_s": warm_s, "wall_s": walls, "wall_s_median": median,
         "profiled_wall_s": prof_s, "alpha_loop": alpha_loop, **trace,
     }
+    if tables.inst is not None:
+        out["instanced"] = {"instances": tables.inst.num_instances, **instanced.STATS,
+                            **_instanced_extras(run, args.reps)}
     if trace["device_events"]:
         busy_ms = trace["kernel_ms_busy"]
         out["busy_share_profiled"] = busy_ms / (prof_s * 1e3)

@@ -13,8 +13,9 @@ AABB hit on node ``i`` goes to ``i + 1``, a miss (or a processed leaf) to
 walk.  Each leaf owns ``leaf_size`` contiguous triangle slots, padded with
 degenerate triangles whose ``tri_id`` is -1.
 
-``refit_bvh`` is not ported yet: it waits for instancing and refit
-(ROADMAP.md Queue 1, "instancing and refit").
+``refit_bvh`` (:151) keeps a tree's topology and slot order and recomputes
+its leaf rows and boxes after the vertices moved; it is bit-equal to the JAX
+package's too.
 """
 
 from __future__ import annotations
@@ -121,6 +122,60 @@ def build_bvh(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray, leaf_size: int = 1
         np.asarray(tri_slots, np.int32),
         v0, v1, v2, leaf_size,
     )
+
+
+def refit_bvh(bvh: ThreadedBVH, v0: np.ndarray, v1: np.ndarray, v2: np.ndarray) -> ThreadedBVH:
+    """Keep the topology, recompute the boxes and the leaf triangles: the
+    reference's AccelerationStructure::update() (accelerationstructure.cpp:
+    26-32; accel/bvh.py:151-214 of the JAX package).
+
+    Leaf boxes come from the new vertices through the existing slot order;
+    interior boxes are unioned in vectorised sweeps of ``box[i] =
+    union(box[i + 1], box[miss[i + 1]])`` until nothing changes (the children
+    of interior node ``i`` are ``i + 1`` and ``miss[i + 1]``).  The tree's
+    quality degrades as the geometry drifts; ``build_bvh`` rebuilds it.
+    Returns tensors on the device of ``bvh``."""
+    v0 = np.asarray(v0, np.float32)
+    v1 = np.asarray(v1, np.float32)
+    v2 = np.asarray(v2, np.float32)
+    slots = bvh.tri_id.cpu().numpy()
+    first = bvh.first_tri.cpu().numpy()
+    miss = bvh.miss.cpu().numpy()
+    k = bvh.leaf_size
+    n_nodes = bvh.num_nodes
+
+    safe = np.maximum(slots, 0)
+    pad = (slots < 0)[:, None]
+    tv0 = np.where(pad, 0.0, v0[safe]).astype(np.float32)
+    te1 = np.where(pad, 0.0, (v1 - v0)[safe]).astype(np.float32)
+    te2 = np.where(pad, 0.0, (v2 - v0)[safe]).astype(np.float32)
+
+    smin = np.where(pad, np.inf, np.minimum(np.minimum(v0, v1), v2)[safe])
+    smax = np.where(pad, -np.inf, np.maximum(np.maximum(v0, v1), v2)[safe])
+    leaf_min = smin.reshape(-1, k, 3).min(axis=1)
+    leaf_max = smax.reshape(-1, k, 3).max(axis=1)
+
+    is_leaf = first >= 0
+    nmin = np.full((n_nodes, 3), np.inf, np.float32)
+    nmax = np.full((n_nodes, 3), -np.inf, np.float32)
+    nmin[is_leaf] = leaf_min[first[is_leaf] // k]
+    nmax[is_leaf] = leaf_max[first[is_leaf] // k]
+    interior = np.nonzero(~is_leaf)[0]
+    left = interior + 1
+    right = miss[left]
+    for _ in range(64):  # >= the tree's depth; ends early once converged
+        new_min = np.minimum(nmin[left], nmin[right])
+        new_max = np.maximum(nmax[left], nmax[right])
+        if np.array_equal(new_min, nmin[interior]) and np.array_equal(new_max, nmax[interior]):
+            break
+        nmin[interior] = new_min
+        nmax[interior] = new_max
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=bvh.tri_id.device)
+
+    return dataclasses.replace(bvh, aabb_min=t(nmin), aabb_max=t(nmax), tri_v0=t(tv0),
+                               tri_e1=t(te1), tri_e2=t(te2))
 
 
 def treelet_cut(first_tri, miss, leaf_size: int, max_tris: int) -> np.ndarray:

@@ -16,10 +16,17 @@ the same ``Mrays/s`` line:
 
 Bench cfg2 (the dragon, 262,280 triangles, on the BVH kernels) is
 ``-m dragon -r 512,512 -b 4 --spp 4 -c 0,2.2,4.5 -d 0,-0.25,-1``.  The
-skybox may be a Radiance .hdr, PNG or JPEG file.  ``--progressive``,
-``--interactive``, ``--shard``, ``--trace``, ``--checkpoint`` and
-``--resume`` raise ``NotImplementedError`` naming the ROADMAP item that
-ports them.
+skybox may be a Radiance .hdr, PNG or JPEG file.
+
+``--progressive`` runs the frame loop of the progressive ``Renderer`` (the
+preview frame, then ``--spp`` samples) and writes the last display image;
+``--interactive`` opens the terminal viewer; ``--checkpoint NPZ`` writes the
+linear accumulation after the render and ``--resume NPZ`` continues on top
+of one (same scene, camera, resolution, depth and estimator, held by a
+fingerprint; the files are the JAX CLI's, so either package resumes the
+other's); ``--trace DIR`` writes a ``torch.profiler`` chrome trace of the
+render to ``DIR/trace.json``.  ``--shard`` raises ``NotImplementedError``
+naming the ROADMAP item that ports it.
 
 ``--device cuda`` without a card is an error: the CLI never falls back to
 the CPU.
@@ -28,6 +35,7 @@ the CPU.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import os
 import sys
 import time
@@ -37,7 +45,7 @@ import numpy as np
 import torch
 
 from .ops.tonemap import reinhard_jodie
-from .render.renderer import render_image
+from .render.renderer import Renderer, render_image
 from .scene.builtin import cornell_box_scene, glass_sphere_scene, triangle_soup_scene
 from .scene.camera import Camera
 from .scene.gltf import quat_to_mat4
@@ -62,14 +70,7 @@ BUILTIN_SCENES = {  # vulkan_raytracer_tpu/cli.py:50-57
 }
 
 #: flags of the JAX CLI whose code paths are not ported yet -> ROADMAP item
-_NOT_PORTED = {
-    "progressive": "Queue 1, the progressive renderer and viewer",
-    "interactive": "Queue 1, the progressive renderer and viewer",
-    "shard": "Queue 1, sharding and multihost",
-    "trace": "Queue 1, the progressive renderer and viewer (--trace)",
-    "checkpoint": "Queue 1, the progressive renderer and viewer (checkpoint/resume)",
-    "resume": "Queue 1, the progressive renderer and viewer (checkpoint/resume)",
-}
+_NOT_PORTED = {"shard": "Queue 1, sharding and multihost"}
 
 
 def _parse_floats(value: str, n: int, name: str, default):
@@ -125,12 +126,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--spp", type=int, default=64, help="Samples per pixel")
     p.add_argument("--output", default="out.png", help="Output PNG path")
     p.add_argument("--hdr-output", default=None, help="Optional Radiance .hdr output")
-    p.add_argument("--progressive", action="store_true", help="(not ported)")
+    p.add_argument("--progressive", action="store_true",
+                   help="Progressive per-frame loop (logs per-frame timing)")
     p.add_argument("--shard", action="store_true", help="(not ported)")
-    p.add_argument("--interactive", action="store_true", help="(not ported)")
-    p.add_argument("--trace", default=None, metavar="DIR", help="(not ported)")
-    p.add_argument("--checkpoint", default=None, metavar="NPZ", help="(not ported)")
-    p.add_argument("--resume", default=None, metavar="NPZ", help="(not ported)")
+    p.add_argument("--interactive", action="store_true",
+                   help="Terminal viewer with WASD/pan controls (needs a tty)")
+    p.add_argument("--trace", default=None, metavar="DIR",
+                   help="Write a torch.profiler chrome trace of the render to DIR/trace.json")
+    p.add_argument("--checkpoint", default=None, metavar="NPZ",
+                   help="Write the linear accumulation state after rendering "
+                        "so a later run can --resume with more samples")
+    p.add_argument("--resume", default=None, metavar="NPZ",
+                   help="Continue accumulating on top of a --checkpoint "
+                        "(same scene/camera/resolution/depth)")
     p.add_argument("--nee-weighting", choices=("reference", "physical"), default="reference",
                    help="NEE estimator: 'reference' replicates the reference's throughput "
                         "quirk (raygen.rgen:54-83); 'physical' is the standard weighting")
@@ -217,11 +225,75 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
+def _render_fingerprint(tables, camera, width, height, depth, nee) -> str:
+    """Digest of everything that must match for two accumulations to blend
+    (``_render_fingerprint``, vulkan_raytracer_tpu/cli.py:351-377, and the
+    same digest for the same scene and camera): resolution, depth, the NEE
+    estimator, the camera pose and cheap checksums of the scene (triangle
+    count, coordinate sums, material count, the emissive CDF, the skybox's
+    shape and strength) rather than file names."""
+    def host(x):
+        return x.cpu().numpy()
+
+    h = hashlib.sha256()
+    h.update(np.asarray([width, height, depth], np.int64).tobytes())
+    h.update(str(nee).encode())
+    h.update(np.asarray(camera.position, np.float64).tobytes())
+    h.update(np.asarray(camera.direction, np.float64).tobytes())
+    h.update(np.float64(getattr(camera, "fov", 0.0)).tobytes())
+    for col in (tables.v0.x, tables.v0.y, tables.v0.z, tables.v2.x):
+        a = host(col)
+        h.update(np.int64(a.shape[0]).tobytes())
+        h.update(np.float64(a.sum(dtype=np.float64)).tobytes())
+    h.update(np.int64(tables.materials.base_colour.x.shape[0]).tobytes())
+    h.update(np.int64(tables.num_emissive_tris).tobytes())
+    if tables.num_emissive_tris:
+        h.update(np.float64(host(tables.em_cdf).sum(dtype=np.float64)).tobytes())
+    h.update(np.asarray((tables.skybox.h, tables.skybox.w), np.int64).tobytes())
+    h.update(np.float64(host(tables.skybox_strength)).tobytes())
+    return h.hexdigest()
+
+
+def _load_checkpoint(path, width, height, depth, fingerprint):
+    """(accumulated linear sum (H, W, 3), next sample) of a ``--checkpoint``
+    file, refused unless it was rendered like this run."""
+    ck = np.load(path)
+    if tuple(ck["shape"]) != (height, width) or int(ck["depth"]) != depth:
+        raise SystemExit("--resume checkpoint does not match this render")
+    if "fingerprint" in ck and str(ck["fingerprint"]) != fingerprint:
+        raise SystemExit("--resume checkpoint was rendered with a different "
+                         "scene/camera/settings (fingerprint mismatch)")
+    return ck["acc"].astype(np.float32).reshape(height, width, 3), int(ck["next_sample"])
+
+
+def _run_progressive(args, tables, camera, width, height) -> dict:
+    """The frame loop of ``--progressive`` (vulkan_raytracer_tpu/cli.py:
+    241-251): the preview frame and ``--spp`` samples, one ``draw_frame``
+    each; writes the last display image."""
+    r = Renderer(tables, camera, width, height, args.max_ray_depth)
+    frame_ms = []
+    t0 = time.perf_counter()
+    for i in range(args.spp + 1):  # sample 0 is the preview frame
+        t_frame = time.perf_counter()
+        img8 = r.draw_frame()
+        frame_ms.append(1e3 * (time.perf_counter() - t_frame))
+        log.info("frame %d (%.1f ms)", i, frame_ms[-1])
+    rays = r.rays_traced
+    dt = time.perf_counter() - t0
+    write_png(args.output, img8)
+    log.info("wrote %s after %d samples (%d rays)", args.output, args.spp, rays)
+    mean = (r.accum / float(max(args.spp, 1))).cpu().numpy().reshape(height, width, 3)
+    return {"rays": rays, "seconds": dt, "mrays_per_s": rays / dt / 1e6, "image": mean,
+            "frames": args.spp + 1, "frame_ms": frame_ms}
+
+
 def run(argv=None) -> dict:
-    """The headless render behind :func:`main`; returns its statistics
-    (``rays``, ``seconds``, ``mrays_per_s``, ``image`` linear mean,
-    ``load_seconds``: building or importing the scene with its images, and
-    ``upload``: the scene upload's seconds and counts)."""
+    """The render behind :func:`main`; returns its statistics (``rays``,
+    ``seconds``, ``mrays_per_s``, ``image`` linear mean, ``load_seconds``:
+    building or importing the scene with its images, and ``upload``: the
+    scene upload's seconds and counts; a ``--progressive`` run adds
+    ``frames`` and ``frame_ms``).  ``--interactive`` returns after the viewer
+    closes, without an image."""
     args = build_parser().parse_args(argv)
     for flag, item in _NOT_PORTED.items():
         if getattr(args, flag):
@@ -238,29 +310,77 @@ def run(argv=None) -> dict:
     tables = scene.upload(device)
     upload = dict(scene.upload_stats, seconds=time.perf_counter() - t_up)
     log.info("scene upload took %.3fs", upload["seconds"])
+    setup = {"load_seconds": load_seconds, "upload": upload}
 
     cam_pos = _parse_floats(args.camera_position, 3, "camera-position", DEFAULT_CAMERA_POS)
     cam_dir = _parse_floats(args.camera_direction, 3, "camera-direction", DEFAULT_CAMERA_DIR)
     camera = Camera(position=cam_pos, direction=cam_dir, aspect=width / height)
 
+    if args.interactive:
+        from .viewer import run_viewer
+
+        # the viewer renders at full resolution and decimates the display
+        # image to the terminal's cell grid on the device
+        run_viewer(tables, camera, width, height, args.max_ray_depth)
+        return setup
+    if args.progressive:
+        return {**_run_progressive(args, tables, camera, width, height), **setup}
+
+    # checkpoint/resume: the accumulation buffer is the render's whole state
+    # (raytracer.cpp:129-144), so the linear sum and the sample cursor let a
+    # long render continue across runs.  The fingerprint travels in the npz,
+    # so --resume refuses to blend accumulations that do not belong together.
+    fingerprint = _render_fingerprint(tables, camera, width, height, args.max_ray_depth,
+                                     args.nee_weighting)
+    acc_prev, start_sample = None, 1
+    if args.resume:
+        acc_prev, start_sample = _load_checkpoint(args.resume, width, height,
+                                                  args.max_ray_depth, fingerprint)
+        log.info("resuming at sample %d from %s", start_sample, args.resume)
+
+    profiler = None
+    if args.trace:  # a profiler that cannot start is an error, not a warning
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=activities)
+        profiler.start()
+
     t0 = time.perf_counter()
-    mean, rays = render_image(
+    mean_new, rays = render_image(
         tables, camera, width, height, args.spp, args.max_ray_depth,
-        tonemap=False, nee_weighting=args.nee_weighting,
+        start_sample=start_sample, tonemap=False, nee_weighting=args.nee_weighting,
     )
+    # one linear accumulation feeds every sink (checkpoint, PNG, HDR)
+    acc = np.asarray(mean_new, np.float32) * np.float32(args.spp)
+    if acc_prev is not None:
+        acc = acc + acc_prev
+    total_spp = start_sample - 1 + args.spp
+    if args.checkpoint:
+        np.savez(args.checkpoint, acc=acc.astype(np.float32),
+                 next_sample=np.int64(start_sample + args.spp),
+                 shape=np.array([height, width]), depth=np.int64(args.max_ray_depth),
+                 fingerprint=np.str_(fingerprint))
+        log.info("checkpoint -> %s (%d samples)", args.checkpoint, total_spp)
+    mean = acc / np.float32(total_spp)
     img = reinhard_jodie(torch.as_tensor(mean)).numpy()
     dt = time.perf_counter() - t0
     log.info(
         "rendered %dx%d @ %d spp depth %d in %.2fs - %.1f Mrays/s",
         width, height, args.spp, args.max_ray_depth, dt, rays / dt / 1e6,
     )
+    if profiler is not None:
+        profiler.stop()
+        trace = Path(args.trace) / "trace.json"
+        trace.parent.mkdir(parents=True, exist_ok=True)
+        profiler.export_chrome_trace(str(trace))
+        log.info("wrote profiler trace to %s", trace)
     write_png(args.output, img)
     log.info("wrote %s", args.output)
     if args.hdr_output:
         write_hdr(args.hdr_output, mean)
         log.info("wrote %s (same accumulation as the PNG)", args.hdr_output)
-    return {"rays": rays, "seconds": dt, "mrays_per_s": rays / dt / 1e6, "image": mean,
-            "load_seconds": load_seconds, "upload": upload}
+    return {"rays": rays, "seconds": dt, "mrays_per_s": rays / dt / 1e6, "image": mean, **setup}
 
 
 def main(argv=None) -> int:

@@ -130,7 +130,9 @@ class BVHStreams:
     BVH's leaves, in slot order, so a leaf's triangles are contiguous and in
     their order in the leaf.  ``tri_id[r]`` is row r's scene triangle.
     ``tl_group`` holds the union box of each run of ``TREELET_GROUP``
-    consecutive treelets: a ray that misses it misses each of their boxes."""
+    consecutive treelets: a ray that misses it misses each of their boxes.
+    ``cut_tris`` is the slot budget the treelet cut was made with, so a
+    refitted tree (same topology) is cut into the same treelets."""
 
     nodes: torch.Tensor  # (8, Nn, 8) f32: bmin.xyz, leaf | bmax.xyz, link
     tris: torch.Tensor  # (Nt, 12) f32: v0.xyz 0, e1.xyz 0, e2.xyz 0
@@ -140,6 +142,7 @@ class BVHStreams:
     tl_lim: torch.Tensor  # (8, K, 2) i32 per-octant stream range [start, end)
     num_nodes: int
     n_treelets: int
+    cut_tris: int = TREELET_TRIS
 
     @property
     def nbytes(self) -> int:
@@ -220,7 +223,7 @@ def build_streams(bvh, max_tris: int = TREELET_TRIS,
     return BVHStreams(
         nodes=t(nodes), tris=t(tris), tri_id=t(tri_id[real].astype(np.int32)),
         tl_box=t(tl_box), tl_group=t(tl_group), tl_lim=t(tl_lim),
-        num_nodes=n, n_treelets=int(cut.shape[0]),
+        num_nodes=n, n_treelets=int(cut.shape[0]), cut_tris=max_tris,
     )
 
 

@@ -6,7 +6,11 @@ alive, and each ``traceRayEXT`` of the reference (shaders/raygen.rgen,
 lightsample.glsl) is one dense sweep from
 :mod:`vulkan_raytracer_tpu_torch.ops.dense` or, for a scene uploaded with
 BVH streams, one BVH walk from :mod:`vulkan_raytracer_tpu_torch.ops.traverse`;
-each launches a CUDA kernel on CUDA tensors.  All vector state is in
+each launches a CUDA kernel on CUDA tensors.  An instanced scene
+(``tables.inst``) runs the same kernels once per instance through
+:mod:`vulkan_raytracer_tpu_torch.ops.instanced`; its hit ids encode
+(instance, prototype triangle), which :func:`eval_hit` and the alpha test
+decode.  All vector state is in
 component form (``V3`` of (N,) tensors).  The algorithm, its RNG draw order and its quirks are the JAX
 module's (integrator.py:13-27): NEE runs with the throughput that already
 includes the current hit's estimator, paths end on emissive hits weighted
@@ -36,6 +40,7 @@ import torch
 from ..ops import rng
 from ..ops.bsdf import HitInfo, HitMaterial, material_bsdf, material_pdf, sample_material
 from ..ops.dense import EMISSIVE_MAX_TRIS, dense_closest, dense_emissive_pdf, dense_shadow
+from ..ops.instanced import apply_normal_matrix, instanced_closest, instanced_shadow
 from ..ops.math3 import BIAS, EPS, INF, V3, v3_from_tangent, v3_gather, v3_onb, v3_to_tangent
 from ..ops.texture import sample_bilinear, sample_equirect
 from ..ops.traverse import bvh_closest, bvh_emissive_pdf, bvh_shadow
@@ -54,12 +59,15 @@ def reset_alpha_loop() -> None:
 
 
 # ---------------------------------------------------------------------------
-# Traversal dispatch (integrator.py:105-127, 270-299): a scene uploaded with
-# BVH streams walks them; every other scene takes the dense sweeps.
+# Traversal dispatch (integrator.py:105-127, 270-299): an instanced scene
+# takes the two-level traversal, a scene uploaded with BVH streams walks
+# them, and every other scene takes the dense sweeps.
 # ---------------------------------------------------------------------------
 
 
 def _closest_opaque(tables, o: V3, d: V3, *, t_min, t_max, active):
+    if tables.inst is not None:
+        return instanced_closest(tables, o, d, t_min=t_min, t_max=t_max, active=active)
     if tables.pbvh is not None:
         return bvh_closest(tables, o, d, t_min=t_min, t_max=t_max, active=active)
     return dense_closest(tables, o, d, t_min=t_min, t_max=t_max, active=active)
@@ -84,6 +92,8 @@ def _alpha_test(tables, tri, u, v, seed, cand):
     seed advances on those lanes only).  Returns (keep, seed).
     """
     ti = torch.clamp_min(tri, 0)
+    if tables.inst is not None:  # encoded id -> prototype triangle
+        ti, _ = tables.inst.decode(ti)
     mode = torch.index_select(tables.alpha.mode, 0, ti)
     alpha = torch.index_select(tables.alpha.value, 0, ti)
     acut = torch.index_select(tables.alpha.cutoff, 0, ti)
@@ -150,6 +160,8 @@ def _shadow_unsorted(tables, o: V3, d: V3, *, t_max, active, seed):
     Returns (occluded, seed).  On alpha scenes the nearest *accepted* hit
     within t_max occludes: the query runs the :func:`_closest` loop."""
     if not tables.has_alpha:
+        if tables.inst is not None:
+            return instanced_shadow(tables, o, d, t_max=t_max, active=active), seed
         if tables.pbvh is not None:
             return bvh_shadow(tables, o, d, t_max=t_max, active=active), seed
         return dense_shadow(tables, o, d, t_max=t_max, active=active), seed
@@ -224,9 +236,17 @@ def eval_hit(tables, origin: V3, direction: V3, t, tri, u, v) -> HitInfo:
     """Build HitInfo for every lane (integrator.py:450-628): the shading
     frame, normal mapping and the six texture slots.  Miss lanes get
     t = -INF and a black emissive: the skybox is fetched once after the
-    bounce loop (the JAX ``sky=False`` form)."""
+    bounce loop (the JAX ``sky=False`` form).
+
+    On an instanced scene ``tri`` is the encoded instance x prototype id:
+    attributes are gathered per prototype triangle, and the object-space
+    normal and tangent go to world space by the hit instance's
+    inverse-transpose rotation (hit.rchit:57-60)."""
     miss = tri < 0
     ti = torch.clamp_min(tri, 0)
+    inst_i = None
+    if tables.inst is not None:
+        ti, inst_i = tables.inst.decode(ti)
     w0 = 1.0 - u - v
 
     t_safe = torch.where(torch.isfinite(t), t, 0.0)
@@ -235,12 +255,17 @@ def eval_hit(tables, origin: V3, direction: V3, t, tri, u, v) -> HitInfo:
     def interp(a: V3, b: V3, c: V3) -> V3:
         return v3_gather(a, ti) * w0 + v3_gather(b, ti) * u + v3_gather(c, ti) * v
 
-    normal = interp(tables.n0, tables.n1, tables.n2).normalized()
+    normal = interp(tables.n0, tables.n1, tables.n2)
+    if inst_i is not None:
+        normal = apply_normal_matrix(tables.inst, inst_i, normal)
+    normal = normal.normalized()
     mat_i = torch.index_select(tables.tri_mat, 0, ti)
     m = tables.materials
 
     # tangent frame (hit.rchit:61-71): built from the pre-flip normal
     tg_raw = interp(tables.tg0, tables.tg1, tables.tg2)
+    if inst_i is not None:
+        tg_raw = apply_normal_matrix(tables.inst, inst_i, tg_raw)
     has_tg = tg_raw.any_nonzero()
     sign = torch.index_select(tables.tg_sign, 0, ti)
     tg_n = tg_raw.normalized()

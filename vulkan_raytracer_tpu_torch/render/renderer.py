@@ -1,7 +1,11 @@
-"""Headless renderer: sample waves, accumulation and the tonemapped image.
+"""Renderer: sample waves, progressive accumulation and the tonemapped image.
 
-Port of :mod:`vulkan_raytracer_tpu.render.renderer` (renderer.py:34-251).
-:func:`render_image` sums ``spp`` samples in waves of up to
+Port of :mod:`vulkan_raytracer_tpu.render.renderer`.  Two entry points, as
+there: :class:`Renderer` is progressive, one sample per
+:meth:`Renderer.draw_frame`, like the reference's render loop
+(raytracer.cpp:501-535); :func:`render_image` is the headless batch.
+
+:func:`render_image` (renderer.py:34-251) sums ``spp`` samples in waves of up to
 ``MAX_LANES_PER_PASS`` lanes (lane = (pixel, sample)) into one accumulation
 buffer on the device, updated in place.  Lanes run in the 32x32-block pixel
 order of the JAX renderer and are scattered back to pixel order once.
@@ -21,8 +25,7 @@ order of the JAX renderer and are scattered back to pixel order once.
 Not ported: the JAX rule that prefers bands *below* the cap for BVH scenes
 (``_banded_preferred`` :186-196).  It packs the sort bins of the TPU's
 packet walks, which the port does not have; ROADMAP.md Queue 1 keeps it
-behind an H100 A/B ("the re-sorts and the width ladder").  The progressive
-:class:`Renderer` is ROADMAP.md Queue 1's "progressive renderer and viewer".
+behind an H100 A/B ("the re-sorts and the width ladder").
 """
 
 from __future__ import annotations
@@ -190,3 +193,125 @@ def render_image(
         img = img.cpu().numpy().reshape(height, width, 3)
         total_rays = int(rays)
     return img, total_rays
+
+
+def _frame_step(tables, view_inv, proj_inv, width, height, accum, max_depth, disp_h, disp_w,
+                sample_count: int):
+    """One interactive frame on the tables' device (renderer.py:259-292):
+    render sample ``sample_count``, accumulate into ``accum`` **in place**,
+    tonemap ``accum / max(sample_count, 1)``, quantise to uint8 and mean-pool
+    to the display size.  The preview sample 0 is left out of the
+    accumulation (raygen.rgen:95-96): it zeroes the buffer and is shown
+    directly.  Returns (uint8 (disp_h, disp_w, 3) image, rays traced), both
+    still on the device."""
+    with torch.inference_mode():
+        radiance, rays = render_sample(tables, view_inv, proj_inv, width, height, sample_count,
+                                       max_depth)
+        if sample_count == 0:
+            accum.zero_()
+            shown = radiance
+        else:
+            accum.add_(radiance)
+            shown = accum / float(sample_count)
+        img8 = _postprocess(shown, 1, True, True).reshape(height, width, 3)
+        if (disp_h, disp_w) != (height, width):
+            # decimate to the display's cell grid on the device, so that only
+            # disp_h * disp_w cells are fetched (the present blit)
+            fy, fx = height // disp_h, width // disp_w
+            cells = img8[:disp_h * fy, :disp_w * fx].reshape(disp_h, fy, disp_w, fx, 3)
+            img8 = (cells.to(torch.int32).sum(dim=(1, 3)) // (fy * fx)).to(torch.uint8)
+    return img8, rays
+
+
+class Renderer:
+    """Progressive renderer with the reference's frame-loop semantics
+    (renderer.py:295-376).
+
+    drawFrame (raytracer.cpp:501-535): reset the sample counter when the
+    camera moved, render one sample, accumulate (samples >= 1), tonemap
+    ``accumulated / sampleCount`` for display.  After a scene refit, assign
+    the new tables and restart: ``renderer.tables = scene.refit(renderer.tables);
+    renderer.reset_accumulation()``."""
+
+    def __init__(self, tables, camera: Camera, width: int, height: int, max_depth: int = 5):
+        self.tables = tables
+        self.camera = camera
+        self.width = width
+        self.height = height
+        self.max_depth = max_depth
+        self.sample_count = 0
+        self.accum = torch.zeros((width * height, 3), dtype=torch.float32, device=tables.device)
+        self.total_rays = 0
+        self._rays_pending = []  # device counters, folded lazily
+        self._inflight = None  # the pipelined frame: (host image, its copy's event)
+        self._host = {}  # display shape -> two pinned host images, used in turn
+        camera.aspect = width / height
+
+    def handle_resize(self, width: int, height: int) -> None:
+        """raytracer.cpp:493-499: new images, reset accumulation.  A
+        pipelined frame still in flight is dropped too: it was rendered for
+        the old present target."""
+        self.width, self.height = width, height
+        self.camera.aspect = width / height
+        self.accum = torch.zeros((width * height, 3), dtype=torch.float32,
+                                 device=self.tables.device)
+        self.sample_count = 0
+        self._inflight = None
+
+    def reset_accumulation(self) -> None:
+        self.sample_count = 0
+
+    @property
+    def rays_traced(self) -> int:
+        """Rays traced so far; the per-frame counters stay on the device
+        until this is read."""
+        if self._rays_pending:
+            self.total_rays += int(torch.stack(self._rays_pending).sum())
+            self._rays_pending = []
+        return self.total_rays
+
+    def _start_fetch(self, img8):
+        """Begin the copy of a display image to the host.  On a card the
+        copy into pinned memory is asynchronous and an event marks its end;
+        returns (host tensor, event or None)."""
+        if img8.device.type != "cuda":
+            return img8, None
+        pair = self._host.setdefault(
+            tuple(img8.shape),
+            [torch.empty(img8.shape, dtype=torch.uint8, pin_memory=True) for _ in range(2)])
+        pair.reverse()  # the buffer of two frames ago; its image was copied out
+        pair[0].copy_(img8, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return pair[0], event
+
+    @staticmethod
+    def _finish_fetch(fetch) -> np.ndarray:
+        host, event = fetch
+        if event is not None:
+            event.synchronize()  # never hand out a frame before its copy has ended
+        return host.numpy().copy()
+
+    def draw_frame(self, display_size=None, pipeline: bool = False):
+        """Render one progressive sample; returns the tonemapped uint8
+        display image: (H, W, 3), or ``display_size`` = (disp_h, disp_w)
+        mean-pooled on the device (the interactive present path).
+
+        ``pipeline=True`` is the swapchain-latency mode: the call enqueues
+        frame N and returns frame N-1's display image (None on the very
+        first call), so the fetch of one frame overlaps the next frame's
+        work on the device (raytracer.cpp:518-533)."""
+        if self.camera.position_changed or self.camera.direction_changed:
+            self.sample_count = 0  # raytracer.cpp:503
+            self.camera.position_changed = False
+            self.camera.direction_changed = False
+        view_inv, proj_inv = camera_uniforms(self.camera)
+        disp_h, disp_w = display_size or (self.height, self.width)
+        img8, rays = _frame_step(self.tables, view_inv, proj_inv, self.width, self.height,
+                                 self.accum, self.max_depth, disp_h, disp_w, self.sample_count)
+        self._rays_pending.append(rays)
+        self.sample_count += 1
+        if not pipeline:
+            return img8.cpu().numpy()
+        prev, self._inflight = self._inflight, self._start_fetch(img8)
+        return self._finish_fetch(prev) if prev is not None else None
