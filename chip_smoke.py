@@ -47,7 +47,7 @@ nonzero exit code:
    60,000-triangle soup: hit and occlusion flags equal on >= 99.99% of lanes,
    t bit-equal where the triangle agrees.
 7. render_cfg2 — the CLI's headless path for bench cfg2 (the dragon, 512x512,
-   depth 4, 4 spp, camera 0,2.2,4.5 -> 0,-0.25,-1), three times; each must
+   depth 4, 4 spp, camera 0,2.2,4.5 -> 0,-0.25,-1), twice; each must
    launch K5' (both variants) and K3; seconds, Mrays/s and the upload split.
 8. gates    — the bench gate frames of cfg2-cfg5 on the card against the
    committed NumPy-oracle goldens in ``bench_goldens.npz``: RMSE < 2e-3.
@@ -68,8 +68,8 @@ nonzero exit code:
    0,0,-1.  It must launch K1 and K3 and give a finite, lit image; seconds,
    Mrays/s and the alpha loop's iterations per ``_closest`` call.
 12. gltf_bvh — the gallery-class .glb of tests/test_bigasset_glb.py (147,136
-   triangles, 9 materials, 5 textures) through ``cli.run`` on ``cuda``, three
-   times at 512x512, depth 4, 4 spp, camera 0,1.7,4.6 -> 0,-0.28,-1; each
+   triangles, 9 materials, 5 textures) through ``cli.run`` on ``cuda``, twice
+   at 512x512, depth 4, 4 spp, camera 0,1.7,4.6 -> 0,-0.28,-1; each
    must launch K5' closest and K3.  Load (parse, image decode) and upload
    (BVH build, streams, copy) seconds apart from the render's.
 13. gltf_parity — both containers at 32x32, 2 spp, depth 3 on ``cuda``
@@ -121,6 +121,25 @@ nonzero exit code:
    gives the same images one call late; then ``cli.run`` with
    ``--progressive`` and a ``--checkpoint`` / ``--resume`` pair (8 + 8 spp
    equal 16 spp).
+22. shard_one — bench cfg1 through ``cli.run`` with ``--shard`` on the mesh
+   of the one card: image and rays equal to phase 4's bit for bit; two
+   renders of each path in turns (shard, plain, plain, shard), seconds and
+   Mrays/s.
+23. shard_two — bench cfg2 through ``render_image_sharded`` on two shards of
+   the one card (``[cuda:0, cuda:0]``; one wave of 4 samples x 131,072
+   pixels each) against ``render_image`` (two waves of 2 samples x 262,144),
+   in turns: rtol 1e-5 / atol 1e-6 (the samples are summed in another
+   grouping), equal rays; it must launch K5' (both variants) and K3.
+24. fleet — two processes started with ``torch.multiprocessing`` in spawn
+   mode form a gloo group over 127.0.0.1; rank 1 doubles a column of its
+   tables before ``broadcast_scene_tables``; both render cfg1 through
+   ``render_image_multihost`` (one shard each on cuda:0) between barriers.
+   Both images equal, and equal phase 4's within rtol 1e-5 / atol 1e-6, with
+   its rays; the fleet's wall seconds and Mrays/s beside those of one process
+   spawned and warmed up the same way before it (a fleet of one, whose image
+   must be phase 4's bit for bit), the card's utilization in each window from
+   ``nvidia-smi`` every 100 ms, and the all-gather of one rank's block timed
+   alone.  The kernels were built in phase 2, so the ranks only load them.
 
 Then it prints the kernel summary (one JSON object: each kernel's launches
 over the paths driven with reset counters, in all and by phase; its time,
@@ -995,8 +1014,8 @@ def check_walks(tables, ray_counts, device, label: str, cam) -> dict:
 
 def time_walks(tables, n: int, device, label: str, cam) -> dict:
     """K4' and K5' (closest, shadow) and their plain versions over a bench
-    wave of n rays of ``cam``, in turns plain, kernel, kernel, plain (the
-    plain versions once per run); each with its bound from the work
+    wave of n rays of ``cam``: the plain version once, then the kernel
+    twice; each with its bound from the work
     ``walk_visits`` counts on the same inputs."""
     from vulkan_raytracer_tpu_torch.ops import traverse as tr
 
@@ -1018,7 +1037,6 @@ def time_walks(tables, n: int, device, label: str, cam) -> dict:
 
             p1 = time_ms(ref, 1, warm=False)
             k1, k2 = time_ms(kernel, 10), time_ms(kernel, 10)
-            p2 = time_ms(ref, 1, warm=False)
             v = tr.walk_visits(s, cols, lo, hi, shadow, treelets)
             ops = SLAB_OPS * int((v["nodes"] + v["boxes"]).sum()) + MT_OPS * int(v["tris"].sum())
             # ray columns, t_lo and t_init in, t and slot out; the stream rows read
@@ -1026,8 +1044,7 @@ def time_walks(tables, n: int, device, label: str, cam) -> dict:
             nbytes += treelet_bytes if treelets else 0
             live = max(int((hi >= 0).sum()), 1)
             out[f"{name}_{kind}"] = {
-                "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
-                "ms_runs": [k1, k2], "plain_ms_runs": [p1, p2],
+                "ms": (k1 + k2) / 2, "plain_ms": p1, "ms_runs": [k1, k2],
                 "shape": f"{label} wave: {n} rays over {tables.num_triangles} triangles",
                 **bound(ops, nbytes),
                 "per_live_ray": {k: int(v[k].sum()) / live
@@ -1080,8 +1097,8 @@ def check_emissive_walk(tables, ray_counts, device) -> float:
 
 def time_emissive_walk(tables, n: int, device) -> dict:
     """The emissive-pdf walk and its plain version over n random rays in the
-    Cornell volume (80% active, t_min EPS), in turns plain, kernel, kernel,
-    plain, with the bound of the work ``emissive_walk_visits`` counts: a box
+    Cornell volume (80% active, t_min EPS), the plain version once, then the
+    kernel twice, with the bound of the work ``emissive_walk_visits`` counts: a box
     test per node visited, a triangle test per real slot of each leaf
     entered and the term per hit; bytes: the active lanes' rays, every
     lane's flag and output, the node records and triangle rows read."""
@@ -1101,14 +1118,12 @@ def time_emissive_walk(tables, n: int, device) -> dict:
 
     p1 = time_ms(ref, 1, warm=False)
     k1, k2 = time_ms(kernel, 10), time_ms(kernel, 10)
-    p2 = time_ms(ref, 1, warm=False)
     v = tr.emissive_walk_visits(s, cols, active, EPS)
     live = max(int(active.sum()), 1)
     ops = (SLAB_OPS * int(v["nodes"].sum()) + MT_OPS * int(v["tris"].sum())
            + WALK_TERM_OPS * int(v["hits"].sum()))
     nbytes = 5 * n + 24 * live + 32 * v["node_rows"] + 80 * v["tri_rows"]
-    out = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "ms_runs": [k1, k2],
-           "plain_ms_runs": [p1, p2],
+    out = {"ms": (k1 + k2) / 2, "plain_ms": p1, "ms_runs": [k1, k2],
            "shape": f"emissive soup wave: {n} rays over {s.rows.shape[0]} emissive triangles",
            **bound(ops, nbytes), "live": live,
            "per_live_ray": {k: int(v[k].sum()) / live for k in ("nodes", "tris", "hits")},
@@ -1551,6 +1566,279 @@ def progressive_phase(device, paths, size: int = 512, spp: int = 16) -> None:
                              f"8 + 8 spp resumed from 16 spp by {resume_err}")
 
 
+def shard_one(want, want_rays: int, paths, reps: int = 2) -> None:
+    """Bench cfg1 through ``cli.run`` with ``--shard`` (the mesh of the one
+    card) against phase 4's image and rays, bit for bit; ``reps`` renders of
+    each path in turns (shard, plain, plain, shard)."""
+    from vulkan_raytracer_tpu_torch import cli
+    from vulkan_raytracer_tpu_torch.parallel.multihost import make_fleet_mesh
+
+    mesh = make_fleet_mesh()
+    runs = {"shard": [], "plain": []}
+    shard_launches = None
+    with tempfile.TemporaryDirectory() as out_dir:
+        for label in ("shard", "plain", "plain", "shard")[:2 * reps]:
+            _reset_launches()
+            stats = cli.run(CFG1 + (["--shard"] if label == "shard" else [])
+                            + ["--device", "cuda", "--output", f"{out_dir}/{label}.png"])
+            launches = _launch_counts()
+            img = stats["image"]
+            runs[label].append({"seconds": stats["seconds"], "rays": stats["rays"],
+                                "mrays_per_s": stats["mrays_per_s"],
+                                "bit_equal": bool(np.array_equal(img, want)),
+                                "max_abs_diff": float(np.abs(img - want).max())})
+            if label == "shard" and shard_launches is None:
+                shard_launches = launches
+    emit({"phase": "shard_one", "config": "cfg1 cornell 512x512 depth 4 64 spp, cli --shard",
+          "mesh": [str(d) for d in mesh], "runs": runs,
+          "seconds_shard": [r["seconds"] for r in runs["shard"]],
+          "seconds_plain": [r["seconds"] for r in runs["plain"]],
+          "mrays_per_s_shard": [r["mrays_per_s"] for r in runs["shard"]],
+          "mrays_per_s_plain": [r["mrays_per_s"] for r in runs["plain"]],
+          "launches": shard_launches})
+    for r in runs["shard"]:
+        if not (r["bit_equal"] and r["rays"] == want_rays):
+            raise AssertionError(f"--shard cfg1 differs from the plain render by {r['max_abs_diff']} "
+                                 f"with {r['rays']} rays against {want_rays}; runs {runs}")
+    if not all(shard_launches["dense"][c] > 0 for c in ("closest", "shadow", "pdf")):
+        raise AssertionError(f"--shard cfg1 missed a kernel: launches {shard_launches}")
+    paths.add("shard_one", shard_launches)
+
+
+def shard_two(device, dragon, paths) -> None:
+    """Bench cfg2 through ``render_image_sharded`` on two shards of the one
+    card against ``render_image``, in turns (plain, shard, shard, plain)."""
+    from vulkan_raytracer_tpu_torch.parallel.sharding import render_image_sharded
+    from vulkan_raytracer_tpu_torch.render import renderer
+    from vulkan_raytracer_tpu_torch.scene.camera import Camera
+
+    w = h = 512
+    spp, depth = 4, 4
+    mesh = [device, device]
+
+    def cam():
+        return Camera(position=np.array(CFG2_CAM[0]), direction=np.array(CFG2_CAM[1]))
+
+    def plain():
+        return renderer.render_image(dragon, cam(), w, h, spp=spp, max_depth=depth, tonemap=False)
+
+    def shard():
+        return render_image_sharded(dragon, cam(), w, h, spp, depth, mesh, tonemap=False)
+
+    out = {"plain": [], "shard": []}
+    images, shard_launches = {}, None
+    for label in ("plain", "shard", "shard", "plain"):
+        _reset_launches()
+        (img, rays), secs = _timed_sync(plain if label == "plain" else shard)
+        launches = _launch_counts()
+        if label == "shard" and shard_launches is None:
+            shard_launches = launches
+        images[label] = img
+        out[label].append({"seconds": secs, "rays": rays, "mrays_per_s": rays / secs / 1e6})
+    err = float(np.abs(images["shard"] - images["plain"]).max())
+    per = w * h // len(mesh)
+    s_batch = {"plain": renderer.samples_per_wave(w * h, spp),
+               "shard": renderer.samples_per_wave(per, spp)}
+    emit({"phase": "shard_two", "config": "cfg2 dragon 512x512 depth 4 4 spp on [cuda:0, cuda:0]",
+          "lanes_per_shard": per, "waves": {"plain": spp // s_batch["plain"],
+                                            "per_shard": spp // s_batch["shard"]},
+          "lanes_per_wave": {"plain": s_batch["plain"] * w * h, "shard": s_batch["shard"] * per},
+          "runs": out, "max_abs_err": err, "launches": shard_launches,
+          "image_mean": float(images["shard"].mean())})
+    rays = {r["rays"] for r in out["plain"] + out["shard"]}
+    if not (np.allclose(images["shard"], images["plain"], rtol=1e-5, atol=1e-6) and len(rays) == 1):
+        raise AssertionError(f"cfg2 on two shards differs from one by {err}, rays {rays}")
+    walks = shard_launches["traverse"]
+    if not (walks["treelet_closest"] > 0 and walks["treelet_shadow"] > 0
+            and shard_launches["dense"]["pdf"] > 0):
+        raise AssertionError(f"cfg2 on two shards missed K5' or K3: launches {shard_launches}")
+    paths.add("shard_two", shard_launches)
+
+
+FLEET_TIMEOUT_S = 120  # the fleet's process-group timeout
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def fleet_rank(rank: int, world: int, port: int, out_dir: str) -> None:
+    """One rank of a fleet of ``world`` processes on the card (a spawn
+    target): form the gloo group, diverge rank 1's tables, broadcast them,
+    warm up, and render cfg1 through ``render_image_multihost`` between two
+    barriers; then time the all-gather of one rank's block alone."""
+    import dataclasses
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    from vulkan_raytracer_tpu_torch.parallel.multihost import (
+        broadcast_scene_tables,
+        make_fleet_mesh,
+        render_image_multihost,
+    )
+    from vulkan_raytracer_tpu_torch.scene.builtin import cornell_box_scene
+    from vulkan_raytracer_tpu_torch.scene.camera import Camera
+
+    def cam():
+        return Camera(position=np.array(CFG1_CAM[0]), direction=np.array(CFG1_CAM[1]))
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world, timeout=timedelta(seconds=FLEET_TIMEOUT_S))
+    try:
+        device = torch.device("cuda", 0)
+        tables = cornell_box_scene().upload(device)
+        if rank == 1:  # diverge this rank's scene (tests/_multihost_worker.py:91-98)
+            tables = dataclasses.replace(tables, v0=tables.v0._replace(x=tables.v0.x * 2.0))
+        tables = broadcast_scene_tables(tables)
+        mesh = make_fleet_mesh()
+        render_image_multihost(tables, cam(), 64, 64, 2, 4, mesh, tonemap=False)  # warm-up
+        _reset_launches()
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        img, rays = render_image_multihost(tables, cam(), 512, 512, 64, 4, mesh, tonemap=False)
+        t_own = time.time()
+        dist.barrier()
+        t1 = time.time()
+        launches = _launch_counts()
+        # one rank's shard-major block: its shards of ceil(n / len(mesh)) lanes
+        block = torch.zeros((len(mesh) // world * -(-512 * 512 // len(mesh)), 3), device=device)
+        gather_s = []
+        for _ in range(3):
+            dist.barrier()
+            g0 = time.perf_counter()
+            host = block.cpu()
+            parts = [torch.empty_like(host) for _ in range(world)]
+            dist.all_gather(parts, host)
+            torch.cat(parts).numpy()
+            gather_s.append(time.perf_counter() - g0)
+        np.savez(Path(out_dir) / f"rank{rank}.npz", img=img, rays=rays, t0=t0, t_own=t_own, t1=t1,
+                 gather_s=np.array(gather_s), launches=json.dumps(launches),
+                 mesh=json.dumps([str(d) for d in mesh]))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_fleet(world: int) -> dict:
+    """Spawn ``world`` ranks of :func:`fleet_rank` and wait for them; returns
+    their results in rank order with the fleet's window (the latest start,
+    the earliest end), wall seconds and launches summed over the ranks."""
+    import torch.multiprocessing as tmp
+
+    ctx = tmp.get_context("spawn")  # CUDA cannot be set up again in a forked child
+    with tempfile.TemporaryDirectory() as out_dir:
+        port = _free_port()
+        procs = [ctx.Process(target=fleet_rank, args=(r, world, port, out_dir))
+                 for r in range(world)]
+        t_spawn = time.perf_counter()
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(timeout=FLEET_TIMEOUT_S + 180)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        spawn_to_end = time.perf_counter() - t_spawn
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * world:
+            raise AssertionError(f"the ranks of a fleet of {world} exited with {codes}")
+        ranks = [dict(np.load(Path(out_dir) / f"rank{r}.npz")) for r in range(world)]
+    launches = {"dense": {}, "traverse": {}}
+    for r in ranks:
+        r["launches"] = json.loads(str(r["launches"]))
+        for mod in launches:
+            for k, n in r["launches"][mod].items():
+                launches[mod][k] = launches[mod].get(k, 0) + n
+    return {"ranks": ranks, "t0": max(float(r["t0"]) for r in ranks),
+            "t1": min(float(r["t1"]) for r in ranks),
+            "seconds": max(float(r["t1"]) - float(r["t0"]) for r in ranks),
+            "rays": [int(r["rays"]) for r in ranks], "launches": launches,
+            "spawn_to_end_seconds": spawn_to_end}
+
+
+def smi_samples(text: str) -> list:
+    """(wall-clock seconds, utilization %) of each ``timestamp,
+    utilization.gpu`` line nvidia-smi printed; a line cut short is skipped."""
+    from datetime import datetime
+
+    samples = []
+    for line in text.splitlines():
+        try:
+            stamp, util = (p.strip() for p in line.split(","))
+            samples.append((datetime.strptime(stamp, "%Y/%m/%d %H:%M:%S.%f").timestamp(),
+                            float(util)))
+        except ValueError:
+            continue
+    return samples
+
+
+class SmiSampler:
+    """The card's utilization (``nvidia-smi utilization.gpu``: the share of
+    each sample period with a kernel running) every 100 ms while open."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=timestamp,utilization.gpu", "--format=csv,noheader,nounits",
+             "-lms", "100"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        self.samples = smi_samples(self.proc.communicate(timeout=30)[0])
+        return False
+
+    def busy(self, t0: float, t1: float):
+        """Mean utilization (%) of the samples taken within [t0, t1] (wall
+        clock), or None without any."""
+        got = [u for t, u in self.samples if t0 <= t <= t1]
+        return statistics.mean(got) if got else None
+
+
+def fleet_phase(want, want_rays: int, paths) -> None:
+    """Two ranks on the one card, each rendering cfg1 through
+    ``render_image_multihost``, against phase 4's image; timed beside one
+    process spawned and warmed up the same way (a fleet of one)."""
+    with SmiSampler() as smi:
+        one = run_fleet(1)
+        fleet = run_fleet(2)
+    ranks = fleet["ranks"]
+    err = float(np.abs(ranks[0]["img"] - want).max())
+    emit({"phase": "fleet", "config": "cfg1 cornell 512x512 depth 4 64 spp, 2 gloo ranks on cuda:0",
+          "mesh": json.loads(str(ranks[0]["mesh"])), "fleet_seconds": fleet["seconds"],
+          "fleet_mrays_per_s": fleet["rays"][0] / fleet["seconds"] / 1e6,
+          "rank_render_seconds": [float(r["t_own"]) - float(r["t0"]) for r in ranks],
+          "one_process_seconds": one["seconds"],
+          "one_process_mrays_per_s": one["rays"][0] / one["seconds"] / 1e6,
+          "fleet_over_one": fleet["seconds"] / one["seconds"],
+          "card_busy_pct": {"fleet": smi.busy(fleet["t0"], fleet["t1"]),
+                            "one_process": smi.busy(one["t0"], one["t1"])},
+          "gather_seconds": [float(x) for r in ranks for x in r["gather_s"]],
+          "spawn_to_end_seconds": {"fleet": fleet["spawn_to_end_seconds"],
+                                   "one_process": one["spawn_to_end_seconds"]},
+          "rays": fleet["rays"], "max_abs_err": err, "launches": fleet["launches"],
+          "launches_by_rank": [r["launches"] for r in ranks]})
+    if not np.array_equal(ranks[0]["img"], ranks[1]["img"]) or len(set(fleet["rays"])) != 1:
+        raise AssertionError("the fleet's ranks returned different images or ray counts")
+    if not (np.allclose(ranks[0]["img"], want, rtol=1e-5, atol=1e-6)
+            and fleet["rays"][0] == want_rays):
+        raise AssertionError(f"the fleet's cfg1 differs from one process's by {err}, "
+                             f"rays {fleet['rays'][0]} against {want_rays}")
+    if not (np.array_equal(one["ranks"][0]["img"], want) and one["rays"][0] == want_rays):
+        raise AssertionError("a fleet of one differs from phase 4's cfg1")
+    if not all(r["launches"]["dense"][c] > 0 for r in ranks for c in ("closest", "shadow", "pdf")):
+        raise AssertionError(f"a fleet rank missed a kernel: {[r['launches'] for r in ranks]}")
+    paths.add("fleet", fleet["launches"])
+
+
 def bvh_vs_dense(device) -> None:
     """The BVH walks against the dense kernels over one 60,000-triangle soup."""
     import torch
@@ -1924,7 +2212,8 @@ def main() -> int:
         _reset_launches()
         stats = cli.run(CFG1 + ["--device", "cuda", "--output", f"{out_dir}/cfg1.png"])
         launches = _launch_counts()
-    img = stats["image"]
+    img = cfg1_img = stats["image"]
+    cfg1_rays = stats["rays"]
     if not all(launches["dense"][c] > 0 for c in ("closest", "shadow", "pdf")):
         raise AssertionError(f"cfg1 render missed a kernel: launches {launches}")
     if not np.isfinite(img).all() or img.shape != (512, 512, 3):
@@ -1966,7 +2255,7 @@ def main() -> int:
     bvh_vs_dense(device)
 
     # 7. render: the CLI's headless path for bench cfg2 (K5' and K3)
-    paths.add("render_cfg2", render_cfg2(reps=3))
+    paths.add("render_cfg2", render_cfg2(reps=2))
 
     # 8. the gate frames of cfg2-cfg5 against the committed goldens
     gates(device)
@@ -1994,7 +2283,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         out_dir = Path(tmp)
         gltf_dense(out_dir, paths)
-        gltf_bvh(out_dir, paths, reps=3)
+        gltf_bvh(out_dir, paths, reps=2)
         gltf_parity(out_dir, device, paths)
 
     # 14. the emissive-pdf walk against its plain version, and its time
@@ -2014,8 +2303,15 @@ def main() -> int:
     gallery, gallery_tables = render_instanced(device, paths)
     instanced_vs_flattened(device)
     refit_phase(device, paths, dragon_scene, dragon, gallery, gallery_tables)
-    del dragon_scene, dragon, gallery, gallery_tables
+    del dragon_scene, gallery, gallery_tables
     progressive_phase(device, paths)
+
+    # 22-24. pixel sharding: --shard on the one card, two shards on it, and a
+    # fleet of two processes
+    shard_one(cfg1_img, cfg1_rays, paths)
+    shard_two(device, dragon, paths)
+    del dragon
+    fleet_phase(cfg1_img, cfg1_rays, paths)
 
     import vulkan_raytracer_tpu_torch.viewer  # noqa: F401  (held to the same check)
 

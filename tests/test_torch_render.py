@@ -146,13 +146,16 @@ def test_sample_lights_matches_jax_with_point_light():
     assert float(tc.x.sum()) > 0
 
 
-def test_unported_features_raise():
+def test_unported_features_raise(tmp_path):
     """What the headless render used to refuse now renders: alpha and
     textures (tests/test_torch_alpha.py), more than EMISSIVE_MAX_TRIS
     emissive triangles (the emissive-BVH probe, tests/test_torch_emissive.py)
     and frames above one wave (the banded renderer,
     tests/test_torch_banded.py); the progressive renderer's CLI flags run
-    (tests/test_torch_progressive.py).  Only ``--shard`` still raises."""
+    (tests/test_torch_progressive.py).  ``--shard`` renders too: on one CPU
+    shard it gives the plain CLI's image and PNG bit for bit, also through
+    ``--checkpoint`` / ``--resume`` (tests/test_torch_sharding.py holds the
+    sharded render itself)."""
     from vulkan_raytracer_tpu_torch import cli
 
     s = cornell_box_scene()
@@ -172,9 +175,28 @@ def test_unported_features_raise():
     tt = cornell_box_scene().upload("cpu")
     img, rays = render_image(tt, _cam(), 1024, 513, spp=1, max_depth=0)
     assert img.shape == (513, 1024, 3) and np.isfinite(img).all() and rays == 1024 * 513
-    assert set(cli._NOT_PORTED) == {"shard"}
-    with pytest.raises(NotImplementedError, match="--shard.*sharding and multihost"):
-        cli.main(["--shard", "--device", "cpu"])
+    assert not hasattr(cli, "_NOT_PORTED")
+    base = ["-r", "24,16", "-b", "2", "-c", "0,1,2.4", "-d", "0,0,-1", "--device", "cpu"]
+    for shard in (False, True):
+        flag = ["--shard"] if shard else []
+        d = tmp_path / ("shard" if shard else "plain")
+        d.mkdir()
+        whole = cli.run(base + flag + ["--spp", "4", "--output", str(d / "whole.png")])
+        cli.run(base + flag + ["--spp", "2", "--checkpoint", str(d / "ck.npz"),
+                               "--output", str(d / "half.png")])
+        resumed = cli.run(base + flag + ["--spp", "2", "--resume", str(d / "ck.npz"),
+                                         "--output", str(d / "resumed.png")])
+        if shard:
+            np.testing.assert_array_equal(whole["image"], plain_whole["image"])
+            np.testing.assert_array_equal(resumed["image"], plain_resumed["image"])
+            assert whole["rays"] == plain_whole["rays"]
+            for name in ("whole.png", "half.png", "resumed.png"):
+                assert (d / name).read_bytes() == (tmp_path / "plain" / name).read_bytes(), name
+            ck, ck_plain = np.load(d / "ck.npz"), np.load(tmp_path / "plain" / "ck.npz")
+            assert sorted(ck.files) == sorted(ck_plain.files)
+            for k in ck.files:
+                np.testing.assert_array_equal(ck[k], ck_plain[k])
+        plain_whole, plain_resumed = whole, resumed
     if not sys.stdin.isatty():  # the viewer is reached, and asks for a terminal
         with pytest.raises(RuntimeError, match="needs a tty"):
             cli.main(["--interactive", "-r", "8,8", "--device", "cpu"])

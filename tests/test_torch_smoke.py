@@ -175,3 +175,20 @@ def test_gallery_is_instanced_by_auto_and_has_both_kinds_of_group():
     assert not (enc[~rays["active"]] >= 0).any()
     pos, direction = cs.gallery_camera(3)
     assert pos[1] > 0 and direction[2] < 0
+
+
+def test_smi_samples_and_busy_window():
+    """The fleet phase's utilization samples: nvidia-smi's lines parsed to
+    wall-clock seconds, a cut line skipped, the mean taken in a window."""
+    from datetime import datetime
+
+    text = ("2026/10/16 22:40:01.000, 20\n2026/10/16 22:40:01.100, 40\n"
+            "2026/10/16 22:40:01.200, 90\n2026/10/16 22:40:0")
+    samples = cs.smi_samples(text)
+    t0 = datetime(2026, 10, 16, 22, 40, 1).timestamp()
+    assert [u for _, u in samples] == [20.0, 40.0, 90.0]
+    assert abs(samples[1][0] - (t0 + 0.1)) < 1e-6
+    smi = cs.SmiSampler()
+    smi.samples = samples
+    assert smi.busy(t0, t0 + 0.15) == 30.0
+    assert smi.busy(t0 + 5, t0 + 6) is None

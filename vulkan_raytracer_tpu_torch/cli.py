@@ -25,8 +25,11 @@ linear accumulation after the render and ``--resume NPZ`` continues on top
 of one (same scene, camera, resolution, depth and estimator, held by a
 fingerprint; the files are the JAX CLI's, so either package resumes the
 other's); ``--trace DIR`` writes a ``torch.profiler`` chrome trace of the
-render to ``DIR/trace.json``.  ``--shard`` raises ``NotImplementedError``
-naming the ROADMAP item that ports it.
+render to ``DIR/trace.json``.  ``--shard`` splits the frame's pixels over
+the cards (``parallel/sharding.py``) and, when the caller has formed a
+``torch.distributed`` process group, over every rank of that fleet
+(``parallel/multihost.py``: rank 0's scene is broadcast and every rank writes
+the full image); under ``--device cpu`` it renders one CPU shard.
 
 ``--device cuda`` without a card is an error: the CLI never falls back to
 the CPU.
@@ -68,10 +71,6 @@ BUILTIN_SCENES = {  # vulkan_raytracer_tpu/cli.py:50-57
     "dragon": dragon_scene,  # bench cfg2 stand-in
     "chess": chess_scene,  # bench cfg3 stand-in
 }
-
-#: flags of the JAX CLI whose code paths are not ported yet -> ROADMAP item
-_NOT_PORTED = {"shard": "Queue 1, sharding and multihost"}
-
 
 def _parse_floats(value: str, n: int, name: str, default):
     if value == "d":
@@ -128,7 +127,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--hdr-output", default=None, help="Optional Radiance .hdr output")
     p.add_argument("--progressive", action="store_true",
                    help="Progressive per-frame loop (logs per-frame timing)")
-    p.add_argument("--shard", action="store_true", help="(not ported)")
+    p.add_argument("--shard", action="store_true",
+                   help="Split the pixels over every card (and every rank of a "
+                        "torch.distributed fleet)")
     p.add_argument("--interactive", action="store_true",
                    help="Terminal viewer with WASD/pan controls (needs a tty)")
     p.add_argument("--trace", default=None, metavar="DIR",
@@ -295,11 +296,6 @@ def run(argv=None) -> dict:
     ``frames`` and ``frame_ms``).  ``--interactive`` returns after the viewer
     closes, without an image."""
     args = build_parser().parse_args(argv)
-    for flag, item in _NOT_PORTED.items():
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag} is not ported to the torch package yet (ROADMAP.md {item})"
-            )
     device = resolve_device(args.device)
     width, height = args.resolution
 
@@ -347,10 +343,26 @@ def run(argv=None) -> dict:
         profiler.start()
 
     t0 = time.perf_counter()
-    mean_new, rays = render_image(
-        tables, camera, width, height, args.spp, args.max_ray_depth,
-        start_sample=start_sample, tonemap=False, nee_weighting=args.nee_weighting,
-    )
+    if args.shard:
+        # the fleet entry point (vulkan_raytracer_tpu/cli.py:292-307); in one
+        # process it is the sharded render over this process's devices
+        from .parallel.multihost import (
+            broadcast_scene_tables,
+            make_fleet_mesh,
+            render_image_multihost,
+        )
+
+        tables = broadcast_scene_tables(tables)
+        mean_new, rays = render_image_multihost(
+            tables, camera, width, height, args.spp, args.max_ray_depth,
+            make_fleet_mesh(None if device.type == "cuda" else [device]),
+            start_sample=start_sample, tonemap=False, nee_weighting=args.nee_weighting,
+        )
+    else:
+        mean_new, rays = render_image(
+            tables, camera, width, height, args.spp, args.max_ray_depth,
+            start_sample=start_sample, tonemap=False, nee_weighting=args.nee_weighting,
+        )
     # one linear accumulation feeds every sink (checkpoint, PNG, HDR)
     acc = np.asarray(mean_new, np.float32) * np.float32(args.spp)
     if acc_prev is not None:

@@ -10,11 +10,14 @@ there: :class:`Renderer` is progressive, one sample per
 buffer on the device, updated in place.  Lanes run in the 32x32-block pixel
 order of the JAX renderer and are scattered back to pixel order once.
 
-* A frame of at most ``MAX_LANES_PER_PASS`` pixels renders whole
-  (:func:`_render_batch`): samples are grouped ``s_batch`` to a wave and the
+Both are :func:`render_lanes` over the whole block order (the shards of
+``parallel/sharding.py`` run it over their runs of it):
+
+* A frame of at most ``MAX_LANES_PER_PASS`` pixels renders whole (the JAX
+  ``_render_batch``): samples are grouped ``s_batch`` to a wave and the
   waves summed in sample order, as in the JAX package.
-* A larger frame renders in bands (:func:`_render_batch_banded`, the JAX
-  ``_render_batch_banded`` :137): consecutive slices of the block order,
+* A larger frame renders in bands (the JAX ``_render_batch_banded`` :137):
+  consecutive slices of the block order,
   each traced ``SPP_CHUNK`` samples to a wave, with the JAX band arithmetic
   (:func:`band_plan`), a ragged last band and no padded lanes, so the rays
   traced are the JAX renderer's.  The JAX renderer fetches every (band,
@@ -66,9 +69,11 @@ def block_order(width: int, height: int, block: int = 32):
     return order, inverse
 
 
-def samples_per_wave(width: int, height: int, spp: int) -> int:
-    """The JAX renderer's s_batch rule (renderer.py:69-71)."""
-    s_batch = min(spp, max(1, MAX_LANES_PER_PASS // (width * height)))
+def samples_per_wave(lanes: int, spp: int) -> int:
+    """The JAX renderer's s_batch rule (renderer.py:69-71) for a wave over
+    ``lanes`` pixels: the most samples, dividing ``spp``, that keep the wave
+    within ``MAX_LANES_PER_PASS`` lanes (at least one)."""
+    s_batch = min(spp, max(1, MAX_LANES_PER_PASS // lanes))
     while spp % s_batch:
         s_batch -= 1
     return s_batch
@@ -89,64 +94,50 @@ def _render_wave(tables, view_inv, proj_inv, width, height, max_depth, samples, 
     return radiance.reshape(len(samples), n, 3).sum(dim=0), rays
 
 
-def _render_batch(tables, view_inv, proj_inv, width, height, max_depth, spp, start_sample,
-                  nee_weighting="reference"):
-    """Sum ``spp`` samples starting at ``start_sample`` in fixed wave order;
-    returns ((W*H, 3) pixel-ordered sum, rays traced)."""
-    n = width * height
-    if n > MAX_LANES_PER_PASS:
-        raise ValueError("use render_image (banded) above MAX_LANES_PER_PASS")
-    dev = tables.device
-    s_batch = samples_per_wave(width, height, spp)
-    lanes = torch.as_tensor(block_order(width, height)[0], device=dev)
-    acc = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-    rays = torch.zeros((), dtype=torch.int64, device=dev)
-    for w0 in range(0, spp, s_batch):
-        samples = [start_sample + w0 + k for k in range(s_batch)]
-        radiance, r = _render_wave(tables, view_inv, proj_inv, width, height, max_depth,
-                                   samples, lanes, nee_weighting)
-        acc.add_(radiance)
-        rays += r
-    LAST_RENDER.update(bands=0, waves=spp // s_batch)
-    out = torch.zeros_like(acc)
-    out[lanes.long()] = acc
-    return out, rays
-
-
 def band_plan(width: int, height: int, spp: int):
-    """The JAX band arithmetic (renderer.py:145-154): (samples per wave,
-    pixels per band, bands).  Each wave traces one band's pixels x
-    ``spp_chunk`` samples, at most ``MAX_LANES_PER_PASS`` lanes; the last
-    band may be shorter."""
-    n = width * height
+    """The JAX band arithmetic (renderer.py:145-154) for a frame: (samples
+    per wave, pixels per band, bands)."""
+    return _band_plan(width * height, spp, MAX_LANES_PER_PASS)
+
+
+def _band_plan(lanes: int, spp: int, max_lanes: int):
+    """(samples per wave, pixels per band, bands) of ``lanes`` pixels: each
+    wave traces one band's pixels x ``min(spp, SPP_CHUNK)`` samples, at most
+    ``max_lanes`` lanes; the last band may be shorter."""
     spp_chunk = min(spp, SPP_CHUNK)
-    n_bands = -(-n * spp_chunk // MAX_LANES_PER_PASS)
-    per = -(-n // n_bands)
-    return spp_chunk, per, -(-n // per)
+    n_bands = -(-lanes * spp_chunk // max_lanes)
+    per = -(-lanes // n_bands)
+    return spp_chunk, per, -(-lanes // per)
 
 
-def _render_batch_banded(tables, view_inv, proj_inv, width, height, max_depth, spp,
-                         start_sample, nee_weighting="reference"):
-    """:func:`_render_batch` for any frame size, band by band."""
-    dev = tables.device
-    spp_chunk, per, n_bands = band_plan(width, height, spp)
-    order, inverse = block_order(width, height)
-    order = torch.as_tensor(order, device=dev)
-    acc = torch.zeros((width * height, 3), dtype=torch.float32, device=dev)  # in block order
-    rays = torch.zeros((), dtype=torch.int64, device=dev)
+def render_lanes(tables, view_inv, proj_inv, width, height, max_depth, spp, start_sample,
+                 lanes, nee_weighting="reference", max_lanes=None):
+    """Sum ``spp`` samples starting at ``start_sample`` of the pixel ``lanes``
+    on the tables' device, in a fixed wave order.  At most ``max_lanes``
+    (default ``MAX_LANES_PER_PASS``) lanes render whole, in waves of
+    :func:`samples_per_wave` samples; more render in bands (:func:`_band_plan`).
+    Returns ((len(lanes), 3) sum aligned with ``lanes``, rays traced, bands
+    (0 whole), waves)."""
+    if max_lanes is None:
+        max_lanes = MAX_LANES_PER_PASS
+    n = lanes.shape[0]
+    acc = torch.zeros((n, 3), dtype=torch.float32, device=lanes.device)
+    rays = torch.zeros((), dtype=torch.int64, device=lanes.device)
+    if n <= max_lanes:
+        chunk, per, bands = samples_per_wave(n, spp), n, 0
+    else:
+        chunk, per, bands = _band_plan(n, spp, max_lanes)
     waves = 0
-    for b in range(n_bands):
-        lanes = order[b * per:(b + 1) * per]
-        band = acc[b * per:(b + 1) * per]
-        for done in range(0, spp, spp_chunk):
-            samples = [start_sample + done + k for k in range(min(spp_chunk, spp - done))]
+    for lo in range(0, n, per):
+        band = acc[lo:lo + per]
+        for done in range(0, spp, chunk):
+            samples = [start_sample + done + k for k in range(min(chunk, spp - done))]
             radiance, r = _render_wave(tables, view_inv, proj_inv, width, height, max_depth,
-                                       samples, lanes, nee_weighting)
+                                       samples, lanes[lo:lo + per], nee_weighting)
             band.add_(radiance)
             rays += r
             waves += 1
-    LAST_RENDER.update(bands=n_bands, waves=waves)
-    return acc[torch.as_tensor(inverse, device=dev).long()], rays
+    return acc, rays, bands, waves
 
 
 def camera_uniforms(camera: Camera):
@@ -185,11 +176,15 @@ def render_image(
     preview frame and is excluded from accumulation, raygen.rgen:95-96)."""
     camera.aspect = width / height
     view_inv, proj_inv = camera_uniforms(camera)
-    batch = _render_batch_banded if width * height > MAX_LANES_PER_PASS else _render_batch
     with torch.inference_mode():
-        acc, rays = batch(tables, view_inv, proj_inv, width, height, max_depth, spp,
-                          start_sample, nee_weighting=nee_weighting)
-        img = _postprocess(acc, spp, tonemap, as_uint8)
+        lanes = torch.as_tensor(block_order(width, height)[0], device=tables.device)
+        acc, rays, bands, waves = render_lanes(tables, view_inv, proj_inv, width, height,
+                                               max_depth, spp, start_sample, lanes,
+                                               nee_weighting=nee_weighting)
+        LAST_RENDER.update(bands=bands, waves=waves)
+        img = torch.zeros_like(acc)
+        img[lanes.long()] = acc
+        img = _postprocess(img, spp, tonemap, as_uint8)
         img = img.cpu().numpy().reshape(height, width, 3)
         total_rays = int(rays)
     return img, total_rays

@@ -151,19 +151,25 @@ class SceneObject:
 # ---------------------------------------------------------------------------
 
 
-def _to(x, device):
-    """Move a table tree (dataclasses, V3s, tensors; other leaves kept)."""
-    if isinstance(x, torch.Tensor):
-        return x.to(device)
+def map_tables(x, fn, path: str = "tables"):
+    """A table tree (dataclasses, V3s, tuples) rebuilt with each leaf (a
+    tensor, a count, a flag, None) replaced by ``fn(path, leaf)``, where
+    ``path`` names the leaf (``tables.v0.x``).  The dataclasses are new
+    objects, so their cached tables are built anew."""
     if isinstance(x, V3):
-        return V3(*(_to(c, device) for c in x))
+        return V3(*(map_tables(c, fn, f"{path}.{k}") for k, c in zip("xyz", x)))
     if isinstance(x, tuple):
-        return tuple(_to(c, device) for c in x)
-    if dataclasses.is_dataclass(x):
-        return dataclasses.replace(
-            x, **{f.name: _to(getattr(x, f.name), device) for f in dataclasses.fields(x)}
-        )
-    return x
+        return tuple(map_tables(c, fn, f"{path}[{i}]") for i, c in enumerate(x))
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return dataclasses.replace(x, **{
+            f.name: map_tables(getattr(x, f.name), fn, f"{path}.{f.name}")
+            for f in dataclasses.fields(x)})
+    return fn(path, x)
+
+
+def _to(x, device):
+    """Move a table tree's tensors to ``device`` (other leaves kept)."""
+    return map_tables(x, lambda _, v: v.to(device) if isinstance(v, torch.Tensor) else v)
 
 
 @dataclass(frozen=True)
