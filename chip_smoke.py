@@ -27,7 +27,8 @@ nonzero exit code:
    bounds.
 4. render   — the CLI's headless path for bench cfg1 (Cornell, 512x512,
    depth 4, 64 spp, camera 0,1,2.4 -> 0,0,-1) on ``cuda``; every dense kernel
-   must have been launched by it, and the image must be finite and lit.
+   must have been launched by it, every bounce at the wave's full width (no
+   repack on a dense scene), and the image must be finite and lit.
 5. walks    — both BVH walks (K4' whole-stream, K5' treelet; closest and
    shadow) against their plain versions on the streams of the full cfg2
    dragon (262,280 triangles, 128 treelets) and of the 147,136-triangle glTF
@@ -127,9 +128,9 @@ nonzero exit code:
    Mrays/s.
 23. shard_two — bench cfg2 through ``render_image_sharded`` on two shards of
    the one card (``[cuda:0, cuda:0]``; one wave of 4 samples x 131,072
-   pixels each) against ``render_image`` (two waves of 2 samples x 262,144),
-   in turns: rtol 1e-5 / atol 1e-6 (the samples are summed in another
-   grouping), equal rays; it must launch K5' (both variants) and K3.
+   pixels each) against ``render_image`` (two bands of 131,072 pixels x 4
+   samples, ``renderer._banded_preferred``), in turns: bit-equal (the same
+   waves), equal rays; it must launch K5' (both variants) and K3.
 24. fleet — two processes started with ``torch.multiprocessing`` in spawn
    mode form a gloo group over 127.0.0.1; rank 1 doubles a column of its
    tables before ``broadcast_scene_tables``; both render cfg1 through
@@ -140,6 +141,21 @@ nonzero exit code:
    must be phase 4's bit for bit), the card's utilization in each window from
    ``nvidia-smi`` every 100 ms, and the all-gather of one rank's block timed
    alone.  The kernels were built in phase 2, so the ranks only load them.
+
+25. repack — the first wave of the cfg2 render and of the glTF 147k render
+   (one band of 131,072 pixels x 4 samples, 524,288 lanes each) through
+   ``renderer._render_wave`` with the package's rule, which re-sorts the
+   lanes between bounces, re-sorts the NEE rays and steps the width ladder,
+   and with ``integrator._repack_preferred`` patched to False, in turns
+   (repacked, unsorted, unsorted, repacked): radiance bit-equal and rays
+   equal; the width and live lanes of each bounce, the live lanes and live
+   128-lane blocks of each K5' launch, and each side's wall, device time
+   and K5' device time from ``torch.profiler``.
+
+Scenes above 65,536 triangles (cfg2, the glTF 147k, the emitter soup, cfg5,
+the gallery) run the repacked wavefront in every phase that renders them,
+on the card and on the CPU alike; cfg1 and the other dense scenes keep lane
+order, and phase 4 checks that every cfg1 bounce ran at the full width.
 
 Then it prints the kernel summary (one JSON object: each kernel's launches
 over the paths driven with reset counters, in all and by phase; its time,
@@ -830,18 +846,20 @@ def record_dense_launches(run):
     return calls, {k: dense.LAUNCHES[KERNELS[k][1]] - before[k] for k in DENSE_SWEEPS}
 
 
-def record_wave(tables, cam, width: int = 512, height: int = 512):
-    """Every dense sweep call of the first wave of a ``width`` x ``height``
-    render of ``cam`` (samples 1-2, depth 4; tools/profile_torch_wave.py).
-    Returns the calls as :func:`record_dense_launches` does; on the card
-    each kernel's calls must equal its launches."""
-    import profile_torch_wave
+def record_wave(tables, cam, width: int = 512, height: int = 512, spp: int = 2):
+    """Every dense sweep call of the first wave of a ``width`` x ``height``,
+    ``spp`` render of ``cam`` at depth 4 (tools/profile_torch_wave.py: samples
+    1-2 of every pixel, or the first band of a banded frame).  Returns the
+    calls as :func:`record_dense_launches` does; on the card each kernel's
+    calls must equal its launches."""
+    from profile_torch_wave import first_wave, wave
+
     from vulkan_raytracer_tpu_torch.scene.camera import Camera
 
     camera = Camera(position=np.array(cam[0]), direction=np.array(cam[1]),
                     aspect=width / height)
     calls, launched = record_dense_launches(
-        profile_torch_wave._wave(tables, camera, width, height))
+        wave(tables, camera, width, height, 4, *first_wave(tables, width, height, spp)[:2]))
     counts = {k: sum(c[0] == k for c in calls) for k in DENSE_SWEEPS}
     if tables.device.type == "cuda" and counts != launched:
         raise AssertionError(f"recorded {counts} sweep calls, but {launched} launches")
@@ -890,10 +908,10 @@ def time_recorded(device, gallery, out_dir: Path) -> dict:
 
     textured = _load_glb(torch_glb_assets.write_textured_glb(out_dir), 12, 6)[0].upload(device)
     out = {}
-    for label, tables, cam, kernel in (
-            ("gltf147k", gallery, BIGASSET_CAM, "dense_emissive_pdf"),
-            ("alpha_relaunch", textured, TEXTURED_CAM, "dense_closest")):
-        calls = record_wave(tables, cam)
+    for label, tables, cam, spp, kernel in (
+            ("gltf147k", gallery, BIGASSET_CAM, 4, "dense_emissive_pdf"),
+            ("alpha_relaunch", textured, TEXTURED_CAM, 16, "dense_closest")):
+        calls = record_wave(tables, cam, spp=spp)
         err = check_recorded(calls, label)
         if kernel == "dense_emissive_pdf":
             args = max((a for k, a, _ in calls if k == kernel),
@@ -1637,16 +1655,21 @@ def shard_two(device, dragon, paths) -> None:
         out[label].append({"seconds": secs, "rays": rays, "mrays_per_s": rays / secs / 1e6})
     err = float(np.abs(images["shard"] - images["plain"]).max())
     per = w * h // len(mesh)
-    s_batch = {"plain": renderer.samples_per_wave(w * h, spp),
-               "shard": renderer.samples_per_wave(per, spp)}
+    chunk, band, bands = renderer.band_plan(w, h, spp)
+    s_batch = renderer.samples_per_wave(per, spp)
     emit({"phase": "shard_two", "config": "cfg2 dragon 512x512 depth 4 4 spp on [cuda:0, cuda:0]",
-          "lanes_per_shard": per, "waves": {"plain": spp // s_batch["plain"],
-                                            "per_shard": spp // s_batch["shard"]},
-          "lanes_per_wave": {"plain": s_batch["plain"] * w * h, "shard": s_batch["shard"] * per},
-          "runs": out, "max_abs_err": err, "launches": shard_launches,
-          "image_mean": float(images["shard"].mean())})
+          "lanes_per_shard": per, "plain": {"bands": renderer.LAST_RENDER["bands"],
+                                            "waves": renderer.LAST_RENDER["waves"],
+                                            "lanes_per_wave": chunk * band},
+          "per_shard": {"waves": spp // s_batch, "lanes_per_wave": s_batch * per},
+          "runs": out, "max_abs_err": err, "bit_equal": bool(np.array_equal(*images.values())),
+          "launches": shard_launches, "image_mean": float(images["shard"].mean())})
     rays = {r["rays"] for r in out["plain"] + out["shard"]}
-    if not (np.allclose(images["shard"], images["plain"], rtol=1e-5, atol=1e-6) and len(rays) == 1):
+    if not (renderer.LAST_RENDER == {"bands": bands, "waves": bands} == {"bands": 2, "waves": 2}
+            and band == per and chunk == s_batch):
+        raise AssertionError(f"cfg2 ran {renderer.LAST_RENDER}, planned {(chunk, band, bands)}: "
+                             f"not the shards' waves")
+    if not (np.array_equal(images["shard"], images["plain"]) and len(rays) == 1):
         raise AssertionError(f"cfg2 on two shards differs from one by {err}, rays {rays}")
     walks = shard_launches["traverse"]
     if not (walks["treelet_closest"] > 0 and walks["treelet_shadow"] > 0
@@ -1839,6 +1862,70 @@ def fleet_phase(want, want_rays: int, paths) -> None:
     paths.add("fleet", fleet["launches"])
 
 
+def repack_phase(paths, waves) -> None:
+    """The first wave of each ``(label, tables, camera)`` render (512x512,
+    depth 4, 4 spp) with the package's rule and with the repack patched off,
+    in turns: bit-equal radiance and equal rays; per side the bounces'
+    widths and live lanes, K5''s launches with their live lanes and blocks,
+    the wall, and the device time from ``torch.profiler``."""
+    import torch
+    from profile_torch_wave import first_wave, record_bounces, trace_summary, wave
+
+    from vulkan_raytracer_tpu_torch.render import integrator
+    from vulkan_raytracer_tpu_torch.scene.camera import Camera
+
+    rule = integrator._repack_preferred
+    sides = {"repacked": rule, "unsorted": lambda tables: False}
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for label, tables, cam in waves:
+        camera = Camera(position=np.array(cam[0]), direction=np.array(cam[1]), aspect=1.0)
+        lanes, samples, bands = first_wave(tables, 512, 512, 4)
+        if not (rule(tables) and bands == 2 and len(lanes) * len(samples) == 2 * 512 * 512):
+            raise AssertionError(f"{label}: not a repacked band of 524,288 lanes")
+        run = wave(tables, camera, 512, 512, 4, lanes, samples)
+        out = {name: {"seconds": []} for name in sides}
+        want = None
+        try:
+            for name in ("repacked", "unsorted", "unsorted", "repacked"):
+                integrator._repack_preferred = sides[name]
+                _reset_launches()
+                t0 = time.perf_counter()
+                radiance, rays = run()
+                out[name]["seconds"].append(time.perf_counter() - t0)
+                launches = _launch_counts()
+                if want is None:
+                    want = (radiance, rays)
+                    paths.add("repack", launches)
+                if not (torch.equal(radiance, want[0]) and rays == want[1]):
+                    raise AssertionError(f"{label}: the {name} wave differs from the repacked "
+                                         f"one by {float((radiance - want[0]).abs().max())}, "
+                                         f"rays {rays} against {want[1]}")
+                out[name].update(rays=rays, bounce_widths=dict(integrator.BOUNCE_WIDTHS),
+                                 k5_launches={k: launches["traverse"][k] for k in
+                                              ("treelet_closest", "treelet_shadow")})
+            for name, fn in sides.items():
+                integrator._repack_preferred = fn
+                record = record_bounces(run)
+                with torch.profiler.profile(activities=activities) as prof:
+                    run()
+                trace = trace_summary(prof)
+                out[name].update(
+                    bounces=[(b["width"], b["live"]) for b in record["bounces"]],
+                    k5=[(w["walk"], w["live"], w["live_blocks"], w["blocks"])
+                        for w in record["walk_launches"]],
+                    device_ms=trace.get("kernel_ms_busy"),
+                    k5_device_ms=trace.get("port_kernel_ms", {}).get("treelet_walk_kernel"),
+                    k5_in_trace=trace.get("port_kernel_launches", {}).get("treelet_walk_kernel"),
+                    aten_ops_top_level=trace["aten_ops_top_level"])
+        finally:
+            integrator._repack_preferred = rule
+        emit({"phase": "repack", "config": f"{label} first wave: {len(lanes)} pixels x samples "
+                                           f"{samples}, 512x512 depth 4",
+              "bit_equal": True, "rays": want[1], **out,
+              "note": "bounces: (width, live lanes); k5: (walk, live lanes, live 128-lane "
+                      "blocks, blocks) per launch"})
+
+
 def bvh_vs_dense(device) -> None:
     """The BVH walks against the dense kernels over one 60,000-triangle soup."""
     import torch
@@ -1901,8 +1988,8 @@ def _launch_counts():
 
 
 def _reset_launches() -> None:
-    """Zero the kernels' launch counters, the instance-step counter and the
-    alpha loop's counter."""
+    """Zero the kernels' launch counters, the instance-step counter, the
+    alpha loop's counter and the bounce widths."""
     from vulkan_raytracer_tpu_torch.ops import dense, instanced
     from vulkan_raytracer_tpu_torch.ops import traverse as tr
     from vulkan_raytracer_tpu_torch.render import integrator
@@ -1911,6 +1998,7 @@ def _reset_launches() -> None:
     tr.reset_launches()
     instanced.reset_stats()
     integrator.reset_alpha_loop()
+    integrator.reset_bounce_widths()
 
 
 def _alpha_loop() -> dict:
@@ -2208,20 +2296,25 @@ def main() -> int:
     # 4. render: the CLI's headless path for bench cfg1
     from vulkan_raytracer_tpu_torch import cli
 
+    from vulkan_raytracer_tpu_torch.render import integrator
+
     with tempfile.TemporaryDirectory() as out_dir:
         _reset_launches()
         stats = cli.run(CFG1 + ["--device", "cuda", "--output", f"{out_dir}/cfg1.png"])
         launches = _launch_counts()
     img = cfg1_img = stats["image"]
     cfg1_rays = stats["rays"]
+    cfg1_widths = dict(integrator.BOUNCE_WIDTHS)
     if not all(launches["dense"][c] > 0 for c in ("closest", "shadow", "pdf")):
         raise AssertionError(f"cfg1 render missed a kernel: launches {launches}")
+    if integrator._repack_preferred(cornell) or set(cfg1_widths) != {n_wave}:
+        raise AssertionError(f"cfg1 ran a repacked wavefront: bounce widths {cfg1_widths}")
     if not np.isfinite(img).all() or img.shape != (512, 512, 3):
         raise AssertionError(f"cfg1 image not finite or misshapen: {img.shape}")
     if not img.mean() > 1e-3:
         raise AssertionError(f"cfg1 image is black (mean {img.mean()})")
     emit({"phase": "render", "config": "cfg1 cornell 512x512 depth 4 64 spp",
-          "seconds": stats["seconds"], "rays": stats["rays"],
+          "seconds": stats["seconds"], "rays": stats["rays"], "bounce_widths": cfg1_widths,
           "mrays_per_s": stats["mrays_per_s"], "launches": launches,
           "image_mean": float(img.mean())})
     paths = PathLaunches()
@@ -2237,10 +2330,10 @@ def main() -> int:
     dragon = dragon_scene.upload(device)
     with tempfile.TemporaryDirectory() as tmp:
         glb = torch_glb_assets.write_bigasset_glb(Path(tmp), big=True)
-        gallery = _load_glb(glb, triangles=147136, textures=5)[0].upload(device)
+        bigasset = _load_glb(glb, triangles=147136, textures=5)[0].upload(device)
         walk_times = {}
         for label, tables, cam in (("cfg2", dragon, CFG2_CAM),
-                                   ("gltf147k", gallery, BIGASSET_CAM)):
+                                   ("gltf147k", bigasset, BIGASSET_CAM)):
             if not tables.pbvh.nbytes <= STREAM_BYTES_MAX:
                 raise AssertionError(f"{label}: the BVH streams take {tables.pbvh.nbytes} bytes")
             for name, e in check_walks(tables, (n_wave, n_wave - 37), device, label,
@@ -2249,7 +2342,7 @@ def main() -> int:
             walk_times[label] = time_walks(tables, n_wave, device, label, cam)
         times.update(walk_times["cfg2"])
         # K3 and K1 at launches the glTF renders make
-        recorded = time_recorded(device, gallery, Path(tmp))
+        recorded = time_recorded(device, bigasset, Path(tmp))
 
     # 6. the BVH walks against the dense kernels
     bvh_vs_dense(device)
@@ -2310,8 +2403,11 @@ def main() -> int:
     # fleet of two processes
     shard_one(cfg1_img, cfg1_rays, paths)
     shard_two(device, dragon, paths)
-    del dragon
     fleet_phase(cfg1_img, cfg1_rays, paths)
+
+    # 25. the repacked wavefront against the unsorted one at two BVH waves
+    repack_phase(paths, (("cfg2", dragon, CFG2_CAM), ("gltf147k", bigasset, BIGASSET_CAM)))
+    del dragon, bigasset
 
     import vulkan_raytracer_tpu_torch.viewer  # noqa: F401  (held to the same check)
 

@@ -7,7 +7,8 @@
 Run from the root of a checkout on a machine with an NVIDIA card.  For each
 of cfg1 (the built-in Cornell box), the textured glb and the
 147,136-triangle glTF (written by tools/torch_glb_assets.py), it renders the
-first wave of a 512x512, depth-4 render (samples 1-2, 524,288 lanes;
+first wave of its 512x512, depth-4 render (524,288 lanes: samples 1-2 of every
+pixel, or for the glTF its first band of 131,072 pixels x 4 samples;
 tools/profile_torch_wave.py) with every dense sweep call recorded
 (``chip_smoke.record_wave``: the inputs and the result, cloned).  Each
 recorded call is then replayed ``--reps`` times under torch.profiler, which
@@ -205,8 +206,10 @@ def main(argv=None) -> int:
     for config in waves:
         scene, pos, direction = profile_torch_wave.CONFIGS[config]
         tables = profile_torch_wave._scene(scene).upload(device)
-        calls = cs.record_wave(tables, (pos, direction))
-        lines.append(json.dumps({**head, "config": f"{config} wave (samples 1-2 of 512x512)",
+        spp = profile_torch_wave.FRAMES[config][2]
+        calls = cs.record_wave(tables, (pos, direction), spp=spp)
+        lines.append(json.dumps({**head, "config": f"{config}: the first wave of 512x512 at "
+                                                   f"{spp} spp",
                                  **wave_summary(cs, calls, args.reps)}))
         print(lines[-1], flush=True)
         del tables, calls

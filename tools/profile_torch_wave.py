@@ -1,34 +1,52 @@
 #!/usr/bin/env python3
-"""Where one bench wave of the torch port spends its time on a card.
+"""Where one bench wave of the torch port spends its time on a card, with
+the wavefront repack and without it.
 
-    python3 tools/profile_torch_wave.py [--config cfg1|cfg2|gltf|textured|instanced] [--reps 3]
-                                        [--out FILE.json]
+    python3 tools/profile_torch_wave.py
+        [--config cfg1|cfg2|gltf|textured|instanced|soup|cfg5] [--reps 3] [--out FILE.json]
 
 Run from the root of a checkout on a machine with an NVIDIA card.  It
-renders one wave of a bench configuration at 512x512, depth 4: samples 1
-and 2 of all 262,144 pixels, 524,288 lanes, exactly the first wave
-``render_image`` runs (of 32 for cfg1, the built-in Cornell box on the dense
-kernels; of 2 for cfg2, the 262,280-triangle dragon on the BVH walks; of 2
-for gltf, the 147,136-triangle textured .glb of tests/test_bigasset_glb.py,
-written by tools/torch_glb_assets.py, on the BVH walks with the alpha
-resample loop; of 8 for textured, the 12-triangle .glb of
-tests/test_textured_glb.py at 16 spp, on the dense kernels with the alpha
-loop; of 2 for instanced, ``chip_smoke.gallery_scene()``: 64 instances of the
-262,144-triangle dragon mesh, a floor and two emissive panels, uploaded
-instanced, on the two-level traversal of ``ops/instanced.py``), through
-``renderer._render_wave``:
+renders the first wave ``render_image`` runs for a bench configuration:
+cfg1, the built-in Cornell box at 512x512, 64 spp, on the dense kernels;
+cfg2, the 262,280-triangle dragon at 512x512, 4 spp, on the BVH walks;
+gltf, the 147,136-triangle textured .glb of tests/test_bigasset_glb.py
+(written by tools/torch_glb_assets.py) at 512x512, 4 spp, on the BVH walks
+with the alpha resample loop; textured, the 12-triangle .glb of
+tests/test_textured_glb.py at 512x512, 16 spp, on the dense kernels with
+the alpha loop; instanced, ``chip_smoke.gallery_scene()`` at 512x512, 4 spp:
+64 instances of the 262,144-triangle dragon mesh, a floor and two emissive
+panels on the two-level traversal of ``ops/instanced.py``; soup,
+``chip_smoke.emitter_soup_scene(100000, 5000, seed=31)`` at 512x512, 4 spp,
+cfg1's camera, whose pdf probes walk the emissive BVH; cfg5,
+``multi_scene`` at 1920x1080, 8 spp, whose first wave is one band of 64,800
+pixels x 8 samples.  All at depth 4 (cfg5: 8).  The wave is the one the
+package's rules pick: a scene on the repacked wavefront whose frame cannot
+hold min(spp, 8) samples in one wave starts with a band
+(``renderer._banded_preferred``), any other with samples 1.. of every
+pixel.  It runs the wave through ``renderer._render_wave`` on two sides,
+the package as it runs (``repacked``: the re-sorts and the width ladder
+where ``integrator._repack_preferred`` turns them on) and with that
+predicate patched to False (``unsorted``):
 
-1. once to build the kernels and warm the allocator;
-2. ``--reps`` times unprofiled: the wall of each, CUDA-synchronised;
-3. once under ``torch.profiler`` (CPU + CUDA activities): the same wave's
-   wall, and from its trace the device kernels (count, summed time, the
+1. each side once to build the kernels and warm the allocator;
+2. ``--reps`` times each side unprofiled, in turns (repacked, unsorted,
+   unsorted, repacked, ...): the wall of each, CUDA-synchronised, and the
+   radiance, which must be bit-equal between the sides;
+3. each side once recorded: the width and live lanes of each bounce, and
+   the live lanes and live 128-lane blocks of each K4'/K5' launch (counting
+   them synchronises, so this run is not timed);
+4. each side once under ``torch.profiler`` (CPU + CUDA activities): the
+   wall, and from the trace the device kernels (count, summed time, the
    span they cover), the aten ops the host issued, the hand-written
-   kernels' launches and device time, and the alpha loop's iterations.
+   kernels' launches and device time, each walk launch's device µs in
+   issue order (beside step 3's live lanes of the same launch), the
+   sorts' device time, and the alpha loop's iterations.
 
-For instanced it also reports the instance steps, the steps skipped by the
-box test, the live lanes of each ``instanced_closest`` call (one a bounce),
-and the same wave's wall with the box test's host synchronisation taken out
-(every instance launched), alternating with the walls of step 2.
+For instanced it also reports, on the repacked side, the instance steps,
+the steps skipped by the box test, the live lanes of each
+``instanced_closest`` call (one a bounce), and the wave's wall with the box
+test's host synchronisation taken out (every instance launched), alternating
+with the walls as the package runs.
 
 It prints one JSON object (and writes it to ``--out`` if given).  The device
 busy share is kernel time over wall, against the profiled wall (the same
@@ -52,32 +70,42 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent.parent
-WIDTH = HEIGHT = 512
-DEPTH = 4
-SAMPLES = [1, 2]  # the first wave of a 64-spp render_image (start_sample 1)
 #: the port's hand-written kernels, by the names the trace gives them
 PORT_KERNELS = ("closest_kernel", "shadow_kernel", "pdf_kernel", "bvh_walk_kernel",
-                "treelet_walk_kernel")
-#: config -> (scene: a built-in name or a generated .glb, camera position, direction)
+                "treelet_walk_kernel", "emissive_walk_kernel")
+WALK_BLOCK = 128  # rays per block of the BVH walks (csrc/bvh_walk.cu kThreads)
+#: config -> (scene: a built-in name, a generated .glb or a smoke scene,
+#: camera position, direction)
 CONFIGS = {
     "cfg1": ("cornell", [0.0, 1.0, 2.4], [0.0, 0.0, -1.0]),
     "cfg2": ("dragon", [0.0, 2.2, 4.5], [0.0, -0.25, -1.0]),
     "gltf": ("bigasset.glb", [0.0, 1.7, 4.6], [0.0, -0.28, -1.0]),
     "textured": ("textured.glb", [0.0, 0.0, 2.8], [0.0, 0.0, -1.0]),
     "instanced": ("gallery", None, None),  # the camera is chip_smoke.gallery_camera()
+    "soup": ("emitter_soup", [0.0, 1.0, 2.4], [0.0, 0.0, -1.0]),
+    "cfg5": ("multi", [-9.0, 2.0, 1.5], [1.0, -0.1, -0.15]),
 }
+#: config -> (width, height, spp, depth) of its render
+FRAMES = {"cfg1": (512, 512, 64, 4), "cfg2": (512, 512, 4, 4), "gltf": (512, 512, 4, 4),
+          "textured": (512, 512, 16, 4), "instanced": (512, 512, 4, 4),
+          "soup": (512, 512, 4, 4), "cfg5": (1920, 1080, 8, 8)}
 
 
 def _scene(name: str):
     from vulkan_raytracer_tpu_torch.cli import BUILTIN_SCENES
+    from vulkan_raytracer_tpu_torch.scene import procedural
     from vulkan_raytracer_tpu_torch.scene.scenegraph import Scene
 
     if name in BUILTIN_SCENES:
         return BUILTIN_SCENES[name]()
-    if name == "gallery":
+    if name == "multi":
+        return procedural.multi_scene()
+    if name in ("gallery", "emitter_soup"):
         import chip_smoke
 
-        return chip_smoke.gallery_scene()
+        if name == "gallery":
+            return chip_smoke.gallery_scene()
+        return chip_smoke.emitter_soup_scene(100000, 5000, seed=31)
     sys.path.insert(0, str(ROOT / "tools"))
     import torch_glb_assets
 
@@ -90,25 +118,70 @@ def _scene(name: str):
     return scene
 
 
-def _wave(tables, camera, width: int = WIDTH, height: int = HEIGHT):
-    """The first wave of a ``width`` x ``height`` render: a function that
-    runs it (synchronised on a card) and returns (radiance, rays)."""
+def first_wave(tables, width: int, height: int, spp: int):
+    """The pixel lanes and samples of the first wave ``render_image`` runs
+    (start sample 1), and the frame's bands (0 whole)."""
+    from vulkan_raytracer_tpu_torch.render import renderer
+
+    order = renderer.block_order(width, height)[0]
+    if renderer._banded_preferred(tables, width, height, spp):
+        chunk, per, bands = renderer.band_plan(width, height, spp)
+        return order[:per], list(range(1, chunk + 1)), bands
+    return order, list(range(1, renderer.samples_per_wave(width * height, spp) + 1)), 0
+
+
+def wave(tables, camera, width: int, height: int, depth: int, lanes, samples):
+    """A function that runs the wave (synchronised on a card) and returns
+    (radiance, rays)."""
     import torch
 
     from vulkan_raytracer_tpu_torch.render import renderer
 
     view_inv, proj_inv = renderer.camera_uniforms(camera)
-    lanes = torch.as_tensor(renderer.block_order(width, height)[0], device=tables.device)
+    lanes = torch.as_tensor(lanes, device=tables.device)
 
     def run():
         with torch.inference_mode():
             radiance, rays = renderer._render_wave(tables, view_inv, proj_inv, width, height,
-                                                   DEPTH, SAMPLES, lanes, "reference")
+                                                   depth, samples, lanes, "reference")
             if tables.device.type == "cuda":
                 torch.cuda.synchronize()
         return radiance, int(rays)
 
     return run
+
+
+def record_bounces(run) -> dict:
+    """Run the wave once with the bounce loop and the BVH walks wrapped:
+    each bounce's width and live lanes, and each walk launch's kind, lanes,
+    live lanes (``t_init >= 0``) and 128-lane blocks with a live lane."""
+    import torch
+
+    from vulkan_raytracer_tpu_torch.ops import traverse
+    from vulkan_raytracer_tpu_torch.render import integrator
+
+    bounce, walk = integrator._bounce, traverse._walk
+    bounces, walks = [], []
+
+    def recording_bounce(tables, s, b, n_active, *args):
+        bounces.append({"bounce": b, "width": int(s["active"].shape[0]), "live": n_active})
+        return bounce(tables, s, b, n_active, *args)
+
+    def recording_walk(kind, s, rays, t_lo, t_init, shadow):
+        live = (t_init >= 0).to(torch.int32)
+        blocks = torch.nn.functional.pad(live, (0, -live.shape[0] % WALK_BLOCK))
+        blocks = blocks.reshape(-1, WALK_BLOCK).amax(1)
+        walks.append({"walk": f"{kind}_{'shadow' if shadow else 'closest'}",
+                      "lanes": live.shape[0], "live": int(live.sum()),
+                      "live_blocks": int(blocks.sum()), "blocks": blocks.shape[0]})
+        return walk(kind, s, rays, t_lo, t_init, shadow)
+
+    try:
+        integrator._bounce, traverse._walk = recording_bounce, recording_walk
+        run()
+    finally:
+        integrator._bounce, traverse._walk = bounce, walk
+    return {"bounces": bounces, "walk_launches": walks}
 
 
 def _instanced_extras(run, reps: int) -> dict:
@@ -156,7 +229,7 @@ def _timed(run):
     return time.perf_counter() - t0, radiance, rays
 
 
-def _trace_summary(prof) -> dict:
+def trace_summary(prof) -> dict:
     """Device kernels and host aten ops of one profiled run."""
     from torch.autograd import DeviceType
 
@@ -182,6 +255,12 @@ def _trace_summary(prof) -> dict:
     port_us = {k: sum(us for name, us in by_name.items() if k in name) for k in PORT_KERNELS}
     port_n = {k: sum(k in name for name, _, _ in kernels) for k in PORT_KERNELS}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    # K4'/K5' launches in issue order (each one's device µs; the trace may
+    # drop a few records), and the device time of the sorts (argsort's
+    # radix-sort kernels)
+    walks_us = [e - s for name, s, e in kernels
+                if "walk_kernel" in name and "emissive" not in name]
+    sort_us = sum(e - s for name, s, e in kernels if "sort" in name.lower())
     return {
         "device_events": len(kernels),
         "kernel_ms_sum": sum(e - s for _, s, e in kernels) / 1e3,
@@ -189,10 +268,28 @@ def _trace_summary(prof) -> dict:
         "kernel_span_ms": (kernels[-1][2] - kernels[0][1]) / 1e3,
         "port_kernel_ms": {k: us / 1e3 for k, us in port_us.items() if us},
         "port_kernel_launches": {k: n for k, n in port_n.items() if n},
+        "walk_launch_us": walks_us,
+        "sort_ms": sort_us / 1e3,
         "aten_ops": aten,
         "aten_ops_top_level": aten_top,
         "top_kernels_ms": {name[:80]: us / 1e3 for name, us in top},
     }
+
+
+def _side(walls, prof_s, trace, record) -> dict:
+    """One side's numbers: walls, trace, busy share, the recorded run."""
+    median = statistics.median(walls)
+    out = {"wall_s": walls, "wall_s_median": median, "wall_s_min": min(walls),
+           "wall_s_max": max(walls), "profiled_wall_s": prof_s, **trace, **record}
+    if trace["device_events"]:
+        busy_ms = trace["kernel_ms_busy"]
+        out["busy_share_profiled"] = busy_ms / (prof_s * 1e3)
+        out["busy_share_unprofiled"] = busy_ms / (median * 1e3)
+        out["idle_share_profiled"] = 1.0 - out["busy_share_profiled"]
+        out["idle_share_unprofiled"] = 1.0 - out["busy_share_unprofiled"]
+        out["wall_us_per_top_level_aten_op"] = (
+            median * 1e6 / max(trace["aten_ops_top_level"], 1))
+    return out
 
 
 def main(argv=None) -> int:
@@ -214,44 +311,56 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     scene, pos, direction = CONFIGS[args.config]
+    width, height, spp, depth = FRAMES[args.config]
     if scene == "gallery":
         import chip_smoke
 
         pos, direction = chip_smoke.gallery_camera()
     tables = _scene(scene).upload("cuda")
     camera = Camera(position=np.array(pos), direction=np.array(direction),
-                    aspect=WIDTH / HEIGHT)
-    run = _wave(tables, camera)
-    warm_s, _, rays = _timed(run)
-    walls = [_timed(run)[0] for _ in range(args.reps)]
-
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    integrator.reset_alpha_loop()
-    instanced.reset_stats()
-    with torch.profiler.profile(activities=activities) as prof:
-        prof_s, radiance, prof_rays = _timed(run)
-    alpha_loop = dict(integrator.ALPHA_LOOP)
-    trace = _trace_summary(prof)
-    median = statistics.median(walls)
+                    aspect=width / height)
+    lanes, samples, bands = first_wave(tables, width, height, spp)
+    run = wave(tables, camera, width, height, depth, lanes, samples)
+    rule = integrator._repack_preferred
+    sides = {"repacked": rule, "unsorted": lambda t: False}
+    walls = {name: [] for name in sides}
+    radiance, rays = {}, {}
+    try:
+        for name, fn in sides.items():  # warm up; the kernels build on the first
+            integrator._repack_preferred = fn
+            radiance[name], rays[name] = _timed(run)[1:]
+        for r in range(args.reps):
+            for name in list(sides)[::1 if r % 2 == 0 else -1]:
+                integrator._repack_preferred = sides[name]
+                secs, got, got_rays = _timed(run)
+                walls[name].append(secs)
+                if not (torch.equal(got, radiance["repacked"]) and got_rays == rays["repacked"]):
+                    raise AssertionError(f"the {name} wave differs from the repacked one")
+        out_sides = {}
+        for name, fn in sides.items():
+            integrator._repack_preferred = fn
+            record = record_bounces(run)
+            integrator.reset_alpha_loop()
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                prof_s = _timed(run)[0]
+            out_sides[name] = {**_side(walls[name], prof_s, trace_summary(prof), record),
+                               "alpha_loop": dict(integrator.ALPHA_LOOP)}
+    finally:
+        integrator._repack_preferred = rule
     out = {
-        "config": f"{args.config} wave: {scene} 512x512 depth 4, samples 1-2, 524,288 lanes",
+        "config": f"{args.config} wave: {scene} {width}x{height} depth {depth}, {spp} spp",
         "nvidia_smi": smi, "torch": torch.__version__,
-        "rays": rays, "rays_profiled": prof_rays,
-        "radiance_finite": bool(torch.isfinite(radiance).all()),
-        "warm_wall_s": warm_s, "wall_s": walls, "wall_s_median": median,
-        "profiled_wall_s": prof_s, "alpha_loop": alpha_loop, **trace,
+        "repack_preferred": rule(tables), "bands": bands, "pixels": len(lanes),
+        "samples": samples, "lanes": len(lanes) * len(samples), "rays": rays["repacked"],
+        "radiance_finite": bool(torch.isfinite(radiance["repacked"]).all()),
+        "radiance_bit_equal": True, "sides": out_sides,
     }
     if tables.inst is not None:
+        instanced.reset_stats()
+        run()
         out["instanced"] = {"instances": tables.inst.num_instances, **instanced.STATS,
                             **_instanced_extras(run, args.reps)}
-    if trace["device_events"]:
-        busy_ms = trace["kernel_ms_busy"]
-        out["busy_share_profiled"] = busy_ms / (prof_s * 1e3)
-        out["busy_share_unprofiled"] = busy_ms / (median * 1e3)
-        out["idle_share_profiled"] = 1.0 - out["busy_share_profiled"]
-        out["idle_share_unprofiled"] = 1.0 - out["busy_share_unprofiled"]
-        out["wall_us_per_top_level_aten_op"] = (
-            median * 1e6 / max(trace["aten_ops_top_level"], 1))
     line = json.dumps(out)
     print(line, flush=True)
     if args.out:

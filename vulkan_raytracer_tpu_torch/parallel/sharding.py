@@ -15,6 +15,14 @@ host, and a Python thread per shard would only contend for the interpreter
 lock.  One process per card is how the port scales out
 (:mod:`.multihost`); the shards of a process only split its lanes the way
 the fleet does.
+
+Each shard runs ``renderer.render_lanes`` with its own band rule: whole
+below ``MAX_LANES_PER_PASS`` lanes, as the JAX ``render_image_sharded``
+(sharding.py:215) does, without ``renderer._banded_preferred``.  So a mesh
+of one equals ``render_image`` bit for bit where that rule keeps the frame
+whole (dense scenes, 1 spp, frames that fit ``SPP_CHUNK`` samples in a
+wave); where it bands a frame below the cap, the samples are summed in
+another grouping.
 """
 
 from __future__ import annotations

@@ -24,20 +24,33 @@ rejected candidate with per-lane ``t_min``, so the kernels themselves stay
 alpha-free; on alpha scenes the occlusion rays go through the same loop.
 
 The port takes the JAX package's default settings as fixed: the skybox
-fetch is deferred to one lookup after the loop, NEE prunes lanes whose
-contribution is zero regardless of occlusion (on alpha-free scenes), and
-there is no wavefront re-sort or width ladder (estimator-invariant
-permutations tuned for the TPU's packets; ROADMAP.md Queue 1 keeps them
-behind an H100 A/B, under "the re-sorts and the width ladder").  The
+fetch is deferred to one lookup after the loop, and NEE prunes lanes whose
+contribution is zero regardless of occlusion (on alpha-free scenes).  The
 emissive-pdf probe is the dense pdf sweep up to ``EMISSIVE_MAX_TRIS``
 emissive triangles and the walk of the emissive-only BVH above.
+
+Scenes whose rays walk BVH streams (:func:`_repack_preferred`, the JAX
+``_beam_occlusion`` rule) run a repacked wavefront (integrator.py:918-1137):
+lanes start in 32x32-block pixel order, and every bounce after the first
+re-sorts them by :func:`_coherence_key` (dead last, then the direction
+octant, then the Morton cell of the origin); NEE occlusion rays are re-sorted
+by their own key (:func:`_shadow`).  Once at most half the lanes are alive
+the live ones are a prefix of the sorted wave, so the loop goes on at half and
+then a quarter of the width (the width ladder) and rejoins the tail at the
+end; ``slot`` carries each lane's output position.  A lane's state never
+depends on its neighbours, so the image and the ray count are those of the
+unsorted loop, bit for bit.  :data:`BOUNCE_WIDTHS` counts the bounces run at
+each width.
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
-from ..ops import rng
+from ..ops import dense, rng
 from ..ops.bsdf import HitInfo, HitMaterial, material_bsdf, material_pdf, sample_material
 from ..ops.dense import EMISSIVE_MAX_TRIS, dense_closest, dense_emissive_pdf, dense_shadow
 from ..ops.instanced import apply_normal_matrix, instanced_closest, instanced_shadow
@@ -56,6 +69,15 @@ ALPHA_LOOP = {"calls": 0, "iterations": 0, "max": 0}
 def reset_alpha_loop() -> None:
     for k in ALPHA_LOOP:
         ALPHA_LOOP[k] = 0
+
+
+#: Bounces since the last reset, by the width of the wave they ran at: a
+#: repacked wave of n lanes shows n, n // 2 and n // 4 once the ladder stepped.
+BOUNCE_WIDTHS: dict[int, int] = {}
+
+
+def reset_bounce_widths() -> None:
+    BOUNCE_WIDTHS.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -170,12 +192,114 @@ def _shadow_unsorted(tables, o: V3, d: V3, *, t_max, active, seed):
     return (tri >= 0) & active, seed
 
 
+def _shadow(tables, o: V3, d: V3, *, t_max, active, seed):
+    """Occlusion query (integrator.py:234-267).  On a repacked scene the
+    rays are sorted by their own :func:`_coherence_key` first (NEE rays
+    point at the lights, not along the material rays the wave is sorted
+    for), and the flags and seeds are scattered back: BLEND alpha draws
+    random numbers inside the query, so a seed travels with its lane."""
+    if not _repack_preferred(tables):
+        return _shadow_unsorted(tables, o, d, t_max=t_max, active=active, seed=seed)
+    perm = torch.argsort(_coherence_key(tables, o, d, ~active), stable=True)
+    occ_p, seed_p = _shadow_unsorted(tables, v3_gather(o, perm), v3_gather(d, perm),
+                                     t_max=t_max[perm], active=active[perm], seed=seed[perm])
+    occ = torch.empty_like(occ_p).index_copy_(0, perm, occ_p)
+    return occ, torch.empty_like(seed).index_copy_(0, perm, seed_p)
+
+
 def _emissive_pdf(tables, o: V3, d: V3, *, t_min, active):
     if tables.num_emissive_tris == 0:
         return torch.zeros(o.x.shape[0], dtype=_F32, device=o.x.device)
     if tables.num_emissive_tris > EMISSIVE_MAX_TRIS:
         return bvh_emissive_pdf(tables, o, d, t_min=t_min, active=active)
     return dense_emissive_pdf(tables, o, d, t_min=t_min, active=active)
+
+
+# ---------------------------------------------------------------------------
+# Lane order: 32x32 pixel blocks and the coherence re-sort
+# ---------------------------------------------------------------------------
+
+
+def _repack_preferred(tables) -> bool:
+    """Does this scene run a repacked wavefront?  The JAX ``_beam_occlusion``
+    rule (integrator.py:220-231): a flattened scene that walks BVH streams
+    because it has more than ``DENSE_MAX_TRIS`` triangles, or an instanced
+    scene with a prototype that walks its own streams.  Dense scenes, and a
+    small scene put on the BVH path by ``traversal="bvh"``, keep lane order."""
+    if tables.inst is not None:
+        return any(g.pblas is not None for g in tables.inst.groups)
+    return tables.pbvh is not None and tables.num_triangles > dense.DENSE_MAX_TRIS
+
+
+@functools.lru_cache(maxsize=8)
+def block_order(width: int, height: int, block: int = 32):
+    """Pixel permutation grouping 32x32 image blocks into consecutive lanes
+    (integrator.py:376-395).  Returns (order, inverse) numpy int32 arrays;
+    cached, so callers must not mutate them."""
+    idx = np.arange(width * height)
+    px, py = idx % width, idx // width
+    nbx = -(-width // block)
+    key = ((py // block) * nbx + (px // block)) * (block * block) + (py % block) * block + (
+        px % block
+    )
+    order = np.argsort(key, kind="stable").astype(np.int32)
+    inverse = np.argsort(order, kind="stable").astype(np.int32)
+    return order, inverse
+
+
+def _morton6(x):
+    """Interleave the low 6 bits of x into every third bit (integrator.py:307-313)."""
+    out = torch.zeros_like(x)
+    for i in range(6):
+        out = out | (((x >> i) & 1) << (3 * i))
+    return out
+
+
+@functools.lru_cache(maxsize=8)
+def _morton_table(device) -> torch.Tensor:
+    """:func:`_morton6` of 0..63 as a table on ``device``, one gather a cell."""
+    return _morton6(torch.arange(64, dtype=torch.int32, device=device))
+
+
+def _coherence_key(tables, o: V3, d: V3, dead):
+    """(dead, direction octant, Morton cell of the origin) as one int32 per
+    lane, ``dead << 30 | octant << 27 | morton << 9`` (integrator.py:316-349).
+    The cells are 64 per axis over the root bounds: the BVH root's, or on an
+    instanced scene the union of the instance boxes."""
+    if tables.inst is not None:
+        lo = torch.stack([g.aabb_min.amin(0) for g in tables.inst.groups]).amin(0)
+        hi = torch.stack([g.aabb_max.amax(0) for g in tables.inst.groups]).amax(0)
+    else:
+        lo, hi = tables.bvh.aabb_min[0], tables.bvh.aabb_max[0]
+    scale = 64.0 / torch.clamp_min(hi - lo, 1e-20)
+    cells = torch.clamp((torch.stack(o) - lo[:, None]) * scale[:, None], 0.0, 63.0)
+    m = _morton_table(o.x.device)[cells.to(torch.int32)]  # (3, N): x, y, z
+    neg = (torch.stack(d) < 0).to(torch.int32)
+    key = (((m[0] << 2) | (m[1] << 1) | m[2]) << 9) | (neg[0] << 29) | (neg[1] << 28)
+    return key | (neg[2] << 27) | (dead.to(torch.int32) << 30)
+
+
+def _sort_wavefront(tables, s: dict) -> dict:
+    """The wave state sorted by :func:`_coherence_key` (integrator.py:352-373),
+    stably, as ``jnp.argsort`` sorts: one gather per tensor of every field."""
+    key = _coherence_key(tables, s["origin"], s["direction"], ~s["active"])
+    perm = torch.argsort(key, stable=True)
+    return {k: v3_gather(v, perm) if isinstance(v, V3) else torch.index_select(v, 0, perm)
+            for k, v in s.items()}
+
+
+def _split(s: dict, m: int):
+    """The first ``m`` lanes of every field, and the rest."""
+    def part(sl):
+        return {k: V3(v.x[sl], v.y[sl], v.z[sl]) if isinstance(v, V3) else v[sl]
+                for k, v in s.items()}
+
+    return part(slice(None, m)), part(slice(m, None))
+
+
+def _join(head: dict, tail: dict) -> dict:
+    return {k: V3(*(torch.cat([a, b]) for a, b in zip(v, tail[k]))) if isinstance(v, V3)
+            else torch.cat([v, tail[k]]) for k, v in head.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -529,8 +653,8 @@ def sample_lights(tables, hit, wavelength, view_world: V3, seed, mask):
 
     # ONE occlusion launch for both branches (lightsample.glsl:45, :131)
     ray_o = _offset_origin(hit, light_dir)
-    occluded, seed = _shadow_unsorted(tables, ray_o, light_dir, t_max=t_max,
-                                      active=trace_mask, seed=seed)
+    occluded, seed = _shadow(tables, ray_o, light_dir, t_max=t_max, active=trace_mask,
+                             seed=seed)
     radiance = radiance.where(~occluded & trace_mask, 0.0)
     if has_emissive:
         # pdf probe over all emissive surfaces along the verified ray
@@ -554,6 +678,61 @@ def sample_lights(tables, hit, wavelength, view_world: V3, seed, mask):
 # ---------------------------------------------------------------------------
 
 
+def _bounce(tables, s: dict, b: int, n_active: int, max_depth: int, nee_weighting: str):
+    """One bounce of every lane of the wave state ``s`` (integrator.py:961-1046),
+    ``n_active`` of them alive: returns the next state and the rays traced
+    (material + NEE + terminal emissive probes).  A dead lane's fields come
+    out as they went in."""
+    n = s["active"].shape[0]
+    BOUNCE_WIDTHS[n] = BOUNCE_WIDTHS.get(n, 0) + 1
+    active, origin, direction = s["active"], s["origin"], s["direction"]
+    throughput, mat_pdf, wavelength = s["throughput"], s["mat_pdf"], s["wavelength"]
+
+    (t, tri, u, v), seed = _closest(
+        tables, origin, direction, t_min=EPS, t_max=INF, active=active, seed=s["seed"]
+    )
+    hit = eval_hit(tables, origin, direction, t, tri, u, v)
+
+    miss = tri < 0
+    is_emissive = hit.mat.emissive.any_nonzero()
+    terminal = miss | is_emissive | (b == max_depth) | (s["preview"] & (b == 1))
+
+    # deferred skybox (skybox.rmiss): record the throughput at the miss;
+    # the miss direction survives in the final state
+    sky_w = s["sky_w"] + throughput.where(active & miss, 0.0)
+
+    # emissive MIS probe (raygen.rgen:67-73); miss lanes keep weight 1
+    probe_mask = active & terminal & is_emissive & ~miss & (b != 0)
+    pdf_probe = _emissive_pdf(tables, origin, direction, t_min=EPS, active=probe_mask)
+    weight = torch.where(probe_mask, _balance(mat_pdf, pdf_probe), 1.0)
+    value = s["value"] + (throughput * hit.mat.emissive * weight).where(active & terminal, 0.0)
+
+    cont = active & ~terminal
+
+    # material sample at this hit (raygen.rgen:79-83)
+    view = -direction
+    tview = v3_to_tangent(view, hit.tangent, hit.bitangent, hit.normal)
+    d_t, est, pdf_m, _, wl_new, seed_m = sample_material(seed, hit, wavelength, tview)
+    seed = torch.where(cont, seed_m, seed)
+    wavelength = torch.where(cont, wl_new, wavelength)
+    new_dir = v3_from_tangent(d_t, hit.tangent, hit.bitangent, hit.normal)
+    throughput_next = (throughput * est).where(cont, throughput)
+    alive = cont & throughput_next.any_nonzero()  # raygen.rgen:84
+
+    off = torch.where(hit.normal.dot(new_dir) >= 0.0, BIAS, -BIAS)
+    new_origin = hit.pos + hit.normal * off
+
+    # NEE for surviving lanes, before the next trace (raygen.rgen:54-56)
+    light, seed, nee_rays = sample_lights(tables, hit, wavelength, view, seed, alive)
+    nee_throughput = throughput_next if nee_weighting == "reference" else throughput
+    value = value + (nee_throughput * light).where(alive, 0.0)
+
+    out = dict(s, origin=new_origin.where(cont, origin), direction=new_dir.where(cont, direction),
+               value=value, throughput=throughput_next, seed=seed, wavelength=wavelength,
+               mat_pdf=torch.where(cont, pdf_m, mat_pdf), active=alive, sky_w=sky_w)
+    return out, n_active + probe_mask.sum() + nee_rays
+
+
 def render_sample(tables, view_inv, proj_inv, width, height, sample_count, max_depth,
                   lane_idx=None, nee_weighting="reference"):
     """Path-trace one sample for every pixel (or the given pixel lanes).
@@ -566,79 +745,76 @@ def render_sample(tables, view_inv, proj_inv, width, height, sample_count, max_d
     ``nee_weighting``: "reference" weights NEE by the throughput that
     includes the hit's own BSDF estimator (raygen.rgen:54-83, the
     reference's quirk); "physical" by the throughput up to the hit.
+
+    On a repacked scene (:func:`_repack_preferred`) the lanes are re-sorted
+    between bounces and, when N is a multiple of 4, run the width ladder;
+    the radiance comes back in the order of ``lane_idx`` (in pixel order
+    without it) all the same.
     """
     if nee_weighting not in ("reference", "physical"):
         raise ValueError(f"nee_weighting must be 'reference' or 'physical', not {nee_weighting!r}")
     dev = tables.device
+    repack = _repack_preferred(tables)
+    slot = None
+    if repack and lane_idx is None:  # start in 32x32-block order (integrator.py:931-934)
+        lane_idx = slot = torch.as_tensor(block_order(width, height)[0], device=dev).long()
     origin, direction, seed = generate_primary_rays(
         view_inv, proj_inv, width, height, sample_count, lane_idx, device=dev
     )
     n = seed.shape[0]
-    preview = torch.broadcast_to(rng.as_u32(sample_count, dev) == 0, (n,))
-
-    value = V3.full((0.0, 0.0, 0.0), n, dev)
-    throughput = V3.full((1.0, 1.0, 1.0), n, dev)
-    wavelength = torch.zeros(n, dtype=_F32, device=dev)
-    mat_pdf = torch.ones(n, dtype=_F32, device=dev)
-    active = torch.ones(n, dtype=torch.bool, device=dev)
-    sky_w = V3.full((0.0, 0.0, 0.0), n, dev)
+    s = dict(
+        origin=origin,
+        direction=direction,
+        value=V3.full((0.0, 0.0, 0.0), n, dev),
+        throughput=V3.full((1.0, 1.0, 1.0), n, dev),
+        seed=seed,
+        wavelength=torch.zeros(n, dtype=_F32, device=dev),
+        mat_pdf=torch.ones(n, dtype=_F32, device=dev),
+        active=torch.ones(n, dtype=torch.bool, device=dev),
+        sky_w=V3.full((0.0, 0.0, 0.0), n, dev),
+        preview=torch.broadcast_to(rng.as_u32(sample_count, dev) == 0, (n,)),
+    )
+    if repack:  # each lane's output position
+        s["slot"] = torch.arange(n, device=dev) if slot is None else slot
     rays = torch.zeros((), dtype=torch.int64, device=dev)
 
-    # the loop ends early once every lane terminated (miss / emissive / zero
-    # throughput): the wavefront analogue of the per-thread `break`
-    for b in range(max_depth + 1):
-        if not bool(active.any()):
+    def run_phase(b, s, live_floor, sorted_=False):
+        """Bounce while bounces remain and more than ``live_floor`` lanes are
+        alive (integrator.py:1051-1069): the loop ends early once every lane
+        terminated, the wavefront analogue of the per-thread `break`.
+        Returns (next bounce, state, live lanes at the last test)."""
+        nonlocal rays
+        live = 0
+        while b <= max_depth:
+            live = int(s["active"].sum())
+            if live <= live_floor:
+                break
+            if repack and b > 0 and not sorted_:
+                s = _sort_wavefront(tables, s)
+            sorted_ = False
+            s, r = _bounce(tables, s, b, live, max_depth, nee_weighting)
+            rays = rays + r
+            b += 1
+        return b, s, live
+
+    # the width ladder (integrator.py:1071-1124): the sort puts dead lanes
+    # last, so once at most n/2 (then n/4) lanes live they are a prefix;
+    # the tail is dead, its state final, and rejoins after the loop
+    ladder = repack and n % 4 == 0
+    b, s, live = run_phase(0, s, n // 2 if ladder else 0)
+    tails = []
+    for width, live_floor in ((n // 2, n // 4), (n // 4, 0)) if ladder else ():
+        if b > max_depth or live == 0:
             break
-        n_active = active.sum()
-
-        (t, tri, u, v), seed = _closest(
-            tables, origin, direction, t_min=EPS, t_max=INF, active=active, seed=seed
-        )
-        hit = eval_hit(tables, origin, direction, t, tri, u, v)
-
-        miss = tri < 0
-        is_emissive = hit.mat.emissive.any_nonzero()
-        terminal = miss | is_emissive | (b == max_depth) | (preview & (b == 1))
-
-        # deferred skybox (skybox.rmiss): record the throughput at the miss;
-        # the miss direction survives in the final state
-        sky_w = sky_w + throughput.where(active & miss, 0.0)
-
-        # emissive MIS probe (raygen.rgen:67-73); miss lanes keep weight 1
-        probe_mask = active & terminal & is_emissive & ~miss & (b != 0)
-        pdf_probe = _emissive_pdf(tables, origin, direction, t_min=EPS, active=probe_mask)
-        weight = torch.where(probe_mask, _balance(mat_pdf, pdf_probe), 1.0)
-        value = value + (throughput * hit.mat.emissive * weight).where(active & terminal, 0.0)
-
-        cont = active & ~terminal
-
-        # material sample at this hit (raygen.rgen:79-83)
-        view = -direction
-        tview = v3_to_tangent(view, hit.tangent, hit.bitangent, hit.normal)
-        d_t, est, pdf_m, _, wl_new, seed_m = sample_material(seed, hit, wavelength, tview)
-        seed = torch.where(cont, seed_m, seed)
-        wavelength = torch.where(cont, wl_new, wavelength)
-        new_dir = v3_from_tangent(d_t, hit.tangent, hit.bitangent, hit.normal)
-        throughput_prev = throughput
-        throughput = (throughput * est).where(cont, throughput)
-        mat_pdf = torch.where(cont, pdf_m, mat_pdf)
-        alive = cont & throughput.any_nonzero()  # raygen.rgen:84
-
-        off = torch.where(hit.normal.dot(new_dir) >= 0.0, BIAS, -BIAS)
-        new_origin = hit.pos + hit.normal * off
-        origin = new_origin.where(cont, origin)
-        direction = new_dir.where(cont, direction)
-
-        # NEE for surviving lanes, before the next trace (raygen.rgen:54-56)
-        light, seed, nee_rays = sample_lights(tables, hit, wavelength, view, seed, alive)
-        nee_throughput = throughput if nee_weighting == "reference" else throughput_prev
-        value = value + (nee_throughput * light).where(alive, 0.0)
-
-        # ray accounting: material rays + NEE rays + terminal emissive probes
-        rays = rays + n_active + probe_mask.sum() + nee_rays
-        active = alive
+        s, tail = _split(_sort_wavefront(tables, s), width)
+        tails.append(tail)
+        b, s, live = run_phase(b, s, live_floor, sorted_=True)
+    for tail in reversed(tails):
+        s = _join(s, tail)
 
     # deferred skybox: one equirect fetch for the whole loop
-    sky = sample_equirect(tables.skybox, direction.to_array()) * tables.skybox_strength
-    value = value + sky_w * V3.from_array(sky)
-    return value.to_array(), rays
+    sky = sample_equirect(tables.skybox, s["direction"].to_array()) * tables.skybox_strength
+    value = (s["value"] + s["sky_w"] * V3.from_array(sky)).to_array()
+    if repack:  # back to the lanes' own order (integrator.py:1136-1137)
+        value = torch.empty_like(value).index_copy_(0, s["slot"], value)
+    return value, rays

@@ -25,22 +25,22 @@ Both are :func:`render_lanes` over the whole block order (the shards of
   for a TPU worker fault (:115-117); here the sum stays on the device and
   the chunk is the constant 8.
 
-Not ported: the JAX rule that prefers bands *below* the cap for BVH scenes
-(``_banded_preferred`` :186-196).  It packs the sort bins of the TPU's
-packet walks, which the port does not have; ROADMAP.md Queue 1 keeps it
-behind an H100 A/B ("the re-sorts and the width ladder").
+Below the cap, :func:`render_image` bands a frame all the same where the
+JAX rule prefers it (:func:`_banded_preferred`, renderer.py:173-196): a
+flattened scene on the repacked wavefront whose frame cannot hold
+``min(spp, SPP_CHUNK)`` samples in one wave traces more samples of fewer
+pixels per wave, which packs the coherence re-sort's bins tighter.
 """
 
 from __future__ import annotations
-
-import functools
 
 import numpy as np
 import torch
 
 from ..ops.tonemap import reinhard_jodie
 from ..scene.camera import Camera
-from .integrator import render_sample
+from . import integrator
+from .integrator import block_order, render_sample
 
 #: Max lanes (pixel samples) per wave; cfg1 (512x512, 64 spp) runs 32 waves
 #: of 2 samples x 262,144 pixels.
@@ -51,22 +51,6 @@ SPP_CHUNK = 8
 #: The last :func:`render_image` call: its ``waves`` and, for a banded
 #: render, its ``bands`` (0 for a frame rendered whole).
 LAST_RENDER = {"bands": 0, "waves": 0}
-
-
-@functools.lru_cache(maxsize=8)
-def block_order(width: int, height: int, block: int = 32):
-    """Pixel permutation grouping 32x32 image blocks into consecutive lanes
-    (integrator.py:376-395).  Returns (order, inverse) numpy int32 arrays;
-    cached, so callers must not mutate them."""
-    idx = np.arange(width * height)
-    px, py = idx % width, idx // width
-    nbx = -(-width // block)
-    key = ((py // block) * nbx + (px // block)) * (block * block) + (py % block) * block + (
-        px % block
-    )
-    order = np.argsort(key, kind="stable").astype(np.int32)
-    inverse = np.argsort(order, kind="stable").astype(np.int32)
-    return order, inverse
 
 
 def samples_per_wave(lanes: int, spp: int) -> int:
@@ -111,19 +95,19 @@ def _band_plan(lanes: int, spp: int, max_lanes: int):
 
 
 def render_lanes(tables, view_inv, proj_inv, width, height, max_depth, spp, start_sample,
-                 lanes, nee_weighting="reference", max_lanes=None):
+                 lanes, nee_weighting="reference", max_lanes=None, banded=False):
     """Sum ``spp`` samples starting at ``start_sample`` of the pixel ``lanes``
     on the tables' device, in a fixed wave order.  At most ``max_lanes``
     (default ``MAX_LANES_PER_PASS``) lanes render whole, in waves of
-    :func:`samples_per_wave` samples; more render in bands (:func:`_band_plan`).
-    Returns ((len(lanes), 3) sum aligned with ``lanes``, rays traced, bands
-    (0 whole), waves)."""
+    :func:`samples_per_wave` samples, unless ``banded``; more render in bands
+    (:func:`_band_plan`).  Returns ((len(lanes), 3) sum aligned with
+    ``lanes``, rays traced, bands (0 whole), waves)."""
     if max_lanes is None:
         max_lanes = MAX_LANES_PER_PASS
     n = lanes.shape[0]
     acc = torch.zeros((n, 3), dtype=torch.float32, device=lanes.device)
     rays = torch.zeros((), dtype=torch.int64, device=lanes.device)
-    if n <= max_lanes:
+    if n <= max_lanes and not banded:
         chunk, per, bands = samples_per_wave(n, spp), n, 0
     else:
         chunk, per, bands = _band_plan(n, spp, max_lanes)
@@ -138,6 +122,19 @@ def render_lanes(tables, view_inv, proj_inv, width, height, max_depth, spp, star
             rays += r
             waves += 1
     return acc, rays, bands, waves
+
+
+def _banded_preferred(tables, width: int, height: int, spp: int) -> bool:
+    """Does :func:`render_image` band this frame (renderer.py:173-196)?
+    Always above ``MAX_LANES_PER_PASS`` pixels; below it, for a flattened
+    scene on the repacked wavefront with at least 2 spp whose frame cannot
+    hold ``min(spp, SPP_CHUNK)`` samples in one wave.  Dense scenes keep
+    whole-frame waves: every lane costs them the same, whatever its order."""
+    n = width * height
+    if n > MAX_LANES_PER_PASS:
+        return True
+    return (spp >= 2 and tables.inst is None and integrator._repack_preferred(tables)
+            and n * min(spp, SPP_CHUNK) > MAX_LANES_PER_PASS)
 
 
 def camera_uniforms(camera: Camera):
@@ -172,7 +169,8 @@ def render_image(
 ):
     """Headless render on the tables' device: returns ((H, W, 3) numpy
     array, total rays).  Frames above ``MAX_LANES_PER_PASS`` pixels render in
-    bands.  ``start_sample`` defaults to 1 (sample 0 is the
+    bands, and so do the smaller frames :func:`_banded_preferred` picks.
+    ``start_sample`` defaults to 1 (sample 0 is the
     preview frame and is excluded from accumulation, raygen.rgen:95-96)."""
     camera.aspect = width / height
     view_inv, proj_inv = camera_uniforms(camera)
@@ -180,7 +178,9 @@ def render_image(
         lanes = torch.as_tensor(block_order(width, height)[0], device=tables.device)
         acc, rays, bands, waves = render_lanes(tables, view_inv, proj_inv, width, height,
                                                max_depth, spp, start_sample, lanes,
-                                               nee_weighting=nee_weighting)
+                                               nee_weighting=nee_weighting,
+                                               banded=_banded_preferred(tables, width, height,
+                                                                        spp))
         LAST_RENDER.update(bands=bands, waves=waves)
         img = torch.zeros_like(acc)
         img[lanes.long()] = acc
