@@ -50,8 +50,19 @@ nonzero exit code:
 7. render_cfg2 — the CLI's headless path for bench cfg2 (the dragon, 512x512,
    depth 4, 4 spp, camera 0,2.2,4.5 -> 0,-0.25,-1), twice; each must
    launch K5' (both variants) and K3; seconds, Mrays/s and the upload split.
-8. gates    — the bench gate frames of cfg2-cfg5 on the card against the
-   committed NumPy-oracle goldens in ``bench_goldens.npz``: RMSE < 2e-3.
+8. bench    — the port's bench (``vulkan_raytracer_tpu_torch/bench.py``,
+   bench.py's five configs at their full frames) with one rep of each: each
+   config's gate crop on the card against its committed NumPy-oracle golden
+   (``bench_goldens.npz`` for cfg2-cfg5, ``bench_goldens_torch.npz`` for the
+   built-in Cornell box of cfg1): RMSE < 2e-3; its warm-up (cfg1's whole
+   frame, the first band of the others); one timed frame, which must launch
+   K1-K3 (cfg1) or K5' closest, K5' shadow and K3 (cfg2-cfg5), be lit, trace
+   between one and 3 x (depth + 1) rays a sample, and run the bands and
+   waves of ``render_image``'s plan (cfg1 whole in 32 waves; 2, 2, 8 and 32
+   bands for cfg2-cfg5).  Every frame's linear accumulation (gate crops,
+   cfg1's warm-up, the timed frames) must be finite, and cfg5's lit.  One
+   line per config, cfg1 first, with its Mrays/s, launches, peak memory and
+   set-up seconds; then the bench's summary.
 9. bvh_forced — a 712-triangle dragon uploaded with ``traversal="bvh"`` (one
    treelet: the whole-stream walk K4'), 32x32, 2 spp, depth 3, on the card
    against the same render on the CPU (the plain versions): RMSE < 2e-3, ray
@@ -90,10 +101,8 @@ nonzero exit code:
    carries the rays and the emissive walk every pdf probe, the MIS probe
    (t_min EPS) and the NEE probe (t_min 0) each with live lanes; a finite,
    lit image; then 32x32 on the card against the CPU.
-16. render_cfg5 — bench cfg5 at its own frame (``multi_scene``, 1920x1080,
-   depth 8, 8 spp, camera -9,2,1.5 -> 1,-0.1,-0.15) through the banded
-   renderer, once: 32 bands of 64,800 pixels x 8 samples; seconds, Mrays/s
-   and the peak device memory.
+16. (bench cfg5 at its own frame is phase 8's: 32 bands of 64,800 pixels x
+   8 samples, a finite and lit linear accumulation.)
 
 17. instanced_parity — a gallery of 8 instances (5 of the cfg2 dragon's
    262,144-triangle mesh, which walk their shared BLAS, a floor and two
@@ -132,7 +141,7 @@ nonzero exit code:
    samples, ``renderer._banded_preferred``), in turns: bit-equal (the same
    waves), equal rays; it must launch K5' (both variants) and K3.
 24. fleet — two processes started with ``torch.multiprocessing`` in spawn
-   mode form a gloo group over 127.0.0.1; rank 1 doubles a column of its
+   mode form a gloo group (meeting at a file); rank 1 doubles a column of its
    tables before ``broadcast_scene_tables``; both render cfg1 through
    ``render_image_multihost`` (one shard each on cuda:0) between barriers.
    Both images equal, and equal phase 4's within rtol 1e-5 / atol 1e-6, with
@@ -221,7 +230,6 @@ CFG2 = ["-m", "dragon", "-r", "512,512", "-b", "4", "--spp", "4",
         "-c", "0,2.2,4.5", "-d", "0,-0.25,-1"]
 CFG2_CAM = ([0.0, 2.2, 4.5], [0.0, -0.25, -1.0])
 CFG1_CAM = ([0.0, 1.0, 2.4], [0.0, 0.0, -1.0])
-CFG5_CAM = ([-9.0, 2.0, 1.5], [1.0, -0.1, -0.15])  # bench.py:145-148
 TEXTURED_CAM = ([0.0, 0.0, 2.8], [0.0, 0.0, -1.0])  # tests/test_textured_glb.py:245
 BIGASSET_CAM = ([0.0, 1.7, 4.6], [0.0, -0.28, -1.0])  # tests/test_bigasset_glb.py:324
 # peak rates of one H100 SXM (NVIDIA's data sheet, at the 700 W power limit):
@@ -1237,49 +1245,6 @@ def render_emissive_bvh(device, paths) -> None:
           "launches": launches, **res})
 
 
-def render_cfg5(device, paths) -> None:
-    """Bench cfg5 at its own frame through the banded renderer, once."""
-    import torch
-
-    from vulkan_raytracer_tpu_torch.render import renderer
-    from vulkan_raytracer_tpu_torch.scene import procedural
-    from vulkan_raytracer_tpu_torch.scene.camera import Camera
-
-    w, h, spp, depth = 1920, 1080, 8, 8
-    t0 = time.perf_counter()
-    tables = procedural.multi_scene().upload(device)
-    torch.cuda.synchronize()
-    upload_s = time.perf_counter() - t0
-    cam = Camera(position=np.array(CFG5_CAM[0]), direction=np.array(CFG5_CAM[1]))
-    _reset_launches()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    img, rays = renderer.render_image(tables, cam, w, h, spp=spp, max_depth=depth, tonemap=False)
-    secs = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    launches = _launch_counts()
-    plan = renderer.band_plan(w, h, spp)
-    if not (plan == (8, 64800, 32) and renderer.LAST_RENDER == {"bands": 32, "waves": 32}):
-        raise AssertionError(f"cfg5 ran {renderer.LAST_RENDER}, planned {plan}: expected 32 bands")
-    # every lane traces its camera ray; a path adds at most 3 rays a bounce
-    if not w * h * spp <= rays <= w * h * spp * 3 * (depth + 1):
-        raise AssertionError(f"cfg5 traced {rays} rays for {w * h * spp} lanes")
-    if not np.isfinite(img).all() or img.shape != (h, w, 3) or not img.mean() > 1e-3:
-        raise AssertionError(f"cfg5 image not finite, misshapen or black: {img.shape} "
-                             f"mean {img.mean()}")
-    walk = "treelet" if tables.pbvh.n_treelets > 1 else "bvh"
-    if not (launches["traverse"][f"{walk}_closest"] > 0
-            and launches["traverse"][f"{walk}_shadow"] > 0 and launches["dense"]["pdf"] > 0):
-        raise AssertionError(f"cfg5 render missed a kernel: launches {launches}")
-    paths.add("render_cfg5", launches)
-    emit({"phase": "render_cfg5", "config": "cfg5 multi_scene 1920x1080 depth 8 8 spp",
-          "triangles": tables.num_triangles, "treelets": tables.pbvh.n_treelets,
-          "upload_seconds": upload_s, "bands": renderer.LAST_RENDER["bands"],
-          "pixels_per_band": plan[1], "lanes_per_wave": plan[0] * plan[1],
-          "seconds": secs, "rays": rays, "mrays_per_s": rays / secs / 1e6,
-          "peak_memory_bytes": peak, "launches": launches, "image_mean": float(img.mean())})
-
-
 def _rmse(a, b) -> float:
     return float(np.sqrt(np.mean((np.asarray(a) - np.asarray(b)) ** 2)))
 
@@ -1681,19 +1646,12 @@ def shard_two(device, dragon, paths) -> None:
 FLEET_TIMEOUT_S = 120  # the fleet's process-group timeout
 
 
-def _free_port() -> int:
-    import socket
-
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def fleet_rank(rank: int, world: int, port: int, out_dir: str) -> None:
+def fleet_rank(rank: int, world: int, out_dir: str) -> None:
     """One rank of a fleet of ``world`` processes on the card (a spawn
-    target): form the gloo group, diverge rank 1's tables, broadcast them,
-    warm up, and render cfg1 through ``render_image_multihost`` between two
-    barriers; then time the all-gather of one rank's block alone."""
+    target): form the gloo group at a file in ``out_dir`` (no TCP port to
+    pick), diverge rank 1's tables, broadcast them, warm up, and render cfg1
+    through ``render_image_multihost`` between two barriers; then time the
+    all-gather of one rank's block alone."""
     import dataclasses
     from datetime import timedelta
 
@@ -1711,8 +1669,9 @@ def fleet_rank(rank: int, world: int, port: int, out_dir: str) -> None:
     def cam():
         return Camera(position=np.array(CFG1_CAM[0]), direction=np.array(CFG1_CAM[1]))
 
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
-                            world_size=world, timeout=timedelta(seconds=FLEET_TIMEOUT_S))
+    dist.init_process_group("gloo", init_method=f"file://{Path(out_dir) / 'rendezvous'}",
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=FLEET_TIMEOUT_S))
     try:
         device = torch.device("cuda", 0)
         tables = cornell_box_scene().upload(device)
@@ -1756,8 +1715,7 @@ def run_fleet(world: int) -> dict:
 
     ctx = tmp.get_context("spawn")  # CUDA cannot be set up again in a forked child
     with tempfile.TemporaryDirectory() as out_dir:
-        port = _free_port()
-        procs = [ctx.Process(target=fleet_rank, args=(r, world, port, out_dir))
+        procs = [ctx.Process(target=fleet_rank, args=(r, world, out_dir))
                  for r in range(world)]
         t_spawn = time.perf_counter()
         for p in procs:
@@ -2063,47 +2021,58 @@ def render_cfg2(reps: int) -> dict:
     return launches
 
 
-def bench_configs():
-    """(golden key, scene builder, camera, (gate crop, spp, depth)) of bench
-    cfg2-cfg5 (bench.py:132-148), on the port's procedural scenes."""
-    from vulkan_raytracer_tpu_torch.scene import procedural as P
+def bench_phase(paths) -> None:
+    """The port's bench with one rep of each config: every config's gate
+    against its committed golden, its warm-up and one timed frame, which must
+    launch its kernels, trace a plausible count of rays and have the band
+    plan of ``render_image``; cfg1 is the built-in box.  Every frame's linear
+    accumulation must be finite (the bench's uint8 frames cannot show a value
+    that is not), and cfg5's whole frame lit."""
+    import torch
 
-    def hall_sky():
-        s = P.hall_scene()
-        s.skybox = P.sky_hdr()
-        s.skybox_strength = 1.0
-        return s
+    from vulkan_raytracer_tpu_torch import bench
+    from vulkan_raytracer_tpu_torch.render import renderer
 
-    return [
-        ("cfg2_dragon_substitute_262k_512x512_d4", P.dragon_scene, CFG2_CAM, (16, 2, 3)),
-        ("cfg3_chess_substitute_98k_512x512_d6", P.chess_scene,
-         ([0.0, 4.0, 7.0], [0.0, -0.5, -1.0]), (16, 2, 4)),
-        ("cfg4_sponza_substitute_256k_hdrsky_960x540_d4_8spp", hall_sky,
-         ([-9.0, 1.8, 0.0], [1.0, 0.0, 0.0]), (16, 2, 3)),
-        ("cfg5_multimodel_1920x1080_d8_8spp", P.multi_scene,
-         ([-9.0, 2.0, 1.5], [1.0, -0.1, -0.15]), (12, 1, 4)),
-    ]
+    frames = []
+    postprocess = renderer._postprocess
 
+    def checked(acc, spp, tonemap, as_uint8):
+        frames.append((acc.shape[0], bool(torch.isfinite(acc).all()), float(acc.mean()) / spp))
+        return postprocess(acc, spp, tonemap, as_uint8)
 
-def gates(device) -> None:
-    """The bench gate frames of cfg2-cfg5 on the card against the committed
-    NumPy-oracle goldens."""
-    from vulkan_raytracer_tpu_torch.render.renderer import render_image
-    from vulkan_raytracer_tpu_torch.scene.camera import Camera
-
-    goldens = np.load(ROOT / "bench_goldens.npz")
-    for key, build, (pos, direction), (crop, spp, depth) in bench_configs():
-        tables = build().upload(device)
-        cam = Camera(position=np.array(pos), direction=np.array(direction))
-        img, rays = render_image(tables, cam, crop, crop, spp=spp, max_depth=depth,
-                                 tonemap=False)
-        golden = goldens[f"golden_{key}"]
-        rmse = float(np.sqrt(np.mean((img - golden) ** 2)))
-        emit({"phase": "gate", "config": key, "frame": f"{crop}x{crop} {spp} spp depth {depth}",
-              "rmse": rmse, "bar": RMSE_BAR, "rays": rays,
-              "treelets": tables.pbvh.n_treelets})
-        if not (np.isfinite(img).all() and img.shape == golden.shape and rmse < RMSE_BAR):
-            raise AssertionError(f"{key}: gate RMSE {rmse} (bar {RMSE_BAR})")
+    renderer._postprocess = checked
+    try:
+        others, c1, summary = bench.run(torch.device("cuda", 0), reps=1)
+    finally:
+        renderer._postprocess = postprocess
+    if c1.key != "cfg1_cornell_builtin_512x512_d4_64spp":
+        raise AssertionError(f"the bench rendered {c1.key}, expected the built-in box")
+    # cfg1: gate crop, warm-up frame, rep; cfg2-cfg5: gate crop, rep (the
+    # warm-up band is not a frame)
+    if len(frames) != 11 or not all(finite for _, finite, _ in frames):
+        raise AssertionError(f"the bench's frames (pixels, finite, mean): {frames}")
+    for c in (c1, *others):
+        line, cfg = c.line(), c.cfg
+        name = c.key[:4]
+        w, h, spp, depth = cfg["w"], cfg["h"], cfg["spp"], cfg["depth"]
+        plan = chunk, _, bands = renderer.band_plan(w, h, spp)
+        if name == "cfg1":
+            bands, chunk = 0, renderer.samples_per_wave(w * h, spp)
+        if name == "cfg5" and plan != (8, 64800, 32):
+            raise AssertionError(f"cfg5 planned {plan}: expected 32 bands of 64,800 x 8")
+        want = {"bands": bands, "waves": max(bands, 1) * -(-spp // chunk)}
+        if {k: line[k] for k in want} != want or len(c.times) != 1:
+            raise AssertionError(f"{c.key}: {len(c.times)} reps of {line['bands']} bands and "
+                                 f"{line['waves']} waves, expected one rep of {want}")
+        # every lane traces its camera ray; a path adds at most 3 rays a bounce
+        if not w * h * spp <= line["rays"] <= w * h * spp * 3 * (depth + 1):
+            raise AssertionError(f"{c.key} traced {line['rays']} rays for {w * h * spp} lanes")
+        paths.add(f"bench_{name}", line["launches"])
+        emit({"phase": "bench", **line})
+    lit = [mean for n, _, mean in frames if n == 1920 * 1080]
+    if not (len(lit) == 1 and lit[0] > 1e-3):
+        raise AssertionError(f"cfg5's frame is black (linear means {lit})")
+    emit({"phase": "bench_summary", **summary})
 
 
 def _cuda_vs_cpu(tables, cam_args, label):
@@ -2350,8 +2319,8 @@ def main() -> int:
     # 7. render: the CLI's headless path for bench cfg2 (K5' and K3)
     paths.add("render_cfg2", render_cfg2(reps=2))
 
-    # 8. the gate frames of cfg2-cfg5 against the committed goldens
-    gates(device)
+    # 8. the port's bench, one rep of each config behind its gate
+    bench_phase(paths)
 
     # 9. a small scene forced onto the BVH path: one treelet, so K4'
     small = procedural.dragon_scene(detail=12).upload(device, traversal="bvh")
@@ -2387,9 +2356,6 @@ def main() -> int:
 
     # 15. a render whose pdf probes walk the emissive BVH
     render_emissive_bvh(device, paths)
-
-    # 16. bench cfg5 at its own frame: the banded renderer
-    render_cfg5(device, paths)
 
     # 17-21. instanced and dynamic scenes, and the progressive renderer
     instanced_parity(device, (n_wave, n_wave - 37))

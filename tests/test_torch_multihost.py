@@ -5,8 +5,9 @@ In one process (no process group) the contracts of tests/test_multihost.py:
 the broadcast is the identity, the fleet mesh is this process's devices, the
 fleet render is the sharded render, and a gather hook that is not the default
 carries the same bytes.  Then two processes form a gloo group over localhost
-(the worker is this file run as a script): rank 1 perturbs its tables, the
-broadcast repairs them, and both ranks must return the same image, equal to
+(the worker is this file run as a script; the ranks meet at a ``FileStore``
+under the test's ``tmp_path``): rank 1 perturbs its tables, the broadcast
+repairs them, and both ranks must return the same image, equal to
 the port's unsharded render within the sharding tolerance (rtol 1e-5 / atol
 1e-6, tests/test_torch_sharding.py), with its ray count.  Last, a dead peer:
 rank 1 exits before the broadcast, and rank 0 must raise within the group's
@@ -14,7 +15,6 @@ timeout and write no image (the contract of tests/test_multihost_2proc.py).
 """
 
 import os
-import socket
 import subprocess
 import sys
 import time
@@ -109,21 +109,16 @@ def test_gather_hook_carries_identical_bytes(tables, cap):
     assert rays_m == rays_d
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def _fleet(tmp_path, die_early: bool):
-    """Start two workers; returns (their return codes, logs, output paths,
-    seconds until both ended)."""
-    port = _free_port()
+    """Start two workers, which meet at a file under ``tmp_path`` (no TCP
+    port to pick, so no other fleet can take it); returns (their return
+    codes, logs, output paths, seconds until both ended)."""
+    rendezvous = tmp_path / "rendezvous"
     outs = [tmp_path / f"rank{r}.npz" for r in range(2)]
     env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="2")
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
-        [sys.executable, __file__, str(r), str(port), str(outs[r]), str(int(die_early))],
+        [sys.executable, __file__, str(r), str(rendezvous), str(outs[r]), str(int(die_early))],
         cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(2)]
     try:
@@ -161,7 +156,7 @@ def test_fleet_detects_dead_peer_without_hanging(tmp_path):
     assert seconds < GROUP_TIMEOUT_S + 60, seconds
 
 
-def _worker(rank: int, port: int, out: str, die_early: bool) -> None:
+def _worker(rank: int, rendezvous: str, out: str, die_early: bool) -> None:
     """One rank of a two-process fleet on the CPU: form the group, perturb
     rank 1's tables, broadcast, render two CPU shards a rank."""
     import dataclasses
@@ -169,11 +164,17 @@ def _worker(rank: int, port: int, out: str, die_early: bool) -> None:
     import torch.distributed as dist
 
     torch.set_num_threads(2)
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
-                            world_size=2, timeout=timedelta(seconds=GROUP_TIMEOUT_S))
+    store = dist.FileStore(rendezvous, 2)
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=2,
+                            timeout=timedelta(seconds=GROUP_TIMEOUT_S))
     try:
         assert is_io_host() == (rank == 0)
+        # the group has formed on this rank; the dead peer waits until it has
+        # on rank 0 too (through the store, not a collective), else rank 0
+        # fails while it still connects its side of the group
+        store.set(f"formed/{rank}", "1")
         if die_early and rank == 1:
+            store.wait(["formed/0"])
             os._exit(17)
         tables = cornell_box_scene().upload("cpu")
         if rank == 1:
@@ -191,4 +192,4 @@ def _worker(rank: int, port: int, out: str, die_early: bool) -> None:
 
 
 if __name__ == "__main__":
-    _worker(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4] == "1")
+    _worker(int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4] == "1")

@@ -51,8 +51,10 @@ def _scenes(cs, tmp: Path):
     """(name, scene builder, camera) of cfg2-cfg5 and the 147k glTF."""
     import torch_glb_assets
 
+    from vulkan_raytracer_tpu_torch import bench
+
     glb = torch_glb_assets.write_bigasset_glb(tmp, big=True)
-    out = [(key, build, cam) for key, build, cam, _ in cs.bench_configs()]
+    out = [(c["key"], c["build"], c["cam"]) for c in bench.CONFIGS[:-1]]
     out.append(("gltf147k", lambda: cs._load_glb(glb, GLTF_TRIANGLES, 5)[0], cs.BIGASSET_CAM))
     return out
 
