@@ -6,7 +6,11 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 Phases, one JSON line each; any failure raises and ends the run with a
-nonzero exit code:
+nonzero exit code.  They run in the order of their numbers but two: 8
+(bench) runs right after 2, and the ``torch.profiler`` timings of 3 and 5
+run after 24, with 25.  A profiler session slows every render that follows
+it in the same process (``tools/bench_torch_process_state.py``, PERF.md
+§7), so no render phase runs after one.
 
 1. device   — CUDA must be available (no CPU fallback); the card's name and
    power limit from nvidia-smi.
@@ -22,9 +26,9 @@ nonzero exit code:
    uses; the live lanes 80% of the rays, then none, one, 0.1%, 5%, 50% and
    all of them (the sparse shares with one all-live and one all-dead block
    among mixed ones); the pdf exactly +0 on lanes whose gate is 0.  Then
-   the times at the cfg1 wave: each kernel's own device time from
-   torch.profiler and the wrapper's host microseconds per call, with the
-   bounds.
+   (after phase 24) the times at the cfg1 wave: each kernel's own device
+   time from torch.profiler and the wrapper's host microseconds per call,
+   with the bounds.
 4. render   — the CLI's headless path for bench cfg1 (Cornell, 512x512,
    depth 4, 64 spp, camera 0,1,2.4 -> 0,0,-1) on ``cuda``; every dense kernel
    must have been launched by it, every bounce at the wave's full width (no
@@ -37,9 +41,9 @@ nonzero exit code:
    per-lane bounds, bounds at exactly the hit t and inactive lanes: t and
    slot bit-equal; K4' against K5'; the streams within 25 MB.  Then the
    times at both waves, each with its bound from the visits the plain
-   walk counts (``walk_visits``).  Then one wave each of the glTF 147k
-   render and of the textured glb render (samples 1-2, 524,288 lanes) with
-   every dense sweep call recorded: each recorded K1 and K3 call against
+   walk counts (``walk_visits``).  Then (after phase 24) one wave each of
+   the glTF 147k render and of the textured glb render (samples 1-2,
+   524,288 lanes) with every dense sweep call recorded: each recorded K1 and K3 call against
    its plain version (K1 bit-equal; K3 as above), then K3 at the glTF
    launch with the most live lanes (256 emissive triangles) and K1 at the
    first alpha re-launch, each timed on the card with its bound, live lanes
@@ -71,6 +75,15 @@ nonzero exit code:
    against the same render on the CPU, where the port runs the plain
    versions that tests/test_torch_render.py holds against the JAX renderer
    and its NumPy oracle; per-pixel RMSE < 2e-3, ray counts within 0.1%.
+   Every such card-against-CPU frame (phases 9, 10, 10b, 13, 15 and 18) goes
+   through ``tools/torch_lane_diff.py``: the pixels that differ by more than
+   1e-6, their lanes by class, by first bounce, by field and by the aten op
+   the tool names (``cuda`` and ``cpu`` builds of it round differently); a
+   lane of class ii (a fault) or one whose result depends on its wave fails
+   the phase.
+10b. cfg4_parity — the bench's cfg4 (the hall under its HDR sky) at its gate
+   crop, 16x16, 2 spp, depth 3, on the card against the CPU as above, and
+   each side's RMSE against the crop's committed oracle golden.
 11. gltf_dense — the small textured .glb of tests/test_textured_glb.py
    (written jax-free by tools/torch_glb_assets.py: PNG and JPEG textures, a
    normal map, MASK and BLEND alpha, an emissive texture, a sparse
@@ -2021,13 +2034,14 @@ def render_cfg2(reps: int) -> dict:
     return launches
 
 
-def bench_phase(paths) -> None:
+def bench_phase(paths) -> list:
     """The port's bench with one rep of each config: every config's gate
     against its committed golden, its warm-up and one timed frame, which must
     launch its kernels, trace a plausible count of rays and have the band
     plan of ``render_image``; cfg1 is the built-in box.  Every frame's linear
     accumulation must be finite (the bench's uint8 frames cannot show a value
-    that is not), and cfg5's whole frame lit."""
+    that is not), and cfg5's whole frame lit.  Returns the configs' lines,
+    cfg1 first."""
     import torch
 
     from vulkan_raytracer_tpu_torch import bench
@@ -2051,8 +2065,10 @@ def bench_phase(paths) -> None:
     # warm-up band is not a frame)
     if len(frames) != 11 or not all(finite for _, finite, _ in frames):
         raise AssertionError(f"the bench's frames (pixels, finite, mean): {frames}")
+    lines = []
     for c in (c1, *others):
         line, cfg = c.line(), c.cfg
+        lines.append(line)
         name = c.key[:4]
         w, h, spp, depth = cfg["w"], cfg["h"], cfg["spp"], cfg["depth"]
         plan = chunk, _, bands = renderer.band_plan(w, h, spp)
@@ -2073,27 +2089,64 @@ def bench_phase(paths) -> None:
     if not (len(lit) == 1 and lit[0] > 1e-3):
         raise AssertionError(f"cfg5's frame is black (linear means {lit})")
     emit({"phase": "bench_summary", **summary})
+    return lines
 
 
-def _cuda_vs_cpu(tables, cam_args, label):
-    """The same 32x32, 2 spp, depth 3 render on the card and on the CPU."""
-    from vulkan_raytracer_tpu_torch.render.renderer import render_image
-    from vulkan_raytracer_tpu_torch.scene.camera import Camera
+def _cuda_vs_cpu(tables, cam_args, label, size: int = 32, spp: int = 2, depth: int = 3,
+                 golden=None):
+    """The same frame (32x32, 2 spp, depth 3 unless told) on the card and on
+    the CPU, through ``tools/torch_lane_diff.py``: the RMSE under the bar and
+    the ray counts within 0.1%; then the pixels that differ by more than 1e-6
+    and their lanes, each lane's first bounce, field and (named by the tool)
+    aten op; with a ``golden`` image, each side's RMSE against it.  A lane of
+    class ii (a fault: an integer or a flag first, a NaN, an op not named or
+    more than 4 ulps at its output, a result that depends on the wave it ran
+    in) fails the phase."""
+    import torch_lane_diff
 
-    def cam():
-        return Camera(position=np.array(cam_args[0]), direction=np.array(cam_args[1]))
-
-    img_gpu, rays_gpu = render_image(tables, cam(), 32, 32, spp=2, max_depth=3, tonemap=False)
-    img_cpu, rays_cpu = render_image(tables.to("cpu"), cam(), 32, 32, spp=2, max_depth=3,
-                                     tonemap=False)
+    res = torch_lane_diff.diagnose(tables, cam_args, size, size, spp, depth)
+    (img_gpu, img_cpu), (rays_gpu, rays_cpu) = res["images"], res["rays"]
     rmse = float(np.sqrt(np.mean((img_gpu - img_cpu) ** 2)))
-    if not (np.isfinite(img_gpu).all() and img_gpu.shape == (32, 32, 3)):
-        raise AssertionError(f"{label}: the 32x32 render on the card is not finite or misshapen")
+    if not (np.isfinite(img_gpu).all() and img_gpu.shape == (size, size, 3)):
+        raise AssertionError(f"{label}: the {size}x{size} render on the card is not finite "
+                             "or misshapen")
     if not rmse < RMSE_BAR:
         raise AssertionError(f"{label}: port on cuda vs port on cpu RMSE {rmse} >= {RMSE_BAR}")
     if abs(rays_gpu - rays_cpu) > 1e-3 * rays_cpu:
         raise AssertionError(f"{label}: ray counts differ: {rays_gpu} on cuda, {rays_cpu} on cpu")
-    return {"rmse": rmse, "bar": RMSE_BAR, "rays_cuda": rays_gpu, "rays_cpu": rays_cpu}
+    out = {"rmse": rmse, "bar": RMSE_BAR, "rays_cuda": rays_gpu, "rays_cpu": rays_cpu,
+           "differing_pixels": res["differing_pixels"],
+           "differing_lanes": res["differing_lanes"],
+           "lanes_by_class": res["by_class"], "first_bounce": res["by_first_bounce"],
+           "lanes_by_field": res["by_field"], "lanes_by_op": res["by_op"],
+           "attribution_s": res["attribution_s"], "lanes": res["lanes"][:8]}
+    if golden is not None:
+        out["rmse_vs_golden"] = {"cuda": _rmse(img_gpu, golden), "cpu": _rmse(img_cpu, golden)}
+    if res["void"] or res["by_class"]["ii"]:
+        faults = [x for x in res["lanes"] if x["class"] == "ii"]
+        raise AssertionError(f"{label}: {len(faults)} lanes of class ii, wave-dependent lanes "
+                             f"{res['wave_dependent_lanes']}: {faults[:4]}")
+    return out
+
+
+def cfg4_parity(device) -> None:
+    """The bench's cfg4 (the hall under its HDR sky) at its gate crop, 16x16,
+    2 spp, depth 3, on the card against the CPU; each side's RMSE against the
+    crop's committed oracle golden beside."""
+    from vulkan_raytracer_tpu_torch import bench
+
+    cfg = next(c for c in bench.CONFIGS if c["key"].startswith("cfg4"))
+    cw, cspp, cdepth = cfg["crop"]
+    tables = cfg["build"]().upload(device)
+    _reset_launches()
+    res = _cuda_vs_cpu(tables, cfg["cam"], "cfg4 gate crop", cw, cspp, cdepth,
+                       golden=bench.load_goldens()[f"golden_{cfg['key']}"])
+    launches = _launch_counts()
+    if not (launches["traverse"]["treelet_closest"] > 0 and launches["dense"]["pdf"] > 0):
+        raise AssertionError(f"the cfg4 crop missed K5' or K3: launches {launches}")
+    emit({"phase": "cfg4_parity",
+          "config": f"cfg4 hall + sky {cw}x{cw} {cspp} spp depth {cdepth}",
+          "launches": launches, **res})
 
 
 def _load_glb(path, triangles: int, textures: int):
@@ -2251,6 +2304,12 @@ def main() -> int:
         if any(ptxas[name][k] for k in ("stack_frame", "spill_stores", "spill_loads")):
             raise AssertionError(f"{name} uses the stack: {ptxas[name]}")
 
+    # 8. the port's bench, one rep of each config behind its gate, first: a
+    # process that has run other work renders as a fresh one only if none of
+    # it was a torch.profiler session (the profiled timings come last)
+    paths = PathLaunches()
+    bench_phase(paths)
+
     # 3. dense kernels
     from vulkan_raytracer_tpu_torch.scene.builtin import cornell_box_scene
 
@@ -2259,8 +2318,6 @@ def main() -> int:
     n_wave = 2 * 512 * 512  # lanes of one cfg1 or cfg2 wave
     # the cfg1 wave, and a ragged count whose last block is partly past the rays
     errs = check_kernels({"cornell": cornell, "soup1000": soup}, (n_wave, n_wave - 37), device)
-    times = time_kernels(cornell, n_wave, device)
-    shadow_cfg1 = time_cfg1_shadow(cornell)
 
     # 4. render: the CLI's headless path for bench cfg1
     from vulkan_raytracer_tpu_torch import cli
@@ -2286,7 +2343,6 @@ def main() -> int:
           "seconds": stats["seconds"], "rays": stats["rays"], "bounce_widths": cfg1_widths,
           "mrays_per_s": stats["mrays_per_s"], "launches": launches,
           "image_mean": float(img.mean())})
-    paths = PathLaunches()
     paths.add("render", launches)
 
     # 5. walks: K4' and K5' against their plain versions on the cfg2 dragon
@@ -2309,18 +2365,13 @@ def main() -> int:
                                        cam).items():
                 errs[name] = max(errs.get(name, 0.0), e)
             walk_times[label] = time_walks(tables, n_wave, device, label, cam)
-        times.update(walk_times["cfg2"])
-        # K3 and K1 at launches the glTF renders make
-        recorded = time_recorded(device, bigasset, Path(tmp))
+        times = dict(walk_times["cfg2"])
 
     # 6. the BVH walks against the dense kernels
     bvh_vs_dense(device)
 
     # 7. render: the CLI's headless path for bench cfg2 (K5' and K3)
     paths.add("render_cfg2", render_cfg2(reps=2))
-
-    # 8. the port's bench, one rep of each config behind its gate
-    bench_phase(paths)
 
     # 9. a small scene forced onto the BVH path: one treelet, so K4'
     small = procedural.dragon_scene(detail=12).upload(device, traversal="bvh")
@@ -2339,6 +2390,9 @@ def main() -> int:
     # the CPU tests hold against the JAX renderer and its NumPy oracle
     cpu = _cuda_vs_cpu(cornell, ([0.0, 1.0, 2.4], [0.0, 0.0, -1.0]), "cornell")
     emit({"phase": "cpu", "config": "cornell 32x32 2 spp depth 3", **cpu})
+
+    # 10b. cfg4's gate crop on the card against the CPU
+    cfg4_parity(device)
 
     # 11-13. glTF: the generated containers through the loader, the alpha
     # loop and the texture slots, on the card
@@ -2370,6 +2424,14 @@ def main() -> int:
     shard_one(cfg1_img, cfg1_rays, paths)
     shard_two(device, dragon, paths)
     fleet_phase(cfg1_img, cfg1_rays, paths)
+
+    # the dense kernels' device times from torch.profiler, after every
+    # render phase: a profiler session slows the renders that follow it in
+    # the same process (PERF.md §7)
+    times.update(time_kernels(cornell, n_wave, device))
+    shadow_cfg1 = time_cfg1_shadow(cornell)
+    with tempfile.TemporaryDirectory() as tmp:  # K3 and K1 at launches glTF renders make
+        recorded = time_recorded(device, bigasset, Path(tmp))
 
     # 25. the repacked wavefront against the unsorted one at two BVH waves
     repack_phase(paths, (("cfg2", dragon, CFG2_CAM), ("gltf147k", bigasset, BIGASSET_CAM)))

@@ -181,6 +181,19 @@ def test_tonemap():
                                rtol=RTOL_ELEMWISE)
 
 
+def test_hable():
+    """Hable's filmic curve on 4,096 values in [0, 16]: rtol 1e-6, and atol
+    1e-7 near x = 0, where the curve is a difference of two ~0.067 terms.  XLA
+    may contract the polynomials into FMAs where PyTorch rounds each op, so
+    bit-equality is not assumed (it held on torch 2.13 CPU / XLA CPU)."""
+    x = np.random.default_rng(40).uniform(0.0, 16.0, N).astype(np.float32)
+    jx, tx = _pair(x)
+    got = ttone.hable(tx)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(jtone.hable(jx)), rtol=RTOL_ELEMWISE,
+                               atol=1e-7)
+
+
 def test_sample_equirect():
     """Bilinear equirect lookup.  atan2/asin of the two frameworks differ in
     the last ulp, which moves the texel coordinate x = u*w - 0.5 by ~1e-6

@@ -192,3 +192,30 @@ def test_smi_samples_and_busy_window():
     smi.samples = samples
     assert smi.busy(t0, t0 + 0.15) == 30.0
     assert smi.busy(t0 + 5, t0 + 6) is None
+
+
+def test_parity_reports_lanes_and_fails_on_a_fault(monkeypatch):
+    """The card-against-CPU check (here the CPU against itself): its RMSE bar
+    and ray check, the lanes' counts by class, bounce, field and op; then a
+    class ii lane from the lane tool fails it."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    import torch_lane_diff
+
+    from vulkan_raytracer_tpu_torch.scene.builtin import cornell_box_scene
+
+    tables = cornell_box_scene().upload("cpu")
+    res = cs._cuda_vs_cpu(tables, cs.CFG1_CAM, "cornell", size=8)
+    assert res["rmse"] == 0.0 and res["rays_cuda"] == res["rays_cpu"]
+    assert (res["differing_pixels"], res["lanes_by_class"]) == (0, {"i": 0, "ii": 0})
+    assert res["first_bounce"] == res["lanes_by_op"] == {} and res["bar"] == cs.RMSE_BAR
+    diagnose = torch_lane_diff.diagnose
+
+    def with_fault(*args, **kwargs):
+        out = diagnose(*args, **kwargs)
+        lane = {"pixel": 3, "sample": 1, "bounce": 1, "field": "seed", "kind": "exact",
+                "ulps": None, "class": "ii"}
+        return {**out, "lanes": [lane], **torch_lane_diff.summarise([lane])}
+
+    monkeypatch.setattr(torch_lane_diff, "diagnose", with_fault)
+    with pytest.raises(AssertionError, match="1 lanes of class ii"):
+        cs._cuda_vs_cpu(tables, cs.CFG1_CAM, "cornell", size=8)

@@ -8,9 +8,11 @@ import pytest
 from vulkan_raytracer_tpu.render.renderer import camera_uniforms as jcamera_uniforms
 from vulkan_raytracer_tpu.scene.camera import Camera as JCamera
 from vulkan_raytracer_tpu.utils import image as jimage
+from vulkan_raytracer_tpu.utils import logging as jlogging
 from vulkan_raytracer_tpu_torch.render.renderer import camera_uniforms
 from vulkan_raytracer_tpu_torch.scene.camera import Camera
 from vulkan_raytracer_tpu_torch.utils import image as timage
+from vulkan_raytracer_tpu_torch.utils import logging as tlogging
 
 _POSES = {  # position, direction, aspect, fov (degrees)
     "cfg1": ([0.0, 1.0, 2.4], [0.0, 0.0, -1.0], 1.0, 70.0),
@@ -110,3 +112,22 @@ def test_load_texture_refuses_unported_formats(tmp_path):
     bad.write_bytes(b"BM" + bytes(60))
     with pytest.raises(ValueError, match="unrecognised image format"):
         timage.load_texture(bad)
+
+
+@pytest.mark.parametrize("args", [("plain message",), ("%d rays in %.3f s", 42, 1.5)])
+def test_debug_matches_jax(args, monkeypatch, capsys):
+    """``debug`` prints what the JAX package's prints at the DEBUG level
+    (VKRT_LOG_LEVEL=DEBUG, read at import, so the level is set on both
+    modules) and nothing at INFO."""
+    for mod in (jlogging, tlogging):
+        monkeypatch.setattr(mod, "_LEVEL", mod._LEVELS["DEBUG"])
+    jlogging.debug(*args)
+    want = capsys.readouterr()
+    tlogging.debug(*args)
+    got = capsys.readouterr()
+    assert want.out and "[DEBUG]" in want.out
+    assert (got.out, got.err) == (want.out, want.err)
+    for mod in (jlogging, tlogging):
+        monkeypatch.setattr(mod, "_LEVEL", mod._LEVELS["INFO"])
+        mod.debug(*args)
+        assert capsys.readouterr().out == ""

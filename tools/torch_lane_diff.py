@@ -1,0 +1,675 @@
+#!/usr/bin/env python3
+"""Which lanes make a render on the card differ from the same render on the
+CPU, and why.
+
+    python3 tools/torch_lane_diff.py [--scene cornell|gallery|gltf147k|cfg4|soup|all]
+        [--device cuda|cpu] [--out FILE.json]
+    python3 tools/torch_lane_diff.py --uploads [--device cuda|cpu]
+
+Run from the root of a checkout.  ``--device cuda`` (the default) needs an
+NVIDIA card and fails without one; ``--device cpu`` renders both sides on the
+CPU, a self-test that must find no differing lane.  The scenes are those whose
+card-vs-CPU RMSE ``chip_smoke.py`` reports: the built-in Cornell box,
+``chip_smoke.gallery_scene()`` (instanced), the 147,136-triangle
+``bigasset.glb`` of ``tools/torch_glb_assets.py``, the bench's cfg4 hall under
+its HDR sky at its gate crop (16x16, 2 spp, depth 3), and the emitter soup of
+``chip_smoke.emitter_soup_scene(100000, 5000, seed=31)``; the others at 32x32,
+2 spp, depth 3.
+
+For a scene, :func:`diagnose`:
+
+1. renders the frame with ``render_image`` on the scene's device and on
+   ``tables.to("cpu")`` (the plain versions of every kernel), keeping each
+   lane's radiance (a lane is one (pixel, sample)), and lists the pixels whose
+   linear value differs by more than 1e-6 in any channel;
+2. renders only those pixels again on both devices with ``integrator._bounce``,
+   ``integrator.eval_hit`` and ``integrator._radiance`` wrapped (the module's
+   attributes, restored afterwards), keeping every lane's state at each
+   bounce (``origin``, ``direction``, ``throughput``, ``value``, ``seed``,
+   ``active``, ``mat_pdf``, ``wavelength``, ``sky_w``), the hit's ``tri`` and
+   ``t``, the state after the loop and the radiance; a repacked wave's lanes
+   are mapped back through ``s["slot"]``.  Self-check: each lane's radiance
+   must be the one it had in the whole frame, bit for bit, on each device;
+3. finds each differing lane's first difference: the first bounce, then the
+   first field in the order above (the hit after the state it was traced
+   from), and its distance in ulps; and, on a card, names the aten op it
+   comes from (:func:`attribute`): the step that produced the field is run
+   again for that lane alone on both devices, every aten op of the card's run
+   is recomputed on the CPU from the same inputs, and the op whose CPU result,
+   put in place of the card's, makes the field come out as on the CPU is the
+   one named.
+
+A lane is class ``i`` (a last-ulp flip) when its first difference is in a
+float field and is at most 4 ulps: on a card, at the output of the op named
+(the step's arithmetic after the op may widen it before the field is
+recorded: a 1-ulp ``rsqrt`` has shown as 24 ulps of a direction), elsewhere
+in the field.  It is class ``ii`` (a fault) when the difference is larger,
+in an integer or a flag (a seed, an ``active`` flag, a hit id from equal ray
+inputs), a NaN or inf on one side, when the lane's result depends on the
+wave it ran in, or when no op explains it.  The report gives each lane's
+pixel, sample, first bounce, field, ulps, op, the hit ids on both sides from
+that bounce on, the pixel's error and its share of the frame's squared
+error, then the lanes by class, by first bounce, by field and by op.  The tool leaves the package's launch counters and
+statistics as it found them.  It imports neither jax nor the JAX package.
+
+``--uploads`` (:func:`compare_uploads`) holds two uploads of one scene on one
+device against each other instead: ``chip_smoke.py``'s
+``instanced_vs_flattened`` frame, the 4-dragon gallery instanced and
+flattened, with each differing lane's first difference (hit ids left out).
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten, tree_map
+
+ROOT = Path(__file__).resolve().parent.parent
+
+#: a pixel differs when a channel of its linear value differs by more than this
+PIXEL_TOL = 1e-6
+#: the largest first difference, in ulps of a float field, of a last-ulp flip
+FLIP_ULPS = 4
+#: the wave state compared at each bounce, in this order
+STATE_FIELDS = ("origin", "direction", "throughput", "value", "seed", "active", "mat_pdf",
+                "wavelength", "sky_w")
+HIT_FIELDS = ("tri", "t")
+#: integer and flag fields: any difference is a fault
+EXACT_FIELDS = {"seed", "active", "tri", "preview", "slot"}
+#: aten ops whose results are uninitialised memory or host scalars
+_UNCHECKED = {"empty", "empty_like", "empty_strided", "new_empty", "new_empty_strided",
+              "_local_scalar_dense", "resize_", "set_"}
+
+#: scene -> (size, spp, depth); the smoke's parity frames, cfg4 at its gate crop
+FRAMES = {"cornell": (32, 2, 3), "gallery": (32, 2, 3), "gltf147k": (32, 2, 3),
+          "cfg4": (16, 2, 3), "soup": (32, 2, 3)}
+
+
+def _np(v):
+    """A V3 as an (N, 3) numpy array, a tensor as a numpy array."""
+    from vulkan_raytracer_tpu_torch.ops.math3 import V3
+
+    if isinstance(v, V3):
+        return np.stack([c.detach().cpu().numpy() for c in v], axis=-1)
+    return v.detach().cpu().numpy()
+
+
+def _lane_keys(lane_idx, sample_count, n: int) -> np.ndarray:
+    """(n, 2) int64 (pixel, sample) of a wave's lanes in ``render_sample``'s
+    input order."""
+    pix = np.arange(n) if lane_idx is None else np.asarray(lane_idx.cpu(), np.int64)
+    samp = sample_count.cpu().numpy() if hasattr(sample_count, "cpu") else sample_count
+    return np.stack([pix, np.broadcast_to(np.asarray(samp, np.int64), (n,))], axis=1)
+
+
+class Record:
+    """Lanes of the waves rendered while :meth:`on` is active.  ``radiance``
+    maps (pixel, sample) to its (3,) radiance; with ``bounces``, ``steps`` maps
+    it to {bounce: {"state": {...}, "hit": {...}}} and ``final`` to the state
+    after the loop (every field as a numpy value)."""
+
+    def __init__(self, bounces: bool):
+        self.bounces = bounces
+        self.radiance, self.steps, self.final = {}, {}, {}
+        self._keys = None
+        self._hit = None
+
+    def _lanes(self, s: dict) -> list:
+        n = s["active"].shape[0]
+        pos = s["slot"].cpu().numpy() if "slot" in s else np.arange(n)
+        return [tuple(k) for k in self._keys[pos].tolist()]
+
+    def _state(self, s: dict) -> dict:
+        return {k: _np(v) for k, v in s.items()}
+
+    @contextlib.contextmanager
+    def on(self):
+        from vulkan_raytracer_tpu_torch.render import integrator, renderer
+
+        saved = (renderer.render_sample, integrator._bounce, integrator.eval_hit,
+                 integrator._radiance)
+        render_sample, bounce, eval_hit, radiance = saved
+
+        def rec_render_sample(tables, view_inv, proj_inv, width, height, sample_count,
+                              max_depth, lane_idx=None, **kw):
+            n = width * height if lane_idx is None else lane_idx.shape[0]
+            self._keys = _lane_keys(lane_idx, sample_count, n)
+            out, rays = render_sample(tables, view_inv, proj_inv, width, height, sample_count,
+                                      max_depth, lane_idx=lane_idx, **kw)
+            for key, row in zip(map(tuple, self._keys.tolist()), _np(out)):
+                self.radiance[key] = row
+            return out, rays
+
+        def rec_bounce(tables, s, b, *args):
+            lanes = self._lanes(s)
+            state = self._state(s)
+            out = bounce(tables, s, b, *args)
+            hit = self._hit
+            for i, key in enumerate(lanes):
+                self.steps.setdefault(key, {})[b] = {
+                    "state": {k: v[i] for k, v in state.items()},
+                    "hit": {k: v[i] for k, v in hit.items()}}
+            return out
+
+        def rec_eval_hit(tables, origin, direction, t, tri, u, v):
+            self._hit = {"tri": _np(tri), "t": _np(t)}
+            return eval_hit(tables, origin, direction, t, tri, u, v)
+
+        def rec_radiance(tables, s):
+            lanes, state = self._lanes(s), self._state(s)
+            for i, key in enumerate(lanes):
+                self.final[key] = {k: v[i] for k, v in state.items()}
+            return radiance(tables, s)
+
+        renderer.render_sample = rec_render_sample
+        if self.bounces:
+            integrator._bounce, integrator.eval_hit = rec_bounce, rec_eval_hit
+            integrator._radiance = rec_radiance
+        try:
+            yield self
+        finally:
+            (renderer.render_sample, integrator._bounce, integrator.eval_hit,
+             integrator._radiance) = saved
+
+
+@contextlib.contextmanager
+def counters_kept():
+    """Leave the kernels' launch counters, the instance steps, the alpha
+    loop's counter and the bounce widths as they were."""
+    from vulkan_raytracer_tpu_torch.ops import dense, instanced
+    from vulkan_raytracer_tpu_torch.ops import traverse as tr
+    from vulkan_raytracer_tpu_torch.render import integrator
+
+    kept = [(d, dict(d)) for d in (dense.LAUNCHES, tr.LAUNCHES, instanced.STATS,
+                                   integrator.ALPHA_LOOP, integrator.BOUNCE_WIDTHS)]
+    try:
+        yield
+    finally:
+        for d, was in kept:
+            d.clear()
+            d.update(was)
+
+
+def _camera(cam, width: int, height: int):
+    from vulkan_raytracer_tpu_torch.scene.camera import Camera
+
+    c = Camera(position=np.array(cam[0], np.float64), direction=np.array(cam[1], np.float64))
+    c.aspect = width / height
+    return c
+
+
+def render_frame(tables, cam, width: int, height: int, spp: int, depth: int):
+    """``render_image`` (linear, start sample 1) with each lane's radiance
+    kept; returns (image (H, W, 3), rays, {(pixel, sample): radiance})."""
+    from vulkan_raytracer_tpu_torch.render.renderer import render_image
+
+    rec = Record(bounces=False)
+    with rec.on():
+        img, rays = render_image(tables, _camera(cam, width, height), width, height, spp=spp,
+                                 max_depth=depth, tonemap=False)
+    return img, rays, rec.radiance
+
+
+def record_lanes(tables, cam, width: int, height: int, spp: int, depth: int, pixels) -> Record:
+    """Samples 1..spp of ``pixels`` (flat indices) rendered again in one wave
+    through ``renderer._render_wave``, every bounce of every lane kept."""
+    from vulkan_raytracer_tpu_torch.render import renderer
+
+    view_inv, proj_inv = renderer.camera_uniforms(_camera(cam, width, height))
+    rec = Record(bounces=True)
+    lanes = torch.as_tensor(np.asarray(pixels, np.int64), device=tables.device)
+    with rec.on(), torch.inference_mode():
+        renderer._render_wave(tables, view_inv, proj_inv, width, height, depth,
+                              list(range(1, spp + 1)), lanes, "reference")
+    return rec
+
+
+def self_check(frame: dict, rec: Record) -> list:
+    """Lanes whose radiance in ``rec`` is not the one they had in the whole
+    frame, bit for bit."""
+    return sorted(k for k, v in rec.radiance.items()
+                  if not np.array_equal(np.asarray(v).view(np.int32),
+                                        np.asarray(frame[k]).view(np.int32)))
+
+
+def _ordered(a: np.ndarray) -> np.ndarray:
+    """float32 bits as integers in the order of the floats (+0 and -0 both 0)."""
+    bits = np.asarray(a, np.float32).view(np.int32).astype(np.int64)
+    return np.where(bits < 0, -(2**31) - bits, bits)
+
+
+def field_difference(name: str, a, b):
+    """None where ``a`` and ``b`` are equal bit for bit, else {"kind": "exact"
+    | "nonfinite" | "float", "ulps": the largest distance (float only)}."""
+    a, b = np.asarray(a), np.asarray(b)
+    if name in EXACT_FIELDS or a.dtype.kind in "biu":
+        return None if np.array_equal(a, b) else {"kind": "exact", "ulps": None}
+    a32, b32 = a.astype(np.float32), b.astype(np.float32)
+    if np.array_equal(a32.view(np.int32), b32.view(np.int32)):
+        return None
+    if not np.array_equal(np.isfinite(a32), np.isfinite(b32)) or not (
+            np.isfinite(a32).all() or np.array_equal(np.isnan(a32), np.isnan(b32))):
+        return {"kind": "nonfinite", "ulps": None}
+    fin = np.isfinite(a32) & np.isfinite(b32)
+    ulps = int(np.abs(_ordered(a32[fin]) - _ordered(b32[fin])).max()) if fin.any() else 0
+    return {"kind": "float", "ulps": ulps}
+
+
+def _state_at(rec: Record, key, b):
+    """A lane's state entering bounce ``b``: a lane not in that bounce's wave
+    was dead and already final (the width ladder's tail)."""
+    step = rec.steps.get(key, {}).get(b)
+    return step["state"] if step is not None else rec.final[key]
+
+
+def first_difference(ra: Record, rb: Record, key, hit_fields=HIT_FIELDS):
+    """The first field of lane ``key`` that differs between the two records:
+    {"bounce": b or "end", "field", "kind", "ulps"}, or None."""
+    steps = sorted(set(ra.steps.get(key, {})) | set(rb.steps.get(key, {})))
+    for b in steps:
+        sa, sb = _state_at(ra, key, b), _state_at(rb, key, b)
+        for f in STATE_FIELDS:
+            d = field_difference(f, sa[f], sb[f])
+            if d:
+                return {"bounce": b, "field": f, **d}
+        ha, hb = ra.steps.get(key, {}).get(b), rb.steps.get(key, {}).get(b)
+        if ha is not None and hb is not None and sa["active"] and sb["active"]:
+            for f in hit_fields:
+                d = field_difference(f, ha["hit"][f], hb["hit"][f])
+                if d:
+                    return {"bounce": b, "field": f, **d}
+    for f in STATE_FIELDS:
+        d = field_difference(f, ra.final[key][f], rb.final[key][f])
+        if d:
+            return {"bounce": "end", "field": f, **d}
+    d = field_difference("radiance", ra.radiance[key], rb.radiance[key])
+    return {"bounce": "end", "field": "radiance", **d} if d else None
+
+
+def classify(diff: dict, op=None, attributed: bool = False, op_ulps=None) -> str:
+    """``i`` for a last-ulp flip, else ``ii``.  The first difference must be
+    in a float field.  Where an op was looked for, one must have been named,
+    and the difference is measured at its output (``op_ulps``): the step's
+    arithmetic after it may widen a flip of its result before the field is
+    recorded.  Elsewhere it is the field's: at most FLIP_ULPS either way."""
+    if diff["kind"] != "float":
+        return "ii"
+    if attributed:
+        return "i" if op is not None and op_ulps <= FLIP_ULPS else "ii"
+    return "i" if diff["ulps"] <= FLIP_ULPS else "ii"
+
+
+def _hits_from(ra: Record, rb: Record, key, b) -> list:
+    """[bounce, tri on side a, tri on side b] from bounce ``b`` on."""
+    start = 0 if b == "end" else b
+    steps = sorted(set(ra.steps.get(key, {})) | set(rb.steps.get(key, {})))
+    out = []
+    for s in steps:
+        if s < start:
+            continue
+        ta, tb = (r.steps.get(key, {}).get(s) for r in (ra, rb))
+        out.append([s, None if ta is None else int(ta["hit"]["tri"]),
+                    None if tb is None else int(tb["hit"]["tri"])])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Naming the op: one lane's step again, each aten op held against the CPU
+# ---------------------------------------------------------------------------
+
+
+class AgainstCPU(TorchDispatchMode):
+    """A dispatch mode over a run on the card: with ``check``, every aten op
+    with a floating result is computed again on the CPU from copies of the
+    same inputs, and the ops whose results differ are kept in ``differ`` (op
+    name -> largest ulps, in order of first appearance); ops named in
+    ``substitute`` hand on the CPU's result in place of the card's."""
+
+    def __init__(self, check: bool, substitute=()):
+        super().__init__()
+        self.check, self.substitute = check, frozenset(substitute)
+        self.differ = {}
+        self._cache = {}  # CPU copies of large inputs (the scene's tables)
+
+    @staticmethod
+    def _on_card(x) -> bool:
+        return isinstance(x, torch.Tensor) and x.device.type == "cuda"
+
+    @staticmethod
+    def _reference(func, args, kwargs):
+        """The op on the CPU."""
+        return func(*args, **kwargs)
+
+    def _to_cpu(self, x):
+        if isinstance(x, torch.device):
+            return torch.device("cpu")
+        if not isinstance(x, torch.Tensor):
+            return x
+        if x.device.type == "cpu" or x.numel() < 4096:
+            return x.to("cpu", copy=True)
+        key = (x.untyped_storage().data_ptr(), x.storage_offset(), tuple(x.shape), x.stride(),
+               x.dtype, x._version)
+        if key not in self._cache:
+            self._cache[key] = (x, x.cpu())  # x kept, so its storage is not reused
+        return self._cache[key][1]
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        name = func.overloadpacket.__name__
+        on_card = any(self._on_card(x) for x in tree_flatten((args, kwargs))[0])
+        want = on_card and name not in _UNCHECKED and (self.check or name in self.substitute)
+        if want:
+            cargs, ckwargs = tree_map(self._to_cpu, (args, kwargs))
+        out = func(*args, **kwargs)
+        if not want:
+            return out
+        ref = self._reference(func, cargs, ckwargs)
+        outs, refs = tree_flatten(out)[0], tree_flatten(ref)[0]
+        worst = None
+        for o, r in zip(outs, refs):
+            if isinstance(o, torch.Tensor) and o.is_floating_point():
+                d = field_difference(name, o.detach().cpu().numpy(), r.numpy())
+                if d:
+                    worst = max(worst or 0, 2**31 if d["ulps"] is None else d["ulps"])
+        if worst is None:
+            return out
+        self.differ[name] = max(self.differ.get(name, 0), worst)
+        if name not in self.substitute:
+            return out
+        if func._schema.is_mutable:
+            for o, r in zip(outs, refs):
+                if isinstance(o, torch.Tensor):
+                    o.copy_(r)
+            return out
+        dev = next(o.device for o in outs if isinstance(o, torch.Tensor))
+        return tree_map(lambda r: r.to(dev) if isinstance(r, torch.Tensor) else r, ref)
+
+
+def _lane_state(state: dict, device) -> dict:
+    """One lane's recorded state as a one-lane wave state on ``device``."""
+    from vulkan_raytracer_tpu_torch.ops.math3 import V3
+
+    out = {}
+    for k, v in state.items():
+        a = np.asarray(v)
+        if a.ndim == 1:  # a V3 field: (3,) per lane
+            out[k] = V3(*(torch.as_tensor(a[i:i + 1].copy(), device=device) for i in range(3)))
+        else:
+            out[k] = torch.as_tensor(a.reshape(1).copy(), device=device)
+    if "slot" in out:
+        out["slot"] = torch.zeros(1, dtype=torch.int64, device=device)
+    return out
+
+
+def _step_runner(rec: Record, key, diff, frame_args):
+    """A function that runs again, for lane ``key`` alone on the given
+    tables, the step whose result first differed, and returns that result's
+    field ``diff["field"]`` as numpy; and the value ``rec`` holds for it."""
+    from vulkan_raytracer_tpu_torch.render import integrator, renderer
+
+    cam, width, height, depth = frame_args
+    field, b = diff["field"], diff["bounce"]
+    steps = sorted(rec.steps[key])
+    if field == "radiance":
+        final = rec.final[key]
+
+        def run(tables):
+            return _np(integrator._radiance(tables, _lane_state(final, tables.device)))[0]
+
+        return run, rec.radiance[key]
+    if field in HIT_FIELDS:
+        state = rec.steps[key][b]["state"]
+        want = rec.steps[key][b]["hit"][field]
+        bounce = b
+    elif b == 0:
+        view_inv, proj_inv = renderer.camera_uniforms(_camera(cam, width, height))
+
+        def run(tables):
+            o, d, seed = integrator.generate_primary_rays(
+                view_inv, proj_inv, width, height, int(key[1]),
+                torch.tensor([key[0]], device=tables.device), device=tables.device)
+            return _np({"origin": o, "direction": d, "seed": seed}[field])[0]
+
+        return run, _state_at(rec, key, 0)[field]
+    else:
+        bounce = max(s for s in steps if b == "end" or s < b)
+        state = rec.steps[key][bounce]["state"]
+        want = _state_at(rec, key, b)[field] if b != "end" else rec.final[key][field]
+
+    def run(tables):
+        hit = {}
+        eval_hit = integrator.eval_hit
+
+        def keep(tables_, origin, direction, t, tri, u, v):
+            hit.update(tri=_np(tri)[0], t=_np(t)[0])
+            return eval_hit(tables_, origin, direction, t, tri, u, v)
+
+        integrator.eval_hit = keep
+        try:
+            out, _ = integrator._bounce(tables, _lane_state(state, tables.device), bounce, 1,
+                                        depth, "reference")
+        finally:
+            integrator.eval_hit = eval_hit
+        return hit[field] if field in HIT_FIELDS else _np(out[field])[0]
+
+    return run, want
+
+
+def attribute(tables, cpu_tables, rec_dev: Record, rec_cpu: Record, key, diff,
+              frame_args) -> dict:
+    """Name the aten op behind lane ``key``'s first difference ``diff`` (see
+    the module docstring).  Returns {"op": a name, names joined by "+", or
+    None, "op_ulps": the largest difference of its results, "ops_differing":
+    {op: ulps}, "wave_dependent": bool}: the step run alone must give each
+    device's recorded value, else the lane depends on its wave."""
+    run, want = _step_runner(rec_cpu, key, diff, frame_args)
+    want_dev = _step_runner(rec_dev, key, diff, frame_args)[1]
+    field = diff["field"]
+    with torch.inference_mode():
+        if (field_difference(field, run(cpu_tables), want) is not None
+                or field_difference(field, run(tables), want_dev) is not None):
+            return {"op": None, "op_ulps": None, "ops_differing": {}, "wave_dependent": True}
+        with AgainstCPU(check=True) as mode:
+            run(tables)
+        differ = dict(mode.differ)
+        op = None
+        op_ulps = None
+        for names in [[n] for n in differ] + ([list(differ)] if len(differ) > 1 else []):
+            with AgainstCPU(check=False, substitute=names):
+                if field_difference(field, run(tables), want) is None:
+                    op, op_ulps = "+".join(names), max(differ[n] for n in names)
+                    break
+    return {"op": op, "op_ulps": op_ulps, "ops_differing": differ, "wave_dependent": False}
+
+
+# ---------------------------------------------------------------------------
+# The diagnosis of one frame
+# ---------------------------------------------------------------------------
+
+
+def compare(rec_a: Record, rec_b: Record, hit_fields=HIT_FIELDS) -> dict:
+    """{lane: first difference} of every lane the two records share that
+    differs anywhere."""
+    out = {}
+    for key in sorted(set(rec_a.radiance) & set(rec_b.radiance)):
+        d = first_difference(rec_a, rec_b, key, hit_fields)
+        if d:
+            out[key] = d
+    return out
+
+
+def summarise(lanes: list) -> dict:
+    """Lanes counted by class, first bounce, field and op."""
+    def count(f):
+        out = {}
+        for lane in lanes:
+            k = str(f(lane))
+            out[k] = out.get(k, 0) + 1
+        return out
+
+    return {"by_class": {"i": sum(x.get("class") == "i" for x in lanes),
+                         "ii": sum(x.get("class") == "ii" for x in lanes)},
+            "by_first_bounce": count(lambda x: x["bounce"]),
+            "by_field": count(lambda x: x["field"]), "by_op": count(lambda x: x.get("op"))}
+
+
+def diagnose(tables, cam, width: int, height: int, spp: int, depth: int) -> dict:
+    """The frame on ``tables.device`` against ``tables.to("cpu")``: images,
+    rays, RMSE, the differing pixels and lanes, each lane's first difference,
+    class and (on a card) op.
+    ``void`` is true where the self-check failed on either device.  The
+    frames' kernel launches are counted as any render's; those of the
+    re-renders and the replays are not."""
+    cpu_tables = tables.to("cpu")
+    on_card = tables.device.type == "cuda"
+    img_a, rays_a, frame_a = render_frame(tables, cam, width, height, spp, depth)
+    img_b, rays_b, frame_b = render_frame(cpu_tables, cam, width, height, spp, depth)
+    err = (img_a.astype(np.float64) - img_b.astype(np.float64)).reshape(-1, 3)
+    sq = (err ** 2).sum(axis=1)
+    pixels = np.flatnonzero((np.abs(err) > PIXEL_TOL).any(axis=1))
+    lanes, void, attr_s = [], [], 0.0
+    with counters_kept():  # the frames' launches stay counted, the rest not
+        if pixels.size:
+            rec_a = record_lanes(tables, cam, width, height, spp, depth, pixels)
+            rec_b = record_lanes(cpu_tables, cam, width, height, spp, depth, pixels)
+            void = self_check(frame_a, rec_a) + self_check(frame_b, rec_b)
+            diffs = compare(rec_a, rec_b)
+            for key in sorted(diffs, key=lambda k: -sq[k[0]]):
+                d = diffs[key]
+                lane = {"pixel": int(key[0]), "sample": int(key[1]), **d,
+                        "hits": _hits_from(rec_a, rec_b, key, d["bounce"]),
+                        "pixel_abs_err": float(np.abs(err[key[0]]).max()),
+                        "pixel_sq_err_share": float(sq[key[0]] / sq.sum())}
+                if on_card:
+                    t0 = time.perf_counter()
+                    lane.update(attribute(tables, cpu_tables, rec_a, rec_b, key, d,
+                                          (cam, width, height, depth)))
+                    attr_s += time.perf_counter() - t0
+                lane["class"] = "ii" if key in void or lane.get("wave_dependent") else \
+                    classify(d, lane.get("op"), on_card, lane.get("op_ulps"))
+                lanes.append(lane)
+    rmse = float(np.sqrt(np.mean(err ** 2)))
+    return {"images": (img_a, img_b), "rays": (rays_a, rays_b), "rmse": rmse,
+            "differing_pixels": int(pixels.size), "differing_lanes": len(lanes),
+            "attributed": sum("op" in x for x in lanes), "attribution_s": attr_s,
+            "void": bool(void), "wave_dependent_lanes": [list(map(int, k)) for k in void],
+            **summarise(lanes), "lanes": lanes}
+
+
+def compare_uploads(scene, cam, width: int, height: int, spp: int, depth: int, device) -> dict:
+    """One scene uploaded instanced and flattened on one device: RMSE, rays,
+    the pixels that differ by more than 1e-6, and each of their lanes' first
+    difference between the two uploads (hit ids are not compared: the
+    instanced ones encode the instance) and radiance on each side."""
+    tables = {k: scene.upload(device, instancing=k == "instanced")
+              for k in ("instanced", "flattened")}
+    frames = {k: render_frame(t, cam, width, height, spp, depth) for k, t in tables.items()}
+    (img_a, rays_a, _), (img_b, rays_b, _) = frames["instanced"], frames["flattened"]
+    err = (img_a.astype(np.float64) - img_b.astype(np.float64)).reshape(-1, 3)
+    pixels = np.flatnonzero((np.abs(err) > PIXEL_TOL).any(axis=1))
+    lanes = []
+    if pixels.size:
+        with counters_kept():
+            rec = {k: record_lanes(t, cam, width, height, spp, depth, pixels)
+                   for k, t in tables.items()}
+        for key, d in compare(rec["instanced"], rec["flattened"], ("t",)).items():
+            lanes.append({"pixel": int(key[0]), "sample": int(key[1]), **d,
+                          "radiance": [rec[k].radiance[key].tolist() for k in rec],
+                          "pixel_abs_err": float(np.abs(err[key[0]]).max())})
+    lanes.sort(key=lambda x: -x["pixel_abs_err"])
+    return {"rmse": float(np.sqrt(np.mean(err ** 2))), "rays": [rays_a, rays_b],
+            "differing_pixels": int(pixels.size), "differing_lanes": len(lanes),
+            **{k: v for k, v in summarise(lanes).items() if k in ("by_first_bounce", "by_field")},
+            "lanes": lanes}
+
+
+def scene_case(name: str, device):
+    """(tables on ``device``, camera (position, direction), size, spp, depth)
+    of one of the scenes in :data:`FRAMES`."""
+    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(ROOT / "tools"))
+    import chip_smoke as cs
+
+    size, spp, depth = FRAMES[name]
+    if name == "cornell":
+        from vulkan_raytracer_tpu_torch.scene.builtin import cornell_box_scene
+
+        return cornell_box_scene().upload(device), cs.CFG1_CAM, size, spp, depth
+    if name == "gallery":
+        return cs.gallery_scene().upload(device), cs.gallery_camera(), size, spp, depth
+    if name == "soup":
+        scene = cs.emitter_soup_scene(100000, 5000, seed=31)
+        return scene.upload(device), cs.CFG1_CAM, size, spp, depth
+    if name == "cfg4":
+        from vulkan_raytracer_tpu_torch import bench
+
+        cfg = next(c for c in bench.CONFIGS if c["key"].startswith("cfg4"))
+        if cfg["crop"] != (size, spp, depth):
+            raise AssertionError(f"cfg4's gate crop is {cfg['crop']}, not {(size, spp, depth)}")
+        return cfg["build"]().upload(device), cfg["cam"], size, spp, depth
+    import torch_glb_assets
+
+    from vulkan_raytracer_tpu_torch.scene.scenegraph import Scene
+
+    scene = Scene()
+    with tempfile.TemporaryDirectory() as tmp:
+        scene.load_model(torch_glb_assets.write_bigasset_glb(Path(tmp), big=True))
+    return scene.upload(device), cs.BIGASSET_CAM, size, spp, depth
+
+
+def report(res: dict, lanes_shown: int = 40) -> dict:
+    """The JSON-ready part of a :func:`diagnose` result."""
+    out = {k: v for k, v in res.items() if k not in ("images", "lanes")}
+    out["lanes"] = res["lanes"][:lanes_shown]
+    return out
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--scene", choices=[*FRAMES, "all"], default="all")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    p.add_argument("--out", default=None)
+    p.add_argument("--uploads", action="store_true",
+                   help="instead: chip_smoke.py's instanced_vs_flattened frame (4 dragons, "
+                        "128x128, 2 spp, depth 3) uploaded both ways on --device")
+    args = p.parse_args(argv)
+    sys.path.insert(0, str(ROOT))
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("torch_lane_diff.py: --device cuda needs an NVIDIA card; "
+                         "--device cpu runs the CPU-against-CPU self-test")
+    device = torch.device("cuda", 0) if args.device == "cuda" else torch.device("cpu")
+    if args.uploads:
+        sys.path.insert(0, str(ROOT / "tools"))
+        import chip_smoke as cs
+
+        res = compare_uploads(cs.gallery_scene(n_dragons=4), cs.gallery_camera(4), 128, 128, 2,
+                              3, device)
+        res["device"] = torch.cuda.get_device_name(0) if args.device == "cuda" else "cpu"
+        print(json.dumps({**res, "lanes": res["lanes"][:8]}), flush=True)
+        return 0
+    results = {}
+    for name in FRAMES if args.scene == "all" else [args.scene]:
+        tables, cam, size, spp, depth = scene_case(name, device)
+        res = report(diagnose(tables, cam, size, size, spp, depth))
+        res.update(scene=name, frame=f"{size}x{size} {spp} spp depth {depth}",
+                   device=torch.cuda.get_device_name(0) if args.device == "cuda" else "cpu")
+        results[name] = res
+        print(json.dumps({k: v for k, v in res.items() if k != "lanes"}), flush=True)
+        del tables
+        if args.out:  # after each scene, so a cut run keeps what it found
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(results, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -23,3 +23,9 @@ def reinhard_jodie(v):
     lum = luminance(v)[..., None]
     tv = reinhard(v)
     return (v / (1.0 + lum)) * (1.0 - tv) + tv * tv
+
+
+def hable(x):
+    """Hable filmic curve (shaders/hdr.glsl:15-25; unused by the display path)."""
+    a, b, c, d, e, f = 0.15, 0.50, 0.10, 0.20, 0.02, 0.30
+    return ((x * (a * x + c * b) + d * e) / (x * (a * x + b) + d * f)) - e / f

@@ -733,6 +733,14 @@ def _bounce(tables, s: dict, b: int, n_active: int, max_depth: int, nee_weightin
     return out, n_active + probe_mask.sum() + nee_rays
 
 
+def _radiance(tables, s: dict):
+    """(N, 3) radiance of the wave state ``s`` after its last bounce: the
+    value gathered plus the deferred skybox, one equirect fetch for the whole
+    loop."""
+    sky = sample_equirect(tables.skybox, s["direction"].to_array()) * tables.skybox_strength
+    return (s["value"] + s["sky_w"] * V3.from_array(sky)).to_array()
+
+
 def render_sample(tables, view_inv, proj_inv, width, height, sample_count, max_depth,
                   lane_idx=None, nee_weighting="reference"):
     """Path-trace one sample for every pixel (or the given pixel lanes).
@@ -812,9 +820,7 @@ def render_sample(tables, view_inv, proj_inv, width, height, sample_count, max_d
     for tail in reversed(tails):
         s = _join(s, tail)
 
-    # deferred skybox: one equirect fetch for the whole loop
-    sky = sample_equirect(tables.skybox, s["direction"].to_array()) * tables.skybox_strength
-    value = (s["value"] + s["sky_w"] * V3.from_array(sky)).to_array()
+    value = _radiance(tables, s)
     if repack:  # back to the lanes' own order (integrator.py:1136-1137)
         value = torch.empty_like(value).index_copy_(0, s["slot"], value)
     return value, rays

@@ -25,6 +25,10 @@ def _log(level: str, colour: str, fmt: str, *args) -> None:
     print(f"{colour}[{level}]{_RESET} {msg}", file=stream, flush=True)
 
 
+def debug(fmt: str, *args) -> None:
+    _log("DEBUG", _GREEN, fmt, *args)
+
+
 def info(fmt: str, *args) -> None:
     _log("INFO", _GREEN, fmt, *args)
 
