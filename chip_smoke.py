@@ -8,9 +8,17 @@ Run from the root of a checkout, with no arguments:
 Phases, one JSON line each; any failure raises and ends the run with a
 nonzero exit code.  They run in the order of their numbers but two: 8
 (bench) runs right after 2, and the ``torch.profiler`` timings of 3 and 5
-run after 24, with 25.  A profiler session slows every render that follows
-it in the same process (``tools/bench_torch_process_state.py``, PERF.md
-§7), so no render phase runs after one.
+run after 26, with 25 and 27.  A profiler session slows every render that
+follows it in the same process (``tools/bench_torch_process_state.py``,
+PERF.md §7), so no render phase runs after one but those that compare
+sides of one wave in turns.
+
+On the card every render of an alpha-free scene replays each bounce from
+a captured CUDA graph (``render/graphs.py``); alpha scenes (the two glTF
+containers) run eagerly.  A render phase's line says how its bounces ran
+since its counters were reset (``bounces``: "graphs", "eager", or both
+where the CPU renders the same frame); phases that record what a bounce
+calls run eagerly.
 
 1. device   — CUDA must be available (no CPU fallback); the card's name and
    power limit from nvidia-smi.
@@ -58,13 +66,13 @@ it in the same process (``tools/bench_torch_process_state.py``, PERF.md
    bench.py's five configs at their full frames) with one rep of each: each
    config's gate crop on the card against its committed NumPy-oracle golden
    (``bench_goldens.npz`` for cfg2-cfg5, ``bench_goldens_torch.npz`` for the
-   built-in Cornell box of cfg1): RMSE < 2e-3; its warm-up (cfg1's whole
-   frame, the first band of the others); one timed frame, which must launch
-   K1-K3 (cfg1) or K5' closest, K5' shadow and K3 (cfg2-cfg5), be lit, trace
-   between one and 3 x (depth + 1) rays a sample, and run the bands and
-   waves of ``render_image``'s plan (cfg1 whole in 32 waves; 2, 2, 8 and 32
+   built-in Cornell box of cfg1): RMSE < 2e-3; its warm-up frame, which
+   captures every graph the rep replays; one timed frame, which must capture
+   no graph, launch K1-K3 (cfg1) or K5' closest, K5' shadow and K3
+   (cfg2-cfg5), be lit, trace between one and 3 x (depth + 1) rays a
+   sample, and run the bands and waves of ``render_image``'s plan (cfg1 whole in 32 waves; 2, 2, 8 and 32
    bands for cfg2-cfg5).  Every frame's linear accumulation (gate crops,
-   cfg1's warm-up, the timed frames) must be finite, and cfg5's lit.  One
+   warm-up and timed frames) must be finite, and cfg5's two lit.  One
    line per config, cfg1 first, with its Mrays/s, launches, peak memory and
    set-up seconds; then the bench's summary.
 9. bvh_forced — a 712-triangle dragon uploaded with ``traversal="bvh"`` (one
@@ -128,16 +136,25 @@ it in the same process (``tools/bench_torch_process_state.py``, PERF.md
    rotations and scales, a floor and two emissive panels (16.8 M triangles
    flattened, 262,148 stored); ``Scene.upload(instancing="auto")`` must pick
    instancing by itself.  512x512, depth 4, 4 spp through ``render_image``,
-   once to warm up and once timed: seconds, Mrays/s, instance steps, steps
-   skipped, launches per kernel, peak device memory; it must launch K1, K2,
-   K3 and K5' (both variants).  Then the same scene at 32x32 on the card
-   against the CPU.
+   once to warm up and once timed: seconds, Mrays/s, instance steps (every
+   instance of every call launches its kernel: no host test), launches per
+   kernel, peak device memory; it must launch K1, K2, K3 and K5' (both
+   variants).  Then the same scene at 32x32 on the card against the CPU.
 19. instanced_vs_flattened — the dragon x 4 instances uploaded both ways on
-   the card, 128x128, 2 spp, depth 3: RMSE < 2e-3.
+   the card (``tools/torch_lane_diff.py check_uploads``): the bounce-0 first
+   hits of 128x128 x 32 samples lane by lane (where both hit one triangle, t
+   within 512 ulps; another triangle, or a hit on one route only, only at a
+   tie or at a crack within 1e-3 of the nearer triangle's edge, cracks at
+   most 1e-4 of the lanes), and the 128x128, 32 spp, depth 3 image: RMSE <
+   2e-3, which one flipped path cannot cross at 32 spp.
 20. refit — one node of the cfg2 dragon scene and one instance of the
    gallery move; ``Scene.refit`` against a fresh ``upload`` on the card: the
    same image (atol 1e-5 flattened, RMSE < 2e-3 instanced) and the seconds
-   of each (a refit more than twice as slow as the rebuild fails).
+   of each (a refit more than twice as slow as the rebuild fails).  Then
+   (``refit_frame``) the 512x512, 4 spp, depth 4 frame right after a refit
+   and the one after it, graphs and eager in turns, each turn on a refit of
+   its own: the graphs side's first frame captures every bounce anew (new
+   tables never replay old graphs).  Images bit-equal; seconds of each.
 21. progressive — the progressive ``Renderer`` on Cornell 512x512, depth 4:
    the preview frame and 16 samples, whose mean must equal
    ``render_image(spp=16)`` within atol 1e-5; ms per frame; ``pipeline=True``
@@ -174,6 +191,25 @@ it in the same process (``tools/bench_torch_process_state.py``, PERF.md
    128-lane blocks of each K5' launch, and each side's wall, device time
    and K5' device time from ``torch.profiler``.
 
+26. graphs  — six configs with their bounces replayed from graphs and
+   eagerly (``graphs._graphs_preferred`` patched off), each side warmed up
+   once (the graphs capture there), then in turns (graphs, eager, eager,
+   graphs): bench cfg1's whole frame, cfg2's frame, cfg5's first band, the
+   emitter soup, the gallery and the progressive ``Renderer`` (preview + 16
+   frames).  Images bit-equal, equal rays and launches per kernel; per side
+   the wall per frame and per wave and the host synchronisations per wave
+   (``torch.cuda.set_sync_debug_mode("warn")``), at most max_depth + 1 +
+   ``SYNCS_PER_WAVE`` on the graphs side; the graphs kept, their capture
+   seconds and their pool's bytes.
+27. graphs_busy — after the profiled timings: one wave each of cfg1, the
+   gallery, the emitter soup and phase 9's forced-BVH dragon under
+   ``torch.profiler`` each way, counters reset just before: each
+   hand-written kernel's launches in the trace must equal the counters'.  A
+   replay runs no Python, so its counts are those its capture took; this is
+   where the replays are seen to launch them, every kernel variant over the
+   four waves.  And the device's busy share (the union of its kernels' intervals
+   over the wall).
+
 Scenes above 65,536 triangles (cfg2, the glTF 147k, the emitter soup, cfg5,
 the gallery) run the repacked wavefront in every phase that renders them,
 on the card and on the CPU alike; cfg1 and the other dense scenes keep lane
@@ -199,6 +235,7 @@ phase checks that.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -261,6 +298,11 @@ WALK_TERM_OPS = 39  # the emissive walk's term: the normal over its length (sqrt
 PROFILE_TRIES = 3  # profiled runs of one launch shape before device_ms gives up
 # the BVH streams of the cfg2 dragon and of the 147k glTF must fit half the L2
 STREAM_BYTES_MAX = 25e6
+# host synchronisations a wave may take beyond one live-lane read a bounce:
+# the ladder's two phases that end on their floor, the copy of the wave's
+# sample numbers (or, for one sample, of the sample count and the preview
+# flag) and the frame's reads of its image and ray count
+SYNCS_PER_WAVE = 6
 
 
 def _cam_flags(cam):
@@ -831,11 +873,26 @@ def time_kernels(tables, n: int, device) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def _eager():
+    """Bounces run eagerly inside (``graphs._graphs_preferred`` patched to
+    False): a recorder that wraps a function the bounce calls would see a
+    replayed graph's calls only while it is captured."""
+    from vulkan_raytracer_tpu_torch.render import graphs
+
+    preferred = graphs._graphs_preferred
+    graphs._graphs_preferred = lambda tables: False
+    try:
+        yield
+    finally:
+        graphs._graphs_preferred = preferred
+
+
 def record_dense_launches(run):
-    """Call ``run()`` with ops/dense.py's three sweeps wrapped so that every
-    call's arguments and result are kept (tensors cloned).  Returns the calls
-    in order, as (kernel, args, result), and each kernel's launches counted
-    meanwhile."""
+    """Call ``run()``, eagerly, with ops/dense.py's three sweeps wrapped so
+    that every call's arguments and result are kept (tensors cloned).
+    Returns the calls in order, as (kernel, args, result), and each kernel's
+    launches counted meanwhile."""
     import torch
 
     from vulkan_raytracer_tpu_torch.ops import dense
@@ -860,7 +917,8 @@ def record_dense_launches(run):
     try:
         for k, f in DENSE_SWEEPS.items():
             setattr(dense, f, recording(k, saved[k]))
-        run()
+        with _eager():
+            run()
     finally:
         for k, f in DENSE_SWEEPS.items():
             setattr(dense, f, saved[k])
@@ -1172,9 +1230,9 @@ def time_emissive_walk(tables, n: int, device) -> dict:
 
 
 def record_emissive_probes(run):
-    """Call ``run()`` with ops/traverse.py's emissive walk wrapped so that
-    each call's t_min and count of active lanes are kept; returns (what
-    ``run`` returned, the calls as (t_min, active lanes))."""
+    """Call ``run()``, eagerly, with ops/traverse.py's emissive walk wrapped
+    so that each call's t_min and count of active lanes are kept; returns
+    (what ``run`` returned, the calls as (t_min, active lanes))."""
     from vulkan_raytracer_tpu_torch.ops import traverse as tr
 
     saved = tr.emissive_pdf_walk
@@ -1186,7 +1244,8 @@ def record_emissive_probes(run):
 
     try:
         tr.emissive_pdf_walk = recording
-        result = run()
+        with _eager():
+            result = run()
     finally:
         tr.emissive_pdf_walk = saved
     return result, calls
@@ -1239,7 +1298,7 @@ def render_emissive_bvh(device, paths) -> None:
         raise AssertionError(f"emitter soup image not finite, misshapen or black: "
                              f"{img.shape} mean {img.mean()}")
     paths.add("render_emissive_bvh", launches)
-    emit({"phase": "render_emissive_bvh",
+    emit({"phase": "render_emissive_bvh", "bounces": _mode(),
           "config": "emitter soup (100,000 grey + 5,000 emissive tris) 512x512 depth 4 4 spp",
           "upload_seconds": upload_s, "treelets": tables.pbvh.n_treelets,
           "emissive_stream_bytes": tables.em_stream.nbytes, "seconds": secs, "rays": rays,
@@ -1254,7 +1313,8 @@ def render_emissive_bvh(device, paths) -> None:
     launches = _launch_counts()
     if not launches["traverse"]["emissive_pdf"] > 0:
         raise AssertionError(f"the 32x32 emitter soup render missed the emissive walk: {launches}")
-    emit({"phase": "render_emissive_bvh_parity", "config": "emitter soup 32x32 2 spp depth 3",
+    emit({"phase": "render_emissive_bvh_parity", "bounces": _mode(),
+          "config": "emitter soup 32x32 2 spp depth 3",
           "launches": launches, **res})
 
 
@@ -1338,7 +1398,7 @@ def instanced_parity(device, ray_counts, detail: int = 256) -> None:
               "hits": int(hit.sum()), "occluded": int(occ_w.sum()),
               "instances_hit": int(torch.unique(tables.inst.decode(enc_w[hit])[1]).numel()),
               "ids_and_flags_bit_equal": True, "cpu_seconds": cpu_s, "seconds": secs,
-              "steps": steps["steps"], "skipped": steps["skipped"], "launches": used,
+              "steps": steps["steps"], "launches": used,
               "t_max_abs_err": _max_abs(t_k[hit], t_w[hit]),
               "t_bit_equal": bool(torch.equal(t_k[hit], t_w[hit]))})
 
@@ -1391,9 +1451,13 @@ def render_instanced(device, paths, detail: int = 256, n_dragons: int = 64, size
                              f"{img.shape} mean {img.mean()}")
     if not np.array_equal(*images):
         raise AssertionError("two renders of the gallery differ")
+    calls = steps["closest_calls"] + steps["shadow_calls"]
+    if steps["steps"] != calls * inst.num_instances:
+        raise AssertionError(f"{steps['steps']} instance steps in {calls} calls over "
+                             f"{inst.num_instances} instances: one was skipped")
     paths.add("render_instanced", launches)
     waves = 2  # 4 spp of 262,144 pixels in waves of 524,288 lanes
-    emit({"phase": "render_instanced",
+    emit({"phase": "render_instanced", "bounces": _mode(),
           "config": f"gallery: {n_dragons} dragon instances + floor + 2 emissive panels, "
                     f"{size}x{size} depth 4 4 spp",
           "instancing": "auto", "instances": inst.num_instances,
@@ -1404,45 +1468,33 @@ def render_instanced(device, paths, detail: int = 256, n_dragons: int = 64, size
           "table_and_stream_bytes": table_bytes, "peak_memory_bytes": peak,
           "seconds": secs, "rays": rays, "mrays_per_s": rays / secs / 1e6, "waves": waves,
           "closest_calls": steps["closest_calls"], "shadow_calls": steps["shadow_calls"],
-          "steps": steps["steps"], "skipped": steps["skipped"], "launches": launches,
+          "steps": steps["steps"], "launches": launches,
           "image_mean": float(img.mean())})
     _reset_launches()
     t0 = time.perf_counter()
     res = _cuda_vs_cpu(tables, cam, "gallery")
-    emit({"phase": "render_instanced_parity", "config": "gallery 32x32 2 spp depth 3",
+    emit({"phase": "render_instanced_parity", "bounces": _mode(),
+          "config": "gallery 32x32 2 spp depth 3",
           "seconds": time.perf_counter() - t0, "launches": _launch_counts(), **res})
     return scene, tables
 
 
 def instanced_vs_flattened(device, detail: int = 256) -> None:
-    """The dragon x 4 instances uploaded both ways on the card."""
-    import torch
+    """The dragon x 4 instances uploaded both ways on the card: their
+    first hits lane by lane and their 32 spp image
+    (``torch_lane_diff.check_uploads``)."""
+    import torch_lane_diff
 
-    scene = gallery_scene(detail, n_dragons=4)
-    cam = gallery_camera(4)
-    out = {}
-    for name, instancing in (("instanced", True), ("flattened", False)):
-        torch.cuda.synchronize()
-        before = torch.cuda.memory_allocated()
-        t0 = time.perf_counter()
-        tables = scene.upload(device, instancing=instancing)
-        torch.cuda.synchronize()
-        upload_s = time.perf_counter() - t0
-        nbytes = torch.cuda.memory_allocated() - before
-        _reset_launches()
-        img, rays, secs = _render(tables, cam, 128, 128, spp=2, depth=3)
-        out[name] = {"triangles": tables.num_triangles, "upload_seconds": upload_s,
-                     "table_and_stream_bytes": nbytes, "seconds": secs, "rays": rays,
-                     "launches": _launch_counts()}
-        out[name + "_image"] = img
-        del tables
-    a, b = out.pop("instanced_image"), out.pop("flattened_image")
-    rmse = _rmse(a, b)
-    emit({"phase": "instanced_vs_flattened",
-          "config": "gallery of 4 dragons 128x128 2 spp depth 3", "rmse": rmse, "bar": RMSE_BAR,
-          "image_mean": float(b.mean()), **out})
-    if not (np.isfinite(a).all() and b.mean() > 1e-3 and rmse < RMSE_BAR):
-        raise AssertionError(f"instanced vs flattened RMSE {rmse} (bar {RMSE_BAR})")
+    _reset_launches()
+    t0 = time.perf_counter()
+    res = torch_lane_diff.check_uploads(gallery_scene(detail, n_dragons=4), gallery_camera(4),
+                                        device)
+    emit({"phase": "instanced_vs_flattened", "bounces": _mode(),
+          "config": "gallery of 4 dragons 128x128 32 spp depth 3",
+          "seconds": time.perf_counter() - t0, "launches": _launch_counts(), **res})
+    if not res["ok"]:
+        raise AssertionError(f"instanced vs flattened: first hits {res['first_hits']}, "
+                             f"RMSE {res['rmse']} (bar {res['bar']})")
 
 
 def _timed_sync(fn):
@@ -1494,10 +1546,53 @@ def refit_phase(device, paths, dragon, dragon_tables, gallery, gallery_tables) -
         if refit_s > 2.0 * upload_s:
             raise AssertionError(f"refit of {name} took {refit_s:.3f}s, the rebuild "
                                  f"{upload_s:.3f}s")
-    launches = _launch_counts()
+    launches, bounces = _launch_counts(), _mode()
     paths.add("refit", launches)
-    emit({"phase": "refit", "config": "one node moved; 128x128 2 spp depth 3", **out,
+    emit({"phase": "refit", "bounces": bounces,
+          "config": "one node moved; 128x128 2 spp depth 3", **out,
           "launches": launches})
+    frame_after_refit(device, ((
+        "cfg2_dragon", dragon, dragon_tables, CFG2_CAM), (
+        "gallery", gallery, gallery_tables, gallery_camera(gallery_tables.inst.num_instances - 3))))
+
+
+def frame_after_refit(device, cases, size: int = 512, spp: int = 4, depth: int = 4) -> None:
+    """The frame a dynamic scene renders right after ``Scene.refit`` (the
+    Renderer's refit-and-restart loop), with graphs and eager, in turns
+    (graphs, eager, eager, graphs), each turn on the tables of a refit of
+    its own: the first frame on new tables, which on the graphs side
+    captures every bounce anew, and a second frame on the same tables.
+    Both sides' images bit-equal."""
+    import torch
+
+    from vulkan_raytracer_tpu_torch.render import graphs
+
+    for name, scene, tables, cam in cases:
+        out = {side: {"first_s": [], "second_s": [], "captured": []}
+               for side in ("graphs", "eager")}
+        want = None
+        for side in ("graphs", "eager", "eager", "graphs"):
+            with _eager() if side == "eager" else contextlib.nullcontext():
+                refit = scene.refit(tables)
+                torch.cuda.synchronize(device)
+                graphs.reset_stats()
+                for key in ("first_s", "second_s"):
+                    img, rays, secs = _render(refit, cam, size, size, spp=spp, depth=depth)
+                    out[side][key].append(secs)
+                out[side]["captured"].append(graphs.STATS["captured"])
+            del refit
+            if want is None:
+                want = (img, rays)
+            if not (np.array_equal(img, want[0]) and rays == want[1]):
+                raise AssertionError(f"{name}: the {side} frame after a refit differs")
+        for o in out.values():
+            o.update(first_s_median=statistics.median(o["first_s"]),
+                     second_s_median=statistics.median(o["second_s"]))
+        emit({"phase": "refit_frame", "config": f"{name}: {size}x{size} {spp} spp depth {depth} "
+                                                f"on the tables of a new refit", "rays": want[1],
+              "bit_equal": True, **out,
+              "first_frame_graphs_over_eager": (out["graphs"]["first_s_median"]
+                                                / out["eager"]["first_s_median"])})
 
 
 def progressive_phase(device, paths, size: int = 512, spp: int = 16) -> None:
@@ -1547,7 +1642,8 @@ def progressive_phase(device, paths, size: int = 512, spp: int = 16) -> None:
     prog_err = float(np.abs(prog["image"] - mean).max())
     # render_image's mean of spp samples, which the uninterrupted CLI render returns
     resume_err = float(np.abs(part["image"] - want).max())
-    emit({"phase": "progressive", "config": f"cornell {w}x{h} depth {depth}: preview + {spp} frames",
+    emit({"phase": "progressive", "bounces": _mode(),
+          "config": f"cornell {w}x{h} depth {depth}: preview + {spp} frames",
           "frame_ms_median": statistics.median(ms[1:]), "frame_ms_min": min(ms[1:]),
           "frame_ms_max": max(ms[1:]), "preview_ms": ms[0], "rays": r.rays_traced,
           "max_abs_err_vs_render_image": err, "pipeline_equal": True,
@@ -1585,7 +1681,8 @@ def shard_one(want, want_rays: int, paths, reps: int = 2) -> None:
                                 "max_abs_diff": float(np.abs(img - want).max())})
             if label == "shard" and shard_launches is None:
                 shard_launches = launches
-    emit({"phase": "shard_one", "config": "cfg1 cornell 512x512 depth 4 64 spp, cli --shard",
+    emit({"phase": "shard_one", "bounces": _mode(),
+          "config": "cfg1 cornell 512x512 depth 4 64 spp, cli --shard",
           "mesh": [str(d) for d in mesh], "runs": runs,
           "seconds_shard": [r["seconds"] for r in runs["shard"]],
           "seconds_plain": [r["seconds"] for r in runs["plain"]],
@@ -1635,7 +1732,8 @@ def shard_two(device, dragon, paths) -> None:
     per = w * h // len(mesh)
     chunk, band, bands = renderer.band_plan(w, h, spp)
     s_batch = renderer.samples_per_wave(per, spp)
-    emit({"phase": "shard_two", "config": "cfg2 dragon 512x512 depth 4 4 spp on [cuda:0, cuda:0]",
+    emit({"phase": "shard_two", "bounces": _mode(),
+          "config": "cfg2 dragon 512x512 depth 4 4 spp on [cuda:0, cuda:0]",
           "lanes_per_shard": per, "plain": {"bands": renderer.LAST_RENDER["bands"],
                                             "waves": renderer.LAST_RENDER["waves"],
                                             "lanes_per_wave": chunk * band},
@@ -1897,6 +1995,180 @@ def repack_phase(paths, waves) -> None:
                       "blocks, blocks) per launch"})
 
 
+def graphs_phase(cornell, dragon):
+    """Phase 26: six configs rendered with their bounces replayed from
+    captured CUDA graphs (the package's rule) and eagerly (:func:`_eager`):
+    each side once to warm up (the graphs capture there), then in turns
+    (graphs, eager, eager, graphs): images bit-equal, rays and each kernel's
+    launches equal, every bounce of the graphs side replayed and none of the
+    eager side's; per side the wall per frame and per wave and the host
+    synchronisations per wave (one more run each, counted from
+    ``torch.cuda.set_sync_debug_mode("warn")``'s warnings), at most
+    ``depth + 1 + SYNCS_PER_WAVE`` on the graphs side; once the graphs
+    captured, their seconds and the pool's bytes.  Returns the gallery's and
+    the emitter soup's tables, for phase 27."""
+    import torch
+    from profile_torch_wave import count_syncs
+
+    from vulkan_raytracer_tpu_torch import bench
+    from vulkan_raytracer_tpu_torch.render import graphs, renderer
+    from vulkan_raytracer_tpu_torch.render.integrator import block_order
+    from vulkan_raytracer_tpu_torch.scene.camera import Camera
+
+    def camera(cam, w, h):
+        return Camera(position=np.array(cam[0]), direction=np.array(cam[1]), aspect=w / h)
+
+    def frame(tables, cam, w, h, spp, depth):
+        def run():
+            img, rays = renderer.render_image(tables, camera(cam, w, h), w, h, spp,
+                                              max_depth=depth, tonemap=False)
+            return [img], rays, renderer.LAST_RENDER["waves"]
+        return run
+
+    def first_band(tables, cfg):
+        w, h = cfg["w"], cfg["h"]
+        vi, pi = renderer.camera_uniforms(camera(cfg["cam"], w, h))
+        chunk, per, _ = renderer.band_plan(w, h, cfg["spp"])
+        lanes = torch.as_tensor(block_order(w, h)[0][:per], device=tables.device)
+
+        def run():
+            with torch.inference_mode():
+                acc, rays, _, waves = renderer.render_lanes(tables, vi, pi, w, h, cfg["depth"],
+                                                            chunk, 1, lanes, banded=True)
+                return [acc.cpu().numpy()], int(rays), waves
+        return run
+
+    def progressive(tables, w, h, depth, spp):
+        def run():
+            r = renderer.Renderer(tables, camera(CFG1_CAM, w, h), w, h, depth)
+            frames = [r.draw_frame() for _ in range(spp + 1)]  # the preview, then spp
+            return frames + [r.accum.cpu().numpy()], r.rays_traced, spp + 1
+        return run
+
+    cfg5 = next(c for c in bench.CONFIGS if c["key"].startswith("cfg5"))
+    multi = cfg5["build"]().upload("cuda")
+    soup = emitter_soup_scene(100000, 5000, seed=31).upload("cuda")
+    gallery = gallery_scene().upload("cuda")
+    cases = (
+        ("cfg1 cornell 512x512 depth 4 64 spp", cornell, 4,
+         frame(cornell, CFG1_CAM, 512, 512, 64, 4)),
+        ("cfg2 dragon 512x512 depth 4 4 spp", dragon, 4, frame(dragon, CFG2_CAM, 512, 512, 4, 4)),
+        ("cfg5 multi 1920x1080 depth 8: its first band, 64,800 pixels x 8 samples", multi,
+         cfg5["depth"], first_band(multi, cfg5)),
+        ("emitter soup 512x512 depth 4 4 spp", soup, 4, frame(soup, CFG1_CAM, 512, 512, 4, 4)),
+        ("gallery 512x512 depth 4 4 spp", gallery, 4,
+         frame(gallery, gallery_camera(), 512, 512, 4, 4)),
+        ("progressive cornell 512x512 depth 4: preview + 16 frames", cornell, 4,
+         progressive(cornell, 512, 512, 4, 16)),
+    )
+    total = {"captured": 0, "capture_s": 0.0}
+    for config, tables, depth, run in cases:
+        if not graphs._graphs_preferred(tables):
+            raise AssertionError(f"{config}: not a scene the graphs run")
+        out = {side: {"seconds": []} for side in ("graphs", "eager")}
+        want = None
+        for turn, side in enumerate(("graphs", "eager", "graphs", "eager", "eager", "graphs")):
+            with _eager() if side == "eager" else contextlib.nullcontext():
+                _reset_launches()
+                (images, rays, waves), secs = _timed_sync(run)
+                got = (rays, _launch_counts())
+                replays, bounces = graphs.STATS["replays"], _mode()
+                total["captured"] += graphs.STATS["captured"]
+                total["capture_s"] += graphs.STATS["capture_s"]
+            if want is None:
+                want = (images, got)
+            if not (all(np.array_equal(a, b) for a, b in zip(images, want[0]))
+                    and got == want[1]):
+                raise AssertionError(f"{config}: the {side} render (turn {turn}) differs from "
+                                     f"the first graphs one: rays and launches {got} against "
+                                     f"{want[1]}")
+            if bounces != side:
+                raise AssertionError(f"{config}: the {side} render's bounces ran {bounces}")
+            if turn >= 2:  # after each side's warm-up
+                out[side]["seconds"].append(secs)
+            out[side].update(waves=waves, replays=replays)
+        for side in out:
+            with _eager() if side == "eager" else contextlib.nullcontext():
+                syncs, lines = count_syncs(run)
+            o = out[side]
+            o.update(seconds_median=statistics.median(o["seconds"]),
+                     ms_per_wave=1e3 * statistics.median(o["seconds"]) / o["waves"],
+                     host_syncs=syncs, host_syncs_per_wave=syncs / o["waves"],
+                     host_sync_lines=lines)
+        bound = depth + 1 + SYNCS_PER_WAVE
+        if not out["graphs"]["host_syncs_per_wave"] <= bound:
+            raise AssertionError(f"{config}: {out['graphs']['host_syncs_per_wave']} host "
+                                 f"syncs a wave on the graphs side, more than {bound}")
+        cache = graphs.cache(tables)
+        emit({"phase": "graphs", "config": config, "bit_equal": True, "rays": want[1][0],
+              "launches": want[1][1], "graphs_kept": len(cache.graphs),
+              "pool_bytes": cache.pool_bytes(), "max_depth": depth,
+              "host_syncs_bound_per_wave": bound,
+              "speedup_median": out["eager"]["seconds_median"] / out["graphs"]["seconds_median"],
+              **out})
+    emit({"phase": "graphs_summary", "configs": len(cases), **total,
+          "pool_bytes": {config.split()[0]: graphs.cache(tables).pool_bytes()
+                         for config, tables, _, _ in cases},
+          "nvidia_smi": nvidia_smi_line()})
+    return gallery, soup
+
+
+def graphs_busy(cornell, gallery, soup, small) -> None:
+    """Phase 27, after the profiled timings: one wave each of cfg1, the
+    gallery, the emitter soup and the forced-BVH dragon of phase 9
+    (``profile_torch_wave``'s first wave of each frame), replayed from
+    graphs and eager, each side warmed up and then once under
+    ``torch.profiler`` with its counters reset: each hand-written kernel's
+    launches in the trace equal the counters' (on the graphs side, what
+    the captures counted: the four waves launch every kernel variant), and the
+    device's busy share, the union of the kernels' intervals over the
+    profiled wall."""
+    import torch
+    from profile_torch_wave import check_traced_launches, first_wave, trace_summary, wave
+
+    from vulkan_raytracer_tpu_torch.scene.camera import Camera
+
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    replayed: dict = {}  # counter -> launches over the graphs sides
+    for label, tables, cam, (w, h, spp, depth) in (
+            ("cfg1", cornell, CFG1_CAM, (512, 512, 64, 4)),
+            ("gallery", gallery, gallery_camera(), (512, 512, 4, 4)),
+            ("emitter soup", soup, CFG1_CAM, (512, 512, 4, 4)),
+            ("forced-BVH dragon", small, CFG2_CAM, (32, 32, 2, 3))):
+        camera = Camera(position=np.array(cam[0]), direction=np.array(cam[1]), aspect=w / h)
+        lanes, samples, _ = first_wave(tables, w, h, spp)
+        run = wave(tables, camera, w, h, depth, lanes, samples)
+        out = {}
+        for side in ("graphs", "eager"):
+            with _eager() if side == "eager" else contextlib.nullcontext():
+                run()
+                _reset_launches()
+                with torch.profiler.profile(activities=activities) as prof:
+                    secs = _timed_sync(run)[1]
+                counted, bounces = _launch_counts(), _mode()
+            if bounces != side:
+                raise AssertionError(f"{label}: the {side} wave's bounces ran {bounces}")
+            trace = trace_summary(prof)
+            counted = {**counted["dense"], **counted["traverse"]}
+            traced = check_traced_launches(trace, counted, f"{label} {side}")
+            if side == "graphs":
+                for k, n in counted.items():
+                    replayed[k] = replayed.get(k, 0) + n
+            busy = trace.get("kernel_ms_busy", 0.0)
+            out[side] = {"profiled_wall_ms": 1e3 * secs, "device_busy_ms": busy,
+                         "busy_share": busy / (1e3 * secs), "idle_share": 1 - busy / (1e3 * secs),
+                         "device_events": trace["device_events"],
+                         "aten_ops_top_level": trace["aten_ops_top_level"],
+                         "traced_launches": traced,
+                         "port_kernel_ms": trace.get("port_kernel_ms", {})}
+        emit({"phase": "graphs_busy", "config": f"{label} first wave: {len(lanes)} pixels x "
+                                                f"samples {len(samples)}, {w}x{h} depth {depth}",
+              "traced_launches_equal_counters": True, **out})
+    missing = [name for name, (_, key, _, _) in KERNELS.items() if not replayed.get(key)]
+    if missing:
+        raise AssertionError(f"the replayed waves launched no {missing}: {replayed}")
+
+
 def bvh_vs_dense(device) -> None:
     """The BVH walks against the dense kernels over one 60,000-triangle soup."""
     import torch
@@ -1963,13 +2235,26 @@ def _reset_launches() -> None:
     alpha loop's counter and the bounce widths."""
     from vulkan_raytracer_tpu_torch.ops import dense, instanced
     from vulkan_raytracer_tpu_torch.ops import traverse as tr
-    from vulkan_raytracer_tpu_torch.render import integrator
+    from vulkan_raytracer_tpu_torch.render import graphs, integrator
 
     dense.reset_launches()
     tr.reset_launches()
     instanced.reset_stats()
     integrator.reset_alpha_loop()
     integrator.reset_bounce_widths()
+    graphs.reset_stats()
+
+
+def _mode() -> str:
+    """How the bounces since the last :func:`_reset_launches` ran:
+    "graphs" (replayed from captured CUDA graphs), "eager", or both (a
+    card-vs-CPU phase: the CPU runs eagerly; or an alpha scene beside an
+    alpha-free one)."""
+    from vulkan_raytracer_tpu_torch.render import graphs, integrator
+
+    replays = graphs.STATS["replays"]
+    eager = sum(integrator.BOUNCE_WIDTHS.values()) - replays
+    return "+".join(m for m, n in (("graphs", replays), ("eager", eager)) if n) or "none"
 
 
 def _alpha_loop() -> dict:
@@ -2020,7 +2305,8 @@ def render_cfg2(reps: int) -> dict:
             if not img.mean() > 1e-3:
                 raise AssertionError(f"cfg2 image is black (mean {img.mean()})")
             runs.append(stats)
-            emit({"phase": "render_cfg2", "config": "cfg2 dragon 512x512 depth 4 4 spp",
+            emit({"phase": "render_cfg2", "bounces": _mode(),
+                  "config": "cfg2 dragon 512x512 depth 4 4 spp",
                   "seconds": stats["seconds"], "rays": stats["rays"],
                   "mrays_per_s": stats["mrays_per_s"], "upload": stats["upload"],
                   "launches": launches, "image_mean": float(img.mean())})
@@ -2036,12 +2322,12 @@ def render_cfg2(reps: int) -> dict:
 
 def bench_phase(paths) -> list:
     """The port's bench with one rep of each config: every config's gate
-    against its committed golden, its warm-up and one timed frame, which must
-    launch its kernels, trace a plausible count of rays and have the band
-    plan of ``render_image``; cfg1 is the built-in box.  Every frame's linear
-    accumulation must be finite (the bench's uint8 frames cannot show a value
-    that is not), and cfg5's whole frame lit.  Returns the configs' lines,
-    cfg1 first."""
+    against its committed golden, its warm-up frame and one timed frame,
+    which must launch its kernels, capture no graph, trace a plausible count
+    of rays and have the band plan of ``render_image``; cfg1 is the built-in
+    box.  Every frame's linear accumulation must be finite (the bench's uint8
+    frames cannot show a value that is not), and cfg5's two whole frames
+    lit.  Returns the configs' lines, cfg1 first."""
     import torch
 
     from vulkan_raytracer_tpu_torch import bench
@@ -2061,9 +2347,8 @@ def bench_phase(paths) -> list:
         renderer._postprocess = postprocess
     if c1.key != "cfg1_cornell_builtin_512x512_d4_64spp":
         raise AssertionError(f"the bench rendered {c1.key}, expected the built-in box")
-    # cfg1: gate crop, warm-up frame, rep; cfg2-cfg5: gate crop, rep (the
-    # warm-up band is not a frame)
-    if len(frames) != 11 or not all(finite for _, finite, _ in frames):
+    # each config: gate crop, warm-up frame, rep
+    if len(frames) != 15 or not all(finite for _, finite, _ in frames):
         raise AssertionError(f"the bench's frames (pixels, finite, mean): {frames}")
     lines = []
     for c in (c1, *others):
@@ -2077,6 +2362,8 @@ def bench_phase(paths) -> list:
         if name == "cfg5" and plan != (8, 64800, 32):
             raise AssertionError(f"cfg5 planned {plan}: expected 32 bands of 64,800 x 8")
         want = {"bands": bands, "waves": max(bands, 1) * -(-spp // chunk)}
+        if line["graphs_captured"] != [0]:  # the bench raises first
+            raise AssertionError(f"{c.key}: the timed rep captured {line['graphs_captured']}")
         if {k: line[k] for k in want} != want or len(c.times) != 1:
             raise AssertionError(f"{c.key}: {len(c.times)} reps of {line['bands']} bands and "
                                  f"{line['waves']} waves, expected one rep of {want}")
@@ -2086,7 +2373,7 @@ def bench_phase(paths) -> list:
         paths.add(f"bench_{name}", line["launches"])
         emit({"phase": "bench", **line})
     lit = [mean for n, _, mean in frames if n == 1920 * 1080]
-    if not (len(lit) == 1 and lit[0] > 1e-3):
+    if not (len(lit) == 2 and min(lit) > 1e-3):
         raise AssertionError(f"cfg5's frame is black (linear means {lit})")
     emit({"phase": "bench_summary", **summary})
     return lines
@@ -2144,7 +2431,7 @@ def cfg4_parity(device) -> None:
     launches = _launch_counts()
     if not (launches["traverse"]["treelet_closest"] > 0 and launches["dense"]["pdf"] > 0):
         raise AssertionError(f"the cfg4 crop missed K5' or K3: launches {launches}")
-    emit({"phase": "cfg4_parity",
+    emit({"phase": "cfg4_parity", "bounces": _mode(),
           "config": f"cfg4 hall + sky {cw}x{cw} {cspp} spp depth {cdepth}",
           "launches": launches, **res})
 
@@ -2193,7 +2480,8 @@ def gltf_dense(out_dir: Path, paths: PathLaunches) -> None:
         raise AssertionError(f"textured glb image not finite, misshapen or black: "
                              f"{img.shape} mean {img.mean()}")
     paths.add("gltf_dense", launches)
-    emit({"phase": "gltf_dense", "config": "textured.glb 512x512 depth 4 16 spp",
+    emit({"phase": "gltf_dense", "bounces": _mode(),
+          "config": "textured.glb 512x512 depth 4 16 spp",
           "triangles": tables.num_triangles, "textures": [list(t.shape) for t in scene.textures],
           "emissive": tables.num_emissive_tris, "load_seconds": load_s,
           "seconds": stats["seconds"], "rays": stats["rays"],
@@ -2222,7 +2510,8 @@ def gltf_bvh(out_dir: Path, paths: PathLaunches, reps: int) -> None:
             raise AssertionError(f"bigasset image not finite, misshapen or black: "
                                  f"{img.shape} mean {img.mean()}")
         runs.append(stats)
-        emit({"phase": "gltf_bvh", "config": "bigasset.glb (147,136 tris) 512x512 depth 4 4 spp",
+        emit({"phase": "gltf_bvh", "bounces": _mode(),
+              "config": "bigasset.glb (147,136 tris) 512x512 depth 4 4 spp",
               "load_seconds": stats["load_seconds"], "upload": stats["upload"],
               "seconds": stats["seconds"], "rays": stats["rays"],
               "mrays_per_s": stats["mrays_per_s"], "alpha_loop": loop, "launches": launches,
@@ -2258,7 +2547,7 @@ def gltf_parity(out_dir: Path, device, paths: PathLaunches) -> None:
             if tables.pbvh.n_treelets != 1 or not launches["traverse"]["bvh_closest"] > 0:
                 raise AssertionError(f"{label}: missed K4' closest: launches {launches}")
             paths.add("gltf_parity", launches)
-        emit({"phase": "gltf_parity", "config": f"{label} 32x32 2 spp depth 3",
+        emit({"phase": "gltf_parity", "bounces": _mode(), "config": f"{label} 32x32 2 spp depth 3",
               "triangles": tables.num_triangles, "launches": launches, **res})
 
 
@@ -2339,7 +2628,7 @@ def main() -> int:
         raise AssertionError(f"cfg1 image not finite or misshapen: {img.shape}")
     if not img.mean() > 1e-3:
         raise AssertionError(f"cfg1 image is black (mean {img.mean()})")
-    emit({"phase": "render", "config": "cfg1 cornell 512x512 depth 4 64 spp",
+    emit({"phase": "render", "bounces": _mode(), "config": "cfg1 cornell 512x512 depth 4 64 spp",
           "seconds": stats["seconds"], "rays": stats["rays"], "bounce_widths": cfg1_widths,
           "mrays_per_s": stats["mrays_per_s"], "launches": launches,
           "image_mean": float(img.mean())})
@@ -2383,7 +2672,8 @@ def main() -> int:
     if not (launches["traverse"]["bvh_closest"] > 0 and launches["traverse"]["bvh_shadow"] > 0):
         raise AssertionError(f"the forced-BVH render missed K4': launches {launches}")
     paths.add("bvh_forced", launches)
-    emit({"phase": "bvh_forced", "config": "dragon detail 12 (712 tris) 32x32 2 spp depth 3",
+    emit({"phase": "bvh_forced", "bounces": _mode(),
+          "config": "dragon detail 12 (712 tris) 32x32 2 spp depth 3",
           "triangles": small.num_triangles, "launches": launches, **forced})
 
     # 10. cpu: the Cornell render through the plain versions on the CPU, which
@@ -2425,6 +2715,9 @@ def main() -> int:
     shard_two(device, dragon, paths)
     fleet_phase(cfg1_img, cfg1_rays, paths)
 
+    # 26. graph-replayed bounces against eager ones, before any profiler session
+    gallery_tables, soup_tables = graphs_phase(cornell, dragon)
+
     # the dense kernels' device times from torch.profiler, after every
     # render phase: a profiler session slows the renders that follow it in
     # the same process (PERF.md §7)
@@ -2436,6 +2729,11 @@ def main() -> int:
     # 25. the repacked wavefront against the unsorted one at two BVH waves
     repack_phase(paths, (("cfg2", dragon, CFG2_CAM), ("gltf147k", bigasset, BIGASSET_CAM)))
     del dragon, bigasset
+
+    # 27. replayed launches in the trace, and the device's busy share, graphs
+    # and eager
+    graphs_busy(cornell, gallery_tables, soup_tables, small)
+    del gallery_tables, soup_tables
 
     import vulkan_raytracer_tpu_torch.viewer  # noqa: F401  (held to the same check)
 

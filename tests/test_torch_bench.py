@@ -48,9 +48,10 @@ BUILTIN_KEY = "cfg1_cornell_builtin_512x512_d4_64spp"
 
 
 def test_configs_are_bench_py_configs():
-    """Keys, cameras, frames, spp, depth, gate crops, reps and warm-up modes
-    (the scene builders are each package's own)."""
-    fields = ("key", "cam", "w", "h", "spp", "depth", "crop", "reps", "warm")
+    """Keys, cameras, frames, spp, depth, gate crops and reps (the scene
+    builders are each package's own; the port warms every config up on a
+    whole frame, which captures every bounce its reps replay)."""
+    fields = ("key", "cam", "w", "h", "spp", "depth", "crop", "reps")
     assert ([{f: c.get(f) for f in fields} for c in tbench.CONFIGS]
             == [{f: c.get(f) for f in fields} for c in jbench.CONFIGS])
 
@@ -223,6 +224,34 @@ def test_reps_cap(monkeypatch):
     assert c1.key == BUILTIN_KEY
     assert [c.reps for c in (c1, *others)] == [1] * 5
     assert summary[c1.key] == c1.line()["value"]
+
+
+@pytest.mark.parametrize("captures", [0, 2], ids=["warm", "captured"])
+def test_a_rep_that_captures_a_graph_ends_the_run(monkeypatch, captures):
+    """A timed rep that captured a CUDA graph timed a capture: the run ends
+    nonzero; a rep that replayed only counts 0 in ``graphs_captured``."""
+    from vulkan_raytracer_tpu_torch.render import graphs
+
+    def render_image(*args, **kwargs):
+        graphs.STATS["captured"] += captures
+        return np.ones((2, 2, 3), np.uint8), RAYS
+
+    c = object.__new__(tbench._Cfg)
+    c.cfg, c.key, c.tables, c.cam, c.reps = tbench.CONFIGS[0], "cfg2", None, None, 1
+    c.times, c.captured, c.rmse, c.rmse_key = [], [], 0.0, "rmse"
+    c.upload_s = c.gate_s = c.warm_s = 0.0
+    monkeypatch.setattr(renderer, "render_image", render_image)
+    monkeypatch.setattr(tbench, "launch_counts",
+                        lambda: {"dense": {"pdf": 1}, "traverse": {"treelet_closest": 1,
+                                                                   "treelet_shadow": 1}})
+    for name in ("reset_peak_memory_stats", "synchronize", "max_memory_allocated"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: 0)
+    if captures:
+        with pytest.raises(SystemExit, match=f"captured {captures} graphs"):
+            c._timed_render()
+    else:
+        c._timed_render()
+        assert c.line()["graphs_captured"] == [0]
 
 
 def test_cornell_source_is_the_builtin_box_unless_a_gltf_is_given(tmp_path):

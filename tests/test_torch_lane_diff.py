@@ -201,3 +201,23 @@ def test_two_uploads_compare_without_hit_ids():
     assert res["differing_pixels"] > 0 and len(res["lanes"]) == res["differing_lanes"]
     assert all(lane["field"] != "tri" for lane in res["lanes"])
     assert sum(res["by_field"].values()) == res["differing_lanes"]
+
+
+def test_upload_check_passes_and_catches_a_wrong_transform():
+    """The smoke's instanced_vs_flattened check on a small gallery on the
+    CPU: the two uploads' first hits agree lane by lane and their images
+    within the bar; the first dragon moved by 1e-4 in the instanced upload
+    alone fails on the first hits' t, though its image still passes."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+
+    def check(shift):
+        return ld.check_uploads(cs.gallery_scene(detail=16, n_dragons=4), cs.gallery_camera(4),
+                                "cpu", frame=(24, 2, 2), shift=shift)
+
+    ok = check(0.0)
+    assert ok["ok"] and ok["first_hits"]["hits"] > 0 and ok["first_hits"]["faults"] == 0
+    assert ok["first_hits"]["same_triangle"] == ok["first_hits"]["hits"]
+    wrong = check(1e-4)
+    assert not wrong["ok"] and wrong["image_ok"]
+    assert wrong["first_hits"]["t_ulps_over_bound"] > 0 and wrong["first_hits"]["faults"] > 0

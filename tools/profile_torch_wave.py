@@ -23,30 +23,38 @@ pixels x 8 samples.  All at depth 4 (cfg5: 8).  The wave is the one the
 package's rules pick: a scene on the repacked wavefront whose frame cannot
 hold min(spp, 8) samples in one wave starts with a band
 (``renderer._banded_preferred``), any other with samples 1.. of every
-pixel.  It runs the wave through ``renderer._render_wave`` on two sides,
-the package as it runs (``repacked``: the re-sorts and the width ladder
-where ``integrator._repack_preferred`` turns them on) and with that
-predicate patched to False (``unsorted``):
+pixel.  It runs the wave through ``renderer._render_wave`` on up to
+three sides: the package as it runs (``graphs``: each bounce replayed from
+its captured CUDA graph where ``graphs._graphs_preferred`` picks graphs,
+with the re-sorts and the width ladder where ``integrator._repack_preferred``
+turns them on), with graphs patched off (``eager``), and, on a repacked
+scene, with the repack patched off too (``unsorted``):
 
-1. each side once to build the kernels and warm the allocator;
-2. ``--reps`` times each side unprofiled, in turns (repacked, unsorted,
-   unsorted, repacked, ...): the wall of each, CUDA-synchronised, and the
-   radiance, which must be bit-equal between the sides;
-3. each side once recorded: the width and live lanes of each bounce, and
-   the live lanes and live 128-lane blocks of each K4'/K5' launch (counting
-   them synchronises, so this run is not timed);
-4. each side once under ``torch.profiler`` (CPU + CUDA activities): the
+1. each side once to build the kernels, capture the graphs and warm the
+   allocator (the captures' count, seconds and pool bytes are reported);
+2. ``--reps`` times each side unprofiled, in turns (graphs, eager, unsorted,
+   unsorted, eager, graphs, ...): the wall of each, CUDA-synchronised, and
+   the radiance, which must be bit-equal between the sides, with equal rays
+   and equal launches per kernel;
+3. each side once with ``torch.cuda.set_sync_debug_mode("warn")``: the
+   host synchronisations of the wave, the harness's two included (the
+   closing ``torch.cuda.synchronize`` and the read of the ray count);
+4. each eager side once recorded: the width and live lanes of each bounce,
+   and the live lanes and live 128-lane blocks of each K4'/K5' launch
+   (counting them synchronises, so this run is eager and not timed; the
+   graphs side runs the same lanes);
+5. each side once under ``torch.profiler`` (CPU + CUDA activities): the
    wall, and from the trace the device kernels (count, summed time, the
    span they cover), the aten ops the host issued, the hand-written
    kernels' launches and device time, each walk launch's device µs in
-   issue order (beside step 3's live lanes of the same launch), the
-   sorts' device time, and the alpha loop's iterations.
+   issue order (beside step 4's live lanes of the same launch), the
+   sorts' device time, and the alpha loop's iterations.  Each hand-written
+   kernel's launches in the trace must equal the launch counters over the
+   same run: on the graphs side this is what shows that the replays launch
+   what their captures counted.
 
-For instanced it also reports, on the repacked side, the instance steps,
-the steps skipped by the box test, the live lanes of each
-``instanced_closest`` call (one a bounce), and the wave's wall with the box
-test's host synchronisation taken out (every instance launched), alternating
-with the walls as the package runs.
+For instanced it also reports the instance steps (every one launches) and
+the live lanes of each ``instanced_closest`` call (one a bounce).
 
 It prints one JSON object (and writes it to ``--out`` if given).  The device
 busy share is kernel time over wall, against the profiled wall (the same
@@ -73,6 +81,12 @@ ROOT = Path(__file__).resolve().parent.parent
 #: the port's hand-written kernels, by the names the trace gives them
 PORT_KERNELS = ("closest_kernel", "shadow_kernel", "pdf_kernel", "bvh_walk_kernel",
                 "treelet_walk_kernel", "emissive_walk_kernel")
+#: each launch counter (``LAUNCHES`` of ops/dense.py and ops/traverse.py) ->
+#: the kernel whose launches it counts, by the name the trace gives it
+KERNEL_OF = {"closest": "closest_kernel", "shadow": "shadow_kernel", "pdf": "pdf_kernel",
+             "bvh_closest": "bvh_walk_kernel", "bvh_shadow": "bvh_walk_kernel",
+             "treelet_closest": "treelet_walk_kernel", "treelet_shadow": "treelet_walk_kernel",
+             "emissive_pdf": "emissive_walk_kernel"}
 WALK_BLOCK = 128  # rays per block of the BVH walks (csrc/bvh_walk.cu kThreads)
 #: config -> (scene: a built-in name, a generated .glb or a smoke scene,
 #: camera position, direction)
@@ -152,20 +166,22 @@ def wave(tables, camera, width: int, height: int, depth: int, lanes, samples):
 
 
 def record_bounces(run) -> dict:
-    """Run the wave once with the bounce loop and the BVH walks wrapped:
-    each bounce's width and live lanes, and each walk launch's kind, lanes,
-    live lanes (``t_init >= 0``) and 128-lane blocks with a live lane."""
+    """Run the wave once, eagerly, with the bounce loop and the BVH walks
+    wrapped: each bounce's width and live lanes, and each walk launch's
+    kind, lanes, live lanes (``t_init >= 0``) and 128-lane blocks with a
+    live lane."""
     import torch
 
     from vulkan_raytracer_tpu_torch.ops import traverse
-    from vulkan_raytracer_tpu_torch.render import integrator
+    from vulkan_raytracer_tpu_torch.render import graphs, integrator
 
-    bounce, walk = integrator._bounce, traverse._walk
+    bounce, walk, preferred = integrator._bounce, traverse._walk, graphs._graphs_preferred
     bounces, walks = [], []
 
-    def recording_bounce(tables, s, b, n_active, *args):
-        bounces.append({"bounce": b, "width": int(s["active"].shape[0]), "live": n_active})
-        return bounce(tables, s, b, n_active, *args)
+    def recording_bounce(tables, s, b, *args):
+        bounces.append({"bounce": b, "width": int(s["active"].shape[0]),
+                        "live": int(s["active"].sum())})
+        return bounce(tables, s, b, *args)
 
     def recording_walk(kind, s, rays, t_lo, t_init, shadow):
         live = (t_init >= 0).to(torch.int32)
@@ -178,49 +194,57 @@ def record_bounces(run) -> dict:
 
     try:
         integrator._bounce, traverse._walk = recording_bounce, recording_walk
+        graphs._graphs_preferred = lambda tables: False
         run()
     finally:
-        integrator._bounce, traverse._walk = bounce, walk
+        integrator._bounce, traverse._walk, graphs._graphs_preferred = bounce, walk, preferred
     return {"bounces": bounces, "walk_launches": walks}
 
 
-def _instanced_extras(run, reps: int) -> dict:
-    """The gallery wave's live lanes per ``instanced_closest`` call, and its
-    wall when every instance is launched (no host test of the box mask)
-    beside the wall as the package runs it, alternating."""
-    import torch
+def live_per_closest_call(run) -> list:
+    """The live lanes of each ``instanced_closest`` call of one eager run."""
+    from vulkan_raytracer_tpu_torch.render import graphs, integrator
 
-    from vulkan_raytracer_tpu_torch.ops import instanced
-    from vulkan_raytracer_tpu_torch.render import integrator
-
-    closest, untouched = integrator.instanced_closest, instanced._untouched
+    closest, preferred = integrator.instanced_closest, graphs._graphs_preferred
     live = []
 
     def counting(tables, o, d, *, t_min, t_max, active):
         live.append(int(active.sum()))
         return closest(tables, o, d, t_min=t_min, t_max=t_max, active=active)
 
-    def always(touches):
-        instanced.STATS["steps"] += 1
-        return False
-
     try:
         integrator.instanced_closest = counting  # the name the integrator calls
-        _, want, _ = _timed(run)
-        integrator.instanced_closest = closest
-        walls = {"host_test": [], "launch_always": []}
-        for _ in range(reps):
-            for name, fn in (("host_test", untouched), ("launch_always", always)):
-                instanced._untouched = fn
-                secs, got, _ = _timed(run)
-                walls[name].append(secs)
-                if not torch.equal(got, want):
-                    raise AssertionError(f"the wave's radiance changed under {name}")
+        graphs._graphs_preferred = lambda tables: False
+        run()
     finally:
-        integrator.instanced_closest, instanced._untouched = closest, untouched
-    return {"live_lanes_per_closest_call": live, "wall_s": walls,
-            "wall_s_median": {k: statistics.median(v) for k, v in walls.items()},
-            "radiance_equal": True}
+        integrator.instanced_closest, graphs._graphs_preferred = closest, preferred
+    return live
+
+
+def count_syncs(run) -> tuple:
+    """Host synchronisations of one run, from the warnings of
+    ``torch.cuda.set_sync_debug_mode("warn")``: (count, {"file:line" of the
+    Python line that synchronised, its directory's name first: count})."""
+    import warnings
+
+    import torch
+
+    # the mode is set outside the recording: the first setting in a process
+    # warns once from torch/cuda/__init__.py, which is no synchronisation
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    where: dict[str, int] = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            path = Path(w.filename)
+            key = f"{path.parent.name}/{path.name}:{w.lineno}"
+            where[key] = where.get(key, 0) + 1
+    return sum(where.values()), where
 
 
 def _timed(run):
@@ -276,6 +300,22 @@ def trace_summary(prof) -> dict:
     }
 
 
+def check_traced_launches(trace: dict, counted: dict, label: str) -> dict:
+    """Each hand-written kernel's launches in a profiled run's trace against
+    the launch counters over the same run (reset just before it).  A
+    replayed graph runs no Python: its counts are those its capture took,
+    and this is where a replay is seen to launch them.  Returns the traced
+    launches; raises where they differ."""
+    want: dict[str, int] = {}
+    for k, n in counted.items():
+        if n:
+            want[KERNEL_OF[k]] = want.get(KERNEL_OF[k], 0) + n
+    got = trace.get("port_kernel_launches", {})
+    if got != want:
+        raise AssertionError(f"{label}: the trace launched {got}, the counters say {want}")
+    return got
+
+
 def _side(walls, prof_s, trace, record) -> dict:
     """One side's numbers: walls, trace, busy share, the recorded run."""
     median = statistics.median(walls)
@@ -292,6 +332,33 @@ def _side(walls, prof_s, trace, record) -> dict:
     return out
 
 
+def _sides(rule) -> dict:
+    """side -> (graphs predicate, repack predicate) patched in for it."""
+    from vulkan_raytracer_tpu_torch.render import graphs
+
+    def eager(tables):
+        return False
+
+    return {"graphs": (graphs._graphs_preferred, rule), "eager": (eager, rule),
+            "unsorted": (eager, eager)}
+
+
+def _launches() -> dict:
+    from vulkan_raytracer_tpu_torch.ops import dense, traverse
+
+    return {**dense.LAUNCHES, **traverse.LAUNCHES}
+
+
+def _reset() -> None:
+    from vulkan_raytracer_tpu_torch.ops import dense, instanced, traverse
+    from vulkan_raytracer_tpu_torch.render import integrator
+
+    dense.reset_launches()
+    traverse.reset_launches()
+    instanced.reset_stats()
+    integrator.reset_bounce_widths()
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--config", choices=sorted(CONFIGS), default="cfg1")
@@ -305,7 +372,7 @@ def main(argv=None) -> int:
         print("profile_torch_wave.py: needs an NVIDIA card", file=sys.stderr)
         return 2
     from vulkan_raytracer_tpu_torch.ops import instanced
-    from vulkan_raytracer_tpu_torch.render import integrator
+    from vulkan_raytracer_tpu_torch.render import graphs, integrator
     from vulkan_raytracer_tpu_torch.scene.camera import Camera
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -321,46 +388,62 @@ def main(argv=None) -> int:
                     aspect=width / height)
     lanes, samples, bands = first_wave(tables, width, height, spp)
     run = wave(tables, camera, width, height, depth, lanes, samples)
-    rule = integrator._repack_preferred
-    sides = {"repacked": rule, "unsorted": lambda t: False}
+    rule, preferred = integrator._repack_preferred, graphs._graphs_preferred
+    sides = _sides(rule)
+    if not rule(tables):
+        del sides["unsorted"]
     walls = {name: [] for name in sides}
-    radiance, rays = {}, {}
+    radiance, rays, launches = {}, {}, {}
     try:
-        for name, fn in sides.items():  # warm up; the kernels build on the first
-            integrator._repack_preferred = fn
+        graphs.reset_stats()
+        for name, (g, r) in sides.items():  # warm up: kernels build, graphs capture
+            graphs._graphs_preferred, integrator._repack_preferred = g, r
+            _reset()
             radiance[name], rays[name] = _timed(run)[1:]
+            launches[name] = _launches()
+        captures = {**graphs.STATS, "graphs": len(graphs.cache(tables).graphs),
+                    "pool_bytes": graphs.cache(tables).pool_bytes(),
+                    "graphs_preferred": preferred(tables)}
         for r in range(args.reps):
             for name in list(sides)[::1 if r % 2 == 0 else -1]:
-                integrator._repack_preferred = sides[name]
+                graphs._graphs_preferred, integrator._repack_preferred = sides[name]
+                _reset()
                 secs, got, got_rays = _timed(run)
                 walls[name].append(secs)
-                if not (torch.equal(got, radiance["repacked"]) and got_rays == rays["repacked"]):
-                    raise AssertionError(f"the {name} wave differs from the repacked one")
+                if not (torch.equal(got, radiance["graphs"]) and got_rays == rays["graphs"]
+                        and _launches() == launches["graphs"]):
+                    raise AssertionError(f"the {name} wave differs from the graphs one")
         out_sides = {}
-        for name, fn in sides.items():
-            integrator._repack_preferred = fn
-            record = record_bounces(run)
+        for name, (g, r) in sides.items():
+            graphs._graphs_preferred, integrator._repack_preferred = g, r
+            syncs, sync_lines = count_syncs(run)
+            record = record_bounces(run) if name != "graphs" else {}
             integrator.reset_alpha_loop()
+            _reset()
             with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                     torch.profiler.ProfilerActivity.CUDA]) as prof:
                 prof_s = _timed(run)[0]
-            out_sides[name] = {**_side(walls[name], prof_s, trace_summary(prof), record),
+            trace = trace_summary(prof)
+            check_traced_launches(trace, _launches(), f"{args.config} {name}")
+            out_sides[name] = {**_side(walls[name], prof_s, trace, record),
+                               "host_syncs": syncs, "host_sync_lines": sync_lines,
                                "alpha_loop": dict(integrator.ALPHA_LOOP)}
     finally:
-        integrator._repack_preferred = rule
+        graphs._graphs_preferred, integrator._repack_preferred = preferred, rule
     out = {
         "config": f"{args.config} wave: {scene} {width}x{height} depth {depth}, {spp} spp",
         "nvidia_smi": smi, "torch": torch.__version__,
         "repack_preferred": rule(tables), "bands": bands, "pixels": len(lanes),
-        "samples": samples, "lanes": len(lanes) * len(samples), "rays": rays["repacked"],
-        "radiance_finite": bool(torch.isfinite(radiance["repacked"]).all()),
+        "samples": samples, "lanes": len(lanes) * len(samples), "rays": rays["graphs"],
+        "launches": launches["graphs"], "captures": captures,
+        "radiance_finite": bool(torch.isfinite(radiance["graphs"]).all()),
         "radiance_bit_equal": True, "sides": out_sides,
     }
     if tables.inst is not None:
         instanced.reset_stats()
-        run()
-        out["instanced"] = {"instances": tables.inst.num_instances, **instanced.STATS,
-                            **_instanced_extras(run, args.reps)}
+        out["instanced"] = {"instances": tables.inst.num_instances,
+                            "live_lanes_per_closest_call": live_per_closest_call(run),
+                            **instanced.STATS}
     line = json.dumps(out)
     print(line, flush=True)
     if args.out:

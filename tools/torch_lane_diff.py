@@ -52,10 +52,15 @@ that bounce on, the pixel's error and its share of the frame's squared
 error, then the lanes by class, by first bounce, by field and by op.  The tool leaves the package's launch counters and
 statistics as it found them.  It imports neither jax nor the JAX package.
 
-``--uploads`` (:func:`compare_uploads`) holds two uploads of one scene on one
-device against each other instead: ``chip_smoke.py``'s
-``instanced_vs_flattened`` frame, the 4-dragon gallery instanced and
-flattened, with each differing lane's first difference (hit ids left out).
+``--uploads`` holds two uploads of one scene on one device against each
+other instead, the 4-dragon gallery instanced and flattened: first
+``chip_smoke.py``'s ``instanced_vs_flattened`` check (:func:`check_uploads`:
+the bounce-0 first hits lane by lane, :func:`hits_agree`, and the 128x128
+32 spp image against the 2e-3 bar; the exit code is 1 where it fails), then
+(:func:`compare_uploads`) the 2 spp frame that check used to be, with each
+differing lane's first difference (hit ids left out).  ``--wrong-transform
+DX`` moves the first dragon of the instanced upload, a fault the check must
+catch (the 2 spp frame is left as it is).
 """
 
 from __future__ import annotations
@@ -88,6 +93,16 @@ EXACT_FIELDS = {"seed", "active", "tri", "preview", "slot"}
 #: aten ops whose results are uninitialised memory or host scalars
 _UNCHECKED = {"empty", "empty_like", "empty_strided", "new_empty", "new_empty_strided",
               "_local_scalar_dense", "resize_", "set_"}
+
+#: the instanced-vs-flattened check (:func:`check_uploads`): its frame
+#: (size, spp, depth), the bar of its image, the ulps its first hits' t may
+#: differ by (163 measured on the CPU at this frame), the barycentric margin
+#: of a crack and the share of lanes that may be cracks (2 of 524,288 measured)
+UPLOADS_FRAME = (128, 32, 3)
+RMSE_BAR = 2e-3
+HIT_T_ULPS = 512
+EDGE_MARGIN = 1e-3
+MAX_CRACK_SHARE = 1e-4
 
 #: scene -> (size, spp, depth); the smoke's parity frames, cfg4 at its gate crop
 FRAMES = {"cornell": (32, 2, 3), "gallery": (32, 2, 3), "gltf147k": (32, 2, 3),
@@ -133,11 +148,14 @@ class Record:
 
     @contextlib.contextmanager
     def on(self):
-        from vulkan_raytracer_tpu_torch.render import integrator, renderer
+        """Record the renders inside; with ``bounces`` they run eagerly
+        (``graphs._graphs_preferred`` patched off): a replayed graph runs no
+        Python, so its bounces could not be recorded."""
+        from vulkan_raytracer_tpu_torch.render import graphs, integrator, renderer
 
         saved = (renderer.render_sample, integrator._bounce, integrator.eval_hit,
-                 integrator._radiance)
-        render_sample, bounce, eval_hit, radiance = saved
+                 integrator._radiance, graphs._graphs_preferred)
+        render_sample, bounce, eval_hit, radiance, _ = saved
 
         def rec_render_sample(tables, view_inv, proj_inv, width, height, sample_count,
                               max_depth, lane_idx=None, **kw):
@@ -174,11 +192,12 @@ class Record:
         if self.bounces:
             integrator._bounce, integrator.eval_hit = rec_bounce, rec_eval_hit
             integrator._radiance = rec_radiance
+            graphs._graphs_preferred = lambda tables: False
         try:
             yield self
         finally:
             (renderer.render_sample, integrator._bounce, integrator.eval_hit,
-             integrator._radiance) = saved
+             integrator._radiance, graphs._graphs_preferred) = saved
 
 
 @contextlib.contextmanager
@@ -455,7 +474,7 @@ def _step_runner(rec: Record, key, diff, frame_args):
 
         integrator.eval_hit = keep
         try:
-            out, _ = integrator._bounce(tables, _lane_state(state, tables.device), bounce, 1,
+            out, _ = integrator._bounce(tables, _lane_state(state, tables.device), bounce,
                                         depth, "reference")
         finally:
             integrator.eval_hit = eval_hit
@@ -592,6 +611,129 @@ def compare_uploads(scene, cam, width: int, height: int, spp: int, depth: int, d
             "lanes": lanes}
 
 
+def first_hits(tables, cam, width: int, height: int, spp: int):
+    """The bounce-0 closest hit of samples 1..spp of every pixel (samples
+    major): (camera rays (origin, direction), t, hit id); ``t`` is inf and
+    the id -1 on a miss."""
+    from vulkan_raytracer_tpu_torch.ops.math3 import EPS, INF
+    from vulkan_raytracer_tpu_torch.render import integrator, renderer
+
+    view_inv, proj_inv = renderer.camera_uniforms(_camera(cam, width, height))
+    dev = tables.device
+    pixels = torch.arange(width * height, device=dev).repeat(spp)
+    samples = torch.arange(1, spp + 1, device=dev).repeat_interleave(width * height)
+    o, d, _ = integrator.generate_primary_rays(view_inv, proj_inv, width, height, samples,
+                                               pixels, device=dev)
+    active = torch.ones(pixels.shape[0], dtype=torch.bool, device=dev)
+    with torch.inference_mode():
+        t, tri, _, _ = integrator._closest_opaque(tables, o, d, t_min=EPS, t_max=INF,
+                                                  active=active)
+    return (o, d), t, tri
+
+
+def flattened_ids(inst, enc: np.ndarray) -> np.ndarray:
+    """The flattened upload's triangle id of each encoded instanced hit id
+    (-1 stays -1): both uploads order the instances depth first, and a
+    flattened instance holds its prototype's triangles in order."""
+    count = np.zeros(inst.num_instances, np.int64)
+    proto_off = np.zeros(inst.num_instances, np.int64)
+    for g in inst.groups:
+        ids = g.inst_id.cpu().numpy()
+        count[ids], proto_off[ids] = g.tri_cnt, g.tri_off
+    start = np.concatenate([[0], np.cumsum(count)[:-1]])
+    enc = np.asarray(enc, np.int64)
+    proto, ii = enc % inst.num_proto_tris, enc // inst.num_proto_tris
+    return np.where(enc >= 0, start[ii] + proto - proto_off[ii], -1)
+
+
+def _edge_margin(flat, ids: np.ndarray, rays, lanes: np.ndarray) -> np.ndarray:
+    """How far inside its triangle each lane's ray passes, in barycentric
+    units (min(u, v, 1 - u - v); below 0 outside), on the flattened
+    upload's world-space triangles."""
+    from vulkan_raytracer_tpu_torch.ops.dense import mt
+    from vulkan_raytracer_tpu_torch.ops.math3 import v3_gather
+
+    idx = torch.as_tensor(ids, device=flat.device)
+    at = torch.as_tensor(lanes, device=flat.device)
+    v0 = v3_gather(flat.v0, idx)
+    e1, e2 = v3_gather(flat.v1, idx) - v0, v3_gather(flat.v2, idx) - v0
+    ray = [c[at] for c in (*rays[0], *rays[1])]
+    _, u, v, _ = mt([*v0, *e1, *e2], ray)
+    return torch.minimum(torch.minimum(u, v), 1.0 - u - v).cpu().numpy()
+
+
+def hits_agree(inst, flat, cam, width: int, height: int, spp: int) -> dict:
+    """Bounce-0 first hits of an instanced and a flattened upload of one
+    scene, lane by lane (``chip_smoke.py``'s ``instanced_vs_flattened``).
+    Where both hit one triangle, t must agree within ``HIT_T_ULPS`` ulps:
+    the instanced route maps the ray into object space, the flattened one
+    the triangles into world space.  A lane may hit another triangle, or hit
+    on one route only, where it is a tie (the two t within ``HIT_T_ULPS``)
+    or a crack: the nearer hit lies within ``EDGE_MARGIN`` of its
+    triangle's edge, where the routes' rounding puts the ray on either side
+    (Moeller-Trumbore is not watertight); cracks may be at most
+    ``MAX_CRACK_SHARE`` of the lanes.  Anything else is a fault."""
+    rays, t_i, enc = first_hits(inst, cam, width, height, spp)
+    _, t_f, tri_f = first_hits(flat, cam, width, height, spp)
+    t_i, t_f = t_i.cpu().numpy(), t_f.cpu().numpy()
+    a, b = flattened_ids(inst.inst, enc.cpu().numpy()), tri_f.cpu().numpy().astype(np.int64)
+    hit_a, hit_b = a >= 0, b >= 0
+    ulps = np.abs(_ordered(t_i) - _ordered(t_f))
+    same = hit_a & hit_b & (a == b)
+    other = (hit_a | hit_b) & ~same
+    tie = other & hit_a & hit_b & (ulps <= HIT_T_ULPS)
+    lanes = np.flatnonzero(other & ~tie)
+    nearer = np.where(t_i[lanes] <= t_f[lanes], a[lanes], b[lanes])
+    margin = _edge_margin(flat, nearer, rays, lanes) if lanes.size else np.zeros(0)
+    crack = np.abs(margin) <= EDGE_MARGIN
+    faults = int((~crack).sum()) + int((ulps[same] > HIT_T_ULPS).sum())
+    n = int(a.size)
+    out = {"lanes": n, "hits": int(hit_b.sum()), "same_triangle": int(same.sum()),
+           "t_ulps_max": int(ulps[same].max()) if same.any() else 0,
+           "t_ulps_over_bound": int((ulps[same] > HIT_T_ULPS).sum()),
+           "hit_on_one_route": int((hit_a != hit_b).sum()), "ties": int(tie.sum()),
+           "cracks": int(crack.sum()), "crack_margins": [float(m) for m in margin[crack]],
+           "faults": faults, "t_ulps_bound": HIT_T_ULPS, "edge_margin": EDGE_MARGIN,
+           "max_cracks": int(MAX_CRACK_SHARE * n)}
+    out["ok"] = faults == 0 and out["cracks"] <= out["max_cracks"] and out["hits"] > 0
+    return out
+
+
+def check_uploads(scene, cam, device, frame=UPLOADS_FRAME, shift: float = 0.0) -> dict:
+    """``chip_smoke.py``'s ``instanced_vs_flattened``: ``scene`` uploaded
+    instanced and flattened on ``device``; the first hits of the frame's
+    lanes (:func:`hits_agree`) and its image, whose RMSE must stay below
+    ``RMSE_BAR``: at 32 spp one flipped path (a lane of this frame measured 2.37
+    apart) moves the frame's RMSE by at most 3.3e-4.  ``shift`` moves the
+    first instance by that much in x before the instanced upload: a wrong
+    instance transform, which the check must catch."""
+    from vulkan_raytracer_tpu_torch.render.renderer import render_image
+
+    size, spp, depth = frame
+    flat = scene.upload(device, instancing=False)
+    node = next(n for n in scene.iter_depth_first() if n.mesh >= 0)
+    kept = node.world_transform
+    node.world_transform = kept.copy()
+    node.world_transform[0, 3] += shift
+    try:
+        inst = scene.upload(device, instancing=True)
+    finally:
+        node.world_transform = kept
+    hits = hits_agree(inst, flat, cam, size, size, spp)
+    images = {}
+    for name, tables in (("instanced", inst), ("flattened", flat)):
+        img, rays = render_image(tables, _camera(cam, size, size), size, size, spp=spp,
+                                 max_depth=depth, tonemap=False)
+        images[name] = {"image": img, "rays": rays}
+    a, b = images["instanced"]["image"], images["flattened"]["image"]
+    rmse = float(np.sqrt(np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)))
+    image_ok = bool(np.isfinite(a).all() and b.mean() > 1e-3 and rmse < RMSE_BAR)
+    return {"frame": f"{size}x{size} {spp} spp depth {depth}", "shift": shift,
+            "first_hits": hits, "rmse": rmse, "bar": RMSE_BAR, "image_mean": float(b.mean()),
+            "rays": [images[k]["rays"] for k in images], "image_ok": image_ok,
+            "ok": hits["ok"] and image_ok}
+
+
 def scene_case(name: str, device):
     """(tables on ``device``, camera (position, direction), size, spp, depth)
     of one of the scenes in :data:`FRAMES`."""
@@ -639,8 +781,12 @@ def main(argv=None) -> int:
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     p.add_argument("--out", default=None)
     p.add_argument("--uploads", action="store_true",
-                   help="instead: chip_smoke.py's instanced_vs_flattened frame (4 dragons, "
-                        "128x128, 2 spp, depth 3) uploaded both ways on --device")
+                   help="instead: chip_smoke.py's instanced_vs_flattened check (4 dragons "
+                        "uploaded both ways on --device: first hits and the 128x128 32 spp "
+                        "image), then the lanes of the 2 spp frame it replaced")
+    p.add_argument("--wrong-transform", type=float, default=0.0, metavar="DX",
+                   help="with --uploads: move the first dragon by DX in x before the "
+                        "instanced upload, a fault the check must catch")
     args = p.parse_args(argv)
     sys.path.insert(0, str(ROOT))
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -651,11 +797,13 @@ def main(argv=None) -> int:
         sys.path.insert(0, str(ROOT / "tools"))
         import chip_smoke as cs
 
-        res = compare_uploads(cs.gallery_scene(n_dragons=4), cs.gallery_camera(4), 128, 128, 2,
-                              3, device)
-        res["device"] = torch.cuda.get_device_name(0) if args.device == "cuda" else "cpu"
-        print(json.dumps({**res, "lanes": res["lanes"][:8]}), flush=True)
-        return 0
+        scene, cam = cs.gallery_scene(n_dragons=4), cs.gallery_camera(4)
+        check = check_uploads(scene, cam, device, shift=args.wrong_transform)
+        lanes = compare_uploads(scene, cam, 128, 128, 2, 3, device)
+        device_name = torch.cuda.get_device_name(0) if args.device == "cuda" else "cpu"
+        print(json.dumps({"device": device_name, **check,
+                          "lanes_2spp": {**lanes, "lanes": lanes["lanes"][:8]}}), flush=True)
+        return 0 if check["ok"] else 1
     results = {}
     for name in FRAMES if args.scene == "all" else [args.scene]:
         tables, cam, size, spp, depth = scene_case(name, device)

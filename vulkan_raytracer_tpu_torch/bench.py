@@ -29,7 +29,8 @@ NEE shadow and MIS pdf-probe rays.  bench.py's ``vs_baseline`` (the ratio to
 a 150 Mrays/s target set for the TPU) is left out.  Added here: ``rays`` of
 one frame, ``times_s`` (every rep), ``launches`` (each kernel's launches in
 the last rep, ``{"dense": {...}, "traverse": {...}}``), that rep's
-``bands``, ``waves`` and ``peak_memory_bytes``, and the set-up apart from
+``bands``, ``waves`` and ``peak_memory_bytes``, ``graphs_captured`` (per
+rep: 0), and the set-up apart from
 the reps: ``upload_s`` (building and uploading the scene), ``gate_s`` and
 ``warm_s``.  The summary adds ``kernel_build_s``.
 
@@ -48,15 +49,20 @@ cfg2-cfg5 (and cfg1 of the glTF) read ``bench_goldens.npz``
 (``tools/gen_bench_goldens.py``), cfg1 of the built-in box reads
 ``bench_goldens_torch.npz`` (``tools/gen_torch_bench_goldens.py``).
 
-Warm-up: the kernels build on first use (``ops/_ext.py``), then the CUDA
-context and the caching allocator warm up on cfg1's whole frame and, for a
-config that ``render_image`` bands, on its first band through
-``render_lanes`` (the same band arithmetic, so the same wave shape).
+Warm-up: the kernels build on first use (``ops/_ext.py``), then each
+config renders its whole frame once: the CUDA context and the caching
+allocator warm up, and every bounce a frame replays from a CUDA graph
+(``render/graphs.py``) is captured there.  How far a frame's bands go down
+the width ladder depends on their data, so a band alone (bench.py's warm-up
+for banded configs) would leave bounces for the reps to capture; the frame
+is deterministic, so the reps reach no bounce the warm-up did not.  A rep
+that captured a graph ends the run nonzero.
 
 There is no fallback: without CUDA the bench exits nonzero before it renders
 anything; a missing or stale golden, a gate above its bar, an all-black
-frame, or a config whose reps do not launch its kernels (K1-K3 for cfg1;
-K5' closest and shadow and K3 for the BVH scenes) ends the run nonzero.
+frame, a config whose reps do not launch its kernels (K1-K3 for cfg1;
+K5' closest and shadow and K3 for the BVH scenes), or a rep that captured
+a graph ends the run nonzero.
 """
 
 from __future__ import annotations
@@ -76,8 +82,7 @@ import torch
 from .cli import _render_fingerprint
 from .ops import _ext, dense
 from .ops import traverse as tr
-from .render import renderer
-from .render.integrator import block_order
+from .render import graphs, renderer
 from .scene import procedural
 from .scene.builtin import cornell_box_scene
 from .scene.camera import Camera
@@ -117,24 +122,24 @@ def _hall_sky() -> Scene:
     return s
 
 
-# (key, scene, cam, w, h, spp, depth, crop=(cw, cspp, cdepth), reps, warm,
-# kernels); bench.py:131-152.  Order: 2..5 first, cfg1 last.
+# (key, scene, cam, w, h, spp, depth, crop=(cw, cspp, cdepth), reps,
+# kernels); bench.py:131-152 (its warm-up modes aside).  Order: 2..5 first, cfg1 last.
 CONFIGS = [
     dict(key="cfg2_dragon_substitute_262k_512x512_d4", build=procedural.dragon_scene,
          cam=([0.0, 2.2, 4.5], [0.0, -0.25, -1.0]),
-         w=512, h=512, spp=4, depth=4, crop=(16, 2, 3), reps=3, warm="band",
+         w=512, h=512, spp=4, depth=4, crop=(16, 2, 3), reps=3,
          kernels=BVH_KERNELS),
     dict(key="cfg3_chess_substitute_98k_512x512_d6", build=procedural.chess_scene,
          cam=([0.0, 4.0, 7.0], [0.0, -0.5, -1.0]),
-         w=512, h=512, spp=4, depth=6, crop=(16, 2, 4), reps=3, warm="band",
+         w=512, h=512, spp=4, depth=6, crop=(16, 2, 4), reps=3,
          kernels=BVH_KERNELS),
     dict(key="cfg4_sponza_substitute_256k_hdrsky_960x540_d4_8spp", build=_hall_sky,
          cam=([-9.0, 1.8, 0.0], [1.0, 0.0, 0.0]),
-         w=960, h=540, spp=8, depth=4, crop=(16, 2, 3), reps=3, warm="band",
+         w=960, h=540, spp=8, depth=4, crop=(16, 2, 3), reps=3,
          kernels=BVH_KERNELS),
     dict(key="cfg5_multimodel_1920x1080_d8_8spp", build=procedural.multi_scene,
          cam=([-9.0, 2.0, 1.5], [1.0, -0.1, -0.15]),
-         w=1920, h=1080, spp=8, depth=8, crop=(12, 1, 4), reps=2, warm="band",
+         w=1920, h=1080, spp=8, depth=8, crop=(12, 1, 4), reps=2,
          kernels=BVH_KERNELS),
     dict(key="cfg1_cornell_{src}_512x512_d4_64spp", build=cornell_box_scene,
          cam=([0.0, 1.0, 2.4], [0.0, 0.0, -1.0]),
@@ -199,22 +204,6 @@ def quality_gate(key, tables, cam, crop, goldens, bar=RMSE_BAR) -> float:
     return rmse
 
 
-def _warm_one_band(tables, cam, w, h, spp, depth) -> None:
-    """Render the first band of a banded frame through ``render_lanes``
-    (bench.py:189-215): the band arithmetic of ``render_image``, so the wave
-    has the timed frame's launch shapes.  The band must be finite and lit."""
-    cam.aspect = w / h
-    vi, pi = renderer.camera_uniforms(cam)
-    chunk, per, _ = renderer.band_plan(w, h, spp)
-    with torch.inference_mode():
-        lanes = torch.as_tensor(block_order(w, h)[0][:per], device=tables.device)
-        acc, _, _, _ = renderer.render_lanes(tables, vi, pi, w, h, depth, chunk, 1, lanes,
-                                             banded=True)
-        ok = bool(torch.isfinite(acc).all() and acc.any())
-    if not ok:
-        raise SystemExit(f"warm-up band of {per} pixels x {chunk} samples is black or not finite")
-
-
 def _reset_launches() -> None:
     dense.reset_launches()
     tr.reset_launches()
@@ -233,6 +222,7 @@ class _Cfg:
         self.reps = cfg["reps"] if reps is None else min(cfg["reps"], reps)
         self.key = cfg["key"]
         self.times = []
+        self.captured = []  # graphs each rep captured
         self.rays = 0
         self.last = {}
         _mark(f"{self.key}: upload+gate+warm-up")
@@ -253,14 +243,10 @@ class _Cfg:
         self.rmse_key = f"rmse_vs_oracle_{cw}x{cw}_{cspp}spp"
         t2 = time.perf_counter()
         self.gate_s = t2 - t1
-        w, h, spp, depth = cfg["w"], cfg["h"], cfg["spp"], cfg["depth"]
-        if cfg.get("warm") == "band" and renderer._banded_preferred(self.tables, w, h, spp):
-            _warm_one_band(self.tables, self.cam, w, h, spp, depth)
-        else:
-            img, _ = renderer.render_image(self.tables, self.cam, w, h, spp=spp,
-                                           max_depth=depth, as_uint8=True)
-            if not img.any():
-                raise SystemExit(f"{self.key}: all-black warm-up")
+        img, _ = renderer.render_image(self.tables, self.cam, cfg["w"], cfg["h"],
+                                       spp=cfg["spp"], max_depth=cfg["depth"], as_uint8=True)
+        if not img.any():
+            raise SystemExit(f"{self.key}: all-black warm-up")
         torch.cuda.synchronize(device)
         self.warm_s = time.perf_counter() - t2
 
@@ -277,6 +263,7 @@ class _Cfg:
         kernel launches counted from zero."""
         cfg = self.cfg
         _reset_launches()
+        graphs.reset_stats()
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -291,6 +278,10 @@ class _Cfg:
         missing = [f"{mod}.{k}" for mod, k in cfg["kernels"] if not launches[mod][k]]
         if missing:
             raise SystemExit(f"{self.key}: the render launched no {missing} (launches {launches})")
+        self.captured.append(graphs.STATS["captured"])
+        if self.captured[-1]:
+            raise SystemExit(f"{self.key}: rep {len(self.times)} captured "
+                             f"{self.captured[-1]} graphs the warm-up frame did not")
         self.rays = rays
         self.last = {"launches": launches, **renderer.LAST_RENDER,
                      "peak_memory_bytes": torch.cuda.max_memory_allocated()}
@@ -313,7 +304,8 @@ class _Cfg:
             line["median_mrays"] = round(self.rays / med / 1e6, 3)
             line["reps"] = len(self.times)
             line["rep_s"] = [round(t, 2) for t in (min(self.times), med, max(self.times))]
-        line.update(rays=self.rays, times_s=self.times, **self.last, upload_s=self.upload_s,
+        line.update(rays=self.rays, times_s=self.times, graphs_captured=self.captured,
+                    **self.last, upload_s=self.upload_s,
                     gate_s=self.gate_s, warm_s=self.warm_s)
         return line
 

@@ -95,6 +95,11 @@ def ray_columns(o: V3, d: V3):
 
 
 def _lanes(x, n, device):
+    """``x`` (a number or a tensor) as (n,) float32 lanes on ``device``.  A
+    number is filled on the device: made on the host, it would be copied
+    over with a synchronisation."""
+    if isinstance(x, (int, float)):
+        return torch.full((n,), x, dtype=_F32, device=device)
     return torch.broadcast_to(torch.as_tensor(x, dtype=_F32, device=device), (n,))
 
 
@@ -142,10 +147,13 @@ def _chunks(table):
 
 def closest_sweep_reference(table, rays, t_lo, t_init):
     """Plain version of the closest-hit kernel.  Returns (t_best, tri_best):
-    t_best = t_init and tri_best = -1 where nothing hit."""
+    t_best = t_init and tri_best = -1 where nothing hit.  With no live lane
+    (t_init > t_lo) nothing can hit, and it returns at once."""
     n = rays[0].shape[0]
     t_best = t_init.clone()
     tri_best = torch.full((n,), -1, dtype=torch.int32, device=t_init.device)
+    if not bool((t_init > t_lo).any()):
+        return t_best, tri_best
     for s, rows in _chunks(table):
         inside, _, _, t = _mt_chunk(rows, rays)
         hit = inside & (t > t_lo[None, :]) & (t <= t_best[None, :])
@@ -162,8 +170,10 @@ def closest_sweep_reference(table, rays, t_lo, t_init):
 
 def shadow_sweep_reference(table, rays, t_hi):
     """Plain version of the occlusion kernel: int32 1 where some triangle
-    hits with 0 < t <= t_hi."""
+    hits with 0 < t <= t_hi (none, at once, without a lane whose t_hi > 0)."""
     occ = torch.zeros(rays[0].shape[0], dtype=torch.bool, device=t_hi.device)
+    if not bool((t_hi > 0.0).any()):
+        return occ.to(torch.int32)
     for _, rows in _chunks(table):
         inside, _, _, t = _mt_chunk(rows, rays)
         occ = occ | (inside & (t > 0.0) & (t <= t_hi[None, :])).any(dim=0)

@@ -46,11 +46,14 @@ rejects such a candidate without drawing a random number and traces on past
 it, so the images agree (tests/test_torch_instancing.py holds the
 MASK-textured scene against the flattened render).
 
-An instance whose box no live lane touches is skipped, as the JAX module's
-``lax.cond(jnp.any(touches))`` does (:229, :314).  On a card that test is one
-host synchronisation per instance.  Launching always instead gives the same
-image (a block of the kernels with no live lane does nothing);
-``tools/profile_torch_wave.py --config instanced`` times both.
+The JAX module skips an instance whose box no live lane touches with a
+device-side ``lax.cond(jnp.any(touches))`` (:229, :314).  Here every
+instance step launches, and the test stays on the device as a mask: a lane
+that is dead or misses the box carries bound -1 into the walks and 0 into
+the dense sweeps, so the kernels skip it (K5' skips a block with no live
+lane; K1/K2 compact live lanes per block) and the plain versions return at
+once when no lane is live.  No step reads the device on the host, so a
+bounce can be captured as a CUDA graph (``render/graphs.py``).
 """
 
 from __future__ import annotations
@@ -66,9 +69,9 @@ from .traverse import BVHStreams, safe_inv_dir, slot_to_tri, walk
 
 _F32 = torch.float32
 
-#: Since the last reset: calls of the two entry points, instance ``steps``
-#: considered and the steps ``skipped`` by the box test.
-STATS = {"closest_calls": 0, "shadow_calls": 0, "steps": 0, "skipped": 0}
+#: Since the last reset: calls of the two entry points and their instance
+#: ``steps`` (one launch each).
+STATS = {"closest_calls": 0, "shadow_calls": 0, "steps": 0}
 
 
 def reset_stats() -> None:
@@ -174,15 +177,6 @@ def ray_aabb(o, inv_d, bmin, bmax, t_min, t_max):
     return (tnear <= tfar) & (tfar >= t_min) & (tnear <= t_max)
 
 
-def _untouched(touches) -> bool:
-    """True when the instance can be skipped: no lane touches its box."""
-    STATS["steps"] += 1
-    if bool(touches.any()):
-        return False
-    STATS["skipped"] += 1
-    return True
-
-
 def instanced_closest(tables, o: V3, d: V3, *, t_min, t_max, active):
     """Closest hit over every instance; returns (t, enc_tri, u, v).
 
@@ -205,9 +199,10 @@ def instanced_closest(tables, o: V3, d: V3, *, t_min, t_max, active):
     for g in inst.groups:
         rows, ids = g.host
         for i, (m, iid) in enumerate(zip(rows, ids)):
-            touches = ray_aabb(o_arr, inv_d, g.aabb_min[i], g.aabb_max[i], 0.0, t_best)
-            if _untouched(touches):
-                continue
+            # a dead lane's bound 0 would pass the box where its origin lies inside
+            touches = active & ray_aabb(o_arr, inv_d, g.aabb_min[i], g.aabb_max[i], 0.0,
+                                        t_best)
+            STATS["steps"] += 1
             rays = ray_columns(_apply_affine(m, o), _apply_linear(m, d))
             if g.pblas is None:
                 t_n, local = closest_sweep(g.table, rays, t_lo,
@@ -263,8 +258,7 @@ def instanced_shadow(tables, o: V3, d: V3, *, t_max, active):
         for i, m in enumerate(rows):
             touches = (active & ~occ) & ray_aabb(o_arr, inv_d, g.aabb_min[i], g.aabb_max[i],
                                                   0.0, t_bound)
-            if _untouched(touches):
-                continue
+            STATS["steps"] += 1
             rays = ray_columns(_apply_affine(m, o), _apply_linear(m, d))
             if g.pblas is None:
                 hit = shadow_sweep(g.table, rays, torch.where(touches, t_bound, 0.0)) != 0

@@ -81,7 +81,10 @@ class V3(NamedTuple):
         return self.dot(self)
 
     def normalized(self, eps: float = 1e-20):
-        inv = torch.rsqrt(torch.clamp_min(self.length_sq(), eps))
+        # 1 / sqrt: both are correctly rounded on every device, where a
+        # card's rsqrt and the CPU's differ by an ulp on some lanes (and
+        # whole paths with them)
+        inv = 1.0 / torch.sqrt(torch.clamp_min(self.length_sq(), eps))
         return V3(self.x * inv, self.y * inv, self.z * inv)
 
     def where(self, cond, other):

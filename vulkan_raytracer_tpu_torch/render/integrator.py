@@ -50,13 +50,14 @@ import functools
 import numpy as np
 import torch
 
-from ..ops import dense, rng
+from ..ops import dense, instanced, rng, traverse
 from ..ops.bsdf import HitInfo, HitMaterial, material_bsdf, material_pdf, sample_material
 from ..ops.dense import EMISSIVE_MAX_TRIS, dense_closest, dense_emissive_pdf, dense_shadow
 from ..ops.instanced import apply_normal_matrix, instanced_closest, instanced_shadow
 from ..ops.math3 import BIAS, EPS, INF, V3, v3_from_tangent, v3_gather, v3_onb, v3_to_tangent
 from ..ops.texture import sample_bilinear, sample_equirect
 from ..ops.traverse import bvh_closest, bvh_emissive_pdf, bvh_shadow
+from . import graphs
 
 _F32 = torch.float32
 
@@ -678,11 +679,12 @@ def sample_lights(tables, hit, wavelength, view_world: V3, seed, mask):
 # ---------------------------------------------------------------------------
 
 
-def _bounce(tables, s: dict, b: int, n_active: int, max_depth: int, nee_weighting: str):
-    """One bounce of every lane of the wave state ``s`` (integrator.py:961-1046),
-    ``n_active`` of them alive: returns the next state and the rays traced
-    (material + NEE + terminal emissive probes).  A dead lane's fields come
-    out as they went in."""
+def _bounce(tables, s: dict, b: int, max_depth: int, nee_weighting: str):
+    """One bounce of every lane of the wave state ``s`` (integrator.py:961-1046):
+    returns the next state and the rays traced (material + NEE + terminal
+    emissive probes), a 0-d tensor.  A dead lane's fields come out as they
+    went in.  On an alpha-free scene nothing here reads the device on the
+    host, so the bounce can be captured (:mod:`.graphs`)."""
     n = s["active"].shape[0]
     BOUNCE_WIDTHS[n] = BOUNCE_WIDTHS.get(n, 0) + 1
     active, origin, direction = s["active"], s["origin"], s["direction"]
@@ -730,7 +732,31 @@ def _bounce(tables, s: dict, b: int, n_active: int, max_depth: int, nee_weightin
     out = dict(s, origin=new_origin.where(cont, origin), direction=new_dir.where(cont, direction),
                value=value, throughput=throughput_next, seed=seed, wavelength=wavelength,
                mat_pdf=torch.where(cont, pdf_m, mat_pdf), active=alive, sky_w=sky_w)
-    return out, n_active + probe_mask.sum() + nee_rays
+    return out, active.sum() + probe_mask.sum() + nee_rays
+
+
+#: The Python-side counters a bounce advances; a graph's replay adds what its
+#: capture counted to each.
+_COUNTERS = (dense.LAUNCHES, traverse.LAUNCHES, instanced.STATS, BOUNCE_WIDTHS)
+
+
+def _step(tables, s: dict, b: int, max_depth: int, nee_weighting: str, sort_first: bool):
+    """One step of the bounce loop: the coherence re-sort where asked, then
+    :func:`_bounce`.  The unit a graph captures."""
+    if sort_first:
+        s = _sort_wavefront(tables, s)
+    return _bounce(tables, s, b, max_depth, nee_weighting)
+
+
+def _run_step(tables, s: dict, b: int, max_depth: int, nee_weighting: str, sort_first: bool):
+    """:func:`_step`, replayed from its captured graph where
+    :func:`graphs._graphs_preferred` picks graphs, else run eagerly."""
+    if not graphs._graphs_preferred(tables):
+        return _step(tables, s, b, max_depth, nee_weighting, sort_first)
+    key = (b, max_depth, nee_weighting, sort_first, _repack_preferred(tables))
+    return graphs.cache(tables).run(
+        key, lambda st: _step(tables, st, b, max_depth, nee_weighting, sort_first), s,
+        _COUNTERS)
 
 
 def _radiance(tables, s: dict):
@@ -797,10 +823,9 @@ def render_sample(tables, view_inv, proj_inv, width, height, sample_count, max_d
             live = int(s["active"].sum())
             if live <= live_floor:
                 break
-            if repack and b > 0 and not sorted_:
-                s = _sort_wavefront(tables, s)
+            s, r = _run_step(tables, s, b, max_depth, nee_weighting,
+                             repack and b > 0 and not sorted_)
             sorted_ = False
-            s, r = _bounce(tables, s, b, live, max_depth, nee_weighting)
             rays = rays + r
             b += 1
         return b, s, live
