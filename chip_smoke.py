@@ -13,12 +13,14 @@ follows it in the same process (``tools/bench_torch_process_state.py``,
 PERF.md §7), so no render phase runs after one but those that compare
 sides of one wave in turns.
 
-On the card every render of an alpha-free scene replays each bounce from
-a captured CUDA graph (``render/graphs.py``); alpha scenes (the two glTF
-containers) run eagerly.  A render phase's line says how its bounces ran
-since its counters were reset (``bounces``: "graphs", "eager", or both
-where the CPU renders the same frame); phases that record what a bounce
-calls run eagerly.
+On the card every render replays each bounce from captured CUDA graphs
+(``render/graphs.py``): one a bounce without alpha; with alpha (the two glTF
+containers, the forced-BVH and the instanced alpha uploads) a segment up to
+each resample loop, the loop's pass replayed while a lane is pending, and a
+last segment.  A render phase's line says how its bounces ran since its
+counters were reset (``bounces``: "graphs", "eager", or both where the CPU
+renders the same frame); phases that record what a bounce calls run
+eagerly.
 
 1. device   — CUDA must be available (no CPU fallback); the card's name and
    power limit from nvidia-smi.
@@ -98,13 +100,15 @@ calls run eagerly.
    accessor) through ``Scene.load_model``: 12 triangles, 6 textures (none
    1x1, the JPEG one 8x8), alpha and textures flagged; then the CLI's
    headless path on ``cuda`` at 512x512, depth 4, 16 spp, camera 0,0,2.8 ->
-   0,0,-1.  It must launch K1 and K3 and give a finite, lit image; seconds,
-   Mrays/s and the alpha loop's iterations per ``_closest`` call.
+   0,0,-1.  It must launch K1 and K3, replay every bounce from graphs and
+   give a finite, lit image; seconds, Mrays/s and the alpha loop's
+   iterations per ``_closest`` call.
 12. gltf_bvh — the gallery-class .glb of tests/test_bigasset_glb.py (147,136
    triangles, 9 materials, 5 textures) through ``cli.run`` on ``cuda``, twice
    at 512x512, depth 4, 4 spp, camera 0,1.7,4.6 -> 0,-0.28,-1; each
-   must launch K5' closest and K3.  Load (parse, image decode) and upload
-   (BVH build, streams, copy) seconds apart from the render's.
+   must launch K5' closest and K3 and replay every bounce from graphs.
+   Load (parse, image decode) and upload (BVH build, streams, copy) seconds
+   apart from the render's.
 13. gltf_parity — both containers at 32x32, 2 spp, depth 3 on ``cuda``
    against the same render on the CPU, and the small one once more uploaded
    with ``traversal="bvh"`` (K4' closest runs the alpha loop): RMSE < 2e-3,
@@ -153,8 +157,13 @@ calls run eagerly.
    of each (a refit more than twice as slow as the rebuild fails).  Then
    (``refit_frame``) the 512x512, 4 spp, depth 4 frame right after a refit
    and the one after it, graphs and eager in turns, each turn on a refit of
-   its own: the graphs side's first frame captures every bounce anew (new
-   tables never replay old graphs).  Images bit-equal; seconds of each.
+   its own, after one frame on the tables before the refits: a refit keeps
+   the tables' signature, so the graphs side's first frame captures no
+   graph, copies the new tables into the cache's mirror once (its device
+   seconds and bytes, the mirror's bytes beside the pool's) and must be no
+   slower than the eager first frame.  Images bit-equal, and the old
+   tables' frame after the turns bit-equal to theirs before; seconds of
+   each.
 21. progressive — the progressive ``Renderer`` on Cornell 512x512, depth 4:
    the preview frame and 16 samples, whose mean must equal
    ``render_image(spp=16)`` within atol 1e-5; ms per frame; ``pipeline=True``
@@ -191,24 +200,27 @@ calls run eagerly.
    128-lane blocks of each K5' launch, and each side's wall, device time
    and K5' device time from ``torch.profiler``.
 
-26. graphs  — six configs with their bounces replayed from graphs and
+26. graphs  — eight configs with their bounces replayed from graphs and
    eagerly (``graphs._graphs_preferred`` patched off), each side warmed up
    once (the graphs capture there), then in turns (graphs, eager, eager,
    graphs): bench cfg1's whole frame, cfg2's frame, cfg5's first band, the
-   emitter soup, the gallery and the progressive ``Renderer`` (preview + 16
-   frames).  Images bit-equal, equal rays and launches per kernel; per side
-   the wall per frame and per wave and the host synchronisations per wave
+   emitter soup, the gallery, the progressive ``Renderer`` (preview + 16
+   frames), and with alpha the glTF 147k frame (phase 12's) and the
+   textured glb frame (phase 11's).  Images bit-equal, equal rays,
+   launches per kernel and alpha-loop passes; per side the wall per frame
+   and per wave and the host synchronisations per wave
    (``torch.cuda.set_sync_debug_mode("warn")``), at most max_depth + 1 +
-   ``SYNCS_PER_WAVE`` on the graphs side; the graphs kept, their capture
-   seconds and their pool's bytes.
+   the wave's alpha-loop passes + ``SYNCS_PER_WAVE`` on the graphs side;
+   the programs kept, their capture seconds, their pool's bytes and the
+   mirror's.
 27. graphs_busy — after the profiled timings: one wave each of cfg1, the
-   gallery, the emitter soup and phase 9's forced-BVH dragon under
-   ``torch.profiler`` each way, counters reset just before: each
+   gallery, the emitter soup, phase 9's forced-BVH dragon and the glTF 147k
+   under ``torch.profiler`` each way, counters reset just before: each
    hand-written kernel's launches in the trace must equal the counters'.  A
    replay runs no Python, so its counts are those its capture took; this is
    where the replays are seen to launch them, every kernel variant over the
-   four waves.  And the device's busy share (the union of its kernels' intervals
-   over the wall).
+   five waves.  And the device's busy share (the union of its kernels' intervals
+   over the wall) and, on the glTF wave, the alpha loop's passes per call.
 
 Scenes above 65,536 triangles (cfg2, the glTF 147k, the emitter soup, cfg5,
 the gallery) run the repacked wavefront in every phase that renders them,
@@ -298,10 +310,10 @@ WALK_TERM_OPS = 39  # the emissive walk's term: the normal over its length (sqrt
 PROFILE_TRIES = 3  # profiled runs of one launch shape before device_ms gives up
 # the BVH streams of the cfg2 dragon and of the 147k glTF must fit half the L2
 STREAM_BYTES_MAX = 25e6
-# host synchronisations a wave may take beyond one live-lane read a bounce:
-# the ladder's two phases that end on their floor, the copy of the wave's
-# sample numbers (or, for one sample, of the sample count and the preview
-# flag) and the frame's reads of its image and ray count
+# host synchronisations a wave may take beyond one live-lane read a bounce
+# and, with alpha, one pending-lane read a resample pass: the copy of the
+# wave's sample numbers (or, for one sample, of the sample count and the
+# preview flag) and the frame's reads of its image and ray count
 SYNCS_PER_WAVE = 6
 
 
@@ -431,6 +443,57 @@ def gallery_scene(detail: int = 256, n_dragons: int = 64, seed: int = 5):
     for k, ry in enumerate((0.0, 0.5)):
         s.add_node(s.root, trs((0.0, 6.0 + 0.1 * extent, -extent * (0.25 + 0.5 * k)), ry=ry,
                                scale=(0.5 * extent + 3.0, 1.0, 0.2 * extent + 1.5)), mesh=2)
+    return s
+
+
+def alpha_gallery_scene(n_side: int = 4):
+    """Instances with alpha (tests/test_instancing.py:187-228, grown): an
+    ``n_side`` x ``n_side`` grid of one vertical quad whose MASK material
+    reads a checkered alpha texture, a row of one BLEND quad (alpha 0.5)
+    before it, a backdrop and an emissive panel, every mesh shared.  Upload
+    it with ``instancing=True``; its camera is ``TEXTURED_CAM``."""
+    from vulkan_raytracer_tpu_torch.scene.scenegraph import Material, Primitive, Scene
+
+    back, mask, blend, light = Material(), Material(), Material(), Material()
+    back.metallic_factor = mask.metallic_factor = blend.metallic_factor = 0.0
+    mask.alpha_mode, mask.alpha_cutoff, mask.base_colour_tex = 1, 0.5, 0
+    blend.alpha_mode = 2
+    blend.base_colour_factor = np.array([0.2, 0.5, 0.9, 0.5], np.float32)
+    light.emissive_factor = np.array([8.0, 8.0, 8.0], np.float32)
+    s = Scene()
+    s.materials += [back, mask, blend, light]
+    tex = np.ones((8, 8, 4), np.float32)
+    yy, xx = np.mgrid[:8, :8]
+    tex[..., 3] = np.where((xx + yy) % 2 == 0, 1.0, 0.1)
+    s.textures.append(tex)
+
+    def quad(material: int, vertical: bool) -> Primitive:
+        pos = np.array([[-0.5, 0, -0.5], [0.5, 0, -0.5], [0.5, 0, 0.5], [-0.5, 0, 0.5]],
+                       np.float32)
+        normal = np.float32([0, -1, 0])
+        if vertical:  # facing +z
+            pos[:, [1, 2]] = pos[:, [2, 1]]
+            normal = np.float32([0, 0, 1])
+        return Primitive(positions=pos, normals=np.tile(normal, (4, 1)),
+                         tangents=np.zeros((4, 4), np.float32),
+                         uvs=np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32),
+                         indices=np.array([0, 2, 1, 0, 3, 2], np.uint32), material=material)
+
+    s.mesh_pool += [[quad(1, True)], [quad(2, True)], [quad(0, True)], [quad(3, False)]]
+
+    def at(x, y, z, sx=1.0, sy=1.0):
+        m = np.diag(np.float32([sx, sy, 1.0, 1.0]))
+        m[:3, 3] = (x, y, z)
+        return m
+
+    step = 1.6 / n_side
+    for i in range(n_side * n_side):
+        x, y = (i % n_side - (n_side - 1) / 2) * step, (i // n_side - (n_side - 1) / 2) * step
+        s.add_node(s.root, at(x, y, 0.1 * (i % 3), 0.9 * step, 0.9 * step), mesh=0)
+    for k in range(n_side):
+        s.add_node(s.root, at((k - (n_side - 1) / 2) * step, 0.0, 0.6, 0.8 * step, 1.8), mesh=1)
+    s.add_node(s.root, at(0.0, 0.0, -0.5, 4.0, 4.0), mesh=2)
+    s.add_node(s.root, at(0.0, 2.0, 0.5), mesh=3)
     return s
 
 
@@ -1560,39 +1623,68 @@ def frame_after_refit(device, cases, size: int = 512, spp: int = 4, depth: int =
     """The frame a dynamic scene renders right after ``Scene.refit`` (the
     Renderer's refit-and-restart loop), with graphs and eager, in turns
     (graphs, eager, eager, graphs), each turn on the tables of a refit of
-    its own: the first frame on new tables, which on the graphs side
-    captures every bounce anew, and a second frame on the same tables.
-    Both sides' images bit-equal."""
+    its own, after one frame on the tables before the refits (which
+    captures what the frame replays): the first frame on new tables and a
+    second frame on the same tables.  A refit keeps the tables' signature,
+    so the graphs side's first frame captures nothing and copies the new
+    tables into the cache's mirror once; it must be no slower than the
+    eager first frame.  Both sides' images bit-equal, and the old tables
+    render their own frame again bit for bit."""
     import torch
 
     from vulkan_raytracer_tpu_torch.render import graphs
 
     for name, scene, tables, cam in cases:
-        out = {side: {"first_s": [], "second_s": [], "captured": []}
-               for side in ("graphs", "eager")}
+        graphs.reset_stats()
+        before, _, warm_s = _render(tables, cam, size, size, spp=spp, depth=depth)
+        warm = {"seconds": warm_s, "captured": graphs.STATS["captured"],
+                "capture_s": graphs.STATS["capture_s"]}
+        out = {side: {"first_s": [], "second_s": [], "captured": [], "copies": [],
+                      "copy_bytes": [], "copy_s": []} for side in ("graphs", "eager")}
         want = None
         for side in ("graphs", "eager", "eager", "graphs"):
             with _eager() if side == "eager" else contextlib.nullcontext():
                 refit = scene.refit(tables)
+                if graphs.signature(refit) != graphs.signature(tables):
+                    raise AssertionError(f"{name}: the refit changed the tables' signature")
                 torch.cuda.synchronize(device)
                 graphs.reset_stats()
                 for key in ("first_s", "second_s"):
                     img, rays, secs = _render(refit, cam, size, size, spp=spp, depth=depth)
                     out[side][key].append(secs)
                 out[side]["captured"].append(graphs.STATS["captured"])
+                out[side]["copies"].append(graphs.STATS["copies"])
+                out[side]["copy_bytes"].append(graphs.STATS["copy_bytes"])
+                out[side]["copy_s"].append(graphs.copy_seconds())
             del refit
             if want is None:
                 want = (img, rays)
             if not (np.array_equal(img, want[0]) and rays == want[1]):
                 raise AssertionError(f"{name}: the {side} frame after a refit differs")
+        graphs.reset_stats()
+        again, _, _ = _render(tables, cam, size, size, spp=spp, depth=depth)
+        if not np.array_equal(again, before):
+            raise AssertionError(f"{name}: the tables before the refits no longer render "
+                                 "their own frame")
         for o in out.values():
             o.update(first_s_median=statistics.median(o["first_s"]),
                      second_s_median=statistics.median(o["second_s"]))
+        g, e = out["graphs"], out["eager"]
+        if any(g["captured"]) or g["copies"] != [1, 1]:
+            raise AssertionError(f"{name}: the graphs side's frames after a refit captured "
+                                 f"{g['captured']} programs, filled the mirror {g['copies']}")
+        if not g["first_s_median"] <= e["first_s_median"]:
+            raise AssertionError(f"{name}: the first frame after a refit took "
+                                 f"{g['first_s_median']:.3f}s with graphs, "
+                                 f"{e['first_s_median']:.3f}s eagerly")
+        cache = graphs.cache(tables)
         emit({"phase": "refit_frame", "config": f"{name}: {size}x{size} {spp} spp depth {depth} "
                                                 f"on the tables of a new refit", "rays": want[1],
-              "bit_equal": True, **out,
-              "first_frame_graphs_over_eager": (out["graphs"]["first_s_median"]
-                                                / out["eager"]["first_s_median"])})
+              "bit_equal": True, "old_tables_bit_equal": True, "warm_frame": warm, **out,
+              "mirror_copy_s": g["copy_s"], "mirror_copy_bytes": g["copy_bytes"],
+              "mirror_bytes": cache.mirror_bytes(), "pool_bytes": cache.pool_bytes(),
+              "first_frame_graphs_over_eager": g["first_s_median"] / e["first_s_median"],
+              "nvidia_smi": nvidia_smi_line()})
 
 
 def progressive_phase(device, paths, size: int = 512, spp: int = 16) -> None:
@@ -1995,18 +2087,19 @@ def repack_phase(paths, waves) -> None:
                       "blocks, blocks) per launch"})
 
 
-def graphs_phase(cornell, dragon):
-    """Phase 26: six configs rendered with their bounces replayed from
+def graphs_phase(cornell, dragon, bigasset, out_dir: Path):
+    """Phase 26: eight configs rendered with their bounces replayed from
     captured CUDA graphs (the package's rule) and eagerly (:func:`_eager`):
     each side once to warm up (the graphs capture there), then in turns
-    (graphs, eager, eager, graphs): images bit-equal, rays and each kernel's
-    launches equal, every bounce of the graphs side replayed and none of the
-    eager side's; per side the wall per frame and per wave and the host
-    synchronisations per wave (one more run each, counted from
-    ``torch.cuda.set_sync_debug_mode("warn")``'s warnings), at most
-    ``depth + 1 + SYNCS_PER_WAVE`` on the graphs side; once the graphs
-    captured, their seconds and the pool's bytes.  Returns the gallery's and
-    the emitter soup's tables, for phase 27."""
+    (graphs, eager, eager, graphs): images bit-equal, rays, each kernel's
+    launches and the alpha loop's passes equal, every bounce of the graphs
+    side replayed and none of the eager side's; per side the wall per frame
+    and per wave and the host synchronisations per wave (one more run each,
+    counted from ``torch.cuda.set_sync_debug_mode("warn")``'s warnings), at
+    most ``depth + 1 + passes + SYNCS_PER_WAVE`` on the graphs side, where
+    ``passes`` is the wave's alpha-loop passes (0 without alpha); once the
+    graphs captured, their seconds, the pool's bytes and the mirror's.
+    Returns the gallery's and the emitter soup's tables, for phase 27."""
     import torch
     from profile_torch_wave import count_syncs
 
@@ -2045,10 +2138,19 @@ def graphs_phase(cornell, dragon):
             return frames + [r.accum.cpu().numpy()], r.rays_traced, spp + 1
         return run
 
+    import torch_glb_assets
+
     cfg5 = next(c for c in bench.CONFIGS if c["key"].startswith("cfg5"))
     multi = cfg5["build"]().upload("cuda")
     soup = emitter_soup_scene(100000, 5000, seed=31).upload("cuda")
     gallery = gallery_scene().upload("cuda")
+    textured_scene = _load_glb(torch_glb_assets.write_textured_glb(out_dir), 12, 6)[0]
+    textured = textured_scene.upload("cuda")
+    textured_bvh = textured_scene.upload("cuda", traversal="bvh")
+    alpha_gallery = alpha_gallery_scene().upload("cuda", instancing=True)
+    if not (alpha_gallery.has_alpha and alpha_gallery.inst is not None
+            and textured_bvh.pbvh.n_treelets == 1):
+        raise AssertionError("the alpha gallery or the forced-BVH glb is not what phase 26 needs")
     cases = (
         ("cfg1 cornell 512x512 depth 4 64 spp", cornell, 4,
          frame(cornell, CFG1_CAM, 512, 512, 64, 4)),
@@ -2060,6 +2162,14 @@ def graphs_phase(cornell, dragon):
          frame(gallery, gallery_camera(), 512, 512, 4, 4)),
         ("progressive cornell 512x512 depth 4: preview + 16 frames", cornell, 4,
          progressive(cornell, 512, 512, 4, 16)),
+        ("gltf147k bigasset.glb 512x512 depth 4 4 spp (alpha)", bigasset, 4,
+         frame(bigasset, BIGASSET_CAM, 512, 512, 4, 4)),
+        ("textured glb 512x512 depth 4 16 spp (alpha)", textured, 4,
+         frame(textured, TEXTURED_CAM, 512, 512, 16, 4)),
+        ("forced-BVH textured glb 128x128 depth 4 16 spp (alpha, K4')", textured_bvh, 4,
+         frame(textured_bvh, TEXTURED_CAM, 128, 128, 16, 4)),
+        ("alpha gallery (instanced) 128x128 depth 4 16 spp (alpha)", alpha_gallery, 4,
+         frame(alpha_gallery, TEXTURED_CAM, 128, 128, 16, 4)),
     )
     total = {"captured": 0, "capture_s": 0.0}
     for config, tables, depth, run in cases:
@@ -2071,7 +2181,7 @@ def graphs_phase(cornell, dragon):
             with _eager() if side == "eager" else contextlib.nullcontext():
                 _reset_launches()
                 (images, rays, waves), secs = _timed_sync(run)
-                got = (rays, _launch_counts())
+                got = (rays, _launch_counts(), _alpha_loop())
                 replays, bounces = graphs.STATS["replays"], _mode()
                 total["captured"] += graphs.STATS["captured"]
                 total["capture_s"] += graphs.STATS["capture_s"]
@@ -2089,38 +2199,43 @@ def graphs_phase(cornell, dragon):
             out[side].update(waves=waves, replays=replays)
         for side in out:
             with _eager() if side == "eager" else contextlib.nullcontext():
+                _reset_launches()
                 syncs, lines = count_syncs(run)
+                passes = _alpha_loop()["iterations"]
             o = out[side]
             o.update(seconds_median=statistics.median(o["seconds"]),
                      ms_per_wave=1e3 * statistics.median(o["seconds"]) / o["waves"],
                      host_syncs=syncs, host_syncs_per_wave=syncs / o["waves"],
-                     host_sync_lines=lines)
-        bound = depth + 1 + SYNCS_PER_WAVE
+                     alpha_passes_per_wave=passes / o["waves"], host_sync_lines=lines)
+        bound = depth + 1 + out["graphs"]["alpha_passes_per_wave"] + SYNCS_PER_WAVE
         if not out["graphs"]["host_syncs_per_wave"] <= bound:
             raise AssertionError(f"{config}: {out['graphs']['host_syncs_per_wave']} host "
                                  f"syncs a wave on the graphs side, more than {bound}")
         cache = graphs.cache(tables)
         emit({"phase": "graphs", "config": config, "bit_equal": True, "rays": want[1][0],
-              "launches": want[1][1], "graphs_kept": len(cache.graphs),
-              "pool_bytes": cache.pool_bytes(), "max_depth": depth,
-              "host_syncs_bound_per_wave": bound,
+              "launches": want[1][1], "alpha_loop": want[1][2], "graphs_kept": len(cache.graphs),
+              "pool_bytes": cache.pool_bytes(), "mirror_bytes": cache.mirror_bytes(),
+              "max_depth": depth, "host_syncs_bound_per_wave": bound,
               "speedup_median": out["eager"]["seconds_median"] / out["graphs"]["seconds_median"],
               **out})
     emit({"phase": "graphs_summary", "configs": len(cases), **total,
           "pool_bytes": {config.split()[0]: graphs.cache(tables).pool_bytes()
                          for config, tables, _, _ in cases},
+          "mirror_bytes": {config.split()[0]: graphs.cache(tables).mirror_bytes()
+                           for config, tables, _, _ in cases},
           "nvidia_smi": nvidia_smi_line()})
     return gallery, soup
 
 
-def graphs_busy(cornell, gallery, soup, small) -> None:
+def graphs_busy(cornell, gallery, soup, small, bigasset) -> None:
     """Phase 27, after the profiled timings: one wave each of cfg1, the
-    gallery, the emitter soup and the forced-BVH dragon of phase 9
-    (``profile_torch_wave``'s first wave of each frame), replayed from
-    graphs and eager, each side warmed up and then once under
+    gallery, the emitter soup, the forced-BVH dragon of phase 9 and the
+    glTF 147k (``profile_torch_wave``'s first wave of each frame), replayed
+    from graphs and eager, each side warmed up and then once under
     ``torch.profiler`` with its counters reset: each hand-written kernel's
     launches in the trace equal the counters' (on the graphs side, what
-    the captures counted: the four waves launch every kernel variant), and the
+    the captures counted, per pass replayed on the glTF wave: the five waves
+    launch every kernel variant), the alpha loop's passes equal, and the
     device's busy share, the union of the kernels' intervals over the
     profiled wall."""
     import torch
@@ -2134,7 +2249,8 @@ def graphs_busy(cornell, gallery, soup, small) -> None:
             ("cfg1", cornell, CFG1_CAM, (512, 512, 64, 4)),
             ("gallery", gallery, gallery_camera(), (512, 512, 4, 4)),
             ("emitter soup", soup, CFG1_CAM, (512, 512, 4, 4)),
-            ("forced-BVH dragon", small, CFG2_CAM, (32, 32, 2, 3))):
+            ("forced-BVH dragon", small, CFG2_CAM, (32, 32, 2, 3)),
+            ("gltf147k", bigasset, BIGASSET_CAM, (512, 512, 4, 4))):
         camera = Camera(position=np.array(cam[0]), direction=np.array(cam[1]), aspect=w / h)
         lanes, samples, _ = first_wave(tables, w, h, spp)
         run = wave(tables, camera, w, h, depth, lanes, samples)
@@ -2145,9 +2261,12 @@ def graphs_busy(cornell, gallery, soup, small) -> None:
                 _reset_launches()
                 with torch.profiler.profile(activities=activities) as prof:
                     secs = _timed_sync(run)[1]
-                counted, bounces = _launch_counts(), _mode()
+                counted, bounces, loop = _launch_counts(), _mode(), _alpha_loop()
             if bounces != side:
                 raise AssertionError(f"{label}: the {side} wave's bounces ran {bounces}")
+            if side == "eager" and loop != out["graphs"]["alpha_loop"]:
+                raise AssertionError(f"{label}: alpha loop {loop} eagerly, "
+                                     f"{out['graphs']['alpha_loop']} replayed")
             trace = trace_summary(prof)
             counted = {**counted["dense"], **counted["traverse"]}
             traced = check_traced_launches(trace, counted, f"{label} {side}")
@@ -2159,7 +2278,7 @@ def graphs_busy(cornell, gallery, soup, small) -> None:
                          "busy_share": busy / (1e3 * secs), "idle_share": 1 - busy / (1e3 * secs),
                          "device_events": trace["device_events"],
                          "aten_ops_top_level": trace["aten_ops_top_level"],
-                         "traced_launches": traced,
+                         "traced_launches": traced, "alpha_loop": loop,
                          "port_kernel_ms": trace.get("port_kernel_ms", {})}
         emit({"phase": "graphs_busy", "config": f"{label} first wave: {len(lanes)} pixels x "
                                                 f"samples {len(samples)}, {w}x{h} depth {depth}",
@@ -2248,8 +2367,7 @@ def _reset_launches() -> None:
 def _mode() -> str:
     """How the bounces since the last :func:`_reset_launches` ran:
     "graphs" (replayed from captured CUDA graphs), "eager", or both (a
-    card-vs-CPU phase: the CPU runs eagerly; or an alpha scene beside an
-    alpha-free one)."""
+    card-vs-CPU phase: the CPU runs eagerly)."""
     from vulkan_raytracer_tpu_torch.render import graphs, integrator
 
     replays = graphs.STATS["replays"]
@@ -2472,15 +2590,17 @@ def gltf_dense(out_dir: Path, paths: PathLaunches) -> None:
     _reset_launches()
     stats = cli.run(["-m", str(glb), *GLTF_DENSE, "--device", "cuda",
                      "--output", str(out_dir / "textured.png")])
-    launches, loop = _launch_counts(), _alpha_loop()
+    launches, loop, bounces = _launch_counts(), _alpha_loop(), _mode()
     img = stats["image"]
     if not (launches["dense"]["closest"] > 0 and launches["dense"]["pdf"] > 0):
         raise AssertionError(f"textured glb render missed K1 or K3: launches {launches}")
+    if bounces != "graphs" or not loop["closest_calls"]:
+        raise AssertionError(f"textured glb render: bounces {bounces}, alpha loop {loop}")
     if not np.isfinite(img).all() or img.shape != (512, 512, 3) or not img.mean() > 1e-3:
         raise AssertionError(f"textured glb image not finite, misshapen or black: "
                              f"{img.shape} mean {img.mean()}")
     paths.add("gltf_dense", launches)
-    emit({"phase": "gltf_dense", "bounces": _mode(),
+    emit({"phase": "gltf_dense", "bounces": bounces,
           "config": "textured.glb 512x512 depth 4 16 spp",
           "triangles": tables.num_triangles, "textures": [list(t.shape) for t in scene.textures],
           "emissive": tables.num_emissive_tris, "load_seconds": load_s,
@@ -2502,15 +2622,17 @@ def gltf_bvh(out_dir: Path, paths: PathLaunches, reps: int) -> None:
         _reset_launches()
         stats = cli.run(["-m", str(glb), *GLTF_BVH, "--device", "cuda",
                          "--output", str(out_dir / "bigasset.png")])
-        launches, loop = _launch_counts(), _alpha_loop()
+        launches, loop, bounces = _launch_counts(), _alpha_loop(), _mode()
         img = stats["image"]
         if not (launches["traverse"]["treelet_closest"] > 0 and launches["dense"]["pdf"] > 0):
             raise AssertionError(f"bigasset render missed K5' closest or K3: launches {launches}")
+        if bounces != "graphs" or not loop["closest_calls"]:
+            raise AssertionError(f"bigasset render: bounces {bounces}, alpha loop {loop}")
         if not np.isfinite(img).all() or img.shape != (512, 512, 3) or not img.mean() > 1e-3:
             raise AssertionError(f"bigasset image not finite, misshapen or black: "
                                  f"{img.shape} mean {img.mean()}")
         runs.append(stats)
-        emit({"phase": "gltf_bvh", "bounces": _mode(),
+        emit({"phase": "gltf_bvh", "bounces": bounces,
               "config": "bigasset.glb (147,136 tris) 512x512 depth 4 4 spp",
               "load_seconds": stats["load_seconds"], "upload": stats["upload"],
               "seconds": stats["seconds"], "rays": stats["rays"],
@@ -2716,7 +2838,8 @@ def main() -> int:
     fleet_phase(cfg1_img, cfg1_rays, paths)
 
     # 26. graph-replayed bounces against eager ones, before any profiler session
-    gallery_tables, soup_tables = graphs_phase(cornell, dragon)
+    with tempfile.TemporaryDirectory() as tmp:
+        gallery_tables, soup_tables = graphs_phase(cornell, dragon, bigasset, Path(tmp))
 
     # the dense kernels' device times from torch.profiler, after every
     # render phase: a profiler session slows the renders that follow it in
@@ -2728,12 +2851,12 @@ def main() -> int:
 
     # 25. the repacked wavefront against the unsorted one at two BVH waves
     repack_phase(paths, (("cfg2", dragon, CFG2_CAM), ("gltf147k", bigasset, BIGASSET_CAM)))
-    del dragon, bigasset
+    del dragon
 
     # 27. replayed launches in the trace, and the device's busy share, graphs
     # and eager
-    graphs_busy(cornell, gallery_tables, soup_tables, small)
-    del gallery_tables, soup_tables
+    graphs_busy(cornell, gallery_tables, soup_tables, small, bigasset)
+    del gallery_tables, soup_tables, bigasset
 
     import vulkan_raytracer_tpu_torch.viewer  # noqa: F401  (held to the same check)
 

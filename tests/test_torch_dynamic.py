@@ -16,11 +16,12 @@ import pytest
 import torch
 
 from test_torch_instancing import _cam as _inst_cam
-from test_torch_instancing import _rmse, _trs, instanced_scene
+from test_torch_instancing import _rmse, _trs, host_instances, instanced_calls, instanced_scene
 from vulkan_raytracer_tpu.accel.bvh import refit_bvh as jrefit_bvh
 from vulkan_raytracer_tpu.scene import scenegraph as jsg
 from vulkan_raytracer_tpu.scene.builtin import cornell_box_scene as jcornell
 from vulkan_raytracer_tpu_torch.accel.bvh import refit_bvh
+from vulkan_raytracer_tpu_torch.ops import instanced as tinst
 from vulkan_raytracer_tpu_torch.ops import traverse as ttr
 from vulkan_raytracer_tpu_torch.ops.math3 import V3
 from vulkan_raytracer_tpu_torch.render.renderer import render_image
@@ -250,6 +251,24 @@ def test_instanced_refit_matches_fresh_upload_and_jax():
     c, _ = render_image(t0, _inst_cam(), 24, 24, spp=2, max_depth=2, tonemap=False)
     assert _rmse(a, b) < 2e-3
     assert _rmse(a, c) > 1e-4  # the move changed the image
+
+
+def test_instanced_refit_steps_read_the_moved_transforms(monkeypatch):
+    """After an instanced refit each instance step reads the new transforms
+    where they lie on the tables' device: the refit tables' hits are the
+    Python-number path's on the same tables bit for bit, and not the old
+    tables'."""
+    s = instanced_scene(tsg, n_soup_instances=3)
+    t0 = s.upload("cpu", instancing=True)
+    node = next(n for n in s.iter_depth_first() if n.mesh == 0)
+    node.world_transform = _trs((0.5, 0.4, -0.3), ry=0.5)
+    refit = s.refit(t0)
+    got, old = instanced_calls(refit), instanced_calls(t0)
+    monkeypatch.setattr(tinst, "_instances", host_instances)
+    want = instanced_calls(refit)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert not torch.equal(got[1], old[1])
 
 
 @pytest.mark.parametrize("instancing", [False, True])

@@ -427,10 +427,10 @@ def test_instanced_blas_render_matches_flattened(monkeypatch):
     assert _rmse(a, b) < RMSE_BAR
 
 
-def test_instanced_alpha_mask_texture():
-    """MASK alpha with a texture through the encoded-id resample loop
-    (tests/test_instancing.py:187-228).  The port leaves out the JAX fold's
-    MASK prefilter; the alpha loop gives the same image."""
+def alpha_instanced_scene():
+    """Two instances of a MASK-textured quad over an instanced backdrop, lit
+    by an instanced emissive quad (tests/test_instancing.py:187-228).
+    Returns (scene, camera)."""
     s = tsg.Scene()
     back = tsg.Material()
     back.metallic_factor = 0.0
@@ -462,15 +462,66 @@ def test_instanced_alpha_mask_texture():
     s.add_node(s.root, _trs((0.3, 0, 0.2), s=(1.2, 1.2, 1.0)), mesh=0)
     s.add_node(s.root, _trs((0, 0, -0.5), s=(4, 4, 1)), mesh=1)
     s.add_node(s.root, _trs((0, 2.0, 0.5)), mesh=2)
+    return s, Camera(position=np.array([0.0, 0.0, 3.0]), direction=np.array([0.0, 0.0, -1.0]))
 
+
+def test_instanced_alpha_mask_texture():
+    """MASK alpha with a texture through the encoded-id resample loop
+    (tests/test_instancing.py:187-228).  The port leaves out the JAX fold's
+    MASK prefilter; the alpha loop gives the same image."""
+    s, cam = alpha_instanced_scene()
     tf = s.upload("cpu", instancing=False)
     ti = s.upload("cpu", instancing=True)
     assert ti.has_alpha and ti.has_textures and ti.inst is not None
-    cam = Camera(position=np.array([0.0, 0.0, 3.0]), direction=np.array([0.0, 0.0, -1.0]))
     a, _ = render_image(tf, cam, 32, 32, spp=2, max_depth=3, tonemap=False)
     b, _ = render_image(ti, cam, 32, 32, spp=2, max_depth=3, tonemap=False)
     assert a.mean() > 1e-4
     assert _rmse(a, b) < RMSE_BAR
+
+
+def host_instances(g):
+    """``instanced._instances`` with the transforms and ids as Python numbers,
+    read from the device once per group: the path before they were read on
+    the device."""
+    return zip(g.inv.tolist(), g.inst_id.tolist(), g.aabb_min.unbind(0), g.aabb_max.unbind(0))
+
+
+def instanced_calls(tables, n=1024, seed=11):
+    """``instanced_closest`` and ``instanced_shadow`` on :func:`_shell_rays`
+    with per-lane bounds and dead lanes: their five outputs."""
+    o, d, t_min, t_sh, act = _shell_rays(n, seed)
+    ov, dv = (V3(*(torch.as_tensor(a[:, k].copy()) for k in range(3))) for a in (o, d))
+    active = torch.as_tensor(act)
+    c = tinst.instanced_closest(tables, ov, dv, t_min=torch.as_tensor(t_min), t_max=1e32,
+                                active=active)
+    return (*c, tinst.instanced_shadow(tables, ov, dv, t_max=torch.as_tensor(t_sh),
+                                       active=active))
+
+
+@pytest.mark.parametrize("kind", ["dense", "blas", "treelets"])
+def test_instance_transforms_on_the_device_bit_equal_to_host_floats(kind, monkeypatch):
+    """Each instance step reads its 12 transform values and its id as 0-d
+    tensors on the tables' device (so a captured step replays with moved
+    instances); float32 products either way, so the hits are those of the
+    Python-number path bit for bit: ids, t, (u, v) and occlusion flags."""
+    if kind != "dense":
+        monkeypatch.setattr(tdense, "DENSE_MAX_TRIS", 50)
+    tables = instanced_scene(tsg, n_soup_instances=4).upload("cpu", instancing=True)
+    if kind == "treelets":
+        from vulkan_raytracer_tpu_torch.ops import traverse as ttr
+
+        soup = tables.inst.groups[0]
+        soup = dataclasses.replace(soup, pblas=ttr.build_streams(soup.blas, max_tris=32))
+        tables = dataclasses.replace(tables, inst=dataclasses.replace(
+            tables.inst, groups=(soup, *tables.inst.groups[1:])))
+    assert all((g.pblas is None) == (kind == "dense" or g.tri_cnt <= 50)
+               for g in tables.inst.groups)
+    got = instanced_calls(tables)
+    monkeypatch.setattr(tinst, "_instances", host_instances)
+    want = instanced_calls(tables)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert (got[1] >= 0).sum() > 100 and got[4].any()
 
 
 # ---------------------------------------------------------------------------

@@ -177,6 +177,25 @@ def test_gallery_is_instanced_by_auto_and_has_both_kinds_of_group():
     assert pos[1] > 0 and direction[2] < 0
 
 
+def test_alpha_gallery_is_instanced_and_rejects_alpha_candidates():
+    """The smoke's instanced alpha scene: shared MASK and BLEND quads, a
+    backdrop and a light, uploaded instanced; from its camera the resample
+    loop rejects candidates (more passes than calls) and the frame is lit."""
+    from vulkan_raytracer_tpu_torch.render import integrator
+    from vulkan_raytracer_tpu_torch.render.renderer import render_image
+    from vulkan_raytracer_tpu_torch.scene.camera import Camera
+
+    tables = cs.alpha_gallery_scene().upload("cpu", instancing=True)
+    assert tables.has_alpha and tables.has_blend and tables.has_textures
+    assert tables.inst.num_instances == 22 and len(tables.inst.groups) == 4
+    integrator.reset_alpha_loop()
+    cam = Camera(position=np.array(cs.TEXTURED_CAM[0]), direction=np.array(cs.TEXTURED_CAM[1]))
+    img, _ = render_image(tables, cam, 16, 16, 2, max_depth=3, tonemap=False)
+    assert np.isfinite(img).all() and img.mean() > 1e-3
+    loop = integrator.ALPHA_LOOP
+    assert loop["iterations"] > loop["calls"] > 0 and loop["max"] >= 2
+
+
 def test_smi_samples_and_busy_window():
     """The fleet phase's utilization samples: nvidia-smi's lines parsed to
     wall-clock seconds, a cut line skipped, the mean taken in a window."""

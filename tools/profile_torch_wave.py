@@ -34,11 +34,15 @@ scene, with the repack patched off too (``unsorted``):
    allocator (the captures' count, seconds and pool bytes are reported);
 2. ``--reps`` times each side unprofiled, in turns (graphs, eager, unsorted,
    unsorted, eager, graphs, ...): the wall of each, CUDA-synchronised, and
-   the radiance, which must be bit-equal between the sides, with equal rays
-   and equal launches per kernel;
+   the radiance, which must be bit-equal between the sides, with equal rays,
+   equal launches per kernel and, on an alpha scene (gltf, textured: each
+   bounce's resample loops replayed pass by pass on the graphs side), equal
+   alpha-loop passes;
 3. each side once with ``torch.cuda.set_sync_debug_mode("warn")``: the
    host synchronisations of the wave, the harness's two included (the
-   closing ``torch.cuda.synchronize`` and the read of the ray count);
+   closing ``torch.cuda.synchronize`` and the read of the ray count), and
+   the peak of allocated device memory over that run (a replay's
+   temporaries lie in the graphs' pool, reserved once: ``pool_bytes``);
 4. each eager side once recorded: the width and live lanes of each bounce,
    and the live lanes and live 128-lane blocks of each K4'/K5' launch
    (counting them synchronises, so this run is eager and not timed; the
@@ -48,7 +52,8 @@ scene, with the repack patched off too (``unsorted``):
    span they cover), the aten ops the host issued, the hand-written
    kernels' launches and device time, each walk launch's device µs in
    issue order (beside step 4's live lanes of the same launch), the
-   sorts' device time, and the alpha loop's iterations.  Each hand-written
+   sorts' device time, and the alpha loop's passes (in all, per call, the
+   most in one call).  Each hand-written
    kernel's launches in the trace must equal the launch counters over the
    same run: on the graphs side this is what shows that the replays launch
    what their captures counted.
@@ -357,6 +362,15 @@ def _reset() -> None:
     traverse.reset_launches()
     instanced.reset_stats()
     integrator.reset_bounce_widths()
+    integrator.reset_alpha_loop()
+
+
+def _alpha_loop() -> dict:
+    from vulkan_raytracer_tpu_torch.render import integrator
+
+    loop = dict(integrator.ALPHA_LOOP)
+    loop["passes_per_call"] = loop["iterations"] / loop["calls"] if loop["calls"] else 0.0
+    return loop
 
 
 def main(argv=None) -> int:
@@ -393,16 +407,17 @@ def main(argv=None) -> int:
     if not rule(tables):
         del sides["unsorted"]
     walls = {name: [] for name in sides}
-    radiance, rays, launches = {}, {}, {}
+    radiance, rays, launches, loops = {}, {}, {}, {}
     try:
         graphs.reset_stats()
         for name, (g, r) in sides.items():  # warm up: kernels build, graphs capture
             graphs._graphs_preferred, integrator._repack_preferred = g, r
             _reset()
             radiance[name], rays[name] = _timed(run)[1:]
-            launches[name] = _launches()
+            launches[name], loops[name] = _launches(), _alpha_loop()
         captures = {**graphs.STATS, "graphs": len(graphs.cache(tables).graphs),
                     "pool_bytes": graphs.cache(tables).pool_bytes(),
+                    "mirror_bytes": graphs.cache(tables).mirror_bytes(),
                     "graphs_preferred": preferred(tables)}
         for r in range(args.reps):
             for name in list(sides)[::1 if r % 2 == 0 else -1]:
@@ -411,14 +426,16 @@ def main(argv=None) -> int:
                 secs, got, got_rays = _timed(run)
                 walls[name].append(secs)
                 if not (torch.equal(got, radiance["graphs"]) and got_rays == rays["graphs"]
-                        and _launches() == launches["graphs"]):
+                        and _launches() == launches["graphs"]
+                        and _alpha_loop() == loops["graphs"]):
                     raise AssertionError(f"the {name} wave differs from the graphs one")
         out_sides = {}
         for name, (g, r) in sides.items():
             graphs._graphs_preferred, integrator._repack_preferred = g, r
+            torch.cuda.reset_peak_memory_stats()
             syncs, sync_lines = count_syncs(run)
+            peak = torch.cuda.max_memory_allocated()
             record = record_bounces(run) if name != "graphs" else {}
-            integrator.reset_alpha_loop()
             _reset()
             with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                     torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -427,7 +444,8 @@ def main(argv=None) -> int:
             check_traced_launches(trace, _launches(), f"{args.config} {name}")
             out_sides[name] = {**_side(walls[name], prof_s, trace, record),
                                "host_syncs": syncs, "host_sync_lines": sync_lines,
-                               "alpha_loop": dict(integrator.ALPHA_LOOP)}
+                               "peak_allocated_bytes": peak,
+                               "alpha_loop": _alpha_loop()}
     finally:
         graphs._graphs_preferred, integrator._repack_preferred = preferred, rule
     out = {

@@ -59,7 +59,6 @@ bounce can be captured as a CUDA graph (``render/graphs.py``).
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import torch
 
@@ -97,12 +96,6 @@ class InstanceGroup:
     table: torch.Tensor | None
     tri_off: int
     tri_cnt: int
-
-    @functools.cached_property
-    def host(self):
-        """The group's transforms and instance ids as Python numbers (one
-        copy from the device per group): (rows of 12 floats, ids)."""
-        return self.inv.cpu().tolist(), self.inst_id.cpu().tolist()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,6 +160,17 @@ def _apply_linear(m, v: V3) -> V3:
     )
 
 
+def _instances(g: InstanceGroup):
+    """Each instance of the group, in order: its 12 world->object values, its
+    global id and its world box, as views of the group's tensors where they
+    lie (0-d for the values and the id).  A captured step reads them there,
+    so tables whose instances moved replay it (``render/graphs.py``); the
+    products with the rays are float32 as they would be with the values on
+    the host."""
+    return zip((row.unbind(0) for row in g.inv.unbind(0)), g.inst_id.unbind(0),
+               g.aabb_min.unbind(0), g.aabb_max.unbind(0))
+
+
 def ray_aabb(o, inv_d, bmin, bmax, t_min, t_max):
     """Slab test of (N, 3) rays against one box: does [t_min, t_max] meet
     the box interval?  (``ray_aabb``, vulkan_raytracer_tpu/ops/intersect.py:31)"""
@@ -197,11 +201,9 @@ def instanced_closest(tables, o: V3, d: V3, *, t_min, t_max, active):
     enc = torch.full((n,), -1, dtype=torch.int32, device=dev)
 
     for g in inst.groups:
-        rows, ids = g.host
-        for i, (m, iid) in enumerate(zip(rows, ids)):
+        for m, iid, bmin, bmax in _instances(g):
             # a dead lane's bound 0 would pass the box where its origin lies inside
-            touches = active & ray_aabb(o_arr, inv_d, g.aabb_min[i], g.aabb_max[i], 0.0,
-                                        t_best)
+            touches = active & ray_aabb(o_arr, inv_d, bmin, bmax, 0.0, t_best)
             STATS["steps"] += 1
             rays = ray_columns(_apply_affine(m, o), _apply_linear(m, d))
             if g.pblas is None:
@@ -254,10 +256,8 @@ def instanced_shadow(tables, o: V3, d: V3, *, t_max, active):
     STATS["shadow_calls"] += 1
 
     for g in inst.groups:
-        rows, _ = g.host
-        for i, m in enumerate(rows):
-            touches = (active & ~occ) & ray_aabb(o_arr, inv_d, g.aabb_min[i], g.aabb_max[i],
-                                                  0.0, t_bound)
+        for m, _, bmin, bmax in _instances(g):
+            touches = (active & ~occ) & ray_aabb(o_arr, inv_d, bmin, bmax, 0.0, t_bound)
             STATS["steps"] += 1
             rays = ray_columns(_apply_affine(m, o), _apply_linear(m, d))
             if g.pblas is None:

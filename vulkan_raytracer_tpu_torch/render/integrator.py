@@ -133,7 +133,38 @@ def _alpha_test(tables, tri, u, v, seed, cand):
     return cand & ~ignore, seed
 
 
-def _closest(tables, o: V3, d: V3, *, t_min, t_max, active, seed):
+def _count_alpha_loop(passes: int) -> None:
+    ALPHA_LOOP["calls"] += 1
+    ALPHA_LOOP["iterations"] += passes
+    ALPHA_LOOP["max"] = max(ALPHA_LOOP["max"], passes)
+
+
+def _alpha_pass(tables, o: V3, d: V3, t_max, st: dict) -> dict:
+    """One pass of the resample loop over its state ``st`` (``t_lo``,
+    ``pending``, the accepted ``t``, ``tri``, ``u``, ``v`` and ``seed``):
+    trace the nearest candidate above each pending lane's ``t_lo`` and test
+    it.  Returns the next state."""
+    pending = st["pending"]
+    t_c, tri_c, u_c, v_c = _closest_opaque(tables, o, d, t_min=st["t_lo"], t_max=t_max,
+                                           active=pending)
+    found = pending & (tri_c >= 0)
+    keep, seed_t = _alpha_test(tables, tri_c, u_c, v_c, st["seed"], found)
+    # accepted hits commit; a rejected candidate moves the lane's lower
+    # bound strictly past it (ignoreIntersectionEXT)
+    t_safe = torch.where(torch.isfinite(t_c), t_c, 0.0)
+    rejected = found & ~keep
+    return dict(
+        t_lo=torch.where(rejected, t_safe * (1.0 + 4e-7) + 1e-30, st["t_lo"]),
+        pending=rejected,
+        t=torch.where(keep, t_c, st["t"]),
+        tri=torch.where(keep, tri_c, st["tri"]),
+        u=torch.where(keep, u_c, st["u"]),
+        v=torch.where(keep, v_c, st["v"]),
+        seed=torch.where(pending, seed_t, st["seed"]),
+    )
+
+
+def _closest(tables, o: V3, d: V3, *, t_min, t_max, active, seed, lanes=None):
     """traceRayEXT closest hit with any-hit alpha (hit.rahit;
     integrator.py:165-217).  Returns ((t, tri, u, v), seed).
 
@@ -141,47 +172,45 @@ def _closest(tables, o: V3, d: V3, *, t_min, t_max, active, seed):
     accept/reject loop: trace the nearest candidate above each lane's
     ``t_lo``, test it, and move ``t_lo`` of a rejected lane strictly past its
     candidate (t * (1 + 4e-7) + 1e-30 in float32); repeat while a lane is
-    pending.  Candidates are thus tested in t order.  Each pass is one
-    closest-hit launch and one host sync, counted in :data:`ALPHA_LOOP`.
+    pending (:func:`_alpha_pass`).  Candidates are thus tested in t order.
+    Each pass is one closest-hit launch, counted in :data:`ALPHA_LOOP`.
+
+    Eagerly the host reads whether a lane is pending before each pass.  In a
+    step being captured the loop becomes a captured pass that a replay
+    repeats while its count of pending lanes is not 0 (:mod:`.graphs`);
+    ``lanes`` says what ``active`` is there: ``"live"``, the wave's live
+    lanes, of which the bounce loop found one at least (the first pass needs
+    no read), or ``"next"``, the next state's live lanes (the first count is
+    the bounce loop's next live count).
     """
     if not tables.has_alpha:
         return _closest_opaque(tables, o, d, t_min=t_min, t_max=t_max, active=active), seed
     n = o.x.shape[0]
     dev = o.x.device
-    t_lo = torch.broadcast_to(torch.as_tensor(t_min, dtype=_F32, device=dev), (n,))
-    pending = active
-    t = torch.full((n,), torch.inf, dtype=_F32, device=dev)
-    tri = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    u = torch.zeros(n, dtype=_F32, device=dev)
-    v = torch.zeros(n, dtype=_F32, device=dev)
-    iterations = 0
-    while bool(pending.any()):
-        iterations += 1
-        t_c, tri_c, u_c, v_c = _closest_opaque(tables, o, d, t_min=t_lo, t_max=t_max,
-                                               active=pending)
-        found = pending & (tri_c >= 0)
-        keep, seed_t = _alpha_test(tables, tri_c, u_c, v_c, seed, found)
-        seed = torch.where(pending, seed_t, seed)
-        # accepted hits commit; a rejected candidate moves the lane's lower
-        # bound strictly past it (ignoreIntersectionEXT)
-        t_safe = torch.where(torch.isfinite(t_c), t_c, 0.0)
-        rejected = found & ~keep
-        t_lo = torch.where(rejected, t_safe * (1.0 + 4e-7) + 1e-30, t_lo)
-        pending = rejected
-        t = torch.where(keep, t_c, t)
-        tri = torch.where(keep, tri_c, tri)
-        u = torch.where(keep, u_c, u)
-        v = torch.where(keep, v_c, v)
-    ALPHA_LOOP["calls"] += 1
-    ALPHA_LOOP["iterations"] += iterations
-    ALPHA_LOOP["max"] = max(ALPHA_LOOP["max"], iterations)
-    return (t, tri, u, v), seed
+    st = dict(t_lo=dense._lanes(t_min, n, dev), pending=active,
+              t=torch.full((n,), torch.inf, dtype=_F32, device=dev),
+              tri=torch.full((n,), -1, dtype=torch.int32, device=dev),
+              u=torch.zeros(n, dtype=_F32, device=dev), v=torch.zeros(n, dtype=_F32, device=dev),
+              seed=seed)
+    body = functools.partial(_alpha_pass, tables, o, d, t_max)
+    cap = graphs.current_capture()
+    if cap is not None:
+        st = cap.loop(body, st, first=lanes == "live", live=lanes == "next",
+                      done=_count_alpha_loop)
+    else:
+        passes = 0
+        while bool(st["pending"].any()):
+            st = body(st)
+            passes += 1
+        _count_alpha_loop(passes)
+    return (st["t"], st["tri"], st["u"], st["v"]), st["seed"]
 
 
-def _shadow_unsorted(tables, o: V3, d: V3, *, t_max, active, seed):
+def _shadow_unsorted(tables, o: V3, d: V3, *, t_max, active, seed, lanes=None):
     """Occlusion with tMin = 0 (shadow.rahit; integrator.py:270-288).
     Returns (occluded, seed).  On alpha scenes the nearest *accepted* hit
-    within t_max occludes: the query runs the :func:`_closest` loop."""
+    within t_max occludes: the query runs the :func:`_closest` loop (with
+    ``lanes``)."""
     if not tables.has_alpha:
         if tables.inst is not None:
             return instanced_shadow(tables, o, d, t_max=t_max, active=active), seed
@@ -189,21 +218,23 @@ def _shadow_unsorted(tables, o: V3, d: V3, *, t_max, active, seed):
             return bvh_shadow(tables, o, d, t_max=t_max, active=active), seed
         return dense_shadow(tables, o, d, t_max=t_max, active=active), seed
     (_, tri, _, _), seed = _closest(tables, o, d, t_min=0.0, t_max=t_max, active=active,
-                                    seed=seed)
+                                    seed=seed, lanes=lanes)
     return (tri >= 0) & active, seed
 
 
-def _shadow(tables, o: V3, d: V3, *, t_max, active, seed):
+def _shadow(tables, o: V3, d: V3, *, t_max, active, seed, lanes=None):
     """Occlusion query (integrator.py:234-267).  On a repacked scene the
     rays are sorted by their own :func:`_coherence_key` first (NEE rays
     point at the lights, not along the material rays the wave is sorted
     for), and the flags and seeds are scattered back: BLEND alpha draws
     random numbers inside the query, so a seed travels with its lane."""
     if not _repack_preferred(tables):
-        return _shadow_unsorted(tables, o, d, t_max=t_max, active=active, seed=seed)
+        return _shadow_unsorted(tables, o, d, t_max=t_max, active=active, seed=seed,
+                                lanes=lanes)
     perm = torch.argsort(_coherence_key(tables, o, d, ~active), stable=True)
     occ_p, seed_p = _shadow_unsorted(tables, v3_gather(o, perm), v3_gather(d, perm),
-                                     t_max=t_max[perm], active=active[perm], seed=seed[perm])
+                                     t_max=t_max[perm], active=active[perm], seed=seed[perm],
+                                     lanes=lanes)
     occ = torch.empty_like(occ_p).index_copy_(0, perm, occ_p)
     return occ, torch.empty_like(seed).index_copy_(0, perm, seed_p)
 
@@ -596,12 +627,14 @@ def _sample_emissive(tables, hit, seed, mask):
     return radiance, light_dir, t_max, seed
 
 
-def sample_lights(tables, hit, wavelength, view_world: V3, seed, mask):
+def sample_lights(tables, hit, wavelength, view_world: V3, seed, mask, lanes=None):
     """Port of sampleLights (lightsample.glsl:143-173; integrator.py:803-892).
 
     Strategy pick between analytic and emissive NEE, BSDF x cos / pdf with
     balance-heuristic MIS for area lights (delta lights exempt).
     Returns (contribution V3, seed, rays_traced (0-d int64 tensor)).
+    ``lanes="next"``: ``mask`` is the next state's live lanes (the bounce's
+    call), which an occlusion loop traces unpruned (:func:`_closest`).
     """
     has_analytic = tables.num_point + tables.num_directional > 0
     has_emissive = tables.num_emissive_tris > 0
@@ -655,7 +688,7 @@ def sample_lights(tables, hit, wavelength, view_world: V3, seed, mask):
     # ONE occlusion launch for both branches (lightsample.glsl:45, :131)
     ray_o = _offset_origin(hit, light_dir)
     occluded, seed = _shadow(tables, ray_o, light_dir, t_max=t_max, active=trace_mask,
-                             seed=seed)
+                             seed=seed, lanes=lanes if trace_mask is mask else None)
     radiance = radiance.where(~occluded & trace_mask, 0.0)
     if has_emissive:
         # pdf probe over all emissive surfaces along the verified ray
@@ -683,16 +716,17 @@ def _bounce(tables, s: dict, b: int, max_depth: int, nee_weighting: str):
     """One bounce of every lane of the wave state ``s`` (integrator.py:961-1046):
     returns the next state and the rays traced (material + NEE + terminal
     emissive probes), a 0-d tensor.  A dead lane's fields come out as they
-    went in.  On an alpha-free scene nothing here reads the device on the
-    host, so the bounce can be captured (:mod:`.graphs`)."""
+    went in.  Nothing here reads the device on the host but the resample
+    loops of an alpha scene (:func:`_closest`), which a capture splits the
+    bounce at, so the bounce can be captured (:mod:`.graphs`)."""
     n = s["active"].shape[0]
     BOUNCE_WIDTHS[n] = BOUNCE_WIDTHS.get(n, 0) + 1
     active, origin, direction = s["active"], s["origin"], s["direction"]
     throughput, mat_pdf, wavelength = s["throughput"], s["mat_pdf"], s["wavelength"]
 
     (t, tri, u, v), seed = _closest(
-        tables, origin, direction, t_min=EPS, t_max=INF, active=active, seed=s["seed"]
-    )
+        tables, origin, direction, t_min=EPS, t_max=INF, active=active, seed=s["seed"],
+        lanes="live")
     hit = eval_hit(tables, origin, direction, t, tri, u, v)
 
     miss = tri < 0
@@ -725,7 +759,8 @@ def _bounce(tables, s: dict, b: int, max_depth: int, nee_weighting: str):
     new_origin = hit.pos + hit.normal * off
 
     # NEE for surviving lanes, before the next trace (raygen.rgen:54-56)
-    light, seed, nee_rays = sample_lights(tables, hit, wavelength, view, seed, alive)
+    light, seed, nee_rays = sample_lights(tables, hit, wavelength, view, seed, alive,
+                                          lanes="next")
     nee_throughput = throughput_next if nee_weighting == "reference" else throughput
     value = value + (nee_throughput * light).where(alive, 0.0)
 
@@ -736,8 +771,8 @@ def _bounce(tables, s: dict, b: int, max_depth: int, nee_weighting: str):
 
 
 #: The Python-side counters a bounce advances; a graph's replay adds what its
-#: capture counted to each.
-_COUNTERS = (dense.LAUNCHES, traverse.LAUNCHES, instanced.STATS, BOUNCE_WIDTHS)
+#: capture counted to each (:data:`ALPHA_LOOP` is counted per replayed loop).
+_COUNTERS = (dense.LAUNCHES, traverse.LAUNCHES, instanced.STATS, BOUNCE_WIDTHS, ALPHA_LOOP)
 
 
 def _step(tables, s: dict, b: int, max_depth: int, nee_weighting: str, sort_first: bool):
@@ -749,13 +784,15 @@ def _step(tables, s: dict, b: int, max_depth: int, nee_weighting: str, sort_firs
 
 
 def _run_step(tables, s: dict, b: int, max_depth: int, nee_weighting: str, sort_first: bool):
-    """:func:`_step`, replayed from its captured graph where
-    :func:`graphs._graphs_preferred` picks graphs, else run eagerly."""
+    """:func:`_step`, replayed from its captured graphs where
+    :func:`graphs._graphs_preferred` picks graphs, else run eagerly.
+    Returns (next state, rays, the next state's live lanes where a replay
+    counted them, else None)."""
     if not graphs._graphs_preferred(tables):
-        return _step(tables, s, b, max_depth, nee_weighting, sort_first)
+        return (*_step(tables, s, b, max_depth, nee_weighting, sort_first), None)
     key = (b, max_depth, nee_weighting, sort_first, _repack_preferred(tables))
     return graphs.cache(tables).run(
-        key, lambda st: _step(tables, st, b, max_depth, nee_weighting, sort_first), s,
+        tables, key, lambda t, st: _step(t, st, b, max_depth, nee_weighting, sort_first), s,
         _COUNTERS)
 
 
@@ -812,19 +849,21 @@ def render_sample(tables, view_inv, proj_inv, width, height, sample_count, max_d
         s["slot"] = torch.arange(n, device=dev) if slot is None else slot
     rays = torch.zeros((), dtype=torch.int64, device=dev)
 
-    def run_phase(b, s, live_floor, sorted_=False):
+    def run_phase(b, s, live_floor, live, sorted_=False):
         """Bounce while bounces remain and more than ``live_floor`` lanes are
         alive (integrator.py:1051-1069): the loop ends early once every lane
-        terminated, the wavefront analogue of the per-thread `break`.
-        Returns (next bounce, state, live lanes at the last test)."""
+        terminated, the wavefront analogue of the per-thread `break`.  The
+        live count is read on the host unless known (``live``: the start,
+        a step's replay).  Returns (next bounce, state, live lanes at the
+        last test)."""
         nonlocal rays
-        live = 0
         while b <= max_depth:
-            live = int(s["active"].sum())
+            if live is None:
+                live = int(s["active"].sum())
             if live <= live_floor:
                 break
-            s, r = _run_step(tables, s, b, max_depth, nee_weighting,
-                             repack and b > 0 and not sorted_)
+            s, r, live = _run_step(tables, s, b, max_depth, nee_weighting,
+                                   repack and b > 0 and not sorted_)
             sorted_ = False
             rays = rays + r
             b += 1
@@ -834,14 +873,14 @@ def render_sample(tables, view_inv, proj_inv, width, height, sample_count, max_d
     # last, so once at most n/2 (then n/4) lanes live they are a prefix;
     # the tail is dead, its state final, and rejoins after the loop
     ladder = repack and n % 4 == 0
-    b, s, live = run_phase(0, s, n // 2 if ladder else 0)
+    b, s, live = run_phase(0, s, n // 2 if ladder else 0, n)  # every lane starts alive
     tails = []
     for width, live_floor in ((n // 2, n // 4), (n // 4, 0)) if ladder else ():
         if b > max_depth or live == 0:
             break
-        s, tail = _split(_sort_wavefront(tables, s), width)
+        s, tail = _split(_sort_wavefront(tables, s), width)  # the live lanes, all of them
         tails.append(tail)
-        b, s, live = run_phase(b, s, live_floor, sorted_=True)
+        b, s, live = run_phase(b, s, live_floor, live, sorted_=True)
     for tail in reversed(tails):
         s = _join(s, tail)
 
