@@ -13,21 +13,27 @@ follows it in the same process (``tools/bench_torch_process_state.py``,
 PERF.md §7), so no render phase runs after one but those that compare
 sides of one wave in turns.
 
-On the card every render replays each bounce from captured CUDA graphs
-(``render/graphs.py``): one a bounce without alpha; with alpha (the two glTF
-containers, the forced-BVH and the instanced alpha uploads) a segment up to
-each resample loop, the loop's pass replayed while a lane is pending, and a
-last segment.  A render phase's line says how its bounces ran since its
-counters were reset (``bounces``: "graphs", "eager", or both where the CPU
-renders the same frame); phases that record what a bounce calls run
-eagerly.
+On the card every wave is one captured program launched once
+(``render/graphs.py``): its straight code as CUDA graphs, its bounce loop,
+the width ladder's phases and (with alpha: the two glTF containers, the
+forced-BVH and the instanced alpha uploads) each resample loop as a
+conditional WHILE node whose condition ``loop_cond_kernel``
+(``csrc/graph_loops.cu``) sets on the card, its re-sorts as IF nodes; the
+host reads nothing inside a wave, and a frame's one read of its ray count
+(``graphs.settle``) brings the loops' counts in.  A render phase's line says
+how its bounces ran since its counters were reset (``bounces``: "graphs",
+"eager", or both where the CPU renders the same frame); phases that record
+what a bounce calls run eagerly.
 
 1. device   — CUDA must be available (no CPU fallback); the card's name and
    power limit from nvidia-smi.
 2. build    — compile the CUDA kernels from ``vulkan_raytracer_tpu_torch/csrc``
    (one nvcc per source, started together) and the native BVH builder; each
    kernel variant's registers, stack frame and spills from ptxas.  Every
-   kernel variant must use no stack and spill nothing.
+   kernel variant must use no stack and spill nothing.  The CUDA driver's
+   and runtime's versions (conditional nodes nest from 12.4 on), and
+   torch's ``CUDAGraph(keep_graph=True).raw_cuda_graph``, which the device
+   loops need.
 3. kernels  — each dense kernel against its plain PyTorch version on the
    card, over the Cornell box and over a 1,000-triangle soup (several
    shared-memory chunks), at bench cfg1's wave of 524,288 rays and at a
@@ -100,7 +106,7 @@ eagerly.
    accessor) through ``Scene.load_model``: 12 triangles, 6 textures (none
    1x1, the JPEG one 8x8), alpha and textures flagged; then the CLI's
    headless path on ``cuda`` at 512x512, depth 4, 16 spp, camera 0,0,2.8 ->
-   0,0,-1.  It must launch K1 and K3, replay every bounce from graphs and
+   0,0,-1.  It must launch K1 and K3, run every bounce in a program and
    give a finite, lit image; seconds, Mrays/s and the alpha loop's
    iterations per ``_closest`` call.
 12. gltf_bvh — the gallery-class .glb of tests/test_bigasset_glb.py (147,136
@@ -200,34 +206,48 @@ eagerly.
    128-lane blocks of each K5' launch, and each side's wall, device time
    and K5' device time from ``torch.profiler``.
 
-26. graphs  — eight configs with their bounces replayed from graphs and
-   eagerly (``graphs._graphs_preferred`` patched off), each side warmed up
-   once (the graphs capture there), then in turns (graphs, eager, eager,
-   graphs): bench cfg1's whole frame, cfg2's frame, cfg5's first band, the
-   emitter soup, the gallery, the progressive ``Renderer`` (preview + 16
-   frames), and with alpha the glTF 147k frame (phase 12's) and the
-   textured glb frame (phase 11's).  Images bit-equal, equal rays,
-   launches per kernel and alpha-loop passes; per side the wall per frame
-   and per wave and the host synchronisations per wave
-   (``torch.cuda.set_sync_debug_mode("warn")``), at most max_depth + 1 +
-   the wave's alpha-loop passes + ``SYNCS_PER_WAVE`` on the graphs side;
-   the programs kept, their capture seconds, their pool's bytes and the
-   mirror's.
+26. graphs  — ten configs three ways: through the device loops (the
+   package), the host-read replay of the same programs
+   (``graphs._device_loops_preferred`` patched off: each condition read on
+   the host) and eagerly (``graphs._graphs_preferred`` patched off), each
+   side warmed up once (the programs capture there), then in turns
+   (device, replay, eager, eager, replay, device): bench cfg1's whole frame,
+   cfg2's frame, cfg5's first band, the emitter soup, the gallery, the
+   progressive ``Renderer`` (preview + 16 frames), and with alpha the glTF
+   147k frame (phase 12's), the textured glb frame (phase 11's), the
+   forced-BVH textured glb and ``alpha_gallery_scene()`` at 128x128.
+   Images bit-equal, equal rays, launches per kernel, bounce widths and
+   alpha-loop calls, passes and most passes a call; per side the wall per
+   frame and per wave and the host synchronisations
+   (``torch.cuda.set_sync_debug_mode("warn")``), in all and while a program
+   launches: none inside a wave on the device side; the programs kept (one
+   a wave shape),
+   their capture seconds, their pool's bytes and the mirror's, and
+   ``loop_cond_kernel``'s launches.
 27. graphs_busy — after the profiled timings: one wave each of cfg1, the
    gallery, the emitter soup, phase 9's forced-BVH dragon and the glTF 147k
-   under ``torch.profiler`` each way, counters reset just before: each
-   hand-written kernel's launches in the trace must equal the counters'.  A
-   replay runs no Python, so its counts are those its capture took; this is
-   where the replays are seen to launch them, every kernel variant over the
-   five waves.  And the device's busy share (the union of its kernels' intervals
-   over the wall) and, on the glTF wave, the alpha loop's passes per call.
+   under ``torch.profiler`` three ways, counters reset just before.  On the
+   host-read replay (each part a graph launched from the host) and eager
+   sides each hand-written kernel's launches in the trace must equal the
+   counters': a replayed part runs no Python, so its counts are those its
+   capture took, and this is where the parts are seen to launch them, every
+   kernel variant over the five waves.  The device side's trace holds
+   fewer: CUPTI misses most reruns of a conditional body's nodes; its
+   traced launches are reported against the counters, each kernel counted
+   must appear, none more often than counted, and its bounces, passes and
+   re-sorts must equal the replay's (the same parts run as often).  The busy share (the union of the
+   kernels' intervals over the wall) from the replay's trace over each
+   side's wall, and the program's own device time (CUDA events around its
+   launch); on the glTF wave the alpha loop's passes per call.
 
 Scenes above 65,536 triangles (cfg2, the glTF 147k, the emitter soup, cfg5,
 the gallery) run the repacked wavefront in every phase that renders them,
 on the card and on the CPU alike; cfg1 and the other dense scenes keep lane
 order, and phase 4 checks that every cfg1 bounce ran at the full width.
 
-Then it prints the kernel summary (one JSON object: each kernel's launches
+Then it times ``loop_cond_kernel`` (a WHILE of 1,000 runs of a one-thread
+add and of two, on the card and as the host-read replay) and prints the
+kernel summary (one JSON object: each kernel's launches
 over the paths driven with reset counters, in all and by phase; its time,
 its plain version's and its bound at the shape named, with what bounds it;
 its ptxas figures; for the walks also their numbers at the glTF wave, for
@@ -248,6 +268,7 @@ phase checks that.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import os
 import statistics
@@ -266,6 +287,7 @@ EPS = 1e-7
 INF = 1e32
 DENSE_SRC = "vulkan_raytracer_tpu_torch/csrc/dense_sweep.cu"
 BVH_SRC = "vulkan_raytracer_tpu_torch/csrc/bvh_walk.cu"
+LOOPS_SRC = "vulkan_raytracer_tpu_torch/csrc/graph_loops.cu"
 # name -> (counter module, counter key, source, TPU kernel it replaces)
 KERNELS = {
     "dense_closest": ("dense", "closest", DENSE_SRC,
@@ -285,6 +307,10 @@ KERNELS = {
     # an XLA while_loop in the JAX package, not a Pallas kernel
     "emissive_walk": ("traverse", "emissive_pdf", BVH_SRC,
                       "vulkan_raytracer_tpu/ops/traverse.py:241"),
+    # the bounce loop's lax.while_loop (and the ladder's and resample loops'),
+    # device-side control flow in the JAX package, not a Pallas kernel
+    "loop_cond_kernel": ("graphs", "loop_cond", LOOPS_SRC,
+                         "vulkan_raytracer_tpu/render/integrator.py:1069"),
 }
 CFG1 = ["-m", "cornell", "-r", "512,512", "-b", "4", "--spp", "64",
         "-c", "0,1,2.4", "-d", "0,0,-1"]
@@ -310,11 +336,6 @@ WALK_TERM_OPS = 39  # the emissive walk's term: the normal over its length (sqrt
 PROFILE_TRIES = 3  # profiled runs of one launch shape before device_ms gives up
 # the BVH streams of the cfg2 dragon and of the 147k glTF must fit half the L2
 STREAM_BYTES_MAX = 25e6
-# host synchronisations a wave may take beyond one live-lane read a bounce
-# and, with alpha, one pending-lane read a resample pass: the copy of the
-# wave's sample numbers (or, for one sample, of the sample count and the
-# preview flag) and the frame's reads of its image and ray count
-SYNCS_PER_WAVE = 6
 
 
 def _cam_flags(cam):
@@ -934,6 +955,21 @@ def time_kernels(tables, n: int, device) -> dict:
     out = {name: time_launch(name, args, shape) for name, args in cfg1_launches(tables, n, device)}
     emit({"phase": "kernel_times", "rays": n, "triangles": tables.tri_table.shape[1], **out})
     return out
+
+
+@contextlib.contextmanager
+def _loops_on_host():
+    """Programs run as the host-read replay inside
+    (``graphs._device_loops_preferred`` patched to False): each part's
+    graph launched from the host, each loop's condition read on the host."""
+    from vulkan_raytracer_tpu_torch.render import graphs
+
+    preferred = graphs._device_loops_preferred
+    graphs._device_loops_preferred = lambda tables: False
+    try:
+        yield
+    finally:
+        graphs._device_loops_preferred = preferred
 
 
 @contextlib.contextmanager
@@ -1708,6 +1744,7 @@ def progressive_phase(device, paths, size: int = 512, spp: int = 16) -> None:
         (img, secs) = _timed_sync(r.draw_frame)
         frames.append(img)
         ms.append(1e3 * secs)
+    traced = r.rays_traced  # the frames' one read of their rays, and of their counts
     launches = _launch_counts()
     if not all(launches["dense"][c] > 0 for c in ("closest", "shadow", "pdf")):
         raise AssertionError(f"the progressive frames missed a kernel: launches {launches}")
@@ -1716,7 +1753,7 @@ def progressive_phase(device, paths, size: int = 512, spp: int = 16) -> None:
     want, rays, _ = _render(tables, CFG1_CAM, w, h, spp=spp, depth=depth)
     err = float(np.abs(mean - want).max())
     if not (err <= 1e-5 and frames[-1].dtype == np.uint8 and frames[-1].shape == (h, w, 3)
-            and frames[0].max() > 0 and r.rays_traced > rays):
+            and frames[0].max() > 0 and traced > rays):
         raise AssertionError(f"{spp} progressive frames differ from render_image by {err}")
 
     piped = Renderer(tables, cam(), w, h, depth)
@@ -1737,7 +1774,7 @@ def progressive_phase(device, paths, size: int = 512, spp: int = 16) -> None:
     emit({"phase": "progressive", "bounces": _mode(),
           "config": f"cornell {w}x{h} depth {depth}: preview + {spp} frames",
           "frame_ms_median": statistics.median(ms[1:]), "frame_ms_min": min(ms[1:]),
-          "frame_ms_max": max(ms[1:]), "preview_ms": ms[0], "rays": r.rays_traced,
+          "frame_ms_max": max(ms[1:]), "preview_ms": ms[0], "rays": traced,
           "max_abs_err_vs_render_image": err, "pipeline_equal": True,
           "cli_progressive": {"frames": prog["frames"], "seconds": prog["seconds"],
                               "frame_ms_median": statistics.median(prog["frame_ms"][1:]),
@@ -1936,7 +1973,7 @@ def run_fleet(world: int) -> dict:
         if codes != [0] * world:
             raise AssertionError(f"the ranks of a fleet of {world} exited with {codes}")
         ranks = [dict(np.load(Path(out_dir) / f"rank{r}.npz")) for r in range(world)]
-    launches = {"dense": {}, "traverse": {}}
+    launches = {"dense": {}, "traverse": {}, "graphs": {}}
     for r in ranks:
         r["launches"] = json.loads(str(r["launches"]))
         for mod in launches:
@@ -2088,23 +2125,27 @@ def repack_phase(paths, waves) -> None:
 
 
 def graphs_phase(cornell, dragon, bigasset, out_dir: Path):
-    """Phase 26: eight configs rendered with their bounces replayed from
-    captured CUDA graphs (the package's rule) and eagerly (:func:`_eager`):
-    each side once to warm up (the graphs capture there), then in turns
-    (graphs, eager, eager, graphs): images bit-equal, rays, each kernel's
-    launches and the alpha loop's passes equal, every bounce of the graphs
-    side replayed and none of the eager side's; per side the wall per frame
-    and per wave and the host synchronisations per wave (one more run each,
-    counted from ``torch.cuda.set_sync_debug_mode("warn")``'s warnings), at
-    most ``depth + 1 + passes + SYNCS_PER_WAVE`` on the graphs side, where
-    ``passes`` is the wave's alpha-loop passes (0 without alpha); once the
-    graphs captured, their seconds, the pool's bytes and the mirror's.
-    Returns the gallery's and the emitter soup's tables, for phase 27."""
+    """Phase 26: ten configs rendered through the device loops (the
+    package's rule), the host-read replay of the same programs
+    (:func:`_loops_on_host`) and eagerly (:func:`_eager`): each side once to
+    warm up (the programs capture there), then in turns (device, replay,
+    eager, eager, replay, device): images bit-equal, rays, each kernel's
+    launches, the bounce widths and the alpha loop's counts equal, every
+    bounce of the program sides from a program and none of the eager
+    side's; per side the wall per frame and per wave and the host
+    synchronisations (one more run each, counted from
+    ``torch.cuda.set_sync_debug_mode("warn")``'s warnings): on the device
+    side none while a program launches (``host_syncs_inside_waves``; the
+    copies of sample numbers to the card and the frame's reads are
+    outside the waves); once the programs captured, their count, seconds,
+    the pool's bytes and the mirror's.
+    Returns the gallery's and the emitter soup's tables, for phase 27, and
+    the largest difference between the device and replay sides' images."""
     import torch
-    from profile_torch_wave import count_syncs
+    from profile_torch_wave import LaunchSyncs, count_syncs
 
     from vulkan_raytracer_tpu_torch import bench
-    from vulkan_raytracer_tpu_torch.render import graphs, renderer
+    from vulkan_raytracer_tpu_torch.render import graphs, integrator, renderer
     from vulkan_raytracer_tpu_torch.render.integrator import block_order
     from vulkan_raytracer_tpu_torch.scene.camera import Camera
 
@@ -2128,7 +2169,7 @@ def graphs_phase(cornell, dragon, bigasset, out_dir: Path):
             with torch.inference_mode():
                 acc, rays, _, waves = renderer.render_lanes(tables, vi, pi, w, h, cfg["depth"],
                                                             chunk, 1, lanes, banded=True)
-                return [acc.cpu().numpy()], int(rays), waves
+                return [acc.cpu().numpy()], graphs.settle(rays)[0], waves
         return run
 
     def progressive(tables, w, h, depth, spp):
@@ -2172,33 +2213,50 @@ def graphs_phase(cornell, dragon, bigasset, out_dir: Path):
          frame(alpha_gallery, TEXTURED_CAM, 128, 128, 16, 4)),
     )
     total = {"captured": 0, "capture_s": 0.0}
+    sides = {"device": contextlib.nullcontext, "replay": _loops_on_host, "eager": _eager}
+    replay_err = 0.0
     for config, tables, depth, run in cases:
         if not graphs._graphs_preferred(tables):
             raise AssertionError(f"{config}: not a scene the graphs run")
-        out = {side: {"seconds": []} for side in ("graphs", "eager")}
-        want = None
-        for turn, side in enumerate(("graphs", "eager", "graphs", "eager", "eager", "graphs")):
-            with _eager() if side == "eager" else contextlib.nullcontext():
+        out = {side: {"seconds": []} for side in sides}
+        want, images_by_side = None, {}
+        turns = ("device", "replay", "eager", "device", "replay", "eager", "eager", "replay",
+                 "device")
+        for turn, side in enumerate(turns):
+            with sides[side]():
                 _reset_launches()
                 (images, rays, waves), secs = _timed_sync(run)
-                got = (rays, _launch_counts(), _alpha_loop())
+                got = (rays, _launch_counts(loops=False), dict(integrator.BOUNCE_WIDTHS),
+                       _alpha_loop())
                 replays, bounces = graphs.STATS["replays"], _mode()
+                program = {k: graphs.STATS[k] for k in ("replays", "passes", "sorts")}
+                loop_cond = graphs.LAUNCHES["loop_cond"]
                 total["captured"] += graphs.STATS["captured"]
                 total["capture_s"] += graphs.STATS["capture_s"]
             if want is None:
                 want = (images, got)
+                want_program = program
+            images_by_side[side] = images
+            if side != "eager" and program != want_program:
+                raise AssertionError(f"{config}: the {side} program ran {program}, the first "
+                                     f"device one {want_program}")
             if not (all(np.array_equal(a, b) for a, b in zip(images, want[0]))
                     and got == want[1]):
                 raise AssertionError(f"{config}: the {side} render (turn {turn}) differs from "
-                                     f"the first graphs one: rays and launches {got} against "
-                                     f"{want[1]}")
-            if bounces != side:
+                                     f"the first device one: rays, launches, widths and alpha "
+                                     f"loop {got} against {want[1]}")
+            if bounces != ("eager" if side == "eager" else "graphs"):
                 raise AssertionError(f"{config}: the {side} render's bounces ran {bounces}")
-            if turn >= 2:  # after each side's warm-up
+            if (loop_cond > 0) != (side == "device"):
+                raise AssertionError(f"{config}: the {side} render launched loop_cond_kernel "
+                                     f"{loop_cond} times")
+            if turn >= 3:  # after each side's warm-up
                 out[side]["seconds"].append(secs)
-            out[side].update(waves=waves, replays=replays)
-        for side in out:
-            with _eager() if side == "eager" else contextlib.nullcontext():
+            out[side].update(waves=waves, replays=replays, loop_cond_launches=loop_cond)
+        replay_err = max(replay_err, max(float(np.abs(a - b).max()) for a, b in zip(
+            images_by_side["device"], images_by_side["replay"])))
+        for side in sides:
+            with sides[side](), LaunchSyncs() as inside:
                 _reset_launches()
                 syncs, lines = count_syncs(run)
                 passes = _alpha_loop()["iterations"]
@@ -2206,45 +2264,60 @@ def graphs_phase(cornell, dragon, bigasset, out_dir: Path):
             o.update(seconds_median=statistics.median(o["seconds"]),
                      ms_per_wave=1e3 * statistics.median(o["seconds"]) / o["waves"],
                      host_syncs=syncs, host_syncs_per_wave=syncs / o["waves"],
+                     host_syncs_inside_waves=inside.count,
                      alpha_passes_per_wave=passes / o["waves"], host_sync_lines=lines)
-        bound = depth + 1 + out["graphs"]["alpha_passes_per_wave"] + SYNCS_PER_WAVE
-        if not out["graphs"]["host_syncs_per_wave"] <= bound:
-            raise AssertionError(f"{config}: {out['graphs']['host_syncs_per_wave']} host "
-                                 f"syncs a wave on the graphs side, more than {bound}")
+        if out["device"]["host_syncs_inside_waves"]:
+            raise AssertionError(f"{config}: {out['device']['host_syncs_inside_waves']} host "
+                                 f"syncs inside the device loops' waves: "
+                                 f"{out['device']['host_sync_lines']}")
         cache = graphs.cache(tables)
         emit({"phase": "graphs", "config": config, "bit_equal": True, "rays": want[1][0],
-              "launches": want[1][1], "alpha_loop": want[1][2], "graphs_kept": len(cache.graphs),
-              "pool_bytes": cache.pool_bytes(), "mirror_bytes": cache.mirror_bytes(),
-              "max_depth": depth, "host_syncs_bound_per_wave": bound,
-              "speedup_median": out["eager"]["seconds_median"] / out["graphs"]["seconds_median"],
-              **out})
+              "launches": want[1][1], "bounce_widths": want[1][2], "alpha_loop": want[1][3],
+              "programs_kept": len(cache.graphs), "pool_bytes": cache.pool_bytes(),
+              "mirror_bytes": cache.mirror_bytes(), "max_depth": depth,
+              "program": want_program,
+              "speedup_median": out["eager"]["seconds_median"] / out["device"]["seconds_median"],
+              "replay_over_device": (out["replay"]["seconds_median"]
+                                     / out["device"]["seconds_median"]), **out})
     emit({"phase": "graphs_summary", "configs": len(cases), **total,
+          "programs_kept": {config.split()[0]: len(graphs.cache(tables).graphs)
+                            for config, tables, _, _ in cases},
           "pool_bytes": {config.split()[0]: graphs.cache(tables).pool_bytes()
                          for config, tables, _, _ in cases},
           "mirror_bytes": {config.split()[0]: graphs.cache(tables).mirror_bytes()
                            for config, tables, _, _ in cases},
           "nvidia_smi": nvidia_smi_line()})
-    return gallery, soup
+    return gallery, soup, replay_err
 
 
 def graphs_busy(cornell, gallery, soup, small, bigasset) -> None:
     """Phase 27, after the profiled timings: one wave each of cfg1, the
     gallery, the emitter soup, the forced-BVH dragon of phase 9 and the
-    glTF 147k (``profile_torch_wave``'s first wave of each frame), replayed
-    from graphs and eager, each side warmed up and then once under
-    ``torch.profiler`` with its counters reset: each hand-written kernel's
-    launches in the trace equal the counters' (on the graphs side, what
-    the captures counted, per pass replayed on the glTF wave: the five waves
-    launch every kernel variant), the alpha loop's passes equal, and the
-    device's busy share, the union of the kernels' intervals over the
-    profiled wall."""
+    glTF 147k (``profile_torch_wave``'s first wave of each frame) through
+    the device loops, the host-read replay and eager, each side warmed up
+    and then once under ``torch.profiler`` with its counters reset.  On the
+    replay and eager sides each hand-written kernel's launches in the trace
+    equal the counters' (on the replay side what the parts' captures
+    counted, per pass on the glTF wave: the five waves launch every kernel
+    variant); on the device side, whose trace misses most reruns of a
+    conditional body's nodes, each kernel counted appears and
+    none more often than counted (``check_device_trace``;
+    ``loop_cond_kernel`` against its counter too), and its bounces, passes
+    and re-sorts equal the replay's.  The alpha loop's counts equal on all
+    sides.  The busy share: the union of the kernels' intervals over the
+    profiled wall (for the device side the replay's kernels over the device
+    side's wall), and the program's device time from CUDA events around its
+    launch."""
     import torch
-    from profile_torch_wave import check_traced_launches, first_wave, trace_summary, wave
+    from profile_torch_wave import (ProgramEvents, check_device_trace, check_traced_launches,
+                                    first_wave, trace_summary, wave)
 
+    from vulkan_raytracer_tpu_torch.render import graphs
     from vulkan_raytracer_tpu_torch.scene.camera import Camera
 
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    replayed: dict = {}  # counter -> launches over the graphs sides
+    replayed: dict = {}  # counter -> launches over the replay sides
+    sides = {"device": contextlib.nullcontext, "replay": _loops_on_host, "eager": _eager}
     for label, tables, cam, (w, h, spp, depth) in (
             ("cfg1", cornell, CFG1_CAM, (512, 512, 64, 4)),
             ("gallery", gallery, gallery_camera(), (512, 512, 4, 4)),
@@ -2255,22 +2328,30 @@ def graphs_busy(cornell, gallery, soup, small, bigasset) -> None:
         lanes, samples, _ = first_wave(tables, w, h, spp)
         run = wave(tables, camera, w, h, depth, lanes, samples)
         out = {}
-        for side in ("graphs", "eager"):
-            with _eager() if side == "eager" else contextlib.nullcontext():
+        for side, ctx in sides.items():
+            with ctx():
                 run()
                 _reset_launches()
                 with torch.profiler.profile(activities=activities) as prof:
-                    secs = _timed_sync(run)[1]
+                    with ProgramEvents() as events:
+                        secs = _timed_sync(run)[1]
                 counted, bounces, loop = _launch_counts(), _mode(), _alpha_loop()
-            if bounces != side:
+                program = {k: graphs.STATS[k] for k in ("replays", "passes", "sorts")}
+            if bounces != ("eager" if side == "eager" else "graphs"):
                 raise AssertionError(f"{label}: the {side} wave's bounces ran {bounces}")
-            if side == "eager" and loop != out["graphs"]["alpha_loop"]:
-                raise AssertionError(f"{label}: alpha loop {loop} eagerly, "
-                                     f"{out['graphs']['alpha_loop']} replayed")
+            if side != "device" and loop != out["device"]["alpha_loop"]:
+                raise AssertionError(f"{label}: alpha loop {loop} on the {side} side, "
+                                     f"{out['device']['alpha_loop']} through the device loops")
+            if side == "replay" and program != out["device"]["program"]:
+                raise AssertionError(f"{label}: the replay ran {program}, the device loops "
+                                     f"{out['device']['program']}")
             trace = trace_summary(prof)
-            counted = {**counted["dense"], **counted["traverse"]}
-            traced = check_traced_launches(trace, counted, f"{label} {side}")
-            if side == "graphs":
+            counted = {**counted["dense"], **counted["traverse"], **counted["graphs"]}
+            if side == "device":
+                traced = check_device_trace(trace, counted, f"{label} {side}")
+            else:
+                traced = check_traced_launches(trace, counted, f"{label} {side}")
+            if side == "replay":
                 for k, n in counted.items():
                     replayed[k] = replayed.get(k, 0) + n
             busy = trace.get("kernel_ms_busy", 0.0)
@@ -2278,14 +2359,80 @@ def graphs_busy(cornell, gallery, soup, small, bigasset) -> None:
                          "busy_share": busy / (1e3 * secs), "idle_share": 1 - busy / (1e3 * secs),
                          "device_events": trace["device_events"],
                          "aten_ops_top_level": trace["aten_ops_top_level"],
-                         "traced_launches": traced, "alpha_loop": loop,
+                         "traced_launches": traced, "alpha_loop": loop, "program": program,
+                         "program_ms": events.ms(),
                          "port_kernel_ms": trace.get("port_kernel_ms", {})}
+        d = out["device"]
+        d["busy_share_from_replay"] = out["replay"]["device_busy_ms"] / d["profiled_wall_ms"]
         emit({"phase": "graphs_busy", "config": f"{label} first wave: {len(lanes)} pixels x "
                                                 f"samples {len(samples)}, {w}x{h} depth {depth}",
-              "traced_launches_equal_counters": True, **out})
-    missing = [name for name, (_, key, _, _) in KERNELS.items() if not replayed.get(key)]
+              "traced_launches_equal_counters": ["replay", "eager"],
+              "device_traced_within_counters": True, **out})
+    missing = [name for name, (mod, key, _, _) in KERNELS.items()
+               if mod != "graphs" and not replayed.get(key)]
     if missing:
         raise AssertionError(f"the replayed waves launched no {missing}: {replayed}")
+
+
+def time_loop_cond(device, runs: int = 1000) -> dict:
+    """``loop_cond_kernel``'s time: two programs of one WHILE of ``runs``
+    runs whose body is a one-thread add (``b += 1``) or two (and ``x +=
+    1``), each launched once through the device loops and once as the
+    host-read replay, CUDA-event timed.  A run of the loop costs its body
+    and one test, so a test with the conditional node's relaunch costs ``2 *
+    one - two`` over ``runs`` on the card (``ms``); the plain version, the
+    host-read replay, costs a host read and a part launched from the host
+    per run (``plain_ms``: the one-add program over ``runs``).  The bound:
+    the 76 bytes a test moves (the count, ``b``, its row of counters read
+    and written) at the card's memory rate."""
+    import torch
+
+    from vulkan_raytracer_tpu_torch.render import graphs
+
+    stream = torch.cuda.Stream(device)
+    pool = torch.cuda.graph_pool_handle()
+
+    def program(adds: int):
+        b = torch.zeros((), dtype=torch.int32, device=device)
+        x = torch.zeros((), dtype=torch.int32, device=device)
+        live = torch.ones((), dtype=torch.int64, device=device)
+
+        def body():
+            b.add_(1)
+            for _ in range(adds - 1):
+                x.add_(1)
+
+        cap = graphs._Capture(pool, [])
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream):
+            cap.begin()
+            b.zero_()
+            cap.while_(graphs.Cond(live, 0, b, runs - 1), body, "test")
+            cap.end()
+        torch.cuda.current_stream(device).wait_stream(stream)
+        return graphs._Program(cap.nodes, cap.conds, {"active": live}, (), []), b
+
+    def timed(prog, device_loops: bool) -> float:
+        prog.launch(device_loops)  # warm: instantiates
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize(device)
+        start.record()
+        prog.launch(device_loops)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    (one, b1), (two, _) = program(1), program(2)
+    t_one, t_two = timed(one, True), timed(two, True)
+    plain = timed(one, False)
+    if int(b1) != runs:
+        raise AssertionError(f"the timed loop ran {int(b1)} times, not {runs}")
+    graphs.settle()
+    nbytes = 8 + 4 + 2 * 32
+    return {"ms": (2 * t_one - t_two) / runs, "plain_ms": plain / runs,
+            "program_ms_one_add": t_one, "program_ms_two_adds": t_two, "replay_ms": plain,
+            "shape": f"a WHILE of {runs} runs of a one-thread body",
+            **bound(0, nbytes)}
 
 
 def bvh_vs_dense(device) -> None:
@@ -2323,7 +2470,7 @@ _ENTRIES = {"closest_kernel": "dense_closest", "shadow_kernel": "dense_shadow",
             "bvh_walk_kernelILb0": "bvh_walk_closest", "bvh_walk_kernelILb1": "bvh_walk_shadow",
             "treelet_walk_kernelILb0": "treelet_walk_closest",
             "treelet_walk_kernelILb1": "treelet_walk_shadow",
-            "emissive_walk_kernel": "emissive_walk"}
+            "emissive_walk_kernel": "emissive_walk", "loop_cond_kernel": "loop_cond_kernel"}
 
 
 def ptxas_table(report: str) -> dict:
@@ -2342,20 +2489,29 @@ def ptxas_table(report: str) -> dict:
     return table
 
 
-def _launch_counts():
+def _launch_counts(loops: bool = True):
+    """Each kernel's launches since the last reset, by module; with
+    ``loops``, ``loop_cond_kernel``'s (``graphs``), which only the device
+    loops launch."""
     from vulkan_raytracer_tpu_torch.ops import dense
     from vulkan_raytracer_tpu_torch.ops import traverse as tr
+    from vulkan_raytracer_tpu_torch.render import graphs
 
-    return {"dense": dict(dense.LAUNCHES), "traverse": dict(tr.LAUNCHES)}
+    out = {"dense": dict(dense.LAUNCHES), "traverse": dict(tr.LAUNCHES)}
+    if loops:
+        out["graphs"] = dict(graphs.LAUNCHES)
+    return out
 
 
 def _reset_launches() -> None:
     """Zero the kernels' launch counters, the instance-step counter, the
-    alpha loop's counter and the bounce widths."""
+    alpha loop's counter and the bounce widths, once the device loops'
+    counts so far are in."""
     from vulkan_raytracer_tpu_torch.ops import dense, instanced
     from vulkan_raytracer_tpu_torch.ops import traverse as tr
     from vulkan_raytracer_tpu_torch.render import graphs, integrator
 
+    graphs.settle()
     dense.reset_launches()
     tr.reset_launches()
     instanced.reset_stats()
@@ -2396,7 +2552,7 @@ class PathLaunches:
 
     def add(self, phase: str, launches: dict) -> None:
         for name, (mod, key, _, _) in KERNELS.items():
-            n = launches[mod][key]
+            n = launches.get(mod, {}).get(key, 0)
             if n:
                 self.total[name] += n
                 self.by_path[name][phase] = self.by_path[name].get(phase, 0) + n
@@ -2702,12 +2858,17 @@ def main() -> int:
 
     t0 = time.perf_counter()
     lib_path = _ext.build()
-    _ext.library()
+    lib = _ext.library()
     t1 = time.perf_counter()
     builder = "native (g++)" if native.get_lib() is not None else "numpy"
     ptxas = ptxas_table(_ext.ptxas_report())
+    driver, runtime = ctypes.c_int(), ctypes.c_int()
+    _ext.check(lib, lib.graph_loops_versions(ctypes.byref(driver), ctypes.byref(runtime)),
+               "graph_loops_versions")
     emit({"phase": "build", "seconds": t1 - t0, "library": lib_path.name,
           "bvh_builder": builder, "bvh_builder_seconds": time.perf_counter() - t1,
+          "cuda_driver": driver.value, "cuda_runtime": runtime.value,
+          "torch_keep_graph": hasattr(torch.cuda.CUDAGraph, "raw_cuda_graph"),
           "ptxas": ptxas})
     if set(ptxas) != set(KERNELS):
         raise AssertionError(f"ptxas reported {sorted(ptxas)}, expected every kernel variant")
@@ -2837,9 +2998,11 @@ def main() -> int:
     shard_two(device, dragon, paths)
     fleet_phase(cfg1_img, cfg1_rays, paths)
 
-    # 26. graph-replayed bounces against eager ones, before any profiler session
+    # 26. the device loops against the host-read replay and eager, before any
+    # profiler session
     with tempfile.TemporaryDirectory() as tmp:
-        gallery_tables, soup_tables = graphs_phase(cornell, dragon, bigasset, Path(tmp))
+        gallery_tables, soup_tables, errs["loop_cond_kernel"] = graphs_phase(
+            cornell, dragon, bigasset, Path(tmp))
 
     # the dense kernels' device times from torch.profiler, after every
     # render phase: a profiler session slows the renders that follow it in
@@ -2857,6 +3020,7 @@ def main() -> int:
     # and eager
     graphs_busy(cornell, gallery_tables, soup_tables, small, bigasset)
     del gallery_tables, soup_tables, bigasset
+    times["loop_cond_kernel"] = time_loop_cond(device)
 
     import vulkan_raytracer_tpu_torch.viewer  # noqa: F401  (held to the same check)
 

@@ -1,31 +1,37 @@
-"""The captured bounce of the torch port (``render/graphs.py``).
+"""The captured wave of the torch port (``render/graphs.py``).
 
-On CUDA tables each bounce is captured as CUDA graphs: one for a scene
-without alpha; on a scene with alpha a segment up to each resample loop of
-``integrator._closest``, one graph for a pass of the loop, and a last
-segment.  That only works if nothing in a segment or a pass reads the
-device on the host.  Held here on the CPU: a ``TorchDispatchMode`` around
-each step of the bounce loop (``integrator._step``: the re-sort where
-asked, then ``_bounce``), run as ``GraphCache`` captures it with stand-in
-graphs that run the code once, finds no op that synchronises on a card —
-a scalar read (``_local_scalar_dense``), an op whose output shape depends
-on the data (``nonzero``, a boolean index) or a tensor made from host data
+On CUDA tables a wave, from its initial state to its radiance, is one
+program: its straight code captured as CUDA graphs (parts), its bounce
+loop, the width ladder's phases and the alpha resample loops as conditional
+WHILE nodes and its re-sorts as IF nodes, whose conditions a hand-written
+kernel sets on the card.  That only works if no part reads the device on
+the host.  Held here on the CPU with stand-in graphs (``_Recorded``: a
+capture runs the code once and records its aten ops, each kernel's plain
+version as one call, as a launch on the card; a replay runs them again on
+the same tensors): a ``TorchDispatchMode`` around the whole-wave capture
+finds no op that synchronises on a card — a scalar read
+(``_local_scalar_dense``), an op whose output shape depends on the data
+(``nonzero``, a boolean index) or a tensor made from host data
 (``lift_fresh``, a copy to the card) — on the dense Cornell box, on a
-repacked BVH scene at the ladder's three widths, on a small instanced
+repacked BVH scene (the ladder's three phases), on a small instanced
 gallery with a BVH and two dense prototypes, and with alpha on the
 textured glb, on the same glb on the BVH path and on an instanced alpha
-scene.  The kernels' wrappers count as one opaque launch each: their plain
-CPU versions are not inspected.  A replay's own reads (one pending count a
-pass, the occlusion loop's first count being the next live count) are held
-on stand-in parts.  The cache is keyed by the tables' signature, as
-``jit`` keys by shapes, and a step with other tables of the signature
-copies them into the cache's mirror: the signature and the mirror are held
-here too.
+scene; the program's tree has the shape the module documents.  The
+host-read replay, the plain version of the device loops, runs the stand-in
+program with a device bounce index ``b``: images, rays, bounce widths, the
+alpha loop's counts and the plain versions' calls bit-equal to the eager
+loop, the counts coming from each part's captured counts times the runs of
+its body.  Its reads (one a test of a condition) and the fold of the
+device loops' rows (:func:`graphs.settle`) are held on scripted parts.
+The cache is keyed by the tables' signature, as ``jit`` keys by shapes,
+and a wave with other tables of the signature copies them into the cache's
+mirror: the signature and the mirror are held here too.
 
-Marked ``cuda`` (they skip without a card): graph-replayed renders against
-eager ones bit for bit, with equal rays and counters, with alpha and
-without, and a refit's new tables replaying the graphs already captured
-while the old tables still render the old scene.
+Marked ``cuda`` (they skip without a card): renders through the device
+loops against the host-read replay and eager ones bit for bit, with equal
+rays and counters, with alpha and without, and a refit's new tables
+replaying the programs already captured while the old tables still render
+the old scene.
 """
 
 import dataclasses
@@ -72,78 +78,152 @@ def _synchronises(func, args) -> bool:
 
 class HostReads(TorchDispatchMode):
     """Every op that would make the card wait for the host or the host for
-    the card, outside the kernels' plain versions (``opaque``)."""
+    the card."""
 
     def __init__(self):
         super().__init__()
-        self.opaque = 0
-        self.ops = 0
         self.found = []
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if not self.opaque:
-            self.ops += 1
-            if _synchronises(func, args):
-                self.found.append(str(func))
+        if _synchronises(func, args):
+            self.found.append(str(func))
         return func(*args, **(kwargs or {}))
 
 
-class _StandIn:
-    """A CUDA graph on the CPU: "capturing" runs the code once, eagerly."""
+def _write(dst, src) -> None:
+    if isinstance(dst, torch.Tensor):
+        dst.copy_(src)
+    elif isinstance(dst, (tuple, list)):
+        for d, s in zip(dst, src):
+            _write(d, s)
+
+
+class _Recorded(TorchDispatchMode):
+    """A CUDA graph on the CPU.  "Capturing" runs the code once and records
+    its aten ops, each kernel's plain version as one call (a launch on the
+    card, :func:`_plain_calls`); a replay runs them again on the same
+    tensors and writes each op's result into the tensors the capture's run
+    made, as a graph's kernels write the addresses they were captured with.
+    Views and uninitialised allocations are not run again."""
+
+    active: list = []  # the recordings in progress, innermost last
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+        self.paused = 0
 
     def capture_begin(self, pool=None):
-        pass
+        self.__enter__()
+        _Recorded.active.append(self)
 
     def capture_end(self):
-        pass
+        _Recorded.active.remove(self)
+        self.__exit__(None, None, None)
 
+    def nodes(self) -> int:
+        return len(self.ops)
 
-def _watched_steps(monkeypatch):
-    """Patch ``integrator._step``: after one unwatched run of the step (the
-    eager warm-up before a capture, which builds the lazy tables), the step
-    again as ``GraphCache`` captures it, its resample loops split into parts
-    by a ``graphs._Capture`` of stand-in graphs, under :class:`HostReads`
-    with the plain versions opaque.  The render goes on with the unwatched
-    run's state, and the watched run's counts are dropped.  Returns the
-    list of (width, mode, parts) per step."""
-    steps = []
-    step = integrator._step
-    current = []
-
-    def opaque(fn):
-        def call(*args, **kw):
-            mode = current[-1] if current else None
-            if mode is not None:
-                mode.opaque += 1
-            try:
-                return fn(*args, **kw)
-            finally:
-                if mode is not None:
-                    mode.opaque -= 1
-        return call
-
-    for mod, name in _PLAIN:
-        monkeypatch.setattr(mod, name, opaque(getattr(mod, name)))
-
-    def watched(tables, s, *args):
-        out = step(tables, s, *args)
-        kept = graphs._snapshot(integrator._COUNTERS)
-        cap = graphs._Capture(None, integrator._COUNTERS, graph=_StandIn)
-        mode = HostReads()
-        current.append(mode)
-        try:
-            with graphs.capturing(cap), mode:
-                cap.begin()
-                step(tables, s, *args)
-                cap.end()
-        finally:
-            current.pop()
-            graphs._restore(integrator._COUNTERS, kept)
-        steps.append((s["active"].shape[0], mode, cap.parts))
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if not self.paused:
+            self.ops.append((func, args, kwargs, out))
         return out
 
-    monkeypatch.setattr(integrator, "_step", watched)
-    return steps
+    def replay(self):
+        for fn, args, kwargs, out in self.ops:
+            if isinstance(fn, torch._ops.OpOverload):
+                if fn.is_view or fn._schema.name.startswith("aten::empty"):
+                    continue
+                if fn._schema.is_mutable:
+                    fn(*args, **kwargs)
+                    continue
+            _write(out, fn(*args, **kwargs))
+
+
+#: calls of each kernel's plain version, counted as a launch counter
+PLAIN_CALLS: dict = {}
+
+
+def _plain_calls(monkeypatch):
+    """Patch each kernel's plain version into one opaque call: counted in
+    :data:`PLAIN_CALLS` (added to the integrator's counters, so a program
+    folds it as it folds the launch counters) and recorded by a
+    :class:`_Recorded` as one call rather than its ops (a card runs the
+    kernel there, and the plain version's loops end on the data)."""
+    PLAIN_CALLS.clear()
+    monkeypatch.setattr(integrator, "_COUNTERS", (*integrator._COUNTERS, PLAIN_CALLS))
+    for mod, name in _PLAIN:
+        fn = getattr(mod, name)
+
+        def call(*args, _fn=fn, _name=name, **kw):
+            PLAIN_CALLS[_name] = PLAIN_CALLS.get(_name, 0) + 1
+            rec = _Recorded.active[-1] if _Recorded.active else None
+            if rec is not None:
+                rec.paused += 1
+            try:
+                out = _fn(*args, **kw)
+            finally:
+                if rec is not None:
+                    rec.paused -= 1
+            if rec is not None:
+                rec.ops.append((_fn, args, kw, out))
+            return out
+
+        monkeypatch.setattr(mod, name, call)
+
+
+def _stand_in_programs(monkeypatch):
+    """Waves on CPU tables as programs of :class:`_Recorded` parts, run by
+    the host-read replay (the device loops need a card): patches
+    ``graphs._graphs_preferred`` on and the part's graph type (after
+    :func:`_plain_calls`).  Returns the list of (width, capture) of each
+    whole-wave capture, filled as they happen."""
+    assert PLAIN_CALLS in integrator._COUNTERS
+    monkeypatch.setattr(graphs, "_graphs_preferred", lambda t: True)
+    monkeypatch.setattr(graphs, "_TorchGraph", _Recorded)
+    captures = []
+    build = integrator._wave_program
+
+    def watched(tables, s, cap, **kw):
+        captures.append((s["active"].shape[0], cap))
+        return build(tables, s, cap, **kw)
+
+    monkeypatch.setattr(integrator, "_wave_program", watched)
+    return captures
+
+
+def _parts(nodes):
+    for node in nodes:
+        if isinstance(node, graphs._Part):
+            yield node
+        else:
+            yield from _parts(node.body)
+
+
+def _host_reads(nodes) -> tuple:
+    """(aten ops, the ops among them that would synchronise on a card) the
+    parts of a stand-in program recorded, the plain versions' calls aside."""
+    ops = [(op, args) for part in _parts(nodes) for op, args, _, _ in part.graph.ops
+           if isinstance(op, torch._ops.OpOverload)]
+    return len(ops), sorted({str(op) for op, args in ops if _synchronises(op, args)})
+
+
+def _shape(nodes) -> str:
+    """A program's tree as text: ``p`` a part, ``kind:role(body)`` a node."""
+    return " ".join("p" if isinstance(n, graphs._Part) else f"{n.kind}:{n.role}({_shape(n.body)})"
+                    for n in nodes)
+
+
+def _want_shape(tables, n: int) -> str:
+    """The tree ``render/graphs.py`` documents for a wave of ``n`` lanes."""
+    bounce = "p while:alpha(p) p while:alpha(p) p" if tables.has_alpha else "p"
+    repack = integrator._repack_preferred(tables)
+    phase = f"while:phase({'if:sort(p) ' if repack else ''}{bounce})"
+    if repack and n % 4 == 0:
+        return f"p {phase} if:sort(p) p {phase} if:sort(p) p {phase} p"
+    return f"p {phase} p"
 
 
 def _uniforms(pos, direction, w, h):
@@ -216,27 +296,27 @@ def _case(case, monkeypatch, device="cpu"):
 @pytest.mark.parametrize("case", ["cornell_dense", "ladder_bvh", "gallery_instanced",
                                   *ALPHA_CASES])
 def test_bounce_reads_nothing_on_the_host(case, monkeypatch):
-    """Each step of a wave, captured, is free of host synchronisation: one
-    part without alpha; with alpha a segment, the bounce ray's pass, a
-    segment, the occlusion ray's pass and a last segment, none of which
-    reads the device on the host."""
+    """A whole wave, captured, is free of host synchronisation, its bounces
+    and resample loops included, and its program has the documented tree: a
+    WHILE per phase (the ladder's three on a repacked wave, the re-sorts as
+    IFs) and, with alpha, a WHILE per resample loop inside the bounce."""
     tables, args, widths = _case(case, monkeypatch)
     assert tables.has_alpha == (case in ALPHA_CASES)
-    steps = _watched_steps(monkeypatch)
+    _plain_calls(monkeypatch)
+    captures = _stand_in_programs(monkeypatch)
     w, h = args[2], args[3]
+    integrator.reset_bounce_widths()
     value, rays = integrator.render_sample(tables, *_uniforms(*args), w, h, 2, 4)
     assert torch.isfinite(value).all() and int(rays) > 0
-    assert widths <= {n for n, _, _ in steps}, [n for n, _, _ in steps]
-    assert all(mode.ops > 100 for _, mode, _ in steps)
-    found = sorted({op for _, mode, _ in steps for op in mode.found})
-    assert not found, found
-    for _, _, parts in steps:
-        loops = [(p.loop.first, p.loop.live) for p in parts if p.loop is not None]
-        if tables.has_alpha:
-            assert [p.loop is not None for p in parts] == [False, True, False, True, False]
-            assert loops == [(True, False), (False, True)]
-        else:
-            assert len(parts) == 1 and not loops
+    (n, cap), = captures
+    ops, found = _host_reads(cap.nodes)
+    assert n == w * h and ops > 100 and not found, found
+    assert _shape(cap.nodes) == _want_shape(tables, n)
+    loops = [node.role for node in cap.conds if node.kind == "while"]
+    phases = 3 if integrator._repack_preferred(tables) and n % 4 == 0 else 1
+    assert loops.count("phase") == phases
+    assert loops.count("alpha") == (2 * phases if tables.has_alpha else 0)
+    assert widths <= set(integrator.BOUNCE_WIDTHS), integrator.BOUNCE_WIDTHS
 
 
 def test_host_reads_sees_a_synchronisation():
@@ -260,33 +340,119 @@ class _Scripted:
         self.replay = fn
 
 
+def _scripted_program(counter: dict, done: list):
+    """A program of scripted parts: ``phase`` WHILE live > 0 and b <= 2 {
+    pending = b + 1; WHILE pending { pending -= 1 }; b += 1; live -= 1 },
+    after a part that sets b = 0 and live = 5."""
+    b = torch.zeros((), dtype=torch.int32)
+    live = torch.zeros((), dtype=torch.int64)
+    pending = torch.zeros((), dtype=torch.int64)
+
+    def part(fn, delta):
+        return graphs._Part(_Scripted(fn), [delta])
+
+    phase = graphs._Node("while", graphs.Cond(live, 0, b, 2), 0, "phase")
+    loop = graphs._Node("while", graphs.Cond(pending), 1, "alpha", lambda *a: done.append(a))
+    loop.body = [part(lambda: pending.sub_(1), {"pass": 1})]
+    phase.body = [part(lambda: pending.copy_(b + 1), {"seg": 1}), loop,
+                  part(lambda: (b.add_(1), live.sub_(1)), {"seg": 10})]
+    nodes = [part(lambda: (b.zero_(), live.fill_(5)), {"init": 1}), phase]
+    return graphs._Program(nodes, [phase, loop], {"active": torch.zeros(1, dtype=torch.bool)},
+                           (), [counter])
+
+
 def test_replay_reads_one_count_a_pass():
-    """A program's replay: each segment once; a loop's pass while its count
-    of pending lanes is not 0, read on the host after each pass, before the
-    first only where the loop does not start on known live lanes; the
-    occlusion loop's first count comes back as the next live count.  Each
-    replay adds its part's counts, and the passes are counted per loop."""
-    a = torch.zeros((), dtype=torch.int64)
-    b = torch.zeros((), dtype=torch.int64)
-    done = []
-    parts = [
-        graphs._Part(_Scripted(lambda: a.fill_(3)), [{"seg": 1}], None),
-        graphs._Part(_Scripted(lambda: a.sub_(1)), [{"pass": 1}],
-                     graphs._Loop(a, True, False, done.append, None)),
-        graphs._Part(_Scripted(lambda: b.fill_(2)), [{"seg": 1}], None),
-        graphs._Part(_Scripted(lambda: b.sub_(1)), [{"pass": 10}],
-                     graphs._Loop(b, False, True, done.append, None)),
-        graphs._Part(_Scripted(lambda: None), [{"seg": 1}], None),
-    ]
-    counter = {}
+    """The host-read replay of a program: each part once per run of its
+    body; a node's condition read on the host at each test, before its first
+    run and after each (the count, and ``b`` where the count passes); a
+    resample loop's passes counted per call (calls, passes, the most in one
+    call); each part's counts times the runs of its body; the rows kept as
+    ``loop_cond_kernel`` keeps them; no ``loop_cond_kernel`` launch."""
+    counter, done = {}, []
+    program = _scripted_program(counter, done)
     graphs.reset_stats()
     with HostReads() as mode:
-        live = graphs._Program(parts, None, None).replay([counter])
-    assert done == [3, 2] and live == 2
-    assert counter == {"seg": 3, "pass": 3 + 2 * 10}
-    assert graphs.STATS["passes"] == 5
-    # one read a pass, and the occlusion loop's first: the next live count
-    assert mode.found == ["aten._local_scalar_dense.default"] * 6
+        program.launch(device_loops=False)
+    # b = 0, 1, 2 run the phase; the resample loop then runs 1, 2, 3 passes
+    assert counter == {"init": 1, "seg": 3 * 11, "pass": 1 + 2 + 3}
+    assert done == [(6, 3, 3)]
+    assert graphs.STATS["passes"] == 6 and graphs.STATS["replays"] == 3
+    assert graphs.STATS["launches"] == 1 and graphs.LAUNCHES["loop_cond"] == 0
+    # 4 phase tests (count and b), 2 + 3 + 4 resample tests (the count)
+    assert mode.found == ["aten._local_scalar_dense.default"] * (4 * 2 + 2 + 3 + 4)
+    rows = [[0, 0, 0, 0] for _ in program.conds]
+    program.interpret(program.nodes, rows)
+    assert rows == [[3, 1, 3, 3], [6, 3, 3, 3]]
+
+
+def test_settle_folds_the_device_rows():
+    """A program launched on the card counts nothing on the host until
+    :func:`graphs.settle`: one read of the scalars asked for with every
+    pending program's rows, whose counts it adds (each part's counts times
+    the runs of its body over the launches since the last settle;
+    ``loop_cond_kernel``'s launches: every entry test and every WHILE
+    body's closing test), and the rows start again from 0."""
+    counter, done = {}, []
+    program = _scripted_program(counter, done)
+    graphs.reset_stats()
+    # two launches' worth of the rows the card keeps (test_replay_reads_one_count_a_pass)
+    program.stats.copy_(torch.tensor([[6, 2, 3, 3], [12, 6, 3, 3]]))
+    program.pending = 2
+    graphs._PENDING[program] = None
+    assert counter == {}
+    assert graphs.settle(torch.tensor(7), torch.tensor(8)) == [7, 8]
+    assert counter == {"init": 2, "seg": 6 * 11, "pass": 12} and done == [(12, 6, 3)]
+    assert graphs.LAUNCHES["loop_cond"] == (2 + 6) + (6 + 12)
+    assert graphs.STATS["launches"] == 2 and graphs.STATS["replays"] == 6
+    assert not program.stats.any() and program.pending == 0 and not graphs._PENDING
+    assert graphs.settle() == [] and counter["pass"] == 12
+    # a launch whose bounce loop ran no body: the top level counts, no 0 appears
+    other = {}
+    program = _scripted_program(other, done)
+    program.stats.copy_(torch.tensor([[0, 1, 0, 0], [0, 0, 0, 0]]))
+    program.pending = 1
+    graphs._PENDING[program] = None
+    assert graphs.settle() == [] and other == {"init": 1}
+
+
+@pytest.mark.parametrize("case", ["cornell_dense", "ladder_bvh", "gallery_instanced",
+                                  *ALPHA_CASES])
+def test_stand_in_program_bit_equal_to_eager(case, monkeypatch):
+    """``render_image`` at 32x32, 2 spp, depth 3 (one wave) as the host-read
+    replay of a stand-in program, with the bounce index on the device,
+    against the eager loop: images and rays bit-equal, and the bounce
+    widths, the alpha loop's calls, passes and most passes a call, the
+    instance steps and the plain versions' calls equal, the program's from
+    each part's captured counts times the runs of its body.  One program a
+    wave shape, keyed without a bounce; the second frame captures nothing."""
+    gc.collect()  # no cache of an earlier test's tables of the signature
+    tables, (pos, direction, _, _), _ = _case(case, monkeypatch)
+    cam = Camera(position=np.array(pos), direction=np.array(direction))
+    _plain_calls(monkeypatch)
+
+    def frame():
+        _reset()
+        PLAIN_CALLS.clear()
+        graphs.reset_stats()
+        img, rays = renderer.render_image(tables, cam, 32, 32, 2, max_depth=3, tonemap=False)
+        return img, rays, (_counts(), dict(PLAIN_CALLS))
+
+    img, rays, counts = frame()
+    assert sum(counts[1].values()) > 0
+    assert (counts[0][4]["calls"] > 0) == tables.has_alpha
+    _stand_in_programs(monkeypatch)
+    for captured in (1, 0):
+        got = frame()
+        assert np.array_equal(got[0], img) and got[1] == rays
+        assert got[2] == counts, (got[2], counts)
+        assert graphs.STATS["captured"] == captured and graphs.STATS["launches"] == 1
+        assert graphs.STATS["replays"] == sum(integrator.BOUNCE_WIDTHS.values())
+        assert graphs.STATS["passes"] == integrator.ALPHA_LOOP["iterations"]
+    programs = graphs.cache(tables).graphs
+    repack = integrator._repack_preferred(tables)
+    fields = ("origin", "direction", "value", "throughput", "seed", "wavelength", "mat_pdf",
+              "active", "sky_w", "preview") + (("slot",) if repack else ())
+    assert list(programs) == [(2048, fields, (3, "reference", repack))]
 
 
 def test_graphs_preferred_rule():
@@ -418,7 +584,7 @@ def test_traced_launches_are_held_against_the_counters(replayed):
     """The check that shows a replay launched what its capture counted: every
     launch counter maps to a hand-written kernel the trace names, and a trace
     short of one launch fails."""
-    counters = {**dense.LAUNCHES, **traverse.LAUNCHES}
+    counters = {**dense.LAUNCHES, **traverse.LAUNCHES, **graphs.LAUNCHES}
     assert set(profile_torch_wave.KERNEL_OF) == set(counters)
     assert set(profile_torch_wave.KERNEL_OF.values()) == set(profile_torch_wave.PORT_KERNELS)
     counted = dict.fromkeys(counters, 0)
@@ -436,6 +602,30 @@ def test_traced_launches_are_held_against_the_counters(replayed):
                 {"port_kernel_launches": traced}, counted, "gallery graphs")
 
 
+@pytest.mark.parametrize("traced", ["within", "missing", "more"])
+def test_device_trace_is_held_within_the_counters(traced):
+    """A run through the device loops: CUPTI misses most reruns of a
+    conditional body's nodes, so its trace may hold fewer launches than the
+    counters, but every kernel counted must appear and none more often than
+    counted."""
+    counted = dict.fromkeys({**dense.LAUNCHES, **traverse.LAUNCHES, **graphs.LAUNCHES}, 0)
+    counted.update(treelet_closest=10, treelet_shadow=10, pdf=10, loop_cond=40)
+    trace = {"treelet_walk_kernel": 4, "pdf_kernel": 2, "loop_cond_kernel": 9}
+    if traced == "within":
+        got = profile_torch_wave.check_device_trace(
+            {"port_kernel_launches": trace}, counted, "cfg2 device")
+        assert got == {"treelet_walk_kernel": [4, 20], "pdf_kernel": [2, 10],
+                       "loop_cond_kernel": [9, 40]}
+        return
+    if traced == "missing":
+        del trace["pdf_kernel"]
+    else:
+        trace["pdf_kernel"] = 11
+    with pytest.raises(AssertionError, match="the counters say"):
+        profile_torch_wave.check_device_trace({"port_kernel_launches": trace}, counted,
+                                              "cfg2 device")
+
+
 # ---------------------------------------------------------------------------
 # On the card
 # ---------------------------------------------------------------------------
@@ -447,6 +637,7 @@ def _counts():
 
 
 def _reset():
+    graphs.settle()  # no device loop's counts left to fold in after the reset
     dense.reset_launches()
     traverse.reset_launches()
     instanced.reset_stats()
@@ -454,15 +645,22 @@ def _reset():
     integrator.reset_alpha_loop()
 
 
-def _render_both(tables, pos, direction, size, spp, depth, monkeypatch):
-    """``render_image`` replayed from graphs and eager, in turns (graphs,
-    eager, eager, graphs): (image, rays, counters) of each run."""
+#: side -> (graphs._graphs_preferred, graphs._device_loops_preferred) patched in
+_SIDES = {"device": (graphs._graphs_preferred, graphs._device_loops_preferred),
+          "replay": (graphs._graphs_preferred, lambda t: False),
+          "eager": (lambda t: False, lambda t: False)}
+
+
+def _render_sides(tables, pos, direction, size, spp, depth, monkeypatch):
+    """``render_image`` through the device loops, the host-read replay and
+    eager, in turns (device, replay, eager, eager, replay, device): (side,
+    image, rays, counters) of each run."""
     cam = Camera(position=np.array(pos), direction=np.array(direction))
-    rule = graphs._graphs_preferred
     out = []
-    for side in ("graphs", "eager", "eager", "graphs"):
-        monkeypatch.setattr(graphs, "_graphs_preferred",
-                            rule if side == "graphs" else (lambda t: False))
+    for side in ("device", "replay", "eager", "eager", "replay", "device"):
+        graphs_rule, loops_rule = _SIDES[side]
+        monkeypatch.setattr(graphs, "_graphs_preferred", graphs_rule)
+        monkeypatch.setattr(graphs, "_device_loops_preferred", loops_rule)
         _reset()
         img, rays = renderer.render_image(tables, cam, size, size, spp, max_depth=depth,
                                           tonemap=False)
@@ -476,25 +674,29 @@ def _render_both(tables, pos, direction, size, spp, depth, monkeypatch):
                                   *ALPHA_CASES, "gltf_147k"])
 def test_graphs_bit_equal_to_eager(case, monkeypatch):
     """Images, rays, launches per kernel, instance steps, bounce widths and
-    the alpha loop's passes bit-equal, graphs against eager; with alpha, the
-    textured glb (K1), the same glb on the BVH path (K4'), the instanced
-    alpha scene and the 147,136-triangle glb (K5', repacked)."""
+    the alpha loop's passes bit-equal, the device loops against the
+    host-read replay and eager; with alpha, the textured glb (K1), the same
+    glb on the BVH path (K4'), the instanced alpha scene and the
+    147,136-triangle glb (K5', repacked).  One program a wave shape; the
+    device sides launch ``loop_cond_kernel``."""
     if case == "gltf_147k":
         tables, (pos, direction) = _glb_tables("cuda", big=True), BIGASSET
         assert integrator._repack_preferred(tables)
     else:
         tables, (pos, direction, _, _), _ = _case(case, monkeypatch, "cuda")
-    assert graphs._graphs_preferred(tables)
+    assert graphs._graphs_preferred(tables) and graphs._device_loops_preferred(tables)
+    graphs.settle()
     graphs.reset_stats()
-    runs = _render_both(tables, pos, direction, 32, 4, 4, monkeypatch)
+    runs = _render_sides(tables, pos, direction, 32, 4, 4, monkeypatch)
     _, img, rays, counts = runs[0]
     for side, img_s, rays_s, counts_s in runs[1:]:
         assert np.array_equal(img_s, img), side
         assert rays_s == rays and counts_s == counts, (side, counts_s, counts)
-    assert graphs.STATS["captured"] > 0
-    assert graphs.STATS["replays"] == 2 * sum(counts[3].values())
+    assert graphs.STATS["captured"] == len(graphs.cache(tables).graphs) == 1
+    assert graphs.STATS["replays"] == 4 * sum(counts[3].values())
     assert (counts[4]["calls"] > 0) == tables.has_alpha
-    assert graphs.STATS["passes"] == 2 * counts[4]["iterations"]
+    assert graphs.STATS["passes"] == 4 * counts[4]["iterations"]
+    assert graphs.LAUNCHES["loop_cond"] > 0
     assert np.isfinite(img).all() and img.mean() > 0.0
 
 

@@ -220,3 +220,12 @@ def test_cli_progressive_without_jax(tmp_path):
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "NOJAX" in proc.stdout and "frame 2" in proc.stdout
     assert (tmp_path / "p.png").stat().st_size > 0 and (tmp_path / "c.npz").stat().st_size > 0
+
+
+def test_frame_time_tool_needs_a_card():
+    """tools/bench_torch_progressive.py measures on a card only: without one
+    it exits 2 and prints no result."""
+    proc = subprocess.run([sys.executable, str(ROOT / "tools" / "bench_torch_progressive.py")],
+                          cwd=ROOT, capture_output=True, text=True, timeout=180)
+    assert proc.returncode == 2 and not proc.stdout, proc.stdout + proc.stderr
+    assert "needs an NVIDIA card" in proc.stderr

@@ -24,39 +24,49 @@ package's rules pick: a scene on the repacked wavefront whose frame cannot
 hold min(spp, 8) samples in one wave starts with a band
 (``renderer._banded_preferred``), any other with samples 1.. of every
 pixel.  It runs the wave through ``renderer._render_wave`` on up to
-three sides: the package as it runs (``graphs``: each bounce replayed from
-its captured CUDA graph where ``graphs._graphs_preferred`` picks graphs,
-with the re-sorts and the width ladder where ``integrator._repack_preferred``
-turns them on), with graphs patched off (``eager``), and, on a repacked
-scene, with the repack patched off too (``unsorted``):
+four sides: the package as it runs (``device``: the wave one captured
+program whose loops run on the card, ``render/graphs.py``, where
+``graphs._graphs_preferred`` picks graphs, with the re-sorts and the width
+ladder where ``integrator._repack_preferred`` turns them on), the same
+program as the host-read replay (``replay``: ``graphs._device_loops_preferred``
+patched off, each part launched and each condition read from the host),
+with graphs patched off (``eager``), and, on a repacked scene, with the
+repack patched off too (``unsorted``):
 
-1. each side once to build the kernels, capture the graphs and warm the
+1. each side once to build the kernels, capture the program and warm the
    allocator (the captures' count, seconds and pool bytes are reported);
-2. ``--reps`` times each side unprofiled, in turns (graphs, eager, unsorted,
-   unsorted, eager, graphs, ...): the wall of each, CUDA-synchronised, and
-   the radiance, which must be bit-equal between the sides, with equal rays,
-   equal launches per kernel and, on an alpha scene (gltf, textured: each
-   bounce's resample loops replayed pass by pass on the graphs side), equal
-   alpha-loop passes;
+2. ``--reps`` times each side unprofiled, in turns (device, replay, eager,
+   unsorted, unsorted, eager, replay, device, ...): the wall of each,
+   CUDA-synchronised, and the radiance, which must be bit-equal between the
+   sides, with equal rays, equal launches per kernel, equal bounce widths
+   and, on an alpha scene (gltf, textured), equal alpha-loop counts;
 3. each side once with ``torch.cuda.set_sync_debug_mode("warn")``: the
-   host synchronisations of the wave, the harness's two included (the
-   closing ``torch.cuda.synchronize`` and the read of the ray count), and
-   the peak of allocated device memory over that run (a replay's
-   temporaries lie in the graphs' pool, reserved once: ``pool_bytes``);
+   host synchronisations of the wave, the harness's included (the copy of
+   the wave's sample numbers to the card and the read of the ray count,
+   which brings the device loops' counts in), those made while a program
+   launches (``host_syncs_in_launches``: 0 through the device loops, the
+   condition reads on the replay), and the peak of allocated device
+   memory over that run (a program's temporaries lie in the graphs' pool,
+   reserved once: ``pool_bytes``);
 4. each eager side once recorded: the width and live lanes of each bounce,
    and the live lanes and live 128-lane blocks of each K4'/K5' launch
    (counting them synchronises, so this run is eager and not timed; the
-   graphs side runs the same lanes);
+   program sides run the same lanes);
 5. each side once under ``torch.profiler`` (CPU + CUDA activities): the
    wall, and from the trace the device kernels (count, summed time, the
    span they cover), the aten ops the host issued, the hand-written
    kernels' launches and device time, each walk launch's device µs in
    issue order (beside step 4's live lanes of the same launch), the
    sorts' device time, and the alpha loop's passes (in all, per call, the
-   most in one call).  Each hand-written
-   kernel's launches in the trace must equal the launch counters over the
-   same run: on the graphs side this is what shows that the replays launch
-   what their captures counted.
+   most in one call).  On the replay, eager and unsorted sides each
+   hand-written kernel's launches in the trace must equal the launch
+   counters over the same run: on the replay side this is what shows that
+   the parts launch what their captures counted.  The device side's trace
+   misses most reruns of a conditional body's nodes (CUPTI): each kernel
+   counted must appear and
+   none more often than counted (``check_device_trace``); its device
+   time is the program's own, from CUDA events around its launch in the
+   unprofiled reps (``program_ms``), beside the replay side's busy time.
 
 For instanced it also reports the instance steps (every one launches) and
 the live lanes of each ``instanced_closest`` call (one a bounce).
@@ -85,13 +95,14 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent.parent
 #: the port's hand-written kernels, by the names the trace gives them
 PORT_KERNELS = ("closest_kernel", "shadow_kernel", "pdf_kernel", "bvh_walk_kernel",
-                "treelet_walk_kernel", "emissive_walk_kernel")
-#: each launch counter (``LAUNCHES`` of ops/dense.py and ops/traverse.py) ->
-#: the kernel whose launches it counts, by the name the trace gives it
+                "treelet_walk_kernel", "emissive_walk_kernel", "loop_cond_kernel")
+#: each launch counter (``LAUNCHES`` of ops/dense.py, ops/traverse.py and
+#: render/graphs.py) -> the kernel whose launches it counts, by the name the
+#: trace gives it
 KERNEL_OF = {"closest": "closest_kernel", "shadow": "shadow_kernel", "pdf": "pdf_kernel",
              "bvh_closest": "bvh_walk_kernel", "bvh_shadow": "bvh_walk_kernel",
              "treelet_closest": "treelet_walk_kernel", "treelet_shadow": "treelet_walk_kernel",
-             "emissive_pdf": "emissive_walk_kernel"}
+             "emissive_pdf": "emissive_walk_kernel", "loop_cond": "loop_cond_kernel"}
 WALK_BLOCK = 128  # rays per block of the BVH walks (csrc/bvh_walk.cu kThreads)
 #: config -> (scene: a built-in name, a generated .glb or a smoke scene,
 #: camera position, direction)
@@ -154,7 +165,7 @@ def wave(tables, camera, width: int, height: int, depth: int, lanes, samples):
     (radiance, rays)."""
     import torch
 
-    from vulkan_raytracer_tpu_torch.render import renderer
+    from vulkan_raytracer_tpu_torch.render import graphs, renderer
 
     view_inv, proj_inv = renderer.camera_uniforms(camera)
     lanes = torch.as_tensor(lanes, device=tables.device)
@@ -165,7 +176,7 @@ def wave(tables, camera, width: int, height: int, depth: int, lanes, samples):
                                                    depth, samples, lanes, "reference")
             if tables.device.type == "cuda":
                 torch.cuda.synchronize()
-        return radiance, int(rays)
+        return radiance, graphs.settle(rays)[0]
 
     return run
 
@@ -305,20 +316,108 @@ def trace_summary(prof) -> dict:
     }
 
 
+def _by_kernel(counted: dict) -> dict:
+    want: dict[str, int] = {}
+    for k, n in counted.items():
+        if n:
+            want[KERNEL_OF[k]] = want.get(KERNEL_OF[k], 0) + n
+    return want
+
+
 def check_traced_launches(trace: dict, counted: dict, label: str) -> dict:
     """Each hand-written kernel's launches in a profiled run's trace against
     the launch counters over the same run (reset just before it).  A
     replayed graph runs no Python: its counts are those its capture took,
     and this is where a replay is seen to launch them.  Returns the traced
     launches; raises where they differ."""
-    want: dict[str, int] = {}
-    for k, n in counted.items():
-        if n:
-            want[KERNEL_OF[k]] = want.get(KERNEL_OF[k], 0) + n
+    want = _by_kernel(counted)
     got = trace.get("port_kernel_launches", {})
     if got != want:
         raise AssertionError(f"{label}: the trace launched {got}, the counters say {want}")
     return got
+
+
+def check_device_trace(trace: dict, counted: dict, label: str) -> dict:
+    """The same check on a run through the device loops, whose trace misses
+    most reruns of a conditional body's nodes (CUPTI): every kernel counted
+    appears, and none more often than counted.  Returns {kernel: [traced,
+    counted]}."""
+    want = _by_kernel(counted)
+    got = trace.get("port_kernel_launches", {})
+    if set(got) != set(want) or any(got[k] > want[k] for k in got):
+        raise AssertionError(f"{label}: the trace launched {got}, the counters say {want}")
+    return {k: [got[k], want[k]] for k in want}
+
+
+class LaunchSyncs:
+    """Host synchronisations while a program launches (``graphs._Program.launch``
+    wrapped), within :func:`count_syncs`: those the wave itself makes, none
+    on the device loops, the condition reads on the host-read replay.  The
+    warnings go on to the outer count."""
+
+    def __enter__(self):
+        import warnings
+
+        from vulkan_raytracer_tpu_torch.render import graphs
+
+        self.count = 0
+        self._launch = launch = graphs._Program.launch
+
+        def counted(program, device_loops):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                launch(program, device_loops)
+            self.count += sum("synchroniz" in str(w.message) for w in caught)
+            for w in caught:
+                warnings.warn_explicit(w.message, w.category, w.filename, w.lineno)
+
+        graphs._Program.launch = counted
+        return self
+
+    def __exit__(self, *exc):
+        from vulkan_raytracer_tpu_torch.render import graphs
+
+        graphs._Program.launch = self._launch
+
+
+class ProgramEvents:
+    """CUDA events around each launch of a program through the device loops
+    while active (``graphs._Program.launch`` wrapped): ``ms()`` is their
+    device time in all."""
+
+    def __init__(self):
+        self.events = []
+
+    def __enter__(self):
+        import torch
+
+        from vulkan_raytracer_tpu_torch.render import graphs
+
+        self._launch = launch = graphs._Program.launch
+
+        def timed(program, device_loops):
+            if not device_loops:
+                return launch(program, device_loops)
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            launch(program, device_loops)
+            end.record()
+            self.events.append((start, end))
+
+        graphs._Program.launch = timed
+        return self
+
+    def __exit__(self, *exc):
+        from vulkan_raytracer_tpu_torch.render import graphs
+
+        graphs._Program.launch = self._launch
+
+    def ms(self) -> float:
+        total = 0.0
+        for start, end in self.events:
+            end.synchronize()
+            total += start.elapsed_time(end)
+        return total
 
 
 def _side(walls, prof_s, trace, record) -> dict:
@@ -338,26 +437,53 @@ def _side(walls, prof_s, trace, record) -> dict:
 
 
 def _sides(rule) -> dict:
-    """side -> (graphs predicate, repack predicate) patched in for it."""
+    """side -> (graphs predicate, device-loops predicate, repack predicate)
+    patched in for it."""
     from vulkan_raytracer_tpu_torch.render import graphs
 
-    def eager(tables):
+    def off(tables):
         return False
 
-    return {"graphs": (graphs._graphs_preferred, rule), "eager": (eager, rule),
-            "unsorted": (eager, eager)}
+    g, loops = graphs._graphs_preferred, graphs._device_loops_preferred
+    return {"device": (g, loops, rule), "replay": (g, off, rule), "eager": (off, off, rule),
+            "unsorted": (off, off, off)}
+
+
+def _patch(g, loops, rule) -> None:
+    from vulkan_raytracer_tpu_torch.render import graphs, integrator
+
+    graphs._graphs_preferred, graphs._device_loops_preferred = g, loops
+    integrator._repack_preferred = rule
 
 
 def _launches() -> dict:
+    """The hand-written kernels' launches, which every side shares."""
     from vulkan_raytracer_tpu_torch.ops import dense, traverse
 
     return {**dense.LAUNCHES, **traverse.LAUNCHES}
 
 
-def _reset() -> None:
-    from vulkan_raytracer_tpu_torch.ops import dense, instanced, traverse
+def _widths() -> dict:
+    """The bounce widths, which every side but the unsorted one shares."""
     from vulkan_raytracer_tpu_torch.render import integrator
 
+    return dict(integrator.BOUNCE_WIDTHS)
+
+
+def _counted() -> dict:
+    """Each launch counter, ``loop_cond_kernel``'s included."""
+    from vulkan_raytracer_tpu_torch.ops import dense, traverse
+    from vulkan_raytracer_tpu_torch.render import graphs
+
+    return {**dense.LAUNCHES, **traverse.LAUNCHES, **graphs.LAUNCHES}
+
+
+def _reset() -> None:
+    from vulkan_raytracer_tpu_torch.ops import dense, instanced, traverse
+    from vulkan_raytracer_tpu_torch.render import graphs, integrator
+
+    graphs.settle()  # no device loop's counts left to fold in after the reset
+    graphs.LAUNCHES["loop_cond"] = 0
     dense.reset_launches()
     traverse.reset_launches()
     instanced.reset_stats()
@@ -402,59 +528,88 @@ def main(argv=None) -> int:
                     aspect=width / height)
     lanes, samples, bands = first_wave(tables, width, height, spp)
     run = wave(tables, camera, width, height, depth, lanes, samples)
-    rule, preferred = integrator._repack_preferred, graphs._graphs_preferred
+    rule = integrator._repack_preferred
     sides = _sides(rule)
+    kept = sides["device"]
     if not rule(tables):
         del sides["unsorted"]
     walls = {name: [] for name in sides}
-    radiance, rays, launches, loops = {}, {}, {}, {}
+    program_ms = []  # the device side's program, CUDA-event timed in the unprofiled reps
+    radiance, rays, launches, loops, widths = {}, {}, {}, {}, {}
     try:
         graphs.reset_stats()
-        for name, (g, r) in sides.items():  # warm up: kernels build, graphs capture
-            graphs._graphs_preferred, integrator._repack_preferred = g, r
+        for name, patch in sides.items():  # warm up: kernels build, the program captures
+            _patch(*patch)
             _reset()
             radiance[name], rays[name] = _timed(run)[1:]
-            launches[name], loops[name] = _launches(), _alpha_loop()
-        captures = {**graphs.STATS, "graphs": len(graphs.cache(tables).graphs),
+            launches[name], loops[name], widths[name] = _launches(), _alpha_loop(), _widths()
+        captures = {**graphs.STATS, "programs": len(graphs.cache(tables).graphs),
                     "pool_bytes": graphs.cache(tables).pool_bytes(),
                     "mirror_bytes": graphs.cache(tables).mirror_bytes(),
-                    "graphs_preferred": preferred(tables)}
+                    "graphs_preferred": kept[0](tables)}
         for r in range(args.reps):
             for name in list(sides)[::1 if r % 2 == 0 else -1]:
-                graphs._graphs_preferred, integrator._repack_preferred = sides[name]
+                _patch(*sides[name])
                 _reset()
-                secs, got, got_rays = _timed(run)
+                with ProgramEvents() as events:
+                    secs, got, got_rays = _timed(run)
                 walls[name].append(secs)
-                if not (torch.equal(got, radiance["graphs"]) and got_rays == rays["graphs"]
-                        and _launches() == launches["graphs"]
-                        and _alpha_loop() == loops["graphs"]):
-                    raise AssertionError(f"the {name} wave differs from the graphs one")
+                if name == "device":
+                    program_ms.append(events.ms())
+                differ = [k for k, same in (
+                    ("radiance", torch.equal(got, radiance["device"])),
+                    ("rays", got_rays == rays["device"]),
+                    ("launches", _launches() == launches["device"]),
+                    ("alpha loop", _alpha_loop() == loops["device"]),
+                    ("bounce widths", name == "unsorted" or _widths() == widths["device"]))
+                    if not same]
+                if differ:
+                    raise AssertionError(f"the {name} wave's {differ} differ from the device "
+                                         f"one's")
         out_sides = {}
-        for name, (g, r) in sides.items():
-            graphs._graphs_preferred, integrator._repack_preferred = g, r
+        for name, patch in sides.items():
+            _patch(*patch)
+            _reset()
             torch.cuda.reset_peak_memory_stats()
-            syncs, sync_lines = count_syncs(run)
+            with LaunchSyncs() as inside:
+                syncs, sync_lines = count_syncs(run)
             peak = torch.cuda.max_memory_allocated()
-            record = record_bounces(run) if name != "graphs" else {}
+            record = record_bounces(run) if name in ("eager", "unsorted") else {}
             _reset()
             with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                     torch.profiler.ProfilerActivity.CUDA]) as prof:
                 prof_s = _timed(run)[0]
             trace = trace_summary(prof)
-            check_traced_launches(trace, _launches(), f"{args.config} {name}")
+            label = f"{args.config} {name}"
+            if name == "device":
+                traced = check_device_trace(trace, _counted(), label)
+            else:
+                traced = check_traced_launches(trace, _counted(), label)
             out_sides[name] = {**_side(walls[name], prof_s, trace, record),
                                "host_syncs": syncs, "host_sync_lines": sync_lines,
-                               "peak_allocated_bytes": peak,
+                               "host_syncs_in_launches": inside.count,
+                               "peak_allocated_bytes": peak, "traced_launches": traced,
                                "alpha_loop": _alpha_loop()}
+            if name == "device":
+                out_sides[name].update(program_ms=program_ms,
+                                       program_ms_median=statistics.median(program_ms),
+                                       loop_cond_launches=graphs.LAUNCHES["loop_cond"])
+        if "replay" in out_sides and "kernel_ms_busy" in out_sides["replay"]:
+            # the device side's trace misses reruns of its loop bodies: its
+            # busy time is the replay's, which runs the same kernels
+            busy = out_sides["replay"]["kernel_ms_busy"]
+            d = out_sides["device"]
+            d["busy_share_unprofiled_from_replay"] = busy / (d["wall_s_median"] * 1e3)
+            d["idle_share_unprofiled_from_replay"] = 1.0 - d["busy_share_unprofiled_from_replay"]
     finally:
-        graphs._graphs_preferred, integrator._repack_preferred = preferred, rule
+        _patch(*kept)
     out = {
         "config": f"{args.config} wave: {scene} {width}x{height} depth {depth}, {spp} spp",
         "nvidia_smi": smi, "torch": torch.__version__,
         "repack_preferred": rule(tables), "bands": bands, "pixels": len(lanes),
-        "samples": samples, "lanes": len(lanes) * len(samples), "rays": rays["graphs"],
-        "launches": launches["graphs"], "captures": captures,
-        "radiance_finite": bool(torch.isfinite(radiance["graphs"]).all()),
+        "samples": samples, "lanes": len(lanes) * len(samples), "rays": rays["device"],
+        "launches": launches["device"], "captures": captures,
+        "radiance_finite": bool(torch.isfinite(radiance["device"]).all()),
         "radiance_bit_equal": True, "sides": out_sides,
     }
     if tables.inst is not None:

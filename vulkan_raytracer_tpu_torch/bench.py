@@ -28,7 +28,7 @@ bench.py.  Rays are counted as ``render_image`` counts them: camera, bounce,
 NEE shadow and MIS pdf-probe rays.  bench.py's ``vs_baseline`` (the ratio to
 a 150 Mrays/s target set for the TPU) is left out.  Added here: ``rays`` of
 one frame, ``times_s`` (every rep), ``launches`` (each kernel's launches in
-the last rep, ``{"dense": {...}, "traverse": {...}}``), that rep's
+the last rep, ``{"dense": {...}, "traverse": {...}, "graphs": {"loop_cond": n}}``), that rep's
 ``bands``, ``waves`` and ``peak_memory_bytes``, ``graphs_captured`` (per
 rep: 0), and the set-up apart from
 the reps: ``upload_s`` (building and uploading the scene), ``gate_s`` and
@@ -51,12 +51,12 @@ cfg2-cfg5 (and cfg1 of the glTF) read ``bench_goldens.npz``
 
 Warm-up: the kernels build on first use (``ops/_ext.py``), then each
 config renders its whole frame once: the CUDA context and the caching
-allocator warm up, and every bounce a frame replays from a CUDA graph
-(``render/graphs.py``) is captured there.  How far a frame's bands go down
-the width ladder depends on their data, so a band alone (bench.py's warm-up
-for banded configs) would leave bounces for the reps to capture; the frame
-is deterministic, so the reps reach no bounce the warm-up did not.  A rep
-that captured a graph ends the run nonzero.
+allocator warm up, and the program of every wave shape a frame launches
+(``render/graphs.py``: a wave is one captured program whose loops run on
+the card) is captured there.  A ragged last band is a wave shape of its
+own, so a band alone (bench.py's warm-up for banded configs) could leave a
+program for the reps to capture.  A rep that captured a program ends the
+run nonzero.
 
 There is no fallback: without CUDA the bench exits nonzero before it renders
 anything; a missing or stale golden, a gate above its bar, an all-black
@@ -210,8 +210,10 @@ def _reset_launches() -> None:
 
 
 def launch_counts() -> dict:
-    """Each kernel's launches since the last reset, by module."""
-    return {"dense": dict(dense.LAUNCHES), "traverse": dict(tr.LAUNCHES)}
+    """Each kernel's launches since the last reset, by module (``graphs``:
+    the device loops' ``loop_cond_kernel``, reset with ``graphs.STATS``)."""
+    return {"dense": dict(dense.LAUNCHES), "traverse": dict(tr.LAUNCHES),
+            "graphs": dict(graphs.LAUNCHES)}
 
 
 class _Cfg:

@@ -32,7 +32,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = (CSRC / "dense_sweep.cu", CSRC / "bvh_walk.cu")
+SOURCES = (CSRC / "dense_sweep.cu", CSRC / "bvh_walk.cu", CSRC / "graph_loops.cu")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -45,10 +45,15 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
+_LL = ctypes.c_longlong
 _RAYS = [_P] * 6  # ox, oy, oz, dx, dy, dz
 _STREAMS = [_P, _P, _I]  # nodes, tris, num_nodes
+_TEST = [_P, _I, _P, _LL, _P]  # b, max_depth, count, floor, row of a loop_cond_kernel test
 
-#: argtypes of each C launcher, the device index first and the stream last
+#: argtypes of each C function: the kernel launchers take the device index
+#: first and the stream last; the graph functions (csrc/graph_loops.cu) take
+#: graphs and nodes as pointers and hand back what they make through
+#: pointers
 _SIGNATURES = {
     # (device, table, n_tris, rays, ...)
     "dense_closest_launch": [_I, _P, _I] + _RAYS + [_P, _P, _P, _P, _I, _P],
@@ -61,6 +66,17 @@ _SIGNATURES = {
     + [_P, _P, _P, _P, _I, _P],
     # (device, nodes, rows, num_nodes, rays, active, t_min, pdf_out, n_rays, stream)
     "emissive_walk_launch": [_I] + _STREAMS + _RAYS + [_P, _F, _P, _I, _P],
+    # (graph, out: nodes, out: type of the first node a conditional body may not hold)
+    "graph_loops_check": [_P, _P, _P],
+    "graph_loops_versions": [_P, _P],  # (out: driver, out: runtime)
+    "graph_loops_create": [_P],  # (out: graph)
+    "graph_loops_add_child": [_P, _P, _P],  # (graph, in/out: tail node, child graph)
+    # (graph, in/out: tail, is_while, test, out: handle, out: body graph)
+    "graph_loops_add_conditional": [_P, _P, _I] + _TEST + [_P, _P],
+    "graph_loops_add_test": [_P, _P, ctypes.c_uint64] + _TEST,  # (body, in/out: tail, handle, test)
+    "graph_loops_instantiate": [_I, _P, _P],  # (device, graph, out: exec)
+    "graph_loops_launch": [_I, _P, _P],  # (device, exec, stream)
+    "graph_loops_destroy": [_P, _P],  # (graph, exec)
 }
 
 
@@ -139,6 +155,8 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.dense_sweep_error_string.argtypes = [ctypes.c_int]
     lib.dense_sweep_error_string.restype = ctypes.c_char_p
+    lib.graph_loops_node_type_name.argtypes = [ctypes.c_int]
+    lib.graph_loops_node_type_name.restype = ctypes.c_char_p
     return lib
 
 

@@ -9,10 +9,9 @@ and the image is gathered once.
 The mesh is an ordered list of ``torch.device``, one per shard
 (:func:`make_mesh`).  A device may appear more than once; shards on one
 device share one replica of the tables.  The shards of one process run **in
-turn**: the integrator is eager PyTorch whose bounce loop the host drives
-(a host sync per bounce, one kernel launch per step), so it is bound by the
-host, and a Python thread per shard would only contend for the interpreter
-lock.  One process per card is how the port scales out
+turn**: the host drives each wave (its rays, its state, the launch of its
+program), and a Python thread per shard would only contend for the
+interpreter lock.  One process per card is how the port scales out
 (:mod:`.multihost`); the shards of a process only split its lanes the way
 the fleet does.
 
@@ -30,6 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..render import graphs
 from ..render.integrator import render_sample
 from ..render.renderer import _postprocess, block_order, camera_uniforms, render_lanes
 from ..scene.scenegraph import target_device
@@ -143,5 +143,5 @@ def render_image_sharded(tables, camera, width: int, height: int, spp: int, max_
         img = torch.zeros((n, 3), dtype=torch.float32, device=dev)
         img[torch.as_tensor(lanes_all, device=dev).long()] = rows
         img = _postprocess(img, spp, tonemap, False).cpu().numpy().reshape(height, width, 3)
-        total_rays = int(rays)
+        total_rays, = graphs.settle(rays)
     return img, total_rays

@@ -1,107 +1,142 @@
-"""Captured bounces: the port's counterpart of the JAX package's ``jit``.
+"""Captured waves: the port's counterpart of the JAX package's ``jit``.
 
 The JAX renderer compiles a frame into one program (render/renderer.py:34,
 52, 112): its waves scan under ``lax.scan``, its bounce loop is a
 ``lax.while_loop`` whose live-lane test runs on the device
-(render/integrator.py:1051-1069), and on a scene with alpha each ray query
-is one more ``lax.while_loop``, the accept/reject resample loop
-(integrator.py:165-217).  The port runs the same bounce op by op from
-Python, thousands of small launches a bounce.  Here each bounce of a wave is
-captured once as CUDA graphs and replayed: the host then does per bounce
-what JAX's loop conditions do, one read of the live count
-(``integrator.render_sample``), and one read of the pending count per pass
-of a resample loop.
+(render/integrator.py:1051-1069), the width ladder's phases are further
+``while_loop``s (:1071-1124) with ``lax.cond`` re-sorts (:1063, :1089), and
+on a scene with alpha each ray query is one more ``lax.while_loop``, the
+accept/reject resample loop (:165-217).  Here a wave, from its initial
+state to its radiance, is one program, captured once and launched once:
+its straight code as CUDA graphs, its loops as conditional WHILE nodes and
+its re-sorts as conditional IF nodes, whose conditions a hand-written
+kernel sets on the card (``csrc/graph_loops.cu`` ``loop_cond_kernel``).
+The host reads nothing inside a wave.
 
 Where: CUDA tables (:func:`_graphs_preferred`), with alpha or without.
 Tests and tools get the eager side by patching ``graphs._graphs_preferred``
-(there is no switch); a capture or replay error raises.
+and the plain version of the device loops, the host-read replay, by
+patching ``graphs._device_loops_preferred`` (there is no switch); a
+capture, build, instantiation or launch error raises, and nothing falls
+back to another side.
 
-A captured step is a program of parts.  Without alpha it is one graph.  On
-a scene with alpha the bounce's two resample loops (``integrator._closest``
-on the bounce's own ray and on the occlusion ray) split it: at a loop the
-capture closes the open segment, captures one pass of the loop
-(``integrator._alpha_pass``: a closest-hit launch, the alpha test, the
-updates written over the loop's state, then the count of pending lanes) as
-a graph of its own, and opens the next segment.  A replay replays each
-segment once and each pass while its count, read on the host (JAX's
-``jnp.any(pending)`` on the device), is not 0.  Two reads are spared: the
-bounce's own loop starts on the wave's live lanes, which the bounce loop
-counted and found alive, so its first pass needs none; the occlusion loop
-starts on the next state's live lanes, so its first read is the next
-bounce's live count (:meth:`_Program.replay` returns it).
+A program is a tree (``integrator._wave_program`` builds it through a
+:class:`_Capture`).  Its leaves are parts: the code between two loop
+boundaries, each captured as a ``torch.cuda.CUDAGraph(keep_graph=True)``.
+Its inner nodes are a WHILE or an IF with a :class:`Cond` (a device count
+above a floor and, for the bounce loop, the device bounce index ``b`` at
+most ``max_depth``) and a body of parts and nodes.  A wave is::
+
+    phase(n, floor)  = WHILE (b <= max_depth && live > floor)
+                           { [IF sort_next: sort]; bounce(b); b += 1 }
+    bounce           = segment; WHILE (pending) { alpha pass }; segment;
+                       WHILE (pending) { alpha pass }; segment
+    wave             = phase(n, n/2); IF more: sort; split; phase(n/2, n/4);
+                       IF more: sort; split; phase(n/4, 0); join; radiance
+
+on a repacked scene whose width divides by 4 (the ladder), else
+``phase(n, 0); radiance``; an alpha-free bounce is one segment.
+:meth:`_Program.launch` runs it one of two ways:
+
+* **device loops** (the main path): the C side stitches the parts into one
+  parent graph (each a child graph node, each WHILE and IF a conditional
+  node with a ``loop_cond_kernel`` entry test before it and, for a WHILE,
+  one more ending its body), instantiates it once and launches it on the
+  current stream;
+* **host-read replay** (the plain version): :meth:`_Program.interpret`
+  walks the same tree on the host, replays each part's graph and reads
+  each condition on the host (one read per test; the stand-in graphs of
+  the CPU tests run here).
 
 The cache is keyed as ``jit`` keys its programs: by the tables'
 :func:`signature` (each count, flag and None among their leaves, each
-tensor's shape, dtype and device: all a bounce branches on), not by the
+tensor's shape, dtype and device: all a wave branches on), not by the
 tables object.  The graphs are captured against a mirror of the tables, a
-copy whose tensors belong to the cache (:meth:`GraphCache.bind`).  A step
+copy whose tensors belong to the cache (:meth:`GraphCache.bind`).  A wave
 with another tables object of the signature first copies that object's
 tensors, and the tables it derives from them on first use
 (``SceneTables``' cached properties, built on that object), into the
 mirror: once per change of tables, timed and counted in :data:`STATS`.  So
-``Scene.refit``'s new tables replay the graphs captured before it, and the
-old tables go on rendering the old scene.  The mirror holds the scene's
+``Scene.refit``'s new tables replay the programs captured before it, and
+the old tables go on rendering the old scene.  The mirror holds the scene's
 bytes a second time (:meth:`GraphCache.mirror_bytes`).  A cache
 (:func:`cache`) goes when the last tables object of its signature does.
-Within it a program is keyed by what changes the captured code: the wave
-width, the bounce, ``max_depth``, the NEE weighting, whether the step sorts
-first and whether the scene is repacked.  At most :data:`MAX_GRAPHS`
-programs are kept, the least recently used dropped first (a viewer's
-resizes and shard widths make new widths).
+Within it a program is keyed by the wave's width and fields, ``max_depth``,
+the NEE weighting and whether the scene is repacked: one program per wave
+shape.  At most :data:`MAX_GRAPHS` programs are kept, the least recently
+used dropped first with their parent graph (a viewer's resizes and shard
+widths make new widths).
 
-Memory.  Each width has one static state: the wave's fields, allocated
-outside any capture.  A step copies the caller's state into it (``copy_``,
-skipped when the caller hands it back), replays, and the last part writes
-the next state over it; the rays the step traced land in a static scalar
-of the program's own.  So nothing a caller reads lies in the graphs'
-memory pool, one pool per cache: it holds the parts' temporaries, which
-every capture takes on the cache's one capture stream and which programs
-replayed in any order may share because one stream runs them one after
-another, and each resample loop's state and count, which the program keeps
-for its lifetime so that no later capture in the pool takes their memory.
+Memory.  Each program has a static input state, the wave's fields,
+allocated outside any capture: a launch copies the caller's state into it,
+and the first phase writes each bounce's next state over it.  Everything
+else the program's parts allocate (the ladder's narrower states, each
+resample loop's state and count, ``b``, the live count, the rays and the
+radiance) lies in the graphs' memory pool, one pool per cache, which every
+capture takes on the cache's one capture stream; the program keeps its
+parts' graphs and what its conditions read for its lifetime.  Programs of
+one cache run one after another on one stream, so they may share the
+temporaries of the pool.  A launch hands the caller copies of the radiance
+and the rays, so nothing a caller reads lies in the pool.
 
 The eager warm-up before each capture builds the tables a bounce builds on
 first use (the mirror's cached properties, the Morton table) outside the
 capture: made inside it, they would come from the graphs' pool.
 
 Counters.  The launch counters (``dense.LAUNCHES``, ``traverse.LAUNCHES``),
-``instanced.STATS`` and ``integrator.BOUNCE_WIDTHS`` are Python-side: a
-replay of a part adds what its capture counted, so a wave counts as it does
-eagerly; ``integrator.ALPHA_LOOP`` is counted on the host per replayed
-loop.  The warm-up before a capture counts nothing.  That a replay launches
-what its capture counted is measured, not assumed: ``chip_smoke.py``'s
-``graphs_busy`` phase and ``tools/profile_torch_wave.py`` hold each
-kernel's launches in a profiled replay against the counters.
+``instanced.STATS``, ``integrator.BOUNCE_WIDTHS`` and
+``integrator.ALPHA_LOOP`` are Python-side.  Each part's capture records
+what it counted; each conditional node has a row of four device counters
+that its tests keep (bodies run, entries, the bodies of the current entry
+and the most bodies one entry ran).  A launch on the card adds nothing on
+the host: :func:`settle` reads every row since the last settle in the read
+that ends a frame (``renderer.render_image``'s ray count, the progressive
+``Renderer``'s ``rays_traced``) and adds each part's counts times the runs
+of its body, and the alpha loops' calls, passes and most passes a call.  A
+caller that reads the counters after ``render_sample`` without such a read
+calls :func:`settle` first.  :data:`LAUNCHES` counts ``loop_cond_kernel``'s
+launches the same way.  The host-read replay counts as it goes.  The
+warm-up before a capture counts nothing.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import ctypes
 import functools
 import time
+import warnings
 import weakref
 
 import torch
 
+from ..ops import _ext
 from ..ops.math3 import V3
 from ..scene.scenegraph import map_tables
 
-#: Programs kept per cache (cfg5 steps three ladder widths over nine
-#: bounces: 27).
-MAX_GRAPHS = 48
+#: Programs kept per cache: one per wave shape (a frame's waves share one).
+MAX_GRAPHS = 16
 
 #: Since the last reset: programs ``captured``, their ``capture_s`` (warm-up,
-#: capture and instantiation), steps replayed (``replays``), resample
-#: ``passes`` replayed, and the mirror's fills (``copies``, made or copied
-#: into) with their ``copy_bytes``.
-STATS = {"captured": 0, "capture_s": 0.0, "replays": 0, "passes": 0, "copies": 0,
-         "copy_bytes": 0}
+#: capture and instantiation), program ``launches`` (waves), bounces
+#: replayed (``replays``), resample ``passes`` replayed, re-sorts run
+#: (``sorts``), and the mirror's fills (``copies``, made or copied into)
+#: with their ``copy_bytes``.  A launch on the card counts its bounces,
+#: passes and re-sorts at :func:`settle`.
+STATS = {"captured": 0, "capture_s": 0.0, "launches": 0, "replays": 0, "passes": 0,
+         "sorts": 0, "copies": 0, "copy_bytes": 0}
+#: ``loop_cond_kernel``'s launches (each node's entry tests and each WHILE
+#: body's closing tests) since the last reset, counted at :func:`settle`.
+LAUNCHES = {"loop_cond": 0}
 _COPY_EVENTS: list = []  # (start, end) CUDA events of each fill since the last reset
+_PENDING: dict = {}  # program -> None: programs launched on the card since the last settle
 
 
 def reset_stats() -> None:
-    STATS.update(captured=0, capture_s=0.0, replays=0, passes=0, copies=0, copy_bytes=0)
+    STATS.update(captured=0, capture_s=0.0, launches=0, replays=0, passes=0, sorts=0,
+                 copies=0, copy_bytes=0)
+    LAUNCHES["loop_cond"] = 0
     _COPY_EVENTS.clear()
 
 
@@ -116,7 +151,14 @@ def copy_seconds() -> float:
 
 
 def _graphs_preferred(tables) -> bool:
-    """Are this scene's bounces captured and replayed?  On CUDA tables."""
+    """Is this scene's wave captured and launched as a program?  On CUDA
+    tables."""
+    return tables.device.type == "cuda"
+
+
+def _device_loops_preferred(tables) -> bool:
+    """Does a program run its loops on the card (else the host-read
+    replay)?  On CUDA tables."""
     return tables.device.type == "cuda"
 
 
@@ -126,7 +168,7 @@ def _graphs_preferred(tables) -> bool:
 
 
 def signature(tables) -> tuple:
-    """What a captured bounce depends on beside the values in the tables'
+    """What a captured wave depends on beside the values in the tables'
     tensors: each leaf's path with, for a tensor, its shape, dtype and
     device, else its type and value (a count, a flag, None)."""
     out = []
@@ -228,45 +270,103 @@ def _delta(counters, kept) -> list:
             for c, was in zip(counters, kept)]
 
 
-def _add(counters, delta) -> None:
+def _add(counters, delta, times: int = 1) -> None:
+    if not times:  # a body that never ran counts nothing, not a 0 under its key
+        return
     for c, d in zip(counters, delta):
         for k, v in d.items():
-            c[k] = c.get(k, 0) + v
+            c[k] = c.get(k, 0) + v * times
 
 
 # ---------------------------------------------------------------------------
-# Capture and replay
+# Programs: capture
 # ---------------------------------------------------------------------------
 
 
-class _Loop:
-    """A resample loop of a captured step: its pass's count of pending lanes
-    (a device scalar the segment before the loop and the pass write), whether
-    its first pass needs no read (``first``) and whether its first count is
-    the next state's live count (``live``), the callback that counts the
-    passes of a replay, and what the program keeps alive (the pass's inputs
-    and the loop's state)."""
+class Cond:
+    """The condition of a loop or an IF: the device count ``count`` (int64)
+    above ``floor`` and, where ``b`` (an int32 device scalar) is given, ``b``
+    at most ``max_depth``.  The program's parts write both."""
 
-    def __init__(self, count, first: bool, live: bool, done, keep):
-        self.count, self.first, self.live, self.done, self.keep = count, first, live, done, keep
+    def __init__(self, count, floor: int = 0, b=None, max_depth: int = 0):
+        self.count, self.floor, self.b, self.max_depth = count, floor, b, max_depth
+
+    def test(self) -> bool:
+        """The condition read on the host (the plain version of the test
+        ``loop_cond_kernel`` makes on the card)."""
+        return int(self.count) > self.floor and (self.b is None
+                                                 or int(self.b) <= self.max_depth)
 
 
 class _Part:
-    """A graph of a program, what its capture counted and, for a pass, its
-    loop."""
+    """A leaf of a program: a captured graph and what its capture counted."""
 
-    def __init__(self, graph, delta, loop: _Loop | None):
-        self.graph, self.delta, self.loop = graph, delta, loop
+    def __init__(self, graph, delta):
+        self.graph, self.delta = graph, delta
+
+
+class _Node:
+    """A WHILE or an IF of a program: its condition, its body (parts and
+    nodes), its row of counters, its ``role`` (``"phase"``: the bounce loop;
+    ``"alpha"``: a resample loop; ``"sort"``: a re-sort) and, for a
+    resample loop, ``done(passes, calls, most)``, which counts them in
+    ``integrator.ALPHA_LOOP``."""
+
+    def __init__(self, kind: str, cond: Cond, row: int, role: str, done=None):
+        self.kind, self.cond, self.row, self.role, self.done = kind, cond, row, role, done
+        self.body: list = []
+
+
+class _TorchGraph:
+    """A part's graph: a ``torch.cuda.CUDAGraph`` that keeps its
+    ``cudaGraph_t`` (``keep_graph=True``), which the C side clones into the
+    parent graph."""
+
+    def __init__(self):
+        if not hasattr(torch.cuda.CUDAGraph, "raw_cuda_graph"):
+            raise RuntimeError(f"torch {torch.__version__} has no CUDAGraph(keep_graph=True) "
+                               "with raw_cuda_graph(): the device loops need both")
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+
+    def capture_begin(self, pool=None) -> None:
+        self.graph.capture_begin(pool=pool)
+
+    def capture_end(self) -> None:
+        with warnings.catch_warnings():  # an empty part is dropped, not an error
+            warnings.filterwarnings("ignore", message=".*CUDA Graph is empty.*")
+            self.graph.capture_end()
+
+    def raw(self) -> int:
+        return self.graph.raw_cuda_graph()
+
+    def nodes(self) -> int:
+        """The part's node count; raises, naming the node, where it holds one
+        a conditional body may not."""
+        lib = _ext.library()
+        n, bad = ctypes.c_int(), ctypes.c_int()
+        _ext.check(lib, lib.graph_loops_check(self.raw(), ctypes.byref(n), ctypes.byref(bad)),
+                   "graph_loops_check")
+        if bad.value >= 0:
+            name = lib.graph_loops_node_type_name(bad.value).decode()
+            raise RuntimeError(f"a captured part holds a {name} node, which a conditional "
+                               "graph body may not hold")
+        return n.value
+
+    def replay(self) -> None:
+        self.graph.replay()
 
 
 class _Capture:
-    """A step being captured into parts, all in one memory pool.  ``graph``
-    makes a graph (``torch.cuda.CUDAGraph``; the tests give a stand-in)."""
+    """A program being captured: its tree of parts and nodes, all in one
+    memory pool.  ``graph`` makes a part's graph (:class:`_TorchGraph`; the
+    CPU tests give a stand-in with the same methods)."""
 
     def __init__(self, pool, counters, graph=None):
         self.pool, self.counters = pool, counters
-        self.new_graph = graph or torch.cuda.CUDAGraph
-        self.parts: list = []
+        self.new_graph = graph or _TorchGraph
+        self.nodes: list = []  # the program's top level
+        self.conds: list = []  # every node, in the order of their rows
+        self._open = [self.nodes]  # the bodies being filled, innermost last
         self.graph = None
 
     def begin(self) -> None:
@@ -274,10 +374,14 @@ class _Capture:
         self.graph = self.new_graph()
         self.graph.capture_begin(pool=self.pool)
 
-    def end(self, loop: _Loop | None = None) -> None:
+    def end(self) -> None:
         graph, self.graph = self.graph, None
         graph.capture_end()
-        self.parts.append(_Part(graph, _delta(self.counters, self.kept), loop))
+        delta = _delta(self.counters, self.kept)
+        if graph.nodes():
+            self._open[-1].append(_Part(graph, delta))
+        elif any(delta):
+            raise RuntimeError(f"a captured part counted {delta} but launched nothing")
 
     def abort(self) -> None:
         """End a capture left open by an error (the error goes on)."""
@@ -286,22 +390,42 @@ class _Capture:
             with contextlib.suppress(Exception):
                 graph.capture_end()
 
-    def loop(self, body, st: dict, *, first: bool, live: bool, done) -> dict:
-        """``while a lane of st["pending"] is pending: st = body(st)``, as
-        captured parts: the open segment ends with the loop's state in
-        buffers of its own and the count of its pending lanes; one pass,
-        written over that state, is a part of its own; the next segment
-        opens.  Returns the state after the loop (the same buffers)."""
+    def _node(self, kind: str, cond: Cond, body, role: str, done=None) -> None:
+        self.end()
+        node = _Node(kind, cond, len(self.conds), role, done)
+        self.conds.append(node)
+        self._open.append(node.body)
+        self.begin()
+        body()
+        self.end()
+        self._open.pop()
+        self._open[-1].append(node)
+        self.begin()
+
+    def while_(self, cond: Cond, body, role: str, done=None) -> None:
+        """``while cond: body()``: the open part ends, ``body``'s code is
+        captured once as the loop's body, and the next part opens."""
+        self._node("while", cond, body, role, done)
+
+    def if_(self, cond: Cond, body, role: str = "sort") -> None:
+        """``if cond: body()``, captured as :meth:`while_` captures."""
+        self._node("if", cond, body, role)
+
+    def loop(self, body, st: dict, *, done) -> dict:
+        """The resample loop ``while a lane of st["pending"] is pending: st =
+        body(st)``: its state in buffers of its own, and a WHILE on the
+        count of its pending lanes whose pass writes the next state over
+        them.  Returns the state after the loop (the same buffers)."""
         st = {k: v.clone() for k, v in st.items()}
         count = st["pending"].sum()
-        self.end()
-        self.begin()
-        nxt = body(st)
-        for k, v in st.items():
-            v.copy_(nxt[k])
-        count.copy_(st["pending"].sum())
-        self.end(_Loop(count, first, live, done, (body, st)))
-        self.begin()
+
+        def one_pass():
+            nxt = body(st)
+            for k, v in st.items():
+                v.copy_(nxt[k])
+            count.copy_(st["pending"].sum())
+
+        self.while_(Cond(count), one_pass, "alpha", done)
         return st
 
 
@@ -309,7 +433,7 @@ _CAPTURING: list = []  # the capture in progress
 
 
 def current_capture() -> _Capture | None:
-    """The step capture in progress, if any: the integrator hands it its
+    """The program capture in progress, if any: the integrator hands it its
     resample loops."""
     return _CAPTURING[-1] if _CAPTURING else None
 
@@ -326,42 +450,182 @@ def capturing(cap: _Capture):
         _CAPTURING.pop()
 
 
+# ---------------------------------------------------------------------------
+# Programs: launch
+# ---------------------------------------------------------------------------
+
+
+def _c(name: str, *args) -> None:
+    lib = _ext.library()
+    _ext.check(lib, getattr(lib, name)(*args), name)
+
+
+def _destroy(parent: int, exe: int) -> None:
+    _c("graph_loops_destroy", parent, exe)
+
+
 class _Program:
-    """One captured step: its parts, the static state it reads and writes
-    and its rays scalar."""
+    """One captured wave: its tree, the static input state it reads, its
+    outputs (radiance and rays), the counters its parts count into and one
+    row of four int64 counters per node (``stats``, on the wave's device;
+    the tests of the device loops keep them)."""
 
-    def __init__(self, parts: list, state: dict, rays):
-        self.parts, self.state, self.rays = parts, state, rays
+    def __init__(self, nodes: list, conds: list, state: dict, outputs: tuple, counters):
+        self.nodes, self.conds, self.state, self.outputs = nodes, conds, state, outputs
+        self.counters = counters
+        self.stats = torch.zeros((len(conds), 4), dtype=torch.int64,
+                                 device=state["active"].device)
+        self.pending = 0  # launches on the card since the last settle
+        self.exec = None  # the instantiated parent graph, made on the first launch
+        self._finalizer = None
 
-    def replay(self, counters) -> int | None:
-        """Replay the parts in order, each pass while its loop has a pending
-        lane; returns the next state's live count where a loop read it."""
-        live = None
-        for part in self.parts:
-            loop = part.loop
-            if loop is None:
-                part.graph.replay()
-                _add(counters, part.delta)
+    def launch(self, device_loops: bool) -> None:
+        """Run the wave once: on the card (``device_loops``), counted at the
+        next :func:`settle`, or as the host-read replay, counted now."""
+        if not device_loops:
+            rows = [[0, 0, 0, 0] for _ in self.conds]
+            self.interpret(self.nodes, rows)
+            self._fold(rows, 1, device=False)
+            return
+        device = self.stats.device
+        if self.exec is None:
+            self._instantiate(device)
+        _c("graph_loops_launch", device.index, self.exec,
+           torch.cuda.current_stream(device).cuda_stream)
+        self.pending += 1
+        _PENDING[self] = None
+
+    def interpret(self, nodes: list, rows: list) -> None:
+        """The plain version of the device loops: each part's graph replayed,
+        each node's condition read on the host, its row kept as
+        ``loop_cond_kernel`` keeps it."""
+        for node in nodes:
+            if isinstance(node, _Part):
+                node.graph.replay()
                 continue
-            passes = 0
-            while True:
-                if passes or not loop.first:
-                    n = int(loop.count)
-                    if loop.live and not passes:
-                        live = n
-                    if not n:
-                        break
-                part.graph.replay()
-                _add(counters, part.delta)
-                passes += 1
-            STATS["passes"] += passes
-            loop.done(passes)
-        return live
+            go = self._test(node, rows[node.row], entry=True)
+            while go:
+                self.interpret(node.body, rows)
+                if node.kind == "if":
+                    break
+                go = self._test(node, rows[node.row], entry=False)
+
+    @staticmethod
+    def _test(node: _Node, row: list, entry: bool) -> bool:
+        go = node.cond.test()
+        if entry:
+            row[1] += 1
+            row[2] = 0
+        if go:
+            row[0] += 1
+            row[2] += 1
+        else:
+            row[3] = max(row[3], row[2])
+        return go
+
+    def _fold(self, rows: list, launches: int, device: bool) -> None:
+        """Add what ``launches`` launches counted, from their rows: each
+        part's counts times the runs of its body, the nodes' tests (on the
+        card, ``loop_cond_kernel``'s launches), bounces and passes."""
+        def add(nodes, times):
+            for node in nodes:
+                if isinstance(node, _Part):
+                    _add(self.counters, node.delta, times)
+                else:
+                    add(node.body, rows[node.row][0])
+
+        add(self.nodes, launches)
+        STATS["launches"] += launches
+        for node in self.conds:
+            runs, entries, _, most = rows[node.row]
+            if device:
+                LAUNCHES["loop_cond"] += entries + (runs if node.kind == "while" else 0)
+            if node.role == "phase":
+                STATS["replays"] += runs
+            elif node.role == "sort":
+                STATS["sorts"] += runs
+            elif node.role == "alpha":
+                STATS["passes"] += runs
+                node.done(runs, entries, most)
+
+    def _instantiate(self, device) -> None:
+        """Stitch the parts into one parent graph and instantiate it."""
+        parent, exe = ctypes.c_void_p(), ctypes.c_void_p()
+        _c("graph_loops_create", ctypes.byref(parent))
+        try:
+            self._stitch(parent, self.nodes)
+            _c("graph_loops_instantiate", device.index, parent, ctypes.byref(exe))
+        except BaseException:
+            _destroy(parent.value, exe.value)
+            raise
+        self.exec = exe.value
+        self._finalizer = weakref.finalize(self, _destroy, parent.value, exe.value)
+        self._finalizer.atexit = False  # the driver may be gone at exit
+
+    def _stitch(self, graph, nodes: list) -> ctypes.c_void_p:
+        tail = ctypes.c_void_p()
+        row_ptr = self.stats.data_ptr()
+        for node in nodes:
+            if isinstance(node, _Part):
+                _c("graph_loops_add_child", graph, ctypes.byref(tail), node.graph.raw())
+                continue
+            c = node.cond
+            b = None if c.b is None else c.b.data_ptr()
+            args = (b, c.max_depth, c.count.data_ptr(), c.floor, row_ptr + 32 * node.row)
+            handle, body = ctypes.c_uint64(), ctypes.c_void_p()
+            _c("graph_loops_add_conditional", graph, ctypes.byref(tail), node.kind == "while",
+               *args, ctypes.byref(handle), ctypes.byref(body))
+            body_tail = self._stitch(body, node.body)
+            if node.kind == "while":
+                _c("graph_loops_add_test", body, ctypes.byref(body_tail), handle.value, *args)
+        return tail
+
+    def close(self) -> None:
+        """Destroy the parent graph (a launch in flight completes first)."""
+        if self._finalizer is not None:
+            self._finalizer()
+        self.exec = None
+
+
+def settle(*scalars) -> list:
+    """The host values of the 0-d integer tensors ``scalars``, read together
+    with the rows of every program launched on the card since the last
+    settle (one read per device), whose counts are added to the counters
+    here.  The read that ends a frame goes through this."""
+    progs = list(_PENDING)
+    _PENDING.clear()
+    by_device: dict = {}
+    for i, t in enumerate(scalars):
+        by_device.setdefault(t.device, ([], []))[0].append(i)
+    for p in progs:
+        by_device.setdefault(p.stats.device, ([], []))[1].append(p)
+    values: list = [None] * len(scalars)
+    with torch.inference_mode(False), torch.no_grad():
+        for idx, ps in by_device.values():
+            flat = torch.cat([scalars[i].reshape(1).to(torch.int64) for i in idx]
+                             + [p.stats.reshape(-1) for p in ps])
+            host = flat.tolist()
+            for k, i in enumerate(idx):
+                values[i] = host[k]
+            at = len(idx)
+            for p in ps:
+                n = p.stats.shape[0]
+                rows = [host[at + 4 * r:at + 4 * r + 4] for r in range(n)]
+                at += 4 * n
+                p.stats.zero_()
+                p._fold(rows, p.pending, device=True)
+                p.pending = 0
+    return values
+
+
+# ---------------------------------------------------------------------------
+# The cache
+# ---------------------------------------------------------------------------
 
 
 class GraphCache:
-    """The captured steps of one tables signature, their mirror of the
-    tables and their static states."""
+    """The captured waves of one tables signature and their mirror of the
+    tables."""
 
     def __init__(self, sig: tuple):
         self.signature = sig
@@ -373,12 +637,11 @@ class GraphCache:
         # only to the stream it was allocated on, so one stream lets each
         # capture take the temporaries of the captures before it
         self.stream = None
-        self.graphs: collections.OrderedDict = collections.OrderedDict()
-        self.states: dict = {}  # (wave width, fields) -> static state
+        self.graphs: collections.OrderedDict = collections.OrderedDict()  # key -> _Program
 
     def bind(self, tables):
         """The mirror, holding ``tables``' values: made on first use, copied
-        into when the last step ran with another tables object."""
+        into when the last wave ran with another tables object."""
         if self.mirror is None:
             mirror = map_tables(tables, lambda _, v: torch.empty_like(v)
                                 if isinstance(v, torch.Tensor) else v)
@@ -419,64 +682,58 @@ class GraphCache:
                                            for t in _tensors(built[name])]
         return sum(t.numel() * t.element_size() for t in tensors)
 
-    def run(self, tables, key, fn, s: dict, counters):
-        """``fn(mirror, s)`` -> (next state, rays traced) as a replay of its
-        program under ``key`` and the shape of ``s``, captured on first use.
-        Returns the static state, which the next step of the same width
-        takes back without a copy, the rays scalar, which the next replay of
-        this program overwrites, and the next state's live count where the
-        replay read it (else None)."""
-        skey = (s["active"].shape[0], tuple(s))
-        gkey = (skey, key)
+    def run(self, tables, key, s: dict, eager, build, counters):
+        """One wave as a launch of its program under ``key`` and the shape of
+        ``s``, captured on first use: ``build(mirror, state, capture)``
+        captures it (``eager(mirror, state)``, the same wave run eagerly,
+        warms up first).  Returns copies of its (radiance, rays)."""
+        gkey = (s["active"].shape[0], tuple(s), key)
         with torch.inference_mode(False), torch.no_grad():
             mirror = self.bind(tables)
-            entry = self.graphs.get(gkey)
-            if entry is None:
-                static = self.states.get(skey)
-                if static is None:
-                    static = self.states[skey] = _empty_state(s)
-                _copy_state(static, s)
-                entry = self.graphs[gkey] = self._capture(lambda st: fn(mirror, st), static,
-                                                          counters)
+            program = self.graphs.get(gkey)
+            if program is None:
+                program = self.graphs[gkey] = self._capture(mirror, s, eager, build, counters)
                 while len(self.graphs) > MAX_GRAPHS:
-                    self.graphs.popitem(last=False)
-                used = {k[0] for k in self.graphs}
-                self.states = {k: v for k, v in self.states.items() if k in used}
-            else:
-                _copy_state(entry.state, s)
+                    self.graphs.popitem(last=False)[1].close()
             self.graphs.move_to_end(gkey)
-            live = entry.replay(counters)
-        STATS["replays"] += 1
-        return entry.state, entry.rays, live
+            _copy_state(program.state, s)
+            program.launch(_device_loops_preferred(tables))
+            return tuple(t.clone() for t in program.outputs)
 
-    def _capture(self, fn, static: dict, counters) -> _Program:
+    def _capture(self, mirror, s: dict, eager, build, counters) -> _Program:
         t0 = time.perf_counter()
-        device = static["active"].device
+        device = s["active"].device
+        cuda = device.type == "cuda"
         kept = _snapshot(counters)
-        if self.pool is None:
+        static = _empty_state(s)
+        _copy_state(static, s)
+        if cuda and self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
             self.stream = torch.cuda.Stream(device)
-        side = self.stream
+        on_side = torch.cuda.stream(self.stream) if cuda else contextlib.nullcontext()
         # warm-up on the side stream (torch.cuda.graphs): builds what is built
         # on first use (the lazy tables), outside the capture; it counts nothing
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            fn(static)
-        torch.cuda.current_stream(device).wait_stream(side)
+        if cuda:
+            self.stream.wait_stream(torch.cuda.current_stream(device))
+        with on_side:
+            eager(mirror, static)
+        if cuda:
+            torch.cuda.current_stream(device).wait_stream(self.stream)
+            torch.cuda.synchronize(device)
         _restore(counters, kept)
-        rays = torch.zeros((), dtype=torch.int64, device=device)
         cap = _Capture(self.pool, counters)
-        torch.cuda.synchronize(device)
-        with torch.cuda.stream(side), capturing(cap):
+        on_side = torch.cuda.stream(self.stream) if cuda else contextlib.nullcontext()
+        with on_side, capturing(cap):
             cap.begin()
-            out, r = fn(static)
-            _copy_state(static, out)
-            rays.copy_(r)
+            outputs = build(mirror, static, cap)
             cap.end()
         _restore(counters, kept)
+        program = _Program(cap.nodes, cap.conds, static, outputs, counters)
+        if cuda:
+            program._instantiate(device)
         STATS["captured"] += 1
         STATS["capture_s"] += time.perf_counter() - t0
-        return _Program(cap.parts, static, rays)
+        return program
 
     def pool_bytes(self) -> int:
         """Bytes the allocator holds in the graphs' pool."""

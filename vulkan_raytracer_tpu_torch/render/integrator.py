@@ -133,10 +133,12 @@ def _alpha_test(tables, tri, u, v, seed, cand):
     return cand & ~ignore, seed
 
 
-def _count_alpha_loop(passes: int) -> None:
-    ALPHA_LOOP["calls"] += 1
+def _count_alpha_loop(passes: int, calls: int = 1, most: int | None = None) -> None:
+    """Count ``calls`` resample loops that ran ``passes`` passes in all, at
+    most ``most`` in one call (one call: ``passes``)."""
+    ALPHA_LOOP["calls"] += calls
     ALPHA_LOOP["iterations"] += passes
-    ALPHA_LOOP["max"] = max(ALPHA_LOOP["max"], passes)
+    ALPHA_LOOP["max"] = max(ALPHA_LOOP["max"], passes if most is None else most)
 
 
 def _alpha_pass(tables, o: V3, d: V3, t_max, st: dict) -> dict:
@@ -164,7 +166,7 @@ def _alpha_pass(tables, o: V3, d: V3, t_max, st: dict) -> dict:
     )
 
 
-def _closest(tables, o: V3, d: V3, *, t_min, t_max, active, seed, lanes=None):
+def _closest(tables, o: V3, d: V3, *, t_min, t_max, active, seed):
     """traceRayEXT closest hit with any-hit alpha (hit.rahit;
     integrator.py:165-217).  Returns ((t, tri, u, v), seed).
 
@@ -176,12 +178,8 @@ def _closest(tables, o: V3, d: V3, *, t_min, t_max, active, seed, lanes=None):
     Each pass is one closest-hit launch, counted in :data:`ALPHA_LOOP`.
 
     Eagerly the host reads whether a lane is pending before each pass.  In a
-    step being captured the loop becomes a captured pass that a replay
-    repeats while its count of pending lanes is not 0 (:mod:`.graphs`);
-    ``lanes`` says what ``active`` is there: ``"live"``, the wave's live
-    lanes, of which the bounce loop found one at least (the first pass needs
-    no read), or ``"next"``, the next state's live lanes (the first count is
-    the bounce loop's next live count).
+    wave being captured the loop becomes a WHILE node on the count of
+    pending lanes, whose body is one captured pass (:mod:`.graphs`).
     """
     if not tables.has_alpha:
         return _closest_opaque(tables, o, d, t_min=t_min, t_max=t_max, active=active), seed
@@ -195,8 +193,7 @@ def _closest(tables, o: V3, d: V3, *, t_min, t_max, active, seed, lanes=None):
     body = functools.partial(_alpha_pass, tables, o, d, t_max)
     cap = graphs.current_capture()
     if cap is not None:
-        st = cap.loop(body, st, first=lanes == "live", live=lanes == "next",
-                      done=_count_alpha_loop)
+        st = cap.loop(body, st, done=_count_alpha_loop)
     else:
         passes = 0
         while bool(st["pending"].any()):
@@ -206,11 +203,10 @@ def _closest(tables, o: V3, d: V3, *, t_min, t_max, active, seed, lanes=None):
     return (st["t"], st["tri"], st["u"], st["v"]), st["seed"]
 
 
-def _shadow_unsorted(tables, o: V3, d: V3, *, t_max, active, seed, lanes=None):
+def _shadow_unsorted(tables, o: V3, d: V3, *, t_max, active, seed):
     """Occlusion with tMin = 0 (shadow.rahit; integrator.py:270-288).
     Returns (occluded, seed).  On alpha scenes the nearest *accepted* hit
-    within t_max occludes: the query runs the :func:`_closest` loop (with
-    ``lanes``)."""
+    within t_max occludes: the query runs the :func:`_closest` loop."""
     if not tables.has_alpha:
         if tables.inst is not None:
             return instanced_shadow(tables, o, d, t_max=t_max, active=active), seed
@@ -218,23 +214,21 @@ def _shadow_unsorted(tables, o: V3, d: V3, *, t_max, active, seed, lanes=None):
             return bvh_shadow(tables, o, d, t_max=t_max, active=active), seed
         return dense_shadow(tables, o, d, t_max=t_max, active=active), seed
     (_, tri, _, _), seed = _closest(tables, o, d, t_min=0.0, t_max=t_max, active=active,
-                                    seed=seed, lanes=lanes)
+                                    seed=seed)
     return (tri >= 0) & active, seed
 
 
-def _shadow(tables, o: V3, d: V3, *, t_max, active, seed, lanes=None):
+def _shadow(tables, o: V3, d: V3, *, t_max, active, seed):
     """Occlusion query (integrator.py:234-267).  On a repacked scene the
     rays are sorted by their own :func:`_coherence_key` first (NEE rays
     point at the lights, not along the material rays the wave is sorted
     for), and the flags and seeds are scattered back: BLEND alpha draws
     random numbers inside the query, so a seed travels with its lane."""
     if not _repack_preferred(tables):
-        return _shadow_unsorted(tables, o, d, t_max=t_max, active=active, seed=seed,
-                                lanes=lanes)
+        return _shadow_unsorted(tables, o, d, t_max=t_max, active=active, seed=seed)
     perm = torch.argsort(_coherence_key(tables, o, d, ~active), stable=True)
     occ_p, seed_p = _shadow_unsorted(tables, v3_gather(o, perm), v3_gather(d, perm),
-                                     t_max=t_max[perm], active=active[perm], seed=seed[perm],
-                                     lanes=lanes)
+                                     t_max=t_max[perm], active=active[perm], seed=seed[perm])
     occ = torch.empty_like(occ_p).index_copy_(0, perm, occ_p)
     return occ, torch.empty_like(seed).index_copy_(0, perm, seed_p)
 
@@ -627,14 +621,12 @@ def _sample_emissive(tables, hit, seed, mask):
     return radiance, light_dir, t_max, seed
 
 
-def sample_lights(tables, hit, wavelength, view_world: V3, seed, mask, lanes=None):
+def sample_lights(tables, hit, wavelength, view_world: V3, seed, mask):
     """Port of sampleLights (lightsample.glsl:143-173; integrator.py:803-892).
 
     Strategy pick between analytic and emissive NEE, BSDF x cos / pdf with
     balance-heuristic MIS for area lights (delta lights exempt).
     Returns (contribution V3, seed, rays_traced (0-d int64 tensor)).
-    ``lanes="next"``: ``mask`` is the next state's live lanes (the bounce's
-    call), which an occlusion loop traces unpruned (:func:`_closest`).
     """
     has_analytic = tables.num_point + tables.num_directional > 0
     has_emissive = tables.num_emissive_tris > 0
@@ -688,7 +680,7 @@ def sample_lights(tables, hit, wavelength, view_world: V3, seed, mask, lanes=Non
     # ONE occlusion launch for both branches (lightsample.glsl:45, :131)
     ray_o = _offset_origin(hit, light_dir)
     occluded, seed = _shadow(tables, ray_o, light_dir, t_max=t_max, active=trace_mask,
-                             seed=seed, lanes=lanes if trace_mask is mask else None)
+                             seed=seed)
     radiance = radiance.where(~occluded & trace_mask, 0.0)
     if has_emissive:
         # pdf probe over all emissive surfaces along the verified ray
@@ -712,21 +704,22 @@ def sample_lights(tables, hit, wavelength, view_world: V3, seed, mask, lanes=Non
 # ---------------------------------------------------------------------------
 
 
-def _bounce(tables, s: dict, b: int, max_depth: int, nee_weighting: str):
+def _bounce(tables, s: dict, b, max_depth: int, nee_weighting: str):
     """One bounce of every lane of the wave state ``s`` (integrator.py:961-1046):
     returns the next state and the rays traced (material + NEE + terminal
     emissive probes), a 0-d tensor.  A dead lane's fields come out as they
-    went in.  Nothing here reads the device on the host but the resample
-    loops of an alpha scene (:func:`_closest`), which a capture splits the
-    bounce at, so the bounce can be captured (:mod:`.graphs`)."""
+    went in.  ``b`` is the bounce index: a Python int eagerly, an int32
+    device scalar in a captured wave (:func:`_wave_program`).  Nothing here
+    reads the device on the host but the resample loops of an alpha scene
+    (:func:`_closest`), which a capture turns into WHILE nodes, so the
+    bounce can be captured (:mod:`.graphs`)."""
     n = s["active"].shape[0]
     BOUNCE_WIDTHS[n] = BOUNCE_WIDTHS.get(n, 0) + 1
     active, origin, direction = s["active"], s["origin"], s["direction"]
     throughput, mat_pdf, wavelength = s["throughput"], s["mat_pdf"], s["wavelength"]
 
     (t, tri, u, v), seed = _closest(
-        tables, origin, direction, t_min=EPS, t_max=INF, active=active, seed=s["seed"],
-        lanes="live")
+        tables, origin, direction, t_min=EPS, t_max=INF, active=active, seed=s["seed"])
     hit = eval_hit(tables, origin, direction, t, tri, u, v)
 
     miss = tri < 0
@@ -759,8 +752,7 @@ def _bounce(tables, s: dict, b: int, max_depth: int, nee_weighting: str):
     new_origin = hit.pos + hit.normal * off
 
     # NEE for surviving lanes, before the next trace (raygen.rgen:54-56)
-    light, seed, nee_rays = sample_lights(tables, hit, wavelength, view, seed, alive,
-                                          lanes="next")
+    light, seed, nee_rays = sample_lights(tables, hit, wavelength, view, seed, alive)
     nee_throughput = throughput_next if nee_weighting == "reference" else throughput
     value = value + (nee_throughput * light).where(alive, 0.0)
 
@@ -770,30 +762,17 @@ def _bounce(tables, s: dict, b: int, max_depth: int, nee_weighting: str):
     return out, active.sum() + probe_mask.sum() + nee_rays
 
 
-#: The Python-side counters a bounce advances; a graph's replay adds what its
-#: capture counted to each (:data:`ALPHA_LOOP` is counted per replayed loop).
+#: The Python-side counters a bounce advances; a captured wave adds what each
+#: part's capture counted times the runs of its body (:mod:`.graphs`).
 _COUNTERS = (dense.LAUNCHES, traverse.LAUNCHES, instanced.STATS, BOUNCE_WIDTHS, ALPHA_LOOP)
 
 
 def _step(tables, s: dict, b: int, max_depth: int, nee_weighting: str, sort_first: bool):
-    """One step of the bounce loop: the coherence re-sort where asked, then
-    :func:`_bounce`.  The unit a graph captures."""
+    """One step of the eager bounce loop: the coherence re-sort where asked,
+    then :func:`_bounce`."""
     if sort_first:
         s = _sort_wavefront(tables, s)
     return _bounce(tables, s, b, max_depth, nee_weighting)
-
-
-def _run_step(tables, s: dict, b: int, max_depth: int, nee_weighting: str, sort_first: bool):
-    """:func:`_step`, replayed from its captured graphs where
-    :func:`graphs._graphs_preferred` picks graphs, else run eagerly.
-    Returns (next state, rays, the next state's live lanes where a replay
-    counted them, else None)."""
-    if not graphs._graphs_preferred(tables):
-        return (*_step(tables, s, b, max_depth, nee_weighting, sort_first), None)
-    key = (b, max_depth, nee_weighting, sort_first, _repack_preferred(tables))
-    return graphs.cache(tables).run(
-        tables, key, lambda t, st: _step(t, st, b, max_depth, nee_weighting, sort_first), s,
-        _COUNTERS)
 
 
 def _radiance(tables, s: dict):
@@ -847,24 +826,38 @@ def render_sample(tables, view_inv, proj_inv, width, height, sample_count, max_d
     )
     if repack:  # each lane's output position
         s["slot"] = torch.arange(n, device=dev) if slot is None else slot
-    rays = torch.zeros((), dtype=torch.int64, device=dev)
+    if graphs._graphs_preferred(tables):
+        return graphs.cache(tables).run(
+            tables, (max_depth, nee_weighting, repack), s,
+            functools.partial(_wave, max_depth=max_depth, nee_weighting=nee_weighting,
+                              repack=repack),
+            functools.partial(_wave_program, max_depth=max_depth, nee_weighting=nee_weighting,
+                              repack=repack), _COUNTERS)
+    return _wave(tables, s, max_depth, nee_weighting, repack)
+
+
+def _wave(tables, s: dict, max_depth: int, nee_weighting: str, repack: bool):
+    """The bounce loop over the initial wave state ``s``, eagerly: the host
+    reads the live count before each bounce (integrator.py:1051-1124).
+    Returns (radiance in lane order, rays)."""
+    n = s["active"].shape[0]
+    rays = torch.zeros((), dtype=torch.int64, device=s["active"].device)
 
     def run_phase(b, s, live_floor, live, sorted_=False):
         """Bounce while bounces remain and more than ``live_floor`` lanes are
         alive (integrator.py:1051-1069): the loop ends early once every lane
         terminated, the wavefront analogue of the per-thread `break`.  The
-        live count is read on the host unless known (``live``: the start,
-        a step's replay).  Returns (next bounce, state, live lanes at the
-        last test)."""
+        live count is read on the host unless known (``live``: the start).
+        Returns (next bounce, state, live lanes at the last test)."""
         nonlocal rays
         while b <= max_depth:
             if live is None:
                 live = int(s["active"].sum())
             if live <= live_floor:
                 break
-            s, r, live = _run_step(tables, s, b, max_depth, nee_weighting,
-                                   repack and b > 0 and not sorted_)
-            sorted_ = False
+            s, r = _step(tables, s, b, max_depth, nee_weighting,
+                         repack and b > 0 and not sorted_)
+            sorted_, live = False, None
             rays = rays + r
             b += 1
         return b, s, live
@@ -883,8 +876,65 @@ def render_sample(tables, view_inv, proj_inv, width, height, sample_count, max_d
         b, s, live = run_phase(b, s, live_floor, live, sorted_=True)
     for tail in reversed(tails):
         s = _join(s, tail)
+    return _lane_radiance(tables, s, repack), rays
 
+
+def _wave_program(tables, s: dict, cap, max_depth: int, nee_weighting: str, repack: bool):
+    """:func:`_wave` as a program of captured parts (``graphs._Capture``
+    ``cap``): the same control flow as device-side loops, JAX's
+    ``while_loop``s and ``cond``s.  ``s`` is the program's static input
+    state; each phase writes a bounce's next state over its state.  The
+    bounce index ``b``, the live count, the rays and whether the next
+    bounce re-sorts are device scalars the parts write, so no part reads the
+    device on the host.  Returns the (radiance, rays) tensors the program
+    writes."""
+    n = s["active"].shape[0]
+    dev = s["active"].device
+    b = torch.zeros((), dtype=torch.int32, device=dev)
+    rays = torch.zeros((), dtype=torch.int64, device=dev)
+    live = s["active"].sum()
+    sort_next = torch.zeros((), dtype=torch.int64, device=dev)  # 0 on a phase's first bounce
+
+    def phase(st, live_floor):
+        """WHILE b <= max_depth and more than ``live_floor`` lanes live: the
+        re-sort from the phase's second bounce on, then a bounce."""
+        def bounce():
+            if repack:
+                cap.if_(graphs.Cond(sort_next),
+                        lambda: graphs._copy_state(st, _sort_wavefront(tables, st)))
+            out, r = _bounce(tables, st, b, max_depth, nee_weighting)
+            graphs._copy_state(st, out)
+            rays.add_(r)
+            b.add_(1)
+            live.copy_(st["active"].sum())
+            if repack:
+                sort_next.fill_(1)
+
+        if repack:
+            sort_next.zero_()
+        cap.while_(graphs.Cond(live, live_floor, b, max_depth), bounce, "phase")
+
+    ladder = repack and n % 4 == 0
+    phase(s, n // 2 if ladder else 0)
+    states = [s]
+    for width, live_floor in ((n // 2, n // 4), (n // 4, 0)) if ladder else ():
+        wide = states[-1]
+        # the re-sort where the eager loop steps down (bounces remain, a lane
+        # lives); the split is a copy either way, and joins back unchanged
+        cap.if_(graphs.Cond(live, 0, b, max_depth),
+                lambda: graphs._copy_state(wide, _sort_wavefront(tables, wide)))
+        head = {k: V3(*(c.clone() for c in v)) if isinstance(v, V3) else v.clone()
+                for k, v in _split(wide, width)[0].items()}
+        states.append(head)
+        phase(head, live_floor)
+    for wide, head in reversed(list(zip(states, states[1:]))):
+        graphs._copy_state(_split(wide, head["active"].shape[0])[0], head)
+    return _lane_radiance(tables, s, repack), rays
+
+
+def _lane_radiance(tables, s: dict, repack: bool):
+    """:func:`_radiance` in the lanes' own order (integrator.py:1136-1137)."""
     value = _radiance(tables, s)
-    if repack:  # back to the lanes' own order (integrator.py:1136-1137)
+    if repack:
         value = torch.empty_like(value).index_copy_(0, s["slot"], value)
-    return value, rays
+    return value

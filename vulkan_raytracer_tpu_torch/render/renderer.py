@@ -39,7 +39,7 @@ import torch
 
 from ..ops.tonemap import reinhard_jodie
 from ..scene.camera import Camera
-from . import integrator
+from . import graphs, integrator
 from .integrator import block_order, render_sample
 
 #: Max lanes (pixel samples) per wave; cfg1 (512x512, 64 spp) runs 32 waves
@@ -186,7 +186,7 @@ def render_image(
         img[lanes.long()] = acc
         img = _postprocess(img, spp, tonemap, as_uint8)
         img = img.cpu().numpy().reshape(height, width, 3)
-        total_rays = int(rays)
+        total_rays, = graphs.settle(rays)  # the counts of the waves' device loops too
     return img, total_rays
 
 
@@ -258,10 +258,11 @@ class Renderer:
 
     @property
     def rays_traced(self) -> int:
-        """Rays traced so far; the per-frame counters stay on the device
-        until this is read."""
+        """Rays traced so far; the per-frame counters, and the counts of the
+        frames' device loops (``graphs.settle``), stay on the device until
+        this is read."""
         if self._rays_pending:
-            self.total_rays += int(torch.stack(self._rays_pending).sum())
+            self.total_rays += graphs.settle(torch.stack(self._rays_pending).sum())[0]
             self._rays_pending = []
         return self.total_rays
 
