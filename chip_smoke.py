@@ -48,7 +48,9 @@ what a bounce calls run eagerly.
 4. render   — the CLI's headless path for bench cfg1 (Cornell, 512x512,
    depth 4, 64 spp, camera 0,1,2.4 -> 0,0,-1) on ``cuda``; every dense kernel
    must have been launched by it, every bounce at the wave's full width (no
-   repack on a dense scene), and the image must be finite and lit.
+   repack on a dense scene), each shading kernel once a bounce, and the image
+   must be finite and lit; the shading's plain versions (and ``eval_hit``, ``sample_material``,
+   ``material_bsdf``, ``material_pdf``) raise if called meanwhile.
 5. walks    — both BVH walks (K4' whole-stream, K5' treelet; closest and
    shadow) against their plain versions on the streams of the full cfg2
    dragon (262,280 triangles, 128 treelets) and of the 147,136-triangle glTF
@@ -222,8 +224,19 @@ what a bounce calls run eagerly.
    (``torch.cuda.set_sync_debug_mode("warn")``), in all and while a program
    launches: none inside a wave on the device side; the programs kept (one
    a wave shape),
-   their capture seconds, their pool's bytes and the mirror's, and
-   ``loop_cond_kernel``'s launches.
+   their capture seconds, their pool's bytes and the mirror's, the nodes a
+   bounce's parts hold (``cudaGraphGetNodes``; a resample pass and a re-sort
+   apart), and ``loop_cond_kernel``'s launches.
+28. shade   — after phase 26, before any profiler session: the three shading
+   kernels (``csrc/shade.cu``) against their plain versions on every bounce
+   state of the first wave of cfg1-cfg4, glTF 147k, the textured glb, the
+   emitter soup, the gallery, the glass sphere under analytic lights and a
+   wall of 1,024 materials whose anisotropy rotations span every float32
+   magnitude (``tools/check_torch_shade.py``, eager): every lane bit-equal,
+   or named by kernel, field, bounce and ulps as class i (<= 4 ulps); a class
+   ii lane fails.  Each kernel's first call (bounce 0) on cfg1, cfg2, cfg3,
+   glTF 147k and the gallery timed in a captured graph against its plain
+   version, with its bytes bound.
 27. graphs_busy — after the profiled timings: one wave each of cfg1, the
    gallery, the emitter soup, phase 9's forced-BVH dragon and the glTF 147k
    under ``torch.profiler`` three ways, counters reset just before.  On the
@@ -288,6 +301,7 @@ INF = 1e32
 DENSE_SRC = "vulkan_raytracer_tpu_torch/csrc/dense_sweep.cu"
 BVH_SRC = "vulkan_raytracer_tpu_torch/csrc/bvh_walk.cu"
 LOOPS_SRC = "vulkan_raytracer_tpu_torch/csrc/graph_loops.cu"
+SHADE_SRC = "vulkan_raytracer_tpu_torch/csrc/shade.cu"
 # name -> (counter module, counter key, source, TPU kernel it replaces)
 KERNELS = {
     "dense_closest": ("dense", "closest", DENSE_SRC,
@@ -311,7 +325,19 @@ KERNELS = {
     # device-side control flow in the JAX package, not a Pallas kernel
     "loop_cond_kernel": ("graphs", "loop_cond", LOOPS_SRC,
                          "vulkan_raytracer_tpu/render/integrator.py:1069"),
+    # the bounce's shading: what XLA fuses of the JAX bounce body
+    # (integrator.py:961-1046) between the Pallas calls, not a Pallas kernel
+    "shade_hit": ("shade", "hit", SHADE_SRC, "vulkan_raytracer_tpu/render/integrator.py:961"),
+    "shade_scatter": ("shade", "scatter", SHADE_SRC,
+                      "vulkan_raytracer_tpu/render/integrator.py:961"),
+    "shade_resolve": ("shade", "resolve", SHADE_SRC,
+                      "vulkan_raytracer_tpu/render/integrator.py:961"),
 }
+#: the shading phase's configs (tools/check_torch_shade.py); the kernels are
+#: timed on the first five
+SHADE_CONFIGS = ("cfg1", "cfg2", "cfg3", "gltf147k", "gallery", "cfg4", "textured", "soup",
+                 "glass_lights", "wild_aniso")
+SHADE_TIMED = ("cfg1", "cfg2", "cfg3", "gltf147k", "gallery")
 CFG1 = ["-m", "cornell", "-r", "512,512", "-b", "4", "--spp", "64",
         "-c", "0,1,2.4", "-d", "0,0,-1"]
 CFG2 = ["-m", "dragon", "-r", "512,512", "-b", "4", "--spp", "4",
@@ -970,6 +996,32 @@ def _loops_on_host():
         yield
     finally:
         graphs._device_loops_preferred = preferred
+
+
+@contextlib.contextmanager
+def _plain_shading_forbidden():
+    """Inside, any call of the shading's plain versions, or of the torch
+    functions they are made of (``eval_hit``, ``sample_material``,
+    ``material_bsdf``, ``material_pdf``), raises: on the card the bounce
+    shades through its three kernels only."""
+    from vulkan_raytracer_tpu_torch.ops import shade
+
+    names = ("shade_hit_reference", "shade_scatter_reference", "shade_resolve_reference",
+             "eval_hit", "sample_material", "material_bsdf", "material_pdf")
+    saved = {name: getattr(shade, name) for name in names}
+
+    def forbidden(name):
+        def call(*args, **kwargs):
+            raise AssertionError(f"the card's bounce called the plain shading: {name}")
+        return call
+
+    for name in names:
+        setattr(shade, name, forbidden(name))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(shade, name, fn)
 
 
 @contextlib.contextmanager
@@ -2271,7 +2323,9 @@ def graphs_phase(cornell, dragon, bigasset, out_dir: Path):
                                  f"syncs inside the device loops' waves: "
                                  f"{out['device']['host_sync_lines']}")
         cache = graphs.cache(tables)
+        nodes = bounce_nodes(cache)
         emit({"phase": "graphs", "config": config, "bit_equal": True, "rays": want[1][0],
+              "nodes_per_bounce": nodes,
               "launches": want[1][1], "bounce_widths": want[1][2], "alpha_loop": want[1][3],
               "programs_kept": len(cache.graphs), "pool_bytes": cache.pool_bytes(),
               "mirror_bytes": cache.mirror_bytes(), "max_depth": depth,
@@ -2282,12 +2336,75 @@ def graphs_phase(cornell, dragon, bigasset, out_dir: Path):
     emit({"phase": "graphs_summary", "configs": len(cases), **total,
           "programs_kept": {config.split()[0]: len(graphs.cache(tables).graphs)
                             for config, tables, _, _ in cases},
+          "nodes_per_bounce": {config.split()[0]: bounce_nodes(graphs.cache(tables))
+                               for config, tables, _, _ in cases},
           "pool_bytes": {config.split()[0]: graphs.cache(tables).pool_bytes()
                          for config, tables, _, _ in cases},
           "mirror_bytes": {config.split()[0]: graphs.cache(tables).mirror_bytes()
                            for config, tables, _, _ in cases},
           "nvidia_smi": nvidia_smi_line()})
     return gallery, soup, replay_err
+
+
+def bounce_nodes(cache) -> dict:
+    """Nodes of the parts of one bounce of each program in ``cache``
+    (``cudaGraphGetNodes`` on the parts): the bounce loop's body outside its
+    resample loops and re-sort, one pass of its resample loops, its re-sort."""
+    from vulkan_raytracer_tpu_torch.render import graphs
+
+    def parts(nodes, roles):
+        n = 0
+        for node in nodes:
+            if isinstance(node, graphs._Part):
+                n += node.graph.nodes() if "bounce" in roles else 0
+            elif node.role in roles or "bounce" in roles and node.role == "phase":
+                n += parts(node.body, roles if node.role == "phase" else ("bounce",))
+        return n
+
+    out = []
+    for program in cache.graphs.values():
+        phase = next(n for n in program.nodes if isinstance(n, graphs._Node)
+                     and n.role == "phase")
+        out.append({"bounce": parts(phase.body, ("bounce",)),
+                    "alpha_pass": parts([n for n in phase.body if isinstance(n, graphs._Node)
+                                         and n.role == "alpha"], ("alpha",)),
+                    "sort": parts([n for n in phase.body if isinstance(n, graphs._Node)
+                                   and n.role == "sort"], ("sort",))})
+    return out
+
+
+def shade_phase(device, prebuilt: dict, out_dir: Path) -> tuple:
+    """Phase 28: the three shading kernels against their plain versions on
+    every bounce state of the first wave of each of :data:`SHADE_CONFIGS`
+    (``tools/check_torch_shade.py``, eager, so each call runs its Python;
+    beside the bench's and the smoke's scenes, the glass sphere under point
+    and directional lights and the wall of 1,024 materials whose anisotropy
+    rotations span every float32 magnitude):
+    bit-equal, or each differing lane named by kernel, field, bounce and
+    ulps, class i (<= 4 ulps); a class ii lane fails the phase.  On the
+    first waves of :data:`SHADE_TIMED` each kernel's first call (bounce 0,
+    every lane live) is timed in a captured graph against its plain version
+    eagerly, with its bytes bound.  ``prebuilt`` maps configs to tables the
+    smoke already uploaded.  Returns ({kernel: {config: times}}, {kernel:
+    largest abs error})."""
+    import check_torch_shade as cts
+
+    specs = cts.configs(out_dir)
+    times = {f"shade_{k}": {} for k in cts.KERNELS}
+    errs = {f"shade_{k}": 0.0 for k in cts.KERNELS}
+    for name in SHADE_CONFIGS:
+        line = cts.check_config(name, specs[name], device, tables=prebuilt.get(name),
+                                timing=name in SHADE_TIMED)
+        emit({"phase": "shade", **line})
+        if line["by_class"]["ii"] or not line["finite"]:
+            raise AssertionError(f"shade {name}: {line['by_class']['ii']} class ii lanes, "
+                                 f"finite {line['finite']}: {line['first']}")
+        for k in cts.KERNELS:
+            errs[f"shade_{k}"] = max(errs[f"shade_{k}"], line["max_abs_err"][k])
+            if "timing" in line:
+                times[f"shade_{k}"][name] = {**line["timing"][k],
+                                             "launches_per_wave": line["launches"][k]}
+    return times, errs
 
 
 def graphs_busy(cornell, gallery, soup, small, bigasset) -> None:
@@ -2346,7 +2463,8 @@ def graphs_busy(cornell, gallery, soup, small, bigasset) -> None:
                 raise AssertionError(f"{label}: the replay ran {program}, the device loops "
                                      f"{out['device']['program']}")
             trace = trace_summary(prof)
-            counted = {**counted["dense"], **counted["traverse"], **counted["graphs"]}
+            counted = {**counted["dense"], **counted["traverse"], **counted["shade"],
+                       **counted["graphs"]}
             if side == "device":
                 traced = check_device_trace(trace, counted, f"{label} {side}")
             else:
@@ -2470,7 +2588,9 @@ _ENTRIES = {"closest_kernel": "dense_closest", "shadow_kernel": "dense_shadow",
             "bvh_walk_kernelILb0": "bvh_walk_closest", "bvh_walk_kernelILb1": "bvh_walk_shadow",
             "treelet_walk_kernelILb0": "treelet_walk_closest",
             "treelet_walk_kernelILb1": "treelet_walk_shadow",
-            "emissive_walk_kernel": "emissive_walk", "loop_cond_kernel": "loop_cond_kernel"}
+            "emissive_walk_kernel": "emissive_walk", "loop_cond_kernel": "loop_cond_kernel",
+            "shade_hit_kernel": "shade_hit", "shade_scatter_kernel": "shade_scatter",
+            "shade_resolve_kernel": "shade_resolve"}
 
 
 def ptxas_table(report: str) -> dict:
@@ -2493,30 +2613,18 @@ def _launch_counts(loops: bool = True):
     """Each kernel's launches since the last reset, by module; with
     ``loops``, ``loop_cond_kernel``'s (``graphs``), which only the device
     loops launch."""
-    from vulkan_raytracer_tpu_torch.ops import dense
-    from vulkan_raytracer_tpu_torch.ops import traverse as tr
-    from vulkan_raytracer_tpu_torch.render import graphs
+    from vulkan_raytracer_tpu_torch.render import integrator
 
-    out = {"dense": dict(dense.LAUNCHES), "traverse": dict(tr.LAUNCHES)}
-    if loops:
-        out["graphs"] = dict(graphs.LAUNCHES)
-    return out
+    return integrator.launch_counts(loops)
 
 
 def _reset_launches() -> None:
-    """Zero the kernels' launch counters, the instance-step counter, the
-    alpha loop's counter and the bounce widths, once the device loops'
-    counts so far are in."""
-    from vulkan_raytracer_tpu_torch.ops import dense, instanced
-    from vulkan_raytracer_tpu_torch.ops import traverse as tr
+    """Zero the launch counters, the instance steps, the alpha loop, the
+    bounce widths and the programs' stats, once the device loops' counts so
+    far are in."""
     from vulkan_raytracer_tpu_torch.render import graphs, integrator
 
-    graphs.settle()
-    dense.reset_launches()
-    tr.reset_launches()
-    instanced.reset_stats()
-    integrator.reset_alpha_loop()
-    integrator.reset_bounce_widths()
+    integrator.reset_counters()
     graphs.reset_stats()
 
 
@@ -2896,7 +3004,7 @@ def main() -> int:
 
     from vulkan_raytracer_tpu_torch.render import integrator
 
-    with tempfile.TemporaryDirectory() as out_dir:
+    with tempfile.TemporaryDirectory() as out_dir, _plain_shading_forbidden():
         _reset_launches()
         stats = cli.run(CFG1 + ["--device", "cuda", "--output", f"{out_dir}/cfg1.png"])
         launches = _launch_counts()
@@ -2907,6 +3015,9 @@ def main() -> int:
         raise AssertionError(f"cfg1 render missed a kernel: launches {launches}")
     if integrator._repack_preferred(cornell) or set(cfg1_widths) != {n_wave}:
         raise AssertionError(f"cfg1 ran a repacked wavefront: bounce widths {cfg1_widths}")
+    if set(launches["shade"].values()) != {sum(cfg1_widths.values())}:
+        raise AssertionError(f"cfg1's {sum(cfg1_widths.values())} bounces launched the shading "
+                             f"kernels {launches['shade']} times")
     if not np.isfinite(img).all() or img.shape != (512, 512, 3):
         raise AssertionError(f"cfg1 image not finite or misshapen: {img.shape}")
     if not img.mean() > 1e-3:
@@ -3004,6 +3115,17 @@ def main() -> int:
         gallery_tables, soup_tables, errs["loop_cond_kernel"] = graphs_phase(
             cornell, dragon, bigasset, Path(tmp))
 
+    # 28. the shading kernels against their plain versions on real waves,
+    # timed, before any profiler session
+    with tempfile.TemporaryDirectory() as tmp:
+        shade_times, shade_errs = shade_phase(
+            device, {"cfg1": cornell, "cfg2": dragon, "gltf147k": bigasset,
+                     "gallery": gallery_tables, "soup": soup_tables}, Path(tmp))
+    errs.update(shade_errs)
+    for name, by_config in shade_times.items():
+        times[name] = {**by_config["cfg1"], "shape": "cfg1 wave, bounce 0 (524,288 lanes)",
+                       "by_config": by_config}
+
     # the dense kernels' device times from torch.profiler, after every
     # render phase: a profiler session slows the renders that follow it in
     # the same process (PERF.md §7)
@@ -3029,6 +3151,9 @@ def main() -> int:
     if imported:
         raise AssertionError(f"the port imported {imported}")
 
+    unlaunched = [name for name in KERNELS if not paths.total[name]]
+    if unlaunched:
+        raise AssertionError(f"the main paths launched no {unlaunched}: {paths.by_path}")
     rows = []
     for name, (_, _, source, replaces) in KERNELS.items():
         t = times[name]
@@ -3042,6 +3167,8 @@ def main() -> int:
             row["gltf147k"] = {k: g[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
         if name.startswith("dense"):
             row.update({k: t[k] for k in ("live", "host_us_per_call")})
+        if name.startswith("shade"):
+            row["by_config"] = t["by_config"]
         if name == "dense_shadow":
             row["cfg1_wave"] = shadow_cfg1
             row["max_abs_err"] = max(row["max_abs_err"], shadow_cfg1["max_abs_err"])

@@ -439,7 +439,7 @@ def test_stand_in_program_bit_equal_to_eager(case, monkeypatch):
 
     img, rays, counts = frame()
     assert sum(counts[1].values()) > 0
-    assert (counts[0][4]["calls"] > 0) == tables.has_alpha
+    assert (counts[0][3]["calls"] > 0) == tables.has_alpha
     _stand_in_programs(monkeypatch)
     for captured in (1, 0):
         got = frame()
@@ -584,13 +584,15 @@ def test_traced_launches_are_held_against_the_counters(replayed):
     """The check that shows a replay launched what its capture counted: every
     launch counter maps to a hand-written kernel the trace names, and a trace
     short of one launch fails."""
-    counters = {**dense.LAUNCHES, **traverse.LAUNCHES, **graphs.LAUNCHES}
+    counters = {k: n for d in integrator.launch_counts().values() for k, n in d.items()}
     assert set(profile_torch_wave.KERNEL_OF) == set(counters)
     assert set(profile_torch_wave.KERNEL_OF.values()) == set(profile_torch_wave.PORT_KERNELS)
     counted = dict.fromkeys(counters, 0)
-    counted.update(closest=5, shadow=5, pdf=10, treelet_closest=320, treelet_shadow=320)
+    counted.update(closest=5, shadow=5, pdf=10, treelet_closest=320, treelet_shadow=320, hit=5,
+                   scatter=5, resolve=5)
     traced = {"closest_kernel": 5, "shadow_kernel": 5, "pdf_kernel": 10,
-              "treelet_walk_kernel": 640}
+              "treelet_walk_kernel": 640, "shade_hit_kernel": 5, "shade_scatter_kernel": 5,
+              "shade_resolve_kernel": 5}
     if replayed == "all":
         got = profile_torch_wave.check_traced_launches(
             {"port_kernel_launches": traced}, counted, "gallery graphs")
@@ -608,7 +610,7 @@ def test_device_trace_is_held_within_the_counters(traced):
     conditional body's nodes, so its trace may hold fewer launches than the
     counters, but every kernel counted must appear and none more often than
     counted."""
-    counted = dict.fromkeys({**dense.LAUNCHES, **traverse.LAUNCHES, **graphs.LAUNCHES}, 0)
+    counted = {k: 0 for d in integrator.LAUNCH_COUNTERS.values() for k in d}
     counted.update(treelet_closest=10, treelet_shadow=10, pdf=10, loop_cond=40)
     trace = {"treelet_walk_kernel": 4, "pdf_kernel": 2, "loop_cond_kernel": 9}
     if traced == "within":
@@ -632,17 +634,13 @@ def test_device_trace_is_held_within_the_counters(traced):
 
 
 def _counts():
-    return (dict(dense.LAUNCHES), dict(traverse.LAUNCHES), dict(instanced.STATS),
+    """(launches by module, instance steps, bounce widths, alpha loop)."""
+    return (integrator.launch_counts(loops=False), dict(instanced.STATS),
             dict(integrator.BOUNCE_WIDTHS), dict(integrator.ALPHA_LOOP))
 
 
 def _reset():
-    graphs.settle()  # no device loop's counts left to fold in after the reset
-    dense.reset_launches()
-    traverse.reset_launches()
-    instanced.reset_stats()
-    integrator.reset_bounce_widths()
-    integrator.reset_alpha_loop()
+    integrator.reset_counters()  # the device loops' counts so far folded in first
 
 
 #: side -> (graphs._graphs_preferred, graphs._device_loops_preferred) patched in
@@ -693,9 +691,9 @@ def test_graphs_bit_equal_to_eager(case, monkeypatch):
         assert np.array_equal(img_s, img), side
         assert rays_s == rays and counts_s == counts, (side, counts_s, counts)
     assert graphs.STATS["captured"] == len(graphs.cache(tables).graphs) == 1
-    assert graphs.STATS["replays"] == 4 * sum(counts[3].values())
-    assert (counts[4]["calls"] > 0) == tables.has_alpha
-    assert graphs.STATS["passes"] == 4 * counts[4]["iterations"]
+    assert graphs.STATS["replays"] == 4 * sum(counts[2].values())
+    assert (counts[3]["calls"] > 0) == tables.has_alpha
+    assert graphs.STATS["passes"] == 4 * counts[3]["iterations"]
     assert graphs.LAUNCHES["loop_cond"] > 0
     assert np.isfinite(img).all() and img.mean() > 0.0
 

@@ -1,0 +1,106 @@
+#!/usr/bin/env python3
+"""Count the kernels one wave would launch on a card, on the CPU.
+
+    python3 tools/count_torch_wave_kernels.py [--size 64] [--depth 4] [--root DIR]
+
+Run from the root of a checkout (``--root`` imports another checkout's
+package, e.g. the parent commit unpacked under ``out/parent``).  Renders one
+wave of bench cfg1's Cornell box (``--size`` squared lanes, sample 1) on
+CPU tables under a ``TorchDispatchMode`` and counts the aten ops that launch
+a kernel on a card (views, allocations and the host's scalar wrappers
+aside), each hand-written kernel's plain version as one launch.  Prints one
+JSON line: kernels per wave, per bounce (from a depth-0 wave against the
+asked depth), the bounces run and the ops most often issued.  A count, not
+a device metric: the card's own counts come from ``tools/profile_torch_wave.py``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+#: aten ops that launch nothing on a card
+NOT_KERNELS = {"empty", "empty_strided", "unbind", "select", "slice", "view", "alias", "detach",
+               "expand", "t", "_unsafe_view", "as_strided", "lift_fresh", "unsqueeze", "squeeze",
+               "permute", "transpose", "split", "narrow", "_local_scalar_dense", "scalar_tensor"}
+#: (module, function): the plain versions of the hand-written kernels, one launch a call
+PLAIN = (("dense", "closest_sweep_reference"), ("dense", "shadow_sweep_reference"),
+         ("dense", "pdf_sweep_reference"), ("traverse", "bvh_walk_reference"),
+         ("traverse", "treelet_walk_reference"), ("traverse", "emissive_pdf_walk_reference"),
+         ("shade", "shade_hit_reference"), ("shade", "shade_scatter_reference"),
+         ("shade", "shade_resolve_reference"))
+
+
+def count(size: int, depth: int) -> dict:
+    import importlib
+
+    import numpy as np
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from vulkan_raytracer_tpu_torch.render import integrator, renderer
+    from vulkan_raytracer_tpu_torch.scene.builtin import cornell_box_scene
+    from vulkan_raytracer_tpu_torch.scene.camera import Camera
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.kernels, self.paused, self.ops = 0, 0, {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func.overloadpacket.__name__
+            if not self.paused and name not in NOT_KERNELS:
+                self.kernels += 1
+                self.ops[name] = self.ops.get(name, 0) + 1
+            return func(*args, **(kwargs or {}))
+
+    mode = Count()
+
+    def one_launch(fn):
+        def call(*args, **kw):
+            mode.paused += 1
+            try:
+                return fn(*args, **kw)
+            finally:
+                mode.paused -= 1
+                mode.kernels += 1
+        return call
+
+    for mod, name in PLAIN:
+        try:
+            m = importlib.import_module(f"vulkan_raytracer_tpu_torch.ops.{mod}")
+        except ImportError:  # a checkout without that module
+            continue
+        if hasattr(m, name):
+            setattr(m, name, one_launch(getattr(m, name)))
+    tables = cornell_box_scene().upload("cpu")
+    cam = Camera(position=np.array([0.0, 1.0, 2.4]), direction=np.array([0.0, 0.0, -1.0]))
+    view_inv, proj_inv = renderer.camera_uniforms(cam)
+    out = {}
+    for d in (0, depth):
+        mode.kernels, mode.ops = 0, {}
+        integrator.reset_bounce_widths()
+        with mode:
+            integrator.render_sample(tables, view_inv, proj_inv, size, size, 1, d)
+        out[d] = (mode.kernels, sum(integrator.BOUNCE_WIDTHS.values()), dict(mode.ops))
+    kernels, bounces, ops = out[depth]
+    return {"lanes": size * size, "depth": depth, "bounces": bounces,
+            "kernels_per_wave": kernels,
+            "kernels_per_bounce": (kernels - out[0][0]) / max(bounces - out[0][1], 1),
+            "top_ops": dict(sorted(ops.items(), key=lambda kv: -kv[1])[:10])}
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--size", type=int, default=64)
+    p.add_argument("--depth", type=int, default=4)
+    p.add_argument("--root", default=str(Path(__file__).resolve().parent.parent))
+    args = p.parse_args(argv)
+    sys.path.insert(0, str(Path(args.root).resolve()))
+    print(json.dumps({"root": args.root, **count(args.size, args.depth)}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -95,14 +95,17 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent.parent
 #: the port's hand-written kernels, by the names the trace gives them
 PORT_KERNELS = ("closest_kernel", "shadow_kernel", "pdf_kernel", "bvh_walk_kernel",
-                "treelet_walk_kernel", "emissive_walk_kernel", "loop_cond_kernel")
-#: each launch counter (``LAUNCHES`` of ops/dense.py, ops/traverse.py and
-#: render/graphs.py) -> the kernel whose launches it counts, by the name the
-#: trace gives it
+                "treelet_walk_kernel", "emissive_walk_kernel", "shade_hit_kernel",
+                "shade_scatter_kernel", "shade_resolve_kernel", "loop_cond_kernel")
+#: each launch counter (``LAUNCHES`` of ops/dense.py, ops/traverse.py,
+#: ops/shade.py and render/graphs.py) -> the kernel whose launches it counts,
+#: by the name the trace gives it
 KERNEL_OF = {"closest": "closest_kernel", "shadow": "shadow_kernel", "pdf": "pdf_kernel",
              "bvh_closest": "bvh_walk_kernel", "bvh_shadow": "bvh_walk_kernel",
              "treelet_closest": "treelet_walk_kernel", "treelet_shadow": "treelet_walk_kernel",
-             "emissive_pdf": "emissive_walk_kernel", "loop_cond": "loop_cond_kernel"}
+             "emissive_pdf": "emissive_walk_kernel", "hit": "shade_hit_kernel",
+             "scatter": "shade_scatter_kernel", "resolve": "shade_resolve_kernel",
+             "loop_cond": "loop_cond_kernel"}
 WALK_BLOCK = 128  # rays per block of the BVH walks (csrc/bvh_walk.cu kThreads)
 #: config -> (scene: a built-in name, a generated .glb or a smoke scene,
 #: camera position, direction)
@@ -458,9 +461,9 @@ def _patch(g, loops, rule) -> None:
 
 def _launches() -> dict:
     """The hand-written kernels' launches, which every side shares."""
-    from vulkan_raytracer_tpu_torch.ops import dense, traverse
+    from vulkan_raytracer_tpu_torch.render import integrator
 
-    return {**dense.LAUNCHES, **traverse.LAUNCHES}
+    return {k: n for d in integrator.launch_counts(loops=False).values() for k, n in d.items()}
 
 
 def _widths() -> dict:
@@ -472,23 +475,15 @@ def _widths() -> dict:
 
 def _counted() -> dict:
     """Each launch counter, ``loop_cond_kernel``'s included."""
-    from vulkan_raytracer_tpu_torch.ops import dense, traverse
-    from vulkan_raytracer_tpu_torch.render import graphs
+    from vulkan_raytracer_tpu_torch.render import integrator
 
-    return {**dense.LAUNCHES, **traverse.LAUNCHES, **graphs.LAUNCHES}
+    return {k: n for d in integrator.launch_counts().values() for k, n in d.items()}
 
 
 def _reset() -> None:
-    from vulkan_raytracer_tpu_torch.ops import dense, instanced, traverse
-    from vulkan_raytracer_tpu_torch.render import graphs, integrator
+    from vulkan_raytracer_tpu_torch.render import integrator
 
-    graphs.settle()  # no device loop's counts left to fold in after the reset
-    graphs.LAUNCHES["loop_cond"] = 0
-    dense.reset_launches()
-    traverse.reset_launches()
-    instanced.reset_stats()
-    integrator.reset_bounce_widths()
-    integrator.reset_alpha_loop()
+    integrator.reset_counters()
 
 
 def _alpha_loop() -> dict:

@@ -23,7 +23,7 @@ For a scene, :func:`diagnose`:
    lane's radiance (a lane is one (pixel, sample)), and lists the pixels whose
    linear value differs by more than 1e-6 in any channel;
 2. renders only those pixels again on both devices with ``integrator._bounce``,
-   ``integrator.eval_hit`` and ``integrator._radiance`` wrapped (the module's
+   ``shade.shade_hit`` and ``integrator._radiance`` wrapped (the module's
    attributes, restored afterwards), keeping every lane's state at each
    bounce (``origin``, ``direction``, ``throughput``, ``value``, ``seed``,
    ``active``, ``mat_pdf``, ``wavelength``, ``sky_w``), the hit's ``tri`` and
@@ -37,7 +37,10 @@ For a scene, :func:`diagnose`:
    again for that lane alone on both devices, every aten op of the card's run
    is recomputed on the CPU from the same inputs, and the op whose CPU result,
    put in place of the card's, makes the field come out as on the CPU is the
-   one named.
+   one named.  A shading kernel of ``ops/shade.py`` is opened up there: its
+   plain version, bit-equal to it on the card, runs in its place on the
+   card, so the aten op inside it is named; where the kernel differs from
+   its plain version, the kernel itself (``shade_scatter_kernel``, ...) is.
 
 A lane is class ``i`` (a last-ulp flip) when its first difference is in a
 float field and is at most 4 ulps: on a card, at the output of the op named
@@ -67,6 +70,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import sys
 import tempfile
@@ -151,11 +155,12 @@ class Record:
         """Record the renders inside; with ``bounces`` they run eagerly
         (``graphs._graphs_preferred`` patched off): a replayed graph runs no
         Python, so its bounces could not be recorded."""
+        from vulkan_raytracer_tpu_torch.ops import shade
         from vulkan_raytracer_tpu_torch.render import graphs, integrator, renderer
 
-        saved = (renderer.render_sample, integrator._bounce, integrator.eval_hit,
+        saved = (renderer.render_sample, integrator._bounce, shade.shade_hit,
                  integrator._radiance, graphs._graphs_preferred)
-        render_sample, bounce, eval_hit, radiance, _ = saved
+        render_sample, bounce, shade_hit, radiance, _ = saved
 
         def rec_render_sample(tables, view_inv, proj_inv, width, height, sample_count,
                               max_depth, lane_idx=None, **kw):
@@ -178,9 +183,9 @@ class Record:
                     "hit": {k: v[i] for k, v in hit.items()}}
             return out
 
-        def rec_eval_hit(tables, origin, direction, t, tri, u, v):
+        def rec_shade_hit(tables, s, b, max_depth, t, tri, u, v):
             self._hit = {"tri": _np(tri), "t": _np(t)}
-            return eval_hit(tables, origin, direction, t, tri, u, v)
+            return shade_hit(tables, s, b, max_depth, t, tri, u, v)
 
         def rec_radiance(tables, s):
             lanes, state = self._lanes(s), self._state(s)
@@ -190,13 +195,13 @@ class Record:
 
         renderer.render_sample = rec_render_sample
         if self.bounces:
-            integrator._bounce, integrator.eval_hit = rec_bounce, rec_eval_hit
+            integrator._bounce, shade.shade_hit = rec_bounce, rec_shade_hit
             integrator._radiance = rec_radiance
             graphs._graphs_preferred = lambda tables: False
         try:
             yield self
         finally:
-            (renderer.render_sample, integrator._bounce, integrator.eval_hit,
+            (renderer.render_sample, integrator._bounce, shade.shade_hit,
              integrator._radiance, graphs._graphs_preferred) = saved
 
 
@@ -204,12 +209,9 @@ class Record:
 def counters_kept():
     """Leave the kernels' launch counters, the instance steps, the alpha
     loop's counter and the bounce widths as they were."""
-    from vulkan_raytracer_tpu_torch.ops import dense, instanced
-    from vulkan_raytracer_tpu_torch.ops import traverse as tr
     from vulkan_raytracer_tpu_torch.render import integrator
 
-    kept = [(d, dict(d)) for d in (dense.LAUNCHES, tr.LAUNCHES, instanced.STATS,
-                                   integrator.ALPHA_LOOP, integrator.BOUNCE_WIDTHS)]
+    kept = [(d, dict(d)) for d in integrator._COUNTERS]
     try:
         yield
     finally:
@@ -346,18 +348,110 @@ def _hits_from(ra: Record, rb: Record, key, b) -> list:
 # ---------------------------------------------------------------------------
 
 
+#: The shading kernels counted as ops (ops/shade.py): wrapper -> plain version
+_KERNEL_OPS = {"shade_hit": "shade_hit_reference", "shade_scatter": "shade_scatter_reference",
+               "shade_resolve": "shade_resolve_reference"}
+
+
+def _map_tree(x, fn):
+    """``x`` (dataclasses, V3s, tuples, dicts) with each tensor ``t`` replaced
+    by ``fn(t)``."""
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return dataclasses.replace(x, **{f.name: _map_tree(getattr(x, f.name), fn)
+                                         for f in dataclasses.fields(x)})
+    if isinstance(x, dict):
+        return {k: _map_tree(v, fn) for k, v in x.items()}
+    if isinstance(x, tuple):
+        return type(x)(*(_map_tree(v, fn) for v in x)) if hasattr(x, "_fields") else tuple(
+            _map_tree(v, fn) for v in x)
+    return x
+
+
+def _tensors_of(x) -> list:
+    out = []
+    _map_tree(x, out.append)
+    return out
+
+
 class AgainstCPU(TorchDispatchMode):
     """A dispatch mode over a run on the card: with ``check``, every aten op
     with a floating result is computed again on the CPU from copies of the
     same inputs, and the ops whose results differ are kept in ``differ`` (op
     name -> largest ulps, in order of first appearance); ops named in
-    ``substitute`` hand on the CPU's result in place of the card's."""
+    ``substitute`` hand on the CPU's result in place of the card's.  Given
+    ``cpu_tables`` (the scene on the CPU), a shading kernel's call is opened
+    up: its plain version, bit-equal to it on the card, runs in its place
+    under the mode (:meth:`_kernel_op`)."""
 
-    def __init__(self, check: bool, substitute=()):
+    def __init__(self, check: bool, substitute=(), cpu_tables=None):
         super().__init__()
         self.check, self.substitute = check, frozenset(substitute)
+        self.cpu_tables = cpu_tables
         self.differ = {}
         self._cache = {}  # CPU copies of large inputs (the scene's tables)
+        self._saved = {}
+
+    def __enter__(self):
+        if self.cpu_tables is not None:
+            from vulkan_raytracer_tpu_torch.ops import shade
+
+            self._saved = {name: getattr(shade, name) for name in _KERNEL_OPS}
+            for name, ref in _KERNEL_OPS.items():
+                setattr(shade, name, self._kernel_op(name, self._saved[name], getattr(shade, ref)))
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        from vulkan_raytracer_tpu_torch.ops import shade
+
+        for name, fn in self._saved.items():
+            setattr(shade, name, fn)
+        self._saved = {}
+        return super().__exit__(*exc)
+
+    def _kernel_op(self, name: str, fn, ref):
+        """The wrapper ``fn`` of a shading kernel on the card, as ops: the
+        kernel runs and, on the same inputs, its plain version ``ref`` runs
+        on the card under this mode, so that each of its aten ops is checked
+        against (or replaced by) the CPU's as any other; its result goes on.
+        Where the kernel differs from its plain version on the card, the
+        kernel is the op (``shade_scatter_kernel``, ...), its ulps the
+        largest of its results; substituted, its plain version runs on the
+        CPU from copies of its inputs."""
+        from torch.utils._python_dispatch import _disable_current_modes
+
+        op = f"{name}_kernel"
+
+        def call(tables, *args):
+            if tables.device.type != "cuda":
+                return fn(tables, *args)
+            if op in self.substitute:
+                with _disable_current_modes():
+                    cargs = _map_tree(args, lambda t: t.detach().cpu().clone())
+                    want = ref(self.cpu_tables, *cargs)
+                    if name == "shade_resolve":  # it adds its rays into its last argument
+                        args[-1].copy_(cargs[-1])
+                    return _map_tree(want, lambda t: t.to(tables.device))
+            with _disable_current_modes():
+                kargs = (*args[:-1], args[-1].clone()) if name == "shade_resolve" else args
+                got = fn(tables, *kargs)
+            out = ref(tables, *args)
+            with _disable_current_modes():
+                worst = None
+                for o, r in zip(_tensors_of((got, kargs[-1])), _tensors_of((out, args[-1]))):
+                    o, r = o.detach().cpu(), r.detach().cpu()
+                    if o.is_floating_point():
+                        d = field_difference(op, o.numpy(), r.numpy())
+                        if d:
+                            worst = max(worst or 0, 2**31 if d["ulps"] is None else d["ulps"])
+                    elif not torch.equal(o, r):
+                        worst = 2**31
+                if worst is not None:
+                    self.differ[op] = max(self.differ.get(op, 0), worst)
+            return out
+
+        return call
 
     @staticmethod
     def _on_card(x) -> bool:
@@ -433,6 +527,7 @@ def _step_runner(rec: Record, key, diff, frame_args):
     """A function that runs again, for lane ``key`` alone on the given
     tables, the step whose result first differed, and returns that result's
     field ``diff["field"]`` as numpy; and the value ``rec`` holds for it."""
+    from vulkan_raytracer_tpu_torch.ops import shade
     from vulkan_raytracer_tpu_torch.render import integrator, renderer
 
     cam, width, height, depth = frame_args
@@ -466,18 +561,18 @@ def _step_runner(rec: Record, key, diff, frame_args):
 
     def run(tables):
         hit = {}
-        eval_hit = integrator.eval_hit
+        shade_hit = shade.shade_hit
 
-        def keep(tables_, origin, direction, t, tri, u, v):
+        def keep(tables_, s, b_, max_depth, t, tri, u, v):
             hit.update(tri=_np(tri)[0], t=_np(t)[0])
-            return eval_hit(tables_, origin, direction, t, tri, u, v)
+            return shade_hit(tables_, s, b_, max_depth, t, tri, u, v)
 
-        integrator.eval_hit = keep
+        shade.shade_hit = keep
         try:
             out, _ = integrator._bounce(tables, _lane_state(state, tables.device), bounce,
                                         depth, "reference")
         finally:
-            integrator.eval_hit = eval_hit
+            shade.shade_hit = shade_hit
         return hit[field] if field in HIT_FIELDS else _np(out[field])[0]
 
     return run, want
@@ -497,13 +592,13 @@ def attribute(tables, cpu_tables, rec_dev: Record, rec_cpu: Record, key, diff,
         if (field_difference(field, run(cpu_tables), want) is not None
                 or field_difference(field, run(tables), want_dev) is not None):
             return {"op": None, "op_ulps": None, "ops_differing": {}, "wave_dependent": True}
-        with AgainstCPU(check=True) as mode:
+        with AgainstCPU(check=True, cpu_tables=cpu_tables) as mode:
             run(tables)
         differ = dict(mode.differ)
         op = None
         op_ulps = None
         for names in [[n] for n in differ] + ([list(differ)] if len(differ) > 1 else []):
-            with AgainstCPU(check=False, substitute=names):
+            with AgainstCPU(check=False, substitute=names, cpu_tables=cpu_tables):
                 if field_difference(field, run(tables), want) is None:
                     op, op_ulps = "+".join(names), max(differ[n] for n in names)
                     break

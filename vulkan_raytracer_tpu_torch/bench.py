@@ -80,9 +80,9 @@ import numpy as np
 import torch
 
 from .cli import _render_fingerprint
-from .ops import _ext, dense
-from .ops import traverse as tr
+from .ops import _ext
 from .render import graphs, renderer
+from .render.integrator import launch_counts, reset_counters
 from .scene import procedural
 from .scene.builtin import cornell_box_scene
 from .scene.camera import Camera
@@ -204,18 +204,6 @@ def quality_gate(key, tables, cam, crop, goldens, bar=RMSE_BAR) -> float:
     return rmse
 
 
-def _reset_launches() -> None:
-    dense.reset_launches()
-    tr.reset_launches()
-
-
-def launch_counts() -> dict:
-    """Each kernel's launches since the last reset, by module (``graphs``:
-    the device loops' ``loop_cond_kernel``, reset with ``graphs.STATS``)."""
-    return {"dense": dict(dense.LAUNCHES), "traverse": dict(tr.LAUNCHES),
-            "graphs": dict(graphs.LAUNCHES)}
-
-
 class _Cfg:
     """One prepared config: its scene uploaded, its gate passed, warm."""
 
@@ -264,7 +252,7 @@ class _Cfg:
         """One frame, timed from an idle card to the image on the host; its
         kernel launches counted from zero."""
         cfg = self.cfg
-        _reset_launches()
+        reset_counters()
         graphs.reset_stats()
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()

@@ -32,7 +32,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = (CSRC / "dense_sweep.cu", CSRC / "bvh_walk.cu", CSRC / "graph_loops.cu")
+SOURCES = (CSRC / "dense_sweep.cu", CSRC / "bvh_walk.cu", CSRC / "graph_loops.cu",
+           CSRC / "shade.cu")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -77,6 +78,10 @@ _SIGNATURES = {
     "graph_loops_instantiate": [_I, _P, _P],  # (device, graph, out: exec)
     "graph_loops_launch": [_I, _P, _P],  # (device, exec, stream)
     "graph_loops_destroy": [_P, _P],  # (graph, exec)
+    # (device, pointers [shade.SLOTS], counts [shade.INTS], stream)
+    "shade_hit_launch": [_I, _P, _P, _P],
+    "shade_scatter_launch": [_I, _P, _P, _P],
+    "shade_resolve_launch": [_I, _P, _P, _P],
 }
 
 

@@ -16,6 +16,13 @@ module's (integrator.py:13-27): NEE runs with the throughput that already
 includes the current hit's estimator, paths end on emissive hits weighted
 against NEE by the balance heuristic, and sample 0 is the preview sample.
 
+Between a bounce's traversal launches its lanes are shaded by the three
+kernels of :mod:`vulkan_raytracer_tpu_torch.ops.shade` (the hit's state,
+the material and light samples up to the shadow ray, the NEE resolve),
+what XLA fuses of the JAX bounce body; on CPU tensors their plain versions,
+this module's former torch code regrouped (:func:`sample_lights` stays
+here as the unsplit composition the tests hold the split against).
+
 glTF materials come with their six texture slots (base colour,
 metallic-roughness, normal map, emissive, transmission, anisotropy) and with
 MASK/BLEND alpha.  Alpha runs as the JAX accept/reject resample loop
@@ -50,11 +57,13 @@ import functools
 import numpy as np
 import torch
 
-from ..ops import dense, instanced, rng, traverse
-from ..ops.bsdf import HitInfo, HitMaterial, material_bsdf, material_pdf, sample_material
+from ..ops import dense, instanced, rng, shade, traverse
+from ..ops.bsdf import material_bsdf, material_pdf
 from ..ops.dense import EMISSIVE_MAX_TRIS, dense_closest, dense_emissive_pdf, dense_shadow
-from ..ops.instanced import apply_normal_matrix, instanced_closest, instanced_shadow
-from ..ops.math3 import BIAS, EPS, INF, V3, v3_from_tangent, v3_gather, v3_onb, v3_to_tangent
+from ..ops.instanced import instanced_closest, instanced_shadow
+from ..ops.math3 import EPS, INF, V3, v3_gather, v3_to_tangent
+from ..ops.shade import (  # noqa: F401  (eval_hit: the plain hit, as it was here)
+    _balance, _offset_origin, _sample_analytic, _sample_emissive, _uv_at, eval_hit)
 from ..ops.texture import sample_bilinear, sample_equirect
 from ..ops.traverse import bvh_closest, bvh_emissive_pdf, bvh_shadow
 from . import graphs
@@ -94,15 +103,6 @@ def _closest_opaque(tables, o: V3, d: V3, *, t_min, t_max, active):
     if tables.pbvh is not None:
         return bvh_closest(tables, o, d, t_min=t_min, t_max=t_max, active=active)
     return dense_closest(tables, o, d, t_min=t_min, t_max=t_max, active=active)
-
-
-def _uv_at(uv_rows, w0, w1, w2):
-    """(N, 2) texture coordinates of barycentric weights (w0, w1, w2) over
-    (N, 6) [u0 v0 u1 v1 u2 v2] rows."""
-    return torch.stack([
-        w0 * uv_rows[:, 0] + w1 * uv_rows[:, 2] + w2 * uv_rows[:, 4],
-        w0 * uv_rows[:, 1] + w1 * uv_rows[:, 3] + w2 * uv_rows[:, 5],
-    ], dim=-1)
 
 
 def _alpha_test(tables, tri, u, v, seed, cand):
@@ -378,247 +378,8 @@ def generate_primary_rays(view_inv, proj_inv, width, height, sample_count, lane_
 
 
 # ---------------------------------------------------------------------------
-# Hit shading state (hit.rchit:31-117)
-# ---------------------------------------------------------------------------
-
-
-def eval_hit(tables, origin: V3, direction: V3, t, tri, u, v) -> HitInfo:
-    """Build HitInfo for every lane (integrator.py:450-628): the shading
-    frame, normal mapping and the six texture slots.  Miss lanes get
-    t = -INF and a black emissive: the skybox is fetched once after the
-    bounce loop (the JAX ``sky=False`` form).
-
-    On an instanced scene ``tri`` is the encoded instance x prototype id:
-    attributes are gathered per prototype triangle, and the object-space
-    normal and tangent go to world space by the hit instance's
-    inverse-transpose rotation (hit.rchit:57-60)."""
-    miss = tri < 0
-    ti = torch.clamp_min(tri, 0)
-    inst_i = None
-    if tables.inst is not None:
-        ti, inst_i = tables.inst.decode(ti)
-    w0 = 1.0 - u - v
-
-    t_safe = torch.where(torch.isfinite(t), t, 0.0)
-    pos = origin + direction * t_safe
-
-    def interp(a: V3, b: V3, c: V3) -> V3:
-        return v3_gather(a, ti) * w0 + v3_gather(b, ti) * u + v3_gather(c, ti) * v
-
-    normal = interp(tables.n0, tables.n1, tables.n2)
-    if inst_i is not None:
-        normal = apply_normal_matrix(tables.inst, inst_i, normal)
-    normal = normal.normalized()
-    mat_i = torch.index_select(tables.tri_mat, 0, ti)
-    m = tables.materials
-
-    # tangent frame (hit.rchit:61-71): built from the pre-flip normal
-    tg_raw = interp(tables.tg0, tables.tg1, tables.tg2)
-    if inst_i is not None:
-        tg_raw = apply_normal_matrix(tables.inst, inst_i, tg_raw)
-    has_tg = tg_raw.any_nonzero()
-    sign = torch.index_select(tables.tg_sign, 0, ti)
-    tg_n = tg_raw.normalized()
-
-    shading_normal = normal
-    if tables.has_textures:
-        tex_idx = torch.index_select(m.tex_idx, 0, mat_i)  # (N, 6)
-        uv = _uv_at(torch.index_select(tables.uv, 0, ti), w0, u, v)
-        # normal mapping from slot 2, where a tangent exists (hit.rchit:64-66)
-        has_nm = (tex_idx[:, 2] >= 0) & has_tg
-        bt0 = normal.cross(tg_n) * sign
-        texel = sample_bilinear(tables.tex, tex_idx[:, 2], uv)
-        nmap = V3(texel[:, 0] * 2.0 - 1.0, texel[:, 1] * 2.0 - 1.0,
-                  texel[:, 2] * 2.0 - 1.0).normalized()
-        mapped = (tg_n * nmap.x + bt0 * nmap.y + normal * nmap.z).normalized()
-        shading_normal = mapped.where(has_nm, normal)
-
-    # the tangent re-orthogonalised against the (possibly mapped) normal
-    tg_ortho = (tg_n - shading_normal * shading_normal.dot(tg_n)).normalized()
-    bt_ortho = shading_normal.cross(tg_ortho) * sign
-    onb_t, onb_b = v3_onb(shading_normal)
-    tangent = tg_ortho.where(has_tg, onb_t)
-    bitangent = bt_ortho.where(has_tg, onb_b)
-
-    view = -direction
-    front = shading_normal.dot(view) >= 0.0
-    shading_normal = shading_normal.where(front, -shading_normal)
-
-    def mcol(c):
-        return torch.index_select(c, 0, mat_i)
-
-    base = v3_gather(m.base_colour, mat_i)
-    emissive = v3_gather(m.emissive_v, mat_i)
-    transmission = mcol(m.transmission)
-    metallic = mcol(m.metallic)
-    rough = mcol(m.roughness)
-    aniso_s = mcol(m.aniso_strength)
-    aniso_r = mcol(m.aniso_rotation)
-
-    if tables.has_textures:  # material slots (hit.rchit:75-108)
-        def sample(slot):
-            return sample_bilinear(tables.tex, tex_idx[:, slot], uv)
-
-        tb = sample(0)
-        base = (base * V3(tb[:, 0], tb[:, 1], tb[:, 2])).where(tex_idx[:, 0] >= 0, base)
-        te = sample(3)
-        emissive = (emissive * V3(te[:, 0], te[:, 1], te[:, 2])).where(tex_idx[:, 3] >= 0,
-                                                                       emissive)
-        transmission = torch.where(tex_idx[:, 4] >= 0, transmission * sample(4)[:, 0],
-                                   transmission)
-        has_mr = tex_idx[:, 1] >= 0  # roughness from G, metallic from B
-        mr = sample(1)
-        metallic = torch.where(has_mr, metallic * mr[:, 2], metallic)
-        rough = torch.where(has_mr, rough * mr[:, 1], rough)
-        has_an = tex_idx[:, 5] >= 0  # direction in R,G; strength in B
-        an = sample(5)
-        aniso_r = torch.where(has_an, aniso_r + torch.atan2(an[:, 1], an[:, 0]), aniso_r)
-        aniso_s = torch.where(has_an, aniso_s * an[:, 2], aniso_s)
-
-    alpha_c = torch.clamp_min(rough * rough, 0.001)  # hit.rchit:94-95
-    alpha_x = alpha_c + (1.0 - alpha_c) * (aniso_s * aniso_s)  # mix (hit.rchit:112)
-
-    mat = HitMaterial(
-        base_colour=base,
-        emissive=emissive.where(~miss, 0.0),
-        metallic=metallic,
-        alpha_x=alpha_x,
-        alpha_y=alpha_c,
-        ad_x=torch.cos(aniso_r),
-        ad_y=torch.sin(aniso_r),
-        transmission=transmission,
-        ior=mcol(m.ior),
-        thin=mcol(m.thin),
-        attenuation=v3_gather(m.attenuation, mat_i),
-        dispersion=mcol(m.dispersion),
-    )
-    return HitInfo(
-        pos=pos,
-        normal=shading_normal,
-        tangent=tangent,
-        bitangent=bitangent,
-        t=torch.where(miss, -INF, t),
-        front_face=front,
-        mat=mat,
-    )
-
-
-# ---------------------------------------------------------------------------
 # Next-event estimation (shaders/lightsample.glsl)
 # ---------------------------------------------------------------------------
-
-
-def _balance(p1, p2):
-    """Balance heuristic (shaders/sampling.glsl:8-10)."""
-    return p1 / torch.clamp_min(p1 + p2, 1e-30)
-
-
-def _offset_origin(hit: HitInfo, light_dir: V3) -> V3:
-    off = torch.where(hit.normal.dot(light_dir) >= 0.0, BIAS, -BIAS)
-    return hit.pos + hit.normal * off
-
-
-def _sample_analytic(tables, hit, seed, mask):
-    """50/50 point-vs-directional pick (lightsample.glsl:14-52;
-    integrator.py:646-713); the shadow ray is traced by the caller.
-
-    Returns (radiance V3, light_dir V3, pdf, t_max, seed).
-    """
-    np_, nd = tables.num_point, tables.num_directional
-    p_factor = 1.0 / ((np_ > 0) + (nd > 0))
-    n = hit.t.shape[0]
-    dev = hit.t.device
-
-    pick_point = torch.zeros(n, dtype=torch.bool, device=dev)
-    if np_ > 0:
-        u, seed_a = rng.rnd(seed)
-        seed = torch.where(mask, seed_a, seed)  # draw iff numPoint>0 (:17)
-        pick_point = (u < 0.5) | (nd == 0)
-
-    idx, seed_i = rng.rnd_int(
-        seed,
-        torch.where(pick_point, 0, np_),
-        torch.where(pick_point, max(np_ - 1, 0), np_ + nd - 1),
-    )
-    seed = torch.where(mask, seed_i, seed)
-
-    # point branch
-    pi = torch.clamp(idx, 0, max(np_ - 1, 0))
-    l_pos = v3_gather(tables.pl_pos, pi)
-    ray = l_pos - hit.pos
-    dist = torch.sqrt(torch.clamp_min(ray.length_sq(), 1e-30))
-    dir_p = ray / dist
-    l_range = torch.index_select(tables.pl_range, 0, pi)
-    att = torch.where(
-        l_range == 0.0,
-        1.0,
-        torch.clamp_min(1.0 - (dist / torch.clamp_min(l_range, 1e-20)) ** 4, 0.0),
-    )
-    att = torch.clamp_max(att / (dist * dist), 1.0)
-    rad_p = v3_gather(tables.pl_colour, pi) * (
-        torch.index_select(tables.pl_intensity, 0, pi) * att)
-    pdf_p = torch.full((n,), p_factor / max(np_, 1), dtype=_F32, device=dev)
-
-    # directional branch
-    di = torch.clamp(idx - np_, 0, max(nd - 1, 0))
-    dir_d = -v3_gather(tables.dl_dir, di)
-    rad_d = v3_gather(tables.dl_colour, di) * torch.index_select(tables.dl_intensity, 0, di)
-    pdf_d = torch.full((n,), p_factor / max(nd, 1), dtype=_F32, device=dev)
-
-    light_dir = dir_p.where(pick_point, dir_d)
-    radiance = rad_p.where(pick_point, rad_d)
-    pdf = torch.where(pick_point, pdf_p, pdf_d)
-    t_max = torch.where(pick_point, dist, INF)
-    return radiance, light_dir, pdf, t_max, seed
-
-
-def _sample_emissive(tables, hit, seed, mask):
-    """Emissive-triangle NEE sampling (lightsample.glsl:54-141;
-    integrator.py:716-800): CDF search, a uniform point on the triangle and
-    the emissive-texture radiance there.  The verification trace and the pdf
-    probe are the caller's.
-
-    Returns (radiance V3, light_dir V3, t_max, seed).
-    """
-    u_cdf, seed_c = rng.rnd(seed)
-    seed = torch.where(mask, seed_c, seed)
-    tri_e = torch.clamp(
-        torch.searchsorted(tables.em_cdf, u_cdf, right=False),
-        0,
-        tables.num_emissive_tris - 1,
-    )
-
-    (ux, uy), seed_uv = rng.rnd_square(seed)
-    seed = torch.where(mask, seed_uv, seed)
-    fold = ux + uy > 1.0  # parallelogram fold (lightsample.glsl:116-119)
-    ux = torch.where(fold, 1.0 - ux, ux)
-    uy = torch.where(fold, 1.0 - uy, uy)
-
-    v0 = v3_gather(tables.em_v0, tri_e)
-    v1 = v3_gather(tables.em_v1, tri_e)
-    v2 = v3_gather(tables.em_v2, tri_e)
-    point = v0 * ux + v1 * uy + v2 * (1.0 - ux - uy)
-
-    ray = point - hit.pos
-    dist = torch.sqrt(torch.clamp_min(ray.length_sq(), 1e-30))
-    light_dir = ray / dist
-
-    # Verification ray bound: "the closest hit is the sampled triangle" is
-    # "no hit strictly closer than the sampled point" (integrator.py:758-767)
-    t_max = dist * (1.0 - 1e-4) - 1e-5
-
-    em_mat = torch.index_select(tables.em_mat, 0, tri_e)
-    radiance = v3_gather(tables.materials.emissive_v, em_mat)
-    if tables.has_textures:
-        # emissive.rchit:39-41 modulates by the emissive texture at the
-        # verify hit, which is the sampled point: barycentrics (ux, uy,
-        # 1-ux-uy).  A black texel zeroes the radiance, so the lane is not
-        # `visible` below.
-        tex_e = torch.index_select(tables.materials.tex_idx[:, 3], 0, em_mat)
-        uv_hit = _uv_at(torch.index_select(tables.em_uv, 0, tri_e), ux, uy, 1.0 - ux - uy)
-        te = sample_bilinear(tables.tex, tex_e, uv_hit)
-        radiance = (radiance * V3(te[:, 0], te[:, 1], te[:, 2])).where(tex_e >= 0, radiance)
-    return radiance, light_dir, t_max, seed
 
 
 def sample_lights(tables, hit, wavelength, view_world: V3, seed, mask):
@@ -704,75 +465,85 @@ def sample_lights(tables, hit, wavelength, view_world: V3, seed, mask):
 # ---------------------------------------------------------------------------
 
 
-def _bounce(tables, s: dict, b, max_depth: int, nee_weighting: str):
+def _bounce(tables, s: dict, b, max_depth: int, nee_weighting: str, rays=None):
     """One bounce of every lane of the wave state ``s`` (integrator.py:961-1046):
-    returns the next state and the rays traced (material + NEE + terminal
-    emissive probes), a 0-d tensor.  A dead lane's fields come out as they
-    went in.  ``b`` is the bounce index: a Python int eagerly, an int32
-    device scalar in a captured wave (:func:`_wave_program`).  Nothing here
-    reads the device on the host but the resample loops of an alpha scene
-    (:func:`_closest`), which a capture turns into WHILE nodes, so the
-    bounce can be captured (:mod:`.graphs`)."""
+    returns the next state and ``rays`` (a 0-d int64 tensor, made if not
+    given) with the bounce's rays added (material + NEE + terminal emissive
+    probes).  A dead lane's fields come out as they went in.  ``b`` is the
+    bounce index: a Python int eagerly, an int32 device scalar in a captured
+    wave (:func:`_wave_program`).
+
+    The traversal launches (:func:`_closest`, :func:`_shadow`, the emissive
+    pdf probes) alternate with the three shading kernels of
+    :mod:`..ops.shade`: the hit's state, the material and light samples up to
+    the shadow ray, and the NEE resolve, which also counts the rays.
+    Nothing here reads the device on the host but the resample loops of an
+    alpha scene (:func:`_closest`), which a capture turns into WHILE nodes,
+    so the bounce can be captured (:mod:`.graphs`)."""
     n = s["active"].shape[0]
     BOUNCE_WIDTHS[n] = BOUNCE_WIDTHS.get(n, 0) + 1
-    active, origin, direction = s["active"], s["origin"], s["direction"]
-    throughput, mat_pdf, wavelength = s["throughput"], s["mat_pdf"], s["wavelength"]
+    if rays is None:
+        rays = torch.zeros((), dtype=torch.int64, device=s["active"].device)
 
-    (t, tri, u, v), seed = _closest(
-        tables, origin, direction, t_min=EPS, t_max=INF, active=active, seed=s["seed"])
-    hit = eval_hit(tables, origin, direction, t, tri, u, v)
-
-    miss = tri < 0
-    is_emissive = hit.mat.emissive.any_nonzero()
-    terminal = miss | is_emissive | (b == max_depth) | (s["preview"] & (b == 1))
-
-    # deferred skybox (skybox.rmiss): record the throughput at the miss;
-    # the miss direction survives in the final state
-    sky_w = s["sky_w"] + throughput.where(active & miss, 0.0)
-
-    # emissive MIS probe (raygen.rgen:67-73); miss lanes keep weight 1
-    probe_mask = active & terminal & is_emissive & ~miss & (b != 0)
-    pdf_probe = _emissive_pdf(tables, origin, direction, t_min=EPS, active=probe_mask)
-    weight = torch.where(probe_mask, _balance(mat_pdf, pdf_probe), 1.0)
-    value = s["value"] + (throughput * hit.mat.emissive * weight).where(active & terminal, 0.0)
-
-    cont = active & ~terminal
-
-    # material sample at this hit (raygen.rgen:79-83)
-    view = -direction
-    tview = v3_to_tangent(view, hit.tangent, hit.bitangent, hit.normal)
-    d_t, est, pdf_m, _, wl_new, seed_m = sample_material(seed, hit, wavelength, tview)
-    seed = torch.where(cont, seed_m, seed)
-    wavelength = torch.where(cont, wl_new, wavelength)
-    new_dir = v3_from_tangent(d_t, hit.tangent, hit.bitangent, hit.normal)
-    throughput_next = (throughput * est).where(cont, throughput)
-    alive = cont & throughput_next.any_nonzero()  # raygen.rgen:84
-
-    off = torch.where(hit.normal.dot(new_dir) >= 0.0, BIAS, -BIAS)
-    new_origin = hit.pos + hit.normal * off
-
-    # NEE for surviving lanes, before the next trace (raygen.rgen:54-56)
-    light, seed, nee_rays = sample_lights(tables, hit, wavelength, view, seed, alive)
-    nee_throughput = throughput_next if nee_weighting == "reference" else throughput
-    value = value + (nee_throughput * light).where(alive, 0.0)
-
-    out = dict(s, origin=new_origin.where(cont, origin), direction=new_dir.where(cont, direction),
-               value=value, throughput=throughput_next, seed=seed, wavelength=wavelength,
-               mat_pdf=torch.where(cont, pdf_m, mat_pdf), active=alive, sky_w=sky_w)
-    return out, active.sum() + probe_mask.sum() + nee_rays
+    (t, tri, u, v), seed = _closest(tables, s["origin"], s["direction"], t_min=EPS, t_max=INF,
+                                    active=s["active"], seed=s["seed"])
+    hs = shade.shade_hit(tables, s, b, max_depth, t, tri, u, v)
+    # emissive MIS probe (raygen.rgen:67-73) for the terminal emissive hits
+    pdf_probe = _emissive_pdf(tables, s["origin"], s["direction"], t_min=EPS,
+                              active=hs.probe_mask)
+    # the material sample (raygen.rgen:79-84), then NEE for the surviving
+    # lanes up to their shadow ray (raygen.rgen:54-56)
+    st, ls = shade.shade_scatter(tables, s, hs, pdf_probe, seed)
+    occluded = visible = pdf_e = None
+    if ls is not None:
+        # ONE occlusion launch for both strategies (lightsample.glsl:45, :131)
+        occluded, st["seed"] = _shadow(tables, ls.ray_o, ls.light_dir, t_max=ls.t_max,
+                                       active=ls.trace_mask, seed=st["seed"])
+        if tables.num_emissive_tris > 0:
+            # pdf probe over all emissive surfaces along the verified ray
+            # (lightsample.glsl:136); only surviving emissive-branch lanes
+            visible = ls.vis_pre & ~occluded
+            pdf_e = _emissive_pdf(tables, ls.ray_o, ls.light_dir, t_min=0.0, active=visible)
+    st["value"] = shade.shade_resolve(tables, s, hs, st, ls, occluded, visible, pdf_e,
+                                      nee_weighting, rays)
+    return dict(s, **st, sky_w=hs.sky_w), rays
 
 
+#: The hand-written kernels' launch counters, by module (``graphs``:
+#: ``loop_cond_kernel``'s, which only the device loops launch): what the
+#: bench, the smoke, the tools and the tests read (:func:`launch_counts`) and
+#: zero (:func:`reset_counters`).
+LAUNCH_COUNTERS = {"dense": dense.LAUNCHES, "traverse": traverse.LAUNCHES,
+                   "shade": shade.LAUNCHES, "graphs": graphs.LAUNCHES}
 #: The Python-side counters a bounce advances; a captured wave adds what each
 #: part's capture counted times the runs of its body (:mod:`.graphs`).
-_COUNTERS = (dense.LAUNCHES, traverse.LAUNCHES, instanced.STATS, BOUNCE_WIDTHS, ALPHA_LOOP)
+_COUNTERS = (*(d for name, d in LAUNCH_COUNTERS.items() if name != "graphs"), instanced.STATS,
+             BOUNCE_WIDTHS, ALPHA_LOOP)
 
 
-def _step(tables, s: dict, b: int, max_depth: int, nee_weighting: str, sort_first: bool):
+def launch_counts(loops: bool = True) -> dict:
+    """Each kernel's launches since the last :func:`reset_counters`, by
+    module; ``loop_cond_kernel``'s (``graphs``) too with ``loops``."""
+    return {name: dict(d) for name, d in LAUNCH_COUNTERS.items() if loops or name != "graphs"}
+
+
+def reset_counters() -> None:
+    """Zero the launch counters, the instance steps, the bounce widths and
+    the alpha loop's counter, once the device loops' counts so far are in
+    (:func:`.graphs.settle`)."""
+    graphs.settle()
+    for d in (*LAUNCH_COUNTERS.values(), instanced.STATS, ALPHA_LOOP):
+        for k in d:
+            d[k] = 0
+    BOUNCE_WIDTHS.clear()
+
+
+def _step(tables, s: dict, b: int, max_depth: int, nee_weighting: str, sort_first: bool, rays):
     """One step of the eager bounce loop: the coherence re-sort where asked,
-    then :func:`_bounce`."""
+    then :func:`_bounce`, adding its rays into ``rays``."""
     if sort_first:
         s = _sort_wavefront(tables, s)
-    return _bounce(tables, s, b, max_depth, nee_weighting)
+    return _bounce(tables, s, b, max_depth, nee_weighting, rays)
 
 
 def _radiance(tables, s: dict):
@@ -822,7 +593,8 @@ def render_sample(tables, view_inv, proj_inv, width, height, sample_count, max_d
         mat_pdf=torch.ones(n, dtype=_F32, device=dev),
         active=torch.ones(n, dtype=torch.bool, device=dev),
         sky_w=V3.full((0.0, 0.0, 0.0), n, dev),
-        preview=torch.broadcast_to(rng.as_u32(sample_count, dev) == 0, (n,)),
+        # contiguous: the shading kernels read a column per field
+        preview=torch.broadcast_to(rng.as_u32(sample_count, dev) == 0, (n,)).contiguous(),
     )
     if repack:  # each lane's output position
         s["slot"] = torch.arange(n, device=dev) if slot is None else slot
@@ -849,16 +621,14 @@ def _wave(tables, s: dict, max_depth: int, nee_weighting: str, repack: bool):
         terminated, the wavefront analogue of the per-thread `break`.  The
         live count is read on the host unless known (``live``: the start).
         Returns (next bounce, state, live lanes at the last test)."""
-        nonlocal rays
         while b <= max_depth:
             if live is None:
                 live = int(s["active"].sum())
             if live <= live_floor:
                 break
-            s, r = _step(tables, s, b, max_depth, nee_weighting,
-                         repack and b > 0 and not sorted_)
+            s, _ = _step(tables, s, b, max_depth, nee_weighting,
+                         repack and b > 0 and not sorted_, rays)
             sorted_, live = False, None
-            rays = rays + r
             b += 1
         return b, s, live
 
@@ -902,9 +672,8 @@ def _wave_program(tables, s: dict, cap, max_depth: int, nee_weighting: str, repa
             if repack:
                 cap.if_(graphs.Cond(sort_next),
                         lambda: graphs._copy_state(st, _sort_wavefront(tables, st)))
-            out, r = _bounce(tables, st, b, max_depth, nee_weighting)
+            out, _ = _bounce(tables, st, b, max_depth, nee_weighting, rays)
             graphs._copy_state(st, out)
-            rays.add_(r)
             b.add_(1)
             live.copy_(st["active"].sum())
             if repack:
