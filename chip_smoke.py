@@ -50,7 +50,8 @@ what a bounce calls run eagerly.
    must have been launched by it, every bounce at the wave's full width (no
    repack on a dense scene), each shading kernel once a bounce, and the image
    must be finite and lit; the shading's plain versions (and ``eval_hit``, ``sample_material``,
-   ``material_bsdf``, ``material_pdf``) raise if called meanwhile.
+   ``material_bsdf``, ``material_pdf``) and the wave kernels' (``camera_rays``,
+   ``alpha_test``) raise if called meanwhile; one primary-ray launch a wave.
 5. walks    — both BVH walks (K4' whole-stream, K5' treelet; closest and
    shadow) against their plain versions on the streams of the full cfg2
    dragon (262,280 triangles, 128 treelets) and of the 147,136-triangle glTF
@@ -221,12 +222,15 @@ what a bounce calls run eagerly.
    Images bit-equal, equal rays, launches per kernel, bounce widths and
    alpha-loop calls, passes and most passes a call; per side the wall per
    frame and per wave and the host synchronisations
-   (``torch.cuda.set_sync_debug_mode("warn")``), in all and while a program
-   launches: none inside a wave on the device side; the programs kept (one
-   a wave shape),
-   their capture seconds, their pool's bytes and the mirror's, the nodes a
-   bounce's parts hold (``cudaGraphGetNodes``; a resample pass and a re-sort
-   apart), and ``loop_cond_kernel``'s launches.
+   (``torch.cuda.set_sync_debug_mode("warn")``), in all, a frame (the
+   harness's own reads of the progressive run's accumulation and ray count
+   aside) and while a program launches: on the device side exactly one a
+   frame, its read at its end (the waves' sample numbers, lanes and camera
+   are written on the device), and none inside a wave;
+   the programs the first frame captured and those kept (one a wave
+   shape), their capture seconds, their pool's bytes and the mirror's, the
+   nodes a bounce's parts hold (``cudaGraphGetNodes``; a resample pass and
+   a re-sort apart), and ``loop_cond_kernel``'s launches.
 28. shade   — after phase 26, before any profiler session: the three shading
    kernels (``csrc/shade.cu``) against their plain versions on every bounce
    state of the first wave of cfg1-cfg4, glTF 147k, the textured glb, the
@@ -237,6 +241,15 @@ what a bounce calls run eagerly.
    ii lane fails.  Each kernel's first call (bounce 0) on cfg1, cfg2, cfg3,
    glTF 147k and the gallery timed in a captured graph against its plain
    version, with its bytes bound.
+29. wave    — after phase 28: the wave's two kernels (``csrc/wave.cu``) against
+   their plain versions on the first wave of cfg1-cfg5, glTF 147k, the
+   textured glb, the emitter soup, the gallery and the instanced alpha
+   gallery (``tools/check_torch_wave.py``, eager): the primary-ray kernel's
+   initial state, and on the alpha scenes every resample pass's commit and
+   count of pending lanes, every lane bit-equal or named by kernel, field
+   and ulps as class i; a class ii lane fails.  Each kernel's first call on
+   cfg1, cfg2, glTF 147k and the textured glb timed in a captured graph
+   against its plain version, with its bytes bound.
 27. graphs_busy — after the profiled timings: one wave each of cfg1, the
    gallery, the emitter soup, phase 9's forced-BVH dragon and the glTF 147k
    under ``torch.profiler`` three ways, counters reset just before.  On the
@@ -302,6 +315,7 @@ DENSE_SRC = "vulkan_raytracer_tpu_torch/csrc/dense_sweep.cu"
 BVH_SRC = "vulkan_raytracer_tpu_torch/csrc/bvh_walk.cu"
 LOOPS_SRC = "vulkan_raytracer_tpu_torch/csrc/graph_loops.cu"
 SHADE_SRC = "vulkan_raytracer_tpu_torch/csrc/shade.cu"
+WAVE_SRC = "vulkan_raytracer_tpu_torch/csrc/wave.cu"
 # name -> (counter module, counter key, source, TPU kernel it replaces)
 KERNELS = {
     "dense_closest": ("dense", "closest", DENSE_SRC,
@@ -332,12 +346,24 @@ KERNELS = {
                       "vulkan_raytracer_tpu/render/integrator.py:961"),
     "shade_resolve": ("shade", "resolve", SHADE_SRC,
                       "vulkan_raytracer_tpu/render/integrator.py:961"),
+    # the wave's initial state and an alpha pass's test and commit: what XLA
+    # fuses of the JAX wave around the bounce loop and beside the Pallas call
+    # of each resample pass, not a Pallas kernel
+    "primary_rays": ("wave", "primary_rays", WAVE_SRC,
+                     "vulkan_raytracer_tpu/render/integrator.py:403"),
+    "alpha_commit": ("wave", "alpha_commit", WAVE_SRC,
+                     "vulkan_raytracer_tpu/render/integrator.py:130"),
 }
 #: the shading phase's configs (tools/check_torch_shade.py); the kernels are
 #: timed on the first five
 SHADE_CONFIGS = ("cfg1", "cfg2", "cfg3", "gltf147k", "gallery", "cfg4", "textured", "soup",
                  "glass_lights", "wild_aniso")
 SHADE_TIMED = ("cfg1", "cfg2", "cfg3", "gltf147k", "gallery")
+#: the wave kernels' phase's configs (tools/check_torch_wave.py); the kernels
+#: are timed on the first four (the alpha commit on the two with alpha)
+WAVE_CONFIGS = ("cfg1", "cfg2", "gltf147k", "textured", "cfg3", "cfg4", "cfg5", "soup",
+                "gallery", "alpha_gallery")
+WAVE_TIMED = ("cfg1", "cfg2", "gltf147k", "textured")
 CFG1 = ["-m", "cornell", "-r", "512,512", "-b", "4", "--spp", "64",
         "-c", "0,1,2.4", "-d", "0,0,-1"]
 CFG2 = ["-m", "dragon", "-r", "512,512", "-b", "4", "--spp", "4",
@@ -1002,26 +1028,30 @@ def _loops_on_host():
 def _plain_shading_forbidden():
     """Inside, any call of the shading's plain versions, or of the torch
     functions they are made of (``eval_hit``, ``sample_material``,
-    ``material_bsdf``, ``material_pdf``), raises: on the card the bounce
-    shades through its three kernels only."""
-    from vulkan_raytracer_tpu_torch.ops import shade
+    ``material_bsdf``, ``material_pdf``), or of the wave kernels' plain
+    versions (``camera_rays``, ``alpha_test``) raises: on the card a wave
+    starts, shades and commits its alpha passes through its kernels only."""
+    from vulkan_raytracer_tpu_torch.ops import shade, wave
 
-    names = ("shade_hit_reference", "shade_scatter_reference", "shade_resolve_reference",
-             "eval_hit", "sample_material", "material_bsdf", "material_pdf")
-    saved = {name: getattr(shade, name) for name in names}
+    names = {shade: ("shade_hit_reference", "shade_scatter_reference",
+                     "shade_resolve_reference", "eval_hit", "sample_material", "material_bsdf",
+                     "material_pdf"),
+             wave: ("primary_rays_reference", "camera_rays", "alpha_commit_reference",
+                    "alpha_test")}
+    saved = {(mod, name): getattr(mod, name) for mod, ns in names.items() for name in ns}
 
     def forbidden(name):
         def call(*args, **kwargs):
-            raise AssertionError(f"the card's bounce called the plain shading: {name}")
+            raise AssertionError(f"the card's wave called a plain version: {name}")
         return call
 
-    for name in names:
-        setattr(shade, name, forbidden(name))
+    for mod, name in saved:
+        setattr(mod, name, forbidden(name))
     try:
         yield
     finally:
-        for name, fn in saved.items():
-            setattr(shade, name, fn)
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
 
 
 @contextlib.contextmanager
@@ -2198,37 +2228,42 @@ def graphs_phase(cornell, dragon, bigasset, out_dir: Path):
 
     from vulkan_raytracer_tpu_torch import bench
     from vulkan_raytracer_tpu_torch.render import graphs, integrator, renderer
-    from vulkan_raytracer_tpu_torch.render.integrator import block_order
     from vulkan_raytracer_tpu_torch.scene.camera import Camera
 
     def camera(cam, w, h):
         return Camera(position=np.array(cam[0]), direction=np.array(cam[1]), aspect=w / h)
 
+    # each run returns (its images, rays, waves, frames, reads the harness
+    # makes beyond the frames' own)
     def frame(tables, cam, w, h, spp, depth):
         def run():
             img, rays = renderer.render_image(tables, camera(cam, w, h), w, h, spp,
                                               max_depth=depth, tonemap=False)
-            return [img], rays, renderer.LAST_RENDER["waves"]
+            return [img], rays, renderer.LAST_RENDER["waves"], 1, 0
         return run
 
     def first_band(tables, cfg):
         w, h = cfg["w"], cfg["h"]
         vi, pi = renderer.camera_uniforms(camera(cfg["cam"], w, h))
         chunk, per, _ = renderer.band_plan(w, h, cfg["spp"])
-        lanes = torch.as_tensor(block_order(w, h)[0][:per], device=tables.device)
+        lanes = integrator.block_lanes(w, h, tables.device)[:per]
 
-        def run():
+        def run():  # one read at its end, as render_image's
             with torch.inference_mode():
                 acc, rays, _, waves = renderer.render_lanes(tables, vi, pi, w, h, cfg["depth"],
                                                             chunk, 1, lanes, banded=True)
-                return [acc.cpu().numpy()], graphs.settle(rays)[0], waves
+                host = renderer._fetch(acc)
+                total, = graphs.settle(rays)
+                return [host.numpy().copy()], total, waves, 1, 0
         return run
 
     def progressive(tables, w, h, depth, spp):
         def run():
             r = renderer.Renderer(tables, camera(CFG1_CAM, w, h), w, h, depth)
             frames = [r.draw_frame() for _ in range(spp + 1)]  # the preview, then spp
-            return frames + [r.accum.cpu().numpy()], r.rays_traced, spp + 1
+            accum = renderer._fetch(r.accum)  # read with the ray count: one read
+            rays = r.rays_traced
+            return frames + [accum.numpy().copy()], rays, spp + 1, spp + 1, 1
         return run
 
     import torch_glb_assets
@@ -2271,15 +2306,17 @@ def graphs_phase(cornell, dragon, bigasset, out_dir: Path):
         if not graphs._graphs_preferred(tables):
             raise AssertionError(f"{config}: not a scene the graphs run")
         out = {side: {"seconds": []} for side in sides}
-        want, images_by_side = None, {}
+        want, images_by_side, captured_first = None, {}, None
         turns = ("device", "replay", "eager", "device", "replay", "eager", "eager", "replay",
                  "device")
         for turn, side in enumerate(turns):
             with sides[side]():
                 _reset_launches()
-                (images, rays, waves), secs = _timed_sync(run)
+                (images, rays, waves, frames, harness_reads), secs = _timed_sync(run)
                 got = (rays, _launch_counts(loops=False), dict(integrator.BOUNCE_WIDTHS),
                        _alpha_loop())
+                if captured_first is None:
+                    captured_first = graphs.STATS["captured"]
                 replays, bounces = graphs.STATS["replays"], _mode()
                 program = {k: graphs.STATS[k] for k in ("replays", "passes", "sorts")}
                 loop_cond = graphs.LAUNCHES["loop_cond"]
@@ -2316,16 +2353,22 @@ def graphs_phase(cornell, dragon, bigasset, out_dir: Path):
             o.update(seconds_median=statistics.median(o["seconds"]),
                      ms_per_wave=1e3 * statistics.median(o["seconds"]) / o["waves"],
                      host_syncs=syncs, host_syncs_per_wave=syncs / o["waves"],
+                     host_syncs_per_frame=(syncs - harness_reads) / frames,
                      host_syncs_inside_waves=inside.count,
                      alpha_passes_per_wave=passes / o["waves"], host_sync_lines=lines)
         if out["device"]["host_syncs_inside_waves"]:
             raise AssertionError(f"{config}: {out['device']['host_syncs_inside_waves']} host "
                                  f"syncs inside the device loops' waves: "
                                  f"{out['device']['host_sync_lines']}")
+        if out["device"]["host_syncs_per_frame"] != 1:
+            raise AssertionError(f"{config}: {out['device']['host_syncs']} host syncs for "
+                                 f"{frames} frames and {harness_reads} reads of the harness, "
+                                 f"not one a frame: {out['device']['host_sync_lines']}")
         cache = graphs.cache(tables)
         nodes = bounce_nodes(cache)
         emit({"phase": "graphs", "config": config, "bit_equal": True, "rays": want[1][0],
-              "nodes_per_bounce": nodes,
+              "nodes_per_bounce": nodes, "captured_first_frame": captured_first,
+              "host_syncs_per_frame": out["device"]["host_syncs_per_frame"],
               "launches": want[1][1], "bounce_widths": want[1][2], "alpha_loop": want[1][3],
               "programs_kept": len(cache.graphs), "pool_bytes": cache.pool_bytes(),
               "mirror_bytes": cache.mirror_bytes(), "max_depth": depth,
@@ -2407,6 +2450,41 @@ def shade_phase(device, prebuilt: dict, out_dir: Path) -> tuple:
     return times, errs
 
 
+def wave_phase(device, prebuilt: dict, out_dir: Path) -> tuple:
+    """Phase 29: the wave's two kernels against their plain versions on the
+    first wave of each of :data:`WAVE_CONFIGS` (``tools/check_torch_wave.py``,
+    eager, so each call runs its Python): the primary-ray kernel on every
+    wave, the alpha commit on every resample pass of the alpha scenes
+    (the glTF 147k, the textured glb, the instanced alpha gallery); every
+    lane of every field bit-equal, or named by kernel, field and ulps as
+    class i (<= 4 ulps); a class ii lane fails.  On the first waves of
+    :data:`WAVE_TIMED` each kernel's first call is timed in a captured
+    graph against its plain version eagerly, with its bytes bound.
+    ``prebuilt`` maps configs to tables the smoke already uploaded.
+    Returns ({kernel: {config: times}}, {kernel: largest abs error})."""
+    import check_torch_wave as ctw
+
+    specs = ctw.configs(out_dir)
+    times = {k: {} for k in ctw.KERNELS}
+    errs = {k: 0.0 for k in ctw.KERNELS}
+    for name in WAVE_CONFIGS:
+        line = ctw.check_config(name, specs[name], device, tables=prebuilt.get(name),
+                                timing=name in WAVE_TIMED)
+        emit({"phase": "wave", **line})
+        if line["by_class"]["ii"] or not line["finite"]:
+            raise AssertionError(f"wave {name}: {line['by_class']['ii']} class ii lanes, "
+                                 f"finite {line['finite']}: {line['first']}")
+        if line["calls"]["primary_rays"] != 1 or bool(
+                line["calls"]["alpha_commit"]) != line["alpha"]:
+            raise AssertionError(f"wave {name}: calls {line['calls']}")
+        for k in ctw.KERNELS:
+            errs[k] = max(errs[k], line["max_abs_err"][k])
+            if k in line.get("timing", {}):
+                times[k][name] = {**line["timing"][k],
+                                  "launches_per_wave": line["launches"][k]}
+    return times, errs
+
+
 def graphs_busy(cornell, gallery, soup, small, bigasset) -> None:
     """Phase 27, after the profiled timings: one wave each of cfg1, the
     gallery, the emitter soup, the forced-BVH dragon of phase 9 and the
@@ -2463,8 +2541,7 @@ def graphs_busy(cornell, gallery, soup, small, bigasset) -> None:
                 raise AssertionError(f"{label}: the replay ran {program}, the device loops "
                                      f"{out['device']['program']}")
             trace = trace_summary(prof)
-            counted = {**counted["dense"], **counted["traverse"], **counted["shade"],
-                       **counted["graphs"]}
+            counted = {k: n for by_module in counted.values() for k, n in by_module.items()}
             if side == "device":
                 traced = check_device_trace(trace, counted, f"{label} {side}")
             else:
@@ -2590,7 +2667,8 @@ _ENTRIES = {"closest_kernel": "dense_closest", "shadow_kernel": "dense_shadow",
             "treelet_walk_kernelILb1": "treelet_walk_shadow",
             "emissive_walk_kernel": "emissive_walk", "loop_cond_kernel": "loop_cond_kernel",
             "shade_hit_kernel": "shade_hit", "shade_scatter_kernel": "shade_scatter",
-            "shade_resolve_kernel": "shade_resolve"}
+            "shade_resolve_kernel": "shade_resolve", "primary_rays_kernel": "primary_rays",
+            "alpha_commit_kernel": "alpha_commit"}
 
 
 def ptxas_table(report: str) -> dict:
@@ -3002,7 +3080,7 @@ def main() -> int:
     # 4. render: the CLI's headless path for bench cfg1
     from vulkan_raytracer_tpu_torch import cli
 
-    from vulkan_raytracer_tpu_torch.render import integrator
+    from vulkan_raytracer_tpu_torch.render import integrator, renderer
 
     with tempfile.TemporaryDirectory() as out_dir, _plain_shading_forbidden():
         _reset_launches()
@@ -3018,6 +3096,9 @@ def main() -> int:
     if set(launches["shade"].values()) != {sum(cfg1_widths.values())}:
         raise AssertionError(f"cfg1's {sum(cfg1_widths.values())} bounces launched the shading "
                              f"kernels {launches['shade']} times")
+    if launches["wave"]["primary_rays"] != renderer.LAST_RENDER["waves"]:
+        raise AssertionError(f"cfg1's {renderer.LAST_RENDER['waves']} waves launched the "
+                             f"primary-ray kernel {launches['wave']['primary_rays']} times")
     if not np.isfinite(img).all() or img.shape != (512, 512, 3):
         raise AssertionError(f"cfg1 image not finite or misshapen: {img.shape}")
     if not img.mean() > 1e-3:
@@ -3126,6 +3207,20 @@ def main() -> int:
         times[name] = {**by_config["cfg1"], "shape": "cfg1 wave, bounce 0 (524,288 lanes)",
                        "by_config": by_config}
 
+    # 29. the wave's kernels against their plain versions on real waves,
+    # timed, before any profiler session
+    with tempfile.TemporaryDirectory() as tmp:
+        wave_times, wave_errs = wave_phase(
+            device, {"cfg1": cornell, "cfg2": dragon, "gltf147k": bigasset,
+                     "gallery": gallery_tables, "soup": soup_tables}, Path(tmp))
+    errs.update(wave_errs)
+    times["primary_rays"] = {**wave_times["primary_rays"]["cfg1"],
+                             "shape": "cfg1 wave (262,144 pixels x 2 samples)",
+                             "by_config": wave_times["primary_rays"]}
+    times["alpha_commit"] = {**wave_times["alpha_commit"]["gltf147k"],
+                             "shape": "glTF 147k wave, its first pass (524,288 lanes pending)",
+                             "by_config": wave_times["alpha_commit"]}
+
     # the dense kernels' device times from torch.profiler, after every
     # render phase: a profiler session slows the renders that follow it in
     # the same process (PERF.md §7)
@@ -3167,7 +3262,7 @@ def main() -> int:
             row["gltf147k"] = {k: g[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
         if name.startswith("dense"):
             row.update({k: t[k] for k in ("live", "host_us_per_call")})
-        if name.startswith("shade"):
+        if name.startswith("shade") or name in ("primary_rays", "alpha_commit"):
             row["by_config"] = t["by_config"]
         if name == "dense_shadow":
             row["cfg1_wave"] = shadow_cfg1

@@ -51,7 +51,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
 import profile_torch_wave  # noqa: E402
 import torch_glb_assets  # noqa: E402
 from test_torch_instancing import alpha_instanced_scene, instanced_scene  # noqa: E402
-from vulkan_raytracer_tpu_torch.ops import dense, instanced, traverse  # noqa: E402
+from vulkan_raytracer_tpu_torch.ops import dense, instanced, traverse, wave  # noqa: E402
 from vulkan_raytracer_tpu_torch.render import graphs, integrator, renderer  # noqa: E402
 from vulkan_raytracer_tpu_torch.scene import scenegraph as tsg  # noqa: E402
 from vulkan_raytracer_tpu_torch.scene.builtin import cornell_box_scene  # noqa: E402
@@ -65,7 +65,8 @@ _HOST_DATA = {aten.lift_fresh.default, aten.lift_fresh_copy.default}
 #: the kernels' plain versions, which a card never runs on the main path
 _PLAIN = [(dense, "closest_sweep_reference"), (dense, "shadow_sweep_reference"),
           (dense, "pdf_sweep_reference"), (traverse, "bvh_walk_reference"),
-          (traverse, "treelet_walk_reference"), (traverse, "emissive_pdf_walk_reference")]
+          (traverse, "treelet_walk_reference"), (traverse, "emissive_pdf_walk_reference"),
+          (wave, "primary_rays_reference"), (wave, "alpha_commit_reference")]
 
 
 def _synchronises(func, args) -> bool:
@@ -78,16 +79,33 @@ def _synchronises(func, args) -> bool:
 
 class HostReads(TorchDispatchMode):
     """Every op that would make the card wait for the host or the host for
-    the card."""
+    the card (none while ``paused``)."""
 
     def __init__(self):
         super().__init__()
         self.found = []
+        self.paused = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if _synchronises(func, args):
+        if not self.paused and _synchronises(func, args):
             self.found.append(str(func))
         return func(*args, **(kwargs or {}))
+
+
+def _outside_launches(monkeypatch, mode: HostReads) -> None:
+    """Pause ``mode`` while a program launches: on the CPU a launch is the
+    host-read replay, whose condition reads and plain versions stand for
+    what the card does inside a wave."""
+    launch = graphs._Program.launch
+
+    def paused(self, *args, **kw):
+        mode.paused += 1
+        try:
+            return launch(self, *args, **kw)
+        finally:
+            mode.paused -= 1
+
+    monkeypatch.setattr(graphs._Program, "launch", paused)
 
 
 def _write(dst, src) -> None:
@@ -96,6 +114,9 @@ def _write(dst, src) -> None:
     elif isinstance(dst, (tuple, list)):
         for d, s in zip(dst, src):
             _write(d, s)
+    elif isinstance(dst, dict):
+        for k, d in dst.items():
+            _write(d, src[k])
 
 
 class _Recorded(TorchDispatchMode):
@@ -186,9 +207,9 @@ def _stand_in_programs(monkeypatch):
     captures = []
     build = integrator._wave_program
 
-    def watched(tables, s, cap, **kw):
-        captures.append((s["active"].shape[0], cap))
-        return build(tables, s, cap, **kw)
+    def watched(tables, io, cap, **kw):
+        captures.append((io["lanes"].shape[0] * io["samples"].shape[0], cap))
+        return build(tables, io, cap, **kw)
 
     monkeypatch.setattr(integrator, "_wave_program", watched)
     return captures
@@ -450,9 +471,85 @@ def test_stand_in_program_bit_equal_to_eager(case, monkeypatch):
         assert graphs.STATS["passes"] == integrator.ALPHA_LOOP["iterations"]
     programs = graphs.cache(tables).graphs
     repack = integrator._repack_preferred(tables)
-    fields = ("origin", "direction", "value", "throughput", "seed", "wavelength", "mat_pdf",
-              "active", "sky_w", "preview") + (("slot",) if repack else ())
-    assert list(programs) == [(2048, fields, (3, "reference", repack))]
+    # (pixels, samples, width, height, pixel order, depth, NEE weighting, repack)
+    assert list(programs) == [(1024, 2, 32, 32, False, 3, "reference", repack)]
+    program, = programs.values()
+    assert list(program.io) == ["samples", "lanes", "cam", "sum", "rays"]
+
+
+@pytest.mark.parametrize("plan", ["whole", "banded"])
+def test_render_lanes_reads_nothing_inside_its_waves(plan, monkeypatch):
+    """``render_lanes`` over stand-in programs makes no tensor of host data
+    and reads nothing back inside its wave loops (the camera, its one
+    tensor of host data, goes to the device once, a band's lanes device to
+    device, a wave's sample numbers by an ``arange`` there; the launches,
+    the host-read replay here, aside): whole (32x32, 2 spp: one wave of 2 samples),
+    and banded under a lowered cap (32x32, 10 spp: chunks of 8 + 2 over
+    12 bands of 86 pixels, the last a ragged 78: four programs).  Its sum and rays are the
+    eager loop's bit for bit, and a second frame captures nothing."""
+    gc.collect()
+    tables = cornell_box_scene().upload("cpu")
+    vi, pi = _uniforms([0.0, 1.0, 2.4], [0.0, 0.0, -1.0], 32, 32)
+    spp, kw = (2, {}) if plan == "whole" else (10, {"max_lanes": 700, "banded": True})
+    lanes = integrator.block_lanes(32, 32, torch.device("cpu"))
+
+    def frame():
+        return renderer.render_lanes(tables, vi, pi, 32, 32, 3, spp, 1, lanes, **kw)
+
+    _plain_calls(monkeypatch)
+    want = frame()
+    _stand_in_programs(monkeypatch)
+    graphs.reset_stats()
+    first = frame()
+    captured = graphs.STATS["captured"]
+    mode = HostReads()
+    _outside_launches(monkeypatch, mode)
+    with mode:
+        got = frame()
+    # the frame's one tensor of host data: its camera, copied once
+    assert mode.found == ["aten.lift_fresh.default"], mode.found
+    assert graphs.STATS["captured"] == captured == (1 if plan == "whole" else 4)
+    for other in (first, got):
+        assert torch.equal(other[0], want[0]) and int(other[1]) == int(want[1])
+        assert other[2:] == want[2:]
+    assert want[2:] == ((0, 1) if plan == "whole" else (12, 24))
+
+
+@pytest.mark.parametrize("case", ["cornell_dense", "ladder_bvh"])
+def test_progressive_frame_through_the_program(case, monkeypatch):
+    """The progressive ``_frame_step`` (the preview frame, then two samples)
+    through a stand-in program bit-equal to eager: one sample of the whole
+    frame, on the repacked scene in block order with its radiance back in
+    pixel order; the sample number written on the device; no host read
+    in a frame outside its launch, and no tensor of host data but its
+    camera."""
+    gc.collect()
+    tables, (pos, direction, _, _), _ = _case(case, monkeypatch)
+    vi, pi = _uniforms(pos, direction, 32, 32)
+
+    def frames():
+        accum = torch.zeros((32 * 32, 3))
+        return [renderer._frame_step(tables, vi, pi, 32, 32, accum, 3, 32, 32, k)
+                for k in range(3)], accum
+
+    _plain_calls(monkeypatch)
+    want = frames()
+    captures = _stand_in_programs(monkeypatch)
+    got = frames()
+    mode = HostReads()
+    _outside_launches(monkeypatch, mode)
+    with mode:
+        again = frames()
+    assert mode.found == ["aten.lift_fresh.default"] * 3, mode.found  # each frame's camera
+    for frames_, accum in (got, again):
+        assert torch.equal(accum, want[1]) and float(accum.sum()) > 0.0
+        for (img, rays), (img_w, rays_w) in zip(frames_, want[0]):
+            assert torch.equal(img, img_w) and int(rays) == int(rays_w)
+    (n, _), = captures
+    repack = integrator._repack_preferred(tables)
+    assert n == 32 * 32
+    assert list(graphs.cache(tables).graphs) == [(1024, 1, 32, 32, repack, 3, "reference",
+                                                  repack)]
 
 
 def test_graphs_preferred_rule():

@@ -105,13 +105,13 @@ def test_sharded_matches_render_image(frame, shards, cap, waves, tables, monkeyp
     bands of 7 lanes, the last of 1."""
     w, h, spp = frame
     img_1, rays_1 = trnd.render_image(tables, _cam(), w, h, spp=spp, max_depth=2, tonemap=False)
-    calls, render_wave = [], trnd._render_wave
+    calls, run = [], trnd.Waves.run
 
-    def wave(*args):  # (tables, view_inv, proj_inv, w, h, depth, samples, lanes, nee)
-        calls.append(len(args[6]) * args[7].shape[0])
-        return render_wave(*args)
+    def wave(waves, first, k, **kw):  # one wave: k samples of the band's lanes
+        calls.append(k * waves.lanes.shape[0])
+        return run(waves, first, k, **kw)
 
-    monkeypatch.setattr(trnd, "_render_wave", wave)
+    monkeypatch.setattr(trnd.Waves, "run", wave)
     img_s, rays_s = render_image_sharded(tables, _cam(), w, h, spp=spp, max_depth=2,
                                          mesh=["cpu"] * shards, tonemap=False,
                                          max_lanes_per_pass=cap)

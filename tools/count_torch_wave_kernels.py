@@ -2,16 +2,21 @@
 """Count the kernels one wave would launch on a card, on the CPU.
 
     python3 tools/count_torch_wave_kernels.py [--size 64] [--depth 4] [--root DIR]
+        [--scene cornell|textured|textured_bvh]
 
 Run from the root of a checkout (``--root`` imports another checkout's
 package, e.g. the parent commit unpacked under ``out/parent``).  Renders one
-wave of bench cfg1's Cornell box (``--size`` squared lanes, sample 1) on
-CPU tables under a ``TorchDispatchMode`` and counts the aten ops that launch
-a kernel on a card (views, allocations and the host's scalar wrappers
-aside), each hand-written kernel's plain version as one launch.  Prints one
-JSON line: kernels per wave, per bounce (from a depth-0 wave against the
-asked depth), the bounces run and the ops most often issued.  A count, not
-a device metric: the card's own counts come from ``tools/profile_torch_wave.py``.
+wave of bench cfg1's Cornell box (or the textured glb of
+tests/test_textured_glb.py with its alpha loop, on the dense sweeps or
+uploaded onto the BVH walks; ``--size`` squared lanes, sample 1) on CPU
+tables under a ``TorchDispatchMode`` and counts the aten ops that launch a
+kernel on a card (views, allocations and the host's scalar wrappers aside),
+each hand-written kernel's plain version, and each of ``ops/wave.py``'s
+wrappers, as one launch.  Prints one JSON line: kernels per wave, per bounce
+(from a depth-0 wave against the asked depth), per alpha resample pass (the
+most one pass issued), the bounces run and the ops most often issued.  A
+count, not a device metric: the card's own counts come from
+``tools/profile_torch_wave.py``.
 """
 
 from __future__ import annotations
@@ -30,17 +35,37 @@ PLAIN = (("dense", "closest_sweep_reference"), ("dense", "shadow_sweep_reference
          ("dense", "pdf_sweep_reference"), ("traverse", "bvh_walk_reference"),
          ("traverse", "treelet_walk_reference"), ("traverse", "emissive_pdf_walk_reference"),
          ("shade", "shade_hit_reference"), ("shade", "shade_scatter_reference"),
-         ("shade", "shade_resolve_reference"))
+         ("shade", "shade_resolve_reference"), ("wave", "primary_rays"),
+         ("wave", "alpha_commit"))
 
 
-def count(size: int, depth: int) -> dict:
+def _tables(scene: str):
+    """CPU tables of ``scene`` and its camera (position, direction)."""
+    import tempfile
+
+    from vulkan_raytracer_tpu_torch.scene.builtin import cornell_box_scene
+
+    if scene == "cornell":
+        return cornell_box_scene().upload("cpu"), ([0.0, 1.0, 2.4], [0.0, 0.0, -1.0])
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch_glb_assets
+
+    from vulkan_raytracer_tpu_torch.scene import scenegraph as tsg
+
+    s = tsg.Scene()
+    with tempfile.TemporaryDirectory() as tmp:
+        s.load_model(torch_glb_assets.write_textured_glb(tmp))
+    return (s.upload("cpu", traversal="bvh" if scene == "textured_bvh" else "auto"),
+            ([0.0, 0.0, 2.8], [0.0, 0.0, -1.0]))
+
+
+def count(size: int, depth: int, scene: str = "cornell") -> dict:
     import importlib
 
     import numpy as np
     from torch.utils._python_dispatch import TorchDispatchMode
 
     from vulkan_raytracer_tpu_torch.render import integrator, renderer
-    from vulkan_raytracer_tpu_torch.scene.builtin import cornell_box_scene
     from vulkan_raytracer_tpu_torch.scene.camera import Camera
 
     class Count(TorchDispatchMode):
@@ -74,8 +99,19 @@ def count(size: int, depth: int) -> dict:
             continue
         if hasattr(m, name):
             setattr(m, name, one_launch(getattr(m, name)))
-    tables = cornell_box_scene().upload("cpu")
-    cam = Camera(position=np.array([0.0, 1.0, 2.4]), direction=np.array([0.0, 0.0, -1.0]))
+    passes = []
+    alpha_pass = integrator._alpha_pass
+
+    def counted_pass(*args, **kw):
+        before = mode.kernels
+        try:
+            return alpha_pass(*args, **kw)
+        finally:
+            passes.append(mode.kernels - before)
+
+    integrator._alpha_pass = counted_pass
+    tables, (pos, direction) = _tables(scene)
+    cam = Camera(position=np.array(pos), direction=np.array(direction))
     view_inv, proj_inv = renderer.camera_uniforms(cam)
     out = {}
     for d in (0, depth):
@@ -85,9 +121,10 @@ def count(size: int, depth: int) -> dict:
             integrator.render_sample(tables, view_inv, proj_inv, size, size, 1, d)
         out[d] = (mode.kernels, sum(integrator.BOUNCE_WIDTHS.values()), dict(mode.ops))
     kernels, bounces, ops = out[depth]
-    return {"lanes": size * size, "depth": depth, "bounces": bounces,
+    return {"scene": scene, "lanes": size * size, "depth": depth, "bounces": bounces,
             "kernels_per_wave": kernels,
             "kernels_per_bounce": (kernels - out[0][0]) / max(bounces - out[0][1], 1),
+            "kernels_per_alpha_pass": max(passes, default=0),
             "top_ops": dict(sorted(ops.items(), key=lambda kv: -kv[1])[:10])}
 
 
@@ -96,9 +133,10 @@ def main(argv=None) -> int:
     p.add_argument("--size", type=int, default=64)
     p.add_argument("--depth", type=int, default=4)
     p.add_argument("--root", default=str(Path(__file__).resolve().parent.parent))
+    p.add_argument("--scene", default="cornell", choices=("cornell", "textured", "textured_bvh"))
     args = p.parse_args(argv)
     sys.path.insert(0, str(Path(args.root).resolve()))
-    print(json.dumps({"root": args.root, **count(args.size, args.depth)}))
+    print(json.dumps({"root": args.root, **count(args.size, args.depth, args.scene)}))
     return 0
 
 

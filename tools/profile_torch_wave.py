@@ -4,6 +4,7 @@ the wavefront repack and without it.
 
     python3 tools/profile_torch_wave.py
         [--config cfg1|cfg2|gltf|textured|instanced|soup|cfg5] [--reps 3] [--out FILE.json]
+        [--root DIR]
 
 Run from the root of a checkout on a machine with an NVIDIA card.  It
 renders the first wave ``render_image`` runs for a bench configuration:
@@ -41,13 +42,14 @@ repack patched off too (``unsorted``):
    sides, with equal rays, equal launches per kernel, equal bounce widths
    and, on an alpha scene (gltf, textured), equal alpha-loop counts;
 3. each side once with ``torch.cuda.set_sync_debug_mode("warn")``: the
-   host synchronisations of the wave, the harness's included (the copy of
-   the wave's sample numbers to the card and the read of the ray count,
-   which brings the device loops' counts in), those made while a program
-   launches (``host_syncs_in_launches``: 0 through the device loops, the
-   condition reads on the replay), and the peak of allocated device
-   memory over that run (a program's temporaries lie in the graphs' pool,
-   reserved once: ``pool_bytes``);
+   host synchronisations of the wave, the harness's included (its
+   ``torch.cuda.synchronize()`` after the wave and its read of the ray
+   count, which brings the device loops' counts in: 2 a wave, the wave
+   itself none), those made while a program launches
+   (``host_syncs_in_launches``: 0 through the device loops, the condition
+   reads on the replay), and the peak of allocated device memory over that
+   run (a program's temporaries lie in the graphs' pool, reserved once:
+   ``pool_bytes``);
 4. each eager side once recorded: the width and live lanes of each bounce,
    and the live lanes and live 128-lane blocks of each K4'/K5' launch
    (counting them synchronises, so this run is eager and not timed; the
@@ -68,8 +70,23 @@ repack patched off too (``unsorted``):
    time is the program's own, from CUDA events around its launch in the
    unprofiled reps (``program_ms``), beside the replay side's busy time.
 
+A lone wave synchronises after it, so its wall holds the host's set-up of
+the wave in full; a frame's waves, which read nothing back, overlap the
+host's set-up of a wave with the card's run of the one before.  So, before
+any profiler session, ``--reps`` whole frames of the config
+(``render_image``, linear) run on each side in turns too, the unsorted
+side aside (without the repack a frame may band otherwise, which sums its
+samples in another order) (``frame``: the
+wall of each, its waves, the wall per wave, the frame's host
+synchronisations, 1 where the frame reads only its result at its end, and
+on the device side the programs' device ms from CUDA events around their
+launches, over the frame's wall its busy share); their images and rays
+must be equal on every side.
+
 For instanced it also reports the instance steps (every one launches) and
 the live lanes of each ``instanced_closest`` call (one a bounce).
+``--root`` imports another checkout's package (e.g. the parent commit
+unpacked under ``out/parent``) to time it with this tool.
 
 It prints one JSON object (and writes it to ``--out`` if given).  The device
 busy share is kernel time over wall, against the profiled wall (the same
@@ -96,15 +113,17 @@ ROOT = Path(__file__).resolve().parent.parent
 #: the port's hand-written kernels, by the names the trace gives them
 PORT_KERNELS = ("closest_kernel", "shadow_kernel", "pdf_kernel", "bvh_walk_kernel",
                 "treelet_walk_kernel", "emissive_walk_kernel", "shade_hit_kernel",
-                "shade_scatter_kernel", "shade_resolve_kernel", "loop_cond_kernel")
+                "shade_scatter_kernel", "shade_resolve_kernel", "primary_rays_kernel",
+                "alpha_commit_kernel", "loop_cond_kernel")
 #: each launch counter (``LAUNCHES`` of ops/dense.py, ops/traverse.py,
-#: ops/shade.py and render/graphs.py) -> the kernel whose launches it counts,
-#: by the name the trace gives it
+#: ops/shade.py, ops/wave.py and render/graphs.py) -> the kernel whose
+#: launches it counts, by the name the trace gives it
 KERNEL_OF = {"closest": "closest_kernel", "shadow": "shadow_kernel", "pdf": "pdf_kernel",
              "bvh_closest": "bvh_walk_kernel", "bvh_shadow": "bvh_walk_kernel",
              "treelet_closest": "treelet_walk_kernel", "treelet_shadow": "treelet_walk_kernel",
              "emissive_pdf": "emissive_walk_kernel", "hit": "shade_hit_kernel",
              "scatter": "shade_scatter_kernel", "resolve": "shade_resolve_kernel",
+             "primary_rays": "primary_rays_kernel", "alpha_commit": "alpha_commit_kernel",
              "loop_cond": "loop_cond_kernel"}
 WALK_BLOCK = 128  # rays per block of the BVH walks (csrc/bvh_walk.cu kThreads)
 #: config -> (scene: a built-in name, a generated .glb or a smoke scene,
@@ -182,6 +201,54 @@ def wave(tables, camera, width: int, height: int, depth: int, lanes, samples):
         return radiance, graphs.settle(rays)[0]
 
     return run
+
+
+def frame(tables, camera, width: int, height: int, spp: int, depth: int):
+    """A function that renders the config's whole frame (``render_image``,
+    linear; its one read of the device at its end) and returns (image,
+    rays)."""
+    from vulkan_raytracer_tpu_torch.render import renderer
+
+    def run():
+        return renderer.render_image(tables, camera, width, height, spp, max_depth=depth,
+                                     tonemap=False)
+
+    return run
+
+
+def time_frames(sides: dict, run, reps: int) -> dict:
+    """``reps`` frames of ``run`` on each side in turns, then each side's
+    host synchronisations of one frame; images and rays must be equal on
+    every side."""
+    from vulkan_raytracer_tpu_torch.render import renderer
+
+    out = {name: {"wall_s": [], "program_ms": []} for name in sides}
+    want = None
+    for r in range(reps + 1):  # the first turn warms up
+        for name in list(sides)[::1 if r % 2 == 0 else -1]:
+            _patch(*sides[name])
+            _reset()
+            with ProgramEvents() as events:
+                secs, img, rays = _timed(run)
+            if want is None:
+                want = (img, rays)
+            if not (np.array_equal(img, want[0]) and rays == want[1]):
+                raise AssertionError(f"the {name} frame differs from the first one")
+            if r:
+                out[name]["wall_s"].append(secs)
+                if name == "device":
+                    out[name]["program_ms"].append(events.ms())
+            out[name]["waves"] = renderer.LAST_RENDER["waves"]
+    for name, o in out.items():
+        _patch(*sides[name])
+        o["host_syncs"], o["host_sync_lines"] = count_syncs(run)
+        median = statistics.median(o["wall_s"])
+        o.update(wall_s_median=median, ms_per_wave=1e3 * median / o["waves"])
+        if o["program_ms"]:
+            o["busy_share"] = statistics.median(o["program_ms"]) / (1e3 * median)
+        else:
+            del o["program_ms"]
+    return out
 
 
 def record_bounces(run) -> dict:
@@ -499,8 +566,10 @@ def main(argv=None) -> int:
     p.add_argument("--config", choices=sorted(CONFIGS), default="cfg1")
     p.add_argument("--reps", type=int, default=3)
     p.add_argument("--out", default=None)
+    p.add_argument("--root", default=str(ROOT), help="the checkout whose package is timed")
     args = p.parse_args(argv)
     sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(Path(args.root).resolve()))
     import torch
 
     if not torch.cuda.is_available():
@@ -561,6 +630,8 @@ def main(argv=None) -> int:
                 if differ:
                     raise AssertionError(f"the {name} wave's {differ} differ from the device "
                                          f"one's")
+        frames = time_frames({k: v for k, v in sides.items() if k != "unsorted"},
+                             frame(tables, camera, width, height, spp, depth), args.reps)
         out_sides = {}
         for name, patch in sides.items():
             _patch(*patch)
@@ -584,7 +655,7 @@ def main(argv=None) -> int:
                                "host_syncs": syncs, "host_sync_lines": sync_lines,
                                "host_syncs_in_launches": inside.count,
                                "peak_allocated_bytes": peak, "traced_launches": traced,
-                               "alpha_loop": _alpha_loop()}
+                               "alpha_loop": _alpha_loop(), "frame": frames.get(name)}
             if name == "device":
                 out_sides[name].update(program_ms=program_ms,
                                        program_ms_median=statistics.median(program_ms),
@@ -600,7 +671,7 @@ def main(argv=None) -> int:
         _patch(*kept)
     out = {
         "config": f"{args.config} wave: {scene} {width}x{height} depth {depth}, {spp} spp",
-        "nvidia_smi": smi, "torch": torch.__version__,
+        "nvidia_smi": smi, "torch": torch.__version__, "root": args.root,
         "repack_preferred": rule(tables), "bands": bands, "pixels": len(lanes),
         "samples": samples, "lanes": len(lanes) * len(samples), "rays": rays["device"],
         "launches": launches["device"], "captures": captures,

@@ -122,12 +122,13 @@ def _np(v):
     return v.detach().cpu().numpy()
 
 
-def _lane_keys(lane_idx, sample_count, n: int) -> np.ndarray:
-    """(n, 2) int64 (pixel, sample) of a wave's lanes in ``render_sample``'s
-    input order."""
-    pix = np.arange(n) if lane_idx is None else np.asarray(lane_idx.cpu(), np.int64)
-    samp = sample_count.cpu().numpy() if hasattr(sample_count, "cpu") else sample_count
-    return np.stack([pix, np.broadcast_to(np.asarray(samp, np.int64), (n,))], axis=1)
+def _lane_keys(lanes, first: int, k: int) -> np.ndarray:
+    """(n * k, 2) int64 (pixel, sample) of a wave's lanes, samples-major, as
+    ``integrator.Waves.run`` lays them out for the pixel ``lanes`` at
+    samples ``first`` .. ``first + k - 1``."""
+    pix = np.asarray(lanes.cpu(), np.int64)
+    return np.stack([np.tile(pix, k), np.repeat(np.arange(first, first + k), pix.shape[0])],
+                    axis=1)
 
 
 class Record:
@@ -156,19 +157,19 @@ class Record:
         (``graphs._graphs_preferred`` patched off): a replayed graph runs no
         Python, so its bounces could not be recorded."""
         from vulkan_raytracer_tpu_torch.ops import shade
-        from vulkan_raytracer_tpu_torch.render import graphs, integrator, renderer
+        from vulkan_raytracer_tpu_torch.render import graphs, integrator
 
-        saved = (renderer.render_sample, integrator._bounce, shade.shade_hit,
+        saved = (integrator.Waves.run, integrator._bounce, shade.shade_hit,
                  integrator._radiance, graphs._graphs_preferred)
-        render_sample, bounce, shade_hit, radiance, _ = saved
+        run, bounce, shade_hit, radiance, _ = saved
 
-        def rec_render_sample(tables, view_inv, proj_inv, width, height, sample_count,
-                              max_depth, lane_idx=None, **kw):
-            n = width * height if lane_idx is None else lane_idx.shape[0]
-            self._keys = _lane_keys(lane_idx, sample_count, n)
-            out, rays = render_sample(tables, view_inv, proj_inv, width, height, sample_count,
-                                      max_depth, lane_idx=lane_idx, **kw)
-            for key, row in zip(map(tuple, self._keys.tolist()), _np(out)):
+        def rec_run(waves, first, k, pixel_order=False):
+            self._keys = _lane_keys(waves.lanes, first, k)
+            out, rays = run(waves, first, k, pixel_order=pixel_order)
+            # in pixel order (one sample of a whole frame) row j is pixel j
+            rows = (np.stack([np.arange(len(self._keys)), self._keys[:, 1]], axis=1)
+                    if pixel_order else self._keys)
+            for key, row in zip(map(tuple, rows.tolist()), _np(out)):
                 self.radiance[key] = row
             return out, rays
 
@@ -193,7 +194,7 @@ class Record:
                 self.final[key] = {k: v[i] for k, v in state.items()}
             return radiance(tables, s)
 
-        renderer.render_sample = rec_render_sample
+        integrator.Waves.run = rec_run
         if self.bounces:
             integrator._bounce, shade.shade_hit = rec_bounce, rec_shade_hit
             integrator._radiance = rec_radiance
@@ -201,7 +202,7 @@ class Record:
         try:
             yield self
         finally:
-            (renderer.render_sample, integrator._bounce, shade.shade_hit,
+            (integrator.Waves.run, integrator._bounce, shade.shade_hit,
              integrator._radiance, graphs._graphs_preferred) = saved
 
 

@@ -5,8 +5,8 @@ with a plain C interface and loaded with :mod:`ctypes` (no PyTorch headers,
 so a build takes seconds).  Each source compiles to an object file in its
 own ``nvcc`` process, all started together, and one link makes the library.
 It lands in ``vulkan_raytracer_tpu_torch/build/``, named by a hash of the
-sources and the flags, so an edited source builds anew and an unchanged one
-is reused.  ptxas's per-kernel report (registers, shared memory, spills) is
+sources, their headers and the flags, so an edited source builds anew and
+an unchanged one is reused.  ptxas's per-kernel report (registers, shared memory, spills) is
 kept beside it as ``<library>.ptxas.txt``.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, and ``--fmad=false -prec-div=true
@@ -33,7 +33,9 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 SOURCES = (CSRC / "dense_sweep.cu", CSRC / "bvh_walk.cu", CSRC / "graph_loops.cu",
-           CSRC / "shade.cu")
+           CSRC / "shade.cu", CSRC / "wave.cu")
+#: Headers the sources include: part of the library's hash.
+HEADERS = (CSRC / "lane_math.cuh",)
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -82,6 +84,9 @@ _SIGNATURES = {
     "shade_hit_launch": [_I, _P, _P, _P],
     "shade_scatter_launch": [_I, _P, _P, _P],
     "shade_resolve_launch": [_I, _P, _P, _P],
+    # (device, pointers [wave.SLOTS], counts [wave.INTS], stream)
+    "primary_rays_launch": [_I, _P, _P, _P],
+    "alpha_commit_launch": [_I, _P, _P, _P],
 }
 
 
@@ -100,7 +105,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256()
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -180,3 +185,46 @@ def launch(fn: str, device: torch.device, *args) -> None:
     stream = torch.cuda.current_stream(device).cuda_stream
     c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     check(lib, getattr(lib, fn)(index, *c_args, stream), fn)
+
+
+class Columns:
+    """The arguments of one launch of a kernel that takes one pointer per
+    column, in the order of its source's ``enum Slot`` (``slots``: name ->
+    index), and counts, in the order of its ``enum Int`` (``ints``, the
+    lanes ``I_N`` among them; name -> index): filled column by column, each
+    checked against what the kernel reads (``ops/shade.py``,
+    ``ops/wave.py``)."""
+
+    def __init__(self, slots: dict, ints: dict, n: int, device, what: str):
+        self.slots, self.int_index, self.what = slots, ints, what
+        self.n, self.device = n, device
+        self.ptrs = (ctypes.c_void_p * len(slots))()
+        self.ints = (ctypes.c_longlong * len(ints))()
+        self.ints[ints["I_N"]] = n
+
+    def put(self, name: str, t: torch.Tensor, dtype, shape=None) -> None:
+        """Column ``name``: ``t``, of ``dtype`` on the launch's device,
+        contiguous, and of ``shape`` where given."""
+        if t.device != self.device or t.dtype != dtype:
+            raise ValueError(f"{self.what} column {name}: expected {dtype} on {self.device}, "
+                             f"got {t.dtype} on {t.device}")
+        if not t.is_contiguous() or (shape is not None and tuple(t.shape) != shape):
+            raise ValueError(f"{self.what} column {name}: expected a contiguous "
+                             f"{shape or 'table'}, got {tuple(t.shape)} strides {t.stride()}")
+        self.ptrs[self.slots[name]] = t.data_ptr()
+
+    def lane(self, name: str, t, dtype=torch.float32) -> None:
+        """A column of one element a lane."""
+        self.put(name, t, dtype, (self.n,))
+
+    def lane3(self, name: str, v) -> None:
+        """A 3-vector's columns, ``name`` + X, Y, Z."""
+        for c, t in zip("XYZ", v):
+            self.lane(name + c, t)
+
+    def count(self, name: str, value: int) -> None:
+        self.ints[self.int_index[name]] = int(value)
+
+    def launch(self, fn: str) -> None:
+        """Call C launcher ``fn`` with the two arrays (:func:`launch`)."""
+        launch(fn, self.device, ctypes.addressof(self.ptrs), ctypes.addressof(self.ints))

@@ -641,48 +641,28 @@ _STATE_FLOATS = 14
 _LIGHT_FLOATS = 20
 
 
-class _Launch:
-    """The pointer and count arrays of one launch, filled column by column;
-    each column is checked against what the kernel reads."""
+class _Launch(_ext.Columns):
+    """A shading kernel's launch (:class:`_ext.Columns` over :data:`SLOTS`
+    and :data:`INTS`), keeping each lane column's bytes an element for
+    :func:`lane_bytes`."""
 
     def __init__(self, lanes: torch.Tensor):
-        self.n = lanes.shape[0]
-        self.device = lanes.device
-        self.ptrs = (ctypes.c_void_p * len(SLOTS))()
-        self.ints = (ctypes.c_longlong * len(INTS))()
-        self.ints[_INT["I_N"]] = self.n
+        super().__init__(_SLOT, _INT, lanes.shape[0], lanes.device, "shade")
         self.itemsize = {}  # lane column -> bytes an element
 
-    def _put(self, name: str, t: torch.Tensor, dtype, shape=None) -> None:
-        if t.device != self.device or t.dtype != dtype:
-            raise ValueError(f"shade column {name}: expected {dtype} on {self.device}, got "
-                             f"{t.dtype} on {t.device}")
-        if not t.is_contiguous() or (shape is not None and tuple(t.shape) != shape):
-            raise ValueError(f"shade column {name}: expected a contiguous "
-                             f"{shape or 'table'}, got {tuple(t.shape)} strides {t.stride()}")
-        self.ptrs[_SLOT[name]] = t.data_ptr()
-
     def lane(self, name: str, t, dtype=_F32) -> None:
-        self._put(name, t, dtype, (self.n,))
+        super().lane(name, t, dtype)
         self.itemsize[name] = t.element_size()
 
-    def lane3(self, name: str, v: V3) -> None:
-        for slot, c in zip(_xyz(name), v):
-            self.lane(slot, c)
-
     def table(self, name: str, t, dtype=_F32) -> None:
-        self._put(name, t, dtype)
+        self.put(name, t, dtype)
 
     def table3(self, name: str, v: V3) -> None:
         for slot, c in zip(_xyz(name), v):
             self.table(slot, c)
 
-    def count(self, name: str, value: int) -> None:
-        self.ints[_INT[name]] = int(value)
-
     def run(self, kernel: str) -> None:
-        _ext.launch(f"shade_{kernel}_launch", self.device, ctypes.addressof(self.ptrs),
-                    ctypes.addressof(self.ints))
+        self.launch(f"shade_{kernel}_launch")
         LAUNCHES[kernel] += 1
         _LAST[kernel] = (self.n, self.itemsize)
 
@@ -766,7 +746,7 @@ def _materials(k: _Launch, tables) -> None:
 
 def _bounce_index(k: _Launch, b) -> None:
     if isinstance(b, torch.Tensor):
-        k._put("B_DEV", b, torch.int32, ())
+        k.put("B_DEV", b, torch.int32, ())
     else:
         k.count("I_B", b)
 
@@ -884,7 +864,7 @@ def shade_resolve(tables, s: dict, hs: HitState, st: dict, ls, occluded, visible
         if visible is not None:
             k.lane("Z_VISIBLE", visible, torch.bool)
             k.lane("Z_PDF_E", pdf_e)
-    k._put("Z_RAYS", rays, torch.int64, ())
+    k.put("Z_RAYS", rays, torch.int64, ())
     value = V3(*torch.empty((3, k.n), dtype=_F32, device=k.device).unbind(0))
     k.lane3("Z_VAL", value)
     k.run("resolve")

@@ -6,12 +6,13 @@ The JAX renderer compiles a frame into one program (render/renderer.py:34,
 (render/integrator.py:1051-1069), the width ladder's phases are further
 ``while_loop``s (:1071-1124) with ``lax.cond`` re-sorts (:1063, :1089), and
 on a scene with alpha each ray query is one more ``lax.while_loop``, the
-accept/reject resample loop (:165-217).  Here a wave, from its initial
-state to its radiance, is one program, captured once and launched once:
-its straight code as CUDA graphs, its loops as conditional WHILE nodes and
-its re-sorts as conditional IF nodes, whose conditions a hand-written
-kernel sets on the card (``csrc/graph_loops.cu`` ``loop_cond_kernel``).
-The host reads nothing inside a wave.
+accept/reject resample loop (:165-217).  Here a wave, from its sample
+numbers to its sum in the frame's accumulator, is one program, captured
+once and launched once: its straight code as CUDA graphs, its loops as
+conditional WHILE nodes and its re-sorts as conditional IF nodes, whose
+conditions a hand-written kernel sets on the card (``csrc/graph_loops.cu``
+``loop_cond_kernel``).  The host reads nothing inside a wave, and writes
+its inputs only on the device (``integrator.Waves``).
 
 Where: CUDA tables (:func:`_graphs_preferred`), with alpha or without.
 Tests and tools get the eager side by patching ``graphs._graphs_preferred``
@@ -31,11 +32,16 @@ most ``max_depth``) and a body of parts and nodes.  A wave is::
                            { [IF sort_next: sort]; bounce(b); b += 1 }
     bounce           = segment; WHILE (pending) { alpha pass }; segment;
                        WHILE (pending) { alpha pass }; segment
-    wave             = phase(n, n/2); IF more: sort; split; phase(n/2, n/4);
-                       IF more: sort; split; phase(n/4, 0); join; radiance
+    wave             = rays; phase(n, n/2); IF more: sort; split; phase(n/2, n/4);
+                       IF more: sort; split; phase(n/4, 0); join; radiance; sum
 
 on a repacked scene whose width divides by 4 (the ladder), else
-``phase(n, 0); radiance``; an alpha-free bounce is one segment.
+``rays; phase(n, 0); radiance; sum``; an alpha-free bounce is one segment.
+``rays`` is the primary-ray kernel, which writes the initial state from the
+wave's inputs; a resample pass is its traversal launch and the alpha
+test-and-commit kernel, which writes the loop's count; ``sum`` adds the
+wave's radiance, summed over its samples, into the band's sum and its rays
+into the frame's counter.
 :meth:`_Program.launch` runs it one of two ways:
 
 * **device loops** (the main path): the C side stitches the parts into one
@@ -61,23 +67,27 @@ mirror: once per change of tables, timed and counted in :data:`STATS`.  So
 the old tables go on rendering the old scene.  The mirror holds the scene's
 bytes a second time (:meth:`GraphCache.mirror_bytes`).  A cache
 (:func:`cache`) goes when the last tables object of its signature does.
-Within it a program is keyed by the wave's width and fields, ``max_depth``,
-the NEE weighting and whether the scene is repacked: one program per wave
-shape.  At most :data:`MAX_GRAPHS` programs are kept, the least recently
-used dropped first with their parent graph (a viewer's resizes and shard
-widths make new widths).
+Within it a program is keyed by the wave's pixels and samples, the frame's
+width and height, whether its radiance comes back in pixel order,
+``max_depth``, the NEE weighting and whether the scene is repacked: one
+program per wave shape.  At most :data:`MAX_GRAPHS` programs are kept, the
+least recently used dropped first with their parent graph (a viewer's
+resizes and shard widths make new widths).
 
-Memory.  Each program has a static input state, the wave's fields,
-allocated outside any capture: a launch copies the caller's state into it,
-and the first phase writes each bounce's next state over it.  Everything
-else the program's parts allocate (the ladder's narrower states, each
-resample loop's state and count, ``b``, the live count, the rays and the
-radiance) lies in the graphs' memory pool, one pool per cache, which every
-capture takes on the cache's one capture stream; the program keeps its
-parts' graphs and what its conditions read for its lifetime.  Programs of
-one cache run one after another on one stream, so they may share the
-temporaries of the pool.  A launch hands the caller copies of the radiance
-and the rays, so nothing a caller reads lies in the pool.
+Memory.  A program's inputs (the wave's sample numbers, the band's pixel
+lanes, the camera) and its sums (the band's (n, 3) sum, the frame's ray
+counter) are the cache's buffers (:meth:`GraphCache.buffer`), allocated
+outside any capture and shared by the programs of their shape; the
+renderer writes the inputs on the device before a launch and zeroes the
+sums.  Everything else the program's parts allocate (the wave's state,
+the ladder's narrower states, each resample loop's state and count,
+``b``, the live count, the wave's rays and radiance) lies in the graphs'
+memory pool, one pool per cache, which every capture takes on the cache's
+one capture stream; the program keeps its parts' graphs and what its
+conditions read for its lifetime.  Programs of one cache run one after
+another on one stream, so they may share the temporaries of the pool.  A
+launch hands the caller the program's radiance and rays, which its next
+launch overwrites; the sums are what a frame keeps.
 
 The eager warm-up before each capture builds the tables a bounce builds on
 first use (the mirror's cached properties, the Morton table) outside the
@@ -239,14 +249,6 @@ def _leaves(s: dict):
     """The tensors of a wave state, in field order."""
     for v in s.values():
         yield from (v if isinstance(v, V3) else (v,))
-
-
-def _empty_state(s: dict) -> dict:
-    """Contiguous buffers for a state like ``s``."""
-    def empty(t):
-        return torch.empty(t.shape, dtype=t.dtype, device=t.device)
-
-    return {k: V3(*map(empty, v)) if isinstance(v, V3) else empty(v) for k, v in s.items()}
 
 
 def _copy_state(dst: dict, src: dict) -> None:
@@ -411,22 +413,13 @@ class _Capture:
         """``if cond: body()``, captured as :meth:`while_` captures."""
         self._node("if", cond, body, role)
 
-    def loop(self, body, st: dict, *, done) -> dict:
-        """The resample loop ``while a lane of st["pending"] is pending: st =
-        body(st)``: its state in buffers of its own, and a WHILE on the
-        count of its pending lanes whose pass writes the next state over
-        them.  Returns the state after the loop (the same buffers)."""
-        st = {k: v.clone() for k, v in st.items()}
+    def loop(self, body, st: dict, *, done) -> None:
+        """The resample loop ``while a lane of st["pending"] is pending:
+        body(st, count)``: a WHILE on the count of ``st``'s pending lanes
+        (``st`` is the loop's own buffers) whose pass writes the next state
+        over ``st`` and the lanes still pending into the count."""
         count = st["pending"].sum()
-
-        def one_pass():
-            nxt = body(st)
-            for k, v in st.items():
-                v.copy_(nxt[k])
-            count.copy_(st["pending"].sum())
-
-        self.while_(Cond(count), one_pass, "alpha", done)
-        return st
+        self.while_(Cond(count), lambda: body(st, count), "alpha", done)
 
 
 _CAPTURING: list = []  # the capture in progress
@@ -465,16 +458,17 @@ def _destroy(parent: int, exe: int) -> None:
 
 
 class _Program:
-    """One captured wave: its tree, the static input state it reads, its
-    outputs (radiance and rays), the counters its parts count into and one
-    row of four int64 counters per node (``stats``, on the wave's device;
-    the tests of the device loops keep them)."""
+    """One captured wave: its tree, the buffers it reads and adds into
+    (``io``: its inputs and sums, the cache's), its outputs (radiance and
+    rays), the counters its parts count into and one row of four int64
+    counters per node (``stats``, on the wave's device; the tests of the
+    device loops keep them)."""
 
-    def __init__(self, nodes: list, conds: list, state: dict, outputs: tuple, counters):
-        self.nodes, self.conds, self.state, self.outputs = nodes, conds, state, outputs
+    def __init__(self, nodes: list, conds: list, io: dict, outputs: tuple, counters):
+        self.nodes, self.conds, self.io, self.outputs = nodes, conds, io, outputs
         self.counters = counters
         self.stats = torch.zeros((len(conds), 4), dtype=torch.int64,
-                                 device=state["active"].device)
+                                 device=next(iter(io.values())).device)
         self.pending = 0  # launches on the card since the last settle
         self.exec = None  # the instantiated parent graph, made on the first launch
         self._finalizer = None
@@ -638,6 +632,8 @@ class GraphCache:
         # capture take the temporaries of the captures before it
         self.stream = None
         self.graphs: collections.OrderedDict = collections.OrderedDict()  # key -> _Program
+        # the programs' inputs and sums, outside the pool: (name, shape, dtype) -> tensor
+        self.buffers: dict = {}
 
     def bind(self, tables):
         """The mirror, holding ``tables``' values: made on first use, copied
@@ -682,31 +678,52 @@ class GraphCache:
                                            for t in _tensors(built[name])]
         return sum(t.numel() * t.element_size() for t in tensors)
 
-    def run(self, tables, key, s: dict, eager, build, counters):
-        """One wave as a launch of its program under ``key`` and the shape of
-        ``s``, captured on first use: ``build(mirror, state, capture)``
-        captures it (``eager(mirror, state)``, the same wave run eagerly,
-        warms up first).  Returns copies of its (radiance, rays)."""
-        gkey = (s["active"].shape[0], tuple(s), key)
+    def buffer(self, name: str, shape, dtype, device) -> torch.Tensor:
+        """The cache's buffer ``name`` of this shape and dtype, zeros when
+        made: a program's input or sum, which the programs of its shape
+        share, made outside any capture and outside inference mode."""
+        key = (name, tuple(shape), dtype)
+        t = self.buffers.get(key)
+        if t is None:
+            with torch.inference_mode(False):
+                t = self.buffers[key] = torch.zeros(shape, dtype=dtype, device=device)
+        return t
+
+    def run(self, tables, key, io: dict, eager, build, counters):
+        """One wave as a launch of its program under ``key``, captured on
+        first use: ``build(mirror, io, capture)`` captures it
+        (``eager(mirror, io)``, the same wave run eagerly, warms up first).
+        ``io`` holds its buffers (:meth:`buffer`): the inputs it reads
+        (``samples``, ``lanes``, ``cam``) and the sums it adds into (``sum``,
+        ``rays``).  Returns its outputs, the wave's (radiance, rays): the
+        program's own tensors, which its next launch overwrites."""
         with torch.inference_mode(False), torch.no_grad():
             mirror = self.bind(tables)
-            program = self.graphs.get(gkey)
+            program = self.graphs.get(key)
             if program is None:
-                program = self.graphs[gkey] = self._capture(mirror, s, eager, build, counters)
+                program = self.graphs[key] = self._capture(mirror, io, eager, build, counters)
                 while len(self.graphs) > MAX_GRAPHS:
                     self.graphs.popitem(last=False)[1].close()
-            self.graphs.move_to_end(gkey)
-            _copy_state(program.state, s)
+                    self._drop_buffers()
+            self.graphs.move_to_end(key)
             program.launch(_device_loops_preferred(tables))
-            return tuple(t.clone() for t in program.outputs)
+            return program.outputs
 
-    def _capture(self, mirror, s: dict, eager, build, counters) -> _Program:
+    def _drop_buffers(self) -> None:
+        """Drop the buffers no kept program reads or adds into (the camera
+        and the frame's ray counter stay)."""
+        live = {id(t) for p in self.graphs.values() for t in p.io.values()}
+        self.buffers = {k: t for k, t in self.buffers.items()
+                        if id(t) in live or k[0] in ("cam", "rays")}
+
+    def _capture(self, mirror, io: dict, eager, build, counters) -> _Program:
         t0 = time.perf_counter()
-        device = s["active"].device
+        device = io["cam"].device
         cuda = device.type == "cuda"
         kept = _snapshot(counters)
-        static = _empty_state(s)
-        _copy_state(static, s)
+        # a capture adds nothing into the sums (a stand-in graph of the CPU
+        # tests runs its code once as it records it)
+        sums = [(t, t.clone()) for t in (io["sum"], io["rays"])]
         if cuda and self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
             self.stream = torch.cuda.Stream(device)
@@ -716,7 +733,7 @@ class GraphCache:
         if cuda:
             self.stream.wait_stream(torch.cuda.current_stream(device))
         with on_side:
-            eager(mirror, static)
+            eager(mirror, io)
         if cuda:
             torch.cuda.current_stream(device).wait_stream(self.stream)
             torch.cuda.synchronize(device)
@@ -725,10 +742,12 @@ class GraphCache:
         on_side = torch.cuda.stream(self.stream) if cuda else contextlib.nullcontext()
         with on_side, capturing(cap):
             cap.begin()
-            outputs = build(mirror, static, cap)
+            outputs = build(mirror, io, cap)
             cap.end()
         _restore(counters, kept)
-        program = _Program(cap.nodes, cap.conds, static, outputs, counters)
+        for t, was in sums:
+            t.copy_(was)
+        program = _Program(cap.nodes, cap.conds, io, outputs, counters)
         if cuda:
             program._instantiate(device)
         STATS["captured"] += 1

@@ -28,7 +28,17 @@ metallic-roughness, normal map, emissive, transmission, anisotropy) and with
 MASK/BLEND alpha.  Alpha runs as the JAX accept/reject resample loop
 (:func:`_closest`): the closest-hit kernel is launched again past each
 rejected candidate with per-lane ``t_min``, so the kernels themselves stay
-alpha-free; on alpha scenes the occlusion rays go through the same loop.
+alpha-free, and each pass's test and commit is one kernel
+(:func:`..ops.wave.alpha_commit`); on alpha scenes the occlusion rays go
+through the same loop.
+
+A frame's waves run through :class:`Waves` (the JAX ``lax.scan`` of
+renderer.py:52-88): each wave's initial state is one kernel
+(:func:`..ops.wave.primary_rays`) reading the wave's sample numbers, pixel
+lanes and camera from the device, and on CUDA tables the whole wave, its
+sum into the band's sum included, is one captured program
+(:mod:`.graphs`), so the host neither reads the device nor makes a tensor
+of host data between a frame's first wave and its read at its end.
 
 The port takes the JAX package's default settings as fixed: the skybox
 fetch is deferred to one lookup after the loop, and NEE prunes lanes whose
@@ -57,15 +67,16 @@ import functools
 import numpy as np
 import torch
 
-from ..ops import dense, instanced, rng, shade, traverse
+from ..ops import dense, instanced, rng, shade, traverse, wave
 from ..ops.bsdf import material_bsdf, material_pdf
 from ..ops.dense import EMISSIVE_MAX_TRIS, dense_closest, dense_emissive_pdf, dense_shadow
 from ..ops.instanced import instanced_closest, instanced_shadow
 from ..ops.math3 import EPS, INF, V3, v3_gather, v3_to_tangent
 from ..ops.shade import (  # noqa: F401  (eval_hit: the plain hit, as it was here)
-    _balance, _offset_origin, _sample_analytic, _sample_emissive, _uv_at, eval_hit)
-from ..ops.texture import sample_bilinear, sample_equirect
+    _balance, _offset_origin, _sample_analytic, _sample_emissive, eval_hit)
+from ..ops.texture import sample_equirect
 from ..ops.traverse import bvh_closest, bvh_emissive_pdf, bvh_shadow
+from ..ops.wave import alpha_test as _alpha_test  # noqa: F401  (its name here before)
 from . import graphs
 
 _F32 = torch.float32
@@ -105,34 +116,6 @@ def _closest_opaque(tables, o: V3, d: V3, *, t_min, t_max, active):
     return dense_closest(tables, o, d, t_min=t_min, t_max=t_max, active=active)
 
 
-def _alpha_test(tables, tri, u, v, seed, cand):
-    """Any-hit alpha decision for one candidate per lane (hit.rahit:26-53;
-    integrator.py:130-162).
-
-    alpha = baseColourFactor.a x baseColourTexture.a at the candidate's
-    barycentrics; MASK ignores a candidate below its cutoff, BLEND ignores
-    it with probability 1 - alpha, drawing one rnd per BLEND candidate (the
-    seed advances on those lanes only).  Returns (keep, seed).
-    """
-    ti = torch.clamp_min(tri, 0)
-    if tables.inst is not None:  # encoded id -> prototype triangle
-        ti, _ = tables.inst.decode(ti)
-    mode = torch.index_select(tables.alpha.mode, 0, ti)
-    alpha = torch.index_select(tables.alpha.value, 0, ti)
-    acut = torch.index_select(tables.alpha.cutoff, 0, ti)
-    if tables.has_textures:
-        mat_i = torch.index_select(tables.tri_mat, 0, ti)
-        tex_b = torch.index_select(tables.materials.tex_idx[:, 0], 0, mat_i)
-        uv = _uv_at(torch.index_select(tables.uv, 0, ti), 1.0 - u - v, u, v)
-        texel = sample_bilinear(tables.tex, tex_b, uv)
-        alpha = torch.where(tex_b >= 0, alpha * texel[:, 3], alpha)
-    is_blend = cand & (mode == 2)
-    u_rnd, seed_adv = rng.rnd(seed)
-    seed = torch.where(is_blend, seed_adv, seed)
-    ignore = (cand & (mode == 1) & (alpha < acut)) | (is_blend & (u_rnd < 1.0 - alpha))
-    return cand & ~ignore, seed
-
-
 def _count_alpha_loop(passes: int, calls: int = 1, most: int | None = None) -> None:
     """Count ``calls`` resample loops that ran ``passes`` passes in all, at
     most ``most`` in one call (one call: ``passes``)."""
@@ -141,29 +124,16 @@ def _count_alpha_loop(passes: int, calls: int = 1, most: int | None = None) -> N
     ALPHA_LOOP["max"] = max(ALPHA_LOOP["max"], passes if most is None else most)
 
 
-def _alpha_pass(tables, o: V3, d: V3, t_max, st: dict) -> dict:
-    """One pass of the resample loop over its state ``st`` (``t_lo``,
-    ``pending``, the accepted ``t``, ``tri``, ``u``, ``v`` and ``seed``):
-    trace the nearest candidate above each pending lane's ``t_lo`` and test
-    it.  Returns the next state."""
-    pending = st["pending"]
+def _alpha_pass(tables, o: V3, d: V3, t_max, st: dict, count=None) -> None:
+    """One pass of the resample loop over its state ``st`` (the loop's own
+    buffers): trace the nearest candidate above each
+    pending lane's ``t_lo``, then test and commit it
+    (:func:`..ops.wave.alpha_commit`, one kernel on the card), the next
+    state written over ``st`` and, where given, the lanes still pending
+    into ``count``."""
     t_c, tri_c, u_c, v_c = _closest_opaque(tables, o, d, t_min=st["t_lo"], t_max=t_max,
-                                           active=pending)
-    found = pending & (tri_c >= 0)
-    keep, seed_t = _alpha_test(tables, tri_c, u_c, v_c, st["seed"], found)
-    # accepted hits commit; a rejected candidate moves the lane's lower
-    # bound strictly past it (ignoreIntersectionEXT)
-    t_safe = torch.where(torch.isfinite(t_c), t_c, 0.0)
-    rejected = found & ~keep
-    return dict(
-        t_lo=torch.where(rejected, t_safe * (1.0 + 4e-7) + 1e-30, st["t_lo"]),
-        pending=rejected,
-        t=torch.where(keep, t_c, st["t"]),
-        tri=torch.where(keep, tri_c, st["tri"]),
-        u=torch.where(keep, u_c, st["u"]),
-        v=torch.where(keep, v_c, st["v"]),
-        seed=torch.where(pending, seed_t, st["seed"]),
-    )
+                                           active=st["pending"])
+    wave.alpha_commit(tables, st, t_c, tri_c, u_c, v_c, count)
 
 
 def _closest(tables, o: V3, d: V3, *, t_min, t_max, active, seed):
@@ -175,29 +145,35 @@ def _closest(tables, o: V3, d: V3, *, t_min, t_max, active, seed):
     ``t_lo``, test it, and move ``t_lo`` of a rejected lane strictly past its
     candidate (t * (1 + 4e-7) + 1e-30 in float32); repeat while a lane is
     pending (:func:`_alpha_pass`).  Candidates are thus tested in t order.
-    Each pass is one closest-hit launch, counted in :data:`ALPHA_LOOP`.
+    Each pass is one closest-hit launch and one test-and-commit launch,
+    counted in :data:`ALPHA_LOOP`; the loop's state is buffers of its own,
+    which each pass writes over.
 
     Eagerly the host reads whether a lane is pending before each pass.  In a
     wave being captured the loop becomes a WHILE node on the count of
-    pending lanes, whose body is one captured pass (:mod:`.graphs`).
+    pending lanes, which each pass's commit writes (:mod:`.graphs`).
     """
     if not tables.has_alpha:
         return _closest_opaque(tables, o, d, t_min=t_min, t_max=t_max, active=active), seed
     n = o.x.shape[0]
     dev = o.x.device
-    st = dict(t_lo=dense._lanes(t_min, n, dev), pending=active,
+
+    def own(x):
+        return x.clone(memory_format=torch.contiguous_format)
+
+    st = dict(t_lo=own(dense._lanes(t_min, n, dev)), pending=own(active),
               t=torch.full((n,), torch.inf, dtype=_F32, device=dev),
               tri=torch.full((n,), -1, dtype=torch.int32, device=dev),
               u=torch.zeros(n, dtype=_F32, device=dev), v=torch.zeros(n, dtype=_F32, device=dev),
-              seed=seed)
+              seed=own(seed))
     body = functools.partial(_alpha_pass, tables, o, d, t_max)
     cap = graphs.current_capture()
     if cap is not None:
-        st = cap.loop(body, st, done=_count_alpha_loop)
+        cap.loop(body, st, done=_count_alpha_loop)
     else:
         passes = 0
         while bool(st["pending"].any()):
-            st = body(st)
+            body(st)
             passes += 1
         _count_alpha_loop(passes)
     return (st["t"], st["tri"], st["u"], st["v"]), st["seed"]
@@ -336,45 +312,22 @@ def _join(head: dict, tail: dict) -> dict:
 def generate_primary_rays(view_inv, proj_inv, width, height, sample_count, lane_idx=None, *,
                           device):
     """Camera rays for the given pixel lanes; returns (origin V3, direction
-    V3, seed).  Port of integrator.py:403-442.
+    V3, seed).  Port of integrator.py:403-442, the rays of
+    :func:`..ops.wave.camera_rays` from host data.
 
-    Seeds are TEA(pixelIdx, sampleCount); jitter is the pixel centre on
-    sample 0, else two rnd draws.  ``sample_count`` is an int or a per-lane
-    tensor; ``lane_idx`` selects pixel lanes (default: all width*height
-    pixels).  ``view_inv``/``proj_inv`` are float32 (4, 4) arrays; the rays
-    lie on ``device``.
+    ``sample_count`` is an int or a per-lane tensor; ``lane_idx`` selects
+    pixel lanes (default: all width*height pixels).  ``view_inv``/``proj_inv``
+    are float32 (4, 4) arrays; the rays lie on ``device``.  A wave's rays
+    come from :func:`..ops.wave.primary_rays` instead, which reads all of
+    that from the device.
     """
     if lane_idx is None:
         idx = torch.arange(width * height, dtype=torch.int64, device=device)
     else:
         idx = rng.as_u32(lane_idx, device).to(device)
-    px = (idx % width).to(_F32)
-    py = (idx // width).to(_F32)
     counts = rng.as_u32(sample_count, device)
-    seed = rng.tea(idx, counts)
-    (jx, jy), seed_j = rng.rnd_square(seed)
-    preview = counts == 0
-    jx = torch.where(preview, 0.5, jx)
-    jy = torch.where(preview, 0.5, jy)
-    seed = torch.where(preview, seed, seed_j)
-
-    u = (px + jx) / float(width) * 2.0 - 1.0
-    v = -((py + jy) / float(height) * 2.0 - 1.0)
-    p = [[float(c) for c in row] for row in proj_inv]
-    m = [[float(c) for c in row] for row in view_inv]
-    # target = projInverse * (d.x, d.y, 1, 1), xyz only (raygen.rgen:41)
-    tgt = V3(
-        p[0][0] * u + p[0][1] * v + p[0][2] + p[0][3],
-        p[1][0] * u + p[1][1] * v + p[1][2] + p[1][3],
-        p[2][0] * u + p[2][1] * v + p[2][2] + p[2][3],
-    ).normalized()
-    direction = V3(
-        m[0][0] * tgt.x + m[0][1] * tgt.y + m[0][2] * tgt.z,
-        m[1][0] * tgt.x + m[1][1] * tgt.y + m[1][2] * tgt.z,
-        m[2][0] * tgt.x + m[2][1] * tgt.y + m[2][2] * tgt.z,
-    ).normalized()
-    origin = V3.full((m[0][3], m[1][3], m[2][3]), idx.shape[0], device)
-    return origin, direction, seed
+    return wave.camera_rays(idx, counts, wave.camera_tensor(view_inv, proj_inv, device), width,
+                            height)
 
 
 # ---------------------------------------------------------------------------
@@ -514,7 +467,7 @@ def _bounce(tables, s: dict, b, max_depth: int, nee_weighting: str, rays=None):
 #: bench, the smoke, the tools and the tests read (:func:`launch_counts`) and
 #: zero (:func:`reset_counters`).
 LAUNCH_COUNTERS = {"dense": dense.LAUNCHES, "traverse": traverse.LAUNCHES,
-                   "shade": shade.LAUNCHES, "graphs": graphs.LAUNCHES}
+                   "shade": shade.LAUNCHES, "wave": wave.LAUNCHES, "graphs": graphs.LAUNCHES}
 #: The Python-side counters a bounce advances; a captured wave adds what each
 #: part's capture counted times the runs of its body (:mod:`.graphs`).
 _COUNTERS = (*(d for name, d in LAUNCH_COUNTERS.items() if name != "graphs"), instanced.STATS,
@@ -554,14 +507,118 @@ def _radiance(tables, s: dict):
     return (s["value"] + s["sky_w"] * V3.from_array(sky)).to_array()
 
 
+@functools.lru_cache(maxsize=8)
+def block_lanes(width: int, height: int, device) -> torch.Tensor:
+    """:func:`block_order`'s pixel order as int64 on ``device``, computed
+    there (a copy from the host would synchronise); cached, so callers must
+    not mutate it."""
+    idx = torch.arange(width * height, dtype=torch.int64, device=device)
+    px, py = idx % width, idx // width
+    nbx = -(-width // 32)
+    key = ((py // 32) * nbx + (px // 32)) * 1024 + (py % 32) * 32 + (px % 32)
+    return torch.argsort(key, stable=True)
+
+
+def _add_wave(total, frame_rays, radiance, rays, k: int) -> None:
+    """Add a wave's radiance, summed over its ``k`` samples (samples-major
+    lanes), into ``total`` and its rays into ``frame_rays``
+    (renderer.py:79-80, 87)."""
+    total.add_(radiance if k == 1 else radiance.reshape(k, -1, 3).sum(dim=0))
+    frame_rays.add_(rays)
+
+
+class Waves:
+    """The waves of one frame: one tables, camera, size, depth and NEE
+    weighting, over one band of pixel lanes at a time (integrator.py:900-1138
+    under renderer.py:52-88's ``lax.scan``).
+
+    :meth:`band` starts a band: its pixel lanes (int64, on the tables'
+    device) and a zero :attr:`sum`.  :meth:`run` traces samples ``first`` ..
+    ``first + k - 1`` of every lane of the band in one wave (lane i is pixel
+    ``lanes[i % n]`` at sample ``first + i // n``), adds its radiance summed
+    over the samples into :attr:`sum` ((n, 3), aligned with the lanes) and
+    its rays into :attr:`rays` (0-d int64, the frame's), and returns the
+    wave's (radiance per lane, rays).
+
+    On CUDA tables (``graphs._graphs_preferred``) a wave is one launch of a
+    captured program (:mod:`.graphs`) that reads its sample numbers, pixel
+    lanes and camera from the device and owns the sum and the ray counter:
+    the camera goes to the device once a frame (from pinned memory,
+    non-blocking), a band's lanes device to device, a wave's sample numbers
+    by an ``arange`` there, so the host neither makes a tensor of host data
+    nor reads the device inside the waves.  The returned tensors are then
+    the program's own, overwritten by its next launch.  Else each wave runs
+    eagerly (:func:`_wave`)."""
+
+    def __init__(self, tables, view_inv, proj_inv, width: int, height: int, max_depth: int,
+                 nee_weighting: str = "reference"):
+        if nee_weighting not in ("reference", "physical"):
+            raise ValueError(
+                f"nee_weighting must be 'reference' or 'physical', not {nee_weighting!r}")
+        self.tables, self.width, self.height = tables, width, height
+        self.max_depth, self.nee_weighting = max_depth, nee_weighting
+        self.repack = _repack_preferred(tables)
+        dev = self.device = tables.device
+        self.cache = graphs.cache(tables) if graphs._graphs_preferred(tables) else None
+        if self.cache is None:
+            self.cam = torch.empty(32, dtype=_F32, device=dev)
+            self.rays = torch.zeros((), dtype=torch.int64, device=dev)
+        else:
+            self.cam = self.cache.buffer("cam", (32,), _F32, dev)
+            self.rays = self.cache.buffer("rays", (), torch.int64, dev)
+            self.rays.zero_()
+        host = wave.camera_tensor(view_inv, proj_inv)
+        if dev.type == "cuda":
+            # the allocator keeps a pinned block until the copies from it ran
+            host = host.pin_memory()
+        self.cam.copy_(host, non_blocking=True)
+        self.lanes = self.sum = None
+
+    def band(self, lanes) -> None:
+        """Start a band over the pixel ``lanes`` (a tensor on the tables'
+        device): a zero :attr:`sum`."""
+        n = lanes.shape[0]
+        if self.cache is None:
+            self.lanes = lanes.to(torch.int64)
+            self.sum = torch.zeros((n, 3), dtype=_F32, device=self.device)
+            return
+        self.lanes = self.cache.buffer("lanes", (n,), torch.int64, self.device)
+        self.lanes.copy_(lanes)  # device to device
+        self.sum = self.cache.buffer("sum", (n, 3), _F32, self.device)
+        self.sum.zero_()
+
+    def run(self, first: int, k: int, pixel_order: bool = False):
+        """One wave of ``k`` samples from ``first`` over the band (with
+        ``pixel_order``, one sample of a whole frame on the repacked
+        wavefront, the radiance comes back in pixel order).  Returns
+        (radiance (n * k, 3) samples-major, rays (0-d int64))."""
+        opts = dict(width=self.width, height=self.height, max_depth=self.max_depth,
+                    nee_weighting=self.nee_weighting, repack=self.repack,
+                    pixel_order=pixel_order)
+        if self.cache is None:
+            io = dict(samples=torch.arange(first, first + k, dtype=torch.int64,
+                                           device=self.device), lanes=self.lanes, cam=self.cam)
+            radiance, rays = _wave_eager(self.tables, io, **opts)
+            _add_wave(self.sum, self.rays, radiance, rays, k)
+            return radiance, rays
+        samples = self.cache.buffer("samples", (k,), torch.int64, self.device)
+        torch.arange(first, first + k, out=samples)
+        io = dict(samples=samples, lanes=self.lanes, cam=self.cam, sum=self.sum, rays=self.rays)
+        key = (self.lanes.shape[0], k, self.width, self.height, pixel_order, self.max_depth,
+               self.nee_weighting, self.repack)
+        return self.cache.run(self.tables, key, io, functools.partial(_wave_eager, **opts),
+                              functools.partial(_wave_program, **opts), _COUNTERS)
+
+
 def render_sample(tables, view_inv, proj_inv, width, height, sample_count, max_depth,
                   lane_idx=None, nee_weighting="reference"):
     """Path-trace one sample for every pixel (or the given pixel lanes).
 
-    Port of integrator.py:900-1138.  Returns (radiance (N, 3),
-    rays_traced (0-d int64 tensor)): the counter tallies every traversal of
-    an active lane (material + shadow/verify + pdf probes), the Mrays/s
-    numerator.  ``sample_count`` is an int or a per-lane tensor.
+    Port of integrator.py:900-1138: one :class:`Waves` wave of one sample.
+    Returns (radiance (N, 3), rays_traced (0-d int64 tensor)), tensors of
+    their own: the counter tallies every traversal of an active lane
+    (material + shadow/verify + pdf probes), the Mrays/s numerator.
+    ``sample_count`` is an int.
 
     ``nee_weighting``: "reference" weights NEE by the throughput that
     includes the hit's own BSDF estimator (raygen.rgen:54-83, the
@@ -570,41 +627,29 @@ def render_sample(tables, view_inv, proj_inv, width, height, sample_count, max_d
     On a repacked scene (:func:`_repack_preferred`) the lanes are re-sorted
     between bounces and, when N is a multiple of 4, run the width ladder;
     the radiance comes back in the order of ``lane_idx`` (in pixel order
-    without it) all the same.
+    without it: the lanes start in 32x32-block order, integrator.py:931-934)
+    all the same.
     """
-    if nee_weighting not in ("reference", "physical"):
-        raise ValueError(f"nee_weighting must be 'reference' or 'physical', not {nee_weighting!r}")
+    waves = Waves(tables, view_inv, proj_inv, width, height, max_depth, nee_weighting)
     dev = tables.device
-    repack = _repack_preferred(tables)
-    slot = None
-    if repack and lane_idx is None:  # start in 32x32-block order (integrator.py:931-934)
-        lane_idx = slot = torch.as_tensor(block_order(width, height)[0], device=dev).long()
-    origin, direction, seed = generate_primary_rays(
-        view_inv, proj_inv, width, height, sample_count, lane_idx, device=dev
-    )
-    n = seed.shape[0]
-    s = dict(
-        origin=origin,
-        direction=direction,
-        value=V3.full((0.0, 0.0, 0.0), n, dev),
-        throughput=V3.full((1.0, 1.0, 1.0), n, dev),
-        seed=seed,
-        wavelength=torch.zeros(n, dtype=_F32, device=dev),
-        mat_pdf=torch.ones(n, dtype=_F32, device=dev),
-        active=torch.ones(n, dtype=torch.bool, device=dev),
-        sky_w=V3.full((0.0, 0.0, 0.0), n, dev),
-        # contiguous: the shading kernels read a column per field
-        preview=torch.broadcast_to(rng.as_u32(sample_count, dev) == 0, (n,)).contiguous(),
-    )
-    if repack:  # each lane's output position
-        s["slot"] = torch.arange(n, device=dev) if slot is None else slot
-    if graphs._graphs_preferred(tables):
-        return graphs.cache(tables).run(
-            tables, (max_depth, nee_weighting, repack), s,
-            functools.partial(_wave, max_depth=max_depth, nee_weighting=nee_weighting,
-                              repack=repack),
-            functools.partial(_wave_program, max_depth=max_depth, nee_weighting=nee_weighting,
-                              repack=repack), _COUNTERS)
+    if lane_idx is not None:
+        lanes = torch.as_tensor(lane_idx, device=dev).to(torch.int64)
+    elif waves.repack:
+        lanes = block_lanes(width, height, dev)
+    else:
+        lanes = torch.arange(width * height, dtype=torch.int64, device=dev)
+    waves.band(lanes)
+    radiance, rays = waves.run(sample_count, 1, pixel_order=lane_idx is None and waves.repack)
+    return radiance.clone(), rays.clone()
+
+
+def _wave_eager(tables, io: dict, *, width, height, max_depth, nee_weighting, repack,
+                pixel_order):
+    """A wave eagerly, from its inputs ``io`` (``samples``, ``lanes``,
+    ``cam``): its initial state (:func:`..ops.wave.primary_rays`), then
+    :func:`_wave`.  Returns (radiance in lane order, rays)."""
+    s = wave.primary_rays(io["samples"], io["lanes"], io["cam"], width, height, repack,
+                          pixel_order)
     return _wave(tables, s, max_depth, nee_weighting, repack)
 
 
@@ -649,15 +694,21 @@ def _wave(tables, s: dict, max_depth: int, nee_weighting: str, repack: bool):
     return _lane_radiance(tables, s, repack), rays
 
 
-def _wave_program(tables, s: dict, cap, max_depth: int, nee_weighting: str, repack: bool):
-    """:func:`_wave` as a program of captured parts (``graphs._Capture``
-    ``cap``): the same control flow as device-side loops, JAX's
-    ``while_loop``s and ``cond``s.  ``s`` is the program's static input
-    state; each phase writes a bounce's next state over its state.  The
-    bounce index ``b``, the live count, the rays and whether the next
+def _wave_program(tables, io: dict, cap, *, width, height, max_depth: int, nee_weighting: str,
+                  repack: bool, pixel_order: bool):
+    """:func:`_wave_eager` and the wave's sum as a program of captured parts
+    (``graphs._Capture`` ``cap``): the same control flow as device-side
+    loops, JAX's ``while_loop``s and ``cond``s.  Its first node is the
+    primary-ray kernel, which reads the program's inputs (``io``'s
+    ``samples``, ``lanes`` and ``cam``); each phase writes a bounce's next
+    state over its state; its last nodes add the wave's radiance, summed
+    over its samples, into ``io["sum"]`` and its rays into ``io["rays"]``.
+    The bounce index ``b``, the live count, the rays and whether the next
     bounce re-sorts are device scalars the parts write, so no part reads the
     device on the host.  Returns the (radiance, rays) tensors the program
     writes."""
+    s = wave.primary_rays(io["samples"], io["lanes"], io["cam"], width, height, repack,
+                          pixel_order)
     n = s["active"].shape[0]
     dev = s["active"].device
     b = torch.zeros((), dtype=torch.int32, device=dev)
@@ -698,7 +749,9 @@ def _wave_program(tables, s: dict, cap, max_depth: int, nee_weighting: str, repa
         phase(head, live_floor)
     for wide, head in reversed(list(zip(states, states[1:]))):
         graphs._copy_state(_split(wide, head["active"].shape[0])[0], head)
-    return _lane_radiance(tables, s, repack), rays
+    radiance = _lane_radiance(tables, s, repack)
+    _add_wave(io["sum"], io["rays"], radiance, rays, io["samples"].shape[0])
+    return radiance, rays
 
 
 def _lane_radiance(tables, s: dict, repack: bool):

@@ -40,7 +40,8 @@ import torch
 from ..ops.tonemap import reinhard_jodie
 from ..scene.camera import Camera
 from . import graphs, integrator
-from .integrator import block_order, render_sample
+from .integrator import Waves, block_lanes, render_sample
+from .integrator import block_order  # noqa: F401  (the sharded renderer's import)
 
 #: Max lanes (pixel samples) per wave; cfg1 (512x512, 64 spp) runs 32 waves
 #: of 2 samples x 262,144 pixels.
@@ -65,17 +66,17 @@ def samples_per_wave(lanes: int, spp: int) -> int:
 
 def _render_wave(tables, view_inv, proj_inv, width, height, max_depth, samples, lanes,
                  nee_weighting):
-    """One multi-sample wave: lane = (sample, pixel), samples-major.  Returns
-    radiance aligned with ``lanes`` and the wave's ray count."""
-    n = lanes.shape[0]
-    if len(samples) == 1:
-        return render_sample(tables, view_inv, proj_inv, width, height, samples[0],
-                             max_depth, lane_idx=lanes, nee_weighting=nee_weighting)
-    lane_t = lanes.repeat(len(samples))
-    samp = torch.tensor(samples, dtype=torch.int64, device=lanes.device).repeat_interleave(n)
-    radiance, rays = render_sample(tables, view_inv, proj_inv, width, height, samp, max_depth,
-                                   lane_idx=lane_t, nee_weighting=nee_weighting)
-    return radiance.reshape(len(samples), n, 3).sum(dim=0), rays
+    """One multi-sample wave on its own, as :func:`render_lanes` runs it
+    (tools and tests): the consecutive ``samples`` of the pixel ``lanes``.
+    Returns (the radiance summed over the samples, aligned with ``lanes``;
+    the wave's rays), tensors of their own."""
+    first, k = samples[0], len(samples)
+    if list(samples) != list(range(first, first + k)):
+        raise ValueError(f"a wave's samples are consecutive, not {list(samples)}")
+    waves = Waves(tables, view_inv, proj_inv, width, height, max_depth, nee_weighting)
+    waves.band(lanes)
+    waves.run(first, k)
+    return waves.sum.clone(), waves.rays.clone()
 
 
 def band_plan(width: int, height: int, spp: int):
@@ -101,27 +102,30 @@ def render_lanes(tables, view_inv, proj_inv, width, height, max_depth, spp, star
     (default ``MAX_LANES_PER_PASS``) lanes render whole, in waves of
     :func:`samples_per_wave` samples, unless ``banded``; more render in bands
     (:func:`_band_plan`).  Returns ((len(lanes), 3) sum aligned with
-    ``lanes``, rays traced, bands (0 whole), waves)."""
+    ``lanes``, rays traced, bands (0 whole), waves).
+
+    The waves are :class:`integrator.Waves`' (the JAX ``lax.scan`` over
+    them, renderer.py:52-88): the camera goes to the device once, a band's
+    lanes when the band starts, a wave's sample numbers are written there,
+    and each band's sum is copied out of the waves' sum once it is done, so
+    the loops make no tensor of host data and read nothing back."""
     if max_lanes is None:
         max_lanes = MAX_LANES_PER_PASS
     n = lanes.shape[0]
     acc = torch.zeros((n, 3), dtype=torch.float32, device=lanes.device)
-    rays = torch.zeros((), dtype=torch.int64, device=lanes.device)
     if n <= max_lanes and not banded:
         chunk, per, bands = samples_per_wave(n, spp), n, 0
     else:
         chunk, per, bands = _band_plan(n, spp, max_lanes)
+    frame = Waves(tables, view_inv, proj_inv, width, height, max_depth, nee_weighting)
     waves = 0
     for lo in range(0, n, per):
-        band = acc[lo:lo + per]
+        frame.band(lanes[lo:lo + per])
         for done in range(0, spp, chunk):
-            samples = [start_sample + done + k for k in range(min(chunk, spp - done))]
-            radiance, r = _render_wave(tables, view_inv, proj_inv, width, height, max_depth,
-                                       samples, lanes[lo:lo + per], nee_weighting)
-            band.add_(radiance)
-            rays += r
+            frame.run(start_sample + done, min(chunk, spp - done))
             waves += 1
-    return acc, rays, bands, waves
+        acc[lo:lo + per].copy_(frame.sum)
+    return acc, frame.rays.clone(), bands, waves
 
 
 def _banded_preferred(tables, width: int, height: int, spp: int) -> bool:
@@ -175,7 +179,7 @@ def render_image(
     camera.aspect = width / height
     view_inv, proj_inv = camera_uniforms(camera)
     with torch.inference_mode():
-        lanes = torch.as_tensor(block_order(width, height)[0], device=tables.device)
+        lanes = block_lanes(width, height, tables.device)
         acc, rays, bands, waves = render_lanes(tables, view_inv, proj_inv, width, height,
                                                max_depth, spp, start_sample, lanes,
                                                nee_weighting=nee_weighting,
@@ -183,11 +187,21 @@ def render_image(
                                                                         spp))
         LAST_RENDER.update(bands=bands, waves=waves)
         img = torch.zeros_like(acc)
-        img[lanes.long()] = acc
-        img = _postprocess(img, spp, tonemap, as_uint8)
-        img = img.cpu().numpy().reshape(height, width, 3)
-        total_rays, = graphs.settle(rays)  # the counts of the waves' device loops too
-    return img, total_rays
+        img[lanes] = acc
+        host = _fetch(_postprocess(img, spp, tonemap, as_uint8))
+        # the frame's one read: it waits for the stream, the image's copy
+        # with it, and brings in the counts of the waves' device loops
+        total_rays, = graphs.settle(rays)
+    return host.numpy().reshape(height, width, 3), total_rays
+
+
+def _fetch(img: torch.Tensor) -> torch.Tensor:
+    """``img`` on the host: on a card a copy into pinned memory that does
+    not wait (read it after the stream has run), else ``img``."""
+    if not img.is_cuda:
+        return img
+    host = torch.empty(img.shape, dtype=img.dtype, pin_memory=True)
+    return host.copy_(img, non_blocking=True)
 
 
 def _frame_step(tables, view_inv, proj_inv, width, height, accum, max_depth, disp_h, disp_w,
@@ -198,7 +212,9 @@ def _frame_step(tables, view_inv, proj_inv, width, height, accum, max_depth, dis
     to the display size.  The preview sample 0 is left out of the
     accumulation (raygen.rgen:95-96): it zeroes the buffer and is shown
     directly.  Returns (uint8 (disp_h, disp_w, 3) image, rays traced), both
-    still on the device."""
+    still on the device.  The sample renders through the same program as
+    :func:`render_image`'s waves on CUDA tables, its number written on the
+    device (:func:`render_sample`)."""
     with torch.inference_mode():
         radiance, rays = render_sample(tables, view_inv, proj_inv, width, height, sample_count,
                                        max_depth)
