@@ -8,7 +8,7 @@ Run from the root of a checkout, with no arguments:
 Phases, one JSON line each; any failure raises and ends the run with a
 nonzero exit code.  They run in the order of their numbers but two: 8
 (bench) runs right after 2, and the ``torch.profiler`` timings of 3 and 5
-run after 26, with 25 and 27.  A profiler session slows every render that
+run after 26 and 28-30, with 25 and 27.  A profiler session slows every render that
 follows it in the same process (``tools/bench_torch_process_state.py``,
 PERF.md §7), so no render phase runs after one but those that compare
 sides of one wave in turns.
@@ -48,10 +48,12 @@ what a bounce calls run eagerly.
 4. render   — the CLI's headless path for bench cfg1 (Cornell, 512x512,
    depth 4, 64 spp, camera 0,1,2.4 -> 0,0,-1) on ``cuda``; every dense kernel
    must have been launched by it, every bounce at the wave's full width (no
-   repack on a dense scene), each shading kernel once a bounce, and the image
+   repack on a dense scene), each shading kernel and the hit's finish once a
+   bounce, and the image
    must be finite and lit; the shading's plain versions (and ``eval_hit``, ``sample_material``,
-   ``material_bsdf``, ``material_pdf``) and the wave kernels' (``camera_rays``,
-   ``alpha_test``) raise if called meanwhile; one primary-ray launch a wave.
+   ``material_bsdf``, ``material_pdf``), the wave kernels' (``camera_rays``,
+   ``alpha_test``) and the trace kernels' (``winner_uv``) raise if called
+   meanwhile; one primary-ray launch a wave.
 5. walks    — both BVH walks (K4' whole-stream, K5' treelet; closest and
    shadow) against their plain versions on the streams of the full cfg2
    dragon (262,280 triangles, 128 treelets) and of the 147,136-triangle glTF
@@ -250,6 +252,16 @@ what a bounce calls run eagerly.
    and ulps as class i; a class ii lane fails.  Each kernel's first call on
    cfg1, cfg2, glTF 147k and the textured glb timed in a captured graph
    against its plain version, with its bytes bound.
+30. trace   — after phase 29: the four kernels around the traversal launches
+   (``csrc/trace.cu``) against their plain versions on the first wave of
+   cfg1-cfg4, glTF 147k, the gallery, the textured glb, the emitter soup and
+   the instanced alpha gallery (``tools/check_torch_trace.py``, eager):
+   every closest hit's finish, every instance step, every re-sort's key and
+   every gather, scatter and copy, every lane bit-equal or named by kernel,
+   field and ulps as class i; a class ii lane fails.  One call of each
+   kernel on cfg1, cfg2 and the gallery timed in a captured graph against
+   its plain version, with its bytes bound; the permutation also against
+   ``index_select`` over the same columns (its ``library_ms``).
 27. graphs_busy — after the profiled timings: one wave each of cfg1, the
    gallery, the emitter soup, phase 9's forced-BVH dragon and the glTF 147k
    under ``torch.profiler`` three ways, counters reset just before.  On the
@@ -316,7 +328,8 @@ BVH_SRC = "vulkan_raytracer_tpu_torch/csrc/bvh_walk.cu"
 LOOPS_SRC = "vulkan_raytracer_tpu_torch/csrc/graph_loops.cu"
 SHADE_SRC = "vulkan_raytracer_tpu_torch/csrc/shade.cu"
 WAVE_SRC = "vulkan_raytracer_tpu_torch/csrc/wave.cu"
-# name -> (counter module, counter key, source, TPU kernel it replaces)
+TRACE_SRC = "vulkan_raytracer_tpu_torch/csrc/trace.cu"
+# name -> (counter module, counter key (or keys, summed), source, TPU kernel it replaces)
 KERNELS = {
     "dense_closest": ("dense", "closest", DENSE_SRC,
                       "vulkan_raytracer_tpu/ops/pallas_dense.py:112"),
@@ -353,6 +366,18 @@ KERNELS = {
                      "vulkan_raytracer_tpu/render/integrator.py:403"),
     "alpha_commit": ("wave", "alpha_commit", WAVE_SRC,
                      "vulkan_raytracer_tpu/render/integrator.py:130"),
+    # what XLA fuses around the traversal launches, none a Pallas kernel: the
+    # closest hit's finish (pallas_closest's (u, v) :282, packet_closest's
+    # _slot_to_tri and _winner_uv, the instanced finish), a step of the
+    # instance scans (the lax.scan body), the re-sort's key and its gathers
+    "hit_finish": ("trace", "hit_finish", TRACE_SRC,
+                   "vulkan_raytracer_tpu/ops/pallas_dense.py:282"),
+    "instance_step": ("trace", "instance_step", TRACE_SRC,
+                      "vulkan_raytracer_tpu/ops/instanced.py:189"),
+    "coherence_key": ("trace", "coherence_key", TRACE_SRC,
+                      "vulkan_raytracer_tpu/render/integrator.py:316"),
+    "permute": ("trace", ("permute", "permute_copy"), TRACE_SRC,
+                "vulkan_raytracer_tpu/render/integrator.py:352"),
 }
 #: the shading phase's configs (tools/check_torch_shade.py); the kernels are
 #: timed on the first five
@@ -364,6 +389,11 @@ SHADE_TIMED = ("cfg1", "cfg2", "cfg3", "gltf147k", "gallery")
 WAVE_CONFIGS = ("cfg1", "cfg2", "gltf147k", "textured", "cfg3", "cfg4", "cfg5", "soup",
                 "gallery", "alpha_gallery")
 WAVE_TIMED = ("cfg1", "cfg2", "gltf147k", "textured")
+#: the trace kernels' phase's configs (tools/check_torch_trace.py); the
+#: kernels are timed on the first three
+TRACE_CONFIGS = ("cfg1", "cfg2", "gallery", "cfg3", "gltf147k", "cfg4", "textured", "soup",
+                 "alpha_gallery")
+TRACE_TIMED = ("cfg1", "cfg2", "gallery")
 CFG1 = ["-m", "cornell", "-r", "512,512", "-b", "4", "--spp", "64",
         "-c", "0,1,2.4", "-d", "0,0,-1"]
 CFG2 = ["-m", "dragon", "-r", "512,512", "-b", "4", "--spp", "4",
@@ -808,7 +838,7 @@ def check_kernels(tables_by_name, ray_counts, device) -> dict:
     1e-7 on lanes whose gate is 1 and exactly +0 where it is 0."""
     import torch
 
-    from vulkan_raytracer_tpu_torch.ops import dense
+    from vulkan_raytracer_tpu_torch.ops import dense, trace
 
     err = {k: 0.0 for k in ("dense_closest", "dense_shadow", "dense_emissive_pdf")}
     seed = 0
@@ -833,8 +863,8 @@ def check_kernels(tables_by_name, ray_counts, device) -> dict:
                 t_tie = torch.where(tri_p >= 0, t_p, t_init).contiguous()
                 t_k2, tri_k2 = dense.closest_sweep(table, cols, t_lo, t_tie)
                 t_p2, tri_p2 = dense.closest_sweep_reference(table, cols, t_lo, t_tie)
-                uk, vk = dense.winner_uv(tables, rays["o"], rays["d"], tri_k)
-                up, vp = dense.winner_uv(tables, rays["o"], rays["d"], tri_p)
+                uk, vk = trace.winner_uv(tables, rays["o"], rays["d"], tri_k)
+                up, vp = trace.winner_uv(tables, rays["o"], rays["d"], tri_p)
                 closest_err = max(_max_abs(t_k, t_p), _max_abs(t_k2, t_p2),
                                   _max_abs(uk, up), _max_abs(vk, vp))
                 bad_ids = int((tri_k != tri_p).sum()) + int((tri_k2 != tri_p2).sum())
@@ -1029,15 +1059,18 @@ def _plain_shading_forbidden():
     """Inside, any call of the shading's plain versions, or of the torch
     functions they are made of (``eval_hit``, ``sample_material``,
     ``material_bsdf``, ``material_pdf``), or of the wave kernels' plain
-    versions (``camera_rays``, ``alpha_test``) raises: on the card a wave
-    starts, shades and commits its alpha passes through its kernels only."""
-    from vulkan_raytracer_tpu_torch.ops import shade, wave
+    versions (``camera_rays``, ``alpha_test``), or of the trace kernels'
+    (``winner_uv``) raises: on the card a wave starts, finishes its hits,
+    shades and commits its alpha passes through its kernels only."""
+    from vulkan_raytracer_tpu_torch.ops import shade, trace, wave
 
     names = {shade: ("shade_hit_reference", "shade_scatter_reference",
                      "shade_resolve_reference", "eval_hit", "sample_material", "material_bsdf",
                      "material_pdf"),
              wave: ("primary_rays_reference", "camera_rays", "alpha_commit_reference",
-                    "alpha_test")}
+                    "alpha_test"),
+             trace: ("hit_finish_reference", "winner_uv", "instance_step_reference",
+                     "coherence_key_reference", "permute_reference")}
     saved = {(mod, name): getattr(mod, name) for mod, ns in names.items() for name in ns}
 
     def forbidden(name):
@@ -2485,6 +2518,42 @@ def wave_phase(device, prebuilt: dict, out_dir: Path) -> tuple:
     return times, errs
 
 
+def trace_phase(device, prebuilt: dict, out_dir: Path) -> tuple:
+    """Phase 30: the four kernels around the traversal launches against
+    their plain versions on the first wave of each of :data:`TRACE_CONFIGS`
+    (``tools/check_torch_trace.py``, eager, so each call runs its Python):
+    every closest hit's finish, every instance step of the gallery and the
+    instanced alpha gallery, every re-sort's key and every gather, scatter
+    and copy of the repacked scenes; every lane of every field bit-equal,
+    or named by kernel, field and ulps as class i (<= 4 ulps); a class ii
+    lane fails.  On the first waves of :data:`TRACE_TIMED` one call of each
+    kernel is timed in a captured graph against its plain version eagerly,
+    with its bytes bound, and the permutation against ``index_select`` over
+    the same columns.  ``prebuilt`` maps configs to tables the smoke already
+    uploaded.  Returns ({kernel: {config: times}}, {kernel: largest abs
+    error})."""
+    import check_torch_trace as ctt
+    import check_torch_wave as ctw
+
+    specs = ctw.configs(out_dir)
+    times = {k: {} for k in ctt.KERNELS}
+    errs = {k: 0.0 for k in ctt.KERNELS}
+    for name in TRACE_CONFIGS:
+        line = ctt.check_config(name, specs[name], device, tables=prebuilt.get(name),
+                                timing=name in TRACE_TIMED)
+        emit({"phase": "trace", **line})
+        if line["by_class"]["ii"] or not line["finite"]:
+            raise AssertionError(f"trace {name}: {line['by_class']['ii']} class ii lanes, "
+                                 f"finite {line['finite']}: {line['first']}")
+        if not line["calls"]["hit_finish"]:
+            raise AssertionError(f"trace {name}: calls {line['calls']}")
+        for k in ctt.KERNELS:
+            errs[k] = max(errs[k], line["max_abs_err"][k])
+            if k in line.get("timing", {}):
+                times[k][name] = {**line["timing"][k], "launches_per_wave": line["launches"][k]}
+    return times, errs
+
+
 def graphs_busy(cornell, gallery, soup, small, bigasset) -> None:
     """Phase 27, after the profiled timings: one wave each of cfg1, the
     gallery, the emitter soup, the forced-BVH dragon of phase 9 and the
@@ -2564,7 +2633,7 @@ def graphs_busy(cornell, gallery, soup, small, bigasset) -> None:
               "traced_launches_equal_counters": ["replay", "eager"],
               "device_traced_within_counters": True, **out})
     missing = [name for name, (mod, key, _, _) in KERNELS.items()
-               if mod != "graphs" and not replayed.get(key)]
+               if mod != "graphs" and not _launched(replayed, key)]
     if missing:
         raise AssertionError(f"the replayed waves launched no {missing}: {replayed}")
 
@@ -2668,7 +2737,9 @@ _ENTRIES = {"closest_kernel": "dense_closest", "shadow_kernel": "dense_shadow",
             "emissive_walk_kernel": "emissive_walk", "loop_cond_kernel": "loop_cond_kernel",
             "shade_hit_kernel": "shade_hit", "shade_scatter_kernel": "shade_scatter",
             "shade_resolve_kernel": "shade_resolve", "primary_rays_kernel": "primary_rays",
-            "alpha_commit_kernel": "alpha_commit"}
+            "alpha_commit_kernel": "alpha_commit", "hit_finish_kernel": "hit_finish",
+            "instance_step_kernel": "instance_step", "coherence_key_kernel": "coherence_key",
+            "permute_kernel": "permute"}
 
 
 def ptxas_table(report: str) -> dict:
@@ -2728,6 +2799,11 @@ def _alpha_loop() -> dict:
             "max": ALPHA_LOOP["max"]}
 
 
+def _launched(counts: dict, key) -> int:
+    """The launches a kernel's counter key (or keys, summed) holds in ``counts``."""
+    return sum(counts.get(k, 0) for k in (key if isinstance(key, tuple) else (key,)))
+
+
 class PathLaunches:
     """Each kernel's launches in the runs of the paths the smoke drives with
     reset counters, in all and by the phase that drove the path."""
@@ -2738,7 +2814,7 @@ class PathLaunches:
 
     def add(self, phase: str, launches: dict) -> None:
         for name, (mod, key, _, _) in KERNELS.items():
-            n = launches.get(mod, {}).get(key, 0)
+            n = _launched(launches.get(mod, {}), key)
             if n:
                 self.total[name] += n
                 self.by_path[name][phase] = self.by_path[name].get(phase, 0) + n
@@ -3096,6 +3172,9 @@ def main() -> int:
     if set(launches["shade"].values()) != {sum(cfg1_widths.values())}:
         raise AssertionError(f"cfg1's {sum(cfg1_widths.values())} bounces launched the shading "
                              f"kernels {launches['shade']} times")
+    if launches["trace"]["hit_finish"] != sum(cfg1_widths.values()):
+        raise AssertionError(f"cfg1's {sum(cfg1_widths.values())} bounces launched the hit "
+                             f"finish {launches['trace']['hit_finish']} times")
     if launches["wave"]["primary_rays"] != renderer.LAST_RENDER["waves"]:
         raise AssertionError(f"cfg1's {renderer.LAST_RENDER['waves']} waves launched the "
                              f"primary-ray kernel {launches['wave']['primary_rays']} times")
@@ -3221,6 +3300,23 @@ def main() -> int:
                              "shape": "glTF 147k wave, its first pass (524,288 lanes pending)",
                              "by_config": wave_times["alpha_commit"]}
 
+    # 30. the kernels around the traversal launches against their plain
+    # versions on real waves, timed, before any profiler session
+    with tempfile.TemporaryDirectory() as tmp:
+        trace_times, trace_errs = trace_phase(
+            device, {"cfg1": cornell, "cfg2": dragon, "gltf147k": bigasset,
+                     "gallery": gallery_tables, "soup": soup_tables}, Path(tmp))
+    errs.update(trace_errs)
+    for name, config, shape in (
+            ("hit_finish", "cfg1", "cfg1 wave, bounce 0 (524,288 lanes)"),
+            ("instance_step", "gallery", "gallery wave, bounce 0, the second instance's step "
+                                         "(524,288 lanes)"),
+            ("coherence_key", "cfg2", "cfg2 wave, bounce 0's NEE rays (524,288 lanes)"),
+            ("permute", "cfg2", "cfg2 wave, a re-sort's gather of the 21-column state "
+                                "(524,288 lanes)")):
+        times[name] = {**trace_times[name][config], "shape": shape,
+                       "by_config": trace_times[name]}
+
     # the dense kernels' device times from torch.profiler, after every
     # render phase: a profiler session slows the renders that follow it in
     # the same process (PERF.md §7)
@@ -3255,14 +3351,15 @@ def main() -> int:
         row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                "launches": paths.total[name], "launches_by_path": paths.by_path[name],
                "max_abs_err": errs[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
-               "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
+               "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+               "library_ms": t.get("library_ms"),
                "shape": t["shape"], "ptxas": ptxas[name]}
         if name in walk_times["gltf147k"]:
             g = walk_times["gltf147k"][name]
             row["gltf147k"] = {k: g[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
         if name.startswith("dense"):
             row.update({k: t[k] for k in ("live", "host_us_per_call")})
-        if name.startswith("shade") or name in ("primary_rays", "alpha_commit"):
+        if "by_config" in t:
             row["by_config"] = t["by_config"]
         if name == "dense_shadow":
             row["cfg1_wave"] = shadow_cfg1

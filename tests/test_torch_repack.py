@@ -7,8 +7,9 @@ lanes died (the JAX ``render_sample``'s repack, integrator.py:918-1137);
 ``render/renderer.py`` bands such a scene's frame below the cap
 (``_banded_preferred``).  Held here:
 
-* ``_coherence_key`` bit-equal to JAX's on BVH and instanced tables, and
-  its stable permutation equal to ``jnp.argsort``'s;
+* the coherence key (``ops/trace.py coherence_key``, on the CPU its plain
+  version) bit-equal to JAX's ``_coherence_key`` on BVH and instanced
+  tables, and its stable permutation equal to ``jnp.argsort``'s;
 * the repacked loop bit-equal to the unsorted one with equal rays (every
   op is per lane), on JAX's width-ladder scene, with both tiers run; the
   same for ``_shadow`` (flags and seeds, alpha-free and BLEND) and for the
@@ -37,6 +38,7 @@ from vulkan_raytracer_tpu.scene.builtin import cornell_box_scene as jcornell
 from vulkan_raytracer_tpu.scene.camera import Camera as JCamera
 from vulkan_raytracer_tpu.scene.procedural import dragon_scene as jdragon
 from vulkan_raytracer_tpu_torch.ops import dense as tdense
+from vulkan_raytracer_tpu_torch.ops import trace as ttrace
 from vulkan_raytracer_tpu_torch.ops.math3 import V3
 from vulkan_raytracer_tpu_torch.render import integrator as tint
 from vulkan_raytracer_tpu_torch.render import renderer as trnd
@@ -91,9 +93,9 @@ def test_coherence_key_matches_jax(kind):
     jkey = np.asarray(jint._coherence_key(jt, JV3(*(jnp.asarray(o[:, k]) for k in range(3))),
                                           JV3(*(jnp.asarray(d[:, k]) for k in range(3))),
                                           jnp.asarray(dead)))
-    tkey = tint._coherence_key(tt, V3(*(torch.as_tensor(o[:, k].copy()) for k in range(3))),
-                               V3(*(torch.as_tensor(d[:, k].copy()) for k in range(3))),
-                               torch.as_tensor(dead))
+    tkey = ttrace.coherence_key(tt, V3(*(torch.as_tensor(o[:, k].copy()) for k in range(3))),
+                                V3(*(torch.as_tensor(d[:, k].copy()) for k in range(3))),
+                                torch.as_tensor(~dead))
     np.testing.assert_array_equal(tkey.numpy().astype(np.int64), jkey.astype(np.int64))
     assert jkey.max() < 2 ** 31 and len(np.unique(jkey)) > 1000  # cells and octants spread
     np.testing.assert_array_equal(torch.argsort(tkey, stable=True).numpy(),
@@ -166,7 +168,7 @@ def _shadow_case(kind):
 @pytest.mark.parametrize("kind", ["opaque", "blend"])
 def test_shadow_sorted_matches_unsorted(kind, monkeypatch):
     t, o, d, t_max, active, seed = _shadow_case(kind)
-    perm = torch.argsort(tint._coherence_key(t, o, d, ~active), stable=True)
+    perm = torch.argsort(ttrace.coherence_key(t, o, d, active), stable=True)
     assert not torch.equal(perm, torch.arange(perm.shape[0]))  # the sort moves lanes
     want, seed_want = tint._shadow_unsorted(t, o, d, t_max=t_max, active=active, seed=seed)
     _repack(monkeypatch, True)

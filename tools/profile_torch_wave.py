@@ -39,7 +39,8 @@ repack patched off too (``unsorted``):
 2. ``--reps`` times each side unprofiled, in turns (device, replay, eager,
    unsorted, unsorted, eager, replay, device, ...): the wall of each,
    CUDA-synchronised, and the radiance, which must be bit-equal between the
-   sides, with equal rays, equal launches per kernel, equal bounce widths
+   sides, with equal rays, equal launches per kernel (the unsorted side's
+   without the re-sort's key and permutation), equal bounce widths
    and, on an alpha scene (gltf, textured), equal alpha-loop counts;
 3. each side once with ``torch.cuda.set_sync_debug_mode("warn")``: the
    host synchronisations of the wave, the harness's included (its
@@ -114,9 +115,10 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT_KERNELS = ("closest_kernel", "shadow_kernel", "pdf_kernel", "bvh_walk_kernel",
                 "treelet_walk_kernel", "emissive_walk_kernel", "shade_hit_kernel",
                 "shade_scatter_kernel", "shade_resolve_kernel", "primary_rays_kernel",
-                "alpha_commit_kernel", "loop_cond_kernel")
+                "alpha_commit_kernel", "hit_finish_kernel", "instance_step_kernel",
+                "coherence_key_kernel", "permute_kernel", "loop_cond_kernel")
 #: each launch counter (``LAUNCHES`` of ops/dense.py, ops/traverse.py,
-#: ops/shade.py, ops/wave.py and render/graphs.py) -> the kernel whose
+#: ops/shade.py, ops/wave.py, ops/trace.py and render/graphs.py) -> the kernel whose
 #: launches it counts, by the name the trace gives it
 KERNEL_OF = {"closest": "closest_kernel", "shadow": "shadow_kernel", "pdf": "pdf_kernel",
              "bvh_closest": "bvh_walk_kernel", "bvh_shadow": "bvh_walk_kernel",
@@ -124,6 +126,9 @@ KERNEL_OF = {"closest": "closest_kernel", "shadow": "shadow_kernel", "pdf": "pdf
              "emissive_pdf": "emissive_walk_kernel", "hit": "shade_hit_kernel",
              "scatter": "shade_scatter_kernel", "resolve": "shade_resolve_kernel",
              "primary_rays": "primary_rays_kernel", "alpha_commit": "alpha_commit_kernel",
+             "hit_finish": "hit_finish_kernel", "instance_step": "instance_step_kernel",
+             "coherence_key": "coherence_key_kernel", "permute": "permute_kernel",
+             "permute_copy": "permute_kernel",
              "loop_cond": "loop_cond_kernel"}
 WALK_BLOCK = 128  # rays per block of the BVH walks (csrc/bvh_walk.cu kThreads)
 #: config -> (scene: a built-in name, a generated .glb or a smoke scene,
@@ -526,11 +531,17 @@ def _patch(g, loops, rule) -> None:
     integrator._repack_preferred = rule
 
 
-def _launches() -> dict:
-    """The hand-written kernels' launches, which every side shares."""
+#: the re-sort's kernels, which the unsorted side does not launch
+RESORT = ("coherence_key", "permute")
+
+
+def _launches(resort: bool = True) -> dict:
+    """The hand-written kernels' launches, which every side shares (the
+    unsorted side those of the re-sort apart: ``resort`` False)."""
     from vulkan_raytracer_tpu_torch.render import integrator
 
-    return {k: n for d in integrator.launch_counts(loops=False).values() for k, n in d.items()}
+    return {k: n for d in integrator.launch_counts(loops=False).values() for k, n in d.items()
+            if resort or k not in RESORT}
 
 
 def _widths() -> dict:
@@ -623,7 +634,9 @@ def main(argv=None) -> int:
                 differ = [k for k, same in (
                     ("radiance", torch.equal(got, radiance["device"])),
                     ("rays", got_rays == rays["device"]),
-                    ("launches", _launches() == launches["device"]),
+                    ("launches", _launches(name != "unsorted") == {
+                        k: n for k, n in launches["device"].items()
+                        if name != "unsorted" or k not in RESORT}),
                     ("alpha loop", _alpha_loop() == loops["device"]),
                     ("bounce widths", name == "unsorted" or _widths() == widths["device"]))
                     if not same]

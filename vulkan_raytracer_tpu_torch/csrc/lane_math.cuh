@@ -1,12 +1,12 @@
-// Lane arithmetic shared by csrc/shade.cu and csrc/wave.cu: the 3-vector,
+// Lane arithmetic shared by csrc/shade.cu, csrc/wave.cu and csrc/trace.cu: the 3-vector,
 // aten's rounding of the few operations the kernels repeat, the RNG's LCG
 // draw, the bilinear texture fetch and the decode of an instanced hit id.
 //
 // Every function rounds as the aten op it stands for on the card, under the
 // flags of ops/_ext.py (--fmad=false -prec-div=true -prec-sqrt=true, no fast
 // math): products and sums in the plain version's order (a dot is
-// ((x*x') + (y*y')) + (z*z')), a normalisation is 1/sqrt, clamp and minimum
-// pass NaN through, and a Python float is rounded to float32 from its double
+// ((x*x') + (y*y')) + (z*z')), a normalisation is 1/sqrt, clamp, minimum and
+// maximum pass NaN through, and a Python float is rounded to float32 from its double
 // (K()).  csrc/shade.cu's header note says more.
 
 #pragma once
@@ -42,6 +42,9 @@ __device__ __forceinline__ float clamp(float v, float lo, float hi) {
 }
 __device__ __forceinline__ float minimum(float a, float b) {
   return isnan(a) ? a : (isnan(b) ? b : fminf(a, b));
+}
+__device__ __forceinline__ float maximum(float a, float b) {
+  return isnan(a) ? a : (isnan(b) ? b : fmaxf(a, b));
 }
 __device__ __forceinline__ float rcp(float x) { return 1.0f / x; }  // torch.reciprocal
 __device__ __forceinline__ float safe_div(float a, float b) {      // bsdf._safe_div

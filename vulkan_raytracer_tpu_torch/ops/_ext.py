@@ -33,7 +33,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 SOURCES = (CSRC / "dense_sweep.cu", CSRC / "bvh_walk.cu", CSRC / "graph_loops.cu",
-           CSRC / "shade.cu", CSRC / "wave.cu")
+           CSRC / "shade.cu", CSRC / "wave.cu", CSRC / "trace.cu")
 #: Headers the sources include: part of the library's hash.
 HEADERS = (CSRC / "lane_math.cuh",)
 
@@ -87,6 +87,11 @@ _SIGNATURES = {
     # (device, pointers [wave.SLOTS], counts [wave.INTS], stream)
     "primary_rays_launch": [_I, _P, _P, _P],
     "alpha_commit_launch": [_I, _P, _P, _P],
+    # (device, pointers [trace.SLOTS], counts [trace.INTS], floats [trace.REALS], stream)
+    "hit_finish_launch": [_I, _P, _P, _P, _P],
+    "instance_step_launch": [_I, _P, _P, _P, _P],
+    "coherence_key_launch": [_I, _P, _P, _P, _P],
+    "permute_launch": [_I, _P, _P, _P, _P],
 }
 
 

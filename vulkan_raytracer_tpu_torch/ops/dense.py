@@ -32,8 +32,9 @@ from __future__ import annotations
 
 import torch
 
-from . import _ext
-from .math3 import V3, v3_gather
+from . import _ext, trace
+from .math3 import V3
+from .trace import lanes as _lanes
 
 #: Scenes above this many triangles are uploaded with BVH streams and walk
 #: them (ops/traverse.py); this kernel itself has no triangle cap.
@@ -92,15 +93,6 @@ def pdf_table(tables) -> torch.Tensor:
 def ray_columns(o: V3, d: V3):
     """The six ray components as contiguous float32 (N,) tensors."""
     return tuple(c.to(_F32).contiguous() for c in (o.x, o.y, o.z, d.x, d.y, d.z))
-
-
-def _lanes(x, n, device):
-    """``x`` (a number or a tensor) as (n,) float32 lanes on ``device``.  A
-    number is filled on the device: made on the host, it would be copied
-    over with a synchronisation."""
-    if isinstance(x, (int, float)):
-        return torch.full((n,), x, dtype=_F32, device=device)
-    return torch.broadcast_to(torch.as_tensor(x, dtype=_F32, device=device), (n,))
 
 
 # ---------------------------------------------------------------------------
@@ -279,20 +271,6 @@ def pdf_sweep(table, rays, gate, t_min: float):
 # ---------------------------------------------------------------------------
 
 
-def winner_uv(tables, o: V3, d: V3, tri):
-    """Barycentric (u, v) of each lane's winning triangle, recomputed from 9
-    flat gathers (pallas_dense.py:282-292); lanes with tri < 0 read tri 0."""
-    ti = torch.clamp_min(tri, 0)
-    wv0 = v3_gather(tables.v0, ti)
-    e1 = v3_gather(tables.v1, ti) - wv0
-    e2 = v3_gather(tables.v2, ti) - wv0
-    pvec = d.cross(e2)
-    det = e1.dot(pvec)
-    inv = torch.reciprocal(torch.where(torch.abs(det) < 1e-12, 1.0, det))
-    tvec = o - wv0
-    return tvec.dot(pvec) * inv, d.dot(tvec.cross(e1)) * inv
-
-
 def dense_closest(tables, o: V3, d: V3, *, t_min, t_max, active):
     """Closest hit over all triangles: (t, tri, u, v), t = inf / tri = -1 on
     a miss (pallas_dense.py:262-298)."""
@@ -300,15 +278,9 @@ def dense_closest(tables, o: V3, d: V3, *, t_min, t_max, active):
     dev = o.x.device
     t_lo = _lanes(t_min, n, dev).contiguous()
     t_init = torch.where(active, _lanes(t_max, n, dev), 0.0).contiguous()
-    t_best, tri_best = closest_sweep(tables.tri_table, ray_columns(o, d), t_lo, t_init)
-    found = tri_best >= 0
-    u, v = winner_uv(tables, o, d, tri_best)
-    return (
-        torch.where(found, t_best, torch.inf),
-        tri_best,
-        torch.where(found, u, 0.0),
-        torch.where(found, v, 0.0),
-    )
+    rays = ray_columns(o, d)
+    t_best, tri_best = closest_sweep(tables.tri_table, rays, t_lo, t_init)
+    return trace.hit_finish(tables, rays, t_best, tri_best, "dense")
 
 
 def dense_shadow(tables, o: V3, d: V3, *, t_max, active):

@@ -19,7 +19,10 @@ costs O(instances x triangles) memory.  An instanced upload
   miss the box marked dead.
 
 The contract is the JAX module's; its ``lax.scan`` schedule is not kept.
-The TLAS part is plain torch, as it is plain XLA there.  The triangles are
+The TLAS part, what XLA fuses of each scan step there, is one hand-written
+kernel a step between two prototype launches (:func:`.trace.instance_step`:
+the last launch merged, the next instance's box test, rays and bounds), and
+the winner's (u, v) one more (:func:`.trace.hit_finish`).  The triangles are
 intersected by the port's hand-written kernels and nothing else on a card:
 
 * a **dense prototype** (at most ``DENSE_MAX_TRIS`` triangles, ``pblas``
@@ -31,7 +34,7 @@ intersected by the port's hand-written kernels and nothing else on a card:
   ``traverse.walk`` (the treelet walk, or the whole-stream walk for a
   single-treelet BLAS) with ``t_lo`` per lane, as ``packet_closest_pb`` /
   ``packet_shadow_pb`` do (pallas_bvh.py:1629, :1693).  Dead lanes carry
-  ``t_init = -1``; slots map to prototype-local ids by ``slot_to_tri``.
+  ``t_init = -1``; the next step maps slots to prototype-local ids.
 
 On CPU tensors the same calls run the kernels' plain versions.
 
@@ -59,14 +62,15 @@ bounce can be captured as a CUDA graph (``render/graphs.py``).
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import torch
 
+from . import trace
 from .dense import _lanes, closest_sweep, ray_columns, shadow_sweep
-from .math3 import V3, v3_gather
-from .traverse import BVHStreams, safe_inv_dir, slot_to_tri, walk
+from .math3 import V3
+from .traverse import BVHStreams, walk
 
-_F32 = torch.float32
 
 #: Since the last reset: calls of the two entry points and their instance
 #: ``steps`` (one launch each).
@@ -141,44 +145,32 @@ def apply_normal_matrix(inst: InstanceTables, ii, v: V3) -> V3:
     )
 
 
-def _apply_affine(m, p: V3) -> V3:
-    """3x4 row-major affine transform of points; ``m`` holds 12 numbers or
-    12 (N,) tensors."""
-    return V3(
-        m[0] * p.x + m[1] * p.y + m[2] * p.z + m[3],
-        m[4] * p.x + m[5] * p.y + m[6] * p.z + m[7],
-        m[8] * p.x + m[9] * p.y + m[10] * p.z + m[11],
-    )
+class Instance(NamedTuple):
+    """One instance in a scan: its group, its 12 world->object values, its
+    global id and its world box (:func:`_instances`)."""
 
-
-def _apply_linear(m, v: V3) -> V3:
-    """Rotation/scale part only (directions; t stays in world units)."""
-    return V3(
-        m[0] * v.x + m[1] * v.y + m[2] * v.z,
-        m[4] * v.x + m[5] * v.y + m[6] * v.z,
-        m[8] * v.x + m[9] * v.y + m[10] * v.z,
-    )
+    group: InstanceGroup
+    m: object
+    iid: object
+    bmin: torch.Tensor
+    bmax: torch.Tensor
 
 
 def _instances(g: InstanceGroup):
-    """Each instance of the group, in order: its 12 world->object values, its
-    global id and its world box, as views of the group's tensors where they
-    lie (0-d for the values and the id).  A captured step reads them there,
-    so tables whose instances moved replay it (``render/graphs.py``); the
-    products with the rays are float32 as they would be with the values on
-    the host."""
-    return zip((row.unbind(0) for row in g.inv.unbind(0)), g.inst_id.unbind(0),
-               g.aabb_min.unbind(0), g.aabb_max.unbind(0))
+    """Each instance of the group, in order: its 12 world->object values
+    ((12,)), its global id (0-d) and its world box, as views of the group's
+    tensors where they lie.  A step reads them there (on a card through
+    pointers), so tables whose instances moved replay a captured step
+    (``render/graphs.py``); the products with the rays are float32 as they
+    would be with the values on the host."""
+    return zip(g.inv.unbind(0), g.inst_id.unbind(0), g.aabb_min.unbind(0), g.aabb_max.unbind(0))
 
 
-def ray_aabb(o, inv_d, bmin, bmax, t_min, t_max):
-    """Slab test of (N, 3) rays against one box: does [t_min, t_max] meet
-    the box interval?  (``ray_aabb``, vulkan_raytracer_tpu/ops/intersect.py:31)"""
-    t0 = (bmin - o) * inv_d
-    t1 = (bmax - o) * inv_d
-    tnear = torch.minimum(t0, t1).amax(dim=-1)
-    tfar = torch.maximum(t0, t1).amin(dim=-1)
-    return (tnear <= tfar) & (tfar >= t_min) & (tnear <= t_max)
+def _scan(inst: InstanceTables):
+    """Every instance of every group, in prototype order and DFS order within."""
+    for g in inst.groups:
+        for m, iid, bmin, bmax in _instances(g):
+            yield Instance(g, m, iid, bmin, bmax)
 
 
 def instanced_closest(tables, o: V3, d: V3, *, t_min, t_max, active):
@@ -186,85 +178,51 @@ def instanced_closest(tables, o: V3, d: V3, *, t_min, t_max, active):
 
     ``enc_tri`` is the encoded (instance, prototype-triangle) id, -1 on a
     miss (then t = inf, u = v = 0).  ``t_min``/``t_max`` may be per lane (the
-    alpha resample loop)."""
+    alpha resample loop).  Each instance is one step (:func:`.trace.instance_step`)
+    and one launch; a last step merges the last launch, and the finish
+    (:func:`.trace.hit_finish`) recomputes the winner's (u, v)."""
     inst: InstanceTables = tables.inst
     n = o.x.shape[0]
-    dev = o.x.device
-    p_total = inst.num_proto_tris
-    t_lo = _lanes(t_min, n, dev).contiguous()
-    o_arr = o.to_array()
-    inv_d = safe_inv_dir(d.to_array())
+    rays = ray_columns(o, d)
+    scalar = isinstance(t_min, (int, float))  # the first step writes t_lo
+    t_lo = None if scalar else _lanes(t_min, n, o.x.device).contiguous()
+    st = trace.instance_state(n, o.x.device, shadow=False, t_lo=scalar)
     STATS["closest_calls"] += 1
-
-    # inactive lanes carry t_best = 0: no triangle can pass their interval
-    t_best = torch.where(active, _lanes(t_max, n, dev), 0.0)
-    enc = torch.full((n,), -1, dtype=torch.int32, device=dev)
-
-    for g in inst.groups:
-        for m, iid, bmin, bmax in _instances(g):
-            # a dead lane's bound 0 would pass the box where its origin lies inside
-            touches = active & ray_aabb(o_arr, inv_d, bmin, bmax, 0.0, t_best)
-            STATS["steps"] += 1
-            rays = ray_columns(_apply_affine(m, o), _apply_linear(m, d))
-            if g.pblas is None:
-                t_n, local = closest_sweep(g.table, rays, t_lo,
-                                           torch.where(touches, t_best, 0.0))
-            else:
-                t_n, slot = walk(g.pblas, rays, t_lo, torch.where(touches, t_best, -1.0),
-                                 shadow=False)
-                local, _ = slot_to_tri(g.pblas, slot)
-            # strictly closer: the first instance in DFS order keeps an exact tie
-            closer = (local >= 0) & (t_n < t_best)
-            t_best = torch.where(closer, t_n, t_best)
-            enc = torch.where(closer, local + (iid * p_total + g.tri_off), enc)
-
-    found = enc >= 0
-    # (u, v) once, for the winning (instance, triangle), in its object space
-    pti, ii = inst.decode(torch.clamp_min(enc, 0))
-    ii = torch.clamp_max(ii, inst.num_instances - 1)
-    m = tuple(torch.index_select(inst.inv_flat[k], 0, ii) for k in range(12))
-    o2 = _apply_affine(m, o)
-    d2 = _apply_linear(m, d)
-    wv0 = v3_gather(tables.v0, pti)
-    e1 = v3_gather(tables.v1, pti) - wv0
-    e2 = v3_gather(tables.v2, pti) - wv0
-    pvec = d2.cross(e2)
-    det = e1.dot(pvec)
-    inv_det = 1.0 / torch.where(torch.abs(det) < 1e-12, 1.0, det)
-    tvec = o2 - wv0
-    u = tvec.dot(pvec) * inv_det
-    v = d2.dot(tvec.cross(e1)) * inv_det
-    return (
-        torch.where(found, t_best, torch.inf),
-        torch.where(found, enc, -1),
-        torch.where(found, u, 0.0),
-        torch.where(found, v, 0.0),
-    )
+    prev = None
+    for x in _scan(inst):
+        st = trace.instance_step(tables, st, rays, active, t_max, t_min if scalar else None, prev,
+                                 x, shadow=False)
+        STATS["steps"] += 1
+        lo = st["t_lo"] if scalar else t_lo
+        if x.group.pblas is None:
+            t_n, hit = closest_sweep(x.group.table, st["rays"], lo, st["t_init"])
+        else:
+            t_n, hit = walk(x.group.pblas, st["rays"], lo, st["t_init"], shadow=False)
+        prev = (x, t_n, hit)
+    st = trace.instance_step(tables, st, rays, active, t_max, None, prev, None, shadow=False)
+    return trace.hit_finish(tables, rays, st["t_best"], st["enc"], "instanced")
 
 
 def instanced_shadow(tables, o: V3, d: V3, *, t_max, active):
     """Any-hit occlusion over every instance (tMin = 0); inactive lanes are
-    never occluded, and an occluded lane is dead for the later instances."""
+    never occluded, and an occluded lane is dead for the later instances.
+    Each instance is one step (:func:`.trace.instance_step`) and one launch;
+    a last step merges the last launch."""
     inst: InstanceTables = tables.inst
     n = o.x.shape[0]
-    dev = o.x.device
-    t_bound = _lanes(t_max, n, dev)
-    o_arr = o.to_array()
-    inv_d = safe_inv_dir(d.to_array())
-    zeros = torch.zeros(n, dtype=_F32, device=dev)
-    occ = torch.zeros(n, dtype=torch.bool, device=dev)
+    rays = ray_columns(o, d)
+    walks = any(g.pblas is not None for g in inst.groups)  # the walks read t_lo = 0
+    st = trace.instance_state(n, o.x.device, shadow=True, t_lo=walks)
     STATS["shadow_calls"] += 1
-
-    for g in inst.groups:
-        for m, _, bmin, bmax in _instances(g):
-            touches = (active & ~occ) & ray_aabb(o_arr, inv_d, bmin, bmax, 0.0, t_bound)
-            STATS["steps"] += 1
-            rays = ray_columns(_apply_affine(m, o), _apply_linear(m, d))
-            if g.pblas is None:
-                hit = shadow_sweep(g.table, rays, torch.where(touches, t_bound, 0.0)) != 0
-            else:
-                _, slot = walk(g.pblas, rays, zeros, torch.where(touches, t_bound, -1.0),
-                               shadow=True)
-                hit = slot >= 0
-            occ = occ | (hit & touches)
-    return occ & active
+    prev = None
+    for x in _scan(inst):
+        st = trace.instance_step(tables, st, rays, active, t_max, 0.0 if walks else None, prev,
+                                 x, shadow=True)
+        STATS["steps"] += 1
+        if x.group.pblas is None:
+            hit = shadow_sweep(x.group.table, st["rays"], st["t_init"])
+        else:
+            _, hit = walk(x.group.pblas, st["rays"], st["t_lo"], st["t_init"], shadow=True)
+        prev = (x, None, hit)
+    st = trace.instance_step(tables, st, rays, active, t_max, None, prev, None, shadow=True)
+    return st["occ"]

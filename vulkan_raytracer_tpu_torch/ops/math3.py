@@ -128,6 +128,13 @@ def v3_refract(i: V3, n: V3, eta) -> V3:
     return out.where(~tir, 0.0)
 
 
+def safe_inv_dir(d: torch.Tensor) -> torch.Tensor:
+    """1/d with |d| < 1e-20 replaced by a signed 1e-20 (``safe_inv_dir``,
+    vulkan_raytracer_tpu/ops/intersect.py:20)."""
+    return torch.reciprocal(torch.where(
+        torch.abs(d) < 1e-20, torch.where(d < 0, -1e-20, 1e-20), d))
+
+
 def v3_gather(v: V3, idx) -> V3:
     """Gather rows of a V3-of-(T,) table by (N,) int indices."""
     return V3(

@@ -79,8 +79,10 @@ import dataclasses
 import numpy as np
 import torch
 
-from . import _ext
-from .dense import _lanes, _on_cuda, mt, ray_columns, winner_uv
+from . import _ext, trace
+from .dense import _lanes, _on_cuda, mt, ray_columns
+from .math3 import safe_inv_dir
+from .trace import slot_to_tri  # noqa: F401  (the JAX wrapper's _slot_to_tri, here before)
 
 #: default target triangle slots per treelet (pallas_bvh.py:141)
 TREELET_TRIS = 2048
@@ -298,13 +300,6 @@ def inv_dir(d: torch.Tensor) -> torch.Tensor:
     """1/d with |d| < 1e-30 replaced by a signed 1e-30 (``_inv_comp``)."""
     return torch.reciprocal(torch.where(
         torch.abs(d) < _TINY, torch.where(d < 0, -_TINY, _TINY), d))
-
-
-def safe_inv_dir(d: torch.Tensor) -> torch.Tensor:
-    """1/d with |d| < 1e-20 replaced by a signed 1e-20 (``safe_inv_dir``,
-    vulkan_raytracer_tpu/ops/intersect.py:20)."""
-    return torch.reciprocal(torch.where(
-        torch.abs(d) < 1e-20, torch.where(d < 0, -1e-20, 1e-20), d))
 
 
 def box_entries(box, rays, t_lo, t_init):
@@ -672,14 +667,6 @@ def emissive_pdf_walk(s: EmissiveStream, rays, active, t_min: float):
 # ---------------------------------------------------------------------------
 
 
-def slot_to_tri(s: BVHStreams, slot):
-    """Scene triangle of each lane's slot, a row of the shared triangle table
-    (``_slot_to_tri`` :1343).  Returns (tri, found)."""
-    found = slot >= 0
-    tri = s.tri_id[torch.clamp_min(slot, 0).long()]
-    return torch.where(found, tri, -1), found
-
-
 def bvh_closest(tables, o, d, *, t_min, t_max, active):
     """Closest hit over the scene's BVH streams: (t, tri, u, v) with t = inf
     and tri = -1 on a miss (``packet_closest`` :1604).  ``t_min`` may be a
@@ -691,14 +678,7 @@ def bvh_closest(tables, o, d, *, t_min, t_max, active):
     t_lo = _lanes(t_min, n, dev).contiguous()
     t_init = torch.where(active, _lanes(t_max, n, dev), -1.0).contiguous()
     t_best, slot = walk(s, rays, t_lo, t_init, shadow=False)
-    tri, found = slot_to_tri(s, slot)
-    u, v = winner_uv(tables, o, d, tri)
-    return (
-        torch.where(found, t_best, torch.inf),
-        tri,
-        torch.where(found, u, 0.0),
-        torch.where(found, v, 0.0),
-    )
+    return trace.hit_finish(tables, rays, t_best, slot, "bvh")
 
 
 def bvh_shadow(tables, o, d, *, t_max, active):

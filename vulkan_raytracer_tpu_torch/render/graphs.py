@@ -90,8 +90,8 @@ launch hands the caller the program's radiance and rays, which its next
 launch overwrites; the sums are what a frame keeps.
 
 The eager warm-up before each capture builds the tables a bounce builds on
-first use (the mirror's cached properties, the Morton table) outside the
-capture: made inside it, they would come from the graphs' pool.
+first use (the mirror's cached properties) outside the capture: made inside
+it, they would come from the graphs' pool.
 
 Counters.  The launch counters (``dense.LAUNCHES``, ``traverse.LAUNCHES``),
 ``instanced.STATS``, ``integrator.BOUNCE_WIDTHS`` and
@@ -121,7 +121,7 @@ import weakref
 
 import torch
 
-from ..ops import _ext
+from ..ops import _ext, trace
 from ..ops.math3 import V3
 from ..scene.scenegraph import map_tables
 
@@ -252,9 +252,10 @@ def _leaves(s: dict):
 
 
 def _copy_state(dst: dict, src: dict) -> None:
-    for d, s in zip(_leaves(dst), _leaves(src)):
-        if d is not s:
-            d.copy_(s)
+    """Copy each column of ``src`` that is not ``dst``'s own into ``dst``'s
+    (one ``permute_kernel`` launch on a card)."""
+    pairs = [(d, s) for d, s in zip(_leaves(dst), _leaves(src)) if d is not s]
+    trace.permute([s for _, s in pairs], mode="copy", out=[d for d, _ in pairs])
 
 
 def _snapshot(counters) -> list:

@@ -49,9 +49,10 @@ emissive triangles and the walk of the emissive-only BVH above.
 Scenes whose rays walk BVH streams (:func:`_repack_preferred`, the JAX
 ``_beam_occlusion`` rule) run a repacked wavefront (integrator.py:918-1137):
 lanes start in 32x32-block pixel order, and every bounce after the first
-re-sorts them by :func:`_coherence_key` (dead last, then the direction
-octant, then the Morton cell of the origin); NEE occlusion rays are re-sorted
-by their own key (:func:`_shadow`).  Once at most half the lanes are alive
+re-sorts them by their coherence key (:func:`..ops.trace.coherence_key`:
+dead last, then the direction octant, then the Morton cell of the origin),
+every column in one :func:`..ops.trace.permute`; NEE occlusion rays are
+re-sorted by their own key (:func:`_shadow`).  Once at most half the lanes are alive
 the live ones are a prefix of the sorted wave, so the loop goes on at half and
 then a quarter of the width (the width ladder) and rejoins the tail at the
 end; ``slot`` carries each lane's output position.  A lane's state never
@@ -67,11 +68,11 @@ import functools
 import numpy as np
 import torch
 
-from ..ops import dense, instanced, rng, shade, traverse, wave
+from ..ops import dense, instanced, rng, shade, trace, traverse, wave
 from ..ops.bsdf import material_bsdf, material_pdf
 from ..ops.dense import EMISSIVE_MAX_TRIS, dense_closest, dense_emissive_pdf, dense_shadow
 from ..ops.instanced import instanced_closest, instanced_shadow
-from ..ops.math3 import EPS, INF, V3, v3_gather, v3_to_tangent
+from ..ops.math3 import EPS, INF, V3, v3_to_tangent
 from ..ops.shade import (  # noqa: F401  (eval_hit: the plain hit, as it was here)
     _balance, _offset_origin, _sample_analytic, _sample_emissive, eval_hit)
 from ..ops.texture import sample_equirect
@@ -196,17 +197,20 @@ def _shadow_unsorted(tables, o: V3, d: V3, *, t_max, active, seed):
 
 def _shadow(tables, o: V3, d: V3, *, t_max, active, seed):
     """Occlusion query (integrator.py:234-267).  On a repacked scene the
-    rays are sorted by their own :func:`_coherence_key` first (NEE rays
+    rays are sorted by their own coherence key first (NEE rays
     point at the lights, not along the material rays the wave is sorted
     for), and the flags and seeds are scattered back: BLEND alpha draws
     random numbers inside the query, so a seed travels with its lane."""
     if not _repack_preferred(tables):
         return _shadow_unsorted(tables, o, d, t_max=t_max, active=active, seed=seed)
-    perm = torch.argsort(_coherence_key(tables, o, d, ~active), stable=True)
-    occ_p, seed_p = _shadow_unsorted(tables, v3_gather(o, perm), v3_gather(d, perm),
-                                     t_max=t_max[perm], active=active[perm], seed=seed[perm])
-    occ = torch.empty_like(occ_p).index_copy_(0, perm, occ_p)
-    return occ, torch.empty_like(seed).index_copy_(0, perm, seed_p)
+    perm = torch.argsort(trace.coherence_key(tables, o, d, active), stable=True)
+    bounded = isinstance(t_max, torch.Tensor)
+    cols = trace.permute([*o, *d, active, seed, *((t_max,) if bounded else ())], perm)
+    occ_p, seed_p = _shadow_unsorted(tables, V3(*cols[0:3]), V3(*cols[3:6]),
+                                     t_max=cols[8] if bounded else t_max, active=cols[6],
+                                     seed=cols[7])
+    occ, seed = trace.permute([occ_p, seed_p], perm, "scatter")
+    return occ, seed
 
 
 def _emissive_pdf(tables, o: V3, d: V3, *, t_min, active):
@@ -249,44 +253,20 @@ def block_order(width: int, height: int, block: int = 32):
     return order, inverse
 
 
-def _morton6(x):
-    """Interleave the low 6 bits of x into every third bit (integrator.py:307-313)."""
-    out = torch.zeros_like(x)
-    for i in range(6):
-        out = out | (((x >> i) & 1) << (3 * i))
-    return out
-
-
-@functools.lru_cache(maxsize=8)
-def _morton_table(device) -> torch.Tensor:
-    """:func:`_morton6` of 0..63 as a table on ``device``, one gather a cell."""
-    return _morton6(torch.arange(64, dtype=torch.int32, device=device))
-
-
-def _coherence_key(tables, o: V3, d: V3, dead):
-    """(dead, direction octant, Morton cell of the origin) as one int32 per
-    lane, ``dead << 30 | octant << 27 | morton << 9`` (integrator.py:316-349).
-    The cells are 64 per axis over the root bounds: the BVH root's, or on an
-    instanced scene the union of the instance boxes."""
-    if tables.inst is not None:
-        lo = torch.stack([g.aabb_min.amin(0) for g in tables.inst.groups]).amin(0)
-        hi = torch.stack([g.aabb_max.amax(0) for g in tables.inst.groups]).amax(0)
-    else:
-        lo, hi = tables.bvh.aabb_min[0], tables.bvh.aabb_max[0]
-    scale = 64.0 / torch.clamp_min(hi - lo, 1e-20)
-    cells = torch.clamp((torch.stack(o) - lo[:, None]) * scale[:, None], 0.0, 63.0)
-    m = _morton_table(o.x.device)[cells.to(torch.int32)]  # (3, N): x, y, z
-    neg = (torch.stack(d) < 0).to(torch.int32)
-    key = (((m[0] << 2) | (m[1] << 1) | m[2]) << 9) | (neg[0] << 29) | (neg[1] << 28)
-    return key | (neg[2] << 27) | (dead.to(torch.int32) << 30)
-
-
 def _sort_wavefront(tables, s: dict) -> dict:
-    """The wave state sorted by :func:`_coherence_key` (integrator.py:352-373),
-    stably, as ``jnp.argsort`` sorts: one gather per tensor of every field."""
-    key = _coherence_key(tables, s["origin"], s["direction"], ~s["active"])
+    """The wave state sorted by its coherence key (:func:`..ops.trace.coherence_key`;
+    integrator.py:352-373), stably, as ``jnp.argsort`` sorts: every column
+    gathered in one :func:`..ops.trace.permute`."""
+    key = trace.coherence_key(tables, s["origin"], s["direction"], s["active"])
     perm = torch.argsort(key, stable=True)
-    return {k: v3_gather(v, perm) if isinstance(v, V3) else torch.index_select(v, 0, perm)
+    return _state_like(s, trace.permute(graphs._leaves(s), perm))
+
+
+def _state_like(s: dict, cols) -> dict:
+    """A wave state of ``s``'s fields made of the columns ``cols``, in
+    ``s``'s field order (:func:`.graphs._leaves`)."""
+    it = iter(cols)
+    return {k: V3(next(it), next(it), next(it)) if isinstance(v, V3) else next(it)
             for k, v in s.items()}
 
 
@@ -463,11 +443,13 @@ def _bounce(tables, s: dict, b, max_depth: int, nee_weighting: str, rays=None):
 
 
 #: The hand-written kernels' launch counters, by module (``graphs``:
-#: ``loop_cond_kernel``'s, which only the device loops launch): what the
-#: bench, the smoke, the tools and the tests read (:func:`launch_counts`) and
-#: zero (:func:`reset_counters`).
+#: ``loop_cond_kernel``'s, which only the device loops launch; ``trace``'s
+#: ``permute_copy``: the permute kernel's copies of a program's state, which
+#: only a program makes): what the bench, the smoke, the tools and the tests
+#: read (:func:`launch_counts`) and zero (:func:`reset_counters`).
 LAUNCH_COUNTERS = {"dense": dense.LAUNCHES, "traverse": traverse.LAUNCHES,
-                   "shade": shade.LAUNCHES, "wave": wave.LAUNCHES, "graphs": graphs.LAUNCHES}
+                   "shade": shade.LAUNCHES, "wave": wave.LAUNCHES, "trace": trace.LAUNCHES,
+                   "graphs": graphs.LAUNCHES}
 #: The Python-side counters a bounce advances; a captured wave adds what each
 #: part's capture counted times the runs of its body (:mod:`.graphs`).
 _COUNTERS = (*(d for name, d in LAUNCH_COUNTERS.items() if name != "graphs"), instanced.STATS,
@@ -476,8 +458,11 @@ _COUNTERS = (*(d for name, d in LAUNCH_COUNTERS.items() if name != "graphs"), in
 
 def launch_counts(loops: bool = True) -> dict:
     """Each kernel's launches since the last :func:`reset_counters`, by
-    module; ``loop_cond_kernel``'s (``graphs``) too with ``loops``."""
-    return {name: dict(d) for name, d in LAUNCH_COUNTERS.items() if loops or name != "graphs"}
+    module; with ``loops``, those only a captured program makes too:
+    ``loop_cond_kernel``'s (``graphs``) and the state copies
+    (``trace``'s ``permute_copy``)."""
+    return {name: {k: n for k, n in d.items() if loops or k != "permute_copy"}
+            for name, d in LAUNCH_COUNTERS.items() if loops or name != "graphs"}
 
 
 def reset_counters() -> None:
@@ -743,8 +728,10 @@ def _wave_program(tables, io: dict, cap, *, width, height, max_depth: int, nee_w
         # lives); the split is a copy either way, and joins back unchanged
         cap.if_(graphs.Cond(live, 0, b, max_depth),
                 lambda: graphs._copy_state(wide, _sort_wavefront(tables, wide)))
-        head = {k: V3(*(c.clone() for c in v)) if isinstance(v, V3) else v.clone()
-                for k, v in _split(wide, width)[0].items()}
+        part = _split(wide, width)[0]
+        head = _state_like(part, trace.permute(
+            graphs._leaves(part), mode="copy",
+            out=[torch.empty_like(c) for c in graphs._leaves(part)]))
         states.append(head)
         phase(head, live_floor)
     for wide, head in reversed(list(zip(states, states[1:]))):
