@@ -257,11 +257,12 @@ what a bounce calls run eagerly.
    cfg1-cfg4, glTF 147k, the gallery, the textured glb, the emitter soup and
    the instanced alpha gallery (``tools/check_torch_trace.py``, eager):
    every closest hit's finish, every instance step, every re-sort's key and
-   every gather, scatter and copy, every lane bit-equal or named by kernel,
-   field and ulps as class i; a class ii lane fails.  One call of each
-   kernel on cfg1, cfg2 and the gallery timed in a captured graph against
-   its plain version, with its bytes bound; the permutation also against
-   ``index_select`` over the same columns (its ``library_ms``).
+   every gather, scatter and copy, every lane bit-equal: a lane that differs
+   at all fails.  One call of each kernel on cfg1, cfg2 and the gallery
+   timed in a captured graph, launch after launch on copies of its inputs
+   that together exceed the L2 four times over, so that its bytes bound at
+   the memory rate holds, against its plain version; the permutation also
+   against ``index_select`` over the same columns (its ``library_ms``).
 27. graphs_busy — after the profiled timings: one wave each of cfg1, the
    gallery, the emitter soup, phase 9's forced-BVH dragon and the glTF 147k
    under ``torch.profiler`` three ways, counters reset just before.  On the
@@ -1270,6 +1271,7 @@ def check_walks(tables, ray_counts, device, label: str, cam) -> dict:
     absolute t error per kernel."""
     import torch
 
+    from vulkan_raytracer_tpu_torch.ops import trace
     from vulkan_raytracer_tpu_torch.ops import traverse as tr
 
     s = tables.pbvh
@@ -1306,7 +1308,7 @@ def check_walks(tables, ray_counts, device, label: str, cam) -> dict:
                 raise AssertionError(f"{where}: shadow differs on {int((os_k != os_p).sum())} "
                                      "slots")
             err[f"{name}_shadow"] = max(err[f"{name}_shadow"], e_sh)
-            out[name] = (t_k, tr.slot_to_tri(s, s_k)[0], os_k >= 0)
+            out[name] = (t_k, trace.slot_to_tri(s, s_k)[0], os_k >= 0)
         (t4, tri4, occ4), (t5, tri5, occ5) = out["bvh_walk"], out["treelet_walk"]
         hits = tri4 >= 0
         same_tri = float((tri4 == tri5)[hits].float().mean())
@@ -2524,12 +2526,12 @@ def trace_phase(device, prebuilt: dict, out_dir: Path) -> tuple:
     (``tools/check_torch_trace.py``, eager, so each call runs its Python):
     every closest hit's finish, every instance step of the gallery and the
     instanced alpha gallery, every re-sort's key and every gather, scatter
-    and copy of the repacked scenes; every lane of every field bit-equal,
-    or named by kernel, field and ulps as class i (<= 4 ulps); a class ii
-    lane fails.  On the first waves of :data:`TRACE_TIMED` one call of each
-    kernel is timed in a captured graph against its plain version eagerly,
-    with its bytes bound, and the permutation against ``index_select`` over
-    the same columns.  ``prebuilt`` maps configs to tables the smoke already
+    and copy of the repacked scenes; every lane of every field bit-equal:
+    a lane that differs at all fails (it is named by kernel, field and
+    ulps).  On the first waves of :data:`TRACE_TIMED` one call of each
+    kernel is timed in a captured graph, its inputs not in L2, against its
+    plain version eagerly, with its bytes bound, and the permutation against
+    ``index_select`` over the same columns.  ``prebuilt`` maps configs to tables the smoke already
     uploaded.  Returns ({kernel: {config: times}}, {kernel: largest abs
     error})."""
     import check_torch_trace as ctt
@@ -2542,8 +2544,8 @@ def trace_phase(device, prebuilt: dict, out_dir: Path) -> tuple:
         line = ctt.check_config(name, specs[name], device, tables=prebuilt.get(name),
                                 timing=name in TRACE_TIMED)
         emit({"phase": "trace", **line})
-        if line["by_class"]["ii"] or not line["finite"]:
-            raise AssertionError(f"trace {name}: {line['by_class']['ii']} class ii lanes, "
+        if line["differing_lanes"] or not line["finite"]:
+            raise AssertionError(f"trace {name}: {line['by_class']} differing lanes, "
                                  f"finite {line['finite']}: {line['first']}")
         if not line["calls"]["hit_finish"]:
             raise AssertionError(f"trace {name}: calls {line['calls']}")

@@ -36,6 +36,7 @@ import torch
 
 from vulkan_raytracer_tpu_torch.accel import bvh as tbvh
 from vulkan_raytracer_tpu_torch.ops import dense as tdense
+from vulkan_raytracer_tpu_torch.ops import trace as ttrace
 from vulkan_raytracer_tpu_torch.ops import traverse as ttr
 from vulkan_raytracer_tpu_torch.ops.math3 import V3 as TV3
 from vulkan_raytracer_tpu_torch.scene import procedural as tproc
@@ -414,8 +415,8 @@ def test_treelet_walk_matches_whole_stream_walk():
     t_init = torch.where(active, 1e32, -1.0)
     t4, slot4 = ttr.bvh_walk_reference(s, rays, t_lo, t_init, False)
     t5, slot5 = ttr.treelet_walk_reference(s, rays, t_lo, t_init, False)
-    tri4, f4 = ttr.slot_to_tri(s, slot4)
-    tri5, f5 = ttr.slot_to_tri(s, slot5)
+    tri4, f4 = ttrace.slot_to_tri(s, slot4)
+    tri5, f5 = ttrace.slot_to_tri(s, slot5)
     assert torch.equal(f4, f5) and int(f4.sum()) > 1000
     assert torch.equal(t4, t5)
     assert float((tri4 == tri5)[f4].float().mean()) > 0.999
@@ -423,7 +424,7 @@ def test_treelet_walk_matches_whole_stream_walk():
     t_tie = torch.where(f4, t4, t_init)
     for fn in (ttr.bvh_walk_reference, ttr.treelet_walk_reference):
         t_b, slot_b = fn(s, rays, t_lo, t_tie, False)
-        assert torch.equal(ttr.slot_to_tri(s, slot_b)[1], f4)
+        assert torch.equal(ttrace.slot_to_tri(s, slot_b)[1], f4)
         assert torch.equal(t_b[f4], t4[f4])
 
     t_sh = torch.where(active, t_hi, -1.0)
@@ -451,10 +452,10 @@ def test_walk_tie_rule_first_visited_wins():
     first = next(i for i in visit_order if i in (0, 1))
     for t_init in (1e32, 2.0):
         t, slot = ttr.bvh_walk_reference(s, rays, lo, torch.tensor([t_init]), False)
-        tri_id, found = ttr.slot_to_tri(s, slot)
+        tri_id, found = ttrace.slot_to_tri(s, slot)
         assert bool(found) and t.item() == 2.0 and tri_id.item() == first
     t, slot = ttr.bvh_walk_reference(s, rays, torch.tensor([2.0]), torch.tensor([1e32]), False)
-    assert ttr.slot_to_tri(s, slot)[0].item() == 2 and t.item() == 3.0
+    assert ttrace.slot_to_tri(s, slot)[0].item() == 2 and t.item() == 3.0
 
 
 def test_walks_refuse_mixed_devices():

@@ -51,7 +51,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
 import profile_torch_wave  # noqa: E402
 import torch_glb_assets  # noqa: E402
 from test_torch_instancing import alpha_instanced_scene, instanced_scene  # noqa: E402
-from vulkan_raytracer_tpu_torch.ops import dense, instanced, traverse, wave  # noqa: E402
+from vulkan_raytracer_tpu_torch.ops import dense, instanced, trace, traverse, wave  # noqa: E402
 from vulkan_raytracer_tpu_torch.render import graphs, integrator, renderer  # noqa: E402
 from vulkan_raytracer_tpu_torch.scene import scenegraph as tsg  # noqa: E402
 from vulkan_raytracer_tpu_torch.scene.builtin import cornell_box_scene  # noqa: E402
@@ -350,7 +350,7 @@ def test_host_reads_sees_a_synchronisation():
         assert mode.found, fn
     with HostReads() as mode:
         torch.where(x > 3, x, 0.0)[torch.arange(2)]
-        dense._lanes(1e-7, 8, x.device)
+        trace.lanes(1e-7, 8, x.device)
     assert not mode.found, mode.found
 
 

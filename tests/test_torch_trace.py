@@ -25,13 +25,16 @@ Beside them: the column tables name ``csrc/trace.cu``'s enums in order; each
 kernel's byte count lists the lane columns its source names; with the
 wrappers routed to stubbed launches, a closest hit or an alpha pass runs a
 few aten ops beside its kernels and an instance step none; and a wrapper
-whose launch fails raises and never runs its plain version.  Marked ``cuda``
+whose launch fails raises and never runs its plain version;
+tools/check_torch_trace.py finds no lane with both sides plain, and times
+its kernels on copies of their inputs that span four times the L2.  Marked ``cuda``
 (they skip without a card): each kernel against its plain version on the
 card, bit for bit.
 """
 
 import re
 import sys
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -41,6 +44,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "tests"))
+sys.path.insert(0, str(ROOT / "tools"))
+sys.path.insert(0, str(ROOT))
 
 from vulkan_raytracer_tpu_torch.ops import _ext, dense, instanced, trace, traverse  # noqa: E402
 from vulkan_raytracer_tpu_torch.ops.math3 import V3, v3_gather  # noqa: E402
@@ -446,6 +451,44 @@ def test_resort_is_a_key_a_sort_and_one_gather(monkeypatch):
     assert trace.LAUNCHES["permute"] == trace.LAUNCHES["permute_copy"] == 1
     assert tint.launch_counts()["trace"]["permute_copy"] == 1
     assert "permute_copy" not in tint.launch_counts(loops=False)["trace"]
+
+
+@pytest.mark.parametrize("config", ["cfg1", "gallery"])
+def test_check_tool_finds_no_lane_on_the_cpu(config):
+    """tools/check_torch_trace.py with both sides plain (the CPU): the
+    flattened finish, and the instanced scan, finish, key and permutation."""
+    import check_torch_trace
+    import check_torch_wave
+
+    with tempfile.TemporaryDirectory() as tmp:
+        build, cam, _, _, _, depth = check_torch_wave.configs(Path(tmp))[config]
+        line = check_torch_trace.check_config(config, (build, cam, 16, 16, 2, depth),
+                                              torch.device("cpu"))
+    assert line["differing_lanes"] == 0 and line["finite"]
+    assert line["calls"]["hit_finish"] >= 3
+    if config == "gallery":
+        assert min(line["calls"].values()) > 0
+
+
+def test_check_tool_times_on_copies_beyond_the_l2():
+    """The timing's copies of a call's inputs: fresh tensors, the named
+    tuples (V3, an instance) kept, the scene tables shared, and enough of
+    them that their bytes span four times the L2."""
+    import check_torch_trace
+
+    tables = object()
+    o = V3(*torch.zeros((3, 4)))
+    inst = instanced.Instance(None, torch.zeros(12), torch.tensor(0), torch.zeros(3),
+                              torch.zeros(3))
+    args = (tables, o, [torch.ones(4)], (inst, torch.ones(4)), "gather")
+    copies = check_torch_trace._copies(args, 10**6)
+    assert len(copies) * 10**6 >= check_torch_trace.COLD_BYTES >= 4 * 50 * 10**6
+    assert len(check_torch_trace._copies(args, 10**9)) == 2
+    for c in copies[1:]:
+        assert c[0] is tables and c[4] == "gather"
+        assert type(c[1]) is V3 and type(c[3][0]) is instanced.Instance
+        assert c[1].x.data_ptr() != o.x.data_ptr() and torch.equal(c[1].x, o.x)
+        assert isinstance(c[2], list) and c[2][0].data_ptr() != args[2][0].data_ptr()
 
 
 @pytest.mark.parametrize("kernel", ["hit_finish", "instance_step", "coherence_key", "permute"])

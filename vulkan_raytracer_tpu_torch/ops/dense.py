@@ -34,7 +34,6 @@ import torch
 
 from . import _ext, trace
 from .math3 import V3
-from .trace import lanes as _lanes
 
 #: Scenes above this many triangles are uploaded with BVH streams and walk
 #: them (ops/traverse.py); this kernel itself has no triangle cap.
@@ -276,8 +275,8 @@ def dense_closest(tables, o: V3, d: V3, *, t_min, t_max, active):
     a miss (pallas_dense.py:262-298)."""
     n = o.x.shape[0]
     dev = o.x.device
-    t_lo = _lanes(t_min, n, dev).contiguous()
-    t_init = torch.where(active, _lanes(t_max, n, dev), 0.0).contiguous()
+    t_lo = trace.lanes(t_min, n, dev).contiguous()
+    t_init = torch.where(active, trace.lanes(t_max, n, dev), 0.0).contiguous()
     rays = ray_columns(o, d)
     t_best, tri_best = closest_sweep(tables.tri_table, rays, t_lo, t_init)
     return trace.hit_finish(tables, rays, t_best, tri_best, "dense")
@@ -287,7 +286,7 @@ def dense_shadow(tables, o: V3, d: V3, *, t_max, active):
     """Any-hit occlusion over all triangles (tMin = 0, lightsample.glsl:27);
     inactive lanes are never occluded (pallas_dense.py:301-309)."""
     n = o.x.shape[0]
-    t_hi = torch.where(active, _lanes(t_max, n, o.x.device), 0.0).contiguous()
+    t_hi = torch.where(active, trace.lanes(t_max, n, o.x.device), 0.0).contiguous()
     occ = shadow_sweep(tables.tri_table, ray_columns(o, d), t_hi)
     return (occ != 0) & active
 

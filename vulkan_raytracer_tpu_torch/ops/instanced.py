@@ -67,7 +67,7 @@ from typing import NamedTuple
 import torch
 
 from . import trace
-from .dense import _lanes, closest_sweep, ray_columns, shadow_sweep
+from .dense import closest_sweep, ray_columns, shadow_sweep
 from .math3 import V3
 from .traverse import BVHStreams, walk
 
@@ -185,7 +185,7 @@ def instanced_closest(tables, o: V3, d: V3, *, t_min, t_max, active):
     n = o.x.shape[0]
     rays = ray_columns(o, d)
     scalar = isinstance(t_min, (int, float))  # the first step writes t_lo
-    t_lo = None if scalar else _lanes(t_min, n, o.x.device).contiguous()
+    t_lo = None if scalar else trace.lanes(t_min, n, o.x.device).contiguous()
     st = trace.instance_state(n, o.x.device, shadow=False, t_lo=scalar)
     STATS["closest_calls"] += 1
     prev = None

@@ -80,9 +80,8 @@ import numpy as np
 import torch
 
 from . import _ext, trace
-from .dense import _lanes, _on_cuda, mt, ray_columns
+from .dense import _on_cuda, mt, ray_columns
 from .math3 import safe_inv_dir
-from .trace import slot_to_tri  # noqa: F401  (the JAX wrapper's _slot_to_tri, here before)
 
 #: default target triangle slots per treelet (pallas_bvh.py:141)
 TREELET_TRIS = 2048
@@ -675,8 +674,8 @@ def bvh_closest(tables, o, d, *, t_min, t_max, active):
     n = o.x.shape[0]
     dev = o.x.device
     rays = ray_columns(o, d)
-    t_lo = _lanes(t_min, n, dev).contiguous()
-    t_init = torch.where(active, _lanes(t_max, n, dev), -1.0).contiguous()
+    t_lo = trace.lanes(t_min, n, dev).contiguous()
+    t_init = torch.where(active, trace.lanes(t_max, n, dev), -1.0).contiguous()
     t_best, slot = walk(s, rays, t_lo, t_init, shadow=False)
     return trace.hit_finish(tables, rays, t_best, slot, "bvh")
 
@@ -689,7 +688,7 @@ def bvh_shadow(tables, o, d, *, t_max, active):
     dev = o.x.device
     rays = ray_columns(o, d)
     t_lo = torch.zeros(n, dtype=_F32, device=dev)
-    t_init = torch.where(active, _lanes(t_max, n, dev), -1.0).contiguous()
+    t_init = torch.where(active, trace.lanes(t_max, n, dev), -1.0).contiguous()
     _, slot = walk(s, rays, t_lo, t_init, shadow=True)
     return (slot >= 0) & active
 

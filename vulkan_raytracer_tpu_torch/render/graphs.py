@@ -251,6 +251,14 @@ def _leaves(s: dict):
         yield from (v if isinstance(v, V3) else (v,))
 
 
+def _state_like(s: dict, cols) -> dict:
+    """A wave state of ``s``'s fields made of the columns ``cols``, in
+    ``s``'s field order (:func:`_leaves`)."""
+    it = iter(cols)
+    return {k: V3(next(it), next(it), next(it)) if isinstance(v, V3) else next(it)
+            for k, v in s.items()}
+
+
 def _copy_state(dst: dict, src: dict) -> None:
     """Copy each column of ``src`` that is not ``dst``'s own into ``dst``'s
     (one ``permute_kernel`` launch on a card)."""

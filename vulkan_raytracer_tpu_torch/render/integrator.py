@@ -162,7 +162,7 @@ def _closest(tables, o: V3, d: V3, *, t_min, t_max, active, seed):
     def own(x):
         return x.clone(memory_format=torch.contiguous_format)
 
-    st = dict(t_lo=own(dense._lanes(t_min, n, dev)), pending=own(active),
+    st = dict(t_lo=own(trace.lanes(t_min, n, dev)), pending=own(active),
               t=torch.full((n,), torch.inf, dtype=_F32, device=dev),
               tri=torch.full((n,), -1, dtype=torch.int32, device=dev),
               u=torch.zeros(n, dtype=_F32, device=dev), v=torch.zeros(n, dtype=_F32, device=dev),
@@ -259,15 +259,7 @@ def _sort_wavefront(tables, s: dict) -> dict:
     gathered in one :func:`..ops.trace.permute`."""
     key = trace.coherence_key(tables, s["origin"], s["direction"], s["active"])
     perm = torch.argsort(key, stable=True)
-    return _state_like(s, trace.permute(graphs._leaves(s), perm))
-
-
-def _state_like(s: dict, cols) -> dict:
-    """A wave state of ``s``'s fields made of the columns ``cols``, in
-    ``s``'s field order (:func:`.graphs._leaves`)."""
-    it = iter(cols)
-    return {k: V3(next(it), next(it), next(it)) if isinstance(v, V3) else next(it)
-            for k, v in s.items()}
+    return graphs._state_like(s, trace.permute(graphs._leaves(s), perm))
 
 
 def _split(s: dict, m: int):
@@ -729,7 +721,7 @@ def _wave_program(tables, io: dict, cap, *, width, height, max_depth: int, nee_w
         cap.if_(graphs.Cond(live, 0, b, max_depth),
                 lambda: graphs._copy_state(wide, _sort_wavefront(tables, wide)))
         part = _split(wide, width)[0]
-        head = _state_like(part, trace.permute(
+        head = graphs._state_like(part, trace.permute(
             graphs._leaves(part), mode="copy",
             out=[torch.empty_like(c) for c in graphs._leaves(part)]))
         states.append(head)
