@@ -669,9 +669,10 @@ def test_mirror_holds_the_bound_tables_and_their_derived_tables():
     assert mirror.tri_table is table and mirror.em_stream is stream  # copied into
     assert torch.equal(table, t1.tri_table) and not torch.equal(table, t0.tri_table)
     assert torch.equal(stream.rows, t1.em_stream.rows)
+    assert torch.equal(stream.wide, t1.em_stream.wide)  # the wide nodes' refitted boxes
     assert "em_table" not in vars(mirror) and "em_table" not in vars(t1)
     assert torch.equal(t0.v0.x, v0_was) and not torch.equal(t1.v0.x, v0_was)
-    derived = [table, stream.nodes, stream.rows]
+    derived = [table, stream.nodes, stream.rows, stream.wide]
     assert c.mirror_bytes() == nbytes + sum(t.numel() * t.element_size() for t in derived)
     assert graphs.STATS["copy_bytes"] == 2 * nbytes + c.mirror_bytes() - nbytes
 

@@ -314,10 +314,13 @@ def _event_ms(fn, reps: int) -> float:
 def time_kept(kept: dict, reps: int = 20, plain_reps: int = 3) -> dict:
     """Each kept call's device time on the card: the kernel ``reps`` times
     in one captured CUDA graph (as a wave's program launches it), per launch,
-    from CUDA events around its replay; the plain version eagerly, CUDA
-    events over ``plain_reps`` runs; the bound, the lane columns' bytes
-    (``shade.lane_bytes``: each on the lanes the call reads it on) at the
-    memory rate."""
+    from CUDA events around its replay, each launch on the next of enough
+    copies of the call's inputs that the copies span
+    ``check_torch_trace.COLD_BYTES``, four times the card's L2, so no launch
+    finds its inputs in L2; the plain version eagerly on the same copies in
+    turn, CUDA events over ``plain_reps`` runs; the bound, the lane columns'
+    bytes (``shade.lane_bytes``: each on the lanes the call reads it on) at
+    the memory rate."""
     import torch
 
     from vulkan_raytracer_tpu_torch.ops import shade
@@ -333,21 +336,17 @@ def time_kept(kept: dict, reps: int = 20, plain_reps: int = 3) -> dict:
 
 def _time_one(kernel, plain, k: str, args, reps: int, plain_reps: int) -> dict:
     """:func:`time_kept` of one kernel's call ``args``."""
-    import torch
+    from check_torch_trace import _cold_ms, _copies, _plain_ms
     from chip_smoke import HBM_BYTES_PER_S
 
     from vulkan_raytracer_tpu_torch.ops import shade
 
     nbytes = shade.lane_bytes(k, args, kernel(*args))
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            kernel(*args)
-    ms = _event_ms(graph.replay, 3) / reps
-    del graph
-    return {"ms": ms, "plain_ms": _event_ms(lambda: plain(*args), plain_reps),
+    copies = _copies(args, nbytes)
+    return {"ms": _cold_ms(kernel, copies, reps),
+            "plain_ms": _plain_ms(plain, copies, plain_reps),
             "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "bound_by": "bytes",
-            "bytes": nbytes, "lanes": int(args[1]["active"].shape[0])}
+            "bytes": nbytes, "lanes": int(args[1]["active"].shape[0]), "copies": len(copies)}
 
 
 def check_config(name: str, spec, device, tables=None, timing: bool = False) -> dict:

@@ -19,11 +19,15 @@ the commit's count of pending lanes too.  A float lane that differs is class
 plain version (a self-test: no lane may differ).
 
 With ``--timing`` (a card) each kernel's first call of the wave (the alpha
-commit's: the first pass of the first bounce, every lane pending) is timed:
-the kernel in a captured CUDA graph, per launch from CUDA events (the
-commit's restore of its state, captured alone, taken off), against its
-plain version eagerly, with its bytes bound (``wave.primary_rays_bytes``,
-``wave.alpha_commit_bytes``) at the card's memory rate.
+commit's: the first pass of the first bounce, every lane pending) is timed
+with its inputs out of L2: the kernel 20 times in a captured CUDA graph,
+per launch from CUDA events, each launch on the next of copies of its
+inputs that span ``check_torch_trace.COLD_BYTES``, four times the card's L2
+(the commit, which writes over its state: each on its own copy, every copy
+restored and the L2 flushed by a ``COLD_BYTES`` write before each timed
+replay, :func:`_commit_ms`), against its plain version eagerly, with its
+bytes bound (``wave.primary_rays_bytes``, ``wave.alpha_commit_bytes``) at
+the card's memory rate.
 
 One JSON line per config; the exit code is 1 where a lane differs
 (``--allow-class-i`` allows class i).  ``chip_smoke.py`` runs
@@ -155,19 +159,46 @@ def configs(tmp: Path) -> dict:
     return out
 
 
-def _graph_ms(fn, reps: int) -> float:
-    """Device ms of ``reps`` calls of ``fn`` captured in one CUDA graph, a
-    replay timed with CUDA events."""
+def _commit_ms(tables, before, t_c, tri_c, u_c, v_c, nbytes: int, reps: int) -> float:
+    """Device ms an alpha commit: ``reps`` commits in one captured CUDA
+    graph, each on its own copy of the pass's state and candidate hit (as
+    many copies as make ``check_torch_trace.COLD_BYTES``, at least
+    ``reps``); before each timed replay every copy's state is restored and
+    a buffer of ``COLD_BYTES`` written, so no commit finds its inputs in L2.
+    The mean of three replays."""
     import torch
-    from check_torch_shade import _event_ms
+    from check_torch_trace import COLD_BYTES
+
+    from vulkan_raytracer_tpu_torch.ops import wave
+
+    n = max(reps, -(-COLD_BYTES // nbytes))
+    copies = [({k: v.clone() for k, v in before.items()}, t_c.clone(), tri_c.clone(),
+               u_c.clone(), v_c.clone(), torch.zeros((), dtype=torch.int64, device=tri_c.device))
+              for _ in range(n)]
+
+    def restore():
+        for st, *_ in copies:
+            for k, v in st.items():
+                v.copy_(before[k])
 
     graph = torch.cuda.CUDAGraph()
+    restore()
     with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    ms = _event_ms(graph.replay, 3)
-    del graph
-    return ms
+        for st, t, tri, u, v, count in copies[:reps]:
+            wave.alpha_commit(tables, st, t, tri, u, v, count)
+    flush = torch.empty(COLD_BYTES, dtype=torch.uint8, device=tri_c.device)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    runs = []
+    for _ in range(4):  # the first warms up
+        restore()
+        flush.zero_()
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        runs.append(start.elapsed_time(end) / reps)
+    del graph, copies, flush
+    return sum(runs[1:]) / 3
 
 
 def time_kept(kept: dict, reps: int = 20, plain_reps: int = 3) -> dict:
@@ -175,6 +206,7 @@ def time_kept(kept: dict, reps: int = 20, plain_reps: int = 3) -> dict:
     version's and its bytes bound (see the module's docstring)."""
     import torch
     from check_torch_shade import _event_ms
+    from check_torch_trace import _cold_ms, _copies, _plain_ms
     from chip_smoke import HBM_BYTES_PER_S
 
     from vulkan_raytracer_tpu_torch.ops import wave
@@ -185,30 +217,20 @@ def time_kept(kept: dict, reps: int = 20, plain_reps: int = 3) -> dict:
             args = kept["primary_rays"]
             samples, lanes, _, _, _, repack, _ = args
             nbytes = wave.primary_rays_bytes(lanes.shape[0], samples.shape[0], repack)
+            copies = _copies(args, nbytes)
             out["primary_rays"] = {
-                "ms": _graph_ms(lambda: wave.primary_rays(*args), reps) / reps,
-                "plain_ms": _event_ms(lambda: wave.primary_rays_reference(*args), plain_reps),
+                "ms": _cold_ms(wave.primary_rays, copies, reps),
+                "plain_ms": _plain_ms(wave.primary_rays_reference, copies, plain_reps),
                 "bytes": nbytes, "lanes": lanes.shape[0] * samples.shape[0]}
         if "alpha_commit" in kept:
             tables, before, t_c, tri_c, u_c, v_c, want = kept["alpha_commit"]
-            st = {k: v.clone() for k, v in before.items()}
-            count = torch.zeros((), dtype=torch.int64, device=tri_c.device)
-
-            def restore():
-                for k, v in st.items():
-                    v.copy_(before[k])
-
-            def one():
-                restore()
-                wave.alpha_commit(tables, st, t_c, tri_c, u_c, v_c, count)
-
             ti = torch.clamp_min(tri_c, 0)
             if tables.inst is not None:
                 ti, _ = tables.inst.decode(ti)
             blend = before["pending"] & (tri_c >= 0) & (tables.alpha.mode[ti] == 2)
             nbytes = wave.alpha_commit_bytes(before, tri_c, want, blend)
             out["alpha_commit"] = {
-                "ms": (_graph_ms(one, reps) - _graph_ms(restore, reps)) / reps,
+                "ms": _commit_ms(tables, before, t_c, tri_c, u_c, v_c, nbytes, reps),
                 "plain_ms": _event_ms(
                     lambda: wave.alpha_commit_reference(tables, before, t_c, tri_c, u_c, v_c),
                     plain_reps),

@@ -71,21 +71,58 @@
 // lanes of a wave step together until the slowest is through, with a gather
 // per step; it is not a Pallas kernel, but it is on the render path of every
 // scene with more than 1,024 emissive triangles (the MIS probe of each bounce
-// and the NEE probe), and a lockstep tensor walk is hundreds of times slower
-// here than a walk per ray.  Its plain version is
-// emissive_pdf_walk_reference in ops/traverse.py.  One thread walks one ray
-// through the emissive-only tree (EmissiveStream: the node records above in
-// the tree's own preorder, and one 80-byte row per real leaf slot with the
-// triangle, its p_delta, area and vertex normals, so a hit reads nothing
-// else) and adds every hit's term; no stack, no octant (a sum has no
-// front-to-back order to exploit).  The probes' live lanes are sparse (the
-// lanes that reached an emitter, or whose light sample is visible), so a
-// block gathers its live rays onto its first threads first, as the dense
-// kernels do, and a block with none returns.  What bounds it is what bounds
-// the other walks: the dependent loads of a chain of nodes.  Its contract is
-// the JAX function's, not the dense pdf kernel's (see ops/traverse.py); the
-// sum runs in visit order, a leaf's terms first, as the plain version adds
-// them, and is held to a tolerance against it (and against JAX).
+// and the NEE probe).  Its plain version is emissive_pdf_walk_reference in
+// ops/traverse.py, a lockstep walk of the binary tree; the kernel is
+// bit-equal to it on every active lane.  The contract fixes the order of the
+// sum: each entered leaf's terms in slot order, the leaves in the binary
+// preorder.  A probe ray runs to 1e32 and nothing ends it early, so a ray
+// makes a long chain of visits.  What bounded the first kernel (one thread a
+// ray through the binary tree, 3% of its operations bound): each turn two
+// dependent loads at an address the turn before decided; every ray reading
+// every record it visits through L1/L2 again; lanes of a warp in different
+// subtrees and leaves; and sparse probes (the lanes that hit an emitter, the
+// visible light samples) left as a few live lanes in each of thousands of
+// blocks.  What the design does:
+//   * wide nodes (ops/traverse.py wide_layout): the binary tree's interior
+//     nodes collapsed into the fewest nodes of up to kWide = 8 children,
+//     each child a 32-byte record (bmin.xyz, ref | bmax.xyz, kind) with the
+//     binary node's own exact box, in the binary preorder.  A child's box lies inside its
+//     parent's (exact min/max unions) and the slab test is monotone under
+//     rounding, so testing a child's box alone enters the same leaves in the
+//     same order as the binary walk;
+//   * eight lanes walk one ray: lane j tests child j of the node, so one
+//     visit is one 256-byte coalesced read and one dependent step where the
+//     binary walk took two or three;
+//   * a per-group stack of one 32-bit word an entered child (a wide node,
+//     or a leaf's first row and count) in shared memory: a visit pushes
+//     the node's entered children, the first on top, each lane its own
+//     child's word, so the stack pops in the binary preorder and going back
+//     up reads nothing again (kStack words; the wrapper refuses a tree whose
+//     walk could stack more, EmissiveStream.stack); no thread has a stack
+//     frame;
+//   * popped leaves fill a batch of eight slots, a lane a slot, across
+//     leaves and nodes; the batch is tested when the next leaf does not fit
+//     or the walk ends, and its terms added in slot order and leaf by leaf
+//     through shuffles, so the sum is the plain version's, bit for bit.  The
+//     loop is while-while: the four rays of a warp pop and visit together,
+//     then test their batches together;
+//   * the top of the tree in shared memory: wide nodes are breadth first,
+//     so the block stages the first n_top of them with cp.async, as many as
+//     the shared memory left by the list and the stacks holds (~179 KB,
+//     ~700 nodes: the whole tree of 5,000 emissive triangles, 281 nodes,
+//     and 62% of that of 20,000), and reads deeper nodes and the leaf rows
+//     through the read-only path.  Nothing is kept between launches;
+//   * persistent blocks: one block of 1,024 threads (128 rays) an SM.  The
+//     launch's lanes are cut into 1,024-lane chunks dealt round the blocks;
+//     a block writes +0 for its inactive lanes, gathers its live lanes into
+//     a list in shared memory (kChunks chunks a round) and its groups take
+//     rays from the list through a shared counter, so a sparse launch is
+//     spread over every SM, reads nothing on the host and needs nothing
+//     reset between launches; a block with no live lane stages nothing.
+// What bounds it now (PERF.md, tools/bench_torch_emissive.py): latency.  Its
+// 52 registers allow one 1,024-thread block an SM, and each ray is a chain
+// of dependent steps; an earlier form of the walk took 1.66x as long with
+// half the threads, and forms held to fewer registers spilled.
 //
 // Launches go on the caller's stream; nothing here synchronises or
 // allocates.  Each launcher returns cudaGetLastError().
@@ -394,101 +431,250 @@ __device__ __forceinline__ float safe_inv(float d) {
 }
 
 constexpr float kPdfTMax = 1e32f;  // the far end of the probe's ray extent
-constexpr int kWarpsPerBlock = kThreads / 32;
+constexpr int kWide = 8;  // children of a wide node, lanes a ray (ops/traverse.py EMISSIVE_WIDE)
+constexpr int kWalkThreads = 1024;  // one block an SM
+constexpr int kGroups = kWalkThreads / kWide;  // rays a block walks at once
+constexpr int kStack = 64;  // stack entries a ray (ops/traverse.py EMISSIVE_STACK)
+constexpr int kChunks = 4;  // 1,024-lane chunks a block gathers a round
+constexpr int kListBytes = kChunks * kWalkThreads * 4;
+constexpr int kStackBytes = kGroups * kStack * 4;
+constexpr int kNodeFloat4 = 2 * kWide;  // 16-byte words of a wide node
+constexpr int kNodeBytes = 16 * kNodeFloat4;
+constexpr int kMaxDevices = 64;
+static_assert(kWide == 8 && 32 % kWide == 0, "a ray's lanes are one 8-lane segment of a warp");
+
+// Child j of wide node `node`: (bmin.xyz, ref) and (bmax.xyz, kind), from
+// shared memory for the first n_top nodes, else through the read-only path.
+__device__ __forceinline__ void wide_child(const float4* __restrict__ wide, const float4* top,
+                                           int n_top, int node, int j, float4& lo, float4& hi) {
+  const int at = node * kNodeFloat4 + 2 * j;
+  if (node < n_top) {
+    lo = top[at];
+    hi = top[at + 1];
+  } else {
+    lo = __ldg(wide + at);
+    hi = __ldg(wide + at + 1);
+  }
+}
+
+// Visit `node`: the ray's slab test of every child (ray_aabb,
+// ops/intersect.py:31: tnear <= tfar, tfar >= t_min, tnear <= 1e32), lane g
+// child g, and each entered child pushed as one stack word, the first child
+// on top, so the stack pops in the binary preorder.  A word is an interior
+// child's wide node, or a leaf: bit 31, its count of slots less one in bits
+// 28-30, its first row below.
+__device__ __forceinline__ void push_children(const float4* __restrict__ wide, const float4* top,
+                                              int n_top, int node, int g, int shift,
+                                              unsigned gmask, const Ray& r, float t_min,
+                                              unsigned* stack, int& sp) {
+  float4 lo, hi;
+  wide_child(wide, top, n_top, node, g, lo, hi);
+  const int ref = __float_as_int(lo.w), kind = __float_as_int(hi.w);
+  float nx, fx, ny, fy, nz, fz;
+  slab(lo.x, hi.x, r.ox, r.ix, nx, fx);
+  slab(lo.y, hi.y, r.oy, r.iy, ny, fy);
+  slab(lo.z, hi.z, r.oz, r.iz, nz, fz);
+  const float near = fmaxf(fmaxf(nx, ny), nz);
+  const float far = fminf(fminf(fx, fy), fz);
+  const bool enter = kind != 0 && near <= far && far >= t_min && near <= kPdfTMax;
+  const unsigned mask = (__ballot_sync(gmask, enter) >> shift) & 0xffu;
+  if (enter) {
+    const unsigned word = kind < 0 ? static_cast<unsigned>(ref)
+                                   : 0x80000000u | static_cast<unsigned>(kind - 1) << 28 |
+                                         static_cast<unsigned>(ref);
+    stack[sp + __popc(mask >> g >> 1)] = word;
+  }
+  sp += __popc(mask);
+  __syncwarp(gmask);
+}
+
+// One slot's term: p_delta * t^2 / max(area * |n.d|, 1e-30) if the ray hits
+// the row's triangle with t_min < t <= 1e32, else 0.  rows: 5 float4 a slot,
+// [v0.xyz, e1.x], [e1.yz, e2.xy], [e2.z, p_delta, area, n0.x], [n0.yz,
+// n1.xy], [n1.z, n2.xyz]; the arithmetic of the plain version (dense.mt and
+// emissive_leaf_sums), which --fmad=false keeps bit for bit.
+__device__ __forceinline__ float slot_term(const float4* __restrict__ row, const Ray& r,
+                                           float t_min) {
+  const float4 a = __ldg(row);      // v0.xyz, e1.x
+  const float4 b = __ldg(row + 1);  // e1.yz, e2.xy
+  const float4 c = __ldg(row + 2);  // e2.z, p_delta, area, n0.x
+  const float px = r.dy * c.x - r.dz * b.w;
+  const float py = r.dz * b.z - r.dx * c.x;
+  const float pz = r.dx * b.w - r.dy * b.z;
+  const float det = a.w * px + b.x * py + b.y * pz;
+  if (fabsf(det) < 1e-12f) return 0.0f;
+  const float inv = 1.0f / det;
+  const float tx = r.ox - a.x;
+  const float ty = r.oy - a.y;
+  const float tz = r.oz - a.z;
+  const float u = (tx * px + ty * py + tz * pz) * inv;
+  const float qx = ty * b.y - tz * b.x;
+  const float qy = tz * a.w - tx * b.y;
+  const float qz = tx * b.x - ty * a.w;
+  const float v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv;
+  const float t = (b.z * qx + b.w * qy + c.x * qz) * inv;
+  if (!(u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > t_min && t <= kPdfTMax)) return 0.0f;
+  const float4 d = __ldg(row + 3);  // n0.yz, n1.xy
+  const float4 e = __ldg(row + 4);  // n1.z, n2.xyz
+  const float w0 = 1.0f - u - v;
+  const float mx = w0 * c.w + u * d.z + v * e.y;
+  const float my = w0 * d.x + u * d.w + v * e.z;
+  const float mz = w0 * d.y + u * e.x + v * e.w;
+  const float len = fmaxf(sqrtf(mx * mx + my * my + mz * mz), 1e-20f);
+  const float cosine = fabsf(mx / len * r.dx + my / len * r.dy + mz / len * r.dz);
+  return c.y * t * t / fmaxf(c.z * cosine, 1e-30f);
+}
+
+// Test the batch's slots (lane g: slot g, of row `row`, if g < fill) and add
+// their terms to the pdf: the plain version adds every slot's term (0 where
+// missed) in slot order and each leaf's sum to the pdf; adding +-0 changes
+// neither sum (the pdf is never -0), so only the terms that are not 0 are
+// added, and a leaf's sum where its last one is (ends: the batch's last slot
+// of each leaf).
+__device__ __forceinline__ float flush(const float4* __restrict__ rows, int row, int fill,
+                                       unsigned ends, int g, int shift, unsigned gmask,
+                                       const Ray& r, float t_min, float pdf) {
+  float term = 0.0f;
+  if (g < fill) term = slot_term(rows + 5 * static_cast<size_t>(row), r, t_min);
+  unsigned hits = (__ballot_sync(gmask, term != 0.0f) >> shift) & 0xffu;
+  float leaf_sum = 0.0f;
+  while (hits != 0) {
+    const int q = __ffs(hits) - 1;
+    hits &= hits - 1;
+    leaf_sum = leaf_sum + __shfl_sync(gmask, term, q, kWide);
+    const int last = __ffs(ends >> q << q) - 1;  // the last slot of q's leaf
+    if (hits == 0 || __ffs(hits) - 1 > last) {
+      pdf = pdf + leaf_sum;
+      leaf_sum = 0.0f;
+    }
+  }
+  return pdf;
+}
+
+// One ray's pdf, walked by the 8 lanes of its group (g: this lane's index in
+// the group, gmask: the group's lanes, shift: the group's first lane); every
+// lane returns it.  stack: the group's kStack words in shared memory.  Popped
+// leaves fill a batch of kWide slots, a lane a slot, in preorder; the batch
+// is tested when the next leaf does not fit, or at the end (while-while: the
+// groups of a warp pop and visit together, then test their batches
+// together).
+__device__ __forceinline__ float walk_ray(const float4* __restrict__ wide, const float4* top,
+                                          int n_top, const float4* __restrict__ rows,
+                                          unsigned* stack, const Ray& r, float t_min, int g,
+                                          int shift, unsigned gmask) {
+  float pdf = 0.0f;
+  int sp = 0, fill = 0, row = 0;
+  unsigned ends = 0;
+  push_children(wide, top, n_top, 0, g, shift, gmask, r, t_min, stack, sp);
+  for (;;) {
+    while (sp != 0) {
+      const unsigned word = stack[sp - 1];
+      if (word >> 31) {  // a leaf: into the batch, if it fits
+        const int count = static_cast<int>(word >> 28 & 7u) + 1;
+        if (fill + count > kWide) break;
+        --sp;
+        if (g >= fill && g < fill + count) row = static_cast<int>(word & 0x0fffffffu) + g - fill;
+        fill += count;
+        ends |= 1u << (fill - 1);
+      } else {
+        --sp;
+        push_children(wide, top, n_top, static_cast<int>(word), g, shift, gmask, r, t_min,
+                      stack, sp);
+      }
+    }
+    pdf = flush(rows, row, fill, ends, g, shift, gmask, r, t_min, pdf);
+    if (sp == 0) break;
+    fill = 0;
+    ends = 0;
+  }
+  return pdf;
+}
+
+// Stage the first n_top wide nodes into shared memory (cp.async, 16 bytes a
+// copy); every thread of the block reaches it.
+__device__ __forceinline__ void stage_top(float4* top, const float4* __restrict__ wide,
+                                          int n_top) {
+  for (int i = threadIdx.x; i < n_top * kNodeFloat4; i += kWalkThreads) {
+    const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(top + i));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(wide + i)
+                 : "memory");
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+}
 
 // The emissive-pdf walk: per active ray, the sum over every emissive triangle
 // hit with t_min < t <= 1e32 of p_delta * t^2 / max(area * |n.d|, 1e-30), n
-// the interpolated vertex normal over max(|n|, 1e-20); inactive lanes get 0.
-// nodes: 2 float4 per node as in walk_node; rows: 5 float4 per real leaf slot,
-// [v0.xyz, e1.x], [e1.yz, e2.xy], [e2.z, p_delta, area, n0.x], [n0.yz, n1.xy],
-// [n1.z, n2.xyz].  A node is entered when tnear <= tfar, tfar >= t_min and
-// tnear <= 1e32 (ray_aabb, ops/intersect.py:31).
-__global__ void __launch_bounds__(kThreads)
-emissive_walk_kernel(const float4* __restrict__ nodes, const float4* __restrict__ rows,
-                     int num_nodes, const float* __restrict__ ox, const float* __restrict__ oy,
+// the interpolated vertex normal over max(|n|, 1e-20); inactive lanes get +0.
+// wide: the wide nodes (ops/traverse.py EmissiveStream.wide), rows: the leaf
+// rows.  Dynamic shared memory: the list, the stacks, then n_top nodes.
+__global__ void __launch_bounds__(kWalkThreads, 1)
+emissive_walk_kernel(const float4* __restrict__ wide, const float4* __restrict__ rows, int n_top,
+                     const float* __restrict__ ox, const float* __restrict__ oy,
                      const float* __restrict__ oz, const float* __restrict__ dx,
                      const float* __restrict__ dy, const float* __restrict__ dz,
                      const uint8_t* __restrict__ active, float t_min,
                      float* __restrict__ pdf_out, int n_rays) {
-  __shared__ int warp_live[kWarpsPerBlock];
-  __shared__ int ray_of[kThreads];
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  bool live = false;
-  if (i < n_rays) {
-    live = active[i] != 0;
-    if (!live) pdf_out[i] = 0.0f;
-  }
-  // gather the block's live rays onto its first threads; every thread reaches
-  // both barriers
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const unsigned ballot = __ballot_sync(0xffffffffu, live);
-  if (lane == 0) warp_live[warp] = __popc(ballot);
-  __syncthreads();
-  int before = 0, n_live = 0;
-#pragma unroll
-  for (int w = 0; w < kWarpsPerBlock; ++w) {
-    before += w < warp ? warp_live[w] : 0;
-    n_live += warp_live[w];
-  }
-  if (live) ray_of[before + __popc(ballot & ((1u << lane) - 1u))] = i;
-  __syncthreads();
-  if (threadIdx.x >= n_live) return;  // no barrier below
-
-  const int k = ray_of[threadIdx.x];
-  const float rox = ox[k], roy = oy[k], roz = oz[k];
-  const float rdx = dx[k], rdy = dy[k], rdz = dz[k];
-  const float ix = safe_inv(rdx), iy = safe_inv(rdy), iz = safe_inv(rdz);
-  float pdf = 0.0f;
-  for (int cur = 0; cur < num_nodes;) {
-    const float4 lo = __ldg(nodes + 2 * cur);
-    const float4 hi = __ldg(nodes + 2 * cur + 1);
-    float nx, fx, ny, fy, nz, fz;
-    slab(lo.x, hi.x, rox, ix, nx, fx);
-    slab(lo.y, hi.y, roy, iy, ny, fy);
-    slab(lo.z, hi.z, roz, iz, nz, fz);
-    const float near = fmaxf(fmaxf(nx, ny), nz);
-    const float far = fminf(fminf(fx, fy), fz);
-    const bool enter = near <= far && far >= t_min && near <= kPdfTMax;
-    const int32_t leaf = __float_as_int(lo.w);  // first row, or -1: interior
-    const int32_t link = __float_as_int(hi.w);  // a leaf's count, else the skip pointer
-    if (enter && leaf >= 0) {
-      float leaf_sum = 0.0f;
-      const float4* row = rows + 5 * (size_t)leaf;
-      for (int j = 0; j < link; ++j, row += 5) {
-        const float4 a = __ldg(row);      // v0.xyz, e1.x
-        const float4 b = __ldg(row + 1);  // e1.yz, e2.xy
-        const float4 c = __ldg(row + 2);  // e2.z, p_delta, area, n0.x
-        const float px = rdy * c.x - rdz * b.w;
-        const float py = rdz * b.z - rdx * c.x;
-        const float pz = rdx * b.w - rdy * b.z;
-        const float det = a.w * px + b.x * py + b.y * pz;
-        if (fabsf(det) < 1e-12f) continue;
-        const float inv = 1.0f / det;
-        const float tx = rox - a.x;
-        const float ty = roy - a.y;
-        const float tz = roz - a.z;
-        const float u = (tx * px + ty * py + tz * pz) * inv;
-        const float qx = ty * b.y - tz * b.x;
-        const float qy = tz * a.w - tx * b.y;
-        const float qz = tx * b.x - ty * a.w;
-        const float v = (rdx * qx + rdy * qy + rdz * qz) * inv;
-        const float t = (b.z * qx + b.w * qy + c.x * qz) * inv;
-        if (!(u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > t_min && t <= kPdfTMax)) continue;
-        const float4 d = __ldg(row + 3);  // n0.yz, n1.xy
-        const float4 e = __ldg(row + 4);  // n1.z, n2.xyz
-        const float w0 = 1.0f - u - v;
-        const float mx = w0 * c.w + u * d.z + v * e.y;
-        const float my = w0 * d.x + u * d.w + v * e.z;
-        const float mz = w0 * d.y + u * e.x + v * e.w;
-        const float len = fmaxf(sqrtf(mx * mx + my * my + mz * mz), 1e-20f);
-        const float cosine = fabsf(mx / len * rdx + my / len * rdy + mz / len * rdz);
-        leaf_sum = leaf_sum + c.y * t * t / fmaxf(c.z * cosine, 1e-30f);
-      }
-      pdf = pdf + leaf_sum;
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* list = reinterpret_cast<int*>(smem);
+  unsigned* stacks = reinterpret_cast<unsigned*>(list + kChunks * kWalkThreads);
+  float4* top = reinterpret_cast<float4*>(smem + kListBytes + kStackBytes);
+  __shared__ int n_list, next;
+  const int lane = threadIdx.x & 31;
+  const int g = lane & (kWide - 1), shift = lane & ~(kWide - 1);
+  const unsigned gmask = 0xffu << shift;
+  unsigned* stack = stacks + (threadIdx.x / kWide) * kStack;
+  const int n_chunks = (n_rays + kWalkThreads - 1) / kWalkThreads;
+  bool staged = false;
+  for (int first = blockIdx.x; first < n_chunks; first += gridDim.x * kChunks) {
+    if (threadIdx.x == 0) {
+      n_list = 0;
+      next = 0;
     }
-    cur = enter || leaf >= 0 ? cur + 1 : link;
+    __syncthreads();
+    for (int k = 0; k < kChunks; ++k) {  // +0 on inactive lanes, the live ones listed
+      const int chunk = first + k * gridDim.x;
+      const int i = chunk * kWalkThreads + threadIdx.x;
+      bool live = false;
+      if (chunk < n_chunks && i < n_rays) {
+        live = active[i] != 0;
+        if (!live) pdf_out[i] = 0.0f;
+      }
+      const unsigned ballot = __ballot_sync(0xffffffffu, live);
+      int base = 0;
+      if (lane == 0 && ballot != 0) base = atomicAdd(&n_list, __popc(ballot));
+      base = __shfl_sync(0xffffffffu, base, 0);
+      if (live) list[base + __popc(ballot & ((1u << lane) - 1u))] = i;
+    }
+    __syncthreads();
+    const int n_live = n_list;
+    if (n_live > 0) {  // uniform across the block
+      if (!staged) {
+        stage_top(top, wide, n_top);
+        staged = true;
+      }
+      for (;;) {
+        int at = g == 0 ? atomicAdd(&next, 1) : 0;
+        at = __shfl_sync(gmask, at, 0, kWide);
+        if (at >= n_live) break;
+        const int k = list[at];
+        Ray r;
+        r.ox = ox[k];
+        r.oy = oy[k];
+        r.oz = oz[k];
+        r.dx = dx[k];
+        r.dy = dy[k];
+        r.dz = dz[k];
+        r.ix = safe_inv(r.dx);
+        r.iy = safe_inv(r.dy);
+        r.iz = safe_inv(r.dz);
+        const float pdf = walk_ray(wide, top, n_top, rows, stack, r, t_min, g, shift, gmask);
+        if (g == 0) pdf_out[k] = pdf;
+      }
+    }
+    __syncthreads();
   }
-  pdf_out[k] = pdf;
 }
 
 inline int blocks_for(int n_rays) { return (n_rays + kThreads - 1) / kThreads; }
@@ -531,17 +717,40 @@ int treelet_walk_launch(int device, int shadow, const float* nodes, const float*
   return static_cast<int>(cudaGetLastError());
 }
 
-int emissive_walk_launch(int device, const float* nodes, const float* rows, int num_nodes,
+int emissive_walk_launch(int device, const float* wide, const float* rows, int num_wide,
                          const float* ox, const float* oy, const float* oz, const float* dx,
                          const float* dy, const float* dz, const uint8_t* active, float t_min,
                          float* pdf_out, int n_rays, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (n_rays > 0) {
-    emissive_walk_kernel<<<blocks_for(n_rays), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        reinterpret_cast<const float4*>(nodes), reinterpret_cast<const float4*>(rows), num_nodes,
-        ox, oy, oz, dx, dy, dz, active, t_min, pdf_out, n_rays);
+  if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
+  if (device < 0 || device >= kMaxDevices || num_wide < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  // per device, once: the SMs, and the most shared memory a block may take
+  static int sms[kMaxDevices], top_max[kMaxDevices];
+  if (sms[device] == 0) {
+    int count = 0, optin = 0;
+    cudaFuncAttributes attr;
+    if ((err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, device)) ||
+        (err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device)) ||
+        (err = cudaFuncGetAttributes(&attr, emissive_walk_kernel))) {
+      return static_cast<int>(err);
+    }
+    const int dynamic = optin - static_cast<int>(attr.sharedSizeBytes);
+    err = cudaFuncSetAttribute(emissive_walk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               dynamic);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    top_max[device] = (dynamic - kListBytes - kStackBytes) / kNodeBytes;
+    sms[device] = count;
+  }
+  const int n_top = num_wide < top_max[device] ? num_wide : top_max[device];
+  const size_t bytes = kListBytes + kStackBytes + static_cast<size_t>(n_top) * kNodeBytes;
+  const int n_chunks = (n_rays + kWalkThreads - 1) / kWalkThreads;
+  const int grid = n_chunks < sms[device] ? n_chunks : sms[device];
+  emissive_walk_kernel<<<grid, kWalkThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float4*>(wide), reinterpret_cast<const float4*>(rows), n_top, ox, oy,
+      oz, dx, dy, dz, active, t_min, pdf_out, n_rays);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -67,7 +67,7 @@ _SIGNATURES = {
     "bvh_walk_launch": [_I, _I] + _STREAMS + _RAYS + [_P, _P, _P, _P, _I, _P],
     "treelet_walk_launch": [_I, _I] + _STREAMS + [_P, _P, _P, _I] + _RAYS
     + [_P, _P, _P, _P, _I, _P],
-    # (device, nodes, rows, num_nodes, rays, active, t_min, pdf_out, n_rays, stream)
+    # (device, wide, rows, num_wide, rays, active, t_min, pdf_out, n_rays, stream)
     "emissive_walk_launch": [_I] + _STREAMS + _RAYS + [_P, _F, _P, _I, _P],
     # (graph, out: nodes, out: type of the first node a conditional body may not hold)
     "graph_loops_check": [_P, _P, _P],

@@ -63,9 +63,11 @@ The emissive-pdf probe over an emissive-only BVH, for scenes with more than
 ``dense.EMISSIVE_MAX_TRIS`` emissive triangles, is here too:
 :func:`bvh_emissive_pdf`, the counterpart of ``trace_emissive_pdf``
 (``vulkan_raytracer_tpu/ops/traverse.py:241``, an XLA ``while_loop``, not a
-Pallas kernel).  On the card it is a per-ray CUDA walk like the others
-(``emissive_walk_kernel``), with :func:`emissive_pdf_walk_reference` as its
-plain version, over an :class:`EmissiveStream`.  Its contract is the JAX
+Pallas kernel).  On the card it is a CUDA walk over wide nodes collapsed
+from the same binary tree (``emissive_walk_kernel``: eight lanes a ray, the
+top of the tree in shared memory), with :func:`emissive_pdf_walk_reference`,
+a lockstep walk of the binary tree, as its plain version, over an
+:class:`EmissiveStream`; the two are bit-equal.  Its contract is the JAX
 function's, which is not the dense pdf kernel's: the box test of
 ``ops/intersect.py`` (``safe_inv_dir`` with 1e-20, no conservative scale),
 the ray extent (t_min, 1e32], the normal divided by max(|n|, 1e-20), the raw
@@ -228,28 +230,129 @@ def build_streams(bvh, max_tris: int = TREELET_TRIS,
     )
 
 
+#: children of a wide node of the emissive walk (csrc/bvh_walk.cu kWide)
+EMISSIVE_WIDE = 8
+#: stack words the CUDA walk holds per ray (csrc/bvh_walk.cu kStack): it
+#: takes a tree whose walk can stack at most this many (EmissiveStream.stack)
+EMISSIVE_STACK = 64
+
+
 @dataclasses.dataclass(frozen=True)
 class EmissiveStream:
     """The emissive-only threaded BVH with everything the pdf probe reads, in
-    the layout the CUDA walk loads 16 bytes at a time.
+    the layouts the walks load 16 bytes at a time.
 
     Node ``i`` (the BVH's own preorder; the probe adds up every hit, so there
     is no front-to-back order to keep per octant) is the 32-byte record
-    ``nodes[i]`` of :class:`BVHStreams`: ``bmin.xyz, leaf | bmax.xyz, link``.
-    ``rows[r]`` is one 80-byte row per real leaf slot, in slot order:
-    ``v0.xyz, e1.xyz, e2.xyz, p_delta, area, n0.xyz, n1.xyz, n2.xyz`` (the
-    columns of the dense pdf table, with the area as uploaded)."""
+    ``nodes[i]`` of :class:`BVHStreams`: ``bmin.xyz, leaf | bmax.xyz, link``;
+    the plain walk reads these.  ``rows[r]`` is one 80-byte row per real leaf
+    slot, in slot order: ``v0.xyz, e1.xyz, e2.xyz, p_delta, area, n0.xyz,
+    n1.xyz, n2.xyz`` (the columns of the dense pdf table, with the area as
+    uploaded).
+
+    ``wide[w]`` is the same tree with its interior nodes collapsed into
+    nodes of up to :data:`EMISSIVE_WIDE` children, which the CUDA walk reads
+    (:func:`wide_layout`): child ``j`` is the 32-byte record
+    ``wide[w, 8j:8j+8]`` = ``bmin.xyz, ref | bmax.xyz, kind`` with the
+    binary node's own box; ``kind`` is -1 for an interior child (``ref`` its
+    wide node), the count of real slots for a leaf (``ref`` its first row),
+    0 for an empty child.  Children are in the binary preorder and wide
+    nodes breadth first, so the top of the tree is a prefix of ``wide``.
+    ``stack`` is the most words the CUDA walk's stack can hold."""
 
     nodes: torch.Tensor  # (Nn, 8) f32: bmin.xyz, leaf | bmax.xyz, link
     rows: torch.Tensor  # (Nr, 20) f32
+    wide: torch.Tensor  # (Nw, 8 * EMISSIVE_WIDE) f32: per child bmin.xyz, ref | bmax.xyz, kind
     num_nodes: int
+    stack: int
 
     @property
     def nbytes(self) -> int:
-        return self.nodes.nbytes + self.rows.nbytes
+        return self.nodes.nbytes + self.rows.nbytes + self.wide.nbytes
 
     def to(self, device) -> "EmissiveStream":
-        return dataclasses.replace(self, nodes=self.nodes.to(device), rows=self.rows.to(device))
+        return dataclasses.replace(self, nodes=self.nodes.to(device), rows=self.rows.to(device),
+                                   wide=self.wide.to(device))
+
+
+def wide_layout(first, miss, row0, count) -> tuple:
+    """The wide nodes of a threaded binary tree (``first``: a leaf's first
+    slot or -1, ``miss``: the skip pointers; ``row0`` / ``count``: each
+    leaf's first row and real slots).
+
+    A wide node is a binary interior node opened down to a frontier of at
+    most :data:`EMISSIVE_WIDE` children, leaves or interior nodes that root
+    wide nodes of their own.  The frontiers are chosen by a dynamic program
+    over the tree, bottom up, for the fewest wide nodes in all (so the
+    bottom nodes are full, where cutting every third level from the top
+    leaves them with two children); among equal counts it opens a node to
+    more children, and splits a frontier as early as it can.  It reads the
+    topology alone, so a refitted tree has the layout of its parent.  A tree
+    that is one leaf has a root with that leaf as its one child.  Returns
+    (the (Nw, W) binary node of each child, -1 where empty; the (Nw, W)
+    ``ref`` words; the (Nw, W) ``kind`` words; the most words the CUDA
+    walk's stack can hold, every child entered: it pushes a node's entered
+    children, the first on top, and pops them in preorder)."""
+    w = EMISSIVE_WIDE
+    n = first.shape[0]
+    is_leaf = first >= 0
+    if count.max() > w:  # the walk tests a leaf's slots in one batch of w
+        raise ValueError(f"the emissive walk takes leaves of at most {w} slots")
+    nodes = np.arange(n)
+    left = np.where(is_leaf, -1, nodes + 1)
+    right = np.where(is_leaf, -1, miss[np.minimum(nodes + 1, n - 1)])
+    height = np.zeros(n, np.int64)
+    for x in np.flatnonzero(~is_leaf)[::-1].tolist():  # children come after their parent
+        height[x] = 1 + max(height[x + 1], height[right[x]])
+    # cost[x, k]: the fewest wide nodes below x when x gives its parent's
+    # frontier k children (k = 1: x itself, which roots its own wide node
+    # unless it is a leaf); split[x, k]: how many of them its left child gives
+    huge = np.int64(1) << 40
+    cost = np.full((n, w + 1), huge, np.int64)
+    cost[is_leaf, 1] = 0
+    split = np.zeros((n, w + 1), np.int64)
+    opened = np.zeros(n, np.int64)  # a wide root's own frontier size
+    for h in range(1, int(height.max()) + 1):
+        xs = np.flatnonzero(height == h)
+        lc, rc = cost[left[xs]], cost[right[xs]]
+        for k in range(2, w + 1):
+            kl = np.arange(1, k)
+            total = lc[:, kl] + rc[:, k - kl]
+            best = total.argmin(1)  # the first of equals: the earliest split
+            cost[xs, k] = total[np.arange(xs.shape[0]), best]
+            split[xs, k] = kl[best]
+        ks = w - cost[xs, w:1:-1].argmin(1)  # the most children among equals
+        opened[xs] = ks
+        cost[xs, 1] = 1 + cost[xs, ks]
+
+    def frontier(x, k):
+        out, todo = [], [(x, k)]
+        while todo:
+            y, m = todo.pop()
+            if m == 1:
+                out.append(y)
+            else:
+                todo += [(right[y], m - split[y, m]), (left[y], split[y, m])]
+        return out
+
+    queue = [[0]] if is_leaf[0] else [frontier(0, opened[0])]
+    below = [0]  # stack words under each queued node's children, all entered
+    kids_of = np.full((n + 1, w), -1, np.int64)
+    ref = np.zeros((n + 1, w), np.int32)
+    kind = np.zeros((n + 1, w), np.int32)
+    head = 0
+    while head < len(queue):
+        for j, y in enumerate(queue[head]):
+            kids_of[head, j] = y
+            if is_leaf[y]:
+                ref[head, j], kind[head, j] = row0[y], count[y]
+            else:
+                ref[head, j], kind[head, j] = len(queue), -1
+                queue.append(frontier(y, opened[y]))
+                below.append(below[head] + len(queue[head]) - 1 - j)
+        head += 1
+    stack = max(b + len(k) for b, k in zip(below, queue))
+    return kids_of[:head], ref[:head], kind[:head], stack
 
 
 def build_emissive_stream(ebvh, em_tables) -> EmissiveStream:
@@ -275,13 +378,25 @@ def build_emissive_stream(ebvh, em_tables) -> EmissiveStream:
     for c, col in enumerate((em_tables.n0, em_tables.n1, em_tables.n2)):
         rows[:, 11 + 3 * c:14 + 3 * c] = host(col)[ids]
     slot0 = np.where(is_leaf, first, 0)
+    row0 = np.where(is_leaf, before[slot0], -1)
+    count = np.where(is_leaf, before[slot0 + k] - before[slot0], 0)
+    box_min, box_max = host(ebvh.aabb_min), host(ebvh.aabb_max)
     nodes = np.zeros((n, 8), np.float32)
     words = nodes.view(np.int32)
-    nodes[:, 0:3] = host(ebvh.aabb_min)
-    nodes[:, 4:7] = host(ebvh.aabb_max)
-    words[:, 3] = np.where(is_leaf, before[slot0], -1)
-    words[:, 7] = np.where(is_leaf, before[slot0 + k] - before[slot0], miss)
-    return EmissiveStream(nodes=torch.as_tensor(nodes), rows=torch.as_tensor(rows), num_nodes=n)
+    nodes[:, 0:3] = box_min
+    nodes[:, 4:7] = box_max
+    words[:, 3] = row0
+    words[:, 7] = np.where(is_leaf, count, miss)
+    kids, ref, kind, stack = wide_layout(first, miss, row0, count)
+    wide = np.zeros((kids.shape[0], EMISSIVE_WIDE, 8), np.float32)
+    some = kids >= 0
+    wide[some, 0:3] = box_min[kids[some]]
+    wide[some, 4:7] = box_max[kids[some]]
+    wide.view(np.int32)[..., 3] = ref
+    wide.view(np.int32)[..., 7] = kind
+    return EmissiveStream(nodes=torch.as_tensor(nodes), rows=torch.as_tensor(rows),
+                          wide=torch.as_tensor(wide.reshape(kids.shape[0], -1)), num_nodes=n,
+                          stack=stack)
 
 
 # ---------------------------------------------------------------------------
@@ -493,7 +608,9 @@ def emissive_pdf_walk_reference(s: EmissiveStream, rays, active, t_min: float,
     within a leaf, ``p_delta * t^2 / max(area * |n.d|, 1e-30)`` for every
     triangle hit with t_min < t <= 1e32; n is the interpolated vertex normal
     over max(|n|, 1e-20).  ``rays`` are six (N,) float32 columns, ``active``
-    (N,) bool.  Returns the pdf, 0 on inactive lanes."""
+    (N,) bool.  Returns the pdf, 0 on inactive lanes.  ``visits``: see
+    :func:`emissive_walk_visits`; with a list under ``"order"`` each turn
+    appends (the lanes that entered a leaf, the leaf nodes)."""
     n = active.shape[0]
     dev = active.device
     pdf_out = torch.zeros(n, dtype=_F32, device=dev)
@@ -530,31 +647,44 @@ def emissive_pdf_walk_reference(s: EmissiveStream, rays, active, t_min: float,
         if bool(leaf.any()):
             li = leaf.nonzero().squeeze(1)
             row0, count = ln[li, 0], ln[li, 1]
-            j = torch.arange(max(int(count.max()), 1), device=dev)
-            real = j < count[:, None]
-            idx = torch.where(real, row0[:, None] + j, row0[:, None])
-            tri = s.rows[idx]  # (L, m, 20)
-            dx, dy, dz = (cols[c][li, None] for c in (3, 4, 5))
-            inside, u, v, t = mt([tri[..., c] for c in range(9)],
-                                 [cols[c][li, None] for c in range(3)] + [dx, dy, dz])
-            hit = real & inside & (t > t_min) & (t <= _PDF_T_MAX)
-            w0 = 1.0 - u - v
-            nx = w0 * tri[..., 11] + u * tri[..., 14] + v * tri[..., 17]
-            ny = w0 * tri[..., 12] + u * tri[..., 15] + v * tri[..., 18]
-            nz = w0 * tri[..., 13] + u * tri[..., 16] + v * tri[..., 19]
-            length = torch.clamp_min(torch.sqrt(nx * nx + ny * ny + nz * nz), 1e-20)
-            cosine = torch.abs(nx / length * dx + ny / length * dy + nz / length * dz)
-            term = tri[..., 9] * t * t / torch.clamp_min(tri[..., 10] * cosine, 1e-30)
-            term = torch.where(hit, term, 0.0)
-            leaf_sum = term[:, 0]
-            for q in range(1, term.shape[1]):  # slot order, as the kernel adds them
-                leaf_sum = leaf_sum + term[:, q]
+            leaf_sum, idx, real, hit = emissive_leaf_sums(s, [c[li] for c in cols], row0, count,
+                                                          t_min)
             pdf[li] = pdf[li] + leaf_sum
             if visits is not None:
+                if "order" in visits:  # (lanes, leaf nodes) entered this turn
+                    visits["order"].append((lanes[li], cur[li]))
                 visits["tris"][lanes[li]] += count
                 visits["hits"][lanes[li]] += hit.sum(1)
                 visits["tri_rows"][idx[real]] = True
         cur = torch.where(enter | is_leaf, cur + 1, ln[:, 1])
+
+
+def emissive_leaf_sums(s: EmissiveStream, cols, row0, count, t_min: float):
+    """Each of L lanes' sum over one leaf (rays ``cols``: six (L,) columns;
+    the leaf's first row and real slots ``row0``, ``count``): ``p_delta *
+    t^2 / max(area * |n.d|, 1e-30)`` of every slot hit with t_min < t <=
+    1e32, 0 for the others, added in slot order.  Returns (the sums, the
+    (L, m) rows, which of them are real, which were hit)."""
+    j = torch.arange(max(int(count.max()), 1), device=row0.device)
+    real = j < count[:, None]
+    idx = torch.where(real, row0[:, None] + j, row0[:, None])
+    tri = s.rows[idx]  # (L, m, 20)
+    dx, dy, dz = (cols[c][:, None] for c in (3, 4, 5))
+    inside, u, v, t = mt([tri[..., c] for c in range(9)],
+                         [cols[c][:, None] for c in range(3)] + [dx, dy, dz])
+    hit = real & inside & (t > t_min) & (t <= _PDF_T_MAX)
+    w0 = 1.0 - u - v
+    nx = w0 * tri[..., 11] + u * tri[..., 14] + v * tri[..., 17]
+    ny = w0 * tri[..., 12] + u * tri[..., 15] + v * tri[..., 18]
+    nz = w0 * tri[..., 13] + u * tri[..., 16] + v * tri[..., 19]
+    length = torch.clamp_min(torch.sqrt(nx * nx + ny * ny + nz * nz), 1e-20)
+    cosine = torch.abs(nx / length * dx + ny / length * dy + nz / length * dz)
+    term = tri[..., 9] * t * t / torch.clamp_min(tri[..., 10] * cosine, 1e-30)
+    term = torch.where(hit, term, 0.0)
+    leaf_sum = term[:, 0]
+    for q in range(1, term.shape[1]):  # slot order, as the kernel adds them
+        leaf_sum = leaf_sum + term[:, q]
+    return leaf_sum, idx, real, hit
 
 
 def emissive_walk_visits(s: EmissiveStream, rays, active, t_min: float) -> dict:
@@ -636,8 +766,9 @@ def walk(s: BVHStreams, rays, t_lo, t_init, shadow: bool):
 def emissive_pdf_walk(s: EmissiveStream, rays, active, t_min: float):
     """The emissive-pdf walk (``trace_emissive_pdf``'s contract); see
     :func:`emissive_pdf_walk_reference`.  Launches ``emissive_walk_kernel``
-    on CUDA tensors."""
-    if not _on_cuda((s.nodes, s.rows, *rays, active)):
+    on CUDA tensors: it walks the wide nodes (``s.wide``) and is bit-equal to
+    the plain version on active lanes, +0 on the others."""
+    if not _on_cuda((s.wide, s.rows, *rays, active)):
         return emissive_pdf_walk_reference(s, rays, active, t_min)
     n = active.shape[0]
     for c in rays:
@@ -646,16 +777,20 @@ def emissive_pdf_walk(s: EmissiveStream, rays, active, t_min: float):
                              f"{tuple(c.shape)} {c.dtype}")
     if active.dtype != torch.bool or tuple(active.shape) != (n,) or not active.is_contiguous():
         raise ValueError(f"active must be a contiguous ({n},) bool tensor")
-    for name, width in (("nodes", 8), ("rows", 20)):  # the kernel reads them as float4
+    for name, width in (("wide", 8 * EMISSIVE_WIDE), ("rows", 20)):  # read as float4
         x = getattr(s, name)
         if (x.dtype != _F32 or x.dim() != 2 or x.shape[1] != width or not x.is_contiguous()
                 or x.data_ptr() % 16):
             raise ValueError(f"stream.{name} must be contiguous, 16-byte aligned "
                              f"(N, {width}) float32")
+    if s.stack > EMISSIVE_STACK or s.wide.shape[0] >= 2**24 or s.rows.shape[0] >= 2**28:
+        raise ValueError(f"the emissive walk takes a tree whose walk stacks at most "
+                         f"{EMISSIVE_STACK} words, with fewer than 2**24 wide nodes and 2**28 "
+                         f"rows, not {s.stack}, {s.wide.shape[0]} and {s.rows.shape[0]}")
     if n >= 2**31:
         raise ValueError("BVH walks take fewer than 2**31 rays")
     out = torch.empty(n, dtype=_F32, device=active.device)
-    _ext.launch("emissive_walk_launch", active.device, s.nodes, s.rows, s.num_nodes, *rays,
+    _ext.launch("emissive_walk_launch", active.device, s.wide, s.rows, s.wide.shape[0], *rays,
                 active, float(t_min), out, n)
     LAUNCHES["emissive_pdf"] += 1
     return out
