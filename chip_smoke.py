@@ -177,7 +177,9 @@ what a bounce calls run eagerly.
    seconds and bytes, the mirror's bytes beside the pool's) and must be no
    slower than the eager first frame.  Images bit-equal, and the old
    tables' frame after the turns bit-equal to theirs before; seconds of
-   each.
+   each.  A third case, phase 15's emitter soup with its emissive mesh's
+   node moved: each refit's wide emissive table has the tables' shape and
+   new boxes, and every side's frames launch the emissive walk.
 21. progressive — the progressive ``Renderer`` on Cornell 512x512, depth 4:
    the preview frame and 16 samples, whose mean must equal
    ``render_image(spp=16)`` within atol 1e-5; ms per frame; ``pipeline=True``
@@ -271,7 +273,10 @@ what a bounce calls run eagerly.
    against ``index_select`` over the same columns (its ``library_ms``).
 27. graphs_busy — after the profiled timings: one wave each of cfg1, the
    gallery, the emitter soup, phase 9's forced-BVH dragon and the glTF 147k
-   under ``torch.profiler`` three ways, counters reset just before.  On the
+   under ``torch.profiler`` three ways, counters reset just before, the card
+   idle for 50 ms after the trace starts and before it stops (the tracer
+   places a launch up to ~0.25 ms early and leaves out what falls before
+   its start: ``tools/profile_torch_drops.py``).  On the
    host-read replay (each part a graph launched from the host) and eager
    sides each hand-written kernel's launches in the trace must equal the
    counters': a replayed part runs no Python, so its counts are those its
@@ -422,7 +427,11 @@ MT_U_OPS = 28
 SLAB_OPS = 27  # one ray-box slab test
 PDF_OPS = MT_OPS + 36  # one emissive-pdf hit: the test and its weighted term
 WALK_TERM_OPS = 39  # the emissive walk's term: the normal over its length (sqrt, 3 divides)
-PROFILE_TRIES = 3  # profiled runs of a launch shape (device_ms) or a wave (graphs_busy)
+PROFILE_TRIES = 3  # profiled runs of one launch shape before device_ms gives up
+# the card idle this long after a wave's trace starts and before it stops: the
+# tracer places a launch up to ~0.25 ms early and leaves out a launch that
+# falls before its start (tools/profile_torch_drops.py)
+PROFILE_GAP_S = 0.05
 # the BVH streams of the cfg2 dragon and of the 147k glTF must fit half the L2
 STREAM_BYTES_MAX = 25e6
 
@@ -765,24 +774,6 @@ def time_ms(fn, reps: int, warm: bool = True) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def graph_ms(fn, reps: int) -> float:
-    """Device ms a call of ``fn``: ``reps`` calls captured in one CUDA graph
-    (no host work between the launches, as in a wave's program), three
-    replays timed with CUDA events after one to warm up."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    ms = time_ms(graph.replay, 3, warm=False) / reps
-    del graph
-    return ms
 
 
 def device_ms(fn, name: str, reps: int) -> tuple:
@@ -1435,13 +1426,27 @@ def check_emissive_walk(tables, ray_counts, device) -> float:
     return err
 
 
+def emissive_walk_bound(s, cols, active, t_min: float) -> tuple:
+    """The bound of one emissive walk launch, from the work of the contract
+    that ``emissive_walk_visits`` counts on the binary plain walk: a box test
+    per node visited, a triangle test per real slot of each leaf entered and
+    the term per hit; bytes: the active lanes' rays, every lane's flag and
+    output, the node records and triangle rows read.  Returns
+    (:func:`bound`'s dict, the visits)."""
+    from vulkan_raytracer_tpu_torch.ops import traverse as tr
+
+    v = tr.emissive_walk_visits(s, cols, active, t_min)
+    ops = (SLAB_OPS * int(v["nodes"].sum()) + MT_OPS * int(v["tris"].sum())
+           + WALK_TERM_OPS * int(v["hits"].sum()))
+    nbytes = (5 * active.shape[0] + 24 * int(active.sum()) + 32 * v["node_rows"]
+              + 80 * v["tri_rows"])
+    return bound(ops, nbytes), v
+
+
 def time_emissive_walk(tables, n: int, device) -> dict:
     """The emissive-pdf walk and its plain version over n random rays in the
     Cornell volume (80% active, t_min EPS), the plain version once, then the
-    kernel twice, with the bound of the work ``emissive_walk_visits`` counts: a box
-    test per node visited, a triangle test per real slot of each leaf
-    entered and the term per hit; bytes: the active lanes' rays, every
-    lane's flag and output, the node records and triangle rows read."""
+    kernel twice, with the bound of :func:`emissive_walk_bound`."""
     from vulkan_raytracer_tpu_torch.ops import dense
     from vulkan_raytracer_tpu_torch.ops import traverse as tr
 
@@ -1458,33 +1463,30 @@ def time_emissive_walk(tables, n: int, device) -> dict:
 
     p1 = time_ms(ref, 1, warm=False)
     k1, k2 = time_ms(kernel, 10), time_ms(kernel, 10)
-    v = tr.emissive_walk_visits(s, cols, active, EPS)
+    b, v = emissive_walk_bound(s, cols, active, EPS)
     live = max(int(active.sum()), 1)
-    ops = (SLAB_OPS * int(v["nodes"].sum()) + MT_OPS * int(v["tris"].sum())
-           + WALK_TERM_OPS * int(v["hits"].sum()))
-    nbytes = 5 * n + 24 * live + 32 * v["node_rows"] + 80 * v["tri_rows"]
     out = {"ms": (k1 + k2) / 2, "plain_ms": p1, "ms_runs": [k1, k2],
            "shape": f"emissive soup wave: {n} rays over {s.rows.shape[0]} emissive triangles",
-           **bound(ops, nbytes), "live": live,
+           **b, "live": live,
            "per_live_ray": {k: int(v[k].sum()) / live for k in ("nodes", "tris", "hits")},
            "node_rows": v["node_rows"], "tri_rows": v["tri_rows"]}
     emit({"phase": "emissive_walk_times", "rays": n, "emissive_walk": out})
     return out
 
 
-def record_emissive_probes(run, keep: bool = False):
+def record_emissive_probes(run):
     """Call ``run()``, eagerly, with ops/traverse.py's emissive walk wrapped
-    so that each call's t_min and count of active lanes are kept, and with
-    ``keep`` its inputs too (cloned); returns (what ``run`` returned, the
-    calls as (t_min, active lanes[, ray columns, active])."""
+    so that each call's t_min, count of active lanes and inputs (cloned) are
+    kept; returns (what ``run`` returned, the calls as (t_min, active lanes,
+    ray columns, active))."""
     from vulkan_raytracer_tpu_torch.ops import traverse as tr
 
     saved = tr.emissive_pdf_walk
     calls = []
 
     def recording(stream, rays, active, t_min):
-        inputs = (tuple(c.clone() for c in rays), active.clone()) if keep else ()
-        calls.append((t_min, int(active.sum()), *inputs))
+        calls.append((t_min, int(active.sum()), tuple(c.clone() for c in rays),
+                      active.clone()))
         return saved(stream, rays, active, t_min)
 
     try:
@@ -1497,12 +1499,14 @@ def record_emissive_probes(run, keep: bool = False):
 
 
 def check_emissive_probes(stream, probes, reps: int = 5) -> dict:
-    """Each recorded probe launch of a render (:func:`record_emissive_probes`
-    with ``keep``) once more through the kernel against the plain version:
-    bit-equal on active lanes and +0 on the others, or it fails; its live
-    lanes and its device time (``reps`` launches on its inputs after
-    one to warm up, captured: :func:`graph_ms`).  Returns the launches'
-    lines and their sums."""
+    """Each recorded probe launch of a render (:func:`record_emissive_probes`)
+    once more through the kernel against the plain version: bit-equal on
+    active lanes and +0 on the others, or it fails; its live lanes and its
+    device time (``reps`` launches on its inputs captured in one graph,
+    ``check_torch_trace._cold_ms`` with the one copy).  Returns the
+    launches' lines and their sums."""
+    from check_torch_trace import _cold_ms
+
     from vulkan_raytracer_tpu_torch.ops import traverse as tr
 
     lines, total_ms, err = [], 0.0, 0.0
@@ -1515,10 +1519,11 @@ def check_emissive_probes(stream, probes, reps: int = 5) -> dict:
                                  f"{differ} active lanes differ from the plain version, or an "
                                  f"inactive lane is not 0")
         err = max(err, _max_abs(got[active], want[active]))
-        ms = graph_ms(lambda: tr.emissive_pdf_walk(stream, cols, active, t_min), reps)
+        ms = _cold_ms(lambda: tr.emissive_pdf_walk(stream, cols, active, t_min), [()], reps)
         total_ms += ms
         lines.append({"t_min": t_min, "live": live, "us": 1e3 * ms})
-    return {"launches": lines, "us_sum": 1e3 * total_ms, "live_sum": sum(p[1] for p in probes),
+    return {"launches": lines, "us_sum": 1e3 * total_ms,
+            "live_sum": sum(live for _, live, _, _ in probes),
             "max_abs_err": err, "differing_lanes": 0}
 
 
@@ -1553,11 +1558,11 @@ def render_emissive_bvh(device, paths) -> dict:
 
     _reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    (img, rays, secs), probes = record_emissive_probes(run, keep=True)
+    (img, rays, secs), probes = record_emissive_probes(run)
     launches = _launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    mis = [p[1] for p in probes if p[0] == EPS]
-    nee = [p[1] for p in probes if p[0] == 0.0]
+    mis = [live for t_min, live, _, _ in probes if t_min == EPS]
+    nee = [live for t_min, live, _, _ in probes if t_min == 0.0]
     walks = launches["traverse"]
     if not (walks["emissive_pdf"] == len(probes) == len(mis) + len(nee)
             and sum(a > 0 for a in mis) > 0 and sum(a > 0 for a in nee) > 0):
@@ -1829,9 +1834,15 @@ def refit_phase(device, paths, dragon, dragon_tables, gallery, gallery_tables) -
     emit({"phase": "refit", "bounces": bounces,
           "config": "one node moved; 128x128 2 spp depth 3", **out,
           "launches": launches})
+    # the emitter soup of phase 15 with its emissive mesh's node moved: its
+    # probes walk the refitted emissive stream
+    soup = emitter_soup_scene(100000, 5000, seed=31)
+    soup_tables = soup.upload(device)
+    move(soup, soup.root.children[1], shift)
     frame_after_refit(device, ((
         "cfg2_dragon", dragon, dragon_tables, CFG2_CAM), (
-        "gallery", gallery, gallery_tables, gallery_camera(gallery_tables.inst.num_instances - 3))))
+        "gallery", gallery, gallery_tables, gallery_camera(gallery_tables.inst.num_instances - 3)),
+        ("emitter soup", soup, soup_tables, CFG1_CAM)))
 
 
 def frame_after_refit(device, cases, size: int = 512, spp: int = 4, depth: int = 4) -> None:
@@ -1844,29 +1855,43 @@ def frame_after_refit(device, cases, size: int = 512, spp: int = 4, depth: int =
     so the graphs side's first frame captures nothing and copies the new
     tables into the cache's mirror once; it must be no slower than the
     eager first frame.  Both sides' images bit-equal, and the old tables
-    render their own frame again bit for bit."""
+    render their own frame again bit for bit.  On a scene whose probes walk
+    the emissive BVH each refit's wide table has the shape of the tables'
+    and new boxes, and every side's frames launch the walk."""
     import torch
 
+    from vulkan_raytracer_tpu_torch.ops import dense
     from vulkan_raytracer_tpu_torch.render import graphs
 
     for name, scene, tables, cam in cases:
+        walks = tables.num_emissive_tris > dense.EMISSIVE_MAX_TRIS
         graphs.reset_stats()
         before, _, warm_s = _render(tables, cam, size, size, spp=spp, depth=depth)
         warm = {"seconds": warm_s, "captured": graphs.STATS["captured"],
                 "capture_s": graphs.STATS["capture_s"]}
         out = {side: {"first_s": [], "second_s": [], "captured": [], "copies": [],
-                      "copy_bytes": [], "copy_s": []} for side in ("graphs", "eager")}
+                      "copy_bytes": [], "copy_s": [], "emissive_walks": []}
+               for side in ("graphs", "eager")}
         want = None
         for side in ("graphs", "eager", "eager", "graphs"):
             with _eager() if side == "eager" else contextlib.nullcontext():
                 refit = scene.refit(tables)
                 if graphs.signature(refit) != graphs.signature(tables):
                     raise AssertionError(f"{name}: the refit changed the tables' signature")
+                if walks:
+                    got, had = refit.em_stream.wide, tables.em_stream.wide
+                    if got.shape != had.shape or torch.equal(got, had):
+                        raise AssertionError(f"{name}: the refit's wide emissive table is "
+                                             f"{tuple(got.shape)}, the tables' "
+                                             f"{tuple(had.shape)}, or the same boxes")
                 torch.cuda.synchronize(device)
                 graphs.reset_stats()
+                _reset_launches()
                 for key in ("first_s", "second_s"):
                     img, rays, secs = _render(refit, cam, size, size, spp=spp, depth=depth)
                     out[side][key].append(secs)
+                out[side]["emissive_walks"].append(
+                    _launch_counts()["traverse"].get("emissive_pdf", 0))
                 out[side]["captured"].append(graphs.STATS["captured"])
                 out[side]["copies"].append(graphs.STATS["copies"])
                 out[side]["copy_bytes"].append(graphs.STATS["copy_bytes"])
@@ -1888,6 +1913,10 @@ def frame_after_refit(device, cases, size: int = 512, spp: int = 4, depth: int =
         if any(g["captured"]) or g["copies"] != [1, 1]:
             raise AssertionError(f"{name}: the graphs side's frames after a refit captured "
                                  f"{g['captured']} programs, filled the mirror {g['copies']}")
+        if walks and not all(g["emissive_walks"] + e["emissive_walks"]):
+            raise AssertionError(f"{name}: frames after a refit launched the emissive walk "
+                                 f"{g['emissive_walks']} times with graphs, "
+                                 f"{e['emissive_walks']} eagerly")
         if not g["first_s_median"] <= e["first_s_median"]:
             raise AssertionError(f"{name}: the first frame after a refit took "
                                  f"{g['first_s_median']:.3f}s with graphs, "
@@ -2618,30 +2647,18 @@ def trace_phase(device, prebuilt: dict, out_dir: Path) -> tuple:
     return times, errs
 
 
-def _dropped(trace: dict, counted: dict) -> bool:
-    """Whether a profiled run's trace holds fewer launches of some kernel
-    than the counters and more of none: records the tracer dropped (it drops
-    some of a run of short launches, most often the first few), where a
-    launch missing from the run itself would show in every try."""
-    from profile_torch_wave import _by_kernel
-
-    want, got = _by_kernel(counted), trace.get("port_kernel_launches", {})
-    return (all(got.get(k, 0) <= n for k, n in want.items()) and set(got) <= set(want)
-            and got != want)
-
-
 def graphs_busy(cornell, gallery, soup, small, bigasset) -> None:
     """Phase 27, after the profiled timings: one wave each of cfg1, the
     gallery, the emitter soup, the forced-BVH dragon of phase 9 and the
     glTF 147k (``profile_torch_wave``'s first wave of each frame) through
     the device loops, the host-read replay and eager, each side warmed up
-    and then once under ``torch.profiler`` with its counters reset.  On the
-    replay and eager sides each hand-written kernel's launches in the trace
-    equal the counters' (a run whose trace holds fewer is profiled again, up
-    to :data:`PROFILE_TRIES` times: the tracer drops records; on the replay
-    side what the parts' captures counted, per pass on the glTF wave: the
-    five waves launch every kernel variant); on the device side, whose trace misses most reruns of a
-    conditional body's nodes, each kernel counted appears and
+    and then once under ``torch.profiler`` with its counters reset, the
+    card idle for :data:`PROFILE_GAP_S` after the trace starts and before it
+    stops.  On the replay and eager sides each hand-written kernel's
+    launches in the trace equal the counters' (on the replay side what the
+    parts' captures counted, per pass on the glTF wave: the five waves
+    launch every kernel variant); on the device side, whose trace misses
+    most reruns of a conditional body's nodes, each kernel counted appears and
     none more often than counted (``check_device_trace``;
     ``loop_cond_kernel`` against its counter too), and its bounces, passes
     and re-sorts equal the replay's.  The alpha loop's counts equal on all
@@ -2672,18 +2689,14 @@ def graphs_busy(cornell, gallery, soup, small, bigasset) -> None:
         for side, ctx in sides.items():
             with ctx():
                 run()
-                for _ in range(PROFILE_TRIES):  # again where the tracer dropped records
-                    _reset_launches()
-                    with torch.profiler.profile(activities=activities) as prof:
-                        with ProgramEvents() as events:
-                            secs = _timed_sync(run)[1]
-                    counted, bounces, loop = _launch_counts(), _mode(), _alpha_loop()
-                    program = {k: graphs.STATS[k] for k in ("replays", "passes", "sorts")}
-                    trace = trace_summary(prof)
-                    counted = {k: n for by_module in counted.values()
-                               for k, n in by_module.items()}
-                    if side == "device" or not _dropped(trace, counted):
-                        break
+                _reset_launches()
+                with torch.profiler.profile(activities=activities) as prof:
+                    time.sleep(PROFILE_GAP_S)
+                    with ProgramEvents() as events:
+                        secs = _timed_sync(run)[1]
+                    time.sleep(PROFILE_GAP_S)
+                counted, bounces, loop = _launch_counts(), _mode(), _alpha_loop()
+                program = {k: graphs.STATS[k] for k in ("replays", "passes", "sorts")}
             if bounces != ("eager" if side == "eager" else "graphs"):
                 raise AssertionError(f"{label}: the {side} wave's bounces ran {bounces}")
             if side != "device" and loop != out["device"]["alpha_loop"]:
@@ -2692,6 +2705,8 @@ def graphs_busy(cornell, gallery, soup, small, bigasset) -> None:
             if side == "replay" and program != out["device"]["program"]:
                 raise AssertionError(f"{label}: the replay ran {program}, the device loops "
                                      f"{out['device']['program']}")
+            trace = trace_summary(prof)
+            counted = {k: n for by_module in counted.values() for k, n in by_module.items()}
             if side == "device":
                 traced = check_device_trace(trace, counted, f"{label} {side}")
             else:
@@ -2712,7 +2727,7 @@ def graphs_busy(cornell, gallery, soup, small, bigasset) -> None:
         emit({"phase": "graphs_busy", "config": f"{label} first wave: {len(lanes)} pixels x "
                                                 f"samples {len(samples)}, {w}x{h} depth {depth}",
               "traced_launches_equal_counters": ["replay", "eager"],
-              "device_traced_within_counters": True, **out})
+              "device_traced_within_counters": True, "profile_gap_s": PROFILE_GAP_S, **out})
     missing = [name for name, (mod, key, _, _) in KERNELS.items()
                if mod != "graphs" and not _launched(replayed, key)]
     if missing:

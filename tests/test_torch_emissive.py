@@ -416,6 +416,33 @@ def test_walk_refuses_what_the_kernel_does_not_take():
                               EPS)
 
 
+def _cuda_constants() -> dict:
+    """csrc/bvh_walk.cu's ``constexpr int kName = <int or 1 << int>;`` lines."""
+    import re
+
+    src = (Path(__file__).resolve().parent.parent / "vulkan_raytracer_tpu_torch" / "csrc"
+           / "bvh_walk.cu").read_text()
+    out = {}
+    for name, value in re.findall(r"constexpr int (k\w+) = ([^;]+);", src):
+        m = re.fullmatch(r"(\d+)|1 << (\d+)", value.strip())
+        if m:
+            out[name] = int(m[1]) if m[1] else 1 << int(m[2])
+    return out
+
+
+def test_walk_limits_are_the_kernel_sources():
+    """The wrapper's limits are the CUDA walk's: the children of a wide node
+    and the lanes of a ray (kWide), the stack words of a ray (kStack), the
+    bits of a leaf word's first row (kRowBits), with a leaf's count less one
+    between them and bit 31, and the wide nodes it takes (kMaxWideNodes)."""
+    k = _cuda_constants()
+    assert k["kWide"] == ttr.EMISSIVE_WIDE
+    assert k["kStack"] == ttr.EMISSIVE_STACK
+    assert k["kRowBits"] == ttr.EMISSIVE_ROW_BITS
+    assert k["kMaxWideNodes"] == ttr.EMISSIVE_MAX_NODES
+    assert ttr.EMISSIVE_WIDE - 1 < 2 ** (31 - ttr.EMISSIVE_ROW_BITS)
+
+
 def _cam(cls):
     return cls(position=np.array([0.0, 1.0, 3.2]), direction=np.array([0.0, 0.0, -1.0]))
 

@@ -19,15 +19,16 @@ Run from the root of a checkout on a machine with an NVIDIA card.
    has its t_min (EPS: the MIS probe, 0: the NEE probe), its live lanes and
    live 128-lane blocks (the first kernel's blocks).
 
-Each launch is timed on the device (``chip_smoke.graph_ms``: ``--reps``
-launches on the same inputs in one captured graph, so the wrapper's host
-time is not counted; the inputs, ~15 MB, stay in L2, as the wave's do), and
+Each launch is timed on the device (``check_torch_trace._cold_ms`` with one
+copy: ``--reps`` launches on the same inputs in one captured graph, so the
+wrapper's host time is not counted; the inputs, ~15 MB, stay in L2, as the
+wave's do), and
 carries a digest of its output, which two versions of the kernel must
 share.  With ``--plain`` each launch is also held against the plain version
 (``emissive_pdf_walk_reference``; the line says whether they are bit-equal
 on active lanes) and carries the bound of its work: ``emissive_walk_visits``
-on the binary tree, the bound of ``chip_smoke.time_emissive_walk``
-(operations at 67 TFLOP/s, bytes at 3.35 TB/s).
+on the binary tree, ``chip_smoke.emissive_walk_bound`` (operations at 67
+TFLOP/s, bytes at 3.35 TB/s).
 
 ``--root DIR`` walks with the ``vulkan_raytracer_tpu_torch`` package of
 another checkout (an unpacked earlier commit) over the same scenes and rays,
@@ -72,22 +73,19 @@ def _live_blocks(active) -> int:
 def measure(cs, stream, cols, active, t_min: float, reps: int, plain: bool) -> dict:
     """One launch's line: live lanes and blocks, µs, digest; with ``plain``
     bit-equality to the plain version and the bound."""
+    from check_torch_trace import _cold_ms
+
     from vulkan_raytracer_tpu_torch.ops import traverse as tr
 
     out = tr.emissive_pdf_walk(stream, cols, active, t_min)
     line = {"t_min": t_min, "lanes": int(active.shape[0]), "live": int(active.sum()),
             "live_blocks": _live_blocks(active),
-            "us": 1e3 * cs.graph_ms(lambda: tr.emissive_pdf_walk(stream, cols, active, t_min),
-                                    reps),
+            "us": 1e3 * _cold_ms(lambda: tr.emissive_pdf_walk(stream, cols, active, t_min),
+                                 [()], reps),
             "digest": _digest(out)}
     if plain:
         want = tr.emissive_pdf_walk_reference(stream, cols, active, t_min)
-        v = tr.emissive_walk_visits(stream, cols, active, t_min)
-        live = int(active.sum())
-        ops = (cs.SLAB_OPS * int(v["nodes"].sum()) + cs.MT_OPS * int(v["tris"].sum())
-               + cs.WALK_TERM_OPS * int(v["hits"].sum()))
-        nbytes = 5 * active.shape[0] + 24 * live + 32 * v["node_rows"] + 80 * v["tri_rows"]
-        b = cs.bound(ops, nbytes)
+        b, v = cs.emissive_walk_bound(stream, cols, active, t_min)
         line.update(bit_equal=bool(out[active].equal(want[active])),
                     zero_off=bool((out[~active] == 0).all()), bound_us=1e3 * b["bound_ms"],
                     bound_by=b["bound_by"], node_tests=int(v["nodes"].sum()),
@@ -107,8 +105,7 @@ def record_wave(cs, device):
     camera = Camera(position=np.array(cs.CFG1_CAM[0]), direction=np.array(cs.CFG1_CAM[1]),
                     aspect=1.0)
     lanes, samples, _ = first_wave(tables, 512, 512, 4)
-    _, probes = cs.record_emissive_probes(wave(tables, camera, 512, 512, 4, lanes, samples),
-                                          keep=True)
+    _, probes = cs.record_emissive_probes(wave(tables, camera, 512, 512, 4, lanes, samples))
     return tables, probes
 
 

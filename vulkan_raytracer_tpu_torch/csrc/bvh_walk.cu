@@ -440,8 +440,17 @@ constexpr int kListBytes = kChunks * kWalkThreads * 4;
 constexpr int kStackBytes = kGroups * kStack * 4;
 constexpr int kNodeFloat4 = 2 * kWide;  // 16-byte words of a wide node
 constexpr int kNodeBytes = 16 * kNodeFloat4;
+// a leaf's stack word: bit 31, its count of slots less one above kRowBits,
+// its first row below (ops/traverse.py EMISSIVE_ROW_BITS: the wrapper
+// refuses 2**kRowBits rows or more)
+constexpr int kRowBits = 28;
+constexpr unsigned kRowMask = (1u << kRowBits) - 1u;
+// wide nodes a tree may have (ops/traverse.py EMISSIVE_MAX_NODES)
+constexpr int kMaxWideNodes = 1 << 24;
 constexpr int kMaxDevices = 64;
 static_assert(kWide == 8 && 32 % kWide == 0, "a ray's lanes are one 8-lane segment of a warp");
+static_assert(kWide - 1 < (1 << (31 - kRowBits)), "a leaf's count fits between row and bit 31");
+static_assert(kMaxWideNodes <= 0x7fffffff / kNodeFloat4, "a node's first word is an int");
 
 // Child j of wide node `node`: (bmin.xyz, ref) and (bmax.xyz, kind), from
 // shared memory for the first n_top nodes, else through the read-only path.
@@ -479,9 +488,8 @@ __device__ __forceinline__ void push_children(const float4* __restrict__ wide, c
   const bool enter = kind != 0 && near <= far && far >= t_min && near <= kPdfTMax;
   const unsigned mask = (__ballot_sync(gmask, enter) >> shift) & 0xffu;
   if (enter) {
-    const unsigned word = kind < 0 ? static_cast<unsigned>(ref)
-                                   : 0x80000000u | static_cast<unsigned>(kind - 1) << 28 |
-                                         static_cast<unsigned>(ref);
+    const unsigned leaf = 0x80000000u | static_cast<unsigned>(kind - 1) << kRowBits;
+    const unsigned word = kind < 0 ? static_cast<unsigned>(ref) : leaf | static_cast<unsigned>(ref);
     stack[sp + __popc(mask >> g >> 1)] = word;
   }
   sp += __popc(mask);
@@ -570,10 +578,10 @@ __device__ __forceinline__ float walk_ray(const float4* __restrict__ wide, const
     while (sp != 0) {
       const unsigned word = stack[sp - 1];
       if (word >> 31) {  // a leaf: into the batch, if it fits
-        const int count = static_cast<int>(word >> 28 & 7u) + 1;
+        const int count = static_cast<int>((word & 0x7fffffffu) >> kRowBits) + 1;
         if (fill + count > kWide) break;
         --sp;
-        if (g >= fill && g < fill + count) row = static_cast<int>(word & 0x0fffffffu) + g - fill;
+        if (g >= fill && g < fill + count) row = static_cast<int>(word & kRowMask) + g - fill;
         fill += count;
         ends |= 1u << (fill - 1);
       } else {

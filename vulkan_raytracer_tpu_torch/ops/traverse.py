@@ -235,6 +235,11 @@ EMISSIVE_WIDE = 8
 #: stack words the CUDA walk holds per ray (csrc/bvh_walk.cu kStack): it
 #: takes a tree whose walk can stack at most this many (EmissiveStream.stack)
 EMISSIVE_STACK = 64
+#: a leaf's stack word in the CUDA walk holds its first row in the bits below
+#: this (csrc/bvh_walk.cu kRowBits), so a stream holds fewer rows than 2**it
+EMISSIVE_ROW_BITS = 28
+#: wide nodes the CUDA walk takes (csrc/bvh_walk.cu kMaxWideNodes)
+EMISSIVE_MAX_NODES = 2**24
 
 
 @dataclasses.dataclass(frozen=True)
@@ -783,10 +788,12 @@ def emissive_pdf_walk(s: EmissiveStream, rays, active, t_min: float):
                 or x.data_ptr() % 16):
             raise ValueError(f"stream.{name} must be contiguous, 16-byte aligned "
                              f"(N, {width}) float32")
-    if s.stack > EMISSIVE_STACK or s.wide.shape[0] >= 2**24 or s.rows.shape[0] >= 2**28:
+    if (s.stack > EMISSIVE_STACK or s.wide.shape[0] > EMISSIVE_MAX_NODES
+            or s.rows.shape[0] >= 2**EMISSIVE_ROW_BITS):
         raise ValueError(f"the emissive walk takes a tree whose walk stacks at most "
-                         f"{EMISSIVE_STACK} words, with fewer than 2**24 wide nodes and 2**28 "
-                         f"rows, not {s.stack}, {s.wide.shape[0]} and {s.rows.shape[0]}")
+                         f"{EMISSIVE_STACK} words, with at most {EMISSIVE_MAX_NODES} wide nodes "
+                         f"and fewer than 2**{EMISSIVE_ROW_BITS} rows, not {s.stack}, "
+                         f"{s.wide.shape[0]} and {s.rows.shape[0]}")
     if n >= 2**31:
         raise ValueError("BVH walks take fewer than 2**31 rays")
     out = torch.empty(n, dtype=_F32, device=active.device)
