@@ -259,18 +259,32 @@ what a bounce calls run eagerly.
    cfg1, cfg2, glTF 147k and the textured glb timed in a captured graph on
    copies of its inputs that exceed the L2 four times over (the commit's
    restored and the L2 flushed before each timed replay) against its plain
-   version, with its bytes bound.
+   version, with its bytes bound; on the glTF 147k and textured glb waves
+   every alpha pass timed so, with its pending lanes and bound (the line's
+   ``alpha_passes``).  Then the commit on synthetic passes
+   (``check_torch_wave.synthetic``): none, one lane, ~1% and every lane
+   pending over the alpha gallery instanced, flattened and untextured, at
+   1, 1,025 and 524,287 lanes, state and count bit-equal (any differing
+   case fails), each share timed at 524,288 lanes.
 30. trace   — after phase 29: the four kernels around the traversal launches
    (``csrc/trace.cu``) against their plain versions on the first wave of
-   cfg1-cfg4, glTF 147k, the gallery, the textured glb, the emitter soup and
+   cfg1-cfg5, glTF 147k, the gallery, the textured glb, the emitter soup and
    the instanced alpha gallery (``tools/check_torch_trace.py``, eager):
    every closest hit's finish, every instance step, every re-sort's key and
    every gather, scatter and copy, every lane bit-equal: a lane that differs
-   at all fails.  One call of each kernel on cfg1, cfg2 and the gallery
-   timed in a captured graph, launch after launch on copies of its inputs
-   that together exceed the L2 four times over, so that its bytes bound at
-   the memory rate holds, against its plain version; the permutation also
-   against ``index_select`` over the same columns (its ``library_ms``).
+   at all fails.  One call of each kernel on cfg1, cfg2, the gallery and
+   cfg5 timed in a captured graph, launch after launch on copies of its
+   inputs that together exceed the L2 four times over, so that its bytes
+   bound at the memory rate holds, against its plain version; the
+   permutation also against ``index_select`` over the same columns (its
+   ``library_ms``), the key also without its root bounds' torch ops; and
+   every permutation launch of those waves timed so, by (mode, columns,
+   lanes) (the line's ``permute_launches``).  Then the permutation on
+   synthetic permutations (``check_torch_trace.synthetic``: identity,
+   reversed, 1,024-lane blocks shuffled, random; 1, 3, 1,025, 4,099 and
+   524,288 lanes of a wave state's 21 columns; each mode), every column
+   bit-equal (any differing case fails), each kind and mode timed at
+   524,288 lanes with its spread.
 27. graphs_busy — after the profiled timings: one wave each of cfg1, the
    gallery, the emitter soup, phase 9's forced-BVH dragon and the glTF 147k
    under ``torch.profiler`` three ways, counters reset just before, the card
@@ -402,10 +416,10 @@ WAVE_CONFIGS = ("cfg1", "cfg2", "gltf147k", "textured", "cfg3", "cfg4", "cfg5", 
                 "gallery", "alpha_gallery")
 WAVE_TIMED = ("cfg1", "cfg2", "gltf147k", "textured")
 #: the trace kernels' phase's configs (tools/check_torch_trace.py); the
-#: kernels are timed on the first three
-TRACE_CONFIGS = ("cfg1", "cfg2", "gallery", "cfg3", "gltf147k", "cfg4", "textured", "soup",
-                 "alpha_gallery")
-TRACE_TIMED = ("cfg1", "cfg2", "gallery")
+#: kernels are timed on the first four
+TRACE_CONFIGS = ("cfg1", "cfg2", "gallery", "cfg5", "cfg3", "gltf147k", "cfg4", "textured",
+                 "soup", "alpha_gallery")
+TRACE_TIMED = ("cfg1", "cfg2", "gallery", "cfg5")
 CFG1 = ["-m", "cornell", "-r", "512,512", "-b", "4", "--spp", "64",
         "-c", "0,1,2.4", "-d", "0,0,-1"]
 CFG2 = ["-m", "dragon", "-r", "512,512", "-b", "4", "--spp", "4",
@@ -565,26 +579,32 @@ def gallery_scene(detail: int = 256, n_dragons: int = 64, seed: int = 5):
     return s
 
 
-def alpha_gallery_scene(n_side: int = 4):
+def alpha_gallery_scene(n_side: int = 4, textured: bool = True):
     """Instances with alpha (tests/test_instancing.py:187-228, grown): an
     ``n_side`` x ``n_side`` grid of one vertical quad whose MASK material
     reads a checkered alpha texture, a row of one BLEND quad (alpha 0.5)
     before it, a backdrop and an emissive panel, every mesh shared.  Upload
-    it with ``instancing=True``; its camera is ``TEXTURED_CAM``."""
+    it with ``instancing=True``; its camera is ``TEXTURED_CAM``.  Without
+    ``textured`` the scene has no texture and the MASK material's alpha is
+    its factor's, 0.3, below its cutoff."""
     from vulkan_raytracer_tpu_torch.scene.scenegraph import Material, Primitive, Scene
 
     back, mask, blend, light = Material(), Material(), Material(), Material()
     back.metallic_factor = mask.metallic_factor = blend.metallic_factor = 0.0
-    mask.alpha_mode, mask.alpha_cutoff, mask.base_colour_tex = 1, 0.5, 0
+    mask.alpha_mode, mask.alpha_cutoff = 1, 0.5
     blend.alpha_mode = 2
     blend.base_colour_factor = np.array([0.2, 0.5, 0.9, 0.5], np.float32)
     light.emissive_factor = np.array([8.0, 8.0, 8.0], np.float32)
     s = Scene()
     s.materials += [back, mask, blend, light]
-    tex = np.ones((8, 8, 4), np.float32)
-    yy, xx = np.mgrid[:8, :8]
-    tex[..., 3] = np.where((xx + yy) % 2 == 0, 1.0, 0.1)
-    s.textures.append(tex)
+    if textured:
+        mask.base_colour_tex = 0
+        tex = np.ones((8, 8, 4), np.float32)
+        yy, xx = np.mgrid[:8, :8]
+        tex[..., 3] = np.where((xx + yy) % 2 == 0, 1.0, 0.1)
+        s.textures.append(tex)
+    else:
+        mask.base_colour_factor = np.array([1.0, 1.0, 1.0, 0.3], np.float32)
 
     def quad(material: int, vertical: bool) -> Primitive:
         pos = np.array([[-0.5, 0, -0.5], [0.5, 0, -0.5], [0.5, 0, 0.5], [-0.5, 0, 0.5]],
@@ -2585,7 +2605,9 @@ def wave_phase(device, prebuilt: dict, out_dir: Path) -> tuple:
     lane of every field bit-equal, or named by kernel, field and ulps as
     class i (<= 4 ulps); a class ii lane fails.  On the first waves of
     :data:`WAVE_TIMED` each kernel's first call is timed in a captured
-    graph against its plain version eagerly, with its bytes bound.
+    graph against its plain version eagerly, with its bytes bound, and
+    every alpha pass so.  Then the synthetic passes
+    (``check_torch_wave.synthetic``): a case that differs fails.
     ``prebuilt`` maps configs to tables the smoke already uploaded.
     Returns ({kernel: {config: times}}, {kernel: largest abs error})."""
     import check_torch_wave as ctw
@@ -2608,6 +2630,11 @@ def wave_phase(device, prebuilt: dict, out_dir: Path) -> tuple:
             if k in line.get("timing", {}):
                 times[k][name] = {**line["timing"][k],
                                   "launches_per_wave": line["launches"][k]}
+    line = ctw.synthetic(device, timing=True)
+    emit({"phase": "wave_synthetic", **line})
+    if line["differing"] or line["launches"] != line["checked"]:
+        raise AssertionError(f"wave synthetic: {line['differing']}, {line['launches']} "
+                             f"launches for {line['checked']} passes")
     return times, errs
 
 
@@ -2622,9 +2649,11 @@ def trace_phase(device, prebuilt: dict, out_dir: Path) -> tuple:
     ulps).  On the first waves of :data:`TRACE_TIMED` one call of each
     kernel is timed in a captured graph, its inputs not in L2, against its
     plain version eagerly, with its bytes bound, and the permutation against
-    ``index_select`` over the same columns.  ``prebuilt`` maps configs to tables the smoke already
-    uploaded.  Returns ({kernel: {config: times}}, {kernel: largest abs
-    error})."""
+    ``index_select`` over the same columns; every permutation launch so.
+    Then the synthetic permutations (``check_torch_trace.synthetic``): a
+    case that differs fails.  ``prebuilt`` maps configs to tables the smoke
+    already uploaded.  Returns ({kernel: {config: times}}, {kernel: largest
+    abs error})."""
     import check_torch_trace as ctt
     import check_torch_wave as ctw
 
@@ -2644,6 +2673,11 @@ def trace_phase(device, prebuilt: dict, out_dir: Path) -> tuple:
             errs[k] = max(errs[k], line["max_abs_err"][k])
             if k in line.get("timing", {}):
                 times[k][name] = {**line["timing"][k], "launches_per_wave": line["launches"][k]}
+    line = ctt.synthetic(device, timing=True)
+    emit({"phase": "trace_synthetic", **line})
+    if line["differing"] or line["launches"] != 2 * line["checked"] // 3:
+        raise AssertionError(f"trace synthetic: {line['differing']}, {line['launches']} "
+                             f"gathers and scatters for {line['checked']} cases")
     return times, errs
 
 

@@ -19,9 +19,13 @@ against the JAX package:
   forced-BVH Cornell box, and its stable permutation equal to ``jnp.argsort``'s;
 * the permutation (``permute``) in its three modes against the re-sort's
   former ``index_select`` / ``index_copy_`` / ``copy_`` and
-  ``_sort_wavefront`` against its former per-field gathers.
+  ``_sort_wavefront`` against its former per-field gathers; the plain
+  version on identity, reversed, block-shuffled and random permutations of
+  1, 3, 1,025 and 4,099 lanes of 1-, 4- and 8-byte columns, and
+  tools/check_torch_trace.py's synthetic check, both sides plain.
 
-Beside them: the column tables name ``csrc/trace.cu``'s enums in order; each
+Beside them: the column tables name ``csrc/trace.cu``'s enums in order, and
+the permutation's layout its constants; each
 kernel's byte count lists the lane columns its source names; with the
 wrappers routed to stubbed launches, a closest hit or an alpha pass runs a
 few aten ops beside its kernels and an instance step none; and a wrapper
@@ -29,7 +33,7 @@ whose launch fails raises and never runs its plain version;
 tools/check_torch_trace.py finds no lane with both sides plain, and times
 its kernels on copies of their inputs that span four times the L2.  Marked ``cuda``
 (they skip without a card): each kernel against its plain version on the
-card, bit for bit.
+card, bit for bit, the permutation also on the synthetic permutations.
 """
 
 import re
@@ -237,6 +241,70 @@ def test_permute_modes_match_the_index_ops(monkeypatch):
     assert not bool(got["active"][-1]) and bool(got["active"][0])  # dead lanes last
 
 
+PERM_KINDS = ("identity", "reversed", "blocks", "random")
+
+
+def _permutation(kind, n, seed):
+    """tools/check_torch_trace.py's permutation, from numpy: identity,
+    reversed, shuffled within 1,024-lane blocks, or random."""
+    r = np.random.default_rng(seed)
+    if kind == "identity":
+        p = np.arange(n)
+    elif kind == "reversed":
+        p = np.arange(n)[::-1].copy()
+    elif kind == "random":
+        p = r.permutation(n)
+    else:
+        p = np.argsort(np.arange(n) // 1024 + r.random(n), kind="stable")
+    return torch.as_tensor(p, dtype=torch.int64)
+
+
+@pytest.mark.parametrize("kind", PERM_KINDS)
+@pytest.mark.parametrize("n", [1, 3, 1025, 4099])
+def test_permute_reference_matches_the_index_ops(kind, n):
+    """The plain permutation of 1-, 4- and 8-byte columns against
+    ``index_select`` (gather), ``index_copy_`` (scatter) and ``copy_`` on
+    synthetic permutations, each lane checked against the permutation."""
+    r = np.random.default_rng(n)
+    cols = [torch.as_tensor(r.random(n) < 0.5), torch.as_tensor(r.random(n).astype(np.float32)),
+            torch.as_tensor(r.integers(-2**31, 2**31, n, dtype=np.int32)),
+            torch.as_tensor(r.integers(0, 2**40, n))]
+    assert [c.element_size() for c in cols] == [1, 4, 4, 8]
+    perm = _permutation(kind, n, seed=n + 1)
+    assert torch.equal(torch.sort(perm).values, torch.arange(n))
+    p = perm.numpy()
+    for got, c in zip(trace.permute_reference(cols, perm, "gather"), cols):
+        assert torch.equal(got, torch.index_select(c, 0, perm))
+        np.testing.assert_array_equal(got.numpy(), c.numpy()[p])
+    for got, c in zip(trace.permute_reference(cols, perm, "scatter"), cols):
+        assert torch.equal(got, torch.empty_like(c).index_copy_(0, perm, c))
+        np.testing.assert_array_equal(got.numpy()[p], c.numpy())
+    out = [torch.empty_like(c) for c in cols]
+    assert trace.permute_reference(cols, mode="copy", out=out) == out
+    assert all(torch.equal(a, b) for a, b in zip(out, cols))
+    # the wrapper on CPU tensors is the plain version
+    for got, c in zip(trace.permute(cols, perm), cols):
+        assert torch.equal(got, torch.index_select(c, 0, perm))
+
+
+def test_synthetic_check_finds_nothing_on_the_cpu(monkeypatch):
+    """tools/check_torch_trace.py's synthetic check with both sides plain:
+    every kind and mode at small counts, the tool's permutations true
+    permutations, its state the wave state's 21 column widths."""
+    import check_torch_trace as ctt
+
+    monkeypatch.setattr(ctt, "PERM_LANES", (1, 3, 1025, 4099))
+    out = ctt.synthetic(torch.device("cpu"))
+    assert out["checked"] == 4 * len(ctt.PERM_KINDS) * 3 and out["differing"] == []
+    cols = ctt._state_columns(5, torch.device("cpu"), seed=1)
+    assert sorted(c.element_size() for c in cols) == [1] * 2 + [4] * 17 + [8] * 2
+    for kind in ctt.PERM_KINDS:
+        p = ctt.permutation(kind, 3000, torch.device("cpu"), seed=2)
+        assert torch.equal(torch.sort(p).values, torch.arange(3000)), kind
+        if kind == "blocks":  # each lane stays in its 1,024-lane block
+            assert torch.equal(p // 1024, torch.arange(3000) // 1024)
+
+
 # ---------------------------------------------------------------------------
 # The source
 # ---------------------------------------------------------------------------
@@ -276,9 +344,32 @@ def test_slots_are_the_kernel_source_enums():
     assert "trace.cu" in {p.name for p in _ext.SOURCES}
     assert '#include "lane_math.cuh"' in src
     for k in ("hit_finish", "instance_step", "coherence_key", "permute"):
-        assert f"TRACE_LAUNCHER({k}_launch, {k}_kernel)" in src
+        grid = "permute_grid" if k == "permute" else "lane_grid"
+        assert f"TRACE_LAUNCHER({k}_launch, {k}_kernel, {grid})" in src
         assert _ext._SIGNATURES[f"{k}_launch"] == [_ext._I] + [_ext._P] * 4
     assert tint.LAUNCH_COUNTERS["trace"] is trace.LAUNCHES
+
+
+def _constants(src: str) -> dict:
+    """The ``constexpr int`` constants of a source, evaluated in order."""
+    out = {}
+    for name, expr in re.findall(r"constexpr int (\w+) = ([^;]+);", src):
+        out[name] = eval(expr, {}, dict(out))  # noqa: S307  (the source's own arithmetic)
+    return out
+
+
+def test_permute_layout_is_the_kernel_source_constants():
+    """ops/trace.py's permutation layout (a copy's chunk, 16 bytes a
+    thread; a copy's blocks an SM; columns) is csrc/trace.cu's, with the
+    kernel's launch bounds and its grids."""
+    src = SRC.read_text()
+    c = _constants(src)
+    assert (c["kCopyChunk"], c["kPermBlocksPerSm"], c["kCols"]) == (
+        trace.COPY_CHUNK, trace.PERMUTE_BLOCKS_PER_SM, trace.MAX_COLS)
+    assert c["kCopyChunk"] == 16 * c["kThreads"]
+    assert "__launch_bounds__(kThreads, kPermBlocksPerSm)" in src
+    assert "static_cast<long long>(sms[device]) * kPermBlocksPerSm" in src
+    assert "if (args.i[I_MODE] != kCopy) return lane_grid(args, device, blocks);" in src
 
 
 def _kernel_columns(src: str) -> dict:
@@ -584,3 +675,29 @@ def test_kernels_bit_equal_on_the_card(scene, monkeypatch):
     assert bool(launched["instance_step"]) == scene.startswith("instanced")
     if scene != "dense":
         assert launched["coherence_key"] == 1 and launched["permute"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", PERM_KINDS)
+@pytest.mark.parametrize("n", [1, 3, 1025, 4099, 524_287])
+def test_permute_kernel_bit_equal_on_synthetic_permutations(kind, n):
+    """The permutation kernel against its plain version on the card: a
+    wave state's 21 columns, and columns at odd offsets (no 4- or 16-byte
+    alignment), gathered, scattered and copied by each synthetic
+    permutation, every lane bit-equal, each gather and scatter launched."""
+    _card()
+    import check_torch_trace as ctt
+
+    dev = torch.device("cuda")
+    cols = ctt._state_columns(n, dev, seed=n)
+    odd = [torch.empty(n + 1, dtype=c.dtype, device=dev)[1:].copy_(c) for c in cols[12:16]]
+    perm = _permutation(kind, n, seed=n + 1).to(dev)
+    for cs in (cols, odd):
+        before = trace.LAUNCHES["permute"]
+        for mode in trace.PERMUTE_MODES:
+            p = None if mode == "copy" else perm
+            got = ctt._permute_out(cs, p, mode)
+            want = ctt._library_out(cs, p, mode)
+            for a, b in zip(got, want):
+                assert a.dtype == b.dtype and torch.equal(a, b), (mode, a.dtype)
+        assert trace.LAUNCHES["permute"] == before + 2

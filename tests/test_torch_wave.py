@@ -15,13 +15,18 @@ against the JAX package:
   candidates and loop states over tests/test_torch_alpha.py's stack, the
   textured glb and the instanced alpha scene: pending flags, triangle ids
   and seeds bit-equal, ``t`` and ``t_lo`` within rtol 1e-6 (the tolerance
-  test_torch_alpha.py states for t).
+  test_torch_alpha.py states for t); and so at pending shares of none, one
+  lane, ~1% and every lane, on the untextured stack, the textured glb and
+  the instanced alpha scene.
 
 Beside them: the wrappers' column tables name ``csrc/wave.cu``'s enums in
-order, the CPU wrapper writes the plain version's state over the loop's
-buffers, and a wrapper whose launch fails raises and never runs its plain
+order and the alpha commit's layout its constants, the CPU wrapper writes
+the plain version's state over the loop's buffers,
+tools/check_torch_wave.py's synthetic check finds nothing with both sides
+plain, and a wrapper whose launch fails raises and never runs its plain
 version.  Marked ``cuda`` (they skip without a card): each kernel against
-its plain version on the card, bit for bit.
+its plain version on the card, bit for bit, the alpha commit at each
+pending share.
 """
 
 import re
@@ -120,10 +125,10 @@ def _jax_commit(jint, jnp, jt, st, t_c, tri_c, u_c, v_c):
 
 def _alpha_tables(case, monkeypatch):
     """(JAX tables, port tables) of an alpha scene."""
-    if case == "alpha_stack":
+    if case in ("alpha_stack", "untextured_stack"):
         from test_torch_alpha import _tables
 
-        _, jt, _, tt = _tables()
+        _, jt, _, tt = _tables(with_texture=case == "alpha_stack")
         return jt, tt
     from vulkan_raytracer_tpu.scene import scenegraph as jsg
 
@@ -183,6 +188,82 @@ def test_alpha_commit_reference_matches_jax(case, monkeypatch):
     for k in LOOP:
         assert torch.equal(tst[k], got[k]), k
     assert int(count) == int(got["pending"].sum())
+
+
+#: Pending shares of a pass: none, one lane (None), ~1%, every lane.
+SHARES = (0.0, None, 0.01, 1.0)
+
+
+@pytest.mark.parametrize("share", SHARES, ids=["none", "one", "one_percent", "all"])
+@pytest.mark.parametrize("case", ["untextured_stack", "textured_glb", "alpha_instanced"])
+def test_alpha_commit_reference_matches_jax_at_pending_shares(case, share, monkeypatch):
+    """The plain commit against the JAX loop body on a pass with none, one,
+    ~1% or every lane pending, without textures, with them, and on an
+    instanced scene: pending flags, ids, seeds and the count bit-equal, t
+    and t_lo within rtol 1e-6; lanes not pending keep their state."""
+    jnp = pytest.importorskip("jax.numpy")
+    from vulkan_raytracer_tpu.render import integrator as jint
+
+    jt, tt = _alpha_tables(case, monkeypatch)
+    assert tt.has_textures == (case != "untextured_stack")
+    ids = (tt.inst.num_proto_tris * tt.inst.num_instances if tt.inst is not None
+           else tt.num_triangles)
+    r = np.random.default_rng(11)
+    n = 3001
+    tri_c = np.where(r.random(n) < 0.15, -1, r.integers(0, ids, n)).astype(np.int32)
+    t_c = np.where(tri_c >= 0, r.uniform(0.1, 5.0, n), np.inf).astype(np.float32)
+    u_c = r.random(n).astype(np.float32)
+    v_c = (r.random(n) * (1 - u_c)).astype(np.float32)
+    pending = np.zeros(n, bool)
+    if share is None:
+        pending[n // 2] = True
+        tri_c[n // 2] = max(int(tri_c[n // 2]), 0)  # with a candidate
+    else:
+        pending = r.random(n) < share
+    st = dict(t_lo=r.uniform(0.0, 1.0, n).astype(np.float32), pending=pending,
+              t=np.full(n, np.inf, np.float32), tri=np.full(n, -1, np.int32),
+              u=np.zeros(n, np.float32), v=np.zeros(n, np.float32),
+              seed=r.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32))
+    cand = (t_c, tri_c, u_c, v_c)
+    want = _jax_commit(jint, jnp, jt, {k: jnp.asarray(v) for k, v in st.items()},
+                       *map(jnp.asarray, cand))
+    tst = {k: torch.as_tensor(v.astype(np.int64) if k == "seed" else v) for k, v in st.items()}
+    got = wave.alpha_commit_reference(tt, tst, *map(torch.as_tensor, cand))
+    for k in ("pending", "tri", "seed"):
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]).astype(
+            got[k].numpy().dtype), err_msg=k)
+    for k in ("t", "t_lo", "u", "v"):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), rtol=T_RTOL, err_msg=k)
+    idle = ~pending  # not pending: untouched
+    for k in LOOP:
+        np.testing.assert_array_equal(got[k].numpy()[idle], tst[k].numpy()[idle], err_msg=k)
+    assert not got["pending"].numpy()[idle].any()
+    count = torch.zeros((), dtype=torch.int64)
+    wave.alpha_commit(tt, tst, *map(torch.as_tensor, cand), count)
+    assert int(count) == int(got["pending"].sum()) == int(np.asarray(want["pending"]).sum())
+    if share == 1.0:
+        assert 0 < int(count) < n
+
+
+def test_synthetic_check_finds_nothing_on_the_cpu(monkeypatch):
+    """tools/check_torch_wave.py's synthetic passes with both sides plain:
+    every share over the alpha gallery instanced, flattened and untextured
+    at small counts; the shares as stated, candidates kept and rejected."""
+    import check_torch_wave as ctw
+
+    monkeypatch.setattr(ctw, "SYNTHETIC_LANES", (1, 1025, 4097, 0))
+    out = ctw.synthetic(torch.device("cpu"))
+    assert out["checked"] == 3 * 3 * len(ctw.PENDING_SHARES) and out["differing"] == []
+    import chip_smoke
+
+    tables = chip_smoke.alpha_gallery_scene(textured=False).upload("cpu", instancing=True)
+    assert tables.has_alpha and not tables.has_textures
+    for share, want in zip(ctw.PENDING_SHARES, (0, 1, 41, 4097)):
+        st, t_c, tri_c, u_c, v_c = ctw.synthetic_pass(tables, 4097, share, seed=3)
+        assert abs(int(st["pending"].sum()) - want) <= max(1, want // 3), share
+        if share == 1.0:
+            nxt = wave.alpha_commit_reference(tables, st, t_c, tri_c, u_c, v_c)
+            assert 0 < int(nxt["pending"].sum()) < int((tri_c >= 0).sum())
 
 
 def _enum(src: str, name: str) -> tuple:
@@ -267,8 +348,15 @@ def test_alpha_commit_kernel_bit_equal(instancing):
     """``alpha_commit_kernel`` against its plain version on the card, on
     random candidates over the instanced alpha scene and its flattened
     upload: the state it writes over the loop's buffers and its count of
-    pending lanes bit-equal."""
+    pending lanes bit-equal.  Then tools/check_torch_wave.py's synthetic
+    passes: every pending share at 1, 1,025 and 524,287 lanes over the alpha
+    gallery instanced, flattened and untextured."""
     _card()
+    if instancing:
+        import check_torch_wave as ctw
+
+        out = ctw.synthetic(torch.device("cuda"))
+        assert out["differing"] == [] and out["launches"] == out["checked"] == 36
     import test_torch_instancing
 
     scene, _ = test_torch_instancing.alpha_instanced_scene()

@@ -3,7 +3,7 @@
 their plain versions on real waves.
 
     python3 tools/check_torch_trace.py [--configs cfg1,gltf147k,...] [--timing]
-        [--out FILE.json] [--device cuda|cpu]
+        [--synthetic] [--root DIR] [--out FILE.json] [--device cuda|cpu]
 
 Run from the root of a checkout.  For each config, the first wave
 ``render_image`` would run is rendered once, eagerly
@@ -30,11 +30,29 @@ inputs in L2, so its bytes bound (``trace.hit_finish_bytes`` etc.) at the
 card's memory rate is a lower limit on its time.  Its plain version runs
 eagerly on the same copies in turn; beside the permutation,
 ``torch.index_select`` over the same columns, captured the same way
-(``library_ms``).
+(``library_ms``).  The key is also timed without :func:`trace.root_bounds`'
+torch ops (on an instanced scene a few ops before the launch), and those
+ops apart.  Then every permutation launch of the wave is timed the same
+way (each gather and scatter, and the copy the check makes of each
+gather's columns, standing for a program's state copies), beside its
+plain version captured alike (``index_select``, ``index_copy_``,
+``copy_``: the library's calls), grouped by (mode, columns, lanes): the
+``permute_launches`` table, whose ``lost_us`` is the time above the
+bounds, summed over the wave.
+
+With ``--synthetic`` the permutation is held bit-equal to its plain version
+on permutations made from a seed (identity, reversed, shuffled within
+1,024-lane blocks, random) of a wave state's 21 columns (1, 4 and 8 bytes)
+at 1, 3, 1,025, 4,099 and 524,288 lanes, in each mode, and on a card timed
+at 524,288 lanes as above: :func:`synthetic`.
+
+``--root DIR`` checks and times the package of another checkout (the
+parent commit's, unpacked under ``out/``) with this tree's tool: A/B in
+turns on one card.
 
 One JSON line per config; the exit code is 1 where a lane differs.
-``chip_smoke.py`` runs :func:`check_config` for its configs.  It imports
-neither jax nor the JAX package.
+``chip_smoke.py`` runs :func:`check_config` for its configs and
+:func:`synthetic`.  It imports neither jax nor the JAX package.
 """
 
 from __future__ import annotations
@@ -56,6 +74,10 @@ CONFIGS = ("cfg1", "cfg2", "cfg3", "gltf147k", "gallery", "cfg4", "textured", "s
 #: The bytes the copies of a timed call's lane inputs span: four times the
 #: H100's 50 MB L2.
 COLD_BYTES = 4 * 50 * 10**6
+#: The synthetic permutations' kinds and lane counts (:func:`synthetic`);
+#: the last count is timed on a card.
+PERM_KINDS = ("identity", "reversed", "blocks", "random")
+PERM_LANES = (1, 3, 1025, 4099, 524288)
 
 
 def _clone(x):
@@ -85,8 +107,9 @@ class Compare:
         self.calls = {k: 0 for k in KERNELS}
         self.max_abs = {k: 0.0 for k in KERNELS}
         self.modes = {}  # "kernel mode" -> calls
-        #: with ``keep``, the calls timed (see the module's docstring)
-        self.keep, self.kept = keep, {}
+        #: with ``keep``, the calls timed (see the module's docstring), and
+        #: every permutation launch's (columns, permutation, mode)
+        self.keep, self.kept, self.permutes = keep, {}, []
 
     def _compare(self, kernel: str, got, want) -> None:
         import torch
@@ -173,14 +196,20 @@ class Compare:
                 plain = trace.permute_reference(cols, mode="copy", out=[_clone(c) for c in out])
                 got = saved["permute"](cols, mode="copy", out=out)
                 self._compare("permute", tuple(got), tuple(plain))
+                if self.keep:
+                    self.permutes.append((cols, None, mode))
                 return got
             got = saved["permute"](cols, perm, mode)
             self._compare("permute", tuple(got), tuple(trace.permute_reference(cols, perm, mode)))
+            if self.keep:
+                self.permutes.append((cols, perm, mode))
             if mode == "gather":  # the copy mode on the same columns
                 self._mode("permute copy")
                 copies = saved["permute"](got, mode="copy", out=[torch.empty_like(c) for c in got])
                 self._compare("permute", tuple(copies), tuple(trace.permute_reference(
                     got, mode="copy", out=[torch.empty_like(c) for c in got])))
+                if self.keep:
+                    self.permutes.append((got, None, "copy"))
                 kept = self.kept.get("permute")
                 if self.keep and (kept is None or trace.permute_bytes(cols, mode)
                                   > trace.permute_bytes(kept[0], kept[2])):
@@ -242,6 +271,68 @@ def _plain_ms(fn, copies: list, reps: int = 3) -> float:
     return _event_ms(lambda: fn(*next(turn)), reps)
 
 
+def _permute_out(cols, perm, mode):
+    """A :func:`trace.permute` call of ``mode`` (a copy into new columns)."""
+    import torch
+
+    from vulkan_raytracer_tpu_torch.ops import trace
+
+    out = [torch.empty_like(c) for c in cols] if mode == "copy" else None
+    return trace.permute(cols, perm, mode, out)
+
+
+def _library_out(cols, perm, mode):
+    """The library's calls for the same permutation: ``index_select``,
+    ``index_copy_`` or ``copy_`` a column (``trace.permute_reference``)."""
+    import torch
+
+    from vulkan_raytracer_tpu_torch.ops import trace
+
+    out = [torch.empty_like(c) for c in cols] if mode == "copy" else None
+    return trace.permute_reference(cols, perm, mode, out)
+
+
+def time_permute(cols, perm, mode: str) -> dict:
+    """One permutation launch timed cold (:func:`_cold_ms`), beside the
+    library's calls captured alike, with its bytes bound."""
+    from chip_smoke import HBM_BYTES_PER_S
+
+    from vulkan_raytracer_tpu_torch.ops import trace
+
+    nbytes = trace.permute_bytes(cols, mode)
+    copies = _copies((cols, perm, mode), nbytes)
+    return {"ms": _cold_ms(_permute_out, copies), "library_ms": _cold_ms(_library_out, copies),
+            "bytes": nbytes, "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S}
+
+
+def permute_table(launches: list) -> dict:
+    """Every permutation launch of a wave timed (:func:`time_permute`),
+    grouped by (mode, columns, lanes), in µs: each group's launches, each
+    launch's time, their sum, the bounds' and the library's sums, and the
+    time above the bounds; the wave's sums."""
+    import torch
+
+    groups = {}
+    with torch.inference_mode():
+        for cols, perm, mode in launches:
+            t = time_permute(cols, perm, mode)
+            key = (mode, len(cols), cols[0].shape[0])
+            g = groups.setdefault(key, {"mode": mode, "columns": len(cols),
+                                        "lanes": cols[0].shape[0], "launches": 0, "us": [],
+                                        "bound_us_sum": 0.0, "library_us_sum": 0.0})
+            g["launches"] += 1
+            g["us"].append(1e3 * t["ms"])
+            g["bound_us_sum"] += 1e3 * t["bound_ms"]
+            g["library_us_sum"] += 1e3 * t["library_ms"]
+    rows = []
+    for g in groups.values():
+        g["us_sum"] = sum(g["us"])
+        g["lost_us"] = g["us_sum"] - g["bound_us_sum"]
+        rows.append(g)
+    return {"groups": rows, **{k: sum(g[k] for g in rows) for k in (
+        "launches", "us_sum", "bound_us_sum", "lost_us", "library_us_sum")}}
+
+
 def time_kept(kept: dict) -> dict:
     """Each kept call's device time on the card per launch, its plain
     version's, its bytes bound and, for the permutation, ``index_select``'s
@@ -280,8 +371,18 @@ def time_kept(kept: dict) -> dict:
             n = args[3].shape[0]
             nbytes = trace.coherence_key_bytes(n)
             copies = _copies(args, nbytes)
+            ms = _cold_ms(trace.coherence_key, copies)
+            alone, bounds_ms = ms, 0.0  # a BVH's root box: views, no op
+            if args[0].inst is not None:  # the union of the instance boxes: torch ops
+                root_bounds, lo_hi = trace.root_bounds, trace.root_bounds(args[0])
+                trace.root_bounds = lambda tables: lo_hi  # the launch alone
+                try:
+                    alone = _cold_ms(trace.coherence_key, copies)
+                finally:
+                    trace.root_bounds = root_bounds
+                bounds_ms = _cold_ms(lambda tables, *_: root_bounds(tables), copies)
             out["coherence_key"] = {
-                "ms": _cold_ms(trace.coherence_key, copies),
+                "ms": ms, "kernel_alone_ms": alone, "root_bounds_ms": bounds_ms,
                 "plain_ms": _plain_ms(trace.coherence_key_reference, copies),
                 "bytes": nbytes, "lanes": n}
         if "permute" in kept:
@@ -333,7 +434,87 @@ def check_config(name: str, spec, device, tables=None, timing: bool = False) -> 
             "seconds": time.perf_counter() - t0, **cmp.summary()}
     if timing:
         line["timing"] = time_kept(cmp.kept)
+        if cmp.permutes:
+            line["permute_launches"] = permute_table(cmp.permutes)
     return line
+
+
+def _state_columns(n: int, device, seed: int) -> list:
+    """A wave state's 21 columns of random values, in its fields' order
+    (origin, direction, value, throughput: 4 bytes; seed: 8; wavelength,
+    material pdf: 4; active: 1; sky weight: 4; preview: 1; slot: 8)."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def f32(k):
+        return [torch.randn(n, generator=g, device=device) for _ in range(k)]
+
+    def i64():
+        return torch.randint(0, 2**40, (n,), generator=g, device=device)
+
+    def flag():
+        return torch.rand(n, generator=g, device=device) < 0.5
+
+    return [*f32(12), i64(), *f32(2), flag(), *f32(3), flag(), i64()]
+
+
+def permutation(kind: str, n: int, device, seed: int):
+    """An int64 permutation of ``n`` lanes: "identity", "reversed",
+    "blocks" (shuffled within 1,024-lane blocks) or "random"."""
+    import torch
+
+    if kind == "identity":
+        return torch.arange(n, device=device)
+    if kind == "reversed":
+        return torch.arange(n - 1, -1, -1, device=device)
+    g = torch.Generator(device=device).manual_seed(seed)
+    if kind == "random":
+        return torch.randperm(n, generator=g, device=device)
+    keys = torch.arange(n, device=device) // 1024 + torch.rand(n, generator=g, device=device)
+    return torch.argsort(keys)
+
+
+def synthetic(device, timing: bool = False) -> dict:
+    """The permutation against its plain version on synthetic permutations
+    (:data:`PERM_KINDS`) of a wave state's columns at :data:`PERM_LANES`, in
+    each mode: every column bit-equal, else its (lanes, kind, mode, column)
+    is listed.  With ``timing`` (a card) each kind and mode at the largest
+    count is timed (:func:`time_permute`), and each mode's spread: its
+    slowest kind's time over its fastest's."""
+    import torch
+
+    from vulkan_raytracer_tpu_torch.ops import trace
+
+    differing, checked, launches = [], 0, trace.LAUNCHES["permute"]
+    for n in PERM_LANES:
+        cols = _state_columns(n, device, seed=n)
+        for kind in PERM_KINDS:
+            perm = permutation(kind, n, device, seed=n + 1)
+            for mode in trace.PERMUTE_MODES:
+                p = None if mode == "copy" else perm
+                got = _permute_out(cols, p, mode)
+                want = _library_out(cols, p, mode)
+                checked += 1
+                differing += [{"lanes": n, "kind": kind, "mode": mode, "column": j}
+                              for j, (a, b) in enumerate(zip(got, want))
+                              if a.dtype != b.dtype or not torch.equal(a, b)]
+    out = {"checked": checked, "differing": differing,
+           "launches": trace.LAUNCHES["permute"] - launches}
+    if timing:
+        n = PERM_LANES[-1]
+        cols = _state_columns(n, device, seed=n)
+        times = {mode: {} for mode in trace.PERMUTE_MODES}
+        with torch.inference_mode():
+            for kind in PERM_KINDS:
+                perm = permutation(kind, n, device, seed=n + 1)
+                for mode in ("gather", "scatter"):
+                    times[mode][kind] = time_permute(cols, perm, mode)
+            times["copy"]["any"] = time_permute(cols, None, "copy")
+        out["timing"] = {"lanes": n, "columns": len(cols), "by_mode": times, "spread": {
+            mode: max(t["ms"] for t in by.values()) / min(t["ms"] for t in by.values())
+            for mode, by in times.items()}}
+    return out
 
 
 def main(argv=None) -> int:
@@ -341,11 +522,14 @@ def main(argv=None) -> int:
     p.add_argument("--configs", default=",".join(CONFIGS))
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     p.add_argument("--timing", action="store_true",
-                   help="time one call of each kernel against its plain version (a card)")
+                   help="time one call of each kernel against its plain version, and every "
+                        "permutation launch of each wave (a card)")
+    p.add_argument("--synthetic", action="store_true",
+                   help="hold the permutation on synthetic permutations (timed with --timing)")
+    p.add_argument("--root", default=str(ROOT), help="the checkout whose package is checked")
     p.add_argument("--out", help="write every line here as well")
     args = p.parse_args(argv)
-    sys.path.insert(0, str(ROOT))
-    sys.path.insert(0, str(ROOT / "tools"))
+    _import_root(args.root)
     import torch
 
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -358,14 +542,35 @@ def main(argv=None) -> int:
     lines = []
     with tempfile.TemporaryDirectory() as tmp:
         specs = configs(Path(tmp))
-        for name in args.configs.split(","):
-            line = check_config(name, specs[name], device, timing=args.timing)
+        for name in filter(None, args.configs.split(",")):
+            line = {"root": args.root, **check_config(name, specs[name], device,
+                                                      timing=args.timing)}
             lines.append(line)
             print(json.dumps(line), flush=True)
             bad |= bool(line["differing_lanes"]) or not line["finite"]
+    if args.synthetic:
+        line = {"root": args.root, "synthetic": synthetic(device, timing=args.timing)}
+        lines.append(line)
+        print(json.dumps(line), flush=True)
+        bad |= bool(line["synthetic"]["differing"])
     if args.out:
         Path(args.out).write_text("\n".join(json.dumps(x) for x in lines) + "\n")
     return 1 if bad else 0
+
+
+def _import_root(root: str) -> None:
+    """This tree's tools and ``chip_smoke.py`` (its scenes), then ``root``'s
+    package ahead of this tree's on the path; check that it is the one
+    imported."""
+    sys.path[:0] = [str(ROOT), str(ROOT / "tools")]
+    import chip_smoke  # noqa: F401  (this tree's, whatever the root)
+
+    pkg_root = Path(root).resolve()
+    sys.path.insert(0, str(pkg_root))
+    import vulkan_raytracer_tpu_torch as pkg
+
+    if not Path(pkg.__file__).resolve().is_relative_to(pkg_root):
+        raise RuntimeError(f"imported {pkg.__file__}, not the package under {pkg_root}")
 
 
 if __name__ == "__main__":

@@ -3,7 +3,7 @@
 waves.
 
     python3 tools/check_torch_wave.py [--configs cfg1,gltf147k,...] [--timing]
-        [--out FILE.json] [--device cuda|cpu]
+        [--synthetic] [--root DIR] [--out FILE.json] [--device cuda|cpu]
 
 Run from the root of a checkout.  For each config, the first wave
 ``render_image`` would run is rendered once, eagerly
@@ -27,12 +27,23 @@ inputs that span ``check_torch_trace.COLD_BYTES``, four times the card's L2
 restored and the L2 flushed by a ``COLD_BYTES`` write before each timed
 replay, :func:`_commit_ms`), against its plain version eagerly, with its
 bytes bound (``wave.primary_rays_bytes``, ``wave.alpha_commit_bytes``) at
-the card's memory rate.
+the card's memory rate.  Then every alpha pass of the wave is timed so,
+with its pending lanes and its bound: the ``alpha_passes`` table, whose
+``lost_us`` is the time above the bounds, summed over the wave.
+
+With ``--synthetic`` the alpha commit is held bit-equal to its plain
+version on candidates and loop states made from a seed at pending shares
+of none, one lane, ~1% and every lane, over the smoke's alpha gallery
+instanced and flattened and its untextured twin, at 1, 1,025 and 524,287
+lanes (and on a card timed cold at 524,288): :func:`synthetic`.
+
+``--root DIR`` checks and times the package of another checkout (the
+parent commit's, unpacked under ``out/``) with this tree's tool.
 
 One JSON line per config; the exit code is 1 where a lane differs
 (``--allow-class-i`` allows class i).  ``chip_smoke.py`` runs
-:func:`check_config` for its configs.  It imports neither jax nor the JAX
-package.
+:func:`check_config` for its configs and :func:`synthetic`.  It imports
+neither jax nor the JAX package.
 """
 
 from __future__ import annotations
@@ -50,6 +61,10 @@ KERNELS = ("primary_rays", "alpha_commit")
 FIRST = 8  # differing lanes listed per config
 CONFIGS = ("cfg1", "cfg2", "cfg3", "cfg4", "cfg5", "gltf147k", "textured", "soup", "gallery",
            "alpha_gallery")
+#: The synthetic passes' pending shares (None: one lane) and lane counts
+#: (:func:`synthetic`); the last count is timed on a card.
+PENDING_SHARES = (0.0, None, 0.01, 1.0)
+SYNTHETIC_LANES = (1, 1025, 524287, 524288)
 
 
 class Compare:
@@ -62,8 +77,9 @@ class Compare:
         self.calls = {k: 0 for k in KERNELS}
         self.max_abs = {k: 0.0 for k in KERNELS}
         self.pending = []  # the lanes pending at each commit call
-        #: with ``keep``, each kernel's first call: kernel -> its arguments
-        self.keep, self.kept = keep, {}
+        #: with ``keep``, each kernel's first call: kernel -> its arguments;
+        #: and every commit call's
+        self.keep, self.kept, self.commits = keep, {}, []
 
     def _compare(self, kernel: str, got, want) -> None:
         import torch
@@ -115,8 +131,9 @@ class Compare:
             want = wave.alpha_commit_reference(tables, before, t_c, tri_c, u_c, v_c)
             if count is None:
                 count = torch.zeros((), dtype=torch.int64, device=tri_c.device)
-            if self.keep and "alpha_commit" not in self.kept:
-                self.kept["alpha_commit"] = (tables, before, t_c, tri_c, u_c, v_c, want)
+            if self.keep:
+                self.commits.append((tables, before, t_c, tri_c, u_c, v_c, want))
+                self.kept.setdefault("alpha_commit", self.commits[0])
             self.pending.append(int(before["pending"].sum()))
             commit(tables, st, t_c, tri_c, u_c, v_c, count)
             self._compare("alpha_commit", (st, count.reshape(1)),
@@ -159,22 +176,20 @@ def configs(tmp: Path) -> dict:
     return out
 
 
-def _commit_ms(tables, before, t_c, tri_c, u_c, v_c, nbytes: int, reps: int) -> float:
+def _commit_ms(tables, before, t_c, tri_c, u_c, v_c, reps: int = 20) -> float:
     """Device ms an alpha commit: ``reps`` commits in one captured CUDA
-    graph, each on its own copy of the pass's state and candidate hit (as
-    many copies as make ``check_torch_trace.COLD_BYTES``, at least
-    ``reps``); before each timed replay every copy's state is restored and
-    a buffer of ``COLD_BYTES`` written, so no commit finds its inputs in L2.
-    The mean of three replays."""
+    graph, each on its own copy of the pass's state and candidate hit;
+    before each timed replay every copy's state is restored and a buffer of
+    ``check_torch_trace.COLD_BYTES`` written, so no commit finds its inputs
+    in L2.  The mean of three replays."""
     import torch
     from check_torch_trace import COLD_BYTES
 
     from vulkan_raytracer_tpu_torch.ops import wave
 
-    n = max(reps, -(-COLD_BYTES // nbytes))
     copies = [({k: v.clone() for k, v in before.items()}, t_c.clone(), tri_c.clone(),
                u_c.clone(), v_c.clone(), torch.zeros((), dtype=torch.int64, device=tri_c.device))
-              for _ in range(n)]
+              for _ in range(reps)]
 
     def restore():
         for st, *_ in copies:
@@ -224,21 +239,47 @@ def time_kept(kept: dict, reps: int = 20, plain_reps: int = 3) -> dict:
                 "bytes": nbytes, "lanes": lanes.shape[0] * samples.shape[0]}
         if "alpha_commit" in kept:
             tables, before, t_c, tri_c, u_c, v_c, want = kept["alpha_commit"]
-            ti = torch.clamp_min(tri_c, 0)
-            if tables.inst is not None:
-                ti, _ = tables.inst.decode(ti)
-            blend = before["pending"] & (tri_c >= 0) & (tables.alpha.mode[ti] == 2)
-            nbytes = wave.alpha_commit_bytes(before, tri_c, want, blend)
             out["alpha_commit"] = {
-                "ms": _commit_ms(tables, before, t_c, tri_c, u_c, v_c, nbytes, reps),
+                "ms": _commit_ms(tables, before, t_c, tri_c, u_c, v_c, reps),
                 "plain_ms": _event_ms(
                     lambda: wave.alpha_commit_reference(tables, before, t_c, tri_c, u_c, v_c),
                     plain_reps),
-                "bytes": nbytes, "lanes": tri_c.shape[0],
+                "bytes": commit_bytes(*kept["alpha_commit"]), "lanes": tri_c.shape[0],
                 "pending": int(before["pending"].sum())}
     for t in out.values():
         t.update(bound_ms=1e3 * t["bytes"] / HBM_BYTES_PER_S, bound_by="bytes")
     return out
+
+
+def commit_bytes(tables, before, t_c, tri_c, u_c, v_c, want) -> int:
+    """``wave.alpha_commit_bytes`` of one pass, its BLEND candidates found
+    from the tables."""
+    import torch
+
+    from vulkan_raytracer_tpu_torch.ops import wave
+
+    ti = torch.clamp_min(tri_c, 0)
+    if tables.inst is not None:
+        ti, _ = tables.inst.decode(ti)
+    blend = before["pending"] & (tri_c >= 0) & (tables.alpha.mode[ti] == 2)
+    return wave.alpha_commit_bytes(before, tri_c, want, blend)
+
+
+def pass_table(commits: list) -> dict:
+    """Every alpha pass of a wave timed cold (:func:`_commit_ms`), in µs,
+    with its pending lanes and bytes bound; the sums and the time above the
+    bounds."""
+    import torch
+    from chip_smoke import HBM_BYTES_PER_S
+
+    rows = []
+    with torch.inference_mode():
+        for k, call in enumerate(commits):
+            bound = 1e6 * commit_bytes(*call) / HBM_BYTES_PER_S
+            rows.append({"pass": k, "pending": int(call[1]["pending"].sum()),
+                         "us": 1e3 * _commit_ms(*call[:6]), "bound_us": bound})
+    us, bound = sum(r["us"] for r in rows), sum(r["bound_us"] for r in rows)
+    return {"passes": rows, "us_sum": us, "bound_us_sum": bound, "lost_us": us - bound}
 
 
 def check_config(name: str, spec, device, tables=None, timing: bool = False) -> dict:
@@ -272,7 +313,90 @@ def check_config(name: str, spec, device, tables=None, timing: bool = False) -> 
             "seconds": time.perf_counter() - t0, **cmp.summary()}
     if timing:
         line["timing"] = time_kept(cmp.kept)
+        if cmp.commits:
+            line["alpha_passes"] = pass_table(cmp.commits)
     return line
+
+
+def synthetic_pass(tables, n: int, share, seed: int):
+    """One alpha pass's inputs over ``tables``, made from ``seed``: the loop's
+    state (``share`` of the lanes pending; None: one lane) and candidates
+    (15% none, the rest any triangle or encoded id)."""
+    import torch
+
+    dev = tables.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ids = (tables.inst.num_proto_tris * tables.inst.num_instances if tables.inst is not None
+           else tables.num_triangles)
+
+    def rand():
+        return torch.rand(n, generator=g, device=dev)
+
+    tri_c = torch.where(rand() < 0.15, -1, torch.randint(0, ids, (n,), generator=g, device=dev,
+                                                         dtype=torch.int32)).int()
+    t_c = torch.where(tri_c >= 0, rand() * 4, torch.inf)
+    u_c = rand()
+    v_c = rand() * (1 - u_c)
+    if share is None:
+        pending = torch.zeros(n, dtype=torch.bool, device=dev)
+        pending[n // 2] = True
+    else:
+        pending = rand() < share
+    st = dict(t_lo=rand(), pending=pending, t=torch.full((n,), torch.inf, device=dev),
+              tri=torch.full((n,), -1, dtype=torch.int32, device=dev),
+              u=torch.zeros(n, device=dev), v=torch.zeros(n, device=dev),
+              seed=torch.randint(0, 2**32, (n,), generator=g, device=dev))
+    return st, t_c, tri_c, u_c, v_c
+
+
+def synthetic(device, timing: bool = False) -> dict:
+    """The alpha commit against its plain version on synthetic passes
+    (:func:`synthetic_pass`) at :data:`PENDING_SHARES` and
+    :data:`SYNTHETIC_LANES` over the smoke's alpha gallery (a MASK texture
+    and a BLEND row) uploaded instanced and flattened and its untextured
+    twin: the state written over the loop's buffers and the count of
+    pending lanes bit-equal, else the case is listed.  With ``timing`` (a
+    card) each share at the largest count is timed cold over the instanced
+    gallery (:func:`_commit_ms`)."""
+    import chip_smoke
+    import torch
+
+    from vulkan_raytracer_tpu_torch.ops import wave
+
+    scenes = {"instanced": chip_smoke.alpha_gallery_scene().upload(device, instancing=True),
+              "flattened": chip_smoke.alpha_gallery_scene().upload(device, instancing=False),
+              "untextured": chip_smoke.alpha_gallery_scene(textured=False).upload(
+                  device, instancing=True)}
+    differing, checked, launches = [], 0, wave.LAUNCHES["alpha_commit"]
+    for name, tables in scenes.items():
+        for n in SYNTHETIC_LANES[:-1]:
+            for s, share in enumerate(PENDING_SHARES):
+                st, *cand = synthetic_pass(tables, n, share, seed=n + s)
+                want = wave.alpha_commit_reference(tables, st, *cand)
+                count = torch.full((), 99, dtype=torch.int64, device=device)
+                wave.alpha_commit(tables, st, *cand, count)
+                checked += 1
+                fields = [k for k in want if not torch.equal(st[k], want[k])]
+                if fields or int(count) != int(want["pending"].sum()):
+                    differing.append({"scene": name, "lanes": n, "share": share,
+                                      "fields": fields, "count": int(count)})
+    out = {"checked": checked, "differing": differing,
+           "launches": wave.LAUNCHES["alpha_commit"] - launches}
+    if timing:
+        from chip_smoke import HBM_BYTES_PER_S
+
+        n, tables = SYNTHETIC_LANES[-1], scenes["instanced"]
+        rows = []
+        with torch.inference_mode():
+            for s, share in enumerate(PENDING_SHARES):
+                st, *cand = synthetic_pass(tables, n, share, seed=s)
+                want = wave.alpha_commit_reference(tables, st, *cand)
+                rows.append({"share": share, "pending": int(st["pending"].sum()),
+                             "us": 1e3 * _commit_ms(tables, st, *cand),
+                             "bound_us": 1e6 * commit_bytes(tables, st, *cand, want)
+                             / HBM_BYTES_PER_S})
+        out["timing"] = {"lanes": n, "scene": "instanced", "by_share": rows}
+    return out
 
 
 def main(argv=None) -> int:
@@ -281,11 +405,17 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     p.add_argument("--allow-class-i", action="store_true")
     p.add_argument("--timing", action="store_true",
-                   help="time each kernel's first call against its plain version (a card)")
+                   help="time each kernel's first call against its plain version, and every "
+                        "alpha pass of each wave (a card)")
+    p.add_argument("--synthetic", action="store_true",
+                   help="hold the alpha commit on synthetic passes (timed with --timing)")
+    p.add_argument("--root", default=str(ROOT), help="the checkout whose package is checked")
     p.add_argument("--out", help="write every line here as well")
     args = p.parse_args(argv)
-    sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(ROOT / "tools"))
+    from check_torch_trace import _import_root
+
+    _import_root(args.root)
     import torch
 
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -296,13 +426,19 @@ def main(argv=None) -> int:
     lines = []
     with tempfile.TemporaryDirectory() as tmp:
         specs = configs(Path(tmp))
-        for name in args.configs.split(","):
-            line = check_config(name, specs[name], device, timing=args.timing)
+        for name in filter(None, args.configs.split(",")):
+            line = {"root": args.root, **check_config(name, specs[name], device,
+                                                      timing=args.timing)}
             lines.append(line)
             print(json.dumps(line), flush=True)
             bad |= bool(line["by_class"]["ii"] or (line["by_class"]["i"]
                                                    and not args.allow_class_i))
             bad |= not line["finite"]
+    if args.synthetic:
+        line = {"root": args.root, "synthetic": synthetic(device, timing=args.timing)}
+        lines.append(line)
+        print(json.dumps(line), flush=True)
+        bad |= bool(line["synthetic"]["differing"])
     if args.out:
         Path(args.out).write_text("\n".join(json.dumps(x) for x in lines) + "\n")
     return 1 if bad else 0

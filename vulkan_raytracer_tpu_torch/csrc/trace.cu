@@ -42,13 +42,28 @@
 // a gather or a scatter never runs in place (one thread's write would race
 // another thread's read).
 //
+// permute_kernel moves a gather's or a scatter's lanes a thread a lane, every
+// column, the column loop unrolled so that its loads all issue before the
+// first store (measured faster on real waves than column-major items of
+// four neighbouring lanes a thread with 16-byte stores, and than the same
+// body on a persistent grid: PERF.md, PR 19).  A copy runs on a persistent
+// grid (kPermBlocksPerSm blocks an SM, from the SM count at launch), each
+// block taking every gridDim.x-th item of kCopyChunk bytes of one column,
+// 16 a thread, column after column: one 16-byte load and store a thread
+// where both ends are aligned, byte by byte elsewhere and at the ragged
+// end.
+//
 // What bounds them.  Bytes, a few dozen a lane: the finish reads the hit and,
 // where something was hit, the ray (28 bytes) and writes 16; a step reads
 // the ray and the running state and writes the next launch's 6 ray columns
 // and its bound (~60 bytes); the key reads the ray and a flag and writes 4;
 // the permutation moves each column twice (and the permutation's 8 bytes).
 // At 3.35 TB/s a 524,288-lane wave's finish or key is ~10 us, a re-sort's
-// gather of the 21-column state (72 bytes a lane) ~23 us.
+// gather of the 21-column state (72 bytes a lane) ~23 us.  A gather's or a
+// scatter's random side costs one L2 request a lane and column (a 32-byte
+// sector for 1 to 8 useful bytes) in either order, so where the permutation
+// scatters lanes far apart the L2's request rate, not device memory, is
+// what bounds it.
 //
 // Numerics: those of csrc/lane_math.cuh under --fmad=false.  Products and
 // sums in the plain version's order (a dot is ((x*x') + (y*y')) + (z*z'), an
@@ -67,6 +82,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kCols = 24;  // columns one permute_kernel launch moves at most
+constexpr int kCopyChunk = kThreads * 16;  // a copy's item: bytes of one column
+constexpr int kPermBlocksPerSm = 8;         // a copy's persistent grid: blocks an SM
 
 // One pointer per column; ops/trace.py SLOTS lists the same names in the same
 // order (the permutation's columns as P_SRC0 .. P_SRC23, P_DST0 .. P_DST23).
@@ -331,58 +348,121 @@ __global__ void __launch_bounds__(kThreads) coherence_key_kernel(const __grid_co
                           (neg_y << 28) | (neg_z << 27) | (dead << 30);
 }
 
+__device__ __forceinline__ bool aligned(const void* p, unsigned bytes) {
+  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
+}
+
 template <class T>
 __device__ __forceinline__ void copy_element(const void* src, void* dst, long long from,
                                              long long to) {
   static_cast<T*>(dst)[to] = static_cast<const T*>(src)[from];
 }
 
+// A copy's item: bytes [b0, b0 + 16) (those below nbytes) of one column
+__device__ __forceinline__ void copy_bytes(const uint8_t* src, uint8_t* dst, long long b0,
+                                           long long nbytes) {
+  if (b0 + 16 <= nbytes && aligned(src + b0, 16) && aligned(dst + b0, 16)) {
+    *reinterpret_cast<uint4*>(dst + b0) = *reinterpret_cast<const uint4*>(src + b0);
+    return;
+  }
+  for (long long b = b0; b < b0 + 16 && b < nbytes; ++b) dst[b] = src[b];
+}
+
+// A copy's items of one column
+__host__ __device__ __forceinline__ long long copy_items(long long n, long long width) {
+  return (n * width + kCopyChunk - 1) / kCopyChunk;
+}
+
 // Every column of a state gathered, scattered or copied by one permutation
-__global__ void __launch_bounds__(kThreads) permute_kernel(const __grid_constant__ Args a) {
-  const long long i = lane_index();
-  if (i >= a.i[I_N]) return;
-  const int mode = static_cast<int>(a.i[I_MODE]);
-  const long long j = mode == kCopy ? i : col<const long long>(a, P_PERM)[i];
-  const long long from = mode == kScatter ? i : j, to = mode == kScatter ? j : i;
-  // unrolled, so each column's pointers and width are read from the
-  // parameters at a fixed offset
+// (see the note at the top)
+__global__ void __launch_bounds__(kThreads, kPermBlocksPerSm)
+    permute_kernel(const __grid_constant__ Args a) {
+  const long long n = a.i[I_N];
+  const int mode = static_cast<int>(a.i[I_MODE]), cols = static_cast<int>(a.i[I_COLS]);
+  if (mode != kCopy) {  // a thread a lane, every column
+    const long long i = lane_index();
+    if (i >= n) return;
+    const long long j = col<const long long>(a, P_PERM)[i];
+    const long long from = mode == kScatter ? i : j, to = mode == kScatter ? j : i;
+    // unrolled, so each column's pointers and width are read from the
+    // parameters at a fixed offset
 #pragma unroll
-  for (int c = 0; c < kCols; ++c) {
-    if (c >= a.i[I_COLS]) break;
-    const void* src = a.p[P_SRC0 + c];
-    void* dst = a.p[P_DST0 + c];
-    switch (a.i[I_WIDTH0 + c]) {
-      case 1: copy_element<uint8_t>(src, dst, from, to); break;
-      case 4: copy_element<uint32_t>(src, dst, from, to); break;
-      default: copy_element<unsigned long long>(src, dst, from, to); break;
+    for (int c = 0; c < kCols; ++c) {
+      if (c >= cols) break;
+      const void* src = a.p[P_SRC0 + c];
+      void* dst = a.p[P_DST0 + c];
+      switch (a.i[I_WIDTH0 + c]) {
+        case 1: copy_element<uint8_t>(src, dst, from, to); break;
+        case 4: copy_element<uint32_t>(src, dst, from, to); break;
+        default: copy_element<unsigned long long>(src, dst, from, to); break;
+      }
     }
+    return;
+  }
+  int c = 0;  // a copy's item's column, and the items of the columns before it
+  long long first = 0;
+  for (long long item = blockIdx.x;; item += gridDim.x) {
+    for (; c < cols; ++c) {
+      const long long end = first + copy_items(n, a.i[I_WIDTH0 + c]);
+      if (item < end) break;
+      first = end;
+    }
+    if (c >= cols) return;
+    copy_bytes(static_cast<const uint8_t*>(a.p[P_SRC0 + c]),
+               static_cast<uint8_t*>(a.p[P_DST0 + c]),
+               (item - first) * kCopyChunk + 16LL * threadIdx.x, n * a.i[I_WIDTH0 + c]);
   }
 }
 
-// The kernels' parameters from the launcher's arrays, and their grid.
-unsigned int fill(Args& args, const void* const* ptrs, const long long* ints, const float* reals) {
+// The kernels' parameters from the launcher's arrays.
+void fill(Args& args, const void* const* ptrs, const long long* ints, const float* reals) {
   for (int k = 0; k < kSlots; ++k) args.p[k] = const_cast<void*>(ptrs[k]);
   for (int k = 0; k < kInts; ++k) args.i[k] = ints[k];
   for (int k = 0; k < kReals; ++k) args.f[k] = reals[k];
-  return static_cast<unsigned int>((args.i[I_N] + kThreads - 1) / kThreads);
+}
+
+// The grids: a thread a lane, or a copy's persistent grid (no more blocks
+// than chunks)
+cudaError_t lane_grid(const Args& args, int, unsigned int& blocks) {
+  blocks = static_cast<unsigned int>((args.i[I_N] + kThreads - 1) / kThreads);
+  return cudaSuccess;
+}
+
+cudaError_t permute_grid(const Args& args, int device, unsigned int& blocks) {
+  if (args.i[I_MODE] != kCopy) return lane_grid(args, device, blocks);
+  constexpr int kMaxDevices = 64;
+  static int sms[kMaxDevices];  // the device's SM count, read once
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (sms[device] == 0) {
+    const cudaError_t err =
+        cudaDeviceGetAttribute(&sms[device], cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+  }
+  long long items = 0;
+  for (int c = 0; c < args.i[I_COLS]; ++c) items += copy_items(args.i[I_N], args.i[I_WIDTH0 + c]);
+  const long long most = static_cast<long long>(sms[device]) * kPermBlocksPerSm;
+  blocks = static_cast<unsigned int>(items < most ? items : most);
+  return cudaSuccess;
 }
 
 }  // namespace
 
 // (device, pointers [kSlots], counts [kInts], floats [kReals], stream);
 // ops/trace.py fills the three arrays
-#define TRACE_LAUNCHER(name, kernel)                                                      \
+#define TRACE_LAUNCHER(name, kernel, grid)                                                \
   extern "C" int name(int device, const void* const* ptrs, const long long* ints,        \
                       const float* reals, void* stream) {                                \
     cudaError_t err = cudaSetDevice(device);                                             \
     if (err != cudaSuccess) return static_cast<int>(err);                                \
     Args args;                                                                           \
-    const unsigned int blocks = fill(args, ptrs, ints, reals);                           \
+    fill(args, ptrs, ints, reals);                                                       \
+    unsigned int blocks = 0;                                                             \
+    if ((err = grid(args, device, blocks)) != cudaSuccess) return static_cast<int>(err); \
     if (blocks > 0) kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(args); \
     return static_cast<int>(cudaGetLastError());                                         \
   }
 
-TRACE_LAUNCHER(hit_finish_launch, hit_finish_kernel)
-TRACE_LAUNCHER(instance_step_launch, instance_step_kernel)
-TRACE_LAUNCHER(coherence_key_launch, coherence_key_kernel)
-TRACE_LAUNCHER(permute_launch, permute_kernel)
+TRACE_LAUNCHER(hit_finish_launch, hit_finish_kernel, lane_grid)
+TRACE_LAUNCHER(instance_step_launch, instance_step_kernel, lane_grid)
+TRACE_LAUNCHER(coherence_key_launch, coherence_key_kernel, lane_grid)
+TRACE_LAUNCHER(permute_launch, permute_kernel, permute_grid)

@@ -17,8 +17,8 @@
 // alpha_commit_reference in ops/wave.py: the port's generate_primary_rays, its
 // state build, _alpha_test and the loop body's commit, regrouped.
 //
-// Design.  One thread per lane, 256 lanes a block, no shared memory.
-// primary_rays_kernel reads the wave from the device: the sample numbers
+// Design.  primary_rays_kernel: one thread per lane, 256 lanes a block, no
+// shared memory.  It reads the wave from the device: the sample numbers
 // (int64, one per sample of the wave), the pixel lanes (int64, one per
 // pixel) and the camera (float32: the inverse view, then the inverse
 // projection, row-major), so a captured program reads whatever the renderer
@@ -29,11 +29,24 @@
 // loop's 0-d int64 count with integer atomics (exact in any order), which
 // the loop's condition reads.
 //
+// alpha_commit_kernel: a thread a lane.  A lane's test is a chain of
+// dependent gathers; the kernel reads the candidate's triangle beside the
+// pending flag on every lane (4 bytes a lane more than a pending lane needs,
+// one trip to memory fewer for each pending lane), then every load that
+// depends only on the lane or that triangle (t, u, v, the seed; alpha mode,
+// value and cutoff, material row, the three uvs), then the texture's row
+// and its four texels.  A block adds its still-pending count once.  (Two
+// designs measured slower on real waves: a tile's pending lanes gathered
+// into shared memory and worked several a thread, and a persistent grid
+// that read the next lane's flag ahead with the small tables staged in
+// shared memory; PERF.md, PR 19.)
+//
 // What bounds them.  Bytes.  primary_rays_kernel writes 78 bytes a lane (86
 // with the repacked wave's slot) and reads 8 a pixel: ~14 us at 3.35 TB/s
 // for the 524,288 lanes of a cfg1 wave.  alpha_commit_kernel reads a
 // pending flag a lane and, on the pending lanes, the candidate and the
-// alpha tables' rows; a few bytes a lane on most passes.
+// alpha tables' rows; a few bytes a lane on most passes, so a pass is
+// bound by its launch and the latency of its chain of gathers.
 //
 // Numerics: those of csrc/lane_math.cuh.  x / c for a Python number c is
 // x * (1 / c) on the card (aten's division by a CPU scalar), so (px + jx) /
@@ -145,41 +158,48 @@ __global__ void __launch_bounds__(kThreads) primary_rays_kernel(const __grid_con
 }
 
 // _alpha_test and the commit of one resample pass, over the loop's state
+// (see the note at the top); the arithmetic is the plain version's
 __global__ void __launch_bounds__(kThreads) alpha_commit_kernel(const __grid_constant__ Args a) {
+  __shared__ unsigned int block_still[kThreads / 32];
   const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  // the flag and, beside it, the candidate's triangle
+  const bool pend = i < a.i[I_N] && col<const uint8_t>(a, A_PENDING)[i];
+  const int tri = i < a.i[I_N] ? col<const int>(a, C_TRI)[i] : -1;
   unsigned int still = 0;
-  if (i < a.i[I_N] && col<const uint8_t>(a, A_PENDING)[i]) {
-    const int tri = col<const int>(a, C_TRI)[i];
+  if (pend) {
     bool rejected = false;
     if (tri >= 0) {  // a candidate: test it (hit.rahit:26-53)
-      long long ti = tri, inst;
-      if (a.i[I_PROTO_TRIS] > 0) decode_id(ti, a.i[I_PROTO_TRIS], ti, inst);
+      // what depends only on the lane or its candidate's triangle ...
+      const float tc = col<const float>(a, C_T)[i];
+      const float u = col<const float>(a, C_U)[i], v = col<const float>(a, C_V)[i];
+      const uint32_t seed = static_cast<uint32_t>(col<const long long>(a, A_SEED)[i]);
+      const int proto = static_cast<int>(a.i[I_PROTO_TRIS]);
+      const int ti = proto > 0 ? tri % proto : tri;  // the prototype's triangle
       const int mode = col<const int>(a, AL_MODE)[ti];
       float alpha = col<const float>(a, AL_VALUE)[ti];
-      const float u = col<const float>(a, C_U)[i], v = col<const float>(a, C_V)[i];
-      if (a.i[I_TEXTURES]) {  // times the base colour texture's alpha
-        const int tex = col<const int>(a, M_TEXIDX)[col<const int>(a, T_TRIMAT)[ti] * 6LL];
+      const float cutoff = col<const float>(a, AL_CUTOFF)[ti];
+      if (a.i[I_TEXTURES]) {  // ... then the base colour texture's alpha
+        const int mat = col<const int>(a, T_TRIMAT)[ti];
+        float uvx, uvy;
+        uv_at(col<const float>(a, T_UV), ti, 1.0f - u - v, u, v, uvx, uvy);
+        const int tex = col<const int>(a, M_TEXIDX)[mat * 6LL];
         if (tex >= 0) {
-          float uvx, uvy;
-          uv_at(col<const float>(a, T_UV), ti, 1.0f - u - v, u, v, uvx, uvy);
           const Tex atlas = {col<const int>(a, TEX_TEXELS), col<const int>(a, TEX_OFF),
                              col<const int>(a, TEX_H), col<const int>(a, TEX_W)};
           alpha = alpha * sample_bilinear(atlas, tex, uvx, uvy).w;
         }
       }
       if (mode == 1) {  // MASK: below the cutoff
-        rejected = alpha < col<const float>(a, AL_CUTOFF)[ti];
+        rejected = alpha < cutoff;
       } else if (mode == 2) {  // BLEND: with probability 1 - alpha, one draw
-        long long* seeds = col<long long>(a, A_SEED);
-        uint32_t s = static_cast<uint32_t>(seeds[i]);
+        uint32_t s = seed;
         rejected = rnd(s) < 1.0f - alpha;
-        seeds[i] = static_cast<long long>(s);
+        col<long long>(a, A_SEED)[i] = static_cast<long long>(s);
       }
-      const float t = col<const float>(a, C_T)[i];
       if (rejected) {  // past the candidate (ignoreIntersectionEXT)
-        col<float>(a, A_TLO)[i] = (isfinite(t) ? t : 0.0f) * K(1.0 + 4e-7) + K(1e-30);
+        col<float>(a, A_TLO)[i] = (isfinite(tc) ? tc : 0.0f) * K(1.0 + 4e-7) + K(1e-30);
       } else {  // the accepted hit
-        col<float>(a, A_T)[i] = t;
+        col<float>(a, A_T)[i] = tc;
         col<int>(a, A_TRI)[i] = tri;
         col<float>(a, A_U)[i] = u;
         col<float>(a, A_V)[i] = v;
@@ -188,9 +208,16 @@ __global__ void __launch_bounds__(kThreads) alpha_commit_kernel(const __grid_con
     if (!rejected) col<uint8_t>(a, A_PENDING)[i] = 0;
     still = rejected;
   }
+  // the block's still-pending lanes, added once
   still = __reduce_add_sync(0xFFFFFFFFu, still);
-  if ((threadIdx.x & 31) == 0 && still)
-    atomicAdd(col<unsigned long long>(a, A_COUNT), static_cast<unsigned long long>(still));
+  if ((threadIdx.x & 31) == 0) block_still[threadIdx.x >> 5] = still;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned int sum = 0;
+#pragma unroll
+    for (int w = 0; w < kThreads / 32; ++w) sum += block_still[w];
+    if (sum) atomicAdd(col<unsigned long long>(a, A_COUNT), static_cast<unsigned long long>(sum));
+  }
 }
 
 // The kernels' parameters from the launcher's arrays, and their grid.

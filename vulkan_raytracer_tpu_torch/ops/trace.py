@@ -24,7 +24,10 @@ a Pallas kernel.  Here each is one kernel, hand-written for Hopper
 * :func:`coherence_key` (``coherence_key_kernel``): the re-sort key over the
   root bounds (:func:`root_bounds`, a few torch ops on an instanced scene);
 * :func:`permute` (``permute_kernel``): every column of a state gathered,
-  scattered or copied by one permutation in one launch.
+  scattered or copied by one permutation in one launch: a gather or a
+  scatter a thread a lane, every column; a copy column after column on a
+  persistent grid (:data:`PERMUTE_BLOCKS_PER_SM` blocks an SM),
+  :data:`COPY_CHUNK` bytes an item, 16 a thread.
 
 Each wrapper launches its kernel for CUDA tensors and counts the launch in
 :data:`LAUNCHES`, and runs its plain version (``*_reference``) for CPU
@@ -64,6 +67,11 @@ def reset_launches() -> None:
 
 #: Columns one :func:`permute` launch moves at most (``kCols`` in the source).
 MAX_COLS = 24
+#: ``permute_kernel``'s layout (``kCopyChunk``, ``kPermBlocksPerSm`` in the
+#: source): the bytes of a copy's item (one column, 16 a thread), and the
+#: persistent grid's blocks an SM.
+COPY_CHUNK = 256 * 16
+PERMUTE_BLOCKS_PER_SM = 8
 _RAYS = ("W_OX", "W_OY", "W_OZ", "W_DX", "W_DY", "W_DZ")
 _NEXT = ("N_OX", "N_OY", "N_OZ", "N_DX", "N_DY", "N_DZ")
 #: One pointer per column, in the order of ``enum Slot`` in csrc/trace.cu.

@@ -17,7 +17,8 @@ hand-written for Hopper (``csrc/wave.cu``), one thread a lane:
   sample ``samples[i // n]``);
 * :func:`alpha_commit` (``alpha_commit_kernel``): the candidate's alpha
   test and the commit, written over the resample loop's own state, with
-  the lanes still pending added into the loop's count.
+  the lanes still pending added into the loop's count, once a block; the
+  candidate's triangle is read beside each lane's pending flag.
 
 Each wrapper launches its kernel for CUDA tensors and counts the launch in
 :data:`LAUNCHES`, and runs its plain version (``*_reference``) for CPU
