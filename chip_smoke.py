@@ -1104,7 +1104,7 @@ def _plain_shading_forbidden():
                      "shade_resolve_reference", "eval_hit", "sample_material", "material_bsdf",
                      "material_pdf"),
              wave: ("primary_rays_reference", "camera_rays", "alpha_commit_reference",
-                    "alpha_test"),
+                    "alpha_pass_reference", "alpha_test"),
              trace: ("hit_finish_reference", "winner_uv", "instance_step_reference",
                      "coherence_key_reference", "permute_reference")}
     saved = {(mod, name): getattr(mod, name) for mod, ns in names.items() for name in ns}
@@ -2537,8 +2537,9 @@ def graphs_phase(cornell, dragon, bigasset, out_dir: Path):
 
 def bounce_nodes(cache) -> dict:
     """Nodes of the parts of one bounce of each program in ``cache``
-    (``cudaGraphGetNodes`` on the parts): the bounce loop's body outside its
-    resample loops and re-sort, one pass of its resample loops, its re-sort."""
+    (``cudaGraphGetNodes`` on the parts; the tests the stitcher adds aside):
+    the bounce loop's body outside its resample loops and re-sort, one pass
+    of its resample loops, its re-sort (the IF its closing test sets)."""
     from vulkan_raytracer_tpu_torch.render import graphs
 
     def parts(nodes, roles):
@@ -2557,8 +2558,9 @@ def bounce_nodes(cache) -> dict:
         out.append({"bounce": parts(phase.body, ("bounce",)),
                     "alpha_pass": parts([n for n in phase.body if isinstance(n, graphs._Node)
                                          and n.role == "alpha"], ("alpha",)),
-                    "sort": parts([n for n in phase.body if isinstance(n, graphs._Node)
-                                   and n.role == "sort"], ("sort",))})
+                    "sort": parts([n for n in (*phase.body, phase.then)
+                                   if isinstance(n, graphs._Node) and n.role == "sort"],
+                                  ("sort",))})
     return out
 
 
@@ -2667,8 +2669,9 @@ def trace_phase(device, prebuilt: dict, out_dir: Path) -> tuple:
         if line["differing_lanes"] or not line["finite"]:
             raise AssertionError(f"trace {name}: {line['by_class']} differing lanes, "
                                  f"finite {line['finite']}: {line['first']}")
-        if not line["calls"]["hit_finish"]:
-            raise AssertionError(f"trace {name}: calls {line['calls']}")
+        # an alpha scene's closest hits are finished by its passes' commits
+        if bool(line["calls"]["hit_finish"]) == line["alpha"]:
+            raise AssertionError(f"trace {name}: calls {line['calls']} (alpha {line['alpha']})")
         for k in ctt.KERNELS:
             errs[k] = max(errs[k], line["max_abs_err"][k])
             if k in line.get("timing", {}):
@@ -2768,40 +2771,44 @@ def graphs_busy(cornell, gallery, soup, small, bigasset) -> None:
         raise AssertionError(f"the replayed waves launched no {missing}: {replayed}")
 
 
-def time_loop_cond(device, runs: int = 1000) -> dict:
-    """``loop_cond_kernel``'s time: two programs of one WHILE of ``runs``
-    runs whose body is a one-thread add (``b += 1``) or two (and ``x +=
-    1``), each launched once through the device loops and once as the
-    host-read replay, CUDA-event timed.  A run of the loop costs its body
-    and one test, so a test with the conditional node's relaunch costs ``2 *
-    one - two`` over ``runs`` on the card (``ms``); the plain version, the
-    host-read replay, costs a host read and a part launched from the host
-    per run (``plain_ms``: the one-add program over ``runs``).  The bound:
-    the 76 bytes a test moves (the count, ``b``, its row of counters read
-    and written) at the card's memory rate."""
+def time_loop_cond(device, runs: int = 1000, lanes: int = 2 * 512 * 512) -> dict:
+    """A test's time, split from the conditional node's relaunch: three
+    programs of one WHILE of ``runs`` runs, each launched once through the
+    device loops and CUDA-event timed.  ``self``: the body is its closing
+    test alone, on one flag (one block), which steps ``b`` and sets the
+    condition itself (a run: the relaunch and one node); ``add``: a
+    one-thread add (``x += 1``) before that test (the relaunch and two
+    nodes); ``flags``: the closing test counts a wave's ``lanes`` flags
+    (``loop_cond_kernel``'s grid at the main path's width; the relaunch and
+    the counting test).  So a one-thread node costs ``add - self`` a run,
+    the relaunch ``2 * self - add`` and the counting test ``flags -
+    relaunch`` (``ms``).  The plain version, the host-read replay of the
+    ``flags`` program, costs a host read and the host's relaunch a run
+    (``plain_ms``); the library's time (``library_ms``) is
+    ``live.copy_(active.sum())`` over the same flags, the aten ops the test
+    replaced, 100 of them in one captured CUDA graph.  The bound: the flags
+    read, ``b``, the row and the accumulator read and written, at the
+    card's memory rate."""
     import torch
 
     from vulkan_raytracer_tpu_torch.render import graphs
 
     stream = torch.cuda.Stream(device)
     pool = torch.cuda.graph_pool_handle()
+    flags = torch.ones(lanes, dtype=torch.bool, device=device)
 
-    def program(adds: int):
+    def program(kind: str):
         b = torch.zeros((), dtype=torch.int32, device=device)
         x = torch.zeros((), dtype=torch.int32, device=device)
-        live = torch.ones((), dtype=torch.int64, device=device)
-
-        def body():
-            b.add_(1)
-            for _ in range(adds - 1):
-                x.add_(1)
-
+        live = torch.ones(1, dtype=torch.bool, device=device)
+        count = flags if kind == "flags" else live
         cap = graphs._Capture(pool, [])
         stream.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(stream):
             cap.begin()
             b.zero_()
-            cap.while_(graphs.Cond(live, 0, b, runs - 1), body, "test")
+            cap.while_(graphs.Cond(count, 0, b, runs - 1, step=True),
+                       (lambda: x.add_(1)) if kind == "add" else (lambda: None), "test")
             cap.end()
         torch.cuda.current_stream(device).wait_stream(stream)
         return graphs._Program(cap.nodes, cap.conds, {"active": live}, (), []), b
@@ -2816,16 +2823,27 @@ def time_loop_cond(device, runs: int = 1000) -> dict:
         end.synchronize()
         return start.elapsed_time(end)
 
-    (one, b1), (two, _) = program(1), program(2)
-    t_one, t_two = timed(one, True), timed(two, True)
-    plain = timed(one, False)
-    if int(b1) != runs:
-        raise AssertionError(f"the timed loop ran {int(b1)} times, not {runs}")
+    progs = {kind: program(kind) for kind in ("self", "add", "flags")}
+    t = {kind: timed(prog, True) for kind, (prog, _) in progs.items()}
+    plain = timed(progs["flags"][0], False)
+    for kind, (_, b) in progs.items():
+        if int(b) != runs:
+            raise AssertionError(f"the timed {kind} loop ran {int(b)} times, not {runs}")
     graphs.settle()
-    nbytes = 8 + 4 + 2 * 32
-    return {"ms": (2 * t_one - t_two) / runs, "plain_ms": plain / runs,
-            "program_ms_one_add": t_one, "program_ms_two_adds": t_two, "replay_ms": plain,
-            "shape": f"a WHILE of {runs} runs of a one-thread body",
+    live = torch.zeros((), dtype=torch.int64, device=device)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(100):
+            live.copy_(flags.sum())
+    library = time_ms(graph.replay, 3) / 100
+    node = (t["add"] - t["self"]) / runs
+    relaunch = (2 * t["self"] - t["add"]) / runs
+    nbytes = lanes + 2 * 4 + 2 * 32 + 2 * 8
+    return {"ms": t["flags"] / runs - relaunch, "plain_ms": plain / runs, "library_ms": library,
+            "relaunch_ms": relaunch, "one_thread_node_ms": node,
+            "relaunch_and_test_ms": t["flags"] / runs,
+            "program_ms": t, "replay_ms": plain,
+            "shape": f"a WHILE of {runs} runs; the test counts {lanes:,} flags",
             **bound(0, nbytes)}
 
 
@@ -3493,6 +3511,9 @@ def main() -> int:
             row.update({k: t[k] for k in ("live", "host_us_per_call")})
         if "by_config" in t:
             row["by_config"] = t["by_config"]
+        if name == "loop_cond_kernel":  # the test apart from the conditional node's relaunch
+            row["split"] = {k: t[k] for k in ("relaunch_ms", "one_thread_node_ms",
+                                              "relaunch_and_test_ms", "program_ms")}
         if name == "emissive_walk":
             row["soup_frame_probes"] = {k: soup_probes[k] for k in (
                 "us_sum", "live_sum", "differing_lanes")}

@@ -34,6 +34,7 @@ replaying the programs already captured while the old tables still render
 the old scene.
 """
 
+import ctypes
 import dataclasses
 import gc
 import sys
@@ -232,16 +233,20 @@ def _host_reads(nodes) -> tuple:
 
 
 def _shape(nodes) -> str:
-    """A program's tree as text: ``p`` a part, ``kind:role(body)`` a node."""
-    return " ".join("p" if isinstance(n, graphs._Part) else f"{n.kind}:{n.role}({_shape(n.body)})"
-                    for n in nodes)
+    """A program's tree as text: ``p`` a part, ``kind:role(body)`` a node,
+    ``kind:role(body; then)`` a WHILE whose closing test sets an IF."""
+    def node(n):
+        then = "" if n.then is None else f"; {node(n.then)}"
+        return f"{n.kind}:{n.role}({_shape(n.body)}{then})"
+
+    return " ".join("p" if isinstance(n, graphs._Part) else node(n) for n in nodes)
 
 
 def _want_shape(tables, n: int) -> str:
     """The tree ``render/graphs.py`` documents for a wave of ``n`` lanes."""
     bounce = "p while:alpha(p) p while:alpha(p) p" if tables.has_alpha else "p"
     repack = integrator._repack_preferred(tables)
-    phase = f"while:phase({'if:sort(p) ' if repack else ''}{bounce})"
+    phase = f"while:phase({bounce}{'; if:sort(p)' if repack else ''})"
     if repack and n % 4 == 0:
         return f"p {phase} if:sort(p) p {phase} if:sort(p) p {phase} p"
     return f"p {phase} p"
@@ -340,6 +345,127 @@ def test_bounce_reads_nothing_on_the_host(case, monkeypatch):
     assert widths <= set(integrator.BOUNCE_WIDTHS), integrator.BOUNCE_WIDTHS
 
 
+def _capture_wave(case, monkeypatch, plain=()):
+    """A stand-in program of one 16x16 wave of ``case`` (the plain versions
+    of ``plain`` opaque too): (tables, its capture)."""
+    tables, args, _ = _case(case, monkeypatch)
+    monkeypatch.setattr(sys.modules[__name__], "_PLAIN", [*_PLAIN, *plain])
+    _plain_calls(monkeypatch)
+    captures = _stand_in_programs(monkeypatch)
+    integrator.render_sample(tables, *_uniforms(*args), args[2], args[3], 2, 4)
+    (_, cap), = captures
+    return tables, cap
+
+
+def _stitched(program, monkeypatch) -> list:
+    """The C calls :meth:`graphs._Program._stitch` makes for ``program``,
+    recorded rather than made: ("child" | "test" | "while" | "if", the
+    graph's id, the test's fields or the body's id), in order."""
+    calls, ids = [], iter(range(1, 10**6))
+
+    def c(name, graph, tail, *args):
+        g = graph.value
+        if name == "graph_loops_add_child":
+            calls.append(("child", g, None))
+        elif name == "graph_loops_add_test":
+            t = args[0]._obj
+            calls.append(("test", g, {f: getattr(t, f) for f, _ in graphs._LoopTest._fields_}))
+        else:
+            handle, is_while, body = args
+            body._obj.value = next(ids)
+            calls.append(("while" if is_while else "if", g, body._obj.value))
+
+    monkeypatch.setattr(graphs, "_c", c)
+    monkeypatch.setattr(graphs, "_handle", lambda graph: next(ids))
+    monkeypatch.setattr(_Recorded, "raw", lambda self: 0, raising=False)
+    program._stitch(ctypes.c_void_p(0), program.nodes)
+    return calls
+
+
+@pytest.mark.parametrize("case", ["ladder_bvh", "textured_glb", "alpha_instanced"])
+def test_stitched_tests_are_made_where_the_counts_are(case, monkeypatch):
+    """The parent graph a wave's program stitches: every test counts a
+    column of flags itself (no op sums them before it); the
+    bounce loop's closing test steps ``b`` and, on a repacked wave, sets the
+    re-sort IF that follows it in the body, which has no test of its own; a
+    resample loop's entry test arms the loop's control block and its body
+    is its pass alone, whose commit makes the next test."""
+    tables, cap = _capture_wave(case, monkeypatch)
+    program = graphs._Program(cap.nodes, cap.conds, {"cam": torch.zeros(1)}, (), [])
+    calls = _stitched(program, monkeypatch)
+    tests = [x for kind, _, x in calls if kind == "test"]
+    assert tests and all(t["flags"] and t["n"] > 0 for t in tests)
+
+    def order(nodes):  # the nodes in the order their conditionals are added
+        for n in nodes:
+            if isinstance(n, graphs._Node):
+                yield n
+                yield from order(n.body)
+                if n.then is not None:
+                    yield n.then
+                    yield from order(n.then.body)
+
+    bodies = [x for kind, _, x in calls if kind in ("while", "if")]
+    node_of = dict(zip(bodies, order(program.nodes)))
+    assert len(node_of) == len(program.conds)
+    inside = {}  # body id -> the kinds of its calls, in order
+    for kind, g, x in calls:
+        inside.setdefault(g, []).append((kind, x))
+    repack = integrator._repack_preferred(tables)
+    for body, node in node_of.items():
+        kinds = [k for k, _ in inside.get(body, [])]
+        if node.role == "phase":
+            closing = [x for k, x in inside[body] if k == "test"][-1]
+            assert closing["step"] == 1 and closing["entry"] == 0 and not closing["arm"]
+            assert bool(closing["then_row"]) == repack
+            assert kinds[-2:] == (["test", "if"] if repack else [kinds[-2], "test"])
+        elif node.role == "alpha":  # its pass alone: the commit makes the next test
+            assert kinds == ["child"]
+    armed = [t for t in tests if t["arm"]]
+    alpha = [n for n in program.conds if n.role == "alpha"]
+    phases = sum(n.role == "phase" for n in program.conds)
+    assert len(armed) == len(alpha) == 2 * phases * tables.has_alpha
+    assert all(t["entry"] == 1 and t["step"] == 0 for t in armed)
+    # a then-IF has no entry test: one test a node, and one more a WHILE's body
+    closing = sum(n.kind == "while" and n.role != "alpha" for n in program.conds)
+    assert len(tests) == sum(n.cond is not None for n in program.conds) + closing
+
+
+@pytest.mark.parametrize("case", ["cornell_dense", "ladder_bvh", "textured_glb"])
+def test_bounce_tail_is_its_test(case, monkeypatch):
+    """A bounce's body ends with the state's copy (one ``permute`` launch on
+    a card), then its test: no ``sum``, ``copy_``, ``add_`` or ``fill_``
+    beside it (the live count, ``b += 1`` and the re-sort flag are the
+    test's), and nothing before the phase's first test sums the flags."""
+    _, cap = _capture_wave(case, monkeypatch, plain=[(trace, "permute_reference")])
+    phase = next(n for n in cap.nodes if isinstance(n, graphs._Node) and n.role == "phase")
+    last = phase.body[-1]
+    assert isinstance(last, graphs._Part)
+    ops = last.graph.ops
+    at = max(k for k, (fn, *_rest) in enumerate(ops) if not isinstance(fn, torch._ops.OpOverload))
+    assert ops[at][0].__name__ == "permute_reference"
+    tail = [str(fn) for fn, *_ in ops[at + 1:]]
+    assert not [op for op in tail if any(w in op for w in ("sum", "copy_", "add_", "fill_"))], tail
+    first = cap.nodes[0]
+    assert isinstance(first, graphs._Part)
+    assert not [str(fn) for fn, *_ in first.graph.ops if "sum" in str(fn)]
+
+
+def test_loop_test_fields_are_the_kernel_source_struct():
+    """``graphs._LoopTest`` lists ``struct LoopTest``'s fields of
+    csrc/graph_loops.cu in order, of the same widths."""
+    import re
+
+    src = (Path(graphs.__file__).resolve().parent.parent / "csrc" / "graph_loops.cu").read_text()
+    body = re.search(r"struct LoopTest \{(.*?)\};", src, re.S).group(1)
+    fields = re.findall(r"^\s*([\w ]+?)\s*(\**)\s*(\w+);", re.sub(r"//[^\n]*", "", body), re.M)
+    assert [name for _, _, name in fields] == [f for f, _ in graphs._LoopTest._fields_]
+    width = {"unsigned long long": 8, "long long": 8, "int": 4}
+    for (ctype, star, name), (_, t) in zip(fields, graphs._LoopTest._fields_):
+        size = 8 if star else width[ctype.replace("const ", "").strip()]
+        assert ctypes.sizeof(t) == size, name
+
+
 def test_host_reads_sees_a_synchronisation():
     """The mode's own check: each kind of op it must catch."""
     x = torch.arange(8.0)
@@ -404,6 +530,38 @@ def test_replay_reads_one_count_a_pass():
     rows = [[0, 0, 0, 0] for _ in program.conds]
     program.interpret(program.nodes, rows)
     assert rows == [[3, 1, 3, 3], [6, 3, 3, 3]]
+
+
+def test_replay_counts_flags_steps_b_and_sets_the_then_if():
+    """The plain version of a counting test (:meth:`graphs.Cond.test`): it
+    counts a column of flags (one read), a closing test steps ``b`` first;
+    a WHILE's ``then`` IF runs after each closing test that goes on, its
+    row kept as an entry with that test's answer."""
+    flags = torch.zeros(10, dtype=torch.bool)
+    b = torch.zeros((), dtype=torch.int32)
+    sorts = torch.zeros((), dtype=torch.int64)
+
+    def part(fn):
+        return graphs._Part(_Scripted(fn), [{}])
+
+    phase = graphs._Node("while", graphs.Cond(flags, 2, b, 5, step=True), 0, "phase")
+    phase.body = [part(lambda: flags.logical_and_(torch.arange(10) != b))]
+    phase.then = graphs._Node("if", None, 1, "sort")
+    phase.then.body = [part(lambda: sorts.add_(1))]
+    nodes = [part(lambda: (flags.fill_(True), b.zero_())), phase]
+    program = graphs._Program(nodes, [phase, phase.then], {"flags": flags}, (), [{}])
+    rows = [[0, 0, 0, 0] for _ in program.conds]
+    with HostReads() as mode:
+        program.interpret(program.nodes, rows)
+    # bodies at b = 0..5; the closing test after b = 5 steps b to 6 and stops
+    assert int(b) == 6 and int(flags.sum()) == 4 and int(sorts) == 5
+    assert rows == [[6, 1, 6, 6], [5, 6, 0, 0]]
+    # a read of the count and one of b at each of the 7 tests
+    assert mode.found == ["aten._local_scalar_dense.default"] * 14
+    graphs.reset_stats()
+    program._fold(rows, 1, device=True)
+    assert graphs.STATS["replays"] == 6 and graphs.STATS["sorts"] == 5
+    assert graphs.LAUNCHES["loop_cond"] == 1 + 6  # the IF's condition is the WHILE's test's
 
 
 def test_settle_folds_the_device_rows():
@@ -794,6 +952,50 @@ def test_graphs_bit_equal_to_eager(case, monkeypatch):
     assert graphs.STATS["passes"] == 4 * counts[3]["iterations"]
     assert graphs.LAUNCHES["loop_cond"] > 0
     assert np.isfinite(img).all() and img.mean() > 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, offset", [(1, 0), (4097, 1), (524_291, 3)])
+def test_counting_test_bit_equal_to_the_replay(n, offset):
+    """``loop_cond_kernel`` on the card against its plain version, the
+    host-read replay: a WHILE whose body thins a column of ``n`` flags
+    (``offset`` bytes into its buffer: a column not 16-byte aligned, and a
+    ragged end) and whose closing test counts them and steps ``b``, with a
+    ``then`` IF that counts its runs.  After one launch of each side the
+    flags, ``b``, the IF's runs and every row are equal, and the tests'
+    accumulators are back at 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    dev = torch.device("cuda")
+    buf = torch.zeros(n + offset + 16, dtype=torch.bool, device=dev)
+    flags = buf[offset:offset + n]
+    idx = torch.arange(n, device=dev)
+    b = torch.zeros((), dtype=torch.int32, device=dev)
+    sorts = torch.zeros((), dtype=torch.int64, device=dev)
+    stream, pool = torch.cuda.Stream(dev), torch.cuda.graph_pool_handle()
+    cap = graphs._Capture(pool, [])
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):
+        cap.begin()
+        flags.copy_(idx % 7 != 3)
+        b.zero_()
+        sorts.zero_()
+        cap.while_(graphs.Cond(flags, n // 3, b, 12, step=True),
+                   lambda: flags.logical_and_((idx * 7 + b) % 11 != 0), "phase",
+                   then=lambda: sorts.add_(1))
+        cap.end()
+    torch.cuda.current_stream(dev).wait_stream(stream)
+    program = graphs._Program(cap.nodes, cap.conds, {"flags": flags}, (), [])
+    program.launch(device_loops=True)
+    torch.cuda.synchronize(dev)
+    got = (flags.clone(), int(b), int(sorts), program.stats.tolist())
+    assert program.words.tolist() == [0] * len(program.conds)
+    rows = [[0, 0, 0, 0] for _ in program.conds]
+    program.interpret(program.nodes, rows)
+    assert torch.equal(got[0], flags) and got[1:] == (int(b), int(sorts), rows)
+    assert rows[0][0] >= 1 and int(sorts) == rows[0][0] - 1
+    program.stats.zero_()
+    graphs.settle()
 
 
 @pytest.mark.cuda

@@ -338,11 +338,12 @@ def test_slots_are_the_kernel_source_enums():
     assert _enum(src, "Slot") == (*trace.SLOTS, "kSlots")
     assert _enum(src, "Int") == (*trace.INTS, "kInts")
     assert _enum(src, "Real") == (*trace.REALS, "kReals")
-    assert _enum(src, "Finish") == ("kDense", "kBvh", "kInstanced")
+    header = (SRC.parent / "hit_finish.cuh").read_text()  # the finish the commit shares
+    assert _enum(header + src, "Finish") == ("kDense", "kBvh", "kInstanced")
     assert _enum(src, "Permute") == ("kGather", "kScatter", "kCopy")
     assert tuple(m.capitalize() for m in trace.FINISH_MODES) == ("Dense", "Bvh", "Instanced")
     assert "trace.cu" in {p.name for p in _ext.SOURCES}
-    assert '#include "lane_math.cuh"' in src
+    assert '#include "hit_finish.cuh"' in src and '#include "lane_math.cuh"' in header
     for k in ("hit_finish", "instance_step", "coherence_key", "permute"):
         grid = "permute_grid" if k == "permute" else "lane_grid"
         assert f"TRACE_LAUNCHER({k}_launch, {k}_kernel, {grid})" in src
@@ -409,6 +410,22 @@ def test_moved_columns_are_the_kernel_source_loads():
     assert {k: set(v) for k, v in trace.MOVES.items()} == _kernel_columns(SRC.read_text())
     hit = torch.tensor([3, -1, 0, -1], dtype=torch.int32)
     assert trace.hit_finish_bytes(hit) == 4 * 20 + 2 * 28
+    # the table rows a finish loads (csrc/hit_finish.cuh), each counted once
+    header = (SRC.parent / "hit_finish.cuh").read_text()
+    body = header[header.index("__device__ __forceinline__ int finish_hit("):]
+    assert header.count("finish_vertex(f, ") == 3 and "f.v[first + 2][t]" in header
+    assert "f.tri_id[hit]" in body and "k < 12; ++k) m[k] = f.inv_flat[" in body
+    assert trace.FINISH_ROW_BYTES == {"vertices": 9 * 4, "slot": 4, "instance": 12 * 4}
+    assert '#include "hit_finish.cuh"' in SRC.read_text()
+    tables = cornell_box_scene().upload("cpu", traversal="bvh")
+    hits = torch.tensor([3, -1, 3, 0, 5], dtype=torch.int32)
+    assert trace.finish_table_bytes(tables, hits, "dense") == 3 * 36
+    slots = tables.pbvh.tri_id.long()
+    twins = [i for i in range(len(slots)) if slots[i] == slots[0]]
+    hits = torch.tensor([twins[-1], -1, 0, 0], dtype=torch.int32)
+    assert trace.finish_table_bytes(tables, hits, "bvh") == 4 * len({twins[-1], 0}) + 36
+    assert trace.hit_finish_bytes(hits, tables, "bvh") == (
+        trace.hit_finish_bytes(hits) + trace.finish_table_bytes(tables, hits, "bvh"))
     assert trace.coherence_key_bytes(10) == 10 * 29
     cols = [torch.zeros(10), torch.zeros(10, dtype=torch.int64), torch.zeros(10, dtype=torch.bool)]
     assert trace.permute_bytes(cols, "gather") == 2 * 10 * 13 + 8 * 10
@@ -522,6 +539,46 @@ def test_closest_runs_few_aten_ops_beside_its_kernels(scene, monkeypatch):
     assert trace.LAUNCHES == {"hit_finish": 2, "instance_step": steps,
                               "coherence_key": 0, "permute": 0, "permute_copy": 0}
     assert launched.count("hit_finish_launch") == 2
+
+
+@pytest.mark.parametrize("scene", ["dense", "bvh", "instanced"])
+def test_alpha_pass_is_its_traversal_and_one_kernel(scene, monkeypatch):
+    """An alpha pass routed to the kernels (the traversal's kernels opaque):
+    its traversal (on an instanced scene, the scan's steps) and one
+    ``alpha_commit_launch``, which reads the raw hit: no ``hit_finish``
+    launch, no count to zero, and at most 3 aten ops of its own (the bounds
+    around the traversal)."""
+    from test_torch_instancing import instanced_scene
+
+    from vulkan_raytracer_tpu_torch.ops import wave
+
+    if scene == "instanced":
+        monkeypatch.setattr(dense, "DENSE_MAX_TRIS", 50)
+        tables = instanced_scene(tsg, n_soup_instances=3).upload("cpu", instancing=True)
+    else:
+        tables = cornell_box_scene().upload("cpu", traversal="bvh" if scene == "bvh" else "auto")
+    if scene == "dense":
+        assert tables.tri_table is not None  # built on first use, outside the count
+    for name in ("alpha", "tri_mat", "uv", "materials", "tex"):  # the commit's tables
+        assert getattr(tables, name) is not None, name
+    n = 64
+    o, d, _, act = _rays(n, seed=2)
+    o, d = _v3(o, "torch"), _v3(d, "torch")
+    st = dict(t_lo=torch.zeros(n), pending=torch.as_tensor(act),
+              t=torch.full((n,), torch.inf), tri=torch.full((n,), -1, dtype=torch.int32),
+              u=torch.zeros(n), v=torch.zeros(n), seed=torch.zeros(n, dtype=torch.int64))
+    mode = _Ops()
+    launched = _routed(monkeypatch, mode)
+    monkeypatch.setattr(wave, "_on_cuda", lambda t: True)
+    loop = wave.loop_block("cpu")
+    trace.reset_launches()
+    wave.reset_launches()
+    with mode:
+        tint._alpha_pass(tables, o, d, 1e32, st, loop)
+    steps = 0 if scene != "instanced" else tables.inst.num_instances + 1
+    assert launched == ["instance_step_launch"] * steps + ["alpha_commit_launch"]
+    assert trace.LAUNCHES["hit_finish"] == 0 and wave.LAUNCHES["alpha_commit"] == 1
+    assert len(mode.ops) <= 3 and "fill" not in mode.ops and "zero" not in mode.ops, mode.ops
 
 
 def test_resort_is_a_key_a_sort_and_one_gather(monkeypatch):

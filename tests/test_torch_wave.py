@@ -42,7 +42,7 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "tools"))
 
 import torch_glb_assets  # noqa: E402
-from vulkan_raytracer_tpu_torch.ops import _ext, wave  # noqa: E402
+from vulkan_raytracer_tpu_torch.ops import _ext, trace, wave  # noqa: E402
 from vulkan_raytracer_tpu_torch.render import integrator as tint  # noqa: E402
 from vulkan_raytracer_tpu_torch.render.renderer import camera_uniforms  # noqa: E402
 from vulkan_raytracer_tpu_torch.scene import scenegraph as tsg  # noqa: E402
@@ -123,6 +123,36 @@ def _jax_commit(jint, jnp, jt, st, t_c, tri_c, u_c, v_c):
                 seed=jnp.where(st["pending"], seed2, st["seed"]))
 
 
+def _raw(tables, t_c, tri_c, seed: int):
+    """A traversal's raw result whose ids are ``tri_c`` (a triangle, or an
+    instanced scene's encoded id) and t ``t_c``, for random rays made from
+    ``seed``: (rays, t, hit, mode), the alpha commit's input."""
+    r = np.random.default_rng(seed)
+    n = len(tri_c)
+    o = r.uniform(-1, 1, (3, n)).astype(np.float32)
+    d = r.normal(size=(3, n))
+    d = (d / np.linalg.norm(d, axis=0)).astype(np.float32)
+    rays = tuple(torch.as_tensor(c.copy()) for c in (*o, *d))
+    mode = "instanced" if tables.inst is not None else "dense"
+    return rays, torch.as_tensor(t_c), torch.as_tensor(tri_c), mode
+
+
+def _commit_matches_the_plain_pass(tt, tst, t_c, tri_c):
+    """The CPU wrapper, from a raw traversal result over random rays, writes
+    the plain finish and commit's state over the loop's own buffers, and the
+    count of lanes still pending into the loop's control block."""
+    raw = _raw(tt, t_c, tri_c, seed=5)
+    want = wave.alpha_commit_reference(tt, tst, *trace.hit_finish_reference(tt, *raw))
+    assert all(torch.equal(a, b) for a, b in zip(
+        want.values(), wave.alpha_pass_reference(tt, tst, raw).values()))
+    loop = wave.loop_block("cpu")
+    wave.alpha_commit(tt, tst, raw, loop)
+    for k in LOOP:
+        assert torch.equal(tst[k], want[k]), k
+    assert int(wave.loop_count(loop)) == int(want["pending"].sum())
+    return want
+
+
 def _alpha_tables(case, monkeypatch):
     """(JAX tables, port tables) of an alpha scene."""
     if case in ("alpha_stack", "untextured_stack"):
@@ -182,12 +212,9 @@ def test_alpha_commit_reference_matches_jax(case, monkeypatch):
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), rtol=T_RTOL, err_msg=k)
     keep = st["pending"] & (tri_c >= 0) & ~got["pending"].numpy()
     assert keep.any() and got["pending"].numpy().any()  # candidates kept and rejected
-    # the wrapper writes the same state over the loop's own buffers, and the count
-    count = torch.zeros((), dtype=torch.int64)
-    wave.alpha_commit(tt, tst, *map(torch.as_tensor, cand), count)
-    for k in LOOP:
-        assert torch.equal(tst[k], got[k]), k
-    assert int(count) == int(got["pending"].sum())
+    # the wrapper finishes a raw hit and writes the same state over the
+    # loop's own buffers, and the count
+    _commit_matches_the_plain_pass(tt, tst, t_c, tri_c)
 
 
 #: Pending shares of a pass: none, one lane (None), ~1%, every lane.
@@ -238,11 +265,69 @@ def test_alpha_commit_reference_matches_jax_at_pending_shares(case, share, monke
     for k in LOOP:
         np.testing.assert_array_equal(got[k].numpy()[idle], tst[k].numpy()[idle], err_msg=k)
     assert not got["pending"].numpy()[idle].any()
-    count = torch.zeros((), dtype=torch.int64)
-    wave.alpha_commit(tt, tst, *map(torch.as_tensor, cand), count)
-    assert int(count) == int(got["pending"].sum()) == int(np.asarray(want["pending"]).sum())
+    assert int(got["pending"].sum()) == int(np.asarray(want["pending"]).sum())
+    count = int(_commit_matches_the_plain_pass(tt, tst, t_c, tri_c)["pending"].sum())
     if share == 1.0:
-        assert 0 < int(count) < n
+        assert 0 < count < n
+
+
+@pytest.mark.parametrize("share", [0.0, 0.05, 1.0], ids=["none", "few", "all"])
+@pytest.mark.parametrize("mode", ["dense", "bvh", "instanced"])
+def test_alpha_pass_matches_jax_loop_body(mode, share, monkeypatch):
+    """One pass of the resample loop as the port runs it (``_alpha_pass``:
+    the traversal's raw hit, then the plain finish and commit that the card
+    fuses into one kernel) against one run of the body of the JAX
+    ``_closest`` loop (integrator.py:195-214: its traversal, ``_alpha_test``
+    and the commit) from the same state, on each finish mode: the alpha
+    stack swept densely and, with ``traversal="bvh"``, walked against JAX's
+    packet kernel in interpret mode, and the instanced alpha scene; with
+    none, a few and every lane pending.  Pending flags, ids and seeds
+    bit-equal, t and t_lo within rtol 1e-6, u and v within 1e-6
+    (test_torch_alpha.py's tolerances); the count the pass leaves in the
+    loop's control block is the JAX state's."""
+    jnp = pytest.importorskip("jax.numpy")
+    from test_torch_alpha import _rays
+    from test_torch_alpha import _tables as stack_tables
+    from vulkan_raytracer_tpu.render import integrator as jint
+
+    if mode == "bvh":
+        monkeypatch.setenv("VKRT_PALLAS_INTERPRET", "1")
+        monkeypatch.setenv("VKRT_FORCE_PACKET", "1")
+    if mode == "instanced":
+        jt, tt = _alpha_tables("alpha_instanced", monkeypatch)
+    else:
+        _, jt, _, tt = stack_tables(traversal=mode if mode == "bvh" else "auto")
+    n = 96
+    _, (jo, jd), (to, td) = _rays(n, seed=13)
+    r = np.random.default_rng(17)
+    pending = r.random(n) < share
+    if share:
+        pending[: max(1, n // 20)] = True
+    # lower bounds before, between and past the quads (z = 0.5, 0, -0.5 from z = 2)
+    st = dict(t_lo=r.choice(np.float32([1e-6, 1.7, 2.2]), n), pending=pending,
+              t=np.full(n, np.inf, np.float32), tri=np.full(n, -1, np.int32),
+              u=np.zeros(n, np.float32), v=np.zeros(n, np.float32),
+              seed=r.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32))
+    jst = {k: jnp.asarray(v) for k, v in st.items()}
+    t_c, tri_c, u_c, v_c = jint._closest_opaque(jt, jo, jd, t_min=jst["t_lo"], t_max=1e32,
+                                                active=jst["pending"])
+    want = _jax_commit(jint, jnp, jt, jst, t_c, tri_c, u_c, v_c)
+    tst = {k: torch.as_tensor(v.astype(np.int64) if k == "seed" else v) for k, v in st.items()}
+    raw = tint._closest_opaque(tt, to, td, t_min=tst["t_lo"], t_max=1e32, active=tst["pending"],
+                               raw=True)
+    assert raw[3] == mode and (mode != "bvh" or jint._packet_preferred(jt))
+    loop = wave.loop_block("cpu")
+    tint._alpha_pass(tt, to, td, 1e32, tst, loop)
+    for k in ("pending", "tri", "seed"):
+        np.testing.assert_array_equal(tst[k].numpy(), np.asarray(want[k]).astype(
+            tst[k].numpy().dtype), err_msg=k)
+    for k in ("t", "t_lo"):
+        np.testing.assert_allclose(tst[k].numpy(), np.asarray(want[k]), rtol=T_RTOL, err_msg=k)
+    for k in ("u", "v"):
+        np.testing.assert_allclose(tst[k].numpy(), np.asarray(want[k]), atol=1e-6, err_msg=k)
+    assert int(wave.loop_count(loop)) == int(np.asarray(want["pending"]).sum())
+    if share:  # candidates accepted and rejected
+        assert (tst["tri"].numpy() >= 0).any() and tst["pending"].numpy().any()
 
 
 def test_synthetic_check_finds_nothing_on_the_cpu(monkeypatch):
@@ -259,11 +344,12 @@ def test_synthetic_check_finds_nothing_on_the_cpu(monkeypatch):
     tables = chip_smoke.alpha_gallery_scene(textured=False).upload("cpu", instancing=True)
     assert tables.has_alpha and not tables.has_textures
     for share, want in zip(ctw.PENDING_SHARES, (0, 1, 41, 4097)):
-        st, t_c, tri_c, u_c, v_c = ctw.synthetic_pass(tables, 4097, share, seed=3)
+        st, raw = ctw.synthetic_pass(tables, 4097, share, seed=3)
+        assert raw[3] == "instanced" and len(raw[0]) == 6
         assert abs(int(st["pending"].sum()) - want) <= max(1, want // 3), share
         if share == 1.0:
-            nxt = wave.alpha_commit_reference(tables, st, t_c, tri_c, u_c, v_c)
-            assert 0 < int(nxt["pending"].sum()) < int((tri_c >= 0).sum())
+            nxt = wave.alpha_pass_reference(tables, st, raw)
+            assert 0 < int(nxt["pending"].sum()) < int((raw[2] >= 0).sum())
 
 
 def _enum(src: str, name: str) -> tuple:
@@ -278,11 +364,15 @@ def test_slots_are_the_kernel_source_enums():
     src = (ROOT / "vulkan_raytracer_tpu_torch" / "csrc" / "wave.cu").read_text()
     assert _enum(src, "Slot") == (*wave.SLOTS, "kSlots")
     assert _enum(src, "Int") == (*wave.INTS, "kInts")
+    assert _enum(src, "LoopWord") == wave.LOOP_WORDS
     assert "wave.cu" in {p.name for p in _ext.SOURCES}
-    assert {p.name for p in _ext.HEADERS} == {"lane_math.cuh"}
-    for name in ("wave.cu", "shade.cu"):
-        text = (ROOT / "vulkan_raytracer_tpu_torch" / "csrc" / name).read_text()
-        assert '#include "lane_math.cuh"' in text
+    assert {p.name for p in _ext.HEADERS} == {"lane_math.cuh", "hit_finish.cuh",
+                                              "graph_test.cuh"}
+    csrc = ROOT / "vulkan_raytracer_tpu_torch" / "csrc"
+    for name, header in (("wave.cu", "hit_finish.cuh"), ("wave.cu", "graph_test.cuh"),
+                         ("hit_finish.cuh", "lane_math.cuh"), ("shade.cu", "lane_math.cuh"),
+                         ("trace.cu", "hit_finish.cuh"), ("graph_loops.cu", "graph_test.cuh")):
+        assert f'#include "{header}"' in (csrc / name).read_text(), (name, header)
     assert {"primary_rays_launch", "alpha_commit_launch"} <= set(_ext._SIGNATURES)
 
 
@@ -291,7 +381,7 @@ def test_failed_launch_raises(kernel, monkeypatch):
     """A wrapper routed to its kernel whose launch fails raises, and never
     runs its plain version."""
     plain = []
-    for name in ("primary_rays_reference", "alpha_commit_reference"):
+    for name in ("primary_rays_reference", "alpha_commit_reference", "alpha_pass_reference"):
         monkeypatch.setattr(wave, name, lambda *a, _n=name, **k: plain.append(_n))
 
     def launch(fn, device, *args):
@@ -308,8 +398,9 @@ def test_failed_launch_raises(kernel, monkeypatch):
         st = dict(t_lo=torch.zeros(n), pending=torch.ones(n, dtype=torch.bool),
                   t=torch.full((n,), torch.inf), tri=torch.full((n,), -1, dtype=torch.int32),
                   u=torch.zeros(n), v=torch.zeros(n), seed=torch.zeros(n, dtype=torch.int64))
-        call = lambda: wave.alpha_commit(tables, st, torch.ones(n), torch.zeros(  # noqa: E731
-            n, dtype=torch.int32), torch.zeros(n), torch.zeros(n))
+        raw = (tuple(torch.zeros(n) for _ in range(6)), torch.ones(n),
+               torch.zeros(n, dtype=torch.int32), "dense")
+        call = lambda: wave.alpha_commit(tables, st, raw, wave.loop_block("cpu"))  # noqa: E731
     with pytest.raises(RuntimeError, match="CUDA error"):
         call()
     assert plain == [] and wave.LAUNCHES == before
@@ -345,12 +436,14 @@ def test_primary_rays_kernel_bit_equal(samples, pixel_order):
 @pytest.mark.cuda
 @pytest.mark.parametrize("instancing", [False, True])
 def test_alpha_commit_kernel_bit_equal(instancing):
-    """``alpha_commit_kernel`` against its plain version on the card, on
-    random candidates over the instanced alpha scene and its flattened
-    upload: the state it writes over the loop's buffers and its count of
-    pending lanes bit-equal.  Then tools/check_torch_wave.py's synthetic
-    passes: every pending share at 1, 1,025 and 524,287 lanes over the alpha
-    gallery instanced, flattened and untextured."""
+    """``alpha_commit_kernel`` against its plain version (the finish, then
+    the commit) on the card, on random raw hits over the instanced alpha
+    scene and its flattened upload: the state it writes over the loop's
+    buffers and the count of pending lanes it leaves in the loop's control
+    block bit-equal, the block's accumulator back at 0 and, not armed, no
+    row kept.  Then tools/check_torch_wave.py's synthetic passes: every
+    pending share at 1, 1,025 and 524,287 lanes over the alpha gallery
+    instanced, flattened and untextured."""
     _card()
     if instancing:
         import check_torch_wave as ctw
@@ -365,19 +458,24 @@ def test_alpha_commit_kernel_bit_equal(instancing):
            else tables.num_triangles)
     g = torch.Generator(device="cuda").manual_seed(3)
     n = 100_003
-    tri_c = torch.randint(-1, ids, (n,), generator=g, device="cuda", dtype=torch.int32)
-    t_c = torch.where(tri_c >= 0, torch.rand(n, generator=g, device="cuda") * 4, torch.inf)
-    u_c = torch.rand(n, generator=g, device="cuda")
-    v_c = torch.rand(n, generator=g, device="cuda") * (1 - u_c)
+    hit = torch.randint(-1, ids, (n,), generator=g, device="cuda", dtype=torch.int32)
+    t = torch.where(hit >= 0, torch.rand(n, generator=g, device="cuda") * 4, torch.inf)
+    d = torch.randn((3, n), generator=g, device="cuda")
+    d = d / d.norm(dim=0)
+    rays = tuple(c.contiguous() for c in (*(torch.rand((3, n), generator=g, device="cuda") * 2
+                                             - 1), *d))
+    raw = (rays, t, hit, "instanced" if instancing else "dense")
     st = dict(t_lo=torch.rand(n, generator=g, device="cuda"),
               pending=torch.rand(n, generator=g, device="cuda") < 0.8,
               t=torch.full((n,), torch.inf, device="cuda"),
               tri=torch.full((n,), -1, dtype=torch.int32, device="cuda"),
               u=torch.zeros(n, device="cuda"), v=torch.zeros(n, device="cuda"),
               seed=torch.randint(0, 2**32, (n,), generator=g, device="cuda"))
-    want = wave.alpha_commit_reference(tables, st, t_c, tri_c, u_c, v_c)
-    count = torch.full((), 99, dtype=torch.int64, device="cuda")
-    wave.alpha_commit(tables, st, t_c, tri_c, u_c, v_c, count)
+    want = wave.alpha_pass_reference(tables, st, raw)
+    loop = wave.loop_block("cuda")
+    loop[3] = 99
+    wave.alpha_commit(tables, st, raw, loop)
     for k in LOOP:
         assert torch.equal(st[k], want[k]), k
-    assert int(count) == int(want["pending"].sum()) > 0
+    assert int(wave.loop_count(loop)) == int(want["pending"].sum()) > 0
+    assert loop[:3].tolist() == [0, 0, 0]

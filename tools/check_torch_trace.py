@@ -27,7 +27,9 @@ graph, per launch from CUDA events, each launch on the next of enough copies
 of the call's lane inputs that the copies span :data:`COLD_BYTES`, four
 times the card's L2, and each launch's outputs kept: no launch finds its
 inputs in L2, so its bytes bound (``trace.hit_finish_bytes`` etc.) at the
-card's memory rate is a lower limit on its time.  Its plain version runs
+card's memory rate is a lower limit on its time (the finish's also with
+the table rows its hits read, each once: ``bound_ms_with_tables``, from
+``trace.finish_table_bytes``).  Its plain version runs
 eagerly on the same copies in turn; beside the permutation,
 ``torch.index_select`` over the same columns, captured the same way
 (``library_ms``).  The key is also timed without :func:`trace.root_bounds`'
@@ -353,6 +355,10 @@ def time_kept(kept: dict) -> dict:
                 "plain_ms": _plain_ms(trace.hit_finish_reference, copies),
                 "bytes": nbytes, "lanes": args[3].shape[0], "mode": args[4],
                 "found": int((args[3] >= 0).sum())}
+            if hasattr(trace, "finish_table_bytes"):  # the table rows the hits read, once each
+                rows = trace.finish_table_bytes(args[0], args[3], args[4])
+                out["hit_finish"].update(table_bytes=rows, bound_ms_with_tables=(
+                    1e3 * (nbytes + rows) / HBM_BYTES_PER_S))
         if "instance_step" in kept:
             args = kept["instance_step"]
             active, t_max, nxt, shadow = args[3], args[4], args[7], args[8]
@@ -429,7 +435,8 @@ def check_config(name: str, spec, device, tables=None, timing: bool = False) -> 
     if device.type == "cuda" and kernels != cmp.calls:
         raise AssertionError(f"{name}: {cmp.calls} calls, but {kernels} launches")
     line = {"config": name, "lanes": len(lanes) * len(samples), "launches": launched,
-            "instance_steps": dict(instanced.STATS), "rays": int(rays),
+            "alpha": bool(tables.has_alpha), "instance_steps": dict(instanced.STATS),
+            "rays": int(rays),
             "finite": bool(torch.isfinite(radiance).all()),
             "seconds": time.perf_counter() - t0, **cmp.summary()}
     if timing:

@@ -10,9 +10,11 @@ Run from the root of a checkout.  For each config, the first wave
 (``graphs._graphs_preferred`` patched off, so every call runs its Python),
 with the two wrappers of ``ops/wave.py`` wrapped (:class:`Compare`): each
 call launches its kernel and, on the same inputs, runs its plain version
-(the alpha commit on a copy of the resample loop's state, which the kernel
-writes over), and every field of the two results is compared lane by lane,
-the commit's count of pending lanes too.  A float lane that differs is class
+(the alpha commit, which finishes the traversal's raw hit on the pending
+lanes: on a copy of the resample loop's state, which the kernel writes
+over, against ``alpha_pass_reference``, the plain finish and commit), and
+every field of the two results is compared lane by lane, the count of
+pending lanes the commit leaves in its control block too.  A float lane that differs is class
 ``i`` when both sides are finite and at most 4 ulps apart, else class
 ``ii`` (a fault), as is any integer or flag that differs
 (``tools/check_torch_shade.py``'s rule).  On the CPU both sides are the
@@ -20,7 +22,10 @@ plain version (a self-test: no lane may differ).
 
 With ``--timing`` (a card) each kernel's first call of the wave (the alpha
 commit's: the first pass of the first bounce, every lane pending) is timed
-with its inputs out of L2: the kernel 20 times in a captured CUDA graph,
+with its inputs out of L2 (a pass's tail after its traversal: the fused
+commit with its count, or in an older checkout's package, whose commit
+took the finished hit, the finish over every lane, the count's memset and
+the commit): the kernel 20 times in a captured CUDA graph,
 per launch from CUDA events, each launch on the next of copies of its
 inputs that span ``check_torch_trace.COLD_BYTES``, four times the card's L2
 (the commit, which writes over its state: each on its own copy, every copy
@@ -32,7 +37,8 @@ with its pending lanes and its bound: the ``alpha_passes`` table, whose
 ``lost_us`` is the time above the bounds, summed over the wave.
 
 With ``--synthetic`` the alpha commit is held bit-equal to its plain
-version on candidates and loop states made from a seed at pending shares
+version on raw traversal results (rays, t and hit ids) and loop states
+made from a seed at pending shares
 of none, one lane, ~1% and every lane, over the smoke's alpha gallery
 instanced and flattened and its untextured twin, at 1, 1,025 and 524,287
 lanes (and on a card timed cold at 524,288): :func:`synthetic`.
@@ -80,6 +86,7 @@ class Compare:
         #: with ``keep``, each kernel's first call: kernel -> its arguments;
         #: and every commit call's
         self.keep, self.kept, self.commits = keep, {}, []
+        self.last_finish = None  # an older package's last finish: (rays, t, hit, mode)
 
     def _compare(self, kernel: str, got, want) -> None:
         import torch
@@ -113,11 +120,12 @@ class Compare:
     def on(self):
         import torch
 
-        from vulkan_raytracer_tpu_torch.ops import wave
+        from vulkan_raytracer_tpu_torch.ops import trace, wave
         from vulkan_raytracer_tpu_torch.render import graphs
 
-        saved = (wave.primary_rays, wave.alpha_commit, graphs._graphs_preferred)
-        rays, commit, _ = saved
+        saved = (wave.primary_rays, wave.alpha_commit, graphs._graphs_preferred,
+                 trace.hit_finish)
+        rays, commit, _, finish = saved
 
         def c_rays(*args):
             if self.keep and "primary_rays" not in self.kept:
@@ -126,25 +134,49 @@ class Compare:
             self._compare("primary_rays", got, wave.primary_rays_reference(*args))
             return got
 
-        def c_commit(tables, st, t_c, tri_c, u_c, v_c, count=None):
+        def c_commit(tables, st, raw, loop=None):
+            before = {k: v.clone() for k, v in st.items()}
+            raw = (tuple(c.clone() for c in raw[0]), raw[1].clone(), raw[2].clone(), raw[3])
+            want = wave.alpha_pass_reference(tables, before, raw)
+            if loop is None:
+                loop = torch.zeros(4, dtype=torch.int64, device=raw[2].device)
+            if self.keep:
+                self.commits.append((tables, before, raw, want))
+                self.kept.setdefault("alpha_commit", self.commits[0])
+            self.pending.append(int(before["pending"].sum()))
+            commit(tables, st, raw, loop)
+            self._compare("alpha_commit", (st, loop[3].reshape(1)),
+                          (want, want["pending"].sum().reshape(1)))
+
+        def c_commit_finished(tables, st, t_c, tri_c, u_c, v_c, count=None):
+            # an older package's commit, which took the finished hit: its
+            # pass's raw hit is the last finish's arguments
             before = {k: v.clone() for k, v in st.items()}
             want = wave.alpha_commit_reference(tables, before, t_c, tri_c, u_c, v_c)
             if count is None:
                 count = torch.zeros((), dtype=torch.int64, device=tri_c.device)
             if self.keep:
-                self.commits.append((tables, before, t_c, tri_c, u_c, v_c, want))
+                self.commits.append((tables, before, self.last_finish, want))
                 self.kept.setdefault("alpha_commit", self.commits[0])
             self.pending.append(int(before["pending"].sum()))
             commit(tables, st, t_c, tri_c, u_c, v_c, count)
             self._compare("alpha_commit", (st, count.reshape(1)),
                           (want, want["pending"].sum().reshape(1)))
 
+        def c_finish(tables, rays, t, hit, mode):
+            self.last_finish = (tuple(c.clone() for c in rays), t.clone(), hit.clone(), mode)
+            return finish(tables, rays, t, hit, mode)
+
+        if not fused():
+            c_commit = c_commit_finished  # noqa: F811
+            trace.hit_finish = c_finish
         wave.primary_rays, wave.alpha_commit = c_rays, c_commit
         graphs._graphs_preferred = lambda tables: False
         try:
             yield self
         finally:
-            wave.primary_rays, wave.alpha_commit, graphs._graphs_preferred = saved
+            (wave.primary_rays, wave.alpha_commit, graphs._graphs_preferred,
+             trace.hit_finish) = saved
 
     def summary(self) -> dict:
         def count(key):
@@ -176,20 +208,31 @@ def configs(tmp: Path) -> dict:
     return out
 
 
-def _commit_ms(tables, before, t_c, tri_c, u_c, v_c, reps: int = 20) -> float:
-    """Device ms an alpha commit: ``reps`` commits in one captured CUDA
-    graph, each on its own copy of the pass's state and candidate hit;
-    before each timed replay every copy's state is restored and a buffer of
-    ``check_torch_trace.COLD_BYTES`` written, so no commit finds its inputs
-    in L2.  The mean of three replays."""
-    import torch
-    from check_torch_trace import COLD_BYTES
+def fused() -> bool:
+    """Does the imported package's alpha commit take the traversal's raw
+    hit (and finish it itself)?  An older one took the finished hit."""
+    import inspect
 
     from vulkan_raytracer_tpu_torch.ops import wave
 
-    copies = [({k: v.clone() for k, v in before.items()}, t_c.clone(), tri_c.clone(),
-               u_c.clone(), v_c.clone(), torch.zeros((), dtype=torch.int64, device=tri_c.device))
-              for _ in range(reps)]
+    return "raw" in inspect.signature(wave.alpha_commit).parameters
+
+
+def _commit_ms(tables, before, raw, reps: int = 20) -> float:
+    """Device ms a pass's tail after its traversal, from its raw hit: the
+    alpha commit with its control block (in an older package: the finish,
+    then the commit with its count).  ``reps`` of them in one captured CUDA
+    graph, each on its own copy of the pass's state and raw hit; before
+    each timed replay every copy's state is restored and a buffer of
+    ``check_torch_trace.COLD_BYTES`` written, so no pass finds its inputs in
+    L2.  The mean of three replays."""
+    import torch
+    from check_torch_trace import COLD_BYTES
+
+    dev = raw[2].device
+    copies = [({k: v.clone() for k, v in before.items()},
+               (tuple(c.clone() for c in raw[0]), raw[1].clone(), raw[2].clone(), raw[3]),
+               torch.zeros(4, dtype=torch.int64, device=dev)) for _ in range(reps)]
 
     def restore():
         for st, *_ in copies:
@@ -199,9 +242,9 @@ def _commit_ms(tables, before, t_c, tri_c, u_c, v_c, reps: int = 20) -> float:
     graph = torch.cuda.CUDAGraph()
     restore()
     with torch.cuda.graph(graph):
-        for st, t, tri, u, v, count in copies[:reps]:
-            wave.alpha_commit(tables, st, t, tri, u, v, count)
-    flush = torch.empty(COLD_BYTES, dtype=torch.uint8, device=tri_c.device)
+        for st, r, loop in copies:
+            _run_pass(tables, st, r, loop)
+    flush = torch.empty(COLD_BYTES, dtype=torch.uint8, device=dev)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     runs = []
     for _ in range(4):  # the first warms up
@@ -214,6 +257,25 @@ def _commit_ms(tables, before, t_c, tri_c, u_c, v_c, reps: int = 20) -> float:
         runs.append(start.elapsed_time(end) / reps)
     del graph, copies, flush
     return sum(runs[1:]) / 3
+
+
+def _run_pass(tables, st, raw, loop) -> None:
+    """A pass's tail on the card: the fused commit with the control block
+    ``loop`` (four int64), or in an older package the finish and the commit,
+    its count at ``loop[3]`` (where the fused commit leaves its own)."""
+    from vulkan_raytracer_tpu_torch.ops import trace, wave
+
+    if fused():
+        wave.alpha_commit(tables, st, raw, loop)
+    else:
+        wave.alpha_commit(tables, st, *trace.hit_finish(tables, *raw), loop[3])
+
+
+def _pass_reference(tables, before, raw) -> dict:
+    """The plain version of a pass's tail (the finish, then the commit)."""
+    from vulkan_raytracer_tpu_torch.ops import trace, wave
+
+    return wave.alpha_commit_reference(tables, before, *trace.hit_finish_reference(tables, *raw))
 
 
 def time_kept(kept: dict, reps: int = 20, plain_reps: int = 3) -> dict:
@@ -238,31 +300,39 @@ def time_kept(kept: dict, reps: int = 20, plain_reps: int = 3) -> dict:
                 "plain_ms": _plain_ms(wave.primary_rays_reference, copies, plain_reps),
                 "bytes": nbytes, "lanes": lanes.shape[0] * samples.shape[0]}
         if "alpha_commit" in kept:
-            tables, before, t_c, tri_c, u_c, v_c, want = kept["alpha_commit"]
+            tables, before, raw, want = kept["alpha_commit"]
             out["alpha_commit"] = {
-                "ms": _commit_ms(tables, before, t_c, tri_c, u_c, v_c, reps),
-                "plain_ms": _event_ms(
-                    lambda: wave.alpha_commit_reference(tables, before, t_c, tri_c, u_c, v_c),
-                    plain_reps),
-                "bytes": commit_bytes(*kept["alpha_commit"]), "lanes": tri_c.shape[0],
-                "pending": int(before["pending"].sum())}
+                "ms": _commit_ms(tables, before, raw, reps),
+                "plain_ms": _event_ms(lambda: _pass_reference(tables, before, raw), plain_reps),
+                "bytes": commit_bytes(*kept["alpha_commit"]),
+                "bytes_lanes_only": commit_bytes(*kept["alpha_commit"], rows=False),
+                "lanes": raw[2].shape[0], "pending": int(before["pending"].sum())}
     for t in out.values():
         t.update(bound_ms=1e3 * t["bytes"] / HBM_BYTES_PER_S, bound_by="bytes")
     return out
 
 
-def commit_bytes(tables, before, t_c, tri_c, u_c, v_c, want) -> int:
-    """``wave.alpha_commit_bytes`` of one pass, its BLEND candidates found
-    from the tables."""
+def commit_bytes(tables, before, raw, want, rows: bool = True) -> int:
+    """The bytes a pass's tail must move, its BLEND candidates found from
+    the tables: ``wave.alpha_commit_bytes`` with, where ``rows``, the
+    finish's table rows of the pending lanes' hits
+    (``trace.finish_table_bytes``); in an older package the finish over
+    every lane (``trace.hit_finish_bytes``) and the commit's bytes."""
     import torch
 
-    from vulkan_raytracer_tpu_torch.ops import wave
+    from vulkan_raytracer_tpu_torch.ops import trace, wave
 
+    rays, t, hit, mode = raw
+    _, tri_c, _, _ = trace.hit_finish_reference(tables, *raw)
     ti = torch.clamp_min(tri_c, 0)
     if tables.inst is not None:
         ti, _ = tables.inst.decode(ti)
     blend = before["pending"] & (tri_c >= 0) & (tables.alpha.mode[ti] == 2)
-    return wave.alpha_commit_bytes(before, tri_c, want, blend)
+    if not fused():
+        return trace.hit_finish_bytes(hit) + wave.alpha_commit_bytes(before, tri_c, want, blend)
+    pend = hit[before["pending"]]
+    table = trace.finish_table_bytes(tables, pend, mode) if rows else 0
+    return wave.alpha_commit_bytes(before, hit, want, blend, table)
 
 
 def pass_table(commits: list) -> dict:
@@ -277,7 +347,7 @@ def pass_table(commits: list) -> dict:
         for k, call in enumerate(commits):
             bound = 1e6 * commit_bytes(*call) / HBM_BYTES_PER_S
             rows.append({"pass": k, "pending": int(call[1]["pending"].sum()),
-                         "us": 1e3 * _commit_ms(*call[:6]), "bound_us": bound})
+                         "us": 1e3 * _commit_ms(*call[:3]), "bound_us": bound})
     us, bound = sum(r["us"] for r in rows), sum(r["bound_us"] for r in rows)
     return {"passes": rows, "us_sum": us, "bound_us_sum": bound, "lost_us": us - bound}
 
@@ -320,23 +390,30 @@ def check_config(name: str, spec, device, tables=None, timing: bool = False) -> 
 
 def synthetic_pass(tables, n: int, share, seed: int):
     """One alpha pass's inputs over ``tables``, made from ``seed``: the loop's
-    state (``share`` of the lanes pending; None: one lane) and candidates
-    (15% none, the rest any triangle or encoded id)."""
+    state (``share`` of the lanes pending; None: one lane) and the
+    traversal's raw result, (rays, t, hit, mode) (15% missed, the rest any
+    triangle, BVH slot or encoded id of the tables' mode; rays from points
+    in [-1, 1]^3 in random directions)."""
     import torch
 
     dev = tables.device
     g = torch.Generator(device=dev).manual_seed(seed)
-    ids = (tables.inst.num_proto_tris * tables.inst.num_instances if tables.inst is not None
-           else tables.num_triangles)
+    if tables.inst is not None:
+        mode, ids = "instanced", tables.inst.num_proto_tris * tables.inst.num_instances
+    elif tables.pbvh is not None:
+        mode, ids = "bvh", tables.pbvh.tri_id.shape[0]
+    else:
+        mode, ids = "dense", tables.num_triangles
 
     def rand():
         return torch.rand(n, generator=g, device=dev)
 
-    tri_c = torch.where(rand() < 0.15, -1, torch.randint(0, ids, (n,), generator=g, device=dev,
-                                                         dtype=torch.int32)).int()
-    t_c = torch.where(tri_c >= 0, rand() * 4, torch.inf)
-    u_c = rand()
-    v_c = rand() * (1 - u_c)
+    hit = torch.where(rand() < 0.15, -1, torch.randint(0, ids, (n,), generator=g, device=dev,
+                                                       dtype=torch.int32)).int()
+    t = torch.where(hit >= 0, rand() * 4, torch.inf)
+    d = torch.randn((3, n), generator=g, device=dev)
+    d = d / d.norm(dim=0)
+    rays = tuple(c.contiguous() for c in (*(rand() * 2 - 1 for _ in range(3)), *d))
     if share is None:
         pending = torch.zeros(n, dtype=torch.bool, device=dev)
         pending[n // 2] = True
@@ -346,18 +423,19 @@ def synthetic_pass(tables, n: int, share, seed: int):
               tri=torch.full((n,), -1, dtype=torch.int32, device=dev),
               u=torch.zeros(n, device=dev), v=torch.zeros(n, device=dev),
               seed=torch.randint(0, 2**32, (n,), generator=g, device=dev))
-    return st, t_c, tri_c, u_c, v_c
+    return st, (rays, t, hit, mode)
 
 
 def synthetic(device, timing: bool = False) -> dict:
-    """The alpha commit against its plain version on synthetic passes
-    (:func:`synthetic_pass`) at :data:`PENDING_SHARES` and
-    :data:`SYNTHETIC_LANES` over the smoke's alpha gallery (a MASK texture
-    and a BLEND row) uploaded instanced and flattened and its untextured
-    twin: the state written over the loop's buffers and the count of
-    pending lanes bit-equal, else the case is listed.  With ``timing`` (a
-    card) each share at the largest count is timed cold over the instanced
-    gallery (:func:`_commit_ms`)."""
+    """The alpha commit against its plain version (the finish, then the
+    commit) on synthetic passes (:func:`synthetic_pass`) at
+    :data:`PENDING_SHARES` and :data:`SYNTHETIC_LANES` over the smoke's
+    alpha gallery (a MASK texture and a BLEND row) uploaded instanced and
+    flattened and its untextured twin: the state written over the loop's
+    buffers and the count of pending lanes it leaves in its control block
+    bit-equal, else the case is listed.  With ``timing`` (a card) each
+    share at the largest count is timed cold over the instanced gallery
+    (:func:`_commit_ms`)."""
     import chip_smoke
     import torch
 
@@ -371,15 +449,17 @@ def synthetic(device, timing: bool = False) -> dict:
     for name, tables in scenes.items():
         for n in SYNTHETIC_LANES[:-1]:
             for s, share in enumerate(PENDING_SHARES):
-                st, *cand = synthetic_pass(tables, n, share, seed=n + s)
-                want = wave.alpha_commit_reference(tables, st, *cand)
-                count = torch.full((), 99, dtype=torch.int64, device=device)
-                wave.alpha_commit(tables, st, *cand, count)
+                st, raw = synthetic_pass(tables, n, share, seed=n + s)
+                want = _pass_reference(tables, st, raw)
+                loop = torch.zeros(4, dtype=torch.int64, device=device)
+                loop[3] = 99
+                _run_pass(tables, st, raw, loop)
                 checked += 1
                 fields = [k for k in want if not torch.equal(st[k], want[k])]
-                if fields or int(count) != int(want["pending"].sum()):
+                got = int(loop[3])
+                if fields or got != int(want["pending"].sum()) or int(loop[0]):
                     differing.append({"scene": name, "lanes": n, "share": share,
-                                      "fields": fields, "count": int(count)})
+                                      "fields": fields, "count": got, "word": int(loop[0])})
     out = {"checked": checked, "differing": differing,
            "launches": wave.LAUNCHES["alpha_commit"] - launches}
     if timing:
@@ -389,11 +469,11 @@ def synthetic(device, timing: bool = False) -> dict:
         rows = []
         with torch.inference_mode():
             for s, share in enumerate(PENDING_SHARES):
-                st, *cand = synthetic_pass(tables, n, share, seed=s)
-                want = wave.alpha_commit_reference(tables, st, *cand)
+                st, raw = synthetic_pass(tables, n, share, seed=s)
+                want = _pass_reference(tables, st, raw)
                 rows.append({"share": share, "pending": int(st["pending"].sum()),
-                             "us": 1e3 * _commit_ms(tables, st, *cand),
-                             "bound_us": 1e6 * commit_bytes(tables, st, *cand, want)
+                             "us": 1e3 * _commit_ms(tables, st, raw),
+                             "bound_us": 1e6 * commit_bytes(tables, st, raw, want)
                              / HBM_BYTES_PER_S})
         out["timing"] = {"lanes": n, "scene": "instanced", "by_share": rows}
     return out

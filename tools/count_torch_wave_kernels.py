@@ -123,7 +123,8 @@ def count(size: int, depth: int, scene: str = "cornell") -> dict:
                 return fn(*args, **kw)
             finally:
                 mode.paused -= 1
-                mode.add(where)
+                if not mode.paused:  # a plain version inside another's is part of its launch
+                    mode.add(where)
         return call
 
     for mod, name in PLAIN:

@@ -3,7 +3,8 @@
 the wavefront repack and without it.
 
     python3 tools/profile_torch_wave.py
-        [--config cfg1|cfg2|gltf|textured|instanced|soup|cfg5] [--reps 3] [--out FILE.json]
+        [--config cfg1|cfg2|gltf|textured|instanced|soup|cfg5|alpha_gallery] [--reps 3]
+        [--out FILE.json]
         [--root DIR]
 
 Run from the root of a checkout on a machine with an NVIDIA card.  It
@@ -20,7 +21,9 @@ panels on the two-level traversal of ``ops/instanced.py``; soup,
 ``chip_smoke.emitter_soup_scene(100000, 5000, seed=31)`` at 512x512, 4 spp,
 cfg1's camera, whose pdf probes walk the emissive BVH; cfg5,
 ``multi_scene`` at 1920x1080, 8 spp, whose first wave is one band of 64,800
-pixels x 8 samples.  All at depth 4 (cfg5: 8).  The wave is the one the
+pixels x 8 samples; alpha_gallery, ``chip_smoke.alpha_gallery_scene()``
+uploaded instanced at 128x128, 16 spp (MASK and BLEND instances on the
+resample loop's encoded ids).  All at depth 4 (cfg5: 8).  The wave is the one the
 package's rules pick: a scene on the repacked wavefront whose frame cannot
 hold min(spp, 8) samples in one wave starts with a band
 (``renderer._banded_preferred``), any other with samples 1.. of every
@@ -35,7 +38,9 @@ with graphs patched off (``eager``), and, on a repacked scene, with the
 repack patched off too (``unsorted``):
 
 1. each side once to build the kernels, capture the program and warm the
-   allocator (the captures' count, seconds and pool bytes are reported);
+   allocator (the captures' count, seconds and pool bytes are reported,
+   and the graph nodes a launch of the program runs, ``program_nodes``;
+   ``--nodes`` stops there);
 2. ``--reps`` times each side unprofiled, in turns (device, replay, eager,
    unsorted, unsorted, eager, replay, device, ...): the wall of each,
    CUDA-synchronised, and the radiance, which must be bit-equal between the
@@ -141,11 +146,13 @@ CONFIGS = {
     "instanced": ("gallery", None, None),  # the camera is chip_smoke.gallery_camera()
     "soup": ("emitter_soup", [0.0, 1.0, 2.4], [0.0, 0.0, -1.0]),
     "cfg5": ("multi", [-9.0, 2.0, 1.5], [1.0, -0.1, -0.15]),
+    "alpha_gallery": ("alpha_gallery", [0.0, 0.0, 2.8], [0.0, 0.0, -1.0]),
 }
 #: config -> (width, height, spp, depth) of its render
 FRAMES = {"cfg1": (512, 512, 64, 4), "cfg2": (512, 512, 4, 4), "gltf": (512, 512, 4, 4),
           "textured": (512, 512, 16, 4), "instanced": (512, 512, 4, 4),
-          "soup": (512, 512, 4, 4), "cfg5": (1920, 1080, 8, 8)}
+          "soup": (512, 512, 4, 4), "cfg5": (1920, 1080, 8, 8),
+          "alpha_gallery": (128, 128, 16, 4)}
 
 
 def _scene(name: str):
@@ -157,11 +164,13 @@ def _scene(name: str):
         return BUILTIN_SCENES[name]()
     if name == "multi":
         return procedural.multi_scene()
-    if name in ("gallery", "emitter_soup"):
+    if name in ("gallery", "emitter_soup", "alpha_gallery"):
         import chip_smoke
 
         if name == "gallery":
             return chip_smoke.gallery_scene()
+        if name == "alpha_gallery":
+            return chip_smoke.alpha_gallery_scene()
         return chip_smoke.emitter_soup_scene(100000, 5000, seed=31)
     sys.path.insert(0, str(ROOT / "tools"))
     import torch_glb_assets
@@ -299,9 +308,9 @@ def live_per_closest_call(run) -> list:
     closest, preferred = integrator.instanced_closest, graphs._graphs_preferred
     live = []
 
-    def counting(tables, o, d, *, t_min, t_max, active):
+    def counting(tables, o, d, *, t_min, t_max, active, **kw):  # kw: a resample pass's raw
         live.append(int(active.sum()))
-        return closest(tables, o, d, t_min=t_min, t_max=t_max, active=active)
+        return closest(tables, o, d, t_min=t_min, t_max=t_max, active=active, **kw)
 
     try:
         integrator.instanced_closest = counting  # the name the integrator calls
@@ -572,12 +581,54 @@ def _alpha_loop() -> dict:
     return loop
 
 
+def program_nodes(cache) -> dict:
+    """The device graph nodes one launch of each program in ``cache`` runs,
+    from one host-read replay of it (``_Program.interpret``, which keeps the
+    rows the tests keep on the card): each part's nodes times the runs of
+    its body (a WHILE's ``then`` IF's too, where the checkout has one), and
+    the test nodes, each node's entry tests and each WHILE's closing tests
+    but a resample loop's whose passes test themselves (a condition with a
+    control block ``word``)."""
+    from vulkan_raytracer_tpu_torch.render import graphs
+
+    out = []
+    for program in cache.graphs.values():
+        rows = [[0, 0, 0, 0] for _ in program.conds]
+        program.interpret(program.nodes, rows)
+
+        def parts(nodes, times):
+            n = 0
+            for node in nodes:
+                if isinstance(node, graphs._Part):
+                    n += node.graph.nodes() * times
+                    continue
+                n += parts(node.body, rows[node.row][0])
+                then = getattr(node, "then", None)
+                if then is not None:
+                    n += parts(then.body, rows[then.row][0])
+            return n
+
+        tests = 0
+        for node in program.conds:
+            if node.cond is None:
+                continue
+            runs, entries = rows[node.row][:2]
+            closing = node.kind == "while" and getattr(node.cond, "word", None) is None
+            tests += entries + (runs if closing else 0)
+        part_nodes = parts(program.nodes, 1)
+        out.append({"part_nodes": part_nodes, "test_nodes": tests, "nodes": part_nodes + tests})
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--config", choices=sorted(CONFIGS), default="cfg1")
     p.add_argument("--reps", type=int, default=3)
     p.add_argument("--out", default=None)
     p.add_argument("--root", default=str(ROOT), help="the checkout whose package is timed")
+    p.add_argument("--nodes", action="store_true",
+                   help="only capture the wave's program and count the graph nodes a launch "
+                        "runs (program_nodes)")
     args = p.parse_args(argv)
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(Path(args.root).resolve()))
@@ -598,7 +649,8 @@ def main(argv=None) -> int:
         import chip_smoke
 
         pos, direction = chip_smoke.gallery_camera()
-    tables = _scene(scene).upload("cuda")
+    tables = _scene(scene).upload("cuda", **({"instancing": True} if scene == "alpha_gallery"
+                                              else {}))
     camera = Camera(position=np.array(pos), direction=np.array(direction),
                     aspect=width / height)
     lanes, samples, bands = first_wave(tables, width, height, spp)
@@ -621,7 +673,17 @@ def main(argv=None) -> int:
         captures = {**graphs.STATS, "programs": len(graphs.cache(tables).graphs),
                     "pool_bytes": graphs.cache(tables).pool_bytes(),
                     "mirror_bytes": graphs.cache(tables).mirror_bytes(),
-                    "graphs_preferred": kept[0](tables)}
+                    "graphs_preferred": kept[0](tables),
+                    "program_nodes": program_nodes(graphs.cache(tables))}
+        if args.nodes:
+            line = json.dumps({"config": args.config, "root": args.root, "nvidia_smi": smi,
+                               "program_nodes": captures["program_nodes"],
+                               "launches": launches["device"]})
+            print(line, flush=True)
+            if args.out:
+                Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+                Path(args.out).write_text(line + "\n")
+            return 0
         for r in range(args.reps):
             for name in list(sides)[::1 if r % 2 == 0 else -1]:
                 _patch(*sides[name])

@@ -18,22 +18,38 @@
 // The functions below stitch them into one parent graph: each leaf a child
 // graph node, chained in program order; each loop a conditional WHILE node
 // and each re-sort a conditional IF node (CUDA 12.4+), whose body graph holds
-// its own leaves and nested nodes.  A condition is set on the card by
-// loop_cond_kernel, one thread: it reads the loop's device scalars (the
-// bounce index b against max_depth where the loop has one, and a count of
-// live or pending lanes against a floor) and calls cudaGraphSetConditional.
-// A WHILE node tests its condition before its first iteration, so one
-// loop_cond_kernel node runs right before each conditional node (the
-// entry test) and, for a WHILE, one more ends its body (the test for the
-// next iteration).  Each test also keeps the node's row of counters, four
-// int64: iterations (bodies run), entries (tests before the node), the
-// bodies of the current entry, and the most bodies one entry ran.  The
-// Python side reads the rows once a frame and multiplies each leaf's
+// its own leaves and nested nodes.  A condition is set on the card by the
+// kernel that makes its count (csrc/graph_test.cuh): loop_cond_kernel counts
+// a column of live or pending lane flags over a grid of 16 flags a thread,
+// its last block compares the total
+// against a floor and, where the loop has one, the bounce index b against
+// max_depth, and calls cudaGraphSetConditional.  A WHILE node tests its
+// condition before its first iteration, so one loop_cond_kernel node runs
+// right before each conditional node (the entry test) and, for a bounce
+// loop, one more ends its body: it adds 1 to b (the bounce's b += 1), counts
+// the live lanes and, on a repacked wave, also sets the IF that follows it
+// in the body (the next bounce's re-sort, which so has no test of its own).
+// A resample loop's body ends with no test: its pass's commit
+// (alpha_commit_kernel, csrc/wave.cu) counts the lanes it leaves pending and
+// sets the loop's condition.  The handle exists only once the parts are
+// stitched, after PyTorch captured the pass, so the loop's entry test writes
+// it, and the address of the node's row, into the loop's control block, which
+// the commit reads; the commit clears the row's address when the loop ends,
+// so a replay of the pass outside the device loops (and an eager pass, which
+// has no block) finds no handle there.  Each test also keeps the node's row
+// of counters, four int64: iterations (bodies run), entries (tests before the
+// node), the bodies of the current entry, and the most bodies one entry ran.
+// The Python side reads the rows once a frame and multiplies each leaf's
 // captured launch counts by the runs of its body.
 //
-// What bounds it.  loop_cond_kernel is one thread reading three scalars: a
-// launch, about 2 us of device time, a few per bounce.  What it saves is
-// host time: a wave with host-driven loops waits for one read per test.
+// What bounds it.  A test reads a wave's flags, half a megabyte at most
+// (0.16 us at 3.35 TB/s): a launch, about 2 us of device time, one a bounce
+// and one at each loop's entry.  Each node costs the card its launch inside
+// the graph, so the test is made where the count is made: the bounce loop's
+// closing test replaces the aten ops that counted the live lanes, stepped b
+// and set the re-sort flag, and a resample pass tests in its commit.  What the
+// device loops save is host time: a wave with host-driven loops waits for one
+// read per test.
 //
 // What a conditional body may hold: kernel, memset, device-to-device memcpy,
 // empty, child-graph and conditional nodes.  graph_loops_check walks a leaf
@@ -52,40 +68,67 @@
 #include <cstdint>
 #include <vector>
 
+#include "graph_test.cuh"
+
+// One test's parameters; render/graphs.py _LoopTest lists the same fields in
+// the same order.
+struct LoopTest {
+  unsigned long long handle;       // the node's condition
+  unsigned long long then_handle;  // an IF after this test in the same body (then_row set)
+  const uint8_t* flags;            // the lanes whose nonzero flags are the count
+  long long n;                     // their number
+  long long floor;                 // the count must pass it
+  int* b;                          // the bounce index, or null
+  long long* row;                  // the node's row of four counters
+  long long* then_row;             // the IF's row, or null: no IF
+  unsigned long long* word;        // flags' accumulator and block ticket
+  long long* arm;                  // a resample loop's control block to arm, or null
+  int max_depth;                   // b must not pass it
+  int step;                        // add 1 to b before the test
+  int entry;                       // the test before the node's first body
+};
+
 namespace {
 
-__global__ void loop_cond_kernel(cudaGraphConditionalHandle handle, const int* b, int max_depth,
-                                 const long long* count, long long floor, long long* row,
-                                 int entry) {
-  const bool go = *count > floor && (b == nullptr || *b <= max_depth);
-  if (entry) {  // a new entry of the node: its bodies start again from 0
-    row[1] += 1;
-    row[2] = 0;
-  }
-  if (go) {
-    row[0] += 1;
-    row[2] += 1;
-  } else if (row[2] > row[3]) {
-    row[3] = row[2];
-  }
-  cudaGraphSetConditional(handle, go ? 1u : 0u);
+constexpr int kTestThreads = 256;
+constexpr int kTestBytes = 16;  // flags a thread counts
+
+// Nonzero bytes of a word
+__device__ __forceinline__ unsigned int nonzero_bytes(unsigned int w) {
+  return __popc((((w & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | w) & 0x80808080u);
 }
 
-cudaError_t add_test(cudaGraph_t graph, cudaGraphNode_t* tail, cudaGraphConditionalHandle handle,
-                     const int* b, int max_depth, const long long* count, long long floor,
-                     long long* row, int entry) {
-  void* args[] = {&handle, &b, &max_depth, &count, &floor, &row, &entry};
-  cudaKernelNodeParams p = {};
-  p.func = reinterpret_cast<void*>(loop_cond_kernel);
-  p.gridDim = dim3(1, 1, 1);
-  p.blockDim = dim3(1, 1, 1);
-  p.sharedMemBytes = 0;
-  p.kernelParams = args;
-  p.extra = nullptr;
-  cudaGraphNode_t node;
-  cudaError_t err = cudaGraphAddKernelNode(&node, graph, *tail ? tail : nullptr, *tail ? 1 : 0, &p);
-  if (err == cudaSuccess) *tail = node;
-  return err;
+// The test: the flags counted by the whole grid, 16 a thread; then in the last
+// block b stepped, the row kept, the conditions set, a resample loop armed
+__global__ void __launch_bounds__(kTestThreads) loop_cond_kernel(const __grid_constant__ LoopTest t) {
+  unsigned int mine = 0;
+  const long long b0 =
+      (static_cast<long long>(blockIdx.x) * kTestThreads + threadIdx.x) * kTestBytes;
+  const uint8_t* p = t.flags + b0;
+  if (b0 + kTestBytes <= t.n && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+    const uint4 q = *reinterpret_cast<const uint4*>(p);
+    mine = nonzero_bytes(q.x) + nonzero_bytes(q.y) + nonzero_bytes(q.z) + nonzero_bytes(q.w);
+  } else {
+    for (long long k = b0; k < b0 + kTestBytes && k < t.n; ++k) mine += t.flags[k] != 0;
+  }
+  long long total;
+  if (!last_block(t.word, block_sum(mine), total)) return;
+  int b = 0;
+  if (t.b != nullptr) {
+    b = *t.b + t.step;
+    if (t.step) *t.b = b;
+  }
+  const bool go = total > t.floor && (t.b == nullptr || b <= t.max_depth);
+  keep_row(t.row, t.entry, go);
+  cudaGraphSetConditional(t.handle, go ? 1u : 0u);
+  if (t.then_row != nullptr) {  // the IF runs its body where the loop goes on
+    keep_row(t.then_row, true, go);
+    cudaGraphSetConditional(t.then_handle, go ? 1u : 0u);
+  }
+  if (go && t.arm != nullptr) {  // the resample loop's passes test themselves
+    t.arm[1] = static_cast<long long>(t.handle);
+    t.arm[2] = reinterpret_cast<long long>(t.row);
+  }
 }
 
 bool allowed(cudaGraphNodeType type) {
@@ -198,42 +241,54 @@ int graph_loops_add_child(void* graph, void** tail, void* child) {
   return static_cast<int>(err);
 }
 
-// Appends the entry test and a conditional node (WHILE where is_while, else
-// IF) to `graph` after *tail; hands back the node's handle and its body
-// graph, which the caller fills.  A WHILE body ends with
-// graph_loops_add_test.
-int graph_loops_add_conditional(void* graph, void** tail, int is_while, const int* b,
-                                int max_depth, const long long* count, long long floor,
-                                long long* row, unsigned long long* handle, void** body) {
-  cudaGraph_t g = static_cast<cudaGraph_t>(graph);
+// A new conditional handle of `graph` (no default value: a test sets it
+// before its node runs).
+int graph_loops_handle(void* graph, unsigned long long* handle) {
   cudaGraphConditionalHandle h;
-  cudaError_t err = cudaGraphConditionalHandleCreate(&h, g, 0, 0);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaGraphNode_t last = static_cast<cudaGraphNode_t>(*tail);
-  err = add_test(g, &last, h, b, max_depth, count, floor, row, 1);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaGraphNodeParams p = {};
-  p.type = cudaGraphNodeTypeConditional;
-  p.conditional.handle = h;
-  p.conditional.type = is_while ? cudaGraphCondTypeWhile : cudaGraphCondTypeIf;
-  p.conditional.size = 1;
-  cudaGraphNode_t node;
-  err = cudaGraphAddNode(&node, g, &last, 1, &p);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  *tail = node;
-  *handle = h;
-  *body = p.conditional.phGraph_out[0];
-  return 0;
+  cudaError_t err = cudaGraphConditionalHandleCreate(&h, static_cast<cudaGraph_t>(graph), 0, 0);
+  if (err == cudaSuccess) *handle = h;
+  return static_cast<int>(err);
 }
 
-// Appends the test that decides a WHILE body's next iteration to the body.
-int graph_loops_add_test(void* body, void** tail, unsigned long long handle, const int* b,
-                         int max_depth, const long long* count, long long floor, long long* row) {
-  cudaGraphNode_t last = static_cast<cudaGraphNode_t>(*tail);
-  cudaError_t err = add_test(static_cast<cudaGraph_t>(body), &last, handle, b, max_depth, count,
-                             floor, row, 0);
-  if (err == cudaSuccess) *tail = last;
+// Appends a test (loop_cond_kernel) to `graph` after *tail: a grid of one
+// thread a 16 flags, one block at least.
+int graph_loops_add_test(void* graph, void** tail, const LoopTest* test) {
+  LoopTest t = *test;
+  void* args[] = {&t};
+  const long long chunks = (t.n + kTestBytes - 1) / kTestBytes;
+  cudaKernelNodeParams p = {};
+  p.func = reinterpret_cast<void*>(loop_cond_kernel);
+  p.gridDim = dim3(static_cast<unsigned int>(
+      chunks > 0 ? (chunks + kTestThreads - 1) / kTestThreads : 1));
+  p.blockDim = dim3(kTestThreads, 1, 1);
+  p.sharedMemBytes = 0;
+  p.kernelParams = args;
+  p.extra = nullptr;
+  cudaGraphNode_t dep = static_cast<cudaGraphNode_t>(*tail);
+  cudaGraphNode_t node;
+  cudaError_t err = cudaGraphAddKernelNode(&node, static_cast<cudaGraph_t>(graph),
+                                           dep ? &dep : nullptr, dep ? 1 : 0, &p);
+  if (err == cudaSuccess) *tail = node;
   return static_cast<int>(err);
+}
+
+// Appends a conditional node (WHILE where is_while, else IF) on `handle` to
+// `graph` after *tail; hands back its body graph, which the caller fills.
+int graph_loops_add_conditional(void* graph, void** tail, unsigned long long handle,
+                                int is_while, void** body) {
+  cudaGraphNodeParams p = {};
+  p.type = cudaGraphNodeTypeConditional;
+  p.conditional.handle = handle;
+  p.conditional.type = is_while ? cudaGraphCondTypeWhile : cudaGraphCondTypeIf;
+  p.conditional.size = 1;
+  cudaGraphNode_t dep = static_cast<cudaGraphNode_t>(*tail);
+  cudaGraphNode_t node;
+  cudaError_t err = cudaGraphAddNode(&node, static_cast<cudaGraph_t>(graph), dep ? &dep : nullptr,
+                                     dep ? 1 : 0, &p);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *tail = node;
+  *body = p.conditional.phGraph_out[0];
+  return 0;
 }
 
 int graph_loops_instantiate(int device, void* graph, void** exec) {

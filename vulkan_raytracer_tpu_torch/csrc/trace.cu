@@ -10,7 +10,10 @@
 //                           with _slot_to_tri :1343 and _winner_uv :1309), and on
 //                           an instanced scene the winner's instance transform
 //                           (ops/instanced.py :236-262); t = inf, tri = -1,
-//                           u = v = 0 on a miss
+//                           u = v = 0 on a miss.  One an opaque closest-hit
+//                           call: an alpha pass's finish is its commit's
+//                           (csrc/wave.cu), on its pending lanes, by the same
+//                           function (csrc/hit_finish.cuh)
 //   instance_step_kernel <- one step of the instance scans between two
 //                           prototype launches (ops/instanced.py:185-234,
 //                           :279-317): the last launch's result merged into the
@@ -76,7 +79,7 @@
 // Launches go on the caller's stream; nothing here synchronises or
 // allocates.  Each launcher returns cudaGetLastError().
 
-#include "lane_math.cuh"
+#include "hit_finish.cuh"
 
 namespace {
 
@@ -120,8 +123,6 @@ enum Int {
 // Floats; ops/trace.py REALS lists the same names in the same order.
 enum Real { F_TMIN, F_TMAX, kReals };
 
-// hit_finish_kernel's modes: what H_HIT holds
-enum Finish { kDense, kBvh, kInstanced };
 // permute_kernel's modes
 enum Permute { kGather, kScatter, kCopy };
 
@@ -148,34 +149,17 @@ __device__ __forceinline__ V3 ray_d(const Args& a, long long i) {
   return {col<const float>(a, W_DX)[i], col<const float>(a, W_DY)[i], col<const float>(a, W_DZ)[i]};
 }
 
-__device__ __forceinline__ V3 vertex(const Args& a, int first, long long t) {
-  return {col<const float>(a, first)[t], col<const float>(a, first + 1)[t],
-          col<const float>(a, first + 2)[t]};
-}
-
-// trace._apply_affine / _apply_linear: a 3x4 row-major map, rows left to right
-__device__ __forceinline__ V3 affine(const float* m, V3 p) {
-  return {m[0] * p.x + m[1] * p.y + m[2] * p.z + m[3], m[4] * p.x + m[5] * p.y + m[6] * p.z + m[7],
-          m[8] * p.x + m[9] * p.y + m[10] * p.z + m[11]};
-}
-
-__device__ __forceinline__ V3 linear(const float* m, V3 v) {
-  return {m[0] * v.x + m[1] * v.y + m[2] * v.z, m[4] * v.x + m[5] * v.y + m[6] * v.z,
-          m[8] * v.x + m[9] * v.y + m[10] * v.z};
-}
-
-// trace.winner_uv's Moller-Trumbore (u, v) of triangle ti for the ray (o, d)
-__device__ __forceinline__ void winner_uv(const Args& a, long long ti, V3 o, V3 d, float& u,
-                                          float& v) {
-  const V3 v0 = vertex(a, T_V0X, ti);
-  const V3 e1 = sub(vertex(a, T_V1X, ti), v0);
-  const V3 e2 = sub(vertex(a, T_V2X, ti), v0);
-  const V3 pvec = cross(d, e2);
-  const float det = dot(e1, pvec);
-  const float inv = rcp(fabsf(det) < K(1e-12) ? 1.0f : det);
-  const V3 tvec = sub(o, v0);
-  u = dot(tvec, pvec) * inv;
-  v = dot(d, cross(tvec, e1)) * inv;
+// hit_finish_kernel's tables (csrc/hit_finish.cuh)
+__device__ __forceinline__ FinishTables finish_tables(const Args& a) {
+  FinishTables f;
+#pragma unroll
+  for (int k = 0; k < 9; ++k) f.v[k] = col<const float>(a, T_V0X + k);
+  f.tri_id = col<const int>(a, T_TRIID);
+  f.inv_flat = col<const float>(a, T_INVFLAT);
+  f.proto_tris = a.i[I_PROTO_TRIS];
+  f.num_inst = a.i[I_NUM_INST];
+  f.mode = static_cast<int>(a.i[I_MODE]);
+  return f;
 }
 
 // math3.safe_inv_dir: 1/d with |d| < 1e-20 replaced by a signed 1e-20
@@ -224,26 +208,9 @@ __global__ void __launch_bounds__(kThreads) hit_finish_kernel(const __grid_const
     v_out[i] = 0.0f;
     return;
   }
-  V3 o = ray_o(a, i), d = ray_d(a, i);
-  long long ti = hit;
-  const int mode = static_cast<int>(a.i[I_MODE]);
-  int tri = hit;
-  if (mode == kBvh) {  // slot -> scene triangle
-    tri = col<const int>(a, T_TRIID)[hit];
-    ti = tri;
-  } else if (mode == kInstanced) {  // encoded id -> prototype triangle, in its object space
-    long long inst;
-    decode_id(hit, a.i[I_PROTO_TRIS], ti, inst);
-    inst = inst < a.i[I_NUM_INST] - 1 ? inst : a.i[I_NUM_INST] - 1;
-    const float* rows = col<const float>(a, T_INVFLAT);
-    float m[12];
-#pragma unroll
-    for (int k = 0; k < 12; ++k) m[k] = rows[k * a.i[I_NUM_INST] + inst];
-    o = affine(m, o);
-    d = linear(m, d);
-  }
   float u, v;
-  winner_uv(a, ti, o, d, u, v);
+  long long proto;
+  const int tri = finish_hit(finish_tables(a), hit, ray_o(a, i), ray_d(a, i), u, v, proto);
   t_out[i] = col<const float>(a, H_T)[i];
   tri_out[i] = tri;
   u_out[i] = u;

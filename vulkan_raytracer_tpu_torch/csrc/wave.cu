@@ -1,5 +1,5 @@
 // The wave's own kernels for Hopper (sm_90a): its primary rays and initial
-// state, and the test and commit of one alpha resample pass.
+// state, and the finish, test and commit of one alpha resample pass.
 //
 // Replaces two pieces of what XLA makes of the JAX package's jit'd wave
 // (vulkan_raytracer_tpu/render/renderer.py:52-88, render/integrator.py), each
@@ -8,14 +8,19 @@
 //                          initial state of render_sample (:936-960): the lane's
 //                          pixel and sample, the TEA seed, the jitter, the camera
 //                          ray, and the constant fields of the state
-//   alpha_commit_kernel <- _alpha_test (:130-162) and the rest of the resample
-//                          while_loop's body after its traversal (:195-214): the
-//                          candidate's alpha (MASK cutoff, BLEND draw, the base
-//                          texture's alpha), the commit of an accepted hit, the
-//                          lower bound past a rejected one, the lanes still pending
+//   alpha_commit_kernel <- the rest of the resample while_loop's body after its
+//                          Pallas call (:195-214): the closest hit's finish
+//                          (ops/pallas_dense.py:282-298, ops/pallas_bvh.py:1309,
+//                          :1343, ops/instanced.py:236-262), _alpha_test
+//                          (:130-162: the candidate's alpha, MASK cutoff, BLEND
+//                          draw, the base texture's alpha), the commit of an
+//                          accepted hit, the lower bound past a rejected one,
+//                          the lanes still pending, and the loop's next test
+//                          (:192-193, the while_loop's cond)
 // The plain PyTorch versions are primary_rays_reference and
-// alpha_commit_reference in ops/wave.py: the port's generate_primary_rays, its
-// state build, _alpha_test and the loop body's commit, regrouped.
+// alpha_pass_reference in ops/wave.py: the port's generate_primary_rays, its
+// state build, and hit_finish_reference then alpha_commit_reference
+// (_alpha_test and the loop body's commit), regrouped.
 //
 // Design.  primary_rays_kernel: one thread per lane, 256 lanes a block, no
 // shared memory.  It reads the wave from the device: the sample numbers
@@ -24,18 +29,26 @@
 // projection, row-major), so a captured program reads whatever the renderer
 // wrote there before its launch; lane i is pixel lanes[i % n] at sample
 // samples[i / n] (samples-major).  alpha_commit_kernel reads the pass's
-// candidates and writes the loop's next state over the loop's own buffers,
-// only where a value changes, and adds the lanes still pending into the
-// loop's 0-d int64 count with integer atomics (exact in any order), which
-// the loop's condition reads.
+// traversal as it came (t and the hit id, unfinished), finishes the hits of
+// the pending lanes only (csrc/hit_finish.cuh, the function hit_finish_kernel
+// runs on every lane of an opaque call), and writes the loop's next state
+// over the loop's own buffers, only where a value changes.  Inside a
+// program it also makes the loop's next test (csrc/graph_test.cuh): every
+// block adds its still-pending lanes and its ticket into the loop's control
+// block with one atomic, and the last block leaves the count there, keeps the
+// loop node's row and sets its condition, where the loop's entry test armed
+// the block with the handle (csrc/graph_loops.cu).  So a pass is its
+// traversal and this one kernel: no finish over every lane, no memset of a
+// count, no test node.
 //
 // alpha_commit_kernel: a thread a lane.  A lane's test is a chain of
-// dependent gathers; the kernel reads the candidate's triangle beside the
-// pending flag on every lane (4 bytes a lane more than a pending lane needs,
-// one trip to memory fewer for each pending lane), then every load that
-// depends only on the lane or that triangle (t, u, v, the seed; alpha mode,
-// value and cutoff, material row, the three uvs), then the texture's row
-// and its four texels.  A block adds its still-pending count once.  (Two
+// dependent gathers; the kernel reads the hit id beside the pending flag on
+// every lane (4 bytes a lane more than a pending lane needs, one trip to
+// memory fewer for each pending lane), then the finish's loads (the slot's
+// triangle, the instance's map, the three vertices, the ray), then every
+// load that depends only on the lane or that triangle (t, the seed; alpha
+// mode, value and cutoff, material row, the three uvs), then the texture's
+// row and its four texels.  A block adds its still-pending count once.  (Two
 // designs measured slower on real waves: a tile's pending lanes gathered
 // into shared memory and worked several a thread, and a persistent grid
 // that read the next lane's flag ahead with the small tables staged in
@@ -57,7 +70,8 @@
 // Launches go on the caller's stream; nothing here synchronises or
 // allocates.  Each launcher returns cudaGetLastError().
 
-#include "lane_math.cuh"
+#include "graph_test.cuh"
+#include "hit_finish.cuh"
 
 namespace {
 
@@ -71,17 +85,29 @@ enum Slot {
   // its outputs: the initial state (S_SLOT null off the repacked wavefront)
   S_OX, S_OY, S_OZ, S_DX, S_DY, S_DZ, S_VALX, S_VALY, S_VALZ, S_TPX, S_TPY, S_TPZ,
   S_SKYX, S_SKYY, S_SKYZ, S_WL, S_MATPDF, S_SEED, S_ACTIVE, S_PREVIEW, S_SLOT,
-  // alpha_commit_kernel: the resample loop's state, read and written in place
-  A_TLO, A_PENDING, A_T, A_TRI, A_U, A_V, A_SEED, A_COUNT,
-  // the pass's candidates
-  C_T, C_TRI, C_U, C_V,
-  // the scene's tables
+  // alpha_commit_kernel: the resample loop's state, read and written in place,
+  // and its control block (null eagerly)
+  A_TLO, A_PENDING, A_T, A_TRI, A_U, A_V, A_SEED, A_LOOP,
+  // the pass's traversal: its world rays, t and hit id (enum Finish)
+  R_OX, R_OY, R_OZ, R_DX, R_DY, R_DZ, R_T, R_HIT,
+  // the scene's tables: the finish's (csrc/hit_finish.cuh), the alpha test's
+  T_V0X, T_V0Y, T_V0Z, T_V1X, T_V1Y, T_V1Z, T_V2X, T_V2Y, T_V2Z, T_TRIID, T_INVFLAT,
   AL_MODE, AL_VALUE, AL_CUTOFF, T_TRIMAT, T_UV, M_TEXIDX, TEX_TEXELS, TEX_OFF, TEX_H, TEX_W,
   kSlots
 };
 
 // Counts and flags; ops/wave.py INTS lists the same names in the same order.
-enum Int { I_N, I_PIXELS, I_WIDTH, I_HEIGHT, I_PIXEL_ORDER, I_TEXTURES, I_PROTO_TRIS, kInts };
+enum Int {
+  I_N, I_PIXELS, I_WIDTH, I_HEIGHT, I_PIXEL_ORDER, I_TEXTURES, I_PROTO_TRIS, I_MODE, I_NUM_INST,
+  kInts
+};
+
+// A resample loop's control block, four 64-bit words (ops/wave.py LOOP_WORDS):
+// the count's accumulator and block ticket (csrc/graph_test.cuh), the loop's
+// conditional handle and the address of its row of counters, both written by
+// its entry test where the loop runs on the card (0: not armed), and the count
+// the last pass left pending.
+enum LoopWord { kLoopWord, kLoopHandle, kLoopRow, kLoopCount };
 
 struct Args {
   void* p[kSlots];
@@ -157,67 +183,85 @@ __global__ void __launch_bounds__(kThreads) primary_rays_kernel(const __grid_con
   if (a.p[S_SLOT]) col<long long>(a, S_SLOT)[i] = a.i[I_PIXEL_ORDER] ? lane : i;
 }
 
-// _alpha_test and the commit of one resample pass, over the loop's state
-// (see the note at the top); the arithmetic is the plain version's
+// The finish of the pass's candidates (csrc/hit_finish.cuh), _alpha_test and
+// the commit of one resample pass, over the loop's state, and the loop's
+// test where the pass runs inside a program (see the note at the top); the
+// arithmetic is the plain versions'
 __global__ void __launch_bounds__(kThreads) alpha_commit_kernel(const __grid_constant__ Args a) {
-  __shared__ unsigned int block_still[kThreads / 32];
   const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  // the flag and, beside it, the candidate's triangle
+  // the flag and, beside it, the traversal's hit id
   const bool pend = i < a.i[I_N] && col<const uint8_t>(a, A_PENDING)[i];
-  const int tri = i < a.i[I_N] ? col<const int>(a, C_TRI)[i] : -1;
+  const int hit = i < a.i[I_N] ? col<const int>(a, R_HIT)[i] : -1;
   unsigned int still = 0;
   if (pend) {
     bool rejected = false;
-    if (tri >= 0) {  // a candidate: test it (hit.rahit:26-53)
-      // what depends only on the lane or its candidate's triangle ...
-      const float tc = col<const float>(a, C_T)[i];
-      const float u = col<const float>(a, C_U)[i], v = col<const float>(a, C_V)[i];
-      const uint32_t seed = static_cast<uint32_t>(col<const long long>(a, A_SEED)[i]);
-      const int proto = static_cast<int>(a.i[I_PROTO_TRIS]);
-      const int ti = proto > 0 ? tri % proto : tri;  // the prototype's triangle
-      const int mode = col<const int>(a, AL_MODE)[ti];
-      float alpha = col<const float>(a, AL_VALUE)[ti];
-      const float cutoff = col<const float>(a, AL_CUTOFF)[ti];
-      if (a.i[I_TEXTURES]) {  // ... then the base colour texture's alpha
-        const int mat = col<const int>(a, T_TRIMAT)[ti];
-        float uvx, uvy;
-        uv_at(col<const float>(a, T_UV), ti, 1.0f - u - v, u, v, uvx, uvy);
-        const int tex = col<const int>(a, M_TEXIDX)[mat * 6LL];
-        if (tex >= 0) {
-          const Tex atlas = {col<const int>(a, TEX_TEXELS), col<const int>(a, TEX_OFF),
-                             col<const int>(a, TEX_H), col<const int>(a, TEX_W)};
-          alpha = alpha * sample_bilinear(atlas, tex, uvx, uvy).w;
+    if (hit >= 0) {  // the finish: the candidate's triangle and (u, v)
+      FinishTables f;
+#pragma unroll
+      for (int k = 0; k < 9; ++k) f.v[k] = col<const float>(a, T_V0X + k);
+      f.tri_id = col<const int>(a, T_TRIID);
+      f.inv_flat = col<const float>(a, T_INVFLAT);
+      f.proto_tris = a.i[I_PROTO_TRIS];
+      f.num_inst = a.i[I_NUM_INST];
+      f.mode = static_cast<int>(a.i[I_MODE]);
+      const V3 o = {col<const float>(a, R_OX)[i], col<const float>(a, R_OY)[i],
+                    col<const float>(a, R_OZ)[i]};
+      const V3 d = {col<const float>(a, R_DX)[i], col<const float>(a, R_DY)[i],
+                    col<const float>(a, R_DZ)[i]};
+      float u, v;
+      long long ti;  // the triangle whose rows the tables hold
+      const int tri = finish_hit(f, hit, o, d, u, v, ti);
+      if (tri >= 0) {  // a candidate: test it (hit.rahit:26-53)
+        const float tc = col<const float>(a, R_T)[i];
+        const uint32_t seed = static_cast<uint32_t>(col<const long long>(a, A_SEED)[i]);
+        const int mode = col<const int>(a, AL_MODE)[ti];
+        float alpha = col<const float>(a, AL_VALUE)[ti];
+        const float cutoff = col<const float>(a, AL_CUTOFF)[ti];
+        if (a.i[I_TEXTURES]) {  // the base colour texture's alpha
+          const int mat = col<const int>(a, T_TRIMAT)[ti];
+          float uvx, uvy;
+          uv_at(col<const float>(a, T_UV), ti, 1.0f - u - v, u, v, uvx, uvy);
+          const int tex = col<const int>(a, M_TEXIDX)[mat * 6LL];
+          if (tex >= 0) {
+            const Tex atlas = {col<const int>(a, TEX_TEXELS), col<const int>(a, TEX_OFF),
+                               col<const int>(a, TEX_H), col<const int>(a, TEX_W)};
+            alpha = alpha * sample_bilinear(atlas, tex, uvx, uvy).w;
+          }
         }
-      }
-      if (mode == 1) {  // MASK: below the cutoff
-        rejected = alpha < cutoff;
-      } else if (mode == 2) {  // BLEND: with probability 1 - alpha, one draw
-        uint32_t s = seed;
-        rejected = rnd(s) < 1.0f - alpha;
-        col<long long>(a, A_SEED)[i] = static_cast<long long>(s);
-      }
-      if (rejected) {  // past the candidate (ignoreIntersectionEXT)
-        col<float>(a, A_TLO)[i] = (isfinite(tc) ? tc : 0.0f) * K(1.0 + 4e-7) + K(1e-30);
-      } else {  // the accepted hit
-        col<float>(a, A_T)[i] = tc;
-        col<int>(a, A_TRI)[i] = tri;
-        col<float>(a, A_U)[i] = u;
-        col<float>(a, A_V)[i] = v;
+        if (mode == 1) {  // MASK: below the cutoff
+          rejected = alpha < cutoff;
+        } else if (mode == 2) {  // BLEND: with probability 1 - alpha, one draw
+          uint32_t s = seed;
+          rejected = rnd(s) < 1.0f - alpha;
+          col<long long>(a, A_SEED)[i] = static_cast<long long>(s);
+        }
+        if (rejected) {  // past the candidate (ignoreIntersectionEXT)
+          col<float>(a, A_TLO)[i] = (isfinite(tc) ? tc : 0.0f) * K(1.0 + 4e-7) + K(1e-30);
+        } else {  // the accepted hit
+          col<float>(a, A_T)[i] = tc;
+          col<int>(a, A_TRI)[i] = tri;
+          col<float>(a, A_U)[i] = u;
+          col<float>(a, A_V)[i] = v;
+        }
       }
     }
     if (!rejected) col<uint8_t>(a, A_PENDING)[i] = 0;
     still = rejected;
   }
-  // the block's still-pending lanes, added once
-  still = __reduce_add_sync(0xFFFFFFFFu, still);
-  if ((threadIdx.x & 31) == 0) block_still[threadIdx.x >> 5] = still;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    unsigned int sum = 0;
-#pragma unroll
-    for (int w = 0; w < kThreads / 32; ++w) sum += block_still[w];
-    if (sum) atomicAdd(col<unsigned long long>(a, A_COUNT), static_cast<unsigned long long>(sum));
-  }
+  // the loop's count and test (eagerly there is no control block: the host
+  // reads the flags)
+  unsigned long long* loop = col<unsigned long long>(a, A_LOOP);
+  if (loop == nullptr) return;
+  long long total;
+  if (!last_block(&loop[kLoopWord], block_sum(still), total)) return;
+  loop[kLoopCount] = static_cast<unsigned long long>(total);
+  long long* row = reinterpret_cast<long long*>(loop[kLoopRow]);
+  if (row == nullptr) return;  // not armed: a replay of the pass, whose host reads the flags
+  const bool go = total > 0;
+  keep_row(row, false, go);
+  cudaGraphSetConditional(static_cast<cudaGraphConditionalHandle>(loop[kLoopHandle]),
+                          go ? 1u : 0u);
+  if (!go) loop[kLoopRow] = 0;  // the loop ends: disarmed for a replay
 }
 
 // The kernels' parameters from the launcher's arrays, and their grid.

@@ -35,7 +35,7 @@ BUILD_DIR = _PKG / "build"
 SOURCES = (CSRC / "dense_sweep.cu", CSRC / "bvh_walk.cu", CSRC / "graph_loops.cu",
            CSRC / "shade.cu", CSRC / "wave.cu", CSRC / "trace.cu")
 #: Headers the sources include: part of the library's hash.
-HEADERS = (CSRC / "lane_math.cuh",)
+HEADERS = (CSRC / "lane_math.cuh", CSRC / "hit_finish.cuh", CSRC / "graph_test.cuh")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -48,10 +48,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
-_LL = ctypes.c_longlong
 _RAYS = [_P] * 6  # ox, oy, oz, dx, dy, dz
 _STREAMS = [_P, _P, _I]  # nodes, tris, num_nodes
-_TEST = [_P, _I, _P, _LL, _P]  # b, max_depth, count, floor, row of a loop_cond_kernel test
 
 #: argtypes of each C function: the kernel launchers take the device index
 #: first and the stream last; the graph functions (csrc/graph_loops.cu) take
@@ -74,9 +72,10 @@ _SIGNATURES = {
     "graph_loops_versions": [_P, _P],  # (out: driver, out: runtime)
     "graph_loops_create": [_P],  # (out: graph)
     "graph_loops_add_child": [_P, _P, _P],  # (graph, in/out: tail node, child graph)
-    # (graph, in/out: tail, is_while, test, out: handle, out: body graph)
-    "graph_loops_add_conditional": [_P, _P, _I] + _TEST + [_P, _P],
-    "graph_loops_add_test": [_P, _P, ctypes.c_uint64] + _TEST,  # (body, in/out: tail, handle, test)
+    "graph_loops_handle": [_P, _P],  # (graph, out: handle)
+    "graph_loops_add_test": [_P, _P, _P],  # (graph, in/out: tail, the test's parameters)
+    # (graph, in/out: tail, handle, is_while, out: body graph)
+    "graph_loops_add_conditional": [_P, _P, ctypes.c_uint64, _I, _P],
     "graph_loops_instantiate": [_I, _P, _P],  # (device, graph, out: exec)
     "graph_loops_launch": [_I, _P, _P],  # (device, exec, stream)
     "graph_loops_destroy": [_P, _P],  # (graph, exec)

@@ -270,15 +270,19 @@ def pdf_sweep(table, rays, gate, t_min: float):
 # ---------------------------------------------------------------------------
 
 
-def dense_closest(tables, o: V3, d: V3, *, t_min, t_max, active):
+def dense_closest(tables, o: V3, d: V3, *, t_min, t_max, active, raw: bool = False):
     """Closest hit over all triangles: (t, tri, u, v), t = inf / tri = -1 on
-    a miss (pallas_dense.py:262-298)."""
+    a miss (pallas_dense.py:262-298).  With ``raw``, the sweep's result
+    unfinished, (rays, t, tri, "dense"): an alpha pass's commit finishes it
+    (:func:`.trace.hit_finish`'s arguments)."""
     n = o.x.shape[0]
     dev = o.x.device
     t_lo = trace.lanes(t_min, n, dev).contiguous()
     t_init = torch.where(active, trace.lanes(t_max, n, dev), 0.0).contiguous()
     rays = ray_columns(o, d)
     t_best, tri_best = closest_sweep(tables.tri_table, rays, t_lo, t_init)
+    if raw:
+        return rays, t_best, tri_best, "dense"
     return trace.hit_finish(tables, rays, t_best, tri_best, "dense")
 
 

@@ -173,14 +173,16 @@ def _scan(inst: InstanceTables):
             yield Instance(g, m, iid, bmin, bmax)
 
 
-def instanced_closest(tables, o: V3, d: V3, *, t_min, t_max, active):
+def instanced_closest(tables, o: V3, d: V3, *, t_min, t_max, active, raw: bool = False):
     """Closest hit over every instance; returns (t, enc_tri, u, v).
 
     ``enc_tri`` is the encoded (instance, prototype-triangle) id, -1 on a
     miss (then t = inf, u = v = 0).  ``t_min``/``t_max`` may be per lane (the
     alpha resample loop).  Each instance is one step (:func:`.trace.instance_step`)
     and one launch; a last step merges the last launch, and the finish
-    (:func:`.trace.hit_finish`) recomputes the winner's (u, v)."""
+    (:func:`.trace.hit_finish`) recomputes the winner's (u, v).  With
+    ``raw``, the scan's result unfinished, (rays, t, enc, "instanced"): an
+    alpha pass's commit finishes it."""
     inst: InstanceTables = tables.inst
     n = o.x.shape[0]
     rays = ray_columns(o, d)
@@ -200,6 +202,8 @@ def instanced_closest(tables, o: V3, d: V3, *, t_min, t_max, active):
             t_n, hit = walk(x.group.pblas, st["rays"], lo, st["t_init"], shadow=False)
         prev = (x, t_n, hit)
     st = trace.instance_step(tables, st, rays, active, t_max, None, prev, None, shadow=False)
+    if raw:
+        return rays, st["t_best"], st["enc"], "instanced"
     return trace.hit_finish(tables, rays, st["t_best"], st["enc"], "instanced")
 
 

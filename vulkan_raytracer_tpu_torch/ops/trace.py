@@ -14,7 +14,9 @@ a Pallas kernel.  Here each is one kernel, hand-written for Hopper
 * :func:`hit_finish` (``hit_finish_kernel``): the closest hit after its
   traversal, a BVH walk's slot -> the scene triangle, the winner's (u, v)
   (an instanced winner's in its object space), t = inf, tri = -1 and
-  u = v = 0 on a miss;
+  u = v = 0 on a miss; one an opaque closest-hit call (an alpha pass's
+  commit finishes its pending lanes by the same device function,
+  ``csrc/hit_finish.cuh``: ``ops/wave.py``);
 * :func:`instance_step` (``instance_step_kernel``): one step of an instance
   scan between two prototype launches: the last launch's result merged into
   the running closest hit (or occlusion), then the next instance's box test,
@@ -291,11 +293,36 @@ def hit_finish(tables, rays, t, hit, mode: str):
     return out[0], tri, out[1], out[2]
 
 
-def hit_finish_bytes(hit) -> int:
+def hit_finish_bytes(hit, tables=None, mode: str | None = None) -> int:
     """The bytes one :func:`hit_finish` of the traversal's ``hit`` must
     move (:func:`lane_bytes`): the hit and the four outputs on every lane,
-    t and the ray where something was hit."""
-    return lane_bytes("hit_finish", {None: hit.numel(), "found": int((hit >= 0).sum())})
+    t and the ray where something was hit; with ``tables`` and ``mode``,
+    the table rows those hits read too (:func:`finish_table_bytes`)."""
+    lanes = lane_bytes("hit_finish", {None: hit.numel(), "found": int((hit >= 0).sum())})
+    return lanes + (0 if tables is None else finish_table_bytes(tables, hit, mode))
+
+
+#: Bytes of the finish's table rows (``FINISH_ROWS`` below): a triangle's
+#: nine vertex floats, a BVH slot's triangle, an instance's 12 map values.
+FINISH_ROW_BYTES = {"vertices": 36, "slot": 4, "instance": 48}
+
+
+def finish_table_bytes(tables, hit, mode: str) -> int:
+    """The table bytes the finish of the lanes ``hit`` (one traversal's ids,
+    of :data:`FINISH_MODES` ``mode``) must read, each row once however many
+    lanes hit it: the slots' triangles (``"bvh"``), the instances' maps
+    (``"instanced"``) and the hit triangles' vertices.  A finish loads them
+    once a found lane."""
+    found = hit[hit >= 0].long()
+    n = 0
+    if mode == "bvh":
+        n += FINISH_ROW_BYTES["slot"] * int(found.unique().numel())
+        found = tables.pbvh.tri_id.long()[found]
+    elif mode == "instanced":
+        found, inst = tables.inst.decode(found)
+        inst = torch.clamp_max(inst, tables.inst.num_instances - 1)
+        n += FINISH_ROW_BYTES["instance"] * int(inst.unique().numel())
+    return n + FINISH_ROW_BYTES["vertices"] * int(found.unique().numel())
 
 
 # ---------------------------------------------------------------------------

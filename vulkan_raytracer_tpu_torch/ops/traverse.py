@@ -808,10 +808,11 @@ def emissive_pdf_walk(s: EmissiveStream, rays, active, t_min: float):
 # ---------------------------------------------------------------------------
 
 
-def bvh_closest(tables, o, d, *, t_min, t_max, active):
+def bvh_closest(tables, o, d, *, t_min, t_max, active, raw: bool = False):
     """Closest hit over the scene's BVH streams: (t, tri, u, v) with t = inf
     and tri = -1 on a miss (``packet_closest`` :1604).  ``t_min`` may be a
-    scalar or per lane."""
+    scalar or per lane.  With ``raw``, the walk's result unfinished, (rays,
+    t, slot, "bvh"): an alpha pass's commit finishes it."""
     s = tables.pbvh
     n = o.x.shape[0]
     dev = o.x.device
@@ -819,6 +820,8 @@ def bvh_closest(tables, o, d, *, t_min, t_max, active):
     t_lo = trace.lanes(t_min, n, dev).contiguous()
     t_init = torch.where(active, trace.lanes(t_max, n, dev), -1.0).contiguous()
     t_best, slot = walk(s, rays, t_lo, t_init, shadow=False)
+    if raw:
+        return rays, t_best, slot, "bvh"
     return trace.hit_finish(tables, rays, t_best, slot, "bvh")
 
 

@@ -15,10 +15,16 @@ hand-written for Hopper (``csrc/wave.cu``), one thread a lane:
   camera as device tensors, so a captured program reads what the renderer
   wrote there before its launch (lane i is pixel ``lanes[i % n]`` at
   sample ``samples[i // n]``);
-* :func:`alpha_commit` (``alpha_commit_kernel``): the candidate's alpha
-  test and the commit, written over the resample loop's own state, with
-  the lanes still pending added into the loop's count, once a block; the
-  candidate's triangle is read beside each lane's pending flag.
+* :func:`alpha_commit` (``alpha_commit_kernel``): the pass's finish on its
+  pending lanes only (the traversal's raw hit, ``raw=True`` of the
+  closest-hit wrappers; the finish ``hit_finish_kernel`` runs, shared in
+  ``csrc/hit_finish.cuh``), the candidate's alpha test and the commit,
+  written over the resample loop's own state; the hit id is read beside
+  each lane's pending flag.  Given the loop's control block
+  (:func:`loop_block`), the lanes still pending are added into it once a
+  block, and the last block leaves their count there and, where the loop's
+  entry test armed the block on the card, makes the loop's next test
+  (``render/graphs.py``).
 
 Each wrapper launches its kernel for CUDA tensors and counts the launch in
 :data:`LAUNCHES`, and runs its plain version (``*_reference``) for CPU
@@ -26,8 +32,9 @@ tensors; on the card nothing falls back.  The plain versions are the port's
 torch code regrouped, not rewritten: :func:`camera_rays` is the body of
 ``integrator.generate_primary_rays``, :func:`alpha_test` the integrator's
 former ``_alpha_test``, so the CPU render is bit-equal to the one before
-them.  Tests and tools reach a plain version on the card by patching this
-module's wrapper.
+them; a pass's plain version, :func:`alpha_pass_reference`, is
+``hit_finish_reference`` then :func:`alpha_commit_reference`.  Tests and
+tools reach a plain version on the card by patching this module's wrapper.
 """
 
 from __future__ import annotations
@@ -35,7 +42,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import _ext, rng
+from . import _ext, rng, trace
 from .math3 import V3
 from .shade import _uv_at
 from .texture import sample_bilinear
@@ -60,13 +67,18 @@ SLOTS = (
     "W_SAMPLES", "W_LANES", "W_CAM",
     *_xyz("S_O"), *_xyz("S_D"), *_xyz("S_VAL"), *_xyz("S_TP"), *_xyz("S_SKY"), "S_WL",
     "S_MATPDF", "S_SEED", "S_ACTIVE", "S_PREVIEW", "S_SLOT",
-    "A_TLO", "A_PENDING", "A_T", "A_TRI", "A_U", "A_V", "A_SEED", "A_COUNT",
-    "C_T", "C_TRI", "C_U", "C_V",
+    "A_TLO", "A_PENDING", "A_T", "A_TRI", "A_U", "A_V", "A_SEED", "A_LOOP",
+    "R_OX", "R_OY", "R_OZ", "R_DX", "R_DY", "R_DZ", "R_T", "R_HIT",
+    *(f"T_V{k}{c}" for k in range(3) for c in "XYZ"), "T_TRIID", "T_INVFLAT",
     "AL_MODE", "AL_VALUE", "AL_CUTOFF", "T_TRIMAT", "T_UV", "M_TEXIDX", "TEX_TEXELS", "TEX_OFF",
     "TEX_H", "TEX_W",
 )
 #: The counts and flags, in the order of ``enum Int`` in csrc/wave.cu.
-INTS = ("I_N", "I_PIXELS", "I_WIDTH", "I_HEIGHT", "I_PIXEL_ORDER", "I_TEXTURES", "I_PROTO_TRIS")
+INTS = ("I_N", "I_PIXELS", "I_WIDTH", "I_HEIGHT", "I_PIXEL_ORDER", "I_TEXTURES", "I_PROTO_TRIS",
+        "I_MODE", "I_NUM_INST")
+#: A resample loop's control block, ``enum LoopWord`` in csrc/wave.cu: four
+#: int64, zero when made (:func:`loop_block`).
+LOOP_WORDS = ("kLoopWord", "kLoopHandle", "kLoopRow", "kLoopCount")
 _SLOT = {name: k for k, name in enumerate(SLOTS)}
 _INT = {name: k for k, name in enumerate(INTS)}
 
@@ -283,60 +295,97 @@ def alpha_commit_reference(tables, st: dict, t_c, tri_c, u_c, v_c) -> dict:
     )
 
 
-def alpha_commit(tables, st: dict, t_c, tri_c, u_c, v_c, count=None) -> None:
-    """One pass's test and commit (:func:`alpha_commit_reference`) written
-    over the loop's state ``st`` (contiguous buffers of the loop's own: the
-    lower bound ``t_lo`` of the next candidate, the lanes still ``pending``,
-    the accepted ``t``, ``tri``, ``u``, ``v`` and the ``seed``) and, where
-    ``count`` (a 0-d int64) is given, the lanes still pending into it, which
-    the loop's condition reads."""
-    if not _on_cuda(tri_c):
-        nxt = alpha_commit_reference(tables, st, t_c, tri_c, u_c, v_c)
+def loop_block(device) -> torch.Tensor:
+    """A resample loop's control block (:data:`LOOP_WORDS`), zero: the
+    count's accumulator and block ticket, the loop's handle and row where
+    its entry test armed it on the card, and the count the last pass left
+    pending (``count(block)``)."""
+    return torch.zeros(len(LOOP_WORDS), dtype=torch.int64, device=device)
+
+
+def alpha_pass_reference(tables, st: dict, raw) -> dict:
+    """The loop's next state after one pass whose traversal gave ``raw``,
+    ``(rays, t, hit, mode)`` (:func:`.trace.hit_finish`'s arguments): the
+    closest hit's finish (:func:`.trace.hit_finish_reference`), then
+    :func:`alpha_commit_reference`."""
+    return alpha_commit_reference(tables, st, *trace.hit_finish_reference(tables, *raw))
+
+
+def alpha_commit(tables, st: dict, raw, loop=None) -> None:
+    """One pass's finish, test and commit (:func:`alpha_pass_reference`)
+    written over the loop's state ``st`` (contiguous buffers of the loop's
+    own: the lower bound ``t_lo`` of the next candidate, the lanes still
+    ``pending``, the accepted ``t``, ``tri``, ``u``, ``v`` and the ``seed``),
+    from the traversal's unfinished result ``raw`` (``raw=True`` of the
+    closest-hit wrappers).  On a card one launch finishes only the pending
+    lanes' candidates; where ``loop`` (:func:`loop_block`) is given it also
+    adds the lanes still pending into it, leaves their count there and,
+    where the loop's entry test armed it, makes the loop's next test."""
+    rays, t, hit, mode = raw
+    if not _on_cuda(hit):
+        nxt = alpha_pass_reference(tables, st, raw)
         for k, v in st.items():
             v.copy_(nxt[k])
-        if count is not None:
-            count.copy_(st["pending"].sum())
+        if loop is not None:
+            loop_count(loop).copy_(st["pending"].sum())
         return
-    launch = _Launch(tri_c.shape[0], tri_c.device)
+    launch = _Launch(hit.shape[0], hit.device)
     for name, f, dtype in (("A_TLO", "t_lo", _F32), ("A_PENDING", "pending", torch.bool),
                            ("A_T", "t", _F32), ("A_TRI", "tri", torch.int32), ("A_U", "u", _F32),
                            ("A_V", "v", _F32), ("A_SEED", "seed", torch.int64)):
         launch.lane(name, st[f], dtype)
-    for name, c, dtype in (("C_T", t_c, _F32), ("C_TRI", tri_c, torch.int32), ("C_U", u_c, _F32),
-                           ("C_V", v_c, _F32)):
-        launch.lane(name, c.contiguous(), dtype)
-    if count is None:  # the eager loop reads the pending flags instead
-        count = torch.empty((), dtype=torch.int64, device=launch.device)
-    count.zero_()
-    launch.put("A_COUNT", count, torch.int64, ())
+    for name, c in zip(("R_OX", "R_OY", "R_OZ", "R_DX", "R_DY", "R_DZ"), rays):
+        launch.lane(name, c)
+    launch.lane("R_T", t)
+    launch.lane("R_HIT", hit, torch.int32)
+    for k, v in enumerate((tables.v0, tables.v1, tables.v2)):
+        for c, x in zip("XYZ", v):
+            launch.put(f"T_V{k}{c}", x, _F32)
+    launch.count("I_MODE", trace.FINISH_MODES.index(mode))
+    if mode == "bvh":
+        launch.put("T_TRIID", tables.pbvh.tri_id, torch.int32)
+    elif mode == "instanced":
+        launch.put("T_INVFLAT", tables.inst.inv_flat, _F32)
+        launch.count("I_NUM_INST", tables.inst.num_instances)
+    if loop is not None:
+        launch.put("A_LOOP", loop, torch.int64, (len(LOOP_WORDS),))
     a = tables.alpha
-    for name, t, dtype in (("AL_MODE", a.mode, torch.int32), ("AL_VALUE", a.value, _F32),
-                           ("AL_CUTOFF", a.cutoff, _F32), ("T_TRIMAT", tables.tri_mat, torch.int32),
-                           ("T_UV", tables.uv, _F32),
-                           ("M_TEXIDX", tables.materials.tex_idx, torch.int32),
-                           ("TEX_TEXELS", tables.tex.texels, torch.int32),
-                           ("TEX_OFF", tables.tex.off, torch.int32),
-                           ("TEX_H", tables.tex.h, torch.int32),
-                           ("TEX_W", tables.tex.w, torch.int32)):
-        launch.put(name, t, dtype, None)
+    for name, tab, dtype in (("AL_MODE", a.mode, torch.int32), ("AL_VALUE", a.value, _F32),
+                             ("AL_CUTOFF", a.cutoff, _F32),
+                             ("T_TRIMAT", tables.tri_mat, torch.int32),
+                             ("T_UV", tables.uv, _F32),
+                             ("M_TEXIDX", tables.materials.tex_idx, torch.int32),
+                             ("TEX_TEXELS", tables.tex.texels, torch.int32),
+                             ("TEX_OFF", tables.tex.off, torch.int32),
+                             ("TEX_H", tables.tex.h, torch.int32),
+                             ("TEX_W", tables.tex.w, torch.int32)):
+        launch.put(name, tab, dtype, None)
     launch.count("I_TEXTURES", tables.has_textures)
     if tables.inst is not None:
         launch.count("I_PROTO_TRIS", tables.inst.num_proto_tris)
     launch.run("alpha_commit")
 
 
-def alpha_commit_bytes(st: dict, tri_c, nxt: dict, blend) -> int:
-    """The bytes one pass's :func:`alpha_commit` must move, the scene
-    tables' gathers aside, from the state ``st`` before it, the candidates'
-    ids ``tri_c``, the state ``nxt`` after it and the BLEND candidates
-    ``blend``: every lane's pending flag; on a pending lane its candidate's
-    id and the flag written back unless it stays pending; on a lane with a
-    candidate its t, u and v; a BLEND candidate's seed read and written; an
-    accepted hit's four columns, a rejected one's lower bound."""
+def loop_count(loop) -> torch.Tensor:
+    """The lanes the last pass that ``loop`` (:func:`loop_block`) was given
+    to left pending, a 0-d int64 view."""
+    return loop[LOOP_WORDS.index("kLoopCount")]
+
+
+def alpha_commit_bytes(st: dict, hit, nxt: dict, blend, rows: int = 0) -> int:
+    """The bytes one pass's :func:`alpha_commit` must move, the alpha
+    tables' gathers aside, from the state ``st`` before it, the traversal's
+    hit ids ``hit``, the state ``nxt`` after it and the BLEND candidates
+    ``blend``: every lane's pending flag; on a pending lane its hit id and
+    the flag written back unless it stays pending; on a pending lane with a
+    hit its t and its ray (the finish's), and ``rows``, the finish's table
+    rows (:func:`.trace.finish_table_bytes`); a BLEND candidate's seed read
+    and written; an accepted hit's four columns, a rejected one's lower
+    bound."""
     pending = st["pending"]
-    found = pending & (tri_c >= 0)
+    found = pending & (hit >= 0)
     rejected = nxt["pending"]
     keep = found & ~rejected
     return (pending.numel() + 4 * int(pending.sum()) + int((pending & ~rejected).sum())
-            + 12 * int(found.sum()) + 16 * int(blend.sum()) + 16 * int(keep.sum())
-            + 4 * int(rejected.sum()))
+            + 28 * int(found.sum()) + 16 * int(blend.sum()) + 16 * int(keep.sum())
+            + 4 * int(rejected.sum()) + rows)

@@ -10,9 +10,11 @@ accept/reject resample loop (:165-217).  Here a wave, from its sample
 numbers to its sum in the frame's accumulator, is one program, captured
 once and launched once: its straight code as CUDA graphs, its loops as
 conditional WHILE nodes and its re-sorts as conditional IF nodes, whose
-conditions a hand-written kernel sets on the card (``csrc/graph_loops.cu``
-``loop_cond_kernel``).  The host reads nothing inside a wave, and writes
-its inputs only on the device (``integrator.Waves``).
+conditions the kernels that make their counts set on the card: a counting
+test (``csrc/graph_loops.cu`` ``loop_cond_kernel``) or, for a resample loop,
+its pass's commit (``csrc/wave.cu`` ``alpha_commit_kernel``).  The host reads
+nothing inside a wave, and writes its inputs only on the device
+(``integrator.Waves``).
 
 Where: CUDA tables (:func:`_graphs_preferred`), with alpha or without.
 Tests and tools get the eager side by patching ``graphs._graphs_preferred``
@@ -29,7 +31,7 @@ above a floor and, for the bounce loop, the device bounce index ``b`` at
 most ``max_depth``) and a body of parts and nodes.  A wave is::
 
     phase(n, floor)  = WHILE (b <= max_depth && live > floor)
-                           { [IF sort_next: sort]; bounce(b); b += 1 }
+                           { bounce(b); test: b += 1, live; [IF go on: sort] }
     bounce           = segment; WHILE (pending) { alpha pass }; segment;
                        WHILE (pending) { alpha pass }; segment
     wave             = rays; phase(n, n/2); IF more: sort; split; phase(n/2, n/4);
@@ -38,21 +40,25 @@ most ``max_depth``) and a body of parts and nodes.  A wave is::
 on a repacked scene whose width divides by 4 (the ladder), else
 ``rays; phase(n, 0); radiance; sum``; an alpha-free bounce is one segment.
 ``rays`` is the primary-ray kernel, which writes the initial state from the
-wave's inputs; a resample pass is its traversal launch and the alpha
-test-and-commit kernel, which writes the loop's count; ``sum`` adds the
+wave's inputs; a resample pass is its traversal and the alpha commit, which
+finishes, tests and commits the pending lanes and makes the loop's next
+test; ``sum`` adds the
 wave's radiance, summed over its samples, into the band's sum and its rays
 into the frame's counter.
 :meth:`_Program.launch` runs it one of two ways:
 
 * **device loops** (the main path): the C side stitches the parts into one
   parent graph (each a child graph node, each WHILE and IF a conditional
-  node with a ``loop_cond_kernel`` entry test before it and, for a WHILE,
-  one more ending its body), instantiates it once and launches it on the
-  current stream;
+  node with a ``loop_cond_kernel`` entry test before it and, for a bounce
+  loop, one more ending its body, which steps ``b`` and sets the re-sort IF
+  after it; a resample loop's pass tests itself), instantiates it once and
+  launches it on the current stream;
 * **host-read replay** (the plain version): :meth:`_Program.interpret`
-  walks the same tree on the host, replays each part's graph and reads
-  each condition on the host (one read per test; the stand-in graphs of
-  the CPU tests run here).
+  walks the same tree on the host, replays each part's graph and makes
+  each test on the host (:meth:`Cond.test`: a count of flags read, ``b``
+  stepped by torch; one read per test; the stand-in graphs of the CPU
+  tests run here).  A pass replayed there finds its loop's control block
+  unarmed and makes no test.
 
 The cache is keyed as ``jit`` keys its programs: by the tables'
 :func:`signature` (each count, flag and None among their leaves, each
@@ -79,11 +85,14 @@ lanes, the camera) and its sums (the band's (n, 3) sum, the frame's ray
 counter) are the cache's buffers (:meth:`GraphCache.buffer`), allocated
 outside any capture and shared by the programs of their shape; the
 renderer writes the inputs on the device before a launch and zeroes the
-sums.  Everything else the program's parts allocate (the wave's state,
-the ladder's narrower states, each resample loop's state and count,
-``b``, the live count, the wave's rays and radiance) lies in the graphs'
-memory pool, one pool per cache, which every capture takes on the cache's
-one capture stream; the program keeps its parts' graphs and what its
+sums.  Each program's rows of counters, its tests' accumulators and its
+resample loops' control blocks are its own, made outside the pool (a block
+the pool handed out inside a loop could share its memory with a temporary
+the loop's earlier code writes again in its next run). Everything else the
+program's parts allocate (the wave's state, the ladder's narrower states,
+each resample loop's state, ``b``, the wave's rays and radiance) lies in the
+graphs' memory pool, one pool per cache, which every capture takes on the
+cache's one capture stream; the program keeps its parts' graphs and what its
 conditions read for its lifetime.  Programs of one cache run one after
 another on one stream, so they may share the temporaries of the pool.  A
 launch hands the caller the program's radiance and rays, which its next
@@ -104,9 +113,10 @@ that ends a frame (``renderer.render_image``'s ray count, the progressive
 ``Renderer``'s ``rays_traced``) and adds each part's counts times the runs
 of its body, and the alpha loops' calls, passes and most passes a call.  A
 caller that reads the counters after ``render_sample`` without such a read
-calls :func:`settle` first.  :data:`LAUNCHES` counts ``loop_cond_kernel``'s
-launches the same way.  The host-read replay counts as it goes.  The
-warm-up before a capture counts nothing.
+calls :func:`settle` first.  :data:`LAUNCHES` counts the tests made on the
+card the same way, ``loop_cond_kernel``'s and the resample passes'.  The
+host-read replay counts as it goes.  The warm-up before a capture counts
+nothing.
 """
 
 from __future__ import annotations
@@ -121,12 +131,15 @@ import weakref
 
 import torch
 
-from ..ops import _ext, trace
+from ..ops import _ext, trace, wave
 from ..ops.math3 import V3
 from ..scene.scenegraph import map_tables
 
 #: Programs kept per cache: one per wave shape (a frame's waves share one).
 MAX_GRAPHS = 16
+#: Resample loops a program holds at most: two a bounce loop (the closest
+#: hit's and the occlusion query's), three bounce loops on the width ladder.
+MAX_LOOPS = 6
 
 #: Since the last reset: programs ``captured``, their ``capture_s`` (warm-up,
 #: capture and instantiation), program ``launches`` (waves), bounces
@@ -136,8 +149,10 @@ MAX_GRAPHS = 16
 #: passes and re-sorts at :func:`settle`.
 STATS = {"captured": 0, "capture_s": 0.0, "launches": 0, "replays": 0, "passes": 0,
          "sorts": 0, "copies": 0, "copy_bytes": 0}
-#: ``loop_cond_kernel``'s launches (each node's entry tests and each WHILE
-#: body's closing tests) since the last reset, counted at :func:`settle`.
+#: The tests made on the card since the last reset, counted at
+#: :func:`settle`: each node's entry test and each WHILE body's closing
+#: tests, ``loop_cond_kernel``'s launches and the tests a resample pass's
+#: commit makes (a ``then`` IF is set by its WHILE's test).
 LAUNCHES = {"loop_cond": 0}
 _COPY_EVENTS: list = []  # (start, end) CUDA events of each fill since the last reset
 _PENDING: dict = {}  # program -> None: programs launched on the card since the last settle
@@ -295,18 +310,29 @@ def _add(counters, delta, times: int = 1) -> None:
 
 
 class Cond:
-    """The condition of a loop or an IF: the device count ``count`` (int64)
-    above ``floor`` and, where ``b`` (an int32 device scalar) is given, ``b``
-    at most ``max_depth``.  The program's parts write both."""
+    """The condition of a loop or an IF: a count above ``floor`` and, where
+    ``b`` (an int32 device scalar) is given, ``b`` at most ``max_depth``.
+    The count is the nonzero lanes of ``count``, a column of bool flags,
+    which the test counts (the replay also takes a 0-d count).
+    With ``step``, a WHILE's closing tests add 1 to ``b`` before they test
+    (the bounce loop's ``b += 1``).  A resample loop's condition has
+    ``word``, the loop's control block (:data:`..ops.wave.LOOP_WORDS`): its
+    passes make its closing tests (the commit, ``alpha_commit_kernel``), so
+    its body ends with no test of its own."""
 
-    def __init__(self, count, floor: int = 0, b=None, max_depth: int = 0):
+    def __init__(self, count, floor: int = 0, b=None, max_depth: int = 0, *, step: bool = False,
+                 word=None):
         self.count, self.floor, self.b, self.max_depth = count, floor, b, max_depth
+        self.step, self.word = step, word
 
-    def test(self) -> bool:
+    def test(self, entry: bool = True) -> bool:
         """The condition read on the host (the plain version of the test
-        ``loop_cond_kernel`` makes on the card)."""
-        return int(self.count) > self.floor and (self.b is None
-                                                 or int(self.b) <= self.max_depth)
+        ``loop_cond_kernel`` makes on the card): a closing test steps ``b``
+        first.  One read of the count, and of ``b`` where the count
+        passes."""
+        if self.step and not entry:
+            self.b.add_(1)
+        return int(self.count.sum()) > self.floor and (self.b is None or int(self.b) <= self.max_depth)
 
 
 class _Part:
@@ -321,11 +347,14 @@ class _Node:
     nodes), its row of counters, its ``role`` (``"phase"``: the bounce loop;
     ``"alpha"``: a resample loop; ``"sort"``: a re-sort) and, for a
     resample loop, ``done(passes, calls, most)``, which counts them in
-    ``integrator.ALPHA_LOOP``."""
+    ``integrator.ALPHA_LOOP``.  A WHILE's ``then`` is an IF that runs its
+    body after each closing test that goes on, inside the WHILE's body:
+    the closing test sets its condition (it has no ``cond`` of its own)."""
 
-    def __init__(self, kind: str, cond: Cond, row: int, role: str, done=None):
+    def __init__(self, kind: str, cond: Cond | None, row: int, role: str, done=None):
         self.kind, self.cond, self.row, self.role, self.done = kind, cond, row, role, done
         self.body: list = []
+        self.then: _Node | None = None
 
 
 class _TorchGraph:
@@ -372,9 +401,12 @@ class _Capture:
     memory pool.  ``graph`` makes a part's graph (:class:`_TorchGraph`; the
     CPU tests give a stand-in with the same methods)."""
 
-    def __init__(self, pool, counters, graph=None):
+    def __init__(self, pool, counters, graph=None, loops=None):
         self.pool, self.counters = pool, counters
         self.new_graph = graph or _TorchGraph
+        # the resample loops' control blocks (ops/wave.py LOOP_WORDS), int64
+        # zeros made outside the pool, and how many the loops took
+        self.loops, self.n_loops = loops, 0
         self.nodes: list = []  # the program's top level
         self.conds: list = []  # every node, in the order of their rows
         self._open = [self.nodes]  # the bodies being filled, innermost last
@@ -401,8 +433,7 @@ class _Capture:
             with contextlib.suppress(Exception):
                 graph.capture_end()
 
-    def _node(self, kind: str, cond: Cond, body, role: str, done=None) -> None:
-        self.end()
+    def _node(self, kind: str, cond: Cond | None, body, role: str, done=None) -> "_Node":
         node = _Node(kind, cond, len(self.conds), role, done)
         self.conds.append(node)
         self._open.append(node.body)
@@ -410,25 +441,40 @@ class _Capture:
         body()
         self.end()
         self._open.pop()
+        return node
+
+    def while_(self, cond: Cond, body, role: str, done=None, then=None) -> None:
+        """``while cond: body(); if the loop goes on: then()``: the open part
+        ends, ``body``'s code is captured once as the loop's body (and
+        ``then``'s as the body of the IF its closing test sets), and the
+        next part opens."""
+        self.end()
+        node = self._node("while", cond, body, role, done)
+        if then is not None:
+            node.then = self._node("if", None, then, "sort")
         self._open[-1].append(node)
         self.begin()
 
-    def while_(self, cond: Cond, body, role: str, done=None) -> None:
-        """``while cond: body()``: the open part ends, ``body``'s code is
-        captured once as the loop's body, and the next part opens."""
-        self._node("while", cond, body, role, done)
-
     def if_(self, cond: Cond, body, role: str = "sort") -> None:
         """``if cond: body()``, captured as :meth:`while_` captures."""
-        self._node("if", cond, body, role)
+        self.end()
+        self._open[-1].append(self._node("if", cond, body, role))
+        self.begin()
 
     def loop(self, body, st: dict, *, done) -> None:
         """The resample loop ``while a lane of st["pending"] is pending:
-        body(st, count)``: a WHILE on the count of ``st``'s pending lanes
+        body(st, word)``: a WHILE on the count of ``st``'s pending lanes
         (``st`` is the loop's own buffers) whose pass writes the next state
-        over ``st`` and the lanes still pending into the count."""
-        count = st["pending"].sum()
-        self.while_(Cond(count), lambda: body(st, count), "alpha", done)
+        over ``st`` and makes the loop's next test with its control block
+        ``word``, the next row of :attr:`loops`.  A block the pool handed
+        out would share its memory with the temporaries of the loop's
+        earlier code, which write it again in the next bounce."""
+        if self.loops is None or self.n_loops == self.loops.shape[0]:
+            raise RuntimeError(f"a program holds at most {MAX_LOOPS} resample loops, each with "
+                               "a control block made before its capture")
+        word = self.loops[self.n_loops]
+        self.n_loops += 1
+        self.while_(Cond(st["pending"], word=word), lambda: body(st, word), "alpha", done)
 
 
 _CAPTURING: list = []  # the capture in progress
@@ -466,6 +512,41 @@ def _destroy(parent: int, exe: int) -> None:
     _c("graph_loops_destroy", parent, exe)
 
 
+def _handle(graph) -> int:
+    """A new conditional handle of ``graph``."""
+    h = ctypes.c_uint64()
+    _c("graph_loops_handle", graph, ctypes.byref(h))
+    return h.value
+
+
+def _keep(row: list, entry: bool, go: bool) -> bool:
+    """Keep a node's row after one test, as the tests on the card keep it
+    (``keep_row``, csrc/graph_test.cuh); returns ``go``."""
+    if entry:
+        row[1] += 1
+        row[2] = 0
+    if go:
+        row[0] += 1
+        row[2] += 1
+    else:
+        row[3] = max(row[3], row[2])
+    return go
+
+
+class _LoopTest(ctypes.Structure):
+    """One test's parameters, ``struct LoopTest`` in csrc/graph_loops.cu
+    (the same fields in the same order): the node's handle, the handle of
+    the IF it also sets, the flags it counts, their lanes, the floor, ``b``, the node's row and the IF's, the flags'
+    accumulator, the resample loop's control block it arms, ``max_depth``,
+    whether it steps ``b`` and whether it is an entry test."""
+
+    _fields_ = [("handle", ctypes.c_uint64), ("then_handle", ctypes.c_uint64),
+                ("flags", ctypes.c_void_p), ("n", ctypes.c_longlong), ("floor", ctypes.c_longlong), ("b", ctypes.c_void_p),
+                ("row", ctypes.c_void_p), ("then_row", ctypes.c_void_p),
+                ("word", ctypes.c_void_p), ("arm", ctypes.c_void_p),
+                ("max_depth", ctypes.c_int), ("step", ctypes.c_int), ("entry", ctypes.c_int)]
+
+
 class _Program:
     """One captured wave: its tree, the buffers it reads and adds into
     (``io``: its inputs and sums, the cache's), its outputs (radiance and
@@ -476,8 +557,10 @@ class _Program:
     def __init__(self, nodes: list, conds: list, io: dict, outputs: tuple, counters):
         self.nodes, self.conds, self.io, self.outputs = nodes, conds, io, outputs
         self.counters = counters
-        self.stats = torch.zeros((len(conds), 4), dtype=torch.int64,
-                                 device=next(iter(io.values())).device)
+        device = next(iter(io.values())).device
+        self.stats = torch.zeros((len(conds), 4), dtype=torch.int64, device=device)
+        # each node's accumulator and block ticket for the tests that count flags
+        self.words = torch.zeros(len(conds), dtype=torch.int64, device=device)
         self.pending = 0  # launches on the card since the last settle
         self.exec = None  # the instantiated parent graph, made on the first launch
         self._finalizer = None
@@ -500,48 +583,42 @@ class _Program:
 
     def interpret(self, nodes: list, rows: list) -> None:
         """The plain version of the device loops: each part's graph replayed,
-        each node's condition read on the host, its row kept as
-        ``loop_cond_kernel`` keeps it."""
+        each node's condition read on the host (:meth:`Cond.test`), its row
+        kept as the tests on the card keep it."""
         for node in nodes:
             if isinstance(node, _Part):
                 node.graph.replay()
                 continue
-            go = self._test(node, rows[node.row], entry=True)
+            go = _keep(rows[node.row], True, node.cond.test(entry=True))
             while go:
                 self.interpret(node.body, rows)
                 if node.kind == "if":
                     break
-                go = self._test(node, rows[node.row], entry=False)
-
-    @staticmethod
-    def _test(node: _Node, row: list, entry: bool) -> bool:
-        go = node.cond.test()
-        if entry:
-            row[1] += 1
-            row[2] = 0
-        if go:
-            row[0] += 1
-            row[2] += 1
-        else:
-            row[3] = max(row[3], row[2])
-        return go
+                go = _keep(rows[node.row], False, node.cond.test(entry=False))
+                if node.then is not None and _keep(rows[node.then.row], True, go):
+                    self.interpret(node.then.body, rows)
 
     def _fold(self, rows: list, launches: int, device: bool) -> None:
         """Add what ``launches`` launches counted, from their rows: each
-        part's counts times the runs of its body, the nodes' tests (on the
-        card, ``loop_cond_kernel``'s launches), bounces and passes."""
+        part's counts times the runs of its body, the tests made on the card
+        (:data:`LAUNCHES`: each node's entry test and each WHILE's closing
+        tests, made by ``loop_cond_kernel`` or by a resample pass's commit;
+        a ``then`` IF's condition is set by its WHILE's test), bounces and
+        passes."""
         def add(nodes, times):
             for node in nodes:
                 if isinstance(node, _Part):
                     _add(self.counters, node.delta, times)
                 else:
                     add(node.body, rows[node.row][0])
+                    if node.then is not None:
+                        add([node.then], 1)
 
         add(self.nodes, launches)
         STATS["launches"] += launches
         for node in self.conds:
             runs, entries, _, most = rows[node.row]
-            if device:
+            if device and node.cond is not None:
                 LAUNCHES["loop_cond"] += entries + (runs if node.kind == "while" else 0)
             if node.role == "phase":
                 STATS["replays"] += runs
@@ -565,22 +642,49 @@ class _Program:
         self._finalizer = weakref.finalize(self, _destroy, parent.value, exe.value)
         self._finalizer.atexit = False  # the driver may be gone at exit
 
+    def _loop_test(self, node: _Node, handle: int, entry: bool, then=None) -> "_LoopTest":
+        """The parameters of one of ``node``'s tests (``then``: the IF it
+        sets and that IF's handle)."""
+        c = node.cond
+        if c.count.dim() != 1 or c.count.dtype != torch.bool or not c.count.is_contiguous():
+            raise ValueError("a test on the card counts a contiguous column of bool flags")
+        row = self.stats.data_ptr() + 32 * node.row
+        t = _LoopTest(handle=handle, flags=c.count.data_ptr(), n=c.count.shape[0],
+                      floor=c.floor,
+                      b=None if c.b is None else c.b.data_ptr(), row=row,
+                      word=self.words.data_ptr() + 8 * node.row,
+                      arm=c.word.data_ptr() if entry and c.word is not None else None,
+                      max_depth=c.max_depth, step=int(c.step and not entry), entry=int(entry))
+        if then is not None:
+            t.then_handle, t.then_row = then[1], self.stats.data_ptr() + 32 * then[0].row
+        return t
+
     def _stitch(self, graph, nodes: list) -> ctypes.c_void_p:
+        """Append ``nodes`` to ``graph``: each part a child graph node, each
+        WHILE and IF a conditional node after its entry test; a WHILE's
+        body ends with its closing test (a resample loop's passes make
+        theirs) and then its ``then`` IF."""
         tail = ctypes.c_void_p()
-        row_ptr = self.stats.data_ptr()
         for node in nodes:
             if isinstance(node, _Part):
                 _c("graph_loops_add_child", graph, ctypes.byref(tail), node.graph.raw())
                 continue
-            c = node.cond
-            b = None if c.b is None else c.b.data_ptr()
-            args = (b, c.max_depth, c.count.data_ptr(), c.floor, row_ptr + 32 * node.row)
-            handle, body = ctypes.c_uint64(), ctypes.c_void_p()
-            _c("graph_loops_add_conditional", graph, ctypes.byref(tail), node.kind == "while",
-               *args, ctypes.byref(handle), ctypes.byref(body))
+            handle, body = _handle(graph), ctypes.c_void_p()
+            test = self._loop_test(node, handle, entry=True)
+            _c("graph_loops_add_test", graph, ctypes.byref(tail), ctypes.byref(test))
+            _c("graph_loops_add_conditional", graph, ctypes.byref(tail), handle,
+               node.kind == "while", ctypes.byref(body))
             body_tail = self._stitch(body, node.body)
-            if node.kind == "while":
-                _c("graph_loops_add_test", body, ctypes.byref(body_tail), handle.value, *args)
+            if node.kind != "while" or node.cond.word is not None:
+                continue
+            then = None if node.then is None else (node.then, _handle(body))
+            test = self._loop_test(node, handle, entry=False, then=then)
+            _c("graph_loops_add_test", body, ctypes.byref(body_tail), ctypes.byref(test))
+            if then is not None:
+                then_body = ctypes.c_void_p()
+                _c("graph_loops_add_conditional", body, ctypes.byref(body_tail), then[1], False,
+                   ctypes.byref(then_body))
+                self._stitch(then_body, node.then.body)
         return tail
 
     def close(self) -> None:
@@ -747,7 +851,9 @@ class GraphCache:
             torch.cuda.current_stream(device).wait_stream(self.stream)
             torch.cuda.synchronize(device)
         _restore(counters, kept)
-        cap = _Capture(self.pool, counters)
+        cap = _Capture(self.pool, counters,
+                       loops=torch.zeros((MAX_LOOPS, len(wave.LOOP_WORDS)), dtype=torch.int64,
+                                         device=device))
         on_side = torch.cuda.stream(self.stream) if cuda else contextlib.nullcontext()
         with on_side, capturing(cap):
             cap.begin()

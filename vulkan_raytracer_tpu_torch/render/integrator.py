@@ -28,9 +28,10 @@ metallic-roughness, normal map, emissive, transmission, anisotropy) and with
 MASK/BLEND alpha.  Alpha runs as the JAX accept/reject resample loop
 (:func:`_closest`): the closest-hit kernel is launched again past each
 rejected candidate with per-lane ``t_min``, so the kernels themselves stay
-alpha-free, and each pass's test and commit is one kernel
-(:func:`..ops.wave.alpha_commit`); on alpha scenes the occlusion rays go
-through the same loop.
+alpha-free, and each pass's finish, test and commit is one kernel
+(:func:`..ops.wave.alpha_commit`), which in a captured wave also makes the
+loop's next test; on alpha scenes the occlusion rays go through the same
+loop.
 
 A frame's waves run through :class:`Waves` (the JAX ``lax.scan`` of
 renderer.py:52-88): each wave's initial state is one kernel
@@ -109,12 +110,12 @@ def reset_bounce_widths() -> None:
 # ---------------------------------------------------------------------------
 
 
-def _closest_opaque(tables, o: V3, d: V3, *, t_min, t_max, active):
+def _closest_opaque(tables, o: V3, d: V3, *, t_min, t_max, active, raw: bool = False):
     if tables.inst is not None:
-        return instanced_closest(tables, o, d, t_min=t_min, t_max=t_max, active=active)
+        return instanced_closest(tables, o, d, t_min=t_min, t_max=t_max, active=active, raw=raw)
     if tables.pbvh is not None:
-        return bvh_closest(tables, o, d, t_min=t_min, t_max=t_max, active=active)
-    return dense_closest(tables, o, d, t_min=t_min, t_max=t_max, active=active)
+        return bvh_closest(tables, o, d, t_min=t_min, t_max=t_max, active=active, raw=raw)
+    return dense_closest(tables, o, d, t_min=t_min, t_max=t_max, active=active, raw=raw)
 
 
 def _count_alpha_loop(passes: int, calls: int = 1, most: int | None = None) -> None:
@@ -125,16 +126,16 @@ def _count_alpha_loop(passes: int, calls: int = 1, most: int | None = None) -> N
     ALPHA_LOOP["max"] = max(ALPHA_LOOP["max"], passes if most is None else most)
 
 
-def _alpha_pass(tables, o: V3, d: V3, t_max, st: dict, count=None) -> None:
+def _alpha_pass(tables, o: V3, d: V3, t_max, st: dict, loop=None) -> None:
     """One pass of the resample loop over its state ``st`` (the loop's own
-    buffers): trace the nearest candidate above each
-    pending lane's ``t_lo``, then test and commit it
-    (:func:`..ops.wave.alpha_commit`, one kernel on the card), the next
-    state written over ``st`` and, where given, the lanes still pending
-    into ``count``."""
-    t_c, tri_c, u_c, v_c = _closest_opaque(tables, o, d, t_min=st["t_lo"], t_max=t_max,
-                                           active=st["pending"])
-    wave.alpha_commit(tables, st, t_c, tri_c, u_c, v_c, count)
+    buffers): trace the nearest candidate above each pending lane's
+    ``t_lo``, then finish, test and commit it
+    (:func:`..ops.wave.alpha_commit`: on the card one kernel, which reads
+    the traversal's raw hit), the next state written over ``st`` and, in a
+    program, the loop's next test made with its control block ``loop``."""
+    raw = _closest_opaque(tables, o, d, t_min=st["t_lo"], t_max=t_max, active=st["pending"],
+                          raw=True)
+    wave.alpha_commit(tables, st, raw, loop)
 
 
 def _closest(tables, o: V3, d: V3, *, t_min, t_max, active, seed):
@@ -146,13 +147,13 @@ def _closest(tables, o: V3, d: V3, *, t_min, t_max, active, seed):
     ``t_lo``, test it, and move ``t_lo`` of a rejected lane strictly past its
     candidate (t * (1 + 4e-7) + 1e-30 in float32); repeat while a lane is
     pending (:func:`_alpha_pass`).  Candidates are thus tested in t order.
-    Each pass is one closest-hit launch and one test-and-commit launch,
-    counted in :data:`ALPHA_LOOP`; the loop's state is buffers of its own,
-    which each pass writes over.
+    Each pass is one closest-hit traversal and one finish-test-and-commit
+    launch, counted in :data:`ALPHA_LOOP`; the loop's state is buffers of
+    its own, which each pass writes over.
 
     Eagerly the host reads whether a lane is pending before each pass.  In a
     wave being captured the loop becomes a WHILE node on the count of
-    pending lanes, which each pass's commit writes (:mod:`.graphs`).
+    pending lanes, whose next test each pass's commit makes (:mod:`.graphs`).
     """
     if not tables.has_alpha:
         return _closest_opaque(tables, o, d, t_min=t_min, t_max=t_max, active=active), seed
@@ -680,36 +681,30 @@ def _wave_program(tables, io: dict, cap, *, width, height, max_depth: int, nee_w
     ``samples``, ``lanes`` and ``cam``); each phase writes a bounce's next
     state over its state; its last nodes add the wave's radiance, summed
     over its samples, into ``io["sum"]`` and its rays into ``io["rays"]``.
-    The bounce index ``b``, the live count, the rays and whether the next
-    bounce re-sorts are device scalars the parts write, so no part reads the
-    device on the host.  Returns the (radiance, rays) tensors the program
-    writes."""
+    The bounce index ``b`` and the rays are device scalars, which the loops'
+    tests and the parts write; each test counts the live (or pending) lanes
+    itself, so no part reads the device on the host.  Returns the
+    (radiance, rays) tensors the program writes."""
     s = wave.primary_rays(io["samples"], io["lanes"], io["cam"], width, height, repack,
                           pixel_order)
     n = s["active"].shape[0]
     dev = s["active"].device
     b = torch.zeros((), dtype=torch.int32, device=dev)
     rays = torch.zeros((), dtype=torch.int64, device=dev)
-    live = s["active"].sum()
-    sort_next = torch.zeros((), dtype=torch.int64, device=dev)  # 0 on a phase's first bounce
 
     def phase(st, live_floor):
-        """WHILE b <= max_depth and more than ``live_floor`` lanes live: the
-        re-sort from the phase's second bounce on, then a bounce."""
+        """WHILE b <= max_depth and more than ``live_floor`` lanes of ``st``
+        live: a bounce; the loop's test counts the live lanes and steps
+        ``b``, and where the loop goes on on a repacked wave sets the
+        re-sort that ends the body (the next bounce's, as the eager loop's
+        ``_step`` sorts before each bounce of a phase but its first)."""
         def bounce():
-            if repack:
-                cap.if_(graphs.Cond(sort_next),
-                        lambda: graphs._copy_state(st, _sort_wavefront(tables, st)))
             out, _ = _bounce(tables, st, b, max_depth, nee_weighting, rays)
             graphs._copy_state(st, out)
-            b.add_(1)
-            live.copy_(st["active"].sum())
-            if repack:
-                sort_next.fill_(1)
 
-        if repack:
-            sort_next.zero_()
-        cap.while_(graphs.Cond(live, live_floor, b, max_depth), bounce, "phase")
+        cap.while_(graphs.Cond(st["active"], live_floor, b, max_depth, step=True), bounce,
+                   "phase", then=(lambda: graphs._copy_state(st, _sort_wavefront(tables, st)))
+                   if repack else None)
 
     ladder = repack and n % 4 == 0
     phase(s, n // 2 if ladder else 0)
@@ -718,7 +713,7 @@ def _wave_program(tables, io: dict, cap, *, width, height, max_depth: int, nee_w
         wide = states[-1]
         # the re-sort where the eager loop steps down (bounces remain, a lane
         # lives); the split is a copy either way, and joins back unchanged
-        cap.if_(graphs.Cond(live, 0, b, max_depth),
+        cap.if_(graphs.Cond(wide["active"], 0, b, max_depth),
                 lambda: graphs._copy_state(wide, _sort_wavefront(tables, wide)))
         part = _split(wide, width)[0]
         head = graphs._state_like(part, trace.permute(
