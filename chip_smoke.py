@@ -182,10 +182,16 @@ what a bounce calls run eagerly.
    new boxes, and every side's frames launch the emissive walk.
 21. progressive — the progressive ``Renderer`` on Cornell 512x512, depth 4:
    the preview frame and 16 samples, whose mean must equal
-   ``render_image(spp=16)`` within atol 1e-5; ms per frame; ``pipeline=True``
+   ``render_image(spp=16)`` within atol 1e-5, each frame's tail one
+   ``frame_post_kernel`` launch; ms per frame; ``pipeline=True``
    gives the same images one call late; then ``cli.run`` with
    ``--progressive`` and a ``--checkpoint`` / ``--resume`` pair (8 + 8 spp
-   equal 16 spp).
+   equal 16 spp).  Then (``frame_post``) the kernel against its plain
+   versions at a 512x512 frame's shapes: the headless image in every
+   (tonemap, uint8) mode, and the progressive frame's preview and a later
+   sample at the frame's size and in 120x160 display cells (32 rows and
+   columns no cell shows), bit-equal; each mode timed cold with its
+   bound.
 22. shard_one — bench cfg1 through ``cli.run`` with ``--shard`` on the mesh
    of the one card: image and rays equal to phase 4's bit for bit; two
    renders of each path in turns (shard, plain, plain, shard), seconds and
@@ -249,14 +255,18 @@ what a bounce calls run eagerly.
    glTF 147k and the gallery timed in a captured graph, launch after launch
    on copies of its inputs that exceed the L2 four times over, against its
    plain version, with its bytes bound.
-29. wave    — after phase 28: the wave's two kernels (``csrc/wave.cu``) against
+29. wave    — after phase 28: the wave's three kernels (``csrc/wave.cu``) against
    their plain versions on the first wave of cfg1-cfg5, glTF 147k, the
    textured glb, the emitter soup, the gallery and the instanced alpha
-   gallery (``tools/check_torch_wave.py``, eager): the primary-ray kernel's
-   initial state, and on the alpha scenes every resample pass's commit and
+   gallery, and bench cfg4's gate crop under its HDR sky
+   (``tools/check_torch_wave.py``, eager): the primary-ray kernel's
+   initial state, the wave's tail (``wave_sum_kernel``: the deferred sky,
+   a repacked wave's scatter, the sum over its samples; any lane that
+   differs fails), and on the alpha scenes every resample pass's commit and
    count of pending lanes, every lane bit-equal or named by kernel, field
    and ulps as class i; a class ii lane fails.  Each kernel's first call on
-   cfg1, cfg2, glTF 147k and the textured glb timed in a captured graph on
+   cfg1, cfg2, glTF 147k, the textured glb and cfg4's gate crop timed in a
+   captured graph on
    copies of its inputs that exceed the L2 four times over (the commit's
    restored and the L2 flushed before each timed replay) against its plain
    version, with its bytes bound; on the glTF 147k and textured glb waves
@@ -284,7 +294,12 @@ what a bounce calls run eagerly.
    reversed, 1,024-lane blocks shuffled, random; 1, 3, 1,025, 4,099 and
    524,288 lanes of a wave state's 21 columns; each mode), every column
    bit-equal (any differing case fails), each kind and mode timed at
-   524,288 lanes with its spread.
+   524,288 lanes with its spread.  Then (``walk_ifs``) the gallery
+   (512x512, 4 spp) and the instanced alpha gallery (128x128, 16 spp),
+   whose programs put each instance's launch behind an IF its step sets,
+   against the eager mask path in turns: images bit-equal, rays and
+   launches (the skipped ones counted in) equal, an IF an instance step,
+   some skipped; the walks launched and skipped.
 27. graphs_busy — after the profiled timings: one wave each of cfg1, the
    gallery, the emitter soup, phase 9's forced-BVH dragon and the glTF 147k
    under ``torch.profiler`` three ways, counters reset just before, the card
@@ -392,6 +407,12 @@ KERNELS = {
                      "vulkan_raytracer_tpu/render/integrator.py:403"),
     "alpha_commit": ("wave", "alpha_commit", WAVE_SRC,
                      "vulkan_raytracer_tpu/render/integrator.py:130"),
+    # the wave's tail (the deferred sky fetch, the repacked wave's scatter and
+    # the sum over its samples) and the frame's post-processing: XLA fusions
+    # of the JAX wave and of _frame_step / _postprocess, not Pallas kernels
+    "wave_sum": ("wave", "wave_sum", WAVE_SRC, "vulkan_raytracer_tpu/render/integrator.py:1128"),
+    "frame_post": ("wave", "frame_post", WAVE_SRC,
+                   "vulkan_raytracer_tpu/render/renderer.py:244"),
     # what XLA fuses around the traversal launches, none a Pallas kernel: the
     # closest hit's finish (pallas_closest's (u, v) :282, packet_closest's
     # _slot_to_tri and _winner_uv, the instanced finish), a step of the
@@ -412,9 +433,9 @@ SHADE_CONFIGS = ("cfg1", "cfg2", "cfg3", "gltf147k", "gallery", "cfg4", "texture
 SHADE_TIMED = ("cfg1", "cfg2", "cfg3", "gltf147k", "gallery")
 #: the wave kernels' phase's configs (tools/check_torch_wave.py); the kernels
 #: are timed on the first four (the alpha commit on the two with alpha)
-WAVE_CONFIGS = ("cfg1", "cfg2", "gltf147k", "textured", "cfg3", "cfg4", "cfg5", "soup",
-                "gallery", "alpha_gallery")
-WAVE_TIMED = ("cfg1", "cfg2", "gltf147k", "textured")
+WAVE_CONFIGS = ("cfg1", "cfg2", "gltf147k", "textured", "cfg4_gate", "cfg3", "cfg4", "cfg5",
+                "soup", "gallery", "alpha_gallery")
+WAVE_TIMED = ("cfg1", "cfg2", "gltf147k", "textured", "cfg4_gate")
 #: the trace kernels' phase's configs (tools/check_torch_trace.py); the
 #: kernels are timed on the first four
 TRACE_CONFIGS = ("cfg1", "cfg2", "gallery", "cfg5", "cfg3", "gltf147k", "cfg4", "textured",
@@ -1951,9 +1972,79 @@ def frame_after_refit(device, cases, size: int = 512, spp: int = 4, depth: int =
               "nvidia_smi": nvidia_smi_line()})
 
 
-def progressive_phase(device, paths, size: int = 512, spp: int = 16) -> None:
+def check_frame_post(device, size: int = 512) -> dict:
+    """``frame_post_kernel`` against its plain versions at the main paths'
+    shapes (a 512x512 frame): the headless image (``wave.frame_image``,
+    every (tonemap, uint8) pair, a frame's sum over 16 samples in block
+    order) and the progressive frame (``wave.frame_progressive``: the
+    preview sample 0 and sample 5, at the frame's size and in 120x160 cells
+    of 4x3 pixels, which leave 32 rows and 32 columns no cell shows),
+    inputs made from a seed: images and the accumulation bit-equal (any
+    differing element fails).  Then each mode timed cold, launch after
+    launch on copies of its inputs spanning four times the L2, against its
+    plain version, with its bytes bound.  Returns the kernel's times, its
+    largest error and the shapes."""
+    import torch
+    from check_torch_trace import _cold_ms, _copies, _plain_ms
+
+    from vulkan_raytracer_tpu_torch.ops import wave
+    from vulkan_raytracer_tpu_torch.render import integrator
+
+    g = torch.Generator(device=device).manual_seed(21)
+    n = size * size
+
+    def hdr():
+        return (torch.rand((n, 3), generator=g, device=device) * 2.0) ** 4
+
+    lanes = integrator.block_lanes(size, size, device)
+    acc = hdr() * 16.0
+    err, cases = 0.0, 0
+    for tonemap in (True, False):
+        for as_uint8 in (True, False):
+            got = wave.frame_image(acc, lanes, 16, tonemap, as_uint8)
+            want = wave.frame_image_reference(acc, lanes, 16, tonemap, as_uint8)
+            err = max(err, float((got.double() - want.double()).abs().max()))
+            cases += 1
+            if not torch.equal(got, want):
+                raise AssertionError(f"frame_image (tonemap {tonemap}, uint8 {as_uint8}) "
+                                     f"differs from its plain version by {err}")
+    for disp in ((size, size), (120, 160)):
+        accum = hdr()
+        want_accum = accum.clone()
+        for sample in (0, 5):
+            rad = hdr()
+            got = wave.frame_progressive(rad, accum, torch.tensor([sample], device=device),
+                                         size, size, *disp)
+            want = wave.frame_progressive_reference(rad, want_accum, sample, size, size, *disp)
+            cases += 1
+            if not (torch.equal(got, want) and torch.equal(accum, want_accum)):
+                raise AssertionError(f"frame_progressive ({disp}, sample {sample}) differs "
+                                     f"from its plain version")
+    image_args = (acc, lanes, 16, True, True)
+    image_bytes = wave.frame_post_bytes(n, 3 * n, progressive=False)
+    copies = _copies(image_args, image_bytes)
+    image = {"ms": _cold_ms(wave.frame_image, copies),
+             "plain_ms": _plain_ms(wave.frame_image_reference, copies), "bytes": image_bytes,
+             "shape": f"render_image's tail, {size}x{size}, tonemapped uint8"}
+    prog_args = (hdr(), hdr(), torch.tensor([5], device=device), size, size, size, size)
+    prog_bytes = wave.frame_post_bytes(n, 3 * n, progressive=True)
+    copies = _copies(prog_args, prog_bytes)
+    plain = [(r, a, 5, *rest) for r, a, _, *rest in copies]
+    prog = {"ms": _cold_ms(wave.frame_progressive, copies),
+            "plain_ms": _plain_ms(wave.frame_progressive_reference, plain),
+            "bytes": prog_bytes, "shape": f"a progressive frame's tail, {size}x{size}, sample 5"}
+    for t in (image, prog):
+        t.update(bound_ms=1e3 * t["bytes"] / HBM_BYTES_PER_S, bound_by="bytes")
+    out = {"cases": cases, "max_abs_err": err, "image": image, "progressive": prog}
+    emit({"phase": "frame_post", **out})
+    return out
+
+
+def progressive_phase(device, paths, size: int = 512, spp: int = 16) -> dict:
     """The progressive Renderer on Cornell 512x512, depth 4, and the CLI's
-    --progressive, --checkpoint and --resume on the card."""
+    --progressive, --checkpoint and --resume on the card; then
+    ``frame_post_kernel`` against its plain versions
+    (:func:`check_frame_post`), whose result it returns."""
     from vulkan_raytracer_tpu_torch import cli
     from vulkan_raytracer_tpu_torch.render.renderer import Renderer
     from vulkan_raytracer_tpu_torch.scene.builtin import cornell_box_scene
@@ -2013,6 +2104,10 @@ def progressive_phase(device, paths, size: int = 512, spp: int = 16) -> None:
     if not (prog["frames"] == spp + 1 and prog_err <= 1e-6 and resume_err <= 1e-6):
         raise AssertionError(f"--progressive differs from the Renderer by {prog_err}, "
                              f"8 + 8 spp resumed from 16 spp by {resume_err}")
+    if launches["wave"]["frame_post"] != spp + 1:
+        raise AssertionError(f"{spp + 1} progressive frames made "
+                             f"{launches['wave']['frame_post']} frame_post launches")
+    return check_frame_post(device, size)
 
 
 def shard_one(want, want_rays: int, paths, reps: int = 2) -> None:
@@ -2459,8 +2554,8 @@ def graphs_phase(cornell, dragon, bigasset, out_dir: Path):
             with sides[side]():
                 _reset_launches()
                 (images, rays, waves, frames, harness_reads), secs = _timed_sync(run)
-                got = (rays, _launch_counts(loops=False), dict(integrator.BOUNCE_WIDTHS),
-                       _alpha_loop())
+                got = (rays, integrator.launch_counts(loops=False, skipped=True),
+                       dict(integrator.BOUNCE_WIDTHS), _alpha_loop())
                 if captured_first is None:
                     captured_first = graphs.STATS["captured"]
                 replays, bounces = graphs.STATS["replays"], _mode()
@@ -2538,8 +2633,9 @@ def graphs_phase(cornell, dragon, bigasset, out_dir: Path):
 def bounce_nodes(cache) -> dict:
     """Nodes of the parts of one bounce of each program in ``cache``
     (``cudaGraphGetNodes`` on the parts; the tests the stitcher adds aside):
-    the bounce loop's body outside its resample loops and re-sort, one pass
-    of its resample loops, its re-sort (the IF its closing test sets)."""
+    the bounce loop's body outside its resample loops and re-sort (its
+    instance launches' IF bodies in), one pass of its resample loops, its
+    re-sort (the IF its closing test sets)."""
     from vulkan_raytracer_tpu_torch.render import graphs
 
     def parts(nodes, roles):
@@ -2547,7 +2643,7 @@ def bounce_nodes(cache) -> dict:
         for node in nodes:
             if isinstance(node, graphs._Part):
                 n += node.graph.nodes() if "bounce" in roles else 0
-            elif node.role in roles or "bounce" in roles and node.role == "phase":
+            elif node.role in roles or "bounce" in roles and node.role in ("phase", "walk"):
                 n += parts(node.body, roles if node.role == "phase" else ("bounce",))
         return n
 
@@ -2599,13 +2695,17 @@ def shade_phase(device, prebuilt: dict, out_dir: Path) -> tuple:
 
 
 def wave_phase(device, prebuilt: dict, out_dir: Path) -> tuple:
-    """Phase 29: the wave's two kernels against their plain versions on the
-    first wave of each of :data:`WAVE_CONFIGS` (``tools/check_torch_wave.py``,
-    eager, so each call runs its Python): the primary-ray kernel on every
-    wave, the alpha commit on every resample pass of the alpha scenes
-    (the glTF 147k, the textured glb, the instanced alpha gallery); every
-    lane of every field bit-equal, or named by kernel, field and ulps as
-    class i (<= 4 ulps); a class ii lane fails.  On the first waves of
+    """Phase 29: the wave's three kernels against their plain versions on
+    the first wave of each of :data:`WAVE_CONFIGS`
+    (``tools/check_torch_wave.py``, eager, so each call runs its Python):
+    the primary-ray kernel on every wave, the alpha commit on every
+    resample pass of the alpha scenes (the glTF 147k, the textured glb, the
+    instanced alpha gallery), the wave's tail (``wave_sum_kernel``: the
+    deferred sky, a repacked wave's scatter, the sum) on every wave, cfg1's,
+    the repacked cfg2's and cfg4's gate crop under its HDR sky among them;
+    every lane of every field bit-equal, or named by kernel, field and ulps
+    as class i (<= 4 ulps); a class ii lane fails, and so does any lane of
+    the tail that differs.  On the first waves of
     :data:`WAVE_TIMED` each kernel's first call is timed in a captured
     graph against its plain version eagerly, with its bytes bound, and
     every alpha pass so.  Then the synthetic passes
@@ -2625,8 +2725,11 @@ def wave_phase(device, prebuilt: dict, out_dir: Path) -> tuple:
             raise AssertionError(f"wave {name}: {line['by_class']['ii']} class ii lanes, "
                                  f"finite {line['finite']}: {line['first']}")
         if line["calls"]["primary_rays"] != 1 or bool(
-                line["calls"]["alpha_commit"]) != line["alpha"]:
+                line["calls"]["alpha_commit"]) != line["alpha"] or line["calls"][
+                    "wave_sum"] not in (1, 2):
             raise AssertionError(f"wave {name}: calls {line['calls']}")
+        if line["by_kernel"].get("wave_sum_kernel"):
+            raise AssertionError(f"wave {name}: the tail differs: {line['first']}")
         for k in ctw.KERNELS:
             errs[k] = max(errs[k], line["max_abs_err"][k])
             if k in line.get("timing", {}):
@@ -2682,6 +2785,66 @@ def trace_phase(device, prebuilt: dict, out_dir: Path) -> tuple:
         raise AssertionError(f"trace synthetic: {line['differing']}, {line['launches']} "
                              f"gathers and scatters for {line['checked']} cases")
     return times, errs
+
+
+def walk_ifs_phase(gallery) -> dict:
+    """Phase 30's walks: each instance's launch is an IF node its step sets
+    (``instance_step_kernel`` counts the lanes that touch the instance's
+    box).  The gallery (512x512, 4 spp, depth 4) and the instanced alpha
+    gallery (128x128, 16 spp, depth 4) through their programs on the card
+    and through the eager mask path (every instance launched, dead lanes
+    masked), in turns (device, eager, eager, device): images bit-equal,
+    rays equal, each kernel's launches plus those the IFs skipped equal to
+    the eager ones; the IFs taken and skipped (one an instance step on the
+    device side, some skipped).  Returns each frame's counts."""
+    import torch
+
+    from vulkan_raytracer_tpu_torch.ops import instanced
+    from vulkan_raytracer_tpu_torch.render import graphs, integrator, renderer
+    from vulkan_raytracer_tpu_torch.scene.camera import Camera
+
+    alpha = alpha_gallery_scene().upload("cuda", instancing=True)
+    out = {}
+    for label, tables, cam, size, spp in (
+            ("gallery", gallery, gallery_camera(), 512, 4),
+            ("alpha_gallery", alpha, TEXTURED_CAM, 128, 16)):
+        runs = []
+        for side in ("device", "eager", "eager", "device"):
+            with contextlib.nullcontext() if side == "device" else _eager():
+                _reset_launches()
+                camera = Camera(position=np.array(cam[0]), direction=np.array(cam[1]))
+                (img, rays), secs = _timed_sync(lambda: renderer.render_image(
+                    tables, camera, size, size, spp, max_depth=4, tonemap=False))
+                runs.append({"side": side, "img": img, "rays": rays, "seconds": secs,
+                             "launches": integrator.launch_counts(loops=False, skipped=True),
+                             "launched": integrator.launch_counts(loops=False),
+                             "steps": instanced.STATS["steps"],
+                             "walks": graphs.STATS["walks"],
+                             "skipped": graphs.STATS["walks_skipped"]})
+        want = runs[1]
+        for r in runs:
+            if not (np.array_equal(r["img"], want["img"]) and r["rays"] == want["rays"]
+                    and r["launches"] == want["launches"]):
+                raise AssertionError(f"{label}: the {r['side']} frame differs from the mask "
+                                     f"path's: rays {r['rays']} / {want['rays']}, launches "
+                                     f"{r['launches']} / {want['launches']}")
+        dev = runs[0]
+        if not (dev["walks"] == dev["steps"] and 0 < dev["skipped"] < dev["walks"]
+                and runs[1]["walks"] == 0):
+            raise AssertionError(f"{label}: {dev['walks']} IFs for {dev['steps']} instance "
+                                 f"steps, {dev['skipped']} skipped")
+        line = {"frame": f"{label} {size}x{size} {spp} spp depth 4", "bit_equal": True,
+                "rays": want["rays"], "instance_steps": dev["steps"], "walks": dev["walks"],
+                "walks_launched": dev["walks"] - dev["skipped"],
+                "walks_skipped": dev["skipped"],
+                "seconds": {"device": [dev["seconds"], runs[3]["seconds"]],
+                            "eager": [runs[1]["seconds"], runs[2]["seconds"]]},
+                "launches_device": dev["launched"], "launches_eager": want["launched"]}
+        emit({"phase": "walk_ifs", **line})
+        out[label] = line
+    del alpha
+    torch.cuda.synchronize()
+    return out
 
 
 def graphs_busy(cornell, gallery, soup, small, bigasset) -> None:
@@ -2765,8 +2928,9 @@ def graphs_busy(cornell, gallery, soup, small, bigasset) -> None:
                                                 f"samples {len(samples)}, {w}x{h} depth {depth}",
               "traced_launches_equal_counters": ["replay", "eager"],
               "device_traced_within_counters": True, "profile_gap_s": PROFILE_GAP_S, **out})
+    # the frame's tail runs after a frame's waves, not in them
     missing = [name for name, (mod, key, _, _) in KERNELS.items()
-               if mod != "graphs" and not _launched(replayed, key)]
+               if mod != "graphs" and name != "frame_post" and not _launched(replayed, key)]
     if missing:
         raise AssertionError(f"the replayed waves launched no {missing}: {replayed}")
 
@@ -2885,7 +3049,8 @@ _ENTRIES = {"closest_kernel": "dense_closest", "shadow_kernel": "dense_shadow",
             "emissive_walk_kernel": "emissive_walk", "loop_cond_kernel": "loop_cond_kernel",
             "shade_hit_kernel": "shade_hit", "shade_scatter_kernel": "shade_scatter",
             "shade_resolve_kernel": "shade_resolve", "primary_rays_kernel": "primary_rays",
-            "alpha_commit_kernel": "alpha_commit", "hit_finish_kernel": "hit_finish",
+            "alpha_commit_kernel": "alpha_commit", "wave_sum_kernel": "wave_sum",
+            "frame_post_kernel": "frame_post", "hit_finish_kernel": "hit_finish",
             "instance_step_kernel": "instance_step", "coherence_key_kernel": "coherence_key",
             "permute_kernel": "permute"}
 
@@ -3015,20 +3180,21 @@ def bench_phase(paths) -> list:
     import torch
 
     from vulkan_raytracer_tpu_torch import bench
+    from vulkan_raytracer_tpu_torch.ops import wave
     from vulkan_raytracer_tpu_torch.render import renderer
 
     frames = []
-    postprocess = renderer._postprocess
+    frame_image = wave.frame_image
 
-    def checked(acc, spp, tonemap, as_uint8):
+    def checked(acc, lanes, spp, tonemap, as_uint8):
         frames.append((acc.shape[0], bool(torch.isfinite(acc).all()), float(acc.mean()) / spp))
-        return postprocess(acc, spp, tonemap, as_uint8)
+        return frame_image(acc, lanes, spp, tonemap, as_uint8)
 
-    renderer._postprocess = checked
+    wave.frame_image = checked
     try:
         others, c1, summary = bench.run(torch.device("cuda", 0), reps=1)
     finally:
-        renderer._postprocess = postprocess
+        wave.frame_image = frame_image
     if c1.key != "cfg1_cornell_builtin_512x512_d4_64spp":
         raise AssertionError(f"the bench rendered {c1.key}, expected the built-in box")
     # each config: gate crop, warm-up frame, rep
@@ -3411,7 +3577,10 @@ def main() -> int:
     instanced_vs_flattened(device)
     refit_phase(device, paths, dragon_scene, dragon, gallery, gallery_tables)
     del dragon_scene, gallery, gallery_tables
-    progressive_phase(device, paths)
+    frame_post = progressive_phase(device, paths)
+    errs["frame_post"] = frame_post["max_abs_err"]
+    times["frame_post"] = {**frame_post["progressive"], "library_ms": None,
+                           "by_mode": {k: frame_post[k] for k in ("image", "progressive")}}
 
     # 22-24. pixel sharding: --shard on the one card, two shards on it, and a
     # fleet of two processes
@@ -3449,6 +3618,9 @@ def main() -> int:
     times["alpha_commit"] = {**wave_times["alpha_commit"]["gltf147k"],
                              "shape": "glTF 147k wave, its first pass (524,288 lanes pending)",
                              "by_config": wave_times["alpha_commit"]}
+    times["wave_sum"] = {**wave_times["wave_sum"]["cfg1"],
+                         "shape": "cfg1 wave's tail (262,144 pixels x 2 samples)",
+                         "by_config": wave_times["wave_sum"]}
 
     # 30. the kernels around the traversal launches against their plain
     # versions on real waves, timed, before any profiler session
@@ -3457,6 +3629,7 @@ def main() -> int:
             device, {"cfg1": cornell, "cfg2": dragon, "gltf147k": bigasset,
                      "gallery": gallery_tables, "soup": soup_tables}, Path(tmp))
     errs.update(trace_errs)
+    walk_ifs_phase(gallery_tables)
     for name, config, shape in (
             ("hit_finish", "cfg1", "cfg1 wave, bounce 0 (524,288 lanes)"),
             ("instance_step", "gallery", "gallery wave, bounce 0, the second instance's step "

@@ -243,8 +243,12 @@ def _shape(nodes) -> str:
 
 
 def _want_shape(tables, n: int) -> str:
-    """The tree ``render/graphs.py`` documents for a wave of ``n`` lanes."""
-    bounce = "p while:alpha(p) p while:alpha(p) p" if tables.has_alpha else "p"
+    """The tree ``render/graphs.py`` documents for a wave of ``n`` lanes: on
+    an instanced scene each instance's launch of a scan is an IF after the
+    part that holds its step."""
+    walks = "p if:walk(p) " * (tables.inst.num_instances if tables.inst is not None else 0)
+    bounce = (f"p while:alpha({walks}p) p while:alpha({walks}p) p" if tables.has_alpha
+              else f"{walks}{walks}p")
     repack = integrator._repack_preferred(tables)
     phase = f"while:phase({bounce}{'; if:sort(p)' if repack else ''})"
     if repack and n % 4 == 0:
@@ -389,7 +393,9 @@ def test_stitched_tests_are_made_where_the_counts_are(case, monkeypatch):
     bounce loop's closing test steps ``b`` and, on a repacked wave, sets the
     re-sort IF that follows it in the body, which has no test of its own; a
     resample loop's entry test arms the loop's control block and its body
-    is its pass alone, whose commit makes the next test."""
+    is its pass alone, whose commit makes the next test; an instance's
+    launch is an IF with no test (its step sets it), its body the launch
+    alone."""
     tables, cap = _capture_wave(case, monkeypatch)
     program = graphs._Program(cap.nodes, cap.conds, {"cam": torch.zeros(1)}, (), [])
     calls = _stitched(program, monkeypatch)
@@ -412,6 +418,7 @@ def test_stitched_tests_are_made_where_the_counts_are(case, monkeypatch):
     for kind, g, x in calls:
         inside.setdefault(g, []).append((kind, x))
     repack = integrator._repack_preferred(tables)
+    walks = tables.inst.num_instances if tables.inst is not None else 0
     for body, node in node_of.items():
         kinds = [k for k, _ in inside.get(body, [])]
         if node.role == "phase":
@@ -420,15 +427,22 @@ def test_stitched_tests_are_made_where_the_counts_are(case, monkeypatch):
             assert bool(closing["then_row"]) == repack
             assert kinds[-2:] == (["test", "if"] if repack else [kinds[-2], "test"])
         elif node.role == "alpha":  # its pass alone: the commit makes the next test
+            assert kinds == ["child", "if"] * walks + ["child"]
+        elif node.role == "walk":  # the launch alone: the step before it sets the IF
             assert kinds == ["child"]
     armed = [t for t in tests if t["arm"]]
     alpha = [n for n in program.conds if n.role == "alpha"]
     phases = sum(n.role == "phase" for n in program.conds)
     assert len(armed) == len(alpha) == 2 * phases * tables.has_alpha
     assert all(t["entry"] == 1 and t["step"] == 0 for t in armed)
-    # a then-IF has no entry test: one test a node, and one more a WHILE's body
+    # the IFs the steps set: one an instance of each scan, each kept to arm
+    steps = [n for n in program.conds if n.role == "walk"]
+    assert len(steps) == len(program._armed) == 2 * phases * walks
+    assert all(n.cond.word is not None for n in steps)
+    # a then-IF and a step's IF have no entry test: one test a node, and one
+    # more a WHILE's body
     closing = sum(n.kind == "while" and n.role != "alpha" for n in program.conds)
-    assert len(tests) == sum(n.cond is not None for n in program.conds) + closing
+    assert len(tests) == sum(n.cond is not None for n in program.conds) - len(steps) + closing
 
 
 @pytest.mark.parametrize("case", ["cornell_dense", "ladder_bvh", "textured_glb"])
@@ -602,8 +616,10 @@ def test_stand_in_program_bit_equal_to_eager(case, monkeypatch):
     against the eager loop: images and rays bit-equal, and the bounce
     widths, the alpha loop's calls, passes and most passes a call, the
     instance steps and the plain versions' calls equal, the program's from
-    each part's captured counts times the runs of its body.  One program a
-    wave shape, keyed without a bounce; the second frame captures nothing."""
+    each part's captured counts times the runs of its body (the launches
+    the IF nodes of an instanced scene skipped counted in, as the eager loop
+    launches every instance).  One program a wave shape, keyed without a
+    bounce; the second frame captures nothing."""
     gc.collect()  # no cache of an earlier test's tables of the signature
     tables, (pos, direction, _, _), _ = _case(case, monkeypatch)
     cam = Camera(position=np.array(pos), direction=np.array(direction))
@@ -614,7 +630,8 @@ def test_stand_in_program_bit_equal_to_eager(case, monkeypatch):
         PLAIN_CALLS.clear()
         graphs.reset_stats()
         img, rays = renderer.render_image(tables, cam, 32, 32, 2, max_depth=3, tonemap=False)
-        return img, rays, (_counts(), dict(PLAIN_CALLS))
+        plain = {k: n + graphs.skipped(PLAIN_CALLS).get(k, 0) for k, n in PLAIN_CALLS.items()}
+        return img, rays, (_counts(), plain)
 
     img, rays, counts = frame()
     assert sum(counts[1].values()) > 0
@@ -627,6 +644,11 @@ def test_stand_in_program_bit_equal_to_eager(case, monkeypatch):
         assert graphs.STATS["captured"] == captured and graphs.STATS["launches"] == 1
         assert graphs.STATS["replays"] == sum(integrator.BOUNCE_WIDTHS.values())
         assert graphs.STATS["passes"] == integrator.ALPHA_LOOP["iterations"]
+        # an IF before every instance's launch, one an instance step; some
+        # skipped (no lane touched the box), which changed nothing above
+        assert graphs.STATS["walks"] == got[2][0][1]["steps"]
+        assert (0 < graphs.STATS["walks_skipped"] < graphs.STATS["walks"]) == (
+            tables.inst is not None)
     programs = graphs.cache(tables).graphs
     repack = integrator._repack_preferred(tables)
     # (pixels, samples, width, height, pixel order, depth, NEE weighting, repack)
@@ -890,8 +912,9 @@ def test_device_trace_is_held_within_the_counters(traced):
 
 
 def _counts():
-    """(launches by module, instance steps, bounce widths, alpha loop)."""
-    return (integrator.launch_counts(loops=False), dict(instanced.STATS),
+    """(launches by module, those the IF nodes skipped counted in as the
+    eager loop launches them; instance steps, bounce widths, alpha loop)."""
+    return (integrator.launch_counts(loops=False, skipped=True), dict(instanced.STATS),
             dict(integrator.BOUNCE_WIDTHS), dict(integrator.ALPHA_LOOP))
 
 

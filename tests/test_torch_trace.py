@@ -430,10 +430,15 @@ def test_moved_columns_are_the_kernel_source_loads():
     cols = [torch.zeros(10), torch.zeros(10, dtype=torch.int64), torch.zeros(10, dtype=torch.bool)]
     assert trace.permute_bytes(cols, "gather") == 2 * 10 * 13 + 8 * 10
     assert trace.permute_bytes(cols, "copy") == 2 * 10 * 13
-    # a middle step of the closest scan: flag, 1/d, state twice, merge, next
+    # a middle step of the closest scan: flag, 1/d, state twice, touched
+    # flags read and written, merge, next
     assert trace.instance_step_bytes(10, first=False, prev=True, nxt=True, shadow=False,
                                      t_max_lanes=False, t_lo=False) == 10 * (
-        1 + 12 + 16 + 8 + 24 + 28)
+        1 + 12 + 16 + 2 + 8 + 24 + 28)
+    # the merge reads the last launch only where a lane touched its box
+    assert trace.instance_step_bytes(10, first=False, prev=True, nxt=True, shadow=False,
+                                     t_max_lanes=False, t_lo=False, touched=3) == (
+        10 * (1 + 12 + 16 + 2 + 24 + 28) + 3 * 8)
 
 
 # ---------------------------------------------------------------------------
@@ -493,9 +498,10 @@ def _routed(monkeypatch, mode, fail=None):
 def _cuda_state(n, *, shadow, t_lo):
     """:func:`trace.instance_state`'s buffers as a card gets them, on the CPU."""
     rows = torch.empty((8 + t_lo, n)).unbind(0)
-    st = {"inv": torch.empty((n, 3)), "rays": tuple(rows[:6]), "t_init": rows[6]}
+    st = {"inv": torch.empty((n, 3)), "rays": tuple(rows[:6]), "t_init": rows[6],
+          "touches": torch.empty(n, dtype=torch.bool)}
     if shadow:
-        st.update(occ=torch.empty(n, dtype=torch.bool), touches=torch.empty(n, dtype=torch.bool))
+        st.update(occ=torch.empty(n, dtype=torch.bool))
     else:
         st.update(t_best=rows[7], enc=torch.empty(n, dtype=torch.int32))
     if t_lo:

@@ -9,7 +9,9 @@ renders the built-in Cornell box at 512x512, depth 4, through
 ``draw_frame`` each, every frame timed from an idle card to its image on
 the host.  A first sequence warms up (kernels build, the frame's wave
 captures); then ``--runs`` sequences are timed, each on a new ``Renderer``
-of the same tables: the median, least and most ms a frame, and the rays.
+of the same tables: the median, least and most ms a frame, the rays, and
+a digest of the sequence's images and final accumulation (sha256), which
+two versions that render alike share.
 
 ``--root DIR`` renders with the ``vulkan_raytracer_tpu_torch`` package of
 another checkout (for example an unpacked earlier commit), so one call can
@@ -21,6 +23,7 @@ given).
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import statistics
 import subprocess
@@ -58,17 +61,19 @@ def main(argv=None) -> int:
         camera = Camera(position=np.array([0.0, 1.0, 2.4]),
                         direction=np.array([0.0, 0.0, -1.0]), aspect=1.0)
         r = renderer.Renderer(tables, camera, 512, 512, 4)
-        times = []
+        times, digest = [], hashlib.sha256()
         for _ in range(FRAMES):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            r.draw_frame()  # returns the image on the host
+            img = r.draw_frame()  # returns the image on the host
             times.append(time.perf_counter() - t0)
+            digest.update(img.tobytes())
         rays = r.rays_traced
+        digest.update(r.accum.cpu().numpy().tobytes())
         if run:  # the first sequence warms up
             out["runs"].append({"ms_median": 1e3 * statistics.median(times),
                                 "ms_min": 1e3 * min(times), "ms_max": 1e3 * max(times),
-                                "rays": rays})
+                                "rays": rays, "digest": digest.hexdigest()[:16]})
     line = json.dumps(out)
     print(line, flush=True)
     if args.out:

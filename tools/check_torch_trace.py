@@ -169,15 +169,19 @@ class Compare:
                           trace.hit_finish_reference(tables, rays, t, hit, mode))
             return got
 
-        def c_step(tables, st, rays, active, t_max, t_min, prev, nxt, shadow):
+        def c_step(tables, st, rays, active, t_max, t_min, prev, nxt, shadow, **kw):
             self._mode(f"instance_step {'shadow' if shadow else 'closest'}")
             before = _clone(st)
             args = (tables, before, rays, active, t_max, t_min, prev, nxt, shadow)
             middle = prev is not None and nxt is not None
             if self.keep and middle and "instance_step" not in self.kept:
                 self.kept["instance_step"] = (tables, st, *args[2:])
+                # the lanes whose last launch the step merges (an older
+                # package's closest scan kept no flags: every lane)
+                self.kept["instance_step_touched"] = (int(before["touches"].sum())
+                                                      if "touches" in before else None)
             want = trace.instance_step_reference(*args)
-            got = saved["instance_step"](tables, st, *args[2:])
+            got = saved["instance_step"](tables, st, *args[2:], **kw)
             self._compare("instance_step", {k: got[k] for k in want}, want)
             return got
 
@@ -363,9 +367,11 @@ def time_kept(kept: dict) -> dict:
             args = kept["instance_step"]
             active, t_max, nxt, shadow = args[3], args[4], args[7], args[8]
             n = active.shape[0]
+            touched = kept.get("instance_step_touched")
+            touched = {"touched": touched} if touched is not None else {}
             nbytes = trace.instance_step_bytes(
                 n, first=False, prev=True, nxt=True, shadow=shadow,
-                t_max_lanes=isinstance(t_max, torch.Tensor), t_lo=False)
+                t_max_lanes=isinstance(t_max, torch.Tensor), t_lo=False, **touched)
             copies = _copies(args, nbytes)
             out["instance_step"] = {  # the plain version writes over no state
                 "ms": _cold_ms(trace.instance_step, copies),

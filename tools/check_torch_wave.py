@@ -8,13 +8,17 @@ waves.
 Run from the root of a checkout.  For each config, the first wave
 ``render_image`` would run is rendered once, eagerly
 (``graphs._graphs_preferred`` patched off, so every call runs its Python),
-with the two wrappers of ``ops/wave.py`` wrapped (:class:`Compare`): each
-call launches its kernel and, on the same inputs, runs its plain version
-(the alpha commit, which finishes the traversal's raw hit on the pending
-lanes: on a copy of the resample loop's state, which the kernel writes
-over, against ``alpha_pass_reference``, the plain finish and commit), and
-every field of the two results is compared lane by lane, the count of
-pending lanes the commit leaves in its control block too.  A float lane that differs is class
+with the three wrappers of ``ops/wave.py`` a wave calls wrapped
+(:class:`Compare`): each call launches its kernel and, on the same inputs,
+runs its plain version (the alpha commit, which finishes the traversal's
+raw hit on the pending lanes: on a copy of the resample loop's state, which
+the kernel writes over, against ``alpha_pass_reference``, the plain finish
+and commit; the wave's tail, ``wave_sum``, on copies of the band's sum and
+the frame's ray counter, which it adds into), and every field of the two
+results is compared lane by lane, the count of pending lanes the commit
+leaves in its control block too.  The configs are the smoke's
+(``tools/check_torch_shade.py``'s, the instanced alpha gallery) and
+``cfg4_gate``, bench cfg4's gate crop under its HDR sky.  A float lane that differs is class
 ``i`` when both sides are finite and at most 4 ulps apart, else class
 ``ii`` (a fault), as is any integer or flag that differs
 (``tools/check_torch_shade.py``'s rule).  On the CPU both sides are the
@@ -31,8 +35,8 @@ inputs that span ``check_torch_trace.COLD_BYTES``, four times the card's L2
 (the commit, which writes over its state: each on its own copy, every copy
 restored and the L2 flushed by a ``COLD_BYTES`` write before each timed
 replay, :func:`_commit_ms`), against its plain version eagerly, with its
-bytes bound (``wave.primary_rays_bytes``, ``wave.alpha_commit_bytes``) at
-the card's memory rate.  Then every alpha pass of the wave is timed so,
+bytes bound (``wave.primary_rays_bytes``, ``wave.alpha_commit_bytes``,
+``wave.wave_sum_bytes``) at the card's memory rate.  Then every alpha pass of the wave is timed so,
 with its pending lanes and its bound: the ``alpha_passes`` table, whose
 ``lost_us`` is the time above the bounds, summed over the wave.
 
@@ -63,10 +67,10 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-KERNELS = ("primary_rays", "alpha_commit")
+KERNELS = ("primary_rays", "alpha_commit", "wave_sum")
 FIRST = 8  # differing lanes listed per config
 CONFIGS = ("cfg1", "cfg2", "cfg3", "cfg4", "cfg5", "gltf147k", "textured", "soup", "gallery",
-           "alpha_gallery")
+           "alpha_gallery", "cfg4_gate")
 #: The synthetic passes' pending shares (None: one lane) and lane counts
 #: (:func:`synthetic`); the last count is timed on a card.
 PENDING_SHARES = (0.0, None, 0.01, 1.0)
@@ -76,7 +80,8 @@ SYNTHETIC_LANES = (1, 1025, 524287, 524288)
 class Compare:
     """Inside, each wave wrapper launches its kernel and, on the same
     inputs, runs its plain version; :attr:`lanes` collects each differing
-    lane's first differing field of each call."""
+    lane's first differing field of each call; :attr:`calls` counts each
+    kernel's launches (a repacked wave's tail is two)."""
 
     def __init__(self, keep: bool = False):
         self.lanes = []  # {"kernel", "call", "lane", "field", "ulps", "class"}
@@ -124,8 +129,8 @@ class Compare:
         from vulkan_raytracer_tpu_torch.render import graphs
 
         saved = (wave.primary_rays, wave.alpha_commit, graphs._graphs_preferred,
-                 trace.hit_finish)
-        rays, commit, _, finish = saved
+                 trace.hit_finish, getattr(wave, "wave_sum", None))
+        rays, commit, _, finish, tail = saved
 
         def c_rays(*args):
             if self.keep and "primary_rays" not in self.kept:
@@ -163,6 +168,20 @@ class Compare:
             self._compare("alpha_commit", (st, count.reshape(1)),
                           (want, want["pending"].sum().reshape(1)))
 
+        def c_sum(tables, s, repack, total, frame_rays, rays, k):
+            from check_torch_trace import _clone
+
+            args = (tables, _clone(s), repack, total.clone(), frame_rays.clone(), rays, k)
+            if self.keep and "wave_sum" not in self.kept:
+                self.kept["wave_sum"] = args
+            want_total, want_rays = _clone(args[3]), _clone(args[4])
+            want = wave.wave_sum_reference(tables, s, repack, want_total, want_rays, rays, k)
+            got = tail(tables, s, repack, total, frame_rays, rays, k)
+            self._compare("wave_sum", (got, total, frame_rays.reshape(1)),
+                          (want, want_total, want_rays.reshape(1)))
+            self.calls["wave_sum"] += bool(repack)  # the scatter, then the sum
+            return got
+
         def c_finish(tables, rays, t, hit, mode):
             self.last_finish = (tuple(c.clone() for c in rays), t.clone(), hit.clone(), mode)
             return finish(tables, rays, t, hit, mode)
@@ -171,12 +190,16 @@ class Compare:
             c_commit = c_commit_finished  # noqa: F811
             trace.hit_finish = c_finish
         wave.primary_rays, wave.alpha_commit = c_rays, c_commit
+        if tail is not None:  # an older package's tail was aten ops
+            wave.wave_sum = c_sum
         graphs._graphs_preferred = lambda tables: False
         try:
             yield self
         finally:
             (wave.primary_rays, wave.alpha_commit, graphs._graphs_preferred,
-             trace.hit_finish) = saved
+             trace.hit_finish) = saved[:4]
+            if tail is not None:
+                wave.wave_sum = tail
 
     def summary(self) -> dict:
         def count(key):
@@ -197,7 +220,8 @@ class Compare:
 def configs(tmp: Path) -> dict:
     """name -> (build the scene's tables on a device, camera, width, height,
     spp, depth): ``tools/check_torch_shade.py``'s configs and the smoke's
-    instanced alpha gallery."""
+    instanced alpha gallery, and bench cfg4's gate crop (16x16, 2 spp,
+    depth 3 under its HDR sky)."""
     import chip_smoke
     from check_torch_shade import configs as shade_configs
 
@@ -205,6 +229,8 @@ def configs(tmp: Path) -> dict:
     out["alpha_gallery"] = (
         lambda device: chip_smoke.alpha_gallery_scene().upload(device, instancing=True),
         chip_smoke.TEXTURED_CAM, 128, 128, 16, 4)
+    build, cam = out["cfg4"][:2]
+    out["cfg4_gate"] = (build, cam, 16, 16, 2, 3)
     return out
 
 
@@ -299,6 +325,18 @@ def time_kept(kept: dict, reps: int = 20, plain_reps: int = 3) -> dict:
                 "ms": _cold_ms(wave.primary_rays, copies, reps),
                 "plain_ms": _plain_ms(wave.primary_rays_reference, copies, plain_reps),
                 "bytes": nbytes, "lanes": lanes.shape[0] * samples.shape[0]}
+        if "wave_sum" in kept:
+            args = kept["wave_sum"]
+            tables, s, repack, _, _, _, k = args
+            lanes = s["active"].shape[0]
+            env = tables.skybox
+            nbytes = wave.wave_sum_bytes(lanes // k, k, repack, env.h * env.w)
+            copies = _copies(args, nbytes)
+            out["wave_sum"] = {
+                "ms": _cold_ms(wave.wave_sum, copies, reps),
+                "plain_ms": _plain_ms(wave.wave_sum_reference, copies, plain_reps),
+                "bytes": nbytes, "lanes": lanes, "samples": k, "repack": bool(repack),
+                "sky_texels": env.h * env.w}
         if "alpha_commit" in kept:
             tables, before, raw, want = kept["alpha_commit"]
             out["alpha_commit"] = {
@@ -374,7 +412,7 @@ def check_config(name: str, spec, device, tables=None, timing: bool = False) -> 
     t0 = time.perf_counter()
     with Compare(keep=timing).on() as cmp:
         radiance, rays = wave(tables, camera, width, height, depth, lanes, samples)()
-    launched = {k: wave_ops.LAUNCHES[k] - before[k] for k in KERNELS}
+    launched = {k: wave_ops.LAUNCHES.get(k, 0) - before.get(k, 0) for k in KERNELS}
     if device.type == "cuda" and launched != cmp.calls:
         raise AssertionError(f"{name}: {cmp.calls} wave kernel calls, but {launched} launches")
     line = {"config": name, "lanes": len(lanes) * len(samples), "launches": launched,

@@ -14,7 +14,8 @@ with 4 dragons of 712 triangles, each a BLAS (``DENSE_MAX_TRIS`` shrunk to
 lanes, sample 1) on CPU tables under a ``TorchDispatchMode`` and counts the
 aten ops that launch a kernel on a card (views, allocations and the host's
 scalar wrappers aside), each hand-written kernel's plain version, and each
-of ``ops/wave.py``'s wrappers, as one launch.  Prints one JSON line: kernels
+of ``ops/wave.py``'s wrappers, as one launch (the wave's tail on a
+repacked wave as its two).  Prints one JSON line: kernels
 per wave, per bounce (from a depth-0 wave against the asked depth), per
 alpha resample pass (the most one pass issued), per instance step (the
 instanced scene's kernels between two steps, the most one issued), the
@@ -134,6 +135,18 @@ def count(size: int, depth: int, scene: str = "cornell") -> dict:
             continue
         if hasattr(m, name):
             setattr(m, name, one_launch(getattr(m, name), f"{mod}.{name}"))
+    from vulkan_raytracer_tpu_torch.ops import wave
+
+    if hasattr(wave, "wave_sum"):  # the wave's tail: a repacked wave's is two launches
+        tail = one_launch(wave.wave_sum, "wave.wave_sum")
+
+        def counted_tail(tables, s, repack, *args):
+            out = tail(tables, s, repack, *args)
+            if repack:
+                mode.add("wave.wave_sum")
+            return out
+
+        wave.wave_sum = counted_tail
     passes = []
     alpha_pass = integrator._alpha_pass
 

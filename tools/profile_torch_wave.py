@@ -45,7 +45,11 @@ repack patched off too (``unsorted``):
    unsorted, unsorted, eager, replay, device, ...): the wall of each,
    CUDA-synchronised, and the radiance, which must be bit-equal between the
    sides, with equal rays, equal launches per kernel (the unsorted side's
-   without the re-sort's key and permutation), equal bounce widths
+   without the re-sort's key and permutation and the wave's tail, one
+   launch there and two repacked; on an instanced scene the
+   program sides' instance launches that their IF nodes skipped counted in,
+   as the eager side launches every instance: ``walks`` has the IFs and
+   those skipped per side), equal bounce widths
    and, on an alpha scene (gltf, textured), equal alpha-loop counts;
 3. each side once with ``torch.cuda.set_sync_debug_mode("warn")``: the
    host synchronisations of the wave, the harness's included (its
@@ -120,8 +124,9 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT_KERNELS = ("closest_kernel", "shadow_kernel", "pdf_kernel", "bvh_walk_kernel",
                 "treelet_walk_kernel", "emissive_walk_kernel", "shade_hit_kernel",
                 "shade_scatter_kernel", "shade_resolve_kernel", "primary_rays_kernel",
-                "alpha_commit_kernel", "hit_finish_kernel", "instance_step_kernel",
-                "coherence_key_kernel", "permute_kernel", "loop_cond_kernel")
+                "alpha_commit_kernel", "wave_sum_kernel", "frame_post_kernel",
+                "hit_finish_kernel", "instance_step_kernel", "coherence_key_kernel",
+                "permute_kernel", "loop_cond_kernel")
 #: each launch counter (``LAUNCHES`` of ops/dense.py, ops/traverse.py,
 #: ops/shade.py, ops/wave.py, ops/trace.py and render/graphs.py) -> the kernel whose
 #: launches it counts, by the name the trace gives it
@@ -131,6 +136,7 @@ KERNEL_OF = {"closest": "closest_kernel", "shadow": "shadow_kernel", "pdf": "pdf
              "emissive_pdf": "emissive_walk_kernel", "hit": "shade_hit_kernel",
              "scatter": "shade_scatter_kernel", "resolve": "shade_resolve_kernel",
              "primary_rays": "primary_rays_kernel", "alpha_commit": "alpha_commit_kernel",
+             "wave_sum": "wave_sum_kernel", "frame_post": "frame_post_kernel",
              "hit_finish": "hit_finish_kernel", "instance_step": "instance_step_kernel",
              "coherence_key": "coherence_key_kernel", "permute": "permute_kernel",
              "permute_copy": "permute_kernel",
@@ -147,12 +153,13 @@ CONFIGS = {
     "soup": ("emitter_soup", [0.0, 1.0, 2.4], [0.0, 0.0, -1.0]),
     "cfg5": ("multi", [-9.0, 2.0, 1.5], [1.0, -0.1, -0.15]),
     "alpha_gallery": ("alpha_gallery", [0.0, 0.0, 2.8], [0.0, 0.0, -1.0]),
+    "cfg4": ("hall_sky", [-9.0, 1.8, 0.0], [1.0, 0.0, 0.0]),
 }
 #: config -> (width, height, spp, depth) of its render
 FRAMES = {"cfg1": (512, 512, 64, 4), "cfg2": (512, 512, 4, 4), "gltf": (512, 512, 4, 4),
           "textured": (512, 512, 16, 4), "instanced": (512, 512, 4, 4),
           "soup": (512, 512, 4, 4), "cfg5": (1920, 1080, 8, 8),
-          "alpha_gallery": (128, 128, 16, 4)}
+          "alpha_gallery": (128, 128, 16, 4), "cfg4": (960, 540, 8, 4)}
 
 
 def _scene(name: str):
@@ -164,6 +171,10 @@ def _scene(name: str):
         return BUILTIN_SCENES[name]()
     if name == "multi":
         return procedural.multi_scene()
+    if name == "hall_sky":  # bench cfg4's scene
+        from vulkan_raytracer_tpu_torch import bench
+
+        return bench._hall_sky()
     if name in ("gallery", "emitter_soup", "alpha_gallery"):
         import chip_smoke
 
@@ -540,17 +551,35 @@ def _patch(g, loops, rule) -> None:
     integrator._repack_preferred = rule
 
 
-#: the re-sort's kernels, which the unsorted side does not launch
-RESORT = ("coherence_key", "permute")
+#: the re-sort's kernels, which the unsorted side does not launch, and the
+#: wave's tail, which a repacked wave launches twice (its scatter, its sum)
+#: and the unsorted side once
+RESORT = ("coherence_key", "permute", "wave_sum")
 
 
 def _launches(resort: bool = True) -> dict:
     """The hand-written kernels' launches, which every side shares (the
-    unsorted side those of the re-sort apart: ``resort`` False)."""
+    unsorted side those of the re-sort apart: ``resort`` False), with the
+    instance launches a program's IF nodes skipped counted in, as the eager
+    side launches every instance (in a checkout without those IFs, the
+    launches alone)."""
+    import inspect
+
     from vulkan_raytracer_tpu_torch.render import integrator
 
-    return {k: n for d in integrator.launch_counts(loops=False).values() for k, n in d.items()
-            if resort or k not in RESORT}
+    kw = ({"skipped": True} if "skipped" in inspect.signature(integrator.launch_counts).parameters
+          else {})
+    return {k: n for d in integrator.launch_counts(loops=False, **kw).values()
+            for k, n in d.items() if resort or k not in RESORT}
+
+
+def _walks() -> dict:
+    """The instance launches behind IF nodes since the last reset, and those
+    skipped (none in a checkout without those IFs)."""
+    from vulkan_raytracer_tpu_torch.render import graphs
+
+    return {"walks": graphs.STATS.get("walks", 0),
+            "walks_skipped": graphs.STATS.get("walks_skipped", 0)}
 
 
 def _widths() -> dict:
@@ -588,7 +617,9 @@ def program_nodes(cache) -> dict:
     its body (a WHILE's ``then`` IF's too, where the checkout has one), and
     the test nodes, each node's entry tests and each WHILE's closing tests
     but a resample loop's whose passes test themselves (a condition with a
-    control block ``word``)."""
+    control block ``word``); an instance launch's IF (role ``walk``) has no
+    test, its step sets it: ``walk_ifs`` counts its tests, ``walks_skipped``
+    those that skipped the launch."""
     from vulkan_raytracer_tpu_torch.render import graphs
 
     out = []
@@ -608,15 +639,20 @@ def program_nodes(cache) -> dict:
                     n += parts(then.body, rows[then.row][0])
             return n
 
-        tests = 0
+        tests = walk_ifs = walks_skipped = 0
         for node in program.conds:
+            runs, entries = rows[node.row][:2]
+            if node.role == "walk":
+                walk_ifs += entries
+                walks_skipped += entries - runs
+                continue
             if node.cond is None:
                 continue
-            runs, entries = rows[node.row][:2]
             closing = node.kind == "while" and getattr(node.cond, "word", None) is None
             tests += entries + (runs if closing else 0)
         part_nodes = parts(program.nodes, 1)
-        out.append({"part_nodes": part_nodes, "test_nodes": tests, "nodes": part_nodes + tests})
+        out.append({"part_nodes": part_nodes, "test_nodes": tests, "nodes": part_nodes + tests,
+                    "walk_ifs": walk_ifs, "walks_skipped": walks_skipped})
     return out
 
 
@@ -662,7 +698,7 @@ def main(argv=None) -> int:
         del sides["unsorted"]
     walls = {name: [] for name in sides}
     program_ms = []  # the device side's program, CUDA-event timed in the unprofiled reps
-    radiance, rays, launches, loops, widths = {}, {}, {}, {}, {}
+    radiance, rays, launches, loops, widths, walks = {}, {}, {}, {}, {}, {}
     try:
         graphs.reset_stats()
         for name, patch in sides.items():  # warm up: kernels build, the program captures
@@ -670,6 +706,7 @@ def main(argv=None) -> int:
             _reset()
             radiance[name], rays[name] = _timed(run)[1:]
             launches[name], loops[name], widths[name] = _launches(), _alpha_loop(), _widths()
+            walks[name] = _walks()
         captures = {**graphs.STATS, "programs": len(graphs.cache(tables).graphs),
                     "pool_bytes": graphs.cache(tables).pool_bytes(),
                     "mirror_bytes": graphs.cache(tables).mirror_bytes(),
@@ -678,7 +715,7 @@ def main(argv=None) -> int:
         if args.nodes:
             line = json.dumps({"config": args.config, "root": args.root, "nvidia_smi": smi,
                                "program_nodes": captures["program_nodes"],
-                               "launches": launches["device"]})
+                               "launches": launches["device"], "walks": walks["device"]})
             print(line, flush=True)
             if args.out:
                 Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -749,7 +786,7 @@ def main(argv=None) -> int:
         "nvidia_smi": smi, "torch": torch.__version__, "root": args.root,
         "repack_preferred": rule(tables), "bands": bands, "pixels": len(lanes),
         "samples": samples, "lanes": len(lanes) * len(samples), "rays": rays["device"],
-        "launches": launches["device"], "captures": captures,
+        "launches": launches["device"], "captures": captures, "walks": walks,
         "radiance_finite": bool(torch.isfinite(radiance["device"]).all()),
         "radiance_bit_equal": True, "sides": out_sides,
     }

@@ -23,7 +23,7 @@ For a scene, :func:`diagnose`:
    lane's radiance (a lane is one (pixel, sample)), and lists the pixels whose
    linear value differs by more than 1e-6 in any channel;
 2. renders only those pixels again on both devices with ``integrator._bounce``,
-   ``shade.shade_hit`` and ``integrator._radiance`` wrapped (the module's
+   ``shade.shade_hit`` and ``wave.wave_sum`` wrapped (the module's
    attributes, restored afterwards), keeping every lane's state at each
    bounce (``origin``, ``direction``, ``throughput``, ``value``, ``seed``,
    ``active``, ``mat_pdf``, ``wavelength``, ``sky_w``), the hit's ``tri`` and
@@ -156,12 +156,12 @@ class Record:
         """Record the renders inside; with ``bounces`` they run eagerly
         (``graphs._graphs_preferred`` patched off): a replayed graph runs no
         Python, so its bounces could not be recorded."""
-        from vulkan_raytracer_tpu_torch.ops import shade
+        from vulkan_raytracer_tpu_torch.ops import shade, wave
         from vulkan_raytracer_tpu_torch.render import graphs, integrator
 
         saved = (integrator.Waves.run, integrator._bounce, shade.shade_hit,
-                 integrator._radiance, graphs._graphs_preferred)
-        run, bounce, shade_hit, radiance, _ = saved
+                 wave.wave_sum, graphs._graphs_preferred)
+        run, bounce, shade_hit, wave_sum, _ = saved
 
         def rec_run(waves, first, k, pixel_order=False):
             self._keys = _lane_keys(waves.lanes, first, k)
@@ -188,22 +188,22 @@ class Record:
             self._hit = {"tri": _np(tri), "t": _np(t)}
             return shade_hit(tables, s, b, max_depth, t, tri, u, v)
 
-        def rec_radiance(tables, s):
+        def rec_wave_sum(tables, s, *args):
             lanes, state = self._lanes(s), self._state(s)
             for i, key in enumerate(lanes):
                 self.final[key] = {k: v[i] for k, v in state.items()}
-            return radiance(tables, s)
+            return wave_sum(tables, s, *args)
 
         integrator.Waves.run = rec_run
         if self.bounces:
             integrator._bounce, shade.shade_hit = rec_bounce, rec_shade_hit
-            integrator._radiance = rec_radiance
+            wave.wave_sum = rec_wave_sum
             graphs._graphs_preferred = lambda tables: False
         try:
             yield self
         finally:
             (integrator.Waves.run, integrator._bounce, shade.shade_hit,
-             integrator._radiance, graphs._graphs_preferred) = saved
+             wave.wave_sum, graphs._graphs_preferred) = saved
 
 
 @contextlib.contextmanager
@@ -528,7 +528,7 @@ def _step_runner(rec: Record, key, diff, frame_args):
     """A function that runs again, for lane ``key`` alone on the given
     tables, the step whose result first differed, and returns that result's
     field ``diff["field"]`` as numpy; and the value ``rec`` holds for it."""
-    from vulkan_raytracer_tpu_torch.ops import shade
+    from vulkan_raytracer_tpu_torch.ops import shade, wave
     from vulkan_raytracer_tpu_torch.render import integrator, renderer
 
     cam, width, height, depth = frame_args
@@ -538,7 +538,7 @@ def _step_runner(rec: Record, key, diff, frame_args):
         final = rec.final[key]
 
         def run(tables):
-            return _np(integrator._radiance(tables, _lane_state(final, tables.device)))[0]
+            return _np(wave.radiance_reference(tables, _lane_state(final, tables.device)))[0]
 
         return run, rec.radiance[key]
     if field in HIT_FIELDS:

@@ -31,7 +31,12 @@
 // in the body (the next bounce's re-sort, which so has no test of its own).
 // A resample loop's body ends with no test: its pass's commit
 // (alpha_commit_kernel, csrc/wave.cu) counts the lanes it leaves pending and
-// sets the loop's condition.  The handle exists only once the parts are
+// sets the loop's condition.  Likewise an instance's launch (the JAX scan's
+// lax.cond(jnp.any(touches)), ops/instanced.py:229, :314) is an IF with no
+// test node: the instance's step (instance_step_kernel, csrc/trace.cu)
+// counts the lanes that touch its box and sets it; those IFs' control blocks
+// are armed with their handles and rows by a copy at the parent graph's
+// start (copy_words_kernel) and disarmed at its end.  The handle exists only once the parts are
 // stitched, after PyTorch captured the pass, so the loop's entry test writes
 // it, and the address of the node's row, into the loop's control block, which
 // the commit reads; the commit clears the row's address when the loop ends,
@@ -129,6 +134,15 @@ __global__ void __launch_bounds__(kTestThreads) loop_cond_kernel(const __grid_co
     t.arm[1] = static_cast<long long>(t.handle);
     t.arm[2] = reinterpret_cast<long long>(t.row);
   }
+}
+
+// Copies n int64 words from src to dst, or zeroes them where src is null:
+// the arming and disarming of the instance launches' IF control blocks
+__global__ void __launch_bounds__(kTestThreads) copy_words_kernel(long long* dst,
+                                                                  const long long* src,
+                                                                  long long n) {
+  const long long i = static_cast<long long>(blockIdx.x) * kTestThreads + threadIdx.x;
+  if (i < n) dst[i] = src ? src[i] : 0;
 }
 
 bool allowed(cudaGraphNodeType type) {
@@ -260,6 +274,26 @@ int graph_loops_add_test(void* graph, void** tail, const LoopTest* test) {
   p.func = reinterpret_cast<void*>(loop_cond_kernel);
   p.gridDim = dim3(static_cast<unsigned int>(
       chunks > 0 ? (chunks + kTestThreads - 1) / kTestThreads : 1));
+  p.blockDim = dim3(kTestThreads, 1, 1);
+  p.sharedMemBytes = 0;
+  p.kernelParams = args;
+  p.extra = nullptr;
+  cudaGraphNode_t dep = static_cast<cudaGraphNode_t>(*tail);
+  cudaGraphNode_t node;
+  cudaError_t err = cudaGraphAddKernelNode(&node, static_cast<cudaGraph_t>(graph),
+                                           dep ? &dep : nullptr, dep ? 1 : 0, &p);
+  if (err == cudaSuccess) *tail = node;
+  return static_cast<int>(err);
+}
+
+// Appends a copy of n int64 words from src to dst (zeroes where src is null)
+// to `graph` after *tail: a kernel node (copy_words_kernel).
+int graph_loops_add_copy(void* graph, void** tail, long long* dst, const long long* src,
+                         long long n) {
+  void* args[] = {&dst, &src, &n};
+  cudaKernelNodeParams p = {};
+  p.func = reinterpret_cast<void*>(copy_words_kernel);
+  p.gridDim = dim3(static_cast<unsigned int>(n > 0 ? (n + kTestThreads - 1) / kTestThreads : 1));
   p.blockDim = dim3(kTestThreads, 1, 1);
   p.sharedMemBytes = 0;
   p.kernelParams = args;

@@ -1,7 +1,8 @@
-// A loop's test made by the kernel that makes its count: shared by
-// loop_cond_kernel (csrc/graph_loops.cu), which counts a column of lane
-// flags, and alpha_commit_kernel (csrc/wave.cu), which counts the lanes a
-// resample pass leaves pending.
+// A loop's or an IF's test made by the kernel that makes its count: shared
+// by loop_cond_kernel (csrc/graph_loops.cu), which counts a column of lane
+// flags, alpha_commit_kernel (csrc/wave.cu), which counts the lanes a
+// resample pass leaves pending, and instance_step_kernel (csrc/trace.cu),
+// which counts the lanes that touch the next instance's box.
 //
 // Every block of such a kernel adds its own count and one block ticket into
 // one 64-bit word with a single atomicAdd: the high 32 bits count the blocks

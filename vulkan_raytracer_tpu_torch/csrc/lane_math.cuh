@@ -20,6 +20,7 @@
 
 constexpr double kPi = 3.14159265358979323846;
 #define PIINV K(1.0 / kPi)
+#define TWOPIINV K(0.5 / kPi)
 #define TWOPI K(2.0 * kPi)
 #define TINY K(1e-20)
 #define BIAS K(1e-3)

@@ -19,7 +19,10 @@
 //                           :279-317): the last launch's result merged into the
 //                           running closest hit (or occlusion), then the next
 //                           instance's box test, its object-space rays and its
-//                           launch's bounds
+//                           launch's bounds; in a program also the count of
+//                           lanes that touch the box, which sets the IF node
+//                           around the instance's launch (jnp.any(touches) of
+//                           the lax.cond at :229, :314)
 //   coherence_key_kernel <- _coherence_key (render/integrator.py:316-349): dead,
 //                           direction octant and the Morton cell of the origin
 //                           over 64 cells an axis of the root bounds, one int32
@@ -79,6 +82,7 @@
 // Launches go on the caller's stream; nothing here synchronises or
 // allocates.  Each launcher returns cudaGetLastError().
 
+#include "graph_test.cuh"
 #include "hit_finish.cuh"
 
 namespace {
@@ -102,8 +106,9 @@ enum Slot {
   // (inv_d as an (n, 3) block), the next launch's rays and bounds
   X_ACTIVE, X_TMAX, S_INV, S_TBEST, S_ENC, S_OCC, S_TOUCH,
   N_OX, N_OY, N_OZ, N_DX, N_DY, N_DZ, N_TLO, N_TINIT,
-  // the next instance's 12 world->object values and its box; the last one's id
-  X_M, X_BMIN, X_BMAX, X_IID,
+  // the next instance's 12 world->object values and its box; the last one's id;
+  // the next launch's IF control block (null but in a program)
+  X_M, X_BMIN, X_BMAX, X_IID, X_IF,
   // coherence_key_kernel: the root bounds (3 floats each), the lanes, the key
   K_LO, K_HI, K_ACTIVE, K_KEY,
   // the scene's tables: the vertices, a BVH's slot -> triangle, the
@@ -125,6 +130,12 @@ enum Real { F_TMIN, F_TMAX, kReals };
 
 // permute_kernel's modes
 enum Permute { kGather, kScatter, kCopy };
+
+// An instance launch's IF control block, four int64 (ops/wave.py LOOP_WORDS,
+// the resample loops' layout): the count's accumulator and block ticket, the
+// IF's conditional handle and the address of its row of counters (0: not
+// armed), and the count the step left.
+enum IfWord { kIfWord, kIfHandle, kIfRow, kIfCount };
 
 struct Args {
   void* p[kSlots];
@@ -217,10 +228,10 @@ __global__ void __launch_bounds__(kThreads) hit_finish_kernel(const __grid_const
   v_out[i] = v;
 }
 
-// One step of an instance scan: merge the last launch, prepare the next
-__global__ void __launch_bounds__(kThreads) instance_step_kernel(const __grid_constant__ Args a) {
-  const long long i = lane_index();
-  if (i >= a.i[I_N]) return;
+// One lane of an instance step: the last launch merged, where the lane
+// touched its instance's box, then the next instance prepared; returns
+// whether the lane touches the next instance's box
+__device__ __forceinline__ bool instance_step_lane(const Args& a, long long i) {
   const bool shadow = a.i[I_SHADOW], first = a.i[I_FIRST];
   const bool active = col<const uint8_t>(a, X_ACTIVE)[i];
   const float t_max = a.p[X_TMAX] ? col<const float>(a, X_TMAX)[i] : a.f[F_TMAX];
@@ -248,11 +259,12 @@ __global__ void __launch_bounds__(kThreads) instance_step_kernel(const __grid_co
       enc = col<const int>(a, S_ENC)[i];
     }
   }
-  if (a.i[I_PREV]) {  // the last instance's launch
+  // the last instance's launch, read only where the lane touched its box: a
+  // launch that no lane touched may not have run (an IF node skipped it)
+  if (a.i[I_PREV] && col<const uint8_t>(a, S_TOUCH)[i]) {
     const int hit = col<const int>(a, H_HIT)[i];
     if (shadow) {  // K2's flag, or a BLAS walk's slot
-      const bool h = a.i[I_PREV_BLAS] ? hit >= 0 : hit != 0;
-      occ = occ | (h & (col<const uint8_t>(a, S_TOUCH)[i] != 0));
+      occ = occ | (a.i[I_PREV_BLAS] ? hit >= 0 : hit != 0);
     } else {  // strictly closer: the first instance in DFS order keeps a tie
       const int local = !a.i[I_PREV_BLAS] ? hit : (hit >= 0 ? col<const int>(a, T_TRIID)[hit] : -1);
       const float t_n = col<const float>(a, H_T)[i];
@@ -272,7 +284,7 @@ __global__ void __launch_bounds__(kThreads) instance_step_kernel(const __grid_co
     col<float>(a, S_TBEST)[i] = t_best;
     col<int>(a, S_ENC)[i] = enc;
   }
-  if (!a.i[I_NEXT]) return;
+  if (!a.i[I_NEXT]) return false;
   // the next instance: its box against the bound, its object-space rays and
   // its launch's initial bound (dead lanes: 0 for K1/K2, -1 for a walk)
   const float* m = col<const float>(a, X_M);
@@ -281,7 +293,7 @@ __global__ void __launch_bounds__(kThreads) instance_step_kernel(const __grid_co
   const bool live = shadow ? active & !occ : active;
   const bool touches = live && ray_box(o, inv, col<const float>(a, X_BMIN),
                                        col<const float>(a, X_BMAX), bound);
-  if (shadow) col<uint8_t>(a, S_TOUCH)[i] = touches;
+  col<uint8_t>(a, S_TOUCH)[i] = touches;
   const V3 o2 = affine(m, o), d2 = linear(m, ray_d(a, i));
   col<float>(a, N_OX)[i] = o2.x;
   col<float>(a, N_OY)[i] = o2.y;
@@ -290,6 +302,30 @@ __global__ void __launch_bounds__(kThreads) instance_step_kernel(const __grid_co
   col<float>(a, N_DY)[i] = d2.y;
   col<float>(a, N_DZ)[i] = d2.z;
   col<float>(a, N_TINIT)[i] = touches ? bound : (a.i[I_NEXT_BLAS] ? -1.0f : 0.0f);
+  return touches;
+}
+
+// One step of an instance scan: merge the last launch, prepare the next and,
+// given the next launch's IF control block (X_IF, four int64: the count's
+// accumulator and block ticket, the IF's handle and the address of its row
+// where the program armed the block on the card, and the count), count the
+// lanes that touch the next instance's box: the grid's last block leaves the
+// count, keeps the IF node's row and sets its condition, so a launch that no
+// lane touches does not run (csrc/graph_test.cuh)
+__global__ void __launch_bounds__(kThreads) instance_step_kernel(const __grid_constant__ Args a) {
+  const long long i = lane_index();
+  const bool touches = i < a.i[I_N] && instance_step_lane(a, i);
+  unsigned long long* word = col<unsigned long long>(a, X_IF);
+  if (word == nullptr || !a.i[I_NEXT]) return;
+  long long total;
+  if (!last_block(&word[kIfWord], block_sum(touches), total)) return;
+  word[kIfCount] = static_cast<unsigned long long>(total);
+  long long* row = reinterpret_cast<long long*>(word[kIfRow]);
+  if (row == nullptr) return;  // not armed: a replayed step, whose host reads the flags
+  const bool go = total > 0;
+  keep_row(row, true, go);
+  cudaGraphSetConditional(static_cast<cudaGraphConditionalHandle>(word[kIfHandle]),
+                          go ? 1u : 0u);
 }
 
 // The re-sort key: dead << 30 | octant << 27 | morton << 9

@@ -1,9 +1,10 @@
 // The wave's own kernels for Hopper (sm_90a): its primary rays and initial
-// state, and the finish, test and commit of one alpha resample pass.
+// state, the finish, test and commit of one alpha resample pass, the wave's
+// tail (its deferred sky and its sum), and the frame's post-processing.
 //
-// Replaces two pieces of what XLA makes of the JAX package's jit'd wave
-// (vulkan_raytracer_tpu/render/renderer.py:52-88, render/integrator.py), each
-// an XLA fusion and not a Pallas kernel:
+// Replaces what XLA makes of the JAX package's jit'd wave and frame
+// (vulkan_raytracer_tpu/render/renderer.py:52-88, :244-292,
+// render/integrator.py), each an XLA fusion and not a Pallas kernel:
 //   primary_rays_kernel <- generate_primary_rays (integrator.py:403-442) and the
 //                          initial state of render_sample (:936-960): the lane's
 //                          pixel and sample, the TEA seed, the jitter, the camera
@@ -17,10 +18,22 @@
 //                          accepted hit, the lower bound past a rejected one,
 //                          the lanes still pending, and the loop's next test
 //                          (:192-193, the while_loop's cond)
-// The plain PyTorch versions are primary_rays_reference and
-// alpha_pass_reference in ops/wave.py: the port's generate_primary_rays, its
-// state build, and hit_finish_reference then alpha_commit_reference
-// (_alpha_test and the loop body's commit), regrouped.
+//   wave_sum_kernel     <- the deferred skybox fetch after the bounce loop
+//                          (:1128-1137, ops/texture.py:170 sample_equirect), the
+//                          repacked wave's scatter to its lanes' slots and the
+//                          wave's sum over its samples into the band's sum
+//                          (renderer.py:79-80, :109) with its rays
+//   frame_post_kernel   <- _postprocess (renderer.py:244-251) with the headless
+//                          frame's scatter to pixel order, and _frame_step's tail
+//                          (:259-292): accumulate, divide, tonemap, quantise,
+//                          decimate to the display's cells
+// The plain PyTorch versions are primary_rays_reference,
+// alpha_pass_reference, wave_sum_reference, frame_image_reference and
+// frame_progressive_reference in ops/wave.py: the port's
+// generate_primary_rays, its state build, hit_finish_reference then
+// alpha_commit_reference (_alpha_test and the loop body's commit), the
+// integrator's _radiance, index_copy_ and _add_wave, and the renderer's
+// _postprocess and _frame_step tail, regrouped.
 //
 // Design.  primary_rays_kernel: one thread per lane, 256 lanes a block, no
 // shared memory.  It reads the wave from the device: the sample numbers
@@ -54,18 +67,53 @@
 // that read the next lane's flag ahead with the small tables staged in
 // shared memory; PERF.md, PR 19.)
 //
+// wave_sum_kernel: a lane's radiance is its gathered value plus its sky
+// weight times the equirect sky at its direction (four corner fetches from
+// the map's r, g and b columns, the strength read from the device).  On a
+// wave in lane order one launch runs a thread a pixel: it works the pixel's
+// k lanes (samples-major: lane j * n + p), writes each lane's radiance and
+// adds their sum, sample 0 first, into the band's sum.  On a repacked wave a
+// lane's output position is its slot, a permutation of the whole wave, so a
+// pixel's samples can lie anywhere: a first launch (kSumScatter) writes each
+// lane's radiance at its slot, a thread a lane, and a second (kSumAdd) adds
+// each pixel's samples, a thread a pixel.  The last launch also adds the
+// wave's rays into the frame's counter.
+//
+// frame_post_kernel, headless (kFrameImage): a thread a lane of the frame's
+// block order, which writes its pixel (lanes[i]) of the image: the sum over
+// spp, Reinhard-Jodie where asked, and the uint8 quantisation where asked.
+// Progressive (kFrameProgressive): the sample number is read from the
+// device (the (1,) int64 the wave's program read), so nothing of the launch
+// depends on it on the host.  A thread a display cell works the cell's fy x
+// fx pixels (the preview sample 0 zeroes the accumulation and shows its
+// radiance, a later one adds into it and shows the mean), tonemaps and
+// quantises each and writes the cell's integer mean; one more thread a pixel
+// that no cell shows (the rows and columns beyond disp_h * fy and disp_w *
+// fx) only accumulates.  At the frame's own size a cell is one pixel.
+//
 // What bounds them.  Bytes.  primary_rays_kernel writes 78 bytes a lane (86
 // with the repacked wave's slot) and reads 8 a pixel: ~14 us at 3.35 TB/s
 // for the 524,288 lanes of a cfg1 wave.  alpha_commit_kernel reads a
 // pending flag a lane and, on the pending lanes, the candidate and the
 // alpha tables' rows; a few bytes a lane on most passes, so a pass is
 // bound by its launch and the latency of its chain of gathers.
+// wave_sum_kernel reads 36 bytes a lane (direction, value, sky weight) and
+// writes 12 (its radiance), 8 more read on a repacked wave (the slot) and 12
+// written and read back (the scatter), and reads and writes a pixel's 12 of
+// the sum: ~10 us for a cfg1 wave; the sky's texels mostly come from L2.
+// frame_post_kernel reads 12 (headless: 20, with the lane's pixel) and writes
+// 3 or 12 bytes a pixel, the accumulation's 12 read and written on top in
+// the progressive frame.
 //
 // Numerics: those of csrc/lane_math.cuh.  x / c for a Python number c is
 // x * (1 / c) on the card (aten's division by a CPU scalar), so (px + jx) /
-// float(width) is (px + jx) * (1 / width) here; t * (1.0 + 4e-7) takes the
-// double folded before aten casts it.  Seeds are uint32; the int64 columns
-// hold them masked.
+// float(width) is (px + jx) * (1 / width) here, and so are the frame's sum
+// over spp and the progressive mean; t * (1.0 + 4e-7) takes the double
+// folded before aten casts it.  Seeds are uint32; the int64 columns hold them
+// masked.  The sky: atan2f and asinf are libdevice's, which aten's kernels
+// call; the bilinear weights in aten's order, c00 * (1 - fx) + c01 * fx, then
+// the same in y; torch.remainder is a floor-mod.  A float's cast to uint8 goes
+// through int64, as c10's does.
 //
 // Launches go on the caller's stream; nothing here synchronises or
 // allocates.  Each launcher returns cudaGetLastError().
@@ -93,14 +141,30 @@ enum Slot {
   // the scene's tables: the finish's (csrc/hit_finish.cuh), the alpha test's
   T_V0X, T_V0Y, T_V0Z, T_V1X, T_V1Y, T_V1Z, T_V2X, T_V2Y, T_V2Z, T_TRIID, T_INVFLAT,
   AL_MODE, AL_VALUE, AL_CUTOFF, T_TRIMAT, T_UV, M_TEXIDX, TEX_TEXELS, TEX_OFF, TEX_H, TEX_W,
+  // wave_sum_kernel (beside the state's S_D, S_VAL, S_SKY and S_SLOT): the sky
+  // map's r, g and b columns and its strength (0-d), the wave's rays (0-d), its
+  // radiance (n * k, 3), the band's sum (n, 3) and the frame's rays (0-d)
+  E_R, E_G, E_B, E_STRENGTH, Q_RAYS, Q_RAD, Q_SUM, Q_FRAME_RAYS,
+  // frame_post_kernel: the frame's (n, 3) sum or the sample's radiance, the
+  // lanes' pixels (headless), the accumulation and the sample number
+  // (progressive), the image (float32 or uint8)
+  F_SRC, F_LANES, F_ACCUM, F_SAMPLE, F_OUT,
   kSlots
 };
 
 // Counts and flags; ops/wave.py INTS lists the same names in the same order.
 enum Int {
   I_N, I_PIXELS, I_WIDTH, I_HEIGHT, I_PIXEL_ORDER, I_TEXTURES, I_PROTO_TRIS, I_MODE, I_NUM_INST,
+  I_K, I_SUM_MODE, I_ENV_H, I_ENV_W, I_FRAME_MODE, I_SPP, I_TONEMAP, I_UINT8, I_DISP_H, I_DISP_W,
   kInts
 };
+
+// wave_sum_kernel's launches (ops/wave.py SUM_MODES): a wave in lane order in
+// one; a repacked wave's scatter to its slots, then its sum.
+enum SumMode { kSumLanes, kSumScatter, kSumAdd };
+
+// frame_post_kernel's modes (ops/wave.py FRAME_MODES).
+enum FrameMode { kFrameImage, kFrameProgressive };
 
 // A resample loop's control block, four 64-bit words (ops/wave.py LOOP_WORDS):
 // the count's accumulator and block ticket (csrc/graph_test.cuh), the loop's
@@ -264,6 +328,188 @@ __global__ void __launch_bounds__(kThreads) alpha_commit_kernel(const __grid_con
   if (!go) loop[kLoopRow] = 0;  // the loop ends: disarmed for a replay
 }
 
+// ---------------------------------------------------------------------------
+// The wave's tail: the deferred sky and the sum
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ long long floor_mod64(long long a, long long b) {  // torch.remainder
+  long long r = a % b;
+  if (r != 0 && ((r < 0) != (b < 0))) r += b;
+  return r;
+}
+
+// Lane i's radiance: its value plus its sky weight times the equirect sky at
+// its direction (sample_equirect, then the strength)
+__device__ __forceinline__ V3 lane_radiance(const Args& a, long long i) {
+  const float dx = col<const float>(a, S_DX)[i], dy = col<const float>(a, S_DY)[i],
+              dz = col<const float>(a, S_DZ)[i];
+  const long long h = a.i[I_ENV_H], w = a.i[I_ENV_W];
+  const float u = atan2f(dz, dx) * TWOPIINV + K(0.5);
+  const float v = -(asinf(clamp(dy, K(-1.0), K(1.0))) * PIINV + K(0.5));
+  const float x = u * static_cast<float>(w) - K(0.5);
+  const float y = v * static_cast<float>(h) - K(0.5);
+  const float x0 = floorf(x), y0 = floorf(y);
+  const float fx = x - x0, fy = y - y0;
+  const float gx = 1.0f - fx, gy = 1.0f - fy;
+  const long long x0l = static_cast<long long>(x0), y0l = static_cast<long long>(y0);
+  const long long x1 = floor_mod64(x0l + 1, w), y1 = floor_mod64(y0l + 1, h);
+  const long long xa = floor_mod64(x0l, w), ya = floor_mod64(y0l, h);
+  const long long k00 = ya * w + xa, k01 = ya * w + x1, k10 = y1 * w + xa, k11 = y1 * w + x1;
+  const float strength = *col<const float>(a, E_STRENGTH);
+  float sky[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float* m = col<const float>(a, E_R + c);
+    const float top = m[k00] * gx + m[k01] * fx;
+    const float bot = m[k10] * gx + m[k11] * fx;
+    sky[c] = (top * gy + bot * fy) * strength;
+  }
+  return {col<const float>(a, S_VALX)[i] + col<const float>(a, S_SKYX)[i] * sky[0],
+          col<const float>(a, S_VALY)[i] + col<const float>(a, S_SKYY)[i] * sky[1],
+          col<const float>(a, S_VALZ)[i] + col<const float>(a, S_SKYZ)[i] * sky[2]};
+}
+
+__device__ __forceinline__ void put3(float* out, long long row, V3 v) {
+  out[3 * row] = v.x;
+  out[3 * row + 1] = v.y;
+  out[3 * row + 2] = v.z;
+}
+
+// The deferred sky, the repacked wave's scatter and the wave's sum (see the
+// note at the top); I_N threads: pixels (kSumLanes, kSumAdd) or lanes
+// (kSumScatter)
+__global__ void __launch_bounds__(kThreads) wave_sum_kernel(const __grid_constant__ Args a) {
+  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  const int mode = static_cast<int>(a.i[I_SUM_MODE]);
+  if (mode != kSumScatter && i == 0) {  // the frame's rays
+    *col<long long>(a, Q_FRAME_RAYS) += *col<const long long>(a, Q_RAYS);
+  }
+  if (i >= a.i[I_N]) return;
+  float* rad = col<float>(a, Q_RAD);
+  if (mode == kSumScatter) {  // a lane's radiance at its slot
+    put3(rad, col<const long long>(a, S_SLOT)[i], lane_radiance(a, i));
+    return;
+  }
+  const long long n = a.i[I_PIXELS];
+  V3 acc;
+  for (long long j = 0; j < a.i[I_K]; ++j) {  // the pixel's samples, sample 0 first
+    const long long lane = j * n + i;
+    V3 r;
+    if (mode == kSumLanes) {
+      r = lane_radiance(a, lane);
+      put3(rad, lane, r);
+    } else {
+      r = {rad[3 * lane], rad[3 * lane + 1], rad[3 * lane + 2]};
+    }
+    acc = j == 0 ? r : add(acc, r);
+  }
+  float* sum = col<float>(a, Q_SUM) + 3 * i;
+  sum[0] = sum[0] + acc.x;
+  sum[1] = sum[1] + acc.y;
+  sum[2] = sum[2] + acc.z;
+}
+
+// ---------------------------------------------------------------------------
+// The frame's post-processing
+// ---------------------------------------------------------------------------
+
+// Reinhard-Jodie (ops/tonemap.py reinhard_jodie) of one pixel's channels v,
+// in place
+__device__ __forceinline__ void jodie(float v[3]) {
+  const float lum = v[0] * K(0.2126) + v[1] * K(0.7152) + v[2] * K(0.0722);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float tv = v[c] / (1.0f + v[c]);
+    v[c] = (v[c] / (1.0f + lum)) * (1.0f - tv) + tv * tv;
+  }
+}
+
+// The displayed value of one pixel's channels v: tonemapped where asked,
+// then quantised (clamp, * 255 + 0.5, a cast through int64)
+__device__ __forceinline__ void shown(const Args& a, float v[3], uint8_t q[3]) {
+  if (a.i[I_TONEMAP]) jodie(v);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    q[c] = static_cast<uint8_t>(static_cast<long long>(clamp(v[c], 0.0f, 1.0f) * 255.0f + K(0.5)));
+  }
+}
+
+// A progressive pixel: the accumulation updated (zeroed by the preview
+// sample), the value shown quantised
+__device__ __forceinline__ void progressive_pixel(const Args& a, long long p, long long sample,
+                                                  uint8_t q[3]) {
+  const float* rad = col<const float>(a, F_SRC) + 3 * p;
+  float* acc = col<float>(a, F_ACCUM) + 3 * p;
+  float v[3];
+  const float inv = 1.0f / static_cast<float>(sample);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    if (sample == 0) {
+      acc[c] = 0.0f;
+      v[c] = rad[c];
+    } else {
+      const float sum = acc[c] + rad[c];
+      acc[c] = sum;
+      v[c] = sum * inv;
+    }
+  }
+  shown(a, v, q);
+}
+
+// The frame's tail (see the note at the top); I_N threads: the frame's lanes
+// (kFrameImage), or its display cells and then the pixels no cell shows
+// (kFrameProgressive)
+__global__ void __launch_bounds__(kThreads) frame_post_kernel(const __grid_constant__ Args a) {
+  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= a.i[I_N]) return;
+  if (a.i[I_FRAME_MODE] == kFrameImage) {
+    const long long p = col<const long long>(a, F_LANES)[i];
+    const float* src = col<const float>(a, F_SRC) + 3 * i;
+    const float inv = 1.0f / static_cast<float>(a.i[I_SPP]);
+    float v[3] = {src[0] * inv, src[1] * inv, src[2] * inv};
+    if (a.i[I_UINT8]) {
+      uint8_t q[3];
+      shown(a, v, q);
+      uint8_t* out = col<uint8_t>(a, F_OUT) + 3 * p;
+      out[0] = q[0];
+      out[1] = q[1];
+      out[2] = q[2];
+      return;
+    }
+    if (a.i[I_TONEMAP]) jodie(v);
+    put3(col<float>(a, F_OUT), p, {v[0], v[1], v[2]});
+    return;
+  }
+  const long long w = a.i[I_WIDTH], h = a.i[I_HEIGHT];
+  const long long dh = a.i[I_DISP_H], dw = a.i[I_DISP_W];
+  const long long fy = h / dh, fx = w / dw;
+  const long long sample = *col<const long long>(a, F_SAMPLE);
+  uint8_t q[3];
+  if (i < dh * dw) {  // a display cell: its pixels' integer mean
+    const long long cy = i / dw, cx = i % dw;
+    int s[3] = {0, 0, 0};
+    for (long long yy = 0; yy < fy; ++yy) {
+      for (long long xx = 0; xx < fx; ++xx) {
+        progressive_pixel(a, (cy * fy + yy) * w + cx * fx + xx, sample, q);
+        s[0] += q[0];
+        s[1] += q[1];
+        s[2] += q[2];
+      }
+    }
+    uint8_t* out = col<uint8_t>(a, F_OUT) + 3 * i;
+    const int cell = static_cast<int>(fy * fx);
+    out[0] = static_cast<uint8_t>(s[0] / cell);
+    out[1] = static_cast<uint8_t>(s[1] / cell);
+    out[2] = static_cast<uint8_t>(s[2] / cell);
+    return;
+  }
+  // a pixel no cell shows: the columns right of the cells, then the rows below
+  const long long j = i - dh * dw, rows = dh * fy, cols = dw * fx, right = rows * (w - cols);
+  const long long p = j < right ? (j / (w - cols)) * w + cols + j % (w - cols)
+                                : rows * w + (j - right);
+  progressive_pixel(a, p, sample, q);
+}
+
 // The kernels' parameters from the launcher's arrays, and their grid.
 unsigned int fill(Args& args, const void* const* ptrs, const long long* ints) {
   for (int k = 0; k < kSlots; ++k) args.p[k] = const_cast<void*>(ptrs[k]);
@@ -287,3 +533,5 @@ unsigned int fill(Args& args, const void* const* ptrs, const long long* ints) {
 
 WAVE_LAUNCHER(primary_rays_launch, primary_rays_kernel)
 WAVE_LAUNCHER(alpha_commit_launch, alpha_commit_kernel)
+WAVE_LAUNCHER(wave_sum_launch, wave_sum_kernel)
+WAVE_LAUNCHER(frame_post_launch, frame_post_kernel)

@@ -74,6 +74,8 @@ _SIGNATURES = {
     "graph_loops_add_child": [_P, _P, _P],  # (graph, in/out: tail node, child graph)
     "graph_loops_handle": [_P, _P],  # (graph, out: handle)
     "graph_loops_add_test": [_P, _P, _P],  # (graph, in/out: tail, the test's parameters)
+    # (graph, in/out: tail, dst, src (null: zeroes), int64 words)
+    "graph_loops_add_copy": [_P, _P, _P, _P, ctypes.c_longlong],
     # (graph, in/out: tail, handle, is_while, out: body graph)
     "graph_loops_add_conditional": [_P, _P, ctypes.c_uint64, _I, _P],
     "graph_loops_instantiate": [_I, _P, _P],  # (device, graph, out: exec)
@@ -86,6 +88,8 @@ _SIGNATURES = {
     # (device, pointers [wave.SLOTS], counts [wave.INTS], stream)
     "primary_rays_launch": [_I, _P, _P, _P],
     "alpha_commit_launch": [_I, _P, _P, _P],
+    "wave_sum_launch": [_I, _P, _P, _P],
+    "frame_post_launch": [_I, _P, _P, _P],
     # (device, pointers [trace.SLOTS], counts [trace.INTS], floats [trace.REALS], stream)
     "hit_finish_launch": [_I, _P, _P, _P, _P],
     "instance_step_launch": [_I, _P, _P, _P, _P],

@@ -50,13 +50,21 @@ it, so the images agree (tests/test_torch_instancing.py holds the
 MASK-textured scene against the flattened render).
 
 The JAX module skips an instance whose box no live lane touches with a
-device-side ``lax.cond(jnp.any(touches))`` (:229, :314).  Here every
-instance step launches, and the test stays on the device as a mask: a lane
-that is dead or misses the box carries bound -1 into the walks and 0 into
-the dense sweeps, so the kernels skip it (K5' skips a block with no live
-lane; K1/K2 compact live lanes per block) and the plain versions return at
-once when no lane is live.  No step reads the device on the host, so a
-bounce can be captured as a CUDA graph (``render/graphs.py``).
+device-side ``lax.cond(jnp.any(touches))`` (:229, :314).  Here, in a wave's
+program (``render/graphs.py``), each instance's launch is the body of a
+conditional IF node whose condition the instance's step sets on the card:
+``instance_step_kernel`` counts the lanes that touch the box, and the
+grid's last block sets the IF (``capture``: the program being captured, which
+hands out the IF's control block and captures the launch as its body).  A
+launch that no lane touches does not run, and the next step reads its
+result only on the lanes that touched the box, so a skipped launch changes
+nothing.  Eagerly (and on the CPU) every instance step launches, and the
+test stays on the device as a mask: a lane that is dead or misses the box
+carries bound -1 into the walks and 0 into the dense sweeps, so the
+kernels skip it (K5' skips a block with no live lane; K1/K2 compact live
+lanes per block) and the plain versions return at once when no lane is
+live.  No step reads the device on the host, so a bounce can be captured
+as a CUDA graph.
 """
 
 from __future__ import annotations
@@ -173,16 +181,30 @@ def _scan(inst: InstanceTables):
             yield Instance(g, m, iid, bmin, bmax)
 
 
-def instanced_closest(tables, o: V3, d: V3, *, t_min, t_max, active, raw: bool = False):
+def _launch(capture, st, word, launch):
+    """Run ``launch`` (an instance's prototype launch), or in a program being
+    captured (``capture``) capture it as the body of an IF on the lanes that
+    touch the instance's box, which the step before it counted into the
+    IF's control block ``word``.  Returns what the launch returned."""
+    if capture is None:
+        return launch()
+    out = []
+    capture.walk_if(st["touches"], word, lambda: out.append(launch()))
+    return out[0]
+
+
+def instanced_closest(tables, o: V3, d: V3, *, t_min, t_max, active, raw: bool = False,
+                      capture=None):
     """Closest hit over every instance; returns (t, enc_tri, u, v).
 
     ``enc_tri`` is the encoded (instance, prototype-triangle) id, -1 on a
     miss (then t = inf, u = v = 0).  ``t_min``/``t_max`` may be per lane (the
     alpha resample loop).  Each instance is one step (:func:`.trace.instance_step`)
-    and one launch; a last step merges the last launch, and the finish
-    (:func:`.trace.hit_finish`) recomputes the winner's (u, v).  With
-    ``raw``, the scan's result unfinished, (rays, t, enc, "instanced"): an
-    alpha pass's commit finishes it."""
+    and one launch, in a program behind an IF its step sets (``capture``:
+    the program being captured, ``render/graphs.py``); a last step merges the
+    last launch, and the finish (:func:`.trace.hit_finish`) recomputes the
+    winner's (u, v).  With ``raw``, the scan's result unfinished, (rays, t,
+    enc, "instanced"): an alpha pass's commit finishes it."""
     inst: InstanceTables = tables.inst
     n = o.x.shape[0]
     rays = ray_columns(o, d)
@@ -192,14 +214,18 @@ def instanced_closest(tables, o: V3, d: V3, *, t_min, t_max, active, raw: bool =
     STATS["closest_calls"] += 1
     prev = None
     for x in _scan(inst):
+        word = None if capture is None else capture.walk_block()
         st = trace.instance_step(tables, st, rays, active, t_max, t_min if scalar else None, prev,
-                                 x, shadow=False)
+                                 x, shadow=False, word=word)
         STATS["steps"] += 1
         lo = st["t_lo"] if scalar else t_lo
         if x.group.pblas is None:
-            t_n, hit = closest_sweep(x.group.table, st["rays"], lo, st["t_init"])
+            def launch(g=x.group, lo=lo, s=st):
+                return closest_sweep(g.table, s["rays"], lo, s["t_init"])
         else:
-            t_n, hit = walk(x.group.pblas, st["rays"], lo, st["t_init"], shadow=False)
+            def launch(g=x.group, lo=lo, s=st):
+                return walk(g.pblas, s["rays"], lo, s["t_init"], shadow=False)
+        t_n, hit = _launch(capture, st, word, launch)
         prev = (x, t_n, hit)
     st = trace.instance_step(tables, st, rays, active, t_max, None, prev, None, shadow=False)
     if raw:
@@ -207,11 +233,12 @@ def instanced_closest(tables, o: V3, d: V3, *, t_min, t_max, active, raw: bool =
     return trace.hit_finish(tables, rays, st["t_best"], st["enc"], "instanced")
 
 
-def instanced_shadow(tables, o: V3, d: V3, *, t_max, active):
+def instanced_shadow(tables, o: V3, d: V3, *, t_max, active, capture=None):
     """Any-hit occlusion over every instance (tMin = 0); inactive lanes are
     never occluded, and an occluded lane is dead for the later instances.
-    Each instance is one step (:func:`.trace.instance_step`) and one launch;
-    a last step merges the last launch."""
+    Each instance is one step (:func:`.trace.instance_step`) and one launch,
+    in a program behind an IF its step sets (``capture``, as for
+    :func:`instanced_closest`); a last step merges the last launch."""
     inst: InstanceTables = tables.inst
     n = o.x.shape[0]
     rays = ray_columns(o, d)
@@ -220,13 +247,16 @@ def instanced_shadow(tables, o: V3, d: V3, *, t_max, active):
     STATS["shadow_calls"] += 1
     prev = None
     for x in _scan(inst):
+        word = None if capture is None else capture.walk_block()
         st = trace.instance_step(tables, st, rays, active, t_max, 0.0 if walks else None, prev,
-                                 x, shadow=True)
+                                 x, shadow=True, word=word)
         STATS["steps"] += 1
         if x.group.pblas is None:
-            hit = shadow_sweep(x.group.table, st["rays"], st["t_init"])
+            def launch(g=x.group, s=st):
+                return shadow_sweep(g.table, s["rays"], s["t_init"])
         else:
-            _, hit = walk(x.group.pblas, st["rays"], st["t_lo"], st["t_init"], shadow=True)
-        prev = (x, None, hit)
+            def launch(g=x.group, s=st):
+                return walk(g.pblas, s["rays"], s["t_lo"], s["t_init"], shadow=True)[1]
+        prev = (x, None, _launch(capture, st, word, launch))
     st = trace.instance_step(tables, st, rays, active, t_max, None, prev, None, shadow=True)
     return st["occ"]

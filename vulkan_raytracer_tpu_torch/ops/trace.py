@@ -80,7 +80,7 @@ _NEXT = ("N_OX", "N_OY", "N_OZ", "N_DX", "N_DY", "N_DZ")
 SLOTS = (
     *_RAYS, "H_T", "H_HIT", "O_T", "O_TRI", "O_U", "O_V",
     "X_ACTIVE", "X_TMAX", "S_INV", "S_TBEST", "S_ENC", "S_OCC", "S_TOUCH", *_NEXT, "N_TLO",
-    "N_TINIT", "X_M", "X_BMIN", "X_BMAX", "X_IID", "K_LO", "K_HI", "K_ACTIVE", "K_KEY",
+    "N_TINIT", "X_M", "X_BMIN", "X_BMAX", "X_IID", "X_IF", "K_LO", "K_HI", "K_ACTIVE", "K_KEY",
     "T_V0X", "T_V0Y", "T_V0Z", "T_V1X", "T_V1Y", "T_V1Z", "T_V2X", "T_V2Y", "T_V2Z", "T_TRIID",
     "T_INVFLAT", "P_PERM", *(f"P_SRC{k}" for k in range(MAX_COLS)),
     *(f"P_DST{k}" for k in range(MAX_COLS)),
@@ -111,8 +111,8 @@ MOVES = {
                       **dict.fromkeys(_RAYS[:3], "next"),
                       **dict.fromkeys(_RAYS[3:], "first_or_next"),
                       "S_TBEST": "closest_state", "S_ENC": "closest_state",
-                      "S_OCC": "shadow_state", "S_TOUCH": "touches", "H_HIT": "prev",
-                      "H_T": "prev_closest", **dict.fromkeys((*_NEXT, "N_TINIT"), "next"),
+                      "S_OCC": "shadow_state", "S_TOUCH": "touches", "H_HIT": "touched",
+                      "H_T": "touched_closest", **dict.fromkeys((*_NEXT, "N_TINIT"), "next"),
                       "N_TLO": "t_lo"},
     "coherence_key": dict.fromkeys((*_RAYS, "K_ACTIVE", "K_KEY")),
     "permute": {"P_PERM": "perm", "P_SRC0": "cols", "P_DST0": "cols"},
@@ -343,18 +343,19 @@ def ray_aabb(o, inv_d, bmin, bmax, t_min, t_max):
 def instance_state(n: int, device, *, shadow: bool, t_lo: bool) -> dict:
     """The running state of one instanced call's scan: on a card its
     buffers, which every :func:`instance_step` of the call writes over
-    (``inv`` (n, 3) 1/d; ``t_best`` and ``enc``, or ``occ`` and ``touches``;
-    the next launch's ``rays`` and ``t_init``; its ``t_lo`` with ``t_lo``);
-    on the CPU nothing: the plain steps make their own."""
+    (``inv`` (n, 3) 1/d; ``t_best`` and ``enc``, or ``occ``; the lanes that
+    touch the next instance's box, ``touches``; the next launch's ``rays``
+    and ``t_init``; its ``t_lo`` with ``t_lo``); on the CPU nothing: the
+    plain steps make their own."""
     device = torch.device(device)
     if device.type != "cuda":
         return {}
     rows = torch.empty((8 + t_lo, n), dtype=_F32, device=device).unbind(0)
+    flags = torch.empty((2, n), dtype=torch.bool, device=device).unbind(0)
     st = {"inv": torch.empty((n, 3), dtype=_F32, device=device), "rays": tuple(rows[:6]),
-          "t_init": rows[6]}
+          "t_init": rows[6], "touches": flags[1]}
     if shadow:
-        flags = torch.empty((2, n), dtype=torch.bool, device=device).unbind(0)
-        st.update(occ=flags[0], touches=flags[1])
+        st["occ"] = flags[0]
     else:
         st.update(t_best=rows[7], enc=torch.empty(n, dtype=torch.int32, device=device))
     if t_lo:
@@ -363,7 +364,7 @@ def instance_state(n: int, device, *, shadow: bool, t_lo: bool) -> dict:
 
 
 def instance_step_reference(tables, st: dict, rays, active, t_max, t_min, prev, nxt,
-                            shadow: bool) -> dict:
+                            shadow: bool, word=None) -> dict:
     """One step of an instance scan (instanced.py:185-234; the shadow scan
     :279-317): the call's state after it, from the state ``st`` before it.
 
@@ -373,18 +374,22 @@ def instance_step_reference(tables, st: dict, rays, active, t_max, t_min, prev, 
     (``t_max``, 0 on inactive lanes: no box or triangle passes) and ``enc``
     (-1), or the shadow scan's ``occ``; and ``t_lo``, ``t_min`` on every
     lane, where ``t_min`` is a number.  Then ``prev`` = (instance, t, hit),
-    the last instance's launch, is merged: a hit strictly closer than
-    ``t_best`` replaces it (the first instance in DFS order keeps an exact
-    tie) with its encoded id ``instance * num_proto_tris + proto_tri``, or
-    an occluding hit on a lane that touched the box sets ``occ``.  Then for
-    the instance ``nxt``: the lanes whose ray meets its world box within the
-    bound (the shadow scan: still unoccluded), the rays in its object space
-    and its launch's ``t_init``, the bound on those lanes and else 0 for the
-    dense sweeps, -1 for a BLAS walk.  Without ``nxt`` (the call's last
+    the last instance's launch, is merged on the lanes that touched its box
+    (``touches``; elsewhere its result is not read, since a launch that no
+    lane touched may not have run): a hit strictly closer than ``t_best``
+    replaces it (the first instance in DFS order keeps an exact tie) with
+    its encoded id ``instance * num_proto_tris + proto_tri``, or an
+    occluding hit sets ``occ``.  Then for the instance ``nxt``: the lanes
+    whose ray meets its world box within the bound (the shadow scan: still
+    unoccluded), ``touches``, the rays in its object space and its
+    launch's ``t_init``, the bound on those lanes and else 0 for the dense
+    sweeps, -1 for a BLAS walk.  Without ``nxt`` (the call's last
     step) the shadow scan's ``occ`` is masked by ``active``.  An instance
     is ``(group, m, iid, bmin, bmax)``: its group, its 12 world->object
     values, its id and its box (views of the group's rows; the plain
-    version takes numbers as well)."""
+    version takes numbers as well).  ``word``, the next launch's IF control
+    block that the kernel counts into, is not read here: the host-read
+    replay counts ``touches`` itself."""
     o, d = V3(*rays[:3]), V3(*rays[3:])
     n, dev = active.shape[0], active.device
     st = dict(st)
@@ -400,12 +405,14 @@ def instance_step_reference(tables, st: dict, rays, active, t_max, t_min, prev, 
     else:
         x, t_n, hit = prev
         g = x.group
+        touched = st["touches"]
         if shadow:
             found = hit >= 0 if g.pblas is not None else hit != 0
-            st["occ"] = st["occ"] | (found & st["touches"])
+            st["occ"] = st["occ"] | (found & touched)
         else:
+            hit = torch.where(touched, hit, -1)
             local = hit if g.pblas is None else slot_to_tri(g.pblas, hit)[0]
-            closer = (local >= 0) & (t_n < st["t_best"])
+            closer = touched & (local >= 0) & (t_n < st["t_best"])
             st["t_best"] = torch.where(closer, t_n, st["t_best"])
             st["enc"] = torch.where(
                 closer, local + (x.iid * tables.inst.num_proto_tris + g.tri_off), st["enc"])
@@ -418,21 +425,27 @@ def instance_step_reference(tables, st: dict, rays, active, t_max, t_min, prev, 
         bound = lanes(t_max, n, dev)
         touches = (active & ~st["occ"]) & ray_aabb(o.to_array(), st["inv"], nxt.bmin, nxt.bmax,
                                                    0.0, bound)
-        st["touches"] = touches
     else:
         bound = st["t_best"]
         touches = active & ray_aabb(o.to_array(), st["inv"], nxt.bmin, nxt.bmax, 0.0, bound)
+    st["touches"] = touches
     st["rays"] = tuple(c.contiguous() for c in (*_apply_affine(nxt.m, o),
                                                  *_apply_linear(nxt.m, d)))
     st["t_init"] = torch.where(touches, bound, 0.0 if nxt.group.pblas is None else -1.0)
     return st
 
 
-def instance_step(tables, st: dict, rays, active, t_max, t_min, prev, nxt, shadow: bool) -> dict:
+def instance_step(tables, st: dict, rays, active, t_max, t_min, prev, nxt, shadow: bool,
+                  word=None) -> dict:
     """One step of an instance scan; see :func:`instance_step_reference`.
     On a card the kernel writes the next state over ``st``'s buffers
     (:func:`instance_state`) and returns ``st``; it reads the instances'
-    values, ids and boxes through pointers into their groups' rows."""
+    values, ids and boxes through pointers into their groups' rows.  Given
+    ``word``, the next launch's IF control block (four int64, the layout of
+    ``wave.LOOP_WORDS``; a program's, ``render/graphs.py``), it also counts
+    the lanes that touch the next instance's box into it and, where the
+    program armed it on the card, sets the IF.  The plain version has no
+    use for it: the host-read replay counts ``touches`` itself."""
     if not _on_cuda(active):
         return instance_step_reference(tables, st, rays, active, t_max, t_min, prev, nxt, shadow)
     n = active.shape[0]
@@ -444,9 +457,9 @@ def instance_step(tables, st: dict, rays, active, t_max, t_min, prev, nxt, shado
     else:
         k.real("F_TMAX", t_max)
     k.put("S_INV", st["inv"], _F32, (n, 3))
+    k.lane("S_TOUCH", st["touches"], torch.bool)
     if shadow:
         k.lane("S_OCC", st["occ"], torch.bool)
-        k.lane("S_TOUCH", st["touches"], torch.bool)
     else:
         k.lane("S_TBEST", st["t_best"])
         k.lane("S_ENC", st["enc"], torch.int32)
@@ -476,25 +489,30 @@ def instance_step(tables, st: dict, rays, active, t_max, t_min, prev, nxt, shado
         k.put("X_M", nxt.m, _F32, (12,))
         k.put("X_BMIN", nxt.bmin, _F32, (3,))
         k.put("X_BMAX", nxt.bmax, _F32, (3,))
+        if word is not None:
+            k.put("X_IF", word, torch.int64, (4,))
     k.run("instance_step")
     return st
 
 
 def instance_step_bytes(n: int, *, first: bool, prev: bool, nxt: bool, shadow: bool,
-                        t_max_lanes: bool, t_lo: bool) -> int:
+                        t_max_lanes: bool, t_lo: bool, touched: int | None = None) -> int:
     """The bytes one :func:`instance_step` over ``n`` lanes must move
     (:func:`lane_bytes`): the lanes' flag and 1/d (written by the first
     step, else read), the bound where it is per lane, the running state
-    written and, after the first step, read; the last launch's result (a
-    merge); the direction (first step or a next instance), and for a next
-    instance the origin and its rays and bound written; the shadow scan's
-    touched flags read by a merge and written for a next instance."""
+    written and, after the first step, read; the touched flags read by a
+    merge and written for a next instance; the last launch's result on the
+    ``touched`` lanes of a merge (every lane: ``n``); the direction (first
+    step or a next instance), and for a next instance the origin and its
+    rays and bound written."""
     passes = n * (1 if first else 2)
+    touched = n if touched is None else touched
     return lane_bytes("instance_step", {
         None: n, "t_max_lanes": n * t_max_lanes, "next": n * nxt,
         "first_or_next": n * (first or nxt), "closest_state": 0 if shadow else passes,
-        "shadow_state": passes if shadow else 0, "touches": n * shadow * (prev + nxt),
-        "prev": n * prev, "prev_closest": n * (prev and not shadow), "t_lo": n * (first and t_lo)})
+        "shadow_state": passes if shadow else 0, "touches": n * (prev + nxt),
+        "touched": touched * prev, "touched_closest": touched * (prev and not shadow),
+        "t_lo": n * (first and t_lo)})
 
 
 # ---------------------------------------------------------------------------

@@ -1,14 +1,18 @@
-"""The wave's own kernels: its primary rays and initial state, and the test
-and commit of one alpha resample pass.
+"""The wave's own kernels: its primary rays and initial state, the test
+and commit of one alpha resample pass, the wave's tail; and the frame's
+post-processing.
 
 The JAX package compiles a frame's waves into one ``jit``
 (render/renderer.py:52-88), and XLA fuses what surrounds the bounce loop
 and the Pallas calls: each wave's camera rays and initial state
 (``generate_primary_rays`` render/integrator.py:403-442, ``render_sample``
-:936-960) and, inside each alpha resample ``while_loop``, the any-hit test
-and the commit after the traversal (``_alpha_test`` :130-162, ``_closest``'s
-body :195-214).  Neither is a Pallas kernel.  Here each is one kernel,
-hand-written for Hopper (``csrc/wave.cu``), one thread a lane:
+:936-960), inside each alpha resample ``while_loop`` the any-hit test and
+the commit after the traversal (``_alpha_test`` :130-162, ``_closest``'s
+body :195-214), after the loop the deferred skybox fetch and the repacked
+wave's scatter (:1128-1137) and the wave's sum (renderer.py:79-80, :109);
+and a frame's post-processing (``_postprocess`` renderer.py:244-251, the
+progressive ``_frame_step`` :259-292).  None is a Pallas kernel.  Here each
+is one kernel, hand-written for Hopper (``csrc/wave.cu``):
 
 * :func:`primary_rays` (``primary_rays_kernel``): the wave's whole initial
   state in one launch, from the sample numbers, the pixel lanes and the
@@ -24,17 +28,29 @@ hand-written for Hopper (``csrc/wave.cu``), one thread a lane:
   (:func:`loop_block`), the lanes still pending are added into it once a
   block, and the last block leaves their count there and, where the loop's
   entry test armed the block on the card, makes the loop's next test
-  (``render/graphs.py``).
+  (``render/graphs.py``);
+* :func:`wave_sum` (``wave_sum_kernel``): the wave's tail, each lane's
+  radiance with its deferred sky, a repacked wave's scatter to its slots,
+  and the sum over the wave's samples (sample 0 first, one after another)
+  into the band's sum, with the wave's rays into the frame's counter: one
+  launch, two on a repacked wave (the scatter, then the sum);
+* :func:`frame_image` and :func:`frame_progressive` (``frame_post_kernel``):
+  the headless frame's scatter to pixel order with its mean, tonemap and
+  quantisation, and the progressive frame's accumulation, mean, tonemap,
+  quantisation and decimation to the display's cells, one launch each.
 
 Each wrapper launches its kernel for CUDA tensors and counts the launch in
 :data:`LAUNCHES`, and runs its plain version (``*_reference``) for CPU
 tensors; on the card nothing falls back.  The plain versions are the port's
 torch code regrouped, not rewritten: :func:`camera_rays` is the body of
 ``integrator.generate_primary_rays``, :func:`alpha_test` the integrator's
-former ``_alpha_test``, so the CPU render is bit-equal to the one before
-them; a pass's plain version, :func:`alpha_pass_reference`, is
-``hit_finish_reference`` then :func:`alpha_commit_reference`.  Tests and
-tools reach a plain version on the card by patching this module's wrapper.
+former ``_alpha_test``, :func:`radiance_reference` its former ``_radiance``
+and :func:`postprocess` the renderer's ``_postprocess``, so the CPU render
+is bit-equal to the one before them (but for the order of a wave's sum
+over its samples, which is now stated); a pass's plain version,
+:func:`alpha_pass_reference`, is ``hit_finish_reference`` then
+:func:`alpha_commit_reference`.  Tests and tools reach a plain version on
+the card by patching this module's wrapper.
 """
 
 from __future__ import annotations
@@ -45,12 +61,13 @@ import torch
 from . import _ext, rng, trace
 from .math3 import V3
 from .shade import _uv_at
-from .texture import sample_bilinear
+from .texture import sample_bilinear, sample_equirect
+from .tonemap import reinhard_jodie
 
 _F32 = torch.float32
 
 #: Kernel launches since the last reset, by kernel.  Only a launch adds one.
-LAUNCHES = {"primary_rays": 0, "alpha_commit": 0}
+LAUNCHES = {"primary_rays": 0, "alpha_commit": 0, "wave_sum": 0, "frame_post": 0}
 
 
 def reset_launches() -> None:
@@ -72,10 +89,18 @@ SLOTS = (
     *(f"T_V{k}{c}" for k in range(3) for c in "XYZ"), "T_TRIID", "T_INVFLAT",
     "AL_MODE", "AL_VALUE", "AL_CUTOFF", "T_TRIMAT", "T_UV", "M_TEXIDX", "TEX_TEXELS", "TEX_OFF",
     "TEX_H", "TEX_W",
+    "E_R", "E_G", "E_B", "E_STRENGTH", "Q_RAYS", "Q_RAD", "Q_SUM", "Q_FRAME_RAYS",
+    "F_SRC", "F_LANES", "F_ACCUM", "F_SAMPLE", "F_OUT",
 )
 #: The counts and flags, in the order of ``enum Int`` in csrc/wave.cu.
 INTS = ("I_N", "I_PIXELS", "I_WIDTH", "I_HEIGHT", "I_PIXEL_ORDER", "I_TEXTURES", "I_PROTO_TRIS",
-        "I_MODE", "I_NUM_INST")
+        "I_MODE", "I_NUM_INST", "I_K", "I_SUM_MODE", "I_ENV_H", "I_ENV_W", "I_FRAME_MODE", "I_SPP",
+        "I_TONEMAP", "I_UINT8", "I_DISP_H", "I_DISP_W")
+#: :func:`wave_sum`'s launches (``enum SumMode``): a wave in lane order in
+#: one; a repacked wave's scatter to its slots, then its sum.
+SUM_MODES = ("lanes", "scatter", "add")
+#: :func:`frame_post`'s modes (``enum FrameMode``).
+FRAME_MODES = ("image", "progressive")
 #: A resample loop's control block, ``enum LoopWord`` in csrc/wave.cu: four
 #: int64, zero when made (:func:`loop_block`).
 LOOP_WORDS = ("kLoopWord", "kLoopHandle", "kLoopRow", "kLoopCount")
@@ -389,3 +414,195 @@ def alpha_commit_bytes(st: dict, hit, nxt: dict, blend, rows: int = 0) -> int:
     return (pending.numel() + 4 * int(pending.sum()) + int((pending & ~rejected).sum())
             + 28 * int(found.sum()) + 16 * int(blend.sum()) + 16 * int(keep.sum())
             + 4 * int(rejected.sum()) + rows)
+
+
+# ---------------------------------------------------------------------------
+# The wave's tail: the deferred sky and the sum (integrator.py:1128-1137,
+# renderer.py:79-80, :109)
+# ---------------------------------------------------------------------------
+
+
+def radiance_reference(tables, s: dict):
+    """(N, 3) radiance of the wave state ``s`` after its last bounce: the
+    value gathered plus the deferred skybox, one equirect fetch for the
+    whole loop (:func:`.texture.sample_equirect` times the strength, by the
+    lane's sky weight)."""
+    sky = sample_equirect(tables.skybox, s["direction"].to_array()) * tables.skybox_strength
+    return (s["value"] + s["sky_w"] * V3.from_array(sky)).to_array()
+
+
+def wave_sum_reference(tables, s: dict, repack: bool, total, frame_rays, rays, k: int):
+    """The wave's tail: each lane's radiance (:func:`radiance_reference`),
+    on a repacked wave scattered to its ``slot``, then summed over the
+    wave's ``k`` samples (samples-major lanes), sample 0 first and one
+    sample after another, and added into ``total`` ((n, 3), the band's
+    sum), and the wave's ``rays`` added into ``frame_rays``.  Returns the
+    radiance (n * k, 3) in the lanes' own order."""
+    value = radiance_reference(tables, s)
+    if repack:
+        value = torch.empty_like(value).index_copy_(0, s["slot"], value)
+    per = value.reshape(k, -1, 3)
+    acc = per[0]
+    for j in range(1, k):
+        acc = acc + per[j]
+    total.add_(acc)
+    frame_rays.add_(rays)
+    return value
+
+
+def wave_sum(tables, s: dict, repack: bool, total, frame_rays, rays, k: int):
+    """The wave's tail; see :func:`wave_sum_reference`.  On a card one
+    launch on a wave in lane order, two on a repacked one (the scatter to
+    the slots, then the sum); ``total`` and ``frame_rays`` are added into in
+    place, and the radiance is a new tensor (in a program, the program's
+    own)."""
+    if not _on_cuda(s["active"]):
+        return wave_sum_reference(tables, s, repack, total, frame_rays, rays, k)
+    lanes = s["active"].shape[0]
+    n = lanes // k
+    dev = s["active"].device
+    radiance = torch.empty((lanes, 3), dtype=_F32, device=dev)
+    launch = _Launch(lanes, dev)
+    for name, f in (("S_D", "direction"), ("S_VAL", "value"), ("S_SKY", "sky_w")):
+        launch.lane3(name, s[f])
+    env = tables.skybox
+    for name, c in zip(("E_R", "E_G", "E_B"), (env.r, env.g, env.b)):
+        launch.put(name, c, _F32, (env.h * env.w,))
+    launch.put("E_STRENGTH", tables.skybox_strength, _F32, ())
+    launch.put("Q_RAYS", rays, torch.int64, ())
+    launch.put("Q_RAD", radiance, _F32, (lanes, 3))
+    launch.put("Q_SUM", total, _F32, (n, 3))
+    launch.put("Q_FRAME_RAYS", frame_rays, torch.int64, ())
+    launch.count("I_PIXELS", n)
+    launch.count("I_K", k)
+    launch.count("I_ENV_H", env.h)
+    launch.count("I_ENV_W", env.w)
+    if repack:
+        launch.lane("S_SLOT", s["slot"], torch.int64)
+        launch.count("I_SUM_MODE", SUM_MODES.index("scatter"))
+        launch.run("wave_sum")
+    launch.count("I_SUM_MODE", SUM_MODES.index("add" if repack else "lanes"))
+    launch.count("I_N", n)
+    launch.run("wave_sum")
+    return radiance
+
+
+def wave_sum_bytes(n: int, k: int, repack: bool, sky_texels: int) -> int:
+    """The bytes :func:`wave_sum` must move for ``n`` pixels x ``k``
+    samples over a sky map of ``sky_texels`` texels: a lane's direction,
+    value and sky weight read (and its slot on a repacked wave), its
+    radiance written; the map read once; the band's sum read and written;
+    the strength and the two ray counters.  Its bytes bound's numerator."""
+    return n * k * (36 + 12 + 8 * repack) + 24 * n + 12 * sky_texels + 4 + 3 * 8
+
+
+# ---------------------------------------------------------------------------
+# The frame's post-processing (renderer.py:244-251, :259-292)
+# ---------------------------------------------------------------------------
+
+
+def postprocess(acc, spp, tonemap: bool, as_uint8: bool):
+    """The frame's image from its linear sum over ``spp`` samples
+    (renderer.py:244-251): the mean, Reinhard-Jodie where ``tonemap``, and
+    uint8 (clamped to [0, 1], x 255 + 0.5, truncated) where ``as_uint8``."""
+    img = acc / float(spp)
+    if tonemap:
+        img = reinhard_jodie(img)
+    if as_uint8:
+        img = (torch.clamp(img, 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
+    return img
+
+
+def frame_image_reference(acc, lanes, spp: int, tonemap: bool, as_uint8: bool):
+    """A headless frame's image (n, 3) in pixel order from its sum ``acc``
+    (n, 3) aligned with ``lanes``, a permutation of the frame's pixels:
+    scattered to pixel order, then :func:`postprocess`."""
+    img = torch.zeros_like(acc)
+    img[lanes] = acc
+    return postprocess(img, spp, tonemap, as_uint8)
+
+
+def frame_image(acc, lanes, spp: int, tonemap: bool, as_uint8: bool):
+    """A headless frame's image; see :func:`frame_image_reference`.  On a
+    card one launch."""
+    if not _on_cuda(acc):
+        return frame_image_reference(acc, lanes, spp, tonemap, as_uint8)
+    n = acc.shape[0]
+    out = torch.empty((n, 3), dtype=torch.uint8 if as_uint8 else _F32, device=acc.device)
+    launch = _Launch(n, acc.device)
+    launch.put("F_SRC", acc, _F32, (n, 3))
+    launch.lane("F_LANES", lanes, torch.int64)
+    launch.put("F_OUT", out, out.dtype, (n, 3))
+    launch.count("I_FRAME_MODE", FRAME_MODES.index("image"))
+    launch.count("I_SPP", spp)
+    launch.count("I_TONEMAP", tonemap)
+    launch.count("I_UINT8", as_uint8)
+    launch.run("frame_post")
+    return out
+
+
+def frame_progressive_reference(radiance, accum, sample: int, width: int, height: int,
+                                disp_h: int, disp_w: int):
+    """A progressive frame's tail (renderer.py:259-292) after its sample
+    ``sample``'s ``radiance`` (n, 3) in pixel order: the preview sample 0
+    zeroes the accumulation ``accum`` and is shown itself, a later sample
+    is added into ``accum`` in place and its mean shown; tonemapped,
+    quantised, and mean-pooled (integer) to (disp_h, disp_w) cells of
+    height // disp_h x width // disp_w pixels.  Returns the uint8
+    (disp_h, disp_w, 3) image."""
+    if sample == 0:
+        accum.zero_()
+        shown = radiance
+    else:
+        accum.add_(radiance)
+        shown = accum / float(sample)
+    img8 = postprocess(shown, 1, True, True).reshape(height, width, 3)
+    if (disp_h, disp_w) != (height, width):
+        # decimate to the display's cell grid on the device, so that only
+        # disp_h * disp_w cells are fetched (the present blit)
+        fy, fx = height // disp_h, width // disp_w
+        cells = img8[:disp_h * fy, :disp_w * fx].reshape(disp_h, fy, disp_w, fx, 3)
+        img8 = (cells.to(torch.int32).sum(dim=(1, 3)) // (fy * fx)).to(torch.uint8)
+    return img8
+
+
+def frame_progressive(radiance, accum, sample, width: int, height: int, disp_h: int,
+                      disp_w: int):
+    """A progressive frame's tail; see :func:`frame_progressive_reference`.
+    ``sample`` is the sample's number: an int on the CPU, on a card the (1,)
+    int64 tensor the sample's wave read it from, which the one launch reads
+    there."""
+    if not _on_cuda(radiance):
+        return frame_progressive_reference(radiance, accum, sample, width, height, disp_h,
+                                           disp_w)
+    n = width * height
+    dev = radiance.device
+    out = torch.empty((disp_h, disp_w, 3), dtype=torch.uint8, device=dev)
+    cols = disp_w * (width // disp_w)
+    rows = disp_h * (height // disp_h)
+    launch = _Launch(n, dev)
+    launch.put("F_SRC", radiance, _F32, (n, 3))
+    launch.put("F_ACCUM", accum, _F32, (n, 3))
+    launch.put("F_SAMPLE", sample, torch.int64, (1,))
+    launch.put("F_OUT", out, torch.uint8, (disp_h, disp_w, 3))
+    launch.count("I_FRAME_MODE", FRAME_MODES.index("progressive"))
+    launch.count("I_TONEMAP", True)
+    launch.count("I_WIDTH", width)
+    launch.count("I_HEIGHT", height)
+    launch.count("I_DISP_H", disp_h)
+    launch.count("I_DISP_W", disp_w)
+    # a thread a display cell, then one a pixel no cell shows
+    launch.count("I_N", disp_h * disp_w + n - rows * cols)
+    launch.run("frame_post")
+    return out
+
+
+def frame_post_bytes(n: int, out_bytes: int, progressive: bool) -> int:
+    """The bytes :func:`frame_image` (``progressive`` False: the sum and the
+    lanes' pixels read) or :func:`frame_progressive` after a sample past the
+    preview (the radiance and the accumulation read, the accumulation
+    written, the sample number) must move over ``n`` pixels, with
+    ``out_bytes`` of image written.  Its bytes bound's numerator."""
+    if progressive:
+        return n * 36 + 8 + out_bytes
+    return n * (12 + 8) + out_bytes

@@ -29,9 +29,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.wave import postprocess
 from ..render import graphs
 from ..render.integrator import render_sample
-from ..render.renderer import _postprocess, block_order, camera_uniforms, render_lanes
+from ..render.renderer import block_order, camera_uniforms, render_lanes
 from ..scene.scenegraph import target_device
 
 
@@ -142,6 +143,6 @@ def render_image_sharded(tables, camera, width: int, height: int, spp: int, max_
             rows = torch.as_tensor(np.asarray((gather or _device_get)(block), np.float32))
         img = torch.zeros((n, 3), dtype=torch.float32, device=dev)
         img[torch.as_tensor(lanes_all, device=dev).long()] = rows
-        img = _postprocess(img, spp, tonemap, False).cpu().numpy().reshape(height, width, 3)
+        img = postprocess(img, spp, tonemap, False).cpu().numpy().reshape(height, width, 3)
         total_rays, = graphs.settle(rays)
     return img, total_rays

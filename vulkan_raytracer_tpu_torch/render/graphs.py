@@ -35,30 +35,37 @@ most ``max_depth``) and a body of parts and nodes.  A wave is::
     bounce           = segment; WHILE (pending) { alpha pass }; segment;
                        WHILE (pending) { alpha pass }; segment
     wave             = rays; phase(n, n/2); IF more: sort; split; phase(n/2, n/4);
-                       IF more: sort; split; phase(n/4, 0); join; radiance; sum
+                       IF more: sort; split; phase(n/4, 0); join; tail
 
 on a repacked scene whose width divides by 4 (the ladder), else
-``rays; phase(n, 0); radiance; sum``; an alpha-free bounce is one segment.
+``rays; phase(n, 0); tail``; an alpha-free bounce is one segment.  On an
+instanced scene each instance scan (a closest-hit query, in a resample pass
+or not, or an occlusion query) is ``step; IF touched: launch`` for each
+instance, then a last step: the JAX scan's ``lax.cond(jnp.any(touches))``.
 ``rays`` is the primary-ray kernel, which writes the initial state from the
 wave's inputs; a resample pass is its traversal and the alpha commit, which
 finishes, tests and commits the pending lanes and makes the loop's next
-test; ``sum`` adds the
-wave's radiance, summed over its samples, into the band's sum and its rays
-into the frame's counter.
+test; an instance's ``step`` (``instance_step_kernel``) counts the lanes
+that touch its box and sets the IF around its launch; ``tail``
+(``wave_sum_kernel``, two launches on a repacked wave) adds the wave's
+radiance with its deferred sky, summed over its samples, into the band's
+sum and its rays into the frame's counter.
 :meth:`_Program.launch` runs it one of two ways:
 
 * **device loops** (the main path): the C side stitches the parts into one
   parent graph (each a child graph node, each WHILE and IF a conditional
   node with a ``loop_cond_kernel`` entry test before it and, for a bounce
   loop, one more ending its body, which steps ``b`` and sets the re-sort IF
-  after it; a resample loop's pass tests itself), instantiates it once and
-  launches it on the current stream;
+  after it; a resample loop's pass tests itself; an instance launch's IF
+  has no test, its step sets it, and the parent's first node arms those
+  IFs' control blocks with their handles and its last disarms them),
+  instantiates it once and launches it on the current stream;
 * **host-read replay** (the plain version): :meth:`_Program.interpret`
   walks the same tree on the host, replays each part's graph and makes
   each test on the host (:meth:`Cond.test`: a count of flags read, ``b``
   stepped by torch; one read per test; the stand-in graphs of the CPU
-  tests run here).  A pass replayed there finds its loop's control block
-  unarmed and makes no test.
+  tests run here).  A pass or an instance step replayed there finds its
+  control block unarmed and sets no condition.
 
 The cache is keyed as ``jit`` keys its programs: by the tables'
 :func:`signature` (each count, flag and None among their leaves, each
@@ -85,8 +92,9 @@ lanes, the camera) and its sums (the band's (n, 3) sum, the frame's ray
 counter) are the cache's buffers (:meth:`GraphCache.buffer`), allocated
 outside any capture and shared by the programs of their shape; the
 renderer writes the inputs on the device before a launch and zeroes the
-sums.  Each program's rows of counters, its tests' accumulators and its
-resample loops' control blocks are its own, made outside the pool (a block
+sums.  Each program's rows of counters, its tests' accumulators, its
+resample loops' control blocks and its instance launches' IF control blocks
+(:data:`MAX_SCANS` scans of an instance each) are its own, made outside the pool (a block
 the pool handed out inside a loop could share its memory with a temporary
 the loop's earlier code writes again in its next run). Everything else the
 program's parts allocate (the wave's state, the ladder's narrower states,
@@ -111,7 +119,10 @@ and the most bodies one entry ran).  A launch on the card adds nothing on
 the host: :func:`settle` reads every row since the last settle in the read
 that ends a frame (``renderer.render_image``'s ray count, the progressive
 ``Renderer``'s ``rays_traced``) and adds each part's counts times the runs
-of its body, and the alpha loops' calls, passes and most passes a call.  A
+of its body, and the alpha loops' calls, passes and most passes a call;
+what an instance launch's IF skipped goes to :data:`SKIPPED` (the eager
+loop launches every instance, so its counts are the program's plus these:
+``integrator.launch_counts(skipped=True)``).  A
 caller that reads the counters after ``render_sample`` without such a read
 calls :func:`settle` first.  :data:`LAUNCHES` counts the tests made on the
 card the same way, ``loop_cond_kernel``'s and the resample passes'.  The
@@ -140,15 +151,25 @@ MAX_GRAPHS = 16
 #: Resample loops a program holds at most: two a bounce loop (the closest
 #: hit's and the occlusion query's), three bounce loops on the width ladder.
 MAX_LOOPS = 6
+#: Instance scans a program holds at most, each with an IF node per
+#: instance: two a bounce loop (the closest hit's and the occlusion
+#: query's, in a resample loop or not), three bounce loops on the ladder.
+MAX_SCANS = 6
 
 #: Since the last reset: programs ``captured``, their ``capture_s`` (warm-up,
 #: capture and instantiation), program ``launches`` (waves), bounces
 #: replayed (``replays``), resample ``passes`` replayed, re-sorts run
-#: (``sorts``), and the mirror's fills (``copies``, made or copied into)
-#: with their ``copy_bytes``.  A launch on the card counts its bounces,
-#: passes and re-sorts at :func:`settle`.
+#: (``sorts``), instance launches behind an IF (``walks``) and those the
+#: IF skipped (``walks_skipped``: no lane touched the instance's box), and
+#: the mirror's fills (``copies``, made or copied into) with their
+#: ``copy_bytes``.  A launch on the card counts its bounces, passes,
+#: re-sorts and walks at :func:`settle`.
 STATS = {"captured": 0, "capture_s": 0.0, "launches": 0, "replays": 0, "passes": 0,
-         "sorts": 0, "copies": 0, "copy_bytes": 0}
+         "sorts": 0, "walks": 0, "walks_skipped": 0, "copies": 0, "copy_bytes": 0}
+#: What the instance launches the IF nodes skipped would have counted, by
+#: the id of the counter they count into (:func:`skipped`): the eager loop,
+#: which launches every instance, counts these too.
+SKIPPED: dict = {}
 #: The tests made on the card since the last reset, counted at
 #: :func:`settle`: each node's entry test and each WHILE body's closing
 #: tests, ``loop_cond_kernel``'s launches and the tests a resample pass's
@@ -159,10 +180,17 @@ _PENDING: dict = {}  # program -> None: programs launched on the card since the 
 
 
 def reset_stats() -> None:
-    STATS.update(captured=0, capture_s=0.0, launches=0, replays=0, passes=0, sorts=0,
-                 copies=0, copy_bytes=0)
+    STATS.update(captured=0, capture_s=0.0, launches=0, replays=0, passes=0, sorts=0, walks=0,
+                 walks_skipped=0, copies=0, copy_bytes=0)
     LAUNCHES["loop_cond"] = 0
+    SKIPPED.clear()
     _COPY_EVENTS.clear()
+
+
+def skipped(counter: dict) -> dict:
+    """What the launches the IF nodes skipped since the last reset would
+    have added to ``counter`` (one of a program's counters)."""
+    return SKIPPED.get(id(counter), {})
 
 
 def copy_seconds() -> float:
@@ -345,8 +373,9 @@ class _Part:
 class _Node:
     """A WHILE or an IF of a program: its condition, its body (parts and
     nodes), its row of counters, its ``role`` (``"phase"``: the bounce loop;
-    ``"alpha"``: a resample loop; ``"sort"``: a re-sort) and, for a
-    resample loop, ``done(passes, calls, most)``, which counts them in
+    ``"alpha"``: a resample loop; ``"sort"``: a re-sort; ``"walk"``: an
+    instance's launch, an IF whose condition the instance's step sets) and,
+    for a resample loop, ``done(passes, calls, most)``, which counts them in
     ``integrator.ALPHA_LOOP``.  A WHILE's ``then`` is an IF that runs its
     body after each closing test that goes on, inside the WHILE's body:
     the closing test sets its condition (it has no ``cond`` of its own)."""
@@ -401,12 +430,14 @@ class _Capture:
     memory pool.  ``graph`` makes a part's graph (:class:`_TorchGraph`; the
     CPU tests give a stand-in with the same methods)."""
 
-    def __init__(self, pool, counters, graph=None, loops=None):
+    def __init__(self, pool, counters, graph=None, loops=None, ifs=None):
         self.pool, self.counters = pool, counters
         self.new_graph = graph or _TorchGraph
-        # the resample loops' control blocks (ops/wave.py LOOP_WORDS), int64
-        # zeros made outside the pool, and how many the loops took
+        # the resample loops' and the instance launches' IF control blocks
+        # (ops/wave.py LOOP_WORDS), int64 zeros made outside the pool, and how
+        # many each took
         self.loops, self.n_loops = loops, 0
+        self.ifs, self.n_ifs = ifs, 0
         self.nodes: list = []  # the program's top level
         self.conds: list = []  # every node, in the order of their rows
         self._open = [self.nodes]  # the bodies being filled, innermost last
@@ -475,6 +506,23 @@ class _Capture:
         word = self.loops[self.n_loops]
         self.n_loops += 1
         self.while_(Cond(st["pending"], word=word), lambda: body(st, word), "alpha", done)
+
+    def walk_block(self):
+        """The next instance launch's IF control block, a row of :attr:`ifs`,
+        which the instance's step is given before the IF is captured."""
+        if self.ifs is None or self.n_ifs == self.ifs.shape[0]:
+            raise RuntimeError(f"a program holds at most {MAX_SCANS} instance scans, each with "
+                               "an IF control block an instance made before its capture")
+        word = self.ifs[self.n_ifs]
+        self.n_ifs += 1
+        return word
+
+    def walk_if(self, touches, word, body) -> None:
+        """``if any lane of touches: body()``: an instance's launch behind an
+        IF whose condition the step before it sets on the card with its
+        control block ``word`` (:meth:`walk_block`), so the IF has no test
+        node of its own; the host-read replay counts ``touches``."""
+        self.if_(Cond(touches, word=word), body, "walk")
 
 
 _CAPTURING: list = []  # the capture in progress
@@ -554,9 +602,12 @@ class _Program:
     counters per node (``stats``, on the wave's device; the tests of the
     device loops keep them)."""
 
-    def __init__(self, nodes: list, conds: list, io: dict, outputs: tuple, counters):
+    def __init__(self, nodes: list, conds: list, io: dict, outputs: tuple, counters, ifs=None):
         self.nodes, self.conds, self.io, self.outputs = nodes, conds, io, outputs
         self.counters = counters
+        # the instance launches' IF control blocks, armed with their handles
+        # and rows while the parent graph runs (:meth:`_instantiate`)
+        self.ifs, self._armed, self._image = ifs, [], None
         device = next(iter(io.values())).device
         self.stats = torch.zeros((len(conds), 4), dtype=torch.int64, device=device)
         # each node's accumulator and block ticket for the tests that count flags
@@ -613,14 +664,22 @@ class _Program:
                     add(node.body, rows[node.row][0])
                     if node.then is not None:
                         add([node.then], 1)
+                    if node.role == "walk":  # what the skipped launches would have counted
+                        runs, entries = rows[node.row][:2]
+                        for part in node.body:
+                            _add([SKIPPED.setdefault(id(c), {}) for c in self.counters],
+                                 part.delta, entries - runs)
 
         add(self.nodes, launches)
         STATS["launches"] += launches
         for node in self.conds:
             runs, entries, _, most = rows[node.row]
-            if device and node.cond is not None:
+            if device and node.cond is not None and node.role != "walk":
                 LAUNCHES["loop_cond"] += entries + (runs if node.kind == "while" else 0)
-            if node.role == "phase":
+            if node.role == "walk":  # the step sets it: no test of the loops' counts it
+                STATS["walks"] += entries
+                STATS["walks_skipped"] += entries - runs
+            elif node.role == "phase":
                 STATS["replays"] += runs
             elif node.role == "sort":
                 STATS["sorts"] += runs
@@ -629,11 +688,31 @@ class _Program:
                 node.done(runs, entries, most)
 
     def _instantiate(self, device) -> None:
-        """Stitch the parts into one parent graph and instantiate it."""
+        """Stitch the parts into one parent graph and instantiate it.  Where
+        the program holds instance launches behind IFs, the parent's first
+        node arms their control blocks (each IF's handle and the address of
+        its row, copied from an image made here) and its last disarms them,
+        so a step replayed outside the parent sets no condition."""
         parent, exe = ctypes.c_void_p(), ctypes.c_void_p()
         _c("graph_loops_create", ctypes.byref(parent))
         try:
-            self._stitch(parent, self.nodes)
+            walks = any(node.role == "walk" for node in self.conds)
+            tail = ctypes.c_void_p()
+            if walks:
+                self._image = torch.zeros_like(self.ifs)
+                _c("graph_loops_add_copy", parent, ctypes.byref(tail), self.ifs.data_ptr(),
+                   self._image.data_ptr(), self.ifs.numel())
+            self._armed = []
+            tail = self._stitch(parent, self.nodes, tail)
+            if walks:
+                image = torch.zeros(tuple(self.ifs.shape), dtype=torch.int64)
+                for node, handle in self._armed:
+                    row = (node.cond.word.data_ptr() - self.ifs.data_ptr()) // 32
+                    image[row, 1] = handle
+                    image[row, 2] = self.stats.data_ptr() + 32 * node.row
+                self._image.copy_(image)
+                _c("graph_loops_add_copy", parent, ctypes.byref(tail), self.ifs.data_ptr(), None,
+                   self.ifs.numel())
             _c("graph_loops_instantiate", device.index, parent, ctypes.byref(exe))
         except BaseException:
             _destroy(parent.value, exe.value)
@@ -659,17 +738,25 @@ class _Program:
             t.then_handle, t.then_row = then[1], self.stats.data_ptr() + 32 * then[0].row
         return t
 
-    def _stitch(self, graph, nodes: list) -> ctypes.c_void_p:
-        """Append ``nodes`` to ``graph``: each part a child graph node, each
-        WHILE and IF a conditional node after its entry test; a WHILE's
-        body ends with its closing test (a resample loop's passes make
-        theirs) and then its ``then`` IF."""
-        tail = ctypes.c_void_p()
+    def _stitch(self, graph, nodes: list, tail=None) -> ctypes.c_void_p:
+        """Append ``nodes`` to ``graph`` after ``tail``: each part a child
+        graph node, each WHILE and IF a conditional node after its entry
+        test; a WHILE's body ends with its closing test (a resample loop's
+        passes make theirs) and then its ``then`` IF.  An instance launch's
+        IF has no test: the step before it sets it (its handle is kept in
+        :attr:`_armed`)."""
+        tail = ctypes.c_void_p() if tail is None else tail
         for node in nodes:
             if isinstance(node, _Part):
                 _c("graph_loops_add_child", graph, ctypes.byref(tail), node.graph.raw())
                 continue
             handle, body = _handle(graph), ctypes.c_void_p()
+            if node.role == "walk":
+                self._armed.append((node, handle))
+                _c("graph_loops_add_conditional", graph, ctypes.byref(tail), handle, False,
+                   ctypes.byref(body))
+                self._stitch(body, node.body)
+                continue
             test = self._loop_test(node, handle, entry=True)
             _c("graph_loops_add_test", graph, ctypes.byref(tail), ctypes.byref(test))
             _c("graph_loops_add_conditional", graph, ctypes.byref(tail), handle,
@@ -851,9 +938,12 @@ class GraphCache:
             torch.cuda.current_stream(device).wait_stream(self.stream)
             torch.cuda.synchronize(device)
         _restore(counters, kept)
+        inst = getattr(mirror, "inst", None)
         cap = _Capture(self.pool, counters,
                        loops=torch.zeros((MAX_LOOPS, len(wave.LOOP_WORDS)), dtype=torch.int64,
-                                         device=device))
+                                         device=device),
+                       ifs=torch.zeros((MAX_SCANS * (inst.num_instances if inst else 0),
+                                        len(wave.LOOP_WORDS)), dtype=torch.int64, device=device))
         on_side = torch.cuda.stream(self.stream) if cuda else contextlib.nullcontext()
         with on_side, capturing(cap):
             cap.begin()
@@ -862,7 +952,7 @@ class GraphCache:
         _restore(counters, kept)
         for t, was in sums:
             t.copy_(was)
-        program = _Program(cap.nodes, cap.conds, io, outputs, counters)
+        program = _Program(cap.nodes, cap.conds, io, outputs, counters, cap.ifs)
         if cuda:
             program._instantiate(device)
         STATS["captured"] += 1

@@ -42,8 +42,10 @@ sum into the band's sum included, is one captured program
 of host data between a frame's first wave and its read at its end.
 
 The port takes the JAX package's default settings as fixed: the skybox
-fetch is deferred to one lookup after the loop, and NEE prunes lanes whose
-contribution is zero regardless of occlusion (on alpha-free scenes).  The
+fetch is deferred to one lookup after the loop (the wave's tail,
+:func:`..ops.wave.wave_sum`, one kernel with the repacked wave's scatter and
+the sum over its samples), and NEE prunes lanes whose contribution is zero
+regardless of occlusion (on alpha-free scenes).  The
 emissive-pdf probe is the dense pdf sweep up to ``EMISSIVE_MAX_TRIS``
 emissive triangles and the walk of the emissive-only BVH above.
 
@@ -76,7 +78,6 @@ from ..ops.instanced import instanced_closest, instanced_shadow
 from ..ops.math3 import EPS, INF, V3, v3_to_tangent
 from ..ops.shade import (  # noqa: F401  (eval_hit: the plain hit, as it was here)
     _balance, _offset_origin, _sample_analytic, _sample_emissive, eval_hit)
-from ..ops.texture import sample_equirect
 from ..ops.traverse import bvh_closest, bvh_emissive_pdf, bvh_shadow
 from ..ops.wave import alpha_test as _alpha_test  # noqa: F401  (its name here before)
 from . import graphs
@@ -111,8 +112,9 @@ def reset_bounce_widths() -> None:
 
 
 def _closest_opaque(tables, o: V3, d: V3, *, t_min, t_max, active, raw: bool = False):
-    if tables.inst is not None:
-        return instanced_closest(tables, o, d, t_min=t_min, t_max=t_max, active=active, raw=raw)
+    if tables.inst is not None:  # in a program, each instance's launch behind an IF
+        return instanced_closest(tables, o, d, t_min=t_min, t_max=t_max, active=active, raw=raw,
+                                 capture=graphs.current_capture())
     if tables.pbvh is not None:
         return bvh_closest(tables, o, d, t_min=t_min, t_max=t_max, active=active, raw=raw)
     return dense_closest(tables, o, d, t_min=t_min, t_max=t_max, active=active, raw=raw)
@@ -187,7 +189,8 @@ def _shadow_unsorted(tables, o: V3, d: V3, *, t_max, active, seed):
     within t_max occludes: the query runs the :func:`_closest` loop."""
     if not tables.has_alpha:
         if tables.inst is not None:
-            return instanced_shadow(tables, o, d, t_max=t_max, active=active), seed
+            return instanced_shadow(tables, o, d, t_max=t_max, active=active,
+                                    capture=graphs.current_capture()), seed
         if tables.pbvh is not None:
             return bvh_shadow(tables, o, d, t_max=t_max, active=active), seed
         return dense_shadow(tables, o, d, t_max=t_max, active=active), seed
@@ -449,24 +452,30 @@ _COUNTERS = (*(d for name, d in LAUNCH_COUNTERS.items() if name != "graphs"), in
              BOUNCE_WIDTHS, ALPHA_LOOP)
 
 
-def launch_counts(loops: bool = True) -> dict:
+def launch_counts(loops: bool = True, skipped: bool = False) -> dict:
     """Each kernel's launches since the last :func:`reset_counters`, by
     module; with ``loops``, those only a captured program makes too:
     ``loop_cond_kernel``'s (``graphs``) and the state copies
-    (``trace``'s ``permute_copy``)."""
-    return {name: {k: n for k, n in d.items() if loops or k != "permute_copy"}
+    (``trace``'s ``permute_copy``); with ``skipped``, the instance launches
+    a program's IF nodes skipped too (:func:`.graphs.skipped`): the counts
+    of the eager loop, which launches every instance."""
+    def more(d, k):
+        return graphs.skipped(d).get(k, 0) if skipped else 0
+
+    return {name: {k: n + more(d, k) for k, n in d.items() if loops or k != "permute_copy"}
             for name, d in LAUNCH_COUNTERS.items() if loops or name != "graphs"}
 
 
 def reset_counters() -> None:
-    """Zero the launch counters, the instance steps, the bounce widths and
-    the alpha loop's counter, once the device loops' counts so far are in
-    (:func:`.graphs.settle`)."""
+    """Zero the launch counters, the instance steps, the bounce widths, the
+    alpha loop's counter and the launches the IF nodes skipped, once the
+    device loops' counts so far are in (:func:`.graphs.settle`)."""
     graphs.settle()
     for d in (*LAUNCH_COUNTERS.values(), instanced.STATS, ALPHA_LOOP):
         for k in d:
             d[k] = 0
     BOUNCE_WIDTHS.clear()
+    graphs.SKIPPED.clear()
 
 
 def _step(tables, s: dict, b: int, max_depth: int, nee_weighting: str, sort_first: bool, rays):
@@ -475,14 +484,6 @@ def _step(tables, s: dict, b: int, max_depth: int, nee_weighting: str, sort_firs
     if sort_first:
         s = _sort_wavefront(tables, s)
     return _bounce(tables, s, b, max_depth, nee_weighting, rays)
-
-
-def _radiance(tables, s: dict):
-    """(N, 3) radiance of the wave state ``s`` after its last bounce: the
-    value gathered plus the deferred skybox, one equirect fetch for the whole
-    loop."""
-    sky = sample_equirect(tables.skybox, s["direction"].to_array()) * tables.skybox_strength
-    return (s["value"] + s["sky_w"] * V3.from_array(sky)).to_array()
 
 
 @functools.lru_cache(maxsize=8)
@@ -495,14 +496,6 @@ def block_lanes(width: int, height: int, device) -> torch.Tensor:
     nbx = -(-width // 32)
     key = ((py // 32) * nbx + (px // 32)) * 1024 + (py % 32) * 32 + (px % 32)
     return torch.argsort(key, stable=True)
-
-
-def _add_wave(total, frame_rays, radiance, rays, k: int) -> None:
-    """Add a wave's radiance, summed over its ``k`` samples (samples-major
-    lanes), into ``total`` and its rays into ``frame_rays``
-    (renderer.py:79-80, 87)."""
-    total.add_(radiance if k == 1 else radiance.reshape(k, -1, 3).sum(dim=0))
-    frame_rays.add_(rays)
 
 
 class Waves:
@@ -526,7 +519,8 @@ class Waves:
     by an ``arange`` there, so the host neither makes a tensor of host data
     nor reads the device inside the waves.  The returned tensors are then
     the program's own, overwritten by its next launch.  Else each wave runs
-    eagerly (:func:`_wave`)."""
+    eagerly (:func:`_wave_eager`).  :attr:`samples` holds the last wave's
+    sample numbers on the device, where its program read them."""
 
     def __init__(self, tables, view_inv, proj_inv, width: int, height: int, max_depth: int,
                  nee_weighting: str = "reference"):
@@ -550,7 +544,7 @@ class Waves:
             # the allocator keeps a pinned block until the copies from it ran
             host = host.pin_memory()
         self.cam.copy_(host, non_blocking=True)
-        self.lanes = self.sum = None
+        self.lanes = self.sum = self.samples = None
 
     def band(self, lanes) -> None:
         """Start a band over the pixel ``lanes`` (a tensor on the tables'
@@ -574,14 +568,14 @@ class Waves:
                     nee_weighting=self.nee_weighting, repack=self.repack,
                     pixel_order=pixel_order)
         if self.cache is None:
-            io = dict(samples=torch.arange(first, first + k, dtype=torch.int64,
-                                           device=self.device), lanes=self.lanes, cam=self.cam)
-            radiance, rays = _wave_eager(self.tables, io, **opts)
-            _add_wave(self.sum, self.rays, radiance, rays, k)
-            return radiance, rays
-        samples = self.cache.buffer("samples", (k,), torch.int64, self.device)
-        torch.arange(first, first + k, out=samples)
+            samples = torch.arange(first, first + k, dtype=torch.int64, device=self.device)
+        else:
+            samples = self.cache.buffer("samples", (k,), torch.int64, self.device)
+            torch.arange(first, first + k, out=samples)
+        self.samples = samples
         io = dict(samples=samples, lanes=self.lanes, cam=self.cam, sum=self.sum, rays=self.rays)
+        if self.cache is None:
+            return _wave_eager(self.tables, io, **opts)
         key = (self.lanes.shape[0], k, self.width, self.height, pixel_order, self.max_depth,
                self.nee_weighting, self.repack)
         return self.cache.run(self.tables, key, io, functools.partial(_wave_eager, **opts),
@@ -624,17 +618,22 @@ def render_sample(tables, view_inv, proj_inv, width, height, sample_count, max_d
 def _wave_eager(tables, io: dict, *, width, height, max_depth, nee_weighting, repack,
                 pixel_order):
     """A wave eagerly, from its inputs ``io`` (``samples``, ``lanes``,
-    ``cam``): its initial state (:func:`..ops.wave.primary_rays`), then
-    :func:`_wave`.  Returns (radiance in lane order, rays)."""
+    ``cam``) to its sums (``sum``, ``rays``): its initial state
+    (:func:`..ops.wave.primary_rays`), :func:`_wave`, then its tail
+    (:func:`..ops.wave.wave_sum`: the deferred sky, and the radiance summed
+    over the samples into ``io["sum"]``, the rays into ``io["rays"]``).
+    Returns (radiance in lane order, rays)."""
     s = wave.primary_rays(io["samples"], io["lanes"], io["cam"], width, height, repack,
                           pixel_order)
-    return _wave(tables, s, max_depth, nee_weighting, repack)
+    s, rays = _wave(tables, s, max_depth, nee_weighting, repack)
+    return wave.wave_sum(tables, s, repack, io["sum"], io["rays"], rays,
+                         io["samples"].shape[0]), rays
 
 
 def _wave(tables, s: dict, max_depth: int, nee_weighting: str, repack: bool):
     """The bounce loop over the initial wave state ``s``, eagerly: the host
     reads the live count before each bounce (integrator.py:1051-1124).
-    Returns (radiance in lane order, rays)."""
+    Returns (the final state, its lanes joined back as they started, rays)."""
     n = s["active"].shape[0]
     rays = torch.zeros((), dtype=torch.int64, device=s["active"].device)
 
@@ -669,7 +668,7 @@ def _wave(tables, s: dict, max_depth: int, nee_weighting: str, repack: bool):
         b, s, live = run_phase(b, s, live_floor, live, sorted_=True)
     for tail in reversed(tails):
         s = _join(s, tail)
-    return _lane_radiance(tables, s, repack), rays
+    return s, rays
 
 
 def _wave_program(tables, io: dict, cap, *, width, height, max_depth: int, nee_weighting: str,
@@ -679,8 +678,10 @@ def _wave_program(tables, io: dict, cap, *, width, height, max_depth: int, nee_w
     loops, JAX's ``while_loop``s and ``cond``s.  Its first node is the
     primary-ray kernel, which reads the program's inputs (``io``'s
     ``samples``, ``lanes`` and ``cam``); each phase writes a bounce's next
-    state over its state; its last nodes add the wave's radiance, summed
-    over its samples, into ``io["sum"]`` and its rays into ``io["rays"]``.
+    state over its state; its last node or two, the wave's tail
+    (:func:`..ops.wave.wave_sum`), add the wave's radiance with its sky,
+    summed over its samples, into ``io["sum"]`` and its rays into
+    ``io["rays"]``.
     The bounce index ``b`` and the rays are device scalars, which the loops'
     tests and the parts write; each test counts the live (or pending) lanes
     itself, so no part reads the device on the host.  Returns the
@@ -723,14 +724,6 @@ def _wave_program(tables, io: dict, cap, *, width, height, max_depth: int, nee_w
         phase(head, live_floor)
     for wide, head in reversed(list(zip(states, states[1:]))):
         graphs._copy_state(_split(wide, head["active"].shape[0])[0], head)
-    radiance = _lane_radiance(tables, s, repack)
-    _add_wave(io["sum"], io["rays"], radiance, rays, io["samples"].shape[0])
+    radiance = wave.wave_sum(tables, s, repack, io["sum"], io["rays"], rays,
+                             io["samples"].shape[0])
     return radiance, rays
-
-
-def _lane_radiance(tables, s: dict, repack: bool):
-    """:func:`_radiance` in the lanes' own order (integrator.py:1136-1137)."""
-    value = _radiance(tables, s)
-    if repack:
-        value = torch.empty_like(value).index_copy_(0, s["slot"], value)
-    return value

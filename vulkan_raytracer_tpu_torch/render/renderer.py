@@ -37,10 +37,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.tonemap import reinhard_jodie
+from ..ops import wave
 from ..scene.camera import Camera
 from . import graphs, integrator
-from .integrator import Waves, block_lanes, render_sample
+from .integrator import Waves, block_lanes
 from .integrator import block_order  # noqa: F401  (the sharded renderer's import)
 
 #: Max lanes (pixel samples) per wave; cfg1 (512x512, 64 spp) runs 32 waves
@@ -150,15 +150,6 @@ def camera_uniforms(camera: Camera):
     )
 
 
-def _postprocess(acc, spp, tonemap, as_uint8):
-    img = acc / float(spp)
-    if tonemap:
-        img = reinhard_jodie(img)
-    if as_uint8:
-        img = (torch.clamp(img, 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
-    return img
-
-
 def render_image(
     tables,
     camera: Camera,
@@ -175,7 +166,9 @@ def render_image(
     array, total rays).  Frames above ``MAX_LANES_PER_PASS`` pixels render in
     bands, and so do the smaller frames :func:`_banded_preferred` picks.
     ``start_sample`` defaults to 1 (sample 0 is the
-    preview frame and is excluded from accumulation, raygen.rgen:95-96)."""
+    preview frame and is excluded from accumulation, raygen.rgen:95-96).
+    The sum's scatter to pixel order and its post-processing are one
+    :func:`..ops.wave.frame_image` (one launch on a card)."""
     camera.aspect = width / height
     view_inv, proj_inv = camera_uniforms(camera)
     with torch.inference_mode():
@@ -186,9 +179,7 @@ def render_image(
                                                banded=_banded_preferred(tables, width, height,
                                                                         spp))
         LAST_RENDER.update(bands=bands, waves=waves)
-        img = torch.zeros_like(acc)
-        img[lanes] = acc
-        host = _fetch(_postprocess(img, spp, tonemap, as_uint8))
+        host = _fetch(wave.frame_image(acc, lanes, spp, tonemap, as_uint8))
         # the frame's one read: it waits for the stream, the image's copy
         # with it, and brings in the counts of the waves' device loops
         total_rays, = graphs.settle(rays)
@@ -214,24 +205,21 @@ def _frame_step(tables, view_inv, proj_inv, width, height, accum, max_depth, dis
     directly.  Returns (uint8 (disp_h, disp_w, 3) image, rays traced), both
     still on the device.  The sample renders through the same program as
     :func:`render_image`'s waves on CUDA tables, its number written on the
-    device (:func:`render_sample`)."""
+    device (one :class:`Waves` wave of one sample, in pixel order, as
+    ``render_sample`` runs it); the rest of the frame is one
+    :func:`..ops.wave.frame_progressive`, which on a card reads the sample's
+    number where the wave's program read it."""
     with torch.inference_mode():
-        radiance, rays = render_sample(tables, view_inv, proj_inv, width, height, sample_count,
-                                       max_depth)
-        if sample_count == 0:
-            accum.zero_()
-            shown = radiance
+        waves = Waves(tables, view_inv, proj_inv, width, height, max_depth)
+        if waves.repack:
+            lanes = block_lanes(width, height, tables.device)
         else:
-            accum.add_(radiance)
-            shown = accum / float(sample_count)
-        img8 = _postprocess(shown, 1, True, True).reshape(height, width, 3)
-        if (disp_h, disp_w) != (height, width):
-            # decimate to the display's cell grid on the device, so that only
-            # disp_h * disp_w cells are fetched (the present blit)
-            fy, fx = height // disp_h, width // disp_w
-            cells = img8[:disp_h * fy, :disp_w * fx].reshape(disp_h, fy, disp_w, fx, 3)
-            img8 = (cells.to(torch.int32).sum(dim=(1, 3)) // (fy * fx)).to(torch.uint8)
-    return img8, rays
+            lanes = torch.arange(width * height, dtype=torch.int64, device=tables.device)
+        waves.band(lanes)
+        radiance, rays = waves.run(sample_count, 1, pixel_order=waves.repack)
+        sample = waves.samples if radiance.is_cuda else sample_count
+        img8 = wave.frame_progressive(radiance, accum, sample, width, height, disp_h, disp_w)
+    return img8, rays.clone()
 
 
 class Renderer:
