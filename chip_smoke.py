@@ -179,7 +179,12 @@ what a bounce calls run eagerly.
    tables' frame after the turns bit-equal to theirs before; seconds of
    each.  A third case, phase 15's emitter soup with its emissive mesh's
    node moved: each refit's wide emissive table has the tables' shape and
-   new boxes, and every side's frames launch the emissive walk.
+   new boxes, and every side's frames launch the emissive walk.  On the
+   gallery, with one instance lifted past the union box first, the graphs
+   side's frames re-sort with the refit's union box (``key_box``): it
+   differs from the tables', the refit's tables and the cache's mirror hold
+   it, equal to the refit's root bounds, and the key kernel over the mirror
+   is bit-equal to the plain key over the refit's tables.
 21. progressive — the progressive ``Renderer`` on Cornell 512x512, depth 4:
    the preview frame and 16 samples, whose mean must equal
    ``render_image(spp=16)`` within atol 1e-5, each frame's tail one
@@ -259,14 +264,18 @@ what a bounce calls run eagerly.
    their plain versions on the first wave of cfg1-cfg5, glTF 147k, the
    textured glb, the emitter soup, the gallery and the instanced alpha
    gallery, and bench cfg4's gate crop under its HDR sky
-   (``tools/check_torch_wave.py``, eager): the primary-ray kernel's
-   initial state, the wave's tail (``wave_sum_kernel``: the deferred sky,
-   a repacked wave's scatter, the sum over its samples; any lane that
+   (``tools/check_torch_wave.py``, eager), and one sample of the whole
+   frame of cfg1 and of the repacked cfg2, as the progressive frame and
+   ``render_sample`` run it (in pixel order where repacked): the
+   primary-ray kernel's initial state, the wave's tail (``wave_sum_kernel``:
+   the deferred sky, a repacked wave's scatter, the sum over its samples;
+   on every wave with the radiance both asked for and not, each on the same
+   inputs, so that every instance of the kernel is held; any lane that
    differs fails), and on the alpha scenes every resample pass's commit and
    count of pending lanes, every lane bit-equal or named by kernel, field
    and ulps as class i; a class ii lane fails.  Each kernel's first call on
-   cfg1, cfg2, glTF 147k, the textured glb and cfg4's gate crop timed in a
-   captured graph on
+   cfg1, cfg2, glTF 147k, the textured glb, cfg4's gate crop and the real
+   cfg4 and cfg5 band waves (8 samples) timed in a captured graph on
    copies of its inputs that exceed the L2 four times over (the commit's
    restored and the L2 flushed before each timed replay) against its plain
    version, with its bytes bound; on the glTF 147k and textured glb waves
@@ -287,7 +296,7 @@ what a bounce calls run eagerly.
    inputs that together exceed the L2 four times over, so that its bytes
    bound at the memory rate holds, against its plain version; the
    permutation also against ``index_select`` over the same columns (its
-   ``library_ms``), the key also without its root bounds' torch ops; and
+   ``library_ms``), the key one launch over the box the tables keep; and
    every permutation launch of those waves timed so, by (mode, columns,
    lanes) (the line's ``permute_launches``).  Then the permutation on
    synthetic permutations (``check_torch_trace.synthetic``: identity,
@@ -434,8 +443,8 @@ SHADE_TIMED = ("cfg1", "cfg2", "cfg3", "gltf147k", "gallery")
 #: the wave kernels' phase's configs (tools/check_torch_wave.py); the kernels
 #: are timed on the first four (the alpha commit on the two with alpha)
 WAVE_CONFIGS = ("cfg1", "cfg2", "gltf147k", "textured", "cfg4_gate", "cfg3", "cfg4", "cfg5",
-                "soup", "gallery", "alpha_gallery")
-WAVE_TIMED = ("cfg1", "cfg2", "gltf147k", "textured", "cfg4_gate")
+                "soup", "gallery", "alpha_gallery", "cfg1_sample", "cfg2_sample")
+WAVE_TIMED = ("cfg1", "cfg2", "gltf147k", "textured", "cfg4_gate", "cfg4", "cfg5")
 #: the trace kernels' phase's configs (tools/check_torch_trace.py); the
 #: kernels are timed on the first four
 TRACE_CONFIGS = ("cfg1", "cfg2", "gallery", "cfg5", "cfg3", "gltf147k", "cfg4", "textured",
@@ -1880,10 +1889,59 @@ def refit_phase(device, paths, dragon, dragon_tables, gallery, gallery_tables) -
     soup = emitter_soup_scene(100000, 5000, seed=31)
     soup_tables = soup.upload(device)
     move(soup, soup.root.children[1], shift)
+    # a gallery instance lifted past the union box, so that the refits' box
+    # is a new one the programs must read
+    box = gallery_tables.inst.box.cpu().numpy()
+    lift = np.eye(4, dtype=np.float32)
+    lift[1, 3] = 2.0 * float(box[1, 1] - box[0, 1]) + 1.0
+    move(gallery, gallery.root.children[gallery_tables.inst.num_instances // 3], lift)
     frame_after_refit(device, ((
         "cfg2_dragon", dragon, dragon_tables, CFG2_CAM), (
         "gallery", gallery, gallery_tables, gallery_camera(gallery_tables.inst.num_instances - 3)),
         ("emitter soup", soup, soup_tables, CFG1_CAM)))
+
+
+def refit_key_box(device, tables, refit, keys: int) -> dict:
+    """The re-sort key on the frames after an instanced refit: ``keys`` key
+    launches ran in them, the refit's tables carry their union box
+    (``InstanceTables.box``, bit-equal to ``trace.root_bounds`` of the refit's
+    instance boxes), the cache's mirror, which the programs read, holds it,
+    and the key kernel over the mirror is bit-equal to the plain key over the
+    refit's tables on 65,536 lanes from a seed across the box, and the box
+    is not the tables' (the caller moved an instance past it), so that a
+    mirror left with the tables' box would differ; any other outcome
+    fails."""
+    import torch
+
+    from vulkan_raytracer_tpu_torch.ops import trace
+    from vulkan_raytracer_tpu_torch.ops.math3 import V3
+    from vulkan_raytracer_tpu_torch.render import graphs
+
+    mirror = graphs.cache(refit).mirror
+    lo, hi = trace.root_bounds(refit)
+    if not (keys > 0 and torch.equal(refit.inst.box, torch.stack([lo, hi]))
+            and not torch.equal(refit.inst.box, tables.inst.box)
+            and torch.equal(mirror.inst.box, refit.inst.box)):
+        raise AssertionError(f"refit key: {keys} key launches; the refit's box "
+                             f"{refit.inst.box.tolist()}, root bounds {lo.tolist()} "
+                             f"{hi.tolist()}, the tables' {tables.inst.box.tolist()}, the "
+                             f"mirror's {mirror.inst.box.tolist()}")
+    g = torch.Generator(device=device).manual_seed(53)
+    n = 1 << 16
+    o = V3(*(lo[k] + (hi[k] - lo[k]) * (torch.rand(n, generator=g, device=device) * 1.2 - 0.1)
+             for k in range(3)))
+    d = V3(*torch.randn((3, n), generator=g, device=device))
+    active = torch.rand(n, generator=g, device=device) < 0.7
+    before = trace.LAUNCHES["coherence_key"]
+    got = trace.coherence_key(mirror, o, d, active)
+    want = trace.coherence_key_reference(refit, o, d, active)
+    torch.cuda.synchronize(device)
+    if trace.LAUNCHES["coherence_key"] - before != 1 or not torch.equal(got, want):
+        raise AssertionError(f"refit key: the kernel over the mirror differs from the plain "
+                             f"key on {int((got != want).sum())} of {n} lanes")
+    return {"key_launches": keys, "box": refit.inst.box.tolist(),
+            "tables_box": tables.inst.box.tolist(), "box_moved": True,
+            "mirror_box_equal": True, "key_lanes_equal": n}
 
 
 def frame_after_refit(device, cases, size: int = 512, spp: int = 4, depth: int = 4) -> None:
@@ -1898,7 +1956,9 @@ def frame_after_refit(device, cases, size: int = 512, spp: int = 4, depth: int =
     eager first frame.  Both sides' images bit-equal, and the old tables
     render their own frame again bit for bit.  On a scene whose probes walk
     the emissive BVH each refit's wide table has the shape of the tables'
-    and new boxes, and every side's frames launch the walk."""
+    and new boxes, and every side's frames launch the walk.  On an
+    instanced scene the graphs side's frames re-sort with the refit's box
+    (:func:`refit_key_box`)."""
     import torch
 
     from vulkan_raytracer_tpu_torch.ops import dense
@@ -1913,7 +1973,7 @@ def frame_after_refit(device, cases, size: int = 512, spp: int = 4, depth: int =
         out = {side: {"first_s": [], "second_s": [], "captured": [], "copies": [],
                       "copy_bytes": [], "copy_s": [], "emissive_walks": []}
                for side in ("graphs", "eager")}
-        want = None
+        want, key_box = None, None
         for side in ("graphs", "eager", "eager", "graphs"):
             with _eager() if side == "eager" else contextlib.nullcontext():
                 refit = scene.refit(tables)
@@ -1933,6 +1993,9 @@ def frame_after_refit(device, cases, size: int = 512, spp: int = 4, depth: int =
                     out[side][key].append(secs)
                 out[side]["emissive_walks"].append(
                     _launch_counts()["traverse"].get("emissive_pdf", 0))
+                if side == "graphs" and refit.inst is not None:
+                    key_box = refit_key_box(device, tables, refit,
+                                            _launch_counts()["trace"]["coherence_key"])
                 out[side]["captured"].append(graphs.STATS["captured"])
                 out[side]["copies"].append(graphs.STATS["copies"])
                 out[side]["copy_bytes"].append(graphs.STATS["copy_bytes"])
@@ -1966,6 +2029,7 @@ def frame_after_refit(device, cases, size: int = 512, spp: int = 4, depth: int =
         emit({"phase": "refit_frame", "config": f"{name}: {size}x{size} {spp} spp depth {depth} "
                                                 f"on the tables of a new refit", "rays": want[1],
               "bit_equal": True, "old_tables_bit_equal": True, "warm_frame": warm, **out,
+              **({"key_box": key_box} if key_box else {}),
               "mirror_copy_s": g["copy_s"], "mirror_copy_bytes": g["copy_bytes"],
               "mirror_bytes": cache.mirror_bytes(), "pool_bytes": cache.pool_bytes(),
               "first_frame_graphs_over_eager": g["first_s_median"] / e["first_s_median"],
@@ -2702,10 +2766,12 @@ def wave_phase(device, prebuilt: dict, out_dir: Path) -> tuple:
     resample pass of the alpha scenes (the glTF 147k, the textured glb, the
     instanced alpha gallery), the wave's tail (``wave_sum_kernel``: the
     deferred sky, a repacked wave's scatter, the sum) on every wave, cfg1's,
-    the repacked cfg2's and cfg4's gate crop under its HDR sky among them;
-    every lane of every field bit-equal, or named by kernel, field and ulps
-    as class i (<= 4 ulps); a class ii lane fails, and so does any lane of
-    the tail that differs.  On the first waves of
+    the repacked cfg2's and cfg5's, cfg4's gate crop under its HDR sky and
+    one sample of cfg1's and cfg2's whole frames (``render_sample``) among
+    them, each with the radiance asked for and not (the line's
+    ``other_flag``); every lane of every field bit-equal, or named by
+    kernel, field and ulps as class i (<= 4 ulps); a class ii lane fails,
+    and so does any lane of the tail that differs.  On the first waves of
     :data:`WAVE_TIMED` each kernel's first call is timed in a captured
     graph against its plain version eagerly, with its bytes bound, and
     every alpha pass so.  Then the synthetic passes
@@ -2718,16 +2784,18 @@ def wave_phase(device, prebuilt: dict, out_dir: Path) -> tuple:
     times = {k: {} for k in ctw.KERNELS}
     errs = {k: 0.0 for k in ctw.KERNELS}
     for name in WAVE_CONFIGS:
-        line = ctw.check_config(name, specs[name], device, tables=prebuilt.get(name),
-                                timing=name in WAVE_TIMED)
+        line = ctw.check_config(name, specs[name], device,
+                                tables=prebuilt.get(ctw.SAMPLE_WAVES.get(name, name)),
+                                timing=name in WAVE_TIMED, sample=name in ctw.SAMPLE_WAVES)
         emit({"phase": "wave", **line})
         if line["by_class"]["ii"] or not line["finite"]:
             raise AssertionError(f"wave {name}: {line['by_class']['ii']} class ii lanes, "
                                  f"finite {line['finite']}: {line['first']}")
         if line["calls"]["primary_rays"] != 1 or bool(
                 line["calls"]["alpha_commit"]) != line["alpha"] or line["calls"][
-                    "wave_sum"] not in (1, 2):
-            raise AssertionError(f"wave {name}: calls {line['calls']}")
+                    "wave_sum"] not in (1, 2) or line["other_flag"]["checks"] != 1:
+            raise AssertionError(f"wave {name}: calls {line['calls']}, the tail's other "
+                                 f"flag {line['other_flag']}")
         if line["by_kernel"].get("wave_sum_kernel"):
             raise AssertionError(f"wave {name}: the tail differs: {line['first']}")
         for k in ctw.KERNELS:
@@ -3057,17 +3125,19 @@ _ENTRIES = {"closest_kernel": "dense_closest", "shadow_kernel": "dense_shadow",
 
 def ptxas_table(report: str) -> dict:
     """Registers, stack frame and spill bytes of each kernel variant from
-    ptxas's -v report."""
-    table, name = {}, None
+    ptxas's -v report; a kernel built in several instances (a template's)
+    takes the most of each figure over them."""
+    table, name, row = {}, None, None
     for line in report.splitlines():
         if "Compiling entry function" in line:
             name = next((v for k, v in _ENTRIES.items() if k in line), None)
         elif name and "bytes stack frame" in line:
             nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
-            table[name] = dict(zip(("stack_frame", "spill_stores", "spill_loads"), nums))
-        elif name and "Used" in line and "registers" in line:
-            table[name]["registers"] = int(line.split("Used")[1].split()[0])
-            name = None
+            row = dict(zip(("stack_frame", "spill_stores", "spill_loads"), nums))
+        elif name and row is not None and "Used" in line and "registers" in line:
+            row["registers"] = int(line.split("Used")[1].split()[0])
+            table[name] = {k: max(v, table.get(name, {}).get(k, 0)) for k, v in row.items()}
+            name, row = None, None
     return table
 
 

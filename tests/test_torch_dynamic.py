@@ -5,7 +5,10 @@ scene must trace and render like a freshly uploaded one (same triangle ids,
 t within rtol 1e-6, images within atol 1e-5: only the boxes differ), and no
 kernel table cached on the old tables may survive into the new ones.  The
 port's twins of tests/test_dynamic.py and of the refit test of
-tests/test_instancing.py.
+tests/test_instancing.py.  The instanced tables' union box (what the re-sort
+key's kernel reads) is ``trace.root_bounds``' pair bit for bit after an
+upload, a conversion of the JAX tables and a refit that grows it, and a
+refit keeps the tables' signature, so its frames replay the programs.
 """
 
 import dataclasses
@@ -22,13 +25,15 @@ from vulkan_raytracer_tpu.scene import scenegraph as jsg
 from vulkan_raytracer_tpu.scene.builtin import cornell_box_scene as jcornell
 from vulkan_raytracer_tpu_torch.accel.bvh import refit_bvh
 from vulkan_raytracer_tpu_torch.ops import instanced as tinst
+from vulkan_raytracer_tpu_torch.ops import trace as ttrace
 from vulkan_raytracer_tpu_torch.ops import traverse as ttr
 from vulkan_raytracer_tpu_torch.ops.math3 import V3
+from vulkan_raytracer_tpu_torch.render import graphs
 from vulkan_raytracer_tpu_torch.render.renderer import render_image
 from vulkan_raytracer_tpu_torch.scene import scenegraph as tsg
 from vulkan_raytracer_tpu_torch.scene.builtin import cornell_box_scene
 from vulkan_raytracer_tpu_torch.scene.camera import Camera
-from vulkan_raytracer_tpu_torch.scene.convert import _bvh_from_numpy
+from vulkan_raytracer_tpu_torch.scene.convert import _bvh_from_numpy, tables_from_numpy
 
 BVH_FIELDS = ("aabb_min", "aabb_max", "first_tri", "miss", "tri_v0", "tri_e1", "tri_e2",
               "tri_id")
@@ -251,6 +256,33 @@ def test_instanced_refit_matches_fresh_upload_and_jax():
     c, _ = render_image(t0, _inst_cam(), 24, 24, spp=2, max_depth=2, tonemap=False)
     assert _rmse(a, b) < 2e-3
     assert _rmse(a, c) > 1e-4  # the move changed the image
+
+
+@pytest.mark.parametrize("made_by", ["upload", "convert", "refit"])
+def test_instanced_box_is_the_root_bounds(made_by):
+    """``InstanceTables.box`` bit-equal to ``trace.root_bounds``' reductions
+    (and what ``trace.key_box`` hands the kernel): after the port's upload,
+    after ``tables_from_numpy`` of the JAX upload, and after a refit that
+    moves an instance past the old box, which grows it; the refit keeps the
+    tables' signature."""
+    s = instanced_scene(tsg, n_soup_instances=3)
+    t0 = s.upload("cpu", instancing=True)
+    tables = t0
+    if made_by == "convert":
+        tables = tables_from_numpy(jax.tree_util.tree_map(
+            np.asarray, instanced_scene(jsg, n_soup_instances=3).upload(instancing=True)), "cpu")
+    elif made_by == "refit":
+        node = next(n for n in s.iter_depth_first() if n.mesh == 0)
+        node.world_transform = _trs((1.5, 4.8, -1.2), ry=0.5)
+        tables = s.refit(t0)
+        assert graphs.signature(tables) == graphs.signature(t0)
+        assert not torch.equal(tables.inst.box, t0.inst.box)
+    box = tables.inst.box
+    assert box.shape == (2, 3) and box.dtype == torch.float32
+    lo, hi = ttrace.root_bounds(tables)
+    for got, want in zip(ttrace.key_box(tables), (lo, hi)):
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(box, torch.stack([lo, hi]))
 
 
 def test_instanced_refit_steps_read_the_moved_transforms(monkeypatch):

@@ -651,8 +651,9 @@ def test_stand_in_program_bit_equal_to_eager(case, monkeypatch):
             tables.inst is not None)
     programs = graphs.cache(tables).graphs
     repack = integrator._repack_preferred(tables)
-    # (pixels, samples, width, height, pixel order, depth, NEE weighting, repack)
-    assert list(programs) == [(1024, 2, 32, 32, False, 3, "reference", repack)]
+    # (pixels, samples, width, height, pixel order, radiance, depth, NEE
+    # weighting, repack): the frame reads only the band's sum
+    assert list(programs) == [(1024, 2, 32, 32, False, False, 3, "reference", repack)]
     program, = programs.values()
     assert list(program.io) == ["samples", "lanes", "cam", "sum", "rays"]
 
@@ -728,7 +729,8 @@ def test_progressive_frame_through_the_program(case, monkeypatch):
     (n, _), = captures
     repack = integrator._repack_preferred(tables)
     assert n == 32 * 32
-    assert list(graphs.cache(tables).graphs) == [(1024, 1, 32, 32, repack, 3, "reference",
+    # the frame's tail reads the sample's radiance
+    assert list(graphs.cache(tables).graphs) == [(1024, 1, 32, 32, repack, True, 3, "reference",
                                                   repack)]
 
 

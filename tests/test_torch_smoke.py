@@ -37,6 +37,19 @@ def test_ptxas_table_reads_each_variant():
     }
 
 
+def test_ptxas_table_takes_the_most_over_a_kernels_instances():
+    """A template's instances (``wave_sum_kernel<kMode, kRad>``) are one
+    kernel of the table: the most registers, stack and spills of any."""
+    report = "".join(
+        f"ptxas info    : Compiling entry function '_ZN39_GLOBAL__N_wave_cu15wave_sum_kernel"
+        f"ILi{mode}ELb{rad}EEEvNS_4ArgsE' for 'sm_90a'\n"
+        f"    {stack} bytes stack frame, {stack} bytes spill stores, 0 bytes spill loads\n"
+        f"ptxas info    : Used {regs} registers, used 1 barriers, 6144 bytes smem\n"
+        for mode, rad, stack, regs in ((0, 0, 0, 32), (0, 1, 8, 40), (1, 0, 0, 34)))
+    assert cs.ptxas_table(report) == {"wave_sum": {"stack_frame": 8, "spill_stores": 8,
+                                                   "spill_loads": 0, "registers": 40}}
+
+
 @pytest.mark.parametrize("ops, nbytes, by", [(67e9, 1e6, "operations"), (1e6, 3.35e9, "bytes")])
 def test_bound_is_the_larger_of_the_two_times(ops, nbytes, by):
     b = cs.bound(ops, nbytes)

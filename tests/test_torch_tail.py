@@ -8,7 +8,13 @@ post-processing of the torch port, held on the CPU.
   states of 256 pixels, repacked and not, at k = 1, 2 and 8 (aten's CPU sum
   over the samples adds them one after another at this width; at a width
   whose columns do not fill its vectors it reduces the tail in another
-  order, which the stated order does not follow);
+  order, which the stated order does not follow); without the per-lane
+  radiance (``radiance=False``, what ``render_lanes``' waves ask for) it
+  returns none and adds the same sum and rays, at k = 1, 2, 3 and 8, with
+  edge, NaN and infinite directions, under a sky with NaN, infinite and
+  negative texels too; a small ``render_lanes``
+  frame (dense, and repacked on BVH streams) sums the same with its waves
+  asked for their radiance; the tile of the kernel's tail covers its block;
 * its sky term against the JAX ``sample_equirect`` x strength x sky weight
   (render/integrator.py:1128-1137) on a seeded 16x32 HDR sky and the
   directions where the lookup's pieces meet their edges: x = z = 0 (both
@@ -31,7 +37,10 @@ post-processing of the torch port, held on the CPU.
 
 Marked ``cuda`` (they skip without a card): each kernel
 (``wave_sum_kernel``, ``frame_post_kernel``, the instance step on poisoned
-outputs) bit-equal to its plain version on the same inputs.
+outputs) bit-equal to its plain version on the same inputs; the tail at k =
+1, 2, 3, 8 and 16, repacked or not, with its radiance asked for or not, over
+a sky whose NaN, infinite and negative texels lie beside lanes of zero sky
+weight (+0 and -0), and edge, NaN and infinite directions.
 """
 
 import re
@@ -62,9 +71,18 @@ RTOL_SKY = 1e-6
 N = 256  # pixels of a seeded wave
 
 
-def _sky_tables(device="cpu", strength=1.7):
-    """The tables the tail reads: a seeded 16x32 HDR sky and its strength."""
-    return types.SimpleNamespace(skybox=pack_envmap(sky_hdr(h=16, w=32), device),
+def _sky_tables(device="cpu", strength=1.7, poison=False):
+    """The tables the tail reads: a seeded 16x32 HDR sky and its strength;
+    with ``poison``, a NaN, infinite and negative texel in every row, whose
+    fetch makes a lane of zero sky weight NaN or -0 where it is not skipped."""
+    sky = sky_hdr(h=16, w=32)
+    if poison:
+        sky = sky.copy()
+        for y in range(16):
+            sky[y, (5 * y) % 32] = (np.nan, 1.0, 2.0)
+            sky[y, (5 * y + 11) % 32] = (np.inf, -np.inf, 0.5)
+            sky[y, (5 * y + 20) % 32] = (-3.0, 0.25, -0.0)
+    return types.SimpleNamespace(skybox=pack_envmap(sky, device),
                                  skybox_strength=torch.tensor(strength, dtype=torch.float32,
                                                               device=device))
 
@@ -80,7 +98,9 @@ def _state(n: int, k: int, repack: bool, seed: int, device="cpu") -> dict:
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     sky_w = r.uniform(0.0, 2.0, (lanes, 3)).astype(np.float32)
     sky_w[r.uniform(size=lanes) < 1 / 3] = 0.0
+    sky_w[r.uniform(size=lanes) < 0.05] = -0.0
     value = (r.uniform(0.0, 3.0, (lanes, 3)) ** 3).astype(np.float32)
+    value[r.uniform(size=lanes) < 0.05] = -0.0
 
     def v3(a):
         return V3(*(torch.as_tensor(a[:, c].copy(), device=device) for c in range(3)))
@@ -118,10 +138,95 @@ def test_wave_sum_reference_is_the_former_tail(k, repack):
     total, frame_rays, rays = _sums(N, seed=k)
     want_total, want_rays = total.clone(), frame_rays.clone()
     want = _former_tail(tables, s, repack, want_total, want_rays, rays, k)
-    got = wave.wave_sum(tables, s, repack, total, frame_rays, rays, k)  # the CPU: plain
+    got = wave.wave_sum(tables, s, repack, total, frame_rays, rays, k, True)  # the CPU: plain
     assert torch.equal(got, want) and torch.equal(total, want_total)
     assert int(frame_rays) == int(want_rays) == 1234 + 567
     assert got.shape == (N * k, 3) and torch.isfinite(got).all()
+
+
+def _same(a, b) -> bool:
+    """Equal bit for bit, NaN where NaN (whatever its payload)."""
+    nan = torch.isnan(a)
+    return bool(torch.equal(nan, torch.isnan(b))
+                and torch.equal(a[~nan].view(torch.int32), b[~nan].view(torch.int32)))
+
+
+@pytest.mark.parametrize("poison", [False, True])
+@pytest.mark.parametrize("repack", [False, True])
+@pytest.mark.parametrize("k", [1, 2, 3, 8])
+def test_wave_sum_without_radiance_adds_the_same(k, repack, poison):
+    """The tail asked for no radiance returns none, and adds the sum and the
+    rays it adds when asked (the plain version on the CPU)."""
+    tables = _sky_tables(poison=poison)
+    s = _state(N, k, repack, seed=20 * k + repack)
+    total, frame_rays, rays = _sums(N, seed=k)
+    want_total, want_rays = total.clone(), frame_rays.clone()
+    want = wave.wave_sum(tables, s, repack, want_total, want_rays, rays, k, True)
+    assert want.shape == (N * k, 3)
+    assert wave.wave_sum(tables, s, repack, total, frame_rays, rays, k, False) is None
+    assert _same(total, want_total) and int(frame_rays) == int(want_rays) == 1234 + 567
+    assert bool(torch.isnan(want).any()) == poison
+
+
+@pytest.mark.parametrize("scene", ["dense", "repacked"])
+def test_render_lanes_sums_the_same_with_radiance(scene, monkeypatch):
+    """A small ``render_lanes`` frame (its waves ask for no radiance) sums
+    and counts rays as it does with its waves asked for their radiance."""
+    from vulkan_raytracer_tpu_torch.render import integrator, renderer
+    from vulkan_raytracer_tpu_torch.scene.builtin import cornell_box_scene
+    from vulkan_raytracer_tpu_torch.scene.camera import Camera
+
+    tables = cornell_box_scene().upload("cpu", traversal="bvh" if scene == "repacked" else "auto")
+    monkeypatch.setattr(integrator, "_repack_preferred", lambda t: scene == "repacked")
+    monkeypatch.setattr(renderer, "MAX_LANES_PER_PASS", 256)  # waves of 2 samples
+    cam = Camera(position=np.array([0.0, 1.0, 2.4]), direction=np.array([0.0, 0.0, -1.0]))
+    view_inv, proj_inv = renderer.camera_uniforms(cam)
+    lanes = torch.arange(12 * 10, dtype=torch.int64)
+
+    def frame():
+        acc, rays, _, waves = renderer.render_lanes(tables, view_inv, proj_inv, 12, 10, 3, 4, 1,
+                                                    lanes)
+        return acc, int(rays), waves
+
+    got = frame()
+    asked = []
+    run = integrator.Waves.run
+
+    def with_radiance(self, first, k, pixel_order=False, radiance=False):
+        asked.append(radiance)
+        out, rays = run(self, first, k, pixel_order, True)
+        assert out.shape == (lanes.shape[0] * k, 3)
+        return out, rays
+
+    monkeypatch.setattr(integrator.Waves, "run", with_radiance)
+    want = frame()
+    assert asked == [False] * got[2] and got[2] == 2
+    assert torch.equal(got[0], want[0]) and got[1:] == want[1:] and got[1] > 0
+
+
+def test_tail_refuses_lanes_beyond_its_32_bit_indices(monkeypatch):
+    """On a card the tail indexes its lanes' floats in 32 bits: a wave of
+    ``wave.MAX_SUM_LANES`` lanes or more raises before any launch."""
+    launched = []
+    monkeypatch.setattr(wave, "_on_cuda", lambda t: True)
+    monkeypatch.setattr(_ext, "launch", lambda *a: launched.append(a))
+    monkeypatch.setattr(wave, "MAX_SUM_LANES", 2 * 64)
+    with pytest.raises(ValueError, match="32 bits"):
+        wave.wave_sum(_sky_tables(), _state(64, 2, False, seed=1), False, *_sums(64, seed=1), 2,
+                      False)
+    assert launched == []
+    wave.wave_sum(_sky_tables(), _state(63, 2, False, seed=1), False, *_sums(63, seed=1), 2, False)
+    assert len(launched) == 1
+
+
+def test_tail_tiles_cover_their_block():
+    """A tile of the kernel's tail is a power of two of pixels, at least a
+    warp, times as many samples as a chunk holds: the block's threads."""
+    for k in range(1, 40):
+        tile = wave.sum_tile(k)
+        rows = wave.SUM_THREADS // tile
+        assert tile * rows == wave.SUM_THREADS and tile >= 32 and tile & (tile - 1) == 0
+        assert rows == min(wave.SUM_ROWS, 1 << (k - 1).bit_length())
 
 
 def _edge_directions() -> np.ndarray:
@@ -263,6 +368,8 @@ def test_modes_are_the_kernel_source_enums():
         "kSum" + m.capitalize() for m in ("lanes", "scatter", "add")) and wave.SUM_MODES == (
         "lanes", "scatter", "add")
     assert _enum(src, "FrameMode") == ("kFrameImage", "kFrameProgressive")
+    assert f"constexpr int kThreads = {wave.SUM_THREADS};" in src
+    assert f"constexpr int kSumRows = {wave.SUM_ROWS};" in src
     assert wave.FRAME_MODES == ("image", "progressive")
     trace_src = (csrc / "trace.cu").read_text()
     assert [w.replace("kIf", "kLoop") for w in _enum(trace_src, "IfWord")] == list(
@@ -289,7 +396,7 @@ def test_failed_launch_raises(kernel, monkeypatch):
     n = 64
     calls = {
         "wave_sum": lambda: wave.wave_sum(_sky_tables(), _state(n, 2, True, seed=1), True,
-                                          *_sums(n, seed=1), 2),
+                                          *_sums(n, seed=1), 2, True),
         "frame_image": lambda: wave.frame_image(torch.zeros((n, 3)), torch.arange(n), 4, True,
                                                 True),
         "frame_progressive": lambda: wave.frame_progressive(
@@ -312,21 +419,31 @@ def _card():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("radiance", [True, False])
 @pytest.mark.parametrize("repack", [False, True])
-@pytest.mark.parametrize("k", [1, 2, 8])
-def test_wave_sum_kernel_bit_equal(k, repack):
+@pytest.mark.parametrize("k", [1, 2, 3, 8, 16])
+def test_wave_sum_kernel_bit_equal(k, repack, radiance):
+    """The tail's kernel against its plain version on 4,099 pixels (no
+    tile's multiple, so rows start off 16-byte boundaries): a wave in lane
+    order in one launch, a repacked one in two (the scatter, then the
+    tiles); over a sky with NaN, infinite and negative texels beside lanes
+    of zero sky weight, with edge, NaN and infinite directions.  The
+    radiance, the sum and the rays bit-equal (NaN where NaN)."""
     dev = _card()
-    tables = _sky_tables(dev)
-    s = _state(4099, k, repack, seed=k, device=dev)
-    total, frame_rays, rays = _sums(4099, seed=k, device=dev)
-    want_total, want_rays = total.clone(), frame_rays.clone()
-    want = wave.wave_sum_reference(tables, s, repack, want_total, want_rays, rays, k)
-    before = wave.LAUNCHES["wave_sum"]
-    got = wave.wave_sum(tables, s, repack, total, frame_rays, rays, k)
-    torch.cuda.synchronize()
-    assert wave.LAUNCHES["wave_sum"] - before == 1 + repack
-    assert torch.equal(got, want) and torch.equal(total, want_total)
-    assert torch.equal(frame_rays, want_rays)
+    for poison in (False, True):
+        tables = _sky_tables(dev, poison=poison)
+        s = _state(4099, k, repack, seed=k, device=dev)
+        total, frame_rays, rays = _sums(4099, seed=k, device=dev)
+        want_total, want_rays = total.clone(), frame_rays.clone()
+        want = wave.wave_sum_reference(tables, s, repack, want_total, want_rays, rays, k, True)
+        before = wave.LAUNCHES["wave_sum"]
+        got = wave.wave_sum(tables, s, repack, total, frame_rays, rays, k, radiance)
+        torch.cuda.synchronize()
+        assert wave.LAUNCHES["wave_sum"] - before == 1 + repack
+        assert (got is None) != radiance
+        assert radiance is False or _same(got, want), poison
+        assert _same(total, want_total) and torch.equal(frame_rays, want_rays), poison
+        assert bool(torch.isnan(total).any()) == poison
 
 
 @pytest.mark.cuda

@@ -16,7 +16,9 @@ against the JAX package:
   scene and rays; t within its rtol 5e-6, XLA contracting the affine map into
   FMAs), one step an instance and one more a call;
 * the key (``coherence_key``) bit-equal to JAX ``_coherence_key`` on a
-  forced-BVH Cornell box, and its stable permutation equal to ``jnp.argsort``'s;
+  forced-BVH Cornell box and on an instanced scene's refit tables, also over
+  the box the kernel reads (``key_box``), and its stable permutation equal
+  to ``jnp.argsort``'s;
 * the permutation (``permute``) in its three modes against the re-sort's
   former ``index_select`` / ``index_copy_`` / ``copy_`` and
   ``_sort_wavefront`` against its former per-field gathers; the plain
@@ -28,7 +30,8 @@ Beside them: the column tables name ``csrc/trace.cu``'s enums in order, and
 the permutation's layout its constants; each
 kernel's byte count lists the lane columns its source names; with the
 wrappers routed to stubbed launches, a closest hit or an alpha pass runs a
-few aten ops beside its kernels and an instance step none; and a wrapper
+few aten ops beside its kernels, an instance step none and a re-sort's key
+none (on an instanced scene too); and a wrapper
 whose launch fails raises and never runs its plain version;
 tools/check_torch_trace.py finds no lane with both sides plain, and times
 its kernels on copies of their inputs that span four times the L2.  Marked ``cuda``
@@ -179,17 +182,35 @@ def test_instance_steps_match_jax(kind, monkeypatch):
     assert steps == [False] * (instances + 1) + [True] * (instances + 1)
 
 
-def test_coherence_key_matches_jax():
+@pytest.mark.parametrize("case", ["cornell_bvh", "instanced_refit"])
+def test_coherence_key_matches_jax(case, monkeypatch):
     """The key's plain version bit-equal to JAX ``_coherence_key`` on a
-    forced-BVH Cornell box (its root box), and its stable permutation."""
+    forced-BVH Cornell box (its root box) and on an instanced scene after a
+    refit that moves an instance (each package's own refit tables: the
+    instance boxes' union), and its stable permutation; then over the box
+    the kernel reads (``trace.key_box``: on the instanced scene the tables'
+    stored union box), bit-equal again."""
     import jax.numpy as jnp
+    from test_torch_instancing import _trs, instanced_scene
     from test_torch_repack import _key_inputs
     from vulkan_raytracer_tpu.render import integrator as jint
+    from vulkan_raytracer_tpu.scene import scenegraph as jsg
     from vulkan_raytracer_tpu.scene.builtin import cornell_box_scene as jcornell
     from vulkan_raytracer_tpu_torch.scene.convert import tables_from_numpy
 
-    jt = jcornell().upload()
-    tt = tables_from_numpy(_np_tree(jt), "cpu", traversal="bvh")
+    if case == "cornell_bvh":
+        jt = jcornell().upload()
+        tt = tables_from_numpy(_np_tree(jt), "cpu", traversal="bvh")
+    else:
+        def refit(sg, up):
+            s = instanced_scene(sg, n_soup_instances=3)
+            t0 = up(s)
+            next(n for n in s.iter_depth_first() if n.mesh == 0).world_transform = _trs(
+                (1.5, 4.8, -1.2), ry=0.5)
+            return s.refit(t0)
+
+        jt = refit(jsg, lambda s: s.upload(instancing=True))
+        tt = refit(tsg, lambda s: s.upload("cpu", instancing=True))
     o, d, dead = _key_inputs(tt, 2048, seed=8)
     want = np.asarray(jint._coherence_key(jt, _v3(o, "jax"), _v3(d, "jax"), jnp.asarray(dead)))
     got = trace.coherence_key(tt, _v3(o, "torch"), _v3(d, "torch"), torch.as_tensor(~dead))
@@ -198,6 +219,9 @@ def test_coherence_key_matches_jax():
     assert len(np.unique(want)) > 500
     np.testing.assert_array_equal(torch.argsort(got, stable=True).numpy(),
                                   np.asarray(jnp.argsort(jnp.asarray(want))))
+    monkeypatch.setattr(trace, "root_bounds", trace.key_box)
+    boxed = trace.coherence_key(tt, _v3(o, "torch"), _v3(d, "torch"), torch.as_tensor(~dead))
+    assert torch.equal(boxed, got)
 
 
 def _state(n, seed):
@@ -587,11 +611,18 @@ def test_alpha_pass_is_its_traversal_and_one_kernel(scene, monkeypatch):
     assert len(mode.ops) <= 3 and "fill" not in mode.ops and "zero" not in mode.ops, mode.ops
 
 
-def test_resort_is_a_key_a_sort_and_one_gather(monkeypatch):
-    """A re-sort routed to the kernels: the key, the library argsort and one
-    permute launch for all 21 columns; a program's copy back one more,
-    counted apart."""
-    tables = cornell_box_scene().upload("cpu", traversal="bvh")
+@pytest.mark.parametrize("scene", ["bvh", "instanced"])
+def test_resort_is_a_key_a_sort_and_one_gather(scene, monkeypatch):
+    """A re-sort routed to the kernels: the key (one launch and no op
+    around it, on an instanced scene too: its box is the tables'), the
+    library argsort and one permute launch for all 21 columns; a program's
+    copy back one more, counted apart."""
+    from test_torch_instancing import instanced_scene
+
+    if scene == "instanced":
+        tables = instanced_scene(tsg, n_soup_instances=3).upload("cpu", instancing=True)
+    else:
+        tables = cornell_box_scene().upload("cpu", traversal="bvh")
     s = _state(64, seed=4)
     mode = _Ops()
     launched = _routed(monkeypatch, mode)
@@ -738,6 +769,43 @@ def test_kernels_bit_equal_on_the_card(scene, monkeypatch):
     assert bool(launched["instance_step"]) == scene.startswith("instanced")
     if scene != "dense":
         assert launched["coherence_key"] == 1 and launched["permute"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("made_by", ["upload", "refit"])
+def test_gallery_key_is_one_launch_on_the_card(made_by, monkeypatch):
+    """A re-sort's key on a gallery of 4 dragons (a BLAS each) beside the
+    dense floor and panels, uploaded instanced on the card and refitted
+    with a dragon moved past the box: one ``coherence_key`` launch and no
+    aten op around it but the key's allocation (the box is the tables'),
+    bit-equal to the plain key, which reduces the instance boxes."""
+    _card()
+    import chip_smoke
+
+    monkeypatch.setattr(dense, "DENSE_MAX_TRIS", 500)
+    scene = chip_smoke.gallery_scene(detail=12, n_dragons=4)
+    tables = scene.upload("cuda", instancing=True)
+    assert [g.pblas is not None for g in tables.inst.groups] == [True, False, False]
+    if made_by == "refit":
+        node = next(n for n in scene.iter_depth_first() if n.mesh >= 0)
+        node.world_transform = node.world_transform.copy()
+        node.world_transform[1, 3] += 40.0
+        moved = scene.refit(tables)
+        assert not torch.equal(moved.inst.box, tables.inst.box)
+        tables = moved
+    lo, hi = trace.root_bounds(tables)
+    o, d, _, act = _rays(100_003, seed=9, lo=float(lo.min()), hi=float(hi.max()), dy=0.0)
+    o, d = _v3(o, "torch"), _v3(d, "torch")
+    o, d = (V3(*(c.cuda() for c in v)) for v in (o, d))
+    active = torch.as_tensor(act, device="cuda")
+    mode = _Ops()
+    before = trace.LAUNCHES["coherence_key"]
+    with mode:
+        key = trace.coherence_key(tables, o, d, active)
+    torch.cuda.synchronize()
+    assert trace.LAUNCHES["coherence_key"] - before == 1 and mode.ops == [], mode.ops
+    assert torch.equal(key, trace.coherence_key_reference(tables, o, d, active))
+    assert len(torch.unique(key)) > 1000
 
 
 @pytest.mark.cuda

@@ -330,6 +330,42 @@ def test_alpha_pass_matches_jax_loop_body(mode, share, monkeypatch):
         assert (tst["tri"].numpy() >= 0).any() and tst["pending"].numpy().any()
 
 
+@pytest.mark.parametrize("repack", [False, True])
+@pytest.mark.parametrize("sample", [False, True])
+def test_wave_check_holds_both_tail_flags(sample, repack, monkeypatch):
+    """tools/check_torch_wave.py on a small Cornell frame (its first wave,
+    and with ``sample`` one sample of the whole frame as ``render_sample``
+    runs it), in lane order and repacked: the tail is held once with each
+    radiance flag, no lane differing with both sides plain; a radiance lane
+    one ulp off in the tail's radiance-writing instance is found, whichever
+    flag the wave asks for."""
+    import check_torch_wave as ctw
+
+    monkeypatch.setattr(tint, "_repack_preferred", lambda t: repack)
+    spec = (lambda device: cornell_box_scene().upload(
+        device, traversal="bvh" if repack else "auto"),
+        ([0.0, 1.0, 2.4], [0.0, 0.0, -1.0]), 12, 10, 2, 3)
+    cpu = torch.device("cpu")
+    line = ctw.check_config("cornell", spec, cpu, sample=sample)
+    assert line["differing_lanes"] == 0 and line["finite"] and line["rays"] > 0
+    assert line["other_flag"] == {"checks": 1, "launches": 0}
+    assert line["calls"]["wave_sum"] == 1 + repack
+    assert line["lanes"] == 120 * (1 if sample else 2)
+    tail = wave.wave_sum
+
+    def off_by_an_ulp(tables, s, repack, total, frame_rays, rays, k, radiance):
+        out = tail(tables, s, repack, total, frame_rays, rays, k, radiance)
+        if out is not None:
+            out[7, 1] = torch.nextafter(out[7, 1], torch.tensor(np.inf))
+        return out
+
+    monkeypatch.setattr(wave, "wave_sum", off_by_an_ulp)
+    line = ctw.check_config("cornell", spec, cpu, sample=sample)
+    assert line["by_kernel"] == {"wave_sum_kernel": 1}
+    assert line["first"][0]["lane"] == 7 * 3 + 1 and line["first"][0]["ulps"] == 1
+    assert line["first"][0]["field"] == ("[0]" if sample else "other_flag[0]")
+
+
 def test_synthetic_check_finds_nothing_on_the_cpu(monkeypatch):
     """tools/check_torch_wave.py's synthetic passes with both sides plain:
     every share over the alpha gallery instanced, flattened and untextured

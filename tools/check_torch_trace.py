@@ -32,10 +32,9 @@ the table rows its hits read, each once: ``bound_ms_with_tables``, from
 ``trace.finish_table_bytes``).  Its plain version runs
 eagerly on the same copies in turn; beside the permutation,
 ``torch.index_select`` over the same columns, captured the same way
-(``library_ms``).  The key is also timed without :func:`trace.root_bounds`'
-torch ops (on an instanced scene a few ops before the launch), and those
-ops apart.  Then every permutation launch of the wave is timed the same
-way (each gather and scatter, and the copy the check makes of each
+(``library_ms``).  The key is one launch over the box the tables keep
+(``trace.key_box``).  Then every permutation launch of the wave is timed
+the same way (each gather and scatter, and the copy the check makes of each
 gather's columns, standing for a program's state copies), beside its
 plain version captured alike (``index_select``, ``index_copy_``,
 ``copy_``: the library's calls), grouped by (mode, columns, lanes): the
@@ -383,18 +382,8 @@ def time_kept(kept: dict) -> dict:
             n = args[3].shape[0]
             nbytes = trace.coherence_key_bytes(n)
             copies = _copies(args, nbytes)
-            ms = _cold_ms(trace.coherence_key, copies)
-            alone, bounds_ms = ms, 0.0  # a BVH's root box: views, no op
-            if args[0].inst is not None:  # the union of the instance boxes: torch ops
-                root_bounds, lo_hi = trace.root_bounds, trace.root_bounds(args[0])
-                trace.root_bounds = lambda tables: lo_hi  # the launch alone
-                try:
-                    alone = _cold_ms(trace.coherence_key, copies)
-                finally:
-                    trace.root_bounds = root_bounds
-                bounds_ms = _cold_ms(lambda tables, *_: root_bounds(tables), copies)
             out["coherence_key"] = {
-                "ms": ms, "kernel_alone_ms": alone, "root_bounds_ms": bounds_ms,
+                "ms": _cold_ms(trace.coherence_key, copies),
                 "plain_ms": _plain_ms(trace.coherence_key_reference, copies),
                 "bytes": nbytes, "lanes": n}
         if "permute" in kept:

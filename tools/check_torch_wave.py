@@ -14,11 +14,16 @@ runs its plain version (the alpha commit, which finishes the traversal's
 raw hit on the pending lanes: on a copy of the resample loop's state, which
 the kernel writes over, against ``alpha_pass_reference``, the plain finish
 and commit; the wave's tail, ``wave_sum``, on copies of the band's sum and
-the frame's ray counter, which it adds into), and every field of the two
-results is compared lane by lane, the count of pending lanes the commit
-leaves in its control block too.  The configs are the smoke's
-(``tools/check_torch_shade.py``'s, the instanced alpha gallery) and
-``cfg4_gate``, bench cfg4's gate crop under its HDR sky.  A float lane that differs is class
+the frame's ray counter, which it adds into, and also with the other
+radiance flag than its wave's on the same inputs, into copies of both, so
+that each wave holds both of its kernel's instances: the line's
+``other_flag``), and every field of the two results is compared lane by
+lane, the count of pending lanes the commit leaves in its control block
+too.  The configs are the smoke's (``tools/check_torch_shade.py``'s, the
+instanced alpha gallery), ``cfg4_gate``, bench cfg4's gate crop under its
+HDR sky, and :data:`SAMPLE_WAVES`, one sample of a whole frame as the
+progressive frame and ``render_sample`` run it (its radiance asked for; on
+a repacked scene in pixel order).  A float lane that differs is class
 ``i`` when both sides are finite and at most 4 ulps apart, else class
 ``ii`` (a fault), as is any integer or flag that differs
 (``tools/check_torch_shade.py``'s rule).  On the CPU both sides are the
@@ -36,9 +41,13 @@ inputs that span ``check_torch_trace.COLD_BYTES``, four times the card's L2
 restored and the L2 flushed by a ``COLD_BYTES`` write before each timed
 replay, :func:`_commit_ms`), against its plain version eagerly, with its
 bytes bound (``wave.primary_rays_bytes``, ``wave.alpha_commit_bytes``,
-``wave.wave_sum_bytes``) at the card's memory rate.  Then every alpha pass of the wave is timed so,
-with its pending lanes and its bound: the ``alpha_passes`` table, whose
-``lost_us`` is the time above the bounds, summed over the wave.
+``wave.wave_sum_bytes``, which leaves out the scratch a repacked wave's
+kernel writes and reads back: ``scratch_bytes``) at the card's memory
+rate; the tail also with the other radiance flag than its wave's
+(``other_flag_ms``: the per-lane radiance written or not).  Then every
+alpha pass of the wave is timed so, with its pending lanes and its bound:
+the ``alpha_passes`` table, whose ``lost_us`` is the time above the
+bounds, summed over the wave.
 
 With ``--synthetic`` the alpha commit is held bit-equal to its plain
 version on raw traversal results (rays, t and hit ids) and loop states
@@ -69,8 +78,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 KERNELS = ("primary_rays", "alpha_commit", "wave_sum")
 FIRST = 8  # differing lanes listed per config
+#: one sample of a whole frame over a config's scene: name -> the config
+SAMPLE_WAVES = {"cfg1_sample": "cfg1", "cfg2_sample": "cfg2"}
 CONFIGS = ("cfg1", "cfg2", "cfg3", "cfg4", "cfg5", "gltf147k", "textured", "soup", "gallery",
-           "alpha_gallery", "cfg4_gate")
+           "alpha_gallery", "cfg4_gate", *SAMPLE_WAVES)
 #: The synthetic passes' pending shares (None: one lane) and lane counts
 #: (:func:`synthetic`); the last count is timed on a card.
 PENDING_SHARES = (0.0, None, 0.01, 1.0)
@@ -81,25 +92,29 @@ class Compare:
     """Inside, each wave wrapper launches its kernel and, on the same
     inputs, runs its plain version; :attr:`lanes` collects each differing
     lane's first differing field of each call; :attr:`calls` counts each
-    kernel's launches (a repacked wave's tail is two)."""
+    kernel's launches (a repacked wave's tail is two); :attr:`other_flag`
+    the tail's checks with the other radiance flag and their launches."""
 
     def __init__(self, keep: bool = False):
         self.lanes = []  # {"kernel", "call", "lane", "field", "ulps", "class"}
         self.calls = {k: 0 for k in KERNELS}
         self.max_abs = {k: 0.0 for k in KERNELS}
         self.pending = []  # the lanes pending at each commit call
+        self.other_flag = {"checks": 0, "launches": 0}
         #: with ``keep``, each kernel's first call: kernel -> its arguments;
         #: and every commit call's
         self.keep, self.kept, self.commits = keep, {}, []
         self.last_finish = None  # an older package's last finish: (rays, t, hit, mode)
 
-    def _compare(self, kernel: str, got, want) -> None:
+    def _compare(self, kernel: str, got, want, prefix: str = "") -> None:
+        """Compare a call's results; ``prefix`` names a second check of the
+        same call (its fields so prefixed), which counts no launch."""
         import torch
         from check_torch_shade import _fields, field_lanes
 
         call = self.calls[kernel]
-        self.calls[kernel] += 1
-        got, want = _fields(got), _fields(want)
+        self.calls[kernel] += not prefix
+        got, want = _fields(got, prefix), _fields(want, prefix)
         names = [name for name, _ in got]
         if names != [name for name, _ in want]:  # a field missing or out of order: a fault
             self.lanes.append({"kernel": f"{kernel}_kernel", "call": call, "lane": None,
@@ -129,7 +144,7 @@ class Compare:
         from vulkan_raytracer_tpu_torch.render import graphs
 
         saved = (wave.primary_rays, wave.alpha_commit, graphs._graphs_preferred,
-                 trace.hit_finish, getattr(wave, "wave_sum", None))
+                 trace.hit_finish, wave.wave_sum)
         rays, commit, _, finish, tail = saved
 
         def c_rays(*args):
@@ -168,17 +183,28 @@ class Compare:
             self._compare("alpha_commit", (st, count.reshape(1)),
                           (want, want["pending"].sum().reshape(1)))
 
-        def c_sum(tables, s, repack, total, frame_rays, rays, k):
+        def c_sum(tables, s, repack, total, frame_rays, rays, k, radiance):
             from check_torch_trace import _clone
 
-            args = (tables, _clone(s), repack, total.clone(), frame_rays.clone(), rays, k)
+            args = (tables, _clone(s), repack, total.clone(), frame_rays.clone(), rays, k,
+                    radiance)
             if self.keep and "wave_sum" not in self.kept:
                 self.kept["wave_sum"] = args
             want_total, want_rays = _clone(args[3]), _clone(args[4])
-            want = wave.wave_sum_reference(tables, s, repack, want_total, want_rays, rays, k)
-            got = tail(tables, s, repack, total, frame_rays, rays, k)
+            want = wave.wave_sum_reference(tables, s, repack, want_total, want_rays, rays, k,
+                                           True)
+            # the other flag's instance on the same inputs, into copies of the sums
+            o_total, o_rays = total.clone(), frame_rays.clone()
+            before = wave.LAUNCHES["wave_sum"]
+            o_got = tail(tables, s, repack, o_total, o_rays, rays, k, not radiance)
+            self.other_flag["launches"] += wave.LAUNCHES["wave_sum"] - before
+            self.other_flag["checks"] += 1
+            self._compare("wave_sum", (o_got, o_total, o_rays.reshape(1)),
+                          (None if radiance else want, want_total, want_rays.reshape(1)),
+                          prefix="other_flag")
+            got = tail(tables, s, repack, total, frame_rays, rays, k, radiance)
             self._compare("wave_sum", (got, total, frame_rays.reshape(1)),
-                          (want, want_total, want_rays.reshape(1)))
+                          (want if radiance else None, want_total, want_rays.reshape(1)))
             self.calls["wave_sum"] += bool(repack)  # the scatter, then the sum
             return got
 
@@ -189,17 +215,13 @@ class Compare:
         if not fused():
             c_commit = c_commit_finished  # noqa: F811
             trace.hit_finish = c_finish
-        wave.primary_rays, wave.alpha_commit = c_rays, c_commit
-        if tail is not None:  # an older package's tail was aten ops
-            wave.wave_sum = c_sum
+        wave.primary_rays, wave.alpha_commit, wave.wave_sum = c_rays, c_commit, c_sum
         graphs._graphs_preferred = lambda tables: False
         try:
             yield self
         finally:
             (wave.primary_rays, wave.alpha_commit, graphs._graphs_preferred,
-             trace.hit_finish) = saved[:4]
-            if tail is not None:
-                wave.wave_sum = tail
+             trace.hit_finish, wave.wave_sum) = saved
 
     def summary(self) -> dict:
         def count(key):
@@ -208,7 +230,8 @@ class Compare:
                 out[str(lane[key])] = out.get(str(lane[key]), 0) + 1
             return out
 
-        return {"calls": dict(self.calls), "max_abs_err": dict(self.max_abs),
+        return {"calls": dict(self.calls), "other_flag": dict(self.other_flag),
+                "max_abs_err": dict(self.max_abs),
                 "differing_lanes": len(self.lanes),
                 "by_class": {c: sum(x["class"] == c for x in self.lanes) for c in ("i", "ii")},
                 "by_kernel": count("kernel"), "by_field": count("field"),
@@ -220,8 +243,8 @@ class Compare:
 def configs(tmp: Path) -> dict:
     """name -> (build the scene's tables on a device, camera, width, height,
     spp, depth): ``tools/check_torch_shade.py``'s configs and the smoke's
-    instanced alpha gallery, and bench cfg4's gate crop (16x16, 2 spp,
-    depth 3 under its HDR sky)."""
+    instanced alpha gallery, bench cfg4's gate crop (16x16, 2 spp, depth 3
+    under its HDR sky), and :data:`SAMPLE_WAVES` (their config's, 1 spp)."""
     import chip_smoke
     from check_torch_shade import configs as shade_configs
 
@@ -231,6 +254,9 @@ def configs(tmp: Path) -> dict:
         chip_smoke.TEXTURED_CAM, 128, 128, 16, 4)
     build, cam = out["cfg4"][:2]
     out["cfg4_gate"] = (build, cam, 16, 16, 2, 3)
+    for name, config in SAMPLE_WAVES.items():
+        build, cam, width, height, _, depth = out[config]
+        out[name] = (build, cam, width, height, 1, depth)
     return out
 
 
@@ -327,16 +353,22 @@ def time_kept(kept: dict, reps: int = 20, plain_reps: int = 3) -> dict:
                 "bytes": nbytes, "lanes": lanes.shape[0] * samples.shape[0]}
         if "wave_sum" in kept:
             args = kept["wave_sum"]
-            tables, s, repack, _, _, _, k = args
+            tables, s, repack, _, _, _, k, flag = args
             lanes = s["active"].shape[0]
             env = tables.skybox
-            nbytes = wave.wave_sum_bytes(lanes // k, k, repack, env.h * env.w)
-            copies = _copies(args, nbytes)
+            nbytes = wave.wave_sum_bytes(lanes // k, k, repack, env.h * env.w, flag)
+            copies = _copies(args, nbytes + wave.wave_sum_scratch_bytes(lanes, repack))
+            # the other flag's time and bytes beside the wave's own
+            other = [(*c[:7], not flag) for c in copies]
             out["wave_sum"] = {
                 "ms": _cold_ms(wave.wave_sum, copies, reps),
                 "plain_ms": _plain_ms(wave.wave_sum_reference, copies, plain_reps),
-                "bytes": nbytes, "lanes": lanes, "samples": k, "repack": bool(repack),
-                "sky_texels": env.h * env.w}
+                "bytes": nbytes, "scratch_bytes": wave.wave_sum_scratch_bytes(lanes, repack),
+                "lanes": lanes, "samples": k, "repack": bool(repack), "radiance": bool(flag),
+                "sky_texels": env.h * env.w,
+                "other_flag_ms": _cold_ms(wave.wave_sum, other, reps),
+                "other_flag_bytes": wave.wave_sum_bytes(lanes // k, k, repack, env.h * env.w,
+                                                        not flag)}
         if "alpha_commit" in kept:
             tables, before, raw, want = kept["alpha_commit"]
             out["alpha_commit"] = {
@@ -347,6 +379,8 @@ def time_kept(kept: dict, reps: int = 20, plain_reps: int = 3) -> dict:
                 "lanes": raw[2].shape[0], "pending": int(before["pending"].sum())}
     for t in out.values():
         t.update(bound_ms=1e3 * t["bytes"] / HBM_BYTES_PER_S, bound_by="bytes")
+        if "other_flag_bytes" in t:
+            t["other_flag_bound_ms"] = 1e3 * t["other_flag_bytes"] / HBM_BYTES_PER_S
     return out
 
 
@@ -390,32 +424,46 @@ def pass_table(commits: list) -> dict:
     return {"passes": rows, "us_sum": us, "bound_us_sum": bound, "lost_us": us - bound}
 
 
-def check_config(name: str, spec, device, tables=None, timing: bool = False) -> dict:
-    """Render ``spec``'s first wave under :class:`Compare`; one JSON-able
-    line.  ``tables`` may be given to skip the build; with ``timing`` (a
-    card), each kernel's first call is timed (:func:`time_kept`)."""
+def check_config(name: str, spec, device, tables=None, timing: bool = False,
+                 sample: bool = False) -> dict:
+    """Render ``spec``'s first wave under :class:`Compare` (with ``sample``
+    one sample of the whole frame as ``render_sample`` runs it); one
+    JSON-able line.  ``tables`` may be given to skip the build; with
+    ``timing`` (a card), each kernel's first call is timed
+    (:func:`time_kept`)."""
     import numpy as np
     import torch
     from profile_torch_wave import first_wave, wave
 
     from vulkan_raytracer_tpu_torch.ops import wave as wave_ops
-    from vulkan_raytracer_tpu_torch.render import graphs
+    from vulkan_raytracer_tpu_torch.render import graphs, integrator, renderer
     from vulkan_raytracer_tpu_torch.scene.camera import Camera
 
     build, cam, width, height, spp, depth = spec
     if tables is None:
         tables = build(device)
     camera = Camera(position=np.array(cam[0]), direction=np.array(cam[1]), aspect=width / height)
-    lanes, samples, _ = first_wave(tables, width, height, spp)
+    if sample:
+        n = width * height
+
+        def run():
+            with torch.inference_mode():
+                return integrator.render_sample(tables, *renderer.camera_uniforms(camera),
+                                                width, height, 1, depth)
+    else:
+        lanes, samples, _ = first_wave(tables, width, height, spp)
+        n = len(lanes) * len(samples)
+        run = wave(tables, camera, width, height, depth, lanes, samples)
     graphs.settle()
     before = dict(wave_ops.LAUNCHES)
     t0 = time.perf_counter()
     with Compare(keep=timing).on() as cmp:
-        radiance, rays = wave(tables, camera, width, height, depth, lanes, samples)()
+        radiance, rays = run()
     launched = {k: wave_ops.LAUNCHES.get(k, 0) - before.get(k, 0) for k in KERNELS}
+    launched["wave_sum"] -= cmp.other_flag["launches"]
     if device.type == "cuda" and launched != cmp.calls:
         raise AssertionError(f"{name}: {cmp.calls} wave kernel calls, but {launched} launches")
-    line = {"config": name, "lanes": len(lanes) * len(samples), "launches": launched,
+    line = {"config": name, "lanes": n, "launches": launched,
             "alpha": bool(tables.has_alpha), "rays": int(rays),
             "finite": bool(torch.isfinite(radiance).all()),
             "seconds": time.perf_counter() - t0, **cmp.summary()}
@@ -546,7 +594,8 @@ def main(argv=None) -> int:
         specs = configs(Path(tmp))
         for name in filter(None, args.configs.split(",")):
             line = {"root": args.root, **check_config(name, specs[name], device,
-                                                      timing=args.timing)}
+                                                      timing=args.timing,
+                                                      sample=name in SAMPLE_WAVES)}
             lines.append(line)
             print(json.dumps(line), flush=True)
             bad |= bool(line["by_class"]["ii"] or (line["by_class"]["i"]

@@ -3,7 +3,8 @@
 the wavefront repack and without it.
 
     python3 tools/profile_torch_wave.py
-        [--config cfg1|cfg2|gltf|textured|instanced|soup|cfg5|alpha_gallery] [--reps 3]
+        [--config cfg1|cfg2|cfg3|cfg4|gltf|textured|instanced|soup|cfg5|alpha_gallery]
+        [--reps 3]
         [--out FILE.json]
         [--root DIR]
 
@@ -147,6 +148,7 @@ WALK_BLOCK = 128  # rays per block of the BVH walks (csrc/bvh_walk.cu kThreads)
 CONFIGS = {
     "cfg1": ("cornell", [0.0, 1.0, 2.4], [0.0, 0.0, -1.0]),
     "cfg2": ("dragon", [0.0, 2.2, 4.5], [0.0, -0.25, -1.0]),
+    "cfg3": ("chess", [0.0, 4.0, 7.0], [0.0, -0.5, -1.0]),
     "gltf": ("bigasset.glb", [0.0, 1.7, 4.6], [0.0, -0.28, -1.0]),
     "textured": ("textured.glb", [0.0, 0.0, 2.8], [0.0, 0.0, -1.0]),
     "instanced": ("gallery", None, None),  # the camera is chip_smoke.gallery_camera()
@@ -156,7 +158,8 @@ CONFIGS = {
     "cfg4": ("hall_sky", [-9.0, 1.8, 0.0], [1.0, 0.0, 0.0]),
 }
 #: config -> (width, height, spp, depth) of its render
-FRAMES = {"cfg1": (512, 512, 64, 4), "cfg2": (512, 512, 4, 4), "gltf": (512, 512, 4, 4),
+FRAMES = {"cfg1": (512, 512, 64, 4), "cfg2": (512, 512, 4, 4), "cfg3": (512, 512, 4, 6),
+          "gltf": (512, 512, 4, 4),
           "textured": (512, 512, 16, 4), "instanced": (512, 512, 4, 4),
           "soup": (512, 512, 4, 4), "cfg5": (1920, 1080, 8, 8),
           "alpha_gallery": (128, 128, 16, 4), "cfg4": (960, 540, 8, 4)}

@@ -163,15 +163,16 @@ class Record:
                  wave.wave_sum, graphs._graphs_preferred)
         run, bounce, shade_hit, wave_sum, _ = saved
 
-        def rec_run(waves, first, k, pixel_order=False):
+        def rec_run(waves, first, k, pixel_order=False, radiance=False):
             self._keys = _lane_keys(waves.lanes, first, k)
-            out, rays = run(waves, first, k, pixel_order=pixel_order)
+            # the waves' radiance, which a frame's own waves do not ask for
+            out, rays = run(waves, first, k, pixel_order=pixel_order, radiance=True)
             # in pixel order (one sample of a whole frame) row j is pixel j
             rows = (np.stack([np.arange(len(self._keys)), self._keys[:, 1]], axis=1)
                     if pixel_order else self._keys)
             for key, row in zip(map(tuple, rows.tolist()), _np(out)):
                 self.radiance[key] = row
-            return out, rays
+            return (out if radiance else None), rays
 
         def rec_bounce(tables, s, b, *args):
             lanes = self._lanes(s)

@@ -25,7 +25,11 @@
 //                           the lax.cond at :229, :314)
 //   coherence_key_kernel <- _coherence_key (render/integrator.py:316-349): dead,
 //                           direction octant and the Morton cell of the origin
-//                           over 64 cells an axis of the root bounds, one int32
+//                           over 64 cells an axis of the root bounds, one int32;
+//                           the bounds are read where the tables keep them (the
+//                           BVH root's box, or an instanced scene's union box,
+//                           made at upload and refit: the reductions of :322-329
+//                           run once a tables, not once a key)
 //   permute_kernel       <- the re-sort's gathers (_sort_wavefront :352-373),
 //                           the NEE rays' gathers and scatters (_shadow
 //                           :234-267): every column of a state in one launch,
@@ -109,7 +113,8 @@ enum Slot {
   // the next instance's 12 world->object values and its box; the last one's id;
   // the next launch's IF control block (null but in a program)
   X_M, X_BMIN, X_BMAX, X_IID, X_IF,
-  // coherence_key_kernel: the root bounds (3 floats each), the lanes, the key
+  // coherence_key_kernel: the root bounds (3 floats each: ops/trace.py key_box),
+  // the lanes, the key
   K_LO, K_HI, K_ACTIVE, K_KEY,
   // the scene's tables: the vertices, a BVH's slot -> triangle, the
   // instances' world->object rows (12, I)

@@ -69,15 +69,32 @@
 //
 // wave_sum_kernel: a lane's radiance is its gathered value plus its sky
 // weight times the equirect sky at its direction (four corner fetches from
-// the map's r, g and b columns, the strength read from the device).  On a
-// wave in lane order one launch runs a thread a pixel: it works the pixel's
-// k lanes (samples-major: lane j * n + p), writes each lane's radiance and
-// adds their sum, sample 0 first, into the band's sum.  On a repacked wave a
-// lane's output position is its slot, a permutation of the whole wave, so a
-// pixel's samples can lie anywhere: a first launch (kSumScatter) writes each
-// lane's radiance at its slot, a thread a lane, and a second (kSumAdd) adds
-// each pixel's samples, a thread a pixel.  The last launch also adds the
-// wave's rays into the frame's counter.
+// the map's r, g and b columns, the strength read from the device).  A thread
+// a lane: a block takes a tile of I_TILE pixels x the wave's k samples
+// (samples-major lanes j * n + p, so the tile is k coalesced rows of its
+// pixels), kSumRows samples or fewer a chunk (I_TILE x rows = kThreads).
+// Each thread copies its lane's value and sky weight, and the block the
+// tile's band sums, into shared memory asynchronously (cp.async) while it
+// fetches the sky, so a lane waits on memory about once, not three times,
+// and holds no register for them; it puts its lane's radiance in shared memory;
+// then one thread a pixel adds the chunk's samples to the pixel's running
+// sum, sample 0 first and one after another (the order wave_sum_reference
+// states), and the tile's sums go back into the band's sum, coalesced.  The
+// kernel is an instance a mode and radiance flag (the registers each needs
+// fix how many blocks an SM holds: kSumBlocks).  The per-lane radiance is
+// written only where a caller reads it (Q_RAD not null: a sample of the
+// progressive frame, render_sample), from shared memory as 16-byte stores
+// along each row.  On a repacked wave a lane's output position is its slot,
+// a permutation of the whole wave, so a pixel's samples can lie anywhere: a
+// first launch (kSumScatter, a thread a lane) writes each lane's radiance at
+// its slot of a padded (n * k, 4) scratch, one 16-byte store, and a second
+// (kSumAdd) works the tiles over the scratch, reading it coalesced.  The
+// last launch also adds the wave's rays into the frame's counter.  Lanes and
+// their floats are indexed in 32 bits (the wrapper refuses a wave of 2^29
+// lanes or more, which no card holds the state of).  A lane
+// whose sky weight is zero still fetches the sky: the product is +0 only for
+// a finite, non-negative sky at a finite direction, which no table records,
+// and the fetch is what decides it.
 //
 // frame_post_kernel, headless (kFrameImage): a thread a lane of the frame's
 // block order, which writes its pixel (lanes[i]) of the image: the sum over
@@ -97,10 +114,11 @@
 // pending flag a lane and, on the pending lanes, the candidate and the
 // alpha tables' rows; a few bytes a lane on most passes, so a pass is
 // bound by its launch and the latency of its chain of gathers.
-// wave_sum_kernel reads 36 bytes a lane (direction, value, sky weight) and
-// writes 12 (its radiance), 8 more read on a repacked wave (the slot) and 12
-// written and read back (the scatter), and reads and writes a pixel's 12 of
-// the sum: ~10 us for a cfg1 wave; the sky's texels mostly come from L2.
+// wave_sum_kernel reads 36 bytes a lane (direction, value, sky weight),
+// writes 12 (its radiance) only where asked, 8 more read on a repacked wave
+// (the slot) and 16 written and read back (the scratch), and reads and writes
+// a pixel's 12 of the sum: ~7.5 us for a cfg1 wave without its radiance; the
+// sky's texels mostly come from L2.
 // frame_post_kernel reads 12 (headless: 20, with the lane's pixel) and writes
 // 3 or 12 bytes a pixel, the accumulation's 12 read and written on top in
 // the progressive frame.
@@ -117,6 +135,8 @@
 //
 // Launches go on the caller's stream; nothing here synchronises or
 // allocates.  Each launcher returns cudaGetLastError().
+
+#include <cuda_pipeline_primitives.h>
 
 #include "graph_test.cuh"
 #include "hit_finish.cuh"
@@ -143,8 +163,9 @@ enum Slot {
   AL_MODE, AL_VALUE, AL_CUTOFF, T_TRIMAT, T_UV, M_TEXIDX, TEX_TEXELS, TEX_OFF, TEX_H, TEX_W,
   // wave_sum_kernel (beside the state's S_D, S_VAL, S_SKY and S_SLOT): the sky
   // map's r, g and b columns and its strength (0-d), the wave's rays (0-d), its
-  // radiance (n * k, 3), the band's sum (n, 3) and the frame's rays (0-d)
-  E_R, E_G, E_B, E_STRENGTH, Q_RAYS, Q_RAD, Q_SUM, Q_FRAME_RAYS,
+  // radiance (n * k, 3; null where no caller reads it), the band's sum (n, 3),
+  // the frame's rays (0-d) and a repacked wave's scratch (n * k, 4)
+  E_R, E_G, E_B, E_STRENGTH, Q_RAYS, Q_RAD, Q_SUM, Q_FRAME_RAYS, Q_SCRATCH,
   // frame_post_kernel: the frame's (n, 3) sum or the sample's radiance, the
   // lanes' pixels (headless), the accumulation and the sample number
   // (progressive), the image (float32 or uint8)
@@ -156,12 +177,16 @@ enum Slot {
 enum Int {
   I_N, I_PIXELS, I_WIDTH, I_HEIGHT, I_PIXEL_ORDER, I_TEXTURES, I_PROTO_TRIS, I_MODE, I_NUM_INST,
   I_K, I_SUM_MODE, I_ENV_H, I_ENV_W, I_FRAME_MODE, I_SPP, I_TONEMAP, I_UINT8, I_DISP_H, I_DISP_W,
-  kInts
+  I_TILE, kInts
 };
 
 // wave_sum_kernel's launches (ops/wave.py SUM_MODES): a wave in lane order in
 // one; a repacked wave's scatter to its slots, then its sum.
 enum SumMode { kSumLanes, kSumScatter, kSumAdd };
+
+// Samples a chunk of a tail's tile at most (ops/wave.py SUM_ROWS): a tile is
+// kThreads / kSumRows pixels or more.
+constexpr int kSumRows = 8;
 
 // frame_post_kernel's modes (ops/wave.py FRAME_MODES).
 enum FrameMode { kFrameImage, kFrameProgressive };
@@ -338,9 +363,37 @@ __device__ __forceinline__ long long floor_mod64(long long a, long long b) {  //
   return r;
 }
 
-// Lane i's radiance: its value plus its sky weight times the equirect sky at
-// its direction (sample_equirect, then the strength)
-__device__ __forceinline__ V3 lane_radiance(const Args& a, long long i) {
+// The floor-mod of a texel coordinate a by the map's width or height b, in
+// 32 bits (|a| < 2^24, 1 <= b < 2^24): a few adds where a lies within two
+// periods of [0, b), as every finite direction's does, the division only
+// beyond them
+__device__ __forceinline__ int wrap(int a, int b) {
+  if (a >= 0 && a < b) return a;
+  if (a < 0 && a >= -2 * b) return a + b >= 0 ? a + b : a + 2 * b;
+  if (a >= b && a < 2 * b) return a - b;
+  const int r = a % b;
+  return r < 0 ? r + b : r;
+}
+
+// The sky at texels k00 .. k11 of the map (columns E_R, E_G, E_B) by the
+// bilinear weights of fx and fy, in aten's order, times the strength
+template <class Index>
+__device__ __forceinline__ void sky_texels(const Args& a, Index k00, Index k01, Index k10,
+                                           Index k11, float fx, float fy, float sky[3]) {
+  const float gx = 1.0f - fx, gy = 1.0f - fy;
+  const float strength = *col<const float>(a, E_STRENGTH);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float* m = col<const float>(a, E_R + c);
+    const float top = m[k00] * gx + m[k01] * fx;
+    const float bot = m[k10] * gx + m[k11] * fx;
+    sky[c] = (top * gy + bot * fy) * strength;
+  }
+}
+
+// The equirect sky at lane i's direction (sample_equirect), times the
+// strength
+__device__ __forceinline__ void lane_sky(const Args& a, int i, float sky[3]) {
   const float dx = col<const float>(a, S_DX)[i], dy = col<const float>(a, S_DY)[i],
               dz = col<const float>(a, S_DZ)[i];
   const long long h = a.i[I_ENV_H], w = a.i[I_ENV_W];
@@ -350,23 +403,21 @@ __device__ __forceinline__ V3 lane_radiance(const Args& a, long long i) {
   const float y = v * static_cast<float>(h) - K(0.5);
   const float x0 = floorf(x), y0 = floorf(y);
   const float fx = x - x0, fy = y - y0;
-  const float gx = 1.0f - fx, gy = 1.0f - fy;
-  const long long x0l = static_cast<long long>(x0), y0l = static_cast<long long>(y0);
-  const long long x1 = floor_mod64(x0l + 1, w), y1 = floor_mod64(y0l + 1, h);
-  const long long xa = floor_mod64(x0l, w), ya = floor_mod64(y0l, h);
-  const long long k00 = ya * w + xa, k01 = ya * w + x1, k10 = y1 * w + xa, k11 = y1 * w + x1;
-  const float strength = *col<const float>(a, E_STRENGTH);
-  float sky[3];
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    const float* m = col<const float>(a, E_R + c);
-    const float top = m[k00] * gx + m[k01] * fx;
-    const float bot = m[k10] * gx + m[k11] * fx;
-    sky[c] = (top * gy + bot * fy) * strength;
+  if (fabsf(x0) < K(16777216.0) && fabsf(y0) < K(16777216.0) && w < (1 << 24) &&
+      h < (1 << 24) && h * w < (1LL << 31)) {
+    // every finite direction on a map of fewer than 2^31 texels: the same
+    // integers in 32 bits
+    const int w32 = static_cast<int>(w), h32 = static_cast<int>(h);
+    const int xi = static_cast<int>(x0), yi = static_cast<int>(y0);
+    const int xa = wrap(xi, w32), x1 = wrap(xi + 1, w32);
+    const int ya = wrap(yi, h32), y1 = wrap(yi + 1, h32);
+    sky_texels(a, ya * w32 + xa, ya * w32 + x1, y1 * w32 + xa, y1 * w32 + x1, fx, fy, sky);
+  } else {  // what a NaN direction casts (aten's int64), or a map that large
+    const long long x0l = static_cast<long long>(x0), y0l = static_cast<long long>(y0);
+    const long long x1 = floor_mod64(x0l + 1, w), y1 = floor_mod64(y0l + 1, h);
+    const long long xa = floor_mod64(x0l, w), ya = floor_mod64(y0l, h);
+    sky_texels(a, ya * w + xa, ya * w + x1, y1 * w + xa, y1 * w + x1, fx, fy, sky);
   }
-  return {col<const float>(a, S_VALX)[i] + col<const float>(a, S_SKYX)[i] * sky[0],
-          col<const float>(a, S_VALY)[i] + col<const float>(a, S_SKYY)[i] * sky[1],
-          col<const float>(a, S_VALZ)[i] + col<const float>(a, S_SKYZ)[i] * sky[2]};
 }
 
 __device__ __forceinline__ void put3(float* out, long long row, V3 v) {
@@ -375,38 +426,169 @@ __device__ __forceinline__ void put3(float* out, long long row, V3 v) {
   out[3 * row + 2] = v.z;
 }
 
-// The deferred sky, the repacked wave's scatter and the wave's sum (see the
-// note at the top); I_N threads: pixels (kSumLanes, kSumAdd) or lanes
-// (kSumScatter)
-__global__ void __launch_bounds__(kThreads) wave_sum_kernel(const __grid_constant__ Args a) {
-  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  const int mode = static_cast<int>(a.i[I_SUM_MODE]);
-  if (mode != kSumScatter && i == 0) {  // the frame's rays
-    *col<long long>(a, Q_FRAME_RAYS) += *col<const long long>(a, Q_RAYS);
+// A repacked wave's scratch: a lane's radiance as one 16-byte row
+__device__ __forceinline__ void store4(float* scratch, int row, V3 v) {
+  reinterpret_cast<float4*>(scratch)[row] = make_float4(v.x, v.y, v.z, 0.0f);
+}
+__device__ __forceinline__ V3 load4(const float* scratch, int row) {
+  const float4 q = reinterpret_cast<const float4*>(scratch)[row];
+  return {q.x, q.y, q.z};
+}
+
+// A tile's shared memory: a chunk's radiance (row j of the tile's pixels at
+// j * I_TILE); each lane's value and sky weight, copied in while its thread
+// fetches the sky; the band's sum of the tile's pixels, copied in at the
+// tile's start and stored back at its end
+struct SumTile {
+  float v[3][kThreads];
+  float pre[6][kThreads];
+  float sum[3 * kThreads];
+};
+
+// A float from global into shared memory, asynchronously (cp.async): no
+// register holds it, and the thread waits for it only where it reads it
+__device__ __forceinline__ void copy_in(float* dst, const float* src) {
+  __pipeline_memcpy_async(dst, src, sizeof(float));
+}
+
+// Lane i's radiance: its value plus its sky weight times the sky
+__device__ __forceinline__ V3 lane_radiance(const Args& a, int i) {
+  float sky[3];
+  lane_sky(a, i, sky);
+  return {col<const float>(a, S_VALX)[i] + col<const float>(a, S_SKYX)[i] * sky[0],
+          col<const float>(a, S_VALY)[i] + col<const float>(a, S_SKYY)[i] * sky[1],
+          col<const float>(a, S_VALZ)[i] + col<const float>(a, S_SKYZ)[i] * sky[2]};
+}
+
+// The same, its value and sky weight copied into shared memory (pre[.][t],
+// thread t of its block) while the thread fetches the sky: a tile's lanes
+// (the scatter, which holds its own loads in 32 registers, measured faster
+// without the copies)
+__device__ __forceinline__ V3 lane_radiance(const Args& a, int i, SumTile& sm) {
+  const int t = threadIdx.x;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    copy_in(&sm.pre[c][t], &col<const float>(a, S_VALX + c)[i]);
+    copy_in(&sm.pre[3 + c][t], &col<const float>(a, S_SKYX + c)[i]);
   }
-  if (i >= a.i[I_N]) return;
-  float* rad = col<float>(a, Q_RAD);
-  if (mode == kSumScatter) {  // a lane's radiance at its slot
-    put3(rad, col<const long long>(a, S_SLOT)[i], lane_radiance(a, i));
+  __pipeline_commit();
+  float sky[3];
+  lane_sky(a, i, sky);
+  __pipeline_wait_prior(0);
+  return {sm.pre[0][t] + sm.pre[3][t] * sky[0], sm.pre[1][t] + sm.pre[4][t] * sky[1],
+          sm.pre[2][t] + sm.pre[5][t] * sky[2]};
+}
+
+// kSumScatter: lane i's radiance at its slot of the scratch
+__device__ __forceinline__ void scatter_lane(const Args& a, int i) {
+  store4(col<float>(a, Q_SCRATCH), static_cast<int>(col<const long long>(a, S_SLOT)[i]),
+         lane_radiance(a, i));
+}
+
+// The chunk's m rows of radiance from shared memory into the (n * k, 3)
+// output: row j (sample c0 + j) is 3 * width floats from 3 * ((c0 + j) * n +
+// p0), stored as 16-byte stores and, where the row's ends are not 16-byte
+// aligned, up to three single floats at each end
+__device__ __forceinline__ void store_rows(float* rad, int c0, int m, int n, int p0, int width,
+                                           int tile, const SumTile& sm) {
+  const int units = 3 * tile / 4 + 6;  // a row's stores at most
+  const int count = 3 * width;
+  for (int w = threadIdx.x; w < m * units; w += kThreads) {
+    const int j = w / units, u = w % units;
+    const int base = 3 * ((c0 + j) * n + p0);
+    const int head = min(count, static_cast<int>((4 - (base & 3)) & 3));
+    const int body = (count - head) / 4;
+    const int tail = count - head - 4 * body;
+    const float* v0 = sm.v[0] + j * tile;
+    const float* v1 = sm.v[1] + j * tile;
+    const float* v2 = sm.v[2] + j * tile;
+    auto at = [&](int e) {
+      const int c = e % 3, p = e / 3;
+      return c == 0 ? v0[p] : (c == 1 ? v1[p] : v2[p]);
+    };
+    if (u < head) {
+      rad[base + u] = at(u);
+    } else if (u < head + body) {
+      const int e = head + 4 * (u - head);
+      *reinterpret_cast<float4*>(rad + base + e) =
+          make_float4(at(e), at(e + 1), at(e + 2), at(e + 3));
+    } else if (u < head + body + tail) {
+      const int e = head + 4 * body + (u - head - body);
+      rad[base + e] = at(e);
+    }
+  }
+}
+
+// One tile of the wave's tail (see the note at the top): pixels tile * I_TILE
+// on, all k samples; the radiance computed (kSumLanes) or read from the
+// scratch (kSumAdd), and written where a caller reads it (kRad)
+template <bool kFromScratch, bool kRad>
+__device__ __forceinline__ void tile_sum(const Args& a, int tile, SumTile& sm) {
+  const int n = static_cast<int>(a.i[I_PIXELS]), k = static_cast<int>(a.i[I_K]);
+  const int size = static_cast<int>(a.i[I_TILE]);
+  const int rows = kThreads / size;
+  const int t = threadIdx.x, pl = t & (size - 1), jl = t >> (__ffs(size) - 1);  // a power of 2
+  const int p0 = tile * size;
+  const int width = min(size, n - p0);
+  float* sum = col<float>(a, Q_SUM) + 3 * p0;  // the tile's 3 * width floats
+  for (int e = t; e < 3 * width; e += kThreads) copy_in(&sm.sum[e], &sum[e]);
+  __pipeline_commit();
+  V3 acc = zero3();
+  for (int c0 = 0; c0 < k; c0 += rows) {
+    const int m = min(rows, k - c0);
+    if (jl < m && pl < width) {
+      const int lane = (c0 + jl) * n + p0 + pl;
+      const V3 r = kFromScratch ? load4(col<const float>(a, Q_SCRATCH), lane)
+                                : lane_radiance(a, lane, sm);
+      sm.v[0][t] = r.x;
+      sm.v[1][t] = r.y;
+      sm.v[2][t] = r.z;
+    }
+    __pipeline_wait_prior(0);  // the sums' copies, before the barrier shows them
+    __syncthreads();
+    if (t < width) {  // the pixel's samples of the chunk, one after another
+      for (int j = 0; j < m; ++j) {
+        const V3 r = {sm.v[0][j * size + t], sm.v[1][j * size + t], sm.v[2][j * size + t]};
+        acc = (c0 == 0 && j == 0) ? r : add(acc, r);
+      }
+    }
+    if (kRad) store_rows(col<float>(a, Q_RAD), c0, m, n, p0, width, size, sm);
+    __syncthreads();
+  }
+  if (t < width) {
+    sm.sum[3 * t] = sm.sum[3 * t] + acc.x;
+    sm.sum[3 * t + 1] = sm.sum[3 * t + 1] + acc.y;
+    sm.sum[3 * t + 2] = sm.sum[3 * t + 2] + acc.z;
+  }
+  __syncthreads();
+  for (int e = t; e < 3 * width; e += kThreads) sum[e] = sm.sum[e];  // coalesced
+}
+
+// Blocks an SM each instance of wave_sum_kernel is built for (its registers'
+// bound): eight, all a 2,048-thread SM takes, for the scatter and the sum over
+// the scratch, which fit 32 registers; six for the tile that computes its
+// lanes' radiance, which measured faster at 40 registers and six blocks than
+// at 32 and eight (PERF.md §6).
+template <int kMode>
+constexpr int kSumBlocks = kMode == kSumLanes ? 6 : 8;
+
+// The deferred sky, the repacked wave's scatter and the wave's sum (see the
+// note at the top), an instance a mode and whether the radiance is written
+// (Q_RAD not null), so each holds only its own code's registers; I_N
+// threads: the lanes (kSumScatter), or kThreads a tile (kSumLanes, kSumAdd)
+template <int kMode, bool kRad>
+__global__ void __launch_bounds__(kThreads, kSumBlocks<kMode>)
+    wave_sum_kernel(const __grid_constant__ Args a) {
+  if (kMode == kSumScatter) {
+    const int i = blockIdx.x * kThreads + threadIdx.x;
+    if (i < a.i[I_N]) scatter_lane(a, i);
     return;
   }
-  const long long n = a.i[I_PIXELS];
-  V3 acc;
-  for (long long j = 0; j < a.i[I_K]; ++j) {  // the pixel's samples, sample 0 first
-    const long long lane = j * n + i;
-    V3 r;
-    if (mode == kSumLanes) {
-      r = lane_radiance(a, lane);
-      put3(rad, lane, r);
-    } else {
-      r = {rad[3 * lane], rad[3 * lane + 1], rad[3 * lane + 2]};
-    }
-    acc = j == 0 ? r : add(acc, r);
+  __shared__ SumTile sm;
+  if (blockIdx.x == 0 && threadIdx.x == 0) {  // the frame's rays
+    *col<long long>(a, Q_FRAME_RAYS) += *col<const long long>(a, Q_RAYS);
   }
-  float* sum = col<float>(a, Q_SUM) + 3 * i;
-  sum[0] = sum[0] + acc.x;
-  sum[1] = sum[1] + acc.y;
-  sum[2] = sum[2] + acc.z;
+  tile_sum<kMode == kSumAdd, kRad>(a, blockIdx.x, sm);
 }
 
 // ---------------------------------------------------------------------------
@@ -533,5 +715,36 @@ unsigned int fill(Args& args, const void* const* ptrs, const long long* ints) {
 
 WAVE_LAUNCHER(primary_rays_launch, primary_rays_kernel)
 WAVE_LAUNCHER(alpha_commit_launch, alpha_commit_kernel)
-WAVE_LAUNCHER(wave_sum_launch, wave_sum_kernel)
 WAVE_LAUNCHER(frame_post_launch, frame_post_kernel)
+
+// wave_sum_kernel's launch: its instance by I_SUM_MODE and whether Q_RAD is
+// given (the scatter writes no radiance)
+extern "C" int wave_sum_launch(int device, const void* const* ptrs, const long long* ints,
+                               void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  Args args;
+  const unsigned int blocks = fill(args, ptrs, ints);
+  if (blocks == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool rad = args.p[Q_RAD] != nullptr;
+  switch (static_cast<int>(args.i[I_SUM_MODE])) {
+    case kSumScatter:
+      wave_sum_kernel<kSumScatter, false><<<blocks, kThreads, 0, s>>>(args);
+      break;
+    case kSumAdd:
+      if (rad) {
+        wave_sum_kernel<kSumAdd, true><<<blocks, kThreads, 0, s>>>(args);
+      } else {
+        wave_sum_kernel<kSumAdd, false><<<blocks, kThreads, 0, s>>>(args);
+      }
+      break;
+    default:
+      if (rad) {
+        wave_sum_kernel<kSumLanes, true><<<blocks, kThreads, 0, s>>>(args);
+      } else {
+        wave_sum_kernel<kSumLanes, false><<<blocks, kThreads, 0, s>>>(args);
+      }
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -72,6 +72,7 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from . import trace
@@ -117,6 +118,10 @@ class InstanceTables:
     groups: tuple  # tuple[InstanceGroup, ...] in prototype order
     inv_flat: torch.Tensor  # (12, I) world->object rows (gatherable columns)
     nrm_flat: torch.Tensor  # (9, I) inverse-transpose rotation rows
+    #: (2, 3) f32 union of the instance boxes (:func:`union_box`): the least
+    #: ``aabb_min``, then the greatest ``aabb_max``; the re-sort key's cells
+    #: divide it (``trace.coherence_key``)
+    box: torch.Tensor
     num_instances: int
     num_proto_tris: int
 
@@ -129,6 +134,15 @@ class InstanceTables:
         from ..scene.scenegraph import _to
 
         return _to(self, torch.device(device))
+
+
+def union_box(aabb_min, aabb_max) -> np.ndarray:
+    """The (2, 3) float32 box of every instance from their (I, 3) world
+    boxes (NumPy): the least of the ``aabb_min`` rows, then the greatest of
+    the ``aabb_max`` rows.  Min and max are exact, so it is
+    ``trace.root_bounds``' pair bit for bit; made with the instance boxes, at
+    upload and at refit, so a key reads it and reduces nothing."""
+    return np.stack([np.min(aabb_min, axis=0), np.max(aabb_max, axis=0)]).astype(np.float32)
 
 
 def group_table(v0: V3, v1: V3, v2: V3, off: int, cnt: int) -> torch.Tensor:

@@ -24,7 +24,9 @@ a Pallas kernel.  Here each is one kernel, hand-written for Hopper
   columns that launch reads; the call's first step computes 1/d and the
   running state, its last (no next instance) only merges;
 * :func:`coherence_key` (``coherence_key_kernel``): the re-sort key over the
-  root bounds (:func:`root_bounds`, a few torch ops on an instanced scene);
+  scene's box, read where the tables keep it (:func:`key_box`: the BVH
+  root's, or the instanced tables' union box, made at upload and refit), so
+  a key is one launch on every scene;
 * :func:`permute` (``permute_kernel``): every column of a state gathered,
   scattered or copied by one permutation in one launch: a gather or a
   scatter a thread a lane, every column; a copy column after column on a
@@ -536,12 +538,24 @@ def _morton_table(device) -> torch.Tensor:
 
 def root_bounds(tables):
     """(lo, hi), the (3,) bounds the key's cells divide: the BVH root's, or
-    on an instanced scene the union of the instance boxes (a few torch ops,
-    on the device: a refit's tables replay them)."""
+    on an instanced scene the union of the instance boxes, reduced here (a
+    few torch ops: JAX ``_coherence_key``'s reductions, kept by the plain
+    version; the kernel reads the same pair from :func:`key_box`)."""
     if tables.inst is not None:
         lo = torch.stack([g.aabb_min.amin(0) for g in tables.inst.groups]).amin(0)
         hi = torch.stack([g.aabb_max.amax(0) for g in tables.inst.groups]).amax(0)
         return lo, hi
+    return tables.bvh.aabb_min[0], tables.bvh.aabb_max[0]
+
+
+def key_box(tables):
+    """(lo, hi) as :func:`coherence_key` hands them to its kernel: views of
+    the BVH root's box, or of the instanced tables' union box
+    (``InstanceTables.box``, made with the instance boxes at upload and at
+    refit, so a program's mirror of a refit's tables holds the new box).
+    Bit-equal to :func:`root_bounds`; no op runs."""
+    if tables.inst is not None:
+        return tables.inst.box[0], tables.inst.box[1]
     return tables.bvh.aabb_min[0], tables.bvh.aabb_max[0]
 
 
@@ -561,10 +575,11 @@ def coherence_key_reference(tables, o: V3, d: V3, active):
 
 
 def coherence_key(tables, o: V3, d: V3, active):
-    """The re-sort key of each lane; see :func:`coherence_key_reference`."""
+    """The re-sort key of each lane; see :func:`coherence_key_reference`.
+    On a card one launch, over :func:`key_box`, and nothing else."""
     if not _on_cuda(active):
         return coherence_key_reference(tables, o, d, active)
-    lo, hi = root_bounds(tables)
+    lo, hi = key_box(tables)
     n = active.shape[0]
     k = _Launch(n, active.device)
     k.rays(_RAYS, (*o, *d))

@@ -32,8 +32,10 @@ is one kernel, hand-written for Hopper (``csrc/wave.cu``):
 * :func:`wave_sum` (``wave_sum_kernel``): the wave's tail, each lane's
   radiance with its deferred sky, a repacked wave's scatter to its slots,
   and the sum over the wave's samples (sample 0 first, one after another)
-  into the band's sum, with the wave's rays into the frame's counter: one
-  launch, two on a repacked wave (the scatter, then the sum);
+  into the band's sum, with the wave's rays into the frame's counter, a
+  thread a lane, a tile of pixels x samples a block; the per-lane radiance
+  only for a caller that reads it: one launch, two on a repacked wave (the
+  scatter, then the sum);
 * :func:`frame_image` and :func:`frame_progressive` (``frame_post_kernel``):
   the headless frame's scatter to pixel order with its mean, tonemap and
   quantisation, and the progressive frame's accumulation, mean, tonemap,
@@ -89,16 +91,23 @@ SLOTS = (
     *(f"T_V{k}{c}" for k in range(3) for c in "XYZ"), "T_TRIID", "T_INVFLAT",
     "AL_MODE", "AL_VALUE", "AL_CUTOFF", "T_TRIMAT", "T_UV", "M_TEXIDX", "TEX_TEXELS", "TEX_OFF",
     "TEX_H", "TEX_W",
-    "E_R", "E_G", "E_B", "E_STRENGTH", "Q_RAYS", "Q_RAD", "Q_SUM", "Q_FRAME_RAYS",
+    "E_R", "E_G", "E_B", "E_STRENGTH", "Q_RAYS", "Q_RAD", "Q_SUM", "Q_FRAME_RAYS", "Q_SCRATCH",
     "F_SRC", "F_LANES", "F_ACCUM", "F_SAMPLE", "F_OUT",
 )
 #: The counts and flags, in the order of ``enum Int`` in csrc/wave.cu.
 INTS = ("I_N", "I_PIXELS", "I_WIDTH", "I_HEIGHT", "I_PIXEL_ORDER", "I_TEXTURES", "I_PROTO_TRIS",
         "I_MODE", "I_NUM_INST", "I_K", "I_SUM_MODE", "I_ENV_H", "I_ENV_W", "I_FRAME_MODE", "I_SPP",
-        "I_TONEMAP", "I_UINT8", "I_DISP_H", "I_DISP_W")
+        "I_TONEMAP", "I_UINT8", "I_DISP_H", "I_DISP_W", "I_TILE")
 #: :func:`wave_sum`'s launches (``enum SumMode``): a wave in lane order in
 #: one; a repacked wave's scatter to its slots, then its sum.
 SUM_MODES = ("lanes", "scatter", "add")
+#: Threads of a tail's block and samples a chunk of its tile at most
+#: (``kThreads``, ``kSumRows`` in csrc/wave.cu; :func:`sum_tile`).
+SUM_THREADS = 256
+SUM_ROWS = 8
+#: Lanes a wave's tail takes fewer of: its kernel indexes the lanes' floats
+#: (four a lane in a repacked wave's scratch) in 32 bits.
+MAX_SUM_LANES = 1 << 29
 #: :func:`frame_post`'s modes (``enum FrameMode``).
 FRAME_MODES = ("image", "progressive")
 #: A resample loop's control block, ``enum LoopWord`` in csrc/wave.cu: four
@@ -431,13 +440,15 @@ def radiance_reference(tables, s: dict):
     return (s["value"] + s["sky_w"] * V3.from_array(sky)).to_array()
 
 
-def wave_sum_reference(tables, s: dict, repack: bool, total, frame_rays, rays, k: int):
+def wave_sum_reference(tables, s: dict, repack: bool, total, frame_rays, rays, k: int,
+                       radiance: bool):
     """The wave's tail: each lane's radiance (:func:`radiance_reference`),
     on a repacked wave scattered to its ``slot``, then summed over the
     wave's ``k`` samples (samples-major lanes), sample 0 first and one
     sample after another, and added into ``total`` ((n, 3), the band's
     sum), and the wave's ``rays`` added into ``frame_rays``.  Returns the
-    radiance (n * k, 3) in the lanes' own order."""
+    radiance (n * k, 3) in the lanes' own order where ``radiance``, else
+    None (the sums are the same either way)."""
     value = radiance_reference(tables, s)
     if repack:
         value = torch.empty_like(value).index_copy_(0, s["slot"], value)
@@ -447,21 +458,37 @@ def wave_sum_reference(tables, s: dict, repack: bool, total, frame_rays, rays, k
         acc = acc + per[j]
     total.add_(acc)
     frame_rays.add_(rays)
-    return value
+    return value if radiance else None
 
 
-def wave_sum(tables, s: dict, repack: bool, total, frame_rays, rays, k: int):
+def sum_tile(k: int) -> int:
+    """Pixels of a tile of :func:`wave_sum`'s kernel for waves of ``k``
+    samples: :data:`SUM_THREADS` over the samples of a chunk (``k`` rounded
+    up to a power of two, at most :data:`SUM_ROWS`), so a block is a thread
+    a lane of its chunk."""
+    rows = 1
+    while rows < min(k, SUM_ROWS):
+        rows *= 2
+    return SUM_THREADS // rows
+
+
+def wave_sum(tables, s: dict, repack: bool, total, frame_rays, rays, k: int,
+             radiance: bool):
     """The wave's tail; see :func:`wave_sum_reference`.  On a card one
     launch on a wave in lane order, two on a repacked one (the scatter to
-    the slots, then the sum); ``total`` and ``frame_rays`` are added into in
-    place, and the radiance is a new tensor (in a program, the program's
-    own)."""
+    the slots into a padded scratch, then the sum; one cooperative launch
+    with a grid-wide barrier between them measured slower); ``total`` and
+    ``frame_rays`` are added into in place, and the radiance, where asked
+    for, is a new tensor (in a program, the program's own)."""
     if not _on_cuda(s["active"]):
-        return wave_sum_reference(tables, s, repack, total, frame_rays, rays, k)
+        return wave_sum_reference(tables, s, repack, total, frame_rays, rays, k, radiance)
     lanes = s["active"].shape[0]
+    if lanes >= MAX_SUM_LANES:
+        raise ValueError(f"the wave's tail indexes its {lanes} lanes' floats in 32 bits: "
+                         f"at most {MAX_SUM_LANES - 1} lanes")
     n = lanes // k
     dev = s["active"].device
-    radiance = torch.empty((lanes, 3), dtype=_F32, device=dev)
+    out = torch.empty((lanes, 3), dtype=_F32, device=dev) if radiance else None
     launch = _Launch(lanes, dev)
     for name, f in (("S_D", "direction"), ("S_VAL", "value"), ("S_SKY", "sky_w")):
         launch.lane3(name, s[f])
@@ -470,30 +497,46 @@ def wave_sum(tables, s: dict, repack: bool, total, frame_rays, rays, k: int):
         launch.put(name, c, _F32, (env.h * env.w,))
     launch.put("E_STRENGTH", tables.skybox_strength, _F32, ())
     launch.put("Q_RAYS", rays, torch.int64, ())
-    launch.put("Q_RAD", radiance, _F32, (lanes, 3))
+    if out is not None:
+        launch.put("Q_RAD", out, _F32, (lanes, 3))
     launch.put("Q_SUM", total, _F32, (n, 3))
     launch.put("Q_FRAME_RAYS", frame_rays, torch.int64, ())
+    tile = sum_tile(k)
     launch.count("I_PIXELS", n)
     launch.count("I_K", k)
+    launch.count("I_TILE", tile)
     launch.count("I_ENV_H", env.h)
     launch.count("I_ENV_W", env.w)
     if repack:
+        scratch = torch.empty((lanes, 4), dtype=_F32, device=dev)
+        launch.put("Q_SCRATCH", scratch, _F32, (lanes, 4))
         launch.lane("S_SLOT", s["slot"], torch.int64)
         launch.count("I_SUM_MODE", SUM_MODES.index("scatter"))
         launch.run("wave_sum")
     launch.count("I_SUM_MODE", SUM_MODES.index("add" if repack else "lanes"))
-    launch.count("I_N", n)
+    launch.count("I_N", -(-n // tile) * SUM_THREADS)
     launch.run("wave_sum")
-    return radiance
+    return out
 
 
-def wave_sum_bytes(n: int, k: int, repack: bool, sky_texels: int) -> int:
-    """The bytes :func:`wave_sum` must move for ``n`` pixels x ``k``
-    samples over a sky map of ``sky_texels`` texels: a lane's direction,
-    value and sky weight read (and its slot on a repacked wave), its
-    radiance written; the map read once; the band's sum read and written;
-    the strength and the two ray counters.  Its bytes bound's numerator."""
-    return n * k * (36 + 12 + 8 * repack) + 24 * n + 12 * sky_texels + 4 + 3 * 8
+def wave_sum_bytes(n: int, k: int, repack: bool, sky_texels: int, radiance: bool) -> int:
+    """The bytes the wave's tail must move for ``n`` pixels x ``k``
+    samples over a sky map of ``sky_texels`` texels, whatever the design: a
+    lane's direction, value and sky weight read, its radiance written where
+    ``radiance``, on a repacked wave its slot read; the map read once; the
+    band's sum read and written; the strength and the two ray counters.
+    Its bytes bound's numerator; the scratch a repacked wave's kernel
+    writes and reads back is the design's, not the function's
+    (:func:`wave_sum_scratch_bytes`)."""
+    per_lane = 36 + 12 * radiance + 8 * repack
+    return n * k * per_lane + 24 * n + 12 * sky_texels + 4 + 3 * 8
+
+
+def wave_sum_scratch_bytes(lanes: int, repack: bool) -> int:
+    """The bytes :func:`wave_sum` moves beyond :func:`wave_sum_bytes` over
+    ``lanes`` lanes: on a repacked wave each lane's padded 16-byte row of
+    the scratch, written by the scatter and read back by the sum."""
+    return 2 * 16 * lanes * repack
 
 
 # ---------------------------------------------------------------------------

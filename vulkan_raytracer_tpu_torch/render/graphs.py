@@ -49,7 +49,8 @@ test; an instance's ``step`` (``instance_step_kernel``) counts the lanes
 that touch its box and sets the IF around its launch; ``tail``
 (``wave_sum_kernel``, two launches on a repacked wave) adds the wave's
 radiance with its deferred sky, summed over its samples, into the band's
-sum and its rays into the frame's counter.
+sum and its rays into the frame's counter, and writes each lane's radiance
+only in a program whose caller reads it.
 :meth:`_Program.launch` runs it one of two ways:
 
 * **device loops** (the main path): the C side stitches the parts into one
@@ -81,11 +82,13 @@ the old tables go on rendering the old scene.  The mirror holds the scene's
 bytes a second time (:meth:`GraphCache.mirror_bytes`).  A cache
 (:func:`cache`) goes when the last tables object of its signature does.
 Within it a program is keyed by the wave's pixels and samples, the frame's
-width and height, whether its radiance comes back in pixel order,
-``max_depth``, the NEE weighting and whether the scene is repacked: one
-program per wave shape.  At most :data:`MAX_GRAPHS` programs are kept, the
-least recently used dropped first with their parent graph (a viewer's
-resizes and shard widths make new widths).
+width and height, whether its radiance comes back in pixel order and
+whether it comes back at all (``render_sample`` and the progressive frame
+read it; ``render_lanes`` reads only the sums), ``max_depth``, the NEE
+weighting and whether the scene is repacked: one program per wave shape.
+At most :data:`MAX_GRAPHS` programs are kept, the least recently used
+dropped first with their parent graph (a viewer's resizes and shard widths
+make new widths).
 
 Memory.  A program's inputs (the wave's sample numbers, the band's pixel
 lanes, the camera) and its sums (the band's (n, 3) sum, the frame's ray
@@ -98,7 +101,8 @@ resample loops' control blocks and its instance launches' IF control blocks
 the pool handed out inside a loop could share its memory with a temporary
 the loop's earlier code writes again in its next run). Everything else the
 program's parts allocate (the wave's state, the ladder's narrower states,
-each resample loop's state, ``b``, the wave's rays and radiance) lies in the
+each resample loop's state, ``b``, the wave's rays, its radiance where
+asked for and a repacked wave's scratch of the tail) lies in the
 graphs' memory pool, one pool per cache, which every capture takes on the
 cache's one capture stream; the program keeps its parts' graphs and what its
 conditions read for its lifetime.  Programs of one cache run one after

@@ -509,7 +509,8 @@ class Waves:
     ``lanes[i % n]`` at sample ``first + i // n``), adds its radiance summed
     over the samples into :attr:`sum` ((n, 3), aligned with the lanes) and
     its rays into :attr:`rays` (0-d int64, the frame's), and returns the
-    wave's (radiance per lane, rays).
+    wave's (radiance per lane, rays), the radiance only where the caller
+    asks for it (``radiance``; else None: no lane's radiance is written).
 
     On CUDA tables (``graphs._graphs_preferred``) a wave is one launch of a
     captured program (:mod:`.graphs`) that reads its sample numbers, pixel
@@ -559,14 +560,15 @@ class Waves:
         self.sum = self.cache.buffer("sum", (n, 3), _F32, self.device)
         self.sum.zero_()
 
-    def run(self, first: int, k: int, pixel_order: bool = False):
+    def run(self, first: int, k: int, pixel_order: bool = False, radiance: bool = False):
         """One wave of ``k`` samples from ``first`` over the band (with
         ``pixel_order``, one sample of a whole frame on the repacked
         wavefront, the radiance comes back in pixel order).  Returns
-        (radiance (n * k, 3) samples-major, rays (0-d int64))."""
+        (radiance (n * k, 3) samples-major where ``radiance``, else None;
+        rays (0-d int64))."""
         opts = dict(width=self.width, height=self.height, max_depth=self.max_depth,
                     nee_weighting=self.nee_weighting, repack=self.repack,
-                    pixel_order=pixel_order)
+                    pixel_order=pixel_order, radiance=radiance)
         if self.cache is None:
             samples = torch.arange(first, first + k, dtype=torch.int64, device=self.device)
         else:
@@ -576,8 +578,8 @@ class Waves:
         io = dict(samples=samples, lanes=self.lanes, cam=self.cam, sum=self.sum, rays=self.rays)
         if self.cache is None:
             return _wave_eager(self.tables, io, **opts)
-        key = (self.lanes.shape[0], k, self.width, self.height, pixel_order, self.max_depth,
-               self.nee_weighting, self.repack)
+        key = (self.lanes.shape[0], k, self.width, self.height, pixel_order, radiance,
+               self.max_depth, self.nee_weighting, self.repack)
         return self.cache.run(self.tables, key, io, functools.partial(_wave_eager, **opts),
                               functools.partial(_wave_program, **opts), _COUNTERS)
 
@@ -611,23 +613,24 @@ def render_sample(tables, view_inv, proj_inv, width, height, sample_count, max_d
     else:
         lanes = torch.arange(width * height, dtype=torch.int64, device=dev)
     waves.band(lanes)
-    radiance, rays = waves.run(sample_count, 1, pixel_order=lane_idx is None and waves.repack)
+    radiance, rays = waves.run(sample_count, 1, pixel_order=lane_idx is None and waves.repack,
+                               radiance=True)
     return radiance.clone(), rays.clone()
 
 
 def _wave_eager(tables, io: dict, *, width, height, max_depth, nee_weighting, repack,
-                pixel_order):
+                pixel_order, radiance):
     """A wave eagerly, from its inputs ``io`` (``samples``, ``lanes``,
     ``cam``) to its sums (``sum``, ``rays``): its initial state
     (:func:`..ops.wave.primary_rays`), :func:`_wave`, then its tail
     (:func:`..ops.wave.wave_sum`: the deferred sky, and the radiance summed
     over the samples into ``io["sum"]``, the rays into ``io["rays"]``).
-    Returns (radiance in lane order, rays)."""
+    Returns (radiance in lane order where ``radiance``, else None; rays)."""
     s = wave.primary_rays(io["samples"], io["lanes"], io["cam"], width, height, repack,
                           pixel_order)
     s, rays = _wave(tables, s, max_depth, nee_weighting, repack)
     return wave.wave_sum(tables, s, repack, io["sum"], io["rays"], rays,
-                         io["samples"].shape[0]), rays
+                         io["samples"].shape[0], radiance), rays
 
 
 def _wave(tables, s: dict, max_depth: int, nee_weighting: str, repack: bool):
@@ -672,7 +675,7 @@ def _wave(tables, s: dict, max_depth: int, nee_weighting: str, repack: bool):
 
 
 def _wave_program(tables, io: dict, cap, *, width, height, max_depth: int, nee_weighting: str,
-                  repack: bool, pixel_order: bool):
+                  repack: bool, pixel_order: bool, radiance: bool):
     """:func:`_wave_eager` and the wave's sum as a program of captured parts
     (``graphs._Capture`` ``cap``): the same control flow as device-side
     loops, JAX's ``while_loop``s and ``cond``s.  Its first node is the
@@ -685,7 +688,8 @@ def _wave_program(tables, io: dict, cap, *, width, height, max_depth: int, nee_w
     The bounce index ``b`` and the rays are device scalars, which the loops'
     tests and the parts write; each test counts the live (or pending) lanes
     itself, so no part reads the device on the host.  Returns the
-    (radiance, rays) tensors the program writes."""
+    (radiance, rays) tensors the program writes (the radiance only where
+    ``radiance``, else None)."""
     s = wave.primary_rays(io["samples"], io["lanes"], io["cam"], width, height, repack,
                           pixel_order)
     n = s["active"].shape[0]
@@ -724,6 +728,6 @@ def _wave_program(tables, io: dict, cap, *, width, height, max_depth: int, nee_w
         phase(head, live_floor)
     for wide, head in reversed(list(zip(states, states[1:]))):
         graphs._copy_state(_split(wide, head["active"].shape[0])[0], head)
-    radiance = wave.wave_sum(tables, s, repack, io["sum"], io["rays"], rays,
-                             io["samples"].shape[0])
-    return radiance, rays
+    out = wave.wave_sum(tables, s, repack, io["sum"], io["rays"], rays,
+                        io["samples"].shape[0], radiance)
+    return out, rays

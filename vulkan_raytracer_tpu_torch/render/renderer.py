@@ -216,7 +216,7 @@ def _frame_step(tables, view_inv, proj_inv, width, height, accum, max_depth, dis
         else:
             lanes = torch.arange(width * height, dtype=torch.int64, device=tables.device)
         waves.band(lanes)
-        radiance, rays = waves.run(sample_count, 1, pixel_order=waves.repack)
+        radiance, rays = waves.run(sample_count, 1, pixel_order=waves.repack, radiance=True)
         sample = waves.samples if radiance.is_cuda else sample_count
         img8 = wave.frame_progressive(radiance, accum, sample, width, height, disp_h, disp_w)
     return img8, rays.clone()

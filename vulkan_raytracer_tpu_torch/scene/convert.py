@@ -22,7 +22,7 @@ import torch
 
 from ..accel.bvh import ThreadedBVH
 from ..ops import dense
-from ..ops.instanced import InstanceGroup, InstanceTables, group_table
+from ..ops.instanced import InstanceGroup, InstanceTables, group_table, union_box
 from ..ops.math3 import V3
 from ..ops.texture import EnvMap, TextureAtlas
 from ..ops.traverse import TREELET_TRIS, build_streams
@@ -66,7 +66,8 @@ def _bvh_from_numpy(src) -> ThreadedBVH:
 
 def _inst_from_numpy(src, cols, device, max_tris: int) -> InstanceTables:
     """The port's InstanceTables from a numpy-leaved JAX one; ``cols`` is
-    the port's prototype columns (v0, v1, v2) on ``device``."""
+    the port's prototype columns (v0, v1, v2) on ``device``.  The union box,
+    which the JAX tables do not carry, is made from the groups' boxes."""
     groups = []
     for g in src.groups:
         blas = pblas = table = None
@@ -82,9 +83,12 @@ def _inst_from_numpy(src, cols, device, max_tris: int) -> InstanceTables:
             blas=blas, pblas=pblas, table=table,
             tri_off=int(g.tri_off), tri_cnt=int(g.tri_cnt),
         ))
+    box = union_box(np.concatenate([np.asarray(g.aabb_min) for g in src.groups]),
+                    np.concatenate([np.asarray(g.aabb_max) for g in src.groups]))
     return InstanceTables(
         groups=tuple(groups),
         inv_flat=_tensor(src.inv_flat, device), nrm_flat=_tensor(src.nrm_flat, device),
+        box=_tensor(box, device),
         num_instances=int(src.num_instances), num_proto_tris=int(src.num_proto_tris),
     )
 

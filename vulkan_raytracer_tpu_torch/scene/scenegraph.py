@@ -47,7 +47,7 @@ import torch
 from ..accel import native
 from ..accel.bvh import ThreadedBVH, build_bvh, refit_bvh
 from ..ops import dense, traverse
-from ..ops.instanced import InstanceGroup, InstanceTables, group_table
+from ..ops.instanced import InstanceGroup, InstanceTables, group_table, union_box
 from ..ops.math3 import V3
 from ..ops.texture import EnvMap, TextureAtlas, pack_envmap, pack_textures
 from ..utils import image as image_io
@@ -980,7 +980,7 @@ class Scene:
             ))
         inst_tables = InstanceTables(
             groups=tuple(groups),
-            inv_flat=t(inv_rows.T), nrm_flat=t(nrm_rows.T),
+            inv_flat=t(inv_rows.T), nrm_flat=t(nrm_rows.T), box=t(union_box(inst_bmin, inst_bmax)),
             num_instances=num_inst, num_proto_tris=num_proto_tris,
         )
 
@@ -1081,7 +1081,8 @@ class Scene:
             groups.append(dataclasses.replace(
                 g, inv=t(inv_rows[gl]), aabb_min=t(inst_bmin[gl]), aabb_max=t(inst_bmax[gl])))
         new_inst = dataclasses.replace(
-            inst, groups=tuple(groups), inv_flat=t(inv_rows.T), nrm_flat=t(nrm_rows.T))
+            inst, groups=tuple(groups), inv_flat=t(inv_rows.T), nrm_flat=t(nrm_rows.T),
+            box=t(union_box(inst_bmin, inst_bmax)))
 
         if tables.num_emissive_tris == 0:
             return dataclasses.replace(tables, inst=new_inst)
