@@ -14,7 +14,9 @@ PERF.md §7), so no render phase runs after one but those that compare
 sides of one wave in turns.
 
 On the card every wave is one captured program launched once
-(``render/graphs.py``): its straight code as CUDA graphs, its bounce loop,
+(``render/graphs.py``), and a frame that renders whole or a progressive
+frame is one program with its waves and its tail: its straight code as
+CUDA graphs, its bounce loop,
 the width ladder's phases and (with alpha: the two glTF containers, the
 forced-BVH and the instanced alpha uploads) each resample loop as a
 conditional WHILE node whose condition ``loop_cond_kernel``
@@ -187,16 +189,17 @@ what a bounce calls run eagerly.
    is bit-equal to the plain key over the refit's tables.
 21. progressive — the progressive ``Renderer`` on Cornell 512x512, depth 4:
    the preview frame and 16 samples, whose mean must equal
-   ``render_image(spp=16)`` within atol 1e-5, each frame's tail one
-   ``frame_post_kernel`` launch; ms per frame; ``pipeline=True``
-   gives the same images one call late; then ``cli.run`` with
-   ``--progressive`` and a ``--checkpoint`` / ``--resume`` pair (8 + 8 spp
-   equal 16 spp).  Then (``frame_post``) the kernel against its plain
-   versions at a 512x512 frame's shapes: the headless image in every
-   (tonemap, uint8) mode, and the progressive frame's preview and a later
-   sample at the frame's size and in 120x160 display cells (32 rows and
-   columns no cell shows), bit-equal; each mode timed cold with its
-   bound.
+   ``render_image(spp=16)`` within atol 1e-5, each frame one program
+   launch (its wave and its ``frame_post_kernel`` tail); ms per frame;
+   ``pipeline=True`` gives the same images one call late; then ``cli.run``
+   with ``--progressive`` and a ``--checkpoint`` / ``--resume`` pair (8 + 8
+   spp equal 16 spp).  Then (``frame_post``) every instance of the kernel
+   against its plain version: the headless image in every (tonemap, uint8)
+   mode at 30x17, 512x512, 960x540 and 1920x1080, and the progressive
+   frame's preview and a later sample at the frame's size and in display
+   cells (4x7 of 30x17, 120x160 of 512x512), bit-equal; timed cold (the
+   image at the three larger sizes, the progressive frame at 512x512) with
+   their bounds, beside an empty kernel launched alike.
 22. shard_one — bench cfg1 through ``cli.run`` with ``--shard`` on the mesh
    of the one card: image and rays equal to phase 4's bit for bit; two
    renders of each path in turns (shard, plain, plain, shard), seconds and
@@ -244,9 +247,11 @@ what a bounce calls run eagerly.
    harness's own reads of the progressive run's accumulation and ray count
    aside) and while a program launches: on the device side exactly one a
    frame, its read at its end (the waves' sample numbers, lanes and camera
-   are written on the device), and none inside a wave;
-   the programs the first frame captured and those kept (one a wave
-   shape), their capture seconds, their pool's bytes and the mirror's, the
+   are written on the device), and none inside a wave; on the program
+   sides one program launch a whole frame (and a progressive frame) and no
+   frame tail launched outside a program, one program a wave and one tail
+   on a banded frame; the programs the first frame captured and those kept
+   (one a wave or frame shape), their capture seconds, their pool's bytes and the mirror's, the
    nodes a bounce's parts hold (``cudaGraphGetNodes``; a resample pass and
    a re-sort apart), and ``loop_cond_kernel``'s launches.
 28. shade   — after phase 26, before any profiler session: the three shading
@@ -359,6 +364,7 @@ import contextlib
 import ctypes
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -1974,7 +1980,9 @@ def frame_after_refit(device, cases, size: int = 512, spp: int = 4, depth: int =
                       "copy_bytes": [], "copy_s": [], "emissive_walks": []}
                for side in ("graphs", "eager")}
         want, key_box = None, None
-        for side in ("graphs", "eager", "eager", "graphs"):
+        # three turns a side, so one turn's host noise does not decide the
+        # comparison of the medians (the gallery's sides are within ~1%)
+        for side in ("graphs", "eager", "eager", "graphs", "graphs", "eager"):
             with _eager() if side == "eager" else contextlib.nullcontext():
                 refit = scene.refit(tables)
                 if graphs.signature(refit) != graphs.signature(tables):
@@ -2014,7 +2022,7 @@ def frame_after_refit(device, cases, size: int = 512, spp: int = 4, depth: int =
             o.update(first_s_median=statistics.median(o["first_s"]),
                      second_s_median=statistics.median(o["second_s"]))
         g, e = out["graphs"], out["eager"]
-        if any(g["captured"]) or g["copies"] != [1, 1]:
+        if any(g["captured"]) or g["copies"] != [1, 1, 1]:
             raise AssertionError(f"{name}: the graphs side's frames after a refit captured "
                                  f"{g['captured']} programs, filled the mirror {g['copies']}")
         if walks and not all(g["emissive_walks"] + e["emissive_walks"]):
@@ -2036,71 +2044,116 @@ def frame_after_refit(device, cases, size: int = 512, spp: int = 4, depth: int =
               "nvidia_smi": nvidia_smi_line()})
 
 
+#: frame_post_kernel's template instances (csrc/wave.cu ``enum FramePost``)
+FRAME_POST_INSTANCES = ("uint8", "float", "pixels", "cells")
+
+
+def ptxas_instances(report: str, kernel: str, names) -> dict:
+    """Registers, stack frame and spill bytes of each instance of the
+    template ``kernel`` (``kernel<0>`` ... named by ``names``) from
+    ptxas's -v report."""
+    out, name, row = {}, None, None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(kernel + r"ILi(\d+)E", line)
+            name = names[int(m.group(1))] if m else None
+        elif name and "bytes stack frame" in line:
+            nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+            row = dict(zip(("stack_frame", "spill_stores", "spill_loads"), nums))
+        elif name and row is not None and "Used" in line and "registers" in line:
+            row["registers"] = int(line.split("Used")[1].split()[0])
+            out[name], name, row = row, None, None
+    return out
+
+
 def check_frame_post(device, size: int = 512) -> dict:
-    """``frame_post_kernel`` against its plain versions at the main paths'
-    shapes (a 512x512 frame): the headless image (``wave.frame_image``,
-    every (tonemap, uint8) pair, a frame's sum over 16 samples in block
-    order) and the progressive frame (``wave.frame_progressive``: the
-    preview sample 0 and sample 5, at the frame's size and in 120x160 cells
-    of 4x3 pixels, which leave 32 rows and 32 columns no cell shows),
-    inputs made from a seed: images and the accumulation bit-equal (any
-    differing element fails).  Then each mode timed cold, launch after
-    launch on copies of its inputs spanning four times the L2, against its
-    plain version, with its bytes bound.  Returns the kernel's times, its
-    largest error and the shapes."""
+    """``frame_post_kernel``'s instances against their plain versions: the
+    headless image (``wave.frame_image``: uint8 and float32, with and
+    without tonemap, a sum over 16 samples in block order) at a ragged
+    30x17 frame (edge blocks whose rows are not multiples of 4 pixels), at
+    512x512 and at cfg4's and cfg5's 960x540 and 1920x1080; the progressive
+    frame (``wave.frame_progressive``: the preview sample 0 and sample 5)
+    at the frame's size (30x17 and 512x512) and in cells (4x7 of 30x17,
+    120x160 of 512x512: rows and columns no cell shows), inputs made from
+    a seed: images and the accumulation bit-equal (any differing element
+    fails).  Then each timed cold, launch after launch on copies of its
+    inputs spanning four times the L2, against its plain version, with its
+    bytes bound: the tonemapped uint8 image at the three frame sizes, the
+    progressive frame at 512x512; beside them ``empty_kernel`` launched the
+    same way on the 512x512 image's grid and on one block (the floor one
+    launch sets).  Returns the kernel's times, its largest error, the
+    shapes and each instance's ptxas figures."""
     import torch
     from check_torch_trace import _cold_ms, _copies, _plain_ms
 
-    from vulkan_raytracer_tpu_torch.ops import wave
+    from vulkan_raytracer_tpu_torch.ops import _ext, wave
     from vulkan_raytracer_tpu_torch.render import integrator
 
     g = torch.Generator(device=device).manual_seed(21)
-    n = size * size
 
-    def hdr():
+    def hdr(n):
         return (torch.rand((n, 3), generator=g, device=device) * 2.0) ** 4
 
-    lanes = integrator.block_lanes(size, size, device)
-    acc = hdr() * 16.0
     err, cases = 0.0, 0
-    for tonemap in (True, False):
-        for as_uint8 in (True, False):
-            got = wave.frame_image(acc, lanes, 16, tonemap, as_uint8)
-            want = wave.frame_image_reference(acc, lanes, 16, tonemap, as_uint8)
-            err = max(err, float((got.double() - want.double()).abs().max()))
-            cases += 1
-            if not torch.equal(got, want):
-                raise AssertionError(f"frame_image (tonemap {tonemap}, uint8 {as_uint8}) "
-                                     f"differs from its plain version by {err}")
-    for disp in ((size, size), (120, 160)):
-        accum = hdr()
+    sizes = ((30, 17), (size, size), (960, 540), (1920, 1080))
+    for w, h in sizes:
+        lanes = integrator.block_lanes(w, h, device)
+        acc = hdr(w * h) * 16.0
+        for tonemap in (True, False):
+            for as_uint8 in (True, False):
+                got = wave.frame_image(acc, lanes, 16, tonemap, as_uint8)
+                want = wave.frame_image_reference(acc, lanes, 16, tonemap, as_uint8)
+                err = max(err, float((got.double() - want.double()).abs().max()))
+                cases += 1
+                if not torch.equal(got, want):
+                    raise AssertionError(f"frame_image ({w}x{h}, tonemap {tonemap}, uint8 "
+                                         f"{as_uint8}) differs from its plain version by {err}")
+    for (w, h), disp in (((30, 17), (17, 30)), ((30, 17), (4, 7)), ((size, size), (size, size)),
+                         ((size, size), (120, 160))):
+        accum = hdr(w * h)
         want_accum = accum.clone()
         for sample in (0, 5):
-            rad = hdr()
+            rad = hdr(w * h)
             got = wave.frame_progressive(rad, accum, torch.tensor([sample], device=device),
-                                         size, size, *disp)
-            want = wave.frame_progressive_reference(rad, want_accum, sample, size, size, *disp)
+                                         w, h, *disp)
+            want = wave.frame_progressive_reference(rad, want_accum, sample, w, h, *disp)
             cases += 1
             if not (torch.equal(got, want) and torch.equal(accum, want_accum)):
-                raise AssertionError(f"frame_progressive ({disp}, sample {sample}) differs "
-                                     f"from its plain version")
-    image_args = (acc, lanes, 16, True, True)
-    image_bytes = wave.frame_post_bytes(n, 3 * n, progressive=False)
-    copies = _copies(image_args, image_bytes)
-    image = {"ms": _cold_ms(wave.frame_image, copies),
-             "plain_ms": _plain_ms(wave.frame_image_reference, copies), "bytes": image_bytes,
-             "shape": f"render_image's tail, {size}x{size}, tonemapped uint8"}
-    prog_args = (hdr(), hdr(), torch.tensor([5], device=device), size, size, size, size)
-    prog_bytes = wave.frame_post_bytes(n, 3 * n, progressive=True)
-    copies = _copies(prog_args, prog_bytes)
-    plain = [(r, a, 5, *rest) for r, a, _, *rest in copies]
-    prog = {"ms": _cold_ms(wave.frame_progressive, copies),
-            "plain_ms": _plain_ms(wave.frame_progressive_reference, plain),
-            "bytes": prog_bytes, "shape": f"a progressive frame's tail, {size}x{size}, sample 5"}
-    for t in (image, prog):
-        t.update(bound_ms=1e3 * t["bytes"] / HBM_BYTES_PER_S, bound_by="bytes")
-    out = {"cases": cases, "max_abs_err": err, "image": image, "progressive": prog}
+                raise AssertionError(f"frame_progressive ({w}x{h} shown {disp}, sample "
+                                     f"{sample}) differs from its plain version")
+
+    def timed(fn, ref, args, plain_args, nbytes, shape):
+        copies = _copies(args, nbytes)
+        t = {"ms": _cold_ms(fn, copies), "plain_ms": _plain_ms(ref, plain_args(copies)),
+             "bytes": nbytes, "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "bound_by": "bytes",
+             "shape": shape}
+        t["share_of_bound"] = t["bound_ms"] / t["ms"]
+        return t
+
+    images = {}
+    for w, h in sizes[1:]:
+        n = w * h
+        images[f"{w}x{h}"] = timed(
+            wave.frame_image, wave.frame_image_reference,
+            (hdr(n) * 16.0, integrator.block_lanes(w, h, device), 16, True, True),
+            lambda c: c, wave.frame_post_bytes(n, 3 * n, progressive=False),
+            f"render_image's tail, {w}x{h}, tonemapped uint8")
+    n = size * size
+    prog = timed(wave.frame_progressive, wave.frame_progressive_reference,
+                 (hdr(n), hdr(n), torch.tensor([5], device=device), size, size, size, size),
+                 lambda c: [(r, a, 5, *rest) for r, a, _, *rest in c],
+                 wave.frame_post_bytes(n, 3 * n, progressive=True),
+                 f"a progressive frame's tail, {size}x{size}, sample 5")
+    blocks = -(-n // wave.SUM_THREADS)  # the image's grid: a thread a lane
+    empty = {f"{b}_blocks": _cold_ms(lambda k: wave.empty_launch(k, device), [(b,)] * 2)
+             for b in (blocks, 1)}
+    ptxas = ptxas_instances(_ext.ptxas_report(), "frame_post_kernel", FRAME_POST_INSTANCES)
+    out = {"cases": cases, "max_abs_err": err, "image": images[f"{size}x{size}"],
+           "progressive": prog, "image_by_size": images, "empty_kernel_ms": empty,
+           "ptxas_by_instance": ptxas, "nvidia_smi": nvidia_smi_line()}
     emit({"phase": "frame_post", **out})
+    if set(ptxas) != set(FRAME_POST_INSTANCES):
+        raise AssertionError(f"ptxas reported frame_post_kernel's instances {sorted(ptxas)}")
     return out
 
 
@@ -2110,6 +2163,7 @@ def progressive_phase(device, paths, size: int = 512, spp: int = 16) -> dict:
     ``frame_post_kernel`` against its plain versions
     (:func:`check_frame_post`), whose result it returns."""
     from vulkan_raytracer_tpu_torch import cli
+    from vulkan_raytracer_tpu_torch.render import graphs
     from vulkan_raytracer_tpu_torch.render.renderer import Renderer
     from vulkan_raytracer_tpu_torch.scene.builtin import cornell_box_scene
     from vulkan_raytracer_tpu_torch.scene.camera import Camera
@@ -2129,6 +2183,7 @@ def progressive_phase(device, paths, size: int = 512, spp: int = 16) -> dict:
         ms.append(1e3 * secs)
     traced = r.rays_traced  # the frames' one read of their rays, and of their counts
     launches = _launch_counts()
+    programs = graphs.STATS["launches"]  # one a frame
     if not all(launches["dense"][c] > 0 for c in ("closest", "shadow", "pdf")):
         raise AssertionError(f"the progressive frames missed a kernel: launches {launches}")
     paths.add("progressive", launches)
@@ -2164,13 +2219,14 @@ def progressive_phase(device, paths, size: int = 512, spp: int = 16) -> dict:
                               "max_abs_err_vs_renderer": prog_err},
           "checkpoint_resume": {"spp": [spp // 2, spp // 2], "max_abs_err_vs_one_render": resume_err,
                                 "resume_seconds": part["seconds"]},
-          "launches": launches})
+          "program_launches": programs, "launches": launches})
     if not (prog["frames"] == spp + 1 and prog_err <= 1e-6 and resume_err <= 1e-6):
         raise AssertionError(f"--progressive differs from the Renderer by {prog_err}, "
                              f"8 + 8 spp resumed from 16 spp by {resume_err}")
-    if launches["wave"]["frame_post"] != spp + 1:
+    if launches["wave"]["frame_post"] != spp + 1 or programs != spp + 1:
         raise AssertionError(f"{spp + 1} progressive frames made "
-                             f"{launches['wave']['frame_post']} frame_post launches")
+                             f"{launches['wave']['frame_post']} frame_post launches in "
+                             f"{programs} program launches")
     return check_frame_post(device, size)
 
 
@@ -2539,12 +2595,17 @@ def graphs_phase(cornell, dragon, bigasset, out_dir: Path):
         return Camera(position=np.array(cam[0]), direction=np.array(cam[1]), aspect=w / h)
 
     # each run returns (its images, rays, waves, frames, reads the harness
-    # makes beyond the frames' own)
+    # makes beyond the frames' own, and the program launches and the frame
+    # tails launched on the stream it must make on a program side)
     def frame(tables, cam, w, h, spp, depth):
         def run():
             img, rays = renderer.render_image(tables, camera(cam, w, h), w, h, spp,
                                               max_depth=depth, tonemap=False)
-            return [img], rays, renderer.LAST_RENDER["waves"], 1, 0
+            waves = renderer.LAST_RENDER["waves"]
+            # a frame rendered whole is one program; a banded one a program a
+            # wave, then its image
+            want = (1, 0) if renderer.LAST_RENDER["bands"] == 0 else (waves, 1)
+            return [img], rays, waves, 1, 0, want
         return run
 
     def first_band(tables, cfg):
@@ -2559,7 +2620,7 @@ def graphs_phase(cornell, dragon, bigasset, out_dir: Path):
                                                             chunk, 1, lanes, banded=True)
                 host = renderer._fetch(acc)
                 total, = graphs.settle(rays)
-                return [host.numpy().copy()], total, waves, 1, 0
+                return [host.numpy().copy()], total, waves, 1, 0, (waves, 0)
         return run
 
     def progressive(tables, w, h, depth, spp):
@@ -2568,7 +2629,7 @@ def graphs_phase(cornell, dragon, bigasset, out_dir: Path):
             frames = [r.draw_frame() for _ in range(spp + 1)]  # the preview, then spp
             accum = renderer._fetch(r.accum)  # read with the ray count: one read
             rays = r.rays_traced
-            return frames + [accum.numpy().copy()], rays, spp + 1, spp + 1, 1
+            return frames + [accum.numpy().copy()], rays, spp + 1, spp + 1, 1, (spp + 1, 0)
         return run
 
     import torch_glb_assets
@@ -2615,9 +2676,11 @@ def graphs_phase(cornell, dragon, bigasset, out_dir: Path):
         turns = ("device", "replay", "eager", "device", "replay", "eager", "eager", "replay",
                  "device")
         for turn, side in enumerate(turns):
-            with sides[side]():
+            with sides[side](), _stream_tails() as tails:
                 _reset_launches()
-                (images, rays, waves, frames, harness_reads), secs = _timed_sync(run)
+                (images, rays, waves, frames, harness_reads, want_programs), secs = _timed_sync(
+                    run)
+                programs = (graphs.STATS["launches"], len(tails))
                 got = (rays, integrator.launch_counts(loops=False, skipped=True),
                        dict(integrator.BOUNCE_WIDTHS), _alpha_loop())
                 if captured_first is None:
@@ -2644,9 +2707,14 @@ def graphs_phase(cornell, dragon, bigasset, out_dir: Path):
             if (loop_cond > 0) != (side == "device"):
                 raise AssertionError(f"{config}: the {side} render launched loop_cond_kernel "
                                      f"{loop_cond} times")
+            if side != "eager" and programs != want_programs:
+                raise AssertionError(f"{config}: the {side} side made {programs[0]} program "
+                                     f"launches and {programs[1]} stream launches of the "
+                                     f"frame's tail, not {want_programs}")
             if turn >= 3:  # after each side's warm-up
                 out[side]["seconds"].append(secs)
-            out[side].update(waves=waves, replays=replays, loop_cond_launches=loop_cond)
+            out[side].update(waves=waves, replays=replays, loop_cond_launches=loop_cond,
+                             program_launches=programs[0], stream_tails=programs[1])
         replay_err = max(replay_err, max(float(np.abs(a - b).max()) for a, b in zip(
             images_by_side["device"], images_by_side["replay"])))
         for side in sides:
@@ -2694,6 +2762,30 @@ def graphs_phase(cornell, dragon, bigasset, out_dir: Path):
     return gallery, soup, replay_err
 
 
+@contextlib.contextmanager
+def _stream_tails():
+    """Count the frame's tails launched on the stream: ``wave.frame_image``
+    and ``wave.frame_progressive`` called while no program is being
+    captured.  Yields the list of their names, one a call."""
+    from vulkan_raytracer_tpu_torch.ops import wave
+    from vulkan_raytracer_tpu_torch.render import graphs
+
+    calls, kept = [], (wave.frame_image, wave.frame_progressive)
+
+    def counted(fn):
+        def call(*args, **kw):
+            if graphs.current_capture() is None:
+                calls.append(fn.__name__)
+            return fn(*args, **kw)
+        return call
+
+    wave.frame_image, wave.frame_progressive = map(counted, kept)
+    try:
+        yield calls
+    finally:
+        wave.frame_image, wave.frame_progressive = kept
+
+
 def bounce_nodes(cache) -> dict:
     """Nodes of the parts of one bounce of each program in ``cache``
     (``cudaGraphGetNodes`` on the parts; the tests the stitcher adds aside):
@@ -2713,8 +2805,7 @@ def bounce_nodes(cache) -> dict:
 
     out = []
     for program in cache.graphs.values():
-        phase = next(n for n in program.nodes if isinstance(n, graphs._Node)
-                     and n.role == "phase")
+        phase = next(n for n in program.conds if n.role == "phase")  # in a frame's loop too
         out.append({"bounce": parts(phase.body, ("bounce",)),
                     "alpha_pass": parts([n for n in phase.body if isinstance(n, graphs._Node)
                                          and n.role == "alpha"], ("alpha",)),
@@ -2915,14 +3006,45 @@ def walk_ifs_phase(gallery) -> dict:
     return out
 
 
-def graphs_busy(cornell, gallery, soup, small, bigasset) -> None:
+def busy_waves(cornell, gallery, soup, small, bigasset) -> list:
+    """Phase 27's waves, ``profile_torch_wave``'s first wave of the frame of
+    cfg1, the gallery, the emitter soup, the forced-BVH dragon of phase 9
+    and the glTF 147k: (label, its frame (w, h, spp, depth), its pixels, its
+    samples, a function that runs it), each run once here through the
+    device loops, which captures its program.  Called before the first ``torch.profiler``
+    session: CUPTI traces every rerun of a conditional body's nodes in a
+    program instantiated after one, and misses most in a program
+    instantiated before any (H6), which phase 27's device-side check
+    expects (the frames of phase 26 are frame programs, so these waves'
+    programs are first captured here)."""
+    from profile_torch_wave import first_wave, wave
+
+    from vulkan_raytracer_tpu_torch.scene.camera import Camera
+
+    out = []
+    for label, tables, cam, (w, h, spp, depth) in (
+            ("cfg1", cornell, CFG1_CAM, (512, 512, 64, 4)),
+            ("gallery", gallery, gallery_camera(), (512, 512, 4, 4)),
+            ("emitter soup", soup, CFG1_CAM, (512, 512, 4, 4)),
+            ("forced-BVH dragon", small, CFG2_CAM, (32, 32, 2, 3)),
+            ("gltf147k", bigasset, BIGASSET_CAM, (512, 512, 4, 4))):
+        camera = Camera(position=np.array(cam[0]), direction=np.array(cam[1]), aspect=w / h)
+        lanes, samples, _ = first_wave(tables, w, h, spp)
+        run = wave(tables, camera, w, h, depth, lanes, samples)
+        run()
+        out.append((label, (w, h, spp, depth), len(lanes), samples, run))
+    return out
+
+
+def graphs_busy(waves: list) -> None:
     """Phase 27, after the profiled timings: one wave each of cfg1, the
     gallery, the emitter soup, the forced-BVH dragon of phase 9 and the
     glTF 147k (``profile_torch_wave``'s first wave of each frame) through
-    the device loops, the host-read replay and eager, each side warmed up
-    and then once under ``torch.profiler`` with its counters reset, the
-    card idle for :data:`PROFILE_GAP_S` after the trace starts and before it
-    stops.  On the replay and eager sides each hand-written kernel's
+    the device loops, the host-read replay and eager (``waves``:
+    :func:`busy_waves`, their programs captured before any profiler
+    session), each side warmed up and then once under ``torch.profiler``
+    with its counters reset, the card idle for :data:`PROFILE_GAP_S` after
+    the trace starts and before it stops.  On the replay and eager sides each hand-written kernel's
     launches in the trace equal the counters' (on the replay side what the
     parts' captures counted, per pass on the glTF wave: the five waves
     launch every kernel variant); on the device side, whose trace misses
@@ -2936,23 +3058,14 @@ def graphs_busy(cornell, gallery, soup, small, bigasset) -> None:
     launch."""
     import torch
     from profile_torch_wave import (ProgramEvents, check_device_trace, check_traced_launches,
-                                    first_wave, trace_summary, wave)
+                                    trace_summary)
 
     from vulkan_raytracer_tpu_torch.render import graphs
-    from vulkan_raytracer_tpu_torch.scene.camera import Camera
 
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     replayed: dict = {}  # counter -> launches over the replay sides
     sides = {"device": contextlib.nullcontext, "replay": _loops_on_host, "eager": _eager}
-    for label, tables, cam, (w, h, spp, depth) in (
-            ("cfg1", cornell, CFG1_CAM, (512, 512, 64, 4)),
-            ("gallery", gallery, gallery_camera(), (512, 512, 4, 4)),
-            ("emitter soup", soup, CFG1_CAM, (512, 512, 4, 4)),
-            ("forced-BVH dragon", small, CFG2_CAM, (32, 32, 2, 3)),
-            ("gltf147k", bigasset, BIGASSET_CAM, (512, 512, 4, 4))):
-        camera = Camera(position=np.array(cam[0]), direction=np.array(cam[1]), aspect=w / h)
-        lanes, samples, _ = first_wave(tables, w, h, spp)
-        run = wave(tables, camera, w, h, depth, lanes, samples)
+    for label, (w, h, spp, depth), pixels, samples, run in waves:
         out = {}
         for side, ctx in sides.items():
             with ctx():
@@ -2992,7 +3105,7 @@ def graphs_busy(cornell, gallery, soup, small, bigasset) -> None:
                          "port_kernel_ms": trace.get("port_kernel_ms", {})}
         d = out["device"]
         d["busy_share_from_replay"] = out["replay"]["device_busy_ms"] / d["profiled_wall_ms"]
-        emit({"phase": "graphs_busy", "config": f"{label} first wave: {len(lanes)} pixels x "
+        emit({"phase": "graphs_busy", "config": f"{label} first wave: {pixels} pixels x "
                                                 f"samples {len(samples)}, {w}x{h} depth {depth}",
               "traced_launches_equal_counters": ["replay", "eager"],
               "device_traced_within_counters": True, "profile_gap_s": PROFILE_GAP_S, **out})
@@ -3250,21 +3363,22 @@ def bench_phase(paths) -> list:
     import torch
 
     from vulkan_raytracer_tpu_torch import bench
-    from vulkan_raytracer_tpu_torch.ops import wave
     from vulkan_raytracer_tpu_torch.render import renderer
 
     frames = []
-    frame_image = wave.frame_image
+    render_image = renderer.render_image
 
-    def checked(acc, lanes, spp, tonemap, as_uint8):
+    def checked(tables, camera, width, height, spp, *args, **kw):
+        out = render_image(tables, camera, width, height, spp, *args, **kw)
+        acc = renderer.LAST_SUM["sum"]  # the frame's linear sum, after its read
         frames.append((acc.shape[0], bool(torch.isfinite(acc).all()), float(acc.mean()) / spp))
-        return frame_image(acc, lanes, spp, tonemap, as_uint8)
+        return out
 
-    wave.frame_image = checked
+    renderer.render_image = checked
     try:
         others, c1, summary = bench.run(torch.device("cuda", 0), reps=1)
     finally:
-        wave.frame_image = frame_image
+        renderer.render_image = render_image
     if c1.key != "cfg1_cornell_builtin_512x512_d4_64spp":
         raise AssertionError(f"the bench rendered {c1.key}, expected the built-in box")
     # each config: gate crop, warm-up frame, rep
@@ -3710,9 +3824,11 @@ def main() -> int:
         times[name] = {**trace_times[name][config], "shape": shape,
                        "by_config": trace_times[name]}
 
-    # the dense kernels' device times from torch.profiler, after every
-    # render phase: a profiler session slows the renders that follow it in
-    # the same process (PERF.md §7)
+    # phase 27's waves, their programs captured before the first profiler
+    # session; then the dense kernels' device times from torch.profiler,
+    # after every render phase: a profiler session slows the renders that
+    # follow it in the same process (PERF.md §7)
+    busy = busy_waves(cornell, gallery_tables, soup_tables, small, bigasset)
     times.update(time_kernels(cornell, n_wave, device))
     shadow_cfg1 = time_cfg1_shadow(cornell)
     with tempfile.TemporaryDirectory() as tmp:  # K3 and K1 at launches glTF renders make
@@ -3724,8 +3840,8 @@ def main() -> int:
 
     # 27. replayed launches in the trace, and the device's busy share, graphs
     # and eager
-    graphs_busy(cornell, gallery_tables, soup_tables, small, bigasset)
-    del gallery_tables, soup_tables, bigasset
+    graphs_busy(busy)
+    del busy, gallery_tables, soup_tables, bigasset
     times["loop_cond_kernel"] = time_loop_cond(device)
 
     import vulkan_raytracer_tpu_torch.viewer  # noqa: F401  (held to the same check)

@@ -618,8 +618,9 @@ def test_stand_in_program_bit_equal_to_eager(case, monkeypatch):
     instance steps and the plain versions' calls equal, the program's from
     each part's captured counts times the runs of its body (the launches
     the IF nodes of an instanced scene skipped counted in, as the eager loop
-    launches every instance).  One program a wave shape, keyed without a
-    bounce; the second frame captures nothing."""
+    launches every instance).  The frame is one program (its wave under the
+    frame's loop, then its image), keyed by its shape and wave count,
+    without a bounce; the second frame captures nothing."""
     gc.collect()  # no cache of an earlier test's tables of the signature
     tables, (pos, direction, _, _), _ = _case(case, monkeypatch)
     cam = Camera(position=np.array(pos), direction=np.array(direction))
@@ -651,11 +652,12 @@ def test_stand_in_program_bit_equal_to_eager(case, monkeypatch):
             tables.inst is not None)
     programs = graphs.cache(tables).graphs
     repack = integrator._repack_preferred(tables)
-    # (pixels, samples, width, height, pixel order, radiance, depth, NEE
-    # weighting, repack): the frame reads only the band's sum
-    assert list(programs) == [(1024, 2, 32, 32, False, False, 3, "reference", repack)]
+    # ("frame", pixels, samples a wave, waves, tonemap, uint8, width, height,
+    # depth, NEE weighting, repack): the frame's image from the band's sum
+    assert list(programs) == [("frame", 1024, 2, 1, False, False, 32, 32, 3, "reference",
+                               repack)]
     program, = programs.values()
-    assert list(program.io) == ["samples", "lanes", "cam", "sum", "rays"]
+    assert list(program.io) == ["samples", "lanes", "cam", "sum", "rays", "image"]
 
 
 @pytest.mark.parametrize("plan", ["whole", "banded"])
@@ -732,6 +734,21 @@ def test_progressive_frame_through_the_program(case, monkeypatch):
     # the frame's tail reads the sample's radiance
     assert list(graphs.cache(tables).graphs) == [(1024, 1, 32, 32, repack, True, 3, "reference",
                                                   repack)]
+
+
+def test_capture_keeps_the_collector_off():
+    """While a program is captured Python's cyclic collector is off (a
+    program it collected would destroy its executable graph, which a stream
+    capture forbids), and on again after, an error's too."""
+    assert gc.isenabled()
+    cap = graphs._Capture(None, [], graph=_Recorded)
+    with graphs.capturing(cap):
+        assert not gc.isenabled() and graphs.current_capture() is cap
+    assert gc.isenabled() and graphs.current_capture() is None
+    with pytest.raises(KeyError), graphs.capturing(cap):
+        cap.begin()
+        raise KeyError("a failed capture")
+    assert gc.isenabled() and cap.graph is None
 
 
 def test_graphs_preferred_rule():

@@ -50,6 +50,20 @@ def test_ptxas_table_takes_the_most_over_a_kernels_instances():
                                                    "spill_loads": 0, "registers": 40}}
 
 
+def test_ptxas_instances_reads_each_instance_of_a_template():
+    """``frame_post_kernel<kJob>``'s instances, each by its own name, with
+    its own registers and spills; entries of other kernels are left out."""
+    report = "".join(
+        f"ptxas info    : Compiling entry function '_ZN39_GLOBAL__N_wave_cu17frame_post_kernel"
+        f"ILi{job}EEEvNS_4ArgsE' for 'sm_90a'\n"
+        f"    0 bytes stack frame, {spill} bytes spill stores, 0 bytes spill loads\n"
+        f"ptxas info    : Used {regs} registers, used 1 barriers\n"
+        for job, spill, regs in ((0, 0, 36), (1, 8, 32), (2, 0, 32), (3, 0, 39))) + REPORT
+    got = cs.ptxas_instances(report, "frame_post_kernel", cs.FRAME_POST_INSTANCES)
+    assert {k: (v["registers"], v["spill_stores"]) for k, v in got.items()} == {
+        "uint8": (36, 0), "float": (32, 8), "pixels": (32, 0), "cells": (39, 0)}
+
+
 @pytest.mark.parametrize("ops, nbytes, by", [(67e9, 1e6, "operations"), (1e6, 3.35e9, "bytes")])
 def test_bound_is_the_larger_of_the_two_times(ops, nbytes, by):
     b = cs.bound(ops, nbytes)

@@ -9,9 +9,13 @@ renders the built-in Cornell box at 512x512, depth 4, through
 ``draw_frame`` each, every frame timed from an idle card to its image on
 the host.  A first sequence warms up (kernels build, the frame's wave
 captures); then ``--runs`` sequences are timed, each on a new ``Renderer``
-of the same tables: the median, least and most ms a frame, the rays, and
-a digest of the sequence's images and final accumulation (sha256), which
-two versions that render alike share.
+of the same tables: the median, least and most ms a frame, its split into
+the device ms of the program launches it made (CUDA events around each,
+``profile_torch_wave.ProgramEvents``) and the rest (``other_ms``: the
+host's work, the launches outside a program, the image's copy), the
+program launches a frame, the rays, and a digest of the sequence's images
+and final accumulation (sha256), which two versions that render alike
+share.
 
 ``--root DIR`` renders with the ``vulkan_raytracer_tpu_torch`` package of
 another checkout (for example an unpacked earlier commit), so one call can
@@ -42,9 +46,11 @@ def main(argv=None) -> int:
     p.add_argument("--runs", type=int, default=2)
     p.add_argument("--out", default=None)
     args = p.parse_args(argv)
+    sys.path.insert(0, str(ROOT / "tools"))
     sys.path.insert(0, str(Path(args.root).resolve()))
     import numpy as np
     import torch
+    from profile_torch_wave import ProgramEvents
 
     if not torch.cuda.is_available():
         print("bench_torch_progressive.py: needs an NVIDIA card", file=sys.stderr)
@@ -61,18 +67,25 @@ def main(argv=None) -> int:
         camera = Camera(position=np.array([0.0, 1.0, 2.4]),
                         direction=np.array([0.0, 0.0, -1.0]), aspect=1.0)
         r = renderer.Renderer(tables, camera, 512, 512, 4)
-        times, digest = [], hashlib.sha256()
+        times, program_ms, launches, digest = [], [], [], hashlib.sha256()
         for _ in range(FRAMES):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            img = r.draw_frame()  # returns the image on the host
+            with ProgramEvents() as events:
+                img = r.draw_frame()  # returns the image on the host
             times.append(time.perf_counter() - t0)
+            program_ms.append(events.ms())
+            launches.append(len(events.events))
             digest.update(img.tobytes())
         rays = r.rays_traced
         digest.update(r.accum.cpu().numpy().tobytes())
         if run:  # the first sequence warms up
+            other = [1e3 * t - p for t, p in zip(times, program_ms)]
             out["runs"].append({"ms_median": 1e3 * statistics.median(times),
                                 "ms_min": 1e3 * min(times), "ms_max": 1e3 * max(times),
+                                "program_ms_median": statistics.median(program_ms),
+                                "other_ms_median": statistics.median(other),
+                                "program_launches_per_frame": sorted(set(launches)),
                                 "rays": rays, "digest": digest.hexdigest()[:16]})
     line = json.dumps(out)
     print(line, flush=True)

@@ -7,6 +7,7 @@ the wavefront repack and without it.
         [--reps 3]
         [--out FILE.json]
         [--root DIR]
+        [--frames-only]
 
 Run from the root of a checkout on a machine with an NVIDIA card.  It
 renders the first wave ``render_image`` runs for a bench configuration:
@@ -91,8 +92,10 @@ samples in another order) (``frame``: the
 wall of each, its waves, the wall per wave, the frame's host
 synchronisations, 1 where the frame reads only its result at its end, and
 on the device side the programs' device ms from CUDA events around their
-launches, over the frame's wall its busy share); their images and rays
-must be equal on every side.
+launches, over the frame's wall its busy share, and on the program sides
+the program launches a frame: one where the frame renders whole, one a
+wave where it bands); their images and rays must be equal on every side.
+``--frames-only`` times only those frames, on the device side.
 
 For instanced it also reports the instance steps (every one launches) and
 the live lanes of each ``instanced_closest`` call (one a bounce).
@@ -250,7 +253,7 @@ def time_frames(sides: dict, run, reps: int) -> dict:
     every side."""
     from vulkan_raytracer_tpu_torch.render import renderer
 
-    out = {name: {"wall_s": [], "program_ms": []} for name in sides}
+    out = {name: {"wall_s": [], "program_ms": [], "program_launches": []} for name in sides}
     want = None
     for r in range(reps + 1):  # the first turn warms up
         for name in list(sides)[::1 if r % 2 == 0 else -1]:
@@ -264,6 +267,7 @@ def time_frames(sides: dict, run, reps: int) -> dict:
                 raise AssertionError(f"the {name} frame differs from the first one")
             if r:
                 out[name]["wall_s"].append(secs)
+                out[name]["program_launches"].append(len(events.events))
                 if name == "device":
                     out[name]["program_ms"].append(events.ms())
             out[name]["waves"] = renderer.LAST_RENDER["waves"]
@@ -481,7 +485,8 @@ class LaunchSyncs:
 class ProgramEvents:
     """CUDA events around each launch of a program through the device loops
     while active (``graphs._Program.launch`` wrapped): ``ms()`` is their
-    device time in all."""
+    device time in all; ``events`` holds one entry a launch (None for a
+    host-read replay's)."""
 
     def __init__(self):
         self.events = []
@@ -495,6 +500,7 @@ class ProgramEvents:
 
         def timed(program, device_loops):
             if not device_loops:
+                self.events.append(None)
                 return launch(program, device_loops)
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             start.record()
@@ -512,7 +518,7 @@ class ProgramEvents:
 
     def ms(self) -> float:
         total = 0.0
-        for start, end in self.events:
+        for start, end in filter(None, self.events):
             end.synchronize()
             total += start.elapsed_time(end)
         return total
@@ -668,6 +674,9 @@ def main(argv=None) -> int:
     p.add_argument("--nodes", action="store_true",
                    help="only capture the wave's program and count the graph nodes a launch "
                         "runs (program_nodes)")
+    p.add_argument("--frames-only", action="store_true",
+                   help="only time --reps whole frames on the device side (frame): walls, "
+                        "program launches and device ms, busy share, captures and pool bytes")
     args = p.parse_args(argv)
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(Path(args.root).resolve()))
@@ -697,6 +706,21 @@ def main(argv=None) -> int:
     rule = integrator._repack_preferred
     sides = _sides(rule)
     kept = sides["device"]
+    if args.frames_only:
+        graphs.reset_stats()
+        frames = time_frames({"device": kept}, frame(tables, camera, width, height, spp, depth),
+                             args.reps)
+        cache = graphs.cache(tables)
+        line = json.dumps({"config": f"{args.config} frame: {scene} {width}x{height} depth "
+                                     f"{depth}, {spp} spp", "root": args.root, "nvidia_smi": smi,
+                           "bands": bands, "frame": frames["device"],
+                           "captures": {k: graphs.STATS[k] for k in ("captured", "capture_s")},
+                           "programs": len(cache.graphs), "pool_bytes": cache.pool_bytes()})
+        print(line, flush=True)
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(line + "\n")
+        return 0
     if not rule(tables):
         del sides["unsorted"]
     walls = {name: [] for name in sides}

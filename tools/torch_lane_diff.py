@@ -159,9 +159,9 @@ class Record:
         from vulkan_raytracer_tpu_torch.ops import shade, wave
         from vulkan_raytracer_tpu_torch.render import graphs, integrator
 
-        saved = (integrator.Waves.run, integrator._bounce, shade.shade_hit,
-                 wave.wave_sum, graphs._graphs_preferred)
-        run, bounce, shade_hit, wave_sum, _ = saved
+        saved = (integrator.Waves.run, integrator.Waves.frame, integrator._bounce,
+                 shade.shade_hit, wave.wave_sum, graphs._graphs_preferred)
+        run, _, bounce, shade_hit, wave_sum, _ = saved
 
         def rec_run(waves, first, k, pixel_order=False, radiance=False):
             self._keys = _lane_keys(waves.lanes, first, k)
@@ -173,6 +173,15 @@ class Record:
             for key, row in zip(map(tuple, rows.tolist()), _np(out)):
                 self.radiance[key] = row
             return (out if radiance else None), rays
+
+        def rec_frame(waves, lanes, first, k, n, tonemap, as_uint8, done):
+            # a frame program's waves one at a time, each recorded (a
+            # program's launch runs no Python), then its image
+            waves.band(lanes)
+            for w in range(n):
+                waves.run(first + w * k, k)
+            done(n, 1, n)
+            return wave.frame_image(waves.sum, waves.lanes, n * k, tonemap, as_uint8)
 
         def rec_bounce(tables, s, b, *args):
             lanes = self._lanes(s)
@@ -195,7 +204,7 @@ class Record:
                 self.final[key] = {k: v[i] for k, v in state.items()}
             return wave_sum(tables, s, *args)
 
-        integrator.Waves.run = rec_run
+        integrator.Waves.run, integrator.Waves.frame = rec_run, rec_frame
         if self.bounces:
             integrator._bounce, shade.shade_hit = rec_bounce, rec_shade_hit
             wave.wave_sum = rec_wave_sum
@@ -203,7 +212,7 @@ class Record:
         try:
             yield self
         finally:
-            (integrator.Waves.run, integrator._bounce, shade.shade_hit,
+            (integrator.Waves.run, integrator.Waves.frame, integrator._bounce, shade.shade_hit,
              wave.wave_sum, graphs._graphs_preferred) = saved
 
 
@@ -232,13 +241,21 @@ def _camera(cam, width: int, height: int):
 
 def render_frame(tables, cam, width: int, height: int, spp: int, depth: int):
     """``render_image`` (linear, start sample 1) with each lane's radiance
-    kept; returns (image (H, W, 3), rays, {(pixel, sample): radiance})."""
+    kept; returns (image (H, W, 3), rays, {(pixel, sample): radiance}).  A
+    frame that runs as one program on the card is rendered so, then again
+    with its waves one at a time, each recorded (its launches not counted),
+    which must give the same image and rays."""
     from vulkan_raytracer_tpu_torch.render.renderer import render_image
 
+    camera = _camera(cam, width, height)
+    img, rays = render_image(tables, camera, width, height, spp=spp, max_depth=depth,
+                             tonemap=False)
     rec = Record(bounces=False)
-    with rec.on():
-        img, rays = render_image(tables, _camera(cam, width, height), width, height, spp=spp,
-                                 max_depth=depth, tonemap=False)
+    with counters_kept(), rec.on():
+        again, rays_again = render_image(tables, camera, width, height, spp=spp,
+                                         max_depth=depth, tonemap=False)
+    if not (np.array_equal(img, again) and rays == rays_again):
+        raise AssertionError("the frame's waves one at a time differ from the frame")
     return img, rays, rec.radiance
 
 

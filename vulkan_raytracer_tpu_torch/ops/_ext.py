@@ -90,6 +90,7 @@ _SIGNATURES = {
     "alpha_commit_launch": [_I, _P, _P, _P],
     "wave_sum_launch": [_I, _P, _P, _P],
     "frame_post_launch": [_I, _P, _P, _P],
+    "empty_launch": [_I, ctypes.c_longlong, _P],  # (device, blocks, stream)
     # (device, pointers [trace.SLOTS], counts [trace.INTS], floats [trace.REALS], stream)
     "hit_finish_launch": [_I, _P, _P, _P, _P],
     "instance_step_launch": [_I, _P, _P, _P, _P],

@@ -108,8 +108,16 @@ SUM_ROWS = 8
 #: Lanes a wave's tail takes fewer of: its kernel indexes the lanes' floats
 #: (four a lane in a repacked wave's scratch) in 32 bits.
 MAX_SUM_LANES = 1 << 29
-#: :func:`frame_post`'s modes (``enum FrameMode``).
+#: :func:`frame_image`'s and :func:`frame_progressive`'s modes (``enum
+#: FrameMode``).
 FRAME_MODES = ("image", "progressive")
+#: Pixels a thread of the progressive frame's tail at the frame's size
+#: works (``kFrameLanes`` in csrc/wave.cu); the headless tail works a lane a
+#: thread, the decimating one a display cell.
+FRAME_LANES = 4
+#: Pixels a frame's tail takes fewer of: its kernel indexes the frame's
+#: floats (three a pixel) in 32 bits.
+MAX_FRAME_PIXELS = 1 << 29
 #: A resample loop's control block, ``enum LoopWord`` in csrc/wave.cu: four
 #: int64, zero when made (:func:`loop_block`).
 LOOP_WORDS = ("kLoopWord", "kLoopHandle", "kLoopRow", "kLoopCount")
@@ -446,17 +454,19 @@ def wave_sum_reference(tables, s: dict, repack: bool, total, frame_rays, rays, k
     on a repacked wave scattered to its ``slot``, then summed over the
     wave's ``k`` samples (samples-major lanes), sample 0 first and one
     sample after another, and added into ``total`` ((n, 3), the band's
-    sum), and the wave's ``rays`` added into ``frame_rays``.  Returns the
+    sum; None: no sum, for a caller that reads only the radiance), and the
+    wave's ``rays`` added into ``frame_rays``.  Returns the
     radiance (n * k, 3) in the lanes' own order where ``radiance``, else
     None (the sums are the same either way)."""
     value = radiance_reference(tables, s)
     if repack:
         value = torch.empty_like(value).index_copy_(0, s["slot"], value)
-    per = value.reshape(k, -1, 3)
-    acc = per[0]
-    for j in range(1, k):
-        acc = acc + per[j]
-    total.add_(acc)
+    if total is not None:
+        per = value.reshape(k, -1, 3)
+        acc = per[0]
+        for j in range(1, k):
+            acc = acc + per[j]
+        total.add_(acc)
     frame_rays.add_(rays)
     return value if radiance else None
 
@@ -499,7 +509,8 @@ def wave_sum(tables, s: dict, repack: bool, total, frame_rays, rays, k: int,
     launch.put("Q_RAYS", rays, torch.int64, ())
     if out is not None:
         launch.put("Q_RAD", out, _F32, (lanes, 3))
-    launch.put("Q_SUM", total, _F32, (n, 3))
+    if total is not None:
+        launch.put("Q_SUM", total, _F32, (n, 3))
     launch.put("Q_FRAME_RAYS", frame_rays, torch.int64, ())
     tile = sum_tile(k)
     launch.count("I_PIXELS", n)
@@ -565,35 +576,59 @@ def frame_image_reference(acc, lanes, spp: int, tonemap: bool, as_uint8: bool):
     return postprocess(img, spp, tonemap, as_uint8)
 
 
-def frame_image(acc, lanes, spp: int, tonemap: bool, as_uint8: bool):
+def _frame_pixels(n: int) -> None:
+    if n >= MAX_FRAME_PIXELS:
+        raise ValueError(f"the frame's tail indexes its {n} pixels' floats in 32 bits: at most "
+                         f"{MAX_FRAME_PIXELS - 1} pixels")
+
+
+def _into(out, img):
+    """``img``, or ``img`` copied into ``out`` where given."""
+    return img if out is None else out.copy_(img)
+
+
+def frame_image(acc, lanes, spp: int, tonemap: bool, as_uint8: bool, out=None):
     """A headless frame's image; see :func:`frame_image_reference`.  On a
-    card one launch."""
+    card one launch, a thread a lane.  ``out``: the
+    (n, 3) uint8 or float32 tensor it writes (else a new one)."""
     if not _on_cuda(acc):
-        return frame_image_reference(acc, lanes, spp, tonemap, as_uint8)
+        return _into(out, frame_image_reference(acc, lanes, spp, tonemap, as_uint8))
     n = acc.shape[0]
-    out = torch.empty((n, 3), dtype=torch.uint8 if as_uint8 else _F32, device=acc.device)
+    _frame_pixels(n)
+    dtype = torch.uint8 if as_uint8 else _F32
+    if out is None:
+        out = torch.empty((n, 3), dtype=dtype, device=acc.device)
     launch = _Launch(n, acc.device)
     launch.put("F_SRC", acc, _F32, (n, 3))
     launch.lane("F_LANES", lanes, torch.int64)
-    launch.put("F_OUT", out, out.dtype, (n, 3))
+    launch.put("F_OUT", out, dtype, (n, 3))
     launch.count("I_FRAME_MODE", FRAME_MODES.index("image"))
+    launch.count("I_PIXELS", n)
     launch.count("I_SPP", spp)
     launch.count("I_TONEMAP", tonemap)
     launch.count("I_UINT8", as_uint8)
+    launch.count("I_N", n)
     launch.run("frame_post")
     return out
 
 
-def frame_progressive_reference(radiance, accum, sample: int, width: int, height: int,
+def frame_progressive_reference(radiance, accum, sample, width: int, height: int,
                                 disp_h: int, disp_w: int):
     """A progressive frame's tail (renderer.py:259-292) after its sample
     ``sample``'s ``radiance`` (n, 3) in pixel order: the preview sample 0
     zeroes the accumulation ``accum`` and is shown itself, a later sample
     is added into ``accum`` in place and its mean shown; tonemapped,
     quantised, and mean-pooled (integer) to (disp_h, disp_w) cells of
-    height // disp_h x width // disp_w pixels.  Returns the uint8
-    (disp_h, disp_w, 3) image."""
-    if sample == 0:
+    height // disp_h x width // disp_w pixels.  ``sample`` is an int, or
+    the (1,) int64 tensor a program reads it from (the same ops on its
+    value, nothing read on the host).  Returns the uint8 (disp_h, disp_w,
+    3) image."""
+    if isinstance(sample, torch.Tensor):
+        count = sample.reshape(())
+        preview = count == 0
+        accum.copy_(torch.where(preview, torch.zeros_like(accum), accum + radiance))
+        shown = torch.where(preview, radiance, accum / count)
+    elif sample == 0:
         accum.zero_()
         shown = radiance
     else:
@@ -610,17 +645,21 @@ def frame_progressive_reference(radiance, accum, sample: int, width: int, height
 
 
 def frame_progressive(radiance, accum, sample, width: int, height: int, disp_h: int,
-                      disp_w: int):
+                      disp_w: int, out=None):
     """A progressive frame's tail; see :func:`frame_progressive_reference`.
     ``sample`` is the sample's number: an int on the CPU, on a card the (1,)
     int64 tensor the sample's wave read it from, which the one launch reads
-    there."""
+    there (a thread :data:`FRAME_LANES` pixels at the frame's own size, a
+    display cell where it decimates).  ``out``: the (disp_h, disp_w, 3)
+    uint8 tensor it writes (else a new one)."""
     if not _on_cuda(radiance):
-        return frame_progressive_reference(radiance, accum, sample, width, height, disp_h,
-                                           disp_w)
+        return _into(out, frame_progressive_reference(radiance, accum, sample, width, height,
+                                                      disp_h, disp_w))
     n = width * height
+    _frame_pixels(n)
     dev = radiance.device
-    out = torch.empty((disp_h, disp_w, 3), dtype=torch.uint8, device=dev)
+    if out is None:
+        out = torch.empty((disp_h, disp_w, 3), dtype=torch.uint8, device=dev)
     cols = disp_w * (width // disp_w)
     rows = disp_h * (height // disp_h)
     launch = _Launch(n, dev)
@@ -629,15 +668,25 @@ def frame_progressive(radiance, accum, sample, width: int, height: int, disp_h: 
     launch.put("F_SAMPLE", sample, torch.int64, (1,))
     launch.put("F_OUT", out, torch.uint8, (disp_h, disp_w, 3))
     launch.count("I_FRAME_MODE", FRAME_MODES.index("progressive"))
+    launch.count("I_PIXELS", n)
     launch.count("I_TONEMAP", True)
     launch.count("I_WIDTH", width)
     launch.count("I_HEIGHT", height)
     launch.count("I_DISP_H", disp_h)
     launch.count("I_DISP_W", disp_w)
-    # a thread a display cell, then one a pixel no cell shows
-    launch.count("I_N", disp_h * disp_w + n - rows * cols)
+    if (disp_h, disp_w) == (height, width):
+        launch.count("I_N", -(-n // FRAME_LANES))
+    else:  # a thread a display cell, then one a pixel no cell shows
+        launch.count("I_N", disp_h * disp_w + n - rows * cols)
     launch.run("frame_post")
     return out
+
+
+def empty_launch(blocks: int, device) -> None:
+    """Launch ``empty_kernel`` (csrc/wave.cu), which does nothing, on
+    ``blocks`` blocks of :data:`SUM_THREADS` threads: the floor one launch
+    sets under a kernel's time.  On no path, counted nowhere."""
+    _ext.launch("empty_launch", device, blocks)
 
 
 def frame_post_bytes(n: int, out_bytes: int, progressive: bool) -> int:

@@ -38,7 +38,16 @@ most ``max_depth``) and a body of parts and nodes.  A wave is::
                        IF more: sort; split; phase(n/4, 0); join; tail
 
 on a repacked scene whose width divides by 4 (the ladder), else
-``rays; phase(n, 0); tail``; an alpha-free bounce is one segment.  On an
+``rays; phase(n, 0); tail``; an alpha-free bounce is one segment.  A frame
+that ``render_image`` renders whole is one program too, as the JAX package
+compiles ``_render_batch`` (its ``lax.scan`` over the waves) into one
+``jit`` (``integrator._frame_program``)::
+
+    frame = zero the sum; WHILE (w <= waves - 1) { wave; samples += k }; image
+
+its WHILE's test a counting test of one set flag with the wave index ``w``
+as its ``b``, the wave the tree above; and so is a progressive frame
+(``renderer._frame_program``: ``wave; progressive tail``).  On an
 instanced scene each instance scan (a closest-hit query, in a resample pass
 or not, or an occlusion query) is ``step; IF touched: launch`` for each
 instance, then a last step: the JAX scan's ``lax.cond(jnp.any(touches))``.
@@ -83,19 +92,22 @@ bytes a second time (:meth:`GraphCache.mirror_bytes`).  A cache
 (:func:`cache`) goes when the last tables object of its signature does.
 Within it a program is keyed by the wave's pixels and samples, the frame's
 width and height, whether its radiance comes back in pixel order and
-whether it comes back at all (``render_sample`` and the progressive frame
-read it; ``render_lanes`` reads only the sums), ``max_depth``, the NEE
-weighting and whether the scene is repacked: one program per wave shape.
+whether it comes back at all (``render_sample`` reads it; ``render_lanes``
+reads only the sums), ``max_depth``, the NEE weighting and whether the
+scene is repacked: one program per wave shape; a frame program also by
+its wave count and image format, a progressive frame's by the renderer
+buffers it reads (``renderer._FrameState``).
 At most :data:`MAX_GRAPHS` programs are kept, the least recently used
 dropped first with their parent graph (a viewer's resizes and shard widths
 make new widths).
 
 Memory.  A program's inputs (the wave's sample numbers, the band's pixel
 lanes, the camera) and its sums (the band's (n, 3) sum, the frame's ray
-counter) are the cache's buffers (:meth:`GraphCache.buffer`), allocated
-outside any capture and shared by the programs of their shape; the
-renderer writes the inputs on the device before a launch and zeroes the
-sums.  Each program's rows of counters, its tests' accumulators, its
+counter) are the cache's buffers (:meth:`GraphCache.buffer`; a
+progressive frame's are its renderer's), allocated outside any capture
+and shared by the programs of their shape; the renderer writes the inputs
+on the device before a launch and zeroes the sums (a frame program zeroes
+its band's sum itself).  Each program's rows of counters, its tests' accumulators, its
 resample loops' control blocks and its instance launches' IF control blocks
 (:data:`MAX_SCANS` scans of an instance each) are its own, made outside the pool (a block
 the pool handed out inside a loop could share its memory with a temporary
@@ -140,6 +152,7 @@ import collections
 import contextlib
 import ctypes
 import functools
+import gc
 import time
 import warnings
 import weakref
@@ -150,7 +163,8 @@ from ..ops import _ext, trace, wave
 from ..ops.math3 import V3
 from ..scene.scenegraph import map_tables
 
-#: Programs kept per cache: one per wave shape (a frame's waves share one).
+#: Programs kept per cache: one per wave or frame shape (a banded frame's
+#: waves share one).
 MAX_GRAPHS = 16
 #: Resample loops a program holds at most: two a bounce loop (the closest
 #: hit's and the occlusion query's), three bounce loops on the width ladder.
@@ -161,7 +175,8 @@ MAX_LOOPS = 6
 MAX_SCANS = 6
 
 #: Since the last reset: programs ``captured``, their ``capture_s`` (warm-up,
-#: capture and instantiation), program ``launches`` (waves), bounces
+#: capture and instantiation), program ``launches`` (a wave's, or a whole
+#: frame's), bounces
 #: replayed (``replays``), resample ``passes`` replayed, re-sorts run
 #: (``sorts``), instance launches behind an IF (``walks``) and those the
 #: IF skipped (``walks_skipped``: no lane touched the instance's box), and
@@ -376,11 +391,13 @@ class _Part:
 
 class _Node:
     """A WHILE or an IF of a program: its condition, its body (parts and
-    nodes), its row of counters, its ``role`` (``"phase"``: the bounce loop;
+    nodes), its row of counters, its ``role`` (``"frame"``: a frame
+    program's loop over its waves; ``"phase"``: the bounce loop;
     ``"alpha"``: a resample loop; ``"sort"``: a re-sort; ``"walk"``: an
     instance's launch, an IF whose condition the instance's step sets) and,
     for a resample loop, ``done(passes, calls, most)``, which counts them in
-    ``integrator.ALPHA_LOOP``.  A WHILE's ``then`` is an IF that runs its
+    ``integrator.ALPHA_LOOP`` (for a frame's loop ``done(waves, frames,
+    most)``).  A WHILE's ``then`` is an IF that runs its
     body after each closing test that goes on, inside the WHILE's body:
     the closing test sets its condition (it has no ``cond`` of its own)."""
 
@@ -540,7 +557,13 @@ def current_capture() -> _Capture | None:
 
 @contextlib.contextmanager
 def capturing(cap: _Capture):
+    """The capture ``cap`` in progress, with Python's cyclic garbage
+    collector off: a program or a part's graph it collected would destroy
+    its executable graph, which a stream capture forbids (the capture
+    fails)."""
     _CAPTURING.append(cap)
+    collecting = gc.isenabled()
+    gc.disable()
     try:
         yield cap
     except BaseException:
@@ -548,6 +571,8 @@ def capturing(cap: _Capture):
         raise
     finally:
         _CAPTURING.pop()
+        if collecting:
+            gc.enable()
 
 
 # ---------------------------------------------------------------------------
@@ -689,6 +714,8 @@ class _Program:
                 STATS["sorts"] += runs
             elif node.role == "alpha":
                 STATS["passes"] += runs
+                node.done(runs, entries, most)
+            elif node.role == "frame":  # a frame program's waves
                 node.done(runs, entries, most)
 
     def _instantiate(self, device) -> None:
@@ -925,9 +952,10 @@ class GraphCache:
         device = io["cam"].device
         cuda = device.type == "cuda"
         kept = _snapshot(counters)
-        # a capture adds nothing into the sums (a stand-in graph of the CPU
-        # tests runs its code once as it records it)
-        sums = [(t, t.clone()) for t in (io["sum"], io["rays"])]
+        # a capture changes none of the program's buffers (the warm-up adds
+        # into the sums, and a stand-in graph of the CPU tests runs its code
+        # once as it records it)
+        sums = [(t, t.clone()) for t in io.values()]
         if cuda and self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
             self.stream = torch.cuda.Stream(device)

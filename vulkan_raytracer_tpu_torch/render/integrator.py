@@ -39,7 +39,9 @@ renderer.py:52-88): each wave's initial state is one kernel
 lanes and camera from the device, and on CUDA tables the whole wave, its
 sum into the band's sum included, is one captured program
 (:mod:`.graphs`), so the host neither reads the device nor makes a tensor
-of host data between a frame's first wave and its read at its end.
+of host data between a frame's first wave and its read at its end.  A
+frame that renders whole is one program with all its waves
+(:meth:`Waves.frame`, :func:`_frame_program`).
 
 The port takes the JAX package's default settings as fixed: the skybox
 fetch is deferred to one lookup after the loop (the wave's tail,
@@ -489,13 +491,14 @@ def _step(tables, s: dict, b: int, max_depth: int, nee_weighting: str, sort_firs
 @functools.lru_cache(maxsize=8)
 def block_lanes(width: int, height: int, device) -> torch.Tensor:
     """:func:`block_order`'s pixel order as int64 on ``device``, computed
-    there (a copy from the host would synchronise); cached, so callers must
-    not mutate it."""
-    idx = torch.arange(width * height, dtype=torch.int64, device=device)
-    px, py = idx % width, idx // width
-    nbx = -(-width // 32)
-    key = ((py // 32) * nbx + (px // 32)) * 1024 + (py % 32) * 32 + (px % 32)
-    return torch.argsort(key, stable=True)
+    there (a copy from the host would synchronise), outside inference mode
+    (a frame's program reads it); cached, so callers must not mutate it."""
+    with torch.inference_mode(False):
+        idx = torch.arange(width * height, dtype=torch.int64, device=device)
+        px, py = idx % width, idx // width
+        nbx = -(-width // 32)
+        key = ((py // 32) * nbx + (px // 32)) * 1024 + (py % 32) * 32 + (px % 32)
+        return torch.argsort(key, stable=True)
 
 
 class Waves:
@@ -521,7 +524,9 @@ class Waves:
     nor reads the device inside the waves.  The returned tensors are then
     the program's own, overwritten by its next launch.  Else each wave runs
     eagerly (:func:`_wave_eager`).  :attr:`samples` holds the last wave's
-    sample numbers on the device, where its program read them."""
+    sample numbers on the device, where its program read them.  On CUDA
+    tables :meth:`frame` runs a whole frame's waves and its image as one
+    program instead."""
 
     def __init__(self, tables, view_inv, proj_inv, width: int, height: int, max_depth: int,
                  nee_weighting: str = "reference"):
@@ -583,6 +588,43 @@ class Waves:
         return self.cache.run(self.tables, key, io, functools.partial(_wave_eager, **opts),
                               functools.partial(_wave_program, **opts), _COUNTERS)
 
+    def frame(self, lanes, first: int, k: int, waves: int, tonemap: bool, as_uint8: bool,
+              done):
+        """``waves`` waves of ``k`` samples from ``first`` over the pixel
+        ``lanes`` (a permutation of the frame's pixels, not written while the
+        program lives: :func:`block_lanes`) and the frame's image, as ONE
+        program on CUDA tables (:func:`_frame_program`): the band's
+        :attr:`sum` zeroed, each wave's sum and rays added, then
+        :func:`..ops.wave.frame_image` of the sum over ``waves * k`` samples
+        into a buffer of the cache.  Keyed by the wave count, as ``jit``
+        keys by the static ``spp``: ``first`` is written on the device, so
+        another start sample launches the same program.  ``done(waves,
+        frames, most)`` is told the waves run when the program's counts
+        come in (``graphs.settle``).  Returns the image, (n, 3) uint8 or
+        float32 in pixel order, the program's own buffer."""
+        n, dev = lanes.shape[0], self.device
+        opts = dict(width=self.width, height=self.height, max_depth=self.max_depth,
+                    nee_weighting=self.nee_weighting, repack=self.repack, pixel_order=False,
+                    radiance=False)
+        self.samples = self.cache.buffer("samples", (k,), torch.int64, dev)
+        torch.arange(first, first + k, out=self.samples)
+        self.lanes = lanes
+        self.sum = self.cache.buffer("sum", (n, 3), _F32, dev)
+        image = self.cache.buffer("image", (n, 3), torch.uint8 if as_uint8 else _F32, dev)
+        io = dict(samples=self.samples, lanes=lanes, cam=self.cam, sum=self.sum, rays=self.rays,
+                  image=image)
+        spp = waves * k
+
+        def tail(io):
+            return wave.frame_image(io["sum"], io["lanes"], spp, tonemap, as_uint8,
+                                    out=io["image"])
+
+        key = ("frame", n, k, waves, tonemap, as_uint8, self.width, self.height, self.max_depth,
+               self.nee_weighting, self.repack)
+        return self.cache.run(self.tables, key, io, functools.partial(_wave_eager, **opts),
+                              functools.partial(_frame_program, waves=waves, tail=tail,
+                                                done=done, **opts), _COUNTERS)
+
 
 def render_sample(tables, view_inv, proj_inv, width, height, sample_count, max_depth,
                   lane_idx=None, nee_weighting="reference"):
@@ -629,7 +671,7 @@ def _wave_eager(tables, io: dict, *, width, height, max_depth, nee_weighting, re
     s = wave.primary_rays(io["samples"], io["lanes"], io["cam"], width, height, repack,
                           pixel_order)
     s, rays = _wave(tables, s, max_depth, nee_weighting, repack)
-    return wave.wave_sum(tables, s, repack, io["sum"], io["rays"], rays,
+    return wave.wave_sum(tables, s, repack, io.get("sum"), io["rays"], rays,
                          io["samples"].shape[0], radiance), rays
 
 
@@ -728,6 +770,34 @@ def _wave_program(tables, io: dict, cap, *, width, height, max_depth: int, nee_w
         phase(head, live_floor)
     for wide, head in reversed(list(zip(states, states[1:]))):
         graphs._copy_state(_split(wide, head["active"].shape[0])[0], head)
-    out = wave.wave_sum(tables, s, repack, io["sum"], io["rays"], rays,
+    out = wave.wave_sum(tables, s, repack, io.get("sum"), io["rays"], rays,
                         io["samples"].shape[0], radiance)
     return out, rays
+
+
+def _frame_program(tables, io: dict, cap, *, waves: int, tail, done, **opts):
+    """A whole frame as one program (the JAX ``_render_batch``'s
+    ``lax.scan`` over its waves, renderer.py:52-88)::
+
+        zero the band's sum; WHILE (w < waves) { wave; samples += k }; tail
+
+    The wave is :func:`_wave_program`'s node tree over ``io`` (``opts``: its
+    options); the WHILE's test is a counting test of one set flag with the
+    wave index ``w`` as its bounce index (``max_depth`` = ``waves - 1``,
+    stepped by its closing test), and the sample numbers the next wave
+    reads are stepped at the end of its body.  ``done(runs, entries,
+    most)`` is told the waves run at the fold of the WHILE's row
+    (``graphs.settle``).  Returns ``tail(io)``, the frame's last node, with
+    the sums of every wave in ``io``."""
+    dev = io["cam"].device
+    go = torch.ones(1, dtype=torch.bool, device=dev)
+    w = torch.zeros((), dtype=torch.int32, device=dev)
+    io["sum"].zero_()
+    k = io["samples"].shape[0]
+
+    def body():
+        _wave_program(tables, io, cap, **opts)
+        io["samples"].add_(k)
+
+    cap.while_(graphs.Cond(go, 0, w, waves - 1, step=True), body, "frame", done)
+    return tail(io)
