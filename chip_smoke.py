@@ -1977,7 +1977,7 @@ def frame_after_refit(device, cases, size: int = 512, spp: int = 4, depth: int =
         warm = {"seconds": warm_s, "captured": graphs.STATS["captured"],
                 "capture_s": graphs.STATS["capture_s"]}
         out = {side: {"first_s": [], "second_s": [], "captured": [], "copies": [],
-                      "copy_bytes": [], "copy_s": [], "emissive_walks": []}
+                      "copy_bytes": [], "emissive_walks": []}
                for side in ("graphs", "eager")}
         want, key_box = None, None
         # three turns a side, so one turn's host noise does not decide the
@@ -2007,7 +2007,6 @@ def frame_after_refit(device, cases, size: int = 512, spp: int = 4, depth: int =
                 out[side]["captured"].append(graphs.STATS["captured"])
                 out[side]["copies"].append(graphs.STATS["copies"])
                 out[side]["copy_bytes"].append(graphs.STATS["copy_bytes"])
-                out[side]["copy_s"].append(graphs.copy_seconds())
             del refit
             if want is None:
                 want = (img, rays)
@@ -2038,7 +2037,7 @@ def frame_after_refit(device, cases, size: int = 512, spp: int = 4, depth: int =
                                                 f"on the tables of a new refit", "rays": want[1],
               "bit_equal": True, "old_tables_bit_equal": True, "warm_frame": warm, **out,
               **({"key_box": key_box} if key_box else {}),
-              "mirror_copy_s": g["copy_s"], "mirror_copy_bytes": g["copy_bytes"],
+              "mirror_copy_bytes": g["copy_bytes"],
               "mirror_bytes": cache.mirror_bytes(), "pool_bytes": cache.pool_bytes(),
               "first_frame_graphs_over_eager": g["first_s_median"] / e["first_s_median"],
               "nvidia_smi": nvidia_smi_line()})

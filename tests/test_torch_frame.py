@@ -120,7 +120,7 @@ def _per_wave(tables, name: str, tonemap=False, as_uint8=False):
 
 def _counts():
     return (integrator.launch_counts(loops=False, skipped=True), dict(integrator.BOUNCE_WIDTHS),
-            dict(integrator.ALPHA_LOOP))
+            dict(integrator.ALPHA_LOOP), dict(integrator.BOUNCE_LIVE))
 
 
 @pytest.mark.parametrize("name", ["cornell", "textured_glb"])

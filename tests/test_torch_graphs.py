@@ -541,9 +541,11 @@ def test_replay_reads_one_count_a_pass():
     assert graphs.STATS["launches"] == 1 and graphs.LAUNCHES["loop_cond"] == 0
     # 4 phase tests (count and b), 2 + 3 + 4 resample tests (the count)
     assert mode.found == ["aten._local_scalar_dense.default"] * (4 * 2 + 2 + 3 + 4)
-    rows = [[0, 0, 0, 0] for _ in program.conds]
+    rows = [[0] * graphs.ROW_WORDS for _ in program.conds]
     program.interpret(program.nodes, rows)
-    assert rows == [[3, 1, 3, 3], [6, 3, 3, 3]]
+    # the last counter sums the counts that let a body run: live 5 + 4 + 3;
+    # pending 1, then 2 + 1, then 3 + 2 + 1
+    assert rows == [[3, 1, 3, 3, 12], [6, 3, 3, 3, 10]]
 
 
 def test_replay_counts_flags_steps_b_and_sets_the_then_if():
@@ -564,12 +566,14 @@ def test_replay_counts_flags_steps_b_and_sets_the_then_if():
     phase.then.body = [part(lambda: sorts.add_(1))]
     nodes = [part(lambda: (flags.fill_(True), b.zero_())), phase]
     program = graphs._Program(nodes, [phase, phase.then], {"flags": flags}, (), [{}])
-    rows = [[0, 0, 0, 0] for _ in program.conds]
+    rows = [[0] * graphs.ROW_WORDS for _ in program.conds]
     with HostReads() as mode:
         program.interpret(program.nodes, rows)
     # bodies at b = 0..5; the closing test after b = 5 steps b to 6 and stops
     assert int(b) == 6 and int(flags.sum()) == 4 and int(sorts) == 5
-    assert rows == [[6, 1, 6, 6], [5, 6, 0, 0]]
+    # the flags counted where a body ran: 10 + 9 + ... + 5 lanes, the IF's
+    # from its WHILE's closing tests, 9 + ... + 5
+    assert rows == [[6, 1, 6, 6, 45], [5, 6, 0, 0, 35]]
     # a read of the count and one of b at each of the 7 tests
     assert mode.found == ["aten._local_scalar_dense.default"] * 14
     graphs.reset_stats()
@@ -589,7 +593,7 @@ def test_settle_folds_the_device_rows():
     program = _scripted_program(counter, done)
     graphs.reset_stats()
     # two launches' worth of the rows the card keeps (test_replay_reads_one_count_a_pass)
-    program.stats.copy_(torch.tensor([[6, 2, 3, 3], [12, 6, 3, 3]]))
+    program.stats.copy_(torch.tensor([[6, 2, 3, 3, 24], [12, 6, 3, 3, 20]]))
     program.pending = 2
     graphs._PENDING[program] = None
     assert counter == {}
@@ -602,7 +606,7 @@ def test_settle_folds_the_device_rows():
     # a launch whose bounce loop ran no body: the top level counts, no 0 appears
     other = {}
     program = _scripted_program(other, done)
-    program.stats.copy_(torch.tensor([[0, 1, 0, 0], [0, 0, 0, 0]]))
+    program.stats.copy_(torch.tensor([[0, 1, 0, 0, 0], [0, 0, 0, 0, 0]]))
     program.pending = 1
     graphs._PENDING[program] = None
     assert graphs.settle() == [] and other == {"init": 1}
@@ -932,9 +936,11 @@ def test_device_trace_is_held_within_the_counters(traced):
 
 def _counts():
     """(launches by module, those the IF nodes skipped counted in as the
-    eager loop launches them; instance steps, bounce widths, alpha loop)."""
+    eager loop launches them; instance steps, bounce widths, alpha loop,
+    live lanes entering the bounces)."""
     return (integrator.launch_counts(loops=False, skipped=True), dict(instanced.STATS),
-            dict(integrator.BOUNCE_WIDTHS), dict(integrator.ALPHA_LOOP))
+            dict(integrator.BOUNCE_WIDTHS), dict(integrator.ALPHA_LOOP),
+            dict(integrator.BOUNCE_LIVE))
 
 
 def _reset():
@@ -1032,7 +1038,7 @@ def test_counting_test_bit_equal_to_the_replay(n, offset):
     torch.cuda.synchronize(dev)
     got = (flags.clone(), int(b), int(sorts), program.stats.tolist())
     assert program.words.tolist() == [0] * len(program.conds)
-    rows = [[0, 0, 0, 0] for _ in program.conds]
+    rows = [[0] * graphs.ROW_WORDS for _ in program.conds]
     program.interpret(program.nodes, rows)
     assert torch.equal(got[0], flags) and got[1:] == (int(b), int(sorts), rows)
     assert rows[0][0] >= 1 and int(sorts) == rows[0][0] - 1

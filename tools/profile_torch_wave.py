@@ -633,7 +633,7 @@ def program_nodes(cache) -> dict:
 
     out = []
     for program in cache.graphs.values():
-        rows = [[0, 0, 0, 0] for _ in program.conds]
+        rows = [[0] * getattr(graphs, "ROW_WORDS", 4) for _ in program.conds]
         program.interpret(program.nodes, rows)
 
         def parts(nodes, times):

@@ -42,8 +42,9 @@
 // the commit reads; the commit clears the row's address when the loop ends,
 // so a replay of the pass outside the device loops (and an eager pass, which
 // has no block) finds no handle there.  Each test also keeps the node's row
-// of counters, four int64: iterations (bodies run), entries (tests before the
-// node), the bodies of the current entry, and the most bodies one entry ran.
+// of counters, five int64: iterations (bodies run), entries (tests before the
+// node), the bodies of the current entry, the most bodies one entry ran, and
+// the sum of the counts that let a body run (a bounce loop's live lanes).
 // The Python side reads the rows once a frame and multiplies each leaf's
 // captured launch counts by the runs of its body.
 //
@@ -84,7 +85,7 @@ struct LoopTest {
   long long n;                     // their number
   long long floor;                 // the count must pass it
   int* b;                          // the bounce index, or null
-  long long* row;                  // the node's row of four counters
+  long long* row;                  // the node's row of five counters
   long long* then_row;             // the IF's row, or null: no IF
   unsigned long long* word;        // flags' accumulator and block ticket
   long long* arm;                  // a resample loop's control block to arm, or null
@@ -124,10 +125,10 @@ __global__ void __launch_bounds__(kTestThreads) loop_cond_kernel(const __grid_co
     if (t.step) *t.b = b;
   }
   const bool go = total > t.floor && (t.b == nullptr || b <= t.max_depth);
-  keep_row(t.row, t.entry, go);
+  keep_row(t.row, t.entry, go, total);
   cudaGraphSetConditional(t.handle, go ? 1u : 0u);
   if (t.then_row != nullptr) {  // the IF runs its body where the loop goes on
-    keep_row(t.then_row, true, go);
+    keep_row(t.then_row, true, go, total);
     cudaGraphSetConditional(t.then_handle, go ? 1u : 0u);
   }
   if (go && t.arm != nullptr) {  // the resample loop's passes test themselves

@@ -11,9 +11,10 @@
 // memset node and no fence for the count.  It stores 0 back, so the word is
 // ready for the next launch (the graph orders the next one after this one),
 // and its thread 0 makes the test: it reads the loop's device scalars, keeps
-// the node's row of four counters exactly as a test node always kept it
-// (iterations, entries, the bodies of the current entry, the most bodies one
-// entry ran) and calls cudaGraphSetConditional.  A wave holds fewer than
+// the node's row of five counters (iterations, entries, the bodies of the
+// current entry, the most bodies one entry ran, the sum of the counts that
+// let a body run: render/graphs.py ROW_WORDS) and calls
+// cudaGraphSetConditional.  A wave holds fewer than
 // 2**32 lanes and a grid fewer than 2**32 blocks.
 
 #pragma once
@@ -36,9 +37,10 @@ __device__ __forceinline__ bool last_block(unsigned long long* word, unsigned in
   return true;
 }
 
-// The node's row after one test: a new entry starts its bodies from 0; an
-// iteration counts; a stop keeps the most bodies one entry ran.
-__device__ __forceinline__ void keep_row(long long* row, bool entry, bool go) {
+// The node's row after one test of `count`: a new entry starts its bodies
+// from 0; an iteration counts, with the count that let it run; a stop keeps
+// the most bodies one entry ran.
+__device__ __forceinline__ void keep_row(long long* row, bool entry, bool go, long long count) {
   if (entry) {
     row[1] += 1;
     row[2] = 0;
@@ -46,6 +48,7 @@ __device__ __forceinline__ void keep_row(long long* row, bool entry, bool go) {
   if (go) {
     row[0] += 1;
     row[2] += 1;
+    row[4] += count;
   } else if (row[2] > row[3]) {
     row[3] = row[2];
   }

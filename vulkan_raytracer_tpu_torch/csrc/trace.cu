@@ -328,7 +328,7 @@ __global__ void __launch_bounds__(kThreads) instance_step_kernel(const __grid_co
   long long* row = reinterpret_cast<long long*>(word[kIfRow]);
   if (row == nullptr) return;  // not armed: a replayed step, whose host reads the flags
   const bool go = total > 0;
-  keep_row(row, true, go);
+  keep_row(row, true, go, total);
   cudaGraphSetConditional(static_cast<cudaGraphConditionalHandle>(word[kIfHandle]),
                           go ? 1u : 0u);
 }

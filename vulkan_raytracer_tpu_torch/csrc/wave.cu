@@ -340,7 +340,7 @@ __global__ void __launch_bounds__(kThreads) alpha_commit_kernel(const __grid_con
   long long* row = reinterpret_cast<long long*>(loop[kLoopRow]);
   if (row == nullptr) return;  // not armed: a replay of the pass, whose host reads the flags
   const bool go = total > 0;
-  keep_row(row, false, go);
+  keep_row(row, false, go, total);
   cudaGraphSetConditional(static_cast<cudaGraphConditionalHandle>(loop[kLoopHandle]),
                           go ? 1u : 0u);
   if (!go) loop[kLoopRow] = 0;  // the loop ends: disarmed for a replay

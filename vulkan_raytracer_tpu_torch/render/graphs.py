@@ -85,7 +85,8 @@ copy whose tensors belong to the cache (:meth:`GraphCache.bind`).  A wave
 with another tables object of the signature first copies that object's
 tensors, and the tables it derives from them on first use
 (``SceneTables``' cached properties, built on that object), into the
-mirror: once per change of tables, timed and counted in :data:`STATS`.  So
+mirror: once per change of tables, counted in :data:`STATS` (and the
+``program.bind`` span under the profiler, ``utils/spans.py``).  So
 ``Scene.refit``'s new tables replay the programs captured before it, and
 the old tables go on rendering the old scene.  The mirror holds the scene's
 bytes a second time (:meth:`GraphCache.mirror_bytes`).  A cache
@@ -129,13 +130,16 @@ it, they would come from the graphs' pool.
 Counters.  The launch counters (``dense.LAUNCHES``, ``traverse.LAUNCHES``),
 ``instanced.STATS``, ``integrator.BOUNCE_WIDTHS`` and
 ``integrator.ALPHA_LOOP`` are Python-side.  Each part's capture records
-what it counted; each conditional node has a row of four device counters
-that its tests keep (bodies run, entries, the bodies of the current entry
-and the most bodies one entry ran).  A launch on the card adds nothing on
-the host: :func:`settle` reads every row since the last settle in the read
-that ends a frame (``renderer.render_image``'s ray count, the progressive
+what it counted; each conditional node has a row of :data:`ROW_WORDS`
+device counters that its tests keep (bodies run, entries, the bodies of the
+current entry, the most bodies one entry ran and the sum of the counts that
+let a body run: for a bounce loop the live lanes entering each bounce).  A
+launch on the card adds nothing on the host: :func:`settle` reads every row
+since the last settle in the read that ends a frame
+(``renderer.render_image``'s ray count, the progressive
 ``Renderer``'s ``rays_traced``) and adds each part's counts times the runs
-of its body, and the alpha loops' calls, passes and most passes a call;
+of its body, the alpha loops' calls, passes and most passes a call, and
+the bounce loops' live lanes (``integrator.BOUNCE_LIVE``);
 what an instance launch's IF skipped goes to :data:`SKIPPED` (the eager
 loop launches every instance, so its counts are the program's plus these:
 ``integrator.launch_counts(skipped=True)``).  A
@@ -162,6 +166,7 @@ import torch
 from ..ops import _ext, trace, wave
 from ..ops.math3 import V3
 from ..scene.scenegraph import map_tables
+from ..utils import spans
 
 #: Programs kept per cache: one per wave or frame shape (a banded frame's
 #: waves share one).
@@ -173,6 +178,11 @@ MAX_LOOPS = 6
 #: instance: two a bounce loop (the closest hit's and the occlusion
 #: query's, in a resample loop or not), three bounce loops on the ladder.
 MAX_SCANS = 6
+#: int64 counters in a conditional node's row (``keep_row``,
+#: csrc/graph_test.cuh): bodies run, entries, the bodies of the current
+#: entry, the most bodies one entry ran, the sum of the counts that let a
+#: body run.
+ROW_WORDS = 5
 
 #: Since the last reset: programs ``captured``, their ``capture_s`` (warm-up,
 #: capture and instantiation), program ``launches`` (a wave's, or a whole
@@ -194,7 +204,6 @@ SKIPPED: dict = {}
 #: tests, ``loop_cond_kernel``'s launches and the tests a resample pass's
 #: commit makes (a ``then`` IF is set by its WHILE's test).
 LAUNCHES = {"loop_cond": 0}
-_COPY_EVENTS: list = []  # (start, end) CUDA events of each fill since the last reset
 _PENDING: dict = {}  # program -> None: programs launched on the card since the last settle
 
 
@@ -203,23 +212,13 @@ def reset_stats() -> None:
                  walks_skipped=0, copies=0, copy_bytes=0)
     LAUNCHES["loop_cond"] = 0
     SKIPPED.clear()
-    _COPY_EVENTS.clear()
+    spans.reset()
 
 
 def skipped(counter: dict) -> dict:
     """What the launches the IF nodes skipped since the last reset would
     have added to ``counter`` (one of a program's counters)."""
     return SKIPPED.get(id(counter), {})
-
-
-def copy_seconds() -> float:
-    """Device seconds of the mirror fills on a card since the last reset
-    (it waits for them)."""
-    total = 0.0
-    for start, end in _COPY_EVENTS:
-        end.synchronize()
-        total += start.elapsed_time(end) / 1e3
-    return total
 
 
 def _graphs_preferred(tables) -> bool:
@@ -372,14 +371,15 @@ class Cond:
         self.count, self.floor, self.b, self.max_depth = count, floor, b, max_depth
         self.step, self.word = step, word
 
-    def test(self, entry: bool = True) -> bool:
+    def test(self, entry: bool = True) -> tuple:
         """The condition read on the host (the plain version of the test
         ``loop_cond_kernel`` makes on the card): a closing test steps ``b``
         first.  One read of the count, and of ``b`` where the count
-        passes."""
+        passes.  Returns (go, the count)."""
         if self.step and not entry:
             self.b.add_(1)
-        return int(self.count.sum()) > self.floor and (self.b is None or int(self.b) <= self.max_depth)
+        count = int(self.count.sum())
+        return count > self.floor and (self.b is None or int(self.b) <= self.max_depth), count
 
 
 class _Part:
@@ -397,7 +397,8 @@ class _Node:
     instance's launch, an IF whose condition the instance's step sets) and,
     for a resample loop, ``done(passes, calls, most)``, which counts them in
     ``integrator.ALPHA_LOOP`` (for a frame's loop ``done(waves, frames,
-    most)``).  A WHILE's ``then`` is an IF that runs its
+    most)``, for a bounce loop ``done(live)``, the live lanes its tests let
+    into a bounce).  A WHILE's ``then`` is an IF that runs its
     body after each closing test that goes on, inside the WHILE's body:
     the closing test sets its condition (it has no ``cond`` of its own)."""
 
@@ -596,15 +597,16 @@ def _handle(graph) -> int:
     return h.value
 
 
-def _keep(row: list, entry: bool, go: bool) -> bool:
-    """Keep a node's row after one test, as the tests on the card keep it
-    (``keep_row``, csrc/graph_test.cuh); returns ``go``."""
+def _keep(row: list, entry: bool, go: bool, count: int) -> bool:
+    """Keep a node's row after one test of ``count``, as the tests on the
+    card keep it (``keep_row``, csrc/graph_test.cuh); returns ``go``."""
     if entry:
         row[1] += 1
         row[2] = 0
     if go:
         row[0] += 1
         row[2] += 1
+        row[4] += count
     else:
         row[3] = max(row[3], row[2])
     return go
@@ -627,9 +629,9 @@ class _LoopTest(ctypes.Structure):
 class _Program:
     """One captured wave: its tree, the buffers it reads and adds into
     (``io``: its inputs and sums, the cache's), its outputs (radiance and
-    rays), the counters its parts count into and one row of four int64
-    counters per node (``stats``, on the wave's device; the tests of the
-    device loops keep them)."""
+    rays), the counters its parts count into and one row of
+    :data:`ROW_WORDS` int64 counters per node (``stats``, on the wave's
+    device; the tests of the device loops keep them)."""
 
     def __init__(self, nodes: list, conds: list, io: dict, outputs: tuple, counters, ifs=None):
         self.nodes, self.conds, self.io, self.outputs = nodes, conds, io, outputs
@@ -638,7 +640,7 @@ class _Program:
         # and rows while the parent graph runs (:meth:`_instantiate`)
         self.ifs, self._armed, self._image = ifs, [], None
         device = next(iter(io.values())).device
-        self.stats = torch.zeros((len(conds), 4), dtype=torch.int64, device=device)
+        self.stats = torch.zeros((len(conds), ROW_WORDS), dtype=torch.int64, device=device)
         # each node's accumulator and block ticket for the tests that count flags
         self.words = torch.zeros(len(conds), dtype=torch.int64, device=device)
         self.pending = 0  # launches on the card since the last settle
@@ -649,15 +651,16 @@ class _Program:
         """Run the wave once: on the card (``device_loops``), counted at the
         next :func:`settle`, or as the host-read replay, counted now."""
         if not device_loops:
-            rows = [[0, 0, 0, 0] for _ in self.conds]
+            rows = [[0] * ROW_WORDS for _ in self.conds]
             self.interpret(self.nodes, rows)
             self._fold(rows, 1, device=False)
             return
         device = self.stats.device
         if self.exec is None:
             self._instantiate(device)
-        _c("graph_loops_launch", device.index, self.exec,
-           torch.cuda.current_stream(device).cuda_stream)
+        stream = torch.cuda.current_stream(device)
+        with spans.timed(stream):
+            _c("graph_loops_launch", device.index, self.exec, stream.cuda_stream)
         self.pending += 1
         _PENDING[self] = None
 
@@ -669,13 +672,14 @@ class _Program:
             if isinstance(node, _Part):
                 node.graph.replay()
                 continue
-            go = _keep(rows[node.row], True, node.cond.test(entry=True))
+            go = _keep(rows[node.row], True, *node.cond.test(entry=True))
             while go:
                 self.interpret(node.body, rows)
                 if node.kind == "if":
                     break
-                go = _keep(rows[node.row], False, node.cond.test(entry=False))
-                if node.then is not None and _keep(rows[node.then.row], True, go):
+                go, count = node.cond.test(entry=False)
+                _keep(rows[node.row], False, go, count)
+                if node.then is not None and _keep(rows[node.then.row], True, go, count):
                     self.interpret(node.then.body, rows)
 
     def _fold(self, rows: list, launches: int, device: bool) -> None:
@@ -683,8 +687,8 @@ class _Program:
         part's counts times the runs of its body, the tests made on the card
         (:data:`LAUNCHES`: each node's entry test and each WHILE's closing
         tests, made by ``loop_cond_kernel`` or by a resample pass's commit;
-        a ``then`` IF's condition is set by its WHILE's test), bounces and
-        passes."""
+        a ``then`` IF's condition is set by its WHILE's test), bounces, the
+        live lanes entering them and passes."""
         def add(nodes, times):
             for node in nodes:
                 if isinstance(node, _Part):
@@ -702,7 +706,7 @@ class _Program:
         add(self.nodes, launches)
         STATS["launches"] += launches
         for node in self.conds:
-            runs, entries, _, most = rows[node.row]
+            runs, entries, _, most, counted = rows[node.row]
             if device and node.cond is not None and node.role != "walk":
                 LAUNCHES["loop_cond"] += entries + (runs if node.kind == "while" else 0)
             if node.role == "walk":  # the step sets it: no test of the loops' counts it
@@ -710,6 +714,8 @@ class _Program:
                 STATS["walks_skipped"] += entries - runs
             elif node.role == "phase":
                 STATS["replays"] += runs
+                if node.done is not None:
+                    node.done(counted)
             elif node.role == "sort":
                 STATS["sorts"] += runs
             elif node.role == "alpha":
@@ -740,7 +746,7 @@ class _Program:
                 for node, handle in self._armed:
                     row = (node.cond.word.data_ptr() - self.ifs.data_ptr()) // 32
                     image[row, 1] = handle
-                    image[row, 2] = self.stats.data_ptr() + 32 * node.row
+                    image[row, 2] = self.stats[node.row].data_ptr()
                 self._image.copy_(image)
                 _c("graph_loops_add_copy", parent, ctypes.byref(tail), self.ifs.data_ptr(), None,
                    self.ifs.numel())
@@ -758,7 +764,7 @@ class _Program:
         c = node.cond
         if c.count.dim() != 1 or c.count.dtype != torch.bool or not c.count.is_contiguous():
             raise ValueError("a test on the card counts a contiguous column of bool flags")
-        row = self.stats.data_ptr() + 32 * node.row
+        row = self.stats[node.row].data_ptr()
         t = _LoopTest(handle=handle, flags=c.count.data_ptr(), n=c.count.shape[0],
                       floor=c.floor,
                       b=None if c.b is None else c.b.data_ptr(), row=row,
@@ -766,7 +772,7 @@ class _Program:
                       arm=c.word.data_ptr() if entry and c.word is not None else None,
                       max_depth=c.max_depth, step=int(c.step and not entry), entry=int(entry))
         if then is not None:
-            t.then_handle, t.then_row = then[1], self.stats.data_ptr() + 32 * then[0].row
+            t.then_handle, t.then_row = then[1], self.stats[then[0].row].data_ptr()
         return t
 
     def _stitch(self, graph, nodes: list, tail=None) -> ctypes.c_void_p:
@@ -835,8 +841,8 @@ def settle(*scalars) -> list:
             at = len(idx)
             for p in ps:
                 n = p.stats.shape[0]
-                rows = [host[at + 4 * r:at + 4 * r + 4] for r in range(n)]
-                at += 4 * n
+                rows = [host[at + ROW_WORDS * r:at + ROW_WORDS * (r + 1)] for r in range(n)]
+                at += ROW_WORDS * n
                 p.stats.zero_()
                 p._fold(rows, p.pending, device=True)
                 p.pending = 0
@@ -869,34 +875,28 @@ class GraphCache:
     def bind(self, tables):
         """The mirror, holding ``tables``' values: made on first use, copied
         into when the last wave ran with another tables object."""
-        if self.mirror is None:
-            mirror = map_tables(tables, lambda _, v: torch.empty_like(v)
-                                if isinstance(v, torch.Tensor) else v)
-            self._fill(list(zip(_tensors(mirror), _tensors(tables))))
-            self.mirror = mirror
-        elif self._source() is not tables:
-            pairs = list(zip(_tensors(self.mirror), _tensors(tables)))
-            built = vars(self.mirror)
-            for name in _derived(self.mirror):
-                if name in built:  # built on the source, which keeps it
-                    pairs += zip(_tensors(built[name]), _tensors(getattr(tables, name)))
-            self._fill(pairs)
-        else:
+        if self.mirror is not None and self._source() is tables:
             return self.mirror
+        with spans.span("program.bind"):
+            if self.mirror is None:
+                mirror = map_tables(tables, lambda _, v: torch.empty_like(v)
+                                    if isinstance(v, torch.Tensor) else v)
+                self._fill(list(zip(_tensors(mirror), _tensors(tables))))
+                self.mirror = mirror
+            else:
+                pairs = list(zip(_tensors(self.mirror), _tensors(tables)))
+                built = vars(self.mirror)
+                for name in _derived(self.mirror):
+                    if name in built:  # built on the source, which keeps it
+                        pairs += zip(_tensors(built[name]), _tensors(getattr(tables, name)))
+                self._fill(pairs)
         self._source = weakref.ref(tables)
         return self.mirror
 
     @staticmethod
     def _fill(pairs) -> None:
-        cuda = bool(pairs) and pairs[0][0].is_cuda
-        if cuda:
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
         for dst, src in pairs:
             dst.copy_(src)
-        if cuda:
-            end.record()
-            _COPY_EVENTS.append((start, end))
         STATS["copies"] += 1
         STATS["copy_bytes"] += sum(d.numel() * d.element_size() for d, _ in pairs)
 
@@ -930,14 +930,16 @@ class GraphCache:
         program's own tensors, which its next launch overwrites."""
         with torch.inference_mode(False), torch.no_grad():
             mirror = self.bind(tables)
-            program = self.graphs.get(key)
-            if program is None:
-                program = self.graphs[key] = self._capture(mirror, io, eager, build, counters)
-                while len(self.graphs) > MAX_GRAPHS:
-                    self.graphs.popitem(last=False)[1].close()
-                    self._drop_buffers()
-            self.graphs.move_to_end(key)
-            program.launch(_device_loops_preferred(tables))
+            with spans.span("program.launch"):
+                program = self.graphs.get(key)
+                if program is None:
+                    program = self.graphs[key] = self._capture(mirror, io, eager, build,
+                                                               counters)
+                    while len(self.graphs) > MAX_GRAPHS:
+                        self.graphs.popitem(last=False)[1].close()
+                        self._drop_buffers()
+                self.graphs.move_to_end(key)
+                program.launch(_device_loops_preferred(tables))
             return program.outputs
 
     def _drop_buffers(self) -> None:

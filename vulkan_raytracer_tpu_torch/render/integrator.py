@@ -63,7 +63,7 @@ then a quarter of the width (the width ladder) and rejoins the tail at the
 end; ``slot`` carries each lane's output position.  A lane's state never
 depends on its neighbours, so the image and the ray count are those of the
 unsorted loop, bit for bit.  :data:`BOUNCE_WIDTHS` counts the bounces run at
-each width.
+each width, and :data:`BOUNCE_LIVE` the live lanes entering them.
 """
 
 from __future__ import annotations
@@ -82,6 +82,7 @@ from ..ops.shade import (  # noqa: F401  (eval_hit: the plain hit, as it was her
     _balance, _offset_origin, _sample_analytic, _sample_emissive, eval_hit)
 from ..ops.traverse import bvh_closest, bvh_emissive_pdf, bvh_shadow
 from ..ops.wave import alpha_test as _alpha_test  # noqa: F401  (its name here before)
+from ..utils import spans
 from . import graphs
 
 _F32 = torch.float32
@@ -102,8 +103,21 @@ def reset_alpha_loop() -> None:
 BOUNCE_WIDTHS: dict[int, int] = {}
 
 
+#: Live lanes entering the bounces since the last reset, summed by the width
+#: of the wave they ran at (the count each bounce's test let through: the
+#: eager loop's read before the bounce, a program's bounce loop's row).
+BOUNCE_LIVE: dict[int, int] = {}
+
+
 def reset_bounce_widths() -> None:
     BOUNCE_WIDTHS.clear()
+    BOUNCE_LIVE.clear()
+
+
+def _count_live(width: int, live: int) -> None:
+    """Add ``live`` lanes entering bounces of ``width`` lanes."""
+    if live:
+        BOUNCE_LIVE[width] = BOUNCE_LIVE.get(width, 0) + live
 
 
 # ---------------------------------------------------------------------------
@@ -448,10 +462,11 @@ def _bounce(tables, s: dict, b, max_depth: int, nee_weighting: str, rays=None):
 LAUNCH_COUNTERS = {"dense": dense.LAUNCHES, "traverse": traverse.LAUNCHES,
                    "shade": shade.LAUNCHES, "wave": wave.LAUNCHES, "trace": trace.LAUNCHES,
                    "graphs": graphs.LAUNCHES}
-#: The Python-side counters a bounce advances; a captured wave adds what each
-#: part's capture counted times the runs of its body (:mod:`.graphs`).
+#: The Python-side counters a wave advances; a captured wave adds what each
+#: part's capture counted times the runs of its body (:mod:`.graphs`), and
+#: its bounce loops' live lanes from their rows.
 _COUNTERS = (*(d for name, d in LAUNCH_COUNTERS.items() if name != "graphs"), instanced.STATS,
-             BOUNCE_WIDTHS, ALPHA_LOOP)
+             BOUNCE_WIDTHS, BOUNCE_LIVE, ALPHA_LOOP)
 
 
 def launch_counts(loops: bool = True, skipped: bool = False) -> dict:
@@ -469,14 +484,15 @@ def launch_counts(loops: bool = True, skipped: bool = False) -> dict:
 
 
 def reset_counters() -> None:
-    """Zero the launch counters, the instance steps, the bounce widths, the
-    alpha loop's counter and the launches the IF nodes skipped, once the
-    device loops' counts so far are in (:func:`.graphs.settle`)."""
+    """Zero the launch counters, the instance steps, the bounce widths and
+    live lanes, the alpha loop's counter and the launches the IF nodes
+    skipped, once the device loops' counts so far are in
+    (:func:`.graphs.settle`)."""
     graphs.settle()
     for d in (*LAUNCH_COUNTERS.values(), instanced.STATS, ALPHA_LOOP):
         for k in d:
             d[k] = 0
-    BOUNCE_WIDTHS.clear()
+    reset_bounce_widths()
     graphs.SKIPPED.clear()
 
 
@@ -537,19 +553,20 @@ class Waves:
         self.max_depth, self.nee_weighting = max_depth, nee_weighting
         self.repack = _repack_preferred(tables)
         dev = self.device = tables.device
-        self.cache = graphs.cache(tables) if graphs._graphs_preferred(tables) else None
-        if self.cache is None:
-            self.cam = torch.empty(32, dtype=_F32, device=dev)
-            self.rays = torch.zeros((), dtype=torch.int64, device=dev)
-        else:
-            self.cam = self.cache.buffer("cam", (32,), _F32, dev)
-            self.rays = self.cache.buffer("rays", (), torch.int64, dev)
-            self.rays.zero_()
-        host = wave.camera_tensor(view_inv, proj_inv)
-        if dev.type == "cuda":
-            # the allocator keeps a pinned block until the copies from it ran
-            host = host.pin_memory()
-        self.cam.copy_(host, non_blocking=True)
+        with spans.span("camera"):
+            self.cache = graphs.cache(tables) if graphs._graphs_preferred(tables) else None
+            if self.cache is None:
+                self.cam = torch.empty(32, dtype=_F32, device=dev)
+                self.rays = torch.zeros((), dtype=torch.int64, device=dev)
+            else:
+                self.cam = self.cache.buffer("cam", (32,), _F32, dev)
+                self.rays = self.cache.buffer("rays", (), torch.int64, dev)
+                self.rays.zero_()
+            host = wave.camera_tensor(view_inv, proj_inv)
+            if dev.type == "cuda":
+                # the allocator keeps a pinned block until the copies from it ran
+                host = host.pin_memory()
+            self.cam.copy_(host, non_blocking=True)
         self.lanes = self.sum = self.samples = None
 
     def band(self, lanes) -> None:
@@ -693,6 +710,7 @@ def _wave(tables, s: dict, max_depth: int, nee_weighting: str, repack: bool):
                 live = int(s["active"].sum())
             if live <= live_floor:
                 break
+            _count_live(s["active"].shape[0], live)
             s, _ = _step(tables, s, b, max_depth, nee_weighting,
                          repack and b > 0 and not sorted_, rays)
             sorted_, live = False, None
@@ -741,8 +759,9 @@ def _wave_program(tables, io: dict, cap, *, width, height, max_depth: int, nee_w
 
     def phase(st, live_floor):
         """WHILE b <= max_depth and more than ``live_floor`` lanes of ``st``
-        live: a bounce; the loop's test counts the live lanes and steps
-        ``b``, and where the loop goes on on a repacked wave sets the
+        live: a bounce; the loop's test counts the live lanes (into
+        :data:`BOUNCE_LIVE` where it lets a bounce run) and steps ``b``,
+        and where the loop goes on on a repacked wave sets the
         re-sort that ends the body (the next bounce's, as the eager loop's
         ``_step`` sorts before each bounce of a phase but its first)."""
         def bounce():
@@ -750,7 +769,8 @@ def _wave_program(tables, io: dict, cap, *, width, height, max_depth: int, nee_w
             graphs._copy_state(st, out)
 
         cap.while_(graphs.Cond(st["active"], live_floor, b, max_depth, step=True), bounce,
-                   "phase", then=(lambda: graphs._copy_state(st, _sort_wavefront(tables, st)))
+                   "phase", functools.partial(_count_live, st["active"].shape[0]),
+                   then=(lambda: graphs._copy_state(st, _sort_wavefront(tables, st)))
                    if repack else None)
 
     ladder = repack and n % 4 == 0

@@ -48,6 +48,7 @@ import torch
 
 from ..ops import wave
 from ..scene.camera import Camera
+from ..utils import spans
 from . import graphs, integrator
 from .integrator import Waves, block_lanes
 from .integrator import block_order  # noqa: F401  (the sharded renderer's import)
@@ -140,11 +141,13 @@ def render_lanes(tables, view_inv, proj_inv, width, height, max_depth, spp, star
     frame = Waves(tables, view_inv, proj_inv, width, height, max_depth, nee_weighting)
     waves = 0
     for lo in range(0, n, per):
-        frame.band(lanes[lo:lo + per])
-        for done in range(0, spp, chunk):
-            frame.run(start_sample + done, min(chunk, spp - done))
-            waves += 1
-        acc[lo:lo + per].copy_(frame.sum)
+        with spans.span("band"):
+            frame.band(lanes[lo:lo + per])
+            for done in range(0, spp, chunk):
+                with spans.span("wave"):
+                    frame.run(start_sample + done, min(chunk, spp - done))
+                waves += 1
+            acc[lo:lo + per].copy_(frame.sum)
     return acc, frame.rays.clone(), bands, waves
 
 
@@ -191,31 +194,39 @@ def render_image(
     :func:`..ops.wave.frame_image` (one launch on a card).  On CUDA tables
     a frame that renders whole is one program, its waves and its image
     (``integrator.Waves.frame``); a banded one a program a wave, then the
-    image, as the JAX renderer dispatches a (band, chunk) at a time."""
-    camera.aspect = width / height
-    view_inv, proj_inv = camera_uniforms(camera)
-    with torch.inference_mode():
-        lanes = block_lanes(width, height, tables.device)
-        banded = _banded_preferred(tables, width, height, spp)
+    image, as the JAX renderer dispatches a (band, chunk) at a time.  Under
+    ``torch.profiler`` the frame's host path is named in spans
+    (``utils/spans.py``)."""
+    with spans.frame, torch.inference_mode():
+        with spans.span("plan"):
+            camera.aspect = width / height
+            view_inv, proj_inv = camera_uniforms(camera)
+            lanes = block_lanes(width, height, tables.device)
+            banded = _banded_preferred(tables, width, height, spp)
         if graphs._graphs_preferred(tables) and not banded:
             frame = Waves(tables, view_inv, proj_inv, width, height, max_depth, nee_weighting)
             k = samples_per_wave(lanes.shape[0], spp)
             LAST_RENDER.update(bands=0, waves=0)  # the waves come in with the counts
-            img = frame.frame(lanes, start_sample, k, spp // k, tonemap, as_uint8,
-                              _count_waves)
+            with spans.span("wave"):
+                img = frame.frame(lanes, start_sample, k, spp // k, tonemap, as_uint8,
+                                  _count_waves)
             acc, rays = frame.sum, frame.rays
         else:
             acc, rays, bands, waves = render_lanes(tables, view_inv, proj_inv, width, height,
                                                    max_depth, spp, start_sample, lanes,
                                                    nee_weighting=nee_weighting, banded=banded)
             LAST_RENDER.update(bands=bands, waves=waves)
-            img = wave.frame_image(acc, lanes, spp, tonemap, as_uint8)
+            with spans.span("image"):
+                img = wave.frame_image(acc, lanes, spp, tonemap, as_uint8)
         LAST_SUM["sum"] = acc
-        host = _fetch(img)
+        with spans.span("fetch"):
+            host = _fetch(img)
         # the frame's one read: it waits for the stream, the image's copy
         # with it, and brings in the counts of the waves' device loops
-        total_rays, = graphs.settle(rays)
-    return host.numpy().reshape(height, width, 3), total_rays
+        with spans.span("settle"):
+            total_rays, = graphs.settle(rays)
+            image = host.numpy().reshape(height, width, 3)
+    return image, total_rays
 
 
 def _fetch(img: torch.Tensor) -> torch.Tensor:
@@ -412,15 +423,16 @@ class Renderer:
             self.accum.copy_(accum)
         state, repack = self._state, integrator._repack_preferred(self.tables)
         io = state.io(disp_h, disp_w, repack)
-        cam = np.concatenate([np.asarray(view_inv, np.float32).ravel(),
-                              np.asarray(proj_inv, np.float32).ravel()])
-        if state.cam_host is None or not np.array_equal(cam, state.cam_host):
-            host = torch.as_tensor(cam)
-            if io["cam"].is_cuda:
-                host = host.pin_memory()  # kept by the allocator until the copy ran
-            io["cam"].copy_(host, non_blocking=True)
-            state.cam_host = cam
-        io["samples"].fill_(self.sample_count)
+        with spans.span("camera"):
+            cam = np.concatenate([np.asarray(view_inv, np.float32).ravel(),
+                                  np.asarray(proj_inv, np.float32).ravel()])
+            if state.cam_host is None or not np.array_equal(cam, state.cam_host):
+                host = torch.as_tensor(cam)
+                if io["cam"].is_cuda:
+                    host = host.pin_memory()  # kept by the allocator until the copy ran
+                io["cam"].copy_(host, non_blocking=True)
+                state.cam_host = cam
+            io["samples"].fill_(self.sample_count)
         opts = dict(width=self.width, height=self.height, max_depth=self.max_depth,
                     nee_weighting="reference", repack=repack, pixel_order=repack,
                     radiance=True)
@@ -448,9 +460,10 @@ class Renderer:
     @staticmethod
     def _finish_fetch(fetch) -> np.ndarray:
         host, event = fetch
-        if event is not None:
-            event.synchronize()  # never hand out a frame before its copy has ended
-        return host.numpy().copy()
+        with spans.span("present_wait"):
+            if event is not None:
+                event.synchronize()  # never hand out a frame before its copy has ended
+            return host.numpy().copy()
 
     def draw_frame(self, display_size=None, pipeline: bool = False):
         """Render one progressive sample; returns the tonemapped uint8
@@ -460,22 +473,28 @@ class Renderer:
         ``pipeline=True`` is the swapchain-latency mode: the call enqueues
         frame N and returns frame N-1's display image (None on the very
         first call), so the fetch of one frame overlaps the next frame's
-        work on the device (raytracer.cpp:518-533)."""
-        if self.camera.position_changed or self.camera.direction_changed:
-            self.sample_count = 0  # raytracer.cpp:503
-            self.camera.position_changed = False
-            self.camera.direction_changed = False
-        view_inv, proj_inv = camera_uniforms(self.camera)
-        disp_h, disp_w = display_size or (self.height, self.width)
-        if graphs._graphs_preferred(self.tables):
-            img8 = self._draw_program(view_inv, proj_inv, disp_h, disp_w)
-        else:
-            img8, rays = _frame_step(self.tables, view_inv, proj_inv, self.width, self.height,
-                                     self.accum, self.max_depth, disp_h, disp_w,
-                                     self.sample_count)
-            self._rays_pending.append(rays)
-        self.sample_count += 1
-        if not pipeline:
-            return img8.to("cpu", copy=True).numpy()
-        prev, self._inflight = self._inflight, self._start_fetch(img8)
-        return self._finish_fetch(prev) if prev is not None else None
+        work on the device (raytracer.cpp:518-533).  Under
+        ``torch.profiler`` the frame's host path is named in spans
+        (``utils/spans.py``)."""
+        with spans.frame:
+            with spans.span("plan"):
+                if self.camera.position_changed or self.camera.direction_changed:
+                    self.sample_count = 0  # raytracer.cpp:503
+                    self.camera.position_changed = False
+                    self.camera.direction_changed = False
+                view_inv, proj_inv = camera_uniforms(self.camera)
+                disp_h, disp_w = display_size or (self.height, self.width)
+            if graphs._graphs_preferred(self.tables):
+                img8 = self._draw_program(view_inv, proj_inv, disp_h, disp_w)
+            else:
+                img8, rays = _frame_step(self.tables, view_inv, proj_inv, self.width, self.height,
+                                         self.accum, self.max_depth, disp_h, disp_w,
+                                         self.sample_count)
+                self._rays_pending.append(rays)
+            self.sample_count += 1
+            if not pipeline:
+                return img8.to("cpu", copy=True).numpy()
+            with spans.span("fetch"):
+                fetch = self._start_fetch(img8)
+            prev, self._inflight = self._inflight, fetch
+            return self._finish_fetch(prev) if prev is not None else None

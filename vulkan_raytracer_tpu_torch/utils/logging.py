@@ -6,7 +6,6 @@ from __future__ import annotations
 
 import os
 import sys
-import time
 
 _LEVELS = {"DEBUG": 10, "INFO": 20, "WARN": 30, "ERROR": 40}
 _LEVEL = _LEVELS.get(os.environ.get("VKRT_LOG_LEVEL", "INFO").upper(), 20)
@@ -50,17 +49,3 @@ def progress_bar(current: int, total: int, width: int = 20, text: str = "") -> N
     bar = "#" * filled + "-" * (width - filled)
     end = "\n" if current >= total else "\r"
     print(f"[{bar}] {current}/{total} {text}\x1b[K", end=end, flush=True)
-
-
-class Timer:
-    """Wall-clock scope timer for set-up phases (application.cpp:367,402)."""
-
-    def __init__(self, label: str):
-        self.label = label
-
-    def __enter__(self):
-        self.t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        info("%s took %.3fs", self.label, time.perf_counter() - self.t0)
