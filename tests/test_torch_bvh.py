@@ -27,6 +27,7 @@ tests; run the card tests with
 """
 
 import dataclasses
+import functools
 import importlib
 import os
 
@@ -369,6 +370,49 @@ def test_walk_visits_counts_by_hand():
     assert (v["node_rows"], v["tri_rows"]) == (3, 1)
 
 
+@functools.lru_cache(maxsize=None)
+def _soup_streams(max_tris):
+    """The 20k soup's streams: one whole stream, or 128-triangle treelets."""
+    return ttr.build_streams(tbvh.build_bvh(*_soup(20000, seed=8)), max_tris=max_tris)
+
+
+def _visits(max_tris, shadow, rays, active, t_lo, t_hi):
+    t_init = torch.where(active, t_hi if shadow else torch.full_like(t_hi, 1e32), -1.0)
+    lo = torch.zeros_like(t_lo) if shadow else t_lo
+    return ttr.walk_visits(_soup_streams(max_tris), rays, lo, t_init, shadow, max_tris == 128)
+
+
+@pytest.mark.parametrize("shadow", [False, True])
+@pytest.mark.parametrize("max_tris", [1 << 20, 128])
+def test_tri_slots_of_one_ray_in_a_warp(max_tris, shadow):
+    """A warp of 32 copies of one ray walks in step: each leaf phase tests
+    the same leaf on every lane, so the warp issues 32 slots for each of the
+    ray's triangle tests, under either schedule."""
+    rays, active, t_lo, t_hi = _port_rays(64, seed=12)
+    v = _visits(max_tris, shadow, rays, active, t_lo, t_hi)
+    q = int(torch.argmax(torch.where(active, v["tris"], -1)))
+    assert int(v["leaves"][q]) > 1
+    one = tuple(c[q].repeat(32) for c in rays)
+    w = _visits(max_tris, shadow, one, torch.ones(32, dtype=torch.bool), t_lo[q].repeat(32),
+                t_hi[q].repeat(32))
+    assert (w["tris"] == v["tris"][q]).all()
+    assert w["tri_slots"].tolist() == w["tri_slots_in_turn"].tolist() == [32 * int(v["tris"][q])]
+
+
+@pytest.mark.parametrize("shadow", [False, True])
+@pytest.mark.parametrize("max_tris", [1 << 20, 128])
+def test_tri_slots_fewer_than_a_leaf_a_turn(max_tris, shadow):
+    """On incoherent rays through the 20k soup the leaf phases issue fewer
+    triangle-test slots than a schedule that tests each leaf in the turn of
+    its node, and every warp issues at least the tests its lanes make."""
+    rays, active, t_lo, t_hi = _port_rays(4096, seed=11)
+    v = _visits(max_tris, shadow, rays, active, t_lo, t_hi)
+    per_warp = v["tris"].view(-1, 32).sum(1)
+    assert v["tri_slots"].shape == (4096 // 32,) and int(per_warp.sum()) > 0
+    assert (per_warp <= v["tri_slots"]).all() and (per_warp <= v["tri_slots_in_turn"]).all()
+    assert int(v["tri_slots"].sum()) < int(v["tri_slots_in_turn"].sum())
+
+
 def test_upload_defaults_to_the_card():
     """``Scene.upload()`` and ``tables_from_numpy`` put the tables on the
     card unless asked for the CPU; without a card they raise."""
@@ -572,3 +616,97 @@ def test_cuda_walks_match_plain(max_tris, cuda_device):
     got = {k: ttr.LAUNCHES[k] - before[k] for k in before}
     assert got == {"bvh_closest": 4, "bvh_shadow": 2, "treelet_closest": 4, "treelet_shadow": 2,
                    "emissive_pdf": 0}
+
+
+@pytest.fixture(scope="module")
+def hall_tables():
+    """The benchmark's hall (``benchmark/scenes/hall.py``) uploaded to the
+    card as the benchmark uploads it: 256,032 triangles, 128 treelets."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    from benchmark.harness import port_scene
+    from benchmark.scenes import hall
+
+    return port_scene(hall.build()).upload(torch.device("cuda", 0))
+
+
+def _hall_rays(tables, n, seed):
+    """Bounce-like rays of the hall: from random points of random triangles
+    (1e-3 off either side), closest-hit rays in a cosine lobe and shadow rays
+    to random points of the emissive panel, 80% of the lanes live, each set
+    sorted by the re-sort key (octant, then the Morton cell of the origin)
+    as the renderer's waves are, so a warp's lanes leave nearby points one
+    way yet reach their leaves at different turns.  Returns (closest rays,
+    t_lo, t_init), (shadow rays, zeros, t_sh)."""
+    dev = tables.v0.x.device
+    r = np.random.default_rng(seed)
+
+    def tri_points(v0, v1, v2, m):
+        v0, v1, v2 = (np.stack([c.cpu().numpy() for c in v], 1) for v in (v0, v1, v2))
+        tri = r.integers(0, v0.shape[0], m)
+        a, b = r.random(m), r.random(m)
+        fold = a + b > 1.0
+        a, b = np.where(fold, 1.0 - a, a), np.where(fold, 1.0 - b, b)
+        e1, e2 = v1[tri] - v0[tri], v2[tri] - v0[tri]
+        nrm = np.cross(e1, e2)
+        nrm /= np.maximum(np.linalg.norm(nrm, axis=1, keepdims=True), 1e-20)
+        return v0[tri] + a[:, None] * e1 + b[:, None] * e2, nrm
+
+    p, nrm = tri_points(tables.v0, tables.v1, tables.v2, n)
+    nrm *= np.where(r.random(n) < 0.5, 1.0, -1.0)[:, None]
+    o = p + 1e-3 * nrm
+    tang = np.cross(nrm, [0.577, 0.577, 0.577])
+    tang /= np.maximum(np.linalg.norm(tang, axis=1, keepdims=True), 1e-20)
+    bit = np.cross(nrm, tang)
+    u1, phi = r.random(n), 2.0 * np.pi * r.random(n)
+    d = ((np.sqrt(u1) * np.cos(phi))[:, None] * tang + (np.sqrt(u1) * np.sin(phi))[:, None] * bit
+         + np.sqrt(1.0 - u1)[:, None] * nrm)
+    light, _ = tri_points(tables.em_v0, tables.em_v1, tables.em_v2, n)
+    to_light = light - o
+    dist = np.linalg.norm(to_light, axis=1)
+    active = torch.as_tensor(r.random(n) < 0.8, device=dev)
+
+    def sorted_wave(d, t_lo, t_hi):
+        d = d / np.maximum(np.linalg.norm(d, axis=1, keepdims=True), 1e-20)
+        cols = [torch.as_tensor(np.ascontiguousarray(x, np.float32), device=dev)
+                for x in (*o.T, *d.T)]
+        key = ttrace.coherence_key_reference(tables, TV3(*cols[:3]), TV3(*cols[3:]), active)
+        order = torch.argsort(key, stable=True)
+        t_hi = torch.where(active, torch.as_tensor(t_hi, dtype=torch.float32, device=dev), -1.0)
+        return (tuple(c[order].contiguous() for c in cols),
+                torch.full((n,), t_lo, dtype=torch.float32, device=dev), t_hi[order].contiguous())
+
+    return (sorted_wave(d, 1e-4, np.full(n, 1e32)),
+            sorted_wave(to_light, 0.0, (dist * (1.0 - 1e-4)).astype(np.float32)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("walk", ["treelet", "whole_stream"])
+def test_cuda_walks_match_plain_on_the_hall(walk, hall_tables):
+    """K5' on the hall's own streams (128 treelets) and K4' on one whole
+    stream of the same BVH (``max_tris = 1 << 20``), bit-equal to their plain
+    versions on sorted incoherent bounce rays, where lanes of one warp enter
+    their leaves at different turns: closest, closest at a bound of exactly
+    the hit t, and shadow rays to the emissive panel; at a whole number of
+    128-thread blocks and at a ragged count."""
+    s = hall_tables.pbvh
+    assert s.n_treelets == ttr.MAX_TREELETS
+    if walk == "whole_stream":
+        s = ttr.build_streams(hall_tables.bvh, max_tris=1 << 20).to(s.nodes.device)
+        assert s.n_treelets == 1
+    kernel, ref = {"treelet": (ttr.treelet_walk, ttr.treelet_walk_reference),
+                   "whole_stream": (ttr.bvh_walk, ttr.bvh_walk_reference)}[walk]
+    for n in (1 << 15, (1 << 15) - 37):
+        (rays, t_lo, t_init), (sh_rays, zeros, t_sh) = _hall_rays(hall_tables, n, seed=n)
+        tk, sk = kernel(s, rays, t_lo, t_init, False)
+        tp, sp = ref(s, rays, t_lo, t_init, False)
+        assert torch.equal(tk, tp) and torch.equal(sk, sp)
+        assert int((sp >= 0).sum()) > n // 2
+        t_tie = torch.where(sp >= 0, tp, t_init).contiguous()
+        tk2, sk2 = kernel(s, rays, t_lo, t_tie, False)
+        tp2, sp2 = ref(s, rays, t_lo, t_tie, False)
+        assert torch.equal(tk2, tp2) and torch.equal(sk2, sp2) and torch.equal(tk2, tp)
+        ok, osk = kernel(s, sh_rays, zeros, t_sh, True)
+        op, osp = ref(s, sh_rays, zeros, t_sh, True)
+        assert torch.equal(ok, op) and torch.equal(osk, osp)
+        assert 0 < int((osp >= 0).sum()) < int((t_sh >= 0).sum())

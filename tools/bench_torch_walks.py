@@ -19,8 +19,13 @@ another checkout (for example an unpacked earlier commit) over the same
 waves, which this checkout makes; so one call can time two versions of the
 kernels in turns.  Each line carries the streams' bytes, the walks' ptxas
 figures and a digest of the closest hits (t and triangle) and occlusion
-flags, which two versions must share.  It prints one JSON line per scene (and
-writes them to ``--out`` if given).
+flags, which two versions must share.  At cfg4 (the hall) each walk also
+carries the share of its warps' triangle-test slots that test a triangle
+for a lane, under the kernels' schedule (``tris / tri_slots`` of
+``walk_visits``) and under one whole leaf in the turn of its node (``tris /
+tri_slots_in_turn``), counted on the plain walk; a package whose
+``walk_visits`` has no ``tri_slots`` gives none.  It prints one JSON line
+per scene (and writes them to ``--out`` if given).
 """
 
 from __future__ import annotations
@@ -130,6 +135,14 @@ def main(argv=None) -> int:
                 out[kind] = {"k4_ms": (a + d) / 2, "k5_ms": (b + c) / 2,
                              "k4_ms_runs": [a, d], "k5_ms_runs": [b, c],
                              "k5_over_k4": (b + c) / (a + d), "hits": int((s4 >= 0).sum())}
+                if key.startswith("cfg4"):
+                    for walk, treelets in (("k4", False), ("k5", True)):
+                        v = tr.walk_visits(s, x["cols"], t_lo, t_init, shadow, treelets)
+                        if "tri_slots" in v:
+                            tris = int(v["tris"].sum())
+                            out[kind][f"{walk}_tri_slot_share"] = tris / int(v["tri_slots"].sum())
+                            out[kind][f"{walk}_tri_slot_share_in_turn"] = (
+                                tris / int(v["tri_slots_in_turn"].sum()))
             line = json.dumps(out)
             print(line, flush=True)
             lines.append(line)

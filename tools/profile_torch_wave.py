@@ -95,7 +95,9 @@ on the device side the programs' device ms from CUDA events around their
 launches, over the frame's wall its busy share, and on the program sides
 the program launches a frame: one where the frame renders whole, one a
 wave where it bands); their images and rays must be equal on every side.
-``--frames-only`` times only those frames, on the device side.
+``--frames-only`` times only those frames, on the device side.  Each side
+carries a digest of its frame's image (``image_sha256``), which two trees
+with bit-equal kernels share.
 
 For instanced it also reports the instance steps (every one launches) and
 the live lanes of each ``instanced_closest`` call (one a bounce).
@@ -113,6 +115,7 @@ traces the same rays.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import statistics
 import subprocess
@@ -271,6 +274,7 @@ def time_frames(sides: dict, run, reps: int) -> dict:
                 if name == "device":
                     out[name]["program_ms"].append(events.ms())
             out[name]["waves"] = renderer.LAST_RENDER["waves"]
+            out[name]["image_sha256"] = hashlib.sha256(np.ascontiguousarray(img)).hexdigest()[:16]
     for name, o in out.items():
         _patch(*sides[name])
         o["host_syncs"], o["host_sync_lines"] = count_syncs(run)

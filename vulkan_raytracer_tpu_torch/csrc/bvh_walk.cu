@@ -31,10 +31,16 @@
 // ~30-60 slab tests and ~40 triangle tests (walk_visits in ops/traverse.py
 // counts them): ~2 GFLOP for a 524,288-ray wave, ~30 us at the float32 peak,
 // against ~40 MB of ray columns and stream rows, ~13 us at the memory rate.
-// The kernels take ~50x that (PERF.md): a walk is a chain of dependent loads,
-// the next node known only once the current one has been read and tested,
-// and the rays of a warp part ways, so latency, divergence and occupancy
-// bound them rather than bytes or operations.  What the design does:
+// The kernels took ~50x that (PERF.md).  A walk is a chain of dependent
+// loads, the next node known only once the current one has been read and
+// tested, and the rays of a warp part ways.  Where they part ways cost the
+// most: in the first form, one turn of the loop tested one node, and a lane
+// that entered a leaf ran the leaf's whole triangle loop (up to 16 tests,
+// each with an IEEE division) inside that turn while the other lanes of the
+// warp waited.  On the re-sorted bounce rays of the 256k-triangle hall only
+// ~8% of the triangle-test slots a warp issued tested a triangle for a lane
+// (walk_visits' tris over tri_slots_in_turn), and the triangle loops held
+// >90% of the warp's issue.  What the design does:
 //   * the streams fit in L2 (50 MB): the triangles are kept once in one
 //     table that the eight octant streams share (the TPU streamed one copy
 //     per octant, 8x the bytes), so the dragon's streams take ~22 MB;
@@ -44,6 +50,20 @@
 //     to 16 bytes);
 //   * a leaf's node record holds its count of real triangles, so padding
 //     slots are never tested (44% of the slots of a 147k-triangle glTF);
+//   * while-while with leaves postponed (Aila and Laine, "Understanding the
+//     Efficiency of Ray Traversal on GPUs", HPG 2009), without speculation:
+//     in the node phase each lane steps nodes (node_step), taking its next
+//     treelet when it is past its range, until it enters a leaf that holds
+//     triangles, whose first row and count it keeps, or its walk ends; the
+//     phase goes on while any lane of the warp still searches, and a lane
+//     that holds a leaf waits.  In the leaf phase every lane that holds a
+//     leaf tests it (leaf_test), one triangle a step in slot order, so the
+//     warp pays the longest of its lanes' leaves once a phase instead of
+//     each lane's leaf in a turn of its own.  A ray makes the same node and
+//     triangle tests in the same order against the same t_best as a walk
+//     that tests each leaf where it enters it; only the turn of the warp
+//     they fall in changes.  walk_visits' tri_slots counts the slots this
+//     schedule issues;
 //   * the treelet walk keeps no per-thread array: the entered treelets are a
 //     128-bit mask in four registers and the kList nearest not yet walked a
 //     sorted list in registers, refilled from the mask (recomputing their
@@ -55,9 +75,6 @@
 //     the group's kGroup tests are skipped and the entered set is unchanged.
 //     Its registers set its occupancy: kList = 2 with kMinBlocks = 4 was the
 //     fastest setting without spills of those timed (tools/bench_torch_walks.py);
-//   * one turn of the treelet walk's loop tests one node, and a lane past
-//     its treelet's range takes the next treelet in the same turn, so the
-//     lanes of a warp stay in step node by node, as in the whole-stream walk;
 //   * a block whose lanes are all dead writes its outputs before staging the
 //     boxes (the alpha loop re-launches waves with few pending lanes).
 //
@@ -139,7 +156,7 @@ constexpr int kMaxGroups = kMaxTreelets / kGroup;
 constexpr int kList = 2;  // nearest entered treelets held in registers
 constexpr int kMinBlocks = 4;  // treelet walk: at most 65536 / (4 * 128) = 128 registers
 constexpr int kNone = 0x7fffffff;  // an empty list slot's treelet id
-constexpr int kOccluded = 0x7fffffff;  // the next node after a shadow ray's occluder
+constexpr unsigned kWarpLanes = 0xffffffffu;  // every lane of a warp votes
 constexpr float kRobust = 1.0f + 3.0f / 8388608.0f;  // 1 + 2 gamma_3 = 1 + 3 * 2^-23
 constexpr float kTiny = 1e-30f;
 static_assert(32 % kGroup == 0, "a group's treelets lie in one mask word");
@@ -197,15 +214,13 @@ __device__ __forceinline__ bool box_enters(const float* b, const Ray& r, float t
   return near <= far && far >= t_lo && near <= t_hi;
 }
 
-// One step of a walk: the slab test of node cur of one octant's stream and,
-// when the ray enters a leaf, the leaf's triangles.  nodes: 2 float4 per
-// node, (bmin.xyz, leaf) and (bmax.xyz, link) with leaf and link int32 bit
-// patterns; tris: 3 float4 per triangle (v0, e1, e2).  Returns the next
-// node, or kOccluded when a shadow ray found its occluder (t_best = -1).
-template <bool SHADOW>
-__device__ __forceinline__ int walk_node(const float4* __restrict__ nodes,
-                                         const float4* __restrict__ tris, int cur, const Ray& r,
-                                         float t_lo, float& t_best, int32_t& slot) {
+// The node phase's step: the slab test of node cur of one octant's stream.
+// nodes: 2 float4 per node, (bmin.xyz, leaf) and (bmax.xyz, link) with leaf
+// and link int32 bit patterns.  Returns the next node; a leaf the ray enters
+// is handed back as its first row and count of triangles (count 0 where the
+// ray entered none).
+__device__ __forceinline__ int node_step(const float4* __restrict__ nodes, int cur, const Ray& r,
+                                         float t_best, int& row, int& count) {
   const float4 lo = __ldg(nodes + 2 * cur);
   const float4 hi = __ldg(nodes + 2 * cur + 1);
   float nx, fx, ny, fy, nz, fz;
@@ -217,45 +232,88 @@ __device__ __forceinline__ int walk_node(const float4* __restrict__ nodes,
   const bool enter = near <= far * kRobust && near <= t_best * kRobust;
   const int32_t leaf = __float_as_int(lo.w);  // first triangle, or -1: interior
   const int32_t link = __float_as_int(hi.w);  // a leaf's count, else the skip pointer
-  if (enter && leaf >= 0) {
-    const float4* tri = tris + 3 * (size_t)leaf;
-    for (int j = 0; j < link; ++j, tri += 3) {
-      const float4 a = __ldg(tri);
-      const float4 b = __ldg(tri + 1);
-      const float4 c = __ldg(tri + 2);
-      const float px = r.dy * c.z - r.dz * c.y;
-      const float py = r.dz * c.x - r.dx * c.z;
-      const float pz = r.dx * c.y - r.dy * c.x;
-      const float det = b.x * px + b.y * py + b.z * pz;
-      const bool near0 = fabsf(det) < 1e-12f;
-      const float inv = 1.0f / (near0 ? 1.0f : det);
-      const float tx = r.ox - a.x;
-      const float ty = r.oy - a.y;
-      const float tz = r.oz - a.z;
-      const float u = (tx * px + ty * py + tz * pz) * inv;
-      const float qx = ty * b.z - tz * b.y;
-      const float qy = tz * b.x - tx * b.z;
-      const float qz = tx * b.y - ty * b.x;
-      const float v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv;
-      const float t = (c.x * qx + c.y * qy + c.z * qz) * inv;
-      const bool hit = !near0 && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > t_lo &&
-                       t <= t_best;
-      if (SHADOW) {
-        if (hit) {  // any accepted hit occludes (lightsample.glsl:27)
-          t_best = -1.0f;
-          slot = leaf + j;
-          return kOccluded;
-        }
-      } else if (hit && (t < t_best || slot < 0)) {
-        t_best = t;
-        slot = leaf + j;
-      }
-    }
-  }
+  row = leaf;
+  count = enter && leaf >= 0 ? link : 0;
   return enter || leaf >= 0 ? cur + 1 : link;
 }
 
-// K4': walk the ray's whole octant stream.
+// The leaf phase's step: the triangles of rows [row, row + count) of tris (3
+// float4 per triangle: v0, e1, e2), in slot order.  Returns true when a
+// shadow ray found its occluder (t_best = -1), which ends its walk.
+template <bool SHADOW>
+__device__ __forceinline__ bool leaf_test(const float4* __restrict__ tris, int row, int count,
+                                          const Ray& r, float t_lo, float& t_best,
+                                          int32_t& slot) {
+  const float4* tri = tris + 3 * (size_t)row;
+  for (int j = 0; j < count; ++j, tri += 3) {
+    const float4 a = __ldg(tri);
+    const float4 b = __ldg(tri + 1);
+    const float4 c = __ldg(tri + 2);
+    const float px = r.dy * c.z - r.dz * c.y;
+    const float py = r.dz * c.x - r.dx * c.z;
+    const float pz = r.dx * c.y - r.dy * c.x;
+    const float det = b.x * px + b.y * py + b.z * pz;
+    const bool near0 = fabsf(det) < 1e-12f;
+    const float inv = 1.0f / (near0 ? 1.0f : det);
+    const float tx = r.ox - a.x;
+    const float ty = r.oy - a.y;
+    const float tz = r.oz - a.z;
+    const float u = (tx * px + ty * py + tz * pz) * inv;
+    const float qx = ty * b.z - tz * b.y;
+    const float qy = tz * b.x - tx * b.z;
+    const float qz = tx * b.y - ty * b.x;
+    const float v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv;
+    const float t = (c.x * qx + c.y * qy + c.z * qz) * inv;
+    const bool hit = !near0 && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > t_lo &&
+                     t <= t_best;
+    if (SHADOW) {
+      if (hit) {  // any accepted hit occludes (lightsample.glsl:27)
+        t_best = -1.0f;
+        slot = row + j;
+        return true;
+      }
+    } else if (hit && (t < t_best || slot < 0)) {
+      t_best = t;
+      slot = row + j;
+    }
+  }
+  return false;
+}
+
+// One lane's walk over `stream` (its octant's), while-while with leaves
+// postponed: a node phase that steps the searching lanes until each holds a
+// leaf or has ended, then a leaf phase that tests the held leaves together,
+// until no lane of the warp walks.  Every lane of the warp calls it (the
+// votes take all 32); a lane with `walking` false only votes.  [cur, end) is
+// the lane's first range of the stream; next(cur, end) moves a lane past its
+// range to its next one and returns false when the walk is over.
+template <bool SHADOW, class Next>
+__device__ __forceinline__ void walk(const float4* __restrict__ stream,
+                                     const float4* __restrict__ tris, const Ray& r, float t_lo,
+                                     bool walking, int cur, int end, float& t_best,
+                                     int32_t& slot, Next next) {
+  int row = 0, count = 0;
+  while (__any_sync(kWarpLanes, walking)) {
+    bool searching = walking;
+    while (__any_sync(kWarpLanes, searching)) {
+      if (searching) {
+        if (cur >= end && !next(cur, end)) {
+          walking = searching = false;
+        } else {
+          cur = node_step(stream, cur, r, t_best, row, count);
+          searching = count == 0;
+        }
+      }
+    }
+    if (count > 0) {
+      if (leaf_test<SHADOW>(tris, row, count, r, t_lo, t_best, slot)) walking = false;
+      count = 0;
+    }
+  }
+}
+
+// K4': walk the ray's whole octant stream.  Every thread of a warp stays to
+// the end, a lane past n_rays too: the walk's votes take all 32.
 template <bool SHADOW>
 __global__ void __launch_bounds__(kThreads)
 bvh_walk_kernel(const float4* __restrict__ nodes, const float4* __restrict__ tris, int num_nodes,
@@ -265,19 +323,24 @@ bvh_walk_kernel(const float4* __restrict__ nodes, const float4* __restrict__ tri
                 const float* __restrict__ t_lo, const float* __restrict__ t_init,
                 float* __restrict__ t_out, int32_t* __restrict__ slot_out, int n_rays) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n_rays) return;
-  float t_best = t_init[i];
+  const bool live = i < n_rays;
+  float t_best = live ? t_init[i] : -1.0f;
   int32_t slot = -1;
-  if (t_best >= 0.0f) {
-    const Ray r = load_ray(ox, oy, oz, dx, dy, dz, i);
-    const float lo = t_lo[i];
-    const float4* stream = nodes + (size_t)octant_of(r) * num_nodes * 2;
-    for (int cur = 0; cur < num_nodes;) {
-      cur = walk_node<SHADOW>(stream, tris, cur, r, lo, t_best, slot);
-    }
+  const bool walking = t_best >= 0.0f;
+  Ray r = {};
+  float lo = 0.0f;
+  const float4* stream = nodes;
+  if (walking) {
+    r = load_ray(ox, oy, oz, dx, dy, dz, i);
+    lo = t_lo[i];
+    stream = nodes + (size_t)octant_of(r) * num_nodes * 2;
   }
-  t_out[i] = t_best;
-  slot_out[i] = slot;
+  walk<SHADOW>(stream, tris, r, lo, walking, 0, num_nodes, t_best, slot,
+               [](int&, int&) { return false; });
+  if (live) {
+    t_out[i] = t_best;
+    slot_out[i] = slot;
+  }
 }
 
 // 128 bits in four registers; a word is chosen by selects, never by an
@@ -356,15 +419,18 @@ treelet_walk_kernel(const float4* __restrict__ nodes, const float4* __restrict__
     for (int q = threadIdx.x; q < n_treelets * 6; q += kThreads) box[q] = tl_box[q];
     for (int q = threadIdx.x; q < n_groups * 6; q += kThreads) group[q] = tl_group[q];
     __syncthreads();
-    if (t_best >= 0.0f) {
-      const Ray r = load_ray(ox, oy, oz, dx, dy, dz, i);
-      const float lo = t_lo[i];
-      const int oct = octant_of(r);
-
-      // the entered treelets: all in the mask, the nearest in the list
-      NearList list;
-      list.clear();
-      Mask128 mask{0u, 0u, 0u, 0u};
+    const bool walking = t_best >= 0.0f;
+    Ray r = {};
+    float lo = 0.0f;
+    int oct = 0;
+    // the entered treelets: all in the mask, the nearest in the list
+    NearList list;
+    list.clear();
+    Mask128 mask{0u, 0u, 0u, 0u};
+    if (walking) {
+      r = load_ray(ox, oy, oz, dx, dy, dz, i);
+      lo = t_lo[i];
+      oct = octant_of(r);
       for (int g = 0; g < n_groups; ++g) {
         float e;
         if (!box_enters(group + 6 * g, r, lo, t_best, e)) continue;
@@ -379,44 +445,38 @@ treelet_walk_kernel(const float4* __restrict__ nodes, const float4* __restrict__
         const int w = g / (32 / kGroup);
         mask.put(w, mask.get(w) | bits);
       }
-
-      // One node per turn of the loop, a new treelet whenever the ray is
-      // past its range: the lanes of a warp stay in step node by node
-      // rather than treelet by treelet.
-      const float4* stream = nodes + (size_t)oct * num_nodes * 2;
-      const int32_t* lim = tl_lim + (size_t)oct * n_treelets * 2;
-      int cur = 0, end = 0;
-      while (true) {
-        if (cur >= end) {
-          if (SHADOW && cur == kOccluded) break;
-          if (list.empty()) {  // refill with the nearest entered treelets not yet walked
-            for (int w = 0; w < 4; ++w) {
-              uint32_t bits = mask.get(w), keep = 0;
-              while (bits) {
-                const int b = __ffs(bits) - 1;
-                bits &= bits - 1;
-                float e;
-                box_enters(box + 6 * (32 * w + b), r, lo, t_best, e);
-                if (!(e > t_best)) {
-                  keep |= 1u << b;
-                  list.insert(e, 32 * w + b);
-                }
-              }
-              mask.put(w, keep);
-            }
-            if (list.empty()) break;
-          }
-          const float e = list.e[0];
-          const int k = list.k[0];
-          list.pop();
-          mask.put(k >> 5, mask.get(k >> 5) & ~(1u << (k & 31)));
-          if (e > t_best) break;  // every later entry is >= e
-          cur = lim[2 * k];
-          end = lim[2 * k + 1];
-        }
-        cur = walk_node<SHADOW>(stream, tris, cur, r, lo, t_best, slot);
-      }
     }
+    // A lane past its treelet's range takes the next one in the turn of the
+    // node phase that tests the treelet's first node.
+    const float4* stream = nodes + (size_t)oct * num_nodes * 2;
+    const int32_t* lim = tl_lim + (size_t)oct * n_treelets * 2;
+    walk<SHADOW>(stream, tris, r, lo, walking, 0, 0, t_best, slot, [&](int& cur, int& end) {
+      if (list.empty()) {  // refill with the nearest entered treelets not yet walked
+        for (int w = 0; w < 4; ++w) {
+          uint32_t bits = mask.get(w), keep = 0;
+          while (bits) {
+            const int b = __ffs(bits) - 1;
+            bits &= bits - 1;
+            float e;
+            box_enters(box + 6 * (32 * w + b), r, lo, t_best, e);
+            if (!(e > t_best)) {
+              keep |= 1u << b;
+              list.insert(e, 32 * w + b);
+            }
+          }
+          mask.put(w, keep);
+        }
+        if (list.empty()) return false;
+      }
+      const float e = list.e[0];
+      const int k = list.k[0];
+      list.pop();
+      mask.put(k >> 5, mask.get(k >> 5) & ~(1u << (k & 31)));
+      if (e > t_best) return false;  // every later entry is >= e
+      cur = lim[2 * k];
+      end = lim[2 * k + 1];
+      return true;
+    });
   }
   if (live) {
     t_out[i] = t_best;

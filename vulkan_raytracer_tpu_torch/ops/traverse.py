@@ -491,6 +491,7 @@ def _walk_reference(s: BVHStreams, rays, t_lo, t_init, shadow: bool, treelets: b
                 visits["boxes"][blk] = group_size.numel() + (g_in * group_size).sum(1)
         tl_lim = s.tl_lim.reshape(-1, 2).long()
 
+    turn = 0
     while True:
         if treelets:  # lanes past their treelet take the next one, or stop
             nxt = torch.nonzero(ints[:, _CUR] >= ints[:, _END]).squeeze(1)
@@ -545,9 +546,15 @@ def _walk_reference(s: BVHStreams, rays, t_lo, t_init, shadow: bool, treelets: b
             any_h = h.any(1)
             slot = ints[li, _SLOT]
             if visits is not None:
-                visits["leaves"][ints[li, _LANE]] += 1
-                visits["tris"][ints[li, _LANE]] += count
+                lane = ints[li, _LANE]
+                visits["leaves"][lane] += 1
+                visits["tris"][lane] += count
                 visits["tri_rows"][rows[real]] = True
+                held = count > 0  # the kernel's leaf phase takes leaves with triangles
+                lane, count_h = lane[held], count[held]
+                visits["held"].append((lane, visits["leaf_k"][lane].clone(),
+                                       torch.full_like(lane, turn), count_h))
+                visits["leaf_k"][lane] += 1
             if shadow:  # the first hit occludes and ends the walk
                 first = h.int().argmax(1)
                 fs[li, _TB] = torch.where(any_h, -1.0, tb)
@@ -564,6 +571,7 @@ def _walk_reference(s: BVHStreams, rays, t_lo, t_init, shadow: bool, treelets: b
 
         # entered -> the next node; missed -> the skip pointer (a leaf's is cur + 1)
         ints[:, _CUR] = torch.where(hit | is_leaf, cur + 1, ln[:, 1])
+        turn += 1
 
 
 def bvh_walk_reference(s: BVHStreams, rays, t_lo, t_init, shadow: bool):
@@ -583,21 +591,42 @@ def walk_visits(s: BVHStreams, rays, t_lo, t_init, shadow: bool, treelets: bool)
     """The work of one walk, counted on the lockstep plain walk (the same
     visits as the kernels make).  Per ray, int64 (N,): ``nodes`` (slab
     tests), ``leaves`` (leaves entered), ``tris`` (triangle tests, padding
-    skipped) and ``boxes`` (the treelet walk's pass over its boxes: one test
-    per group box, and one per treelet of each group the ray enters; 0 for
-    the whole-stream walk; the CUDA walk's later passes, which refill its
-    short list of next treelets, are not counted).  ``node_rows`` and
-    ``tri_rows`` count the distinct node records and triangle rows the walk
-    read."""
+    skipped; a shadow ray's last leaf counted whole) and ``boxes`` (the
+    treelet walk's pass over its boxes: one test per group box, and one per
+    treelet of each group the ray enters; 0 for the whole-stream walk; the
+    CUDA walk's later passes, which refill its short list of next treelets,
+    are not counted).  ``node_rows`` and ``tri_rows`` count the distinct
+    node records and triangle rows the walk read.
+
+    Per 32-lane warp of the wave (lanes 32w to 32w + 31), int64
+    (ceil(N / 32),): ``tri_slots``, the triangle-test slots the warp issues
+    under the kernels' schedule, where the k-th leaf phase tests each lane's
+    k-th leaf with triangles and lasts as long as the longest of them (32
+    slots a step); and ``tri_slots_in_turn``, the slots of a schedule that
+    tests a lane's leaf inside the turn of the node that enters it, where a
+    turn lasts as long as the longest leaf entered in it.  ``tris`` summed
+    over a warp's lanes, over its ``tri_slots``, is the share of the slots
+    that test a triangle for a lane."""
     n = t_init.shape[0]
     dev = t_init.device
     v = {k: torch.zeros(n, dtype=torch.int64, device=dev)
-         for k in ("nodes", "leaves", "tris", "boxes")}
+         for k in ("nodes", "leaves", "tris", "boxes", "leaf_k")}
     v["node_rows"] = torch.zeros(8 * s.num_nodes, dtype=torch.bool, device=dev)
     v["tri_rows"] = torch.zeros(s.tris.shape[0], dtype=torch.bool, device=dev)
+    v["held"] = []
     _walk_reference(s, rays, t_lo, t_init, shadow, treelets, visits=v)
     v["node_rows"] = int(v["node_rows"].sum())
     v["tri_rows"] = int(v["tri_rows"].sum())
+    del v["leaf_k"]
+    held = v.pop("held")
+    lane, k, turn, count = (torch.cat([h[q] for h in held]) if held else
+                            torch.zeros(0, dtype=torch.int64, device=dev) for q in range(4))
+    n_warps = (n + 31) // 32
+    for name, step in (("tri_slots", k), ("tri_slots_in_turn", turn)):
+        steps = int(step.max()) + 1 if step.numel() else 1
+        longest = torch.zeros(n_warps * steps, dtype=torch.int64, device=dev)
+        longest.scatter_reduce_(0, lane // 32 * steps + step, count, "amax")
+        v[name] = 32 * longest.view(n_warps, steps).sum(1)
     return v
 
 
